@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``ggml_experiments_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the shapes the main path
+gives it, then drives the main path through the entry points a user calls,
+on the committed trained checkpoint ``checkpoints/gru_shakespeare.bin``
+(V=66, E=256, U=1024) quantized to q8_0:
+
+  1. device: name, power limit, kernel build seconds;
+  2. ``qmatmul`` kernel vs its plain version (M=1024 and the main path's M);
+  3. ``generate`` (scan path) at B=64, T=200, f32 and bf16;
+  4. ``decode`` routed to the persistent kernel at B=8192, T=512, bf16, its
+     tokens against the plain version's on the same inputs, and the kernel
+     teacher-forced against its plain version (there at bf16, and at f32 at
+     B=1024, T=256);
+  5. ``DecodeEngine`` with the fused tick: ~1000 greedy requests, each equal
+     to the offline decode; a sampling engine serving 100 requests; the tick
+     kernel against its plain version on one identical tick input;
+  6. one JSON line per run listing every kernel with its launches on the
+     main path, its error against its plain version and its times.
+
+Launch counts are zeroed just before each main-path run and read just after
+it; comparison launches are not counted. Any failed check raises, so the
+script exits non-zero before its last line, which is the JSON object
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+port's package beside it, it exits non-zero and prints no result.
+
+Tolerances, and why:
+  * qmatmul vs the plain product before its output cast, f32 and bf16: the
+    products are exact in f32 (bf16 operands) or f32 in both, the sums are
+    f32 in other orders, so 1e-5 relative.
+  * Fused kernels, teacher-forced (no argmax feedback): at f32, 1e-4
+    absolute on h after 256 steps (errors compound through the recurrence).
+    At bf16, on the main path's shapes, h may also differ where the two
+    sides' f32 sums round h to neighbouring bf16 values, and such flips
+    spread through the recurrence: max error at most TF_BF16_H_MAX, mean
+    error at most a set fraction of the mean distance between the plain
+    version's f32 and bf16 runs, after the main path's steps and after 8
+    (see the constants: set from H100 readings, so that a kernel that
+    skipped the bf16 rounding fails).
+  * A free-running greedy or sampled sequence may fork where the two best
+    scores of a step lie closer than the summation-order error: the first
+    divergence of every row must sit at such a near-tie of the plain
+    version (score gap < 1e-3 at f32, < 0.1 at bf16, where h is rounded to
+    8 mantissa bits before every product).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CKPT = os.path.join(REPO, "checkpoints", "gru_shakespeare.bin")
+CORPUS = os.path.join(REPO, "checkpoints", "shakespeare.txt")
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+PEAK_OPS = {"float32": 67e12,  # f32 FMA on CUDA cores (the kernels' products)
+            "bfloat16": 989e12}  # bf16 dense tensor-core peak
+NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
+# teacher-forced bf16 h against the plain version (readings on an H100 at
+# the shapes below: max 0.014-0.022 after 128-512 steps; mean error 0.51 of
+# the plain f32-vs-bf16 mean there, 0.09-0.10 after 8 steps; the kernel run
+# at f32 instead reads a ratio of 1.0)
+TF_BF16_H_MAX = 0.05
+TF_BF16_SHORT = 8
+TF_BF16_MEAN_FRAC_LONG, TF_BF16_MEAN_FRAC_SHORT = 0.75, 0.25
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def cuda_ms(fn, n=20, warmup=3):
+    """Median milliseconds of ``fn`` over ``n`` CUDA-event-timed calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes, ops, dtype):
+    """Least time (ms) for the work: bytes over HBM rate vs ops over peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def first_divergence_near_ties(got, want, gaps, tol, what):
+    """Rows of ``got``/``want`` (B, T) may fork only where the plain
+    version's decision at the step before the first differing token had a
+    score gap below ``tol``. Returns (token agreement, forked rows)."""
+    import torch
+
+    diff = got != want
+    forked = torch.nonzero(diff.any(dim=1)).flatten().tolist()
+    for r in forked:
+        j = int(torch.nonzero(diff[r])[0])
+        check(j > 0, f"{what}: row {r} differs at its first token")
+        gap = float(gaps[r, j - 1])
+        check(gap < tol, f"{what}: row {r} forks at step {j} where the plain "
+                         f"version's score gap is {gap:.3g} >= {tol}")
+    return float((~diff).float().mean()), len(forked)
+
+
+def tf_h_check(kernel, plain, steps, what):
+    """Teacher-forced runs (every step feeds the prompt) of ``kernel(cd, t)``
+    -> (toks, h) against ``plain(cd, t)`` -> (toks, h, ...) at bf16, for the
+    main path's ``steps`` and for TF_BF16_SHORT steps. The tokens are the
+    prompt and must be equal. h must lie within TF_BF16_H_MAX, and its mean
+    error within a fraction (TF_BF16_MEAN_FRAC_*) of the mean distance
+    between the plain version's own f32 and bf16 runs, which is where a
+    kernel that skipped the bf16 rounding lands. Returns {t: (max err, mean
+    err, mean f32-vs-bf16 distance)}."""
+    import torch
+
+    out = {}
+    for t, frac in ((steps, TF_BF16_MEAN_FRAC_LONG), (TF_BF16_SHORT, TF_BF16_MEAN_FRAC_SHORT)):
+        toks_k, h_k = kernel(torch.bfloat16, t)
+        toks_p, h_p = plain(torch.bfloat16, t)[:2]
+        check(torch.equal(toks_k.int(), toks_p), f"{what} bf16 T={t}: tokens differ")
+        d = (h_k - h_p).abs()
+        err, mean = float(d.max()), float(d.mean())
+        del h_k, d
+        gap = float((plain(torch.float32, t)[1] - h_p).abs().mean())
+        check(err <= TF_BF16_H_MAX and mean <= frac * gap,
+              f"{what} bf16 T={t}: h max abs err {err:.3g} (limit {TF_BF16_H_MAX}), mean "
+              f"{mean:.3g} (limit {frac} x {gap:.3g}, the plain version's f32-vs-bf16 mean)")
+        out[t] = (err, mean, gap)
+    return out
+
+
+def tf_summary(res):
+    return ", ".join(f"T={t}: h max abs err {e:.3g}, mean {m:.3g} (plain f32 vs bf16: "
+                     f"{g:.3g})" for t, (e, m, g) in sorted(res.items(), reverse=True))
+
+
+def corpus_prompts(tok, rng, n, lo, hi):
+    """``n`` prompts of ``lo``..``hi`` characters cut from the corpus."""
+    import numpy as np
+
+    with open(CORPUS) as f:
+        text = f.read()
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(lo, hi + 1))
+        at = int(rng.integers(0, len(text) - ln))
+        out.append(np.asarray(tok.encode(text[at:at + ln]), np.int32))
+    return out
+
+
+def pad_batch(prompts, width):
+    import numpy as np
+
+    ids = np.zeros((len(prompts), width), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :p.size] = p
+    return ids, np.asarray([p.size for p in prompts], np.int32)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import ggml_experiments_tpu_torch as port
+    except ImportError as ex:
+        print(f"chip_smoke: the port's package is not beside this script ({ex})",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from ggml_experiments_tpu_torch import _build
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.quant.qmatmul import qmatmul_q8_0_cuda, qmatmul_reference
+    from ggml_experiments_tpu_torch.quant.qtensor import dequantize
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+    from ggml_experiments_tpu_torch.serving.engine import init_state
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(0)
+    tok = CharTokenizer()
+    kernels = {}
+
+    # ---- 1. device and build -------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda} | kernel build {build_s:.1f} s")
+    for name in _build.SOURCES:
+        log(f"[1 device] ptxas {name}: {_build.ptxas_report(name)}")
+
+    # ---- 2. qmatmul kernel vs plain -------------------------------------------
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+    qt = params.cell.recurrent_kernel                          # (1024, 3072) q8_0
+    k, n = qt.shape
+    qmm = {}
+    for m in (1024, 64):
+        x = torch.randn((m, k), generator=torch.Generator(device=dev).manual_seed(m),
+                        device=dev)
+        for cd in (f32, bf16):
+            cdn = str(cd).split(".")[1]
+            got = qmatmul_q8_0_cuda(x, qt, cd)
+            # the plain product before its output cast: bf16 operands (whose
+            # products are exact in f32), f32 sums; the kernel returns f32
+            want = torch.matmul(x.to(cd).float(), dequantize(qt).to(cd).float())
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            check(rel <= 1e-5, f"qmatmul M={m} {cdn}: max rel err {rel:.3g}")
+            ms = cuda_ms(lambda: qmatmul_q8_0_cuda(x, qt, cd))
+            plain_ms = cuda_ms(lambda: qmatmul_reference(x, qt, cd))
+            w = dequantize(qt).to(cd)
+            xc = x.to(cd)
+            lib_ms = cuda_ms(lambda: torch.matmul(xc, w))
+            nbytes = x.numel() * 4 + qt.codes.numel() + qt.scales.numel() * 4 + m * n * 4
+            b_ms, b_by = bound(nbytes, 2 * m * k * n, cdn)
+            qmm[(m, cdn)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=b_by)
+            log(f"[2 qmatmul] M={m} K={k} N={n} {cdn}: max abs err {err:.3g} (rel {rel:.3g}) | "
+                f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | torch.matmul on the "
+                f"dequantized plane {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+
+    # ---- 3. generate (scan path) ----------------------------------------------
+    B, T = 64, 200
+    ids, lens = pad_batch(corpus_prompts(tok, rng, B, 8, 40), 40)
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    out32 = gru_textgen.generate(params, ids, lens, T, compute_dtype=f32)
+    out16 = gru_textgen.generate(params, ids, lens, T, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = port.kernel_launches()
+    check(gen_launches["qmatmul_q8_0"] > 0, f"generate launched no qmatmul: {gen_launches}")
+    for out in (out32, out16):
+        check(out.shape == (B, T) and int(out.min()) >= 0 and int(out.max()) < 66,
+              "generate output shape/range")
+    params_cpu = load_gru_params(CKPT, qtype="q8_0", device="cpu")
+    ref32 = gru_textgen.generate(params_cpu, ids, lens, T, compute_dtype=f32)
+    w_cpu = fused._prep_weights(params_cpu)
+    z = torch.zeros(B, dtype=torch.int32)
+    tf = torch.full((B,), T, dtype=torch.int32)
+    *_, gaps = fused.gru_loop_reference(w_cpu, ref32, tf, tf, z, z, torch.zeros(B, 1024), T,
+                                        f32, margins=True)
+    agree, forked = first_divergence_near_ties(out32.cpu(), ref32, gaps, NEAR_TIE["float32"],
+                                               "generate f32 cuda vs cpu")
+    log(f"[3 generate] B={B} T={T} q8_0 f32+bf16 in {gen_s:.2f} s | qmatmul launches "
+        f"{gen_launches['qmatmul_q8_0']} | f32 tokens vs the CPU run: agreement {agree:.6f}, "
+        f"{forked} rows fork (all at near-ties) | sample: {tok.decode(out16[0].tolist())[:60]!r}")
+
+    # ---- 4. persistent fused decode -------------------------------------------
+    B, T = 8192, 512
+    ids, lens = pad_batch(corpus_prompts(tok, rng, B, 8, 32), 32)
+    port.reset_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = gru_textgen.decode(params, ids, lens, T)             # routes to the kernel
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec_launches = port.kernel_launches()
+    check(dec_launches["fused_gru_decode"] > 0, f"decode took the scan path: {dec_launches}")
+    check(toks.shape == (B, T) and int(toks.max()) < 66, "decode output shape/range")
+    ids_t, lens_t = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+    dec_ms = cuda_ms(lambda: fused.fused_gru_decode(params, ids_t, lens_t, T), n=3, warmup=1)
+    wf = fused._prep_weights(params)
+    zb = torch.zeros(B, dtype=torch.int32, device=dev)
+    tb = torch.full((B,), T, dtype=torch.int32, device=dev)
+    prompt_pad = torch.nn.functional.pad(ids_t, (0, T - ids_t.shape[1]))
+    v, e, u = wf.v, wf.e, wf.u
+    h0 = torch.zeros(B, u, device=dev)
+    dec_plain_ms = cuda_ms(lambda: fused.gru_loop_reference(
+        wf, prompt_pad, lens_t, tb, zb, zb, h0, T, bf16), n=1, warmup=0)
+    # the main path's tokens against the plain version on the same inputs
+    toks_p, _, _, _, gaps = fused.gru_loop_reference(wf, prompt_pad, lens_t, tb, zb, zb, h0,
+                                                     T, bf16, margins=True)
+    dec_agree, dec_forked = first_divergence_near_ties(toks, toks_p, gaps, NEAR_TIE["bfloat16"],
+                                                       f"decode() B={B} T={T} bf16")
+    del toks_p, gaps
+    weight_bytes = sum(t.numel() * t.element_size() for t in (
+        wf.emb, wf.wc, wf.ws, wf.uc, wf.us, wf.bias, wf.dc, wf.ds, wf.dbias))
+    dec_ops = 2 * v * e * 3 * u + 2 * B * T * (3 * u * u + u * v)
+    dec_bytes = weight_bytes + ids.nbytes + lens.nbytes + B * T * 4
+    dec_bound, dec_by = bound(dec_bytes, dec_ops, "bfloat16")
+    log(f"[4 fused decode] decode() B={B} T={T} bf16: {dec_s:.3f} s first call, kernel "
+        f"{dec_ms:.2f} ms = {dec_ms * 1e3 / T:.1f} us/step = {B * T / dec_ms * 1e3:,.0f} tok/s | "
+        f"plain {dec_plain_ms:.1f} ms | bound {dec_bound:.2f} ms ({dec_by}) | launches "
+        f"{dec_launches['fused_gru_decode']} | tokens vs the plain version: agreement "
+        f"{dec_agree:.6f}, {dec_forked} rows fork (all at near-ties)")
+
+    # teacher-forced at the main path's shape and dtype: no argmax feedback,
+    # so h must agree; at bf16 it may differ only where the two sides' f32
+    # sums round h to neighbouring bf16 values
+    tf_ids = torch.from_numpy(rng.integers(0, v, (B, T)).astype(np.int32)).to(dev)
+
+    def steps_len(t):
+        return torch.full((B,), t, dtype=torch.int32, device=dev)
+
+    dec_tf = tf_h_check(
+        lambda cd, t: fused.fused_gru_decode(params, tf_ids[:, :t], steps_len(t), t,
+                                             compute_dtype=cd, return_state=True),
+        lambda cd, t: fused.gru_loop_reference(wf, tf_ids[:, :t], steps_len(t), steps_len(t),
+                                               zb, zb, h0, t, cd),
+        T, f"teacher-forced decode B={B}")
+    del tf_ids, h0
+
+    # teacher-forced at f32 (the kernel's FMA path), B=1024, T=256
+    Bt, Tt = 1024, 256
+    tf_ids = torch.from_numpy(rng.integers(0, v, (Bt, Tt)).astype(np.int32)).to(dev)
+    tf_len = torch.full((Bt,), Tt, dtype=torch.int32, device=dev)
+    zt = torch.zeros(Bt, dtype=torch.int32, device=dev)
+    toks_k, h_k = fused.fused_gru_decode(params, tf_ids, tf_len, Tt, compute_dtype=f32,
+                                         return_state=True)
+    toks_p, h_p, _, _ = fused.gru_loop_reference(wf, tf_ids, tf_len, tf_len, zt, zt,
+                                                 torch.zeros(Bt, u, device=dev), Tt, f32)
+    h_err = float((h_k - h_p).abs().max())
+    check(torch.equal(toks_k, toks_p), "teacher-forced decode tokens differ")
+    check(h_err <= 1e-4, f"teacher-forced decode h error {h_err:.3g} > 1e-4")
+    kernels["fused_gru_decode"] = dict(
+        launches=dec_launches["fused_gru_decode"], max_abs_err=dec_tf[T][0], ms=dec_ms,
+        plain_ms=dec_plain_ms, bound_ms=dec_bound, bound_by=dec_by, library_ms=None)
+    log(f"[4 fused decode] teacher-forced B={B} bf16, tokens equal: {tf_summary(dec_tf)} | "
+        f"teacher-forced B={Bt} T={Tt} f32: tokens equal, h max abs err {h_err:.3g}")
+
+    # ---- 5. continuous-batching engine on the fused tick -----------------------
+    n_slots, inner = 512, 128
+    prompts = corpus_prompts(tok, rng, 1000, 1, 64)
+    new_toks = [int(x) for x in rng.integers(16, 257, len(prompts))]
+    eng = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                       compute_dtype=bf16, use_fused_tick=True)
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, nt) for p, nt in zip(prompts, new_toks)]
+    eng.run_until_idle(timeout_s=600)
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    eng_launches = port.kernel_launches()
+    check(eng_launches["fused_slot_tick"] > 0, f"engine took the scan tick: {eng_launches}")
+    ids, lens = pad_batch(prompts, 64)
+    offline = fused.fused_gru_decode(params, ids, lens, 64 + 256, compute_dtype=bf16).cpu()
+    for i, (r, p, nt) in enumerate(zip(reqs, prompts, new_toks)):
+        res = r.result(timeout=0)
+        check(len(res) == p.size + nt, f"request {i}: {len(res)} tokens, want {p.size + nt}")
+        check(np.array_equal(res, offline[i, :p.size + nt].numpy()),
+              f"request {i}: continuous batching differs from the offline decode")
+    gen_tokens = sum(new_toks)
+    log(f"[5 engine] {len(reqs)} greedy requests, n_slots={n_slots} inner={inner} bf16: all "
+        f"equal to the offline decode | {eng_s:.3f} s, {eng.stats.tokens_generated:,} tokens "
+        f"delivered ({gen_tokens:,} generated) = {eng.stats.tokens_per_s:,.0f} tokens/s | "
+        f"tick launches {eng_launches['fused_slot_tick']} | breakdown "
+        f"{json.dumps(eng.stats.breakdown())}")
+
+    seng = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                        compute_dtype=bf16, temperature=0.8, top_k=20, top_p=0.9,
+                        use_fused_tick=True, seed=1)
+    sprompts = corpus_prompts(tok, rng, 100, 4, 64)
+    t0 = time.perf_counter()
+    sreqs = [seng.submit(p, 200) for p in sprompts]
+    seng.run_until_idle(timeout_s=600)
+    seng_s = time.perf_counter() - t0
+    for r, p in zip(sreqs, sprompts):
+        res = r.result(timeout=0)
+        check(len(res) == p.size + 200 and np.array_equal(res[:p.size], p)
+              and res.max() < v, "sampled request output")
+    log(f"[5 engine] sampling engine (temperature 0.8, top-k 20, top-p 0.9): {len(sreqs)} "
+        f"requests complete in {seng_s:.3f} s, {seng.stats.tokens_per_s:,.0f} tokens/s | "
+        f"sample: {tok.decode(sreqs[0].result(timeout=0)[sprompts[0].size:].tolist())[:60]!r}")
+
+    # one identical tick input: kernel vs plain version
+    st = init_state(params, n_slots, 64)
+    tids, tlens = pad_batch(corpus_prompts(tok, rng, n_slots, 1, 64), 64)
+    st.prompt = torch.from_numpy(tids).to(dev)
+    st.plen = torch.from_numpy(tlens).to(dev)
+    st.total = st.plen + inner
+    st.temp = torch.full((n_slots,), 0.8, device=dev)
+    tick_kw = dict(enable_sampling=True, seed=12345, top_k=20, top_p=0.9)
+    res = {}
+    for cd in (f32, bf16):
+        cdn = str(cd).split(".")[1]
+        s_k, t_k = fused.fused_slot_tick(params, st, inner, compute_dtype=cd, **tick_kw)
+        t_p, h_p, prev_p, pos_p, gaps = fused.gru_loop_reference(
+            wf, st.prompt, st.plen, st.total, st.prev, st.pos, st.h, inner, cd,
+            temp=st.temp, seed=12345, top_k=20, top_p=0.9, margins=True)
+        check(torch.equal(s_k.pos, pos_p), f"tick {cdn}: cursors differ")
+        agree, forked = first_divergence_near_ties(t_k.int(), t_p, gaps, NEAR_TIE[cdn],
+                                                   f"sampled tick {cdn}")
+        res[cdn] = (agree, forked)
+    greedy_st = init_state(params, n_slots, 64)
+    greedy_st.prompt, greedy_st.plen, greedy_st.total = st.prompt, st.plen, st.total
+    tick_ms = cuda_ms(lambda: fused.fused_slot_tick(params, greedy_st, inner,
+                                                    compute_dtype=bf16), n=10)
+    tick_plain_ms = cuda_ms(lambda: fused.gru_loop_reference(
+        wf, greedy_st.prompt, greedy_st.plen, greedy_st.total, greedy_st.prev,
+        greedy_st.pos, greedy_st.h, inner, bf16), n=1, warmup=1)
+    # teacher-forced tick (the prompt covers the whole tick): h must agree
+    tf_st = init_state(params, n_slots, inner)
+    tf_st.prompt = torch.from_numpy(rng.integers(0, v, (n_slots, inner)).astype(np.int32)).to(dev)
+    tf_st.plen = torch.full((n_slots,), inner, dtype=torch.int32, device=dev)
+    tf_st.total = tf_st.plen.clone()
+    s_k, t_k = fused.fused_slot_tick(params, tf_st, inner, compute_dtype=f32)
+    t_p, h_p, *_ = fused.gru_loop_reference(wf, tf_st.prompt, tf_st.plen, tf_st.total,
+                                            tf_st.prev, tf_st.pos, tf_st.h, inner, f32)
+    tick_err = float((s_k.h - h_p).abs().max())
+    check(torch.equal(t_k.int(), t_p) and tick_err <= 1e-4,
+          f"teacher-forced tick: tokens equal {torch.equal(t_k.int(), t_p)}, h err {tick_err:.3g}")
+
+    def tf_tick(cd, t):
+        s, toks_t = fused.fused_slot_tick(params, tf_st, t, compute_dtype=cd)
+        return toks_t, s.h
+
+    tick_tf = tf_h_check(tf_tick, lambda cd, t: fused.gru_loop_reference(
+        wf, tf_st.prompt, tf_st.plen, tf_st.total, tf_st.prev, tf_st.pos, tf_st.h, t, cd),
+        inner, f"teacher-forced tick B={n_slots}")
+    tick_ops = 2 * v * e * 3 * u + 2 * n_slots * inner * (3 * u * u + u * v)
+    # in: prompt, plen/total/prev/pos, h; out: prev/pos, h, uint8 tokens
+    tick_bytes = (weight_bytes + tids.nbytes + n_slots * (4 * 4 + 4 * u)
+                  + n_slots * (4 * 2 + 4 * u) + n_slots * inner)
+    tick_bound, tick_by = bound(tick_bytes, tick_ops, "bfloat16")
+    kernels["fused_slot_tick"] = dict(
+        launches=eng_launches["fused_slot_tick"],
+        max_abs_err=tick_tf[inner][0], ms=tick_ms, plain_ms=tick_plain_ms,
+        bound_ms=tick_bound, bound_by=tick_by, library_ms=None)
+    log(f"[5 engine] one tick B={n_slots} inner={inner}, sampled (0.8, top-k 20, top-p 0.9): "
+        f"f32 token agreement {res['float32'][0]:.6f} ({res['float32'][1]} rows fork, at "
+        f"near-ties) | bf16 agreement {res['bfloat16'][0]:.6f} ({res['bfloat16'][1]} rows fork, "
+        f"at near-ties) | teacher-forced tick, tokens equal: bf16 {tf_summary(tick_tf)}; "
+        f"f32 T={inner}: h max abs err {tick_err:.3g} | "
+        f"greedy bf16 tick kernel {tick_ms:.3f} ms, plain {tick_plain_ms:.1f} ms, bound "
+        f"{tick_bound:.3f} ms ({tick_by})")
+
+    # ---- 6. kernels ---------------------------------------------------------------
+    # the main path's shape: generate at B=64, f32 and bf16; times are f32's
+    q = dict(qmm[(64, "float32")],
+             max_abs_err=max(qmm[(64, c)]["max_abs_err"] for c in ("float32", "bfloat16")))
+    kernels["qmatmul_q8_0"] = dict(launches=gen_launches["qmatmul_q8_0"], **q)
+    meta = {
+        "qmatmul_q8_0": ("cuda", "ggml_experiments_tpu_torch/csrc/qmatmul_q8_0.cu",
+                         "ggml_experiments_tpu/quant/pallas_kernels.py:253"),
+        "fused_gru_decode": ("cuda", "ggml_experiments_tpu_torch/csrc/gru_persistent.cu",
+                             "ggml_experiments_tpu/ops/fused_gru_decode.py:227"),
+        "fused_slot_tick": ("cuda", "ggml_experiments_tpu_torch/csrc/gru_persistent.cu",
+                            "ggml_experiments_tpu/ops/fused_gru_decode.py:774"),
+    }
+    line = []
+    for name in ("qmatmul_q8_0", "fused_gru_decode", "fused_slot_tick"):
+        kd = kernels[name]
+        check(kd["launches"] > 0, f"{name} was not launched on the main path")
+        route, source, replaces = meta[name]
+        line.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                     "launches": kd["launches"], "max_abs_err": kd["max_abs_err"],
+                     "ms": kd["ms"], "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
+                     "bound_by": kd["bound_by"], "library_ms": kd["library_ms"]})
+    log(json.dumps({"kernels": line}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

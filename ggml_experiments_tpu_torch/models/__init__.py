@@ -1,0 +1,10 @@
+"""Models: the character-level GRU text generator."""
+
+from ggml_experiments_tpu_torch.models.gru_textgen import (
+    GRUConfig,
+    GRUTextGenParams,
+    decode,
+    generate,
+)
+
+__all__ = ["GRUConfig", "GRUTextGenParams", "decode", "generate"]
