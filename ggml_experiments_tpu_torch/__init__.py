@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of ggml_experiments_tpu for NVIDIA Hopper (H100).
 
-Slice 1: q8_0 character-level GRU text generation (scan path and the
-persistent fused decode) and the continuous-batching serving engine. Each
-TPU kernel on that path is a hand-written CUDA kernel under ``csrc/``, built
-at first use by ``_build``; every kernel wrapper runs its plain PyTorch
-version on CPU tensors. Entry points run on ``cuda`` unless given
-``device="cpu"``.
+Character-level GRU text generation under every block format (scan path
+and the persistent fused decode), the continuous-batching serving engine
+with snapshot/restore, the native ``.gxt`` checkpoint container and the
+quantization-delta evaluation. Each TPU kernel on that path is a
+hand-written CUDA kernel under ``csrc/``, built at first use by ``_build``;
+every kernel wrapper runs its plain PyTorch version on CPU tensors. Entry
+points run on ``cuda`` unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,21 +2,28 @@
 
   python -m ggml_experiments_tpu_torch generate --weights gru.bin [--prompt "..."]
   python -m ggml_experiments_tpu_torch serve    --weights gru.bin
+  python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q8.gxt
+  python -m ggml_experiments_tpu_torch eval     --weights gru.bin [--corpus text.txt]
 
 ``generate`` with no --prompt reads one line from stdin; ``serve`` reads one
-prompt per line and streams each continuation. Both run on ``--device``
+prompt per line and streams each continuation. ``--weights`` takes the
+reference gru.bin or a native ``.gxt`` checkpoint. All run on ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
 
 def _add_common(p):
-    p.add_argument("--qtype", choices=["q8_0"], default=None,
+    from ggml_experiments_tpu_torch.quant.qtensor import QTYPES
+
+    p.add_argument("--qtype", choices=list(QTYPES), default=None,
                    help="block-quantize matmul weights on load")
     p.add_argument("--compute", choices=["float32", "bfloat16"], default="float32",
                    help="matmul operand precision (products are summed in f32)")
@@ -88,12 +95,71 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_quantize(args) -> int:
+    """Offline fp32 -> block-quantized native checkpoint, round to nearest."""
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+
+    qtype = args.qtype or "q8_0"
+    if qtype == "q4_k_m" or args.calibrate:
+        raise NotImplementedError(
+            "the calibrated q4_k_m recipe (quantize --calibrate) is not ported yet "
+            "(ROADMAP.md, Queue A #11: calibration)")
+    if not args.input.endswith(".bin"):
+        raise NotImplementedError(
+            "quantize takes a GRU gru.bin; MobileViT weight.ggml inputs are not ported yet "
+            "(ROADMAP.md, 'Port: still to port', item 6: MobileViT)")
+    tree = load_gru_params(args.input, qtype=qtype, device=args.device)
+    checkpoint.save(args.output, tree)
+    ratio = os.path.getsize(args.input) / os.path.getsize(args.output)
+    print(json.dumps({
+        "input": args.input, "output": args.output, "qtype": qtype,
+        "compression_vs_input": round(ratio, 2),
+    }))
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Quantization-delta report: quantized vs fp32 on the same GRU weights."""
+    import numpy as np
+
+    from ggml_experiments_tpu_torch import evaluation
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
+
+    qtype = args.qtype or "q8_0"
+    rng = np.random.default_rng(args.seed)
+    if not args.weights.endswith((".bin", ".gxt")):
+        raise NotImplementedError(
+            "eval takes GRU weights (gru.bin or .gxt); MobileViT weights are not ported yet "
+            "(ROADMAP.md, 'Port: still to port', item 6: MobileViT)")
+    ref = load_gru_any(args.weights, device=args.device)
+    q = load_gru_any(args.weights, qtype=qtype, device=args.device)
+    v = ref.embeddings.shape[0]
+    if args.corpus:
+        # held-out text: the deltas on real next-token distributions
+        from ggml_experiments_tpu_torch.training.data import (
+            DataConfig,
+            load_corpus,
+            make_examples,
+        )
+        from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+        ex = make_examples(load_corpus(args.corpus), CharTokenizer(),
+                           DataConfig(seq_length=args.length))
+        seqs = ex[rng.permutation(len(ex))[: args.batch]]
+    else:
+        seqs = rng.integers(0, v, (args.batch, args.length + 1)).astype(np.int32)
+    rep = evaluation.eval_gru_delta(ref, q, seqs)
+    print(json.dumps({"qtype": qtype, **rep.as_dict()}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ggml_experiments_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("generate", help="GRU text generation")
-    g.add_argument("--weights", required=True, help="gru.bin (reference format)")
+    g.add_argument("--weights", required=True, help="gru.bin or .gxt checkpoint")
     g.add_argument("--prompt", action="append", help="prompt (repeat for a batch)")
     g.add_argument("--steps", type=int, default=200, help="total decode steps")
     g.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
@@ -104,7 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.set_defaults(fn=cmd_generate)
 
     s = sub.add_parser("serve", help="interactive continuous-batching text service")
-    s.add_argument("--weights", required=True, help="gru.bin (reference format)")
+    s.add_argument("--weights", required=True, help="gru.bin or .gxt checkpoint")
     s.add_argument("--slots", type=int, default=16)
     s.add_argument("--max-prompt", type=int, default=64)
     s.add_argument("--inner-steps", type=int, default=16)
@@ -116,6 +182,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="drain token readbacks on a parallel reader thread")
     _add_common(s)
     s.set_defaults(fn=cmd_serve)
+
+    q = sub.add_parser("quantize",
+                       help="offline fp32 -> block-quantized native checkpoint")
+    q.add_argument("--input", required=True, help="gru.bin")
+    q.add_argument("--output", required=True, help="output .gxt path")
+    q.add_argument("--calibrate", default=None, metavar="CORPUS",
+                   help="calibrated quantization (not ported yet)")
+    _add_common(q)
+    # the calibrated mixed recipe is a quantize-time option, not a QTensor format
+    for a in q._actions:
+        if a.dest == "qtype":
+            a.choices = list(a.choices) + ["q4_k_m"]
+    q.set_defaults(fn=cmd_quantize)
+
+    e = sub.add_parser("eval", help="quantization-delta report (logits/top-1/ppl vs fp32)")
+    e.add_argument("--weights", required=True, help="gru.bin or .gxt checkpoint")
+    e.add_argument("--batch", type=int, default=8)
+    e.add_argument("--length", type=int, default=64, help="sequence length")
+    e.add_argument("--corpus", default=None,
+                   help="held-out text (default: random token sequences)")
+    e.add_argument("--seed", type=int, default=0)
+    _add_common(e)
+    e.set_defaults(fn=cmd_eval)
     return ap
 
 

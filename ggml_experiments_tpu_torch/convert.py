@@ -2,10 +2,11 @@
 
 ``arrays`` holds the six gru.bin tensors by name (``embeddings``, ``kernel``,
 ``recurrent_kernel``, ``bias``, ``dense_kernel``, ``dense_bias``). Each of the
-three weight matrices may instead be an already-quantized q8_0 weight given
-as a dict of numpy planes ``{"codes": (Kp, Np) int8, "scales": (Kp/32, Np)
-f32, "shape": (K, N)}`` (the JAX package's QTensor layout), so both packages
-can be handed identical weights.
+three weight matrices may instead be an already-quantized weight given as a
+dict of numpy planes in the JAX package's QTensor layout: ``codes``,
+``scales``, ``shape`` (logical ``(K, N)``), ``qtype`` (default ``q8_0``) and
+the format's ``mins`` / ``hibits`` / ``supers``. The matrices may differ in
+qtype, so both packages can be handed identical weights.
 """
 
 from __future__ import annotations
@@ -18,19 +19,24 @@ import torch
 from ggml_experiments_tpu_torch.device import DeviceLike, resolve_device
 from ggml_experiments_tpu_torch.models.gru_textgen import GRUTextGenParams
 from ggml_experiments_tpu_torch.ops.gru import GRUCellParams
-from ggml_experiments_tpu_torch.quant.qtensor import BLOCK, LANE, QTensor, quantize
+from ggml_experiments_tpu_torch.quant.qtensor import PLANE_NAMES, QTYPES, QTensor, quantize
 
 
 def qtensor_from_planes(planes: Mapping, device) -> QTensor:
-    codes = np.asarray(planes["codes"])
-    scales = np.asarray(planes["scales"], np.float32)
-    k, n = (int(d) for d in planes["shape"])
-    if (codes.dtype != np.int8 or codes.shape[0] % BLOCK or codes.shape[1] % LANE
-            or scales.shape != (codes.shape[0] // BLOCK, codes.shape[1])):
-        raise ValueError(f"not q8_0 planes: codes {codes.dtype}{codes.shape}, "
-                         f"scales {scales.shape}")
-    return QTensor(torch.from_numpy(codes.copy()).to(device),
-                   torch.from_numpy(scales.copy()).to(device), (k, n))
+    """A QTensor from padded numpy planes, after checking each plane's dtype
+    and shape against its format."""
+    qtype = planes.get("qtype", "q8_0")
+    if qtype not in QTYPES:
+        raise ValueError(f"unknown qtype {qtype!r} (expected one of {QTYPES})")
+    tensors = {name: torch.from_numpy(np.array(planes[name]))
+               for name in PLANE_NAMES if planes.get(name) is not None}
+    if "codes" not in tensors or "scales" not in tensors:
+        raise ValueError(f"not {qtype} planes: codes or scales missing")
+    qt = QTensor(shape=tuple(int(d) for d in planes["shape"]), qtype=qtype, **tensors)
+    qt.check_planes()
+    for name in tensors:
+        setattr(qt, name, tensors[name].to(device))
+    return qt
 
 
 def params_from_numpy(arrays: Mapping, qtype: Optional[str] = None,

@@ -1,4 +1,4 @@
-// Persistent q8_0 GRU decode loop: the whole multi-step decode in ONE
+// Persistent GRU decode loop: the whole multi-step decode in ONE
 // cooperative launch. Two entry points share the kernel:
 //
 //   gxt_fused_gru_decode  replaces ggml_experiments_tpu/ops/fused_gru_decode.py
@@ -12,6 +12,13 @@
 // and total = steps, so one kernel serves both; only the wrappers differ.
 // The step (gather -> gates -> h update -> logits -> token) is the device
 // code below, shared as `_gru_step` is shared in JAX.
+//
+// The weights arrive by one of three routes (Args.wmode), as `_dequant_to`
+// takes them on the TPU: q8_0 (int8 codes x f32 block scales) and q4_0
+// (block-local packed nibbles, (nib - 8) x scale) are decoded here, in the
+// setup; "dense" planes were dequantized to f32 beforehand (q4_1, q5_0,
+// q5_1, q4_k and mixed formats) and are copied. All three are rounded to
+// the compute dtype in the setup, and the step loop never sees the route.
 //
 // Bound on an H100 at the reference shape (U=1024, E=256, V=66): per step
 // and slot 2*(3U*U + U*V) = 6.4 MFLOP of gate and head products and no
@@ -55,13 +62,14 @@ namespace cg = cooperative_groups;
 // namespace so that the extern "C" entry points keep external linkage
 struct Args {
   const float* emb;     // (V, E)
-  const int8_t* wc;     // (Ke, G) codes of the input kernel, G = 3U
-  const float* ws;      // (Ke/32, G)
-  const int8_t* uc;     // (Ku, G) recurrent kernel
-  const float* us;      // (Ku/32, G)
+  const void* wc;       // input kernel, G = 3U columns: int8 (Ke, G) codes,
+                        // uint8 (Ke/2, G) packed nibbles, or f32 (E, G) dense
+  const float* ws;      // (Ke/32, G) block scales; null for dense
+  const void* uc;       // recurrent kernel: (U, G), (U/2, G) or f32 (U, G)
+  const float* us;      // (U/32, G)
   const float* bias;    // (2, G): input, recurrent
-  const int8_t* dc;     // (Ku, V) dense head
-  const float* ds;      // (Ku/32, V)
+  const void* dc;       // dense head: (U, V), (U/2, V) or f32 (U, V)
+  const float* ds;      // (U/32, V)
   const float* dbias;   // (V)
   const int* prompt;    // (B, P)
   const int* plen;      // (B)
@@ -77,6 +85,7 @@ struct Args {
   void* hb1;            // (B, U) bf16 copy of h1
   int V, E, U, P, B, steps, toks_u8, bf16;
   int sampling, top_k;
+  int wmode;            // weight route: 0 q8_0, 1 q4_0, 2 dense
   float top_p;
   uint32_t seed;
 };
@@ -117,6 +126,22 @@ __host__ __device__ inline int align4(int x) { return (x + 3) & ~3; }
 
 __device__ __forceinline__ float rc(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// Weight (k, col) of a plane with ld columns, by the weight route. One
+// multiply, one rounding, as the plain version's dequantize.
+__device__ __forceinline__ float wdec(const void* codes, const float* scales, int k, int col,
+                                      int ld, int wmode) {
+  if (wmode == 2) return static_cast<const float*>(codes)[(size_t)k * ld + col];
+  const float d = scales[(size_t)(k >> 5) * ld + col];
+  if (wmode == 0)
+    return __fmul_rn((float)static_cast<const int8_t*>(codes)[(size_t)k * ld + col], d);
+  // q4_0: byte row blk*16 + (t & 15) holds block-local rows t (low nibble)
+  // and t + 16 (high nibble)
+  const int blk = k >> 5, t = k & 31;
+  const int byte = static_cast<const uint8_t*>(codes)[(size_t)(blk * 16 + (t & 15)) * ld + col];
+  const int nib = t < 16 ? (byte & 15) : (byte >> 4);
+  return __fmul_rn((float)(nib - 8), d);
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -275,9 +300,11 @@ __device__ int select_token(const float* lg, const Args& a, float temp, int j, i
 }
 
 // The token slot b feeds at the step its cursor p points to: its prompt
-// while p < plen (and inside the prompt buffer), else its last prediction.
+// while p < plen (token 0 where p lies past the prompt buffer, as the TPU
+// tick's masked reduction finds no row there), else its last prediction.
 __device__ __forceinline__ int fed_token(const Args& a, int b, int p) {
-  return (p < a.plen[b] && p < a.P) ? a.prompt[(size_t)b * a.P + p] : __ldcg(a.prev + b);
+  if (p < a.plen[b]) return p < a.P ? a.prompt[(size_t)b * a.P + p] : 0;
+  return __ldcg(a.prev + b);
 }
 
 // h_next of slot b, unit `unit` (block-local ul) from its three recurrent
@@ -597,7 +624,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_loop_kernel(Args a, Geom g) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int U = a.U, G = 3 * U, V = a.V, E = a.E;
-  const int nc = 3 * g.ub, bf16 = a.bf16;
+  const int nc = 3 * g.ub, bf16 = a.bf16, wmode = a.wmode;
   float* u_s = smem;                 // (U, nc) dequantized recurrent slice
   float* proj_s = smem + g.proj_off;  // (V, nc) input-projection slice
   float* work = smem + g.work_off;   // phase A / phase B staging
@@ -616,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_loop_kernel(Args a, Geom g) {
       float v = 0.f;
       if (k < U && unit < U) {
         const int col = (c % 3) * U + unit;
-        v = (float)a.uc[(size_t)k * G + col] * a.us[(size_t)(k >> 5) * G + col];
+        v = wdec(a.uc, a.us, k, col, G, wmode);
       }
       u_bf[i] = __float2bfloat16_rn(v);
     }
@@ -626,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_loop_kernel(Args a, Geom g) {
       float v = 0.f;
       if (unit < U) {
         const int col = (c % 3) * U + unit;
-        v = (float)a.uc[(size_t)k * G + col] * a.us[(size_t)(k >> 5) * G + col];
+        v = wdec(a.uc, a.us, k, col, G, wmode);
       }
       u_s[i] = v;
     }
@@ -637,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_loop_kernel(Args a, Geom g) {
     if (unit < U) {
       const int col = (c % 3) * U + unit;
       for (int e = 0; e < E; ++e) {
-        const float w = rc((float)a.wc[(size_t)e * G + col] * a.ws[(size_t)(e >> 5) * G + col], bf16);
+        const float w = rc(wdec(a.wc, a.ws, e, col, G, wmode), bf16);
         acc = fmaf(rc(a.emb[(size_t)vv * E + e], bf16), w, acc);
       }
     }
@@ -646,7 +673,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_loop_kernel(Args a, Geom g) {
   for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < (size_t)U * V;
        i += (size_t)gridDim.x * kThreads) {
     const int k = (int)(i / V), vv = (int)(i % V);
-    a.ddeq[i] = rc((float)a.dc[i] * a.ds[(size_t)(k >> 5) * V + vv], bf16);
+    a.ddeq[i] = rc(wdec(a.dc, a.ds, k, vv, V, wmode), bf16);
   }
   grid.sync();
 
@@ -671,7 +698,9 @@ int launch(const Args& a, void* stream) {
   if (a.B <= 0 || a.steps <= 0) return 0;
   // whole 32-row chunks of K: U % 32 == 0 (the wrapper checks it too)
   if (a.V > kMaxV || a.V <= 0 || a.U <= 0 || a.U % kKT || a.E <= 0 ||
-      (a.bf16 && (a.hb0 == nullptr || a.hb1 == nullptr)))
+      (a.bf16 && (a.hb0 == nullptr || a.hb1 == nullptr)) || a.wmode < 0 || a.wmode > 2 ||
+      a.wc == nullptr || a.uc == nullptr || a.dc == nullptr ||
+      (a.wmode != 2 && (a.ws == nullptr || a.us == nullptr || a.ds == nullptr)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);

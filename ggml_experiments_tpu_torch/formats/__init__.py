@@ -1,1 +1,1 @@
-"""Weight file formats (the reference's gru.bin)."""
+"""Weight file formats: the reference's gru.bin and the native .gxt container."""

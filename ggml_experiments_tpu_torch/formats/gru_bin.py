@@ -70,8 +70,8 @@ def read_tensors(path: str) -> List[np.ndarray]:
 
 def load_gru_params(path: str, *, qtype: Optional[str] = None,
                     device: DeviceLike = None) -> GRUTextGenParams:
-    """Load ``gru.bin`` into params on ``device``; ``qtype="q8_0"`` quantizes
-    the cell, recurrent and dense kernels (embeddings and biases stay f32)."""
+    """Load ``gru.bin`` into params on ``device``; a ``qtype`` quantizes the
+    cell, recurrent and dense kernels (embeddings and biases stay f32)."""
     from ggml_experiments_tpu_torch.convert import params_from_numpy
 
     tensors = read_tensors(path)
@@ -102,11 +102,42 @@ def save_gru_params(path: str, params: GRUTextGenParams) -> None:
             _write_tensor(f, to_np(w))
 
 
+def load_gru_checkpoint(path: str, *, device: DeviceLike = None) -> GRUTextGenParams:
+    """Load GRU params from a native ``.gxt`` checkpoint (float or quantized),
+    rebuilt from the checkpoint's key paths, so a file written by the
+    ``quantize`` command serves directly."""
+    from ggml_experiments_tpu_torch.formats.checkpoint import load_arrays
+    from ggml_experiments_tpu_torch.ops.gru import GRUCellParams
+
+    flat = load_arrays(path, device=device)
+    for name in ("embeddings", "cell/kernel", "cell/recurrent_kernel", "dense_kernel"):
+        if name not in flat:
+            raise KeyError(f"{path}: {name!r} not present; keys: {sorted(flat)[:8]}...")
+    return GRUTextGenParams(
+        embeddings=flat["embeddings"],
+        cell=GRUCellParams(
+            kernel=flat["cell/kernel"],
+            recurrent_kernel=flat["cell/recurrent_kernel"],
+            bias=flat.get("cell/bias"),
+        ),
+        dense_kernel=flat["dense_kernel"],
+        dense_bias=flat.get("dense_bias"),
+    )
+
+
 def load_gru_any(path: str, *, qtype: Optional[str] = None,
                  device: DeviceLike = None) -> GRUTextGenParams:
-    """Dispatch on extension: the reference gru.bin; ``.gxt`` is not ported."""
-    if path.endswith(".gxt"):
-        raise NotImplementedError(
-            ".gxt checkpoints are not ported yet (ROADMAP.md, 'Port: still to "
-            "port', item 2); load a gru.bin file")
-    return load_gru_params(path, qtype=qtype, device=device)
+    """Dispatch on extension: a native ``.gxt`` checkpoint, else the
+    reference gru.bin. A float ``.gxt`` is quantized on load when ``qtype`` is
+    given; an already quantized one is served as stored."""
+    if not path.endswith(".gxt"):
+        return load_gru_params(path, qtype=qtype, device=device)
+    from ggml_experiments_tpu_torch.quant import QTensor, quantize
+
+    params = load_gru_checkpoint(path, device=device)
+    if qtype is not None and not isinstance(params.cell.kernel, QTensor):
+        dev = params.device
+        params.cell.kernel = quantize(params.cell.kernel, qtype, device=dev)
+        params.cell.recurrent_kernel = quantize(params.cell.recurrent_kernel, qtype, device=dev)
+        params.dense_kernel = quantize(params.dense_kernel, qtype, device=dev)
+    return params

@@ -2,8 +2,9 @@
 
 The decode loop keeps the JAX package's semantics: at step j a slot feeds
 prompt[j] while j < prompt_length, else its previous prediction, and the
-emitted sequence is the tokens *fed*. Weights may be float32 tensors or q8_0
-QTensors; the recurrent projection then runs through the q8_0 kernel.
+emitted sequence is the tokens *fed*. Weights may be float32 tensors or
+QTensors of any block format; the recurrent projection then runs through
+that format's qmatmul kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ggml_experiments_tpu_torch.ops.gru import (
     GRUCellParams,
     gru_cell,
     gru_combine,
+    gru_sequence,
     input_projection,
     recurrent_projection,
 )
@@ -67,6 +69,25 @@ def step(params: GRUTextGenParams, token_ids: torch.Tensor, h: torch.Tensor, *,
     h = gru_cell(params.cell, x, h, compute_dtype=compute_dtype)
     logits = linear(h, params.dense_kernel, params.dense_bias, compute_dtype=compute_dtype)
     return logits, h
+
+
+def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Tensor] = None,
+                     *, compute_dtype=torch.float32,
+                     time_major: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced full-sequence forward. token_ids: (B, T) int ->
+    (logits (B, T, V), final state (B, U)). The input projection and the
+    vocab head are whole-sequence products; only the recurrent projection
+    runs inside the time loop."""
+    if time_major:
+        raise NotImplementedError(
+            "the time-major forward and its fused train kernels are not ported yet "
+            "(ROADMAP.md, 'Port: still to port', item 5: GRU training)")
+    ids = torch.as_tensor(token_ids, device=params.device)
+    h = init_state(params, ids.shape[0]) if h0 is None else h0
+    xs = embedding_lookup(params.embeddings, ids)                   # (B, T, E)
+    ys, h_last = gru_sequence(params.cell, xs, h, compute_dtype=compute_dtype)
+    logits = linear(ys, params.dense_kernel, params.dense_bias, compute_dtype=compute_dtype)
+    return logits, h_last
 
 
 def generate(
@@ -161,8 +182,8 @@ def dispatch_thresholds(reload: bool = False) -> dict:
 
 def decode(params: GRUTextGenParams, prompt_ids, prompt_lengths, total_steps: int,
            **kw) -> torch.Tensor:
-    """Decode with automatic path selection: greedy + q8_0 weights + large
-    batch + long decode go to the persistent fused kernel
+    """Decode with automatic path selection: greedy + block-quantized weights
+    + large batch + long decode go to the persistent fused kernel
     (ops/fused_gru_decode); everything else to :func:`generate`. The fused
     path's bfloat16 default is applied to the scan path too."""
     from ggml_experiments_tpu_torch.ops.fused_gru_decode import (

@@ -1,4 +1,4 @@
-"""Persistent fused q8_0 GRU decode: the whole token loop in one launch.
+"""Persistent fused GRU decode: the whole token loop in one launch.
 
 Two entry points, each with its plain PyTorch version in this module:
 
@@ -23,8 +23,12 @@ draws the same noise only while it runs its slots untiled (at most
 Past that, JAX keys each tile on its own columns plus the tile's first slot,
 and its stream differs from this one.
 
-Only q8_0 weights are taken; the JAX package's dense-plane and q4_0 routes are
-not ported yet (ROADMAP.md).
+The weights reach the kernel by one of three routes, chosen as the JAX
+package chooses (``_check_quantized``): all three matrices q8_0, or all three
+q4_0, stay compressed and are decoded in the kernel's setup; any other
+block format, and any mix of formats, is dequantized once per params object
+on the device and arrives as dense f32 planes, which the setup copies and
+rounds to the compute dtype. The step loop is the same for all three.
 """
 
 from __future__ import annotations
@@ -36,7 +40,12 @@ from typing import Optional
 import torch
 
 from ggml_experiments_tpu_torch.device import resolve_dtype
-from ggml_experiments_tpu_torch.quant.qtensor import QTensor, dequantize_padded
+from ggml_experiments_tpu_torch.quant.qtensor import (
+    QTYPES,
+    QTensor,
+    dequantize,
+    dequantize_padded,
+)
 
 NEG = -1e30
 M32 = 0xFFFFFFFF
@@ -45,48 +54,65 @@ M32 = 0xFFFFFFFF
 LAUNCHES = {"fused_gru_decode": 0, "fused_slot_tick": 0}
 
 
+# weight routes, by their number in the kernel's Args
+WEIGHT_MODES = {"q8_0": 0, "q4_0": 1, "dense": 2}
+
+
 def is_fusable_params(params) -> bool:
     """True iff the fused kernels can run these params: the cell, recurrent
-    and dense kernels are all q8_0 QTensors."""
+    and dense kernels are all QTensors of a supported block format."""
     ws = (params.cell.kernel, params.cell.recurrent_kernel, params.dense_kernel)
-    return all(isinstance(w, QTensor) and w.qtype == "q8_0" for w in ws)
+    return all(isinstance(w, QTensor) and w.qtype in QTYPES for w in ws)
 
 
-def _check_quantized(params) -> None:
-    ws = (params.cell.kernel, params.cell.recurrent_kernel, params.dense_kernel)
-    if not all(isinstance(w, QTensor) for w in ws):
-        raise ValueError("the fused decode kernels require q8_0-quantized GRU "
-                         "params (load with qtype='q8_0')")
+def _check_quantized(params) -> str:
+    """The weight route for these params: 'q8_0' or 'q4_0' when all three
+    matrices share that format (decoded in the kernel), else 'dense'."""
     if not is_fusable_params(params):
-        raise NotImplementedError(
-            "the fused kernels' dense-plane and q4_0 routes are not ported yet "
-            "(ROADMAP.md, 'Port: still to port', item 1); use q8_0 weights")
+        raise ValueError("the fused decode kernels require block-quantized GRU "
+                         "params (q8_0/q4_0/q4_1/q5_0/q5_1/q4_k; load with "
+                         "qtype='q8_0' etc.)")
+    qts = {params.cell.kernel.qtype, params.cell.recurrent_kernel.qtype,
+           params.dense_kernel.qtype}
+    if len(qts) == 1 and qts <= {"q8_0", "q4_0"}:
+        return next(iter(qts))
+    return "dense"
 
 
 @dataclasses.dataclass
 class FusedWeights:
-    """Kernel-layout operands, contiguous on the params' device."""
+    """Kernel-layout operands, contiguous on the params' device. With
+    Ke = E rounded up to 32 and G = 3U, by ``mode``:
+
+    * ``q8_0``: codes int8 (Ke, G) / (U, G) / (U, V), scales f32 (K/32, .)
+    * ``q4_0``: codes uint8 nibble-packed (Ke/2, G) / (U/2, G) / (U/2, V),
+      scales as above
+    * ``dense``: ``wc``/``uc``/``dc`` are the dequantized f32 planes (E, G) /
+      (U, G) / (U, V); there are no scales
+    """
 
     emb: torch.Tensor    # (V, E) f32
-    wc: torch.Tensor     # (Ke, G) int8, Ke = E rounded up to 32, G = 3U
-    ws: torch.Tensor     # (Ke/32, G) f32
-    uc: torch.Tensor     # (Ku, G) int8
-    us: torch.Tensor     # (Ku/32, G) f32
+    wc: torch.Tensor     # input kernel
+    ws: Optional[torch.Tensor]
+    uc: torch.Tensor     # recurrent kernel
+    us: Optional[torch.Tensor]
     bias: torch.Tensor   # (2, G) f32: input, recurrent
-    dc: torch.Tensor     # (Ku, V) int8
-    ds: torch.Tensor     # (Ku/32, V) f32
+    dc: torch.Tensor     # dense head
+    ds: Optional[torch.Tensor]
     dbias: torch.Tensor  # (V,) f32
     v: int
     e: int
     u: int
+    mode: str = "q8_0"
 
 
 def _prep_weights(params) -> FusedWeights:
-    """Kernel-layout weights, built once per params object."""
+    """Kernel-layout weights, built once per params object (for the dense
+    route that is one dequantization per params object, not one per call)."""
     hit = params.cache.get("fused_weights")
     if hit is not None:
         return hit
-    _check_quantized(params)
+    mode = _check_quantized(params)
     cell = params.cell
     v, e = params.embeddings.shape
     u = cell.recurrent_kernel.shape[0]
@@ -94,6 +120,8 @@ def _prep_weights(params) -> FusedWeights:
     dev = params.device
 
     def cols(qt: QTensor, n: int):
+        if mode == "dense":
+            return dequantize(qt).contiguous(), None
         return qt.codes[:, :n].contiguous(), qt.scales[:, :n].contiguous()
 
     wc, ws = cols(cell.kernel, g)
@@ -106,7 +134,7 @@ def _prep_weights(params) -> FusedWeights:
     if params.dense_bias is not None:
         dbias.copy_(params.dense_bias)
     out = FusedWeights(params.embeddings.float().contiguous(), wc, ws, uc, us, bias,
-                       dc, ds, dbias, v, e, u)
+                       dc, ds, dbias, v, e, u, mode)
     params.cache["fused_weights"] = out
     return out
 
@@ -120,17 +148,23 @@ def _rnd(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
 
 
 def _planes(w: FusedWeights, cd: torch.dtype):
-    """Dequantized planes rounded to ``cd`` (held as f32) and the input
-    projection table round(round(emb) . round(W)): what the kernel keeps."""
-    wq = _rnd(dequantize_padded(_qt(w.wc, w.ws))[: w.e], cd)
-    uq = _rnd(dequantize_padded(_qt(w.uc, w.us))[: w.u], cd)
-    dq = _rnd(dequantize_padded(_qt(w.dc, w.ds))[: w.u], cd)
+    """Decoded planes rounded to ``cd`` (held as f32) and the input
+    projection table round(round(emb) . round(W)): what the kernel keeps,
+    by the same three routes."""
+    if w.mode not in WEIGHT_MODES:
+        raise ValueError(f"unknown weight mode {w.mode!r}")
+
+    def plane(codes, scales, rows):
+        if w.mode == "dense":
+            return _rnd(codes[:rows], cd)
+        qt = QTensor(codes, scales, (scales.shape[0] * 32, codes.shape[1]), w.mode)
+        return _rnd(dequantize_padded(qt)[:rows], cd)
+
+    wq = plane(w.wc, w.ws, w.e)
+    uq = plane(w.uc, w.us, w.u)
+    dq = plane(w.dc, w.ds, w.u)
     proj = _rnd(torch.matmul(_rnd(w.emb, cd), wq), cd)
     return proj, uq, dq
-
-
-def _qt(codes, scales) -> QTensor:
-    return QTensor(codes, scales, tuple(codes.shape))
 
 
 def _mul32(x, m: int):
@@ -238,8 +272,8 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
                        compute_dtype=torch.bfloat16, temp=None, seed: int = 0,
                        top_k: int = 0, top_p: float = 0.0, margins: bool = False):
     """Plain version of the kernel loop. Per step a slot feeds
-    ``prompt[b, pos]`` while ``pos < plen`` (inside the prompt buffer) else
-    ``prev``, updates h while ``pos < total`` (held otherwise), and takes the
+    ``prompt[b, pos]`` while ``pos < plen`` (token 0 where that lies past the
+    prompt buffer) else ``prev``, updates h while ``pos < total`` (held otherwise), and takes the
     next token from the logits. Returns (toks (B, steps) int32, h, prev, pos)
     and, with ``margins=True``, the (B, steps) margin of each step's choice
     (see ``_select_reference``): where it is tiny, two implementations that
@@ -256,7 +290,9 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
     gaps = torch.empty((prompt.shape[0], steps), dtype=torch.float32, device=h.device)
     for j in range(steps):
         pcur = prompt.gather(1, pos.clamp(max=max(p - 1, 0))[:, None])[:, 0]
-        tok = torch.where((pos < plen) & (pos < p), pcur, prev)
+        # a cursor inside plen but past the prompt buffer feeds token 0
+        pcur = torch.where(pos < p, pcur, torch.zeros_like(pcur))
+        tok = torch.where(pos < plen, pcur, prev)
         toks[:, j] = tok
         active = pos < total
         mx = proj[tok] + b0
@@ -286,13 +322,39 @@ class _Args(ctypes.Structure):
             "plen", "total", "prev", "pos", "h0", "h1", "ddeq", "toks", "temp", "hb0",
             "hb1")]
         + [(n, ctypes.c_int) for n in (
-            "V", "E", "U", "P", "B", "steps", "toks_u8", "bf16", "sampling", "top_k")]
+            "V", "E", "U", "P", "B", "steps", "toks_u8", "bf16", "sampling", "top_k",
+            "wmode")]
         + [("top_p", ctypes.c_float), ("seed", ctypes.c_uint32)]
     )
 
 
 def _i32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
+
+
+def _check_layout(entry: str, w: FusedWeights) -> None:
+    """Raise unless the operands have the dtype, shape and contiguity that
+    the kernel's weight route reads."""
+    dev = w.emb.device
+    if w.mode not in WEIGHT_MODES:
+        raise ValueError(f"{entry}: unknown weight mode {w.mode!r}")
+    g = 3 * w.u
+    ke = -(-w.e // 32) * 32
+    kdiv = 2 if w.mode == "q4_0" else 1
+    cdt = {"q8_0": torch.int8, "q4_0": torch.uint8, "dense": torch.float32}[w.mode]
+    for name, t, rows, ncols in (("wc", w.wc, w.e if w.mode == "dense" else ke // kdiv, g),
+                                 ("uc", w.uc, w.u // kdiv, g), ("dc", w.dc, w.u // kdiv, w.v)):
+        if (t.dtype != cdt or tuple(t.shape) != (rows, ncols) or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{entry}: {w.mode} route wants a contiguous {cdt} {name} of "
+                             f"({rows}, {ncols}), got {t.dtype}{tuple(t.shape)}")
+    if w.mode != "dense":
+        for name, t, rows, ncols in (("ws", w.ws, ke // 32, g), ("us", w.us, w.u // 32, g),
+                                     ("ds", w.ds, w.u // 32, w.v)):
+            if (t is None or t.dtype != torch.float32 or tuple(t.shape) != (rows, ncols)
+                    or not t.is_contiguous() or t.device != dev):
+                raise ValueError(f"{entry}: {w.mode} route wants contiguous f32 {name} of "
+                                 f"({rows}, {ncols})")
 
 
 def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h,
@@ -314,6 +376,7 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
     if w.v > 256 or w.u % 32:
         raise ValueError(f"{entry}: the kernel takes a vocab of at most 256 and units in "
                          f"whole 32-row blocks, got V={w.v}, U={w.u}")
+    _check_layout(entry, w)
     prompt = _i32(prompt, dev)
     plen, total = _i32(plen, dev), _i32(total, dev)
     prev, pos = _i32(prev, dev).clone(), _i32(pos, dev).clone()
@@ -326,15 +389,17 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
     # bf16: the kernel's tensor-core products read a bf16 copy of h beside it
     hb0 = h0.to(torch.bfloat16) if bf16 else None
     hb1 = torch.empty_like(hb0) if bf16 else None
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     a = _Args(
-        w.emb.data_ptr(), w.wc.data_ptr(), w.ws.data_ptr(), w.uc.data_ptr(), w.us.data_ptr(),
-        w.bias.data_ptr(), w.dc.data_ptr(), w.ds.data_ptr(), w.dbias.data_ptr(),
+        w.emb.data_ptr(), w.wc.data_ptr(), ptr(w.ws), w.uc.data_ptr(), ptr(w.us),
+        w.bias.data_ptr(), w.dc.data_ptr(), ptr(w.ds), w.dbias.data_ptr(),
         prompt.data_ptr(), plen.data_ptr(), total.data_ptr(), prev.data_ptr(), pos.data_ptr(),
         h0.data_ptr(), h1.data_ptr(), ddeq.data_ptr(), toks.data_ptr(),
-        None if temp_t is None else temp_t.data_ptr(),
-        None if hb0 is None else hb0.data_ptr(), None if hb1 is None else hb1.data_ptr(),
+        ptr(temp_t), ptr(hb0), ptr(hb1),
         w.v, w.e, w.u, prompt.shape[1], b, steps, int(toks_u8), int(bf16),
-        int(temp_t is not None), int(top_k), float(top_p), seed & M32,
+        int(temp_t is not None), int(top_k), WEIGHT_MODES[w.mode], float(top_p), seed & M32,
     )
     lib = _build.load("gru_persistent")
     if lib.gxt_args_size() != ctypes.sizeof(_Args):

@@ -56,3 +56,20 @@ def gru_cell(p: GRUCellParams, x: torch.Tensor, h: torch.Tensor, *,
     mx = input_projection(p, x, compute_dtype=compute_dtype)
     mh = recurrent_projection(p, h, compute_dtype=compute_dtype)
     return gru_combine(mx, mh, h)
+
+
+def gru_sequence(p: GRUCellParams, xs: torch.Tensor, h0: torch.Tensor, *,
+                 compute_dtype=torch.float32):
+    """Run over a full sequence, batch-major. xs: (B, T, E) -> (states
+    (B, T, U), final state (B, U)). The input projection of the whole
+    sequence is one product; only the recurrent projection runs per step.
+    The time-major form and its fused kernel pair belong to training."""
+    mxs = input_projection(p, xs, compute_dtype=compute_dtype)  # (B, T, 3U)
+    h = h0
+    ys = []
+    for t in range(xs.shape[1]):
+        h = gru_combine(mxs[:, t], recurrent_projection(p, h, compute_dtype=compute_dtype), h)
+        ys.append(h)
+    if not ys:
+        return h0.new_zeros((h0.shape[0], 0, h0.shape[1])), h0
+    return torch.stack(ys, dim=1), h

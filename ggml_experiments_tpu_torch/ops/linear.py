@@ -1,4 +1,4 @@
-"""Dense / matmul with transparent q8_0-weight dispatch.
+"""Dense / matmul with transparent quantized-weight dispatch.
 
 ``compute_dtype=float32`` computes in full f32 with f32 results;
 ``bfloat16`` rounds the operands to bf16 and returns bf16 (the storage dtype

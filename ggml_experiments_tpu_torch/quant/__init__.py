@@ -1,4 +1,5 @@
-"""Q8_0 weight-only quantization and the fused dequant + matmul."""
+"""Block weight-only quantization (q8_0, q4_0, q4_1, q5_0, q5_1, q4_k) and
+the fused dequant + matmul."""
 
 from ggml_experiments_tpu_torch.quant.qmatmul import (
     XLA_FALLBACK_MAX_ELEMS,
@@ -8,13 +9,19 @@ from ggml_experiments_tpu_torch.quant.qmatmul import (
 from ggml_experiments_tpu_torch.quant.qtensor import (
     BLOCK,
     LANE,
+    QTYPE_BITS,
+    QTYPE_TOTAL_BITS,
     QTYPES,
     QTensor,
     dequantize,
+    from_numpy_blocks,
+    quantization_error,
     quantize,
+    to_numpy_blocks,
 )
 
 __all__ = [
-    "BLOCK", "LANE", "QTYPES", "QTensor", "XLA_FALLBACK_MAX_ELEMS",
-    "dequantize", "qmatmul", "qmatmul_reference", "quantize",
+    "BLOCK", "LANE", "QTYPES", "QTYPE_BITS", "QTYPE_TOTAL_BITS", "QTensor",
+    "XLA_FALLBACK_MAX_ELEMS", "dequantize", "from_numpy_blocks", "qmatmul",
+    "qmatmul_reference", "quantization_error", "quantize", "to_numpy_blocks",
 ]

@@ -8,13 +8,16 @@ afterwards its own argmax/sample -- the semantics of
 ``models.gru_textgen.generate``, so a continuous-batched request reproduces
 the offline decode.
 
-Two ticks: ``_slot_scan`` (a loop of PyTorch ops, the q8_0 recurrent
-projection through the qmatmul kernel) and the persistent fused tick kernel
+Two ticks: ``_slot_scan`` (a loop of PyTorch ops, a quantized recurrent
+projection through its qmatmul kernel) and the persistent fused tick kernel
 (``ops.fused_gru_decode.fused_slot_tick``). Refill decisions come from a host
 shadow of the deterministic cursors (no device reads), and token readbacks
 trail the ticks by up to ``fetch_depth`` ticks as async copies.
 
-Not ported yet (ROADMAP.md): snapshot/restore and multi-process serving.
+``snapshot`` / ``restore`` persist one process's engine (device slots,
+in-flight and queued requests) in the ``.gxt`` container; the JAX package's
+engine reads these files and writes the same. Not ported yet (ROADMAP.md):
+multi-process serving.
 """
 
 from __future__ import annotations
@@ -250,8 +253,8 @@ class DecodeEngine:
             # it awaits re-measurement on the H100 (ROADMAP.md).
             use_fused_tick = quantized and on_cuda and n_slots >= 512 and inner_steps >= 128
         elif use_fused_tick and not quantized:
-            raise ValueError("use_fused_tick requires q8_0-quantized params "
-                             "(cell, recurrent and dense kernels)")
+            raise ValueError("use_fused_tick requires block-quantized params "
+                             "(cell, recurrent and dense kernels all QTensors)")
         self.use_fused_tick = bool(use_fused_tick)
         self.max_pending = max_pending
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -262,6 +265,8 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self.stats = EngineStats()
         self.error: Optional[Exception] = None
+        # the requests a restore() rebuilt from its snapshot, by id
+        self.restored_requests: List[Request] = []
         # host shadow of the deterministic slot cursors: refill decisions
         # need no device read
         self._pos = np.zeros(n_slots, np.int64)
@@ -340,13 +345,106 @@ class DecodeEngine:
         raise TimeoutError("engine did not drain in time")
 
     def snapshot(self, path: str) -> None:
-        raise NotImplementedError("engine snapshot/restore is not ported yet "
-                                  "(ROADMAP.md, 'Port: still to port', item 3)")
+        """Persist engine state (device slots + in-flight/queued requests).
+
+        Call with the background thread stopped (or from the driving thread
+        in synchronous mode): a concurrent ``_tick`` would advance slots
+        between the state capture and the request-progress capture."""
+        from ggml_experiments_tpu_torch.formats import checkpoint
+
+        # the last dispatched tick's tokens must land in the requests before
+        # their progress is captured (the device state already includes them)
+        self._flush_pending()
+        pending = []
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not req._canceled:
+                pending.append(req)
+        for req in pending:  # re-queue locally; the snapshot keeps a copy
+            self._queue.put(req)
+
+        inflight = {}
+        for slot, req in self._slot_req.items():
+            if req is not None and not req._canceled:
+                inflight[str(slot)] = {
+                    "prompt": req.prompt_ids,
+                    "max_new": np.int32(req.max_new_tokens),
+                    "tokens": np.asarray(req._tokens, np.int32),
+                    "id": np.int32(req.id),
+                    "temp": np.float32(req.temperature),
+                }
+        tree = {
+            "state": self.state,
+            "inflight": inflight,
+            "pending": {
+                str(i): {
+                    "prompt": r.prompt_ids,
+                    "max_new": np.int32(r.max_new_tokens),
+                    "temp": np.float32(r.temperature),
+                }
+                for i, r in enumerate(pending)
+            },
+        }
+        checkpoint.save(path, tree)
 
     @classmethod
     def restore(cls, path: str, params: GRUTextGenParams, **engine_kw) -> "DecodeEngine":
-        raise NotImplementedError("engine snapshot/restore is not ported yet "
-                                  "(ROADMAP.md, 'Port: still to port', item 3)")
+        """Rebuild an engine from a snapshot; in-flight requests resume at
+        the exact token position they were interrupted at. The rebuilt
+        requests are in ``restored_requests``, by id."""
+        from ggml_experiments_tpu_torch.formats import checkpoint
+
+        flat = checkpoint.load_arrays(path, device="cpu")
+        fields = [f.name for f in dataclasses.fields(SlotState)]
+        missing = [f for f in fields if f"state/{f}" not in flat]
+        if missing:
+            raise KeyError(f"{path}: not an engine snapshot (no state/{missing[0]})")
+        n_slots, max_prompt = flat["state/prompt"].shape
+        eng = cls(params, n_slots=n_slots, max_prompt=max_prompt, **engine_kw)
+        dtypes = {"h": torch.float32, "temp": torch.float32}
+        eng.state = SlotState(**{
+            f: flat[f"state/{f}"].to(device=params.device, dtype=dtypes.get(f, torch.int32))
+            for f in fields})
+        eng._pos = flat["state/pos"].numpy().astype(np.int64)
+        eng._total = flat["state/total"].numpy().astype(np.int64)
+
+        def request(kind: str, key: str, req_id: int) -> Request:
+            temp = flat.get(f"{kind}/{key}/temp")
+            return Request(
+                prompt_ids=flat[f"{kind}/{key}/prompt"].numpy().astype(np.int32),
+                max_new_tokens=int(flat[f"{kind}/{key}/max_new"]), id=req_id,
+                temperature=0.0 if temp is None else float(temp))
+
+        by_slot: Dict[int, Request] = {}
+        pending: Dict[int, Request] = {}
+        for name in flat:
+            parts = name.split("/")
+            if len(parts) != 3 or parts[2] != "prompt":
+                continue
+            if parts[0] == "inflight":
+                req = request("inflight", parts[1], int(flat[f"inflight/{parts[1]}/id"]))
+                req._tokens = flat[f"inflight/{parts[1]}/tokens"].numpy().astype(int).tolist()
+                # a request that had finished but still held its slot has all
+                # its tokens already: nothing more will be delivered to it
+                if len(req._tokens) >= req.prompt_ids.size + req.max_new_tokens:
+                    req._done.set()
+                by_slot[int(parts[1])] = req
+            elif parts[0] == "pending":
+                pending[int(parts[1])] = request("pending", parts[1], int(parts[1]))
+        for slot, req in by_slot.items():
+            if not 0 <= slot < n_slots:
+                raise ValueError(f"{path}: in-flight request in slot {slot} of {n_slots}")
+            eng._slot_req[slot] = req
+        for idx in sorted(pending):
+            eng._queue.put(pending[idx])
+        eng._next_id = 1 + max(
+            [r.id for r in by_slot.values()] + [r.id for r in pending.values()] + [-1])
+        eng.restored_requests = sorted(
+            list(by_slot.values()) + list(pending.values()), key=lambda r: r.id)
+        return eng
 
     # -- engine internals ---------------------------------------------------
     def _read_tokens(self, fetch) -> np.ndarray:

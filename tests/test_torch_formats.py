@@ -63,9 +63,59 @@ def test_params_from_jax_planes():
                           device="cpu")
 
 
+def jax_planes(jq):
+    """A JAX QTensor's fields as the numpy planes the port's convert takes."""
+    out = {"shape": jq.shape, "qtype": jq.qtype}
+    for name in ("codes", "scales", "mins", "hibits", "supers"):
+        if getattr(jq, name) is not None:
+            out[name] = np.asarray(getattr(jq, name))
+    return out
+
+
+@pytest.mark.parametrize("qtype", ["q8_0", "q4_0", "q4_1", "q5_0", "q5_1", "q4_k"])
+def test_planes_of_every_format_convert_and_validate(qtype):
+    """Per-matrix mixed planes: the recurrent kernel in ``qtype``, the head in
+    q8_0, the input kernel float; wrong dtypes, shapes and planes raise."""
+    rng = np.random.default_rng(1)
+    a = {"embeddings": rng.normal(size=(66, 40)), "kernel": rng.normal(size=(40, 210)),
+         "recurrent_kernel": rng.normal(0.2, 1, size=(70, 210)),
+         "bias": rng.normal(size=(2, 210)), "dense_kernel": rng.normal(size=(70, 66))}
+    jq = jquant.quantize(a["recurrent_kernel"].astype(np.float32), qtype)
+    jd = jquant.quantize(a["dense_kernel"].astype(np.float32), "q8_0")
+    planes = jax_planes(jq)
+    p = params_from_numpy({**a, "recurrent_kernel": planes, "dense_kernel": jax_planes(jd)},
+                          device="cpu")
+    assert p.cell.recurrent_kernel.qtype == qtype and p.dense_kernel.qtype == "q8_0"
+    assert p.cell.kernel.dtype == torch.float32 and p.dense_bias is None
+    np.testing.assert_array_equal(p.cell.recurrent_kernel.dequantize().numpy(),
+                                  np.asarray(jquant.dequantize(jq)))
+    np.testing.assert_array_equal(p.dense_kernel.dequantize().numpy(),
+                                  np.asarray(jquant.dequantize(jd)))
+
+    def bad(**change):
+        with pytest.raises(ValueError, match=f"{qtype} planes"):
+            params_from_numpy({**a, "recurrent_kernel": {**planes, **change}}, device="cpu")
+
+    bad(codes=planes["codes"].astype(np.int16))
+    bad(scales=planes["scales"][:, :64])
+    bad(shape=(200, 210))
+    for name in ("mins", "hibits", "supers"):
+        if name in planes:
+            bad(**{name: None})
+            bad(**{name: planes[name][:-1]})
+        else:
+            bad(**{name: np.zeros((1, 256), np.uint8)})
+    with pytest.raises(ValueError, match="unknown qtype"):
+        params_from_numpy({**a, "recurrent_kernel": {**planes, "qtype": "q2_k"}}, device="cpu")
+
+
 def test_gxt_and_bad_files_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gru_bin.load_gru_any(os.path.join(CKPTS, "gru_synth_q4km.gxt"), device="cpu")
+    gxt = gru_bin.load_gru_any(os.path.join(CKPTS, "gru_synth_q4km.gxt"), device="cpu")
+    assert isinstance(gxt.cell.recurrent_kernel, QTensor) and gxt.units == 1024
+    notgxt = tmp_path / "renamed.gxt"
+    notgxt.write_bytes(open(BINS[0], "rb").read(4096))
+    with pytest.raises(ValueError, match="GXT1"):
+        gru_bin.load_gru_any(str(notgxt), device="cpu")
     data = open(BINS[0], "rb").read()
     cut = tmp_path / "cut.bin"
     cut.write_bytes(data[:1000])

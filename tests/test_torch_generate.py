@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from ggml_experiments_tpu.formats.gru_bin import load_gru_params as jload
+from ggml_experiments_tpu.formats.gru_bin import load_gru_any as jload
 from ggml_experiments_tpu.models import gru_textgen as jg
 from ggml_experiments_tpu.ops import gru as jgru
 from ggml_experiments_tpu.ops import sampling as jsampling
 from ggml_experiments_tpu.utils import tokenizer as jtok
-from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
 from ggml_experiments_tpu_torch.models import gru_textgen as tg
 from ggml_experiments_tpu_torch.ops import gru as tgru
 from ggml_experiments_tpu_torch.ops import linear as tlinear
@@ -25,12 +25,28 @@ from ggml_experiments_tpu_torch.utils import tokenizer as ttok
 jlinear = importlib.import_module("ggml_experiments_tpu.ops.linear")
 
 SYNTH = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "gru_synth.bin")
+Q4KM = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "gru_synth_q4km.gxt")
 
 
-@pytest.fixture(scope="module", params=[None, "q8_0"])
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """The step loops here run thousands of small products; beside other
+    test workers, a full-width thread pool per product only oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", params=[None, "q8_0", "q4_0", "q5_1", "q4km"])
 def synth(request):
+    """The trained checkpoint as float, round-to-nearest quantized, and as the
+    committed calibrated q4_k_m file (q4_k cell, q8_0 head)."""
+    if request.param == "q4km":
+        return jload(Q4KM), load_gru_any(Q4KM, device="cpu")
     return (jload(SYNTH, qtype=request.param),
-            load_gru_params(SYNTH, qtype=request.param, device="cpu"))
+            load_gru_any(SYNTH, qtype=request.param, device="cpu"))
 
 
 def prompts(seed, b, width):
