@@ -40,7 +40,20 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
  10. the ``quantize`` command writes a q5_1 ``.gxt`` that loads onto the
      card with every plane equal to the in-memory quantization; a running
      engine is snapshotted, restored, and finishes its requests equal to an
-     uninterrupted engine and to the offline decode.
+     uninterrupted engine and to the offline decode;
+ 11. the fused training pair (``csrc/gru_train.cu``) against its plain
+     versions, bf16, with the recurrent kernel of ``gru_shakespeare.bin`` and
+     the input projection of ``corpus_train.txt`` windows, at (B, T) = (1024, 100) and
+     (64, 100): forward ``ys`` / ``mhs``; backward ``dmxs`` / ``dwr`` /
+     ``dbrec`` / ``dh0`` from a seeded cotangent; two backward launches on the
+     same inputs bit-equal;
+ 12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
+     B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
+     step launches the forward and the backward kernel once and no plain
+     version; the same run interrupted after 4 steps and resumed from its
+     train-state file ends bit-equal; the trained weights go to a ``gru.bin``
+     that ``generate`` reads back; then ``train-gru`` at its default batch of
+     64 for one epoch of the corpus's first 60,000 characters.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -62,6 +75,17 @@ Tolerances, and why:
     version's f32 and bf16 runs, after the main path's steps and after 8
     (see the constants: set from H100 readings, so that a kernel that
     skipped the bf16 rounding fails).
+  * The training pair against its plain versions: both round to bf16 at the
+    same places, but sum in other orders and call other exp/tanh routines, so
+    a value on a rounding boundary may land one bf16 step off and feed the
+    following steps (forward) or the carry (backward). Forward: ``ys`` within
+    TRAIN_YS_MAX and ``mhs`` within TRAIN_MHS_MAX (twice the H100 readings of
+    0.045 and 0.125 after 100 steps of the trained recurrent kernel), and the
+    mean ``ys`` error within the fractions the fused decode is held to
+    (TF_BF16_MEAN_FRAC_*) of the plain version's own distance between rounding
+    to bf16 and not rounding, over all steps and over the first 8. Backward,
+    on equal inputs: each gradient's max |diff| over max |plain| within
+    TRAIN_GRAD_REL (readings 0.002-0.006), and two launches bit-equal.
   * A free-running greedy or sampled sequence may fork where the two best
     scores of a step lie closer than the summation-order error: the first
     divergence of every row must sit at such a near-tie of the plain
@@ -83,6 +107,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "gru_shakespeare.bin")
 CKPT_Q4KM = os.path.join(REPO, "checkpoints", "gru_synth_q4km.gxt")
 CORPUS = os.path.join(REPO, "checkpoints", "shakespeare.txt")
+CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12,  # f32 FMA on CUDA cores (the kernels' products)
@@ -103,6 +128,13 @@ QMATMUL_MS = (1024, 64)              # M of the qmatmul checks; the last is the 
 TF_BF16_H_MAX = 0.05
 TF_BF16_SHORT = 8
 TF_BF16_MEAN_FRAC_LONG, TF_BF16_MEAN_FRAC_SHORT = 0.75, 0.25
+# training: (B, T) of the kernel checks; the first is the main path's
+TRAIN_SHAPES = ((1024, 100), (64, 100))
+TRAIN_RESUME_AFTER = 4               # steps before the interruption
+TRAIN_CLI_CHARS = 60000              # corpus prefix of the default-batch CLI run
+# the training pair against its plain versions (limits: see the docstring)
+TRAIN_YS_MAX, TRAIN_MHS_MAX = 0.1, 0.25
+TRAIN_GRAD_REL = {"dmxs": 2e-2, "dh0": 2e-2, "dwr": 1e-2, "dbrec": 1e-2}
 
 
 class SmokeFailure(AssertionError):
@@ -476,6 +508,313 @@ def tick_phase(tag, params, n_slots, inner, launches, rng, tok):
                 plain_ms=tick_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def train_kernel_phase(tag, fparams, dev, tok):
+    """The fused training forward and backward kernels against their plain
+    versions at TRAIN_SHAPES, bf16, U=1024: the trained recurrent kernel and
+    bias, the input projection of corpus windows, a seeded h0 and cotangent.
+    Returns {(B, T): {"fwd": readings, "bwd": readings}}."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.ops.gru import input_projection
+    from ggml_experiments_tpu_torch.training.data import DataConfig, load_corpus, make_examples
+
+    bf16 = torch.bfloat16
+    cell = fparams.cell
+    u = cell.units
+    wr = cell.recurrent_kernel.to(bf16).contiguous()
+    brec = cell.bias[1].float().contiguous()
+    text = load_corpus(CORPUS_TRAIN)
+    out = {}
+    for B, T in TRAIN_SHAPES:
+        ex = make_examples(text, tok, DataConfig(seq_length=T))
+        ids = ex[np.random.default_rng(B).permutation(len(ex))[:B], :T]
+        check(ids.shape == (B, T), f"{tag}: the corpus gives {ids.shape} windows, want {(B, T)}")
+        xs = fparams.embeddings[torch.from_numpy(ids.T.copy()).long().to(dev)]   # (T, B, E)
+        mxs = input_projection(cell, xs, compute_dtype=bf16).contiguous()
+        g = torch.Generator(device=dev).manual_seed(B)
+        h0 = (torch.randn((B, u), generator=g, device=dev) * 0.3).to(bf16)
+        dys = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(bf16)
+
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        torch.cuda.synchronize()
+        pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+        # the yardstick of tf_h_check: the plain version's own distance
+        # between rounding to bf16 and not rounding, on the same operands
+        fys, _ = ft.gru_train_fwd_plain(mxs.float(), h0.float(), wr.float(), brec)
+        d_ys = (ys.float() - pys.float()).abs()
+        d_f = (fys - pys.float()).abs()
+        ys_max, ys_mean, gap = float(d_ys.max()), float(d_ys.mean()), float(d_f.mean())
+        s_mean = float(d_ys[:TF_BF16_SHORT].mean())
+        s_gap = float(d_f[:TF_BF16_SHORT].mean())
+        d_mh = (mhs.float() - pmhs.float()).abs()
+        mh_max, mh_mean = float(d_mh.max()), float(d_mh.mean())
+        del d_ys, d_f, d_mh, fys
+        check(ys_max <= TRAIN_YS_MAX and mh_max <= TRAIN_MHS_MAX
+              and ys_mean <= TF_BF16_MEAN_FRAC_LONG * gap
+              and s_mean <= TF_BF16_MEAN_FRAC_SHORT * s_gap,
+              f"{tag}: forward B={B} T={T}: ys max abs err {ys_max:.3g} (limit {TRAIN_YS_MAX}), "
+              f"mhs max {mh_max:.3g} (limit {TRAIN_MHS_MAX}), ys mean {ys_mean:.3g} (limit "
+              f"{TF_BF16_MEAN_FRAC_LONG} x {gap:.3g}), over the first {TF_BF16_SHORT} steps "
+              f"{s_mean:.3g} (limit {TF_BF16_MEAN_FRAC_SHORT} x {s_gap:.3g})")
+        fwd_ms = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1)
+        fwd_plain_ms = cuda_ms(lambda: ft.gru_train_fwd_plain(mxs, h0, wr, brec), n=2, warmup=1)
+        nbytes = tensor_bytes(mxs, h0, wr, brec, ys, mhs)
+        fb_ms, fb_by = bound(nbytes, 2 * T * B * u * 3 * u, "bfloat16")
+        log(f"[{tag}] forward B={B} T={T} U={u} bf16: ys max abs err {ys_max:.3g}, mean "
+            f"{ys_mean:.3g} (plain f32 vs bf16: {gap:.3g}), first {TF_BF16_SHORT} steps mean "
+            f"{s_mean:.3g} (plain f32 vs bf16: {s_gap:.3g}) | mhs max {mh_max:.3g}, mean "
+            f"{mh_mean:.3g} | kernel {fwd_ms:.3f} ms = "
+            f"{fwd_ms * 1e3 / T:.1f} us/step | plain {fwd_plain_ms:.2f} ms | bound "
+            f"{fb_ms:.3f} ms ({fb_by}) | library: none")
+
+        # backward from the plain forward's residuals, so both sides get equal inputs
+        got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        torch.cuda.synchronize()
+        want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+        names = ("dmxs", "dwr", "dbrec", "dh0")
+        rel, dmx_abs = {}, 0.0
+        for name, a, a2, w in zip(names, got, again, want):
+            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
+                  f"{tag}: backward B={B}: {name} shape or values")
+            check(torch.equal(a, a2), f"{tag}: backward B={B}: two launches on the same inputs "
+                                      f"give different {name}")
+            d = float((a.float() - w.float()).abs().max())
+            rel[name] = d / float(w.float().abs().max())
+            if name == "dmxs":
+                dmx_abs = d
+            check(rel[name] <= TRAIN_GRAD_REL[name],
+                  f"{tag}: backward B={B} T={T}: {name} max |diff| / max |plain| = "
+                  f"{rel[name]:.3g} > {TRAIN_GRAD_REL[name]}")
+        del again
+        bwd_ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=5,
+                         warmup=1)
+        bwd_plain_ms = cuda_ms(lambda: ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr), n=2,
+                               warmup=1)
+        nbytes = tensor_bytes(mxs, pmhs, pys, dys, h0, wr, *got)
+        bb_ms, bb_by = bound(nbytes, 4 * T * B * u * 3 * u, "bfloat16")
+        log(f"[{tag}] backward B={B} T={T} U={u} bf16: max |diff| / max |plain|: "
+            + ", ".join(f"{n} {rel[n]:.3g}" for n in names)
+            + f" | two launches bit-equal | kernel {bwd_ms:.3f} ms = {bwd_ms * 1e3 / T:.1f} "
+              f"us/step | plain {bwd_plain_ms:.2f} ms | bound {bb_ms:.3f} ms ({bb_by}) | "
+              f"library: none")
+        out[(B, T)] = {
+            "fwd": dict(max_abs_err=ys_max, ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fb_ms,
+                        bound_by=fb_by, library_ms=None),
+            "bwd": dict(max_abs_err=dmx_abs, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms,
+                        bound_by=bb_by, library_ms=None)}
+        del got, want, ys, mhs, pys, pmhs, mxs, dys, xs
+    return out
+
+
+def params_equal(a, b):
+    import torch
+
+    from ggml_experiments_tpu_torch.training.gru_trainer import param_leaves
+
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(param_leaves(a), param_leaves(b)))
+
+
+def profiled_step_shares(step, n):
+    """``n`` calls of ``step()`` under ``torch.profiler``: device ms a step by
+    kernel group, and the device's idle share of the window's wall clock.
+    Returns None where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    groups = {"backward kernel": 0.0, "forward kernel": 0.0, "library products": 0.0,
+              "other device work": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue    # an operator's row repeats its kernels' time
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
+        if "gru_train_bwd_kernel" in e.key:
+            groups["backward kernel"] += ms
+        elif "gru_train_fwd_kernel" in e.key:
+            groups["forward kernel"] += ms
+        elif any(w in e.key for w in ("gemm", "nvjet", "cutlass", "cublas")):
+            groups["library products"] += ms
+        else:
+            groups["other device work"] += ms
+    busy = sum(groups.values())
+    if busy <= 0.0:
+        return None
+    return dict(groups, wall_ms=wall_ms, busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall_ms))
+
+
+def train_phase(tag, dev, tok, kernel_ms):
+    """The training main path at full width (see the module docstring, 12).
+    ``kernel_ms`` is (forward, backward) kernel time at the main shape, for
+    the step's breakdown. Returns the kernels' launches on the main run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch import cli
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params, save_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.gru_textgen import GRUConfig
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.training import TrainConfig, train, train_from_text
+    from ggml_experiments_tpu_torch.training.data import (
+        DataConfig,
+        batches,
+        load_corpus,
+        make_examples,
+    )
+    from ggml_experiments_tpu_torch.training.gru_trainer import (
+        adam_init,
+        adam_update,
+        make_train_step,
+        param_leaves,
+    )
+
+    bf16 = torch.bfloat16
+    B, T = TRAIN_SHAPES[0]
+    text = load_corpus(CORPUS_TRAIN)
+    data = DataConfig(seq_length=T, batch_size=B)
+    tc = TrainConfig(epochs=1, log_every=1, compute_dtype=bf16)
+    n_steps = len(make_examples(text, tok, data)) // B
+    check(n_steps >= TRAIN_RESUME_AFTER + 2, f"{tag}: the corpus gives only {n_steps} batches")
+
+    port.reset_kernel_launches()
+    for k in ft.PLAIN_CALLS:
+        ft.PLAIN_CALLS[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, history, _ = train_from_text(text, model_config=GRUConfig(), train_config=tc,
+                                         data_config=data, seed=0)
+    torch.cuda.synchronize()
+    launches = port.kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in history]
+    check(params.device.type == "cuda" and params.cell.recurrent_kernel.shape == (1024, 3072),
+          f"{tag}: trained params are not the full-width model on the card")
+    check(len(history) == n_steps and all(np.isfinite(losses)),
+          f"{tag}: {len(history)} steps logged of {n_steps}, losses {losses}")
+    check(losses[-1] < losses[0] - 0.15, f"{tag}: the loss did not fall: {losses}")
+    check(launches["fused_gru_train_fwd"] == n_steps
+          and launches["fused_gru_train_bwd"] == n_steps and not any(ft.PLAIN_CALLS.values()),
+          f"{tag}: {n_steps} steps launched {launches}, plain-version runs {ft.PLAIN_CALLS}")
+    # steady-state step time: the history's clock stops after each step's loss
+    # was read back; the first step also loads the kernels
+    steps_s = np.diff([h["elapsed_s"] for h in history])
+    step_ms = float(np.median(steps_s)) * 1e3
+    # Adam alone, on a scratch copy of the model with seeded gradients
+    scratch = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(1), device=dev)
+    leaves = [t.requires_grad_(True) for _, t in param_leaves(scratch)]
+    grads = [torch.randn_like(t) for t in leaves]
+    adam = adam_init(scratch)[0]
+    adam_ms = cuda_ms(lambda: adam_update(scratch, grads, adam, 1e-3), n=5, warmup=1)
+    # three more steps on the scratch model under the profiler
+    step_fn = make_train_step(1e-3, compute_dtype=bf16)
+    inp, tgt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in next(iter(batches(
+        make_examples(text, tok, data), data, seed=0))))
+    before = port.kernel_launches()
+    prof = profiled_step_shares(lambda: step_fn(scratch, (adam,), inp, tgt), 3)
+    after = port.kernel_launches()
+    check(all(after[k] - before[k] == 3 for k in ("fused_gru_train_fwd", "fused_gru_train_bwd")),
+          f"{tag}: the profiled steps launched {before} -> {after}")
+    del grads, adam, scratch, inp, tgt
+    rest_ms = step_ms - sum(kernel_ms) - adam_ms
+    log(f"[{tag}] train_from_text corpus_train.txt bf16 B={B} T={T} E=256 U=1024: {n_steps} "
+        f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} | launches fwd "
+        f"{launches['fused_gru_train_fwd']} bwd {launches['fused_gru_train_bwd']}, plain-version "
+        f"runs 0 | {step_ms:.2f} ms/step (median of {len(steps_s)}, loss read back each step) = "
+        f"{B * T / step_ms * 1e3:,.0f} tokens/s | of a step: forward kernel {kernel_ms[0]:.2f} "
+        f"ms, backward kernel {kernel_ms[1]:.2f} ms, Adam {adam_ms:.2f} ms, the rest (input "
+        f"projection, vocab head, their gradients, loss, host) {rest_ms:.2f} ms | peak device "
+        f"memory {peak_gb:.2f} GB")
+    if prof is None:
+        log(f"[{tag}] torch.profiler recorded no device time: the step is not split further")
+    else:
+        log(f"[{tag}] 3 steps under torch.profiler: {prof['wall_ms']:.2f} ms/step wall, device "
+            f"busy {prof['busy_ms']:.2f} ms/step (idle share {prof['idle_share']:.3f}): "
+            + ", ".join(f"{k} {prof[k]:.2f} ms" for k in ("backward kernel", "forward kernel",
+                                                          "library products",
+                                                          "other device work")))
+
+    # the same run through train(), whole and interrupted + resumed
+    def fresh():
+        init = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(0), device=dev)
+        return init, list(batches(make_examples(text, tok, data), data, seed=0, epochs=1))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init, stream = fresh()
+        whole, _ = train(init, stream, tc)
+        check(params_equal(whole, params), f"{tag}: train() and train_from_text() differ on the "
+                                           f"same seed: the step is not reproducible")
+        ck = os.path.join(tmp, "resume.gxt")
+        tcr = TrainConfig(epochs=1, log_every=1, compute_dtype=bf16, resume_path=ck,
+                          save_every=TRAIN_RESUME_AFTER - 1)
+        train(init, stream[:TRAIN_RESUME_AFTER], tcr)
+        size = os.path.getsize(ck)
+        resumed, hist = train(init, stream, tcr)
+        check(hist[0]["step"] == TRAIN_RESUME_AFTER, f"{tag}: resumed at step {hist[0]['step']}")
+        check(params_equal(resumed, params), f"{tag}: the resumed run's parameters differ from "
+                                             f"the uninterrupted run's")
+        log(f"[{tag}] interrupted after {TRAIN_RESUME_AFTER} steps, resumed from its train-state "
+            f"file ({size:,} bytes, saved after step {TRAIN_RESUME_AFTER - 1}) at step "
+            f"{hist[0]['step']}: all {len(leaves)} parameter tensors bit-equal to the "
+            f"uninterrupted run, and train() bit-equal to train_from_text()")
+        del whole, resumed, init, stream
+
+        # export and read back
+        out = os.path.join(tmp, "gru.bin")
+        save_gru_params(out, params)
+        back = load_gru_params(out, qtype="q8_0", device=dev)
+        ids, lens = tok.encode_batch(["ROMEO:", "the ", "What"])
+        toks = gru_textgen.generate(back, ids, lens, 100)
+        check(toks.shape == (3, 100) and int(toks.min()) >= 0 and int(toks.max()) < 66,
+              f"{tag}: generate from the exported gru.bin: shape/range")
+        log(f"[{tag}] exported gru.bin ({os.path.getsize(out):,} bytes) -> generate (q8_0) "
+            f"after {n_steps} steps of training: {tok.decode(toks[0].tolist())[:60]!r}")
+        del back
+
+        # the command at its default batch size
+        small = os.path.join(tmp, "corpus.txt")
+        with open(small, "w") as f:
+            f.write(text[:TRAIN_CLI_CHARS])
+        cli_out = os.path.join(tmp, "cli_gru.bin")
+        before = port.kernel_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train-gru", "--corpus", small, "--epochs", "1", "--compute",
+                           "bfloat16", "--log-every", "1", "--output", cli_out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        after = port.kernel_launches()
+        summary = json.loads(buf.getvalue().splitlines()[-1])
+        cli_steps = (TRAIN_CLI_CHARS // 101) // 64
+        check(rc == 0 and summary["steps"] == cli_steps - 1
+              and np.isfinite(summary["final_loss"]) and os.path.exists(cli_out),
+              f"{tag}: train-gru: rc {rc}, summary {summary}")
+        check(all(after[k] - before[k] == cli_steps
+                  for k in ("fused_gru_train_fwd", "fused_gru_train_bwd"))
+              and not any(ft.PLAIN_CALLS.values()),
+              f"{tag}: train-gru launched {before} -> {after}")
+        log(f"[{tag}] train-gru at its defaults (B=64, T=100, E=256, U=1024) bf16, "
+            f"{cli_steps} steps on the corpus's first {TRAIN_CLI_CHARS:,} characters: "
+            f"{json.dumps(summary)} in {cli_s:.2f} s | one forward and one backward launch a "
+            f"step")
+    return launches
+
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -739,6 +1078,22 @@ def main() -> int:
             f"all {len(keys)} requests equal to the uninterrupted engine and to the offline "
             f"decode (q5_1, dense weight route, on the card)")
 
+    # ---- 11. the fused training pair against its plain versions ------------------------
+    del p51, mem
+    torch.cuda.empty_cache()
+    fparams = load_gru_params(CKPT, device=dev)
+    train_k = train_kernel_phase("11 train kernels", fparams, dev, tok)
+    del fparams
+    torch.cuda.empty_cache()
+
+    # ---- 12. training at full width ----------------------------------------------------
+    main_k = train_k[TRAIN_SHAPES[0]]
+    train_launches = train_phase("12 training", dev, tok,
+                                 (main_k["fwd"]["ms"], main_k["bwd"]["ms"]))
+    for part in ("fwd", "bwd"):
+        name = f"fused_gru_train_{part}"
+        kernels[name] = dict(main_k[part], launches=train_launches[name])
+
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
     qmm_at = "ggml_experiments_tpu/quant/pallas_kernels.py:253"
@@ -749,6 +1104,10 @@ def main() -> int:
     for route in ("", "_q4_0", "_dense"):
         meta["fused_gru_decode" + route] = (src + "gru_persistent.cu", dec_at)
         meta["fused_slot_tick" + route] = (src + "gru_persistent.cu", tick_at)
+    meta["fused_gru_train_fwd"] = (src + "gru_train.cu",
+                                   "ggml_experiments_tpu/ops/fused_gru_train.py:186")
+    meta["fused_gru_train_bwd"] = (src + "gru_train.cu",
+                                   "ggml_experiments_tpu/ops/fused_gru_train.py:285")
     line = []
     for name, (source, replaces) in meta.items():
         check(name in kernels, f"{name} was not measured")

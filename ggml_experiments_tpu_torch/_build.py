@@ -22,7 +22,7 @@ from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("qmatmul", "gru_persistent")
+SOURCES = ("qmatmul", "gru_persistent", "gru_train")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -4,6 +4,7 @@
   python -m ggml_experiments_tpu_torch serve    --weights gru.bin
   python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q8.gxt
   python -m ggml_experiments_tpu_torch eval     --weights gru.bin [--corpus text.txt]
+  python -m ggml_experiments_tpu_torch train-gru --corpus text.txt [--compute bfloat16]
 
 ``generate`` with no --prompt reads one line from stdin; ``serve`` reads one
 prompt per line and streams each continuation. ``--weights`` takes the
@@ -154,6 +155,43 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_train_gru(args) -> int:
+    """Train the char GRU on a text file; prints a JSON summary."""
+    from ggml_experiments_tpu_torch.device import resolve_dtype
+    from ggml_experiments_tpu_torch.formats.gru_bin import save_gru_params
+    from ggml_experiments_tpu_torch.models.gru_textgen import GRUConfig
+    from ggml_experiments_tpu_torch.training import TrainConfig, train_from_text
+    from ggml_experiments_tpu_torch.training.data import DataConfig, load_corpus
+
+    text = load_corpus(args.corpus)
+    params, history, _ = train_from_text(
+        text,
+        model_config=GRUConfig(embed_dim=args.embed_dim, units=args.units),
+        train_config=TrainConfig(
+            epochs=args.epochs, checkpoint_path=args.checkpoint,
+            log_every=args.log_every, eval_every=args.eval_every,
+            compute_dtype=resolve_dtype(args.compute),
+            resume_path=args.resume, save_every=args.save_every,
+        ),
+        data_config=DataConfig(seq_length=args.seq_length, batch_size=args.batch_size),
+        seed=args.seed,
+        device=args.device,
+        eval_text=load_corpus(args.eval_corpus) if args.eval_corpus else None,
+    )
+    if args.output:
+        save_gru_params(args.output, params)
+        print(f"exported weights to {args.output} (reference gru.bin format)")
+    if history:
+        summary = {"final_loss": history[-1]["loss"], "steps": history[-1]["step"]}
+        val = [h["val_ppl"] for h in history if "val_ppl" in h]
+        if val:
+            summary["final_val_ppl"] = val[-1]
+    else:  # resumed past the end of the stream: a completed run is a no-op
+        summary = {"resumed_complete": True}
+    print(json.dumps(summary))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ggml_experiments_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -205,6 +243,29 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--seed", type=int, default=0)
     _add_common(e)
     e.set_defaults(fn=cmd_eval)
+
+    t = sub.add_parser("train-gru", help="train the char GRU on a text file")
+    t.add_argument("--corpus", required=True, help="text file (e.g. shakespeare.txt)")
+    t.add_argument("--epochs", type=int, default=20)
+    t.add_argument("--seq-length", type=int, default=100)
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--embed-dim", type=int, default=256)
+    t.add_argument("--units", type=int, default=1024)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--checkpoint", default=None, help="best-by-loss .gxt path")
+    t.add_argument("--resume", default=None,
+                   help="full train-state .gxt (params+Adam+step): written every "
+                        "--save-every steps, and an existing file resumes the "
+                        "interrupted run bit-exactly")
+    t.add_argument("--save-every", type=int, default=0,
+                   help="steps between train-state saves (needs --resume)")
+    t.add_argument("--output", default=None, help="export final weights as gru.bin")
+    t.add_argument("--eval-corpus", default=None, help="held-out text for val ppl")
+    t.add_argument("--eval-every", type=int, default=0,
+                   help="validation ppl every N steps (needs --eval-corpus)")
+    _add_common(t)
+    t.set_defaults(fn=cmd_train_gru)
     return ap
 
 

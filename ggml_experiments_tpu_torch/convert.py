@@ -1,4 +1,4 @@
-"""Build the port's GRU params from numpy arrays.
+"""Build the port's GRU params, and its trainer's Adam state, from numpy arrays.
 
 ``arrays`` holds the six gru.bin tensors by name (``embeddings``, ``kernel``,
 ``recurrent_kernel``, ``bias``, ``dense_kernel``, ``dense_bias``). Each of the
@@ -7,6 +7,11 @@ dict of numpy planes in the JAX package's QTensor layout: ``codes``,
 ``scales``, ``shape`` (logical ``(K, N)``), ``qtype`` (default ``q8_0``) and
 the format's ``mins`` / ``hibits`` / ``supers``. The matrices may differ in
 qtype, so both packages can be handed identical weights.
+
+``requires_grad=True`` gives float32 training parameters, and
+:func:`adam_state_from_numpy` turns an optax Adam state ``(count, mu, nu)``,
+its moments as the same six named arrays, into the trainer's optimizer state:
+with both, the two packages' trainers continue from one point.
 """
 
 from __future__ import annotations
@@ -40,11 +45,16 @@ def qtensor_from_planes(planes: Mapping, device) -> QTensor:
 
 
 def params_from_numpy(arrays: Mapping, qtype: Optional[str] = None,
-                      device: DeviceLike = None) -> GRUTextGenParams:
+                      device: DeviceLike = None,
+                      requires_grad: bool = False) -> GRUTextGenParams:
     dev = resolve_device(device)
+    if requires_grad and (qtype or any(isinstance(a, Mapping) for a in arrays.values())):
+        raise ValueError("training parameters are float32: no qtype, no quantized planes")
 
     def f32(a):
-        return None if a is None else torch.from_numpy(np.array(a, np.float32)).to(dev)
+        if a is None:
+            return None
+        return torch.from_numpy(np.array(a, np.float32)).to(dev).requires_grad_(requires_grad)
 
     def weight(a):
         if isinstance(a, Mapping):
@@ -63,3 +73,14 @@ def params_from_numpy(arrays: Mapping, qtype: Optional[str] = None,
         dense_kernel=weight(arrays["dense_kernel"]),
         dense_bias=f32(arrays.get("dense_bias")),
     )
+
+
+def adam_state_from_numpy(count, mu: Mapping, nu: Mapping, device: DeviceLike = None):
+    """The trainer's optimizer state from an optax ``ScaleByAdamState``:
+    ``count`` steps taken, ``mu`` / ``nu`` the first and second moments as the
+    six named arrays of :func:`params_from_numpy`."""
+    from ggml_experiments_tpu_torch.training.gru_trainer import AdamState
+
+    return (AdamState(count=torch.tensor(int(count), dtype=torch.int32),
+                      mu=params_from_numpy(mu, device=device),
+                      nu=params_from_numpy(nu, device=device)),)

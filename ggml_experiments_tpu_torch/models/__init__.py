@@ -6,6 +6,8 @@ from ggml_experiments_tpu_torch.models.gru_textgen import (
     decode,
     forward_sequence,
     generate,
+    init_params,
 )
 
-__all__ = ["GRUConfig", "GRUTextGenParams", "decode", "forward_sequence", "generate"]
+__all__ = ["GRUConfig", "GRUTextGenParams", "decode", "forward_sequence", "generate",
+           "init_params"]

@@ -23,6 +23,7 @@ from ggml_experiments_tpu_torch.ops.gru import (
     gru_cell,
     gru_combine,
     gru_sequence,
+    gru_sequence_time_major,
     input_projection,
     recurrent_projection,
 )
@@ -58,6 +59,44 @@ class GRUTextGenParams:
         return self.embeddings.device
 
 
+def init_params(config: GRUConfig, generator: torch.Generator,
+                device=None) -> GRUTextGenParams:
+    """Random float32 params with the Keras defaults' distributions: uniform
+    +-0.05 embeddings, Glorot-uniform input and dense kernels, an orthogonal
+    recurrent kernel, zero biases. Drawn from ``generator`` on its own device,
+    then moved to ``device`` (default: the generator's)."""
+    gdev = generator.device
+    dev = torch.device(device) if device is not None else gdev
+    v, e, u = config.vocab_size, config.embed_dim, config.units
+
+    def uniform(shape, limit):
+        x = torch.rand(shape, generator=generator, device=gdev, dtype=torch.float32)
+        return ((2.0 * x - 1.0) * limit).to(dev)
+
+    def glorot(shape):
+        return uniform(shape, (6.0 / (shape[0] + shape[1])) ** 0.5)
+
+    def orthogonal(rows, cols):
+        # QR of a tall normal matrix, signs fixed by R's diagonal; transposed
+        # when the result is wide
+        tall = torch.randn((max(rows, cols), min(rows, cols)), generator=generator,
+                           device=gdev, dtype=torch.float32)
+        q, r = torch.linalg.qr(tall)
+        q = q * torch.sign(torch.diagonal(r))
+        return (q.t() if rows < cols else q).contiguous().to(dev)
+
+    return GRUTextGenParams(
+        embeddings=uniform((v, e), 0.05),
+        cell=GRUCellParams(
+            kernel=glorot((e, 3 * u)),
+            recurrent_kernel=orthogonal(u, 3 * u),
+            bias=torch.zeros((2, 3 * u), dtype=torch.float32, device=dev),
+        ),
+        dense_kernel=glorot((u, v)),
+        dense_bias=torch.zeros((v,), dtype=torch.float32, device=dev),
+    )
+
+
 def init_state(params: GRUTextGenParams, batch: int) -> torch.Tensor:
     return torch.zeros((batch, params.units), dtype=torch.float32, device=params.device)
 
@@ -72,20 +111,24 @@ def step(params: GRUTextGenParams, token_ids: torch.Tensor, h: torch.Tensor, *,
 
 
 def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Tensor] = None,
-                     *, compute_dtype=torch.float32,
+                     *, compute_dtype=torch.float32, remat: bool = False,
                      time_major: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced full-sequence forward. token_ids: (B, T) int ->
-    (logits (B, T, V), final state (B, U)). The input projection and the
-    vocab head are whole-sequence products; only the recurrent projection
-    runs inside the time loop."""
-    if time_major:
-        raise NotImplementedError(
-            "the time-major forward and its fused train kernels are not ported yet "
-            "(ROADMAP.md, 'Port: still to port', item 5: GRU training)")
+    (logits (B, T, V), final state (B, U)). With ``time_major=True`` the ids
+    are (T, B) and the logits come back (T, B, V): the layout of the time
+    loop and the training path (``training/gru_trainer.loss_fn``), where only
+    the small int ids are ever transposed. The input projection and the vocab
+    head are whole-sequence products; only the recurrent projection runs
+    inside the time loop, which at bfloat16 on a GPU is the fused kernel pair
+    (``ops/fused_gru_train``). The time-major path takes the embedding
+    through a one-hot product, so that its gradient is reproducible.
+    ``remat`` checkpoints the plain loop's cell."""
     ids = torch.as_tensor(token_ids, device=params.device)
-    h = init_state(params, ids.shape[0]) if h0 is None else h0
-    xs = embedding_lookup(params.embeddings, ids)                   # (B, T, E)
-    ys, h_last = gru_sequence(params.cell, xs, h, compute_dtype=compute_dtype)
+    b = ids.shape[1] if time_major else ids.shape[0]
+    h = init_state(params, b) if h0 is None else h0
+    xs = embedding_lookup(params.embeddings, ids, one_hot_grad=time_major)   # (..., E)
+    seq = gru_sequence_time_major if time_major else gru_sequence
+    ys, h_last = seq(params.cell, xs, h, compute_dtype=compute_dtype, remat=remat)
     logits = linear(ys, params.dense_kernel, params.dense_bias, compute_dtype=compute_dtype)
     return logits, h_last
 

@@ -13,7 +13,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
+from ggml_experiments_tpu_torch.device import resolve_dtype
 from ggml_experiments_tpu_torch.ops.linear import Weight, linear
 
 
@@ -58,18 +60,74 @@ def gru_cell(p: GRUCellParams, x: torch.Tensor, h: torch.Tensor, *,
     return gru_combine(mx, mh, h)
 
 
-def gru_sequence(p: GRUCellParams, xs: torch.Tensor, h0: torch.Tensor, *,
-                 compute_dtype=torch.float32):
-    """Run over a full sequence, batch-major. xs: (B, T, E) -> (states
-    (B, T, U), final state (B, U)). The input projection of the whole
+def _use_fused_train(p: GRUCellParams, fused: Optional[bool]) -> bool:
+    """Whether the time-major forward takes the fused kernel pair: an
+    explicit ``fused`` decides; otherwise dense float weights with a bias, on
+    a GPU, at a width the CUDA kernels take (U a multiple of 8, at most 8
+    units per streaming multiprocessor). On the CPU the default is the plain
+    loop under autograd."""
+    if fused is not None:
+        return fused
+    w = p.recurrent_kernel
+    if not isinstance(w, torch.Tensor) or p.bias is None or w.device.type != "cuda":
+        return False
+    from ggml_experiments_tpu_torch.ops.fused_gru_train import UNITS_PER_BLOCK
+
+    sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+    return p.units % UNITS_PER_BLOCK == 0 and p.units // UNITS_PER_BLOCK <= sms
+
+
+def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Tensor, *,
+                            compute_dtype=torch.float32, remat: bool = False,
+                            fused: Optional[bool] = None):
+    """Time-major forward, the training layout: xs_tm (T, B, E) -> (ys
+    (T, B, U), final state (B, U)). The input projection of the whole
     sequence is one product; only the recurrent projection runs per step.
-    The time-major form and its fused kernel pair belong to training."""
-    mxs = input_projection(p, xs, compute_dtype=compute_dtype)  # (B, T, 3U)
+
+    At ``bfloat16``, models the fused pair takes (see :func:`_use_fused_train`;
+    ``fused=True`` forces it, and then CPU tensors run the kernels' plain
+    versions) go through ``ops/fused_gru_train.fused_gru_scan``: the whole
+    time loop in one kernel forward and one backward, states in bf16.
+    Everything else is a plain time loop under autograd; ``remat=True``
+    checkpoints its cell (``torch.utils.checkpoint``), which the fused pair
+    does not need."""
+    cd = resolve_dtype(compute_dtype)
+    mxs = input_projection(p, xs_tm, compute_dtype=cd)  # (T, B, 3U)
+
+    if cd == torch.bfloat16 and _use_fused_train(p, fused):
+        from ggml_experiments_tpu_torch.ops.fused_gru_train import fused_gru_scan
+
+        if p.bias is None or not isinstance(p.recurrent_kernel, torch.Tensor):
+            raise ValueError("the fused train kernels take a dense float recurrent kernel "
+                             "and a bias")
+        ys = fused_gru_scan(mxs, h0.to(cd), p.recurrent_kernel, p.bias[1])
+        if ys.shape[0] == 0:
+            return ys, h0
+        return ys, ys[-1]
+
+    def step(h, mx_t):
+        return gru_combine(mx_t, recurrent_projection(p, h, compute_dtype=cd), h)
+
     h = h0
     ys = []
-    for t in range(xs.shape[1]):
-        h = gru_combine(mxs[:, t], recurrent_projection(p, h, compute_dtype=compute_dtype), h)
+    for t in range(xs_tm.shape[0]):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(step, h, mxs[t], use_reentrant=False)
+        else:
+            h = step(h, mxs[t])
         ys.append(h)
     if not ys:
-        return h0.new_zeros((h0.shape[0], 0, h0.shape[1])), h0
-    return torch.stack(ys, dim=1), h
+        return h0.new_zeros((0, h0.shape[0], h0.shape[1])), h0
+    return torch.stack(ys), h
+
+
+def gru_sequence(p: GRUCellParams, xs: torch.Tensor, h0: torch.Tensor, *,
+                 compute_dtype=torch.float32, remat: bool = False,
+                 fused: Optional[bool] = None):
+    """Run over a full sequence, batch-major. xs: (B, T, E) -> (states
+    (B, T, U), final state (B, U)): a wrapper over
+    :func:`gru_sequence_time_major`, transposing the small (B, T, E)
+    embeddings before the 3U-wide projection."""
+    ys, h_last = gru_sequence_time_major(p, xs.swapaxes(0, 1), h0, compute_dtype=compute_dtype,
+                                         remat=remat, fused=fused)
+    return ys.swapaxes(0, 1), h_last

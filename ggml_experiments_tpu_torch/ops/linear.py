@@ -33,6 +33,17 @@ def linear(x: torch.Tensor, w: Weight, b: Optional[torch.Tensor] = None, *,
     return y
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row gather (ggml's ``ggml_get_rows``)."""
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+                     one_hot_grad: bool = False) -> torch.Tensor:
+    """Row gather (ggml's ``ggml_get_rows``).
+
+    ``one_hot_grad=True`` computes the lookup as a one-hot product instead:
+    the same values, but the table's gradient is then a matrix product and
+    not a scatter-add. On CUDA the gather's backward sums duplicate rows with
+    atomics, in an order that changes from run to run; the product is
+    reproducible, which the trainer's bit-exact resume needs. Use it under
+    autograd when V is small; the plain gather is the faster forward."""
+    if one_hot_grad:
+        onehot = torch.nn.functional.one_hot(ids.long(), table.shape[0]).to(table.dtype)
+        return torch.matmul(onehot, table)
     return table[ids.long()]

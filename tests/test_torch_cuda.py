@@ -180,3 +180,111 @@ def test_tick_feeds_zero_past_the_prompt_buffer(dev, params):
     assert torch.equal(t_k.int()[:, :7], t_p[:, :7]) and not bool(t_p[:, 4:7].any())
     assert torch.equal(s_k.pos, pos_p)
     assert float((s_k.h - h_p).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the fused training pair (csrc/gru_train.cu)
+# ---------------------------------------------------------------------------
+
+def train_operands(dev, t, b, u, seed=0):
+    """bf16 operands of the training scan and a cotangent, on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bf = torch.bfloat16
+    mxs = (torch.randn((t, b, 3 * u), generator=g) * 0.8).to(bf).to(dev)
+    h0 = (torch.randn((b, u), generator=g) * 0.3).to(bf).to(dev)
+    wr = (torch.randn((u, 3 * u), generator=g) / np.sqrt(u)).to(bf).to(dev)
+    brec = (torch.randn((3 * u,), generator=g) * 0.2).to(dev)
+    dys = (torch.randn((t, b, u), generator=g) * 0.1).to(bf).to(dev)
+    return mxs, h0, wr, brec, dys
+
+
+def rel_max(got, want):
+    return float((got.float() - want.float()).abs().max()) / (float(want.float().abs().max())
+                                                              + 1e-12)
+
+
+# B below one 16-row tile, ragged, and several tiles per warp; U with a ragged
+# last 32-wide K step and a ragged last 16-row tile of the weight gradient
+TRAIN_SHAPES = [(5, 6, 96), (7, 70, 104), (4, 300, 96), (3, 64, 1024)]
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES)
+def test_train_forward_kernel_matches_plain(dev, t, b, u):
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, _ = train_operands(dev, t, b, u)
+    before = ft.LAUNCHES["fused_gru_train_fwd"]
+    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["fused_gru_train_fwd"] == before + 1
+    pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    # the same roundings; the sums run in another order, so a value may land
+    # on the neighbouring bf16 number and feed the later steps
+    assert float((ys.float() - pys.float()).abs().max()) <= 2e-2
+    assert float((mhs.float() - pmhs.float()).abs().max()) <= 4e-2
+    assert float((ys.float() - pys.float()).abs().mean()) <= 2e-4
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES)
+def test_train_backward_kernel_matches_plain_and_repeats_bit_equal(dev, t, b, u):
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    before = ft.LAUNCHES["fused_gru_train_bwd"]
+    got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    again = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["fused_gru_train_bwd"] == before + 2
+    want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
+    for name, g, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        # same inputs, same roundings, other summation orders; a bf16 dmh on
+        # a rounding boundary may land one step off and feed the carry
+        assert rel_max(g, w) <= 1e-2, (name, rel_max(g, w))
+    for name, g, a in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again):
+        assert torch.equal(g, a), f"{name}: two launches on the same inputs differ"
+
+
+def test_train_scan_autograd_runs_the_kernels(dev):
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, 6, 40, 96)
+    args = [mxs.clone().requires_grad_(), h0.clone().requires_grad_(),
+            wr.float().requires_grad_(), brec.clone().requires_grad_()]
+    launches, plain = dict(ft.LAUNCHES), dict(ft.PLAIN_CALLS)
+    ys = ft.fused_gru_scan(*args)
+    (ys.float() * dys.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == {k: v + 1 for k, v in launches.items()} and ft.PLAIN_CALLS == plain
+    pargs = [a.detach().clone().requires_grad_() for a in args]
+    pys = ft.fused_gru_scan_plain(*pargs)
+    (pys.float() * dys.float()).sum().backward()
+    assert float((ys.detach().float() - pys.detach().float()).abs().max()) <= 2e-2
+    for a, p in zip(args, pargs):
+        assert a.grad.dtype == a.dtype and rel_max(a.grad, p.grad) <= 1e-2
+
+
+def test_train_kernels_name_the_shape_they_refuse(dev):
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, 2, 4, 100)     # U not a multiple of 8
+    with pytest.raises(ValueError, match=r"\(2, 4, 100\)"):
+        ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+    mxs, h0, wr, brec, dys = train_operands(dev, 1, 3000, 1024)  # staging past shared memory
+    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+    with pytest.raises(ValueError, match=r"\(1, 3000, 1024\)"):
+        ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.gru_train_fwd_cuda(mxs.float(), h0, wr, brec)
+    # the largest batch whose staging fits 227 KB of shared memory at U=1024
+    mxs, h0, wr, brec, dys = train_operands(dev, 2, 1760, 1024)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
+    torch.cuda.synchronize()
+    assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want))
+    mxs, h0, wr, brec, dys = train_operands(dev, 1, 1761, 1024)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    with pytest.raises(ValueError, match=r"\(1, 1761, 1024\)"):
+        ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)

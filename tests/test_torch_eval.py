@@ -98,8 +98,11 @@ def test_forward_sequence_bf16_and_time_major(refs):
     np.testing.assert_allclose(lb.float().numpy(), lf.numpy(), atol=0.25, rtol=0.05)
     empty, h = tg.forward_sequence(tp, np.zeros((2, 0), np.int32))
     assert empty.shape == (2, 0, 66) and not h.any()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tg.forward_sequence(tp, ids.T, time_major=True)
+    # time-major: the same logits, transposed (the training layout)
+    lt, ht = tg.forward_sequence(tp, ids.T, time_major=True)
+    assert lt.shape == (4, 1, 66)
+    np.testing.assert_allclose(lt.swapaxes(0, 1).numpy(), lf.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ht.numpy(), tg.forward_sequence(tp, ids)[1].numpy(), atol=1e-6)
 
 
 def test_compare_logits_and_perplexity_match_jax():
