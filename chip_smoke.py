@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 It builds the port's CUDA kernels from ``ggml_experiments_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes the main path
 gives it, then drives the main paths through the entry points a user calls,
-at full width (V=66, E=256, U=1024). Phases 2-5 run the committed trained
+at full width (the GRU at V=66, E=256, U=1024; MobileViT at the widths of
+apple/mobilevit-small). Phases 2-5 run the committed trained
 checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
 
   1. device: name, power limit, kernel build seconds;
@@ -53,7 +54,31 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      version; the same run interrupted after 4 steps and resumed from its
      train-state file ends bit-equal; the trained weights go to a ``gru.bin``
      that ``generate`` reads back; then ``train-gru`` at its default batch of
-     64 for one epoch of the corpus's first 60,000 characters.
+     64 for one epoch of the corpus's first 60,000 characters;
+ 13. the three vision kernels against their plain versions, at the shapes
+     the main path gives them for B=128 images and on the full checkpoint's
+     weights: the fused transformer layer (``csrc/transformer_layer.cu``) at
+     (bp, L, C) = (512, 256, 144), (512, 64, 192), (512, 16, 240), each stage's
+     first layer with its input projection, its middle layers and its last
+     layer with the final LN and the conv_projection (BN, SiLU); flash
+     attention (``csrc/flash_attention.cu``) at the same shapes in f32 and
+     bf16, beside ``scaled_dot_product_attention``; the fused inverted
+     residual (``csrc/inverted_residual.cu``) at (128, 64, 64, 64), E=256,
+     with the residual;
+ 14. MobileViT through the entry points on
+     ``checkpoints/mobilevit_synth_full.ggml`` (256 px, hidden 144/192/240,
+     2/4/3 layers, 44 labels): ``classify`` of 320 held-out images of the
+     full-size task (``make_dataset``, task rev 4) in batches of 128 at f32
+     (flash, 9 launches a batch), bf16 (fused layer, 9 a batch) and bf16 with
+     ``fused_ir`` (and the inverted residual, 2 a batch), top-1 against the
+     labels and argmax agreement with f32; the card's f32 features of the
+     first 32 images against the plain CPU run; the calibrated
+     ``mobilevit_synth_full_q4km.gxt`` classifying the same images; the
+     ``features`` command; ``extract_features`` at B=128 bf16 timed with CUDA
+     events and one forward split by ``torch.profiler``;
+ 15. the ``VisionEngine`` (ladder 8/32/128, u8 transport, bf16): 300 mixed
+     classify/features requests in bursts, every 23rd canceled, each served
+     result against the offline forward of the same image.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -86,6 +111,19 @@ Tolerances, and why:
     to bf16 and not rounding, over all steps and over the first 8. Backward,
     on equal inputs: each gradient's max |diff| over max |plain| within
     TRAIN_GRAD_REL (readings 0.002-0.006), and two launches bit-equal.
+  * The vision kernels at bf16: both sides round to bf16 at the same places
+    but sum in other orders and call other exp routines, so a value on a
+    rounding boundary may land one bf16 step off and carry on through the
+    layer. Max error within VIT_BF16_MAX of the output's largest value, mean
+    error within VIT_BF16_MEAN_FRAC of the plain version's own mean distance
+    between rounding to bf16 and not rounding (H100 readings and the mutants
+    that skip one rounding are in PERF.md). Flash attention at f32: 1e-5
+    relative. The card's f32 features against the CPU: VIT_CPU_FEATURE_REL
+    relative (cuDNN's and the CPU's f32 convolutions sum in other orders over
+    some fifty layers). A bf16 argmax may differ from the f32 run's, and the
+    engine's from the offline forward's (other batch sizes, other cuDNN
+    algorithms), only where the reference's top-2 logit gap is below
+    VIT_NEAR_TIE.
   * A free-running greedy or sampled sequence may fork where the two best
     scores of a step lie closer than the summation-order error: the first
     divergence of every row must sit at such a near-tie of the plain
@@ -135,6 +173,26 @@ TRAIN_CLI_CHARS = 60000              # corpus prefix of the default-batch CLI ru
 # the training pair against its plain versions (limits: see the docstring)
 TRAIN_YS_MAX, TRAIN_MHS_MAX = 0.1, 0.25
 TRAIN_GRAD_REL = {"dmxs": 2e-2, "dh0": 2e-2, "dwr": 1e-2, "dbrec": 1e-2}
+
+
+# the vision path (phases 13-15): apple/mobilevit-small widths, trained head
+VIT_CKPT = os.path.join(REPO, "checkpoints", "mobilevit_synth_full.ggml")
+VIT_Q4KM = os.path.join(REPO, "checkpoints", "mobilevit_synth_full_q4km.gxt")
+VIT_BATCH, VIT_IMAGES, VIT_CPU_IMAGES = 128, 320, 32
+VIT_IR_SHAPE = (128, 64, 64, 64, 256, 64)     # (B, H, W, C, E, Cout) of layer_2's blocks
+VIT_ENGINE_BURSTS = (5, 8, 30, 128, 3, 100, 17, 2, 7)   # 300 requests
+VIT_CANCEL_EVERY = 23
+# bf16 kernels against their plain versions on the main path's shapes: max
+# error within a fraction of the output's largest value, mean error within a
+# fraction of the plain version's own mean distance between rounding to bf16
+# and not rounding (set from H100 readings so that a kernel that skips one
+# bf16 rounding fails: see the docstring)
+VIT_BF16_MAX = {"layer": 0.05, "flash": 2 ** -6, "ir": 2 ** -6}
+VIT_BF16_MEAN_FRAC = {"layer": 0.15, "flash": 0.1, "ir": 0.01}
+VIT_F32_REL = 1e-5                 # flash at f32 against its plain version
+VIT_CPU_FEATURE_REL = 1e-4         # card f32 features against the CPU plain run
+VIT_NEAR_TIE = 0.1                 # bf16 logit gap under which an argmax may flip
+VIT_ENGINE_FEATURE_MAX = 0.02      # engine vs offline features, x the largest feature
 
 
 class SmokeFailure(AssertionError):
@@ -815,6 +873,389 @@ def train_phase(tag, dev, tok, kernel_ms):
 
 
 
+def vision_kernel_phase(tag, params, dev):
+    """Phase 13: each vision kernel against its plain version on the card at
+    the shapes the main path gives it for B=128 images, with the kernel's,
+    the plain version's and (flash) the library call's times and the bound.
+    Returns {name: kernels-line readings}: a forward's worth of launches
+    summed (2 + 4 + 3 layers), errors the largest over the shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from ggml_experiments_tpu_torch.ops import flash_attention as fa
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    tot = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_t=[0.0, 0.0],
+                   library_ms=None) for k in ("fused_transformer_layer", "flash_mha")}
+    tot["flash_mha"]["library_ms"] = 0.0
+
+    def bf16_check(what, key, got, want, want32):
+        d = (got.float() - want.float()).abs()
+        err, mean = float(d.max()), float(d.mean())
+        scale = float(want.float().abs().max())
+        gap = float((want32.float() - want.float()).abs().mean())
+        check(bool(torch.isfinite(got.float()).all()) and err <= VIT_BF16_MAX[key] * scale
+              and mean <= VIT_BF16_MEAN_FRAC[key] * gap,
+              f"{what}: max abs err {err:.3g} (limit {VIT_BF16_MAX[key]} x {scale:.3g}), mean "
+              f"{mean:.3g} (limit {VIT_BF16_MEAN_FRAC[key]} x {gap:.3g}, the plain version's "
+              f"f32-vs-bf16 mean)")
+        return err, mean, gap, scale
+
+    # (block, the side of its feature map at 256 px)
+    for blk, side in ((params.layer_3, 32), (params.layer_4, 16), (params.layer_5, 8)):
+        n = len(blk.transformer)
+        cin = blk.conv_1x1.kernel.shape[-2]
+        c = blk.conv_1x1.kernel.shape[-1]
+        l = (side // blk.patch_size) ** 2
+        bp = VIT_BATCH * blk.patch_size ** 2
+        pk = blk.conv_projection.kernel
+        # kernel 6: the first layer (input_proj), the middle ones, the last
+        # (final LN + conv_projection with BN and SiLU), as the block runs them
+        variants = [("first", 1, dict(input_proj=blk.conv_1x1.kernel.reshape(cin, c))),
+                    ("middle", n - 2, {}),
+                    ("last", 1, dict(final_ln=(blk.ln_gamma, blk.ln_beta), final_ln_eps=blk.eps,
+                                     output_proj=(pk.reshape(c, -1), blk.conv_projection.bn.scale,
+                                                  blk.conv_projection.bn.bias,
+                                                  blk.conv_projection.activation)))]
+        for name, count, kw in variants:
+            if count <= 0:
+                continue
+            i = {"first": 0, "middle": 1, "last": n - 1}[name]
+            layer = blk.transformer[i]
+            ops = ftl.layer_operands(layer, c, bf16, **kw)
+            ops32 = ftl.layer_operands(layer, c, f32, **kw)
+            width = cin if "input_proj" in kw else c
+            x = torch.randn((bp, l, width), generator=g, device=dev).to(bf16)
+            got = ftl.fused_layer_cuda(x, ops)
+            torch.cuda.synchronize()
+            want = ftl.fused_transformer_layer_plain(x, ops)
+            err, mean, gap, scale = bf16_check(
+                f"{tag}: fused layer {name} (bp, L, C) = ({bp}, {l}, {c})", "layer", got, want,
+                ftl.fused_transformer_layer_plain(x.float(), ops32))
+            del want
+            ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=10)
+            plain_ms = cuda_ms(lambda: ftl.fused_transformer_layer_plain(x, ops), n=2, warmup=1)
+            f = ops.wi.shape[1]
+            cout = got.shape[-1]
+            flops = bp * (4 * l * l * c + 8 * l * c * c + 4 * l * c * f
+                          + (2 * l * width * c if "input_proj" in kw else 0)
+                          + (2 * l * c * cout if "output_proj" in kw else 0))
+            nbytes = bp * l * (width + cout) * 2 + sum(
+                t.numel() * t.element_size() for t in (ops.wq, ops.wk, ops.wv, ops.wo, ops.wi,
+                                                      ops.wo2, ops.win, ops.wout) if t is not None)
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            t = tot["fused_transformer_layer"]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["ms"] += count * ms
+            t["plain_ms"] += count * plain_ms
+            t["bound_t"][0] += count * nbytes / HBM_BYTES_PER_S * 1e3
+            t["bound_t"][1] += count * flops / PEAK_OPS["bfloat16"] * 1e3
+            log(f"[{tag}] fused layer {name} x{count}, (bp, L, Cin, C, Cout) = ({bp}, {l}, "
+                f"{width}, {c}, {cout}) bf16: max abs err {err:.3g} (largest value {scale:.3g}), "
+                f"mean {mean:.3g} (plain f32 vs "
+                f"bf16: {gap:.3g}) | kernel {ms:.4f} ms | plain {plain_ms:.3f} ms | bound "
+                f"{b_ms:.4f} ms ({b_by}) | library: none")
+            del got, x
+        # kernel 7 at the same (bp, L, C): f32 (the main path) and bf16
+        h = blk.transformer[0].attention.num_heads
+        qkv = [torch.randn((bp, l, c), generator=g, device=dev) for _ in range(3)]
+        got = fa.flash_mha_cuda(*qkv, h)
+        torch.cuda.synchronize()
+        want = fa.flash_mha_plain(*qkv, h)
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        check(rel <= VIT_F32_REL, f"{tag}: flash f32 (bp, L, C) = ({bp}, {l}, {c}): max rel err "
+                                  f"{rel:.3g} > {VIT_F32_REL}")
+        q16 = [t.to(bf16) for t in qkv]
+        g16 = fa.flash_mha_cuda(*q16, h)
+        torch.cuda.synchronize()
+        w16 = fa.flash_mha_plain(*q16, h)
+        err16, mean16, gap16, _ = bf16_check(f"{tag}: flash bf16 (bp, L, C) = ({bp}, {l}, {c})",
+                                          "flash", g16, w16,
+                                          fa.flash_mha_plain(*(t.float() for t in q16), h))
+        ms = cuda_ms(lambda: fa.flash_mha_cuda(*qkv, h), n=10)
+        ms16 = cuda_ms(lambda: fa.flash_mha_cuda(*q16, h), n=10)
+        plain_ms = cuda_ms(lambda: fa.flash_mha_plain(*qkv, h), n=2, warmup=1)
+        heads = [t.reshape(bp, l, h, c // h).transpose(1, 2).contiguous() for t in qkv]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads), n=10)
+        flops = 4 * bp * l * l * c
+        nbytes = 4 * bp * l * c * 4
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        t = tot["flash_mha"]
+        t["max_abs_err"] = max(t["max_abs_err"], float((got - want).abs().max()))
+        t["ms"] += n * ms
+        t["plain_ms"] += n * plain_ms
+        t["library_ms"] += n * lib_ms
+        t["bound_t"][0] += n * nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_t"][1] += n * flops / PEAK_OPS["float32"] * 1e3
+        log(f"[{tag}] flash (bp, L, C, H) = ({bp}, {l}, {c}, {h}) x{n}: f32 max rel err "
+            f"{rel:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | bf16 max abs err {err16:.3g}, mean "
+            f"{mean16:.3g} (plain f32 vs bf16: {gap16:.3g}), kernel {ms16:.4f} ms")
+        del got, want, qkv, q16, g16, w16, heads
+    for t in tot.values():
+        t["bound_ms"] = max(t["bound_t"])
+        t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"
+        del t["bound_t"]
+
+    # kernel 8 at layer_2's shape, with the residual, on the model's folded weights
+    b, hh, ww, c, e, cout = VIT_IR_SHAPE
+    blk = params.layer_2[1]
+    wexp, bexp = fir.folded_conv_weights(blk.expand_1x1)
+    kdw, bdw = fir.folded_conv_weights(blk.conv_3x3)
+    wred, bred = fir.folded_conv_weights(blk.reduce_1x1)
+    args = (wexp.reshape(c, e), bexp, kdw.reshape(3, 3, e), bdw, wred.reshape(e, cout), bred)
+    x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(bf16)
+    got = fir.fused_ir_cuda(x, *args, use_residual=True)
+    torch.cuda.synchronize()
+    plain_args = (args[0].to(bf16), args[1], args[2], args[3], args[4].to(bf16), args[5])
+    want = fir.fused_ir_plain(x, *plain_args, use_residual=True)
+    err, mean, gap, _ = bf16_check(f"{tag}: fused inverted residual {VIT_IR_SHAPE}", "ir", got,
+                                   want, fir.fused_ir_plain(x.float(), *args, use_residual=True))
+    ms = cuda_ms(lambda: fir.fused_ir_cuda(x, *args, use_residual=True), n=20)
+    plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *plain_args, use_residual=True), n=3)
+    flops = b * hh * ww * (2 * c * e + 18 * e + 2 * e * cout)
+    nbytes = b * hh * ww * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    log(f"[{tag}] fused inverted residual (B, H, W, C, E, Cout) = {VIT_IR_SHAPE} bf16: max abs err "
+        f"{err:.3g}, mean {mean:.3g} (plain f32 vs bf16: {gap:.3g}) | kernel {ms:.4f} ms | plain "
+        f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library: none")
+    tot["fused_inverted_residual"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=b_by, library_ms=None)
+    return tot
+
+
+def argmax_near_ties(what, got, want, tol):
+    """Rows whose argmax differs must be near-ties of ``want`` (top-2 gap
+    below ``tol``). Returns (agreement, flips)."""
+    import torch
+
+    diff = torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten().tolist()
+    top2 = want.topk(2, dim=-1).values
+    for r in diff:
+        gap = float(top2[r, 0] - top2[r, 1])
+        check(gap < tol, f"{what}: row {r} flips its argmax where the reference's top-2 gap is "
+                         f"{gap:.3g} >= {tol}")
+    return 1.0 - len(diff) / got.shape[0], len(diff)
+
+
+def vision_model_phase(tag, dev, images, labels):
+    """Phase 14: MobileViT through the entry points on the full checkpoint
+    (see the module docstring). Returns (main-path launches by kernel, the
+    bf16 params, the bf16 forward's images/s)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch import cli
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    x_all = torch.from_numpy(images)
+    nb = -(-len(images) // VIT_BATCH)
+    p = load_mobilevit(VIT_CKPT, device=dev)
+    p_ir = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
+    check(p.layer_3.transformer[0].attention.flash and p.layer_3.transformer[0].fused
+          and not p.layer_2[1].fused and p_ir.layer_2[1].fused,
+          f"{tag}: the default routes on the card are not flash + fused layer")
+
+    def run(params, cd, name):
+        port.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat([classify(params, x_all[i:i + VIT_BATCH].to(dev), compute_dtype=cd)
+                         for i in range(0, len(images), VIT_BATCH)])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = port.kernel_launches()
+        check(out.shape == (len(images), 44) and bool(torch.isfinite(out).all()),
+              f"{tag}: classify {name}: shape {tuple(out.shape)} or values")
+        return out.cpu(), launches, sec
+
+    logits = {}
+    runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, {"fused_transformer_layer": 9}),
+            ("bf16+fused_ir", p_ir, bf16, {"fused_transformer_layer": 9,
+                                           "fused_inverted_residual": 2}))
+    main_launches = {}
+    for name, params, cd, per_batch in runs:
+        out, launches, sec = run(params, cd, name)
+        for k, v in per_batch.items():
+            check(launches[k] == v * nb, f"{tag}: classify {name}: {launches[k]} {k} launches, "
+                                         f"want {v} a batch x {nb}")
+            main_launches.setdefault(k, launches[k])
+        others = {k: v for k, v in launches.items() if v and k not in per_batch}
+        check(not others, f"{tag}: classify {name} launched {others}")
+        logits[name] = out
+        top1 = float((out.argmax(-1).numpy() == labels).mean())
+        msg = f"[{tag}] classify {name}, {len(images)} held-out images in {nb} batches of " \
+              f"<= {VIT_BATCH} ({sec:.2f} s): top-1 {top1:.4f} | launches " + ", ".join(
+                  f"{k} {launches[k]}" for k in per_batch)
+        if name != "f32":
+            agree, flips = argmax_near_ties(f"{tag}: {name} vs f32", out, logits["f32"],
+                                            VIT_NEAR_TIE)
+            msg += f" | argmax agreement with f32 {agree:.4f} ({flips} flips, at near-ties)"
+        log(msg)
+
+    # the card's f32 features against the plain CPU run
+    n = VIT_CPU_IMAGES
+    p_cpu = load_mobilevit(VIT_CKPT, device="cpu")
+    t0 = time.perf_counter()
+    want = extract_features(p_cpu, x_all[:n])
+    cpu_s = time.perf_counter() - t0
+    got = extract_features(p, x_all[:n].to(dev)).cpu()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    check(rel <= VIT_CPU_FEATURE_REL, f"{tag}: f32 features on the card vs the CPU: max rel err "
+                                      f"{rel:.3g} > {VIT_CPU_FEATURE_REL}")
+    log(f"[{tag}] f32 features of the first {n} images, card vs the plain CPU run ({cpu_s:.1f} s): "
+        f"max abs err {float((got - want).abs().max()):.3g}, relative to the largest "
+        f"{rel:.3g} (limit {VIT_CPU_FEATURE_REL})")
+    del p_cpu, want, got
+
+    # the calibrated q4_k_m checkpoint
+    p_km = load_mobilevit(VIT_Q4KM, device=dev)
+    check(p_km.layer_3.transformer[0].attention.wq.qtype in ("q4_k", "q8_0")
+          and p_km.classifier_kernel is not None, f"{tag}: q4_k_m checkpoint loaded wrongly")
+    out, launches, sec = run(p_km, f32, "q4_k_m")
+    agree = float((out.argmax(-1) == logits["f32"].argmax(-1)).float().mean())
+    flips = int((out.argmax(-1) != logits["f32"].argmax(-1)).sum())
+    top1 = float((out.argmax(-1).numpy() == labels).mean())
+    log(f"[{tag}] mobilevit_synth_full_q4km.gxt on the card, classify f32: top-1 {top1:.4f}, "
+        f"argmax agreement with the float model {agree:.4f} ({flips} differ) | flash launches "
+        f"{launches['flash_mha']}")
+    del p_km
+
+    # the features command on the synthetic image
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["features", "--weights", VIT_CKPT, "--compute", "bfloat16"])
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and lines[0] == "output feature shape: : Dims: (8, 8, 640)" and len(lines) == 4,
+          f"{tag}: features command printed {lines}")
+    log(f"[{tag}] features --weights mobilevit_synth_full.ggml --compute bfloat16: {lines[0]} | "
+        f"{lines[3][:70]}")
+
+    # throughput of extract_features at B=128, bf16, and one forward profiled
+    xb = x_all[:VIT_BATCH].to(dev)
+    rates = {}
+    for name, params in (("bf16", p), ("bf16+fused_ir", p_ir)):
+        ms = cuda_ms(lambda: extract_features(params, xb, compute_dtype=bf16), n=10)
+        rates[name] = (ms, VIT_BATCH / ms * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extract_features(p, xb, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"fused layer kernel": 0.0, "convolutions": 0.0, "other device work": 0.0}
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        key = e.key.lower()
+        if "layer_kernel" in key:
+            groups["fused layer kernel"] += ms
+        elif any(w in key for w in ("conv", "cudnn", "xmma", "implicit", "winograd", "nhwc",
+                                    "fprop")):
+            groups["convolutions"] += ms
+        else:
+            groups["other device work"] += ms
+            other.append((ms, e.key[:60]))
+    busy = sum(groups.values())
+    log(f"[{tag}] extract_features B={VIT_BATCH} bf16: " + ", ".join(
+        f"{k} {ms:.3f} ms = {r:,.0f} images/s" for k, (ms, r) in rates.items())
+        + (f" | one forward under torch.profiler: {wall_ms:.2f} ms wall, device busy {busy:.3f} ms "
+           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}): "
+           + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()) if busy > 0 else
+           " | torch.profiler recorded no device time"))
+    log(f"[{tag}] the largest other device work: " + "; ".join(
+        f"{k} {ms:.3f} ms" for ms, k in sorted(other, reverse=True)[:6]))
+    return main_launches, p
+
+
+def vision_engine_phase(tag, params, images):
+    """Phase 15: the VisionEngine over the ladder (8, 32, 128), u8 transport,
+    bf16: mixed classify/features bursts, each result against the offline
+    forward, some requests canceled."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.models.mobilevit import classify, extract_features
+    from ggml_experiments_tpu_torch.serving import VisionEngine
+
+    bf16 = torch.bfloat16
+    dev = params.device
+    u8 = np.clip(np.round(images * 255.0), 0, 255).astype(np.uint8)
+    eng = VisionEngine(params, image_size=256, batch_sizes=(8, 32, 128), compute_dtype=bf16)
+    eng.start()
+    reqs, idx, kinds = [], [], []
+    t0 = time.perf_counter()
+    n = 0
+    for bi, burst in enumerate(VIT_ENGINE_BURSTS):
+        kind = "features" if bi % 3 == 2 else "classify"
+        for _ in range(burst):
+            j = n % len(u8)
+            reqs.append(eng.submit(u8[j], kind))
+            if n % VIT_CANCEL_EVERY == 0:
+                reqs[-1].cancel()     # most likely still queued
+            idx.append(j)
+            kinds.append(kind)
+            n += 1
+        time.sleep(0.05)
+    eng.run_until_idle(timeout=600)
+    eng_s = time.perf_counter() - t0
+    eng.stop()
+    # the offline forward of every image, in batches of 128 at the same dtype
+    xs = torch.from_numpy(u8)
+    want = {}
+    for kind, fn in (("classify", classify), ("features", extract_features)):
+        want[kind] = torch.cat([fn(params, xs[i:i + VIT_BATCH].to(dev).float() / 255.0,
+                                   compute_dtype=bf16).cpu()
+                                for i in range(0, len(u8), VIT_BATCH)])
+    canceled = set(range(0, len(reqs), VIT_CANCEL_EVERY))
+    served = [i for i in range(len(reqs)) if i not in canceled]
+    for i in canceled:
+        try:
+            reqs[i].result(timeout=0)
+            check(False, f"{tag}: canceled request {i} resolved with a result")
+        except RuntimeError as ex:
+            check("canceled" in str(ex), f"{tag}: canceled request {i} raised {ex!r}")
+    skipped = eng.stats.requests_canceled
+    feat_err, scale = 0.0, 0.0
+    got_cls, want_cls = [], []
+    for i in served:
+        res = torch.from_numpy(reqs[i].result(timeout=0))
+        w = want[kinds[i]][idx[i]]
+        if kinds[i] == "classify":
+            got_cls.append(res)
+            want_cls.append(w)
+        else:
+            feat_err = max(feat_err, float((res - w).abs().max()))
+            scale = max(scale, float(w.abs().max()))
+    check(feat_err <= VIT_ENGINE_FEATURE_MAX * scale,
+          f"{tag}: engine features differ from the offline forward by {feat_err:.3g} (limit "
+          f"{VIT_ENGINE_FEATURE_MAX} x {scale:.3g})")
+    agree, flips = argmax_near_ties(f"{tag}: engine vs offline", torch.stack(got_cls),
+                                    torch.stack(want_cls), VIT_NEAR_TIE)
+    log(f"[{tag}] {len(reqs)} requests in bursts {VIT_ENGINE_BURSTS} ({len(canceled)} canceled, "
+        f"{skipped} of them before or inside their batch, none resolved with a result), u8 "
+        f"transport, bf16: {eng_s:.2f} s | features max abs err "
+        f"vs the offline forward {feat_err:.3g} (largest {scale:.3g}) | classify argmax "
+        f"agreement {agree:.4f} ({flips} flips, at near-ties) | breakdown "
+        f"{json.dumps(eng.stats.breakdown())}")
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -1094,6 +1535,35 @@ def main() -> int:
         name = f"fused_gru_train_{part}"
         kernels[name] = dict(main_k[part], launches=train_launches[name])
 
+    # ---- 13. the vision kernels against their plain versions -------------------------
+    from ggml_experiments_tpu_torch.models.mobilevit import load_mobilevit
+    from ggml_experiments_tpu_torch.training.image_task import (
+        FULL_AMP_FACTOR,
+        HELDOUT_SEED,
+        make_dataset,
+    )
+
+    torch.cuda.empty_cache()
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    vision = vision_kernel_phase("13 vision kernels", vit, dev)
+    del vit
+    torch.cuda.empty_cache()
+
+    # ---- 14. MobileViT through the entry points ----------------------------------------
+    t0 = time.perf_counter()
+    images, labels = make_dataset(VIT_IMAGES, seed=HELDOUT_SEED, image_size=256,
+                                  amp_factor=FULL_AMP_FACTOR)
+    log(f"[14 mobilevit] {VIT_IMAGES} held-out images (256 px, task rev 4) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    vit_launches, vit = vision_model_phase("14 mobilevit", dev, images, labels)
+    for name in ("fused_transformer_layer", "flash_mha", "fused_inverted_residual"):
+        kernels[name] = dict(vision[name], launches=vit_launches[name])
+
+    # ---- 15. the vision engine ---------------------------------------------------------
+    vision_engine_phase("15 vision engine", vit, images)
+    del vit, images
+    torch.cuda.empty_cache()
+
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
     qmm_at = "ggml_experiments_tpu/quant/pallas_kernels.py:253"
@@ -1108,6 +1578,12 @@ def main() -> int:
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:186")
     meta["fused_gru_train_bwd"] = (src + "gru_train.cu",
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
+    meta["fused_transformer_layer"] = (src + "transformer_layer.cu",
+                                       "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
+    meta["flash_mha"] = (src + "flash_attention.cu",
+                         "ggml_experiments_tpu/ops/flash_attention.py:104")
+    meta["fused_inverted_residual"] = (src + "inverted_residual.cu",
+                                       "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     line = []
     for name, (source, replaces) in meta.items():
         check(name in kernels, f"{name} was not measured")

@@ -5,10 +5,14 @@
   python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q8.gxt
   python -m ggml_experiments_tpu_torch eval     --weights gru.bin [--corpus text.txt]
   python -m ggml_experiments_tpu_torch train-gru --corpus text.txt [--compute bfloat16]
+  python -m ggml_experiments_tpu_torch features --weights weight.ggml [--image img.png]
+  python -m ggml_experiments_tpu_torch classify --weights mobilevit.ggml [--image img.png]
 
 ``generate`` with no --prompt reads one line from stdin; ``serve`` reads one
 prompt per line and streams each continuation. ``--weights`` takes the
-reference gru.bin or a native ``.gxt`` checkpoint. All run on ``--device``
+reference gru.bin or a native ``.gxt`` checkpoint for the GRU commands, and a
+``weight.ggml`` named-tensor file or a MobileViT ``.gxt`` for ``features`` and
+``classify`` (without --image they run on the reference's synthetic image). All run on ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 """
 
@@ -192,6 +196,92 @@ def cmd_train_gru(args) -> int:
     return 0
 
 
+def _load_vision(args):
+    """(params, image (1, S, S, 3) float32) for ``features`` / ``classify``."""
+    import torch
+
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        from_named_tensors,
+        infer_config,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.utils.image import load_and_preprocess, synthetic_test_image
+
+    routes = dict(flash_attn=args.flash_attn, fused_layer=args.fused_layer)
+    if args.weights.endswith(".gxt"):
+        # a self-describing params checkpoint (e.g. the calibrated q4_k_m one)
+        params = load_mobilevit(args.weights, device=args.device, **routes)
+        size = checkpoint.read_meta(args.weights).get("config", {}).get(
+            "image_size", args.image_size)
+    else:
+        # the architecture comes off the weight shapes
+        named = read_named_tensors(args.weights)
+        config = infer_config(named, image_size=args.image_size,
+                              num_attention_heads=args.num_heads)
+        params = from_named_tensors(
+            named, config, qtype=args.qtype, device=args.device,
+            conv_dtype="float16" if getattr(args, "f16_convs", False) else None, **routes)
+        size = config.image_size
+    img = load_and_preprocess(args.image, size=size) if args.image else synthetic_test_image(size)
+    return params, torch.from_numpy(img)[None]
+
+
+def cmd_features(args) -> int:
+    """MobileViT features of one image, printed as the reference prints them."""
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features
+
+    params, img = _load_vision(args)
+    t0 = time.time()
+    feats = extract_features(params, img, compute_dtype=args.compute).cpu().numpy()
+    print(f"forward: {(time.time() - t0) * 1000:.1f} ms", file=sys.stderr)
+    # the reference's printout: shape in ggml ne-order (W, H, C) and the
+    # first/last 5 channels at (0, 0)
+    _, h, w, c = feats.shape
+    print(f"output feature shape: : Dims: ({w}, {h}, {c})")
+    vec = feats[0, 0, 0]
+    head = ", ".join(f"{v:g}" for v in vec[:5])
+    tail = ", ".join(f"{v:g}" for v in vec[-5:])
+    print("features of the test image: ")
+    print(f"i0 = 0, i1 = 0\n{head}, ...{tail},")
+    return 0
+
+
+def cmd_classify(args) -> int:
+    """Top-k classes of one image (the checkpoint needs a classifier head)."""
+    import numpy as np
+
+    from ggml_experiments_tpu_torch.models.mobilevit import classify
+
+    params, img = _load_vision(args)
+    logits = classify(params, img, compute_dtype=args.compute)[0].cpu().numpy()
+    for i in np.argsort(logits)[::-1][: args.top_k]:
+        print(f"class {int(i)}: logit {logits[i]:.4f}")
+    return 0
+
+
+def cmd_serve_vision(args) -> int:
+    raise NotImplementedError(
+        "serve-vision is the HTTP image API, not ported yet (ROADMAP.md, 'Port: still to "
+        "port', item 4: HTTP serving); serving.vision.VisionEngine serves in-process")
+
+
+def _add_vision(p):
+    p.add_argument("--weights", required=True, help="weight.ggml or a MobileViT .gxt")
+    p.add_argument("--image", default=None, help="image path (default: the synthetic image)")
+    p.add_argument("--image-size", type=int, default=256,
+                   help="input resolution (not recoverable from the weights)")
+    p.add_argument("--num-heads", type=int, default=4,
+                   help="attention heads (not recoverable from the weight shapes)")
+    p.add_argument("--flash-attn", action=argparse.BooleanOptionalAction, default=None,
+                   help="attention through the flash kernel (default: on for a CUDA device)")
+    p.add_argument("--fused-layer", action=argparse.BooleanOptionalAction, default=None,
+                   help="whole transformer layers through the fused kernel at bf16 "
+                        "(default: on for a CUDA device)")
+    _add_common(p)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ggml_experiments_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -266,6 +356,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="validation ppl every N steps (needs --eval-corpus)")
     _add_common(t)
     t.set_defaults(fn=cmd_train_gru)
+
+    f = sub.add_parser("features", help="MobileViT feature extraction")
+    f.add_argument("--f16-convs", action="store_true",
+                   help="round convolution kernels through f16 (the reference's load policy)")
+    _add_vision(f)
+    f.set_defaults(fn=cmd_features)
+
+    c = sub.add_parser("classify", help="MobileViT classification (needs classifier weights)")
+    c.add_argument("--top-k", type=int, default=5)
+    _add_vision(c)
+    c.set_defaults(fn=cmd_classify)
+
+    sv = sub.add_parser("serve-vision", help="HTTP image API (not ported)")
+    sv.add_argument("--weights", required=True)
+    sv.set_defaults(fn=cmd_serve_vision)
     return ap
 
 

@@ -12,6 +12,11 @@ qtype, so both packages can be handed identical weights.
 :func:`adam_state_from_numpy` turns an optax Adam state ``(count, mu, nu)``,
 its moments as the same six named arrays, into the trainer's optimizer state:
 with both, the two packages' trainers continue from one point.
+
+:func:`mobilevit_params_from_numpy` builds MobileViT parameters the same way
+from the JAX package's key paths (``conv_stem/kernel``,
+``layer_3/transformer/0/attention/wq``, ...), each mapped to a numpy array
+or, for a quantized weight, to its planes.
 """
 
 from __future__ import annotations
@@ -84,3 +89,25 @@ def adam_state_from_numpy(count, mu: Mapping, nu: Mapping, device: DeviceLike = 
     return (AdamState(count=torch.tensor(int(count), dtype=torch.int32),
                       mu=params_from_numpy(mu, device=device),
                       nu=params_from_numpy(nu, device=device)),)
+
+
+def mobilevit_params_from_numpy(flat: Mapping, config=None, *, device: DeviceLike = None, **kw):
+    """MobileViT parameters from ``{key path: array or planes}`` (the key paths
+    a ``.gxt`` file stores). ``config`` (default: apple/mobilevit-small) fixes
+    the structure; ``kw`` are the route flags of ``from_named_tensors``
+    (``fused_ir``, ``flash_attn``, ``fused_layer``)."""
+    from ggml_experiments_tpu_torch.formats.checkpoint import _rebuild
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        MobileViTConfig,
+        from_named_tensors,
+        random_named_tensors,
+    )
+
+    config = config or MobileViTConfig()
+    dev = resolve_device(device)
+    template = from_named_tensors(
+        random_named_tensors(config, classifier="classifier_kernel" in flat), config,
+        device=dev, **kw)
+    leaves = {k: qtensor_from_planes(a, dev) if isinstance(a, Mapping)
+              else torch.from_numpy(np.array(a, np.float32)).to(dev) for k, a in flat.items()}
+    return _rebuild(template, leaves, "<numpy arrays>")

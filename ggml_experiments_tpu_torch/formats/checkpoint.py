@@ -80,10 +80,13 @@ def _rebuild(template: Any, flat: Dict[str, Any], path: str, prefix: Tuple[str, 
     if template is None:
         return None
     if dataclasses.is_dataclass(template) and not isinstance(template, (type, QTensor)):
-        # built anew, so that derived caches start empty
-        return type(template)(**{
-            f.name: _rebuild(getattr(template, f.name), flat, path, prefix + (f.name,))
-            for f in _fields(template)})
+        # built anew, so that derived caches start empty; static configuration
+        # (fields marked {"static": True}) is the template's
+        kw = {f.name: _rebuild(getattr(template, f.name), flat, path, prefix + (f.name,))
+              for f in _fields(template)}
+        kw.update({f.name: getattr(template, f.name) for f in dataclasses.fields(template)
+                   if f.metadata.get("static")})
+        return type(template)(**kw)
     if isinstance(template, dict):
         return {k: _rebuild(v, flat, path, prefix + (str(k),)) for k, v in template.items()}
     if isinstance(template, (list, tuple)):

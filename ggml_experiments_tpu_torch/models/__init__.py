@@ -1,4 +1,4 @@
-"""Models: the character-level GRU text generator."""
+"""Models: the character-level GRU text generator and MobileViT (``models.mobilevit``)."""
 
 from ggml_experiments_tpu_torch.models.gru_textgen import (
     GRUConfig,

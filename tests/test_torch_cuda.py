@@ -288,3 +288,118 @@ def test_train_kernels_name_the_shape_they_refuse(dev):
     ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
     with pytest.raises(ValueError, match=r"\(1, 1761, 1024\)"):
         ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+
+
+# ---- the vision kernels: flash attention, the fused layer, the fused inverted residual
+
+from ggml_experiments_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir  # noqa: E402
+from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl  # noqa: E402
+
+
+def _bf16_close(got, want, max_frac, mean_frac):
+    """bf16 outputs: the two sides round at the same places but sum in other
+    orders, so a value may land one bf16 step away and carry the difference
+    on; max and mean error against the output's scale."""
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    assert float(d.max()) <= max_frac * scale and float(d.mean()) <= mean_frac * scale, (
+        float(d.max()), float(d.mean()), scale)
+
+
+@pytest.mark.parametrize("bp,l,c,h", [(6, 32, 48, 4), (5, 256, 144, 4), (7, 64, 192, 4),
+                                      (9, 16, 240, 4), (3, 24, 64, 2)])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_flash_mha_kernel_matches_plain(dev, bp, l, c, h, cd):
+    g = torch.Generator(device=dev).manual_seed(l + c)
+    q, k, v = (torch.randn((bp, l, c), generator=g, device=dev).to(cd) for _ in range(3))
+    before = fa.LAUNCHES["flash_mha"]
+    got = fa.flash_mha(q, k, v, h, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mha"] == before + 1 and got.dtype == cd
+    want = fa.flash_mha_plain(q, k, v, h)
+    if cd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want, 2 ** -6, 1e-3)
+
+
+def _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*s, bf=False, off=0.0):
+        a = torch.from_numpy((rng.standard_normal(s) * 0.2 + off).astype(np.float32)).to(dev)
+        return a.to(torch.bfloat16) if bf else a
+
+    ops = ftl.LayerOperands(
+        wq=t(c, c, bf=True), wk=t(c, c, bf=True), wv=t(c, c, bf=True), wo=t(c, c, bf=True),
+        wi=t(c, f, bf=True), wo2=t(f, c, bf=True), ln1=(t(c, off=1.0), t(c)), bq=t(c),
+        bk=t(c), bv=t(c), bo=t(c), ln2=(t(c, off=1.0), t(c)), bi=t(f), bo2=t(c),
+        num_heads=h, eps=1e-5)
+    if cin != c:
+        ops.win = t(cin, c, bf=True)
+    if final_ln:
+        ops.final_ln, ops.final_eps = (t(c, off=1.0), t(c)), 1e-6
+    if out_proj:
+        ops.wout, ops.out_affine, ops.out_act = t(c, cout, bf=True), (t(cout, off=1.0),
+                                                                     t(cout)), True
+    return ops
+
+
+@pytest.mark.parametrize("in_proj", [False, True])
+@pytest.mark.parametrize("final_ln", [False, True])
+@pytest.mark.parametrize("out_proj", [False, True])
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 48, 4, 96), (2, 24, 64, 2, 128)])
+def test_fused_layer_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out_proj, bp, l,
+                                                     c, h, f):
+    cin, cout = (c // 2 if in_proj else c), c // 2 + 8
+    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=l + c)
+    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    before = ftl.LAUNCHES["fused_transformer_layer"]
+    got = ftl.fused_layer_cuda(x, ops)
+    torch.cuda.synchronize()
+    assert ftl.LAUNCHES["fused_transformer_layer"] == before + 1
+    _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+
+
+@pytest.mark.parametrize("bp,l,c,h,f,cin", [(4, 256, 144, 4, 288, 96), (6, 64, 192, 4, 384, 192),
+                                            (8, 16, 240, 4, 480, 240)])
+def test_fused_layer_kernel_matches_plain_at_the_model_widths(dev, bp, l, c, h, f, cin):
+    ops = _layer_ops(dev, c, h, f, cin, cin, True, cin != c, seed=c)
+    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev).to(torch.bfloat16)
+    got = ftl.fused_layer_cuda(x, ops)
+    torch.cuda.synchronize()
+    _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+
+
+@pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", [(2, 64, 64, 64, 256, 64, True),
+                                                   (3, 12, 10, 8, 32, 16, False),
+                                                   (1, 9, 17, 24, 96, 24, True)])
+def test_fused_inverted_residual_kernel_matches_plain(dev, b, hh, ww, c, e, cout, resid):
+    rng = np.random.default_rng(e)
+
+    def t(*s, scale=0.2):
+        return torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev)
+
+    args = (t(c, e), t(e), t(3, 3, e), t(e), t(e, cout), t(cout))
+    x = t(b, hh, ww, c, scale=1.0).to(torch.bfloat16)
+    before = fir.LAUNCHES["fused_inverted_residual"]
+    got = fir.fused_inverted_residual(x, *args, use_residual=resid)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES["fused_inverted_residual"] == before + 1
+    want = fir.fused_ir_plain(x, args[0].to(torch.bfloat16), args[1], args[2], args[3],
+                              args[4].to(torch.bfloat16), args[5], use_residual=resid)
+    _bf16_close(got, want, 2 ** -6, 1e-4)
+
+
+def test_vision_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((2, 8, 8, 8), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((8, 32), device=dev)
+    with pytest.raises(ValueError, match="stride"):
+        fir.fused_inverted_residual(x, w, w[0], torch.zeros(3, 3, 32, device=dev), w[0],
+                                    w.t(), w[:, 0], stride=2)
+    q = torch.zeros((2, 16, 72), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_mha(q, q, q, 1, compute_dtype=torch.float32)

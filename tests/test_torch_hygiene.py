@@ -92,7 +92,8 @@ def test_launch_counters_reset():
     assert port.kernel_launches() == {
         "qmatmul_q8_0": 3, "qmatmul_q4_0": 0, "qmatmul_q4_1": 0, "qmatmul_q5_0": 0,
         "qmatmul_q5_1": 0, "qmatmul_q4_k": 1, "fused_gru_decode": 0, "fused_slot_tick": 0,
-        "fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0}
+        "fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0, "flash_mha": 0,
+        "fused_transformer_layer": 0, "fused_inverted_residual": 0}
     port.reset_kernel_launches()
     assert set(port.kernel_launches().values()) == {0}
 
