@@ -14,7 +14,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
 
   1. device: name, power limit, kernel build seconds;
   2. ``qmatmul`` q8_0 kernel vs its plain version (M=1024 and the main
-     path's M=64);
+     path's M=64, f32 and bf16; two launches bit-equal), each cell's share
+     of its bound and its speed against ``torch.matmul``;
   3. ``generate`` (scan path) at B=64, T=200, f32 and bf16;
   4. ``decode`` routed to the persistent kernel at B=8192, T=512, bf16, its
      tokens against the plain version's on the same inputs, and the kernel
@@ -62,7 +63,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      first layer with its input projection, its middle layers and its last
      layer with the final LN and the conv_projection (BN, SiLU); flash
      attention (``csrc/flash_attention.cu``) at the same shapes in f32 and
-     bf16, beside ``scaled_dot_product_attention``; the fused inverted
+     bf16 (two launches bit-equal), beside ``scaled_dot_product_attention``;
+     the fused inverted
      residual (``csrc/inverted_residual.cu``) at (128, 64, 64, 64), E=256,
      with the residual;
  14. MobileViT through the entry points on
@@ -89,8 +91,9 @@ port's package beside it, it exits non-zero and prints no result.
 Tolerances, and why:
   * qmatmul vs the plain product before its output cast, f32 and bf16, every
     format: the decoded weights are bit-equal, the products are exact in f32
-    (bf16 operands) or f32 in both, the sums are f32 in other orders, so
-    1e-5 relative.
+    (bf16 operands) or f32-accurate (3xTF32), the sums are f32 in other
+    orders, so 1e-5 relative. Split-K partial sums are added in a fixed
+    order, so two launches on the same inputs are bit-equal.
   * Fused kernels, teacher-forced (no argmax feedback): at f32, 1e-4
     absolute on h after 256 steps (errors compound through the recurrence).
     At bf16, on the main path's shapes, h may also differ where the two
@@ -117,8 +120,8 @@ Tolerances, and why:
     layer. Max error within VIT_BF16_MAX of the output's largest value, mean
     error within VIT_BF16_MEAN_FRAC of the plain version's own mean distance
     between rounding to bf16 and not rounding (H100 readings and the mutants
-    that skip one rounding are in PERF.md). Flash attention at f32: 1e-5
-    relative. The card's f32 features against the CPU: VIT_CPU_FEATURE_REL
+    that skip one rounding are in PERF.md). Flash attention at f32 (3xTF32
+    products, online softmax): 1e-5 relative; two launches bit-equal. The card's f32 features against the CPU: VIT_CPU_FEATURE_REL
     relative (cuDNN's and the CPU's f32 convolutions sum in other orders over
     some fifty layers). A bf16 argmax may differ from the f32 run's, and the
     engine's from the offline forward's (other batch sizes, other cuDNN
@@ -149,7 +152,10 @@ CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12,  # f32 FMA on CUDA cores (the kernels' products)
-            "bfloat16": 989e12}  # bf16 dense tensor-core peak
+            "bfloat16": 989e12,  # bf16 dense tensor-core peak
+            # f32 products as 3xTF32 on the tensor cores (qmatmul and flash
+            # attention at f32): three tf32 products for each, 495 / 3
+            "tf32x3": 495e12 / 3}
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
 GENERATE_SHAPE = (64, 200)           # (B, T) of the scan path
@@ -333,34 +339,44 @@ def qmatmul_phase(tag, qt, dev):
         for cd in (torch.float32, torch.bfloat16):
             cdn = cdname(cd)
             got = qmatmul_cuda(x, qt, cd)
+            again = qmatmul_cuda(x, qt, cd)
             # the plain product before its output cast: bf16 operands (whose
             # products are exact in f32), f32 sums; the kernel returns f32
             want = torch.matmul(x.to(cd).float(), dequantize(qt).to(cd).float())
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
             check(rel <= 1e-5, f"qmatmul {qt.qtype} M={m} {cdn}: max rel err {rel:.3g}")
+            check(torch.equal(got, again), f"qmatmul {qt.qtype} M={m} {cdn}: two launches on "
+                                           f"the same inputs differ")
             ms = cuda_ms(lambda: qmatmul_cuda(x, qt, cd))
             plain_ms = cuda_ms(lambda: qmatmul_reference(x, qt, cd))
             w = dequantize(qt).to(cd)
             xc = x.to(cd)
             lib_ms = cuda_ms(lambda: torch.matmul(xc, w))
             nbytes = x.numel() * 4 + qt.nbytes + m * n * 4
-            b_ms, b_by = bound(nbytes, 2 * m * k * n, cdn)
+            # the f32 route's products run as 3xTF32 on the tensor cores
+            b_ms, b_by = bound(nbytes, 2 * m * k * n, "tf32x3" if cd == torch.float32 else cdn)
             out[(m, cdn)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=b_ms, bound_by=b_by)
             log(f"[{tag}] {qt.qtype} M={m} K={k} N={n} {cdn}: max abs err {err:.3g} (rel "
-                f"{rel:.3g}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | torch.matmul on "
-                f"the dequantized plane {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+                f"{rel:.3g}), two launches bit-equal | kernel {ms:.4f} ms = "
+                f"{100 * b_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x torch.matmul's speed | "
+                f"plain {plain_ms:.4f} ms | torch.matmul on the dequantized plane {lib_ms:.4f} "
+                f"ms | bound {b_ms:.4f} ms ({b_by})")
     return out
 
 
 def qmatmul_entry(readings, launches):
     """The kernels-line entry of one qmatmul format: the main path's shape is
-    generate at B=64, f32 and bf16; times are f32's, the error the larger."""
+    generate at B=64, f32 and bf16; the top-level times are f32's, the bf16
+    cell's are under "bfloat16", the error the larger of the two."""
     m = QMATMUL_MS[-1]
+    bf = readings[(m, "bfloat16")]
     return dict(readings[(m, "float32")], launches=launches,
                 max_abs_err=max(readings[(m, c)]["max_abs_err"]
-                                for c in ("float32", "bfloat16")))
+                                for c in ("float32", "bfloat16")),
+                bfloat16={key: bf[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")})
 
 
 def decode_phase(tag, params, B, T, f32_shape, rng, tok):
@@ -963,6 +979,7 @@ def vision_kernel_phase(tag, params, dev):
         h = blk.transformer[0].attention.num_heads
         qkv = [torch.randn((bp, l, c), generator=g, device=dev) for _ in range(3)]
         got = fa.flash_mha_cuda(*qkv, h)
+        again = fa.flash_mha_cuda(*qkv, h)
         torch.cuda.synchronize()
         want = fa.flash_mha_plain(*qkv, h)
         rel = float((got - want).abs().max()) / float(want.abs().max())
@@ -970,7 +987,12 @@ def vision_kernel_phase(tag, params, dev):
                                   f"{rel:.3g} > {VIT_F32_REL}")
         q16 = [t.to(bf16) for t in qkv]
         g16 = fa.flash_mha_cuda(*q16, h)
+        again16 = fa.flash_mha_cuda(*q16, h)
         torch.cuda.synchronize()
+        check(torch.equal(got, again) and torch.equal(g16, again16),
+              f"{tag}: flash (bp, L, C) = ({bp}, {l}, {c}): two launches on the same inputs "
+              f"differ")
+        del again, again16
         w16 = fa.flash_mha_plain(*q16, h)
         err16, mean16, gap16, _ = bf16_check(f"{tag}: flash bf16 (bp, L, C) = ({bp}, {l}, {c})",
                                           "flash", g16, w16,
@@ -982,18 +1004,22 @@ def vision_kernel_phase(tag, params, dev):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads), n=10)
         flops = 4 * bp * l * l * c
         nbytes = 4 * bp * l * c * 4
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        # the f32 route's products run as 3xTF32 on the tensor cores
+        b_ms, b_by = bound(nbytes, flops, "tf32x3")
         t = tot["flash_mha"]
         t["max_abs_err"] = max(t["max_abs_err"], float((got - want).abs().max()))
         t["ms"] += n * ms
         t["plain_ms"] += n * plain_ms
         t["library_ms"] += n * lib_ms
         t["bound_t"][0] += n * nbytes / HBM_BYTES_PER_S * 1e3
-        t["bound_t"][1] += n * flops / PEAK_OPS["float32"] * 1e3
+        t["bound_t"][1] += n * flops / PEAK_OPS["tf32x3"] * 1e3
         log(f"[{tag}] flash (bp, L, C, H) = ({bp}, {l}, {c}, {h}) x{n}: f32 max rel err "
-            f"{rel:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | bf16 max abs err {err16:.3g}, mean "
-            f"{mean16:.3g} (plain f32 vs bf16: {gap16:.3g}), kernel {ms16:.4f} ms")
+            f"{rel:.3g}, two launches bit-equal (f32 and bf16), kernel {ms:.4f} ms = "
+            f"{100 * b_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x "
+            f"scaled_dot_product_attention's speed, plain {plain_ms:.3f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | bf16 "
+            f"max abs err {err16:.3g}, mean {mean16:.3g} (plain f32 vs bf16: {gap16:.3g}), "
+            f"kernel {ms16:.4f} ms")
         del got, want, qkv, q16, g16, w16, heads
     for t in tot.values():
         t["bound_ms"] = max(t["bound_t"])
@@ -1589,10 +1615,13 @@ def main() -> int:
         check(name in kernels, f"{name} was not measured")
         kd = kernels[name]
         check(kd["launches"] > 0, f"{name} was not launched on its main path")
-        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": kd["launches"], "max_abs_err": kd["max_abs_err"],
-                     "ms": kd["ms"], "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
-                     "bound_by": kd["bound_by"], "library_ms": kd["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": kd["launches"], "max_abs_err": kd["max_abs_err"],
+                 "ms": kd["ms"], "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
+                 "bound_by": kd["bound_by"], "library_ms": kd["library_ms"]}
+        if "bfloat16" in kd:     # qmatmul: the main path's bf16 cell beside its f32 one
+            entry["bfloat16"] = kd["bfloat16"]
+        line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

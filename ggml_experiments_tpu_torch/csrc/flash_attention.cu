@@ -1,4 +1,4 @@
-// Single-pass multi-head attention over whole rows (L <= a few hundred).
+// Multi-head attention over whole rows (L up to a few hundred).
 //
 //   gxt_flash_mha  replaces ggml_experiments_tpu/ops/flash_attention.py
 //                  `_flash_core_call` (pallas_call :104; body `_mha_kernel` :45)
@@ -12,34 +12,53 @@
 // slices of width dh = C / H (the TPU kernel's masked full-width dots give
 // the same sums).
 //
-// Bound on an H100 at the main path's shapes (bp = 512 sequences, L = 256 /
-// 64 / 16, C = 144 / 192 / 240, 4 heads): 4 L^2 C operations a sequence
-// against 4 L C values moved, so at L = 256 the operations bound it (at f32,
-// the route that reaches this kernel on the main path, FMA on CUDA cores:
-// 67 TFLOP/s; no TF32) and at L = 16 the bytes do.
+// What bounds it on an H100 at the main path's shapes (bp = 512 sequences,
+// L = 256 / 64 / 16, C = 144 / 192 / 240, 4 heads, f32): 4 L^2 C operations
+// a sequence against 4 L C values moved. The products run as 3xTF32 on the
+// tensor cores, whose bound is the tf32 rate / 3 (165 TFLOP/s): L = 256 is
+// bound by operations, L = 64 and 16 by bytes. What limits the kernel is
+// the work around the mmas: each k and v fragment is split into its two
+// tf32 parts by every warp that reads it, and each 32-key step's row max,
+// exponentials and rescale form one dependent chain, with 2 blocks of 8
+// warps an SM (registers) to hide it.
 //
-// Design: a block of 128 threads takes G = max(1, 128 / L) consecutive
-// (sequence, head) pairs; their k and v head slices are staged in shared
-// memory as f32, each row padded with zeros to DHP (16, 32, 48 or 64)
-// floats. A thread owns one query row: its scaled q slice and its f32
-// context accumulator live in registers. Because p must be rounded after
-// the subtraction of the TRUE row max, the row is walked twice: pass one
-// computes the rounded scores and their max, pass two recomputes each score
-// (the same operations in the same order give the same value), forms p,
-// sums it and accumulates p . v. All threads of a pair read the same k and v
-// row at a time, so the shared-memory reads are broadcasts. No tensor cores:
-// the f32 route has no f32 tensor-core product without TF32, and the bf16
-// route (off the main path) shares the code.
+// Design: a warp owns 16 query rows of one (sequence, head) pair; a block of
+// 8 warps stages the k and v head slices of its pairs (8 pairs at L = 16, 2
+// at L = 64, one pair split over two blocks at L = 256) in shared memory as
+// f32 rows of S floats (dh rounded up to S = 4 x odd: 36 stays 36, 48 -> 52,
+// 60 stays 60, so fragment loads hit 32 distinct banks), with 16-byte
+// cp.async copies. Scores and context are mma.sync m16n8k8 tf32 tiles (the
+// head width padded to the k-step of 8 only inside the fragments, with q
+// zero there): a thread holds a 16-row x 32-key score tile spread over the
+// warp, and the same registers become p . v's A operand (keys 2t, 2t + 1 of
+// each 8-key tile stand for k-columns t, t + 4, with v read in the same
+// order). At f32 every product is 3xTF32 (each operand split into a tf32
+// high part and its remainder, three products, small terms first), so the
+// sums keep f32 accuracy, and every score is computed once: a running row
+// max rescales the context and the denominator (online softmax, with the
+// fast exponential). At bf16 the operands are exact in tf32, so one product
+// suffices, and p must be rounded after subtracting the TRUE row max: the
+// rows are walked twice, the first pass taking the max of the rounded
+// scores, the second recomputing them (the same operations in the same
+// order give the same values) to form p, its sum and p . v. Row sums go
+// across the 4 lanes of a quad in a fixed order, so two launches are
+// bit-equal.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_common.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using gxt::bf16;
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 4;  // 8-key tiles per step of the key loop
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -61,128 +80,324 @@ struct Args {
   const void* v;
   void* out;
   int npairs;  // bp * H
-  int L, C, H, dh, G;
+  int L, C, H, dh;
+  int S;       // staged row stride (floats)
+  int G;       // pairs a block stages (when a pair fits one block)
+  int bpp;     // blocks a pair is split over (1: G pairs a block)
+  int vec;     // k and v rows load in groups of 4 elements
   float scale;
 };
 
+// Stage k and v of pairs pair0 .. pair0 + ng - 1 as f32 rows of S floats:
+// rows past L and columns past dh are zeros.
+template <typename T>
+__device__ __forceinline__ void stage(const Args& a, float* smem, int pair0, int ng, int Lp) {
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
+  const size_t buf = (size_t)Lp * a.S;
+  if (a.vec) {
+    const int s4 = a.S / 4;
+    for (int i = threadIdx.x; i < ng * Lp * s4; i += kThreads) {
+      const int c4 = i % s4, j = (i / s4) % Lp, gp = i / (s4 * Lp);
+      const int p = pair0 + gp, seq = p / a.H, h = p % a.H, d = 4 * c4;
+      const bool ok = j < a.L && d < a.dh;
+      const size_t off = ok ? ((size_t)seq * a.L + j) * a.C + (size_t)h * a.dh + d : 0;
+      float* kd = smem + (size_t)gp * 2 * buf + (size_t)j * a.S + d;
+      if constexpr (std::is_same<T, float>::value) {
+        gxt::cp_async16(kd, kp + off, ok ? 16 : 0);
+        gxt::cp_async16(kd + buf, vp + off, ok ? 16 : 0);
+      } else {
+        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+        if (ok) {
+          const uint2 kr = __ldg(reinterpret_cast<const uint2*>(kp + off));
+          const uint2 vr = __ldg(reinterpret_cast<const uint2*>(vp + off));
+          kv = make_float4(__uint_as_float(kr.x << 16), __uint_as_float(kr.x & 0xffff0000u),
+                           __uint_as_float(kr.y << 16), __uint_as_float(kr.y & 0xffff0000u));
+          vv = make_float4(__uint_as_float(vr.x << 16), __uint_as_float(vr.x & 0xffff0000u),
+                           __uint_as_float(vr.y << 16), __uint_as_float(vr.y & 0xffff0000u));
+        }
+        *reinterpret_cast<float4*>(kd) = kv;
+        *reinterpret_cast<float4*>(kd + buf) = vv;
+      }
+    }
+    gxt::cp_async_commit();
+    gxt::cp_async_wait<0>();
+  } else {
+    for (int i = threadIdx.x; i < ng * Lp * a.S; i += kThreads) {
+      const int d = i % a.S, j = (i / a.S) % Lp, gp = i / (a.S * Lp);
+      const int p = pair0 + gp, seq = p / a.H, h = p % a.H;
+      float kv = 0.f, vv = 0.f;
+      if (j < a.L && d < a.dh) {
+        const size_t off = ((size_t)seq * a.L + j) * a.C + (size_t)h * a.dh + d;
+        kv = to_f(kp[off]);
+        vv = to_f(vp[off]);
+      }
+      float* kd = smem + (size_t)gp * 2 * buf + (size_t)j * a.S + d;
+      kd[0] = kv;
+      kd[buf] = vv;
+    }
+  }
+}
+
 template <typename T, int DHP>
 __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
+  constexpr int KS = DHP / 8;  // k-steps of q . k^T, 8-column tiles of p . v
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
-  const int L = a.L, C = a.C, H = a.H, dh = a.dh;
-  const int pair0 = blockIdx.x * a.G;
-  const int ng = min(a.G, a.npairs - pair0);
-  float* ks = smem;                             // [G][L][DHP]
-  float* vs = smem + (size_t)a.G * L * DHP;     // [G][L][DHP]
-
-  for (int i = threadIdx.x; i < ng * L * DHP; i += blockDim.x) {
-    const int d = i % DHP, j = (i / DHP) % L, g = i / (DHP * L);
-    const int p = pair0 + g, seq = p / H, h = p % H;
-    float kv = 0.f, vv = 0.f;
-    if (d < dh) {
-      const size_t off = ((size_t)seq * L + j) * C + (size_t)h * dh + d;
-      kv = to_f(k[off]);
-      vv = to_f(v[off]);
-    }
-    ks[i] = kv;
-    vs[i] = vv;
+  const int L = a.L, S = a.S, Lp = (L + 7) & ~7;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wpp = (L + 15) >> 4;  // 16-row tiles of a pair
+  int pair0, ng, gw, tile;
+  if (a.bpp == 1) {
+    pair0 = blockIdx.x * a.G;
+    ng = min(a.G, a.npairs - pair0);
+    gw = warp / wpp;
+    tile = warp % wpp;
+  } else {
+    pair0 = blockIdx.x / a.bpp;
+    ng = 1;
+    gw = 0;
+    tile = (blockIdx.x % a.bpp) * kWarps + warp;
   }
+  stage<T>(a, smem, pair0, ng, Lp);
   __syncthreads();
+  if (gw >= ng || tile * 16 >= L) return;
 
-  for (int r = threadIdx.x; r < ng * L; r += blockDim.x) {
-    const int g = r / L, row = r % L;
-    const int p = pair0 + g, seq = p / H, h = p % H;
-    const size_t qoff = ((size_t)seq * L + row) * C + (size_t)h * dh;
-    float qv[DHP];
-#pragma unroll
-    for (int d = 0; d < DHP; ++d) qv[d] = d < dh ? rnd<T>(to_f(q[qoff + d]) * a.scale) : 0.f;
-    const float4* kg = reinterpret_cast<const float4*>(ks + (size_t)g * L * DHP);
-    const float4* vg = reinterpret_cast<const float4*>(vs + (size_t)g * L * DHP);
+  const size_t buf = (size_t)Lp * S;
+  const float* ks = smem + (size_t)gw * 2 * buf;
+  const float* vs = ks + buf;
+  const int p = pair0 + gw, seq = p / a.H, h = p % a.H;
+  const int row0 = tile * 16;
+  const size_t base = (size_t)seq * L * a.C + (size_t)h * a.dh;
 
-    float m = -INFINITY;
-    for (int j = 0; j < L; ++j) {
-      float s = 0.f;
+  // q fragments, scaled in q's dtype; zero past dh and past L
+  uint32_t qh[KS][4], ql[KS][4];
+  {
+    const T* qp = static_cast<const T*>(a.q);
 #pragma unroll
-      for (int d4 = 0; d4 < DHP / 4; ++d4) {
-        const float4 kk = kg[j * (DHP / 4) + d4];
-        s = fmaf(qv[4 * d4], kk.x, s);
-        s = fmaf(qv[4 * d4 + 1], kk.y, s);
-        s = fmaf(qv[4 * d4 + 2], kk.z, s);
-        s = fmaf(qv[4 * d4 + 3], kk.w, s);
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + g + (i & 1) * 8, d = kk * 8 + t + (i >> 1) * 4;
+        float v = 0.f;
+        if (row < L && d < a.dh) v = rnd<T>(__fmul_rn(to_f(qp[base + (size_t)row * a.C + d]),
+                                                     a.scale));
+        if constexpr (kF32) {
+          gxt::split_tf32(v, qh[kk][i], ql[kk][i]);
+        } else {
+          qh[kk][i] = __float_as_uint(v);
+          ql[kk][i] = 0u;
+        }
       }
-      m = fmaxf(m, rnd<T>(s));
-    }
-
-    float acc[DHP];
-#pragma unroll
-    for (int d = 0; d < DHP; ++d) acc[d] = 0.f;
-    float den = 0.f;
-    for (int j = 0; j < L; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DHP / 4; ++d4) {
-        const float4 kk = kg[j * (DHP / 4) + d4];
-        s = fmaf(qv[4 * d4], kk.x, s);
-        s = fmaf(qv[4 * d4 + 1], kk.y, s);
-        s = fmaf(qv[4 * d4 + 2], kk.z, s);
-        s = fmaf(qv[4 * d4 + 3], kk.w, s);
-      }
-      const float pj = rnd<T>(expf(rnd<T>(__fsub_rn(rnd<T>(s), m))));
-      den = __fadd_rn(den, pj);
-#pragma unroll
-      for (int d4 = 0; d4 < DHP / 4; ++d4) {
-        const float4 vv = vg[j * (DHP / 4) + d4];
-        acc[4 * d4] = fmaf(pj, vv.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(pj, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(pj, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(pj, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-    const float inv = __fdiv_rn(1.f, den);
-#pragma unroll
-    for (int d = 0; d < DHP; ++d)
-      if (d < dh) out[qoff + d] = from_f<T>(__fmul_rn(acc[d], inv));
   }
+
+  // the scores of keys j0 .. j0 + 8 * kChunk - 1, rounded to the compute
+  // dtype; keys past L are -inf
+  auto scores = [&](int j0, float (&s)[kChunk][4]) {
+#pragma unroll
+    for (int nt = 0; nt < kChunk; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      if (j0 + nt * 8 < Lp) {
+        const float* kr = ks + (size_t)(j0 + nt * 8 + g) * S + t;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t bh0, bh1, bl0 = 0u, bl1 = 0u;
+          if constexpr (kF32) {
+            gxt::split_tf32(kr[kk * 8], bh0, bl0);
+            gxt::split_tf32(kr[kk * 8 + 4], bh1, bl1);
+          } else {
+            bh0 = __float_as_uint(kr[kk * 8]);
+            bh1 = __float_as_uint(kr[kk * 8 + 4]);
+          }
+          gxt::mma_tf32x<kF32>(s[nt], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = j0 + nt * 8 + 2 * t + (i & 1);
+        s[nt][i] = key < L ? rnd<T>(s[nt][i]) : -INFINITY;
+      }
+    }
+  };
+
+  // acc += p . v over the chunk's keys: score tile nt is the k-step, its
+  // keys 2t and 2t + 1 the k-columns t and t + 4
+  float acc[KS][4];
+#pragma unroll
+  for (int dt = 0; dt < KS; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  auto accumulate = [&](int j0, const float (&pm)[kChunk][4]) {
+#pragma unroll
+    for (int nt = 0; nt < kChunk; ++nt) {
+      if (j0 + nt * 8 >= Lp) continue;
+      uint32_t ph[4], pl[4] = {0u, 0u, 0u, 0u};
+      const float pv[4] = {pm[nt][0], pm[nt][2], pm[nt][1], pm[nt][3]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kF32) {
+          gxt::split_tf32(pv[i], ph[i], pl[i]);
+        } else {
+          ph[i] = __float_as_uint(pv[i]);
+        }
+      }
+      const float* vr = vs + (size_t)(j0 + nt * 8 + 2 * t) * S + g;
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {
+        uint32_t bh0, bh1, bl0 = 0u, bl1 = 0u;
+        if constexpr (kF32) {
+          gxt::split_tf32(vr[dt * 8], bh0, bl0);
+          gxt::split_tf32(vr[S + dt * 8], bh1, bl1);
+        } else {
+          bh0 = __float_as_uint(vr[dt * 8]);
+          bh1 = __float_as_uint(vr[S + dt * 8]);
+        }
+        gxt::mma_tf32x<kF32>(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  };
+
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8
+  float den0 = 0.f, den1 = 0.f;          // this thread's share of the row sums
+  float s[kChunk][4];
+  if constexpr (kF32) {
+    // one pass: a running max rescales what has been summed so far
+    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
+      scores(j0, s);
+      float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kChunk; ++nt) {
+        c0 = fmaxf(c0, fmaxf(s[nt][0], s[nt][1]));
+        c1 = fmaxf(c1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      // the chunk's first key is < L, so the new maxima are finite
+      const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
+      // __expf: a few ulp from expf, inside f32's 1e-5 check (the bf16
+      // route below keeps expf, whose result it rounds)
+      const float r0 = __expf(m0 - n0), r1 = __expf(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      den0 = __fmul_rn(den0, r0);
+      den1 = __fmul_rn(den1, r1);
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {
+        acc[dt][0] = __fmul_rn(acc[dt][0], r0);
+        acc[dt][1] = __fmul_rn(acc[dt][1], r0);
+        acc[dt][2] = __fmul_rn(acc[dt][2], r1);
+        acc[dt][3] = __fmul_rn(acc[dt][3], r1);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kChunk; ++nt) {
+        s[nt][0] = __expf(__fsub_rn(s[nt][0], m0));
+        s[nt][1] = __expf(__fsub_rn(s[nt][1], m0));
+        s[nt][2] = __expf(__fsub_rn(s[nt][2], m1));
+        s[nt][3] = __expf(__fsub_rn(s[nt][3], m1));
+        den0 = __fadd_rn(den0, __fadd_rn(s[nt][0], s[nt][1]));
+        den1 = __fadd_rn(den1, __fadd_rn(s[nt][2], s[nt][3]));
+      }
+      accumulate(j0, s);
+    }
+  } else {
+    // pass one: the true row max of the rounded scores
+    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
+      scores(j0, s);
+#pragma unroll
+      for (int nt = 0; nt < kChunk; ++nt) {
+        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+      }
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    // pass two: the same scores again, p rounded after the true max
+    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
+      scores(j0, s);
+#pragma unroll
+      for (int nt = 0; nt < kChunk; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float m = i < 2 ? m0 : m1;
+          s[nt][i] = rnd<T>(expf(rnd<T>(__fsub_rn(s[nt][i], m))));
+        }
+        den0 = __fadd_rn(den0, __fadd_rn(s[nt][0], s[nt][1]));
+        den1 = __fadd_rn(den1, __fadd_rn(s[nt][2], s[nt][3]));
+      }
+      accumulate(j0, s);
+    }
+  }
+  den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 1));
+  den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 2));
+  den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 1));
+  den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 2));
+  const float inv0 = __fdiv_rn(1.f, den0), inv1 = __fdiv_rn(1.f, den1);
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int dt = 0; dt < KS; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + (i >> 1) * 8, d = dt * 8 + 2 * t + (i & 1);
+      if (row < L && d < a.dh)
+        out[base + (size_t)row * a.C + d] = from_f<T>(__fmul_rn(acc[dt][i], i < 2 ? inv0 : inv1));
+    }
 }
 
-int dh_pad(int dh) {
-  if (dh <= 16) return 16;
-  if (dh <= 32) return 32;
-  if (dh <= 48) return 48;
-  if (dh <= 64) return 64;
-  return -1;
+// the staged row stride: dh rounded up to 4 x an odd number of floats
+int row_stride(int dh) {
+  int s = (dh + 3) & ~3;
+  return (s / 4) % 2 ? s : s + 4;
 }
 
-int group_of(int L) { return L >= kThreads ? 1 : kThreads / L; }
+struct Launch {
+  int G, bpp, blocks;
+  size_t smem;
+};
 
-size_t smem_bytes(int L, int dh) {
-  return (size_t)2 * group_of(L) * L * dh_pad(dh) * sizeof(float);
+Launch plan(int npairs, int L, int dh) {
+  const int Lp = (L + 7) & ~7, wpp = (L + 15) / 16;
+  Launch l;
+  if (wpp <= kWarps) {
+    l.G = kWarps / wpp;
+    l.bpp = 1;
+    l.blocks = (npairs + l.G - 1) / l.G;
+  } else {
+    l.G = 1;
+    l.bpp = (wpp + kWarps - 1) / kWarps;
+    l.blocks = npairs * l.bpp;
+  }
+  // + 8 floats: the last k row's fragment reads may run up to 4 past it
+  l.smem = ((size_t)l.G * 2 * Lp * row_stride(dh) + 8) * sizeof(float);
+  return l;
 }
 
 template <typename T, int DHP>
-int launch_t(const Args& a, size_t smem, void* stream) {
+int launch_t(const Args& a, const Launch& l, void* stream) {
   auto kernel = flash_mha_kernel<T, DHP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)l.smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (a.npairs + a.G - 1) / a.G;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<l.blocks, kThreads, l.smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Args& a, size_t smem, void* stream) {
-  switch (dh_pad(a.dh)) {
-    case 16: return launch_t<T, 16>(a, smem, stream);
-    case 32: return launch_t<T, 32>(a, smem, stream);
-    case 48: return launch_t<T, 48>(a, smem, stream);
-    case 64: return launch_t<T, 64>(a, smem, stream);
+int launch(const Args& a, const Launch& l, void* stream) {
+  switch ((a.dh + 7) / 8) {
+    case 1: return launch_t<T, 8>(a, l, stream);
+    case 2: return launch_t<T, 16>(a, l, stream);
+    case 3: return launch_t<T, 24>(a, l, stream);
+    case 4: return launch_t<T, 32>(a, l, stream);
+    case 5: return launch_t<T, 40>(a, l, stream);
+    case 6: return launch_t<T, 48>(a, l, stream);
+    case 7: return launch_t<T, 56>(a, l, stream);
+    case 8: return launch_t<T, 64>(a, l, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+bool takes(int L, int C, int H) { return L > 0 && H > 0 && C % H == 0 && C / H <= 64; }
 
 }  // namespace
 
@@ -190,8 +405,8 @@ int launch(const Args& a, size_t smem, void* stream) {
 // the head width is past the kernel's 64: the wrapper holds it against the
 // device's limit before it launches.
 extern "C" long long gxt_flash_mha_smem(int L, int C, int H) {
-  if (L <= 0 || H <= 0 || C % H || dh_pad(C / H) < 0) return -1;
-  return (long long)smem_bytes(L, C / H);
+  if (!takes(L, C, H)) return -1;
+  return (long long)plan(1, L, C / H).smem;
 }
 
 // q, k, v, out: (bp, L, C), f32 (is_bf16 = 0) or bf16; heads are channel
@@ -199,15 +414,20 @@ extern "C" long long gxt_flash_mha_smem(int L, int C, int H) {
 extern "C" int gxt_flash_mha(const void* q, const void* k, const void* v, void* out, int bp,
                              int L, int C, int H, float scale, int is_bf16, void* stream) {
   if (bp <= 0 || L <= 0) return 0;
-  if (H <= 0 || C % H || dh_pad(C / H) < 0) return (int)cudaErrorInvalidValue;
+  if (!takes(L, C, H)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.out = out;
   a.npairs = bp * H;
   a.L = L; a.C = C; a.H = H; a.dh = C / H;
-  a.G = group_of(L);
+  a.S = row_stride(a.dh);
+  const Launch l = plan(a.npairs, L, a.dh);
+  a.G = l.G;
+  a.bpp = l.bpp;
+  const uintptr_t align = is_bf16 ? 8 : 16;
+  a.vec = a.dh % 4 == 0 && C % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0 &&
+          reinterpret_cast<uintptr_t>(v) % align == 0;
   a.scale = scale;
-  const size_t smem = smem_bytes(L, a.dh);
-  return is_bf16 ? launch<bf16>(a, smem, stream) : launch<float>(a, smem, stream);
+  return is_bf16 ? launch<bf16>(a, l, stream) : launch<float>(a, l, stream);
 }
 
 extern "C" const char* gxt_error_string(int code) {

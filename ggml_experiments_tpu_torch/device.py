@@ -36,3 +36,13 @@ def resolve_dtype(dtype) -> torch.dtype:
     if out not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype!r}")
     return out
+
+
+def current_stream_handle(dev: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA device ``dev``,
+    as a kernel launch takes it (the private accessor PyTorch's own kernel
+    launchers use, where this build has it)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream

@@ -13,24 +13,28 @@ C / H. The arithmetic follows the TPU body:
   ``ctx = p . v_h`` in f32; ``out = ctx * (1 / denom)``, rounded to the
   compute dtype.
 
-Whole rows fit (L <= 256 on the model), so there is no online softmax. On a
-CPU tensor :func:`flash_mha` runs :func:`flash_mha_plain`; on a CUDA tensor it
+Whole rows fit (L <= 256 on the model). The plain version takes the row max
+first; the kernel does too at bf16, while at f32 it keeps a running max and
+rescales (online softmax), which differs only by f32 rounding. On a CPU
+tensor :func:`flash_mha` runs :func:`flash_mha_plain`; on a CUDA tensor it
 launches the kernel or raises. The kernel takes head widths up to 64.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from ggml_experiments_tpu_torch.device import resolve_dtype
+from ggml_experiments_tpu_torch.device import current_stream_handle, resolve_dtype
 
 # launches of the CUDA kernel; only the kernel wrapper adds to it
 LAUNCHES = {"flash_mha": 0}
 
 
+@functools.lru_cache(maxsize=None)
 def head_scale(dh: int, dtype: torch.dtype) -> float:
     """``1/sqrt(dh)`` as the TPU body applies it: rounded to q's dtype."""
     return float(torch.tensor(1.0 / math.sqrt(dh), dtype=dtype))
@@ -53,16 +57,36 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(bp, l, c).to(cd)
 
 
-def _lib():
-    from ggml_experiments_tpu_torch import _build
+_LIB = []
+_FITS = set()      # (device, L, C, H) whose shared memory was checked against the limit
 
-    lib = _build.load("flash_attention")
-    lib.gxt_flash_mha.restype = ctypes.c_int
-    lib.gxt_flash_mha.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.gxt_flash_mha_smem.restype = ctypes.c_longlong
-    lib.gxt_flash_mha_smem.argtypes = [ctypes.c_int] * 3
-    return lib
+
+def _lib():
+    if not _LIB:
+        from ggml_experiments_tpu_torch import _build
+
+        lib = _build.load("flash_attention")
+        lib.gxt_flash_mha.restype = ctypes.c_int
+        lib.gxt_flash_mha.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.gxt_flash_mha_smem.restype = ctypes.c_longlong
+        lib.gxt_flash_mha_smem.argtypes = [ctypes.c_int] * 3
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check_fits(lib, dev: torch.device, l: int, c: int, h: int) -> None:
+    key = (dev.index, l, c, h)
+    if key in _FITS:
+        return
+    need = lib.gxt_flash_mha_smem(l, c, h)
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    232448)
+    if need < 0 or need > limit:
+        raise ValueError(f"flash_mha_cuda: (L, C, H) = ({l}, {c}, {h}) is past the "
+                         f"kernel (head width <= 64, {need} bytes of shared memory against "
+                         f"{limit})")
+    _FITS.add(key)
 
 
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,19 +108,16 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c % num_heads:
         raise ValueError(f"C={c} not divisible by num_heads={num_heads}")
     lib = _lib()
-    need = lib.gxt_flash_mha_smem(l, c, num_heads)
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
-                    232448)
-    if need < 0 or need > limit:
-        raise ValueError(f"flash_mha_cuda: (L, C, H) = ({l}, {c}, {num_heads}) is past the "
-                         f"kernel (head width <= 64, {need} bytes of shared memory against "
-                         f"{limit})")
+    _check_fits(lib, dev, l, c, num_heads)
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        code = lib.gxt_flash_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 bp, l, c, num_heads, head_scale(c // num_heads, cd),
-                                 int(cd == torch.bfloat16),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bp, l, c, num_heads,
+            head_scale(c // num_heads, cd), int(cd == torch.bfloat16),
+            current_stream_handle(dev))
+    if dev.index == torch.cuda.current_device():
+        code = lib.gxt_flash_mha(*args)
+    else:
+        with torch.cuda.device(dev):
+            code = lib.gxt_flash_mha(*args)
     _build.check(lib, code, f"flash_mha (bp, L, C, H) = ({bp}, {l}, {c}, {num_heads})")
     LAUNCHES["flash_mha"] += 1
     return out

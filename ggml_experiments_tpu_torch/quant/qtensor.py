@@ -96,7 +96,8 @@ class QTensor:
     mins: Optional[torch.Tensor] = None    # f32 (Kp//32, Np) q4_1/q5_1; uint8 q4_k
     hibits: Optional[torch.Tensor] = None  # uint8 (Kp//8, Np), q5_0/q5_1
     supers: Optional[torch.Tensor] = None  # f32 (2*ceil(Kp/256), Np), q4_k only
-    # dequantized planes by dtype, built on first use by quant.qmatmul
+    # dequantized planes by dtype, and the CUDA kernel's launch arguments
+    # under "launch", built on first use by quant.qmatmul
     dense: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property

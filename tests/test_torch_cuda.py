@@ -68,24 +68,102 @@ def route_params(request, dev):
     return p
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1024, 1025), (5, 1030, 1100), (300, 1024, 3072)])
+_QT_CACHE = {}
+
+
+def qweight(dev, qtype, k, n):
+    """A seeded (k, n) weight under ``qtype``, quantized once per module; a
+    positive offset gives the asymmetric formats real mins to add."""
+    key = (qtype, k, n)
+    if key not in _QT_CACHE:
+        rng = np.random.default_rng(k + n)
+        _QT_CACHE[key] = quant.quantize((rng.normal(0, 0.1, (k, n)) + 0.05).astype(np.float32),
+                                        qtype, device=dev)
+    return _QT_CACHE[key]
+
+
+def xrand(dev, m, k):
+    """A seeded f32 (m, k) activation on the card."""
+    return torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+
+
+def qmatmul_plain_f32(x, qt, cd):
+    """The plain product before its output cast: bf16 operands (whose
+    products are exact in f32) or f32 ones, f32 sums; the kernel returns f32."""
+    return torch.matmul(x.to(cd).float(), quant.dequantize(qt).to(cd).float())
+
+
+# M of one row, the main path's 64, one past a 64-row tile, several 128-row
+# tiles and the reference's 1024; ragged N (1025, 1100) and K (1030)
+QMM_SHAPES = [(1, 1024, 1025), (5, 1030, 1100), (64, 1024, 3072), (65, 1030, 1100),
+              (300, 1024, 3072), (1024, 1024, 3072), (64, 1030, 1025)]
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("qtype", quant.QTYPES)
 def test_qmatmul_kernel_matches_plain(dev, m, k, n, cd, qtype):
-    rng = np.random.default_rng(m)
-    # a positive offset gives the asymmetric formats real mins to add
-    qt = quant.quantize((rng.normal(0, 0.1, (k, n)) + 0.05).astype(np.float32), qtype,
-                        device=dev)
-    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+    qt = qweight(dev, qtype, k, n)
+    x = xrand(dev, m, k)
     before = qmm_launches[f"qmatmul_{qtype}"]
     got = qmatmul_cuda(x, qt, cd)
     assert qmm_launches[f"qmatmul_{qtype}"] == before + 1
-    # the plain product before its output cast: the kernel returns f32
-    want = torch.matmul(x.to(cd).float(), quant.dequantize(qt).to(cd).float())
+    want = qmatmul_plain_f32(x, qt, cd)
     torch.cuda.synchronize()
-    # the same f32 products (bf16 operands multiply exactly in f32), summed
-    # in another order
+    # the same f32 products (bf16 operands multiply exactly in f32; f32 ones
+    # as 3xTF32), summed in another order
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# every tile height with and without a split of K, and splits the default
+# configuration does not pick: (M, bm, ksplit, blocks per split) at K = 1024
+QMM_CONFIGS = [(64, 128, 1, 32), (64, 64, 1, 32), (64, 64, 3, 11), (300, 128, 2, 16),
+               (300, 64, 8, 4), (1024, 128, 4, 8), (5, 64, 5, 7)]
+
+
+@pytest.mark.parametrize("m,bm,ksplit,bps", QMM_CONFIGS)
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", ["q8_0", "q5_1", "q4_k"])
+def test_qmatmul_kernel_every_launch_config(dev, m, bm, ksplit, bps, cd, qtype):
+    qt = qweight(dev, qtype, 1024, 1100)
+    x = xrand(dev, m, 1024)
+    got = qmatmul_cuda(x, qt, cd, config=(bm, ksplit, bps))
+    want = qmatmul_plain_f32(x, qt, cd)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("m", [64, 1024])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", quant.QTYPES)
+def test_qmatmul_kernel_repeats_bit_equal(dev, m, cd, qtype):
+    """Split-K partial tiles are summed in a fixed order: two launches on the
+    same inputs give the same bits."""
+    qt = qweight(dev, qtype, 1024, 3072)
+    x = xrand(dev, m, 1024)
+    a, b = qmatmul_cuda(x, qt, cd), qmatmul_cuda(x, qt, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [5, 64, 300])
+@pytest.mark.parametrize("qtype", quant.QTYPES)
+def test_qmatmul_kernel_takes_bf16_x(dev, m, qtype):
+    """At bf16, x that arrives in bf16 is staged as it is (no widening pass)."""
+    qt = qweight(dev, qtype, 1024, 1100)
+    x = xrand(dev, m, 1024).to(torch.bfloat16)
+    got = qmatmul_cuda(x, qt, torch.bfloat16)
+    want = qmatmul_plain_f32(x, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_qmatmul_kernel_refuses_a_bad_config(dev):
+    qt = qweight(dev, "q8_0", 1024, 1100)
+    x = torch.zeros((64, 1024), device=dev)
+    for config in ((64, 9, 4), (64, 2, 8), (96, 1, 32), (64, 1, 31)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            qmatmul_cuda(x, qt, config=config)
 
 
 @pytest.mark.parametrize("cd,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -315,8 +393,27 @@ def test_flash_mha_kernel_matches_plain(dev, bp, l, c, h, cd):
     q, k, v = (torch.randn((bp, l, c), generator=g, device=dev).to(cd) for _ in range(3))
     before = fa.LAUNCHES["flash_mha"]
     got = fa.flash_mha(q, k, v, h, compute_dtype=cd)
+    again = fa.flash_mha(q, k, v, h, compute_dtype=cd)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_mha"] == before + 1 and got.dtype == cd
+    assert fa.LAUNCHES["flash_mha"] == before + 2 and got.dtype == cd
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    want = fa.flash_mha_plain(q, k, v, h)
+    if cd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want, 2 ** -6, 1e-3)
+
+
+# head widths that are not a multiple of 4 (element-wise staging), a ragged
+# L over several blocks a pair, a single key
+@pytest.mark.parametrize("bp,l,c,h", [(2, 20, 30, 2), (4, 300, 120, 2), (3, 1, 64, 4),
+                                      (2, 130, 28, 4)])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_flash_mha_kernel_odd_shapes(dev, bp, l, c, h, cd):
+    g = torch.Generator(device=dev).manual_seed(l * c)
+    q, k, v = (torch.randn((bp, l, c), generator=g, device=dev).to(cd) for _ in range(3))
+    got = fa.flash_mha(q, k, v, h, compute_dtype=cd)
+    torch.cuda.synchronize()
     want = fa.flash_mha_plain(q, k, v, h)
     if cd == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))

@@ -18,7 +18,10 @@ from ggml_experiments_tpu_torch.quant import kquant as tkquant
 from ggml_experiments_tpu_torch.quant import qtensor as tqtensor
 from ggml_experiments_tpu_torch.quant.qmatmul import (
     LAUNCHES,
+    MAX_SPLIT,
+    TILE_N,
     XLA_FALLBACK_MAX_ELEMS,
+    launch_config,
     qmatmul_cuda,
 )
 
@@ -255,6 +258,44 @@ def test_q4_k_ragged_k_takes_the_dense_route(monkeypatch):
     monkeypatch.setattr(tqmm, "qmatmul_reference", None)   # the kernel route would call it
     out = tquant.qmatmul(torch.ones((2, 1056)), tq)
     assert out.shape == (2, 1100) and torch.float32 in tq.dense
+
+
+# (M, K, N): the main path's M=64 and M=1024 at the reference recurrent kernel,
+# single rows, ragged K and N, a narrow N, a deep K, a tall M
+LAUNCH_SHAPES = [(64, 1024, 3072), (1024, 1024, 3072), (1, 1024, 1025), (5, 1030, 1100),
+                 (65, 1030, 1100), (300, 1024, 3072), (64, 256, 66), (1, 32, 1),
+                 (64, 8192, 3072), (100000, 1024, 3072), (128, 2048, 128)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("qtype", tquant.QTYPES)
+@pytest.mark.parametrize("m,k,n", LAUNCH_SHAPES)
+def test_launch_config_covers_the_product(m, k, n, qtype, sms):
+    """The grid covers every output tile, the split cuts K into whole 32-row
+    blocks (256-row super-blocks for q4_k) with no empty rank and fits one
+    portable cluster, and the grid is never empty."""
+    bm, ksplit, bps = launch_config(m, k, n, qtype, sms)
+    nblk = -(-k // 32)
+    grid = (-(-n // TILE_N), -(-m // bm), ksplit)
+    assert bm in (64, 128) and min(grid) >= 1
+    assert grid[0] * TILE_N >= n and grid[1] * bm >= m
+    assert 1 <= ksplit <= MAX_SPLIT and bps >= 1
+    assert ksplit * bps >= nblk and (ksplit - 1) * bps < nblk
+    if qtype == "q4_k":
+        assert bps % 8 == 0
+
+
+def test_launch_config_fills_the_card_at_small_m():
+    # the main path's M=64: 48 column tiles, split toward two waves of 4
+    # blocks an SM (8 ranks of 4 blocks; q4_k by whole super-blocks, 4 of 8)
+    assert launch_config(64, 1024, 3072, "q8_0", 132) == (64, 8, 4)
+    assert launch_config(64, 1024, 3072, "q4_k", 132) == (64, 4, 8)
+    # M=1024: 384 tiles of 128 x 64 against 264 resident blocks: split in two
+    assert launch_config(1024, 1024, 3072, "q5_1", 132) == (128, 2, 16)
+    # a tall M needs no split
+    assert launch_config(8192, 1024, 3072, "q5_1", 132) == (128, 1, 32)
+    with pytest.raises(ValueError, match="empty"):
+        launch_config(0, 1024, 3072, "q8_0")
 
 
 def test_jax_reference_kept_in_interpret_mode():
