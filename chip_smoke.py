@@ -18,14 +18,19 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      of its bound and its speed against ``torch.matmul``;
   3. ``generate`` (scan path) at B=64, T=200, f32 and bf16;
   4. ``decode`` routed to the persistent kernel at B=8192, T=512, bf16, its
-     tokens against the plain version's on the same inputs, and the kernel
-     teacher-forced against its plain version (there at bf16, and at f32 at
-     B=1024, T=256);
+     tokens against the plain version's on the same inputs, two launches
+     bit-equal, and the kernel teacher-forced against its plain version
+     (there at bf16, and at f32 at B=1024, T=256); then each decomposition
+     forced where ``decode_plan`` would not take it (slot-owned at B=512,
+     unit-owned at B=4096, 64 steps), teacher-forced against the plain
+     version, two launches bit-equal;
   5. ``DecodeEngine`` with the fused tick: ~1000 greedy requests, each equal
      to the offline decode; a sampling engine serving 100 requests; the tick
-     kernel against its plain version on one identical tick input;
+     kernel against its plain version on one identical tick input, and two
+     launches of the greedy tick bit-equal;
   6. (printed last) one JSON line listing every kernel with its launches on
-     its main-path run, its error against its plain version and its times;
+     its main-path run, its error against its plain version and its times,
+     and for the persistent kernel's entries the plan that run took;
   7. the q4_0, q4_1, q5_0, q5_1 and q4_k ``qmatmul`` kernels on the same
      recurrent kernel (1024 x 3072) as phase 2, and ``generate`` at B=64,
      T=200 under each round-to-nearest format, its f32 tokens against the
@@ -48,14 +53,18 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      the input projection of ``corpus_train.txt`` windows, at (B, T) = (1024, 100) and
      (64, 100): forward ``ys`` / ``mhs``; backward ``dmxs`` / ``dwr`` /
      ``dbrec`` / ``dh0`` from a seeded cotangent; two backward launches on the
-     same inputs bit-equal;
+     same inputs bit-equal; and the backward alone at (B, T) = (2048, 8) and
+     (3000, 8), past one launch's shared memory, walked in two row tiles;
  12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
      B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
      step launches the forward and the backward kernel once and no plain
      version; the same run interrupted after 4 steps and resumed from its
      train-state file ends bit-equal; the trained weights go to a ``gru.bin``
      that ``generate`` reads back; then ``train-gru`` at its default batch of
-     64 for one epoch of the corpus's first 60,000 characters;
+     64 for one epoch of the corpus's first 60,000 characters, and at
+     ``--batch-size 2048`` for one epoch of the whole corpus (3 steps, the
+     backward in two row tiles a step), whose exported weights must score a
+     lower loss than the initial ones;
  13. the three vision kernels against their plain versions, at the shapes
      the main path gives them for B=128 images and on the full checkpoint's
      weights: the fused transformer layer (``csrc/transformer_layer.cu``) at
@@ -176,6 +185,9 @@ TF_BF16_MEAN_FRAC_LONG, TF_BF16_MEAN_FRAC_SHORT = 0.75, 0.25
 TRAIN_SHAPES = ((1024, 100), (64, 100))
 TRAIN_RESUME_AFTER = 4               # steps before the interruption
 TRAIN_CLI_CHARS = 60000              # corpus prefix of the default-batch CLI run
+TRAIN_TILED_SHAPES = ((2048, 8), (3000, 8))   # backward past one launch's shared memory
+TRAIN_BIG_BATCH = 2048               # train-gru's batch past one backward launch
+FORCED_PLANS = ((("slot", 4), 512), (("unit",), 4096))   # (plan, B), 64 steps
 # the training pair against its plain versions (limits: see the docstring)
 TRAIN_YS_MAX, TRAIN_MHS_MAX = 0.1, 0.25
 TRAIN_GRAD_REL = {"dmxs": 2e-2, "dh0": 2e-2, "dwr": 1e-2, "dbrec": 1e-2}
@@ -402,12 +414,19 @@ def decode_phase(tag, params, B, T, f32_shape, rng, tok):
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     launches = port.kernel_launches()
+    plan = fused.LAST_PLAN.get("fused_gru_decode")
     check(launches["fused_gru_decode"] > 0, f"{tag}: decode took the scan path: {launches}")
     wf = fused._prep_weights(params)
     v, e, u = wf.v, wf.e, wf.u
     check(toks.shape == (B, T) and int(toks.max()) < v, f"{tag}: decode output shape/range")
     ids_t, lens_t = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
     dec_ms = cuda_ms(lambda: fused.fused_gru_decode(params, ids_t, lens_t, T), n=3, warmup=1)
+    # two launches on the same inputs give the same bits
+    first = fused.fused_gru_decode(params, ids_t, lens_t, T, return_state=True)
+    second = fused.fused_gru_decode(params, ids_t, lens_t, T, return_state=True)
+    check(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+          f"{tag}: two decode launches on the same inputs differ")
+    del first, second
     zb = torch.zeros(B, dtype=torch.int32, device=dev)
     tb = torch.full((B,), T, dtype=torch.int32, device=dev)
     prompt_pad = torch.nn.functional.pad(ids_t, (0, T - ids_t.shape[1]))
@@ -428,8 +447,9 @@ def decode_phase(tag, params, B, T, f32_shape, rng, tok):
     log(f"[{tag}] decode() B={B} T={T} bf16, {wf.mode} weight route: {dec_s:.3f} s first call, "
         f"kernel {dec_ms:.2f} ms = {dec_ms * 1e3 / T:.1f} us/step = "
         f"{B * T / dec_ms * 1e3:,.0f} tok/s | plain {dec_plain_ms:.1f} ms | bound {b_ms:.2f} ms "
-        f"({b_by}) | launches {launches['fused_gru_decode']} | tokens vs the plain version: "
-        f"agreement {agree:.6f}, {forked} rows fork (all at near-ties)")
+        f"({b_by}) | launches {launches['fused_gru_decode']} | plan {plan} | two launches "
+        f"bit-equal | tokens vs the plain version: agreement {agree:.6f}, {forked} rows fork "
+        f"(all at near-ties)")
 
     # teacher-forced at the main path's shape and dtype: no argmax feedback,
     # so h must agree; at bf16 it may differ only where the two sides' f32
@@ -462,7 +482,51 @@ def decode_phase(tag, params, B, T, f32_shape, rng, tok):
     log(f"[{tag}] teacher-forced B={B} bf16, tokens equal: {tf_summary(dec_tf)} | "
         f"teacher-forced B={Bt} T={Tt} f32: tokens equal, h max abs err {h_err:.3g}")
     return dict(launches=launches["fused_gru_decode"], max_abs_err=dec_tf[T][0], ms=dec_ms,
-                plain_ms=dec_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                plain_ms=dec_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                plan=str(plan))
+
+
+def forced_plan_phase(tag, params, rng):
+    """Each decomposition of the persistent kernel forced through
+    ``config=`` at a batch where ``decode_plan`` takes the other one
+    (FORCED_PLANS), teacher-forced against the plain version at bf16 (as
+    phase 4 holds the main path), two launches bit-equal."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+
+    dev = params.device
+    wf = fused._prep_weights(params)
+    T = 64
+    for plan, B in FORCED_PLANS:
+        check(fused.decode_plan(B, wf.u, wf.v) != fused.DecodePlan(*plan),
+              f"{tag}: {plan} is already the default at B={B}")
+        ids = torch.from_numpy(rng.integers(0, wf.v, (B, T)).astype(np.int32)).to(dev)
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        h0 = torch.zeros(B, wf.u, device=dev)
+
+        def lens(t):
+            return torch.full((B,), t, dtype=torch.int32, device=dev)
+
+        def kernel(cd, t):
+            toks, h, _, _ = fused.gru_loop_cuda("fused_gru_decode", wf, ids[:, :t], lens(t),
+                                                lens(t), z, z, h0, t, cd, config=plan)
+            return toks, h
+
+        first, second = kernel(torch.bfloat16, T), kernel(torch.bfloat16, T)
+        check(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+              f"{tag}: two launches of {plan} at B={B} differ")
+        check(fused.LAST_PLAN["fused_gru_decode"] == fused.DecodePlan(*plan),
+              f"{tag}: the launch took {fused.LAST_PLAN['fused_gru_decode']}, not {plan}")
+        res = tf_h_check(kernel, lambda cd, t: fused.gru_loop_reference(
+            wf, ids[:, :t], lens(t), lens(t), z, z, h0, t, cd), T,
+            f"{tag}: forced {plan} B={B}")
+        ms = cuda_ms(lambda: kernel(torch.bfloat16, T), n=3, warmup=1)
+        log(f"[{tag}] forced plan {fused.DecodePlan(*plan)} at B={B} (default "
+            f"{fused.decode_plan(B, wf.u, wf.v)}), teacher-forced bf16, tokens equal: "
+            f"{tf_summary(res)} | two launches bit-equal | {ms:.2f} ms = "
+            f"{ms * 1e3 / T:.1f} us/step")
 
 
 def engine_phase(tag, params, n_requests, n_slots, inner, rng, tok):
@@ -486,6 +550,7 @@ def engine_phase(tag, params, n_requests, n_slots, inner, rng, tok):
     torch.cuda.synchronize()
     eng_s = time.perf_counter() - t0
     launches = port.kernel_launches()
+    plan = fused.LAST_PLAN.get("fused_slot_tick")
     check(launches["fused_slot_tick"] > 0, f"{tag}: engine took the scan tick: {launches}")
     ids, lens = pad_batch(prompts, 64)
     offline = fused.fused_gru_decode(params, ids, lens, 64 + 256,
@@ -500,11 +565,12 @@ def engine_phase(tag, params, n_requests, n_slots, inner, rng, tok):
         f"{fused._prep_weights(params).mode} weight route: all equal to the offline decode | "
         f"{eng_s:.3f} s, {eng.stats.tokens_generated:,} tokens delivered ({sum(new_toks):,} "
         f"generated) = {eng.stats.tokens_per_s:,.0f} tokens/s | tick launches "
-        f"{launches['fused_slot_tick']} | breakdown {json.dumps(eng.stats.breakdown())}")
-    return launches["fused_slot_tick"]
+        f"{launches['fused_slot_tick']}, plan {plan} | breakdown "
+        f"{json.dumps(eng.stats.breakdown())}")
+    return launches["fused_slot_tick"], plan
 
 
-def tick_phase(tag, params, n_slots, inner, launches, rng, tok):
+def tick_phase(tag, params, n_slots, inner, main_run, rng, tok):
     """One identical tick input through the kernel and its plain version:
     sampled (temperature 0.8, top-k 20, top-p 0.9) at f32 and bf16 under the
     near-tie rule, teacher-forced at f32 and bf16, and the greedy bf16 tick's
@@ -541,6 +607,13 @@ def tick_phase(tag, params, n_slots, inner, launches, rng, tok):
     greedy_st.prompt, greedy_st.plen, greedy_st.total = st.prompt, st.plen, st.total
     tick_ms = cuda_ms(lambda: fused.fused_slot_tick(params, greedy_st, inner,
                                                     compute_dtype=bf16), n=10)
+    # two launches on the same inputs give the same bits
+    first = fused.fused_slot_tick(params, greedy_st, inner, compute_dtype=bf16)
+    second = fused.fused_slot_tick(params, greedy_st, inner, compute_dtype=bf16)
+    check(torch.equal(first[1], second[1]) and all(
+        torch.equal(getattr(first[0], f), getattr(second[0], f)) for f in ("h", "prev", "pos")),
+        f"{tag}: two tick launches on the same inputs differ")
+    del first, second
     tick_plain_ms = cuda_ms(lambda: fused.gru_loop_reference(
         wf, greedy_st.prompt, greedy_st.plen, greedy_st.total, greedy_st.prev,
         greedy_st.pos, greedy_st.h, inner, bf16), n=1, warmup=1)
@@ -577,9 +650,11 @@ def tick_phase(tag, params, n_slots, inner, launches, rng, tok):
         f"{res['bfloat16'][0]:.6f} ({res['bfloat16'][1]} rows fork, at near-ties) | "
         f"teacher-forced tick, tokens equal: bf16 {tf_summary(tick_tf)}; f32 T={inner}: h max "
         f"abs err {tick_err:.3g} | greedy bf16 tick kernel {tick_ms:.3f} ms, plain "
-        f"{tick_plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"{tick_plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), two launches bit-equal")
+    launches, plan = main_run
     return dict(launches=launches, max_abs_err=tick_tf[inner][0], ms=tick_ms,
-                plain_ms=tick_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                plain_ms=tick_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                plan=str(plan))
 
 
 def train_kernel_phase(tag, fparams, dev, tok):
@@ -680,6 +755,42 @@ def train_kernel_phase(tag, fparams, dev, tok):
             "bwd": dict(max_abs_err=dmx_abs, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms,
                         bound_by=bb_by, library_ms=None)}
         del got, want, ys, mhs, pys, pmhs, mxs, dys, xs
+
+    # the backward past one launch's shared memory: row tiles, one launch each
+    for B, T in TRAIN_TILED_SHAPES:
+        ex = make_examples(text, tok, DataConfig(seq_length=T))
+        ids = ex[np.random.default_rng(B).permutation(len(ex))[:B], :T]
+        check(ids.shape == (B, T), f"{tag}: the corpus gives {ids.shape} windows, want {(B, T)}")
+        xs = fparams.embeddings[torch.from_numpy(ids.T.copy()).long().to(dev)]
+        mxs = input_projection(cell, xs, compute_dtype=bf16).contiguous()
+        g = torch.Generator(device=dev).manual_seed(B)
+        h0 = (torch.randn((B, u), generator=g, device=dev) * 0.3).to(bf16)
+        dys = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(bf16)
+        pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+        tiles = ft.bwd_batch_tiles(B, u)
+        before = ft.LAUNCHES["fused_gru_train_bwd"]
+        got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        check(ft.LAUNCHES["fused_gru_train_bwd"] - before == len(tiles) > 1,
+              f"{tag}: backward B={B} launched {ft.LAUNCHES['fused_gru_train_bwd'] - before} "
+              f"times for tiles {tiles}")
+        again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        torch.cuda.synchronize()
+        want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+        rel = {}
+        for name, a, a2, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
+            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
+                  f"{tag}: tiled backward B={B}: {name} shape or values")
+            check(torch.equal(a, a2), f"{tag}: tiled backward B={B}: two runs on the same "
+                                      f"inputs give different {name}")
+            rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+            check(rel[name] <= TRAIN_GRAD_REL[name],
+                  f"{tag}: tiled backward B={B} T={T}: {name} max |diff| / max |plain| = "
+                  f"{rel[name]:.3g} > {TRAIN_GRAD_REL[name]}")
+        ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=3, warmup=1)
+        log(f"[{tag}] backward B={B} T={T} U={u} bf16 in row tiles {tiles} (one launch each): "
+            f"max |diff| / max |plain|: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f" | two runs bit-equal | {ms:.3f} ms")
+        del got, again, want, pys, pmhs, mxs, dys, xs
     return out
 
 
@@ -752,6 +863,7 @@ def train_phase(tag, dev, tok, kernel_ms):
     from ggml_experiments_tpu_torch.training.gru_trainer import (
         adam_init,
         adam_update,
+        loss_fn,
         make_train_step,
         param_leaves,
     )
@@ -885,6 +997,48 @@ def train_phase(tag, dev, tok, kernel_ms):
             f"{cli_steps} steps on the corpus's first {TRAIN_CLI_CHARS:,} characters: "
             f"{json.dumps(summary)} in {cli_s:.2f} s | one forward and one backward launch a "
             f"step")
+
+        # the command at a batch past one backward launch's shared memory
+        big_out = os.path.join(tmp, "big_gru.bin")
+        big = DataConfig(seq_length=T, batch_size=TRAIN_BIG_BATCH)
+        big_steps = len(make_examples(text, tok, big)) // TRAIN_BIG_BATCH
+        tiles = ft.bwd_batch_tiles(TRAIN_BIG_BATCH, 1024)
+        before = port.kernel_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train-gru", "--corpus", CORPUS_TRAIN, "--epochs", "1", "--compute",
+                           "bfloat16", "--batch-size", str(TRAIN_BIG_BATCH), "--log-every", "1",
+                           "--output", big_out])
+        torch.cuda.synchronize()
+        big_s = time.perf_counter() - t0
+        after = port.kernel_launches()
+        summary = json.loads(buf.getvalue().splitlines()[-1])
+        check(rc == 0 and summary["steps"] == big_steps - 1 and np.isfinite(summary["final_loss"])
+              and os.path.exists(big_out), f"{tag}: train-gru B={TRAIN_BIG_BATCH}: rc {rc}, "
+                                           f"summary {summary}")
+        check(after["fused_gru_train_fwd"] - before["fused_gru_train_fwd"] == big_steps
+              and after["fused_gru_train_bwd"] - before["fused_gru_train_bwd"]
+              == big_steps * len(tiles) and not any(ft.PLAIN_CALLS.values()),
+              f"{tag}: train-gru B={TRAIN_BIG_BATCH} launched {before} -> {after}")
+        # its loss falls: the exported weights against the initial ones (the
+        # command's seed 0) on the corpus's first windows
+        inp, tgt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in next(iter(
+            batches(make_examples(text, tok, DataConfig(seq_length=T, batch_size=256)),
+                    DataConfig(seq_length=T, batch_size=256), seed=1))))
+        init = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(0), device=dev)
+        trained = load_gru_params(big_out, device=dev)
+        with torch.no_grad():
+            loss0, loss1 = (float(loss_fn(p, inp, tgt)) for p in (init, trained))
+        check(loss1 < loss0, f"{tag}: train-gru B={TRAIN_BIG_BATCH}: loss {loss0:.4f} before, "
+                             f"{loss1:.4f} after")
+        log(f"[{tag}] train-gru --batch-size {TRAIN_BIG_BATCH} bf16, {big_steps} steps on "
+            f"corpus_train.txt: {json.dumps(summary)} in {big_s:.2f} s | launches fwd "
+            f"{after['fused_gru_train_fwd'] - before['fused_gru_train_fwd']}, bwd "
+            f"{after['fused_gru_train_bwd'] - before['fused_gru_train_bwd']} (row tiles "
+            f"{tiles} a step) | loss on 256 corpus windows: {loss0:.4f} initial -> {loss1:.4f} "
+            f"exported")
+        del init, trained
     return launches
 
 
@@ -1365,10 +1519,11 @@ def main() -> int:
     # ---- 4. persistent fused decode -------------------------------------------
     kernels["fused_gru_decode"] = decode_phase("4 fused decode", params, *DECODE_SHAPE,
                                                TF_F32_SHAPE, rng, tok)
+    forced_plan_phase("4 fused decode", params, rng)
 
     # ---- 5. continuous-batching engine on the fused tick -----------------------
     n_slots, inner = ENGINE_SHAPE
-    tick_launches = engine_phase("5 engine", params, REQUESTS, n_slots, inner, rng, tok)
+    tick_run = engine_phase("5 engine", params, REQUESTS, n_slots, inner, rng, tok)
     seng = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
                         compute_dtype=bf16, temperature=0.8, top_k=20, top_p=0.9,
                         use_fused_tick=True, seed=1)
@@ -1384,7 +1539,7 @@ def main() -> int:
     log(f"[5 engine] sampling engine (temperature 0.8, top-k 20, top-p 0.9): {len(sreqs)} "
         f"requests complete in {seng_s:.3f} s, {seng.stats.tokens_per_s:,.0f} tokens/s | "
         f"sample: {tok.decode(sreqs[0].result(timeout=0)[sprompts[0].size:].tolist())[:60]!r}")
-    kernels["fused_slot_tick"] = tick_phase("5 engine", params, n_slots, inner, tick_launches,
+    kernels["fused_slot_tick"] = tick_phase("5 engine", params, n_slots, inner, tick_run,
                                             rng, tok)
 
     # ---- 7. qmatmul, every other format ---------------------------------------------
@@ -1460,20 +1615,18 @@ def main() -> int:
     del km_cpu
     kernels["fused_gru_decode_dense"] = decode_phase("8 q4_k_m", params_km, *DECODE_SHAPE,
                                                      TF_F32_SHAPE, rng, tok)
-    tick_launches = engine_phase("8 q4_k_m", params_km, REQUESTS_ROUTE, n_slots, inner, rng,
-                                 tok)
+    tick_run = engine_phase("8 q4_k_m", params_km, REQUESTS_ROUTE, n_slots, inner, rng, tok)
     kernels["fused_slot_tick_dense"] = tick_phase("8 q4_k_m", params_km, n_slots, inner,
-                                                  tick_launches, rng, tok)
+                                                  tick_run, rng, tok)
     del params_km
 
     # ---- 9. the q4_0 weight route -------------------------------------------------------
     check(fused._prep_weights(params_q4_0).mode == "q4_0", "q4_0 params took another route")
     kernels["fused_gru_decode_q4_0"] = decode_phase("9 q4_0", params_q4_0, *DECODE_SHAPE_Q4_0,
                                                     DECODE_SHAPE_Q4_0, rng, tok)
-    tick_launches = engine_phase("9 q4_0", params_q4_0, REQUESTS_ROUTE, n_slots, inner, rng,
-                                 tok)
+    tick_run = engine_phase("9 q4_0", params_q4_0, REQUESTS_ROUTE, n_slots, inner, rng, tok)
     kernels["fused_slot_tick_q4_0"] = tick_phase("9 q4_0", params_q4_0, n_slots, inner,
-                                                 tick_launches, rng, tok)
+                                                 tick_run, rng, tok)
     del params_q4_0
 
     # ---- 10. checkpoint round trip and engine snapshot on the card ---------------------
@@ -1621,6 +1774,8 @@ def main() -> int:
                  "bound_by": kd["bound_by"], "library_ms": kd["library_ms"]}
         if "bfloat16" in kd:     # qmatmul: the main path's bf16 cell beside its f32 one
             entry["bfloat16"] = kd["bfloat16"]
+        if "plan" in kd:         # the persistent kernel: the plan its main-path run took
+            entry["plan"] = kd["plan"]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

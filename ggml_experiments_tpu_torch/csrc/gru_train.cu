@@ -51,10 +51,12 @@
 // carry are read with __ldcg, so no stale L1 line survives a grid sync.
 //
 // Shapes: U a multiple of 8 with U / 8 blocks co-resident (U <= 1056 on 132
-// SMs); any B >= 1 whose backward staging fits shared memory (B <= 1760 at
-// U = 1024). The launch functions return cudaErrorInvalidValue or
-// cudaErrorCooperativeLaunchTooLarge otherwise; the Python wrapper checks
-// the same conditions first and names the shape.
+// SMs); any B >= 1 in the forward. One backward launch stages its whole
+// batch in shared memory (gxt_gru_train_bwd_smem), so the Python wrapper
+// cuts a larger batch into row tiles that fit and launches once a tile
+// (ops/fused_gru_train.py bwd_batch_tiles). The launch functions return
+// cudaErrorInvalidValue or cudaErrorCooperativeLaunchTooLarge otherwise; the
+// wrapper checks the same conditions first and names the shape.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>

@@ -23,6 +23,14 @@ draws the same noise only while it runs its slots untiled (at most
 Past that, JAX keys each tile on its own columns plus the tile's first slot,
 and its stream differs from this one.
 
+The kernel cuts the work one of two ways (``csrc/gru_persistent.cu``):
+slot-owned (a block owns a tile of slots for the whole loop and streams the
+recurrent plane through shared memory; bf16 only, no grid sync) or
+unit-owned (a block owns 8 hidden units, keeps their plane columns in shared
+memory and streams h; two grid syncs a step). :func:`decode_plan` chooses
+the plan (:class:`DecodePlan`: the decomposition and, slot-owned, the ring
+depth that fits) from B; ``gru_loop_cuda(..., config=)`` overrides it.
+
 The weights reach the kernel by one of three routes, chosen as the JAX
 package chooses (``_check_quantized``): all three matrices q8_0, or all three
 q4_0, stay compressed and are decoded in the kernel's setup; any other
@@ -52,6 +60,8 @@ M32 = 0xFFFFFFFF
 
 # launches of each CUDA entry point; only the kernel wrappers add to these
 LAUNCHES = {"fused_gru_decode": 0, "fused_slot_tick": 0}
+# the plan of each entry point's last launch
+LAST_PLAN = {}
 
 
 # weight routes, by their number in the kernel's Args
@@ -312,6 +322,117 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448             # dynamic shared memory a block may opt in to on an H100
+SLOT_SLOTS = 64                 # slots a slot-owned block owns: one wgmma M tile
+SLOT_STAGES = (3, 4)            # ring depths of the slot-owned loop: the deepest that fits
+UNIT_STAGES = 3                 # the bf16 unit-owned h ring, which fits two blocks an SM
+UNIT_SPLIT = 2                  # bf16 unit-owned blocks a unit group's slot tiles are dealt to
+# bf16 batches from here on run slot-owned: on an H100 a slot-owned step
+# takes ~260-280 us at any B (64 slots a block, every block streams the
+# whole plane), a unit-owned one ~0.08 us a slot (every block reads its
+# half of h: 249 us at B=3072, 332 at 4096); they cross near B=3300
+# (tools/torch_kernel_bench.py --sweep, PERF.md)
+SLOT_MIN_BATCH = 3300
+_RING_K, _PASS_ROWS, _UNIT_SLOTS, _HEAD_NT, _F32_CHUNK = 64, 192, 128, 9, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the persistent kernel cuts one launch: ``decomp`` "slot" (a block
+    owns SLOT_SLOTS slots for the whole loop and streams the weights through
+    a ring of ``stages`` buffers, 3 or 4) or "unit" (8 hidden units a unit
+    group, owned by UNIT_SPLIT blocks at bf16 and one at f32; every block
+    takes B / grid slots of the logits; ``stages`` 0, the bf16 h ring being
+    UNIT_STAGES deep)."""
+
+    decomp: str
+    stages: int = 0
+
+
+def _kp(u: int) -> int:
+    return -(-u // _RING_K) * _RING_K
+
+
+def _vp(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def plan_smem_bytes(plan: DecodePlan, u: int, v: int, bf16: bool) -> int:
+    """Dynamic shared memory of the loop kernel under ``plan`` (``plan_smem``
+    of csrc/gru_persistent.cu, which the wrapper checks against this)."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    if plan.decomp == "slot":
+        s, stage = SLOT_SLOTS, _PASS_ROWS * _RING_K * 2
+        lg = s * _vp(v) * 4
+        return (1024 + s * _kp(u) * 2 + plan.stages * stage + (0 if lg <= stage else lg)
+                + 2 * s * 4 + 2 * plan.stages * 8)
+    if bf16:
+        work = max(UNIT_STAGES * _UNIT_SLOTS * _RING_K * 2,
+                   (8 * 16 * 8 * _HEAD_NT + 16 * _vp(v)) * 4)
+        w = 24 * _kp(u) * 2
+    else:
+        work = max(32 * 260 * 4, (2 * 16 * _F32_CHUNK + 2 * _F32_CHUNK * v + 16 * _vp(v)) * 4)
+        w = u * 24 * 4
+    tok = a16(a16(a16(w) + v * 24 * 4) + work)
+    return tok + (0 if bf16 else 2 * 256 * 4)
+
+
+def plan_grid(plan: DecodePlan, b: int, u: int, bf16: bool) -> int:
+    """Blocks of the loop kernel's launch under ``plan``."""
+    if plan.decomp == "slot":
+        return -(-b // SLOT_SLOTS)
+    return (UNIT_SPLIT if bf16 else 1) * u // 8
+
+
+def check_plan(plan: DecodePlan, u: int, v: int, bf16: bool, sms: int = 132,
+               smem_limit: int = SMEM_LIMIT) -> None:
+    """Raise ValueError unless the kernel can launch ``plan`` at (U, V)."""
+    if plan.decomp == "slot":
+        ok = bf16 and plan.stages in SLOT_STAGES
+    elif plan.decomp == "unit":
+        ok = plan.stages == 0 and u // 8 <= sms
+    else:
+        ok = False
+    if not ok:
+        raise ValueError(f"the persistent kernel has no plan {plan} at U={u}, V={v}, "
+                         f"{'bf16' if bf16 else 'f32'} on {sms} multiprocessors (slot-owned: "
+                         f"bf16, stages {SLOT_STAGES}; unit-owned: stages 0, U / 8 <= "
+                         f"multiprocessors)")
+    need = plan_smem_bytes(plan, u, v, bf16)
+    if need > smem_limit:
+        raise ValueError(f"plan {plan} needs {need} bytes of shared memory a block at U={u}, "
+                         f"V={v}; the device allows {smem_limit}")
+
+
+def decode_plan(b: int, u: int, v: int, compute_dtype=torch.bfloat16, sms: int = 132,
+                smem_limit: int = SMEM_LIMIT) -> DecodePlan:
+    """The plan for B slots at (U, V) on a card with ``sms`` multiprocessors.
+    bf16 batches of at least SLOT_MIN_BATCH run slot-owned (128 blocks at
+    B=8192) with the deepest ring that fits shared memory; smaller bf16
+    batches, those whose logits fit no slot-owned block, and f32 (held
+    token-exact on CUDA-core FMAs) run unit-owned."""
+    if resolve_dtype(compute_dtype) == torch.bfloat16 and b >= SLOT_MIN_BATCH:
+        for stages in sorted(SLOT_STAGES, reverse=True):
+            plan = DecodePlan("slot", stages)
+            if plan_smem_bytes(plan, u, v, True) <= smem_limit:
+                return plan
+    return DecodePlan("unit")
+
+
+def plan_slot_tiles(plan: DecodePlan, b: int, u: int, bf16: bool):
+    """The slot ranges [(start, stop), ...] the blocks own: a slot-owned
+    block's slots for the whole loop, or a unit-owned block's slots of the
+    logits and token choice (B / grid slots each)."""
+    per = SLOT_SLOTS if plan.decomp == "slot" else -(-b // plan_grid(plan, b, u, bf16))
+    return [(s, min(s + per, b)) for s in range(0, b, per)]
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -319,11 +440,11 @@ class _Args(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "emb", "wc", "ws", "uc", "us", "bias", "dc", "ds", "dbias", "prompt",
-            "plen", "total", "prev", "pos", "h0", "h1", "ddeq", "toks", "temp", "hb0",
-            "hb1")]
+            "plen", "total", "prev", "pos", "h0", "h1", "toks", "temp", "hb0", "hb1",
+            "proj", "wl", "dl")]
         + [(n, ctypes.c_int) for n in (
             "V", "E", "U", "P", "B", "steps", "toks_u8", "bf16", "sampling", "top_k",
-            "wmode")]
+            "wmode", "decomp", "stages")]
         + [("top_p", ctypes.c_float), ("seed", ctypes.c_uint32)]
     )
 
@@ -359,10 +480,12 @@ def _check_layout(entry: str, w: FusedWeights) -> None:
 
 def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h,
                   steps: int, compute_dtype=torch.bfloat16, temp=None, seed: int = 0,
-                  top_k: int = 0, top_p: float = 0.0, toks_u8: bool = False):
+                  top_k: int = 0, top_p: float = 0.0, toks_u8: bool = False,
+                  config: Optional[DecodePlan] = None):
     """Launch the persistent kernel through ``entry`` (``fused_gru_decode``
-    or ``fused_slot_tick``). Returns (toks, h, prev, pos) as the plain
-    version does; the inputs are not modified."""
+    or ``fused_slot_tick``) under ``config`` (default :func:`decode_plan`;
+    a DecodePlan or its fields as a tuple). Returns (toks, h, prev, pos) as
+    the plain version does; the inputs are not modified."""
     from ggml_experiments_tpu_torch import _build
 
     cd = resolve_dtype(compute_dtype)
@@ -377,18 +500,38 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
         raise ValueError(f"{entry}: the kernel takes a vocab of at most 256 and units in "
                          f"whole 32-row blocks, got V={w.v}, U={w.u}")
     _check_layout(entry, w)
+    bf16 = cd == torch.bfloat16
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
+    if config is None:
+        plan = decode_plan(b, w.u, w.v, cd, sms, limit)
+    else:
+        plan = config if isinstance(config, DecodePlan) else DecodePlan(*config)
+    check_plan(plan, w.u, w.v, bf16, sms, limit)
     prompt = _i32(prompt, dev)
     plen, total = _i32(plen, dev), _i32(total, dev)
     prev, pos = _i32(prev, dev).clone(), _i32(pos, dev).clone()
     h0 = h.float().contiguous().clone()
     h1 = torch.empty_like(h0)
-    ddeq = torch.empty((w.u, w.v), dtype=torch.float32, device=dev)
     toks = torch.empty((b, steps), dtype=torch.uint8 if toks_u8 else torch.int32, device=dev)
     temp_t = None if temp is None else temp.float().contiguous()
-    bf16 = cd == torch.bfloat16
+    # the setup launch fills these once per call: the input-projection table,
+    # and at bf16 the recurrent plane and the head in the loop's layouts
+    proj = torch.empty((w.v, 3 * w.u), dtype=torch.bfloat16 if bf16 else torch.float32,
+                       device=dev)
+    if bf16:
+        # slot-owned: whole 64-unit passes of 192 rows, tile by tile
+        rows = _PASS_ROWS * -(-w.u // 64) if plan.decomp == "slot" else 3 * w.u
+        wl = torch.empty((rows, _kp(w.u)), dtype=torch.bfloat16, device=dev)
+        dl = torch.empty((_vp(w.v), _kp(w.u)), dtype=torch.bfloat16, device=dev)
+    else:
+        wl = None
+        dl = torch.empty((w.u, w.v), dtype=torch.float32, device=dev)
     # bf16: the kernel's tensor-core products read a bf16 copy of h beside it
     hb0 = h0.to(torch.bfloat16) if bf16 else None
     hb1 = torch.empty_like(hb0) if bf16 else None
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -396,21 +539,31 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
         w.emb.data_ptr(), w.wc.data_ptr(), ptr(w.ws), w.uc.data_ptr(), ptr(w.us),
         w.bias.data_ptr(), w.dc.data_ptr(), ptr(w.ds), w.dbias.data_ptr(),
         prompt.data_ptr(), plen.data_ptr(), total.data_ptr(), prev.data_ptr(), pos.data_ptr(),
-        h0.data_ptr(), h1.data_ptr(), ddeq.data_ptr(), toks.data_ptr(),
-        ptr(temp_t), ptr(hb0), ptr(hb1),
+        h0.data_ptr(), h1.data_ptr(), toks.data_ptr(), ptr(temp_t), ptr(hb0), ptr(hb1),
+        proj.data_ptr(), ptr(wl), dl.data_ptr(),
         w.v, w.e, w.u, prompt.shape[1], b, steps, int(toks_u8), int(bf16),
-        int(temp_t is not None), int(top_k), WEIGHT_MODES[w.mode], float(top_p), seed & M32,
+        int(temp_t is not None), int(top_k), WEIGHT_MODES[w.mode],
+        int(plan.decomp == "slot"), plan.stages, float(top_p), seed & M32,
     )
     lib = _build.load("gru_persistent")
     if lib.gxt_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError("gru_persistent.cu Args layout differs from _Args")
+    lib.gxt_plan_smem.restype = ctypes.c_int
+    lib.gxt_plan_smem.argtypes = [ctypes.POINTER(_Args)]
+    have, want = lib.gxt_plan_smem(ctypes.byref(a)), plan_smem_bytes(plan, w.u, w.v, bf16)
+    if have != want:
+        raise RuntimeError(f"{entry}: gru_persistent.cu reckons {have} bytes of shared memory "
+                           f"for {plan}, plan_smem_bytes {want}")
     fn = getattr(lib, f"gxt_{entry}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     code = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, entry)
+    _build.check(lib, code, f"{entry} {plan}")
     LAUNCHES[entry] += 1
-    return toks, (h0 if steps % 2 == 0 else h1), prev, pos
+    LAST_PLAN[entry] = plan
+    # a slot-owned loop updates h0 in place; a unit-owned one alternates
+    out = h0 if plan.decomp == "slot" or steps % 2 == 0 else h1
+    return toks, out, prev, pos
 
 
 def _check_tokens(ids: torch.Tensor, v: int) -> None:
@@ -473,5 +626,6 @@ def fused_slot_tick(params, state, inner_steps: int, *, compute_dtype=torch.bflo
     return dataclasses.replace(state, h=h, prev=prev, pos=pos), toks
 
 
-__all__ = ["LAUNCHES", "fused_gru_decode", "fused_slot_tick", "gru_loop_cuda",
-           "gru_loop_reference", "is_fusable_params"]
+__all__ = ["DecodePlan", "LAST_PLAN", "LAUNCHES", "check_plan", "decode_plan",
+           "fused_gru_decode", "fused_slot_tick", "gru_loop_cuda", "gru_loop_reference",
+           "is_fusable_params", "plan_grid", "plan_slot_tiles", "plan_smem_bytes"]

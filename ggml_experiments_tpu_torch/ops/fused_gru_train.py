@@ -23,11 +23,14 @@ round:
   sum_b dmh`` (the unrounded ``dmh``) kept in f32; ``dh0`` is the last carry.
 
 The kernels take U a multiple of 8 with at most 8 units per streaming
-multiprocessor (U <= 1056 on an H100), any B >= 1 in the forward, and in the
-backward a B whose staging fits a block's shared memory (B <= 1760 at
-U = 1024); another shape raises ``ValueError`` naming it. The plain versions
-take any shape, and ``compute_dtype=torch.float64`` runs them without any
-rounding (for checking the backward's formulas against autograd).
+multiprocessor (U <= 1056 on an H100) and any B >= 1; another U raises
+``ValueError`` naming the shape. One backward launch stages its whole batch
+in shared memory, which holds at most 1760 rows at U = 1024, so the backward
+walks a larger batch in row tiles (:func:`bwd_batch_tiles`), one launch a
+tile, and adds the tiles' f32 weight gradients in tile order
+(:func:`bwd_tiled`). The plain versions take any shape, and
+``compute_dtype=torch.float64`` runs them without any rounding (for checking
+the backward's formulas against autograd).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ LAUNCHES = {"fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0}
 PLAIN_CALLS = {"fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0}
 
 UNITS_PER_BLOCK = 8
+SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to on an H100
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +118,70 @@ def gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr):
 
 
 # ---------------------------------------------------------------------------
+# batch tiles of the backward
+# ---------------------------------------------------------------------------
+
+def _padded_ld(k: int) -> int:
+    """``padded_ld`` of csrc/gru_train.cu: whole 32-wide K steps, and a row
+    of (ld / 2) % 32 == 16 words."""
+    ld = -(-k // 32) * 32
+    return ld + 32 if (ld // 2) % 32 != 16 else ld
+
+
+def bwd_smem_bytes(b: int, u: int) -> int:
+    """Dynamic shared memory of one backward launch over ``b`` rows at U=u
+    (``bwd_smem`` of csrc/gru_train.cu): the block's 8 rows of Wr, the
+    staged dmh of its 24 gate columns over the batch (B rounded up to 32),
+    and its f32 columns of dWr."""
+    bp = -(-b // 32) * 32
+    return (UNITS_PER_BLOCK * _padded_ld(3 * u) * 2 + 3 * UNITS_PER_BLOCK * _padded_ld(bp) * 2
+            + max(u, 256) * 3 * UNITS_PER_BLOCK * 4)
+
+
+def bwd_batch_tiles(b: int, u: int, smem_limit: int = SMEM_LIMIT):
+    """Row ranges [(start, stop), ...] covering 0..b in order, each a batch
+    whose backward launch fits ``smem_limit`` bytes of shared memory: one
+    range while the whole batch fits (B <= 1760 at U = 1024 on an H100),
+    else the fewest tiles, of equal size rounded up to 32 rows (the last
+    one shorter)."""
+    if b <= 0:
+        return []
+    if bwd_smem_bytes(b, u) <= smem_limit:
+        return [(0, b)]
+    most = 0
+    while bwd_smem_bytes(most + 32, u) <= smem_limit and most + 32 < b:
+        most += 32
+    if most == 0:
+        raise ValueError(f"fused_gru_train_bwd: U={u} leaves no room for a 32-row batch tile "
+                         f"in {smem_limit} bytes of shared memory")
+    n = -(-b // most)
+    rows = -(-(-(-b // n)) // 32) * 32
+    return [(s, min(s + rows, b)) for s in range(0, b, rows)]
+
+
+def bwd_tiled(run, mxs, mhs, ys, dys, h0, wr, tiles):
+    """The backward over the row ``tiles`` of the batch: ``run`` (a kernel
+    launch or the plain version) on each tile's rows, dmxs and dh0 put back
+    in place, dwr and dbrec (sums over rows) added in tile order, so that
+    two runs give the same bits. One tile is one plain call of ``run``."""
+    if len(tiles) == 1 and tiles[0] == (0, mxs.shape[1]):
+        return run(mxs, mhs, ys, dys, h0, wr)
+    dmxs = torch.empty_like(mxs)
+    dh0 = dwr = dbrec = None
+    for s, e in tiles:
+        part = run(mxs[:, s:e].contiguous(), mhs[:, s:e].contiguous(), ys[:, s:e].contiguous(),
+                   dys[:, s:e].contiguous(), h0[s:e].contiguous(), wr)
+        dmxs[:, s:e] = part[0]
+        if dh0 is None:
+            dh0 = part[3].new_empty((mxs.shape[1], part[3].shape[1]))
+            dwr, dbrec = part[1], part[2]
+        else:
+            dwr, dbrec = dwr + part[1], dbrec + part[2]
+        dh0[s:e] = part[3]
+    return dmxs, dwr, dbrec, dh0
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -179,10 +247,10 @@ def gru_train_fwd_cuda(mxs, h0, wr, brec) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr):
-    """Launch the backward kernel on bf16 operands: (dmxs bf16; dwr, dbrec,
-    dh0 f32)."""
-    from ggml_experiments_tpu_torch import _build
-
+    """The backward kernel on bf16 operands: (dmxs bf16; dwr, dbrec, dh0
+    f32). A batch whose staging exceeds the device's shared memory runs in
+    row tiles (:func:`bwd_batch_tiles`), one launch a tile, each adding one
+    to ``LAUNCHES["fused_gru_train_bwd"]``; a batch that fits is one launch."""
     entry = "fused_gru_train_bwd"
     dev = mxs.device
     if dev.type != "cuda" or mxs.dim() != 3 or mxs.shape[2] % 3:
@@ -195,23 +263,34 @@ def gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr):
                             ("ys", ys, bf16, (t_len, b, u)), ("dys", dys, bf16, (t_len, b, u)),
                             ("h0", h0, bf16, (b, u)), ("wr", wr, bf16, (u, g3))), dev)
     _check_units(entry, t_len, b, u, dev)
-    dmxs = torch.empty_like(mxs)
     if t_len == 0 or b == 0:
-        return (dmxs, torch.zeros((u, g3), dtype=f32, device=dev),
+        return (torch.empty_like(mxs), torch.zeros((u, g3), dtype=f32, device=dev),
                 torch.zeros((g3,), dtype=f32, device=dev),
                 torch.zeros((b, u), dtype=f32, device=dev))
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
+    return bwd_tiled(_bwd_launch, mxs, mhs, ys, dys, h0, wr, bwd_batch_tiles(b, u, limit))
+
+
+def _bwd_launch(mxs, mhs, ys, dys, h0, wr):
+    """One backward launch over a batch that fits shared memory."""
+    from ggml_experiments_tpu_torch import _build
+
+    entry = "fused_gru_train_bwd"
+    dev = mxs.device
+    t_len, b, g3 = mxs.shape
+    u = g3 // 3
+    bf16, f32 = torch.bfloat16, torch.float32
+    lib = _lib()
+    need = lib.gxt_gru_train_bwd_smem(b, u)
+    if need != bwd_smem_bytes(b, u):
+        raise RuntimeError(f"{entry}: csrc/gru_train.cu stages {need} bytes at (B, U) = "
+                           f"({b}, {u}), bwd_smem_bytes {bwd_smem_bytes(b, u)}")
     # the kernel writes every entry of its outputs
+    dmxs = torch.empty_like(mxs)
     dwr = torch.empty((u, g3), dtype=f32, device=dev)
     dbrec = torch.empty((g3,), dtype=f32, device=dev)
     dh0 = torch.empty((b, u), dtype=f32, device=dev)
-    lib = _lib()
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    need = lib.gxt_gru_train_bwd_smem(b, u)
-    if need > limit:
-        raise ValueError(
-            f"{entry}: (T, B, U) = ({t_len}, {b}, {u}) needs {need} bytes of shared memory "
-            f"a block for its staging of the batch; the device allows {limit}")
     bp = -(-b // 32) * 32
     # staging, double-buffered by the parity of t: dmh of the step and the
     # transpose of h_{t-1}, whose padding columns must read as zeros
@@ -279,6 +358,6 @@ def fused_gru_scan_plain(mxs, h0, wr, brec, compute_dtype=torch.bfloat16) -> tor
     return _FusedGRUScan.apply(mxs, h0, wr, brec, compute_dtype, True)
 
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "fused_gru_scan", "fused_gru_scan_plain",
-           "gru_train_bwd_cuda", "gru_train_bwd_plain", "gru_train_fwd_cuda",
-           "gru_train_fwd_plain"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "bwd_batch_tiles", "bwd_smem_bytes", "bwd_tiled",
+           "fused_gru_scan", "fused_gru_scan_plain", "gru_train_bwd_cuda", "gru_train_bwd_plain",
+           "gru_train_fwd_cuda", "gru_train_fwd_plain"]

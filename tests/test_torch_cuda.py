@@ -260,6 +260,115 @@ def test_tick_feeds_zero_past_the_prompt_buffer(dev, params):
     assert float((s_k.h - h_p).abs().max()) <= 1e-5
 
 
+# ---- every plan of the persistent kernel, forced through config=: the
+# slot-owned loop (bf16) and the unit-owned one (bf16 and f32), at batches of
+# one slot, ragged tiles and several waves; U=96 leaves a ragged 64-unit pass
+# and a ragged 64-wide K chunk
+
+BF16_PLANS = [("unit",), ("slot", 3), ("slot", 4)]
+PLAN_CASES = [(p, torch.bfloat16) for p in BF16_PLANS] + [(("unit",), torch.float32)]
+PLAN_BATCHES = [1, 31, 129, 512, 2048, 4100]
+
+
+def _plan_id(case):
+    plan, cd = case
+    return "-".join(str(x) for x in plan) + f"-{str(cd)[6:]}"
+
+
+def _slot_inputs(dev, b, t, p, seed, plen=None, total=None, temp=None):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    prompt = torch.randint(0, V, (b, p), generator=g, dtype=torch.int32).to(dev)
+    plen = torch.full((b,), t, dtype=torch.int32, device=dev) if plen is None else plen
+    total = plen.clone() if total is None else total
+    z = torch.zeros(b, dtype=torch.int32, device=dev)
+    return prompt, plen, total, z, z.clone(), torch.zeros(b, U, device=dev)
+
+
+def _run_twice(entry, w, args, steps, cd, **kw):
+    """Two launches on the same inputs: they must give the same bits."""
+    got = tf.gru_loop_cuda(entry, w, *args, steps, cd, **kw)
+    again = tf.gru_loop_cuda(entry, w, *args, steps, cd, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("b", PLAN_BATCHES)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_every_plan_teacher_forced_matches_plain(dev, params, case, b):
+    plan, cd = case
+    t = 10
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, b, t, t, seed=b)
+    toks, h, prev, pos = _run_twice("fused_gru_decode", w, args, t, cd, config=plan)
+    assert tf.LAST_PLAN["fused_gru_decode"] == tf.DecodePlan(*plan)
+    ptoks, ph, pprev, ppos = tf.gru_loop_reference(w, *args, t, cd)
+    assert torch.equal(toks, ptoks) and torch.equal(pos, ppos)
+    assert float((h - ph).abs().max()) <= (1e-5 if cd == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("b", PLAN_BATCHES)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_every_plan_sampled_tick_matches_plain_until_near_ties(dev, params, case, b):
+    plan, cd = case
+    inner = 12
+    w = tf._prep_weights(params)
+    g = torch.Generator(device="cpu").manual_seed(b)
+    plen = torch.randint(1, 9, (b,), generator=g, dtype=torch.int32).to(dev)
+    total = torch.randint(4, 30, (b,), generator=g, dtype=torch.int32).to(dev)
+    args = _slot_inputs(dev, b, inner, 8, seed=b + 1, plen=plen, total=total)
+    temp = torch.linspace(0, 1.2, b, device=dev)
+    kw = dict(temp=temp, seed=9, top_k=10, top_p=0.9)
+    toks, h, prev, pos = _run_twice("fused_slot_tick", w, args, inner, cd, config=plan,
+                                    toks_u8=True, **kw)
+    t_p, _, _, pos_p, gaps = tf.gru_loop_reference(w, *args, inner, cd, margins=True, **kw)
+    assert toks.dtype == torch.uint8 and torch.equal(pos, pos_p)
+    tol = 1e-3 if cd == torch.float32 else 0.1
+    diff = toks.int() != t_p
+    for r in torch.nonzero(diff.any(1)).flatten().tolist():
+        j = int(torch.nonzero(diff[r])[0])
+        assert j > 0 and float(gaps[r, j - 1]) < tol   # forks only at near-ties
+
+
+@pytest.mark.parametrize("b", PLAN_BATCHES)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_every_plan_on_each_weight_route(dev, route_params, case, b):
+    plan, cd = case
+    t = 12
+    w = tf._prep_weights(route_params)
+    args = _slot_inputs(dev, b, t, t, seed=3)
+    toks, h, _, pos = _run_twice("fused_slot_tick", w, args, t, cd, config=plan)
+    ptoks, ph, _, ppos = tf.gru_loop_reference(w, *args, t, cd)
+    assert torch.equal(toks, ptoks) and torch.equal(pos, ppos)
+    assert float((h - ph).abs().max()) <= (1e-5 if cd == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_every_plan_feeds_zero_past_the_prompt_buffer(dev, params, case):
+    plan, cd = case
+    n, p, inner = 40, 4, 10
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, n, inner, p, seed=4,
+                        plen=torch.full((n,), 7, dtype=torch.int32, device=dev),
+                        total=torch.full((n,), 9, dtype=torch.int32, device=dev))
+    toks, h, _, pos = _run_twice("fused_slot_tick", w, args, inner, cd, config=plan)
+    t_p, h_p, _, pos_p = tf.gru_loop_reference(w, *args, inner, cd)
+    assert torch.equal(toks[:, :7], t_p[:, :7]) and not bool(t_p[:, 4:7].any())
+    assert torch.equal(pos, pos_p)
+    if cd == torch.float32:
+        assert float((h - h_p).abs().max()) <= 1e-5
+
+
+def test_plans_the_kernel_does_not_take_are_refused(dev, params):
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, 8, 4, 4, seed=5)
+    for plan, cd in ((("slot", 3), torch.float32), (("slot", 6), torch.bfloat16),
+                     (("unit", 3), torch.bfloat16), (("slot",), torch.bfloat16),
+                     (("diag",), torch.float32)):
+        with pytest.raises(ValueError, match="no plan"):
+            tf.gru_loop_cuda("fused_gru_decode", w, *args, 4, cd, config=plan)
+
+
 # ---------------------------------------------------------------------------
 # the fused training pair (csrc/gru_train.cu)
 # ---------------------------------------------------------------------------
@@ -344,28 +453,29 @@ def test_train_scan_autograd_runs_the_kernels(dev):
 
 
 def test_train_kernels_name_the_shape_they_refuse(dev):
+    """U off the 8-unit grid is refused, naming the shape; a batch past one
+    launch's shared memory (1760 rows at U = 1024) is walked in row tiles,
+    one launch each, and matches the plain version with two runs bit-equal."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     mxs, h0, wr, brec, dys = train_operands(dev, 2, 4, 100)     # U not a multiple of 8
     with pytest.raises(ValueError, match=r"\(2, 4, 100\)"):
         ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
-    mxs, h0, wr, brec, dys = train_operands(dev, 1, 3000, 1024)  # staging past shared memory
-    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
-    with pytest.raises(ValueError, match=r"\(1, 3000, 1024\)"):
-        ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
     with pytest.raises(ValueError, match="contiguous"):
         ft.gru_train_fwd_cuda(mxs.float(), h0, wr, brec)
-    # the largest batch whose staging fits 227 KB of shared memory at U=1024
-    mxs, h0, wr, brec, dys = train_operands(dev, 2, 1760, 1024)
-    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-    got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
-    want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
-    torch.cuda.synchronize()
-    assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want))
-    mxs, h0, wr, brec, dys = train_operands(dev, 1, 1761, 1024)
-    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-    with pytest.raises(ValueError, match=r"\(1, 1761, 1024\)"):
-        ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    for t, b in ((2, 1760), (1, 1761), (2, 2048), (1, 3000)):
+        mxs, h0, wr, brec, dys = train_operands(dev, t, b, 1024)
+        ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+        tiles = ft.bwd_batch_tiles(b, 1024)
+        assert len(tiles) == (1 if b <= 1760 else 2)
+        before = ft.LAUNCHES["fused_gru_train_bwd"]
+        got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+        assert ft.LAUNCHES["fused_gru_train_bwd"] == before + len(tiles)
+        again = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+        want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want)), (t, b)
 
 
 # ---- the vision kernels: flash attention, the fused layer, the fused inverted residual

@@ -334,6 +334,74 @@ def test_cuda_wrapper_refuses_cpu_tensors(twins):
     assert tf.LAUNCHES == before
 
 
+# ---- the launch plan of the CUDA kernel (decode_plan), at the model's widths
+
+@pytest.mark.parametrize("b0", range(1, 16385, 4096))
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_decode_plan_covers_every_batch_and_fits(cd, b0):
+    """Every B from 1 to 16,384 gets a plan the kernel takes, whose shared
+    memory fits the H100's 232,448 bytes and whose blocks' slot ranges
+    cover each slot exactly once, in order."""
+    u, v = 1024, 66
+    for b in range(b0, b0 + 4096):
+        plan = tf.decode_plan(b, u, v, cd)
+        tf.check_plan(plan, u, v, cd == torch.bfloat16)
+        assert tf.plan_smem_bytes(plan, u, v, cd == torch.bfloat16) <= 232448
+        tiles = tf.plan_slot_tiles(plan, b, u, cd == torch.bfloat16)
+        assert tiles[0][0] == 0 and tiles[-1][1] == b
+        assert all(e0 == s1 for (_, e0), (s1, _) in zip(tiles, tiles[1:]))
+        assert all(e > s for s, e in tiles)
+        assert len(tiles) <= tf.plan_grid(plan, b, u, cd == torch.bfloat16)
+
+
+def test_decode_plan_chooses_by_batch():
+    P = tf.DecodePlan
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the offline decode's B=8192: one wave of 128 slot-owned blocks of 64
+    assert tf.decode_plan(8192, 1024, 66, bf16) == P("slot", 4)
+    assert tf.decode_plan(tf.SLOT_MIN_BATCH, 1024, 66, bf16).decomp == "slot"
+    # a width where four 24 KB ring buffers no longer fit beside h: three
+    assert tf.decode_plan(8192, 1056, 66, bf16) == P("slot", 3)
+    # the serving tick's 512 slots stay unit-owned, two blocks a unit group
+    assert tf.decode_plan(512, 1024, 66, bf16) == P("unit")
+    # the q4_0 route's decode at B=2048 too: on an H100 that takes 184 us a
+    # step there, slot-owned 258 (the sweep in PERF.md)
+    assert tf.decode_plan(2048, 1024, 66, bf16) == P("unit")
+    assert tf.decode_plan(512, 1024, 66, f32) == P("unit")
+    assert tf.decode_plan(tf.SLOT_MIN_BATCH - 1, 1024, 66, bf16).decomp == "unit"
+    assert tf.decode_plan(8192, 1024, 66, f32).decomp == "unit"
+    # logits too wide for a ring buffer would take shared memory of their
+    # own, which a block of 64 slots cannot spare
+    assert tf.decode_plan(8192, 1024, 256, bf16) == P("unit")
+    assert tf.plan_slot_tiles(P("slot", 3), 130, 1024, True) == [(0, 64), (64, 128), (128, 130)]
+    # f32 keeps one block a unit group (its plane slice is f32), bf16 two
+    assert tf.plan_slot_tiles(P("unit"), 512, 1024, False)[:2] == [(0, 4), (4, 8)]
+    assert tf.plan_slot_tiles(P("unit"), 512, 1024, True)[:2] == [(0, 2), (2, 4)]
+    assert tf.plan_grid(P("unit"), 512, 1024, True) == 256
+    assert tf.plan_grid(P("slot", 4), 8192, 1024, True) == 128
+
+
+@pytest.mark.parametrize("plan,bf16,u,v,match", [
+    (("slot", 3), False, 1024, 66, "no plan"),          # slot-owned is bf16 only
+    (("slot", 4), False, 1024, 66, "no plan"),
+    (("slot", 6), True, 1024, 66, "no plan"),           # not compiled
+    (("slot", 2), True, 1024, 66, "no plan"),
+    (("slot",), True, 1024, 66, "no plan"),             # a slot-owned ring has stages
+    (("unit", 3), True, 1024, 66, "no plan"),           # the unit-owned ring is fixed
+    (("unit", 4), False, 1024, 66, "no plan"),
+    (("unit",), True, 2048, 66, "no plan"),             # 256 unit groups on 132 SMs
+    (("unit",), False, 2048, 66, "no plan"),
+    (("diag",), True, 1024, 66, "no plan"),
+    (("diag", 4), True, 1024, 66, "no plan"),
+    (("slot", 4), True, 1056, 66, "shared memory"),     # four buffers beside a wider h
+    (("slot", 3), True, 4096, 66, "shared memory"),
+    (("slot", 3), True, 1024, 256, "shared memory"),    # logits outside the ring
+])
+def test_check_plan_refuses(plan, bf16, u, v, match):
+    with pytest.raises(ValueError, match=match):
+        tf.check_plan(tf.DecodePlan(*plan), u, v, bf16)
+
+
 def test_jax_reference_runs_interpreted():
     from ggml_experiments_tpu.quant.pallas_kernels import _default_interpret
 

@@ -196,3 +196,68 @@ def test_empty_sequence_and_cuda_wrapper_checks():
         y = torch.zeros(1, 2, U).bfloat16()
         ft.gru_train_bwd_cuda(z, z, y, y, torch.zeros(2, U).bfloat16(),
                               torch.zeros(U, 3 * U).bfloat16())
+
+
+@pytest.mark.parametrize("u", [16, 96, 1024])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 100, 1024, 1760, 1761, 2048, 3000, 16384])
+def test_bwd_batch_tiles_cover_the_batch_in_order_and_fit(b, u):
+    tiles = ft.bwd_batch_tiles(b, u)
+    assert tiles[0][0] == 0 and tiles[-1][1] == b
+    assert all(e0 == s1 for (_, e0), (s1, _) in zip(tiles, tiles[1:]))
+    assert all(e > s and ft.bwd_smem_bytes(e - s, u) <= ft.SMEM_LIMIT for s, e in tiles)
+    if ft.bwd_smem_bytes(b, u) <= ft.SMEM_LIMIT:
+        assert tiles == [(0, b)]
+    else:   # the fewest tiles, all but the last of one size in whole 32-row steps
+        sizes = {e - s for s, e in tiles[:-1]}
+        assert len(sizes) == 1 and sizes.pop() % 32 == 0
+        assert ft.bwd_smem_bytes(-(-b // (len(tiles) - 1)), u) > ft.SMEM_LIMIT
+
+
+def test_bwd_batch_tiles_at_the_training_width():
+    # the H100's 232,448 bytes hold the staging of 1760 rows at U = 1024
+    assert ft.bwd_smem_bytes(1760, 1024) == ft.SMEM_LIMIT
+    assert ft.bwd_batch_tiles(1024, 1024) == [(0, 1024)]
+    assert ft.bwd_batch_tiles(1760, 1024) == [(0, 1760)]
+    assert ft.bwd_batch_tiles(2048, 1024) == [(0, 1024), (1024, 2048)]
+    assert ft.bwd_batch_tiles(3000, 1024) == [(0, 1504), (1504, 3000)]
+    with pytest.raises(ValueError, match="U=4096"):
+        ft.bwd_batch_tiles(64, 4096, smem_limit=100_000)
+
+
+@pytest.mark.parametrize("cd", [torch.float64, torch.float32, torch.bfloat16])
+def test_tiled_plain_backward_equals_one_call(cd):
+    """The backward over row tiles (tiles of 32 rows forced by a small
+    shared-memory limit) against one plain call over the whole batch: the
+    per-row outputs come from the same operations, the weight gradients add
+    the same terms in another order (exact up to f64 rounding at float64,
+    f32 rounding otherwise), and two tiled runs give the same bits."""
+    t, b, u = 4, 70, U
+    a = make_inputs(t, b, seed=11)
+    ops = [torch.tensor(a[k]).to(cd) for k in ("mxs", "h0", "wr")]
+    mxs, h0, wr = ops
+    brec = torch.tensor(a["brec"]).to(ft._acc_dtype(cd))
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    dys = torch.tensor(a["dys"]).to(cd)
+    limit = ft.bwd_smem_bytes(32, u)
+    tiles = ft.bwd_batch_tiles(b, u, limit)
+    assert tiles == [(0, 32), (32, 64), (64, 70)]
+    whole = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
+    tiled = ft.bwd_tiled(ft.gru_train_bwd_plain, mxs, mhs, ys, dys, h0, wr, tiles)
+    again = ft.bwd_tiled(ft.gru_train_bwd_plain, mxs, mhs, ys, dys, h0, wr, tiles)
+    assert all(torch.equal(x, y) for x, y in zip(tiled, again))
+    rtol = 1e-12 if cd == torch.float64 else 1e-5
+    for name, got, want in zip(("dmxs", "dwr", "dbrec", "dh0"), tiled, whole):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if name == "dmxs" and cd == torch.bfloat16:
+            # a carry summed in another order may round dmx one bf16 step away
+            assert rel_err(got.double().numpy(), want.double().numpy()) <= 2.0 ** -7, name
+        else:
+            np.testing.assert_allclose(got.double().numpy(), want.double().numpy(),
+                                       rtol=rtol, atol=rtol * float(want.abs().max()),
+                                       err_msg=name)
+    if cd == torch.bfloat16:
+        # and the JAX kernel pair's custom VJP on the same inputs
+        _, _, jgrads = jax_run(a)
+        for got, j, name in ((tiled[0], jgrads[0], "dmxs"), (tiled[3], jgrads[1], "dh0"),
+                             (tiled[1], jgrads[2], "dwr"), (tiled[2], jgrads[3], "dbrec")):
+            assert rel_err(got.double().numpy(), j) < VJP_REL, name

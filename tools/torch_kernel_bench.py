@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's qmatmul and flash attention kernels on one NVIDIA GPU,
-beside the one PyTorch call that computes the same function.
+"""Time the port's qmatmul, flash attention and persistent GRU kernels on one
+NVIDIA GPU, beside the one PyTorch call that computes the same function
+where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -20,6 +21,21 @@ ahead), ``graph`` the mean of 20 calls replayed from a CUDA graph (the
 card's time alone). ``--sweep`` also times the qmatmul kernel at other
 launch configurations (bm, ksplit, blocks per split), where the checkout's
 wrapper takes one.
+
+The persistent GRU kernel (``gru``) runs on the same checkpoint at q8_0
+(and q4_0 for its decode cell): the offline decode at B=8192, T=512 and
+at B=2048, T=256 (q4_0), and one serving tick of 512 slots x 128 steps,
+greedy and sampled (temperature 0.8, top-k 20, top-p 0.9), bf16, each from
+prompts of 1-16 tokens; then the f32 route: the decode at B=1024, T=256 (as
+chip_smoke.py's phase 4 holds it) and the greedy and sampled tick. One
+launch is long next to its host work, so these cells take ``call`` alone.
+``--sweep`` times every plan the checkout's wrapper takes (``config=``) at
+B = 512, 1024, 2048, 3072, 4096, 8192 for 64 steps, which is where
+``decode_plan``'s crossover comes from.
+``--split-step`` builds copies of ``csrc/gru_persistent.cu`` with one part of
+the step switched off (the unit-owned loop's phase A, its logits phase, or
+both; the slot-owned loop's wgmma) into ``build/split_step`` and times each
+beside the unchanged source: what a part costs is the difference.
 """
 
 from __future__ import annotations
@@ -170,9 +186,136 @@ def flash_cells():
     return rows
 
 
+def _gru_inputs(b, t, seed=0):
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    prompt = torch.randint(0, 66, (b, 16), generator=g, dtype=torch.int32).to(dev)
+    plen = torch.randint(1, 17, (b,), generator=g, dtype=torch.int32).to(dev)
+    total = torch.full((b,), t, dtype=torch.int32, device=dev)
+    z = torch.zeros(b, dtype=torch.int32, device=dev)
+    return prompt, plen, total, z, z.clone(), torch.zeros((b, 1024), device=dev)
+
+
+def gru_cells(sweep):
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fd
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    takes_config = "config" in inspect.signature(fd.gru_loop_cuda).parameters
+    rows = []
+    weights = {q: fd._prep_weights(load_gru_params(CKPT, qtype=q, device="cuda"))
+               for q in ("q8_0", "q4_0")}
+    sampled = dict(seed=7, top_k=20, top_p=0.9)
+    cells = [("decode", "q8_0", 8192, 512, bf16, {}), ("decode", "q4_0", 2048, 256, bf16, {}),
+             ("tick", "q8_0", 512, 128, bf16, {}),
+             ("tick_sampled", "q8_0", 512, 128, bf16, sampled),
+             ("decode", "q8_0", 1024, 256, f32, {}), ("tick", "q8_0", 512, 128, f32, {}),
+             ("tick_sampled", "q8_0", 512, 128, f32, sampled)]
+    for name, qtype, b, t, cd, kw in cells:
+        w, args = weights[qtype], _gru_inputs(b, t)
+        if kw:
+            kw = dict(kw, temp=torch.full((b,), 0.8, device="cuda"))
+        entry = "fused_gru_decode" if name == "decode" else "fused_slot_tick"
+        ms = call_ms(lambda: fd.gru_loop_cuda(entry, w, *args, t, cd, **kw), n=3, warmup=1)
+        row = {"cell": name, "qtype": qtype, "b": b, "t": t, "dtype": str(cd)[6:], "call": ms,
+               "us_per_step": ms * 1e3 / t,
+               "plan": str(getattr(fd, "LAST_PLAN", {}).get(entry))}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    if sweep and takes_config:
+        w = weights["q8_0"]
+        plans = [fd.DecodePlan("unit")] + [fd.DecodePlan("slot", st) for st in fd.SLOT_STAGES]
+        for b in (512, 1024, 2048, 3072, 4096, 8192):
+            args = _gru_inputs(b, 64, seed=b)
+            row = {"cell": "sweep", "b": b, "t": 64, "default": str(fd.decode_plan(b, 1024, 66)),
+                   "us_per_step": {}}
+            for plan in plans:
+                try:
+                    fd.check_plan(plan, 1024, 66, True)
+                except ValueError:
+                    continue
+                ms = call_ms(lambda: fd.gru_loop_cuda("fused_slot_tick", w, *args, 64, bf16,
+                                                      config=plan), n=3, warmup=1)
+                row["us_per_step"][str(plan)] = ms * 1e3 / 64
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
+# (variant, the source text switched off) for --split-step; each toggle is a
+# macro the copy defines to 1
+SPLIT_STEP_TOGGLES = (
+    ("SKIP_A", "      phase_a_bf16(a, ", "      if (!SKIP_A) phase_a_bf16(a, "),
+    ("SKIP_B", "      phase_b_bf16(a, ", "      if (!SKIP_B) phase_b_bf16(a, "),
+    ("SKIP_MMA", "        for (int ks = 0; ks < 4; ++ks)\n",
+     "        for (int ks = 0; ks < (SKIP_MMA ? 0 : 4); ++ks)\n"),
+)
+SPLIT_STEP_CELLS = (
+    ("unit", 512, 128, ("unit",), ("", "SKIP_A", "SKIP_B", "SKIP_A SKIP_B")),
+    ("slot", 8192, 64, ("slot", 4), ("", "SKIP_MMA")),
+)
+
+
+def split_step_cells():
+    import ctypes
+
+    from ggml_experiments_tpu_torch import _build
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fd
+
+    src = open(os.path.join(_build.CSRC, "gru_persistent.cu")).read()
+    for name, old, new in SPLIT_STEP_TOGGLES:
+        if src.count(old) != 1:
+            raise RuntimeError(f"--split-step: the source no longer has one {old!r}")
+        src = src.replace(old, new)
+        src = f"#ifndef {name}\n#define {name} 0\n#endif\n" + src
+    out_dir = os.path.join(_build.build_dir(), "split_step")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "gru_persistent.cu")
+    with open(path, "w") as f:
+        f.write(src.replace('#include "mma_common.cuh"',
+                            f'#include "{os.path.join(_build.CSRC, "mma_common.cuh")}"'))
+    variants = sorted({v for cell in SPLIT_STEP_CELLS for v in cell[4]})
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = {}
+    for v in variants:
+        lib = os.path.join(out_dir, f"lib_{v.replace(' ', '_') or 'base'}.so")
+        cmd = [_build._nvcc(), *flags, *(f"-D{m}=1" for m in v.split()), "-o", lib, path]
+        jobs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True), lib)
+    libs = {}
+    for v, (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the {v or 'base'} copy:\n{log}")
+        libs[v] = ctypes.CDLL(lib)
+        libs[v].gxt_error_string.restype = ctypes.c_char_p
+        libs[v].gxt_error_string.argtypes = [ctypes.c_int]
+    w = fd._prep_weights(load_gru_params(CKPT, qtype="q8_0", device="cuda"))
+    rows = []
+    try:
+        for kind, b, t, plan, names in SPLIT_STEP_CELLS:
+            args = _gru_inputs(b, t)
+            row = {"cell": f"split_step_{kind}", "b": b, "t": t, "plan": plan, "us_per_step": {}}
+            for v in names:
+                _build._LIBS["gru_persistent"] = libs[v]
+                ms = call_ms(lambda: fd.gru_loop_cuda("fused_slot_tick", w, *args, t,
+                                                      torch.bfloat16, config=plan), n=3, warmup=1)
+                row["us_per_step"][v or "all on"] = ms * 1e3 / t
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        _build._LIBS.pop("gru_persistent", None)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--split-step", action="store_true",
+                    help="time copies of the persistent kernel with parts of the step off")
+    ap.add_argument("--only", default="qmatmul,flash,gru",
+                    help="comma-separated kernels to time (qmatmul, flash, gru)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -184,7 +327,16 @@ def main() -> int:
     import ggml_experiments_tpu_torch as port
 
     print(f"{smi} | package {os.path.dirname(port.__file__)}", flush=True)
-    res = {"device": smi, "qmatmul": qmatmul_cells(args.sweep), "flash": flash_cells()}
+    only = set(args.only.split(","))
+    res = {"device": smi}
+    if "qmatmul" in only:
+        res["qmatmul"] = qmatmul_cells(args.sweep)
+    if "flash" in only:
+        res["flash"] = flash_cells()
+    if "gru" in only:
+        res["gru"] = gru_cells(args.sweep)
+    if args.split_step:
+        res["split_step"] = split_step_cells()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
