@@ -51,19 +51,22 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
  11. the fused training pair (``csrc/gru_train.cu``) against its plain
      versions, bf16, with the recurrent kernel of ``gru_shakespeare.bin`` and
      the input projection of ``corpus_train.txt`` windows, at (B, T) = (1024, 100) and
-     (64, 100): forward ``ys`` / ``mhs``; backward ``dmxs`` / ``dwr`` /
-     ``dbrec`` / ``dh0`` from a seeded cotangent; two backward launches on the
-     same inputs bit-equal; and the backward alone at (B, T) = (2048, 8) and
-     (3000, 8), past one launch's shared memory, walked in two row tiles;
+     (64, 100) on the default ``train_plan``: forward ``ys`` / ``mhs``;
+     backward (the recurrence, then the dWr GEMM) ``dmxs`` / ``dwr`` /
+     ``dbrec`` / ``dh0`` from a seeded cotangent; the dWr kernel alone on
+     equal operands; two launches on the same inputs bit-equal; each to
+     ``torch.nn.GRU`` on cuDNN as the library's time; every other plan the
+     kernels take there forced and held to the same checks; and the backward
+     alone at (B, T) = (2048, 8) and (3000, 8), one launch of each kernel;
  12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
      B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
-     step launches the forward and the backward kernel once and no plain
-     version; the same run interrupted after 4 steps and resumed from its
+     step launches the forward, the backward recurrence and the dWr kernel
+     once each and no plain version; the same run interrupted after 4 steps and resumed from its
      train-state file ends bit-equal; the trained weights go to a ``gru.bin``
      that ``generate`` reads back; then ``train-gru`` at its default batch of
      64 for one epoch of the corpus's first 60,000 characters, and at
-     ``--batch-size 2048`` for one epoch of the whole corpus (3 steps, the
-     backward in two row tiles a step), whose exported weights must score a
+     ``--batch-size 2048`` for one epoch of the whole corpus (3 steps, one
+     launch of each kernel a step), whose exported weights must score a
      lower loss than the initial ones;
  13. the three vision kernels against their plain versions, at the shapes
      the main path gives them for B=128 images and on the full checkpoint's
@@ -122,7 +125,12 @@ Tolerances, and why:
     (TF_BF16_MEAN_FRAC_*) of the plain version's own distance between rounding
     to bf16 and not rounding, over all steps and over the first 8. Backward,
     on equal inputs: each gradient's max |diff| over max |plain| within
-    TRAIN_GRAD_REL (readings 0.002-0.006), and two launches bit-equal.
+    TRAIN_GRAD_REL (readings 0.002-0.006), and two launches bit-equal. The
+    dWr GEMM alone against its plain version on equal operands: the same
+    bf16 products, f32 sums over T*B terms in another order (the kernel runs
+    of 16384 tensor-core additions added in f32, the plain version products
+    of B terms added in f32): within TRAIN_DWR_REL of the largest entry;
+    both sides' distance to the same sum in f64 is logged beside it.
   * The vision kernels at bf16: both sides round to bf16 at the same places
     but sum in other orders and call other exp routines, so a value on a
     rounding boundary may land one bf16 step off and carry on through the
@@ -185,12 +193,14 @@ TF_BF16_MEAN_FRAC_LONG, TF_BF16_MEAN_FRAC_SHORT = 0.75, 0.25
 TRAIN_SHAPES = ((1024, 100), (64, 100))
 TRAIN_RESUME_AFTER = 4               # steps before the interruption
 TRAIN_CLI_CHARS = 60000              # corpus prefix of the default-batch CLI run
-TRAIN_TILED_SHAPES = ((2048, 8), (3000, 8))   # backward past one launch's shared memory
-TRAIN_BIG_BATCH = 2048               # train-gru's batch past one backward launch
+TRAIN_LARGE_SHAPES = ((2048, 8), (3000, 8))   # backward past the parent kernel's one launch
+TRAIN_BIG_BATCH = 2048               # train-gru's batch past the parent kernel's one launch
 FORCED_PLANS = ((("slot", 4), 512), (("unit",), 4096))   # (plan, B), 64 steps
 # the training pair against its plain versions (limits: see the docstring)
 TRAIN_YS_MAX, TRAIN_MHS_MAX = 0.1, 0.25
 TRAIN_GRAD_REL = {"dmxs": 2e-2, "dh0": 2e-2, "dwr": 1e-2, "dbrec": 1e-2}
+TRAIN_DWR_REL = 1e-4   # the dWr GEMM against its plain version on equal operands
+TRAIN_KERNELS = ("fused_gru_train_fwd", "fused_gru_train_bwd", "fused_gru_train_dwr")
 
 
 # the vision path (phases 13-15): apple/mobilevit-small widths, trained head
@@ -657,11 +667,40 @@ def tick_phase(tag, params, n_slots, inner, main_run, rng, tok):
                 plan=str(plan))
 
 
+def cudnn_gru_ms(B, T, u, dev):
+    """The library yardstick of the training pair: ``torch.nn.GRU(256, u)``
+    on cuDNN (the same reset-after cell, gates in another order; it also
+    computes the input projection), forward and ``torch.autograd.grad`` of
+    its output, bf16 (fp16 where cuDNN refuses bf16). (fwd ms, bwd ms, dtype)."""
+    import torch
+
+    err = None
+    for dt in (torch.bfloat16, torch.float16):
+        try:
+            gru = torch.nn.GRU(256, u).to(dev, dt)
+            gru.flatten_parameters()
+            g = torch.Generator(device=dev).manual_seed(B)
+            x = torch.randn((T, B, 256), generator=g, device=dev).to(dt).requires_grad_()
+            h0 = (torch.randn((1, B, u), generator=g, device=dev) * 0.3).to(dt).requires_grad_()
+            dy = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(dt)
+            leaves = [x, h0, *gru.parameters()]
+            fwd = cuda_ms(lambda: gru(x, h0), n=5, warmup=1)
+            out, _ = gru(x, h0)
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), n=5,
+                          warmup=1)
+            return fwd, bwd, str(dt)[6:]
+        except RuntimeError as ex:
+            err = ex
+    raise SmokeFailure(f"torch.nn.GRU on cuDNN refused bf16 and fp16: {err}")
+
+
 def train_kernel_phase(tag, fparams, dev, tok):
-    """The fused training forward and backward kernels against their plain
-    versions at TRAIN_SHAPES, bf16, U=1024: the trained recurrent kernel and
-    bias, the input projection of corpus windows, a seeded h0 and cotangent.
-    Returns {(B, T): {"fwd": readings, "bwd": readings}}."""
+    """The fused training kernels against their plain versions at
+    TRAIN_SHAPES, bf16, U=1024: the trained recurrent kernel and bias, the
+    input projection of corpus windows, a seeded h0 and cotangent; each plan
+    the default does not take forced at those shapes; then the backward
+    alone at TRAIN_LARGE_SHAPES, one launch of each kernel. Returns {(B, T):
+    {"fwd": readings, "bwd": readings, "dwr": readings}}."""
     import numpy as np
     import torch
 
@@ -675,8 +714,9 @@ def train_kernel_phase(tag, fparams, dev, tok):
     wr = cell.recurrent_kernel.to(bf16).contiguous()
     brec = cell.bias[1].float().contiguous()
     text = load_corpus(CORPUS_TRAIN)
-    out = {}
-    for B, T in TRAIN_SHAPES:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def operands(B, T):
         ex = make_examples(text, tok, DataConfig(seq_length=T))
         ids = ex[np.random.default_rng(B).permutation(len(ex))[:B], :T]
         check(ids.shape == (B, T), f"{tag}: the corpus gives {ids.shape} windows, want {(B, T)}")
@@ -685,112 +725,173 @@ def train_kernel_phase(tag, fparams, dev, tok):
         g = torch.Generator(device=dev).manual_seed(B)
         h0 = (torch.randn((B, u), generator=g, device=dev) * 0.3).to(bf16)
         dys = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(bf16)
+        return mxs, h0, dys
 
+    def check_backward(what, got, again, want):
+        rel = {}
+        for name, a, a2, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
+            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
+                  f"{tag}: {what}: {name} shape or values")
+            check(torch.equal(a, a2), f"{tag}: {what}: two launches on the same inputs give "
+                                      f"different {name}")
+            rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+            check(rel[name] <= TRAIN_GRAD_REL[name],
+                  f"{tag}: {what}: {name} max |diff| / max |plain| = {rel[name]:.3g} > "
+                  f"{TRAIN_GRAD_REL[name]}")
+        return rel
+
+    out = {}
+    for B, T in TRAIN_SHAPES:
+        mxs, h0, dys = operands(B, T)
+        plan = ft.train_plan(B, u, sms)
         ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
         torch.cuda.synchronize()
+        check(ft.LAST_PLAN["fused_gru_train_fwd"] == plan, f"{tag}: forward B={B} ran "
+                                                           f"{ft.LAST_PLAN} for {plan}")
         pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
         # the yardstick of tf_h_check: the plain version's own distance
         # between rounding to bf16 and not rounding, on the same operands
         fys, _ = ft.gru_train_fwd_plain(mxs.float(), h0.float(), wr.float(), brec)
-        d_ys = (ys.float() - pys.float()).abs()
         d_f = (fys - pys.float()).abs()
-        ys_max, ys_mean, gap = float(d_ys.max()), float(d_ys.mean()), float(d_f.mean())
-        s_mean = float(d_ys[:TF_BF16_SHORT].mean())
-        s_gap = float(d_f[:TF_BF16_SHORT].mean())
-        d_mh = (mhs.float() - pmhs.float()).abs()
-        mh_max, mh_mean = float(d_mh.max()), float(d_mh.mean())
-        del d_ys, d_f, d_mh, fys
-        check(ys_max <= TRAIN_YS_MAX and mh_max <= TRAIN_MHS_MAX
-              and ys_mean <= TF_BF16_MEAN_FRAC_LONG * gap
-              and s_mean <= TF_BF16_MEAN_FRAC_SHORT * s_gap,
-              f"{tag}: forward B={B} T={T}: ys max abs err {ys_max:.3g} (limit {TRAIN_YS_MAX}), "
-              f"mhs max {mh_max:.3g} (limit {TRAIN_MHS_MAX}), ys mean {ys_mean:.3g} (limit "
-              f"{TF_BF16_MEAN_FRAC_LONG} x {gap:.3g}), over the first {TF_BF16_SHORT} steps "
-              f"{s_mean:.3g} (limit {TF_BF16_MEAN_FRAC_SHORT} x {s_gap:.3g})")
+        gap, s_gap = float(d_f.mean()), float(d_f[:TF_BF16_SHORT].mean())
+        del d_f, fys
+
+        def fwd_check(ys, mhs, what):
+            d_ys = (ys.float() - pys.float()).abs()
+            ys_max, ys_mean = float(d_ys.max()), float(d_ys.mean())
+            s_mean = float(d_ys[:TF_BF16_SHORT].mean())
+            d_mh = (mhs.float() - pmhs.float()).abs()
+            mh_max, mh_mean = float(d_mh.max()), float(d_mh.mean())
+            check(ys_max <= TRAIN_YS_MAX and mh_max <= TRAIN_MHS_MAX
+                  and ys_mean <= TF_BF16_MEAN_FRAC_LONG * gap
+                  and s_mean <= TF_BF16_MEAN_FRAC_SHORT * s_gap,
+                  f"{tag}: {what}: ys max abs err {ys_max:.3g} (limit {TRAIN_YS_MAX}), mhs max "
+                  f"{mh_max:.3g} (limit {TRAIN_MHS_MAX}), ys mean {ys_mean:.3g} (limit "
+                  f"{TF_BF16_MEAN_FRAC_LONG} x {gap:.3g}), over the first {TF_BF16_SHORT} steps "
+                  f"{s_mean:.3g} (limit {TF_BF16_MEAN_FRAC_SHORT} x {s_gap:.3g})")
+            return ys_max, ys_mean, s_mean, mh_max, mh_mean
+
+        ys_max, ys_mean, s_mean, mh_max, mh_mean = fwd_check(ys, mhs, f"forward B={B} T={T}")
         fwd_ms = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1)
         fwd_plain_ms = cuda_ms(lambda: ft.gru_train_fwd_plain(mxs, h0, wr, brec), n=2, warmup=1)
         nbytes = tensor_bytes(mxs, h0, wr, brec, ys, mhs)
         fb_ms, fb_by = bound(nbytes, 2 * T * B * u * 3 * u, "bfloat16")
-        log(f"[{tag}] forward B={B} T={T} U={u} bf16: ys max abs err {ys_max:.3g}, mean "
-            f"{ys_mean:.3g} (plain f32 vs bf16: {gap:.3g}), first {TF_BF16_SHORT} steps mean "
-            f"{s_mean:.3g} (plain f32 vs bf16: {s_gap:.3g}) | mhs max {mh_max:.3g}, mean "
-            f"{mh_mean:.3g} | kernel {fwd_ms:.3f} ms = "
+        lib_fwd, lib_bwd, lib_dt = cudnn_gru_ms(B, T, u, dev)
+        log(f"[{tag}] forward B={B} T={T} U={u} bf16, plan {tuple(plan)}: ys max abs err "
+            f"{ys_max:.3g}, mean {ys_mean:.3g} (plain f32 vs bf16: {gap:.3g}), first "
+            f"{TF_BF16_SHORT} steps mean {s_mean:.3g} (plain f32 vs bf16: {s_gap:.3g}) | mhs max "
+            f"{mh_max:.3g}, mean {mh_mean:.3g} | kernel {fwd_ms:.3f} ms = "
             f"{fwd_ms * 1e3 / T:.1f} us/step | plain {fwd_plain_ms:.2f} ms | bound "
-            f"{fb_ms:.3f} ms ({fb_by}) | library: none")
+            f"{fb_ms:.3f} ms ({fb_by}) | library: torch.nn.GRU(256, {u}) on cuDNN ({lib_dt}) "
+            f"{lib_fwd:.3f} ms")
 
         # backward from the plain forward's residuals, so both sides get equal inputs
+        before = dict(ft.LAUNCHES)
         got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        check(all(ft.LAUNCHES[k] - before[k] == 1 for k in ("fused_gru_train_bwd",
+                                                            "fused_gru_train_dwr")),
+              f"{tag}: backward B={B} launched {before} -> {ft.LAUNCHES}")
         again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         torch.cuda.synchronize()
         want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
-        names = ("dmxs", "dwr", "dbrec", "dh0")
-        rel, dmx_abs = {}, 0.0
-        for name, a, a2, w in zip(names, got, again, want):
-            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
-                  f"{tag}: backward B={B}: {name} shape or values")
-            check(torch.equal(a, a2), f"{tag}: backward B={B}: two launches on the same inputs "
-                                      f"give different {name}")
-            d = float((a.float() - w.float()).abs().max())
-            rel[name] = d / float(w.float().abs().max())
-            if name == "dmxs":
-                dmx_abs = d
-            check(rel[name] <= TRAIN_GRAD_REL[name],
-                  f"{tag}: backward B={B} T={T}: {name} max |diff| / max |plain| = "
-                  f"{rel[name]:.3g} > {TRAIN_GRAD_REL[name]}")
+        rel = check_backward(f"backward B={B} T={T}", got, again, want)
+        dmx_abs = float((got[0].float() - want[0].float()).abs().max())
         del again
+        # the two kernels of the backward apart, on the plain recurrence's operands
+        dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, pmhs, pys, dys, h0, wr)
+        dwr_k = ft.gru_train_dwr_cuda(h0, pys, dmxs, plane)
+        dwr_p = ft.gru_train_dwr_plain(h0, pys, dmxs, plane)
+        dwr_abs = float((dwr_k - dwr_p).abs().max())
+        dwr_rel = dwr_abs / float(dwr_p.abs().max())
+        # both sides against the same sum in f64: how far each f32 order strays
+        dwr_64 = ft.gru_train_dwr_plain(h0.double(), pys.double(), dmxs.double(), plane.double())
+        k64, p64 = (float((x.double() - dwr_64).abs().max()) / float(dwr_64.abs().max())
+                    for x in (dwr_k, dwr_p))
+        del dwr_64
+        check(dwr_rel <= TRAIN_DWR_REL and torch.equal(
+                  dwr_k, ft.gru_train_dwr_cuda(h0, pys, dmxs, plane)),
+              f"{tag}: dWr B={B} T={T}: max |diff| / max |plain| = {dwr_rel:.3g} (limit "
+              f"{TRAIN_DWR_REL}), or two launches differ")
+        rec_ms = cuda_ms(lambda: ft.gru_train_bwd_rec_cuda(mxs, pmhs, pys, dys, h0, wr), n=5,
+                         warmup=1)
+        rec_plain_ms = cuda_ms(lambda: ft.gru_train_bwd_rec_plain(mxs, pmhs, pys, dys, h0, wr),
+                               n=2, warmup=1)
+        dwr_ms = cuda_ms(lambda: ft.gru_train_dwr_cuda(h0, pys, dmxs, plane), n=5, warmup=1)
+        dwr_plain_ms = cuda_ms(lambda: ft.gru_train_dwr_plain(h0, pys, dmxs, plane), n=2,
+                               warmup=1)
         bwd_ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=5,
                          warmup=1)
-        bwd_plain_ms = cuda_ms(lambda: ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr), n=2,
-                               warmup=1)
-        nbytes = tensor_bytes(mxs, pmhs, pys, dys, h0, wr, *got)
-        bb_ms, bb_by = bound(nbytes, 4 * T * B * u * 3 * u, "bfloat16")
-        log(f"[{tag}] backward B={B} T={T} U={u} bf16: max |diff| / max |plain|: "
-            + ", ".join(f"{n} {rel[n]:.3g}" for n in names)
-            + f" | two launches bit-equal | kernel {bwd_ms:.3f} ms = {bwd_ms * 1e3 / T:.1f} "
-              f"us/step | plain {bwd_plain_ms:.2f} ms | bound {bb_ms:.3f} ms ({bb_by}) | "
-              f"library: none")
+        # the library's GEMM for dWr: [h0; ys[:-1]]^T . dmh in one bf16 call
+        hp_all = torch.cat([h0[None], pys[:-1]]).reshape(T * B, u)
+        dmh_all = torch.cat([dmxs[..., :2 * u], plane], dim=2).reshape(T * B, 3 * u)
+        dwr_lib_ms = cuda_ms(lambda: torch.matmul(hp_all.t(), dmh_all), n=5, warmup=1)
+        del hp_all, dmh_all
+        ops = 2 * T * B * u * 3 * u
+        rb_ms, rb_by = bound(tensor_bytes(mxs, pmhs, pys, dys, h0, wr, got[0], plane, got[2],
+                                          got[3]), ops, "bfloat16")
+        db_ms, db_by = bound(tensor_bytes(h0, pys, dmxs, plane, dwr_k), ops, "bfloat16")
+        log(f"[{tag}] backward B={B} T={T} U={u} bf16, plan {tuple(plan)}: max |diff| / max "
+            f"|plain|: " + ", ".join(f"{n} {rel[n]:.3g}" for n in rel)
+            + f" | two launches bit-equal | recurrence + dWr {bwd_ms:.3f} ms | recurrence "
+              f"{rec_ms:.3f} ms = {rec_ms * 1e3 / T:.1f} us/step, plain {rec_plain_ms:.2f} ms, "
+              f"bound {rb_ms:.3f} ms ({rb_by}) | dWr {dwr_ms:.3f} ms (max |diff| / max |plain| "
+              f"{dwr_rel:.3g} on equal operands; against the f64 sum: kernel {k64:.3g}, plain "
+              f"{p64:.3g}; two launches bit-equal), plain "
+              f"{dwr_plain_ms:.2f} ms, bound {db_ms:.3f} ms ({db_by}), torch.matmul "
+              f"{dwr_lib_ms:.3f} ms | library: torch.nn.GRU backward on cuDNN ({lib_dt}) "
+              f"{lib_bwd:.3f} ms")
+
+        # every other plan, forced
+        for other in ft.train_plans(B, u, sms):
+            if other == plan:
+                continue
+            ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
+            ys3, _ = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
+            g2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            a2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            torch.cuda.synchronize()
+            check(torch.equal(ys2, ys3), f"{tag}: forward B={B}, plan {tuple(other)}: two "
+                                         f"launches differ")
+            o_max = fwd_check(ys2, mhs2, f"forward B={B} T={T}, plan {tuple(other)}")[0]
+            o_rel = check_backward(f"backward B={B} T={T}, plan {tuple(other)}", g2, a2, want)
+            log(f"[{tag}] plan {tuple(other)} forced at B={B} T={T}: forward ys max abs err "
+                f"{o_max:.3g}, backward max rel " + ", ".join(f"{n} {v:.3g}"
+                                                              for n, v in o_rel.items())
+                + " | two launches bit-equal")
+            del ys2, mhs2, ys3, g2, a2
         out[(B, T)] = {
             "fwd": dict(max_abs_err=ys_max, ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fb_ms,
-                        bound_by=fb_by, library_ms=None),
-            "bwd": dict(max_abs_err=dmx_abs, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms,
-                        bound_by=bb_by, library_ms=None)}
-        del got, want, ys, mhs, pys, pmhs, mxs, dys, xs
+                        bound_by=fb_by, library_ms=lib_fwd, plan=tuple(plan)),
+            "bwd": dict(max_abs_err=dmx_abs, ms=rec_ms, plain_ms=rec_plain_ms, bound_ms=rb_ms,
+                        bound_by=rb_by, library_ms=lib_bwd, plan=tuple(plan)),
+            "dwr": dict(max_abs_err=dwr_abs, ms=dwr_ms, plain_ms=dwr_plain_ms, bound_ms=db_ms,
+                        bound_by=db_by, library_ms=dwr_lib_ms),
+            "bwd_total_ms": bwd_ms}
+        del got, want, ys, mhs, pys, pmhs, mxs, dys, dmxs, plane, dwr_k, dwr_p
 
-    # the backward past one launch's shared memory: row tiles, one launch each
-    for B, T in TRAIN_TILED_SHAPES:
-        ex = make_examples(text, tok, DataConfig(seq_length=T))
-        ids = ex[np.random.default_rng(B).permutation(len(ex))[:B], :T]
-        check(ids.shape == (B, T), f"{tag}: the corpus gives {ids.shape} windows, want {(B, T)}")
-        xs = fparams.embeddings[torch.from_numpy(ids.T.copy()).long().to(dev)]
-        mxs = input_projection(cell, xs, compute_dtype=bf16).contiguous()
-        g = torch.Generator(device=dev).manual_seed(B)
-        h0 = (torch.randn((B, u), generator=g, device=dev) * 0.3).to(bf16)
-        dys = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(bf16)
+    # the backward at batches the old kernel took only in row tiles: one
+    # launch of each kernel on the default plan
+    for B, T in TRAIN_LARGE_SHAPES:
+        mxs, h0, dys = operands(B, T)
         pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-        tiles = ft.bwd_batch_tiles(B, u)
-        before = ft.LAUNCHES["fused_gru_train_bwd"]
+        plan = ft.train_plan(B, u, sms)
+        before = dict(ft.LAUNCHES)
         got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
-        check(ft.LAUNCHES["fused_gru_train_bwd"] - before == len(tiles) > 1,
-              f"{tag}: backward B={B} launched {ft.LAUNCHES['fused_gru_train_bwd'] - before} "
-              f"times for tiles {tiles}")
+        check(all(ft.LAUNCHES[k] - before[k] == 1 for k in ("fused_gru_train_bwd",
+                                                            "fused_gru_train_dwr"))
+              and ft.LAST_PLAN["fused_gru_train_bwd"] == plan,
+              f"{tag}: backward B={B} launched {before} -> {ft.LAUNCHES} on "
+              f"{ft.LAST_PLAN.get('fused_gru_train_bwd')} for {plan}")
         again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         torch.cuda.synchronize()
         want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
-        rel = {}
-        for name, a, a2, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
-            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
-                  f"{tag}: tiled backward B={B}: {name} shape or values")
-            check(torch.equal(a, a2), f"{tag}: tiled backward B={B}: two runs on the same "
-                                      f"inputs give different {name}")
-            rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
-            check(rel[name] <= TRAIN_GRAD_REL[name],
-                  f"{tag}: tiled backward B={B} T={T}: {name} max |diff| / max |plain| = "
-                  f"{rel[name]:.3g} > {TRAIN_GRAD_REL[name]}")
+        rel = check_backward(f"backward B={B} T={T}", got, again, want)
         ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=3, warmup=1)
-        log(f"[{tag}] backward B={B} T={T} U={u} bf16 in row tiles {tiles} (one launch each): "
-            f"max |diff| / max |plain|: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        log(f"[{tag}] backward B={B} T={T} U={u} bf16, plan {tuple(plan)} (one launch of each "
+            f"kernel): max |diff| / max |plain|: " + ", ".join(f"{k} {v:.3g}"
+                                                              for k, v in rel.items())
             + f" | two runs bit-equal | {ms:.3f} ms")
-        del got, again, want, pys, pmhs, mxs, dys, xs
+        del got, again, want, pys, pmhs, mxs, dys
     return out
 
 
@@ -817,14 +918,16 @@ def profiled_step_shares(step, n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    groups = {"backward kernel": 0.0, "forward kernel": 0.0, "library products": 0.0,
-              "other device work": 0.0}
+    groups = {"backward kernel": 0.0, "dWr kernel": 0.0, "forward kernel": 0.0,
+              "library products": 0.0, "other device work": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue    # an operator's row repeats its kernels' time
         ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
         if "gru_train_bwd_kernel" in e.key:
             groups["backward kernel"] += ms
+        elif "gru_train_dwr_kernel" in e.key:
+            groups["dWr kernel"] += ms
         elif "gru_train_fwd_kernel" in e.key:
             groups["forward kernel"] += ms
         elif any(w in e.key for w in ("gemm", "nvjet", "cutlass", "cublas")):
@@ -839,8 +942,8 @@ def profiled_step_shares(step, n):
 
 def train_phase(tag, dev, tok, kernel_ms):
     """The training main path at full width (see the module docstring, 12).
-    ``kernel_ms`` is (forward, backward) kernel time at the main shape, for
-    the step's breakdown. Returns the kernels' launches on the main run."""
+    ``kernel_ms`` is (forward, backward recurrence + dWr) kernel time at the
+    main shape, for the step's breakdown. Returns the kernels' launches on the main run."""
     import contextlib
     import io
 
@@ -892,8 +995,7 @@ def train_phase(tag, dev, tok, kernel_ms):
     check(len(history) == n_steps and all(np.isfinite(losses)),
           f"{tag}: {len(history)} steps logged of {n_steps}, losses {losses}")
     check(losses[-1] < losses[0] - 0.15, f"{tag}: the loss did not fall: {losses}")
-    check(launches["fused_gru_train_fwd"] == n_steps
-          and launches["fused_gru_train_bwd"] == n_steps and not any(ft.PLAIN_CALLS.values()),
+    check(all(launches[k] == n_steps for k in TRAIN_KERNELS) and not any(ft.PLAIN_CALLS.values()),
           f"{tag}: {n_steps} steps launched {launches}, plain-version runs {ft.PLAIN_CALLS}")
     # steady-state step time: the history's clock stops after each step's loss
     # was read back; the first step also loads the kernels
@@ -912,16 +1014,17 @@ def train_phase(tag, dev, tok, kernel_ms):
     before = port.kernel_launches()
     prof = profiled_step_shares(lambda: step_fn(scratch, (adam,), inp, tgt), 3)
     after = port.kernel_launches()
-    check(all(after[k] - before[k] == 3 for k in ("fused_gru_train_fwd", "fused_gru_train_bwd")),
+    check(all(after[k] - before[k] == 3 for k in TRAIN_KERNELS),
           f"{tag}: the profiled steps launched {before} -> {after}")
     del grads, adam, scratch, inp, tgt
     rest_ms = step_ms - sum(kernel_ms) - adam_ms
     log(f"[{tag}] train_from_text corpus_train.txt bf16 B={B} T={T} E=256 U=1024: {n_steps} "
         f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} | launches fwd "
-        f"{launches['fused_gru_train_fwd']} bwd {launches['fused_gru_train_bwd']}, plain-version "
-        f"runs 0 | {step_ms:.2f} ms/step (median of {len(steps_s)}, loss read back each step) = "
+        f"{launches['fused_gru_train_fwd']} bwd {launches['fused_gru_train_bwd']} dWr "
+        f"{launches['fused_gru_train_dwr']}, plain-version runs 0 | {step_ms:.2f} ms/step "
+        f"(median of {len(steps_s)}, loss read back each step) = "
         f"{B * T / step_ms * 1e3:,.0f} tokens/s | of a step: forward kernel {kernel_ms[0]:.2f} "
-        f"ms, backward kernel {kernel_ms[1]:.2f} ms, Adam {adam_ms:.2f} ms, the rest (input "
+        f"ms, backward kernels {kernel_ms[1]:.2f} ms, Adam {adam_ms:.2f} ms, the rest (input "
         f"projection, vocab head, their gradients, loss, host) {rest_ms:.2f} ms | peak device "
         f"memory {peak_gb:.2f} GB")
     if prof is None:
@@ -929,8 +1032,8 @@ def train_phase(tag, dev, tok, kernel_ms):
     else:
         log(f"[{tag}] 3 steps under torch.profiler: {prof['wall_ms']:.2f} ms/step wall, device "
             f"busy {prof['busy_ms']:.2f} ms/step (idle share {prof['idle_share']:.3f}): "
-            + ", ".join(f"{k} {prof[k]:.2f} ms" for k in ("backward kernel", "forward kernel",
-                                                          "library products",
+            + ", ".join(f"{k} {prof[k]:.2f} ms" for k in ("backward kernel", "dWr kernel",
+                                                          "forward kernel", "library products",
                                                           "other device work")))
 
     # the same run through train(), whole and interrupted + resumed
@@ -989,20 +1092,19 @@ def train_phase(tag, dev, tok, kernel_ms):
         check(rc == 0 and summary["steps"] == cli_steps - 1
               and np.isfinite(summary["final_loss"]) and os.path.exists(cli_out),
               f"{tag}: train-gru: rc {rc}, summary {summary}")
-        check(all(after[k] - before[k] == cli_steps
-                  for k in ("fused_gru_train_fwd", "fused_gru_train_bwd"))
+        check(all(after[k] - before[k] == cli_steps for k in TRAIN_KERNELS)
               and not any(ft.PLAIN_CALLS.values()),
               f"{tag}: train-gru launched {before} -> {after}")
         log(f"[{tag}] train-gru at its defaults (B=64, T=100, E=256, U=1024) bf16, "
             f"{cli_steps} steps on the corpus's first {TRAIN_CLI_CHARS:,} characters: "
-            f"{json.dumps(summary)} in {cli_s:.2f} s | one forward and one backward launch a "
-            f"step")
+            f"{json.dumps(summary)} in {cli_s:.2f} s | one forward, one backward and one dWr "
+            f"launch a step, plan {tuple(ft.train_plan(64, 1024))}")
 
         # the command at a batch past one backward launch's shared memory
         big_out = os.path.join(tmp, "big_gru.bin")
         big = DataConfig(seq_length=T, batch_size=TRAIN_BIG_BATCH)
         big_steps = len(make_examples(text, tok, big)) // TRAIN_BIG_BATCH
-        tiles = ft.bwd_batch_tiles(TRAIN_BIG_BATCH, 1024)
+        plan = ft.train_plan(TRAIN_BIG_BATCH, 1024)
         before = port.kernel_launches()
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1017,9 +1119,8 @@ def train_phase(tag, dev, tok, kernel_ms):
         check(rc == 0 and summary["steps"] == big_steps - 1 and np.isfinite(summary["final_loss"])
               and os.path.exists(big_out), f"{tag}: train-gru B={TRAIN_BIG_BATCH}: rc {rc}, "
                                            f"summary {summary}")
-        check(after["fused_gru_train_fwd"] - before["fused_gru_train_fwd"] == big_steps
-              and after["fused_gru_train_bwd"] - before["fused_gru_train_bwd"]
-              == big_steps * len(tiles) and not any(ft.PLAIN_CALLS.values()),
+        check(all(after[k] - before[k] == big_steps for k in TRAIN_KERNELS)
+              and not any(ft.PLAIN_CALLS.values()),
               f"{tag}: train-gru B={TRAIN_BIG_BATCH} launched {before} -> {after}")
         # its loss falls: the exported weights against the initial ones (the
         # command's seed 0) on the corpus's first windows
@@ -1035,8 +1136,9 @@ def train_phase(tag, dev, tok, kernel_ms):
         log(f"[{tag}] train-gru --batch-size {TRAIN_BIG_BATCH} bf16, {big_steps} steps on "
             f"corpus_train.txt: {json.dumps(summary)} in {big_s:.2f} s | launches fwd "
             f"{after['fused_gru_train_fwd'] - before['fused_gru_train_fwd']}, bwd "
-            f"{after['fused_gru_train_bwd'] - before['fused_gru_train_bwd']} (row tiles "
-            f"{tiles} a step) | loss on 256 corpus windows: {loss0:.4f} initial -> {loss1:.4f} "
+            f"{after['fused_gru_train_bwd'] - before['fused_gru_train_bwd']}, dWr "
+            f"{after['fused_gru_train_dwr'] - before['fused_gru_train_dwr']} (one each a step, "
+            f"plan {tuple(plan)}) | loss on 256 corpus windows: {loss0:.4f} initial -> {loss1:.4f} "
             f"exported")
         del init, trained
     return launches
@@ -1709,8 +1811,8 @@ def main() -> int:
     # ---- 12. training at full width ----------------------------------------------------
     main_k = train_k[TRAIN_SHAPES[0]]
     train_launches = train_phase("12 training", dev, tok,
-                                 (main_k["fwd"]["ms"], main_k["bwd"]["ms"]))
-    for part in ("fwd", "bwd"):
+                                 (main_k["fwd"]["ms"], main_k["bwd_total_ms"]))
+    for part in ("fwd", "bwd", "dwr"):
         name = f"fused_gru_train_{part}"
         kernels[name] = dict(main_k[part], launches=train_launches[name])
 
@@ -1757,6 +1859,8 @@ def main() -> int:
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:186")
     meta["fused_gru_train_bwd"] = (src + "gru_train.cu",
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
+    meta["fused_gru_train_dwr"] = (src + "gru_train.cu",
+                                   "ggml_experiments_tpu/ops/fused_gru_train.py:285")
     meta["fused_transformer_layer"] = (src + "transformer_layer.cu",
                                        "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
     meta["flash_mha"] = (src + "flash_attention.cu",
@@ -1774,7 +1878,7 @@ def main() -> int:
                  "bound_by": kd["bound_by"], "library_ms": kd["library_ms"]}
         if "bfloat16" in kd:     # qmatmul: the main path's bf16 cell beside its f32 one
             entry["bfloat16"] = kd["bfloat16"]
-        if "plan" in kd:         # the persistent kernel: the plan its main-path run took
+        if "plan" in kd:         # the persistent kernel, the train pair: the plan its run took
             entry["plan"] = kd["plan"]
         line.append(entry)
     log(json.dumps({"kernels": line}))

@@ -1,5 +1,6 @@
-"""Fused GRU training sequence: forward and backward over all T steps, each
-in one kernel launch, as a ``torch.autograd.Function``.
+"""Fused GRU training sequence: the forward over all T steps in one kernel
+launch and the backward in two (the time loop, then the recurrent weight
+gradient), as a ``torch.autograd.Function``.
 
 :func:`fused_gru_scan` takes the biased input projection of every step
 ``mxs`` (T, B, 3U), the initial state ``h0`` (B, U), the recurrent kernel
@@ -8,10 +9,11 @@ in one kernel launch, as a ``torch.autograd.Function``.
 operands are cast to bfloat16 and ``brec`` to float32, and the gradients come
 back in the inputs' dtypes.
 
-On CUDA tensors the two passes launch ``csrc/gru_train.cu``
-(``gxt_gru_train_fwd`` / ``gxt_gru_train_bwd``) or raise; on CPU tensors they
-run the plain PyTorch versions in this module, which round where the kernels
-round:
+On CUDA tensors the forward launches ``csrc/gru_train.cu``
+``gxt_gru_train_fwd`` and the backward ``gxt_gru_train_bwd`` (the time loop)
+then ``gxt_gru_train_dwr`` (the recurrent weight gradient), or raise; on CPU
+tensors they run the plain PyTorch versions in this module, which round where
+the kernels round:
 
 * forward, per step: ``mh = h . wr + brec`` summed in f32, **rounded to bf16
   and stored**; the gates use the rounded ``mh``; ``h' = z*h + (1-z)*g`` is
@@ -22,31 +24,39 @@ round:
   ``carry = dh*z + dmh . wr^T``; ``dwr += h_prev^T . dmh`` and ``dbrec +=
   sum_b dmh`` (the unrounded ``dmh``) kept in f32; ``dh0`` is the last carry.
 
-The kernels take U a multiple of 8 with at most 8 units per streaming
-multiprocessor (U <= 1056 on an H100) and any B >= 1; another U raises
-``ValueError`` naming the shape. One backward launch stages its whole batch
-in shared memory, which holds at most 1760 rows at U = 1024, so the backward
-walks a larger batch in row tiles (:func:`bwd_batch_tiles`), one launch a
-tile, and adds the tiles' f32 weight gradients in tile order
-(:func:`bwd_tiled`). The plain versions take any shape, and
-``compute_dtype=torch.float64`` runs them without any rounding (for checking
-the backward's formulas against autograd).
+The kernels cut the work into blocks that each own a row tile of the batch
+and a group of ``ub`` hidden units; :func:`train_plan` picks the cut
+(:class:`TrainPlan`) and both wrappers take ``config=`` to force one. They
+take U a multiple of 8 with U / 8 blocks co-resident (U <= 1056 on an H100)
+and any B >= 1 in one launch; another U raises ``ValueError`` naming the
+shape. The backward's recurrence writes the rounded third gate of dmh
+(``da * r``) into a (T, B, U) plane; dmh's other two thirds are dmx's bits,
+so the dWr GEMM reads ``[dmx[..., :2U] | plane]`` and ``[h0; ys[:-1]]``.
+The plain versions take any shape, and ``compute_dtype=torch.float64`` runs
+them without any rounding (for checking the backward's formulas against
+autograd).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 # launches of each CUDA entry point; only the kernel wrappers add to these
-LAUNCHES = {"fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0}
+LAUNCHES = {"fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0, "fused_gru_train_dwr": 0}
 # runs of the plain versions through fused_gru_scan (CPU tensors)
 PLAIN_CALLS = {"fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0}
+# the plan each recurrence entry point last launched
+LAST_PLAN = {}
 
-UNITS_PER_BLOCK = 8
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to on an H100
+SMS = 132               # streaming multiprocessors of an H100 SXM
+UNIT_GROUPS = (8, 16, 32)
+CHUNK_ROWS = 128        # rows of one TMA copy of the recurrences' A operand
+TILE_BYTES = CHUNK_ROWS * 128
+MAX_STAGES = 8
 
 
 # ---------------------------------------------------------------------------
@@ -118,67 +128,137 @@ def gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr):
 
 
 # ---------------------------------------------------------------------------
-# batch tiles of the backward
+# the backward's two kernels, plain
 # ---------------------------------------------------------------------------
 
-def _padded_ld(k: int) -> int:
-    """``padded_ld`` of csrc/gru_train.cu: whole 32-wide K steps, and a row
-    of (ld / 2) % 32 == 16 words."""
-    ld = -(-k // 32) * 32
-    return ld + 32 if (ld // 2) % 32 != 16 else ld
-
-
-def bwd_smem_bytes(b: int, u: int) -> int:
-    """Dynamic shared memory of one backward launch over ``b`` rows at U=u
-    (``bwd_smem`` of csrc/gru_train.cu): the block's 8 rows of Wr, the
-    staged dmh of its 24 gate columns over the batch (B rounded up to 32),
-    and its f32 columns of dWr."""
-    bp = -(-b // 32) * 32
-    return (UNITS_PER_BLOCK * _padded_ld(3 * u) * 2 + 3 * UNITS_PER_BLOCK * _padded_ld(bp) * 2
-            + max(u, 256) * 3 * UNITS_PER_BLOCK * 4)
-
-
-def bwd_batch_tiles(b: int, u: int, smem_limit: int = SMEM_LIMIT):
-    """Row ranges [(start, stop), ...] covering 0..b in order, each a batch
-    whose backward launch fits ``smem_limit`` bytes of shared memory: one
-    range while the whole batch fits (B <= 1760 at U = 1024 on an H100),
-    else the fewest tiles, of equal size rounded up to 32 rows (the last
-    one shorter)."""
-    if b <= 0:
-        return []
-    if bwd_smem_bytes(b, u) <= smem_limit:
-        return [(0, b)]
-    most = 0
-    while bwd_smem_bytes(most + 32, u) <= smem_limit and most + 32 < b:
-        most += 32
-    if most == 0:
-        raise ValueError(f"fused_gru_train_bwd: U={u} leaves no room for a 32-row batch tile "
-                         f"in {smem_limit} bytes of shared memory")
-    n = -(-b // most)
-    rows = -(-(-(-b // n)) // 32) * 32
-    return [(s, min(s + rows, b)) for s in range(0, b, rows)]
-
-
-def bwd_tiled(run, mxs, mhs, ys, dys, h0, wr, tiles):
-    """The backward over the row ``tiles`` of the batch: ``run`` (a kernel
-    launch or the plain version) on each tile's rows, dmxs and dh0 put back
-    in place, dwr and dbrec (sums over rows) added in tile order, so that
-    two runs give the same bits. One tile is one plain call of ``run``."""
-    if len(tiles) == 1 and tiles[0] == (0, mxs.shape[1]):
-        return run(mxs, mhs, ys, dys, h0, wr)
+def gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr):
+    """The backward's time loop without dWr, as ``gxt_gru_train_bwd``
+    computes it: (dmxs and the plane of ``round(da * r)`` (T, B, U) in the
+    compute dtype; dbrec (3U,), dh0 (B, U) in the sum dtype)."""
+    cd = mxs.dtype
+    acc = _acc_dtype(cd)
+    t_len, b, g3 = mxs.shape
+    u = g3 // 3
+    wr_t = wr.to(acc).t()
     dmxs = torch.empty_like(mxs)
-    dh0 = dwr = dbrec = None
-    for s, e in tiles:
-        part = run(mxs[:, s:e].contiguous(), mhs[:, s:e].contiguous(), ys[:, s:e].contiguous(),
-                   dys[:, s:e].contiguous(), h0[s:e].contiguous(), wr)
-        dmxs[:, s:e] = part[0]
-        if dh0 is None:
-            dh0 = part[3].new_empty((mxs.shape[1], part[3].shape[1]))
-            dwr, dbrec = part[1], part[2]
-        else:
-            dwr, dbrec = dwr + part[1], dbrec + part[2]
-        dh0[s:e] = part[3]
-    return dmxs, dwr, dbrec, dh0
+    plane = mxs.new_empty((t_len, b, u))
+    dbrec = torch.zeros((g3,), dtype=acc, device=mxs.device)
+    carry = torch.zeros((b, u), dtype=acc, device=mxs.device)
+    for t in range(t_len - 1, -1, -1):
+        h_prev = (h0 if t == 0 else ys[t - 1]).to(acc)
+        z, r, g, mh_h = _gates(mxs[t].to(acc), mhs[t].to(acc), u)
+        dh = dys[t].to(acc) + carry
+        dz = dh * (h_prev - g)
+        da = (dh * (1.0 - z)) * (1.0 - g * g)      # tanh'
+        dr = da * mh_h
+        daz = dz * z * (1.0 - z)                    # sigmoid'
+        dar = dr * r * (1.0 - r)
+        dmxs[t] = torch.cat([daz, dar, da], dim=1).to(cd)
+        plane[t] = (da * r).to(cd)
+        dmh = torch.cat([daz, dar, da * r], dim=1)
+        carry = dh * z + torch.matmul(dmh.to(cd).to(acc), wr_t)
+        dbrec += dmh.sum(dim=0)
+    return dmxs, plane, dbrec, carry
+
+
+def gru_train_dwr_plain(h0, ys, dmxs, plane):
+    """dWr (U, 3U) in the sum dtype from the stored operands, as
+    ``gxt_gru_train_dwr`` computes it: the sum over t (last first, as the
+    plain backward adds) of ``h_prev^T . [dmx[t][:, :2U] | plane[t]]``."""
+    acc = _acc_dtype(dmxs.dtype)
+    t_len, _, g3 = dmxs.shape
+    u = g3 // 3
+    dwr = torch.zeros((u, g3), dtype=acc, device=dmxs.device)
+    for t in range(t_len - 1, -1, -1):
+        h_prev = (h0 if t == 0 else ys[t - 1]).to(acc)
+        dmh_c = torch.cat([dmxs[t][:, :2 * u], plane[t]], dim=1).to(acc)
+        dwr += torch.matmul(h_prev.t(), dmh_c)
+    return dwr
+
+
+# ---------------------------------------------------------------------------
+# the plan: how the recurrences cut the work
+# ---------------------------------------------------------------------------
+
+class TrainPlan(NamedTuple):
+    """Block (r, g) of a recurrence owns row tile r of ``row_tiles`` and the
+    ``ub`` hidden units of group g: ``row_tiles * U / ub`` blocks."""
+    ub: int
+    row_tiles: int
+
+
+def tile_rows(b: int, r: int) -> int:
+    """Rows of one row tile (``tile_rows`` of csrc/gru_train.cu): whole
+    128-row TMA copies, or 64 for a lone tile of at most 64 rows."""
+    if r == 1 and b <= 64:
+        return 64
+    return -(-(-(-b // r)) // CHUNK_ROWS) * CHUNK_ROWS
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def wr_bytes(part: str, ub: int, u: int) -> int:
+    """Shared memory of a block's resident Wr slice: the forward's 3ub gate
+    columns over K = U, the backward's ub rows over K = 3U (the dmx columns
+    padded to a multiple of 64, then the plane's U), both in 64-wide tiles."""
+    if part == "fwd":
+        return -(-u // 64) * 3 * ub * 128
+    return -(-(2 * _round_up(u, 32) + u) // 64) * ub * 128
+
+
+def smem_bytes(part: str, ub: int, u: int, stages: int) -> int:
+    """Dynamic shared memory of a recurrence launch (``gxt_gru_train_smem``):
+    the alignment slack, the Wr slice, the ring of ``stages`` copies and its
+    barriers."""
+    return 1024 + wr_bytes(part, ub, u) + stages * (TILE_BYTES + 16)
+
+
+def ring_stages(part: str, ub: int, u: int, smem_limit: int = SMEM_LIMIT) -> int:
+    """The deepest ring (at most MAX_STAGES) that fits beside the Wr slice;
+    below 2 the unit group does not fit."""
+    fixed = smem_bytes(part, ub, u, 0)
+    return max(0, min(MAX_STAGES, (smem_limit - fixed) // (TILE_BYTES + 16)))
+
+
+def train_plans(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> List[TrainPlan]:
+    """Every plan the kernels take at (B, U): ``ub`` divides U, all blocks
+    co-resident (one a multiprocessor), no empty row tile, a ring of at least
+    two stages in both passes."""
+    out = []
+    if b <= 0 or u <= 0 or u % 8:
+        return out
+    for ub in UNIT_GROUPS:
+        if u % ub or min(ring_stages(p, ub, u, smem_limit) for p in ("fwd", "bwd")) < 2:
+            continue
+        r = 1
+        while r * (u // ub) <= sms and (r - 1) * tile_rows(b, r) < b:
+            out.append(TrainPlan(ub, r))
+            r += 1
+    return out
+
+
+def _plan_cost(plan: TrainPlan, b: int, u: int) -> Tuple[int, int]:
+    """More blocks first, then fewer rows a block: the order of every cell of
+    ``tools/torch_kernel_bench.py --sweep`` on an H100 (B = 64 to 4096,
+    U = 1024; PERF.md). A block's time per step follows the rows it
+    streams more than the depth of its ring."""
+    return -plan.row_tiles * (u // plan.ub), tile_rows(b, plan.row_tiles)
+
+
+def train_plan(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> TrainPlan:
+    """The default plan at (B, U); ValueError when the kernels take no plan."""
+    plans = train_plans(b, u, sms, smem_limit)
+    if not plans:
+        raise ValueError(f"fused_gru_train: no plan takes (B, U) = ({b}, {u}) on {sms} "
+                         f"multiprocessors: U must be a multiple of 8 with U / 8 <= {sms}")
+    return min(plans, key=lambda p: _plan_cost(p, b, u))
+
+
+def kernels_take(u: int, sms: int = SMS) -> bool:
+    """Whether the kernel pair takes width U at all (at some batch)."""
+    return bool(train_plans(1, u, sms))
 
 
 # ---------------------------------------------------------------------------
@@ -193,13 +273,40 @@ def _check_operands(entry: str, named, dev) -> None:
                              f"on {dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
 
 
-def _check_units(entry: str, t_len: int, b: int, u: int, dev) -> None:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if u % UNITS_PER_BLOCK or u // UNITS_PER_BLOCK > sms:
-        raise ValueError(
-            f"{entry}: the kernel takes U a multiple of {UNITS_PER_BLOCK} up to "
-            f"{UNITS_PER_BLOCK * sms} on this device ({sms} multiprocessors), got "
-            f"(T, B, U) = ({t_len}, {b}, {u})")
+def _check_mxs(entry: str, mxs) -> None:
+    if mxs.device.type != "cuda" or mxs.dim() != 3 or mxs.shape[2] % 3:
+        raise ValueError(f"{entry}: mxs must be a (T, B, 3U) CUDA tensor, got "
+                         f"{tuple(mxs.shape)} on {mxs.device}")
+
+
+def _device_limits(dev) -> Tuple[int, int]:
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count, getattr(props, "shared_memory_per_block_optin",
+                                                SMEM_LIMIT)
+
+
+def _resolve_plan(entry: str, part: str, config, t_len: int, b: int, u: int, dev):
+    """(plan, ring stages) for a launch: the default plan, or ``config`` if
+    the kernels take it; the wrapper's shared-memory reckoning is held
+    against the kernel's."""
+    sms, limit = _device_limits(dev)
+    plans = train_plans(b, u, sms, limit)
+    shape = f"(T, B, U) = ({t_len}, {b}, {u})"
+    if not plans:
+        raise ValueError(f"{entry}: the kernel takes U a multiple of 8 up to {8 * sms} on this "
+                         f"device ({sms} multiprocessors), got {shape}")
+    plan = train_plan(b, u, sms, limit) if config is None else TrainPlan(*config)
+    if plan not in plans:
+        raise ValueError(f"{entry}: plan {tuple(plan)} does not take {shape} on this device; "
+                         f"it takes {[tuple(p) for p in plans]}")
+    stages = ring_stages(part, plan.ub, u, limit)
+    need = _lib().gxt_gru_train_smem(0 if part == "fwd" else 1, plan.ub, u, stages)
+    if need != smem_bytes(part, plan.ub, u, stages):
+        raise RuntimeError(f"{entry}: csrc/gru_train.cu takes {need} bytes of shared memory "
+                           f"for {tuple(plan)} at U={u}, smem_bytes "
+                           f"{smem_bytes(part, plan.ub, u, stages)}")
+    LAST_PLAN[entry] = plan
+    return plan, stages
 
 
 def _lib():
@@ -208,103 +315,122 @@ def _lib():
     lib = _build.load("gru_train")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gxt_gru_train_fwd.restype = i
-    lib.gxt_gru_train_fwd.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.gxt_gru_train_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.gxt_gru_train_bwd.restype = i
-    lib.gxt_gru_train_bwd.argtypes = [p] * 12 + [i] * 3 + [p]
-    lib.gxt_gru_train_bwd_smem.restype = i
-    lib.gxt_gru_train_bwd_smem.argtypes = [i, i]
+    lib.gxt_gru_train_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.gxt_gru_train_dwr.restype = i
+    lib.gxt_gru_train_dwr.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.gxt_gru_train_smem.restype = ctypes.c_longlong
+    lib.gxt_gru_train_smem.argtypes = [i] * 4
     return lib
 
 
-def gru_train_fwd_cuda(mxs, h0, wr, brec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on bf16 operands (``brec`` f32): (ys, mhs)."""
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def gru_train_fwd_cuda(mxs, h0, wr, brec, config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on bf16 operands (``brec`` f32): (ys, mhs).
+    ``config`` forces a plan, ``(ub, row_tiles)``."""
     from ggml_experiments_tpu_torch import _build
 
     entry = "fused_gru_train_fwd"
+    _check_mxs(entry, mxs)
     dev = mxs.device
-    if dev.type != "cuda" or mxs.dim() != 3 or mxs.shape[2] % 3:
-        raise ValueError(f"{entry}: mxs must be a (T, B, 3U) CUDA tensor, got "
-                         f"{tuple(mxs.shape)} on {dev}")
     t_len, b, g3 = mxs.shape
     u = g3 // 3
     bf16 = torch.bfloat16
     _check_operands(entry, (("mxs", mxs, bf16, (t_len, b, g3)), ("h0", h0, bf16, (b, u)),
                             ("wr", wr, bf16, (u, g3)), ("brec", brec, torch.float32, (g3,))),
                     dev)
-    _check_units(entry, t_len, b, u, dev)
     ys = torch.empty((t_len, b, u), dtype=bf16, device=dev)
     mhs = torch.empty_like(mxs)
     if t_len == 0 or b == 0:
         return ys, mhs
+    plan, stages = _resolve_plan(entry, "fwd", config, t_len, b, u, dev)
     lib = _lib()
+    ctr = torch.zeros((plan.row_tiles,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = lib.gxt_gru_train_fwd(mxs.data_ptr(), h0.data_ptr(), wr.data_ptr(),
                                      brec.data_ptr(), ys.data_ptr(), mhs.data_ptr(),
-                                     t_len, b, u, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u})")
+                                     ctr.data_ptr(), t_len, b, u, plan.ub, plan.row_tiles,
+                                     stages, _stream(dev))
+    _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u}), plan {tuple(plan)}")
     LAUNCHES[entry] += 1
     return ys, mhs
 
 
-def gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr):
-    """The backward kernel on bf16 operands: (dmxs bf16; dwr, dbrec, dh0
-    f32). A batch whose staging exceeds the device's shared memory runs in
-    row tiles (:func:`bwd_batch_tiles`), one launch a tile, each adding one
-    to ``LAUNCHES["fused_gru_train_bwd"]``; a batch that fits is one launch."""
+def gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=None):
+    """Launch the backward's time loop on bf16 operands: (dmxs, plane bf16;
+    dbrec, dh0 f32), one launch, one count of ``fused_gru_train_bwd``."""
+    from ggml_experiments_tpu_torch import _build
+
     entry = "fused_gru_train_bwd"
+    _check_mxs(entry, mxs)
     dev = mxs.device
-    if dev.type != "cuda" or mxs.dim() != 3 or mxs.shape[2] % 3:
-        raise ValueError(f"{entry}: mxs must be a (T, B, 3U) CUDA tensor, got "
-                         f"{tuple(mxs.shape)} on {dev}")
     t_len, b, g3 = mxs.shape
     u = g3 // 3
     bf16, f32 = torch.bfloat16, torch.float32
     _check_operands(entry, (("mxs", mxs, bf16, (t_len, b, g3)), ("mhs", mhs, bf16, (t_len, b, g3)),
                             ("ys", ys, bf16, (t_len, b, u)), ("dys", dys, bf16, (t_len, b, u)),
                             ("h0", h0, bf16, (b, u)), ("wr", wr, bf16, (u, g3))), dev)
-    _check_units(entry, t_len, b, u, dev)
-    if t_len == 0 or b == 0:
-        return (torch.empty_like(mxs), torch.zeros((u, g3), dtype=f32, device=dev),
-                torch.zeros((g3,), dtype=f32, device=dev),
-                torch.zeros((b, u), dtype=f32, device=dev))
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
-    return bwd_tiled(_bwd_launch, mxs, mhs, ys, dys, h0, wr, bwd_batch_tiles(b, u, limit))
-
-
-def _bwd_launch(mxs, mhs, ys, dys, h0, wr):
-    """One backward launch over a batch that fits shared memory."""
-    from ggml_experiments_tpu_torch import _build
-
-    entry = "fused_gru_train_bwd"
-    dev = mxs.device
-    t_len, b, g3 = mxs.shape
-    u = g3 // 3
-    bf16, f32 = torch.bfloat16, torch.float32
-    lib = _lib()
-    need = lib.gxt_gru_train_bwd_smem(b, u)
-    if need != bwd_smem_bytes(b, u):
-        raise RuntimeError(f"{entry}: csrc/gru_train.cu stages {need} bytes at (B, U) = "
-                           f"({b}, {u}), bwd_smem_bytes {bwd_smem_bytes(b, u)}")
     # the kernel writes every entry of its outputs
     dmxs = torch.empty_like(mxs)
-    dwr = torch.empty((u, g3), dtype=f32, device=dev)
+    plane = torch.empty((t_len, b, u), dtype=bf16, device=dev)
+    if t_len == 0 or b == 0:
+        return (dmxs, plane, torch.zeros((g3,), dtype=f32, device=dev),
+                torch.zeros((b, u), dtype=f32, device=dev))
+    plan, stages = _resolve_plan(entry, "bwd", config, t_len, b, u, dev)
     dbrec = torch.empty((g3,), dtype=f32, device=dev)
+    dbpart = torch.empty((plan.row_tiles, g3), dtype=f32, device=dev)
     dh0 = torch.empty((b, u), dtype=f32, device=dev)
-    bp = -(-b // 32) * 32
-    # staging, double-buffered by the parity of t: dmh of the step and the
-    # transpose of h_{t-1}, whose padding columns must read as zeros
-    dmh = torch.empty((2, b, g3), dtype=bf16, device=dev)
-    hp_t = torch.zeros((2, u, bp), dtype=bf16, device=dev)
+    ctr = torch.zeros((plan.row_tiles,), dtype=torch.int32, device=dev)
+    lib = _lib()
     with torch.cuda.device(dev):
         code = lib.gxt_gru_train_bwd(
             mxs.data_ptr(), mhs.data_ptr(), ys.data_ptr(), dys.data_ptr(), h0.data_ptr(),
-            wr.data_ptr(), dmxs.data_ptr(), dwr.data_ptr(), dbrec.data_ptr(), dh0.data_ptr(),
-            dmh.data_ptr(), hp_t.data_ptr(), t_len, b, u,
-            torch.cuda.current_stream(dev).cuda_stream)
+            wr.data_ptr(), dmxs.data_ptr(), plane.data_ptr(), dbrec.data_ptr(),
+            dbpart.data_ptr(), dh0.data_ptr(), ctr.data_ptr(), t_len, b, u, plan.ub,
+            plan.row_tiles, stages, _stream(dev))
+    _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u}), plan {tuple(plan)}")
+    LAUNCHES[entry] += 1
+    return dmxs, plane, dbrec, dh0
+
+
+def gru_train_dwr_cuda(h0, ys, dmxs, plane) -> torch.Tensor:
+    """Launch the dWr GEMM: (U, 3U) f32 from the recurrence's stored bf16
+    operands, one count of ``fused_gru_train_dwr``."""
+    from ggml_experiments_tpu_torch import _build
+
+    entry = "fused_gru_train_dwr"
+    _check_mxs(entry, dmxs)
+    dev = dmxs.device
+    t_len, b, g3 = dmxs.shape
+    u = g3 // 3
+    bf16 = torch.bfloat16
+    _check_operands(entry, (("h0", h0, bf16, (b, u)), ("ys", ys, bf16, (t_len, b, u)),
+                            ("dmxs", dmxs, bf16, (t_len, b, g3)),
+                            ("plane", plane, bf16, (t_len, b, u))), dev)
+    if u % 8:
+        raise ValueError(f"{entry}: the kernel takes U a multiple of 8, got (T, B, U) = "
+                         f"({t_len}, {b}, {u})")
+    if t_len == 0 or b == 0:
+        return torch.zeros((u, g3), dtype=torch.float32, device=dev)
+    dwr = torch.empty((u, g3), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.gxt_gru_train_dwr(h0.data_ptr(), ys.data_ptr(), dmxs.data_ptr(),
+                                     plane.data_ptr(), dwr.data_ptr(), t_len, b, u, _stream(dev))
     _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u})")
     LAUNCHES[entry] += 1
-    return dmxs, dwr, dbrec, dh0
+    return dwr
+
+
+def gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr, config=None):
+    """The backward on bf16 operands: the time loop's launch, then the dWr
+    GEMM's (one count each): (dmxs bf16; dwr, dbrec, dh0 f32)."""
+    dmxs, plane, dbrec, dh0 = gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config)
+    return dmxs, gru_train_dwr_cuda(h0, ys, dmxs, plane), dbrec, dh0
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +484,8 @@ def fused_gru_scan_plain(mxs, h0, wr, brec, compute_dtype=torch.bfloat16) -> tor
     return _FusedGRUScan.apply(mxs, h0, wr, brec, compute_dtype, True)
 
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "bwd_batch_tiles", "bwd_smem_bytes", "bwd_tiled",
-           "fused_gru_scan", "fused_gru_scan_plain", "gru_train_bwd_cuda", "gru_train_bwd_plain",
-           "gru_train_fwd_cuda", "gru_train_fwd_plain"]
+__all__ = ["LAST_PLAN", "LAUNCHES", "PLAIN_CALLS", "TrainPlan", "fused_gru_scan",
+           "fused_gru_scan_plain", "gru_train_bwd_cuda", "gru_train_bwd_plain",
+           "gru_train_bwd_rec_cuda", "gru_train_bwd_rec_plain", "gru_train_dwr_cuda",
+           "gru_train_dwr_plain", "gru_train_fwd_cuda", "gru_train_fwd_plain", "kernels_take",
+           "smem_bytes", "train_plan", "train_plans"]

@@ -63,18 +63,17 @@ def gru_cell(p: GRUCellParams, x: torch.Tensor, h: torch.Tensor, *,
 def _use_fused_train(p: GRUCellParams, fused: Optional[bool]) -> bool:
     """Whether the time-major forward takes the fused kernel pair: an
     explicit ``fused`` decides; otherwise dense float weights with a bias, on
-    a GPU, at a width the CUDA kernels take (U a multiple of 8, at most 8
-    units per streaming multiprocessor). On the CPU the default is the plain
-    loop under autograd."""
+    a GPU, at a width the CUDA kernels take (``fused_gru_train.kernels_take``:
+    U a multiple of 8 with U / 8 blocks co-resident). On the CPU the default
+    is the plain loop under autograd."""
     if fused is not None:
         return fused
     w = p.recurrent_kernel
     if not isinstance(w, torch.Tensor) or p.bias is None or w.device.type != "cuda":
         return False
-    from ggml_experiments_tpu_torch.ops.fused_gru_train import UNITS_PER_BLOCK
+    from ggml_experiments_tpu_torch.ops.fused_gru_train import kernels_take
 
-    sms = torch.cuda.get_device_properties(w.device).multi_processor_count
-    return p.units % UNITS_PER_BLOCK == 0 and p.units // UNITS_PER_BLOCK <= sms
+    return kernels_take(p.units, torch.cuda.get_device_properties(w.device).multi_processor_count)
 
 
 def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Tensor, *,

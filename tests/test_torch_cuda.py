@@ -418,11 +418,12 @@ def test_train_backward_kernel_matches_plain_and_repeats_bit_equal(dev, t, b, u)
 
     mxs, h0, wr, brec, dys = train_operands(dev, t, b, u)
     ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-    before = ft.LAUNCHES["fused_gru_train_bwd"]
+    before = dict(ft.LAUNCHES)
     got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
     again = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["fused_gru_train_bwd"] == before + 2
+    assert ft.LAUNCHES["fused_gru_train_bwd"] == before["fused_gru_train_bwd"] + 2
+    assert ft.LAUNCHES["fused_gru_train_dwr"] == before["fused_gru_train_dwr"] + 2
     want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
     for name, g, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
@@ -431,6 +432,53 @@ def test_train_backward_kernel_matches_plain_and_repeats_bit_equal(dev, t, b, u)
         assert rel_max(g, w) <= 1e-2, (name, rel_max(g, w))
     for name, g, a in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again):
         assert torch.equal(g, a), f"{name}: two launches on the same inputs differ"
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES + [(2, 200, 1024)])
+def test_train_dwr_kernel_matches_plain(dev, t, b, u):
+    """The dWr GEMM on the recurrence's stored operands: the same bf16
+    products, f32 sums in another order over K = T*B terms."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    got = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+    again = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+    torch.cuda.synchronize()
+    want = ft.gru_train_dwr_plain(h0, ys, dmxs, plane)
+    assert torch.equal(got, again)
+    assert rel_max(got, want) <= 1e-5, rel_max(got, want)
+
+
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("b", [1, 64, 1024, 1761, 3000])
+def test_train_every_plan_matches_plain_and_repeats_bit_equal(dev, t, b):
+    """Each plan the kernels take at U = 1024, forced: forward and backward
+    against the plain versions at the limits above, two launches bit-equal."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    u = 1024
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u)
+    pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = ft.train_plans(b, u, sms)
+    assert ft.train_plan(b, u, sms) in plans and len(plans) >= 3
+    for plan in plans:
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=plan)
+        ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=plan)
+        assert ft.LAST_PLAN["fused_gru_train_fwd"] == plan
+        got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=plan)
+        again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(ys, ys2) and torch.equal(mhs, mhs2), plan
+        assert float((ys.float() - pys.float()).abs().max()) <= 2e-2, plan
+        assert float((mhs.float() - pmhs.float()).abs().max()) <= 4e-2, plan
+        assert float((ys.float() - pys.float()).abs().mean()) <= 2e-4, plan
+        for name, g, a, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
+            assert torch.equal(g, a), (plan, name)
+            assert rel_max(g, w) <= 1e-2, (plan, name, rel_max(g, w))
 
 
 def test_train_scan_autograd_runs_the_kernels(dev):
@@ -443,7 +491,10 @@ def test_train_scan_autograd_runs_the_kernels(dev):
     ys = ft.fused_gru_scan(*args)
     (ys.float() * dys.float()).sum().backward()
     torch.cuda.synchronize()
+    # one forward, one backward recurrence and one dWr launch
     assert ft.LAUNCHES == {k: v + 1 for k, v in launches.items()} and ft.PLAIN_CALLS == plain
+    assert set(ft.LAUNCHES) == {"fused_gru_train_fwd", "fused_gru_train_bwd",
+                                "fused_gru_train_dwr"}
     pargs = [a.detach().clone().requires_grad_() for a in args]
     pys = ft.fused_gru_scan_plain(*pargs)
     (pys.float() * dys.float()).sum().backward()
@@ -453,29 +504,33 @@ def test_train_scan_autograd_runs_the_kernels(dev):
 
 
 def test_train_kernels_name_the_shape_they_refuse(dev):
-    """U off the 8-unit grid is refused, naming the shape; a batch past one
-    launch's shared memory (1760 rows at U = 1024) is walked in row tiles,
-    one launch each, and matches the plain version with two runs bit-equal."""
+    """U off the 8-unit grid and a plan the kernels do not take are refused,
+    naming the shape; B = 3000 runs in one launch of each kernel and matches
+    the plain version with two runs bit-equal."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     mxs, h0, wr, brec, dys = train_operands(dev, 2, 4, 100)     # U not a multiple of 8
     with pytest.raises(ValueError, match=r"\(2, 4, 100\)"):
         ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+    with pytest.raises(ValueError, match=r"\(2, 4, 100\)"):
+        ft.gru_train_bwd_cuda(mxs, mxs, h0[None].expand(2, 4, 100).contiguous(),
+                              h0[None].expand(2, 4, 100).contiguous(), h0, wr)
     with pytest.raises(ValueError, match="contiguous"):
         ft.gru_train_fwd_cuda(mxs.float(), h0, wr, brec)
-    for t, b in ((2, 1760), (1, 1761), (2, 2048), (1, 3000)):
-        mxs, h0, wr, brec, dys = train_operands(dev, t, b, 1024)
-        ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-        tiles = ft.bwd_batch_tiles(b, 1024)
-        assert len(tiles) == (1 if b <= 1760 else 2)
-        before = ft.LAUNCHES["fused_gru_train_bwd"]
-        got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
-        assert ft.LAUNCHES["fused_gru_train_bwd"] == before + len(tiles)
-        again = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
-        want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
-        torch.cuda.synchronize()
-        assert all(torch.equal(g, a) for g, a in zip(got, again))
-        assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want)), (t, b)
+    mxs, h0, wr, brec, dys = train_operands(dev, 1, 64, 1024)
+    with pytest.raises(ValueError, match=r"\(1, 64, 1024\)"):
+        ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=(32, 2))    # an empty row tile
+    mxs, h0, wr, brec, dys = train_operands(dev, 1, 3000, 1024)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    before = dict(ft.LAUNCHES)
+    got = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    assert ft.LAUNCHES["fused_gru_train_bwd"] == before["fused_gru_train_bwd"] + 1
+    assert ft.LAUNCHES["fused_gru_train_dwr"] == before["fused_gru_train_dwr"] + 1
+    again = ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+    want = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want))
 
 
 # ---- the vision kernels: flash attention, the fused layer, the fused inverted residual

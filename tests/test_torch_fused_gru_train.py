@@ -199,65 +199,108 @@ def test_empty_sequence_and_cuda_wrapper_checks():
 
 
 @pytest.mark.parametrize("u", [16, 96, 1024])
-@pytest.mark.parametrize("b", [1, 31, 32, 33, 100, 1024, 1760, 1761, 2048, 3000, 16384])
-def test_bwd_batch_tiles_cover_the_batch_in_order_and_fit(b, u):
-    tiles = ft.bwd_batch_tiles(b, u)
-    assert tiles[0][0] == 0 and tiles[-1][1] == b
-    assert all(e0 == s1 for (_, e0), (s1, _) in zip(tiles, tiles[1:]))
-    assert all(e > s and ft.bwd_smem_bytes(e - s, u) <= ft.SMEM_LIMIT for s, e in tiles)
-    if ft.bwd_smem_bytes(b, u) <= ft.SMEM_LIMIT:
-        assert tiles == [(0, b)]
-    else:   # the fewest tiles, all but the last of one size in whole 32-row steps
-        sizes = {e - s for s, e in tiles[:-1]}
-        assert len(sizes) == 1 and sizes.pop() % 32 == 0
-        assert ft.bwd_smem_bytes(-(-b // (len(tiles) - 1)), u) > ft.SMEM_LIMIT
+@pytest.mark.parametrize("b", [1, 31, 64, 1024, 1761, 3000, 16384])
+def test_train_plans_cover_the_batch_and_fit(b, u):
+    """Every plan's row tiles cover the batch with none empty, its blocks are
+    co-resident (one a multiprocessor), ``ub`` divides U and both passes fit
+    the H100's shared memory with a ring of at least two stages."""
+    plans = ft.train_plans(b, u)
+    assert plans and ft.train_plan(b, u) in plans
+    for plan in plans:
+        assert plan.ub in ft.UNIT_GROUPS and u % plan.ub == 0
+        assert plan.row_tiles * (u // plan.ub) <= ft.SMS
+        rows = ft.tile_rows(b, plan.row_tiles)
+        assert rows % 64 == 0 and rows * plan.row_tiles >= b
+        assert (plan.row_tiles - 1) * rows < b      # the last tile holds a row
+        assert rows % ft.CHUNK_ROWS == 0 or (rows == 64 and b <= 64)
+        for part in ("fwd", "bwd"):
+            stages = ft.ring_stages(part, plan.ub, u)
+            assert 2 <= stages <= ft.MAX_STAGES
+            assert ft.smem_bytes(part, plan.ub, u, stages) <= ft.SMEM_LIMIT
+            assert ft.smem_bytes(part, plan.ub, u, stages + 1) > ft.SMEM_LIMIT \
+                or stages == ft.MAX_STAGES
 
 
-def test_bwd_batch_tiles_at_the_training_width():
-    # the H100's 232,448 bytes hold the staging of 1760 rows at U = 1024
-    assert ft.bwd_smem_bytes(1760, 1024) == ft.SMEM_LIMIT
-    assert ft.bwd_batch_tiles(1024, 1024) == [(0, 1024)]
-    assert ft.bwd_batch_tiles(1760, 1024) == [(0, 1760)]
-    assert ft.bwd_batch_tiles(2048, 1024) == [(0, 1024), (1024, 2048)]
-    assert ft.bwd_batch_tiles(3000, 1024) == [(0, 1504), (1504, 3000)]
-    with pytest.raises(ValueError, match="U=4096"):
-        ft.bwd_batch_tiles(64, 4096, smem_limit=100_000)
+def test_train_plan_at_the_training_width():
+    """The Wr slice of 32 units takes 192 KB in both passes (two ring stages
+    beside it); any width the kernels took before this plan (a multiple of 8
+    up to 8 units a multiprocessor) still has a plan."""
+    assert ft.wr_bytes("fwd", 32, 1024) == ft.wr_bytes("bwd", 32, 1024) == 196608
+    assert ft.ring_stages("fwd", 32, 1024) == ft.ring_stages("bwd", 32, 1024) == 2
+    assert ft.ring_stages("fwd", 16, 1024) == ft.MAX_STAGES
+    assert [tuple(p) for p in ft.train_plans(1024, 1024)] == [
+        (8, 1), (16, 1), (16, 2), (32, 1), (32, 2), (32, 3), (32, 4)]
+    assert ft.train_plans(64, 1024) == [(8, 1), (16, 1), (32, 1)]
+    # the defaults the sweep on an H100 chose: the most blocks, then the fewest rows a block
+    assert [tuple(ft.train_plan(b, 1024)) for b in (1, 64, 256, 1024, 2048, 3000, 4096)] == [
+        (8, 1), (8, 1), (16, 2), (32, 4), (32, 4), (32, 4), (32, 4)]
+    assert all(ft.kernels_take(u) for u in range(8, 8 * ft.SMS + 1, 8))
+    assert not any(ft.kernels_take(u) for u in (4, 100, 8 * ft.SMS + 8))
+    with pytest.raises(ValueError, match=r"\(64, 100\)"):
+        ft.train_plan(64, 100)
+
+
+@pytest.mark.parametrize("plan", [(32, 2), (64, 1), (12, 1)])
+def test_train_plans_refuse_what_the_kernels_do_not_take(plan):
+    """An empty row tile at B=64, a unit group past 32, one that does not
+    divide U: none is offered, so a forced ``config`` of it is refused."""
+    assert ft.TrainPlan(*plan) not in ft.train_plans(64, 1024)
 
 
 @pytest.mark.parametrize("cd", [torch.float64, torch.float32, torch.bfloat16])
-def test_tiled_plain_backward_equals_one_call(cd):
-    """The backward over row tiles (tiles of 32 rows forced by a small
-    shared-memory limit) against one plain call over the whole batch: the
-    per-row outputs come from the same operations, the weight gradients add
-    the same terms in another order (exact up to f64 rounding at float64,
-    f32 rounding otherwise), and two tiled runs give the same bits."""
-    t, b, u = 4, 70, U
-    a = make_inputs(t, b, seed=11)
-    ops = [torch.tensor(a[k]).to(cd) for k in ("mxs", "h0", "wr")]
-    mxs, h0, wr = ops
+def test_recurrence_and_dwr_plain_equal_the_plain_backward(cd):
+    """The backward's two kernels, plain: the time loop (dmx, the plane of
+    round(da * r), dbrec, dh0) and the dWr GEMM from the stored operands
+    give the plain backward's bits."""
+    t, b = 5, 6
+    a = make_inputs(t, b, seed=3)
+    mxs, h0, wr = (torch.tensor(a[k]).to(cd) for k in ("mxs", "h0", "wr"))
     brec = torch.tensor(a["brec"]).to(ft._acc_dtype(cd))
     ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
     dys = torch.tensor(a["dys"]).to(cd)
-    limit = ft.bwd_smem_bytes(32, u)
-    tiles = ft.bwd_batch_tiles(b, u, limit)
-    assert tiles == [(0, 32), (32, 64), (64, 70)]
     whole = ft.gru_train_bwd_plain(mxs, mhs, ys, dys, h0, wr)
-    tiled = ft.bwd_tiled(ft.gru_train_bwd_plain, mxs, mhs, ys, dys, h0, wr, tiles)
-    again = ft.bwd_tiled(ft.gru_train_bwd_plain, mxs, mhs, ys, dys, h0, wr, tiles)
-    assert all(torch.equal(x, y) for x, y in zip(tiled, again))
-    rtol = 1e-12 if cd == torch.float64 else 1e-5
-    for name, got, want in zip(("dmxs", "dwr", "dbrec", "dh0"), tiled, whole):
-        assert got.dtype == want.dtype and got.shape == want.shape, name
-        if name == "dmxs" and cd == torch.bfloat16:
-            # a carry summed in another order may round dmx one bf16 step away
-            assert rel_err(got.double().numpy(), want.double().numpy()) <= 2.0 ** -7, name
-        else:
-            np.testing.assert_allclose(got.double().numpy(), want.double().numpy(),
-                                       rtol=rtol, atol=rtol * float(want.abs().max()),
-                                       err_msg=name)
-    if cd == torch.bfloat16:
-        # and the JAX kernel pair's custom VJP on the same inputs
-        _, _, jgrads = jax_run(a)
-        for got, j, name in ((tiled[0], jgrads[0], "dmxs"), (tiled[3], jgrads[1], "dh0"),
-                             (tiled[1], jgrads[2], "dwr"), (tiled[2], jgrads[3], "dbrec")):
-            assert rel_err(got.double().numpy(), j) < VJP_REL, name
+    dmxs, plane, dbrec, dh0 = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    assert plane.dtype == cd and plane.shape == (t, b, U)
+    # dmh's z and r columns are dmx's; its third column is the plane
+    dwr = ft.gru_train_dwr_plain(h0, ys, dmxs, plane)
+    for name, got, want in zip(("dmxs", "dwr", "dbrec", "dh0"), (dmxs, dwr, dbrec, dh0), whole):
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("t,b", SHAPES)
+def test_dwr_plain_equals_jax_custom_vjp(t, b):
+    """dWr from the stored [dmx[..., :2U] | plane] and [h0; ys] against the
+    JAX kernel pair's custom VJP on the same inputs."""
+    a = make_inputs(t, b)
+    _, _, jgrads = jax_run(a)
+    mxs, h0, wr = (torch.tensor(a[k]).bfloat16() for k in ("mxs", "h0", "wr"))
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, torch.tensor(a["brec"]))
+    dys = torch.tensor(a["dys"]).bfloat16()
+    dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    dwr = ft.gru_train_dwr_plain(h0, ys, dmxs, plane)
+    assert dwr.dtype == torch.float32 and dwr.shape == (U, 3 * U)
+    assert rel_err(dwr.double().numpy(), jgrads[2]) < VJP_REL
+
+
+@pytest.mark.parametrize("row_tiles", [1, 2, 3])
+@pytest.mark.parametrize("cd", [torch.float64, torch.float32, torch.bfloat16])
+def test_dbrec_over_row_tiles_in_order_equals_one_sum(cd, row_tiles):
+    """The backward sums db_rec per row tile, then over the tiles in order:
+    rows are independent recurrences, so each tile's time loop on its own
+    rows gives that tile's share, and the ordered sum equals the one sum over
+    the batch within f32 rounding (f64 rounding at float64)."""
+    t, b = 4, 70
+    a = make_inputs(t, b, seed=11)
+    mxs, h0, wr = (torch.tensor(a[k]).to(cd) for k in ("mxs", "h0", "wr"))
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, torch.tensor(a["brec"]).to(ft._acc_dtype(cd)))
+    dys = torch.tensor(a["dys"]).to(cd)
+    whole = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    rows = -(-b // row_tiles)
+    total = None
+    for s in range(0, b, rows):
+        part = ft.gru_train_bwd_rec_plain(*(x[:, s:s + rows] for x in (mxs, mhs, ys, dys)),
+                                          h0[s:s + rows], wr)
+        total = part[2] if total is None else total + part[2]
+    tol = 1e-12 if cd == torch.float64 else 1e-5
+    np.testing.assert_allclose(total.double().numpy(), whole[2].double().numpy(), rtol=tol,
+                               atol=tol * float(whole[2].abs().max()))

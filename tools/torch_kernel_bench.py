@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's qmatmul, flash attention and persistent GRU kernels on one
-NVIDIA GPU, beside the one PyTorch call that computes the same function
-where there is one.
+"""Time the port's qmatmul, flash attention, persistent GRU and GRU training
+kernels on one NVIDIA GPU, beside the one PyTorch call that computes the
+same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru,train] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -36,6 +36,21 @@ B = 512, 1024, 2048, 3072, 4096, 8192 for 64 steps, which is where
 the step switched off (the unit-owned loop's phase A, its logits phase, or
 both; the slot-owned loop's wgmma) into ``build/split_step`` and times each
 beside the unchanged source: what a part costs is the difference.
+
+The training pair (``train``) runs on seeded random operands at U=1024,
+bf16, (B, T) = (1024, 100), (64, 100) and (2048, 100): the forward and the
+backward wrapper (``call``, as chip_smoke.py measures them); beside them
+``torch.nn.GRU(256, 1024)`` on cuDNN, whose cell is the same reset-after GRU
+(gates in another order), forward and ``torch.autograd.grad`` of its output
+(it also computes the input projection, E=256, which flatters it slightly;
+fp16 where the build refuses bf16, with the same bytes and tensor-core
+rate), the kernels cuDNN ran, and ``torch.matmul`` of one step's recurrent
+product times T (the library's floor for the recurrence, information only).
+``--sweep`` times every plan the checkout's ``train_plans`` offers at B =
+64, 256, 1024, 2048, 4096, T=100, which is where ``train_plan``'s defaults
+come from; ``--split-step`` builds copies of ``csrc/gru_train.cu`` with the
+products, the forward's epilogue or the row-tile barrier off and times
+them beside the unchanged source at B=1024 and 64.
 """
 
 from __future__ import annotations
@@ -242,6 +257,108 @@ def gru_cells(sweep):
     return rows
 
 
+TRAIN_CELLS = ((1024, 100), (64, 100), (2048, 100))     # (B, T) at U=1024, bf16
+TRAIN_SWEEP_B = (64, 256, 1024, 2048, 4096)
+
+
+def _train_operands(b, t, u=1024, seed=0):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    mxs = (torch.randn((t, b, 3 * u), generator=g, device=dev) * 0.8).to(bf)
+    h0 = (torch.randn((b, u), generator=g, device=dev) * 0.3).to(bf)
+    wr = (torch.randn((u, 3 * u), generator=g, device=dev) / u ** 0.5).to(bf)
+    brec = torch.randn((3 * u,), generator=g, device=dev) * 0.2
+    dys = (torch.randn((t, b, u), generator=g, device=dev) * 0.01).to(bf)
+    return mxs, h0, wr, brec, dys
+
+
+def _device_kernels(fn, top=4):
+    """Names of the kernels one call of ``fn`` runs, by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return [k[:80] for _, k in sorted(rows, reverse=True)[:top]]
+
+
+def cudnn_gru(b, t, e=256, u=1024):
+    """``torch.nn.GRU(e, u)`` forward and backward at (B, T), bf16 or fp16."""
+    dev = torch.device("cuda")
+    err = None
+    for dt in (torch.bfloat16, torch.float16):
+        try:
+            gru = torch.nn.GRU(e, u).to(dev, dt)
+            gru.flatten_parameters()
+            g = torch.Generator(device=dev).manual_seed(b)
+            x = torch.randn((t, b, e), generator=g, device=dev).to(dt).requires_grad_()
+            h0 = (torch.randn((1, b, u), generator=g, device=dev) * 0.3).to(dt).requires_grad_()
+            dy = (torch.randn((t, b, u), generator=g, device=dev) * 0.01).to(dt)
+            leaves = [x, h0, *gru.parameters()]
+            fwd = call_ms(lambda: gru(x, h0), n=5, warmup=1)
+            out, _ = gru(x, h0)
+            bwd = call_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), n=5,
+                          warmup=1)
+            return {"cudnn_dtype": str(dt)[6:], "cudnn_fwd": fwd, "cudnn_bwd": bwd,
+                    "cudnn_version": torch.backends.cudnn.version(),
+                    "cudnn_fwd_kernels": _device_kernels(lambda: gru(x, h0)),
+                    "cudnn_bwd_kernels": _device_kernels(
+                        lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))}
+        except RuntimeError as ex:
+            err = f"{str(dt)[6:]}: {str(ex)[:200]}"
+    return {"cudnn_error": err}
+
+
+def train_cells(sweep):
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    takes_config = "config" in inspect.signature(ft.gru_train_fwd_cuda).parameters
+    rows = []
+    for b, t in TRAIN_CELLS:
+        mxs, h0, wr, brec, dys = _train_operands(b, t)
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        row = {"cell": "train", "b": b, "t": t, "u": 1024,
+               "plan": str(ft.train_plan(b, 1024)) if hasattr(ft, "train_plan") else None,
+               "fwd": call_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1),
+               "bwd": call_ms(lambda: ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr), n=5,
+                              warmup=1)}
+        if hasattr(ft, "gru_train_dwr_cuda"):     # the backward's two kernels apart
+            dmxs, plane, _, _ = ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr)
+            row["bwd_rec"] = call_ms(
+                lambda: ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr), n=5, warmup=1)
+            row["dwr"] = call_ms(lambda: ft.gru_train_dwr_cuda(h0, ys, dmxs, plane), n=5,
+                                 warmup=1)
+            del dmxs, plane
+        row.update(cudnn_gru(b, t))
+        row["matmul_step_x_t"] = call_ms(lambda: torch.matmul(h0, wr)) * t
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del mxs, h0, wr, brec, dys, ys, mhs
+    if sweep and takes_config:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for b in TRAIN_SWEEP_B:
+            t = 100
+            mxs, h0, wr, brec, dys = _train_operands(b, t, seed=b)
+            ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+            row = {"cell": "train_sweep", "b": b, "t": t,
+                   "default": str(ft.train_plan(b, 1024, sms)), "fwd": {}, "bwd": {}}
+            for plan in ft.train_plans(b, 1024, sms):
+                row["fwd"][str(plan)] = call_ms(
+                    lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=plan), n=3, warmup=1)
+                row["bwd"][str(plan)] = call_ms(
+                    lambda: ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr, config=plan), n=3,
+                    warmup=1)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del mxs, h0, wr, brec, dys, ys, mhs
+    return rows
+
+
 # (variant, the source text switched off) for --split-step; each toggle is a
 # macro the copy defines to 1
 SPLIT_STEP_TOGGLES = (
@@ -256,30 +373,48 @@ SPLIT_STEP_CELLS = (
 )
 
 
-def split_step_cells():
+# the training kernels' parts for --split-step
+TRAIN_SPLIT_TOGGLES = (
+    ("SKIP_MMA", "              wgmma<N>(d, desc_k(", "              if (!SKIP_MMA) wgmma<N>(d, desc_k("),
+    ("SKIP_MMA", "              wgmma<UB>(d, desc_k(", "              if (!SKIP_MMA) wgmma<UB>(d, desc_k("),
+    ("SKIP_EPI", "        if (!active) continue;\n#pragma unroll\n        for (int hf = 0; hf < 2; ++hf) {\n"
+                 "          const int row = rb + 8 * hf;\n          if (row >= row_end) continue;\n"
+                 "          uint32_t mhv",
+     "        if (!active || SKIP_EPI) continue;\n#pragma unroll\n        for (int hf = 0; hf < 2; ++hf) {\n"
+     "          const int row = rb + 8 * hf;\n          if (row >= row_end) continue;\n"
+     "          uint32_t mhv"),
+    ("SKIP_BAR", "    if (t > 0 && tid == 0) tile_wait(", "    if (!SKIP_BAR && t > 0 && tid == 0) tile_wait("),
+    ("SKIP_BAR", "      tile_wait(a.ctr + r, (unsigned)(NG * (T - t)));",
+     "      if (!SKIP_BAR) tile_wait(a.ctr + r, (unsigned)(NG * (T - t)));"),
+)
+TRAIN_SPLIT_CELLS = ((1024, (32, 4)), (64, (8, 1)))
+TRAIN_SPLIT_VARIANTS = ("", "SKIP_MMA", "SKIP_EPI", "SKIP_BAR")
+
+
+def _toggled_libs(name, toggles, variants):
+    """Build copies of ``csrc/<name>.cu`` into ``build/split_step``, one per
+    variant (a space-separated set of toggle macros defined to 1), all
+    started together; returns the loaded libraries by variant."""
     import ctypes
 
     from ggml_experiments_tpu_torch import _build
-    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
-    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fd
 
-    src = open(os.path.join(_build.CSRC, "gru_persistent.cu")).read()
-    for name, old, new in SPLIT_STEP_TOGGLES:
+    src = open(os.path.join(_build.CSRC, f"{name}.cu")).read()
+    for macro, old, new in toggles:
         if src.count(old) != 1:
-            raise RuntimeError(f"--split-step: the source no longer has one {old!r}")
+            raise RuntimeError(f"--split-step: csrc/{name}.cu no longer has one {old!r}")
         src = src.replace(old, new)
-        src = f"#ifndef {name}\n#define {name} 0\n#endif\n" + src
+        src = f"#ifndef {macro}\n#define {macro} 0\n#endif\n" + src
     out_dir = os.path.join(_build.build_dir(), "split_step")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "gru_persistent.cu")
+    path = os.path.join(out_dir, f"{name}.cu")
     with open(path, "w") as f:
         f.write(src.replace('#include "mma_common.cuh"',
                             f'#include "{os.path.join(_build.CSRC, "mma_common.cuh")}"'))
-    variants = sorted({v for cell in SPLIT_STEP_CELLS for v in cell[4]})
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     jobs = {}
     for v in variants:
-        lib = os.path.join(out_dir, f"lib_{v.replace(' ', '_') or 'base'}.so")
+        lib = os.path.join(out_dir, f"lib_{name}_{v.replace(' ', '_') or 'base'}.so")
         cmd = [_build._nvcc(), *flags, *(f"-D{m}=1" for m in v.split()), "-o", lib, path]
         jobs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True), lib)
@@ -291,6 +426,16 @@ def split_step_cells():
         libs[v] = ctypes.CDLL(lib)
         libs[v].gxt_error_string.restype = ctypes.c_char_p
         libs[v].gxt_error_string.argtypes = [ctypes.c_int]
+    return libs
+
+
+def split_step_cells():
+    from ggml_experiments_tpu_torch import _build
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fd
+
+    libs = _toggled_libs("gru_persistent", SPLIT_STEP_TOGGLES,
+                         sorted({v for cell in SPLIT_STEP_CELLS for v in cell[4]}))
     w = fd._prep_weights(load_gru_params(CKPT, qtype="q8_0", device="cuda"))
     rows = []
     try:
@@ -309,13 +454,45 @@ def split_step_cells():
     return rows
 
 
+def train_split_cells():
+    """The training forward and backward recurrence with one part off (the
+    products, the forward's epilogue, the row-tile barrier), T=100, beside
+    the unchanged source, in turns: what a part costs is the difference."""
+    from ggml_experiments_tpu_torch import _build
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    libs = _toggled_libs("gru_train", TRAIN_SPLIT_TOGGLES, TRAIN_SPLIT_VARIANTS)
+    rows = []
+    try:
+        for b, plan in TRAIN_SPLIT_CELLS:
+            mxs, h0, wr, brec, dys = _train_operands(b, 100)
+            ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=plan)
+            row = {"cell": "split_step_train", "b": b, "t": 100, "plan": plan, "fwd": {},
+                   "bwd_rec": {}}
+            for v in TRAIN_SPLIT_VARIANTS + ("",):
+                _build._LIBS["gru_train"] = libs[v]
+                key = v or "all on"
+                row["fwd"].setdefault(key, []).append(call_ms(
+                    lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=plan), n=5, warmup=1))
+                row["bwd_rec"].setdefault(key, []).append(call_ms(
+                    lambda: ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=plan),
+                    n=5, warmup=1))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del mxs, h0, wr, brec, dys, ys, mhs
+    finally:
+        _build._LIBS.pop("gru_train", None)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split-step", action="store_true",
-                    help="time copies of the persistent kernel with parts of the step off")
-    ap.add_argument("--only", default="qmatmul,flash,gru",
-                    help="comma-separated kernels to time (qmatmul, flash, gru)")
+                    help="time copies of the persistent (gru) and training (train) kernels "
+                         "with parts of the step off")
+    ap.add_argument("--only", default="qmatmul,flash,gru,train",
+                    help="comma-separated kernels to time (qmatmul, flash, gru, train)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -335,8 +512,12 @@ def main() -> int:
         res["flash"] = flash_cells()
     if "gru" in only:
         res["gru"] = gru_cells(args.sweep)
-    if args.split_step:
+    if "train" in only:
+        res["train"] = train_cells(args.sweep)
+    if args.split_step and "gru" in only:
         res["split_step"] = split_step_cells()
+    if args.split_step and "train" in only:
+        res["split_step_train"] = train_split_cells()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
