@@ -73,17 +73,23 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      weights: the fused transformer layer (``csrc/transformer_layer.cu``) at
      (bp, L, C) = (512, 256, 144), (512, 64, 192), (512, 16, 240), each stage's
      first layer with its input projection, its middle layers and its last
-     layer with the final LN and the conv_projection (BN, SiLU); flash
+     layer with the final LN and the conv_projection (BN, SiLU), whole and
+     kernel by kernel (ln_qkv, attention, proj_ffn, each on its plain
+     version's inputs, two launches bit-equal), beside
+     ``nn.TransformerEncoderLayer`` and ``scaled_dot_product_attention``; flash
      attention (``csrc/flash_attention.cu``) at the same shapes in f32 and
      bf16 (two launches bit-equal), beside ``scaled_dot_product_attention``;
      the fused inverted
      residual (``csrc/inverted_residual.cu``) at (128, 64, 64, 64), E=256,
-     with the residual;
+     with the residual; the fused layer's per-sequence kernel
+     (``csrc/transformer_layer_seq.cu``, its route past the row-tile kernels)
+     at C=320 and at L=640, every flag on;
  14. MobileViT through the entry points on
      ``checkpoints/mobilevit_synth_full.ggml`` (256 px, hidden 144/192/240,
      2/4/3 layers, 44 labels): ``classify`` of 320 held-out images of the
      full-size task (``make_dataset``, task rev 4) in batches of 128 at f32
-     (flash, 9 launches a batch), bf16 (fused layer, 9 a batch) and bf16 with
+     (flash, 9 launches a batch), bf16 (fused layer and each of its three
+     kernels, 9 a batch) and bf16 with
      ``fused_ir`` (and the inverted residual, 2 a batch), top-1 against the
      labels and argmax agreement with f32; the card's f32 features of the
      first 32 images against the plain CPU run; the calibrated
@@ -217,6 +223,8 @@ VIT_CANCEL_EVERY = 23
 # bf16 rounding fails: see the docstring)
 VIT_BF16_MAX = {"layer": 0.05, "flash": 2 ** -6, "ir": 2 ** -6}
 VIT_BF16_MEAN_FRAC = {"layer": 0.15, "flash": 0.1, "ir": 0.01}
+# (bp, L, C, H, F) of the per-sequence layer kernel's check in phase 13
+SEQ_LAYER_SHAPES = ((128, 16, 320, 5, 640), (16, 640, 64, 2, 128))
 VIT_F32_REL = 1e-5                 # flash at f32 against its plain version
 VIT_CPU_FEATURE_REL = 1e-4         # card f32 features against the CPU plain run
 VIT_NEAR_TIE = 0.1                 # bf16 logit gap under which an argmax may flip
@@ -1145,12 +1153,21 @@ def train_phase(tag, dev, tok, kernel_ms):
 
 
 
+LAYER_KERNELS = ("transformer_ln_qkv", "transformer_attention", "transformer_proj_ffn")
+
+
 def vision_kernel_phase(tag, params, dev):
     """Phase 13: each vision kernel against its plain version on the card at
     the shapes the main path gives it for B=128 images, with the kernel's,
-    the plain version's and (flash) the library call's times and the bound.
-    Returns {name: kernels-line readings}: a forward's worth of launches
-    summed (2 + 4 + 3 layers), errors the largest over the shapes."""
+    the plain version's and the library call's times and the bound. The
+    fused layer is held whole and kernel by kernel (ln_qkv, attention,
+    proj_ffn, each on its plain version's inputs, launched twice: bit-equal).
+    Its library call is ``nn.TransformerEncoderLayer(C, H, F, SiLU,
+    norm_first)`` in bf16 and eval mode, which has no input or output
+    projection; the attention kernel's is ``scaled_dot_product_attention``
+    (scale 1: q arrives scaled). Returns {name: kernels-line readings}: a
+    forward's worth of launches summed (2 + 4 + 3 layers), errors the largest
+    over the shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -1161,8 +1178,20 @@ def vision_kernel_phase(tag, params, dev):
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(13)
     tot = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_t=[0.0, 0.0],
-                   library_ms=None) for k in ("fused_transformer_layer", "flash_mha")}
-    tot["flash_mha"]["library_ms"] = 0.0
+                   library_ms=None)
+           for k in ("fused_transformer_layer", "flash_mha") + LAYER_KERNELS}
+    for k in ("flash_mha", "fused_transformer_layer", "transformer_attention"):
+        tot[k]["library_ms"] = 0.0
+
+    def add(name, count, err, ms, plain_ms, nbytes, flops, lib_ms=None):
+        t = tot[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["ms"] += count * ms
+        t["plain_ms"] += count * plain_ms
+        t["bound_t"][0] += count * nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_t"][1] += count * flops / PEAK_OPS["bfloat16"] * 1e3
+        if lib_ms is not None:
+            t["library_ms"] += count * lib_ms
 
     def bf16_check(what, key, got, want, want32):
         d = (got.float() - want.float()).abs()
@@ -1192,6 +1221,15 @@ def vision_kernel_phase(tag, params, dev):
                                      output_proj=(pk.reshape(c, -1), blk.conv_projection.bn.scale,
                                                   blk.conv_projection.bn.bias,
                                                   blk.conv_projection.activation)))]
+        h = blk.transformer[0].attention.num_heads
+        f = blk.transformer[0].intermediate_kernel.shape[-1]
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True, device=dev,
+                                               dtype=bf16).eval()
+        xl = torch.randn((bp, l, c), generator=g, device=dev).to(bf16)
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: lib(xl), n=10)
+        del lib, xl
         for name, count, kw in variants:
             if count <= 0:
                 continue
@@ -1210,29 +1248,78 @@ def vision_kernel_phase(tag, params, dev):
             del want
             ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=10)
             plain_ms = cuda_ms(lambda: ftl.fused_transformer_layer_plain(x, ops), n=2, warmup=1)
-            f = ops.wi.shape[1]
             cout = got.shape[-1]
+            wbytes = {k: t.numel() * t.element_size() for k, t in (
+                ("win", ops.win), ("qkv", ops.wq), ("wo", ops.wo), ("ffn", ops.wi),
+                ("wout", ops.wout)) if t is not None}
+            t_rows = bp * l
             flops = bp * (4 * l * l * c + 8 * l * c * c + 4 * l * c * f
                           + (2 * l * width * c if "input_proj" in kw else 0)
                           + (2 * l * c * cout if "output_proj" in kw else 0))
-            nbytes = bp * l * (width + cout) * 2 + sum(
-                t.numel() * t.element_size() for t in (ops.wq, ops.wk, ops.wv, ops.wo, ops.wi,
-                                                      ops.wo2, ops.win, ops.wout) if t is not None)
+            nbytes = t_rows * (width + cout) * 2 + wbytes.get("win", 0) + 3 * wbytes["qkv"] + (
+                wbytes["wo"] + 2 * wbytes["ffn"] + wbytes.get("wout", 0))
             b_ms, b_by = bound(nbytes, flops, "bfloat16")
-            t = tot["fused_transformer_layer"]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-            t["ms"] += count * ms
-            t["plain_ms"] += count * plain_ms
-            t["bound_t"][0] += count * nbytes / HBM_BYTES_PER_S * 1e3
-            t["bound_t"][1] += count * flops / PEAK_OPS["bfloat16"] * 1e3
+            add("fused_transformer_layer", count, err, ms, plain_ms, nbytes, flops, lib_ms)
             log(f"[{tag}] fused layer {name} x{count}, (bp, L, Cin, C, Cout) = ({bp}, {l}, "
                 f"{width}, {c}, {cout}) bf16: max abs err {err:.3g} (largest value {scale:.3g}), "
                 f"mean {mean:.3g} (plain f32 vs "
                 f"bf16: {gap:.3g}) | kernel {ms:.4f} ms | plain {plain_ms:.3f} ms | bound "
-                f"{b_ms:.4f} ms ({b_by}) | library: none")
+                f"{b_ms:.4f} ms ({b_by}) | nn.TransformerEncoderLayer (no projections) "
+                f"{lib_ms:.4f} ms")
             del got, x
+
+            # the three kernels, each on its plain version's inputs. Their bounds
+            # count what the layer needs: q, k and v at the head width dh (the
+            # kernels' array pads heads to dhp with zero columns), and x.Win once,
+            # in ln_qkv (proj_ffn computes it again: the split's own cost)
+            dh = c // h
+            dhp = ftl.head_pad(dh)
+            x2 = torch.randn((t_rows, width), generator=g, device=dev).to(bf16)
+            want_qkv = ftl.ln_qkv_plain(x2, ops)
+            want_ctx = ftl.attention_plain(want_qkv, l, ops)
+            heads = [want_qkv.reshape(bp, l, 3, h, dhp)[:, :, j, :, :dh].transpose(1, 2)
+                     .contiguous() for j in range(3)]
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), n=10)
+            del heads
+            qkv_bytes = t_rows * 3 * c * 2
+            cases = (
+                ("transformer_ln_qkv", lambda: ftl.ln_qkv_cuda(x2, ops, l),
+                 lambda: ftl.ln_qkv_plain(x2, ops),
+                 lambda: ftl.ln_qkv_plain(x2.float(), ops32),
+                 t_rows * width * 2 + qkv_bytes + wbytes.get("win", 0) + 3 * wbytes["qkv"],
+                 2 * t_rows * (3 * c * c + (width * c if "input_proj" in kw else 0)), None),
+                ("transformer_attention", lambda: ftl.attention_cuda(want_qkv, l, ops),
+                 lambda: ftl.attention_plain(want_qkv, l, ops),
+                 lambda: ftl.attention_plain(want_qkv.float(), l, ops32),
+                 qkv_bytes + t_rows * c * 2, 4 * t_rows * l * c, sdpa_ms),
+                ("transformer_proj_ffn", lambda: ftl.proj_ffn_cuda(x2, want_ctx, ops, l),
+                 lambda: ftl.proj_ffn_plain(x2, want_ctx, ops),
+                 lambda: ftl.proj_ffn_plain(x2.float(), want_ctx.float(), ops32),
+                 t_rows * (width + c + cout) * 2 + wbytes.get("win", 0) + wbytes["wo"]
+                 + 2 * wbytes["ffn"] + wbytes.get("wout", 0),
+                 2 * t_rows * (c * c + 2 * c * f + (c * cout if "output_proj" in kw else 0)),
+                 None))
+            parts = []
+            for kname, kernel, plain, plain32, kbytes, kflops, klib in cases:
+                kgot, again = kernel(), kernel()
+                torch.cuda.synchronize()
+                check(torch.equal(kgot, again), f"{tag}: {kname} {name} (bp, L, C) = ({bp}, {l}, "
+                                                f"{c}): two launches on the same inputs differ")
+                kerr, kmean, kgap, _ = bf16_check(
+                    f"{tag}: {kname} {name} (bp, L, C) = ({bp}, {l}, {c})", "layer", kgot,
+                    plain(), plain32())
+                del kgot, again
+                kms = cuda_ms(kernel, n=10)
+                kplain = cuda_ms(plain, n=2, warmup=1)
+                add(kname, count, kerr, kms, kplain, kbytes, kflops, klib)
+                kb_ms, kb_by = bound(kbytes, kflops, "bfloat16")
+                parts.append(f"{kname[12:]} {kms:.4f} ms (bound {kb_ms:.4f}, {kb_by}; err "
+                             f"{kerr:.3g}, mean {kmean:.3g} of {kgap:.3g})")
+            log(f"[{tag}]   its kernels on their plain versions' inputs, each launched twice "
+                f"(bit-equal): " + " | ".join(parts) + f" | scaled_dot_product_attention "
+                f"{sdpa_ms:.4f} ms")
+            del x2, want_qkv, want_ctx
         # kernel 7 at the same (bp, L, C): f32 (the main path) and bf16
-        h = blk.transformer[0].attention.num_heads
         qkv = [torch.randn((bp, l, c), generator=g, device=dev) for _ in range(3)]
         got = fa.flash_mha_cuda(*qkv, h)
         again = fa.flash_mha_cuda(*qkv, h)
@@ -1277,6 +1364,37 @@ def vision_kernel_phase(tag, params, dev):
             f"max abs err {err16:.3g}, mean {mean16:.3g} (plain f32 vs bf16: {gap16:.3g}), "
             f"kernel {ms16:.4f} ms")
         del got, want, qkv, q16, g16, w16, heads
+    # the per-sequence kernel (csrc/transformer_layer_seq.cu), the fused layer's
+    # route where the row-tile kernels do not take a layer (C past 288, L past
+    # 576; no model of the repo has one): every flag on, two launches bit-equal
+    for bp, l, c, h, f in SEQ_LAYER_SHAPES:
+        def r(*shape, off=0.0):
+            return torch.randn(shape, generator=g, device=dev) * 0.2 + off
+
+        cin, cout = c // 2, c // 2 + 8
+        ops = ftl.LayerOperands(
+            wq=r(c, c).to(bf16), wk=r(c, c).to(bf16), wv=r(c, c).to(bf16), wo=r(c, c).to(bf16),
+            wi=r(c, f).to(bf16), wo2=r(f, c).to(bf16), ln1=(r(c, off=1.0), r(c)), bq=r(c),
+            bk=r(c), bv=r(c), bo=r(c), ln2=(r(c, off=1.0), r(c)), bi=r(f), bo2=r(c),
+            num_heads=h, eps=1e-5, final_ln=(r(c, off=1.0), r(c)), win=r(cin, c).to(bf16),
+            wout=r(c, cout).to(bf16), out_affine=(r(cout, off=1.0), r(cout)), out_act=True)
+        x = torch.randn((bp, l, cin), generator=g, device=dev).to(bf16)
+        before = ftl.LAUNCHES["transformer_sequence"]
+        got, again = ftl.fused_layer_cuda(x, ops), ftl.fused_layer_cuda(x, ops)
+        torch.cuda.synchronize()
+        check(ftl.LAUNCHES["transformer_sequence"] == before + 2 and torch.equal(got, again),
+              f"{tag}: per-sequence layer (bp, L, C) = ({bp}, {l}, {c}): not launched twice, "
+              f"or two launches differ")
+        err, mean, gap, scale = bf16_check(
+            f"{tag}: per-sequence layer (bp, L, C) = ({bp}, {l}, {c})", "layer", got,
+            ftl.fused_transformer_layer_plain(x, ops), ftl.fused_transformer_layer_plain(
+                x.float(), ops))
+        ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=5)
+        log(f"[{tag}] per-sequence layer (bp, L, Cin, C, H, F, Cout) = ({bp}, {l}, {cin}, {c}, "
+            f"{h}, {f}, {cout}), every flag: max abs err {err:.3g} (largest value "
+            f"{scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: {gap:.3g}), two launches "
+            f"bit-equal | kernel {ms:.4f} ms")
+        del got, again, x, ops
     for t in tot.values():
         t["bound_ms"] = max(t["bound_t"])
         t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"
@@ -1366,9 +1484,9 @@ def vision_model_phase(tag, dev, images, labels):
         return out.cpu(), launches, sec
 
     logits = {}
-    runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, {"fused_transformer_layer": 9}),
-            ("bf16+fused_ir", p_ir, bf16, {"fused_transformer_layer": 9,
-                                           "fused_inverted_residual": 2}))
+    layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
+    runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, layer),
+            ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": 2}))
     main_launches = {}
     for name, params, cd, per_batch in runs:
         out, launches, sec = run(params, cd, name)
@@ -1439,15 +1557,19 @@ def vision_model_phase(tag, dev, images, labels):
         extract_features(p, xb, compute_dtype=bf16)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"fused layer kernel": 0.0, "convolutions": 0.0, "other device work": 0.0}
+    groups = {"fused layer: ln_qkv": 0.0, "attention": 0.0, "proj_ffn": 0.0, "convolutions": 0.0,
+              "other device work": 0.0}
     other = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = getattr(e, "self_device_time_total", 0.0) / 1e3
         key = e.key.lower()
-        if "layer_kernel" in key:
-            groups["fused layer kernel"] += ms
+        part = next((k for k, w in (("fused layer: ln_qkv", "layer_ln_qkv_kernel"),
+                                    ("attention", "layer_attention_kernel"),
+                                    ("proj_ffn", "layer_proj_ffn_kernel")) if w in key), None)
+        if part:
+            groups[part] += ms
         elif any(w in key for w in ("conv", "cudnn", "xmma", "implicit", "winograd", "nhwc",
                                     "fprop")):
             groups["convolutions"] += ms
@@ -1837,7 +1959,8 @@ def main() -> int:
     log(f"[14 mobilevit] {VIT_IMAGES} held-out images (256 px, task rev 4) made in "
         f"{time.perf_counter() - t0:.1f} s")
     vit_launches, vit = vision_model_phase("14 mobilevit", dev, images, labels)
-    for name in ("fused_transformer_layer", "flash_mha", "fused_inverted_residual"):
+    for name in ("fused_transformer_layer", *LAYER_KERNELS, "flash_mha",
+                 "fused_inverted_residual"):
         kernels[name] = dict(vision[name], launches=vit_launches[name])
 
     # ---- 15. the vision engine ---------------------------------------------------------
@@ -1861,8 +1984,9 @@ def main() -> int:
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
     meta["fused_gru_train_dwr"] = (src + "gru_train.cu",
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
-    meta["fused_transformer_layer"] = (src + "transformer_layer.cu",
-                                       "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
+    for name in ("fused_transformer_layer",) + LAYER_KERNELS:
+        meta[name] = (src + "transformer_layer.cu",
+                      "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
     meta["flash_mha"] = (src + "flash_attention.cu",
                          "ggml_experiments_tpu/ops/flash_attention.py:104")
     meta["fused_inverted_residual"] = (src + "inverted_residual.cu",

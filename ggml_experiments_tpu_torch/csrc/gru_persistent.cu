@@ -91,6 +91,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -139,6 +140,19 @@ using gxt::cp_async16;
 using gxt::cp_async_commit;
 using gxt::cp_async_wait;
 using gxt::mma_bf16;
+using gxt::bulk_load;
+using gxt::desc_k;
+using gxt::fence_async_smem;
+using gxt::mbar_arrive;
+using gxt::mbar_expect;
+using gxt::mbar_init;
+using gxt::mbar_init_fence;
+using gxt::mbar_wait;
+using gxt::smem_u32;
+using gxt::wg_commit;
+using gxt::wg_fence;
+using gxt::wg_pin;
+using gxt::wg_wait;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -478,16 +492,9 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(Args a) {
 // the 128-byte swizzle that wgmma and ldmatrix read (16-byte chunk c of row
 // r at chunk c ^ (r % 8)), so one bulk copy (TMA) fills a ring buffer.
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma shared-memory operand: K-major, 128-byte swizzle, 8-row groups 1024
 // bytes apart; the K step of 16 moves the start address by 32 bytes
-__device__ __forceinline__ uint64_t wg_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
+__device__ __forceinline__ uint64_t wg_desc(const void* p) { return desc_k(smem_u32(p)); }
 
 // d (64 x 96, f32, the warpgroup's fragment) += a (64 x 16) . b (16 x 96);
 // scale_d == 0 overwrites d instead
@@ -513,51 +520,10 @@ __device__ __forceinline__ void wgmma_m64n96(float (&d)[48], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
 __device__ __forceinline__ void wg_wait_all(float (&d)[48]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  // the accumulators are final only now: keep their reads below the wait
-#pragma unroll
-  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  wg_wait<0>();
+  wg_pin(d);
 }
-// generic-proxy writes of shared memory (cp.async, st.shared) become visible
-// to the async proxy (wgmma operand reads, bulk copies into the buffer)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-// this thread's arrival on `bar`, which is to see `bytes` more land before
-// its phase completes
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// one bulk copy (TMA) of `bytes` contiguous bytes into shared memory,
-// completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // the logits of a slot-owned block live in the ring buffer its last head
 // tile left free when they fit there, else in a region of their own
 __host__ __device__ inline bool slot_lg_in_ring(int V) {
@@ -579,10 +545,6 @@ constexpr int kSlotThreads = kThreads + 32;
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 template <int NST>
@@ -637,7 +599,7 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
       mbar_init(full + q, 1);
       mbar_init(empty + q, 1);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   if (warp < kWarps) load_h();
   __syncthreads();  // the barriers exist before any copy or arrival reaches them

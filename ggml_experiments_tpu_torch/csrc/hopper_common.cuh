@@ -1,0 +1,126 @@
+// Hopper helpers shared by the kernels that run on wgmma and TMA
+// (gru_persistent.cu, gru_train.cu, transformer_layer.cu): shared-memory
+// addresses and the 128-byte swizzle, wgmma operand descriptors and the
+// wgmma fence / commit / wait, mbarriers, bulk copies, and the driver's
+// tensor-map encoder.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gxt {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the swizzle is a function of address bits 7-9: buffers start on 1024 bytes
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// byte offset of (row, k) in a 128-byte-swizzled tile of 64-wide bf16 rows:
+// the layout a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + (k & 7) * 2;
+}
+
+// wgmma shared-memory operands, 128-byte swizzle. K-major: 8-row groups 1024
+// bytes apart, the K step of 16 moves the start by 32 bytes. MN-major with a
+// 64-wide MN extent (one swizzle atom): 8-row K groups 1024 bytes apart, the
+// K step of 16 moves the start by 2048 bytes; both offset fields carry 1024,
+// the only stride such an operand has.
+__device__ __forceinline__ uint64_t desc_k(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are final only after the wait: keep their reads below it
+template <int R>
+__device__ __forceinline__ void wg_pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// generic-proxy writes of shared memory (st.shared, cp.async) become visible
+// to the async proxy (wgmma operand reads, bulk copies into the buffer)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// the block's barrier initialisations, visible to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// this thread's arrival on `bar`, which is to see `bytes` more land before
+// its phase completes
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one bulk copy (TMA) of `bytes` contiguous bytes into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled from the driver entry point (the runtime library
+// does not export it); null if the driver does not offer it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+}  // namespace gxt

@@ -1,10 +1,10 @@
-"""A whole pre-LN ViT encoder layer in one launch: ``csrc/transformer_layer.cu``
-and its plain PyTorch version.
+"""A whole pre-LN ViT encoder layer: ``csrc/transformer_layer.cu`` (three
+kernels) and its plain PyTorch versions.
 
 Replaces the TPU kernel ``ops/fused_transformer_layer.py``
 ``_fused_layer_call`` of the JAX package (body ``_layer_kernel``). Per
-sequence of L tokens, with C channels, H heads of width C / H and an FFN of
-width F, in this order (f32 sums everywhere; "-> cd" rounds to the compute
+sequence of L tokens, with C channels, H heads of width dh = C / H and an FFN
+of width F, in this order (f32 sums everywhere; "-> cd" rounds to the compute
 dtype, bf16 on the model's path):
 
  1. ``xf = x`` in f32, or ``xf = x . Win`` with ``input_proj`` (kept in f32,
@@ -25,9 +25,19 @@ dtype, bf16 on the model's path):
 12. ``o -> cd``.
 
 LN statistics are f32 (mean, then mean squared deviation). Quantized
-weights are dequantized outside the kernel, as the JAX package does. On a CPU
-tensor :func:`fused_transformer_layer` runs :func:`fused_transformer_layer_plain`; on a
-CUDA tensor it launches the kernel (bf16 only) or raises.
+weights are dequantized outside the kernel, as the JAX package does.
+
+On the card the layer is three launches, each with its plain version here:
+``ln_qkv`` (steps 1-3; q, k and v as one (T, 3 H dhp) array, T = bp L rows,
+heads padded to dhp = dh rounded up to 16 with zero columns),
+``attention`` (steps 4-5; ctx (T, C)) and ``proj_ffn`` (steps 1 again and
+6-12). Chained, the three plain versions give
+:func:`fused_transformer_layer_plain`'s bits. A layer those row-tile kernels
+do not take (C past 288, L past 576, an x tile past shared memory) runs on
+the per-sequence kernel of ``csrc/transformer_layer_seq.cu``, one launch
+whose plain version is :func:`fused_transformer_layer_plain`. On a CPU tensor
+:func:`fused_transformer_layer` runs :func:`fused_transformer_layer_plain`; on
+a CUDA tensor it launches the kernels (bf16 only) or raises.
 """
 
 from __future__ import annotations
@@ -44,8 +54,10 @@ from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.norm import layer_norm
 from ggml_experiments_tpu_torch.quant.qtensor import QTensor, dequantize
 
-# launches of the CUDA kernel; only the kernel wrapper adds to it
-LAUNCHES = {"fused_transformer_layer": 0}
+# launches: the layer (three row-tile kernels a call, or the per-sequence
+# kernel) and each kernel; only the kernel wrappers add to them
+LAUNCHES = {"fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
+            "transformer_proj_ffn": 0, "transformer_sequence": 0}
 
 
 @dataclasses.dataclass
@@ -161,9 +173,417 @@ def fused_transformer_layer_plain(x3: torch.Tensor, ops: LayerOperands) -> torch
     return o.to(cd).reshape(bp, l, -1)
 
 
+def head_pad(dh: int) -> int:
+    """dhp: a head's width in the q/k/v array, dh rounded up to 16."""
+    return -(-dh // 16) * 16
+
+
+def _dims(ops: LayerOperands):
+    c = ops.wq.shape[0]
+    h = ops.num_heads
+    return c, h, c // h, head_pad(c // h)
+
+
+def ln_qkv_plain(x2: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+    """Steps 1-3 on x2 (T, Cin) in the compute dtype: (T, 3 H dhp) in that
+    dtype, [q | k | v] with each head's dh columns followed by zeros."""
+    cd = x2.dtype
+    c, h, dh, dhp = _dims(ops)
+
+    def dot(a, w):
+        return torch.matmul(a.float(), w.float())
+
+    xf = dot(x2, ops.win) if ops.win is not None else x2.float()
+    a = layer_norm(xf, *ops.ln1, eps=ops.eps).to(cd)
+    q = ((dot(a, ops.wq) + ops.bq) * (1.0 / math.sqrt(dh))).to(cd)
+    k = (dot(a, ops.wk) + ops.bk).to(cd)
+    v = (dot(a, ops.wv) + ops.bv).to(cd)
+    qkv = torch.zeros((x2.shape[0], 3, h, dhp), dtype=cd, device=x2.device)
+    for i, t in enumerate((q, k, v)):
+        qkv[:, i, :, :dh] = t.reshape(-1, h, dh)
+    return qkv.reshape(x2.shape[0], 3 * h * dhp)
+
+
+def attention_plain(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
+    """Steps 4-5 on :func:`ln_qkv_plain`'s array of bp sequences of l
+    tokens: ctx (T, C) in its dtype."""
+    cd = qkv.dtype
+    c, h, dh, dhp = _dims(ops)
+    bp = qkv.shape[0] // l
+    t = qkv.reshape(bp, l, 3, h, dhp)[..., :dh]
+    qh, kh, vh = (t[:, :, i].contiguous().float() for i in range(3))
+    s = torch.einsum("blhd,bmhd->bhlm", qh, kh).to(cd)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.float().sum(dim=-1)
+    ctx = torch.einsum("bhlm,bmhd->blhd", p.float(), vh)
+    return (ctx * (1.0 / denom).permute(0, 2, 1)[..., None]).reshape(bp * l, c).to(cd)
+
+
+def proj_ffn_plain(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+    """Steps 1 and 6-12 on x2 (T, Cin) and ctx (T, C) in the compute dtype:
+    (T, Cout) in that dtype."""
+    cd = x2.dtype
+
+    def dot(a, w):
+        return torch.matmul(a.float(), w.float())
+
+    xf = dot(x2, ops.win) if ops.win is not None else x2.float()
+    x1 = xf + dot(ctx, ops.wo) + ops.bo
+    y = layer_norm(x1, *ops.ln2, eps=ops.eps).to(cd)
+    h1 = dot(y, ops.wi) + ops.bi
+    h1 = silu(h1).to(cd)
+    o = x1 + dot(h1, ops.wo2) + ops.bo2
+    if ops.final_ln is not None:
+        o = layer_norm(o, *ops.final_ln, eps=ops.final_eps)
+    if ops.wout is not None:
+        o = dot(o.to(cd), ops.wout) * ops.out_affine[0] + ops.out_affine[1]
+        if ops.out_act:
+            o = silu(o)
+    return o.to(cd)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
+
+# The layout of the row-tile kernels' weight streams is decided here, once,
+# and handed to the kernels (``_Args`` nw, ks, pipe), which check that they
+# can consume it: weight tiles of nw = C rounded up to _CHUNK rows (the
+# kernels' wgmma width, csrc kChunk), K in chunks of 16 ks columns
+# (:func:`k_steps`), and the FFN's order (:func:`ffn_pipelined`).
+_CHUNK = 48
+
+
+def swizzle_tiles(t: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) bf16 -> the same tiles in the 128-byte swizzle that TMA
+    writes and ``wgmma`` reads: row r's 16-byte group j moves to j ^ (r % 8)."""
+    rows = t.shape[-2]
+    idx = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(rows, device=t.device) % 8)[:, None]
+    g = t.reshape(*t.shape[:-1], 8, 8)
+    return torch.gather(g, -2, idx[..., None].expand(g.shape)).reshape(t.shape)
+
+
+def k_tiles(wt: torch.Tensor, rows: int, kw: int = 64) -> torch.Tensor:
+    """A product's B operand wt (N, K), K-major, as swizzled (rows, 64) tiles,
+    one per kw-wide chunk of K (kw 48 or 64, the rest of a row zero):
+    (ceil(K / kw), rows, 64) bf16, zero-padded."""
+    n, k = wt.shape
+    kc = -(-k // kw)
+    out = torch.zeros((rows, kc, 64), dtype=torch.bfloat16, device=wt.device)
+    full = torch.zeros((rows, kc * kw), dtype=torch.bfloat16, device=wt.device)
+    full[:n, :k] = wt
+    out[:, :, :kw] = full.reshape(rows, kc, kw)
+    return swizzle_tiles(out.permute(1, 0, 2))
+
+
+def ffn_pipelined(c: int) -> bool:
+    """Whether proj_ffn overlaps an FFN chunk's SiLU with the next chunk's
+    product: where C <= 144 leaves the registers for two chunks' sums. The
+    order of its weight stream follows (the kernel's ``pipe``)."""
+    return -(-c // _CHUNK) <= 3
+
+
+def k_steps(c: int, cin: int, in_proj: bool) -> int:
+    """16-deep steps in a K chunk of the row-tile kernels (3 or 4): the one
+    that pads C (and Cin with the input projection) the least, 4 on a tie."""
+    def pad(kw):
+        return -(-c // kw) * kw + (-(-cin // kw) * kw if in_proj else 0)
+
+    return 3 if pad(48) < pad(64) else 4
+
+
+def _stream(tiles, sb: int) -> torch.Tensor:
+    """Tiles in the order a kernel consumes them, each in an sb-byte slot."""
+    flat = [t.reshape(-1) for group in tiles for t in group]
+    out = torch.zeros((len(flat), sb // 2), dtype=torch.bfloat16, device=flat[0].device)
+    for i, t in enumerate(flat):
+        out[i, :t.numel()] = t
+    return out
+
+
+@dataclasses.dataclass
+class _Prepared:
+    """One layer's operands in the row-tile kernels' layout on one device."""
+
+    wa: torch.Tensor          # ln_qkv's weight stream
+    wc: torch.Tensor          # proj_ffn's
+    nw: int                   # rows of a weight tile: C rounded up to _CHUNK
+    ks: int                   # k_steps of the K chunks
+    pipe: bool                # ffn_pipelined: proj_ffn's stream order
+    vectors: dict             # f32 vectors by _Args field
+    nf: int
+    cout: int
+    stages: tuple             # (ln_qkv, proj_ffn) ring depths of the last default plan
+    # planned launch arguments by (T, L, Cin, ring depths asked for)
+    args: dict = dataclasses.field(default_factory=dict)
+
+
+def _prepare(ops: LayerOperands, dev) -> _Prepared:
+    c, h, dh, dhp = _dims(ops)
+    f = ops.wi.shape[1]
+    nw = -(-c // _CHUNK) * _CHUNK
+    sb = max(nw, 64) * 128
+    nf = -(-f // 64)
+    cout = ops.wout.shape[1] if ops.wout is not None else c
+    ks = k_steps(c, ops.win.shape[0] if ops.win is not None else c, ops.win is not None)
+    kw = 16 * ks
+    pipe = ffn_pipelined(c)
+
+    def bt(w):   # (K, N) weight -> the B operand (N, K) in bf16 on dev
+        return w.to(device=dev, dtype=torch.bfloat16).t()
+
+    wqkv = torch.zeros((3, h, dhp, c), dtype=torch.bfloat16, device=dev)
+    bqkv = torch.zeros((3, h, dhp), dtype=torch.float32, device=dev)
+    for i, (w, b) in enumerate(((ops.wq, ops.bq), (ops.wk, ops.bk), (ops.wv, ops.bv))):
+        wqkv[i, :, :dh] = bt(w).reshape(h, dh, c)
+        bqkv[i, :, :dh] = b.to(dev).reshape(h, dh)
+    wqkv = wqkv.reshape(-1, c)
+    win = [k_tiles(bt(ops.win), nw, kw)] if ops.win is not None else []
+    wa = win + [k_tiles(wqkv[n0:n0 + nw], nw, kw) for n0 in range(0, wqkv.shape[0], nw)]
+    wi, wo2 = bt(ops.wi), bt(ops.wo2)
+    wc = win + [k_tiles(bt(ops.wo), nw, kw)]
+    wi_t = [k_tiles(wi[f0:f0 + 64], 64, kw) for f0 in range(0, nf * 64, 64)]
+    wo2_t = [k_tiles(wo2[:, f0:f0 + 64], nw) for f0 in range(0, nf * 64, 64)]
+    if pipe:   # Wi(0), then Wi(f + 1) before Wo2(f)
+        wc += [wi_t[0]] + [t for f in range(nf) for t in (wi_t[f + 1:f + 2] + [wo2_t[f]])]
+    else:
+        wc += [t for f in range(nf) for t in (wi_t[f], wo2_t[f])]
+    if ops.wout is not None:
+        wout = bt(ops.wout)
+        wc += [k_tiles(wout[n0:n0 + nw], nw, kw) for n0 in range(0, cout, nw)]
+    bi = torch.zeros(nf * 64, dtype=torch.float32, device=dev)
+    bi[:f] = ops.bi.to(dev)
+    fl = ops.final_ln or (None, None)
+    vectors = dict(ln1g=ops.ln1[0], ln1b=ops.ln1[1], bqkv=bqkv, bo=ops.bo, ln2g=ops.ln2[0],
+                   ln2b=ops.ln2[1], bi=bi, bo2=ops.bo2, ln3g=fl[0], ln3b=fl[1])
+    vectors = {k: None if v is None else _f32(v, dev) for k, v in vectors.items()}
+    return _Prepared(wa=_stream(wa, sb), wc=_stream(wc, sb), nw=nw, ks=ks, pipe=pipe,
+                     vectors=vectors, nf=nf, cout=cout, stages=(0, 0))
+
+
+def _f32(v: torch.Tensor, dev) -> torch.Tensor:
+    return v.to(device=dev, dtype=torch.float32).contiguous()
+
+
+class _Args(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "qkv", "ctx", "out", "wa", "wc", "ln1g", "ln1b", "bqkv", "bo", "ln2g", "ln2b",
+        "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [(name, ctypes.c_int) for name in (
+        "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "nf", "Cout", "in_proj",
+        "final_ln", "out_proj", "out_act", "stages_a", "stages_c", "ks", "ldo", "nwg", "nw",
+        "pipe")] + [(name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
+
+
+_LIB = []   # the loaded library, bound (a timing tool may put a variant in its place)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of the kernels' C functions on ``lib``."""
+    for fn in ("gxt_layer_ln_qkv", "gxt_layer_attention", "gxt_layer_proj_ffn",
+               "gxt_layer_forward"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.gxt_layer_plan.restype = ctypes.c_int
+    lib.gxt_layer_plan.argtypes = [ctypes.POINTER(_Args), ctypes.c_int]
+    return lib
+
+
+def _lib():
+    if not _LIB:
+        from ggml_experiments_tpu_torch import _build
+
+        _LIB.append(bind(_build.load("transformer_layer")))
+    return _LIB[0]
+
+
+def row_tile_warpgroups(t: int, sms: int) -> int:
+    """Consumer warpgroups (64 rows each) a block of the row-tile kernels:
+    two, unless T rows in 128-row tiles would leave multiprocessors idle."""
+    return 2 if -(-t // 128) >= sms else 1
+
+
+def _smem_limit(dev) -> int:
+    return getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+
+
+def _check(ops: LayerOperands, x: torch.Tensor, l: int, cin: int) -> None:
+    """Raise unless the layer's kernels take x (T rows, bf16, CUDA), whose
+    input has cin columns: L a multiple of 8, an even head width up to 64."""
+    c, h, dh, dhp = _dims(ops)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(f"fused_transformer_layer: the kernels take 2-D bf16 CUDA tensors, "
+                         f"got {x.dtype}{tuple(x.shape)} on {x.device}")
+    if l % 8 or c % h or dh % 2 or dh > 64 or x.shape[0] % l:
+        raise ValueError(f"fused_transformer_layer: the kernels take L a multiple of 8 and an "
+                         f"even head width up to 64, got L={l}, C={c}, H={h} ({x.shape[0]} "
+                         f"rows)")
+    if (ops.win is None and cin != c) or (ops.win is not None and ops.win.shape != (cin, c)):
+        raise ValueError(f"fused_transformer_layer: x width {cin} does not meet the weights "
+                         f"(C={c})")
+
+
+def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=None):
+    """(prepared operands, _Args) for a launch of the row-tile kernels on x,
+    or None where they do not take the layer (x1 in registers: C <= 288; a
+    head's q, k and v in shared memory: L <= 576; the x tile beside the
+    weight ring). ``plan`` = (ln_qkv, proj_ffn) ring depths forces them
+    (tests, sweeps); None takes the plan's, the least each kernel runs."""
+    _check(ops, x, l, cin)
+    dev, t = x.device, x.shape[0]
+    prep = ops.cache.get(dev)
+    a = prep.args.get((t, l, cin, plan)) if prep is not None else None
+    if a is None:
+        if prep is None:
+            prep = ops.cache[dev] = _prepare(ops, dev)
+        c, h, dh, dhp = _dims(ops)
+        a = _Args(T=t, L=l, Cin=cin, ldx=cin, C=c, H=h, dh=dh, dhp=dhp, ldc=c, nf=prep.nf,
+                  nwg=row_tile_warpgroups(t, torch.cuda.get_device_properties(dev)
+                                          .multi_processor_count),
+                  Cout=prep.cout, in_proj=int(ops.win is not None),
+                  final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
+                  out_act=int(ops.out_act), stages_a=(plan or (0, 0))[0],
+                  stages_c=(plan or (0, 0))[1], ks=prep.ks, nw=prep.nw, pipe=int(prep.pipe),
+                  eps=ops.eps, final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh),
+                  wa=prep.wa.data_ptr(), wc=prep.wc.data_ptr())
+        for k, v in prep.vectors.items():
+            setattr(a, k, None if v is None else v.data_ptr())
+        if _lib().gxt_layer_plan(ctypes.byref(a), _smem_limit(dev)) <= 0:
+            return None
+        if plan is None:
+            prep.stages = (a.stages_a, a.stages_c)
+        prep.args[(t, l, cin, plan)] = a
+    a = _Args.from_buffer_copy(a)
+    if ops.out_affine is not None:   # a call's own BN vectors (the model makes them anew)
+        a.keep = tuple(_f32(v, dev) for v in ops.out_affine)   # alive until the launch
+        a.osc, a.obi = (v.data_ptr() for v in a.keep)
+    return prep, a
+
+
+def _row_tile_args(ops, x, l, cin, plan, what):
+    got = _launch_args(ops, x, l, cin, plan)
+    if got is None:
+        c = ops.wq.shape[0]
+        raise ValueError(
+            f"{what}: (L, Cin, C, F) = ({l}, {cin}, {c}, {ops.wi.shape[1]}) with ring depths "
+            f"{plan} is not a layer the row-tile kernels take (C up to 288, L up to 576, "
+            f"within one block's {_smem_limit(x.device)} bytes of shared memory)")
+    return got
+
+
+def _run(lib, fn: str, a, dev, what) -> None:
+    """Call the C function ``fn`` of ``lib`` on dev's current stream;
+    ``what()`` names the launch if it fails."""
+    from ggml_experiments_tpu_torch import _build
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        code = getattr(lib, fn)(ctypes.byref(a), stream)
+    else:
+        with torch.cuda.device(dev):
+            code = getattr(lib, fn)(ctypes.byref(a), stream)
+    if code:
+        _build.check(lib, code, what())
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t (rows, cols) bf16 readable by a 2-D tensor map: unit column stride, a
+    row stride of a multiple of 8 elements, 16-byte aligned; else a copy."""
+    if t.stride(1) == 1 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((t.shape[0], -(-t.shape[1] // 8) * 8), dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out[:, :t.shape[1]]
+
+
+def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> torch.Tensor:
+    """Kernel A on x2 (T, Cin) bf16 CUDA (T a multiple of l): the (T, 3 H
+    dhp) array of :func:`ln_qkv_plain`."""
+    c, h, dh, dhp = _dims(ops)
+    x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
+    prep, a = _row_tile_args(ops, x2, l, x2.shape[1], _plan, "transformer ln_qkv")
+    qkv = torch.empty((x2.shape[0], 3 * h * dhp), dtype=torch.bfloat16, device=x2.device)
+    a.x, a.ldx, a.qkv = x2.data_ptr(), x2.stride(0), qkv.data_ptr()
+    _run(_lib(), "gxt_layer_ln_qkv", a, x2.device,
+         lambda: f"transformer ln_qkv (T, Cin, C) = ({x2.shape[0]}, {x2.shape[1]}, {c})")
+    LAUNCHES["transformer_ln_qkv"] += 1
+    return qkv
+
+
+def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
+    """Kernel B on :func:`ln_qkv_cuda`'s array: ctx (T, C) bf16 (rows padded
+    to a multiple of 8 elements: a view)."""
+    c, h, dh, dhp = _dims(ops)
+    if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp or not qkv.is_contiguous():
+        raise ValueError(f"transformer attention: qkv must be a contiguous (T, {3 * h * dhp}) "
+                         f"array, got {tuple(qkv.shape)}")
+    prep, a = _row_tile_args(ops, qkv, l, c if ops.win is None else ops.win.shape[0], None,
+                             "transformer attention")
+    ldc = -(-c // 8) * 8
+    ctx = torch.empty((qkv.shape[0], ldc), dtype=torch.bfloat16, device=qkv.device)
+    a.qkv, a.ctx, a.ldc = qkv.data_ptr(), ctx.data_ptr(), ldc
+    _run(_lib(), "gxt_layer_attention", a, qkv.device,
+         lambda: f"transformer attention (T, L, C, H) = ({qkv.shape[0]}, {l}, {c}, {h})")
+    LAUNCHES["transformer_attention"] += 1
+    return ctx[:, :c]
+
+
+def proj_ffn_cuda(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int, *,
+                  _plan=None) -> torch.Tensor:
+    """Kernel C on x2 (T, Cin) and ctx (T, C) bf16 CUDA: (T, Cout) bf16."""
+    c = ops.wq.shape[0]
+    x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
+    ctx = _tma_ready(ctx)
+    prep, a = _row_tile_args(ops, x2, l, x2.shape[1], _plan, "transformer proj_ffn")
+    ldo = -(-prep.cout // 8) * 8
+    out = torch.empty((x2.shape[0], ldo), dtype=torch.bfloat16, device=x2.device)
+    a.x, a.ldx, a.ctx, a.ldc, a.out, a.ldo = (x2.data_ptr(), x2.stride(0), ctx.data_ptr(),
+                                              ctx.stride(0), out.data_ptr(), ldo)
+    _run(_lib(), "gxt_layer_proj_ffn", a, x2.device,
+         lambda: f"transformer proj_ffn (T, Cin, C, Cout) = ({x2.shape[0]}, {x2.shape[1]}, "
+                 f"{c}, {prep.cout})")
+    LAUNCHES["transformer_proj_ffn"] += 1
+    return out[:, :prep.cout]
+
+
+def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> torch.Tensor:
+    """The layer on a bf16 (bp, L, Cin) CUDA tensor with L a multiple of 8:
+    the three row-tile kernels launched by one C call (:func:`ln_qkv_cuda`,
+    :func:`attention_cuda`, :func:`proj_ffn_cuda` launch one each), or,
+    where they do not take the layer, the per-sequence kernel
+    (:func:`sequence_layer_cuda`); (bp, L, Cout) bf16. ``_plan`` forces the
+    row-tile kernels' ring depths (tests, sweeps)."""
+    if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
+        raise ValueError(f"fused_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
+                         f"{x3.dtype}{tuple(x3.shape)} on {x3.device}")
+    bp, l, cin = x3.shape
+    x2 = x3.reshape(bp * l, cin)
+    x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
+    got = (_launch_args(ops, x2, l, cin) if _plan is None
+           else _row_tile_args(ops, x2, l, cin, _plan, "fused_layer_cuda"))
+    if got is None:
+        return sequence_layer_cuda(x3, ops)
+    prep, a = got
+    c, h, dh, dhp = _dims(ops)
+    t, dev = bp * l, x2.device
+    ldc, ldo = -(-c // 8) * 8, -(-prep.cout // 8) * 8
+    # q/k/v and ctx in one scratch allocation (ctx 16-byte aligned after q/k/v)
+    nq = t * 3 * h * dhp
+    scratch = torch.empty(nq + t * ldc, dtype=torch.bfloat16, device=dev)
+    out = torch.empty((t, ldo), dtype=torch.bfloat16, device=dev)
+    a.x, a.ldx, a.qkv, a.ctx, a.ldc, a.out, a.ldo = (
+        x2.data_ptr(), x2.stride(0), scratch.data_ptr(), scratch.data_ptr() + 2 * nq, ldc,
+        out.data_ptr(), ldo)
+    _run(_lib(), "gxt_layer_forward", a, dev,
+         lambda: f"fused_transformer_layer (bp, L, Cin, C) = ({bp}, {l}, {cin}, {c})")
+    for k in ("fused_transformer_layer", "transformer_ln_qkv", "transformer_attention",
+              "transformer_proj_ffn"):
+        LAUNCHES[k] += 1
+    return out[:, :prep.cout].reshape(bp, l, -1)
+
+
+# the per-sequence kernel (csrc/transformer_layer_seq.cu): one block of 1-8
+# warps a sequence, k and v of the sequence in shared memory, mma.sync with
+# the weights read from global memory as (N, K16) B fragments
 
 def _pad16(n: int) -> int:
     return -(-n // 16) * 16
@@ -178,7 +598,7 @@ def _bt(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _Args(ctypes.Structure):
+class _SeqArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "out", "wq", "wk", "wv", "wo", "wi", "wo2", "win", "wout",
         "ln1g", "ln1b", "bq", "bk", "bv", "bo", "ln2g", "ln2b", "bi", "bo2",
@@ -188,74 +608,93 @@ class _Args(ctypes.Structure):
         "eps", "final_eps", "scale")]
 
 
-def _lib():
-    from ggml_experiments_tpu_torch import _build
-
-    lib = _build.load("transformer_layer")
-    lib.gxt_transformer_layer.restype = ctypes.c_int
-    lib.gxt_transformer_layer.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.gxt_transformer_layer_plan.restype = ctypes.c_int
-    lib.gxt_transformer_layer_plan.argtypes = [ctypes.POINTER(_Args), ctypes.c_int]
-    return lib
+_SEQ_LIB = []
 
 
-def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
-    """Launch the kernel on a contiguous bf16 (bp, L, Cin) CUDA tensor with L a
-    multiple of 8."""
-    from ggml_experiments_tpu_torch import _build
+def _seq_lib():
+    if not _SEQ_LIB:
+        from ggml_experiments_tpu_torch import _build
 
-    dev = x3.device
-    if dev.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
-        raise ValueError(f"fused_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
-                         f"{x3.dtype}{tuple(x3.shape)} on {dev}")
+        lib = _build.load("transformer_layer_seq")
+        lib.gxt_layer_seq.restype = ctypes.c_int
+        lib.gxt_layer_seq.argtypes = [ctypes.POINTER(_SeqArgs), ctypes.c_void_p]
+        lib.gxt_layer_seq_plan.restype = ctypes.c_int
+        lib.gxt_layer_seq_plan.argtypes = [ctypes.POINTER(_SeqArgs), ctypes.c_int]
+        _SEQ_LIB.append(lib)
+    return _SEQ_LIB[0]
+
+
+def sequence_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+    """The layer on the per-sequence kernel, a bf16 (bp, L, Cin) CUDA tensor
+    with L a multiple of 8: any C, and any L whose sequence's k and v fit one
+    block's shared memory beside one warp's buffers; (bp, L, Cout) bf16.
+    :func:`fused_layer_cuda` takes it where the row-tile kernels do not."""
+    if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
+        raise ValueError(f"sequence_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
+                         f"{x3.dtype}{tuple(x3.shape)} on {x3.device}")
     bp, l, cin = x3.shape
-    c = ops.wq.shape[0]
-    f = ops.wi.shape[1]
-    h = ops.num_heads
-    cout = ops.wout.shape[1] if ops.wout is not None else c
-    if l % 8 or c % h or (c // h) % 2:
-        raise ValueError(f"fused_layer_cuda: the kernel takes L a multiple of 8 and an even "
-                         f"head width, got L={l}, C={c}, H={h}")
-    if (ops.win is None and cin != c) or (ops.win is not None and ops.win.shape != (cin, c)):
-        raise ValueError(f"fused_layer_cuda: x width {cin} does not meet the weights (C={c})")
+    dev = x3.device
     x3 = x3.contiguous()
-    out = torch.empty((bp, l, cout), dtype=torch.bfloat16, device=dev)
-    keep = ops.cache.get(dev)
+    _check(ops, x3.reshape(bp * l, cin), l, cin)
+    c, h, dh, dhp = _dims(ops)
+    f = ops.wi.shape[1]
+    cout = ops.wout.shape[1] if ops.wout is not None else c
+    keep = ops.cache.get(("sequence", dev))
     if keep is None:
-        # transposed bf16 weights and f32 vectors on the device, in _Args order
+        # transposed bf16 weights and f32 vectors on the device, in _SeqArgs order
         fl = ops.final_ln or (None, None)
-        oa = ops.out_affine or (None, None)
-
-        def prep(t, transpose=False):
-            if t is None:
-                return None
-            return (_bt(t) if transpose else t).to(dev).contiguous()
-
-        keep = [prep(w, True) for w in (ops.wq, ops.wk, ops.wv, ops.wo, ops.wi, ops.wo2,
-                                        ops.win, ops.wout)]
-        keep += [prep(v) for v in (ops.ln1[0], ops.ln1[1], ops.bq, ops.bk, ops.bv, ops.bo,
-                                   ops.ln2[0], ops.ln2[1], ops.bi, ops.bo2, fl[0], fl[1],
-                                   oa[0], oa[1])]
-        ops.cache[dev] = keep
-    a = _Args(x=x3.data_ptr(), out=out.data_ptr(),
-              bp=bp, L=l, Cin=cin, C=c, F=f, Cout=cout, H=h,
-              final_ln=int(ops.final_ln is not None), in_proj=int(ops.win is not None),
-              out_proj=int(ops.wout is not None), out_act=int(ops.out_act), warps=0,
-              eps=ops.eps, final_eps=ops.final_eps, scale=1.0 / math.sqrt(c // h))
-    for (name, _), t in zip(_Args._fields_[2:], keep):
+        keep = [None if w is None else _bt(w.to(dev)).contiguous() for w in (
+            ops.wq, ops.wk, ops.wv, ops.wo, ops.wi, ops.wo2, ops.win, ops.wout)]
+        keep += [None if v is None else _f32(v, dev) for v in (
+            ops.ln1[0], ops.ln1[1], ops.bq, ops.bk, ops.bv, ops.bo, ops.ln2[0], ops.ln2[1],
+            ops.bi, ops.bo2, fl[0], fl[1])]
+        ops.cache[("sequence", dev)] = keep
+    oa = [None, None] if ops.out_affine is None else [_f32(v, dev) for v in ops.out_affine]
+    out = torch.empty((bp, l, cout), dtype=torch.bfloat16, device=dev)
+    a = _SeqArgs(x=x3.data_ptr(), out=out.data_ptr(), bp=bp, L=l, Cin=cin, C=c, F=f, Cout=cout,
+                 H=h, final_ln=int(ops.final_ln is not None), in_proj=int(ops.win is not None),
+                 out_proj=int(ops.wout is not None), out_act=int(ops.out_act), warps=0,
+                 eps=ops.eps, final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh))
+    for (name, _), t in zip(_SeqArgs._fields_[2:], keep + oa):
         setattr(a, name, None if t is None else t.data_ptr())
-    lib = _lib()
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
-                    232448)
-    if lib.gxt_transformer_layer_plan(ctypes.byref(a), limit) <= 0:
-        raise ValueError(f"fused_layer_cuda: (L, Cin, C, F, Cout) = ({l}, {cin}, {c}, {f}, "
-                         f"{cout}) does not fit one block's {limit} bytes of shared memory")
-    with torch.cuda.device(dev):
-        code = lib.gxt_transformer_layer(ctypes.byref(a),
-                                         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, f"fused_transformer_layer (bp, L, C) = ({bp}, {l}, {c})")
+    lib = _seq_lib()
+    limit = _smem_limit(dev)
+    if lib.gxt_layer_seq_plan(ctypes.byref(a), limit) <= 0:
+        raise ValueError(f"fused_transformer_layer: (L, Cin, C, F, Cout) = ({l}, {cin}, {c}, "
+                         f"{f}, {cout}) does not fit one block's {limit} bytes of shared memory")
+    _run(lib, "gxt_layer_seq", a, dev,
+         lambda: f"transformer sequence kernel (bp, L, C) = ({bp}, {l}, {c})")
     LAUNCHES["fused_transformer_layer"] += 1
+    LAUNCHES["transformer_sequence"] += 1
     return out
+
+
+def _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj):
+    """The layer's LayerOperands for the CUDA path, kept on its params ``p``:
+    gathered at its first call, they live as long as the model, and a
+    forward prepares each layer's kernel layout once (``LayerOperands.cache``).
+    The layer's own weights are read then; a caller that changes them builds
+    new params, as loading does. The block's options come as fresh views of
+    the block's weights every call: the entry is gathered anew when they are
+    other tensors (another storage, shape or stride), and holds them while
+    it lives. The conv_projection's BN vectors are taken from each call (a
+    block without BN makes them anew)."""
+    wout = output_proj[0] if output_proj is not None else None
+    block = (input_proj, *(final_ln or (None, None)), wout)
+    key = (cd, c, final_ln_eps, output_proj[3] if output_proj is not None else None,
+           tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in block))
+    hit = getattr(p, "_gxt_fused_operands", None)
+    if hit is None or hit[0] != key:
+        hit = (key, layer_operands(p, c, cd, final_ln=final_ln, final_ln_eps=final_ln_eps,
+                                   input_proj=input_proj, output_proj=output_proj), block)
+        object.__setattr__(p, "_gxt_fused_operands", hit)
+    ops = hit[1]
+    if output_proj is not None:   # as layer_operands gathers them
+        vec = [torch.zeros(wout.shape[-1], device=wout.device) if v is None else v.float()
+               for v in output_proj[1:3]]
+        ops = dataclasses.replace(ops, out_affine=tuple(vec))
+    return ops
 
 
 def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
@@ -273,13 +712,14 @@ def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     c = input_proj.shape[1] if input_proj is not None else cin
     if c % h:
         raise ValueError(f"C={c} not divisible by num_heads={h}")
-    ops = layer_operands(p, c, cd, final_ln=final_ln, final_ln_eps=final_ln_eps,
-                         input_proj=input_proj, output_proj=output_proj)
     x3 = x.reshape(-1, l, cin).to(cd)
     if x3.device.type == "cpu":
+        ops = layer_operands(p, c, cd, final_ln=final_ln, final_ln_eps=final_ln_eps,
+                             input_proj=input_proj, output_proj=output_proj)
         out = fused_transformer_layer_plain(x3, ops)
     else:
         if cd != torch.bfloat16:
-            raise ValueError("fused_transformer_layer: the CUDA kernel runs bf16 only")
+            raise ValueError("fused_transformer_layer: the CUDA kernels run bf16 only")
+        ops = _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj)
         out = fused_layer_cuda(x3, ops)
     return out.reshape(*lead, l, out.shape[-1])

@@ -618,10 +618,12 @@ def test_fused_layer_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out
     ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=l + c)
     x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev).to(torch.bfloat16)
-    before = ftl.LAUNCHES["fused_transformer_layer"]
+    before = dict(ftl.LAUNCHES)
     got = ftl.fused_layer_cuda(x, ops)
     torch.cuda.synchronize()
-    assert ftl.LAUNCHES["fused_transformer_layer"] == before + 1
+    assert {k: ftl.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_transformer_layer": 1, "transformer_ln_qkv": 1, "transformer_attention": 1,
+        "transformer_proj_ffn": 1, "transformer_sequence": 0}
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
 
@@ -632,6 +634,137 @@ def test_fused_layer_kernel_matches_plain_at_the_model_widths(dev, bp, l, c, h, 
     x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(2),
                     device=dev).to(torch.bfloat16)
     got = ftl.fused_layer_cuda(x, ops)
+    torch.cuda.synchronize()
+    _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+
+
+def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed):
+    """Each of the layer's three kernels against its plain version on the plain
+    version's inputs, launched twice (bit-equal), with the counters."""
+    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=seed)
+    x2 = torch.randn((bp * l, cin), generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev).to(torch.bfloat16)
+    before = dict(ftl.LAUNCHES)
+    qkv, qkv2 = (ftl.ln_qkv_cuda(x2, ops, l) for _ in range(2))
+    want_qkv = ftl.ln_qkv_plain(x2, ops)
+    ctx, ctx2 = (ftl.attention_cuda(want_qkv, l, ops) for _ in range(2))
+    want_ctx = ftl.attention_plain(want_qkv, l, ops)
+    out, out2 = (ftl.proj_ffn_cuda(x2, want_ctx, ops, l) for _ in range(2))
+    torch.cuda.synchronize()
+    after = dict(ftl.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_transformer_layer": 0, "transformer_ln_qkv": 2, "transformer_attention": 2,
+        "transformer_proj_ffn": 2, "transformer_sequence": 0}
+    assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
+        "two launches on the same inputs differ")
+    dh = c // h
+    assert not qkv.reshape(bp * l, 3, h, -1)[..., dh:].any(), "a head's padding is not zero"
+    _bf16_close(qkv, want_qkv, 0.05, 2e-3)
+    _bf16_close(ctx, want_ctx, 0.05, 2e-3)
+    _bf16_close(out, ftl.proj_ffn_plain(x2, want_ctx, ops), 0.05, 2e-3)
+
+
+# every flag; dh = 12 and 32; L = 24 (two sequences a packed tile), 16, 72 (a
+# ragged second tile), 320 (past the scores held in registers: keys walked twice)
+@pytest.mark.parametrize("in_proj", [False, True])
+@pytest.mark.parametrize("final_ln", [False, True])
+@pytest.mark.parametrize("out_proj", [False, True])
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 48, 4, 96), (2, 24, 64, 2, 128),
+                                        (5, 24, 24, 2, 48), (2, 72, 96, 3, 192),
+                                        (2, 320, 64, 2, 128)])
+def test_layer_kernels_match_their_plain_versions_every_flag(dev, in_proj, final_ln, out_proj,
+                                                             bp, l, c, h, f):
+    _layer_kernels_check(dev, bp, l, c, h, f, c // 2 if in_proj else c, c // 2 + 8, final_ln,
+                         out_proj, seed=l + c)
+
+
+# the model's widths (dh = 36, 48, 60) with the first layer's and the last
+# layer's flags; 72 sequences of 256 fill an H100's multiprocessors with
+# 128-row tiles (two consumer warpgroups a block), the others take 64 rows
+@pytest.mark.parametrize("bp,l,c,h,f,cin,cout", [(4, 256, 144, 4, 288, 96, 96),
+                                                 (6, 64, 192, 4, 384, 128, 128),
+                                                 (8, 16, 240, 4, 480, 160, 160),
+                                                 (72, 256, 144, 4, 288, 96, 96)])
+@pytest.mark.parametrize("last", [False, True])
+def test_layer_kernels_match_their_plain_versions_at_the_model_widths(dev, bp, l, c, h, f, cin,
+                                                                      cout, last):
+    _layer_kernels_check(dev, bp, l, c, h, f, c if last else cin, cout, last, last, seed=c)
+
+
+# an output projection wider than C: out-projection groups before the last
+# go out from registers, the last through shared memory; an odd Cout pads
+# the output rows
+def test_layer_kernels_take_an_output_wider_than_c(dev):
+    _layer_kernels_check(dev, 3, 16, 48, 4, 96, 48, 101, True, True, seed=9)
+
+
+def test_layer_kernel_ring_depths_give_the_same_bits(dev):
+    ops = _layer_ops(dev, 144, 4, 288, 96, 96, True, True, seed=5)
+    x = torch.randn((3, 256, 96), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(torch.bfloat16)
+    # at C=144 proj_ffn overlaps FFN chunks and holds kc + 1 = 4 tiles: 5 buffers at least
+    outs = [ftl.fused_layer_cuda(x, ops, _plan=s) for s in (None, (2, 5), (3, 6), (6, 5))]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    # the default plan: the least each ring runs (ln_qkv 2, the overlapped FFN kc + 2)
+    ftl.fused_layer_cuda(x, ops)
+    assert ops.cache[x.device].stages == (2, 5)
+    for bad in ((1, 5), (4, 4)):
+        with pytest.raises(ValueError, match="ring depths"):
+            ftl.fused_layer_cuda(x, ops, _plan=bad)
+
+
+def test_layer_kernels_refuse_what_they_do_not_take(dev):
+    # C = 320 is past the row-tile kernels (x1 in registers): their wrappers
+    # refuse it, the layer runs on the per-sequence kernel
+    ops = _layer_ops(dev, 320, 5, 640, 320, 320, False, False, seed=1)
+    with pytest.raises(ValueError, match="C up to 288"):
+        ftl.ln_qkv_cuda(torch.zeros((16, 320), dtype=torch.bfloat16, device=dev), ops, 16)
+    ops = _layer_ops(dev, 128, 1, 256, 128, 128, False, False, seed=1)
+    with pytest.raises(ValueError, match="head width up to 64"):
+        ftl.fused_layer_cuda(torch.zeros((1, 16, 128), dtype=torch.bfloat16, device=dev), ops)
+    ops = _layer_ops(dev, 64, 2, 128, 64, 64, False, False, seed=1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ftl.fused_layer_cuda(torch.zeros((1, 20, 64), dtype=torch.bfloat16, device=dev), ops)
+    # a sequence whose k and v outgrow shared memory even on the per-sequence kernel
+    with pytest.raises(ValueError, match="shared memory"):
+        ftl.fused_layer_cuda(torch.zeros((1, 1024, 64), dtype=torch.bfloat16, device=dev), ops)
+
+
+# what the row-tile kernels do not take goes to the per-sequence kernel: C past
+# 288, L past 576; no flag and every flag
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True)])
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 320, 5, 640), (2, 48, 384, 6, 768),
+                                        (2, 640, 64, 2, 128)])
+def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c, h, f):
+    in_proj, final_ln, out_proj = flags
+    cin, cout = (c // 2 if in_proj else c), c // 2 + 8
+    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=l + c)
+    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev).to(torch.bfloat16)
+    before = dict(ftl.LAUNCHES)
+    got, again = ftl.fused_layer_cuda(x, ops), ftl.fused_layer_cuda(x, ops)
+    torch.cuda.synchronize()
+    after = dict(ftl.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_transformer_layer": 2, "transformer_ln_qkv": 0, "transformer_attention": 0,
+        "transformer_proj_ffn": 0, "transformer_sequence": 2}
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+
+
+# the per-sequence kernel on shapes the row-tile kernels also take, every flag
+@pytest.mark.parametrize("in_proj", [False, True])
+@pytest.mark.parametrize("final_ln", [False, True])
+@pytest.mark.parametrize("out_proj", [False, True])
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 48, 4, 96), (2, 24, 60, 5, 120)])
+def test_sequence_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out_proj, bp, l, c,
+                                                  h, f):
+    cin, cout = (c // 2 if in_proj else c), c // 2 + 8
+    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=l + c)
+    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    got = ftl.sequence_layer_cuda(x, ops)
     torch.cuda.synchronize()
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 

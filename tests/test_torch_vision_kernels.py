@@ -8,6 +8,7 @@ plain versions and leave the launch counters alone.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,8 @@ from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
 from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
 from ggml_experiments_tpu_torch.ops.attention import AttentionParams
 from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
-from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+from ggml_experiments_tpu_torch.ops.activations import silu
+from ggml_experiments_tpu_torch.ops.norm import FoldedBN, layer_norm
 
 
 def T(a):
@@ -124,6 +126,175 @@ def test_fused_layer_plain_matches_the_jax_kernel_at_the_stage_widths(b, l, c, h
     got = ftl.fused_transformer_layer(tl, T(x), compute_dtype=torch.bfloat16).float().numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=0.08 * scale, rtol=0.08)
+
+
+def _layer_case(c, h, f, cin, cout, in_proj, final_ln, out_proj, seed):
+    """LayerOperands at bf16 for the per-kernel plain versions, and x."""
+    rng = np.random.default_rng(seed)
+    _, tl = _layers(_layer_arrays(c, h, f, rng), h)
+    kw = {}
+    if in_proj:
+        kw["input_proj"] = T((rng.standard_normal((cin, c)) * 0.2).astype(np.float32))
+    if final_ln:
+        kw["final_ln"] = (T(rng.standard_normal(c) + 1), T(rng.standard_normal(c)))
+        kw["final_ln_eps"] = 1e-6
+    if out_proj:
+        kw["output_proj"] = (T((rng.standard_normal((c, cout)) * 0.2).astype(np.float32)),
+                             T(rng.uniform(0.5, 1.5, cout)), T(rng.standard_normal(cout)),
+                             out_proj)
+    return ftl.layer_operands(tl, c, torch.bfloat16, **kw)
+
+
+# every flag at L=24 (a ragged 64-row tile) and dh=12; the three stage widths
+# (dh = 36, 48, 60) with their first and last layers' flags
+LAYER_CASES = [(3, 24, 48, 4, 96, ip, fl, op) for ip in (False, True) for fl in (False, True)
+               for op in (None, "silu", "none")] + [
+    (1, 256, 144, 4, 288, True, False, None), (1, 256, 144, 4, 288, False, True, "silu"),
+    (2, 64, 192, 4, 384, True, False, None), (2, 64, 192, 4, 384, False, True, "silu"),
+    (4, 16, 240, 4, 480, True, False, None), (4, 16, 240, 4, 480, False, False, None)]
+
+
+def _layer_input(bp, l, c, h, f, in_proj, final_ln, out_proj):
+    cin = 2 * c // 3 if in_proj else c
+    ops = _layer_case(c, h, f, cin, c // 2 + 8, in_proj, final_ln, out_proj, seed=l + c)
+    x = torch.from_numpy(np.random.default_rng(c).standard_normal((bp * l, cin))
+                         .astype(np.float32)).to(torch.bfloat16)
+    return ops, x
+
+
+@pytest.mark.parametrize("bp,l,c,h,f,in_proj,final_ln,out_proj", LAYER_CASES)
+def test_the_three_plain_pieces_chain_to_the_layer_plain(bp, l, c, h, f, in_proj, final_ln,
+                                                         out_proj):
+    ops, x = _layer_input(bp, l, c, h, f, in_proj, final_ln, out_proj)
+    qkv = ftl.ln_qkv_plain(x, ops)
+    dhp = ftl.head_pad(c // h)
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (bp * l, 3 * h * dhp)
+    assert not qkv.reshape(bp * l, 3, h, dhp)[..., c // h:].any()
+    ctx = ftl.attention_plain(qkv, l, ops)
+    assert ctx.dtype == torch.bfloat16 and ctx.shape == (bp * l, c)
+    got = ftl.proj_ffn_plain(x, ctx, ops)
+    want = ftl.fused_transformer_layer_plain(x.reshape(bp, l, -1), ops)
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+def _emulate_layer(x, ops, l):
+    """The kernels' products in the order ``csrc/transformer_layer.cu`` takes
+    the weight tiles from the two streams (each tile un-swizzled, f32 sums),
+    for holding the streams' order and layout to the plain versions."""
+    c, h, dh, dhp = ftl._dims(ops)
+    prep = ftl._prepare(ops, torch.device("cpu"))
+    nw = prep.nw
+
+    def taker(stream):
+        tiles = iter(stream)
+
+        def product(a, rows, kw=16 * prep.ks):
+            k = a.shape[1]
+            ap = torch.zeros((a.shape[0], -(-k // kw) * kw))
+            ap[:, :k] = a.float()
+            out = 0.0
+            for k0 in range(0, ap.shape[1], kw):
+                tile = ftl.swizzle_tiles(next(tiles)[:rows * 64].reshape(1, rows, 64))[0]
+                assert not tile[:, kw:].any()
+                out = out + ap[:, k0:k0 + kw] @ tile[:, :kw].float().t()
+            return out
+        return product, tiles
+
+    def ln(v, g, b, eps):
+        return layer_norm(v, g, b, eps=eps)
+
+    product, tiles = taker(prep.wa)
+    xf = product(x, nw)[:, :c] if ops.win is not None else x.float()
+    a = ln(xf, *ops.ln1, ops.eps).to(torch.bfloat16)
+    qkv = torch.cat([product(a, nw) for _ in range(0, 3 * h * dhp, nw)], 1)[:, :3 * h * dhp]
+    qkv = qkv + prep.vectors["bqkv"].reshape(-1)
+    qkv[:, :h * dhp] *= 1.0 / math.sqrt(dh)
+    assert next(tiles, None) is None
+    qkv = qkv.to(torch.bfloat16)
+    ctx = ftl.attention_plain(qkv, l, ops)
+    product, tiles = taker(prep.wc)
+    xf = product(x, nw)[:, :c] if ops.win is not None else x.float()
+    x1 = xf + product(ctx, nw)[:, :c] + ops.bo
+    y = ln(x1, *ops.ln2, ops.eps).to(torch.bfloat16)
+    o = x1
+    hs = []   # the pipelined stream takes chunk f + 1's Wi tiles before chunk f's Wo2 tile
+    for f0 in range(0, prep.nf * 64, 64):
+        if not hs:
+            hs.append(product(y, 64))
+        if prep.pipe and f0 + 64 < prep.nf * 64:
+            hs.append(product(y, 64))
+        h1 = silu(hs.pop(0) + prep.vectors["bi"][f0:f0 + 64]).to(torch.bfloat16)
+        o = o + product(h1, nw, 64)[:, :c]
+    o = o + ops.bo2
+    if ops.final_ln is not None:
+        o = ln(o, *ops.final_ln, ops.final_eps)
+    if ops.wout is not None:
+        cout = ops.wout.shape[1]
+        ob = o.to(torch.bfloat16)
+        o = torch.cat([product(ob, nw) for _ in range(0, cout, nw)], 1)[:, :cout]
+        o = o * ops.out_affine[0] + ops.out_affine[1]
+        if ops.out_act:
+            o = silu(o)
+    assert next(tiles, None) is None
+    return qkv, o.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bp,l,c,h,f,in_proj,final_ln,out_proj",
+                         [LAYER_CASES[i] for i in (0, 5, 7, 11, 12, 13, 15, 16)])
+def test_the_kernels_weight_streams_hold_each_product_in_order(bp, l, c, h, f, in_proj,
+                                                               final_ln, out_proj):
+    ops, x = _layer_input(bp, l, c, h, f, in_proj, final_ln, out_proj)
+    qkv, out = _emulate_layer(x, ops, l)
+    want_qkv = ftl.ln_qkv_plain(x, ops)
+    want = ftl.proj_ffn_plain(x, ftl.attention_plain(want_qkv, l, ops), ops)
+    for got, ref in ((qkv, want_qkv), (out, want)):
+        d = (got.float() - ref.float()).abs()
+        scale = float(ref.float().abs().max())
+        assert float(d.max()) <= 0.05 * scale and float(d.mean()) <= 2e-3 * scale
+
+
+def test_the_cuda_path_keeps_a_layers_operands_on_its_params():
+    """The CUDA path gathers a layer's operands once and keeps them on the
+    layer's params; the block's options come as fresh views every call, a
+    different input projection gathers them anew, and the conv_projection's
+    BN vectors are each call's own."""
+    rng = np.random.default_rng(11)
+    c, h, f, cin, cout = 48, 4, 96, 32, 24
+    _, tl = _layers(_layer_arrays(c, h, f, rng), h)
+    win, wout = T(rng.standard_normal((cin * c,)) * 0.2), T(rng.standard_normal((c * cout,)))
+    fl = (T(rng.standard_normal(c) + 1.0), T(rng.standard_normal(c)))
+
+    def ops_for(w, scale):
+        return ftl._cached_operands(tl, c, torch.bfloat16, fl, 1e-6, w.reshape(cin, c),
+                                    (wout.reshape(c, cout), scale, torch.zeros(cout), "silu"))
+
+    first = ops_for(win, torch.ones(cout))
+    again = ops_for(win, torch.full((cout,), 2.0))
+    assert again.wq is first.wq and again.cache is first.cache
+    assert torch.equal(again.out_affine[0], torch.full((cout,), 2.0))
+    assert torch.equal(first.out_affine[0], torch.ones(cout))
+    other = ops_for(win.clone(), torch.ones(cout))
+    assert other.wq is not first.wq and torch.equal(other.win, win.reshape(cin, c).bfloat16())
+
+
+def test_k_steps_pad_the_model_widths_least():
+    assert [ftl.k_steps(c, cin, True) for c, cin in ((144, 96), (192, 128), (240, 160))] == [
+        3, 4, 3]
+    assert [ftl.k_steps(c, c, False) for c in (144, 192, 240, 64, 24)] == [3, 4, 3, 4, 3]
+
+
+def test_row_tiles_take_one_warpgroup_where_two_would_idle_multiprocessors():
+    assert [ftl.row_tile_warpgroups(512 * l, 132) for l in (256, 64, 16)] == [2, 2, 1]
+    assert ftl.row_tile_warpgroups(128 * 132, 132) == 2
+    assert ftl.row_tile_warpgroups(128 * 131, 132) == 1
+
+
+def test_swizzle_tiles_places_each_group_as_tma_does():
+    w = torch.arange(24 * 64, dtype=torch.float32).reshape(24, 64).to(torch.bfloat16)
+    sw = ftl.swizzle_tiles(w)
+    for n, k in ((0, 0), (5, 19), (13, 63), (23, 40)):
+        assert sw[n, ((k // 8) ^ (n % 8)) * 8 + k % 8] == w[n, k]
+    assert torch.equal(ftl.swizzle_tiles(sw), w)
 
 
 def test_fused_layer_refuses_heads_that_do_not_divide():

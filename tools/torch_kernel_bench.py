@@ -5,7 +5,7 @@ same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru,train] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru,train,layer] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -51,6 +51,16 @@ product times T (the library's floor for the recurrence, information only).
 come from; ``--split-step`` builds copies of ``csrc/gru_train.cu`` with the
 products, the forward's epilogue or the row-tile barrier off and times
 them beside the unchanged source at B=1024 and 64.
+
+The fused transformer layer (``layer``) runs at the 9 launch shapes of a
+MobileViT-small forward at B=128 on seeded random weights: the layer as one
+call (its three kernels where the checkout splits it), each kernel alone,
+and ``nn.TransformerEncoderLayer`` in bf16 as the library's yardstick;
+then ``extract_features`` at B=128, bf16, on ``mobilevit_synth_full.ggml``
+(``call``). ``--sweep`` times each ring depth of the row-tile kernels;
+``--split-step`` builds copies of ``csrc/transformer_layer.cu`` with the
+products, the global stores or the weight stream off and times each kernel
+of a middle layer of each stage beside the unchanged source.
 """
 
 from __future__ import annotations
@@ -409,9 +419,8 @@ def _toggled_libs(name, toggles, variants):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{name}.cu")
     with open(path, "w") as f:
-        f.write(src.replace('#include "mma_common.cuh"',
-                            f'#include "{os.path.join(_build.CSRC, "mma_common.cuh")}"'))
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        f.write(src)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + ["-I", _build.CSRC]
     jobs = {}
     for v in variants:
         lib = os.path.join(out_dir, f"lib_{name}_{v.replace(' ', '_') or 'base'}.so")
@@ -485,14 +494,177 @@ def train_split_cells():
     return rows
 
 
+# MobileViT-small's transformer stages at B=128 (bp = 512 sequences): (L,
+# Cin, C, H, F, layers); a stage's first layer carries the input projection
+# (conv_1x1), its last the final LN and conv_projection (Cout = Cin, BN, SiLU)
+LAYER_STAGES = ((256, 96, 144, 4, 288, 2), (64, 128, 192, 4, 384, 4), (16, 160, 240, 4, 480, 3))
+LAYER_BP = 512
+
+
+def _layer_ops(ftl, dev, c, h, f, cin, last, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*s, bf=False, off=0.0):
+        a = torch.randn(s, generator=g, device=dev) * 0.2 + off
+        return a.to(torch.bfloat16) if bf else a
+
+    ops = ftl.LayerOperands(
+        wq=t(c, c, bf=True), wk=t(c, c, bf=True), wv=t(c, c, bf=True), wo=t(c, c, bf=True),
+        wi=t(c, f, bf=True), wo2=t(f, c, bf=True), ln1=(t(c, off=1.0), t(c)), bq=t(c),
+        bk=t(c), bv=t(c), bo=t(c), ln2=(t(c, off=1.0), t(c)), bi=t(f), bo2=t(c),
+        num_heads=h, eps=1e-5)
+    if cin != c:
+        ops.win = t(cin, c, bf=True)
+    if last:
+        ops.final_ln, ops.final_eps = (t(c, off=1.0), t(c)), 1e-5
+        ops.wout, ops.out_affine, ops.out_act = t(c, cin, bf=True), (t(cin, off=1.0),
+                                                                    t(cin)), True
+    return ops
+
+
+def layer_cells(sweep):
+    """The fused transformer layer at each of the 9 launch shapes of a
+    MobileViT-small forward at B=128: the layer (``call``, ``stream``,
+    ``graph``), each of its kernels alone where the checkout splits it, and
+    ``nn.TransformerEncoderLayer(C, H, F, SiLU, norm_first)`` in bf16 and
+    eval mode as the library's yardstick: it has no input or output
+    projection, so at a stage's first and last layer it does less work.
+    ``--sweep`` times each ring depth of the two row-tile kernels."""
+    import torch.nn.functional as F
+
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    dev = torch.device("cuda")
+    split = hasattr(ftl, "ln_qkv_cuda")
+    rows = []
+    for l, cin, c, h, f, n in LAYER_STAGES:
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True,
+                                               device=dev, dtype=torch.bfloat16).eval()
+        xc = torch.randn((LAYER_BP, l, c), generator=torch.Generator(device=dev).manual_seed(l),
+                         device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            lib_t = both(lambda: lib(xc))
+        for i in range(n):
+            first, last = i == 0, i == n - 1
+            width = cin if first else c
+            ops = _layer_ops(ftl, dev, c, h, f, width, last, seed=100 * l + i)
+            x = torch.randn((LAYER_BP, l, width), generator=torch.Generator(device=dev)
+                            .manual_seed(i), device=dev).to(torch.bfloat16)
+            cout = cin if last else c
+            flops = LAYER_BP * (4 * l * l * c + 8 * l * c * c + 4 * l * c * f
+                                + (2 * l * width * c if first else 0)
+                                + (2 * l * c * cout if last else 0))
+            nbytes = LAYER_BP * l * (width + cout) * 2 + 2 * (4 * c * c + 2 * c * f + (
+                width * c if first else 0) + (c * cout if last else 0))
+            row = {"L": l, "Cin": width, "C": c, "H": h, "F": f, "Cout": cout, "layer": i,
+                   "input_proj": first, "final_ln_out_proj": last,
+                   "bound_ms": max(flops / 989e12, nbytes / 3.35e12) * 1e3,
+                   "bound_by": "operations" if flops / 989e12 > nbytes / 3.35e12 else "bytes",
+                   "kernel": both(lambda: ftl.fused_layer_cuda(x, ops)),
+                   "library": lib_t}
+            if split:
+                x2 = x.reshape(-1, width)
+                qkv = ftl.ln_qkv_cuda(x2, ops, l)
+                ctx = ftl.attention_cuda(qkv, l, ops)
+                row["ln_qkv"] = both(lambda: ftl.ln_qkv_cuda(x2, ops, l))
+                row["attention"] = both(lambda: ftl.attention_cuda(qkv, l, ops))
+                row["proj_ffn"] = both(lambda: ftl.proj_ffn_cuda(x2, ctx, ops, l))
+                row["stages"] = list(ops.cache[x.device].stages)
+                if sweep:
+                    row["sweep"] = {}
+                    for s in range(2, 7):
+                        for name, fn in (("ln_qkv", lambda: ftl.ln_qkv_cuda(x2, ops, l,
+                                                                            _plan=(s, 0))),
+                                         ("proj_ffn", lambda: ftl.proj_ffn_cuda(
+                                             x2, ctx, ops, l, _plan=(0, s)))):
+                            try:
+                                row["sweep"][f"{name} stages={s}"] = stream_ms(fn)
+                            except ValueError:
+                                pass
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del lib
+    # end to end: extract_features at B=128, 256 px, bf16 on the full checkpoint
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+
+    params = load_mobilevit(os.path.join("checkpoints", "mobilevit_synth_full.ggml"), device=dev)
+    images = torch.rand((128, 256, 256, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    row = {"extract_features_b128_bf16": call_ms(
+        lambda: extract_features(params, images, compute_dtype=torch.bfloat16), n=10)}
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+    return rows
+
+
+# copies of csrc/transformer_layer.cu with one part off (--split-step with
+# layer): the products, the global stores of q/k/v, ctx and the output (the
+# compiler then also drops the arithmetic that feeds only them), the weight
+# stream (the ring's phases complete with no copy); and one that issues the
+# next weight tile's products before the last tile's are done and releases
+# each tile one step late (LAYER_TILE_OVERLAP, wgmma.wait_group 1)
+LAYER_SPLIT_TOGGLES = (
+    ("LAYER_NO_MMA", "void wgmma_n48(float (&d)[24], uint64_t da, uint64_t db, int scale_d) {",
+     "void wgmma_n48(float (&d)[24], uint64_t da, uint64_t db, int scale_d) {\n  if (LAYER_NO_MMA) return;"),
+    ("LAYER_NO_MMA", "void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {",
+     "void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {\n  if (LAYER_NO_MMA) return;"),
+    ("LAYER_NO_MMA", "                                              int scale_d) {\n  asm volatile(",
+     "                                              int scale_d) {\n  if (LAYER_NO_MMA) return;\n  asm volatile("),
+    ("LAYER_NO_STORE", "    if (r < rows)\n      *reinterpret_cast<uint4*>(dst",
+     "    if (r < rows && !LAYER_NO_STORE)\n      *reinterpret_cast<uint4*>(dst"),
+    ("LAYER_NO_STORE", "      if (ok && tok < p.T)\n        *reinterpret_cast<uint32_t*>(p.ctx",
+     "      if (ok && tok < p.T && !LAYER_NO_STORE)\n        *reinterpret_cast<uint32_t*>(p.ctx"),
+    ("LAYER_TILE_OVERLAP", "    wg_commit();\n    wg_wait<0>();\n#pragma unroll\n    for (int ch = 0; ch < NCH; ++ch) wg_pin(acc[ch]);\n    ring_release(r, it, lane);\n  }\n}",
+     "    wg_commit();\n    if (!LAYER_TILE_OVERLAP) {\n      wg_wait<0>();\n      for (int ch = 0; ch < NCH; ++ch) wg_pin(acc[ch]);\n      ring_release(r, it, lane);\n    } else if (kc > 0) {\n      asm volatile(\"wgmma.wait_group.sync.aligned 1;\\n\" ::: \"memory\");\n      ring_release(r, it - 1, lane);\n    }\n  }\n  if (!LAYER_TILE_OVERLAP) return;\n  wg_wait<0>();\n  for (int ch = 0; ch < NCH; ++ch) wg_pin(acc[ch]);\n  ring_release(r, it - 1, lane);\n}"),
+    ("LAYER_NO_STREAM", "  mbar_expect(r.full + s, bytes);\n  bulk_load(r.buf + (size_t)s * r.sb, stream + (size_t)i * r.sb, bytes, r.full + s);",
+     "  if (LAYER_NO_STREAM) {\n    mbar_arrive(r.full + s);\n    return;\n  }\n  mbar_expect(r.full + s, bytes);\n  bulk_load(r.buf + (size_t)s * r.sb, stream + (size_t)i * r.sb, bytes, r.full + s);"),
+)
+LAYER_SPLIT_VARIANTS = ("", "LAYER_NO_MMA", "LAYER_NO_STORE", "LAYER_NO_STREAM",
+                        "LAYER_TILE_OVERLAP")
+
+
+def layer_split_cells():
+    """Each of the layer's kernels at a middle layer of each stage (B=128)
+    with one part off, beside the unchanged source: what a part costs is the
+    difference."""
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    libs = _toggled_libs("transformer_layer", LAYER_SPLIT_TOGGLES, LAYER_SPLIT_VARIANTS)
+    dev = torch.device("cuda")
+    rows = []
+    saved = list(ftl._LIB)
+    try:
+        for l, cin, c, h, f, n in LAYER_STAGES:
+            ops = _layer_ops(ftl, dev, c, h, f, c, False, seed=l)
+            x2 = torch.randn((LAYER_BP * l, c), generator=torch.Generator(device=dev)
+                             .manual_seed(l), device=dev).to(torch.bfloat16)
+            qkv = ftl.ln_qkv_cuda(x2, ops, l)
+            ctx = ftl.attention_cuda(qkv, l, ops)
+            row = {"cell": "split_step_layer", "L": l, "C": c}
+            for v in LAYER_SPLIT_VARIANTS:
+                ftl._LIB[:] = [ftl.bind(libs[v])]
+                key = v or "all on"
+                row.setdefault("ln_qkv", {})[key] = stream_ms(lambda: ftl.ln_qkv_cuda(x2, ops, l))
+                row.setdefault("attention", {})[key] = stream_ms(
+                    lambda: ftl.attention_cuda(qkv, l, ops))
+                row.setdefault("proj_ffn", {})[key] = stream_ms(
+                    lambda: ftl.proj_ffn_cuda(x2, ctx, ops, l))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        ftl._LIB[:] = saved
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split-step", action="store_true",
                     help="time copies of the persistent (gru) and training (train) kernels "
                          "with parts of the step off")
-    ap.add_argument("--only", default="qmatmul,flash,gru,train",
-                    help="comma-separated kernels to time (qmatmul, flash, gru, train)")
+    ap.add_argument("--only", default="qmatmul,flash,gru,train,layer",
+                    help="comma-separated kernels to time (qmatmul, flash, gru, train, layer)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -506,21 +678,21 @@ def main() -> int:
     print(f"{smi} | package {os.path.dirname(port.__file__)}", flush=True)
     only = set(args.only.split(","))
     res = {"device": smi}
-    if "qmatmul" in only:
-        res["qmatmul"] = qmatmul_cells(args.sweep)
-    if "flash" in only:
-        res["flash"] = flash_cells()
-    if "gru" in only:
-        res["gru"] = gru_cells(args.sweep)
-    if "train" in only:
-        res["train"] = train_cells(args.sweep)
-    if args.split_step and "gru" in only:
-        res["split_step"] = split_step_cells()
-    if args.split_step and "train" in only:
-        res["split_step_train"] = train_split_cells()
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(res, f, indent=1)
+    cells = (("qmatmul", "qmatmul", lambda: qmatmul_cells(args.sweep)),
+             ("flash", "flash", flash_cells),
+             ("gru", "gru", lambda: gru_cells(args.sweep)),
+             ("train", "train", lambda: train_cells(args.sweep)),
+             ("layer", "layer", lambda: layer_cells(args.sweep)),
+             ("gru", "split_step", split_step_cells),
+             ("train", "split_step_train", train_split_cells),
+             ("layer", "split_step_layer", layer_split_cells))
+    for kernel, key, fn in cells:
+        if kernel not in only or (key.startswith("split_step") and not args.split_step):
+            continue
+        res[key] = fn()
+        if args.out:   # after every section, so that a later failure keeps the rest
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
     return 0
 
 
