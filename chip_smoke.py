@@ -81,7 +81,11 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      bf16 (two launches bit-equal), beside ``scaled_dot_product_attention``;
      the fused inverted
      residual (``csrc/inverted_residual.cu``) at (128, 64, 64, 64), E=256,
-     with the residual; the fused layer's per-sequence kernel
+     with the residual, two launches bit-equal, beside the same block as
+     three cuDNN convolutions (the library column), and its tile kernel
+     (``csrc/inverted_residual_tile.cu``, the route of the shapes the strip
+     kernel does not take) at E=384, two launches bit-equal; the fused
+     layer's per-sequence kernel
      (``csrc/transformer_layer_seq.cu``, its route past the row-tile kernels)
      at C=320 and at L=640, every flag on;
  14. MobileViT through the entry points on
@@ -95,7 +99,7 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      first 32 images against the plain CPU run; the calibrated
      ``mobilevit_synth_full_q4km.gxt`` classifying the same images; the
      ``features`` command; ``extract_features`` at B=128 bf16 timed with CUDA
-     events and one forward split by ``torch.profiler``;
+     events and one forward of each bf16 route split by ``torch.profiler``;
  15. the ``VisionEngine`` (ladder 8/32/128, u8 transport, bf16): 300 mixed
      classify/features requests in bursts, every 23rd canceled, each served
      result against the offline forward of the same image.
@@ -174,6 +178,10 @@ CORPUS = os.path.join(REPO, "checkpoints", "shakespeare.txt")
 CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+# exp2 results a second on the H100's MUFU units: 16 a clock per
+# multiprocessor (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), 132 multiprocessors, 1.98 GHz boost
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 PEAK_OPS = {"float32": 67e12,  # f32 FMA on CUDA cores (the kernels' products)
             "bfloat16": 989e12,  # bf16 dense tensor-core peak
             # f32 products as 3xTF32 on the tensor cores (qmatmul and flash
@@ -214,6 +222,8 @@ VIT_CKPT = os.path.join(REPO, "checkpoints", "mobilevit_synth_full.ggml")
 VIT_Q4KM = os.path.join(REPO, "checkpoints", "mobilevit_synth_full_q4km.gxt")
 VIT_BATCH, VIT_IMAGES, VIT_CPU_IMAGES = 128, 320, 32
 VIT_IR_SHAPE = (128, 64, 64, 64, 256, 64)     # (B, H, W, C, E, Cout) of layer_2's blocks
+# a shape the strip kernel does not take (E past 256): the tile kernel's check
+VIT_IR_TILE_SHAPE = (128, 64, 64, 64, 384, 64)
 VIT_ENGINE_BURSTS = (5, 8, 30, 128, 3, 100, 17, 2, 7)   # 300 requests
 VIT_CANCEL_EVERY = 23
 # bf16 kernels against their plain versions on the main path's shapes: max
@@ -1156,6 +1166,47 @@ def train_phase(tag, dev, tok, kernel_ms):
 LAYER_KERNELS = ("transformer_ln_qkv", "transformer_attention", "transformer_proj_ffn")
 
 
+def ir_bound(b, h, w, c, e, cout):
+    """Least time (ms) of the inverted residual on an H100 and what bounds
+    it: the bytes (x and the output once, the weights) at HBM_BYTES_PER_S;
+    the two 1x1 products at the bf16 tensor rate; the depthwise's 18
+    operations an expanded element at the f32 CUDA-core rate; one MUFU
+    exponential a SiLU (two SiLUs an expanded element) at MUFU_EXP_PER_S."""
+    px = b * h * w
+    parts = {"bytes": (px * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4)
+             / HBM_BYTES_PER_S,
+             "tensor": px * 2 * (c * e + e * cout) / PEAK_OPS["bfloat16"],
+             "depthwise": px * 18 * e / PEAK_OPS["float32"],
+             "mufu": px * 2 * e / MUFU_EXP_PER_S}
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    by = max(parts, key=parts.get)
+    return parts[by], by, parts
+
+
+def cudnn_inverted_residual(x, args):
+    """The block as cuDNN computes it, the library column of kernel 8 (timed
+    only, never called by the port): three ``F.conv2d`` in channels_last
+    bf16 with BN folded into weights and biases, ``F.silu`` after the first
+    two, ``+ x``."""
+    import torch
+    import torch.nn.functional as F
+
+    wexp, bexp, kdw, bdw, wred, bred = args
+    bf, cl = torch.bfloat16, torch.channels_last
+    w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
+    w3 = wred.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    b1, b2, b3 = bexp.to(bf), bdw.to(bf), bred.to(bf)
+    xc = x.permute(0, 3, 1, 2)      # NHWC storage seen as channels_last NCHW
+
+    def chain():
+        y = F.silu(F.conv2d(xc, w1, b1))
+        y = F.silu(F.conv2d(y, w2, b2, padding=1, groups=w2.shape[0]))
+        return F.conv2d(y, w3, b3) + xc
+
+    return chain
+
+
 def vision_kernel_phase(tag, params, dev):
     """Phase 13: each vision kernel against its plain version on the card at
     the shapes the main path gives it for B=128 images, with the kernel's,
@@ -1400,30 +1451,65 @@ def vision_kernel_phase(tag, params, dev):
         t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"
         del t["bound_t"]
 
-    # kernel 8 at layer_2's shape, with the residual, on the model's folded weights
+    # kernel 8 at layer_2's shape, with the residual, on the model's folded
+    # weights, made into the kernel's operands once (as the block keeps them)
     b, hh, ww, c, e, cout = VIT_IR_SHAPE
     blk = params.layer_2[1]
     wexp, bexp = fir.folded_conv_weights(blk.expand_1x1)
     kdw, bdw = fir.folded_conv_weights(blk.conv_3x3)
     wred, bred = fir.folded_conv_weights(blk.reduce_1x1)
     args = (wexp.reshape(c, e), bexp, kdw.reshape(3, 3, e), bdw, wred.reshape(e, cout), bred)
+    ops = fir.ir_operands(*args)
     x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(bf16)
-    got = fir.fused_ir_cuda(x, *args, use_residual=True)
+    got = fir.fused_ir_cuda(x, ops, use_residual=True)
+    again = fir.fused_ir_cuda(x, ops, use_residual=True)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{tag}: fused inverted residual: two launches differ")
     plain_args = (args[0].to(bf16), args[1], args[2], args[3], args[4].to(bf16), args[5])
     want = fir.fused_ir_plain(x, *plain_args, use_residual=True)
     err, mean, gap, _ = bf16_check(f"{tag}: fused inverted residual {VIT_IR_SHAPE}", "ir", got,
                                    want, fir.fused_ir_plain(x.float(), *args, use_residual=True))
-    ms = cuda_ms(lambda: fir.fused_ir_cuda(x, *args, use_residual=True), n=20)
+    del got, again, want
+    ms = cuda_ms(lambda: fir.fused_ir_cuda(x, ops, use_residual=True), n=20)
     plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *plain_args, use_residual=True), n=3)
-    flops = b * hh * ww * (2 * c * e + 18 * e + 2 * e * cout)
-    nbytes = b * hh * ww * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    log(f"[{tag}] fused inverted residual (B, H, W, C, E, Cout) = {VIT_IR_SHAPE} bf16: max abs err "
-        f"{err:.3g}, mean {mean:.3g} (plain f32 vs bf16: {gap:.3g}) | kernel {ms:.4f} ms | plain "
-        f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library: none")
+    lib_ms = cuda_ms(cudnn_inverted_residual(x, args), n=20)
+    b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout)
+    log(f"[{tag}] fused inverted residual (B, H, W, C, E, Cout) = {VIT_IR_SHAPE} bf16, plan "
+        f"{fir.ir_plan(b, hh, ww, c, e, cout)}: max abs err {err:.3g}, mean {mean:.3g} (plain f32 "
+        f"vs bf16: {gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms | plain "
+        f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()) + f") | library: the cuDNN chain (three "
+        f"F.conv2d, channels_last bf16, BN folded, two F.silu, + x; not one call) {lib_ms:.4f} ms")
     tot["fused_inverted_residual"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                          bound_by=b_by, library_ms=None)
+                                          bound_by="bytes" if b_by == "bytes" else "operations",
+                                          library_ms=lib_ms)
+    del x
+    # the tile kernel (csrc/inverted_residual_tile.cu), the route of the shapes
+    # the strip kernel does not take (no block of the model has one), on
+    # seeded random weights with the residual: two launches bit-equal
+    b, hh, ww, c, e, cout = VIT_IR_TILE_SHAPE
+    args = tuple(torch.randn(shape, generator=g, device=dev) * 0.2
+                 for shape in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
+    ops = fir.ir_operands(*args)
+    check(not ops.strip, f"{tag}: {VIT_IR_TILE_SHAPE} should run on the tile kernel")
+    x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(bf16)
+    before = fir.LAUNCHES["inverted_residual_tile"]
+    got = fir.fused_ir_cuda(x, ops, use_residual=True)
+    again = fir.fused_ir_cuda(x, ops, use_residual=True)
+    torch.cuda.synchronize()
+    check(fir.LAUNCHES["inverted_residual_tile"] == before + 2 and torch.equal(got, again),
+          f"{tag}: inverted residual tile kernel {VIT_IR_TILE_SHAPE}: not launched twice, or two "
+          f"launches differ")
+    plain_args = (args[0].to(bf16), args[1], args[2], args[3], args[4].to(bf16), args[5])
+    err, mean, gap, scale = bf16_check(
+        f"{tag}: inverted residual tile kernel {VIT_IR_TILE_SHAPE}", "ir", got,
+        fir.fused_ir_plain(x, *plain_args, use_residual=True),
+        fir.fused_ir_plain(x.float(), *args, use_residual=True))
+    del got, again
+    ms = cuda_ms(lambda: fir.fused_ir_cuda(x, ops, use_residual=True), n=5)
+    log(f"[{tag}] inverted residual tile kernel (B, H, W, C, E, Cout) = {VIT_IR_TILE_SHAPE} bf16: "
+        f"max abs err {err:.3g} (largest value {scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: "
+        f"{gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms")
     return tot
 
 
@@ -1545,46 +1631,50 @@ def vision_model_phase(tag, dev, images, labels):
     log(f"[{tag}] features --weights mobilevit_synth_full.ggml --compute bfloat16: {lines[0]} | "
         f"{lines[3][:70]}")
 
-    # throughput of extract_features at B=128, bf16, and one forward profiled
+    # throughput of extract_features at B=128 on both bf16 routes
     xb = x_all[:VIT_BATCH].to(dev)
     rates = {}
     for name, params in (("bf16", p), ("bf16+fused_ir", p_ir)):
         ms = cuda_ms(lambda: extract_features(params, xb, compute_dtype=bf16), n=10)
         rates[name] = (ms, VIT_BATCH / ms * 1e3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        extract_features(p, xb, compute_dtype=bf16)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"fused layer: ln_qkv": 0.0, "attention": 0.0, "proj_ffn": 0.0, "convolutions": 0.0,
-              "other device work": 0.0}
-    other = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
-        key = e.key.lower()
-        part = next((k for k, w in (("fused layer: ln_qkv", "layer_ln_qkv_kernel"),
-                                    ("attention", "layer_attention_kernel"),
-                                    ("proj_ffn", "layer_proj_ffn_kernel")) if w in key), None)
-        if part:
-            groups[part] += ms
-        elif any(w in key for w in ("conv", "cudnn", "xmma", "implicit", "winograd", "nhwc",
-                                    "fprop")):
-            groups["convolutions"] += ms
-        else:
-            groups["other device work"] += ms
-            other.append((ms, e.key[:60]))
-    busy = sum(groups.values())
     log(f"[{tag}] extract_features B={VIT_BATCH} bf16: " + ", ".join(
-        f"{k} {ms:.3f} ms = {r:,.0f} images/s" for k, (ms, r) in rates.items())
-        + (f" | one forward under torch.profiler: {wall_ms:.2f} ms wall, device busy {busy:.3f} ms "
-           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}): "
-           + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()) if busy > 0 else
-           " | torch.profiler recorded no device time"))
-    log(f"[{tag}] the largest other device work: " + "; ".join(
-        f"{k} {ms:.3f} ms" for ms, k in sorted(other, reverse=True)[:6]))
+        f"{k} {ms:.3f} ms = {r:,.0f} images/s" for k, (ms, r) in rates.items()))
+    # one forward of each bf16 route under torch.profiler
+    kernels = (("fused layer: ln_qkv", "layer_ln_qkv_kernel"),
+               ("attention", "layer_attention_kernel"), ("proj_ffn", "layer_proj_ffn_kernel"),
+               ("inverted residual", "ir_strip_kernel"))
+    for name, params in (("bf16", p), ("bf16+fused_ir", p_ir)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            extract_features(params, xb, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups = {k: 0.0 for k, _ in kernels}
+        groups.update({"convolutions": 0.0, "other device work": 0.0})
+        other = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+            key = e.key.lower()
+            part = next((k for k, w in kernels if w in key), None)
+            if part:
+                groups[part] += ms
+            elif any(w in key for w in ("conv", "cudnn", "xmma", "implicit", "winograd", "nhwc",
+                                        "fprop")):
+                groups["convolutions"] += ms
+            else:
+                groups["other device work"] += ms
+                other.append((ms, e.key[:60]))
+        busy = sum(groups.values())
+        log(f"[{tag}] one {name} forward under torch.profiler: " + (
+            f"{wall_ms:.2f} ms wall, device busy {busy:.3f} ms (idle share "
+            f"{max(0.0, 1 - busy / wall_ms):.3f}): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()) if busy > 0 else
+            "torch.profiler recorded no device time"))
+        log(f"[{tag}] the largest other device work ({name}): " + "; ".join(
+            f"{k} {ms:.3f} ms" for ms, k in sorted(other, reverse=True)[:6]))
     return main_launches, p
 
 

@@ -152,15 +152,6 @@ __device__ __forceinline__ void wgmma_n48(float (&d)[24], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -174,13 +165,6 @@ __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)
 // ---------------------------------------------------------------------------
 // pieces shared by the row-tile kernels (A and C)
 // ---------------------------------------------------------------------------
-
-// z * sigmoid(z) with the hardware exp2 and reciprocal (a few f32 ulps from
-// the correctly rounded steps of mma_common's silu; the result is rounded to
-// bf16 or scaled by BN next, and the SiLU epilogue was a fifth of proj_ffn)
-__device__ __forceinline__ float silu_fast(float z) {
-  return mulf(z, __fdividef(1.f, addf(1.f, __expf(-z))));
-}
 
 // The weight ring: `stages` buffers of `sb` bytes. Tile i of the stream (at
 // i * sb bytes of it) goes to buffer i % stages; the producer waits for the

@@ -1,5 +1,6 @@
 """MobileNetV2 inverted residual in one pass: ``csrc/inverted_residual.cu``
-and its plain PyTorch version.
+(``csrc/inverted_residual_tile.cu`` for the shapes it does not take) and
+their plain PyTorch version.
 
 Replaces the TPU kernel ``ops/fused_inverted_residual.py``
 ``fused_inverted_residual`` of the JAX package (body ``_ir_kernel``): expand
@@ -15,24 +16,36 @@ each convolution. The arithmetic, as the TPU body has it:
   sums in order; ``SiLU(acc + bdw) -> cd``;
 * ``out = y . Wred + bred`` in f32, ``+ x`` with the residual, ``-> cd``.
 
-On a CPU tensor :func:`fused_inverted_residual` runs
-:func:`fused_ir_plain`; on a CUDA tensor it launches the kernel (bf16,
-stride 1) or raises. The plain version also takes stride 2.
+On a CPU tensor :func:`fused_inverted_residual` runs :func:`fused_ir_plain`;
+on a CUDA tensor it launches a kernel (bf16, stride 1) or raises. The strip
+kernel (``csrc/inverted_residual.cu``) takes C and Cout multiples of 8, C up
+to 64, E up to 256 and widths whose weights and rings fit one block
+(:func:`ir_plans`);
+every other shape goes to the 8 x 8 tile kernel
+(``csrc/inverted_residual_tile.cu``, counter ``inverted_residual_tile``).
+Both count under ``fused_inverted_residual``. The plain version also takes
+stride 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ggml_experiments_tpu_torch.device import resolve_dtype
+from ggml_experiments_tpu_torch.device import current_stream_handle, resolve_dtype
 from ggml_experiments_tpu_torch.ops.activations import silu
-from ggml_experiments_tpu_torch.ops.fused_transformer_layer import _bt
+from ggml_experiments_tpu_torch.ops.fused_transformer_layer import _bt, _smem_limit, k_tiles
 
-# launches of the CUDA kernel; only the kernel wrapper adds to it
-LAUNCHES = {"fused_inverted_residual": 0}
+# launches of the CUDA kernels; only the kernel wrappers add to them
+LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0}
+
+SMEM_LIMIT = 232448     # bytes of shared memory an H100 block may use
 
 
 def fused_ir_plain(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int = 1,
@@ -66,20 +79,150 @@ def fused_ir_plain(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int = 1,
     return out.to(cd).reshape(b, ho, wo, cout)
 
 
-def _lib():
+# ---- the strip kernel's plans -------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class IRPlan:
+    """A cut of ``csrc/inverted_residual.cu``: a block owns a strip of ``s``
+    output columns of one image and walks down it in bands of ``BAND`` rows;
+    x arrives through a ring of ``k`` TMA stages (``k - 1`` bands ahead)."""
+
+    s: int
+    k: int
+
+
+BAND = 2                 # output rows a band (the kernel's R)
+PLAN_STRIPS, PLAN_STAGES = (16, 32), (2, 3)
+MAX_C, MAX_E = 64, 256   # Wexp's fragments in registers; 16 channels a warp, 16 warps
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def ir_smem_bytes(plan: IRPlan, c: int, e: int, cout: int) -> int:
+    """Dynamic shared memory of a launch of ``plan`` (the kernel's ``geom``):
+    the ring of R + 2 expanded rows (R = ``BAND``; it first holds Wexp),
+    Wred, the y tile, the x ring, the staging tile, bred and the barriers."""
+    s, r, k = plan.s, BAND, plan.k
+    ep, cn = _pad(e, 64), _pad(cout, 64)
+    sp, rs = s + 2, r * s
+    slot = _pad(sp * (ep + 8) + ((sp - 1) // (s // 4) + 1) * 16, 8)
+    o = 0
+    for size in (max((r + 2) * slot * 2, ep * 128), ep // 64 * cn * 128,
+                 -(-rs // 64) * ep // 64 * 8192, k * _pad((r + 1) * sp, 8) * 128,
+                 cn // 64 * rs * 128):
+        o = _pad(o + size, 1024)
+    return o + cn * 4 + (k + 1) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=64)
+def ir_plans(c: int, e: int, cout: int, limit: int = SMEM_LIMIT) -> Tuple[IRPlan, ...]:
+    """Every plan the strip kernel takes at these widths: C up to 64 and C
+    and Cout multiples of 8 (TMA's 16-byte strides), an even E up to 256,
+    and the plan's shared memory within ``limit``. Empty: the tile kernel's
+    shape."""
+    if c % 8 or c > MAX_C or cout % 8 or e % 2 or e > MAX_E:
+        return ()
+    return tuple(IRPlan(s, k) for s in PLAN_STRIPS for k in PLAN_STAGES
+                 if ir_smem_bytes(IRPlan(s, k), c, e, cout) <= limit)
+
+
+@functools.lru_cache(maxsize=256)
+def ir_plan(b: int, h: int, w: int, c: int, e: int, cout: int,
+            limit: int = SMEM_LIMIT) -> Optional[IRPlan]:
+    """The strip kernel's plan for a (b, h, w, c) input, None where it does
+    not take the widths: strips of 32 columns (16 where the image is at most
+    16 wide), a 3-stage x ring (2 where 3 does not fit), or the nearest that
+    fits."""
+    plans = ir_plans(c, e, cout, limit)
+    if not plans:
+        return None
+    s = 32 if w > 16 else 16
+    return min(plans, key=lambda p: (p.s != s, -p.k))
+
+
+# ---- operands ------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class IROperands:
+    """A block's weights in the layout of the kernel that takes its widths,
+    made once (:func:`ir_operands`). Strip kernel: Wexp and Wred as 128-byte
+    swizzled (64-channel chunk, output channel, 64) tiles, E and Cout padded
+    to 64 with zeros in every vector; tile kernel: both transposed and
+    padded on K (``_bt``)."""
+
+    c: int
+    e: int
+    cout: int
+    strip: bool
+    wexp: torch.Tensor
+    bexp: torch.Tensor
+    kdw: torch.Tensor
+    bdw: torch.Tensor
+    wred: torch.Tensor
+    bred: torch.Tensor
+    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernels' order
+
+    def __post_init__(self):
+        self.ptrs = tuple(t.data_ptr() for t in (self.wexp, self.bexp, self.kdw, self.bdw,
+                                                 self.wred, self.bred))
+
+
+def ir_operands(wexp, bexp, kdw, bdw, wred, bred) -> IROperands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch."""
+    c, e = wexp.shape
+    cout = wred.shape[1]
+    strip = bool(ir_plans(c, e, cout))
+    if not strip:
+        vec = lambda v, n: v.float().reshape(n).contiguous()  # noqa: E731
+        return IROperands(c, e, cout, False, _bt(wexp), vec(bexp, e), vec(kdw, 9 * e),
+                          vec(bdw, e), _bt(wred), vec(bred, cout))
+    ep, cn = _pad(e, 64), _pad(cout, 64)
+
+    def vec(v, n, rows=1):
+        out = torch.zeros((rows, n), dtype=torch.float32, device=v.device)
+        out[:, :v.numel() // rows] = v.float().reshape(rows, -1)
+        return out.reshape(-1)
+
+    return IROperands(c, e, cout, True, k_tiles(wexp.t().to(torch.bfloat16), ep).contiguous(),
+                      vec(bexp, ep), vec(kdw, ep, rows=9), vec(bdw, ep),
+                      k_tiles(wred.t().to(torch.bfloat16), cn).contiguous(), vec(bred, cn))
+
+
+def _lib(name: str):
     from ggml_experiments_tpu_torch import _build
 
-    lib = _build.load("inverted_residual")
+    lib = _build.load(name)
+    if getattr(lib, "_gxt_bound", False):
+        return lib
+    lib._gxt_bound = True
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gxt_inverted_residual.restype = i
-    lib.gxt_inverted_residual.argtypes = [p] * 8 + [i] * 7 + [p]
-    lib.gxt_inverted_residual_smem.restype = ctypes.c_longlong
-    lib.gxt_inverted_residual_smem.argtypes = [i, i]
+    if name == "inverted_residual":
+        lib.gxt_inverted_residual.restype = i
+        lib.gxt_inverted_residual.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.gxt_inverted_residual_smem.restype = ctypes.c_longlong
+        lib.gxt_inverted_residual_smem.argtypes = [i] * 5
+    else:
+        lib.gxt_ir_tile.restype = i
+        lib.gxt_ir_tile.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.gxt_ir_tile_smem.restype = ctypes.c_longlong
+        lib.gxt_ir_tile_smem.argtypes = [i, i]
     return lib
 
 
-def fused_ir_cuda(x, wexp, bexp, kdw, bdw, wred, bred, *, use_residual: bool = False):
-    """Launch the kernel: x a bf16 (B, H, W, C) CUDA tensor, stride 1."""
+_SMEM_AGREED = set()   # (plan, C, E, Cout) whose reckoning the kernel confirmed
+_DEVICE_SMEM = {}      # device index -> shared memory a block may opt into
+
+
+def fused_ir_cuda(x: torch.Tensor, ops: IROperands, *, use_residual: bool = False,
+                  _plan: Optional[IRPlan] = None) -> torch.Tensor:
+    """Launch the kernel that takes ``ops``' widths: x a bf16 (B, H, W, C)
+    CUDA tensor, stride 1. ``_plan`` forces the strip kernel's plan (tests,
+    sweeps). The host work is kept short: it is part of every call."""
     from ggml_experiments_tpu_torch import _build
 
     dev = x.device
@@ -87,27 +230,49 @@ def fused_ir_cuda(x, wexp, bexp, kdw, bdw, wred, bred, *, use_residual: bool = F
         raise ValueError(f"fused_ir_cuda: x must be a bf16 (B, H, W, C) CUDA tensor, got "
                          f"{x.dtype}{tuple(x.shape)} on {dev}")
     b, h, w, c = x.shape
-    e, cout = wexp.shape[1], wred.shape[1]
-    if wexp.shape[0] != c or wred.shape[0] != e or (use_residual and c != cout) or e % 2:
-        raise ValueError(f"fused_ir_cuda: weights {tuple(wexp.shape)}, {tuple(wred.shape)} do "
-                         f"not meet x of width {c} (the kernel takes an even E)")
-    lib = _lib()
-    need = lib.gxt_inverted_residual_smem(c, e)
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
-                    232448)
-    if need > limit:
-        raise ValueError(f"fused_ir_cuda: C={c}, E={e} needs {need} bytes of shared memory, "
-                         f"the device allows {limit}")
-    x = x.contiguous()
-    ops = [_bt(wexp), bexp.float().contiguous(), kdw.float().reshape(9, e).contiguous(),
-           bdw.float().contiguous(), _bt(wred), bred.float().contiguous()]
+    e, cout = ops.e, ops.cout
+    if ops.c != c or (use_residual and c != cout) or e % 2:
+        raise ValueError(f"fused_ir_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x of "
+                         f"width {c} (the kernels take an even E)")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    limit = _DEVICE_SMEM.get(dev.index)
+    if limit is None:
+        limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
+    if ops.strip:
+        plan = _plan or ir_plan(b, h, w, c, e, cout, limit)
+        if _plan is not None and plan not in ir_plans(c, e, cout, limit):
+            raise ValueError(f"fused_ir_cuda: the strip kernel does not take {plan} at (C, E, "
+                             f"Cout) = ({c}, {e}, {cout})")
+        lib = _lib("inverted_residual")
+        if (plan, c, e, cout) not in _SMEM_AGREED:
+            need = ir_smem_bytes(plan, c, e, cout)
+            if lib.gxt_inverted_residual_smem(plan.s, plan.k, c, e, cout) != need:
+                raise RuntimeError(f"fused_ir_cuda: {plan} needs {need} bytes of shared memory "
+                                   f"here, the kernel reckons otherwise")
+            _SMEM_AGREED.add((plan, c, e, cout))
+        launch, extra = lib.gxt_inverted_residual, (plan.s, plan.k)
+    else:
+        if _plan is not None:
+            raise ValueError(f"fused_ir_cuda: (C, E, Cout) = ({c}, {e}, {cout}) runs on the tile "
+                             f"kernel, which takes no plan")
+        lib = _lib("inverted_residual_tile")
+        need = lib.gxt_ir_tile_smem(c, e)
+        if need > limit:
+            raise ValueError(f"fused_ir_cuda: C={c}, E={e} needs {need} bytes of shared memory, "
+                             f"the device allows {limit}")
+        launch, extra = lib.gxt_ir_tile, ()
+        plan = "tile kernel"
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.gxt_inverted_residual(x.data_ptr(), *(t.data_ptr() for t in ops),
-                                         out.data_ptr(), b, h, w, c, e, cout,
-                                         int(use_residual),
-                                         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, f"fused_inverted_residual (B, H, W, C, E) = ({b}, {h}, {w}, {c}, {e})")
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        code = launch(x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e, cout,
+                      int(use_residual), *extra, current_stream_handle(dev))
+    if code:
+        _build.check(lib, code, f"fused_inverted_residual (B, H, W, C, E, Cout) = ({b}, {h}, "
+                                f"{w}, {c}, {e}, {cout}), {plan}")
+    if not ops.strip:
+        LAUNCHES["inverted_residual_tile"] += 1
     LAUNCHES["fused_inverted_residual"] += 1
     return out
 
@@ -126,7 +291,8 @@ def fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int 
     if stride != 1 or cd != torch.bfloat16:
         raise ValueError(f"fused_inverted_residual: the CUDA kernel runs bf16 at stride 1, got "
                          f"{cd} at stride {stride}")
-    return fused_ir_cuda(x, wexp, bexp, kdw, bdw, wred, bred, use_residual=use_residual)
+    return fused_ir_cuda(x, ir_operands(wexp, bexp, kdw, bdw, wred, bred),
+                         use_residual=use_residual)
 
 
 def folded_conv_weights(conv):
@@ -138,14 +304,39 @@ def folded_conv_weights(conv):
     return k, torch.zeros(k.shape[-1], dtype=torch.float32, device=k.device)
 
 
-def inverted_residual_fused(params, x: torch.Tensor, *,
-                            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Run an ``InvertedResidualParams`` through :func:`fused_inverted_residual`."""
+def _folded(params):
     wexp, bexp = folded_conv_weights(params.expand_1x1)
     kdw, bdw = folded_conv_weights(params.conv_3x3)
     wred, bred = folded_conv_weights(params.reduce_1x1)
     e = wexp.shape[-1]
-    return fused_inverted_residual(
-        x, wexp.reshape(wexp.shape[-2], e), bexp, kdw.reshape(3, 3, e), bdw,
-        wred.reshape(e, wred.shape[-1]), bred, stride=params.conv_3x3.stride,
-        use_residual=params.use_residual, compute_dtype=compute_dtype)
+    return (wexp.reshape(wexp.shape[-2], e), bexp, kdw.reshape(3, 3, e), bdw,
+            wred.reshape(e, wred.shape[-1]), bred)
+
+
+def block_operands(params) -> IROperands:
+    """The block's kernel operands, kept on its params: made at its first
+    CUDA call and again when any of its weights or BN vectors is another
+    tensor or was written in place (the key holds each tensor's storage,
+    shape, stride and version counter, and the entry holds the tensors)."""
+    tensors = []
+    for conv in (params.expand_1x1, params.conv_3x3, params.reduce_1x1):
+        tensors += [conv.kernel] + ([conv.bn.scale, conv.bn.bias] if conv.bn is not None else [])
+    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device, t._version)
+                for t in tensors)
+    hit = getattr(params, "_gxt_ir_operands", None)
+    if hit is None or hit[0] != key:
+        hit = (key, ir_operands(*_folded(params)), tensors)
+        object.__setattr__(params, "_gxt_ir_operands", hit)
+    return hit[1]
+
+
+def inverted_residual_fused(params, x: torch.Tensor, *,
+                            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Run an ``InvertedResidualParams`` through :func:`fused_inverted_residual`
+    (on the card with the operands :func:`block_operands` keeps)."""
+    cd = resolve_dtype(compute_dtype)
+    stride = params.conv_3x3.stride
+    if x.device.type == "cpu" or stride != 1 or cd != torch.bfloat16:
+        return fused_inverted_residual(x, *_folded(params), stride=stride,
+                                       use_residual=params.use_residual, compute_dtype=cd)
+    return fused_ir_cuda(x.to(cd), block_operands(params), use_residual=params.use_residual)

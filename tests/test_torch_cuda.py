@@ -769,24 +769,106 @@ def test_sequence_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out_pr
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
 
-@pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", [(2, 64, 64, 64, 256, 64, True),
-                                                   (3, 12, 10, 8, 32, 16, False),
-                                                   (1, 9, 17, 24, 96, 24, True)])
-def test_fused_inverted_residual_kernel_matches_plain(dev, b, hh, ww, c, e, cout, resid):
+def _ir_inputs(dev, b, hh, ww, c, e, cout):
     rng = np.random.default_rng(e)
 
     def t(*s, scale=0.2):
         return torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev)
 
     args = (t(c, e), t(e), t(3, 3, e), t(e), t(e, cout), t(cout))
-    x = t(b, hh, ww, c, scale=1.0).to(torch.bfloat16)
-    before = fir.LAUNCHES["fused_inverted_residual"]
+    return t(b, hh, ww, c, scale=1.0).to(torch.bfloat16), args
+
+
+# the strip kernel at the main path's shape (small B), ragged strips (W not a
+# multiple of 32 or 16), ragged bands (odd H), B = 1, H or W of 1 and 2, C =
+# 8 / 16 / 24, Cout past or short of 64; then shapes that the strip kernel
+# does not take (C not a multiple of 8, E > 256), which run on the tile kernel
+IR_SHAPES = [(2, 64, 64, 64, 256, 64, True), (3, 12, 10, 8, 32, 16, False),
+             (1, 9, 17, 24, 96, 24, True), (1, 1, 1, 8, 32, 8, True), (1, 2, 2, 8, 64, 8, True),
+             (2, 1, 40, 16, 64, 16, True), (1, 37, 2, 24, 96, 24, False),
+             (2, 5, 33, 64, 256, 64, True), (1, 7, 65, 32, 128, 72, False),
+             (2, 3, 47, 16, 256, 32, False), (1, 9, 17, 12, 48, 12, True),
+             (2, 10, 11, 64, 384, 64, True)]
+
+
+@pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", IR_SHAPES)
+def test_fused_inverted_residual_kernel_matches_plain(dev, b, hh, ww, c, e, cout, resid):
+    x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
+    before = dict(fir.LAUNCHES)
     got = fir.fused_inverted_residual(x, *args, use_residual=resid)
     torch.cuda.synchronize()
-    assert fir.LAUNCHES["fused_inverted_residual"] == before + 1
+    tile = not fir.ir_plans(c, e, cout)
+    assert fir.LAUNCHES["fused_inverted_residual"] == before["fused_inverted_residual"] + 1
+    assert fir.LAUNCHES["inverted_residual_tile"] == before["inverted_residual_tile"] + tile
     want = fir.fused_ir_plain(x, args[0].to(torch.bfloat16), args[1], args[2], args[3],
                               args[4].to(torch.bfloat16), args[5], use_residual=resid)
     _bf16_close(got, want, 2 ** -6, 1e-4)
+
+
+@pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", [(2, 21, 45, 64, 256, 64, True),
+                                                   (1, 7, 33, 16, 64, 32, False),
+                                                   (1, 5, 9, 24, 96, 24, True)])
+def test_inverted_residual_plans_give_the_same_bits(dev, b, hh, ww, c, e, cout, resid):
+    """Every plan the strip kernel takes gives the default plan's bits, and
+    two launches of one plan are bit-equal."""
+    x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
+    ops = fir.ir_operands(*args)
+    want = fir.fused_ir_cuda(x, ops, use_residual=resid)
+    again = fir.fused_ir_cuda(x, ops, use_residual=resid)
+    torch.cuda.synchronize()
+    assert torch.equal(want, again)
+    plans = fir.ir_plans(c, e, cout)
+    assert len(plans) >= 4
+    for plan in plans:
+        got = fir.fused_ir_cuda(x, ops, use_residual=resid, _plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+def test_inverted_residual_tile_route_takes_no_plan(dev):
+    x, args = _ir_inputs(dev, 1, 9, 17, 12, 48, 12)
+    with pytest.raises(ValueError, match="takes no plan"):
+        fir.fused_ir_cuda(x, fir.ir_operands(*args), _plan=fir.IRPlan(32, 2))
+    x, args = _ir_inputs(dev, 1, 9, 17, 64, 256, 64)
+    with pytest.raises(ValueError, match="does not take"):
+        fir.fused_ir_cuda(x, fir.ir_operands(*args), _plan=fir.IRPlan(64, 3))
+
+
+def test_inverted_residual_refuses_f32_and_stride_2_on_the_card(dev):
+    """The JAX function takes f32 and stride 2; the CUDA path takes neither
+    and says so (ROADMAP.md Queue C; the model routes neither)."""
+    x, args = _ir_inputs(dev, 1, 8, 8, 8, 32, 8)
+    for kw in (dict(compute_dtype=torch.float32), dict(stride=2)):
+        with pytest.raises(ValueError, match="bf16 at stride 1"):
+            fir.fused_inverted_residual(x, *args, use_residual=True, **kw)
+
+
+def test_inverted_residual_block_keeps_its_operands_on_the_card(dev):
+    from ggml_experiments_tpu_torch.models.mobilevit import InvertedResidualParams
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    rng = np.random.default_rng(2)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.2).to(dev)
+
+    def conv(kh, cin, co, dw=False, act="silu"):
+        return ConvBNAct(kernel=t(kh, kh, cin, co), bn=FoldedBN(t(co) + 1.0, t(co)),
+                         activation=act, depthwise=dw)
+
+    blk = InvertedResidualParams(expand_1x1=conv(1, 32, 128), conv_3x3=conv(3, 1, 128, dw=True),
+                                 reduce_1x1=conv(1, 128, 32, act="none"), use_residual=True,
+                                 fused=True)
+    x = torch.randn((2, 16, 16, 32), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev).to(torch.bfloat16)
+    got = blk(x, compute_dtype=torch.bfloat16)
+    ops = fir.block_operands(blk)
+    again = blk(x, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fir.block_operands(blk) is ops and torch.equal(got, again)
+    want = fir.fused_inverted_residual(x, *fir._folded(blk), use_residual=True)
+    assert torch.equal(got, want)
 
 
 def test_vision_kernels_refuse_what_they_do_not_take(dev):

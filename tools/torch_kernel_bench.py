@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's qmatmul, flash attention, persistent GRU and GRU training
-kernels on one NVIDIA GPU, beside the one PyTorch call that computes the
-same function where there is one.
+"""Time the port's qmatmul, flash attention, persistent GRU, GRU training,
+transformer layer and inverted residual kernels on one NVIDIA GPU, beside
+the PyTorch call (or, for the inverted residual, the chain of calls) that
+computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--only qmatmul,flash,gru,train,layer] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,layer,ir] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -61,6 +62,21 @@ then ``extract_features`` at B=128, bf16, on ``mobilevit_synth_full.ggml``
 ``--split-step`` builds copies of ``csrc/transformer_layer.cu`` with the
 products, the global stores or the weight stream off and times each kernel
 of a middle layer of each stage beside the unchanged source.
+
+The inverted residual (``ir``) runs at B=128 on seeded random weights at
+the main path's shape (64 x 64, 64 -> 256 -> 64, residual) and a
+layer_1-like one (128 x 128, 16 -> 64 -> 32): the kernel on operands made
+once (``call``, ``stream``, ``graph``, and the wrapper's host time a call),
+its error against the plain version, the plain version's time, the cuDNN
+chain (three ``F.conv2d`` in channels_last bf16, BN folded, two
+``F.silu``, ``+ x``) as the library's yardstick and the bound; then
+``extract_features`` at B=128 on ``mobilevit_synth_full.ggml`` at f32, bf16
+and bf16 with ``fused_ir`` (``call``). ``--sweep`` times every plan the
+strip kernel takes; ``--split-step`` builds copies of
+``csrc/inverted_residual.cu`` with the expand, the depthwise, the reduce,
+the output stores or the SiLUs off, the reduce in narrower items, or
+silu_fast, the correctly rounded SiLU or uncontracted taps, and times each
+(with its error) beside the unchanged source.
 """
 
 from __future__ import annotations
@@ -72,6 +88,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -137,6 +154,24 @@ def graph_ms(fn, n=20, reps=5):
         b.synchronize()
         out.append(a.elapsed_time(b) / n)
     return statistics.median(out)
+
+
+def host_us(fn, n=300, reps=5):
+    """Host microseconds of one call: n calls issued without waiting for
+    the card, over n; the least and the median of ``reps`` such runs (the
+    host is shared: the least is the cleanest). Where n calls launch more
+    than the card's queue holds (a wrapper with many small launches a call),
+    the host waits for the card and this reads the card's time instead."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return {"min": min(runs), "median": statistics.median(runs)}
 
 
 def both(fn):
@@ -657,14 +692,211 @@ def layer_split_cells():
     return rows
 
 
+# the inverted residual at B=128: MobileViT-small's layer_2 blocks 1-2 (the
+# main path, with the residual) and a layer_1-like block (128 x 128, 16 ->
+# 32, E=64, no residual; the model runs that one unfused, E < 128)
+IR_CELLS = ((128, 64, 64, 64, 256, 64, True), (128, 128, 128, 16, 64, 32, False))
+H100_SMS, H100_BOOST_HZ = 132, 1.98e9   # MUFU: 16 exponentials a clock per multiprocessor
+
+
+def ir_bound(b, h, w, c, e, cout):
+    """Least time (ms) of the inverted residual on an H100 and what bounds
+    it: the bytes (x and out once, the weights) at 3.35 TB/s; the two 1x1
+    products at 989 TFLOP/s; the depthwise's 18 operations an expanded
+    element at 67 TFLOP/s (f32 on the CUDA cores); one MUFU exponential a
+    SiLU (two SiLUs an expanded element) at 16 a clock per multiprocessor."""
+    px = b * h * w
+    parts = {"bytes": (px * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4)
+             / 3.35e12,
+             "tensor": px * 2 * (c * e + e * cout) / 989e12,
+             "depthwise": px * 18 * e / 67e12,
+             "mufu": px * 2 * e / (16 * H100_SMS * H100_BOOST_HZ)}
+    by = max(parts, key=parts.get)
+    return {k: v * 1e3 for k, v in parts.items()}, by
+
+
+def ir_inputs(b, h, w, c, e, cout, seed=0):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*s, scale=0.2, off=0.0):
+        return torch.randn(s, generator=g, device=dev) * scale + off
+
+    args = (t(c, e), t(e), t(3, 3, e), t(e), t(e, cout), t(cout))
+    return t(b, h, w, c, scale=1.0).to(torch.bfloat16), args
+
+
+def cudnn_ir(x, args, resid):
+    """The same block as cuDNN computes it: three ``F.conv2d`` calls in
+    channels_last bf16 with BN folded into the weights and biases, ``F.silu``
+    after the first two, ``+ x`` (a chain of five or six calls, not one)."""
+    import torch.nn.functional as F
+
+    wexp, bexp, kdw, bdw, wred, bred = args
+    e = wexp.shape[1]
+    bf = torch.bfloat16
+    cl = torch.channels_last
+    w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
+    w3 = wred.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    b1, b2, b3 = bexp.to(bf), bdw.to(bf), bred.to(bf)
+    xc = x.permute(0, 3, 1, 2)      # NHWC storage seen as channels_last NCHW
+
+    def chain():
+        y = F.silu(F.conv2d(xc, w1, b1))
+        y = F.silu(F.conv2d(y, w2, b2, padding=1, groups=e))
+        y = F.conv2d(y, w3, b3)
+        return y + xc if resid else y
+
+    return chain
+
+
+def ir_error(got, want, want32):
+    """max and mean |kernel - plain| and the mean over the plain version's
+    own f32-vs-bf16 distance (chip_smoke.py holds it at 2^-6 of the largest
+    output and 0.01 of that distance)."""
+    d = (got.float() - want.float()).abs()
+    gap = float((want32.float() - want.float()).abs().mean())
+    return {"max_abs_err": float(d.max()), "scale": float(want.float().abs().max()),
+            "mean_abs_err": float(d.mean()), "mean_over_gap": float(d.mean()) / gap}
+
+
+def ir_cells(sweep):
+    """The inverted residual at IR_CELLS: the kernel (``call``, ``stream``,
+    ``graph``) on operands made once, its error against the plain version,
+    the plain version's time, the cuDNN chain as the library's yardstick and
+    the bound; ``--sweep`` times every plan the strip kernel takes."""
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    rows = []
+    new = hasattr(fir, "ir_operands")
+    for b, h, w, c, e, cout, resid in IR_CELLS:
+        x, args = ir_inputs(b, h, w, c, e, cout)
+        bf = torch.bfloat16
+        pargs = (args[0].to(bf), *args[1:4], args[4].to(bf), args[5])
+        if new:
+            ops = fir.ir_operands(*args)
+            fn = lambda: fir.fused_ir_cuda(x, ops, use_residual=resid)  # noqa: E731
+        else:
+            fn = lambda: fir.fused_ir_cuda(x, *args, use_residual=resid)  # noqa: E731
+        got = fn()
+        want = fir.fused_ir_plain(x, *pargs, use_residual=resid)
+        want32 = fir.fused_ir_plain(x.float(), *args, use_residual=resid)
+        bounds, by = ir_bound(b, h, w, c, e, cout)
+        row = {"cell": "ir", "shape": [b, h, w, c, e, cout], "residual": resid,
+               "plan": str(fir.ir_plan(b, h, w, c, e, cout)) if new else "8x8 tiles",
+               "kernel": both(fn), "host_us": host_us(fn), **ir_error(got, want, want32),
+               "plain_call": call_ms(lambda: fir.fused_ir_plain(x, *pargs, use_residual=resid),
+                                     n=3, warmup=1),
+               "cudnn_chain": both(cudnn_ir(x, args, resid)),
+               "bound_ms": bounds[by], "bound_by": by, "bounds_ms": bounds}
+        del want, want32, got
+        if sweep and new:
+            row["sweep"] = {}
+            for plan in fir.ir_plans(c, e, cout):
+                row["sweep"][f"s={plan.s} k={plan.k}"] = stream_ms(
+                    lambda: fir.fused_ir_cuda(x, ops, use_residual=resid, _plan=plan))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    # end to end: extract_features at B=128, 256 px, on the full checkpoint at
+    # f32, bf16, and bf16 with the inverted residual fused (layer_2's blocks)
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+
+    dev = torch.device("cuda")
+    images = torch.rand((128, 256, 256, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    row = {"cell": "ir_extract_features_b128"}
+    for name, fused, cd in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
+                            ("bf16+fused_ir", True, torch.bfloat16)):
+        params = load_mobilevit(os.path.join("checkpoints", "mobilevit_synth_full.ggml"),
+                                device=dev, fused_ir=fused)
+        row[name] = call_ms(lambda: extract_features(params, images, compute_dtype=cd), n=10)
+        del params
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+    return rows
+
+
+# copies of csrc/inverted_residual.cu (--split-step with ir): one part off
+# (the expand's products and SiLU, the depthwise, the reduce, the TMA stores
+# of the output, the SiLUs), the expand and the depthwise one after the other
+# instead of interleaved, the reduce in 16- or 32-column items (four
+# warpgroups or two at the main shape) instead of 64, or the arithmetic of the SiLUs and the
+# depthwise's taps changed (silu_fast, whose range checks cost instructions;
+# the plain version's correctly rounded SiLU; no multiply-add contracted),
+# timed and held against the plain version beside the unchanged source
+IR_SPLIT_TOGGLES = (
+    ("IR_NO_EXPAND", "      expand<S>(p, xs, ring,", "      if (!IR_NO_EXPAND) expand<S>(p, xs, ring,"),
+    ("IR_NO_DW", "      if (r > 0) depthwise<S>(", "      if (r > 0 && !IR_NO_DW) depthwise<S>("),
+    ("IR_REDUCE_N16", "constexpr int kReduceN = 64;", "constexpr int kReduceN = IR_REDUCE_N16 ? 16 : IR_REDUCE_N32 ? 32 : 64;"),
+    ("IR_REDUCE_N32", "// the SiLU of the expand and of the depthwise",   # (in IR_REDUCE_N16's)
+     "// the SiLU of the expand and of the depthwise"),
+    ("IR_NO_REDUCE", "        for (int item = wg; item < items; item += nwg) {",
+     "        for (int item = wg; item < (IR_NO_REDUCE ? 0 : items); item += nwg) {"),
+    ("IR_NO_STORE", "  for (int nc = 0; nc < p.g.nnc; ++nc)\n    tma_store4(",
+     "  for (int nc = 0; nc < (IR_NO_STORE ? 0 : p.g.nnc); ++nc)\n    tma_store4("),
+    ("IR_NO_ACT", "__device__ __forceinline__ float act(float z) {\n  float e, r;",
+     "__device__ __forceinline__ float act(float z) {\n  if (IR_NO_ACT) return z;\n"
+     "  if (IR_EXACT_SILU) return silu(z);\n  if (IR_SILU_FAST) return silu_fast(z);\n"
+     "  float e, r;"),
+    ("IR_SILU_FAST", "// z / (1 + 2^(-z log2 e)) on the MUFU's", "// z / (1 + 2^(-z log2 e)) on the MUFU's"),
+    ("IR_EXACT_SILU", "// flushed: five instructions, where silu_fast",   # (in IR_NO_ACT's)
+     "// flushed: five instructions, where silu_fast"),
+    ("IR_NO_FMA", "float tap(float t, float v, float k) { return fmaf(v, k, t); }",
+     "float tap(float t, float v, float k) { return IR_NO_FMA ? addf(t, mulf(v, k)) : fmaf(v, k, t); }"),
+)
+IR_SPLIT_VARIANTS = ("", "IR_NO_EXPAND", "IR_NO_DW", "IR_NO_REDUCE", "IR_REDUCE_N16",
+                     "IR_REDUCE_N32", "IR_NO_STORE", "IR_NO_ACT", "IR_SILU_FAST", "IR_EXACT_SILU",
+                     "IR_NO_FMA", "IR_EXACT_SILU IR_NO_FMA")
+IR_ARITH_VARIANTS = ("", "IR_SILU_FAST", "IR_EXACT_SILU", "IR_NO_FMA", "IR_EXACT_SILU IR_NO_FMA")
+
+
+def ir_split_cells():
+    """The inverted residual at each IR_CELLS shape with one part off or the
+    arithmetic changed, beside the unchanged source (run twice, first and
+    last): what a part costs is the difference; the arithmetic variants'
+    errors against the plain version say whether they hold chip_smoke.py's
+    limits."""
+    from ggml_experiments_tpu_torch import _build
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    libs = _toggled_libs("inverted_residual", IR_SPLIT_TOGGLES, IR_SPLIT_VARIANTS)
+    rows = []
+    try:
+        for b, h, w, c, e, cout, resid in IR_CELLS:
+            x, args = ir_inputs(b, h, w, c, e, cout)
+            bf = torch.bfloat16
+            pargs = (args[0].to(bf), *args[1:4], args[4].to(bf), args[5])
+            want = fir.fused_ir_plain(x, *pargs, use_residual=resid)
+            want32 = fir.fused_ir_plain(x.float(), *args, use_residual=resid)
+            ops = fir.ir_operands(*args)
+            row = {"cell": "split_step_ir", "shape": [b, h, w, c, e, cout],
+                   "plan": str(fir.ir_plan(b, h, w, c, e, cout)), "stream_ms": {}, "error": {}}
+            for v in IR_SPLIT_VARIANTS + ("",):
+                _build._LIBS["inverted_residual"] = libs[v]
+                key = v or "all on"
+                fn = lambda: fir.fused_ir_cuda(x, ops, use_residual=resid)  # noqa: E731
+                row["stream_ms"].setdefault(key, []).append(stream_ms(fn))
+                if v in IR_ARITH_VARIANTS:
+                    row["error"][key] = ir_error(fn(), want, want32)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del want, want32
+    finally:
+        _build._LIBS.pop("inverted_residual", None)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split-step", action="store_true",
-                    help="time copies of the persistent (gru) and training (train) kernels "
-                         "with parts of the step off")
-    ap.add_argument("--only", default="qmatmul,flash,gru,train,layer",
-                    help="comma-separated kernels to time (qmatmul, flash, gru, train, layer)")
+                    help="time copies of the persistent (gru), training (train), layer "
+                         "(layer) and inverted residual (ir) kernels with parts of the step "
+                         "off")
+    ap.add_argument("--only", default="qmatmul,flash,gru,train,layer,ir",
+                    help="comma-separated kernels to time (qmatmul, flash, gru, train, layer, "
+                         "ir)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -685,7 +917,9 @@ def main() -> int:
              ("layer", "layer", lambda: layer_cells(args.sweep)),
              ("gru", "split_step", split_step_cells),
              ("train", "split_step_train", train_split_cells),
-             ("layer", "split_step_layer", layer_split_cells))
+             ("ir", "ir", lambda: ir_cells(args.sweep)),
+             ("layer", "split_step_layer", layer_split_cells),
+             ("ir", "split_step_ir", ir_split_cells))
     for kernel, key, fn in cells:
         if kernel not in only or (key.startswith("split_step") and not args.split_step):
             continue
