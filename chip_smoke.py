@@ -102,7 +102,33 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      events and one forward of each bf16 route split by ``torch.profiler``;
  15. the ``VisionEngine`` (ladder 8/32/128, u8 transport, bf16): 300 mixed
      classify/features requests in bursts, every 23rd canceled, each served
-     result against the offline forward of the same image.
+     result against the offline forward of the same image;
+ 16. GRU calibration: ``quantize --qtype q4_k_m --calibrate
+     corpus_train.txt`` of ``checkpoints/gru_synth.bin`` on the card (384
+     windows), its wall time split into the calibration forward with the
+     Grams, the GPTQ recursion, the k-quant grid fits and the rest; its codes
+     against the shipped ``gru_synth_q4km.gxt`` (made by the JAX package),
+     counted; the shipped file's contract (agreement >= 0.995, relative
+     delta-ppl < 0.001 on 16 held-out windows); ``eval --corpus`` timed; the
+     Shakespeare ordering (q8_0 >= GPTQ q4_k_m > round-to-nearest q4_k,
+     q4_k_m >= 0.95) with 128 calibration windows; phase 8's generate,
+     decode and engine checks on the port-made file; GPTQ of the same H and
+     W on the card and on the CPU, bit-equal;
+ 17. the MobileViT remainders: ``quantize --qtype q4_k_m --calibrate
+     task:1234`` of ``mobilevit_synth_full.ggml`` on the card, timed by part,
+     its codes against the shipped ``mobilevit_synth_full_q4km.gxt``;
+     ``classify`` of phase 14's images with it at f32 (flash) and bf16 (the
+     fused layer): argmax agreement with the float model on the same route
+     >= 319/320 with any flip at a near-tie, relative logit RMSE < 0.005 at
+     f32; ``eval --qtype q4_k`` and ``q8_0`` of the ``weight.ggml``;
+     ``extract_features`` at B=128, bf16 + ``fused_ir``, without activation
+     storage and under f8_e5m2 (scopes early, all) and bf16 storage, timed,
+     their feature noise against f32 ('early' < 0.35, 'early' < 'all' <
+     0.45) and top-1; the space-to-depth stem and bf16 convolution kernels
+     against the standard load, the stem's device time under
+     ``torch.profiler``; ``train_model`` on ``mobilevit_synth.ggml``
+     (``TINY_CLS_CONFIG``, its head drawn anew) for 20 steps at batch 100,
+     the loss falling, ms per step.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -239,6 +265,19 @@ VIT_F32_REL = 1e-5                 # flash at f32 against its plain version
 VIT_CPU_FEATURE_REL = 1e-4         # card f32 features against the CPU plain run
 VIT_NEAR_TIE = 0.1                 # bf16 logit gap under which an argmax may flip
 VIT_ENGINE_FEATURE_MAX = 0.02      # engine vs offline features, x the largest feature
+# calibration (phases 16, 17)
+GRU_SYNTH = os.path.join(REPO, "checkpoints", "gru_synth.bin")
+CORPUS_HELDOUT = os.path.join(REPO, "checkpoints", "corpus_heldout.txt")
+SHAKE_TRAIN = os.path.join(REPO, "checkpoints", "shakespeare_train.txt")
+SHAKE_HELD = os.path.join(REPO, "checkpoints", "shakespeare_heldout.txt")
+VIT_TINY = os.path.join(REPO, "checkpoints", "mobilevit_synth.ggml")
+GRU_HELDOUT_SEQS = 16          # the JAX contract test's held-out draw (seed 0)
+SHAKE_CAL_SEQS = 128           # the JAX Shakespeare test's calibration draw (seed 7)
+KM_GRU_AGREE, KM_GRU_DPPL = 0.995, 0.001       # the shipped q4_k_m GRU file's contract
+KM_VIT_AGREE, KM_VIT_REL = 319 / 320, 0.005    # the shipped q4_k_m vision file's contract
+STORE_RUNS = (("f8_e5m2", "early"), ("f8_e5m2", "all"), ("bfloat16", "early"))
+STORE_REL = {"early": 0.35, "all": 0.45}       # the JAX act-storage contracts
+TRAIN_VIT_STEPS, TRAIN_VIT_BATCH, TRAIN_VIT_IMAGES = 20, 100, 1000
 
 
 class SmokeFailure(AssertionError):
@@ -683,6 +722,50 @@ def tick_phase(tag, params, n_slots, inner, main_run, rng, tok):
     return dict(launches=launches, max_abs_err=tick_tf[inner][0], ms=tick_ms,
                 plain_ms=tick_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 plan=str(plan))
+
+
+def calibrated_gru_phase(tag, name, params_km, km_cpu, ids, lens, rng, tok, n_slots, inner):
+    """A calibrated q4_k_m GRU (q4_k cell, q8_0 head) on the card: ``generate``
+    at GENERATE_SHAPE, f32 and bf16 (the f32 tokens against the CPU run under
+    the near-tie rule), ``decode`` at DECODE_SHAPE through the persistent
+    kernel's dense weight route, and an engine serving REQUESTS_ROUTE
+    requests with the tick checks. Returns (generate's launches, the decode
+    entry, the tick entry)."""
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, T = GENERATE_SHAPE
+    route = fused._prep_weights(params_km).mode
+    check((params_km.cell.recurrent_kernel.qtype, params_km.dense_kernel.qtype, route)
+          == ("q4_k", "q8_0", "dense"), f"{tag}: {name} loaded as {route}")
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    out32 = gru_textgen.generate(params_km, ids, lens, T, compute_dtype=f32)
+    out16 = gru_textgen.generate(params_km, ids, lens, T, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = port.kernel_launches()
+    check(launches["qmatmul_q4_k"] > 0, f"{tag}: generate launched no qmatmul_q4_k: {launches}")
+    check(all(o.shape == (B, T) and int(o.min()) >= 0 and int(o.max()) < 66
+              for o in (out32, out16)), f"{tag}: generate output shape/range")
+    ref32 = gru_textgen.generate(km_cpu, ids, lens, T, compute_dtype=f32)
+    z = torch.zeros(B, dtype=torch.int32)
+    tf = torch.full((B,), T, dtype=torch.int32)
+    *_, gaps = fused.gru_loop_reference(fused._prep_weights(km_cpu), ref32, tf, tf, z, z,
+                                        torch.zeros(B, 1024), T, f32, margins=True)
+    agree, forked = first_divergence_near_ties(out32.cpu(), ref32, gaps, NEAR_TIE["float32"],
+                                               f"{tag}: generate f32 cuda vs cpu")
+    log(f"[{tag}] generate B={B} T={T} from {name} f32+bf16 in {gen_s:.2f} s | "
+        f"qmatmul_q4_k launches {launches['qmatmul_q4_k']} | f32 tokens vs the CPU run: "
+        f"agreement {agree:.6f}, {forked} rows fork (all at near-ties) | sample: "
+        f"{tok.decode(out16[0].tolist())[:60]!r}")
+    dec = decode_phase(tag, params_km, *DECODE_SHAPE, TF_F32_SHAPE, rng, tok)
+    tick_run = engine_phase(tag, params_km, REQUESTS_ROUTE, n_slots, inner, rng, tok)
+    return launches, dec, tick_phase(tag, params_km, n_slots, inner, tick_run, rng, tok)
 
 
 def cudnn_gru_ms(B, T, u, dev):
@@ -1530,7 +1613,7 @@ def argmax_near_ties(what, got, want, tol):
 def vision_model_phase(tag, dev, images, labels):
     """Phase 14: MobileViT through the entry points on the full checkpoint
     (see the module docstring). Returns (main-path launches by kernel, the
-    bf16 params, the bf16 forward's images/s)."""
+    params, the classify logits by route)."""
     import contextlib
     import io
 
@@ -1675,7 +1758,7 @@ def vision_model_phase(tag, dev, images, labels):
             "torch.profiler recorded no device time"))
         log(f"[{tag}] the largest other device work ({name}): " + "; ".join(
             f"{k} {ms:.3f} ms" for ms, k in sorted(other, reverse=True)[:6]))
-    return main_launches, p
+    return main_launches, p, logits
 
 
 def vision_engine_phase(tag, params, images):
@@ -1748,6 +1831,406 @@ def vision_engine_phase(tag, params, images):
         f"vs the offline forward {feat_err:.3g} (largest {scale:.3g}) | classify argmax "
         f"agreement {agree:.4f} ({flips} flips, at near-ties) | breakdown "
         f"{json.dumps(eng.stats.breakdown())}")
+
+
+class PartTimer:
+    """Wall seconds spent inside module functions while active, by part. A
+    wrapped call synchronizes the card before it returns, so the device work
+    it queued counts in its part; nested parts count in both."""
+
+    def __init__(self, targets):
+        self.targets = targets          # {part: (module, function name)}
+        self.seconds = {part: 0.0 for part in targets}
+        self.saved = {}
+
+    def __enter__(self):
+        import torch
+
+        for part, (mod, name) in self.targets.items():
+            real = getattr(mod, name)
+            self.saved[part] = (mod, name, real)
+
+            def timed(*a, _real=real, _part=part, **k):
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[_part] += time.perf_counter() - t0
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved.values():
+            setattr(mod, name, real)
+
+
+def run_command(argv):
+    """(rc, stdout, wall seconds) of one CLI command, the card synchronized."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ggml_experiments_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def codes_of(qt):
+    """A QTensor's codes unpacked to (K, N) int32 on the CPU."""
+    import torch
+
+    from ggml_experiments_tpu_torch.quant.qtensor import unpack_nibbles
+
+    c = qt.codes.to(torch.int32) if qt.qtype == "q8_0" else unpack_nibbles(qt.codes, torch.int32)
+    return c[: qt.shape[0], : qt.shape[1]].cpu()
+
+
+def code_diffs(a_leaves, b_leaves):
+    """{key: (differing codes, codes)} over the QTensor leaves two flat
+    checkpoints share."""
+    out = {}
+    for k, a in a_leaves.items():
+        if hasattr(a, "codes"):
+            b = b_leaves[k]
+            check(a.qtype == b.qtype and a.shape == b.shape, f"{k}: {a.qtype} {a.shape} vs "
+                                                             f"{b.qtype} {b.shape}")
+            out[k] = (int((codes_of(a) != codes_of(b)).sum()), a.shape[0] * a.shape[1])
+    return out
+
+
+def quantize_parts(mod_calibration, collect):
+    """The PartTimer targets of a calibrated ``quantize``: the calibration
+    forward with its Grams, the GPTQ calls, the k-quant grid fits inside them."""
+    from ggml_experiments_tpu_torch.quant import kquant
+
+    return {"forward+H": (mod_calibration, collect),
+            "gptq_q4_k": (mod_calibration, "gptq_quantize_q4_k"),
+            "gptq_q8_0": (mod_calibration, "gptq_quantize_q8_0"),
+            "fit": (kquant, "quantize_q4_k_blocks")}
+
+
+def split_line(sec, total):
+    """The wall time of ``quantize`` split by part: the fits run inside GPTQ."""
+    gptq_s = sec["gptq_q4_k"] + sec["gptq_q8_0"]
+    return (f"{total:.2f} s = forward + H {sec['forward+H']:.2f} + GPTQ recursion "
+            f"{gptq_s - sec['fit']:.2f} + k-quant fit {sec['fit']:.2f} + load, save and the "
+            f"rest {total - sec['forward+H'] - gptq_s:.2f}")
+
+
+def gru_calibration_phase(tag, dev, rng, tok, n_slots, inner):
+    """Phase 16: the GRU's q4_k_m recipe on the card (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch import evaluation
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any, load_gru_params
+    from ggml_experiments_tpu_torch.quant import calibration, gptq
+    from ggml_experiments_tpu_torch.training.data import DataConfig, load_corpus, make_examples
+
+    def windows(path):
+        return make_examples(load_corpus(path), tok, DataConfig(seq_length=100))
+
+    # 1. the command on the card, timed by part, against the shipped file
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gru_synth_q4km.gxt")
+        with PartTimer(quantize_parts(calibration, "collect_gru_hessians")) as timer:
+            rc, text, total = run_command(["quantize", "--input", GRU_SYNTH, "--output", out,
+                                           "--qtype", "q4_k_m", "--calibrate", CORPUS_TRAIN,
+                                           "--device", "cuda"])
+        check(rc == 0, f"{tag}: quantize --qtype q4_k_m returned {rc}")
+        line = json.loads(text)
+        check(line["calibrated"] and line["bits_per_weight"] < 5.0
+              and checkpoint.read_meta(out) == {"kind": "gru", "qtype": "q4_k_m",
+                                                "calibrated": True}, f"{tag}: {line}")
+        diffs = code_diffs(checkpoint.load_arrays(out, device="cpu"),
+                           checkpoint.load_arrays(CKPT_Q4KM, device="cpu"))
+        params_km = load_gru_any(out, device=dev)
+        km_cpu = load_gru_any(out, device="cpu")
+    log(f"[{tag}] quantize --qtype q4_k_m --calibrate corpus_train.txt of gru_synth.bin on the "
+        f"card (384 windows): {split_line(timer.seconds, total)} | {json.dumps(line)}")
+    log(f"[{tag}] codes differing from the shipped gru_synth_q4km.gxt (made by the JAX "
+        f"package): " + ", ".join(f"{k} {d:,} of {n:,}" for k, (d, n) in diffs.items()))
+
+    # the shipped file's contract, on the held-out draw of its test
+    held = windows(CORPUS_HELDOUT)
+    seqs = held[np.random.default_rng(0).permutation(len(held))[:GRU_HELDOUT_SEQS]]
+    ref = load_gru_params(GRU_SYNTH, device=dev)
+    reps = {}
+    for name, p in (("port-made", params_km), ("shipped", load_gru_any(CKPT_Q4KM, device=dev))):
+        port.reset_kernel_launches()
+        r = evaluation.eval_gru_delta(ref, p, seqs)
+        reps[name] = (r, abs(r.ppl_a - r.ppl_b) / r.ppl_b, port.kernel_launches())
+    r, dppl, launches = reps["port-made"]
+    check(r.top1_agreement >= KM_GRU_AGREE and dppl < KM_GRU_DPPL,
+          f"{tag}: port-made q4_k_m agreement {r.top1_agreement:.5f}, relative dppl {dppl:.2e}")
+    # the head (1024 x 66) and the input kernel are under qmatmul's dispatch
+    # gate (K*N <= 2^20): torch.matmul on the dequantized plane, as in JAX
+    check(launches["qmatmul_q4_k"] > 0, f"{tag}: eval launched {launches}")
+    log(f"[{tag}] against the float model on {GRU_HELDOUT_SEQS} held-out windows (limits: "
+        f"agreement >= {KM_GRU_AGREE}, relative dppl < {KM_GRU_DPPL}): " + "; ".join(
+            f"{k} agreement {v[0].top1_agreement:.5f}, dppl {v[1]:.2e}, max abs "
+            f"{v[0].max_abs:.4f}" for k, v in reps.items())
+        + f" | qmatmul_q4_k launches {launches['qmatmul_q4_k']}")
+    rc, text, eval_s = run_command(["eval", "--weights", GRU_SYNTH, "--qtype", "q8_0",
+                                    "--corpus", CORPUS_HELDOUT, "--batch", "64", "--length",
+                                    "100", "--device", "cuda"])
+    check(rc == 0, f"{tag}: eval returned {rc}")
+    log(f"[{tag}] eval --weights gru_synth.bin --qtype q8_0 --corpus corpus_heldout.txt "
+        f"--batch 64 --length 100 on the card: {eval_s:.2f} s wall | {text.strip()}")
+
+    # 2. the Shakespeare ordering: q8_0 >= GPTQ q4_k_m > RTN q4_k, q4_k_m >= 0.95
+    sref = load_gru_params(CKPT, device=dev)
+    train = windows(SHAKE_TRAIN)
+    cal = train[np.random.default_rng(7).permutation(len(train))[:SHAKE_CAL_SEQS]]
+    t0 = time.perf_counter()
+    pm = calibration.gptq_gru_params(sref, cal)
+    torch.cuda.synchronize()
+    shake_s = time.perf_counter() - t0
+    held = windows(SHAKE_HELD)
+    agree = {}
+    for name, p in (("q8_0", load_gru_params(CKPT, qtype="q8_0", device=dev)), ("q4_k_m", pm),
+                    ("q4_k", load_gru_params(CKPT, qtype="q4_k", device=dev))):
+        r = evaluation.eval_gru_delta(sref, p, held)
+        agree[name] = (r.top1_agreement, abs(r.ppl_a - r.ppl_b) / r.ppl_b)
+    a = {k: v[0] for k, v in agree.items()}
+    check(a["q8_0"] >= a["q4_k_m"] > a["q4_k"] and a["q4_k_m"] >= 0.95,
+          f"{tag}: Shakespeare ordering broken: {a}")
+    log(f"[{tag}] gru_shakespeare.bin, GPTQ q4_k_m from {SHAKE_CAL_SEQS} train windows on the "
+        f"card in {shake_s:.2f} s; agreement with f32 on {len(held)} held-out windows: "
+        + ", ".join(f"{k} {v[0]:.5f} (dppl {v[1]:.2e})" for k, v in agree.items())
+        + " (q8_0 >= q4_k_m > q4_k, q4_k_m >= 0.95: holds)")
+    del sref, pm
+
+    # 3. generate, decode and an engine from the port-made file: phase 8's checks
+    ids, lens = pad_batch(corpus_prompts(tok, rng, GENERATE_SHAPE[0], 8, 40), 40)
+    launches, dec, tick = calibrated_gru_phase(tag, "the port-made q4_k_m file", params_km,
+                                               km_cpu, ids, lens, rng, tok, n_slots, inner)
+    log(f"[{tag}] launches on the port-made file's paths: qmatmul_q4_k "
+        f"{launches['qmatmul_q4_k']} (generate), fused_gru_decode {dec['launches']} ({dec['ms']:.2f} ms), fused_slot_tick "
+        f"{tick['launches']} ({tick['ms']:.3f} ms)")
+    del params_km, km_cpu
+
+    # 4. GPTQ on the card and on the CPU from the same H and W: the same bits
+    train = windows(CORPUS_TRAIN)
+    hess = calibration.collect_gru_hessians(
+        ref, train[np.random.default_rng(0).permutation(len(train))[:64]])
+    for what, fn, w, h, kw in (
+            ("input kernel q4_k", gptq.gptq_quantize_q4_k, ref.cell.kernel, hess["kernel"],
+             dict(percdamp=1e-4)),
+            ("head q8_0", gptq.gptq_quantize_q8_0, ref.dense_kernel, hess["dense_kernel"], {})):
+        t0 = time.perf_counter()
+        got = fn(w, h, device=dev, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = fn(w.cpu(), h.cpu(), device="cpu", **kw)
+        t2 = time.perf_counter()
+        for name in ("codes", "scales", "mins", "supers"):
+            ga, wa = getattr(got, name), getattr(want, name)
+            check((ga is None) == (wa is None) and (ga is None or torch.equal(ga.cpu(), wa)),
+                  f"{tag}: {what}: the card's {name} differ from the CPU's")
+        log(f"[{tag}] gptq {what} {tuple(w.shape)} from the same H and W: the card's planes "
+            f"bit-equal to the CPU's | card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+
+
+def vision_remainders_phase(tag, dev, images, labels, logits):
+    """Phase 17: the MobileViT remainders on the card (see the module
+    docstring). ``logits``: phase 14's classify logits of the float model by
+    route."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.quant import calibration
+    from ggml_experiments_tpu_torch.training import image_task
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    x_all = torch.from_numpy(images)
+    nb = -(-len(images) // VIT_BATCH)
+
+    def run_classify(params, cd):
+        port.reset_kernel_launches()
+        out = torch.cat([classify(params, x_all[i:i + VIT_BATCH].to(dev), compute_dtype=cd)
+                         for i in range(0, len(images), VIT_BATCH)]).cpu()
+        torch.cuda.synchronize()
+        check(out.shape == (len(images), 44) and bool(torch.isfinite(out).all()),
+              f"{tag}: classify output shape/values")
+        return out, port.kernel_launches()
+
+    # 1. the command on the card, against the shipped file and the float model
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mobilevit_synth_full_q4km.gxt")
+        with PartTimer(quantize_parts(calibration, "collect_mobilevit_grams")) as timer:
+            rc, text, total = run_command(["quantize", "--input", VIT_CKPT, "--output", out,
+                                           "--qtype", "q4_k_m", "--calibrate", "task:1234",
+                                           "--device", "cuda"])
+        check(rc == 0, f"{tag}: quantize --qtype q4_k_m returned {rc}")
+        line = json.loads(text)
+        meta = checkpoint.read_meta(out)
+        check(line["calibrated"] and (meta["kind"], meta["qtype"], meta["classifier"])
+              == ("mobilevit", "q4_k_m", True), f"{tag}: {line} {meta}")
+        diffs = code_diffs(checkpoint.load_arrays(out, device="cpu"),
+                           checkpoint.load_arrays(VIT_Q4KM, device="cpu"))
+        p_km = load_mobilevit(out, device=dev)
+    d = sum(v[0] for v in diffs.values())
+    n = sum(v[1] for v in diffs.values())
+    worst = max(diffs.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    log(f"[{tag}] quantize --qtype q4_k_m --calibrate task:1234 of mobilevit_synth_full.ggml "
+        f"on the card (384 images): {split_line(timer.seconds, total)} | {json.dumps(line)}")
+    log(f"[{tag}] codes differing from the shipped mobilevit_synth_full_q4km.gxt (made by the "
+        f"JAX package): {d:,} of {n:,} over {len(diffs)} tensors; the most in {worst[0]} "
+        f"({worst[1][0]:,} of {worst[1][1]:,})")
+    check(p_km.layer_3.transformer[0].attention.flash and p_km.layer_3.transformer[0].fused,
+          f"{tag}: the port-made file did not load on the default routes")
+    layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
+    for name, cd, per_batch, ref_route in (("f32", f32, {"flash_mha": 9}, "f32"),
+                                           ("bf16", bf16, layer, "bf16")):
+        got, launches = run_classify(p_km, cd)
+        for k, v in per_batch.items():
+            check(launches[k] == v * nb, f"{tag}: classify {name}: {launches[k]} {k} launches, "
+                                         f"want {v} a batch x {nb}")
+        # every MobileViT weight is under qmatmul's dispatch gate (K*N <= 2^20):
+        # torch.matmul on the dequantized plane, as the JAX package leaves it to XLA
+        others = {k: v for k, v in launches.items() if v and k not in per_batch}
+        check(not others, f"{tag}: classify {name} launched {others}")
+        want = logits[ref_route]
+        agree, flips = argmax_near_ties(f"{tag}: q4_k_m {name} vs the float model", got, want,
+                                        VIT_NEAR_TIE)
+        rel = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+        check(agree >= KM_VIT_AGREE, f"{tag}: classify {name}: agreement {agree:.4f}")
+        if cd == f32:
+            check(rel < KM_VIT_REL, f"{tag}: classify f32: relative logit RMSE {rel:.4g}")
+        top1 = float((got.argmax(-1).numpy() == labels).mean())
+        log(f"[{tag}] the port-made file, classify {name} of {len(images)} held-out images: "
+            f"top-1 {top1:.4f}, argmax agreement with the float model's {ref_route} route "
+            f"{agree:.4f} ({flips} flips, at near-ties), relative logit RMSE {rel:.5f}"
+            f"{' (limit %g)' % KM_VIT_REL if cd == f32 else ''} | launches " + ", ".join(
+                f"{k} {launches[k]}" for k in per_batch))
+    del p_km
+
+    # 2. eval of the weight.ggml on the card
+    for qtype in ("q4_k", "q8_0"):
+        port.reset_kernel_launches()
+        rc, text, sec = run_command(["eval", "--weights", VIT_CKPT, "--qtype", qtype,
+                                     "--device", "cuda"])
+        launches = port.kernel_launches()
+        check(rc == 0 and launches["flash_mha"] > 0,
+              f"{tag}: eval --qtype {qtype}: rc {rc}, launches {launches}")
+        log(f"[{tag}] eval --weights mobilevit_synth_full.ggml --qtype {qtype} on the card: "
+            f"{sec:.2f} s wall | {text.strip()} | flash_mha launches {launches['flash_mha']}")
+
+    # 3. activation storage on the bf16 + fused_ir route
+    xb = x_all[:VIT_BATCH].to(dev)
+    p = load_mobilevit(VIT_CKPT, device=dev)
+    with torch.no_grad():
+        ref32 = extract_features(p, xb)
+    base = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
+    rows = [("none", "-", base)] + [
+        (store, scope, load_mobilevit(VIT_CKPT, device=dev, fused_ir=True, act_storage=store,
+                                      act_storage_scope=scope))
+        for store, scope in STORE_RUNS]
+    rel = {}
+    for store, scope, params in rows:
+        out, launches = run_classify(params, bf16)
+        check(launches["fused_inverted_residual"] == 2 * nb,
+              f"{tag}: {store}/{scope}: {launches['fused_inverted_residual']} inverted residual "
+              f"launches, want 2 a batch x {nb}")
+        with torch.no_grad():
+            feats = extract_features(params, xb, compute_dtype=bf16)
+        rel[(store, scope)] = float((feats - ref32).norm() / ref32.norm())
+        ms = cuda_ms(lambda: extract_features(params, xb, compute_dtype=bf16), n=10)
+        top1 = float((out.argmax(-1).numpy() == labels).mean())
+        log(f"[{tag}] bf16 + fused_ir, act_storage {store} scope {scope}: extract_features "
+            f"B={VIT_BATCH} {ms:.3f} ms = {VIT_BATCH / ms * 1e3:,.0f} images/s | feature "
+            f"relative RMSE against f32 {rel[(store, scope)]:.4f} | top-1 on {len(images)} "
+            f"images {top1:.4f} | fused_inverted_residual launches "
+            f"{launches['fused_inverted_residual']}")
+    e, a = rel[("f8_e5m2", "early")], rel[("f8_e5m2", "all")]
+    check(e < STORE_REL["early"] and e < a < STORE_REL["all"],
+          f"{tag}: f8_e5m2 feature noise early {e:.4f}, all {a:.4f}")
+    del rows, base
+
+    # 4. the space-to-depth stem and bf16 convolution kernels
+    s2d = load_mobilevit(VIT_CKPT, device=dev, stem_space_to_depth=True)
+    cb = load_mobilevit(VIT_CKPT, device=dev, conv_dtype="bfloat16")
+    with torch.no_grad():
+        r = float((extract_features(s2d, xb) - ref32).abs().max() / ref32.abs().max())
+        check(r <= VIT_CPU_FEATURE_REL, f"{tag}: space-to-depth f32 features: max rel {r:.3g}")
+        b16 = extract_features(p, xb, compute_dtype=bf16)
+        rb = float((extract_features(s2d, xb, compute_dtype=bf16) - b16).norm() / b16.norm())
+        rc32 = float((extract_features(cb, xb) - ref32).norm() / ref32.norm())
+        rcb = float((extract_features(cb, xb, compute_dtype=bf16) - b16).norm() / b16.norm())
+    check(rcb == 0.0, f"{tag}: bf16-stored kernels change the bf16 forward ({rcb:.3g})")
+    log(f"[{tag}] stem_space_to_depth: f32 features max rel err {r:.3g} against the standard "
+        f"stem (limit {VIT_CPU_FEATURE_REL}), bf16 relative RMSE {rb:.4f} | conv_dtype "
+        f"bfloat16: f32 features relative RMSE {rc32:.4g}, bf16 features equal")
+    stem_ms = {}
+    for name, params in (("standard", p), ("space-to-depth", s2d)):
+        for cd in (f32, bf16):
+            xin = xb.to(cd)
+            params.conv_stem(xin, compute_dtype=cd)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params.conv_stem(xin, compute_dtype=cd)
+                torch.cuda.synchronize()
+            stem_ms[(name, cdname(cd))] = sum(
+                getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA) / 1e3
+    fwd_ms = {name: cuda_ms(lambda: extract_features(params, xb, compute_dtype=bf16), n=10)
+              for name, params in (("standard", p), ("space-to-depth stem", s2d),
+                                   ("bf16 conv kernels", cb))}
+    log(f"[{tag}] the stem at B={VIT_BATCH} under torch.profiler (device ms): " + ", ".join(
+        f"{k[0]} {k[1]} {v:.4f}" for k, v in stem_ms.items()) + f" | extract_features "
+        f"B={VIT_BATCH} bf16: " + ", ".join(f"{k} {v:.3f} ms" for k, v in fwd_ms.items()))
+    del s2d, cb, p
+
+    # 5. training on the image task: the tiny checkpoint with its head drawn anew
+    named = dict(read_named_tensors(VIT_TINY))
+    head = next(k for k in named if k.endswith("classifier/kernel:0"))
+    named[head] = (np.random.default_rng(0).standard_normal(named[head].shape) * 0.01
+                   ).astype(np.float32)
+    tx, ty = image_task.make_dataset(TRAIN_VIT_IMAGES, seed=image_task.TRAIN_SEED, image_size=64)
+    image_task.train_model(named, tx, ty, steps=2, batch=TRAIN_VIT_BATCH, log_every=0,
+                           device=dev)
+    port.reset_kernel_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        trained, last = image_task.train_model(named, tx, ty, steps=TRAIN_VIT_STEPS,
+                                               batch=TRAIN_VIT_BATCH, log_every=1, device=dev)
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in port.kernel_launches().items() if v}
+    losses = [float(ln.rsplit(" ", 1)[1]) for ln in buf.getvalue().splitlines()
+              if ln.startswith("step ")]
+    check(len(losses) == TRAIN_VIT_STEPS and np.isfinite(losses).all()
+          and np.mean(losses[-5:]) < np.mean(losses[:5]), f"{tag}: train_model losses {losses}")
+    log(f"[{tag}] train_model, mobilevit_synth.ggml (TINY_CLS_CONFIG, head drawn anew), "
+        f"{TRAIN_VIT_STEPS} steps at batch {TRAIN_VIT_BATCH} on the card: "
+        f"{sec / TRAIN_VIT_STEPS * 1e3:.2f} ms a step (each step's loss read back) | loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {np.mean(losses[:5]):.4f}, last "
+        f"five {np.mean(losses[-5:]):.4f}) | kernel launches {launches or 'none'} (the "
+        f"plain path)")
 
 
 def request_key(prompt_ids, max_new):
@@ -1902,36 +2385,11 @@ def main() -> int:
 
     # ---- 8. the calibrated q4_k_m checkpoint, full width --------------------------------
     params_km = load_gru_any(CKPT_Q4KM, device=dev)
-    route = fused._prep_weights(params_km).mode
-    check((params_km.cell.recurrent_kernel.qtype, params_km.dense_kernel.qtype, route)
-          == ("q4_k", "q8_0", "dense"), f"q4_k_m checkpoint loaded as {route}")
-    port.reset_kernel_launches()
-    t0 = time.perf_counter()
-    out32 = gru_textgen.generate(params_km, ids, lens, T, compute_dtype=f32)
-    out16 = gru_textgen.generate(params_km, ids, lens, T, compute_dtype=bf16)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    launches = port.kernel_launches()
-    check(launches["qmatmul_q4_k"] > 0, f"generate q4_k_m launched no qmatmul_q4_k: {launches}")
-    check(all(o.shape == (B, T) and int(o.min()) >= 0 and int(o.max()) < 66
-              for o in (out32, out16)), "generate q4_k_m output shape/range")
-    km_cpu = load_gru_any(CKPT_Q4KM, device="cpu")
-    ref32 = gru_textgen.generate(km_cpu, ids, lens, T, compute_dtype=f32)
-    *_, gaps = fused.gru_loop_reference(fused._prep_weights(km_cpu), ref32, tf, tf, z, z,
-                                        torch.zeros(B, 1024), T, f32, margins=True)
-    agree, forked = first_divergence_near_ties(out32.cpu(), ref32, gaps, NEAR_TIE["float32"],
-                                               "generate q4_k_m f32 cuda vs cpu")
-    log(f"[8 q4_k_m] generate B={B} T={T} from gru_synth_q4km.gxt f32+bf16 in {gen_s:.2f} s | "
-        f"qmatmul_q4_k launches {launches['qmatmul_q4_k']} | f32 tokens vs the CPU run: "
-        f"agreement {agree:.6f}, {forked} rows fork (all at near-ties) | sample: "
-        f"{tok.decode(out16[0].tolist())[:60]!r}")
+    launches, kernels["fused_gru_decode_dense"], kernels["fused_slot_tick_dense"] = \
+        calibrated_gru_phase("8 q4_k_m", "gru_synth_q4km.gxt", params_km,
+                             load_gru_any(CKPT_Q4KM, device="cpu"), ids, lens, rng, tok,
+                             n_slots, inner)
     kernels["qmatmul_q4_k"] = qmatmul_entry(qmm["q4_k"], launches["qmatmul_q4_k"])
-    del km_cpu
-    kernels["fused_gru_decode_dense"] = decode_phase("8 q4_k_m", params_km, *DECODE_SHAPE,
-                                                     TF_F32_SHAPE, rng, tok)
-    tick_run = engine_phase("8 q4_k_m", params_km, REQUESTS_ROUTE, n_slots, inner, rng, tok)
-    kernels["fused_slot_tick_dense"] = tick_phase("8 q4_k_m", params_km, n_slots, inner,
-                                                  tick_run, rng, tok)
     del params_km
 
     # ---- 9. the q4_0 weight route -------------------------------------------------------
@@ -2048,14 +2506,23 @@ def main() -> int:
                                   amp_factor=FULL_AMP_FACTOR)
     log(f"[14 mobilevit] {VIT_IMAGES} held-out images (256 px, task rev 4) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    vit_launches, vit = vision_model_phase("14 mobilevit", dev, images, labels)
+    vit_launches, vit, vit_logits = vision_model_phase("14 mobilevit", dev, images, labels)
     for name in ("fused_transformer_layer", *LAYER_KERNELS, "flash_mha",
                  "fused_inverted_residual"):
         kernels[name] = dict(vision[name], launches=vit_launches[name])
 
     # ---- 15. the vision engine ---------------------------------------------------------
     vision_engine_phase("15 vision engine", vit, images)
-    del vit, images
+    del vit
+    torch.cuda.empty_cache()
+
+    # ---- 16. GRU calibration on the card ----------------------------------------------
+    gru_calibration_phase("16 gru calibration", dev, rng, tok, n_slots, inner)
+    torch.cuda.empty_cache()
+
+    # ---- 17. the MobileViT remainders on the card --------------------------------------
+    vision_remainders_phase("17 vision remainders", dev, images, labels, vit_logits)
+    del images, vit_logits
     torch.cuda.empty_cache()
 
     # ---- 6. kernels ---------------------------------------------------------------

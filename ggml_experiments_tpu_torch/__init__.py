@@ -4,9 +4,12 @@ Character-level GRU text generation under every block format (scan path
 and the persistent fused decode), the continuous-batching serving engine
 with snapshot/restore, the native ``.gxt`` checkpoint container, the
 quantization-delta evaluation, GRU training (``train-gru``) through the
-fused forward/backward kernel pair, and MobileViT inference (``features``,
+fused forward/backward kernel pair, MobileViT inference (``features``,
 ``classify``, the continuous-batching ``VisionEngine``) through the fused
-transformer layer, flash attention and the fused inverted residual. Each TPU
+transformer layer, flash attention and the fused inverted residual, with
+sub-bf16 activation storage, and training on the synthetic image task;
+calibrated quantization (GPTQ q4_k_m) of both models (``quantize
+--calibrate``). Each TPU
 kernel on those paths is a hand-written CUDA kernel under ``csrc/``, built at
 first use by ``_build``; every kernel wrapper runs its plain PyTorch version
 on CPU tensors. Entry points run on ``cuda`` unless given ``device="cpu"``.

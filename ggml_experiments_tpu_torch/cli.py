@@ -3,7 +3,12 @@
   python -m ggml_experiments_tpu_torch generate --weights gru.bin [--prompt "..."]
   python -m ggml_experiments_tpu_torch serve    --weights gru.bin
   python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q8.gxt
+  python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q4km.gxt \
+      --qtype q4_k_m --calibrate corpus.txt
+  python -m ggml_experiments_tpu_torch quantize --input weight.ggml --output vit.q4km.gxt \
+      --qtype q4_k_m --calibrate task
   python -m ggml_experiments_tpu_torch eval     --weights gru.bin [--corpus text.txt]
+  python -m ggml_experiments_tpu_torch eval     --weights weight.ggml --image-size 64
   python -m ggml_experiments_tpu_torch train-gru --corpus text.txt [--compute bfloat16]
   python -m ggml_experiments_tpu_torch features --weights weight.ggml [--image img.png]
   python -m ggml_experiments_tpu_torch classify --weights mobilevit.ggml [--image img.png]
@@ -12,8 +17,13 @@
 prompt per line and streams each continuation. ``--weights`` takes the
 reference gru.bin or a native ``.gxt`` checkpoint for the GRU commands, and a
 ``weight.ggml`` named-tensor file or a MobileViT ``.gxt`` for ``features`` and
-``classify`` (without --image they run on the reference's synthetic image). All run on ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+``classify`` (without --image they run on the reference's synthetic image).
+``quantize`` takes a gru.bin or a weight.ggml and writes a ``.gxt``; with
+``--qtype q4_k_m --calibrate`` it runs the GPTQ recipe (``quant/calibration``)
+on text (GRU) or images (MobileViT: a directory, or ``task[:seed]`` for the
+repo's synthetic task). ``eval`` reports the quantized model's deltas
+against f32 on the same weights. All run on ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -100,22 +110,128 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _calibration_images(source: str, image_size: int, n: int):
+    """Calibration images for vision quantization: a directory of image files,
+    or 'task'[:seed] for the repo's synthetic task distribution (the right
+    one for the committed trained checkpoints; its full-size contrast at 256
+    px and above)."""
+    import numpy as np
+
+    if source.startswith("task"):
+        from ggml_experiments_tpu_torch.training.image_task import FULL_AMP_FACTOR, make_dataset
+
+        seed = int(source.split(":", 1)[1]) if ":" in source else 1234
+        amp = FULL_AMP_FACTOR if image_size >= 256 else 1.0
+        x, _ = make_dataset(n, seed=seed, image_size=image_size, amp_factor=amp)
+        return x
+    if os.path.isdir(source):
+        from ggml_experiments_tpu_torch.utils.image import load_and_preprocess
+
+        files = sorted(
+            os.path.join(source, f) for f in os.listdir(source)
+            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".tga", ".gif"))
+        )[:n]
+        if not files:
+            raise ValueError(f"no images found in {source}")
+        return np.stack([load_and_preprocess(f, image_size) for f in files])
+    raise ValueError(f"--calibrate {source!r}: not a directory or 'task[:seed]'")
+
+
+def _quantize_calibrated(args, qtype: str):
+    """(tree, meta, quantized weights) of the calibrated recipes."""
+    import numpy as np
+
+    from ggml_experiments_tpu_torch.quant import calibration
+
+    if args.input.endswith(".bin"):
+        from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+        from ggml_experiments_tpu_torch.training.data import (
+            DataConfig,
+            load_corpus,
+            make_examples,
+        )
+        from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+        base = load_gru_params(args.input, device=args.device)
+        ex = make_examples(load_corpus(args.calibrate), CharTokenizer(),
+                           DataConfig(seq_length=100))
+        sel = np.random.default_rng(0).permutation(len(ex))[: args.calibrate_seqs]
+        if qtype == "q4_k_m":
+            tree = calibration.gptq_gru_params(base, ex[sel])
+        else:
+            tree = calibration.calibrated_gru_params(base, ex[sel], qtype=qtype)
+        meta = {"kind": "gru", "qtype": qtype, "calibrated": True}
+        return tree, meta, [tree.cell.kernel, tree.cell.recurrent_kernel, tree.dense_kernel]
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models.mobilevit import from_named_tensors, infer_config
+
+    named = read_named_tensors(args.input)
+    cfg = infer_config(named)
+    images = _calibration_images(args.calibrate, cfg.image_size, args.calibrate_seqs)
+    # the Grams come off the unfused float forward (the taps live in
+    # ops/linear); the saved tree is a plain params tree that load_mobilevit
+    # loads under any route flags
+    tree = from_named_tensors(named, cfg, flash_attn=False, fused_layer=False,
+                              device=args.device)
+    tree = calibration.gptq_mobilevit_params(
+        tree, calibration.collect_mobilevit_grams(tree, images))
+    return tree, _vision_meta(cfg, tree, qtype, True), [
+        getattr(holder, field) for _, holder, field in calibration._vision_quantizable(tree)]
+
+
+def _vision_meta(cfg, tree, qtype: str, calibrated: bool) -> dict:
+    import dataclasses
+
+    return {"kind": "mobilevit", "qtype": qtype, "calibrated": calibrated,
+            "config": dataclasses.asdict(cfg), "classifier": tree.classifier_kernel is not None}
+
+
 def cmd_quantize(args) -> int:
-    """Offline fp32 -> block-quantized native checkpoint, round to nearest."""
+    """Offline fp32 -> block-quantized native checkpoint: round to nearest, or
+    a calibrated recipe with ``--calibrate``."""
     from ggml_experiments_tpu_torch.formats import checkpoint
-    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
 
     qtype = args.qtype or "q8_0"
+    gru = args.input.endswith(".bin")
     if qtype == "q4_k_m" or args.calibrate:
-        raise NotImplementedError(
-            "the calibrated q4_k_m recipe (quantize --calibrate) is not ported yet "
-            "(ROADMAP.md, Queue A #11: calibration)")
-    if not args.input.endswith(".bin"):
-        raise NotImplementedError(
-            "quantize takes a GRU gru.bin; MobileViT weight.ggml inputs are not ported yet "
-            "(ROADMAP.md, 'Port: still to port', item 6: MobileViT)")
-    tree = load_gru_params(args.input, qtype=qtype, device=args.device)
-    checkpoint.save(args.output, tree)
+        # GPTQ-compensated q4_k on the bulk weights and GPTQ q8_0 on the
+        # logits-producing head; the GRU calibrates on text, MobileViT on images
+        if not args.calibrate:
+            print("--qtype q4_k_m needs --calibrate (GRU: a text corpus; MobileViT: an image "
+                  "directory or 'task' for the repo's synthetic task)", file=sys.stderr)
+            return 2
+        if not gru and qtype != "q4_k_m":
+            # the one calibrated recipe for MobileViT is q4_k_m: any other
+            # --qtype would name a format the file does not hold
+            print(f"--calibrate with a MobileViT weight.ggml runs the GPTQ q4_k_m recipe; "
+                  f"pass --qtype q4_k_m (got {qtype})", file=sys.stderr)
+            return 2
+        tree, meta, qts = _quantize_calibrated(args, qtype)
+        checkpoint.save(args.output, tree, meta=meta)
+        n_weights = sum(t.shape[0] * t.shape[1] for t in qts)
+        bits_stored = 8.0 * sum(t.stored_nbytes for t in qts) / n_weights
+        bits_hbm = 8.0 * sum(t.nbytes for t in qts) / n_weights
+        ratio = os.path.getsize(args.input) / os.path.getsize(args.output)
+        print(json.dumps({
+            "input": args.input, "output": args.output, "qtype": qtype,
+            "calibrated": True, "bits_per_weight": round(bits_stored, 3),
+            "bits_per_weight_hbm": round(bits_hbm, 3),
+            "compression_vs_input": round(ratio, 2),
+        }))
+        return 0
+    if gru:
+        from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+
+        checkpoint.save(args.output, load_gru_params(args.input, qtype=qtype, device=args.device))
+    else:
+        from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+        from ggml_experiments_tpu_torch.models.mobilevit import from_named_tensors, infer_config
+
+        named = read_named_tensors(args.input)
+        cfg = infer_config(named)
+        tree = from_named_tensors(named, cfg, qtype=qtype, device=args.device)
+        # the meta makes the file loadable by load_mobilevit and the vision commands
+        checkpoint.save(args.output, tree, meta=_vision_meta(cfg, tree, qtype, False))
     ratio = os.path.getsize(args.input) / os.path.getsize(args.output)
     print(json.dumps({
         "input": args.input, "output": args.output, "qtype": qtype,
@@ -124,19 +240,65 @@ def cmd_quantize(args) -> int:
     return 0
 
 
-def cmd_eval(args) -> int:
-    """Quantization-delta report: quantized vs fp32 on the same GRU weights."""
+def _eval_mobilevit(args, qtype: str) -> dict:
+    """The vision half of ``eval``: deltas on the synthetic image, and for a
+    checkpoint with a head the top-1 block on the task's held-out images."""
     import numpy as np
 
     from ggml_experiments_tpu_torch import evaluation
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models.mobilevit import from_named_tensors, infer_config
+    from ggml_experiments_tpu_torch.utils.image import synthetic_test_image
+
+    tensors = read_named_tensors(args.weights)
+    config = infer_config(tensors, image_size=args.image_size,
+                          num_attention_heads=args.num_heads)
+    ref = from_named_tensors(tensors, config, device=args.device)
+    q = from_named_tensors(tensors, config, qtype=qtype, device=args.device)
+    imgs = np.stack([synthetic_test_image(config.image_size)] * args.batch)
+    out = {"qtype": qtype, **evaluation.eval_mobilevit_delta(ref, q, imgs).as_dict()}
+    if ref.classifier_kernel is not None:
+        # q-vs-f32 agreement on the task's held-out gratings, and accuracy
+        # when the head is the task's (the label spaces match); the images
+        # are made at the task's base contrast at every size, as the JAX
+        # command makes them (ROADMAP.md, Queue C)
+        from ggml_experiments_tpu_torch.training.image_task import (
+            HELDOUT_SEED,
+            NUM_CLASSES,
+            make_dataset,
+            top1,
+        )
+
+        test_x, test_y = make_dataset(max(args.batch, 64), seed=HELDOUT_SEED,
+                                      image_size=config.image_size)
+        pr, pq = top1(ref, test_x), top1(q, test_x)
+        out["top1_agreement"] = float((pr == pq).mean())
+        if config.num_labels == NUM_CLASSES:
+            out["top1_f32"] = float((pr == test_y).mean())
+            out["top1_q"] = float((pq == test_y).mean())
+            out["dtop1"] = out["top1_f32"] - out["top1_q"]
+    return out
+
+
+def cmd_eval(args) -> int:
+    """Quantization-delta report: quantized vs fp32 on the same weights (a GRU
+    gru.bin / .gxt, or a MobileViT weight.ggml)."""
+    import numpy as np
+
+    from ggml_experiments_tpu_torch import evaluation
+    from ggml_experiments_tpu_torch.formats import checkpoint
     from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
 
     qtype = args.qtype or "q8_0"
     rng = np.random.default_rng(args.seed)
+    if args.weights.endswith(".gxt") and checkpoint.read_meta(args.weights).get(
+            "kind") == "mobilevit":
+        print("eval compares quantized vs fp32 of the SAME weights; a quantized-only .gxt has "
+              "no fp32 twin: run eval on the original weight.ggml instead", file=sys.stderr)
+        return 2
     if not args.weights.endswith((".bin", ".gxt")):
-        raise NotImplementedError(
-            "eval takes GRU weights (gru.bin or .gxt); MobileViT weights are not ported yet "
-            "(ROADMAP.md, 'Port: still to port', item 6: MobileViT)")
+        print(json.dumps(_eval_mobilevit(args, qtype)))
+        return 0
     ref = load_gru_any(args.weights, device=args.device)
     q = load_gru_any(args.weights, qtype=qtype, device=args.device)
     v = ref.embeddings.shape[0]
@@ -209,7 +371,8 @@ def _load_vision(args):
     )
     from ggml_experiments_tpu_torch.utils.image import load_and_preprocess, synthetic_test_image
 
-    routes = dict(flash_attn=args.flash_attn, fused_layer=args.fused_layer)
+    routes = dict(flash_attn=args.flash_attn, fused_layer=args.fused_layer,
+                  act_storage=args.act_storage, act_storage_scope=args.act_storage_scope)
     if args.weights.endswith(".gxt"):
         # a self-describing params checkpoint (e.g. the calibrated q4_k_m one)
         params = load_mobilevit(args.weights, device=args.device, **routes)
@@ -279,6 +442,11 @@ def _add_vision(p):
     p.add_argument("--fused-layer", action=argparse.BooleanOptionalAction, default=None,
                    help="whole transformer layers through the fused kernel at bf16 "
                         "(default: on for a CUDA device)")
+    p.add_argument("--act-storage", choices=["f8_e5m2", "f8_e4m3", "bfloat16"], default=None,
+                   help="store the conv-stage boundary activations of the bf16 path at this "
+                        "dtype (fewer bytes, more feature noise; --compute bfloat16 only)")
+    p.add_argument("--act-storage-scope", choices=["stem", "stem12", "early", "all"],
+                   default="early", help="how deep --act-storage reaches")
     _add_common(p)
 
 
@@ -313,10 +481,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     q = sub.add_parser("quantize",
                        help="offline fp32 -> block-quantized native checkpoint")
-    q.add_argument("--input", required=True, help="gru.bin")
+    q.add_argument("--input", required=True, help="gru.bin or weight.ggml")
     q.add_argument("--output", required=True, help="output .gxt path")
     q.add_argument("--calibrate", default=None, metavar="CORPUS",
-                   help="calibrated quantization (not ported yet)")
+                   help="calibration data: a text file (GRU: GPTQ with q4_k_m, calibrated "
+                        "importance with another --qtype) or an image directory / "
+                        "'task[:seed]' (MobileViT, q4_k_m only)")
+    q.add_argument("--calibrate-seqs", type=int, default=384,
+                   help="calibration sequences (GRU) or images (MobileViT)")
     _add_common(q)
     # the calibrated mixed recipe is a quantize-time option, not a QTensor format
     for a in q._actions:
@@ -325,11 +497,14 @@ def build_parser() -> argparse.ArgumentParser:
     q.set_defaults(fn=cmd_quantize)
 
     e = sub.add_parser("eval", help="quantization-delta report (logits/top-1/ppl vs fp32)")
-    e.add_argument("--weights", required=True, help="gru.bin or .gxt checkpoint")
+    e.add_argument("--weights", required=True, help="gru.bin, .gxt or weight.ggml")
     e.add_argument("--batch", type=int, default=8)
-    e.add_argument("--length", type=int, default=64, help="sequence length")
+    e.add_argument("--length", type=int, default=64, help="sequence length (GRU)")
     e.add_argument("--corpus", default=None,
-                   help="held-out text (default: random token sequences)")
+                   help="held-out text (GRU; default: random token sequences)")
+    e.add_argument("--image-size", type=int, default=256,
+                   help="input resolution (MobileViT)")
+    e.add_argument("--num-heads", type=int, default=4, help="attention heads (MobileViT)")
     e.add_argument("--seed", type=int, default=0)
     _add_common(e)
     e.set_defaults(fn=cmd_eval)

@@ -2,7 +2,8 @@
 
 Quantized models must match FP32 within the quantization delta at matched
 bit-width; for the GRU that is next-token logits, top-1 agreement and
-perplexity on teacher-forced sequences.
+perplexity on teacher-forced sequences, for MobileViT the classifier logits
+(or the features of a model without a head).
 """
 
 from __future__ import annotations
@@ -69,3 +70,23 @@ def eval_gru_delta(params_ref, params_q, token_seqs, *,
     la, _ = gru_textgen.forward_sequence(params_q, inputs, compute_dtype=compute_dtype)
     lb, _ = gru_textgen.forward_sequence(params_ref, inputs, compute_dtype=compute_dtype)
     return compare_logits(la, lb, targets=targets)
+
+
+def eval_mobilevit_delta(params_ref, params_q, images, *,
+                         compute_dtype=torch.float32) -> DeltaReport:
+    """Logit comparison when both params have a classifier head, else a
+    feature comparison (numeric deltas only); each params runs on its own
+    device."""
+    from ggml_experiments_tpu_torch.models.mobilevit import classify, extract_features
+
+    images = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+    with torch.no_grad():
+        if params_ref.classifier_kernel is not None and params_q.classifier_kernel is not None:
+            return compare_logits(classify(params_q, images, compute_dtype=compute_dtype),
+                                  classify(params_ref, images, compute_dtype=compute_dtype))
+        a = _np32(extract_features(params_q, images, compute_dtype=compute_dtype))
+        b = _np32(extract_features(params_ref, images, compute_dtype=compute_dtype))
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    diff = np.abs(a2 - b2)
+    return DeltaReport(max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+                       rel_rmse=float(np.linalg.norm(a2 - b2) / max(np.linalg.norm(b2), 1e-30)))

@@ -22,13 +22,21 @@ package:
 
 ``flash_attn=None`` / ``fused_layer=None`` at load mean "on when the
 parameters live on a CUDA device, off on the CPU".
+
+Load-time options: ``conv_dtype`` (convolution kernels rounded through f16,
+or stored in bf16), ``stem_space_to_depth`` (``ops.conv.SpaceToDepthStem``)
+and ``act_storage`` with ``act_storage_scope`` (conv-stage boundary
+activations stored below bf16 on the bf16 path: :func:`_stamp_act_storage`).
+``from_named_tensors`` also takes torch tensors that require grad, so that a
+loss differentiates through the assembly, BN folding included
+(``training/image_task.train_model``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,13 +44,19 @@ import torch
 from ggml_experiments_tpu_torch.device import DeviceLike, resolve_device, resolve_dtype
 from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.attention import AttentionParams, multi_head_attention
-from ggml_experiments_tpu_torch.ops.conv import ConvBNAct, static_field
+from ggml_experiments_tpu_torch.ops.conv import (
+    STORE_DTYPES,
+    ConvBNAct,
+    SpaceToDepthStem,
+    space_to_depth_stem,
+    static_field,
+)
 from ggml_experiments_tpu_torch.ops.linear import Weight, linear
 from ggml_experiments_tpu_torch.ops.norm import fold_batchnorm, layer_norm
 from ggml_experiments_tpu_torch.ops.patches import fold, unfold
 from ggml_experiments_tpu_torch.quant.qtensor import quantize
 
-UNPORTED = "is not ported (ROADMAP.md, 'Port: still to port', item 6: MobileViT)"
+ACT_STORAGE_SCOPES = ("stem", "stem12", "early", "all")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +95,16 @@ class InvertedResidualParams:
                 inverted_residual_fused,
             )
 
+            # an input stored below bf16 (ConvBNAct.store) widens at the
+            # kernel's boundary; the kernel's output stays bf16
             return inverted_residual_fused(self, x.to(cd), compute_dtype=cd)
         kw = dict(compute_dtype=cd)
         y = self.reduce_1x1(self.conv_3x3(self.expand_1x1(x, **kw), **kw), **kw)
         if not self.use_residual:
             return y
-        return x.to(cd) + y.to(cd)
+        # added in the compute dtype, then stored as wide as the block's output
+        out = x.to(cd) + y.to(cd)
+        return out.to(y.dtype) if y.dtype != out.dtype else out
 
 
 @dataclasses.dataclass
@@ -191,7 +209,7 @@ class MobileViTBlockParams:
 
 @dataclasses.dataclass
 class MobileViTParams:
-    conv_stem: ConvBNAct
+    conv_stem: Union[ConvBNAct, SpaceToDepthStem]
     layer_1: Tuple[InvertedResidualParams, ...]
     layer_2: Tuple[InvertedResidualParams, ...]
     layer_3: MobileViTBlockParams
@@ -282,39 +300,47 @@ class _TensorMap:
 
 
 class _Builder:
-    """Turns named numpy arrays into the port's parameter dataclasses on one
-    device: BN folded in f32 on the CPU, then moved."""
+    """Turns named arrays into the port's parameter dataclasses on one device.
+    Numpy arrays are copied to the CPU in f32, BN folded there, then moved;
+    torch tensors are used as they are (autograd included), BN folded on
+    their own device."""
 
     def __init__(self, tm: _TensorMap, dev: torch.device, conv_dtype: Optional[str],
                  qtype: Optional[str]):
         self.tm, self.dev, self.conv_dtype, self.qtype = tm, dev, conv_dtype, qtype
 
+    def f32(self, name: str) -> torch.Tensor:
+        a = self.tm.get(name)
+        if isinstance(a, torch.Tensor):
+            return a.float()
+        return torch.from_numpy(np.array(a, np.float32))
+
     def t(self, name: str) -> torch.Tensor:
-        return torch.from_numpy(np.array(self.tm.get(name), np.float32)).to(self.dev)
+        return self.f32(name).to(self.dev)
 
     def conv(self, path: str, *, stride: int = 1, use_bn: bool = True,
              activation: Optional[str] = "silu", depthwise: bool = False,
              eps: float = 1e-5) -> ConvBNAct:
-        kernel = np.array(self.tm.get(f"{path}/convolution/kernel:0"), np.float32)
+        kernel = self.f32(f"{path}/convolution/kernel:0")
         if self.conv_dtype == "float16":
             # the reference loader's f16 policy for names containing "convolution"
-            kernel = kernel.astype(np.float16).astype(np.float32)
+            kernel = kernel.half().float()
+        elif self.conv_dtype == "bfloat16":
+            kernel = kernel.to(torch.bfloat16)   # stored in bf16: half the bytes
         bn = None
         if use_bn:
-            stats = [torch.from_numpy(np.array(self.tm.get(f"{path}/normalization/{n}:0"),
-                                               np.float32))
+            stats = [self.f32(f"{path}/normalization/{n}:0")
                      for n in ("gamma", "beta", "moving_mean", "moving_variance")]
             folded = fold_batchnorm(*stats, eps=eps)
             folded.scale, folded.bias = folded.scale.to(self.dev), folded.bias.to(self.dev)
             bn = folded
-        return ConvBNAct(kernel=torch.from_numpy(kernel).to(self.dev), bn=bn,
-                         activation=activation or "none", stride=stride, depthwise=depthwise)
+        return ConvBNAct(kernel=kernel.to(self.dev), bn=bn, activation=activation or "none",
+                         stride=stride, depthwise=depthwise)
 
     def weight(self, name: str) -> Weight:
-        arr = np.array(self.tm.get(name), np.float32)
         if self.qtype:
-            return quantize(arr, self.qtype, device=self.dev)
-        return torch.from_numpy(arr).to(self.dev)
+            return quantize(self.tm.get(name), self.qtype, device=self.dev)
+        return self.t(name)
 
     def inverted(self, path: str, in_ch: int, out_ch: int, stride: int,
                  fused: bool, residual: Optional[bool] = None) -> InvertedResidualParams:
@@ -385,21 +411,24 @@ def from_named_tensors(
     flash_attn: Optional[bool] = None,
     fused_layer: Optional[bool] = None,
     act_storage: Optional[str] = None,
+    act_storage_scope: str = "early",
     device: DeviceLike = None,
 ) -> MobileViTParams:
-    """Assemble the model from a ``weight.ggml``-style name map.
+    """Assemble the model from a ``weight.ggml``-style name map (numpy arrays,
+    or torch tensors, which keep their autograd).
 
     ``conv_dtype='float16'`` rounds convolution kernels through f16 (the
-    reference loader's policy); ``qtype`` block-quantizes every transformer
-    dense kernel and the classifier; ``fused_ir``, ``flash_attn`` and
+    reference loader's policy), ``'bfloat16'`` stores them in bf16;
+    ``qtype`` block-quantizes every transformer dense kernel and the
+    classifier; ``stem_space_to_depth`` rewrites the stem
+    (``ops.conv.SpaceToDepthStem``); ``act_storage`` ('f8_e5m2' / 'f8_e4m3' /
+    'bfloat16') stores the conv-stage boundary activations of the bf16 path
+    at that dtype, as deep as ``act_storage_scope`` says
+    (:func:`_stamp_act_storage`); ``fused_ir``, ``flash_attn`` and
     ``fused_layer`` pick the kernel routes (module docstring). The root name
     prefix is detected (model or classification export)."""
-    if conv_dtype not in (None, "float16"):
-        raise NotImplementedError(f"conv_dtype={conv_dtype!r} (bf16 kernel storage) {UNPORTED}")
-    if stem_space_to_depth:
-        raise NotImplementedError(f"stem_space_to_depth {UNPORTED}")
-    if act_storage is not None:
-        raise NotImplementedError(f"act_storage {UNPORTED}")
+    if conv_dtype not in (None, "float16", "bfloat16"):
+        raise ValueError(f"conv_dtype must be None, 'float16' or 'bfloat16', got {conv_dtype!r}")
     dev = resolve_device(device)
     if flash_attn is None:
         flash_attn = dev.type == "cuda"
@@ -433,13 +462,65 @@ def from_named_tensors(
         layer_5=vit(4),
         conv_1x1_exp=bld.conv(f"{prefix}/conv_1x1_exp"),
     )
+    if stem_space_to_depth:
+        params.conv_stem = space_to_depth_stem(params.conv_stem)
     cls_key = _find_classifier_key(tensors)
     if cls_key:
         params.classifier_kernel = bld.weight(cls_key)
         params.classifier_bias = bld.t(cls_key.replace("kernel", "bias"))
     if strict and tm.unused():
         raise ValueError(f"unused weights in file: {tm.unused()[:10]} ...")
+    if act_storage is not None:
+        params = _stamp_act_storage(params, act_storage, scope=act_storage_scope)
     return params
+
+
+def _stamp_act_storage(params: MobileViTParams, store: str,
+                       scope: str = "early") -> MobileViTParams:
+    """The params with a storage policy on the conv stages' outputs.
+
+    ``scope`` picks how deep it reaches (narrower: fewer bytes saved, less
+    feature noise):
+
+    * ``'stem'``: conv_stem and layer_1;
+    * ``'stem12'``: and layer_2's inverted residuals;
+    * ``'early'`` (default): and layer_3's downsampler;
+    * ``'all'``: and the later downsamplers and each block's conv_projection
+      and fusion.
+
+    The boundaries feeding the transformer layers (conv_kxk, conv_1x1) and
+    the f32 features (conv_1x1_exp) always stay at the compute dtype."""
+    if store not in STORE_DTYPES:
+        raise ValueError(f"unknown act_storage {store!r}; one of {sorted(STORE_DTYPES)}")
+    if scope not in ACT_STORAGE_SCOPES:
+        raise ValueError(f"unknown act_storage scope {scope!r}; one of {ACT_STORAGE_SCOPES}")
+    rep = dataclasses.replace
+
+    def conv(c):
+        return rep(c, store=store)
+
+    def ir(blk):
+        return rep(blk, expand_1x1=conv(blk.expand_1x1), conv_3x3=conv(blk.conv_3x3),
+                   reduce_1x1=conv(blk.reduce_1x1))
+
+    def vit(blk, down_only):
+        if down_only:
+            return rep(blk, downsampling=ir(blk.downsampling))
+        return rep(blk, downsampling=ir(blk.downsampling),
+                   conv_projection=conv(blk.conv_projection), fusion=conv(blk.fusion))
+
+    out = rep(params, conv_stem=conv(params.conv_stem),
+              layer_1=tuple(ir(b) for b in params.layer_1))
+    if scope == "stem":
+        return out
+    out = rep(out, layer_2=tuple(ir(b) for b in params.layer_2))
+    if scope == "stem12":
+        return out
+    out = rep(out, layer_3=vit(params.layer_3, down_only=scope == "early"))
+    if scope == "all":
+        out = rep(out, layer_4=vit(params.layer_4, down_only=False),
+                  layer_5=vit(params.layer_5, down_only=False))
+    return out
 
 
 def infer_config(tensors: Dict[str, np.ndarray], *, image_size: int = 256,
@@ -569,7 +650,8 @@ def load_mobilevit(path: str, config: Optional[MobileViTConfig] = None, *,
     For ``weight.ggml`` with ``config=None`` the architecture is inferred from
     the shapes. For ``.gxt`` the config comes from the file's meta header and
     the stored leaves (including mixed-format quantized weights, as stored)
-    load into a template built with the caller's route flags."""
+    load into a template built with the caller's options (routes,
+    ``act_storage``); ``stem_space_to_depth`` rewrites the loaded stem."""
     from ggml_experiments_tpu_torch.formats import checkpoint
     from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
 
@@ -581,10 +663,14 @@ def load_mobilevit(path: str, config: Optional[MobileViTConfig] = None, *,
         except ValueError as ex:
             raise ValueError(f"{path}: {ex}") from None
         kw.pop("qtype", None)  # the checkpoint's quantization is what it stored
+        s2d = kw.pop("stem_space_to_depth", False)
         template = from_named_tensors(
             random_named_tensors(config, seed=0, classifier=meta.get("classifier", True)),
             config, qtype=None, device=dev, **kw)
-        return checkpoint.load_into(path, template, device=dev)
+        params = checkpoint.load_into(path, template, device=dev)
+        if s2d and not isinstance(params.conv_stem, SpaceToDepthStem):
+            params.conv_stem = space_to_depth_stem(params.conv_stem)
+        return params
     named = read_named_tensors(path)
     if config is None:
         config = infer_config(named)

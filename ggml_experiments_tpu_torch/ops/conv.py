@@ -11,6 +11,14 @@ result in bf16; BN and the activation then run in bf16 as well, as the JAX
 package does. ``float32`` runs in full f32: cuDNN's TF32 mode, on by default
 in PyTorch, is switched off around each f32 convolution on the GPU
 (:func:`_full_f32`).
+
+``ConvBNAct.store`` picks the dtype the output activation is stored in below
+the compute dtype (``f8_e5m2``, ``f8_e4m3``, ``bfloat16``; :func:`apply_store`),
+on the bf16 path only: the conv stages of batched inference are bound by the
+bytes of their boundary activations, and the consumer widens them back to
+the compute dtype. :class:`SpaceToDepthStem` is the stride-2 3x3 stem
+rewritten as space-to-depth (3 -> 12 channels) and a stride-1 2x2
+convolution.
 """
 
 from __future__ import annotations
@@ -74,9 +82,45 @@ def depthwise_conv2d(x, kernel, *, stride: int = 1, dilation: int = 1, padding=N
                   padding=padding, compute_dtype=compute_dtype)
 
 
+# activation storage dtypes (distinct from the compute dtype): f8_e5m2 is bf16
+# with its mantissa cut to 2 bits (bf16's exponent range, so no scaling)
+STORE_DTYPES = {
+    "none": None,
+    "bfloat16": torch.bfloat16,
+    "f8_e5m2": torch.float8_e5m2,
+    "f8_e4m3": torch.float8_e4m3fn,
+}
+
+
+# past this magnitude a value rounds beyond e4m3fn's largest finite value
+# (448): the format has no infinity, and the JAX package's cast gives NaN
+# there, where torch's would saturate
+_E4M3_OVERFLOW = 464.0
+
+
+def apply_store(y: torch.Tensor, store: str) -> torch.Tensor:
+    """``y`` stored at the storage dtype, rounded to nearest even (an e4m3
+    overflow is NaN). f32 activations are left alone: the f32 path is the
+    numerics oracle, and storage policies apply to the bf16 path only."""
+    dt = STORE_DTYPES[store]
+    if dt is None or y.dtype in (dt, torch.float32):
+        return y
+    if dt == torch.float8_e4m3fn:
+        y = y.masked_fill(y.abs() > _E4M3_OVERFLOW, float("nan"))
+    return y.to(dt)
+
+
+def _bn_act_store(y: torch.Tensor, bn: Optional[FoldedBN], activation: str,
+                  store: str) -> torch.Tensor:
+    if bn is not None:
+        y = y * bn.scale.to(y.dtype) + bn.bias.to(y.dtype)
+    return apply_store(get_activation(activation)(y), store)
+
+
 @dataclasses.dataclass
 class ConvBNAct:
-    """Convolution (+ folded BN) (+ activation), BN folded at load."""
+    """Convolution (+ folded BN) (+ activation), BN folded at load; the output
+    stored at ``store`` (:data:`STORE_DTYPES`)."""
 
     kernel: torch.Tensor  # (KH, KW, Cin//groups, Cout)
     bn: Optional[FoldedBN] = None
@@ -84,11 +128,55 @@ class ConvBNAct:
     stride: int = static_field(1)
     depthwise: bool = static_field(False)
     dilation: int = static_field(1)
+    store: str = static_field("none")
 
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         conv = depthwise_conv2d if self.depthwise else conv2d
         y = conv(x, self.kernel, stride=self.stride, dilation=self.dilation,
                  compute_dtype=compute_dtype)
-        if self.bn is not None:
-            y = y * self.bn.scale.to(y.dtype) + self.bn.bias.to(y.dtype)
-        return get_activation(self.activation)(y)
+        return _bn_act_store(y, self.bn, self.activation, self.store)
+
+
+@dataclasses.dataclass
+class SpaceToDepthStem:
+    """The stride-2 3x3 stem as space-to-depth + a stride-1 2x2 convolution:
+    2x2 pixel blocks folded into channels (3 -> 12) and the kernel rescattered,
+    the same arithmetic up to summation order. Built from a standard stem by
+    :func:`space_to_depth_stem`. (B, H, W, 3) -> (B, H/2, W/2, OC)."""
+
+    kernel: torch.Tensor  # (2, 2, 4*Cin, OC), rescattered from (3, 3, Cin, OC)
+    bn: Optional[FoldedBN] = None
+    activation: str = static_field("silu")
+    store: str = static_field("none")
+
+    def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+        cd = resolve_dtype(compute_dtype)
+        b, h, w, c = x.shape
+        x2 = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+        x2 = x2.reshape(b, h // 2, w // 2, 4 * c)
+        # the original symmetric pad of 1 maps to one row/column at the top/left
+        x2 = F.pad(x2.to(cd), (0, 0, 1, 0, 1, 0))
+        y = conv2d(x2, self.kernel, padding=0, compute_dtype=cd)
+        return _bn_act_store(y, self.bn, self.activation, self.store)
+
+
+def space_to_depth_stem(stem: ConvBNAct) -> SpaceToDepthStem:
+    """A stride-2 3x3 dense ``ConvBNAct`` in the space-to-depth form."""
+    k = stem.kernel
+    kh, kw, cin, oc = k.shape
+    if (kh, kw) != (3, 3) or stem.stride != 2 or stem.depthwise:
+        raise ValueError("space_to_depth_stem expects a stride-2 3x3 dense conv")
+    # K2[p, q, (a*2+b)*Cin + c, o] = K[2p+a-1, 2q+b-1, c, o] (zero out of range):
+    # output pixel (i, j) reads input rows 2i-1..2i+1, which are space-to-depth
+    # block i-1 (offset a=1) and block i (a=0, 1)
+    k2 = torch.zeros((2, 2, 4 * cin, oc), dtype=k.dtype, device=k.device)
+    for p in range(2):
+        for q in range(2):
+            for a in range(2):
+                for bq in range(2):
+                    di, dj = 2 * p + a - 1, 2 * q + bq - 1
+                    if 0 <= di < 3 and 0 <= dj < 3:
+                        ch = (a * 2 + bq) * cin
+                        k2[p, q, ch:ch + cin] = k[di, dj]
+    return SpaceToDepthStem(kernel=k2, bn=stem.bn, activation=stem.activation,
+                            store=stem.store)

@@ -880,3 +880,78 @@ def test_vision_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((2, 16, 72), device=dev)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_mha(q, q, q, 1, compute_dtype=torch.float32)
+
+
+# ---- calibration and the MobileViT load options on the card ------------------------------
+
+
+@pytest.mark.parametrize("k,n", [(256, 384), (300, 130)])
+def test_gptq_on_the_card_is_bit_equal_to_the_cpu(dev, k, n):
+    """The recursion in f64 on the card from the same H and W: the CPU's
+    planes, bit for bit (U is factored on the host on both)."""
+    from ggml_experiments_tpu_torch.quant import gptq
+
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((2048, k // 4)) @ rng.standard_normal((k, k // 4)).T
+    h = x.T @ x / x.shape[0]
+    w = rng.standard_normal((k, n)) * 0.1
+    for fn in (gptq.gptq_quantize_q4_k, gptq.gptq_quantize_q8_0):
+        got, want = fn(w, h, device=dev), fn(w, h, device="cpu")
+        assert got.codes.device.type == "cuda"
+        for name in ("codes", "scales", "mins", "supers"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.cpu(), b), (fn.__name__, name)
+
+
+def _tiny_vit(dev, **kw):
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+
+    cfg = tmv.MobileViTConfig(image_size=64, hidden_sizes=(16, 24, 32),
+                              neck_hidden_sizes=(8, 16, 16, 24, 32, 40, 64),
+                              num_transformer_layers=(1, 1, 1))
+    named = tmv.random_named_tensors(cfg, seed=3)
+    return tmv.from_named_tensors(named, cfg, device=dev, **kw), \
+        tmv.from_named_tensors(named, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("store,dtype", [("f8_e5m2", torch.float8_e5m2),
+                                         ("f8_e4m3", torch.float8_e4m3fn),
+                                         ("bfloat16", torch.bfloat16)])
+def test_act_storage_dtypes_at_the_stamped_boundaries_on_the_card(dev, store, dtype):
+    """The stamped boundaries hold the storage dtype on the card, the cast
+    gives the CPU's bits on the same bf16 values, and the f32 route is
+    untouched."""
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features
+    from ggml_experiments_tpu_torch.ops.conv import apply_store
+
+    p, _ = _tiny_vit(dev, act_storage=store, act_storage_scope="all")
+    base, _ = _tiny_vit(dev)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                   device=dev)
+    bf = torch.bfloat16
+    y = p.conv_stem(x, compute_dtype=bf)
+    assert y.dtype == dtype and p.layer_5.fusion(p.layer_5.fusion.kernel.new_zeros(
+        (1, 2, 2, 2 * p.layer_5.fusion.kernel.shape[-1])), compute_dtype=bf).dtype == dtype
+    assert p.layer_2[1](p.layer_2[0](p.layer_1[0](y, compute_dtype=bf), compute_dtype=bf),
+                        compute_dtype=bf).dtype == dtype
+    v = (torch.randn(4096, device=dev) * 300).to(bf)   # past e4m3's range too
+    got, want = apply_store(v, store).float().cpu(), apply_store(v.cpu(), store).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    assert torch.equal(extract_features(p, x), extract_features(base, x))
+    assert extract_features(p, x, compute_dtype=bf).isfinite().all()
+
+
+def test_space_to_depth_stem_equals_the_standard_stem_on_the_card(dev):
+    p, p_cpu = _tiny_vit(dev, stem_space_to_depth=True)
+    s, _ = _tiny_vit(dev)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    torch.testing.assert_close(p.conv_stem(x), s.conv_stem(x), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(p.conv_stem(x).cpu(), p_cpu.conv_stem(x.cpu()), rtol=1e-5,
+                               atol=1e-5)
+    b = p.conv_stem(x, compute_dtype=torch.bfloat16).float()
+    torch.testing.assert_close(b, s.conv_stem(x).float(), rtol=0.02,
+                               atol=0.02 * float(b.abs().max()))

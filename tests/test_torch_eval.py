@@ -143,3 +143,108 @@ def test_eval_gru_delta_matches_jax_report(refs, heldout_seqs, qtype):
     assert t.top1_agreement >= floor, t
     ppl_tol = 0.01 if qtype == "q8_0" else 0.15
     assert abs(t.ppl_a - t.ppl_b) / t.ppl_b < ppl_tol, t
+
+
+# ---- MobileViT: eval_mobilevit_delta and the weight.ggml commands --------------------
+
+VIT = os.path.join(CKPTS, "mobilevit_synth.ggml")
+
+
+def _vit_twins(qtype):
+    import dataclasses
+
+    from ggml_experiments_tpu.models import mobilevit as jmv
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.training.image_task import TINY_CLS_CONFIG
+
+    named = read_named_tensors(VIT)
+    jcfg = jmv.MobileViTConfig(**dataclasses.asdict(TINY_CLS_CONFIG))
+    return (jmv.from_named_tensors(named, jcfg, qtype=qtype, flash_attn=False,
+                                   fused_layer=False),
+            tmv.from_named_tensors(named, TINY_CLS_CONFIG, qtype=qtype, device="cpu"))
+
+
+@pytest.mark.parametrize("head", [True, False])
+def test_eval_mobilevit_delta_matches_jax(head):
+    """Logits when both sides have a head, features otherwise: the report's
+    numbers within the f32 forward's 1e-4 of the JAX package's."""
+    (jref, tref), (jq, tq) = _vit_twins(None), _vit_twins("q4_0")
+    if not head:
+        for p in (jref, tref, jq, tq):
+            p.classifier_kernel = p.classifier_bias = None
+    imgs = np.random.default_rng(2).uniform(0, 1, (3, 64, 64, 3)).astype(np.float32)
+    t = teval.eval_mobilevit_delta(tref, tq, imgs).as_dict()
+    j = jeval.eval_mobilevit_delta(jref, jq, jnp.asarray(imgs)).as_dict()
+    assert t.keys() == j.keys() and ("top1_agreement" in t) == head
+    for k in t:
+        assert t[k] == pytest.approx(j[k], rel=1e-4, abs=1e-5), k
+
+
+def test_cli_eval_of_a_weight_ggml_matches_the_jax_command(capsys):
+    """The delta block on the synthetic image and the top-1 block on the
+    task's held-out images (made at the base contrast, as the JAX command
+    makes them)."""
+    import json
+
+    from ggml_experiments_tpu import cli as jcli
+    from ggml_experiments_tpu_torch import cli
+
+    args = ["eval", "--weights", VIT, "--image-size", "64", "--qtype", "q4_k", "--batch", "2"]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert jcli.main(args + ["--compile-cache", "off"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert list(got) == list(want) == ["qtype", "max_abs", "mean_abs", "rel_rmse",
+                                       "top1_agreement", "top1_f32", "top1_q", "dtop1"]
+    for k in ("max_abs", "mean_abs", "rel_rmse"):
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k in ("qtype", "top1_agreement", "top1_f32", "top1_q", "dtop1"):
+        assert got[k] == want[k], k
+    assert got["top1_f32"] > 0.8
+
+
+@pytest.mark.parametrize("qtype", ["q8_0", "q4_k"])
+def test_cli_quantize_of_a_weight_ggml(qtype, tmp_path, capsys):
+    """Round to nearest: the JAX command's JSON line and leaves. The port's
+    file also carries the MobileViT meta (kind, qtype, config, head), so
+    both packages' load_mobilevit and the vision commands take it; the JAX
+    command writes none, and its file loads in neither package's
+    load_mobilevit (ROADMAP.md, Queue C)."""
+    import json
+
+    from ggml_experiments_tpu import cli as jcli
+    from ggml_experiments_tpu.formats import checkpoint as jckpt
+    from ggml_experiments_tpu.models import mobilevit as jmv
+    from ggml_experiments_tpu_torch import cli
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+
+    out, jout = str(tmp_path / "port.gxt"), str(tmp_path / "jax.gxt")
+    args = ["quantize", "--input", VIT, "--qtype", qtype]
+    assert cli.main(args + ["--output", out, "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert jcli.main(args + ["--output", jout, "--compile-cache", "off"]) == 0
+    assert line == {**json.loads(capsys.readouterr().out), "output": out}
+    meta = jckpt.read_meta(out)
+    assert (meta["kind"], meta["qtype"], meta["calibrated"], meta["classifier"]) == (
+        "mobilevit", qtype, False, True)
+    assert jckpt.read_meta(jout) == {}
+    # the same tensors as the JAX command's file, key by key (the folded BN
+    # vectors within the loader's 1e-6: the two rsqrt differ in the last bit)
+    got, want = jckpt.load_arrays(out), jckpt.load_arrays(jout)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        if hasattr(w, "codes"):
+            assert (g.qtype, g.shape) == (w.qtype, w.shape), k
+            np.testing.assert_array_equal(np.asarray(g.codes), np.asarray(w.codes), err_msg=k)
+        else:
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6, atol=0,
+                                       err_msg=k)
+    jp = jmv.load_mobilevit(out, flash_attn=False, fused_layer=False)
+    tp = tmv.load_mobilevit(out, device="cpu")
+    assert tp.layer_3.transformer[0].attention.wq.qtype == qtype == jp.classifier_kernel.qtype
+    with pytest.raises(ValueError, match="not a MobileViT"):
+        tmv.load_mobilevit(jout, device="cpu")
+    assert cli.main(["classify", "--weights", out, "--top-k", "2", "--device", "cpu"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 2

@@ -226,6 +226,7 @@ def test_loader_matches_jax_leaf_by_leaf(tiny_named):
 
 
 def test_loader_errors_and_unported_options(tiny_named):
+    """The loader's errors, and the load options at work."""
     broken = dict(tiny_named)
     del broken["tf_mobile_vi_t_model/mobilevit/conv_stem/convolution/kernel:0"]
     with pytest.raises(KeyError, match="conv_stem"):
@@ -237,12 +238,23 @@ def test_loader_errors_and_unported_options(tiny_named):
     p = tmv.from_named_tensors(extra, TINY, device=CPU)
     with pytest.raises(ValueError, match="classifier"):
         tmv.classify(p, torch.zeros((1, 64, 64, 3)))
-    for kw in (dict(conv_dtype="bfloat16"), dict(stem_space_to_depth=True),
-               dict(act_storage="f8_e5m2")):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    # the load options: each builds what it names, and a wrong value raises
+    p = tmv.from_named_tensors(tiny_named, TINY, device=CPU, conv_dtype="bfloat16",
+                               stem_space_to_depth=True, act_storage="f8_e5m2",
+                               act_storage_scope="stem")
+    assert p.layer_1[0].expand_1x1.kernel.dtype == torch.bfloat16
+    assert isinstance(p.conv_stem, tconv.SpaceToDepthStem)
+    assert p.conv_stem.store == p.layer_1[0].reduce_1x1.store == "f8_e5m2"
+    assert p.layer_2[0].expand_1x1.store == "none"
+    for kw, match in ((dict(conv_dtype="int8"), "conv_dtype"),
+                      (dict(act_storage="f4"), "act_storage"),
+                      (dict(act_storage="bfloat16", act_storage_scope="deep"), "scope")):
+        with pytest.raises(ValueError, match=match):
             tmv.from_named_tensors(tiny_named, TINY, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        timg.train_model({}, None, None)
+    # training assembles the same way: a missing tensor is named
+    with pytest.raises(KeyError, match="conv_stem"):
+        timg.train_model(broken, np.zeros((1, 64, 64, 3), np.float32), np.zeros(1, np.int32),
+                         config=TINY, steps=1, batch=1, device=CPU)
 
 
 # ---- the forward against the TF goldens and the JAX package ----------------------
