@@ -94,7 +94,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      full-size task (``make_dataset``, task rev 4) in batches of 128 at f32
      (flash, 9 launches a batch), bf16 (fused layer and each of its three
      kernels, 9 a batch) and bf16 with
-     ``fused_ir`` (and the inverted residual, 2 a batch), top-1 against the
+     ``fused_ir`` (and the inverted residual, once a batch for each stride-1
+     block its gate takes), top-1 against the
      labels and argmax agreement with f32; the card's f32 features of the
      first 32 images against the plain CPU run; the calibrated
      ``mobilevit_synth_full_q4km.gxt`` classifying the same images; the
@@ -278,6 +279,11 @@ KM_VIT_AGREE, KM_VIT_REL = 319 / 320, 0.005    # the shipped q4_k_m vision file'
 STORE_RUNS = (("f8_e5m2", "early"), ("f8_e5m2", "all"), ("bfloat16", "early"))
 STORE_REL = {"early": 0.35, "all": 0.45}       # the JAX act-storage contracts
 TRAIN_VIT_STEPS, TRAIN_VIT_BATCH, TRAIN_VIT_IMAGES = 20, 100, 1000
+# HTTP serving (phases 18-19)
+HTTP_ENGINE_SHAPE = (512, 128)       # (slots, inner steps): the fused tick
+HTTP_REQUESTS, HTTP_CLIENTS = 64, 8
+HTTP_CANCELS, HTTP_CANCEL_NEW = 4, 1024    # streams canceled by DELETE, their length
+HTTP_IMAGES = 128
 
 
 class SmokeFailure(AssertionError):
@@ -1610,6 +1616,13 @@ def argmax_near_ties(what, got, want, tol):
     return 1.0 - len(diff) / got.shape[0], len(diff)
 
 
+def ir_blocks(params):
+    """MobileViT's seven inverted residuals: layer_1's, layer_2's three and
+    the downsampling block of layers 3-5."""
+    return [*params.layer_1, *params.layer_2,
+            *(getattr(params, f"layer_{k}").downsampling for k in (3, 4, 5))]
+
+
 def vision_model_phase(tag, dev, images, labels):
     """Phase 14: MobileViT through the entry points on the full checkpoint
     (see the module docstring). Returns (main-path launches by kernel, the
@@ -1633,11 +1646,12 @@ def vision_model_phase(tag, dev, images, labels):
     f32, bf16 = torch.float32, torch.bfloat16
     x_all = torch.from_numpy(images)
     nb = -(-len(images) // VIT_BATCH)
-    p = load_mobilevit(VIT_CKPT, device=dev)
+    p = load_mobilevit(VIT_CKPT, device=dev, fused_ir=False)
     p_ir = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
     check(p.layer_3.transformer[0].attention.flash and p.layer_3.transformer[0].fused
           and not p.layer_2[1].fused and p_ir.layer_2[1].fused,
           f"{tag}: the default routes on the card are not flash + fused layer")
+    n_ir = sum(blk.fused_route(bf16) for blk in ir_blocks(p_ir))
 
     def run(params, cd, name):
         port.reset_kernel_launches()
@@ -1655,7 +1669,7 @@ def vision_model_phase(tag, dev, images, labels):
     logits = {}
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
     runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, layer),
-            ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": 2}))
+            ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": n_ir}))
     main_launches = {}
     for name, params, cd, per_batch in runs:
         out, launches, sec = run(params, cd, name)
@@ -2103,9 +2117,12 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
         f"({worst[1][0]:,} of {worst[1][1]:,})")
     check(p_km.layer_3.transformer[0].attention.flash and p_km.layer_3.transformer[0].fused,
           f"{tag}: the port-made file did not load on the default routes")
-    layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
+    # the default routes: flash at f32; the fused layer and the
+    # fused inverted residual at bf16 (the float model's bf16 + fused_ir route)
+    layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS},
+             "fused_inverted_residual": sum(blk.fused_route(bf16) for blk in ir_blocks(p_km))}
     for name, cd, per_batch, ref_route in (("f32", f32, {"flash_mha": 9}, "f32"),
-                                           ("bf16", bf16, layer, "bf16")):
+                                           ("bf16", bf16, layer, "bf16+fused_ir")):
         got, launches = run_classify(p_km, cd)
         for k, v in per_batch.items():
             check(launches[k] == v * nb, f"{tag}: classify {name}: {launches[k]} {k} launches, "
@@ -2142,7 +2159,9 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
 
     # 3. activation storage on the bf16 + fused_ir route
     xb = x_all[:VIT_BATCH].to(dev)
-    p = load_mobilevit(VIT_CKPT, device=dev)
+    # parts 3-4 compare load options on the bf16 route without the fused
+    # inverted residual, whose depthwise taps stay f32 whatever the storage
+    p = load_mobilevit(VIT_CKPT, device=dev, fused_ir=False)
     with torch.no_grad():
         ref32 = extract_features(p, xb)
     base = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
@@ -2153,9 +2172,10 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
     rel = {}
     for store, scope, params in rows:
         out, launches = run_classify(params, bf16)
-        check(launches["fused_inverted_residual"] == 2 * nb,
+        n_ir = sum(blk.fused_route(bf16) for blk in ir_blocks(params))
+        check(launches["fused_inverted_residual"] == n_ir * nb,
               f"{tag}: {store}/{scope}: {launches['fused_inverted_residual']} inverted residual "
-              f"launches, want 2 a batch x {nb}")
+              f"launches, want {n_ir} a batch x {nb}")
         with torch.no_grad():
             feats = extract_features(params, xb, compute_dtype=bf16)
         rel[(store, scope)] = float((feats - ref32).norm() / ref32.norm())
@@ -2172,8 +2192,8 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
     del rows, base
 
     # 4. the space-to-depth stem and bf16 convolution kernels
-    s2d = load_mobilevit(VIT_CKPT, device=dev, stem_space_to_depth=True)
-    cb = load_mobilevit(VIT_CKPT, device=dev, conv_dtype="bfloat16")
+    s2d = load_mobilevit(VIT_CKPT, device=dev, stem_space_to_depth=True, fused_ir=False)
+    cb = load_mobilevit(VIT_CKPT, device=dev, conv_dtype="bfloat16", fused_ir=False)
     with torch.no_grad():
         r = float((extract_features(s2d, xb) - ref32).abs().max() / ref32.abs().max())
         check(r <= VIT_CPU_FEATURE_REL, f"{tag}: space-to-depth f32 features: max rel {r:.3g}")
@@ -2233,6 +2253,432 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
         f"plain path)")
 
 
+# ---- phases 18-20: HTTP serving, the dispatch gates and ``bench`` -----------------
+
+
+def http_call(port, method, path, payload=None, raw=None, headers=None, timeout=300):
+    """(status, reply bytes) of one request to a front end on this machine."""
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers=headers or {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as ex:
+        return ex.code, ex.read()
+
+
+def serve_subprocess(argv, pattern):
+    """Start ``python -m ggml_experiments_tpu_torch ARGV`` and wait for the
+    line that gives its port on stderr: (process, port)."""
+    import re
+    import select
+
+    proc = subprocess.Popen([sys.executable, "-m", "ggml_experiments_tpu_torch", *argv],
+                            stderr=subprocess.PIPE, cwd=REPO)
+    buf = b""
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        ready, _, _ = select.select([proc.stderr], [], [], 0.2)
+        if ready:
+            chunk = os.read(proc.stderr.fileno(), 4096)
+            buf += chunk
+            m = re.search(pattern, buf)
+            if m:
+                return proc, int(m.group(1))
+        if proc.poll() is not None:
+            break
+    proc.kill()
+    proc.wait(timeout=30)
+    raise SmokeFailure(f"{argv[0]} --http gave no port: rc {proc.returncode}, stderr "
+                       f"{buf[-2000:]!r}")
+
+
+def stop_subprocess(proc, what):
+    """SIGINT, then the exit code must be 0."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise SmokeFailure(f"{what} did not stop on SIGINT")
+    check(rc == 0, f"{what} exited {rc} on SIGINT")
+
+
+def http_text_phase(tag, dev, rng, tok):
+    """Phase 18: HttpFrontend over a DecodeEngine of HTTP_ENGINE_SHAPE (the
+    fused tick) on gru_shakespeare.bin q8_0, bf16: HTTP_REQUESTS requests
+    from HTTP_CLIENTS client threads, half streamed, HTTP_CANCELS of the
+    streamed ones canceled by DELETE after their first token; every reply
+    equal to the offline fused decode (a canceled one: its prefix); then the
+    ``serve --http 0`` command (its defaults: 16 slots x 16 inner steps, f32)
+    answering 4 requests equal to ``generate`` (forks only at near-ties),
+    stopped by SIGINT."""
+    import concurrent.futures
+    import http.client
+
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+    from ggml_experiments_tpu_torch.serving.http import HttpFrontend
+
+    bf16 = torch.bfloat16
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+    n_slots, inner = HTTP_ENGINE_SHAPE
+    eng = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                       compute_dtype=bf16)
+    check(eng.use_fused_tick, f"{tag}: the engine gate sends {n_slots} x {inner} to the scan")
+    prompts = corpus_prompts(tok, rng, HTTP_REQUESTS, 1, 64)
+    new_toks = [int(x) for x in rng.integers(16, 257, len(prompts))]
+    stream = [i % 2 == 1 for i in range(len(prompts))]
+    cancel = set(range(1, 2 * HTTP_CANCELS, 2))
+    for i in cancel:
+        new_toks[i] = HTTP_CANCEL_NEW      # long enough to be cut short
+    offline = fused.fused_gru_decode(params, *pad_batch(prompts, 64), 64 + max(new_toks),
+                                     compute_dtype=bf16).cpu().numpy()
+    eng.start()
+    front = HttpFrontend(eng, tok, port=0)
+    front.start()
+
+    def one(i):
+        text = tok.decode(prompts[i].tolist())
+        payload = {"prompt": text, "max_new_tokens": new_toks[i], "stream": stream[i]}
+        if not stream[i]:
+            code, body = http_call(front.port, "POST", "/v1/generate", payload)
+            check(code == 200, f"{tag}: request {i}: HTTP {code} {body[:200]!r}")
+            reply = json.loads(body)
+            return reply["tokens"], reply["canceled"]
+        conn = http.client.HTTPConnection("127.0.0.1", front.port, timeout=300)
+        conn.request("POST", "/v1/generate", json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"{tag}: stream {i}: HTTP {resp.status}")
+        rid = json.loads(resp.readline())["id"]
+        toks, final = [], None
+        while final is None:
+            line = json.loads(resp.readline())
+            if "token" in line:
+                toks.append(line["token"])
+                if i in cancel and len(toks) == 1:
+                    code, _ = http_call(front.port, "DELETE", f"/v1/requests/{rid}")
+                    check(code == 200, f"{tag}: DELETE of request {rid}: HTTP {code}")
+            else:
+                final = line
+        resp.read()     # the closing chunk
+        conn.close()
+        check(final["done"] and final["generated"] == len(toks),
+              f"{tag}: stream {i}: final chunk {final}")
+        return toks, final["canceled"]
+
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+        replies = list(pool.map(one, range(len(prompts))))
+    wall = time.perf_counter() - t0
+    launches = port.kernel_launches()
+    code, health = http_call(front.port, "GET", "/v1/health")
+    health = json.loads(health)
+    code2, stats = http_call(front.port, "GET", "/v1/stats")
+    stats = json.loads(stats)
+    front.stop()
+    eng.stop()
+    check(code == code2 == 200 and health["status"] == "ok" and health["slots"] == n_slots,
+          f"{tag}: /v1/health {code} {health}")
+    check(launches["fused_slot_tick"] > 0, f"{tag}: the tick kernel was not launched: {launches}")
+    cut, generated = 0, 0
+    for i, (toks, canceled) in enumerate(replies):
+        total = prompts[i].size + new_toks[i]
+        want = offline[i, :total].tolist()
+        generated += max(0, len(toks) - prompts[i].size)
+        if i in cancel:
+            check(canceled and toks == want[:len(toks)],
+                  f"{tag}: canceled request {i}: not a prefix of the offline decode")
+            cut += len(toks) < total
+        else:
+            check(not canceled and toks == want,
+                  f"{tag}: request {i} ({'streamed' if stream[i] else 'whole'}) differs from "
+                  f"the offline decode")
+    check(cut > 0, f"{tag}: no DELETE landed before its request finished")
+    check(stats["requests_completed"] + stats["requests_canceled"] >= len(prompts) - len(cancel)
+          and stats["tokens_generated"] > 0, f"{tag}: /v1/stats {stats}")
+    log(f"[{tag}] HttpFrontend over a {n_slots} x {inner} engine (fused tick, q8_0 bf16): "
+        f"{len(prompts)} requests from {HTTP_CLIENTS} clients ({sum(stream)} streamed, "
+        f"{len(cancel)} canceled by DELETE, {cut} of them cut short) in {wall:.3f} s = "
+        f"{len(prompts) / wall:.1f} requests/s, {generated:,} new tokens = "
+        f"{generated / wall:,.0f} tokens/s; every reply equal to the offline decode | tick "
+        f"launches {launches['fused_slot_tick']} | /v1/stats {json.dumps(stats)}")
+
+    # the command, at its defaults: 16 slots x 16 inner steps (the scan tick), f32
+    proc, port_no = serve_subprocess(["serve", "--weights", CKPT, "--qtype", "q8_0",
+                                      "--http", "0"], rb"serving HTTP on 127\.0\.0\.1:(\d+)")
+    try:
+        sub = corpus_prompts(tok, rng, 4, 8, 40)
+        t0 = time.perf_counter()
+        got = []
+        for p in sub:
+            code, body = http_call(port_no, "POST", "/v1/generate",
+                                   {"prompt": tok.decode(p.tolist()), "max_new_tokens": 64})
+            check(code == 200, f"{tag}: serve --http: HTTP {code} {body[:200]!r}")
+            got.append(json.loads(body)["tokens"])
+        sub_s = time.perf_counter() - t0
+    finally:
+        stop_subprocess(proc, "serve --http")
+    ids, lens = pad_batch(sub, 40)
+    want = gru_textgen.generate(params, ids, lens, 40 + 64, compute_dtype=torch.float32).cpu()
+    rows = [np.asarray(g[:p.size + 64]) for g, p in zip(got, sub)]
+    for i, (row, p) in enumerate(zip(rows, sub)):
+        check(row.size == p.size + 64, f"{tag}: serve --http reply {i}: {row.size} tokens")
+    width = min(r.size for r in rows)
+    got_t = torch.from_numpy(np.stack([r[:width] for r in rows]))
+    z = torch.zeros(len(sub), dtype=torch.int32, device=dev)
+    tf = torch.full((len(sub),), width, dtype=torch.int32, device=dev)
+    *_, gaps = fused.gru_loop_reference(fused._prep_weights(params), want[:, :width].to(dev),
+                                        tf, tf, z, z, torch.zeros(len(sub), 1024, device=dev),
+                                        width, torch.float32, margins=True)
+    agree, forked = first_divergence_near_ties(got_t, want[:, :width], gaps.cpu(),
+                                               NEAR_TIE["float32"], f"{tag}: serve --http")
+    log(f"[{tag}] serve --http 0 (its defaults: 16 slots x 16 inner steps, f32): 4 requests in "
+        f"{sub_s:.2f} s, tokens vs generate: agreement {agree:.6f}, {forked} rows fork (at "
+        f"near-ties) | stopped by SIGINT, rc 0")
+
+
+def ppm_bytes(u8):
+    h, w, _ = u8.shape
+    return f"P6\n{w} {h}\n255\n".encode() + u8.tobytes()
+
+
+def http_vision_phase(tag, dev, images):
+    """Phase 19: HttpFrontend over a VisionEngine (ladder 8/32/128, u8
+    transport, bf16) on the full checkpoint at its default routes: phase
+    14's held-out images as raw PPM bodies and as JSON ``image_b64``, to
+    /v1/classify and /v1/features from HTTP_CLIENTS threads; the top-1
+    against the offline classify of the same u8 images under the near-tie
+    rule, the features' debug vectors against the offline forward; the
+    fused layer and the inverted residual launched; an oversize body 413;
+    then the ``serve-vision --http 0`` command for 4 requests."""
+    import base64
+    import concurrent.futures
+    import http.client
+
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.serving import VisionEngine
+    from ggml_experiments_tpu_torch.serving.http import MAX_BODY_BYTES, HttpFrontend
+
+    bf16 = torch.bfloat16
+    params = load_mobilevit(VIT_CKPT, device=dev)
+    u8 = np.clip(np.round(images[:HTTP_IMAGES] * 255.0), 0, 255).astype(np.uint8)
+    x = torch.from_numpy(u8).to(dev).float() / 255.0
+    want_cls = classify(params, x, compute_dtype=bf16).float().cpu()
+    want_feat = extract_features(params, x, compute_dtype=bf16).float().cpu()
+    del x
+    eng = VisionEngine(params, image_size=256, batch_sizes=(8, 32, 128), compute_dtype=bf16)
+    eng.start()
+    front = HttpFrontend(None, vision=eng, port=0)
+    front.start()
+
+    def one(i):
+        kind = "classify" if i % 4 < 2 else "features"
+        if i % 2 == 0:
+            code, body = http_call(front.port, "POST", f"/v1/{kind}", raw=ppm_bytes(u8[i]),
+                                   headers={"Content-Type": "image/x-portable-pixmap"})
+        else:
+            code, body = http_call(front.port, "POST", f"/v1/{kind}",
+                                   {"image_b64": base64.b64encode(ppm_bytes(u8[i])).decode()})
+        check(code == 200, f"{tag}: image {i} {kind}: HTTP {code} {body[:200]!r}")
+        return kind, json.loads(body)
+
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+        replies = list(pool.map(one, range(len(u8))))
+    wall = time.perf_counter() - t0
+    launches = port.kernel_launches()
+    conn = http.client.HTTPConnection("127.0.0.1", front.port, timeout=60)
+    conn.putrequest("POST", "/v1/classify")
+    conn.putheader("Content-Type", "image/png")
+    conn.putheader("Content-Length", str(MAX_BODY_BYTES + 1))
+    conn.endheaders()
+    big = conn.getresponse().status
+    conn.close()
+    code, stats = http_call(front.port, "GET", "/v1/vision/stats")
+    front.stop()
+    eng.stop()
+    check(big == 413, f"{tag}: an oversize body got HTTP {big}, want 413")
+    check(launches["fused_inverted_residual"] > 0 and launches["fused_transformer_layer"] > 0,
+          f"{tag}: the fused layer or the inverted residual was not launched: {launches}")
+    got_cls, ref_cls, feat_err, scale = [], [], 0.0, 0.0
+    for i, (kind, reply) in enumerate(replies):
+        if kind == "classify":
+            top = reply["top"]
+            row = torch.full((want_cls.shape[1],), -1e30)
+            for cls_id, logit in top:
+                row[cls_id] = logit
+            got_cls.append(row)
+            ref_cls.append(want_cls[i])
+        else:
+            vec = want_feat[i, 0, 0]
+            w = torch.cat([vec[:5], vec[-5:]])
+            g = torch.tensor(reply["first5"] + reply["last5"])
+            check(reply["shape"] == list(want_feat.shape[1:]),
+                  f"{tag}: features {i}: shape {reply['shape']}")
+            feat_err = max(feat_err, float((g - w).abs().max()))
+            scale = max(scale, float(want_feat[i].abs().max()))
+    check(feat_err <= VIT_ENGINE_FEATURE_MAX * scale,
+          f"{tag}: features differ from the offline forward by {feat_err:.3g} (limit "
+          f"{VIT_ENGINE_FEATURE_MAX} x {scale:.3g})")
+    agree, flips = argmax_near_ties(f"{tag}: HTTP classify vs offline", torch.stack(got_cls),
+                                    torch.stack(ref_cls), VIT_NEAR_TIE)
+    log(f"[{tag}] HttpFrontend over a VisionEngine (8/32/128, u8, bf16, default routes): "
+        f"{len(u8)} images (PPM bodies and image_b64, classify and features) from "
+        f"{HTTP_CLIENTS} clients in {wall:.3f} s = {len(u8) / wall:.1f} requests/s | top-1 "
+        f"agreement with the offline classify {agree:.4f} ({flips} flips, at near-ties), "
+        f"features max abs err {feat_err:.3g} (largest {scale:.3g}) | launches: fused layer "
+        f"{launches['fused_transformer_layer']}, inverted residual "
+        f"{launches['fused_inverted_residual']} | oversize body: 413 | /v1/vision/stats "
+        f"{stats.decode().strip()}")
+
+    proc, port_no = serve_subprocess(["serve-vision", "--weights", VIT_CKPT, "--compute",
+                                      "bfloat16", "--http", "0"],
+                                     rb"vision service on 127\.0\.0\.1:(\d+)")
+    try:
+        t0 = time.perf_counter()
+        tops = []
+        for i in range(4):
+            code, body = http_call(port_no, "POST", "/v1/classify", raw=ppm_bytes(u8[i]),
+                                   headers={"Content-Type": "image/x-portable-pixmap"})
+            check(code == 200, f"{tag}: serve-vision: HTTP {code} {body[:200]!r}")
+            tops.append(json.loads(body)["top"][0])
+        sub_s = time.perf_counter() - t0
+    finally:
+        stop_subprocess(proc, "serve-vision")
+    for i, (cls_id, _) in enumerate(tops):
+        if cls_id != int(want_cls[i].argmax()):
+            top2 = want_cls[i].topk(2).values
+            check(float(top2[0] - top2[1]) < VIT_NEAR_TIE,
+                  f"{tag}: serve-vision image {i}: top-1 {cls_id}, offline "
+                  f"{int(want_cls[i].argmax())}")
+    log(f"[{tag}] serve-vision --http 0: 4 classify requests in {sub_s:.2f} s, top-1 as "
+        f"offline (near-tie rule) | stopped by SIGINT, rc 0")
+
+
+def gates_phase(tag, dev, rng, tok):
+    """Phase 20: the committed dispatch gates at their edges (no calibration
+    file: GXT_TORCH_DECODE_DISPATCH names a missing one), read from the launch
+    counters, then the ``bench`` command's JSON lines."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen, mobilevit
+    from ggml_experiments_tpu_torch.serving import DecodeEngine, engine as engine_mod
+
+    bf16 = torch.bfloat16
+    thr = gru_textgen.dispatch_thresholds(reload=True)
+    check(thr["source"] == "default" and thr["min_b"] == gru_textgen.DECODE_FUSED_MIN_B
+          and thr["min_t"] == gru_textgen.DECODE_FUSED_MIN_T,
+          f"{tag}: decode thresholds {thr} are not the committed ones")
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+
+    def decode_launches(b, t, cd):
+        ids, lens = pad_batch(corpus_prompts(tok, rng, b, 1, 16), 16)
+        port.reset_kernel_launches()
+        out = gru_textgen.decode(params, ids, lens, t, compute_dtype=cd)
+        torch.cuda.synchronize()
+        check(out.shape == (b, t), f"{tag}: decode ({b}, {t}) shape {tuple(out.shape)}")
+        return port.kernel_launches()["fused_gru_decode"]
+
+    # at the thresholds, and one step of the sweeps' doubling grids past each
+    min_b, min_t = thr["min_b"], thr["min_t"]
+    cap = gru_textgen.DECODE_FUSED_MAX_B_F32
+    f32 = torch.float32
+    checks = [((min_b, min_t, bf16), True), ((min_b // 2, min_t, bf16), False),
+              ((min_b, min_t // 2, bf16), False), ((cap, min_t, f32), True),
+              ((2 * cap, min_t, f32), False), ((2 * cap, min_t, bf16), True)]
+    for (b, t, cd), fused_want in checks:
+        n = decode_launches(b, t, cd)
+        check((n > 0) == fused_want, f"{tag}: decode({b}, {t}, {cdname(cd)}) launched the "
+                                     f"persistent kernel {n} times (want "
+                                     f"{'some' if fused_want else 'none'})")
+    log(f"[{tag}] decode() gate (B, T) >= ({min_b}, {min_t}), at f32 B <= {cap}: "
+        + ", ".join(f"({b}, {t}, {cdname(cd)}) -> {'fused' if f else 'scan'}"
+                    for (b, t, cd), f in checks))
+
+    slots, inner = engine_mod.FUSED_TICK_MIN_SLOTS, engine_mod.FUSED_TICK_MIN_INNER
+    cap = engine_mod.FUSED_TICK_MAX_SLOTS_F32
+    f32 = torch.float32
+    ecks = [((slots, inner, bf16), True), ((slots // 2, inner, bf16), False),
+            ((slots, inner // 2, bf16), False), ((2 * cap, inner, bf16), True),
+            ((cap, inner, f32), True), ((2 * cap, inner, f32), False)]
+    for (s, i, cd), fused_want in ecks:
+        eng = DecodeEngine(params, n_slots=s, max_prompt=16, inner_steps=i, compute_dtype=cd)
+        check(eng.use_fused_tick == fused_want, f"{tag}: engine {s} x {i} {cdname(cd)}: fused "
+                                                f"tick {eng.use_fused_tick}")
+        port.reset_kernel_launches()
+        reqs = [eng.submit(p, 8) for p in corpus_prompts(tok, rng, 4, 1, 16)]
+        eng.run_until_idle(timeout_s=300)
+        n = port.kernel_launches()
+        check(all(r._done.is_set() for r in reqs)
+              and (n["fused_slot_tick"] > 0) == fused_want
+              and (n["qmatmul_q8_0"] > 0) != fused_want,
+              f"{tag}: engine {s} x {i} {cdname(cd)} launched {n['fused_slot_tick']} ticks, "
+              f"{n['qmatmul_q8_0']} qmatmuls")
+    log(f"[{tag}] engine gate (n_slots, inner) >= ({slots}, {inner}), at f32 n_slots <= {cap}: "
+        + ", ".join(f"({s}, {i}, {cdname(cd)}) -> {'fused' if f else 'scan'}"
+                    for (s, i, cd), f in ecks))
+
+    vit = mobilevit.load_mobilevit(VIT_CKPT, device=dev)
+    blocks = ir_blocks(vit)
+    want_ir = sum(blk.fused_route(bf16) for blk in blocks)
+    x = torch.rand((8, 256, 256, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    got_ir = {}
+    for cd in (bf16, torch.float32):
+        port.reset_kernel_launches()
+        mobilevit.extract_features(vit, x, compute_dtype=cd)
+        torch.cuda.synchronize()
+        got_ir[cdname(cd)] = port.kernel_launches()["fused_inverted_residual"]
+    widths = [blk.expand_1x1.kernel.shape[-1] for blk in blocks if blk.conv_3x3.stride == 1]
+    check(want_ir == sum(e >= mobilevit.IR_FUSED_MIN_EXPAND for e in widths) and want_ir > 0
+          and got_ir == {"bfloat16": want_ir, "float32": 0},
+          f"{tag}: fused_ir default: {got_ir} inverted-residual launches a forward, want "
+          f"{want_ir} at bf16 (stride-1 widths {widths}, E >= "
+          f"{mobilevit.IR_FUSED_MIN_EXPAND}) and 0 at f32")
+    log(f"[{tag}] fused_ir default on the card: E >= {mobilevit.IR_FUSED_MIN_EXPAND} of the "
+        f"stride-1 widths {widths}: {got_ir} launches a forward (bf16, f32)")
+    del vit, x
+    torch.cuda.empty_cache()
+
+    for argv in (["bench", "--model", "gru", "--batch", "1024", "--steps", "256",
+                  "--qtype", "q8_0", "--compute", "bfloat16"],
+                 ["bench", "--model", "mobilevit", "--batch", "128", "--compute", "bfloat16"],
+                 ["bench", "--model", "mobilevit", "--batch", "128", "--compute", "float32"]):
+        rc, out, sec = run_command(argv)
+        line = json.loads(out.strip().splitlines()[-1])
+        check(rc == 0 and line["device"] == torch.cuda.get_device_name(0)
+              and line["ms_per_call"] > 0 and np.isfinite(line["ms_per_call"]),
+              f"{tag}: {' '.join(argv)}: rc {rc}, {line}")
+        log(f"[{tag}] {' '.join(argv)} ({sec:.1f} s): {json.dumps(line)}")
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -2252,6 +2698,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import numpy as np
+
+    # the committed decode thresholds, whatever calibration file the machine has
+    dispatch_dir = tempfile.TemporaryDirectory()
+    os.environ["GXT_TORCH_DECODE_DISPATCH"] = os.path.join(dispatch_dir.name, "none.json")
 
     from ggml_experiments_tpu_torch import _build, cli
     from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any, load_gru_params
@@ -2522,7 +2972,16 @@ def main() -> int:
 
     # ---- 17. the MobileViT remainders on the card --------------------------------------
     vision_remainders_phase("17 vision remainders", dev, images, labels, vit_logits)
-    del images, vit_logits
+    del vit_logits
+    torch.cuda.empty_cache()
+
+    # ---- 18-20. HTTP serving, the dispatch gates and bench --------------------------------
+    http_text_phase("18 http text", dev, rng, tok)
+    torch.cuda.empty_cache()
+    http_vision_phase("19 http vision", dev, images)
+    del images
+    torch.cuda.empty_cache()
+    gates_phase("20 gates", dev, rng, tok)
     torch.cuda.empty_cache()
 
     # ---- 6. kernels ---------------------------------------------------------------

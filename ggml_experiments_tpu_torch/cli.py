@@ -1,7 +1,9 @@
 """Command-line drivers of the port.
 
   python -m ggml_experiments_tpu_torch generate --weights gru.bin [--prompt "..."]
-  python -m ggml_experiments_tpu_torch serve    --weights gru.bin
+  python -m ggml_experiments_tpu_torch serve    --weights gru.bin [--http PORT --host ADDR]
+  python -m ggml_experiments_tpu_torch serve-vision --weights weight.ggml --http PORT
+  python -m ggml_experiments_tpu_torch bench    --model gru|mobilevit [--weights ...]
   python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q8.gxt
   python -m ggml_experiments_tpu_torch quantize --input gru.bin --output gru.q4km.gxt \
       --qtype q4_k_m --calibrate corpus.txt
@@ -14,7 +16,11 @@
   python -m ggml_experiments_tpu_torch classify --weights mobilevit.ggml [--image img.png]
 
 ``generate`` with no --prompt reads one line from stdin; ``serve`` reads one
-prompt per line and streams each continuation. ``--weights`` takes the
+prompt per line and streams each continuation, or with ``--http`` serves the
+JSON API of ``serving/http.py`` until SIGINT or SIGTERM; ``serve-vision``
+serves the image endpoints of the same front end over a ``VisionEngine``.
+``bench`` prints one JSON line of throughput under the port's timing
+protocol (``utils/benchmarking.py``). ``--weights`` takes the
 reference gru.bin or a native ``.gxt`` checkpoint for the GRU commands, and a
 ``weight.ggml`` named-tensor file or a MobileViT ``.gxt`` for ``features`` and
 ``classify`` (without --image they run on the reference's synthetic image).
@@ -89,6 +95,15 @@ def cmd_serve(args) -> int:
         fetch_async=args.fetch_async,
     )
     engine.start()
+    if args.http is not None:
+        from ggml_experiments_tpu_torch.serving.http import HttpFrontend
+
+        front = HttpFrontend(engine, tok, host=args.host, port=args.http)
+        front.start()
+        print(f"serving HTTP on {args.host}:{front.port} ({args.slots} slots; "
+              f"POST /v1/generate, GET /v1/health)", file=sys.stderr, flush=True)
+        _serve_until_signal(front, engine)
+        return 0
     print(f"serving with {args.slots} slots; type a prompt per line "
           f"(empty line or EOF to quit)", file=sys.stderr)
     try:
@@ -424,10 +439,121 @@ def cmd_classify(args) -> int:
     return 0
 
 
+def _serve_until_signal(front, *engines) -> None:
+    """Block until SIGINT or SIGTERM, then stop the front end and the engines."""
+    import signal
+    import threading
+
+    stop = threading.Event()
+    handlers = {sig: signal.signal(sig, lambda *_: stop.set())
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+        front.stop()
+        for eng in engines:
+            eng.stop()
+
+
 def cmd_serve_vision(args) -> int:
-    raise NotImplementedError(
-        "serve-vision is the HTTP image API, not ported yet (ROADMAP.md, 'Port: still to "
-        "port', item 4: HTTP serving); serving.vision.VisionEngine serves in-process")
+    """Continuous-batching image service over HTTP: POST /v1/classify and
+    /v1/features (serving/http.py) in front of a VisionEngine."""
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.models.mobilevit import load_mobilevit
+    from ggml_experiments_tpu_torch.serving.http import HttpFrontend
+    from ggml_experiments_tpu_torch.serving.vision import VisionEngine
+
+    if args.weights.endswith(".gxt"):
+        # a self-describing checkpoint: its own quantization and image size
+        params = load_mobilevit(args.weights, device=args.device)
+        size = checkpoint.read_meta(args.weights).get("config", {}).get(
+            "image_size", args.image_size)
+    else:
+        params = load_mobilevit(args.weights, qtype=args.qtype, device=args.device)
+        size = args.image_size
+    eng = VisionEngine(params, image_size=size,
+                       batch_sizes=tuple(int(b) for b in args.batch_sizes.split(",")),
+                       compute_dtype=args.compute)
+    eng.start()
+    front = HttpFrontend(None, vision=eng, host=args.host, port=args.http)
+    front.start()
+    print(f"vision service on {args.host}:{front.port} (POST /v1/classify, /v1/features; "
+          f"GET /v1/vision/stats)", file=sys.stderr, flush=True)
+    _serve_until_signal(front, eng)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """Decode or feature-extraction throughput under the port's timing
+    protocol (utils/benchmarking.PROTOCOL), as one JSON line. Without
+    --weights the model is random at full size, made from --seed."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.device import resolve_device, resolve_dtype
+    from ggml_experiments_tpu_torch.utils.benchmarking import PROTOCOL, timeit_stats
+
+    dev = resolve_device(args.device)
+    qtype = args.qtype or "q8_0"
+    compute = resolve_dtype(args.compute)
+    out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+           "protocol": PROTOCOL, "qtype": qtype, "compute": args.compute}
+    rng = np.random.default_rng(args.seed)
+    if args.model == "gru":
+        from ggml_experiments_tpu_torch.models import gru_textgen
+
+        if args.weights:
+            from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
+
+            params = load_gru_any(args.weights, qtype=qtype, device=dev)
+        else:
+            from ggml_experiments_tpu_torch.convert import params_from_numpy
+
+            cfg = gru_textgen.GRUConfig()
+            v, e, u = cfg.vocab_size, cfg.embed_dim, cfg.units
+            shapes = {"embeddings": (v, e), "kernel": (e, 3 * u), "recurrent_kernel": (u, 3 * u),
+                      "bias": (2, 3 * u), "dense_kernel": (u, v)}
+            arrays = {k: (rng.standard_normal(s) * 0.05).astype(np.float32)
+                      for k, s in shapes.items()}
+            arrays["dense_bias"] = np.zeros(v, np.float32)
+            params = params_from_numpy(arrays, qtype=qtype, device=dev)
+        b, steps = args.batch, args.steps
+        prompt = torch.as_tensor(rng.integers(0, params.vocab_size, (b, 8)), device=dev)
+        lengths = torch.full((b,), 8, dtype=torch.int64, device=dev)
+        st = timeit_stats(lambda: gru_textgen.decode(params, prompt, lengths, steps,
+                                                     compute_dtype=compute), device=dev)
+        out.update(model="gru", batch=b, steps=steps,
+                   route=gru_textgen.decode_route(params, b, steps, compute_dtype=compute),
+                   ms_per_call=round(st.headline * 1e3, 3),
+                   tokens_per_s=round(b * steps / st.headline, 1), timing=st.asdict())
+    else:
+        from ggml_experiments_tpu_torch.models.mobilevit import (
+            MobileViTConfig,
+            extract_features,
+            from_named_tensors,
+            load_mobilevit,
+            random_named_tensors,
+        )
+        from ggml_experiments_tpu_torch.utils.image import synthetic_test_image
+
+        if args.weights:
+            params = load_mobilevit(args.weights, qtype=qtype, device=dev)
+        else:
+            cfg = MobileViTConfig(image_size=args.image_size)
+            params = from_named_tensors(random_named_tensors(cfg, seed=args.seed), cfg,
+                                        qtype=qtype, device=dev)
+        size = args.image_size
+        imgs = torch.from_numpy(np.stack([synthetic_test_image(size)] * args.batch)).to(dev)
+        st = timeit_stats(lambda: extract_features(params, imgs, compute_dtype=compute),
+                          device=dev)
+        out.update(model="mobilevit", batch=args.batch, image_size=size,
+                   ms_per_call=round(st.headline * 1e3, 3),
+                   images_per_s=round(args.batch / st.headline, 1), timing=st.asdict())
+    print(json.dumps(out))
+    return 0
 
 
 def _add_vision(p):
@@ -476,6 +602,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="token readbacks allowed in flight behind the ticks")
     s.add_argument("--fetch-async", action=argparse.BooleanOptionalAction, default=False,
                    help="drain token readbacks on a parallel reader thread")
+    s.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve a JSON HTTP API instead of the stdin loop (POST /v1/generate, "
+                        "GET /v1/health|/v1/stats; 0 = an ephemeral port)")
+    s.add_argument("--host", default="127.0.0.1", help="bind address for --http")
     _add_common(s)
     s.set_defaults(fn=cmd_serve)
 
@@ -543,9 +673,27 @@ def build_parser() -> argparse.ArgumentParser:
     _add_vision(c)
     c.set_defaults(fn=cmd_classify)
 
-    sv = sub.add_parser("serve-vision", help="HTTP image API (not ported)")
-    sv.add_argument("--weights", required=True)
+    sv = sub.add_parser("serve-vision", help="continuous-batching image service over HTTP")
+    sv.add_argument("--weights", required=True, help="weight.ggml or a MobileViT .gxt")
+    sv.add_argument("--http", type=int, default=0, metavar="PORT", help="port (0 = ephemeral)")
+    sv.add_argument("--host", default="127.0.0.1", help="bind address")
+    sv.add_argument("--image-size", type=int, default=256,
+                    help="input resolution (a .gxt's own meta wins)")
+    sv.add_argument("--batch-sizes", default="8,32,128",
+                    help="the collation ladder (comma-separated)")
+    _add_common(sv)
     sv.set_defaults(fn=cmd_serve_vision)
+
+    b = sub.add_parser("bench", help="throughput under the port's timing protocol (JSON)")
+    b.add_argument("--model", choices=["gru", "mobilevit"], default="gru")
+    b.add_argument("--weights", default=None,
+                   help="gru.bin/.gxt or weight.ggml/.gxt (default: random full size)")
+    b.add_argument("--batch", type=int, default=1024)
+    b.add_argument("--steps", type=int, default=256, help="decode steps (gru)")
+    b.add_argument("--image-size", type=int, default=256, help="input resolution (mobilevit)")
+    b.add_argument("--seed", type=int, default=0)
+    _add_common(b)
+    b.set_defaults(fn=cmd_bench)
     return ap
 
 

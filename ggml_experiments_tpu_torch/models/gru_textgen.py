@@ -187,10 +187,18 @@ def generate(
 # decode() dispatch thresholds: defaults + on-machine recalibration
 # ---------------------------------------------------------------------------
 
-# PLACEHOLDERS: these are the JAX package's TPU-measured crossover points
-# (fused kernel iff B >= 2048 and T >= 256). They await re-measurement on the
-# H100 (ROADMAP.md); a calibration file overrides them.
-_DISPATCH_DEFAULTS = {"min_b": 2048, "min_t": 256, "source": "default"}
+# decode() takes the persistent kernel from this batch and this many steps on
+# (greedy, block-quantized weights), and at f32 up to DECODE_FUSED_MAX_B_F32:
+# the whole call, kernel against scan, over B = 64..8192 x T = 64..512 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (tools/torch_recalibrate_decode.py;
+# PERF.md, "Dispatch gates"). At bf16 the kernel won every cell
+# (1.7-13x), so the gate is the grid's smallest; at f32 it won up to B=256
+# (1.45-2.0x) and lost from B=512 (0.70-0.96x), where its CUDA-core products
+# fall behind the scan's 3xTF32 qmatmul. A calibration file (bf16) overrides
+# the lower bounds.
+DECODE_FUSED_MIN_B = 64
+DECODE_FUSED_MIN_T = 64
+DECODE_FUSED_MAX_B_F32 = 256
 _dispatch_cache: Optional[dict] = None
 
 
@@ -208,7 +216,7 @@ def dispatch_thresholds(reload: bool = False) -> dict:
     global _dispatch_cache
     if _dispatch_cache is not None and not reload:
         return _dispatch_cache
-    thr = dict(_DISPATCH_DEFAULTS)
+    thr = {"min_b": DECODE_FUSED_MIN_B, "min_t": DECODE_FUSED_MIN_T, "source": "default"}
     path = dispatch_calibration_path()
     if os.path.exists(path):
         try:
@@ -223,23 +231,32 @@ def dispatch_thresholds(reload: bool = False) -> dict:
     return thr
 
 
+def decode_route(params: GRUTextGenParams, batch: int, total_steps: int,
+                 temperature: float = 0.0, compute_dtype=torch.bfloat16) -> str:
+    """``'fused'`` where :func:`decode` takes the persistent kernel (greedy,
+    block-quantized weights, (B, T) at or past :func:`dispatch_thresholds`,
+    and at f32 B at most ``DECODE_FUSED_MAX_B_F32``), else ``'scan'``."""
+    from ggml_experiments_tpu_torch.ops.fused_gru_decode import is_fusable_params
+
+    thr = dispatch_thresholds()
+    fused = (temperature == 0.0 and is_fusable_params(params) and batch >= thr["min_b"]
+             and total_steps >= thr["min_t"]
+             and (resolve_dtype(compute_dtype) == torch.bfloat16
+                  or batch <= DECODE_FUSED_MAX_B_F32))
+    return "fused" if fused else "scan"
+
+
 def decode(params: GRUTextGenParams, prompt_ids, prompt_lengths, total_steps: int,
            **kw) -> torch.Tensor:
     """Decode with automatic path selection: greedy + block-quantized weights
     + large batch + long decode go to the persistent fused kernel
     (ops/fused_gru_decode); everything else to :func:`generate`. The fused
     path's bfloat16 default is applied to the scan path too."""
-    from ggml_experiments_tpu_torch.ops.fused_gru_decode import (
-        fused_gru_decode,
-        is_fusable_params,
-    )
+    from ggml_experiments_tpu_torch.ops.fused_gru_decode import fused_gru_decode
 
-    greedy = kw.get("temperature", 0.0) == 0.0
-    thr = dispatch_thresholds()
-    b = len(prompt_ids)
-    if (greedy and is_fusable_params(params) and b >= thr["min_b"]
-            and total_steps >= thr["min_t"]):
-        return fused_gru_decode(params, prompt_ids, prompt_lengths, total_steps,
-                                compute_dtype=kw.get("compute_dtype", torch.bfloat16))
     kw.setdefault("compute_dtype", torch.bfloat16)
+    if decode_route(params, len(prompt_ids), total_steps, kw.get("temperature", 0.0),
+                    kw["compute_dtype"]) == "fused":
+        return fused_gru_decode(params, prompt_ids, prompt_lengths, total_steps,
+                                compute_dtype=kw["compute_dtype"])
     return generate(params, prompt_ids, prompt_lengths, total_steps, **kw)

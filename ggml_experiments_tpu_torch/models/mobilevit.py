@@ -11,7 +11,8 @@ Three routes reach the port's hand-written kernels, gated as in the JAX
 package:
 
 * ``InvertedResidualParams.fused`` at bf16, stride 1 and an expanded width
-  of at least 128 -> ``ops.fused_inverted_residual`` (layer_2 blocks 1-2);
+  of at least ``IR_FUSED_MIN_EXPAND`` (64) -> ``ops.fused_inverted_residual``
+  (layer_1's block and layer_2's blocks 1-2);
 * ``TransformerLayerParams.fused`` at bf16 with L a multiple of 8 ->
   ``ops.fused_transformer_layer``; when every layer of a block is fused and
   the block's patch count is a multiple of 8, the block folds its conv_1x1
@@ -20,8 +21,10 @@ package:
 * ``AttentionParams.flash`` with L a multiple of 8 -> ``ops.flash_attention``
   (the f32 route, and bf16 without the fused layer).
 
-``flash_attn=None`` / ``fused_layer=None`` at load mean "on when the
-parameters live on a CUDA device, off on the CPU".
+``flash_attn=None`` / ``fused_layer=None`` / ``fused_ir=None`` at load mean
+"on when the parameters live on a CUDA device, off on the CPU" (the JAX
+package leaves ``fused_ir`` off; on the H100 it wins at every batch of the
+VisionEngine's ladder: ``IR_FUSED_MIN_EXPAND``).
 
 Load-time options: ``conv_dtype`` (convolution kernels rounded through f16,
 or stored in bf16), ``stem_space_to_depth`` (``ops.conv.SpaceToDepthStem``)
@@ -77,6 +80,15 @@ class MobileViTConfig:
     num_labels: int = 1000  # classifier head (HF MobileViTForImageClassification)
 
 
+# The fused inverted residual (bf16, stride 1) runs from this expanded width
+# on: the smallest measured, layer_1's. On an NVIDIA H100 80GB HBM3 at 700.00 W
+# (tools/torch_gate_sweep.py; PERF.md, "Dispatch gates"),
+# extract_features at bf16 with layer_1's block fused too (E >= 64) ran
+# 1.17 / 1.45 / 1.65x the unfused forward at B = 8 / 32 / 128, against 1.06 /
+# 1.26 / 1.35x with layer_2's blocks alone (E >= 128).
+IR_FUSED_MIN_EXPAND = 64
+
+
 @dataclasses.dataclass
 class InvertedResidualParams:
     """MobileNetV2 block: expand 1x1 -> depthwise 3x3 (stride s) -> reduce 1x1."""
@@ -87,10 +99,17 @@ class InvertedResidualParams:
     use_residual: bool = static_field(False)
     fused: bool = static_field(False)
 
+    def fused_route(self, compute_dtype) -> bool:
+        """Whether a call at ``compute_dtype`` runs the fused kernel: bf16 and
+        stride 1 (what the kernel takes), E >= IR_FUSED_MIN_EXPAND (where it
+        wins)."""
+        return (self.fused and resolve_dtype(compute_dtype) == torch.bfloat16
+                and self.conv_3x3.stride == 1
+                and self.expand_1x1.kernel.shape[-1] >= IR_FUSED_MIN_EXPAND)
+
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)
-        if (self.fused and cd == torch.bfloat16 and self.conv_3x3.stride == 1
-                and self.expand_1x1.kernel.shape[-1] >= 128):
+        if self.fused_route(cd):
             from ggml_experiments_tpu_torch.ops.fused_inverted_residual import (
                 inverted_residual_fused,
             )
@@ -407,7 +426,7 @@ def from_named_tensors(
     qtype: Optional[str] = None,
     strict: bool = False,
     stem_space_to_depth: bool = False,
-    fused_ir: bool = False,
+    fused_ir: Optional[bool] = None,
     flash_attn: Optional[bool] = None,
     fused_layer: Optional[bool] = None,
     act_storage: Optional[str] = None,
@@ -434,6 +453,8 @@ def from_named_tensors(
         flash_attn = dev.type == "cuda"
     if fused_layer is None:
         fused_layer = dev.type == "cuda"
+    if fused_ir is None:
+        fused_ir = dev.type == "cuda"
     tm = _TensorMap(tensors)
     bld = _Builder(tm, dev, conv_dtype, qtype)
     prefix = _detect_prefix(tensors)

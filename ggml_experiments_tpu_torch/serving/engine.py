@@ -36,6 +36,19 @@ from ggml_experiments_tpu_torch.device import resolve_dtype
 from ggml_experiments_tpu_torch.models.gru_textgen import GRUTextGenParams
 
 
+# The engine runs the fused tick kernel (block-quantized weights on a CUDA
+# device) from this many slots and inner steps on, and at f32 up to
+# FUSED_TICK_MAX_SLOTS_F32 slots: the whole engine's tokens/s, fused tick
+# against scan tick, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (tools/torch_gate_sweep.py; PERF.md, "Dispatch gates"). At bf16 the
+# fused tick won every cell from 16 x 16 to 1024 x 128 (2.4-14x); at f32 it
+# won up to 512 slots (1.4-4.7x) and lost or tied at 1024 slots from 32 inner
+# steps, where its CUDA-core products fall behind the scan's 3xTF32 qmatmul.
+FUSED_TICK_MIN_SLOTS = 16
+FUSED_TICK_MIN_INNER = 16
+FUSED_TICK_MAX_SLOTS_F32 = 512
+
+
 @dataclasses.dataclass
 class SlotState:
     """Device-resident decode state for all slots."""
@@ -248,10 +261,10 @@ class DecodeEngine:
         quantized = is_fusable_params(params)
         on_cuda = params.device.type == "cuda"
         if use_fused_tick is None:
-            # The gate is the JAX package's TPU-measured crossover (the fused
-            # tick's per-call weight setup amortizes at B >= 512, inner >= 128);
-            # it awaits re-measurement on the H100 (ROADMAP.md).
-            use_fused_tick = quantized and on_cuda and n_slots >= 512 and inner_steps >= 128
+            use_fused_tick = (quantized and on_cuda and n_slots >= FUSED_TICK_MIN_SLOTS
+                              and inner_steps >= FUSED_TICK_MIN_INNER
+                              and (self._compute_dtype == torch.bfloat16
+                                   or n_slots <= FUSED_TICK_MAX_SLOTS_F32))
         elif use_fused_tick and not quantized:
             raise ValueError("use_fused_tick requires block-quantized params "
                              "(cell, recurrent and dense kernels all QTensors)")

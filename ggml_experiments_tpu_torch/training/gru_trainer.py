@@ -18,7 +18,7 @@ floating-point atomics: the embedding gradient is a one-hot product, the
 fused backward sums in a fixed order), which is what makes the resume exact.
 
 A device mesh (data-parallel batches, sharded gate kernels) is not taken yet:
-ROADMAP.md, Queue A #12.
+ROADMAP.md, Queue A #1 (multi-device).
 """
 
 from __future__ import annotations

@@ -189,7 +189,7 @@ def test_decode_routes_and_calibration_file(synth, monkeypatch, tmp_path):
     monkeypatch.setattr(tg, "generate", lambda *a, **k: calls.append(k) or "scan")
     path = tmp_path / "dispatch.json"
     monkeypatch.setenv("GXT_TORCH_DECODE_DISPATCH", str(path))
-    assert tg.dispatch_thresholds(reload=True)["min_b"] == 2048
+    assert tg.dispatch_thresholds(reload=True)["min_b"] == tg.DECODE_FUSED_MIN_B
     ids = np.zeros((4, 3), np.int32)
     lens = np.full(4, 3, np.int32)
     assert tg.decode(tp, ids, lens, 300) == "scan"

@@ -442,7 +442,9 @@ def test_cli_features_and_classify_match_the_jax_commands(capsys):
     assert jcli.main(args) == 0
     want = [ln.split(":")[0] for ln in capsys.readouterr().out.splitlines()]
     assert got == want and len(got) == 3
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # serve-vision is ported (tests/test_torch_http.py); without a GPU and
+    # without --device cpu it raises, as every entry point does
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serve-vision", "--weights", SYNTH])
 
 
