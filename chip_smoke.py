@@ -129,7 +129,23 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      against the standard load, the stem's device time under
      ``torch.profiler``; ``train_model`` on ``mobilevit_synth.ggml``
      (``TINY_CLS_CONFIG``, its head drawn anew) for 20 steps at batch 100,
-     the loss falling, ms per step.
+     the loss falling, ms per step;
+ 18-20. HTTP text and vision serving, the dispatch gates and ``bench``;
+ 21. multi-device serving: after the build the script spawns itself as
+     ranks (``--rank``). Two ranks share cuda:0 over gloo (NCCL refuses two
+     ranks on one device), so the figures are overhead and not scaling:
+     (a) a 512 x 128 engine whose fused tick is slot-sharded (256 slots a
+     rank, noise keyed on the shard's first slot), greedy requests equal to
+     the offline decode, the same sampled prompts at one column of each
+     shard drawing distinct streams, state digests equal, each rank's shard
+     tick against its plain version with the same keys; (b) the scan tick on
+     a (1, 2) mesh, gate kernels column-parallel through the qmatmul kernel
+     (1024 x 1536 a rank), the head row-parallel, against ``generate``
+     under the near-tie rule; (c) the data-parallel MobileViT forward, 64
+     images a rank at bf16 and f32, against one process's; (d) a snapshot,
+     rank 1's death, rank 0's next tick failing or stalling, and the
+     snapshot restored here, finishing equal to an uninterrupted engine;
+     (e) one rank over NCCL through the same engine path.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -284,6 +300,18 @@ HTTP_ENGINE_SHAPE = (512, 128)       # (slots, inner steps): the fused tick
 HTTP_REQUESTS, HTTP_CLIENTS = 64, 8
 HTTP_CANCELS, HTTP_CANCEL_NEW = 4, 1024    # streams canceled by DELETE, their length
 HTTP_IMAGES = 128
+# multi-device serving (phase 21): two ranks share the card over gloo
+MD_BACKEND = "cpu:gloo,cuda:gloo"
+MD_ENGINE_SHAPE = (512, 128)         # (slots, inner steps): 256 slots a rank
+MD_SAMPLED_PAIRS, MD_BACKLOG = 20, 64  # sampled prompts repeated in both shards; queued
+MD_TP_SHAPE, MD_TP_REQUESTS = (64, 16), 64
+MD_VIT_IMAGES = 128
+MD_DIE_SLOTS, MD_DIE_REQUESTS = 128, 300
+MD_NCCL_REQUESTS = 64
+MD_TIMEOUT_S = {"serve": 300, "die": 20, "nccl": 300}   # a collective's time limit
+MD_DEATH_WAIT_S = 25                 # how long the survivor's tick may take
+MD_SPAWN_TIMEOUT_S = 600
+MD_RANK_ARGV = [sys.executable, os.path.abspath(__file__)]   # a rank: this script, --rank
 
 
 class SmokeFailure(AssertionError):
@@ -2679,6 +2707,664 @@ def gates_phase(tag, dev, rng, tok):
         log(f"[{tag}] {' '.join(argv)} ({sec:.1f} s): {json.dumps(line)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: multi-device serving (the parent spawns this script as ranks)
+# ---------------------------------------------------------------------------
+
+def md_request_set(rng, tok, n, lo, hi, new_lo, new_hi, temp=0.0):
+    prompts = corpus_prompts(tok, rng, n, lo, hi)
+    return [(p, int(rng.integers(new_lo, new_hi + 1)), temp) for p in prompts]
+
+
+def md_save_requests(path, reqs):
+    import numpy as np
+
+    np.savez(path, flat=np.concatenate([p for p, _, _ in reqs]).astype(np.int32),
+             lens=np.asarray([p.size for p, _, _ in reqs], np.int32),
+             new=np.asarray([n for _, n, _ in reqs], np.int32),
+             temp=np.asarray([t for _, _, t in reqs], np.float32))
+
+
+def md_load_requests(path):
+    import numpy as np
+
+    with np.load(path) as f:
+        ends = np.cumsum(f["lens"])
+        return [(f["flat"][e - n:e], int(nw), float(t))
+                for e, n, nw, t in zip(ends, f["lens"], f["new"], f["temp"])]
+
+
+def md_save_tokens(path, tokens):
+    import numpy as np
+
+    np.savez(path, flat=np.concatenate(tokens).astype(np.int32),
+             lens=np.asarray([len(t) for t in tokens], np.int32))
+
+
+def md_load_tokens(path):
+    import numpy as np
+
+    with np.load(path) as f:
+        ends = np.cumsum(f["lens"])
+        return [f["flat"][e - n:e] for e, n in zip(ends, f["lens"])]
+
+
+def md_serve(eng, reqs):
+    """The primary submits ``reqs`` in order; every rank drives the loop.
+    Returns (the primary's tokens, seconds)."""
+    import torch
+
+    from ggml_experiments_tpu_torch.parallel import multihost
+
+    multihost.sync_hosts()
+    t0 = time.perf_counter()
+    handles = ([eng.submit(p, n, temperature=t) for p, n, t in reqs]
+               if multihost.is_primary() else [])
+    eng.run_until_idle(timeout_s=600)
+    torch.cuda.synchronize()
+    return [h.result(timeout=0) for h in handles], time.perf_counter() - t0
+
+
+def md_in_turn(rank, world, fn):
+    """``fn()`` on each rank in turn (the others wait at barriers), so that
+    two ranks on one card are timed alone. Returns this rank's result."""
+    from ggml_experiments_tpu_torch.parallel import multihost
+
+    out = None
+    for r in range(world):
+        multihost.sync_hosts()
+        if r == rank:
+            out = fn()
+    multihost.sync_hosts()
+    return out
+
+
+def md_serve_rank(tag, work, rank, world, dev):
+    """Rank ``rank`` of phase 21's two-rank session: (a) the slot-sharded
+    fused tick engine, its shard tick against the plain version; (b) the
+    tensor-parallel scan tick and the qmatmul kernel on a column shard; (c)
+    the data-parallel MobileViT forward."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        extract_features_data_parallel,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.parallel import (
+        gru_param_specs,
+        make_mesh,
+        multihost,
+        place,
+        sharding,
+    )
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+    from ggml_experiments_tpu_torch.serving.engine import init_state
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    primary = multihost.is_primary()
+    out = {"rank": rank}
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+    wf = fused._prep_weights(params)
+    n_slots, inner = MD_ENGINE_SHAPE
+
+    # ---- (a) the slot-sharded fused tick --------------------------------------------
+    mesh = make_mesh((world, 1))
+    dp = place(params, gru_param_specs(params), mesh)   # every leaf replicated
+    eng = DecodeEngine(dp, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                       compute_dtype=bf16, use_fused_tick=True, enable_sampling=True, seed=1,
+                       top_k=20, top_p=0.9)
+    check(eng._fused_slot_axis == "data", f"{tag}: the tick is not slot-sharded")
+    reqs = md_load_requests(os.path.join(work, "serve.npz"))
+    port.reset_kernel_launches()
+    toks, secs = md_serve(eng, reqs)        # timed as it runs: nothing patched in
+    out["serve"] = dict(launches=port.kernel_launches()["fused_slot_tick"],
+                        digest=eng.state_digest(), steps=eng.stats.device_steps, seconds=secs,
+                        tokens_per_s=eng.stats.tokens_per_s, held=sum(
+                            r is not None for r in eng._slot_req.values()),
+                        plan=str(fused.LAST_PLAN.get("fused_slot_tick")))
+    # a second engine serves the same requests with each tick's gather
+    # instrumented (a synchronize and a barrier a tick, which the timed run
+    # above does not carry): the wait for the peer's tick, then the gather
+    gathers, waits = [], []
+    real_gather = fused._gather_slots
+
+    def timed_gather(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multihost.sync_hosts()
+        t1 = time.perf_counter()
+        res = real_gather(*a)
+        torch.cuda.synchronize()
+        waits.append(t1 - t0)
+        gathers.append(time.perf_counter() - t1)
+        return res
+
+    eng2 = DecodeEngine(dp, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                        compute_dtype=bf16, use_fused_tick=True, enable_sampling=True, seed=1,
+                        top_k=20, top_p=0.9)
+    fused._gather_slots = timed_gather
+    try:
+        toks2, _ = md_serve(eng2, reqs)
+    finally:
+        fused._gather_slots = real_gather
+    check(eng2.state_digest() == out["serve"]["digest"] and all(
+        np.array_equal(a, b) for a, b in zip(toks, toks2)),
+        f"{tag}: rank {rank}: the instrumented run served other tokens")
+    out["serve"].update(gather_ms=[round(1e3 * g, 3) for g in gathers],
+                        wait_ms=[round(1e3 * w, 3) for w in waits])
+    del eng2
+    # the same gather, warm, ten times in lockstep: of a tensor on the card
+    # and of a host tensor
+    row = 4 * wf.u + 8 + inner
+    for where, buf in (("cuda", torch.zeros((n_slots // world, row), dtype=torch.uint8,
+                                            device=dev)),
+                       ("host", torch.zeros((n_slots // world, row), dtype=torch.uint8))):
+        times = []
+        for _ in range(11):
+            multihost.sync_hosts()
+            t0 = time.perf_counter()
+            mesh.all_gather(buf, "data")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["serve"][f"gather_{where}_ms"] = 1e3 * statistics.median(times[1:])
+    if primary:
+        md_save_tokens(os.path.join(work, "serve_tokens.npz"), toks)
+
+    # each rank's shard of one identical sampled tick against its plain version
+    shard = fused.tick_shard(n_slots, wf.mode, inner, world, rank)
+    lo, hi = shard.lo, shard.hi
+    ids, lens = pad_batch([p for p, _, _ in reqs[:n_slots]], 64)
+    st = init_state(params, n_slots, 64)
+    st.prompt, st.plen = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+    st.total = st.plen + inner
+    st.temp = torch.full((n_slots,), 0.8, device=dev)
+    kw = dict(enable_sampling=True, seed=12345, top_k=20, top_p=0.9)
+    h_k, prev_k, pos_k, t_k = fused.fused_slot_tick_shard(params, st, inner, shard,
+                                                          compute_dtype=bf16, **kw)
+    sl = slice(lo, hi)
+    t_p, _, _, pos_p, gaps = fused.gru_loop_reference(
+        wf, st.prompt[sl], st.plen[sl], st.total[sl], st.prev[sl], st.pos[sl], st.h[sl], inner,
+        bf16, temp=st.temp[sl], seed=12345, top_k=20, top_p=0.9, margins=True,
+        slot_base=shard.slot_base, key_tile=shard.key_tile)
+    check(torch.equal(pos_k, pos_p), f"{tag}: rank {rank}: shard tick cursors differ")
+    agree, forked = first_divergence_near_ties(t_k.int(), t_p, gaps, NEAR_TIE["bfloat16"],
+                                               f"{tag}: rank {rank} sampled shard tick")
+    unkeyed = fused.gru_loop_cuda("fused_slot_tick", wf, st.prompt[sl], st.plen[sl],
+                                  st.total[sl], st.prev[sl], st.pos[sl], st.h[sl], inner, bf16,
+                                  temp=st.temp[sl], seed=12345, top_k=20, top_p=0.9,
+                                  toks_u8=True)[0]
+    # the rows whose sampled steps (past the prompt) drew another stream
+    sampled_steps = torch.arange(inner, device=dev)[None, :] >= st.plen[sl, None]
+    rows = sampled_steps.any(dim=1)
+    rekeyed = float(((unkeyed != t_k) & sampled_steps).any(dim=1)[rows].float().mean())
+    check(rank == 0 or rekeyed > 0.5, f"{tag}: rank {rank}: the shard's keys changed "
+                                      f"{rekeyed:.3f} of its sampled rows' streams")
+    # teacher-forced at f32: h against the plain version
+    tf_st = init_state(params, n_slots, inner)
+    tf_st.prompt = torch.from_numpy(np.random.default_rng(21).integers(
+        0, wf.v, (n_slots, inner)).astype(np.int32)).to(dev)
+    tf_st.plen = torch.full((n_slots,), inner, dtype=torch.int32, device=dev)
+    tf_st.total = tf_st.plen.clone()
+    h_k, _, _, tt_k = fused.fused_slot_tick_shard(params, tf_st, inner, shard, compute_dtype=f32)
+    tt_p, h_p, *_ = fused.gru_loop_reference(
+        wf, tf_st.prompt[sl], tf_st.plen[sl], tf_st.total[sl], tf_st.prev[sl], tf_st.pos[sl],
+        tf_st.h[sl], inner, f32, slot_base=shard.slot_base, key_tile=shard.key_tile)
+    tf_err = float((h_k - h_p).abs().max())
+    check(torch.equal(tt_k.int(), tt_p) and tf_err <= 1e-4,
+          f"{tag}: rank {rank}: teacher-forced shard tick h err {tf_err:.3g}")
+    greedy = init_state(params, n_slots, 64)
+    greedy.prompt, greedy.plen, greedy.total = st.prompt, st.plen, st.total
+    port.reset_kernel_launches()
+    times = md_in_turn(rank, world, lambda: (
+        cuda_ms(lambda: fused.fused_slot_tick_shard(params, greedy, inner, shard,
+                                                    compute_dtype=bf16), n=10),
+        cuda_ms(lambda: fused.gru_loop_reference(
+            wf, greedy.prompt[sl], greedy.plen[sl], greedy.total[sl], greedy.prev[sl],
+            greedy.pos[sl], greedy.h[sl], inner, bf16), n=1, warmup=1)))
+    weight_bytes = tensor_bytes(wf.emb, wf.wc, wf.ws, wf.uc, wf.us, wf.bias, wf.dc, wf.ds,
+                                wf.dbias)
+    b = hi - lo
+    v, e, u = wf.v, wf.e, wf.u
+    ops = 2 * v * e * 3 * u + 2 * b * inner * (3 * u * u + u * v)
+    nbytes = weight_bytes + b * 64 * 4 + b * (4 * 4 + 4 * u) + b * (4 * 2 + 4 * u) + b * inner
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    out["tick"] = dict(lo=lo, hi=hi, slot_base=shard.slot_base, key_tile=shard.key_tile,
+                       agree=agree, forked=forked, rekeyed=rekeyed, max_abs_err=tf_err,
+                       ms=times[0], plain_ms=times[1], bound_ms=b_ms, bound_by=b_by)
+    log(f"[{tag}] rank {rank}: shard slots [{lo}, {hi}) keyed at slot_base "
+        f"{shard.slot_base}, key_tile {shard.key_tile}: sampled bf16 tick against its plain "
+        f"version {agree:.6f} token agreement ({forked} rows fork, at near-ties), "
+        f"{100 * rekeyed:.1f}% of sampled rows draw another stream than an unkeyed launch | "
+        f"teacher-forced f32 h max abs err {tf_err:.3g} | greedy bf16 shard tick "
+        f"{times[0]:.3f} ms alone on the card, plain {times[1]:.1f} ms, bound {b_ms:.3f} ms "
+        f"({b_by})")
+    del greedy, tf_st, st
+    multihost.sync_hosts()
+
+    # ---- (b) the tensor-parallel scan tick ------------------------------------------
+    tp = make_mesh((1, world))
+    placed = place(params, gru_param_specs(params), tp)
+    rk = placed.cell.recurrent_kernel
+    check(isinstance(rk, sharding.Placed) and rk.dim == 1 and rk.local.shape == (1024, 1536)
+          and isinstance(placed.dense_kernel, sharding.Placed) and placed.dense_kernel.dim == 0,
+          f"{tag}: the TP placement is not column-parallel gates + a row-parallel head")
+    tp_slots, tp_inner = MD_TP_SHAPE
+    eng_tp = DecodeEngine(placed, n_slots=tp_slots, max_prompt=64, inner_steps=tp_inner,
+                          compute_dtype=bf16)
+    check(not eng_tp.use_fused_tick, f"{tag}: tensor-parallel params took the fused tick")
+    port.reset_kernel_launches()
+    toks_tp, secs_tp = md_serve(eng_tp, md_load_requests(os.path.join(work, "tp.npz")))
+    out["tp"] = dict(launches=port.kernel_launches()["qmatmul_q8_0"], seconds=secs_tp,
+                     digest=eng_tp.state_digest(), steps=eng_tp.stats.device_steps,
+                     tokens_per_s=eng_tp.stats.tokens_per_s)
+    check(out["tp"]["launches"] > 0, f"{tag}: the TP scan tick launched no qmatmul kernel")
+    if primary:
+        md_save_tokens(os.path.join(work, "tp_tokens.npz"), toks_tp)
+    readings = md_in_turn(rank, world, lambda: qmatmul_phase(
+        f"{tag} rank {rank} column shard", rk.local, dev) if rank == 0 else None)
+    if readings is not None:
+        out["qmatmul"] = {f"{m}:{c}": r for (m, c), r in readings.items()}
+    del eng_tp, placed
+    torch.cuda.empty_cache()
+
+    # ---- (c) the data-parallel MobileViT forward ------------------------------------
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    with np.load(os.path.join(work, "images.npz")) as f:
+        images = torch.from_numpy(f["images"])
+    feats = {}
+    images = images.to(dev)
+    for cd in (bf16, f32):
+        port.reset_kernel_launches()
+        feats[cdname(cd)] = extract_features_data_parallel(vit, images, compute_dtype=cd)
+        torch.cuda.synchronize()
+        launches = port.kernel_launches()
+        secs = []
+        for _ in range(3):       # timed once warm: the first call sets up routes and caches
+            multihost.sync_hosts()
+            t0 = time.perf_counter()
+            extract_features_data_parallel(vit, images, compute_dtype=cd)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        secs = statistics.median(secs)
+        names = (("fused_transformer_layer", "fused_inverted_residual") if cd == bf16
+                 else ("flash_mha",))
+        check(all(launches[n] > 0 for n in names), f"{tag}: rank {rank} {cdname(cd)} forward "
+                                                   f"launched {launches}")
+        out[f"vision_{cdname(cd)}"] = dict(seconds=secs, launches={n: launches[n] for n in names})
+    if primary:
+        np.savez(os.path.join(work, "features.npz"),
+                 **{k: t.cpu().numpy() for k, t in feats.items()})
+    out["vision_digest"] = float(feats["bfloat16"].double().abs().sum())
+    return out
+
+
+def md_die_rank(tag, work, rank, world, dev):
+    """Phase 21 (d): two ranks snapshot mid-decode; rank 1 dies with no
+    shutdown; rank 0's next tick must fail or stall, never complete."""
+    import threading
+
+    import torch
+
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.parallel import gru_param_specs, make_mesh, multihost, place
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+    params = place(params, gru_param_specs(params), make_mesh((world, 1)))
+    eng = DecodeEngine(params, n_slots=MD_DIE_SLOTS, max_prompt=64,
+                       inner_steps=MD_ENGINE_SHAPE[1], compute_dtype=torch.bfloat16,
+                       use_fused_tick=True)
+    if multihost.is_primary():
+        for p, n, t in md_load_requests(os.path.join(work, "die.npz")):
+            eng.submit(p, n)
+    eng._tick()
+    eng._tick()
+    snap = os.path.join(work, "engine.gxt")
+    if multihost.is_primary():
+        eng.snapshot(snap)
+    out = {"rank": rank, "snapshot_written": os.path.exists(snap),
+           "slot_axis": eng._fused_slot_axis}
+    multihost.sync_hosts()
+    if rank == 1:
+        os._exit(17)            # no shutdown, no barrier
+    status = {"done": False, "error": None}
+
+    def tick():
+        try:
+            eng._tick()
+        except Exception as ex:  # noqa: BLE001 - the peer's death, whatever its form
+            status["error"] = f"{type(ex).__name__}: {ex}"[:160]
+        status["done"] = True
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=tick, daemon=True)
+    th.start()
+    th.join(timeout=MD_DEATH_WAIT_S)
+    out["peer_death"] = ("error" if status["error"] else
+                         "wedged" if not status["done"] else "tick_succeeded")
+    out["detail"] = status["error"]
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"die_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    sys.stdout.flush()
+    os._exit(0)                 # the group is unusable now
+
+
+def md_nccl_rank(tag, work, rank, world, dev):
+    """Phase 21 (e): a one-rank NCCL session serving through the engine's
+    process-group path (refill broadcast, slot-sharded tick, gather)."""
+    import torch
+    import torch.distributed as dist
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.parallel import gru_param_specs, make_mesh, place
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+    params = place(params, gru_param_specs(params), make_mesh((1, 1)))
+    n_slots, inner = MD_ENGINE_SHAPE
+    eng = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                       compute_dtype=torch.bfloat16, use_fused_tick=True)
+    check(eng._fused_slot_axis == "data", f"{tag}: the NCCL session's tick is not sharded")
+    port.reset_kernel_launches()
+    toks, secs = md_serve(eng, md_load_requests(os.path.join(work, "nccl.npz")))
+    md_save_tokens(os.path.join(work, "nccl_tokens.npz"), toks)
+    return {"rank": rank, "backend": str(dist.get_backend()), "seconds": secs,
+            "steps": eng.stats.device_steps,
+            "launches": port.kernel_launches()["fused_slot_tick"]}
+
+
+def rank_main(argv) -> int:
+    """``chip_smoke.py --rank SCENARIO PORT RANK WORLD DIR BACKEND``: one rank
+    of a phase-21 session, spawned by the phase. Writes DIR/SCENARIO_RANK.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    scenario, port_, rank, world, work, backend = argv
+    rank, world = int(rank), int(world)
+    os.environ["GXT_TORCH_DECODE_DISPATCH"] = os.path.join(work, "none.json")
+    from ggml_experiments_tpu_torch.parallel import multihost
+
+    dev = multihost.initialize(backend, f"tcp://localhost:{port_}", world, rank,
+                               device="cuda:0", timeout_s=MD_TIMEOUT_S[scenario])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = {"serve": md_serve_rank, "die": md_die_rank, "nccl": md_nccl_rank}[scenario]
+    out = run(f"21 multi-device {scenario}", work, rank, world, dev)
+    with open(os.path.join(work, f"{scenario}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.sync_hosts()
+    multihost.shutdown()
+    return 0
+
+
+def md_spawn(tag, scenario, world, work, backend):
+    """Run ``world`` ranks of ``scenario`` (this script with ``--rank``) and
+    print their output. Returns their exit codes."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_ = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(MD_RANK_ARGV + ["--rank", scenario, str(port_), str(r),
+                                               str(world), work, backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=REPO) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MD_SPAWN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("["):
+                log(line)
+        if p.returncode not in (0, 17):
+            log(f"[{tag}] rank {r} of {scenario} exited {p.returncode}:\n{text[-6000:]}")
+    log(f"[{tag}] {scenario}: {world} rank(s) over {backend} on cuda:0, ran "
+        f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+    return [p.returncode for p in procs]
+
+
+def md_result(work, scenario, rank):
+    with open(os.path.join(work, f"{scenario}_{rank}.json")) as f:
+        return json.load(f)
+
+
+def multidevice_phase(tag, dev, rng, tok, images, smi):
+    """Phase 21: multi-device serving on one card. Two ranks share cuda:0
+    over gloo (NCCL refuses two ranks on one device): (a) the slot-sharded
+    fused tick engine, (b) the tensor-parallel scan tick, (c) the
+    data-parallel MobileViT forward, (d) host death and the snapshot's
+    restore in this process; then (e) a one-rank NCCL session. Returns the
+    kernels-line entries of the sharded tick and the column-shard qmatmul."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.ops.linear import linear
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_slots, inner = MD_ENGINE_SHAPE
+    half = n_slots // 2
+    # the first wave fills every slot: greedy requests, then the same sampled
+    # prompts at the last MD_SAMPLED_PAIRS columns of each shard; a backlog
+    # of greedy requests waits for the refills
+    greedy = md_request_set(rng, tok, n_slots - 2 * MD_SAMPLED_PAIRS + MD_BACKLOG, 1, 64, 16,
+                            256)
+    sampled = md_request_set(rng, tok, MD_SAMPLED_PAIRS, 4, 64, 64, 200, temp=0.8)
+    g0 = half - MD_SAMPLED_PAIRS
+    serve = greedy[:g0] + sampled + greedy[g0:2 * g0] + sampled + greedy[2 * g0:]
+    tp_reqs = md_request_set(rng, tok, MD_TP_REQUESTS, 1, 64, 16, 128)
+    die = md_request_set(rng, tok, MD_DIE_REQUESTS, 1, 64, 16, 256)
+    nccl = md_request_set(rng, tok, MD_NCCL_REQUESTS, 1, 64, 16, 128)
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    for name, reqs in (("serve", serve), ("tp", tp_reqs), ("die", die), ("nccl", nccl)):
+        md_save_requests(os.path.join(work, f"{name}.npz"), reqs)
+    np.savez(os.path.join(work, "images.npz"), images=images[:MD_VIT_IMAGES])
+
+    # the single-process references, on this process's card
+    params = load_gru_params(CKPT, qtype="q8_0", device=dev)
+
+    def offline(reqs):
+        ids, lens = pad_batch([p for p, _, _ in reqs], 64)
+        return fused.fused_gru_decode(params, ids, lens, 64 + max(n for _, n, _ in reqs),
+                                      compute_dtype=bf16).cpu().numpy()
+
+    one = DecodeEngine(params, n_slots=n_slots, max_prompt=64, inner_steps=inner,
+                       compute_dtype=bf16, use_fused_tick=True, enable_sampling=True, seed=1,
+                       top_k=20, top_p=0.9)
+    t0 = time.perf_counter()
+    one_handles = [one.submit(p, n, temperature=t) for p, n, t in serve]
+    one.run_until_idle(timeout_s=600)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # ---- (a), (b), (c): two ranks sharing the card -----------------------------------
+    rcs = md_spawn(tag, "serve", 2, work, MD_BACKEND)
+    check(rcs == [0, 0], f"{tag}: the two-rank session failed: exit codes {rcs}")
+    r0, r1 = md_result(work, "serve", 0), md_result(work, "serve", 1)
+    got = md_load_tokens(os.path.join(work, "serve_tokens.npz"))
+    check(len(got) == len(serve), f"{tag}: {len(got)} of {len(serve)} requests came back")
+    want = offline(serve)
+    n_greedy = 0
+    for i, ((p, n, t), g) in enumerate(zip(serve, got)):
+        check(g.size == p.size + n and np.array_equal(g[:p.size], p) and g.max() < 66,
+              f"{tag}: request {i}: {g.size} tokens")
+        if t == 0.0:
+            n_greedy += 1
+            check(np.array_equal(g, want[i, :p.size + n]) and np.array_equal(
+                g, one_handles[i].result(timeout=0)),
+                f"{tag}: greedy request {i} differs from the offline decode / one process")
+    pairs = [(g0 + k, half + g0 + k) for k in range(MD_SAMPLED_PAIRS)]
+    distinct = sum(not np.array_equal(got[a], got[b]) for a, b in pairs)
+    check(distinct == len(pairs), f"{tag}: {len(pairs) - distinct} identical sampled prompts "
+                                  f"in the two shards drew one stream")
+    for key in ("digest", "steps"):
+        check(r0["serve"][key] == r1["serve"][key], f"{tag}: the ranks' {key} differ: "
+                                                    f"{r0['serve'][key]} {r1['serve'][key]}")
+    check(r1["serve"]["held"] == 0, f"{tag}: the follower holds requests")
+    check(r0["serve"]["launches"] > 0 and r1["serve"]["launches"] > 0,
+          f"{tag}: a rank launched no tick: {r0['serve']['launches']}, "
+          f"{r1['serve']['launches']}")
+    check(r1["tick"]["slot_base"] == half, f"{tag}: rank 1 keyed at {r1['tick']['slot_base']}")
+    log(f"[{tag}] (a) {len(serve)} requests ({n_greedy} greedy, each equal to the offline "
+        f"decode and to one process's engine; {2 * MD_SAMPLED_PAIRS} sampled, the "
+        f"{len(pairs)} prompts repeated in the two shards at the same column all drew distinct "
+        f"streams) on a {n_slots} x {inner} engine, each rank ticking {half} slots: "
+        f"{r0['serve']['steps']} ticks, state digests equal ({r0['serve']['digest']}), tick "
+        f"launches {r0['serve']['launches']} + {r1['serve']['launches']}, plan "
+        f"{r0['serve']['plan']}")
+    log(f"[{tag}] (a) {smi}: both ranks share one card (gloo on loopback), so these "
+        f"figures are overhead, not scaling | shard tick alone on the card: rank 0 "
+        f"{r0['tick']['ms']:.3f} ms, rank 1 {r1['tick']['ms']:.3f} ms | the gather of the ticked "
+        f"slots, tick by tick (ms), in a second run of the same requests with a sync and a "
+        f"barrier a tick: rank 0 {r0['serve']['gather_ms']}, rank 1 "
+        f"{r1['serve']['gather_ms']}, after waiting {r0['serve']['wait_ms']} / "
+        f"{r1['serve']['wait_ms']} for the peer; warm, alone (median of 10): "
+        f"{r0['serve']['gather_cuda_ms']:.3f} ms from the card, "
+        f"{r0['serve']['gather_host_ms']:.3f} ms of host tensors | two ranks, uninstrumented, "
+        f"{r0['serve']['tokens_per_s']:,.0f} tokens/s ({r0['serve']['seconds']:.3f} s) against "
+        f"one process {one.stats.tokens_per_s:,.0f} tokens/s ({one_s:.3f} s), the same engine "
+        f"and requests")
+
+    # (b) the tensor-parallel scan tick against the single-process plain loop
+    got_tp = md_load_tokens(os.path.join(work, "tp_tokens.npz"))
+    ids, lens = pad_batch([p for p, _, _ in tp_reqs], 64)
+    steps = 64 + max(n for _, n, _ in tp_reqs)
+    ref = gru_textgen.generate(params, ids, lens, steps, compute_dtype=bf16)
+    z = torch.zeros(len(tp_reqs), dtype=torch.int32, device=dev)
+    tt = torch.full((len(tp_reqs),), steps, dtype=torch.int32, device=dev)
+    *_, gaps = fused.gru_loop_reference(
+        fused._prep_weights(params), torch.nn.functional.pad(torch.from_numpy(ids).to(dev),
+                                                             (0, steps - 64)),
+        torch.from_numpy(lens).to(dev), tt, z, z, torch.zeros(len(tp_reqs), 1024, device=dev),
+        steps, bf16, margins=True)
+    got_pad = np.zeros((len(tp_reqs), steps), np.int64)
+    want_pad = ref.cpu().numpy().astype(np.int64)
+    for i, ((p, n, _), g) in enumerate(zip(tp_reqs, got_tp)):
+        check(g.size == p.size + n, f"{tag}: TP request {i}: {g.size} tokens")
+        got_pad[i, :g.size] = g
+        got_pad[i, g.size:] = want_pad[i, g.size:]
+    agree, forked = first_divergence_near_ties(torch.from_numpy(got_pad),
+                                               torch.from_numpy(want_pad), gaps.cpu(),
+                                               NEAR_TIE["bfloat16"],
+                                               f"{tag}: TP scan tick vs generate")
+    check(r0["tp"]["digest"] == r1["tp"]["digest"], f"{tag}: TP state digests differ")
+    log(f"[{tag}] (b) {len(tp_reqs)} greedy requests on the TP scan tick ((1, 2) mesh: gate "
+        f"kernels column-parallel, 1024 x 1536 a rank through the qmatmul kernel; head "
+        f"row-parallel): token agreement with one process's generate {agree:.6f} ({forked} rows "
+        f"fork, at near-ties) | qmatmul launches {r0['tp']['launches']} + "
+        f"{r1['tp']['launches']} | {r0['tp']['tokens_per_s']:,.0f} tokens/s "
+        f"({r0['tp']['steps']} ticks), state digests equal")
+
+    # (c) the data-parallel MobileViT forward against one process's
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    x = torch.from_numpy(images[:MD_VIT_IMAGES]).to(dev)
+    with np.load(os.path.join(work, "features.npz")) as f:
+        dp = {k: torch.from_numpy(f[k]).to(dev) for k in ("bfloat16", "float32")}
+    for cd in (bf16, f32):
+        want_f = extract_features(vit, x, compute_dtype=cd)
+        err = float((dp[cdname(cd)] - want_f).abs().max())
+        lim = (VIT_ENGINE_FEATURE_MAX if cd == bf16 else VIT_CPU_FEATURE_REL) * float(
+            want_f.abs().max())
+        check(err <= lim, f"{tag}: DP {cdname(cd)} features differ by {err:.3g} (limit "
+                          f"{lim:.3g})")
+
+        def logits(feats):
+            return linear(feats.mean(dim=(1, 2)), vit.classifier_kernel, vit.classifier_bias,
+                          compute_dtype=f32).float()
+
+        agree_v, flips = argmax_near_ties(f"{tag}: DP {cdname(cd)} argmax",
+                                          logits(dp[cdname(cd)]), logits(want_f), VIT_NEAR_TIE)
+        rv = r0[f"vision_{cdname(cd)}"]
+        log(f"[{tag}] (c) DP MobileViT {cdname(cd)}, {MD_VIT_IMAGES} images, "
+            f"{MD_VIT_IMAGES // 2} a rank: features max abs err {err:.3g} against one process "
+            f"(limit {lim:.3g}), argmax agreement {agree_v:.4f} ({flips} flips, at near-ties) | "
+            f"rank 0 launches {rv['launches']} | {1e3 * rv['seconds']:.3f} ms a warm DP "
+            f"forward (median of 3, gather included)")
+    del vit, dp
+    torch.cuda.empty_cache()
+
+    # ---- (d) host death, then the restore in this process ----------------------------
+    want_die = offline(die)
+    uninterrupted = DecodeEngine(params, n_slots=MD_DIE_SLOTS, max_prompt=64,
+                                 inner_steps=inner, compute_dtype=bf16, use_fused_tick=True)
+    u_handles = [uninterrupted.submit(p, n) for p, n, _ in die]
+    uninterrupted.run_until_idle(timeout_s=600)
+    rcs = md_spawn(tag, "die", 2, work, MD_BACKEND)
+    check(rcs == [0, 17], f"{tag}: host death: exit codes {rcs} (want 0 and 17)")
+    with open(os.path.join(work, "die_0.json")) as f:
+        d0 = json.load(f)
+    check(d0["snapshot_written"] and d0["slot_axis"] == "data"
+          and d0["peer_death"] in ("error", "wedged"), f"{tag}: host death: {d0}")
+    eng2 = DecodeEngine.restore(os.path.join(work, "engine.gxt"), params, inner_steps=inner,
+                                compute_dtype=bf16, use_fused_tick=True)
+    partial = sum(1 for r in eng2.restored_requests
+                  if 0 < len(r._tokens) < r.prompt_ids.size + r.max_new_tokens)
+    queued = sum(1 for r in eng2.restored_requests if not r._tokens)
+    check(partial > 0 and queued > 0,
+          f"{tag}: the snapshot holds {len(eng2.restored_requests)} requests, {partial} "
+        f"mid-way, {queued} queued")
+    eng2.run_until_idle(timeout_s=600)
+    restored = {request_key(r.prompt_ids, r.max_new_tokens): r.result(timeout=0)
+                for r in eng2.restored_requests}
+    done_before = len(die) - len(restored)
+    for i, ((p, n, _), h) in enumerate(zip(die, u_handles)):
+        k = request_key(p, n)
+        if k in restored:
+            check(np.array_equal(restored[k], h.result(timeout=0)) and np.array_equal(
+                restored[k], want_die[i, :p.size + n]),
+                f"{tag}: restored request {i} differs from the uninterrupted run")
+    log(f"[{tag}] (d) host death: snapshot after 2 ticks of a {MD_DIE_SLOTS}-slot two-rank "
+        f"engine, rank 1 exits 17, rank 0's next tick: {d0['peer_death']} after "
+        f"{d0['seconds']:.1f} s ({d0['detail']}) | restored in one process: "
+        f"{len(restored)} requests ({partial} mid-way, {queued} queued; {done_before} done "
+        f"before) finish equal to the uninterrupted engine and the offline decode")
+
+    # ---- (e) one rank over NCCL --------------------------------------------------------
+    rcs = md_spawn(tag, "nccl", 1, work, "nccl")
+    check(rcs == [0], f"{tag}: the one-rank NCCL session failed: exit code {rcs}")
+    n0 = md_result(work, "nccl", 0)
+    got_n = md_load_tokens(os.path.join(work, "nccl_tokens.npz"))
+    want_n = offline(nccl)
+    for i, ((p, n, _), g) in enumerate(zip(nccl, got_n)):
+        check(np.array_equal(g, want_n[i, :p.size + n]), f"{tag}: NCCL request {i} differs")
+    check("nccl" in n0["backend"] and n0["launches"] > 0, f"{tag}: NCCL session: {n0}")
+    log(f"[{tag}] (e) one rank, backend {n0['backend']}: {len(nccl)} requests through the "
+        f"refill broadcast and the slot gather on NCCL, {n0['steps']} ticks, {n0['launches']} "
+        f"tick launches, every request equal to the offline decode")
+    tmp.cleanup()
+
+    ticks = [r0["tick"], r1["tick"]]
+    tick_entry = dict(launches=r0["serve"]["launches"] + r1["serve"]["launches"],
+                      max_abs_err=max(t["max_abs_err"] for t in ticks), ms=ticks[0]["ms"],
+                      plain_ms=ticks[0]["plain_ms"], bound_ms=ticks[0]["bound_ms"],
+                      bound_by=ticks[0]["bound_by"], library_ms=None,
+                      plan=r0["serve"]["plan"])
+    readings = {(int(k.split(":")[0]), k.split(":")[1]): v for k, v in r0["qmatmul"].items()}
+    qmm_entry = qmatmul_entry(readings, r0["tp"]["launches"] + r1["tp"]["launches"])
+    return tick_entry, qmm_entry
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -2979,9 +3665,14 @@ def main() -> int:
     http_text_phase("18 http text", dev, rng, tok)
     torch.cuda.empty_cache()
     http_vision_phase("19 http vision", dev, images)
-    del images
     torch.cuda.empty_cache()
     gates_phase("20 gates", dev, rng, tok)
+    torch.cuda.empty_cache()
+
+    # ---- 21. multi-device serving ---------------------------------------------------------
+    kernels["fused_slot_tick_sharded"], kernels["qmatmul_q8_0_column_shard"] = \
+        multidevice_phase("21 multi-device", dev, rng, tok, images, smi)
+    del images
     torch.cuda.empty_cache()
 
     # ---- 6. kernels ---------------------------------------------------------------
@@ -3007,6 +3698,9 @@ def main() -> int:
                          "ggml_experiments_tpu/ops/flash_attention.py:104")
     meta["fused_inverted_residual"] = (src + "inverted_residual.cu",
                                        "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
+    # phase 21: the tick on one rank's slot shard, the qmatmul kernel on a column shard
+    meta["fused_slot_tick_sharded"] = (src + "gru_persistent.cu", tick_at)
+    meta["qmatmul_q8_0_column_shard"] = (src + "qmatmul.cu", qmm_at)
     line = []
     for name, (source, replaces) in meta.items():
         check(name in kernels, f"{name} was not measured")
@@ -3030,4 +3724,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

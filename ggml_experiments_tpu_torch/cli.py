@@ -551,7 +551,9 @@ def cmd_bench(args) -> int:
                           device=dev)
         out.update(model="mobilevit", batch=args.batch, image_size=size,
                    ms_per_call=round(st.headline * 1e3, 3),
-                   images_per_s=round(args.batch / st.headline, 1), timing=st.asdict())
+                   # 3 decimals: a slow device's few images/s stay within 1e-3 of
+                   # batch / ms_per_call
+                   images_per_s=round(args.batch / st.headline, 3), timing=st.asdict())
     print(json.dumps(out))
     return 0
 

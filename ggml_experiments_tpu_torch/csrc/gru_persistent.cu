@@ -129,6 +129,8 @@ struct Args {
   int wmode;            // weight route: 0 q8_0, 1 q4_0, 2 dense
   int decomp;           // 0 unit-owned, 1 slot-owned
   int stages;           // slot-owned: depth of the weight ring (3 or 4)
+  int slot_base;        // sampling: the global slot of the launch's column 0
+  int key_tile;         // sampling: the width of a noise block; 0 = the whole launch
   float top_p;
   uint32_t seed;
 };
@@ -263,9 +265,10 @@ __device__ __forceinline__ int warp_min_i(int v) {
 
 // The TPU kernel's interpret-mode hash lattice (fused_gru_decode.py:476):
 // bits for (seed, step j, vocab row r, slot column c, first slot slot0).
-// The slot tick keys c on the global slot with slot0 = 0, which is the JAX
-// tick's stream only while JAX runs its slots untiled (FUSED_TICK_MAX_UNTILED);
-// once JAX tiles, it keys c within a tile plus the tile's first slot.
+// The TPU tick keys each block (a tile of its sequential grid, or a shard of
+// a slot-partitioned tick) on the column within the block plus the block's
+// first global slot; select_token cuts the launch into the same blocks
+// (Args::key_tile wide, the first at global slot Args::slot_base).
 __device__ __forceinline__ uint32_t hash_bits(uint32_t seed, uint32_t j, uint32_t r,
                                               uint32_t c, uint32_t slot0) {
   uint32_t x = seed * 0x9E3779B9u + j * 0x85EBCA6Bu + r * 0xC2B2AE35u + c * 0x27D4EB2Fu;
@@ -376,11 +379,13 @@ __device__ int select_token(const float* lg, const Args& a, float temp, int j, i
     for (int i = 0; i < kVR; ++i)
       if (lane + 32 * i < V) s[i] = s[i] >= thr ? s[i] : kNeg;
   }
+  const int tile0 = a.key_tile > 0 ? b / a.key_tile * a.key_tile : 0;
 #pragma unroll
   for (int i = 0; i < kVR; ++i) {
     const int v = lane + 32 * i;
     if (v < V) {
-      const uint32_t bits = hash_bits(a.seed, (uint32_t)j, (uint32_t)v, (uint32_t)b, 0u);
+      const uint32_t bits = hash_bits(a.seed, (uint32_t)j, (uint32_t)v, (uint32_t)(b - tile0),
+                                      (uint32_t)(a.slot_base + tile0));
       const float u01 = ((float)(bits >> 9) + 0.5f) * (1.f / 8388608.f);
       s[i] += -logf(-logf(u01));
     }

@@ -28,6 +28,8 @@ from ggml_experiments_tpu_torch.ops.gru import (
     recurrent_projection,
 )
 from ggml_experiments_tpu_torch.ops.linear import Weight, embedding_lookup, linear
+from ggml_experiments_tpu_torch.parallel.mesh import DATA_AXIS, axis_slice
+from ggml_experiments_tpu_torch.parallel.sharding import Placed, full, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,13 +103,55 @@ def init_state(params: GRUTextGenParams, batch: int) -> torch.Tensor:
     return torch.zeros((batch, params.units), dtype=torch.float32, device=params.device)
 
 
+def gather_for_loop(params: GRUTextGenParams) -> GRUTextGenParams:
+    """The params a decode or sequence loop reads: row-parallel weights and
+    sharded biases of params placed on a mesh (``parallel.place``) gathered
+    once a call, as XLA hoists a loop-invariant gather; column-parallel
+    kernels stay sharded (each product all-gathers its outputs). Unplaced
+    params come back as they are."""
+    cell = params.cell
+    leaves = (params.embeddings, cell.kernel, cell.recurrent_kernel, cell.bias,
+              params.dense_kernel, params.dense_bias)
+    if not any(isinstance(x, Placed) for x in leaves):
+        return params
+
+    def keep(w):
+        return w if isinstance(w, Placed) and w.dim == 1 else full(w)
+
+    out = GRUTextGenParams(
+        embeddings=full(params.embeddings),
+        cell=GRUCellParams(kernel=keep(cell.kernel),
+                           recurrent_kernel=keep(cell.recurrent_kernel), bias=full(cell.bias)),
+        dense_kernel=keep(params.dense_kernel), dense_bias=full(params.dense_bias))
+    out.cache["mesh"] = mesh_of(params)
+    return out
+
+
+def _data_parallel(params: GRUTextGenParams, batch: int):
+    """(the params a loop reads (:func:`gather_for_loop`), the mesh if the
+    batch splits over its data axis else None, this rank's slice of the
+    batch). A data axis wider than one rank gives each rank its slice, whose
+    results :func:`_join` gathers."""
+    mesh = mesh_of(params)
+    loop = gather_for_loop(params)
+    if mesh is None or mesh.size(DATA_AXIS) == 1:
+        return loop, None, slice(0, batch)
+    return loop, mesh, axis_slice(mesh, DATA_AXIS, batch)
+
+
+def _join(mesh, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The data-parallel ranks' results concatenated along the batch dim."""
+    return t if mesh is None else mesh.all_gather(t, DATA_AXIS, dim)
+
+
 def step(params: GRUTextGenParams, token_ids: torch.Tensor, h: torch.Tensor, *,
          compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step. token_ids: (B,) int, h: (B, U) -> (logits (B, V), h')."""
-    x = embedding_lookup(params.embeddings, token_ids)
-    h = gru_cell(params.cell, x, h, compute_dtype=compute_dtype)
+    params, mesh, sl = _data_parallel(params, h.shape[0])
+    x = embedding_lookup(params.embeddings, torch.as_tensor(token_ids)[sl])
+    h = gru_cell(params.cell, x, h[sl], compute_dtype=compute_dtype)
     logits = linear(h, params.dense_kernel, params.dense_bias, compute_dtype=compute_dtype)
-    return logits, h
+    return _join(mesh, logits), _join(mesh, h)
 
 
 def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Tensor] = None,
@@ -124,13 +168,15 @@ def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Ten
     through a one-hot product, so that its gradient is reproducible.
     ``remat`` checkpoints the plain loop's cell."""
     ids = torch.as_tensor(token_ids, device=params.device)
-    b = ids.shape[1] if time_major else ids.shape[0]
-    h = init_state(params, b) if h0 is None else h0
+    bdim = 1 if time_major else 0
+    params, mesh, sl = _data_parallel(params, ids.shape[bdim])
+    ids = ids[:, sl] if time_major else ids[sl]
+    h = init_state(params, ids.shape[bdim]) if h0 is None else h0[sl]
     xs = embedding_lookup(params.embeddings, ids, one_hot_grad=time_major)   # (..., E)
     seq = gru_sequence_time_major if time_major else gru_sequence
     ys, h_last = seq(params.cell, xs, h, compute_dtype=compute_dtype, remat=remat)
     logits = linear(ys, params.dense_kernel, params.dense_bias, compute_dtype=compute_dtype)
-    return logits, h_last
+    return _join(mesh, logits, bdim), _join(mesh, h_last)
 
 
 def generate(
@@ -153,6 +199,8 @@ def generate(
     dev = params.device
     prompt_ids = torch.as_tensor(prompt_ids, dtype=torch.int64, device=dev)
     prompt_lengths = torch.as_tensor(prompt_lengths, dtype=torch.int64, device=dev)
+    params, mesh, sl = _data_parallel(params, prompt_ids.shape[0])
+    prompt_ids, prompt_lengths = prompt_ids[sl], prompt_lengths[sl]
     b, p = prompt_ids.shape
     if p < total_steps:
         prompt_pad = torch.nn.functional.pad(prompt_ids, (0, total_steps - p))
@@ -180,7 +228,7 @@ def generate(
         else:
             pred = torch.argmax(logits, dim=-1)
         prev = pred.to(torch.int64)
-    return toks
+    return _join(mesh, toks)
 
 
 # ---------------------------------------------------------------------------

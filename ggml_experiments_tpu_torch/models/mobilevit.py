@@ -57,6 +57,7 @@ from ggml_experiments_tpu_torch.ops.conv import (
 from ggml_experiments_tpu_torch.ops.linear import Weight, linear
 from ggml_experiments_tpu_torch.ops.norm import fold_batchnorm, layer_norm
 from ggml_experiments_tpu_torch.ops.patches import fold, unfold
+from ggml_experiments_tpu_torch.parallel import multihost
 from ggml_experiments_tpu_torch.quant.qtensor import quantize
 
 ACT_STORAGE_SCOPES = ("stem", "stem12", "early", "all")
@@ -260,6 +261,20 @@ def extract_features(params: MobileViTParams, images: torch.Tensor, *,
     x = params.layer_4(x, **kw)
     x = params.layer_5(x, **kw)
     return params.conv_1x1_exp(x, **kw).float()
+
+
+def extract_features_data_parallel(params: MobileViTParams, images, *,
+                                   compute_dtype=torch.float32) -> torch.Tensor:
+    """:func:`extract_features` over every process of the default group:
+    each runs its ``host_local_batch_slice`` of the global batch ``images``
+    on its own device (whole images, so the fused layer, flash attention and
+    the fused inverted residual run unchanged on the local batch) and the
+    features are all-gathered into the global batch. Single-process: the
+    plain forward."""
+    images = torch.as_tensor(images)
+    local = images[multihost.host_local_batch_slice(images.shape[0])]
+    return multihost.global_from_host_data(
+        extract_features(params, local, compute_dtype=compute_dtype))
 
 
 def classify(params: MobileViTParams, images: torch.Tensor, *,

@@ -16,12 +16,12 @@ vocab-wide input-projection table ``emb.W`` are rounded to the compute dtype,
 h is rounded to it before each product, every product and sum is f32, the
 state stays f32, and the greedy token is the first index of the maximum.
 Sampling draws its noise from the JAX package's interpret-mode hash lattice
-(``_hash_bits_u32``), keyed on (seed, step, vocab row, slot) with slot0 = 0.
-The kernel and the plain version always draw identical noise; the JAX tick
-draws the same noise only while it runs its slots untiled (at most
-``FUSED_TICK_MAX_UNTILED`` slots, 3712 for q8_0 at up to 256 inner steps).
-Past that, JAX keys each tile on its own columns plus the tile's first slot,
-and its stream differs from this one.
+(its ``_hash_bits_u32``), keyed as the JAX tick keys it: on (seed, step, vocab
+row, column within a block, the block's first global slot), where a block is
+a tile of the JAX tick's grid (past ``FUSED_TICK_MAX_UNTILED`` slots) or a
+shard of a slot-sharded tick (:func:`tick_shard`, :func:`block_keyed_bits`).
+The kernel and the plain version draw identical noise, and both draw the JAX
+tick's, untiled, tiled or sharded.
 
 The kernel cuts the work one of two ways (``csrc/gru_persistent.cu``):
 slot-owned (a block owns a tile of slots for the whole loop and streams the
@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -182,17 +183,24 @@ def _mul32(x, m: int):
     return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & M32
 
 
-def _hash_bits_u32(seed: int, j: int, rows: int, cols: int, slot0: int = 0,
-                   device=None) -> torch.Tensor:
-    """The JAX package's hash lattice, as (cols, rows) int64 holding uint32
-    values: entry [c, r] is the bits of vocab row r for slot column c."""
+def block_keyed_bits(seed: int, j: int, rows: int, cols: int, slot_base: int = 0,
+                     key_tile: int = 0, device=None) -> torch.Tensor:
+    """The JAX package's hash lattice over a launch of ``cols`` slots whose
+    column 0 is global slot ``slot_base``, cut into blocks of ``key_tile``
+    columns (0: one block), as (cols, rows) int64 holding uint32 values:
+    entry [b, r] is the bits of vocab row r for column b, keyed on b - tile0
+    within its block and on the block's first global slot slot_base + tile0,
+    tile0 = b // key_tile * key_tile, as the JAX tick keys each tile of its
+    grid and each shard of a slot-partitioned tick (one block from slot s is
+    the JAX ``_hash_bits_u32(..., slot0=s)``)."""
+    col = torch.arange(cols, dtype=torch.int64, device=device)[:, None]
+    tile0 = col // key_tile * key_tile if key_tile else torch.zeros_like(col)
     r = torch.arange(rows, dtype=torch.int64, device=device)[None, :]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[:, None]
     base = (_mul32(seed & M32, 0x9E3779B9) + _mul32(j & M32, 0x85EBCA6B)) & M32
-    x = (base + _mul32(r, 0xC2B2AE35) + _mul32(c, 0x27D4EB2F)) & M32
+    x = (base + _mul32(r, 0xC2B2AE35) + _mul32(col - tile0, 0x27D4EB2F)) & M32
     x = x ^ (x >> 13)
     x = _mul32(x, 0xD168AAAD)
-    x = (x + _mul32(slot0 & M32, 0x165667B1)) & M32
+    x = (x + _mul32((slot_base + tile0) & M32, 0x165667B1)) & M32
     for mult in (0x2C1B3C6D, 0x297A2D39):
         x = x ^ (x >> 15)
         x = _mul32(x, mult)
@@ -251,7 +259,8 @@ def _top2_gap(scores: torch.Tensor) -> torch.Tensor:
     return top2[:, 0] - top2[:, -1]
 
 
-def _select_reference(logits, temp, seed: int, j: int, top_k: int, top_p: float):
+def _select_reference(logits, temp, seed: int, j: int, top_k: int, top_p: float,
+                      slot_base: int = 0, key_tile: int = 0):
     """Greedy first-index argmax, or Gumbel-argmax for slots with temp > 0.
     Returns (token, (B,) margin): how far the scores are from choosing
     otherwise (the best-vs-second gap, and for sampled slots also the top-k
@@ -269,7 +278,7 @@ def _select_reference(logits, temp, seed: int, j: int, top_k: int, top_p: float)
     if top_p:
         s, gap = _filter_topp(s, top_p)
         margin = torch.minimum(margin, gap)
-    bits = _hash_bits_u32(seed, j, v, b, 0, device=logits.device)
+    bits = block_keyed_bits(seed, j, v, b, slot_base, key_tile, device=logits.device)
     u01 = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
     scored = s + -torch.log(-torch.log(u01))
     sampled = temp > 0.0
@@ -280,14 +289,16 @@ def _select_reference(logits, temp, seed: int, j: int, top_k: int, top_p: float)
 
 def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps: int,
                        compute_dtype=torch.bfloat16, temp=None, seed: int = 0,
-                       top_k: int = 0, top_p: float = 0.0, margins: bool = False):
+                       top_k: int = 0, top_p: float = 0.0, margins: bool = False,
+                       slot_base: int = 0, key_tile: int = 0):
     """Plain version of the kernel loop. Per step a slot feeds
     ``prompt[b, pos]`` while ``pos < plen`` (token 0 where that lies past the
     prompt buffer) else ``prev``, updates h while ``pos < total`` (held otherwise), and takes the
     next token from the logits. Returns (toks (B, steps) int32, h, prev, pos)
     and, with ``margins=True``, the (B, steps) margin of each step's choice
     (see ``_select_reference``): where it is tiny, two implementations that
-    sum in other orders may rightly choose apart."""
+    sum in other orders may rightly choose apart. Sampled slots draw the
+    noise of :func:`block_keyed_bits` for ``slot_base`` / ``key_tile``."""
     cd = resolve_dtype(compute_dtype)
     proj, uq, dq = _planes(w, cd)
     b0, b1 = w.bias[0], w.bias[1]
@@ -312,7 +323,8 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
         hh = torch.tanh(mx[:, 2 * u:] + r * mh[:, 2 * u:])
         h = torch.where(active[:, None], z * h + (1.0 - z) * hh, h)
         logits = torch.matmul(_rnd(h, cd), dq) + w.dbias
-        pred, margin = _select_reference(logits, temp, seed, j, top_k, top_p)
+        pred, margin = _select_reference(logits, temp, seed, j, top_k, top_p, slot_base,
+                                         key_tile)
         if margins:
             gaps[:, j] = margin
         prev = torch.where(active, pred, prev)
@@ -444,7 +456,7 @@ class _Args(ctypes.Structure):
             "proj", "wl", "dl")]
         + [(n, ctypes.c_int) for n in (
             "V", "E", "U", "P", "B", "steps", "toks_u8", "bf16", "sampling", "top_k",
-            "wmode", "decomp", "stages")]
+            "wmode", "decomp", "stages", "slot_base", "key_tile")]
         + [("top_p", ctypes.c_float), ("seed", ctypes.c_uint32)]
     )
 
@@ -481,11 +493,13 @@ def _check_layout(entry: str, w: FusedWeights) -> None:
 def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h,
                   steps: int, compute_dtype=torch.bfloat16, temp=None, seed: int = 0,
                   top_k: int = 0, top_p: float = 0.0, toks_u8: bool = False,
-                  config: Optional[DecodePlan] = None):
+                  config: Optional[DecodePlan] = None, slot_base: int = 0,
+                  key_tile: int = 0):
     """Launch the persistent kernel through ``entry`` (``fused_gru_decode``
     or ``fused_slot_tick``) under ``config`` (default :func:`decode_plan`;
     a DecodePlan or its fields as a tuple). Returns (toks, h, prev, pos) as
-    the plain version does; the inputs are not modified."""
+    the plain version does; the inputs are not modified. ``slot_base`` /
+    ``key_tile`` key the sampling noise as :func:`block_keyed_bits` does."""
     from ggml_experiments_tpu_torch import _build
 
     cd = resolve_dtype(compute_dtype)
@@ -543,7 +557,8 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
         proj.data_ptr(), ptr(wl), dl.data_ptr(),
         w.v, w.e, w.u, prompt.shape[1], b, steps, int(toks_u8), int(bf16),
         int(temp_t is not None), int(top_k), WEIGHT_MODES[w.mode],
-        int(plan.decomp == "slot"), plan.stages, float(top_p), seed & M32,
+        int(plan.decomp == "slot"), plan.stages, int(slot_base), int(key_tile), float(top_p),
+        seed & M32,
     )
     lib = _build.load("gru_persistent")
     if lib.gxt_args_size() != ctypes.sizeof(_Args):
@@ -597,35 +612,151 @@ def fused_gru_decode(params, prompt_ids, prompt_lengths, total_steps: int, *,
     return (toks, h) if return_state else toks
 
 
+# The JAX tick's slot policy, which its noise keying follows: it pads the
+# slot axis to whole 128-lane tiles, shards that padded axis, and above its
+# measured untiled boundary (per weight route, at up to 256 inner steps; 2048
+# past that) runs each shard as a grid of tiles, the widest 128-multiple that
+# divides the shard. Each shard and each tile is a noise block.
+SLOT_LANES = 128
+FUSED_TICK_MAX_UNTILED = {"q8_0": 3712, "q4_0": 3584}
+
+
+def _auto_tile(bp: int, limit: int) -> int:
+    """0 (untiled) at or below ``limit``, else the largest 128-multiple tile
+    <= limit that divides ``bp``."""
+    if bp <= limit:
+        return 0
+    for tile in range(min(limit, bp) // SLOT_LANES * SLOT_LANES, 0, -SLOT_LANES):
+        if bp % tile == 0:
+            return tile
+    raise ValueError(f"no boundary-safe tile divides {bp}")
+
+
+def _auto_slot_tile(bp: int, qtype: str, inner_steps: int = 128) -> int:
+    """The JAX tick's tile width for a (local, padded) slot width ``bp``
+    under weight route ``qtype``: 0 untiled."""
+    limit = FUSED_TICK_MAX_UNTILED.get(qtype, 2048)
+    if inner_steps > 256:
+        limit = min(limit, 2048)
+    return _auto_tile(bp, limit)
+
+
+@dataclasses.dataclass(frozen=True)
+class TickShard:
+    """The slots one rank ticks and how their noise is keyed: global slots
+    ``[lo, hi)`` (empty where the rank holds only padding), column 0 at
+    global slot ``slot_base``, blocks of ``key_tile`` columns (0: one)."""
+
+    lo: int
+    hi: int
+    slot_base: int
+    key_tile: int
+
+
+def tick_shard(n_slots: int, mode: str, inner_steps: int, n_shards: int = 1, shard: int = 0,
+               slot_tile: Optional[int] = None) -> TickShard:
+    """Shard ``shard`` of ``n_shards`` of a tick over ``n_slots`` slots: the
+    padded slot axis (whole 128s) split evenly, and the noise blocks of the
+    JAX tick there (``slot_tile`` None: its auto policy on the local padded
+    width; 0: untiled; else that width, which must divide it)."""
+    bp = -(-n_slots // SLOT_LANES) * SLOT_LANES
+    if bp % n_shards:
+        raise ValueError(f"padded slot count {bp} not divisible by {n_shards} shards")
+    local = bp // n_shards
+    st = _auto_slot_tile(local, mode, inner_steps) if slot_tile is None else int(slot_tile)
+    key_tile = st if 0 < st < local else 0
+    if key_tile and local % key_tile:
+        raise ValueError(f"slot_tile {key_tile} must divide padded slots {local}")
+    return TickShard(min(shard * local, n_slots), min((shard + 1) * local, n_slots),
+                     shard * local, key_tile)
+
+
+def fused_slot_tick_shard(params, state, inner_steps: int, shard: TickShard, *,
+                          compute_dtype=torch.bfloat16, enable_sampling: bool = False,
+                          seed: int = 0, top_k: Optional[int] = None,
+                          top_p: Optional[float] = None):
+    """Tick the slots ``[shard.lo, shard.hi)`` of the engine's state. Returns
+    their (h, prev, pos, toks), toks uint8 when the vocab has at most 255
+    entries: the plain version on CPU tensors, the kernel on CUDA ones."""
+    if top_k is not None and top_k <= 0:
+        raise ValueError(f"top_k must be positive, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    w = _prep_weights(params)
+    u8 = w.v <= 255
+    sl = slice(shard.lo, shard.hi)
+    h = state.h[sl]
+    if shard.hi <= shard.lo:
+        i32 = torch.zeros((0,), dtype=torch.int32, device=h.device)
+        toks = torch.zeros((0, inner_steps), dtype=torch.uint8 if u8 else torch.int32,
+                           device=h.device)
+        return h.float(), i32, i32.clone(), toks
+    args = (w, state.prompt[sl], state.plen[sl], state.total[sl], state.prev[sl],
+            state.pos[sl], h, inner_steps, compute_dtype)
+    kw = dict(temp=state.temp[sl] if enable_sampling else None, seed=int(seed),
+              top_k=int(top_k or 0), top_p=float(top_p or 0.0), slot_base=shard.slot_base,
+              key_tile=shard.key_tile)
+    if h.device.type == "cpu":
+        toks, h, prev, pos = gru_loop_reference(*args, **kw)
+        if u8:
+            toks = toks.to(torch.uint8)
+    else:
+        toks, h, prev, pos = gru_loop_cuda("fused_slot_tick", *args, toks_u8=u8, **kw)
+    return h, prev, pos, toks
+
+
+def _gather_slots(mesh, axis: str, local: int, n_slots: int, h, prev, pos, toks):
+    """Every rank's (h, prev, pos, toks) of its slots, padded to ``local``
+    rows, packed into one byte buffer, all-gathered over ``axis`` and cut
+    back to the ``n_slots`` real slots."""
+    pad = local - h.shape[0]
+    parts = [torch.nn.functional.pad(t.reshape(t.shape[0], math.prod(t.shape[1:])),
+                                     (0, 0, 0, pad)) for t in (h, prev, pos, toks)]
+    widths = [p.shape[1] * p.element_size() for p in parts]
+    buf = torch.cat([p.contiguous().view(torch.uint8) for p in parts], dim=1)
+    buf = mesh.all_gather(buf, axis, dim=0)[:n_slots]
+    out, at = [], 0
+    for t, wd in zip((h, prev, pos, toks), widths):
+        out.append(buf[:, at:at + wd].contiguous().view(t.dtype).reshape(n_slots, *t.shape[1:]))
+        at += wd
+    return out
+
+
 def fused_slot_tick(params, state, inner_steps: int, *, compute_dtype=torch.bfloat16,
                     enable_sampling: bool = False, seed: int = 0,
-                    top_k: Optional[int] = None, top_p: Optional[float] = None):
+                    top_k: Optional[int] = None, top_p: Optional[float] = None,
+                    mesh=None, slot_axis: Optional[str] = None,
+                    slot_tile: Optional[int] = None):
     """Advance the serving engine's slot state ``inner_steps`` tokens.
 
     Takes and returns the engine's ``SlotState`` (fields h, prev, pos, total,
     plen, prompt, temp) plus the (B, inner_steps) tokens fed at each step,
     uint8 when the vocab has at most 255 entries. ``enable_sampling`` samples
     slots with ``temp > 0`` by Gumbel-argmax on the hash-lattice noise for
-    ``seed``; ``top_k`` / ``top_p`` mask the scaled logits first."""
-    if top_k is not None and top_k <= 0:
-        raise ValueError(f"top_k must be positive, got {top_k}")
-    if top_p is not None and not 0.0 < top_p <= 1.0:
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    w = _prep_weights(params)
-    args = (w, state.prompt, state.plen, state.total, state.prev, state.pos, state.h,
-            inner_steps, compute_dtype)
-    kw = dict(temp=state.temp if enable_sampling else None, seed=int(seed),
-              top_k=int(top_k or 0), top_p=float(top_p or 0.0))
-    u8 = w.v <= 255
-    if state.h.device.type == "cpu":
-        toks, h, prev, pos = gru_loop_reference(*args, **kw)
-        if u8:
-            toks = toks.to(torch.uint8)
-    else:
-        toks, h, prev, pos = gru_loop_cuda("fused_slot_tick", *args, toks_u8=u8, **kw)
+    ``seed``; ``top_k`` / ``top_p`` mask the scaled logits first.
+
+    ``mesh`` / ``slot_axis`` shard the tick's slots over that mesh axis (the
+    multi-process serving path): each rank ticks only its part of the padded
+    slot axis and the results are all-gathered back, so that every rank
+    holds the whole state again. ``slot_tile`` sets the noise blocks as the
+    JAX tick's ``slot_tile`` sets its grid (:func:`tick_shard`)."""
+    n, r = 1, 0
+    if slot_axis is not None:
+        if mesh is None or slot_axis not in mesh.axis_names:
+            raise ValueError(f"slot_axis={slot_axis!r} requires a mesh with that axis")
+        n, r = mesh.size(slot_axis), mesh.index(slot_axis)
+    b = state.h.shape[0]
+    shard = tick_shard(b, _prep_weights(params).mode, inner_steps, n, r, slot_tile)
+    h, prev, pos, toks = fused_slot_tick_shard(
+        params, state, inner_steps, shard, compute_dtype=compute_dtype,
+        enable_sampling=enable_sampling, seed=seed, top_k=top_k, top_p=top_p)
+    if slot_axis is not None:
+        h, prev, pos, toks = _gather_slots(mesh, slot_axis, -(-b // SLOT_LANES) * SLOT_LANES // n,
+                                           b, h, prev, pos, toks)
     return dataclasses.replace(state, h=h, prev=prev, pos=pos), toks
 
 
-__all__ = ["DecodePlan", "LAST_PLAN", "LAUNCHES", "check_plan", "decode_plan",
-           "fused_gru_decode", "fused_slot_tick", "gru_loop_cuda", "gru_loop_reference",
-           "is_fusable_params", "plan_grid", "plan_slot_tiles", "plan_smem_bytes"]
+__all__ = ["DecodePlan", "FUSED_TICK_MAX_UNTILED", "LAST_PLAN", "LAUNCHES", "TickShard",
+           "block_keyed_bits", "check_plan", "decode_plan", "fused_gru_decode",
+           "fused_slot_tick", "fused_slot_tick_shard", "gru_loop_cuda", "gru_loop_reference",
+           "is_fusable_params", "plan_grid", "plan_slot_tiles", "plan_smem_bytes", "tick_shard"]

@@ -52,9 +52,13 @@ def _tap(taps, x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def matmul(x: torch.Tensor, w: Weight, *, compute_dtype=torch.float32) -> torch.Tensor:
-    """``x (..., K) @ w (K, N) -> (..., N)``; QTensor weights use qmatmul."""
+    """``x (..., K) @ w (K, N) -> (..., N)``; QTensor weights use qmatmul;
+    any other weight that is not a tensor (a rank's shard of one) computes
+    its own product, ``w.matmul(x, compute_dtype=)``."""
     if isinstance(w, QTensor):
         return qmatmul(x, w, compute_dtype=compute_dtype)
+    if not isinstance(w, torch.Tensor):
+        return w.matmul(x, compute_dtype=compute_dtype)
     taps = _TAPS.get()
     if taps is not None:
         _tap(taps, x, w)

@@ -177,13 +177,19 @@ def qmatmul_cuda(x: torch.Tensor, qt: QTensor, compute_dtype=torch.float32,
     return out
 
 
-def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.float32) -> torch.Tensor:
-    """``x (..., K) @ dequantize(qt) -> (..., N)`` at the compute dtype."""
+def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.float32,
+            gate_shape=None) -> torch.Tensor:
+    """``x (..., K) @ dequantize(qt) -> (..., N)`` at the compute dtype.
+    ``gate_shape`` is the (K, N) the kernel-or-matmul gate is decided on
+    (default ``qt.shape``): a column shard of a sharded weight passes the
+    whole weight's, as the JAX package's partitioned kernel decides on the
+    global shape."""
     cd = resolve_dtype(compute_dtype)
     k, n = qt.shape
     if x.shape[-1] != k:
         raise ValueError(f"x last dim {x.shape[-1]} != weight K {k}")
-    if k * n <= XLA_FALLBACK_MAX_ELEMS or (qt.qtype == "q4_k" and qt.kp % 256 != 0):
+    gk, gn = qt.shape if gate_shape is None else gate_shape
+    if gk * gn <= XLA_FALLBACK_MAX_ELEMS or (qt.qtype == "q4_k" and qt.kp % 256 != 0):
         return torch.matmul(x.to(cd), _dense(qt, cd))
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, k)

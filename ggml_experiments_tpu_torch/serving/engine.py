@@ -16,8 +16,22 @@ trail the ticks by up to ``fetch_depth`` ticks as async copies.
 
 ``snapshot`` / ``restore`` persist one process's engine (device slots,
 in-flight and queued requests) in the ``.gxt`` container; the JAX package's
-engine reads these files and writes the same. Not ported yet (ROADMAP.md):
-multi-process serving.
+engine reads these files and writes the same.
+
+Multi-process serving (``torch.distributed``; ``parallel/``): every process
+builds the same engine over params placed on one mesh and drives the same
+loop. The primary (rank 0) owns the request queue; every tick its refill
+decisions (mask, prompts, lengths, totals, temperatures) are broadcast, so
+the replicated slot state mutates in lockstep on every rank. The fused tick
+is slot-sharded over the ``data`` axis (else the first mesh axis wider than
+one rank) when the padded slot count divides it: each rank ticks its slots
+and the results are all-gathered back; sampled slots draw noise keyed on
+their shard's first slot, so shards draw distinct streams. Tensor-parallel
+params take the scan tick, whose gate products are sharded. Only the
+primary holds requests and delivers tokens; it writes ``snapshot``, and
+``restore`` rebuilds the engine in a fresh single process. When a peer dies,
+the survivors' next collective fails (or stalls until the group's timeout):
+a tick never completes without every rank.
 """
 
 from __future__ import annotations
@@ -33,7 +47,10 @@ import numpy as np
 import torch
 
 from ggml_experiments_tpu_torch.device import resolve_dtype
-from ggml_experiments_tpu_torch.models.gru_textgen import GRUTextGenParams
+from ggml_experiments_tpu_torch.models.gru_textgen import GRUTextGenParams, gather_for_loop
+from ggml_experiments_tpu_torch.parallel import multihost
+from ggml_experiments_tpu_torch.parallel.mesh import AXES, DATA_AXIS
+from ggml_experiments_tpu_torch.parallel.sharding import mesh_of
 
 
 # The engine runs the fused tick kernel (block-quantized weights on a CUDA
@@ -88,6 +105,7 @@ def _slot_scan(params: GRUTextGenParams, state: SlotState, seed: int, inner_step
     from ggml_experiments_tpu_torch.ops.linear import linear
 
     cd = resolve_dtype(compute_dtype)
+    params = gather_for_loop(params)   # tensor-parallel params: products stay sharded
     dev = params.device
     gen = torch.Generator(device=dev).manual_seed(int(seed)) if enable_sampling else None
     # loop-invariant: per-step x-projection becomes a vocab-table gather
@@ -243,7 +261,7 @@ class DecodeEngine:
         max_pending: Optional[int] = None,
         use_fused_tick: Optional[bool] = None,
     ):
-        from ggml_experiments_tpu_torch.ops.fused_gru_decode import is_fusable_params
+        from ggml_experiments_tpu_torch.ops.fused_gru_decode import SLOT_LANES, is_fusable_params
 
         self.params = params
         self.default_temperature = temperature
@@ -269,6 +287,24 @@ class DecodeEngine:
             raise ValueError("use_fused_tick requires block-quantized params "
                              "(cell, recurrent and dense kernels all QTensors)")
         self.use_fused_tick = bool(use_fused_tick)
+        # in a process group: the mesh the params were placed on; the fused
+        # tick's slots split over its data axis (else the first wider axis)
+        # where the padded slots divide, and over the data axis of a
+        # one-rank mesh, whose collectives run on that rank
+        self._multiproc = multihost.in_session()
+        self._mesh = mesh_of(params)
+        if self._multiproc and self._mesh is None:
+            raise ValueError("a DecodeEngine in a process group needs params placed on a "
+                             "mesh (parallel.place)")
+        self._fused_slot_axis = None
+        if self.use_fused_tick and self._multiproc:
+            bp = -(-n_slots // SLOT_LANES) * SLOT_LANES
+            wide = [ax for ax in AXES   # data first
+                    if self._mesh.size(ax) > 1 and bp % self._mesh.size(ax) == 0]
+            if wide:
+                self._fused_slot_axis = wide[0]
+            elif max(self._mesh.shape) == 1:
+                self._fused_slot_axis = DATA_AXIS
         self.max_pending = max_pending
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._slot_req: Dict[int, Optional[Request]] = {i: None for i in range(n_slots)}
@@ -459,6 +495,12 @@ class DecodeEngine:
             list(by_slot.values()) + list(pending.values()), key=lambda r: r.id)
         return eng
 
+    def state_digest(self) -> int:
+        """A digest of the slot state (the sum of prev, and of |h| to 1e-3):
+        equal on every rank of a session that kept lockstep."""
+        prev = int(self.state.prev.long().sum())
+        return prev + int(round(float(self.state.h.double().abs().sum()) * 1e3))
+
     # -- engine internals ---------------------------------------------------
     def _read_tokens(self, fetch) -> np.ndarray:
         """The blocking device->host readback (seam for fault injection)."""
@@ -572,6 +614,11 @@ class DecodeEngine:
             tot[i] = p.size + new_req.max_new_tokens
             temp[i] = new_req.temperature
             self._slot_req[i] = new_req
+        if self._multiproc:
+            # every rank installs the primary's decisions (followers queue
+            # nothing), so the replicated state moves in lockstep
+            mask, prompt, plen, tot, temp = multihost.broadcast_one_to_all(
+                (mask, prompt, plen, tot, temp))
         if mask.any():
             self.state = _reset_slots(self.state, mask, prompt, plen, tot, temp)
             self._pos[mask] = 0
@@ -601,6 +648,8 @@ class DecodeEngine:
                 enable_sampling=self.sampling_enabled, seed=seed,
                 top_k=self._top_k if self.sampling_enabled else None,
                 top_p=self._top_p if self.sampling_enabled else None,
+                mesh=self._mesh if self._fused_slot_axis else None,
+                slot_axis=self._fused_slot_axis,
             )
         else:
             self.state, toks, _valid = _slot_scan(

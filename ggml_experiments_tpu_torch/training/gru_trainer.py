@@ -17,8 +17,10 @@ Every operation of a step is reproducible run to run on one device (no
 floating-point atomics: the embedding gradient is a one-hot product, the
 fused backward sums in a fixed order), which is what makes the resume exact.
 
-A device mesh (data-parallel batches, sharded gate kernels) is not taken yet:
-ROADMAP.md, Queue A #1 (multi-device).
+Training on a device mesh (the data- and tensor-parallel train step, the
+batch-local train kernels with summed weight gradients) is slice 13 of the
+port: ROADMAP.md, Queue A #1b. The mesh, the placement rules and sharded
+serving are in ``parallel/``.
 """
 
 from __future__ import annotations

@@ -330,6 +330,54 @@ def test_every_plan_sampled_tick_matches_plain_until_near_ties(dev, params, case
         assert j > 0 and float(gaps[r, j - 1]) < tol   # forks only at near-ties
 
 
+@pytest.mark.parametrize("key_tile", [0, 64])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_block_keyed_sampled_tick_matches_plain(dev, params, case, key_tile):
+    """The sampled tick keyed as a shard whose column 0 is global slot 256
+    (one block, or blocks of 64 columns) against its plain version with the
+    same keys, two launches bit-equal; the keys reach the noise (the stream
+    differs from the unkeyed one's)."""
+    plan, cd = case
+    b, inner = 256, 12
+    w = tf._prep_weights(params)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    plen = torch.randint(1, 9, (b,), generator=g, dtype=torch.int32).to(dev)
+    args = _slot_inputs(dev, b, inner, 8, seed=8, plen=plen,
+                        total=torch.full((b,), 30, dtype=torch.int32, device=dev))
+    kw = dict(temp=torch.full((b,), 0.9, device=dev), seed=9, top_k=10, top_p=0.9)
+    keys = dict(slot_base=256, key_tile=key_tile)
+    toks, h, prev, pos = _run_twice("fused_slot_tick", w, args, inner, cd, config=plan,
+                                    toks_u8=True, **kw, **keys)
+    t_p, _, _, pos_p, gaps = tf.gru_loop_reference(w, *args, inner, cd, margins=True, **kw,
+                                                   **keys)
+    assert torch.equal(pos, pos_p)
+    tol = 1e-3 if cd == torch.float32 else 0.1
+    diff = toks.int() != t_p
+    for r in torch.nonzero(diff.any(1)).flatten().tolist():
+        j = int(torch.nonzero(diff[r])[0])
+        assert j > 0 and float(gaps[r, j - 1]) < tol   # forks only at near-ties
+    unkeyed = tf.gru_loop_cuda("fused_slot_tick", w, *args, inner, cd, config=plan,
+                               toks_u8=True, **kw)[0]
+    assert (unkeyed != toks).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_greedy_tick_ignores_the_keys(dev, params, case):
+    """Greedy slots draw no noise: a tick keyed as any shard gives the bits
+    of the unkeyed tick (the parent's keying)."""
+    plan, cd = case
+    b, inner = 256, 12
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, b, inner, 8, seed=3,
+                        total=torch.full((b,), 30, dtype=torch.int32, device=dev))
+    kw = dict(temp=torch.zeros((b,), device=dev), seed=9, top_k=10, top_p=0.9)
+    want = tf.gru_loop_cuda("fused_slot_tick", w, *args, inner, cd, config=plan, **kw)
+    got = tf.gru_loop_cuda("fused_slot_tick", w, *args, inner, cd, config=plan, **kw,
+                           slot_base=384, key_tile=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 @pytest.mark.parametrize("b", PLAN_BATCHES)
 @pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
 def test_every_plan_on_each_weight_route(dev, route_params, case, b):

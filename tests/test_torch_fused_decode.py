@@ -266,7 +266,7 @@ def test_slot_tick_sampled_matches_jax_token_exact(twins, kw):
 def test_hash_lattice_matches_jax(seed, j, slot0):
     want = np.asarray(jf._hash_bits_u32(jnp.int32(seed), jnp.int32(j), (128, 256),
                                         slot0=jnp.int32(slot0))).view(np.uint32)
-    got = tf._hash_bits_u32(seed, j, 128, 256, slot0).numpy().astype(np.uint32)
+    got = tf.block_keyed_bits(seed, j, 128, 256, slot0).numpy().astype(np.uint32)
     np.testing.assert_array_equal(got.T, want)
 
 
