@@ -145,7 +145,28 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      images a rank at bf16 and f32, against one process's; (d) a snapshot,
      rank 1's death, rank 0's next tick failing or stalling, and the
      snapshot restored here, finishing equal to an uninterrupted engine;
-     (e) one rank over NCCL through the same engine path.
+     (e) one rank over NCCL through the same engine path;
+ 22. training on a mesh, spawned as phase 21 spawns its ranks: phase 12's
+     model (V=66, E=256, U=1024, ``init_params`` seed 0), corpus and global
+     batch (B=1024, T=100, bf16). (a) ``train(..., mesh=)`` on a (2, 1)
+     mesh for 4 steps, each rank's fused pair launched once a step of each
+     kernel on its 512 rows, losses and the params' checksum bit-equal
+     across the ranks, each step's loss and the params after the steps
+     against one process's ``train`` on the same batches; (b) the same on a
+     (1, 2) mesh for 3 steps, the recurrent kernel gathered for the kernels
+     and each rank updating its column shards; (c) (a) interrupted after 2
+     steps with a resume file a step and resumed, bit-equal to (a); (d)
+     MobileViT placed by ``mobilevit_param_specs`` on (1, 2), 32 of phase
+     14's images: f32 (flash) and q8_0 features against one process's,
+     bf16 (the fused layer on gathered weights, the fused inverted
+     residual) argmax against one process's under the near-tie rule; (e)
+     (a)'s 4 steps by one NCCL rank on a (1, 1) mesh, losses and params
+     bit-equal to one process's. Each rank's step time (no barrier inside
+     the timed window), the gradient all-reduce and the recurrent kernel's
+     gather (timed apart, in an instrumented run) and the fused pair at
+     B=512 beside its bound are logged; before it is timed, each rank holds
+     the pair's three kernels at its B=512 (plan (16, 2)) against their
+     plain versions on its first step's operands, with phase 11's limits.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -197,6 +218,12 @@ Tolerances, and why:
     engine's from the offline forward's (other batch sizes, other cuDNN
     algorithms), only where the reference's top-2 logit gap is below
     VIT_NEAR_TIE.
+  * Training on a mesh (phase 22) against one process: see MT_LOSS_REL,
+    MT_PARAM_MAX and MT_PARAM_MEAN; the ranks of a run against each other, the resumed run
+    against the uninterrupted one, and one NCCL rank against one process:
+    bit-equal. TP MobileViT against one process: f32 and q8_0 features
+    within VIT_CPU_FEATURE_REL of the largest, bf16 argmax under the
+    near-tie rule.
   * A free-running greedy or sampled sequence may fork where the two best
     scores of a step lie closer than the summation-order error: the first
     divergence of every row must sit at such a near-tie of the plain
@@ -308,10 +335,27 @@ MD_TP_SHAPE, MD_TP_REQUESTS = (64, 16), 64
 MD_VIT_IMAGES = 128
 MD_DIE_SLOTS, MD_DIE_REQUESTS = 128, 300
 MD_NCCL_REQUESTS = 64
-MD_TIMEOUT_S = {"serve": 300, "die": 20, "nccl": 300}   # a collective's time limit
+MD_TIMEOUT_S = {"serve": 300, "die": 20, "nccl": 300,   # a collective's time limit
+                "train": 300, "train_nccl": 300}
 MD_DEATH_WAIT_S = 25                 # how long the survivor's tick may take
 MD_SPAWN_TIMEOUT_S = 600
 MD_RANK_ARGV = [sys.executable, os.path.abspath(__file__)]   # a rank: this script, --rank
+# training on a mesh (phase 22): phase 12's model, corpus and global batch
+MT_STEPS = {"dp": 4, "tp": 3}        # train steps of (a) and (b)
+MT_RESUME_AFTER = 2                  # (c): steps before the interruption
+MT_TIMED_STEPS = 5                   # steps of a rank's timed window
+MT_VIT_IMAGES = 32                   # (d): phase 14's first images
+MT_LR = 1e-3                         # TrainConfig's learning rate
+# two ranks against one process, bf16: the step's sums run in other orders
+# (dWr and dbrec added over two 512-row halves, the library products over
+# other row splits). Sound readings on the H100 (DP, 4 steps): loss 4.4e-07
+# relative, params max |diff| 4.5e-4, mean 3.5e-7; the limits stand a few
+# times above them; PERF.md gives the readings of planted faults that they
+# reject. Adam hides a gradient scaled by a constant (a doubled
+# sum): the CPU tests hold the gradients themselves to the JAX package's.
+MT_LOSS_REL = 1e-5
+MT_PARAM_MAX = 2e-3
+MT_PARAM_MEAN = 3e-6
 
 
 class SmokeFailure(AssertionError):
@@ -829,6 +873,57 @@ def cudnn_gru_ms(B, T, u, dev):
     raise SmokeFailure(f"torch.nn.GRU on cuDNN refused bf16 and fp16: {err}")
 
 
+def train_bf16_gaps(mxs, h0, wr, brec, pys):
+    """The yardstick of tf_h_check for the train forward: the plain version's
+    own mean distance between rounding to bf16 (``pys``) and not rounding, on
+    the same operands, over all T and over the first TF_BF16_SHORT steps."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    fys, _ = ft.gru_train_fwd_plain(mxs.float(), h0.float(), wr.float(), brec)
+    d_f = (fys - pys.float()).abs()
+    return float(d_f.mean()), float(d_f[:TF_BF16_SHORT].mean())
+
+
+def train_fwd_check(tag, what, ys, mhs, pys, pmhs, gaps):
+    """The train forward's (ys, mhs) against the plain version's (pys, pmhs):
+    max errors within TRAIN_YS_MAX / TRAIN_MHS_MAX, mean errors within
+    fractions of ``gaps`` (:func:`train_bf16_gaps`). Returns (ys max, ys mean,
+    short mean, mhs max, mhs mean)."""
+    gap, s_gap = gaps
+    d_ys = (ys.float() - pys.float()).abs()
+    ys_max, ys_mean = float(d_ys.max()), float(d_ys.mean())
+    s_mean = float(d_ys[:TF_BF16_SHORT].mean())
+    d_mh = (mhs.float() - pmhs.float()).abs()
+    mh_max, mh_mean = float(d_mh.max()), float(d_mh.mean())
+    check(ys_max <= TRAIN_YS_MAX and mh_max <= TRAIN_MHS_MAX
+          and ys_mean <= TF_BF16_MEAN_FRAC_LONG * gap
+          and s_mean <= TF_BF16_MEAN_FRAC_SHORT * s_gap,
+          f"{tag}: {what}: ys max abs err {ys_max:.3g} (limit {TRAIN_YS_MAX}), mhs max "
+          f"{mh_max:.3g} (limit {TRAIN_MHS_MAX}), ys mean {ys_mean:.3g} (limit "
+          f"{TF_BF16_MEAN_FRAC_LONG} x {gap:.3g}), over the first {TF_BF16_SHORT} steps "
+          f"{s_mean:.3g} (limit {TF_BF16_MEAN_FRAC_SHORT} x {s_gap:.3g})")
+    return ys_max, ys_mean, s_mean, mh_max, mh_mean
+
+
+def train_bwd_check(tag, what, got, again, want):
+    """The train backward's (dmxs, dwr, dbrec, dh0), launched twice, against
+    the plain version's: finite, bit-equal across the launches, and max
+    |diff| / max |plain| within TRAIN_GRAD_REL. Returns those ratios."""
+    import torch
+
+    rel = {}
+    for name, a, a2, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
+        check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
+              f"{tag}: {what}: {name} shape or values")
+        check(torch.equal(a, a2), f"{tag}: {what}: two launches on the same inputs give "
+                                  f"different {name}")
+        rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+        check(rel[name] <= TRAIN_GRAD_REL[name],
+              f"{tag}: {what}: {name} max |diff| / max |plain| = {rel[name]:.3g} > "
+              f"{TRAIN_GRAD_REL[name]}")
+    return rel
+
+
 def train_kernel_phase(tag, fparams, dev, tok):
     """The fused training kernels against their plain versions at
     TRAIN_SHAPES, bf16, U=1024: the trained recurrent kernel and bias, the
@@ -862,19 +957,6 @@ def train_kernel_phase(tag, fparams, dev, tok):
         dys = (torch.randn((T, B, u), generator=g, device=dev) * 0.01).to(bf16)
         return mxs, h0, dys
 
-    def check_backward(what, got, again, want):
-        rel = {}
-        for name, a, a2, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
-            check(a.shape == w.shape and bool(torch.isfinite(a.float()).all()),
-                  f"{tag}: {what}: {name} shape or values")
-            check(torch.equal(a, a2), f"{tag}: {what}: two launches on the same inputs give "
-                                      f"different {name}")
-            rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
-            check(rel[name] <= TRAIN_GRAD_REL[name],
-                  f"{tag}: {what}: {name} max |diff| / max |plain| = {rel[name]:.3g} > "
-                  f"{TRAIN_GRAD_REL[name]}")
-        return rel
-
     out = {}
     for B, T in TRAIN_SHAPES:
         mxs, h0, dys = operands(B, T)
@@ -884,27 +966,10 @@ def train_kernel_phase(tag, fparams, dev, tok):
         check(ft.LAST_PLAN["fused_gru_train_fwd"] == plan, f"{tag}: forward B={B} ran "
                                                            f"{ft.LAST_PLAN} for {plan}")
         pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-        # the yardstick of tf_h_check: the plain version's own distance
-        # between rounding to bf16 and not rounding, on the same operands
-        fys, _ = ft.gru_train_fwd_plain(mxs.float(), h0.float(), wr.float(), brec)
-        d_f = (fys - pys.float()).abs()
-        gap, s_gap = float(d_f.mean()), float(d_f[:TF_BF16_SHORT].mean())
-        del d_f, fys
+        gaps = train_bf16_gaps(mxs, h0, wr, brec, pys)
 
         def fwd_check(ys, mhs, what):
-            d_ys = (ys.float() - pys.float()).abs()
-            ys_max, ys_mean = float(d_ys.max()), float(d_ys.mean())
-            s_mean = float(d_ys[:TF_BF16_SHORT].mean())
-            d_mh = (mhs.float() - pmhs.float()).abs()
-            mh_max, mh_mean = float(d_mh.max()), float(d_mh.mean())
-            check(ys_max <= TRAIN_YS_MAX and mh_max <= TRAIN_MHS_MAX
-                  and ys_mean <= TF_BF16_MEAN_FRAC_LONG * gap
-                  and s_mean <= TF_BF16_MEAN_FRAC_SHORT * s_gap,
-                  f"{tag}: {what}: ys max abs err {ys_max:.3g} (limit {TRAIN_YS_MAX}), mhs max "
-                  f"{mh_max:.3g} (limit {TRAIN_MHS_MAX}), ys mean {ys_mean:.3g} (limit "
-                  f"{TF_BF16_MEAN_FRAC_LONG} x {gap:.3g}), over the first {TF_BF16_SHORT} steps "
-                  f"{s_mean:.3g} (limit {TF_BF16_MEAN_FRAC_SHORT} x {s_gap:.3g})")
-            return ys_max, ys_mean, s_mean, mh_max, mh_mean
+            return train_fwd_check(tag, what, ys, mhs, pys, pmhs, gaps)
 
         ys_max, ys_mean, s_mean, mh_max, mh_mean = fwd_check(ys, mhs, f"forward B={B} T={T}")
         fwd_ms = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1)
@@ -913,8 +978,8 @@ def train_kernel_phase(tag, fparams, dev, tok):
         fb_ms, fb_by = bound(nbytes, 2 * T * B * u * 3 * u, "bfloat16")
         lib_fwd, lib_bwd, lib_dt = cudnn_gru_ms(B, T, u, dev)
         log(f"[{tag}] forward B={B} T={T} U={u} bf16, plan {tuple(plan)}: ys max abs err "
-            f"{ys_max:.3g}, mean {ys_mean:.3g} (plain f32 vs bf16: {gap:.3g}), first "
-            f"{TF_BF16_SHORT} steps mean {s_mean:.3g} (plain f32 vs bf16: {s_gap:.3g}) | mhs max "
+            f"{ys_max:.3g}, mean {ys_mean:.3g} (plain f32 vs bf16: {gaps[0]:.3g}), first "
+            f"{TF_BF16_SHORT} steps mean {s_mean:.3g} (plain f32 vs bf16: {gaps[1]:.3g}) | mhs max "
             f"{mh_max:.3g}, mean {mh_mean:.3g} | kernel {fwd_ms:.3f} ms = "
             f"{fwd_ms * 1e3 / T:.1f} us/step | plain {fwd_plain_ms:.2f} ms | bound "
             f"{fb_ms:.3f} ms ({fb_by}) | library: torch.nn.GRU(256, {u}) on cuDNN ({lib_dt}) "
@@ -929,7 +994,7 @@ def train_kernel_phase(tag, fparams, dev, tok):
         again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         torch.cuda.synchronize()
         want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
-        rel = check_backward(f"backward B={B} T={T}", got, again, want)
+        rel = train_bwd_check(tag, f"backward B={B} T={T}", got, again, want)
         dmx_abs = float((got[0].float() - want[0].float()).abs().max())
         del again
         # the two kernels of the backward apart, on the plain recurrence's operands
@@ -988,7 +1053,7 @@ def train_kernel_phase(tag, fparams, dev, tok):
             check(torch.equal(ys2, ys3), f"{tag}: forward B={B}, plan {tuple(other)}: two "
                                          f"launches differ")
             o_max = fwd_check(ys2, mhs2, f"forward B={B} T={T}, plan {tuple(other)}")[0]
-            o_rel = check_backward(f"backward B={B} T={T}, plan {tuple(other)}", g2, a2, want)
+            o_rel = train_bwd_check(tag, f"backward B={B} T={T}, plan {tuple(other)}", g2, a2, want)
             log(f"[{tag}] plan {tuple(other)} forced at B={B} T={T}: forward ys max abs err "
                 f"{o_max:.3g}, backward max rel " + ", ".join(f"{n} {v:.3g}"
                                                               for n, v in o_rel.items())
@@ -1020,7 +1085,7 @@ def train_kernel_phase(tag, fparams, dev, tok):
         again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         torch.cuda.synchronize()
         want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
-        rel = check_backward(f"backward B={B} T={T}", got, again, want)
+        rel = train_bwd_check(tag, f"backward B={B} T={T}", got, again, want)
         ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=3, warmup=1)
         log(f"[{tag}] backward B={B} T={T} U={u} bf16, plan {tuple(plan)} (one launch of each "
             f"kernel): max |diff| / max |plain|: " + ", ".join(f"{k} {v:.3g}"
@@ -3096,8 +3161,10 @@ def rank_main(argv) -> int:
                                device="cuda:0", timeout_s=MD_TIMEOUT_S[scenario])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run = {"serve": md_serve_rank, "die": md_die_rank, "nccl": md_nccl_rank}[scenario]
-    out = run(f"21 multi-device {scenario}", work, rank, world, dev)
+    run = {"serve": md_serve_rank, "die": md_die_rank, "nccl": md_nccl_rank,
+           "train": mt_train_rank, "train_nccl": mt_nccl_rank}[scenario]
+    phase = "22 mesh training" if scenario.startswith("train") else "21 multi-device"
+    out = run(f"{phase} {scenario}", work, rank, world, dev)
     with open(os.path.join(work, f"{scenario}_{rank}.json"), "w") as f:
         json.dump(out, f)
     multihost.sync_hosts()
@@ -3363,6 +3430,413 @@ def multidevice_phase(tag, dev, rng, tok, images, smi):
     readings = {(int(k.split(":")[0]), k.split(":")[1]): v for k, v in r0["qmatmul"].items()}
     qmm_entry = qmatmul_entry(readings, r0["tp"]["launches"] + r1["tp"]["launches"])
     return tick_entry, qmm_entry
+
+
+# ---------------------------------------------------------------------------
+# phase 22: training on a mesh (the parent spawns this script as ranks)
+# ---------------------------------------------------------------------------
+
+def mt_data(tok, dev):
+    """Phase 12's initial params (seed 0) and its first global batches."""
+    import itertools
+
+    import torch
+
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.gru_textgen import GRUConfig
+    from ggml_experiments_tpu_torch.training.data import (
+        DataConfig,
+        batches,
+        load_corpus,
+        make_examples,
+    )
+
+    B, T = TRAIN_SHAPES[0]
+    data = DataConfig(seq_length=T, batch_size=B)
+    stream = list(itertools.islice(batches(make_examples(load_corpus(CORPUS_TRAIN), tok, data),
+                                           data, seed=0, epochs=1), MT_STEPS["dp"]))
+    init = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(0), device=dev)
+    return init, stream
+
+
+def mt_config(**kw):
+    import torch
+
+    from ggml_experiments_tpu_torch.training import TrainConfig
+
+    return TrainConfig(epochs=1, log_every=1, learning_rate=MT_LR,
+                       compute_dtype=torch.bfloat16, **kw)
+
+
+def mt_leaves(params):
+    """The whole params' tensors, on the host."""
+    from ggml_experiments_tpu_torch.training.gru_trainer import gather_params, param_leaves
+
+    return [t.detach().cpu() for _, t in param_leaves(gather_params(params))]
+
+
+def mt_train(init, stream, mesh, dev, **kw):
+    """``train(..., mesh=)`` with the launches counted from zero: (placed
+    params, whole leaves, losses, launches of the train kernels)."""
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.training import train
+
+    port.reset_kernel_launches()
+    for k in ft.PLAIN_CALLS:
+        ft.PLAIN_CALLS[k] = 0
+    params, hist = train(init, stream, mt_config(**kw), mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: port.kernel_launches()[k] for k in TRAIN_KERNELS}
+    check(not any(ft.PLAIN_CALLS.values()), f"plain versions ran: {ft.PLAIN_CALLS}")
+    return params, mt_leaves(params), [h["loss"] for h in hist], launches
+
+
+def mt_checksum(leaves):
+    return float(sum(float(t.double().abs().sum()) for t in leaves))
+
+
+def mt_timings(init, stream, mesh, dev, gather_wr):
+    """A rank's step time over MT_TIMED_STEPS steps (synchronized only at the
+    ends of the window), then, instrumented apart: the gradient all-reduce
+    (the step's flat buffer of every leaf's gradient and the loss) and, with
+    ``gather_wr``, the recurrent kernel's gather; medians of 5, each after a
+    barrier."""
+    import torch
+
+    from ggml_experiments_tpu_torch.parallel import DATA_AXIS, axis_slice, multihost
+    from ggml_experiments_tpu_torch.training.gru_trainer import (
+        init_train_state,
+        make_train_step,
+        param_leaves,
+    )
+
+    params, opt = init_train_state(init, mesh, device=dev)
+    step = make_train_step(MT_LR, mesh, compute_dtype=torch.bfloat16)
+    sl = axis_slice(mesh, DATA_AXIS, stream[0][0].shape[0])
+    feed = [tuple(torch.from_numpy(a[sl].copy()).to(dev) for a in b) for b in stream]
+    step(params, opt, *feed[0])
+    torch.cuda.synchronize()
+    multihost.sync_hosts()
+    t0 = time.perf_counter()
+    for i in range(MT_TIMED_STEPS):
+        _, _, loss = step(params, opt, *feed[i % len(feed)])
+    float(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MT_TIMED_STEPS
+
+    def timed(fn):
+        times = []
+        for _ in range(5):
+            multihost.sync_hosts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    n = sum(t.numel() for _, t in param_leaves(params)) + 1
+    flat = torch.ones(n, device=dev)
+    out = {"step_ms": step_ms, "allreduce_ms": timed(lambda: mesh.all_reduce(flat, DATA_AXIS)),
+           "allreduce_mb": n * 4 / 1e6}
+    if gather_wr:
+        out["gather_wr_ms"] = timed(lambda: params.cell.recurrent_kernel.gather())
+    return out
+
+
+def mt_pair_check(tag, dev, init, ids):
+    """The fused pair (forward, backward recurrence, dWr) on a rank's first
+    DP step's operands: ``ids`` its (B, T) rows of the first global batch,
+    their input projection by ``init``'s cell at bf16, h0 zero, a seeded
+    cotangent. Each kernel held against its plain version with phase 11's
+    limits (the forward, the backward twice, the dWr GEMM alone on equal
+    operands), then the pair CUDA-event timed beside its bound (phase 11's
+    formula: each kernel's bytes and 2 T B U 3U operations)."""
+    import torch
+
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.ops.gru import input_projection
+
+    bf16 = torch.bfloat16
+    cell = init.cell
+    b, T = ids.shape
+    u = cell.units
+    with torch.no_grad():
+        xs = init.embeddings[torch.from_numpy(ids.T.copy()).long().to(dev)]   # (T, B, E)
+        mxs = input_projection(cell, xs, compute_dtype=bf16).contiguous()
+    h0 = torch.zeros((b, u), dtype=bf16, device=dev)
+    wr = cell.recurrent_kernel.detach().to(bf16).contiguous()
+    brec = cell.bias[1].detach().float().contiguous()
+    g = torch.Generator(device=dev).manual_seed(22)
+    dys = (torch.randn((T, b, u), generator=g, device=dev) * 0.01).to(bf16)
+    what = f"rank pair B={b} T={T}"
+
+    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+    torch.cuda.synchronize()
+    plan = ft.train_plan(b, u)
+    check(ft.LAST_PLAN["fused_gru_train_fwd"] == plan, f"{tag}: {what}: forward ran "
+                                                       f"{ft.LAST_PLAN} for {plan}")
+    pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    ys_max = train_fwd_check(tag, f"{what}: forward", ys, mhs, pys, pmhs,
+                             train_bf16_gaps(mxs, h0, wr, brec, pys))[0]
+    got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+    again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+    want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+    rel = train_bwd_check(tag, f"{what}: backward", got, again, want)
+    dmx_abs = float((got[0].float() - want[0].float()).abs().max())
+    del again, want
+    dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, pmhs, pys, dys, h0, wr)
+    dwr_k = ft.gru_train_dwr_cuda(h0, pys, dmxs, plane)
+    dwr_p = ft.gru_train_dwr_plain(h0, pys, dmxs, plane)
+    dwr_abs = float((dwr_k - dwr_p).abs().max())
+    dwr_rel = dwr_abs / float(dwr_p.abs().max())
+    check(dwr_rel <= TRAIN_DWR_REL, f"{tag}: {what}: dWr max |diff| / max |plain| = "
+                                    f"{dwr_rel:.3g} > {TRAIN_DWR_REL}")
+    del pys, pmhs, dmxs, plane, dwr_k, dwr_p
+
+    def pair():
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        return ys, mhs, ft.gru_train_bwd_cuda(mxs, mhs, ys, dys, h0, wr)
+
+    ms = cuda_ms(pair, n=5, warmup=1)
+    ops = 2 * T * b * u * 3 * u
+    dmxs, dwr, dbrec, dh0 = got
+    plane = ys     # the recurrence's (T, B, U) bf16 plane, as large as ys
+    parts = (bound(tensor_bytes(mxs, h0, wr, brec, ys, mhs), ops, "bfloat16"),
+             bound(tensor_bytes(mxs, mhs, ys, dys, h0, wr, dmxs, plane, dbrec, dh0), ops,
+                   "bfloat16"),
+             bound(tensor_bytes(h0, ys, dmxs, plane, dwr), ops, "bfloat16"))
+    return {"pair_ms": ms, "pair_bound_ms": sum(p[0] for p in parts),
+            "plan": list(plan),
+            "pair_err": {"ys_max_abs": ys_max, "dmxs_max_abs": dmx_abs, "dwr_max_abs": dwr_abs,
+                         "dwr_rel": dwr_rel, **{f"{k}_rel": v for k, v in rel.items()}}}
+
+
+def mt_train_rank(tag, work, rank, world, dev):
+    """A rank of phase 22's two-rank session: (a) DP, (b) TP, (c) resume,
+    (d) TP MobileViT; see the module docstring."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.parallel import (
+        DATA_AXIS,
+        axis_slice,
+        make_mesh,
+        mobilevit_param_specs,
+        place,
+    )
+    from ggml_experiments_tpu_torch.parallel.sharding import Placed
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    init, stream = mt_data(CharTokenizer(), dev)
+    dp, tp = make_mesh((2, 1)), make_mesh((1, 2))
+    out = {"rank": rank}
+    # (a) data parallel
+    _, dp_leaves, losses, launches = mt_train(init, stream, dp, dev)
+    out["dp"] = {"losses": losses, "launches": launches, "checksum": mt_checksum(dp_leaves)}
+    # (b) tensor parallel: the params' column shards, the kernels on the gathered wr
+    params, tp_leaves, losses, launches = mt_train(init, stream[:MT_STEPS["tp"]], tp, dev)
+    wr = params.cell.recurrent_kernel
+    check(isinstance(wr, Placed) and tuple(wr.local.shape) == (1024, 1536),
+          f"{tag}: the TP recurrent kernel is not a column shard")
+    out["tp"] = {"losses": losses, "launches": launches, "checksum": mt_checksum(tp_leaves)}
+    if rank == 0:
+        torch.save({"dp": dp_leaves, "tp": tp_leaves}, os.path.join(work, "mt_params.pt"))
+    del params, wr
+    # (c) interrupted after MT_RESUME_AFTER steps, resumed from the file
+    ck = os.path.join(work, "mt_resume.gxt")
+    mt_train(init, stream[:MT_RESUME_AFTER], dp, dev, resume_path=ck, save_every=1)
+    _, resumed, losses, launches = mt_train(init, stream, dp, dev, resume_path=ck, save_every=1)
+    out["resume"] = {"equal": all(torch.equal(a, b) for a, b in zip(resumed, dp_leaves)),
+                     "steps": len(losses), "launches": launches,
+                     "bytes": os.path.getsize(ck)}
+    # timings: each rank's steps, the collectives apart, the pair alone on the card
+    out["dp"].update(mt_timings(init, stream, dp, dev, False))
+    out["tp"].update(mt_timings(init, stream, tp, dev, True))
+    pair_rows = stream[0][0][axis_slice(dp, DATA_AXIS, stream[0][0].shape[0])]
+    out.update(md_in_turn(rank, world, lambda: mt_pair_check(tag, dev, init, pair_rows)))
+    torch.cuda.empty_cache()
+    # (d) tensor-parallel MobileViT
+    with np.load(os.path.join(work, "mt_images.npz")) as f:
+        x = torch.from_numpy(f["images"]).to(dev)
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    pv = place(vit, mobilevit_param_specs(vit), tp)
+    check(isinstance(pv.layer_3.transformer[0].attention.wq, Placed)
+          and isinstance(pv.classifier_kernel, Placed), f"{tag}: MobileViT is not placed")
+    port.reset_kernel_launches()
+    feats = {"float32": extract_features(pv, x, compute_dtype=f32),
+             "bfloat16": classify(pv, x, compute_dtype=bf16)}
+    torch.cuda.synchronize()
+    vit_launches = port.kernel_launches()
+    q8 = load_mobilevit(VIT_CKPT, device=dev, qtype="q8_0")
+    pq = place(q8, mobilevit_param_specs(q8), tp)
+    feats["q8_0"] = extract_features(pq, x, compute_dtype=f32)
+    check(not any(hasattr(layer, "_gxt_fused_operands") for blk in (pv.layer_3, pv.layer_4,
+                                                                    pv.layer_5)
+                  for layer in blk.transformer), f"{tag}: placed layers kept their operands")
+    out["vit"] = {k: float(v.double().abs().sum()) for k, v in feats.items()}
+    out["vit"]["launches"] = {k: vit_launches[k] for k in ("flash_mha", "fused_transformer_layer",
+                                                           "fused_inverted_residual")}
+    if rank == 0:
+        np.savez(os.path.join(work, "mt_vit.npz"), **{k: v.cpu().numpy() for k, v in
+                                                       feats.items()})
+    return out
+
+
+def mt_nccl_rank(tag, work, rank, world, dev):
+    """Phase 22 (e): one NCCL rank runs (a)'s steps on a (1, 1) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from ggml_experiments_tpu_torch.parallel import make_mesh
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+    init, stream = mt_data(CharTokenizer(), dev)
+    mesh = make_mesh((1, 1))
+    check(mesh.group("data") is not None, f"{tag}: the (1, 1) mesh has no group")
+    _, leaves, losses, launches = mt_train(init, stream, mesh, dev)
+    torch.save(leaves, os.path.join(work, "mt_nccl_params.pt"))
+    return {"rank": rank, "backend": str(dist.get_backend()), "losses": losses,
+            "launches": launches}
+
+
+def train_mesh_phase(tag, dev, images, smi):
+    """Phase 22: training on a mesh on one card (see the module docstring).
+    Returns the launches of each train kernel by run and rank."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.training import train
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    np.savez(os.path.join(work, "mt_images.npz"), images=images[:MT_VIT_IMAGES])
+    init, stream = mt_data(CharTokenizer(), dev)
+    one = {}
+    for run, n in MT_STEPS.items():
+        params, hist = train(init, stream[:n], mt_config(), device=dev)
+        one[run] = ([h["loss"] for h in hist], mt_leaves(params))
+        del params
+    torch.cuda.empty_cache()
+
+    rcs = md_spawn(tag, "train", 2, work, MD_BACKEND)
+    check(rcs == [0, 0], f"{tag}: the two-rank session failed: exit codes {rcs}")
+    r0, r1 = md_result(work, "train", 0), md_result(work, "train", 1)
+    saved = torch.load(os.path.join(work, "mt_params.pt"))
+    n_local = TRAIN_SHAPES[0][0] // 2
+    for run, mesh in (("dp", (2, 1)), ("tp", (1, 2))):
+        a, b = r0[run], r1[run]
+        steps = MT_STEPS[run]
+        # every reading first, logged, then the checks: a failing run shows them all
+        want_losses, want_leaves = one[run]
+        rel = max(abs(x - w) / abs(w) for x, w in zip(a["losses"], want_losses))
+        diffs = [(g - w).abs() for g, w in zip(saved[run], want_leaves)]
+        d_max = max(float(d.max()) for d in diffs)
+        d_mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+        bit_equal = all(torch.equal(g, w) for g, w in zip(saved[run], want_leaves))
+        rows = n_local if run == "dp" else 2 * n_local
+        log(f"[{tag}] ({'a' if run == 'dp' else 'b'}) {run.upper()} {mesh} mesh, bf16, global "
+            f"B={2 * n_local} T={TRAIN_SHAPES[0][1]}, {steps} steps: launches a rank fwd/bwd/dWr "
+            f"{[a['launches'][k] for k in TRAIN_KERNELS]} + "
+            f"{[b['launches'][k] for k in TRAIN_KERNELS]} on {rows} rows each | losses rank 0 "
+            f"{a['losses']}, rank 1 {b['losses']}, params checksums {a['checksum']!r} "
+            f"{b['checksum']!r} | against one process (rank 0's): loss relative {rel:.3g} "
+            f"(limit {MT_LOSS_REL}), params max |diff| {d_max:.3g} (limit {MT_PARAM_MAX}), "
+            f"mean {d_mean:.3g} (limit {MT_PARAM_MEAN}), bit-equal {bit_equal}")
+        for r, x in ((0, a), (1, b)):
+            check(all(x["launches"][k] == steps for k in TRAIN_KERNELS),
+                  f"{tag}: {run} rank {r} launched {x['launches']} in {steps} steps")
+        check(a["losses"] == b["losses"] and a["checksum"] == b["checksum"],
+              f"{tag}: {run}: the ranks' losses or params differ")
+        check(rel <= MT_LOSS_REL, f"{tag}: {run} losses {a['losses']} against one process's "
+                                  f"{want_losses}: relative {rel:.3g} > {MT_LOSS_REL}")
+        check(d_max <= MT_PARAM_MAX and d_mean <= MT_PARAM_MEAN,
+              f"{tag}: {run} params after {steps} steps differ from one process's by max "
+              f"{d_max:.3g} (limit {MT_PARAM_MAX}), mean {d_mean:.3g} (limit {MT_PARAM_MEAN})")
+        log(f"[{tag}] ({'a' if run == 'dp' else 'b'}) {smi}: two ranks share one card over gloo, "
+            f"so these are overhead, not scaling | ms a step (window of {MT_TIMED_STEPS} steps, "
+            f"no barrier inside): rank 0 {a['step_ms']:.3f}, rank 1 {b['step_ms']:.3f} | gradient "
+            f"all-reduce over 'data' ({a['allreduce_mb']:.2f} MB f32, instrumented apart, median "
+            f"of 5): rank 0 {a['allreduce_ms']:.3f} ms, rank 1 {b['allreduce_ms']:.3f} ms"
+            + (f" | wr gather (1024 x 1536 f32 a rank): rank 0 {a['gather_wr_ms']:.3f} ms, "
+               f"rank 1 {b['gather_wr_ms']:.3f} ms" if run == "tp" else ""))
+    log(f"[{tag}] fused pair (fwd + bwd recurrence + dWr) at a rank's B={n_local}, T=100, "
+        f"U=1024, on its first DP step's operands, against the plain versions (phase 11's "
+        f"limits), rank 0 / rank 1: " + ", ".join(
+            f"{k} {r0['pair_err'][k]:.3g} / {r1['pair_err'][k]:.3g}" for k in r0["pair_err"])
+        + f" | alone on the card, plan {r0['plan']}: rank 0 {r0['pair_ms']:.3f} ms, rank 1 "
+          f"{r1['pair_ms']:.3f} ms, bound {r0['pair_bound_ms']:.3f} ms")
+    for r, x in ((0, r0), (1, r1)):
+        res = x["resume"]
+        check(res["equal"] and res["steps"] == MT_STEPS["dp"] - MT_RESUME_AFTER
+              and all(res["launches"][k] == res["steps"] for k in TRAIN_KERNELS),
+              f"{tag}: rank {r}'s resumed run: {res}")
+    log(f"[{tag}] (c) (a) interrupted after {MT_RESUME_AFTER} steps (resume file "
+        f"{r0['resume']['bytes']:,} bytes, the whole params and moments written by rank 0) and "
+        f"resumed for {r0['resume']['steps']} steps: bit-equal to (a) on both ranks")
+
+    # (d) the TP MobileViT against one process's
+    check(r0["vit"] == r1["vit"], f"{tag}: the ranks' MobileViT outputs differ: {r0['vit']}, "
+                                  f"{r1['vit']}")
+    with np.load(os.path.join(work, "mt_vit.npz")) as f:
+        got = {k: torch.from_numpy(f[k]).to(dev) for k in ("float32", "bfloat16", "q8_0")}
+    x = torch.from_numpy(images[:MT_VIT_IMAGES]).to(dev)
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    q8 = load_mobilevit(VIT_CKPT, device=dev, qtype="q8_0")
+    want = {"float32": extract_features(vit, x, compute_dtype=f32),
+            "bfloat16": classify(vit, x, compute_dtype=bf16),
+            "q8_0": extract_features(q8, x, compute_dtype=f32)}
+    errs = {}
+    for k in ("float32", "q8_0"):
+        errs[k] = float((got[k] - want[k]).abs().max()) / float(want[k].abs().max())
+        check(errs[k] <= VIT_CPU_FEATURE_REL, f"{tag}: TP MobileViT {k} features: relative "
+                                              f"{errs[k]:.3g} > {VIT_CPU_FEATURE_REL}")
+    agree, flips = argmax_near_ties(f"{tag}: TP MobileViT bf16 argmax", got["bfloat16"],
+                                    want["bfloat16"], VIT_NEAR_TIE)
+    vl = r0["vit"]["launches"]
+    check(vl["flash_mha"] > 0 and vl["fused_transformer_layer"] > 0
+          and vl["fused_inverted_residual"] > 0, f"{tag}: TP MobileViT launches {vl}")
+    log(f"[{tag}] (d) TP MobileViT (1, 2), {MT_VIT_IMAGES} images: f32 features relative error "
+        f"{errs['float32']:.3g}, q8_0 {errs['q8_0']:.3g} (limit {VIT_CPU_FEATURE_REL}); bf16 "
+        f"classify argmax agreement {agree:.4f} ({flips} flips, at near-ties) | rank 0 launches "
+        f"{vl} | outputs equal on both ranks")
+    del vit, q8, got, want
+    torch.cuda.empty_cache()
+
+    # (e) one NCCL rank
+    rcs = md_spawn(tag, "train_nccl", 1, work, "nccl")
+    check(rcs == [0], f"{tag}: the one-rank NCCL session failed: exit code {rcs}")
+    n0 = md_result(work, "train_nccl", 0)
+    nccl_leaves = torch.load(os.path.join(work, "mt_nccl_params.pt"))
+    check("nccl" in n0["backend"] and n0["losses"] == one["dp"][0]
+          and all(torch.equal(a, b) for a, b in zip(nccl_leaves, one["dp"][1]))
+          and all(n0["launches"][k] == MT_STEPS["dp"] for k in TRAIN_KERNELS),
+          f"{tag}: NCCL rank: {n0}, one process's losses {one['dp'][0]}")
+    log(f"[{tag}] (e) one rank, backend {n0['backend']}, (1, 1) mesh: {MT_STEPS['dp']} steps, "
+        f"losses {n0['losses']} and params bit-equal to one process's | phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return {k: {"dp": [r0["dp"]["launches"][k], r1["dp"]["launches"][k]],
+                "tp": [r0["tp"]["launches"][k], r1["tp"]["launches"][k]],
+                "nccl": n0["launches"][k]} for k in TRAIN_KERNELS}
 
 
 def request_key(prompt_ids, max_new):
@@ -3672,6 +4146,12 @@ def main() -> int:
     # ---- 21. multi-device serving ---------------------------------------------------------
     kernels["fused_slot_tick_sharded"], kernels["qmatmul_q8_0_column_shard"] = \
         multidevice_phase("21 multi-device", dev, rng, tok, images, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 22. training on a mesh ---------------------------------------------------------
+    mesh_launches = train_mesh_phase("22 mesh training", dev, images, smi)
+    for name, counts in mesh_launches.items():
+        kernels[name]["mesh_launches"] = counts
     del images
     torch.cuda.empty_cache()
 
@@ -3714,6 +4194,8 @@ def main() -> int:
             entry["bfloat16"] = kd["bfloat16"]
         if "plan" in kd:         # the persistent kernel, the train pair: the plan its run took
             entry["plan"] = kd["plan"]
+        if "mesh_launches" in kd:   # the train kernels: phase 22's launches by run and rank
+            entry["mesh_launches"] = kd["mesh_launches"]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -275,9 +275,16 @@ class CheckpointManager:
     best: float = float("inf")
     mode: str = "min"
 
-    def maybe_save(self, tree: Any, metric: float) -> bool:
+    def better(self, metric: float) -> bool:
+        """Whether ``metric`` beats the best so far; if it does, it becomes
+        the best."""
         better = metric < self.best if self.mode == "min" else metric > self.best
         if better:
             self.best = metric
+        return better
+
+    def maybe_save(self, tree: Any, metric: float) -> bool:
+        better = self.better(metric)
+        if better:
             save(self.path, tree)
         return better

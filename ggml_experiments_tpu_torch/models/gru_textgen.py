@@ -107,8 +107,13 @@ def gather_for_loop(params: GRUTextGenParams) -> GRUTextGenParams:
     """The params a decode or sequence loop reads: row-parallel weights and
     sharded biases of params placed on a mesh (``parallel.place``) gathered
     once a call, as XLA hoists a loop-invariant gather; column-parallel
-    kernels stay sharded (each product all-gathers its outputs). Unplaced
-    params come back as they are."""
+    kernels stay sharded, and ``Placed.matmul`` picks the smaller transfer
+    for each product: a QTensor shard, or a float shard whose input has at
+    most K rows, all-gathers its outputs; a float shard whose input has more
+    rows than K (a serving step with more slots than E, the train step's
+    input projection) multiplies by its gathered whole weight. The gathers
+    are differentiable in the shards. Unplaced params come back as they
+    are."""
     cell = params.cell
     leaves = (params.embeddings, cell.kernel, cell.recurrent_kernel, cell.bias,
               params.dense_kernel, params.dense_bias)
@@ -156,7 +161,8 @@ def step(params: GRUTextGenParams, token_ids: torch.Tensor, h: torch.Tensor, *,
 
 def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Tensor] = None,
                      *, compute_dtype=torch.float32, remat: bool = False,
-                     time_major: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     time_major: bool = False,
+                     local_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced full-sequence forward. token_ids: (B, T) int ->
     (logits (B, T, V), final state (B, U)). With ``time_major=True`` the ids
     are (T, B) and the logits come back (T, B, V): the layout of the time
@@ -166,10 +172,19 @@ def forward_sequence(params: GRUTextGenParams, token_ids, h0: Optional[torch.Ten
     inside the time loop, which at bfloat16 on a GPU is the fused kernel pair
     (``ops/fused_gru_train``). The time-major path takes the embedding
     through a one-hot product, so that its gradient is reproducible.
-    ``remat`` checkpoints the plain loop's cell."""
+    ``remat`` checkpoints the plain loop's cell.
+
+    On params placed on a mesh the batch is global: each rank runs its slice
+    of the ``data`` axis and the results are gathered back. With
+    ``local_batch=True`` the ids (and ``h0``) are this rank's rows already
+    and the results stay this rank's, differentiable in its shards: the
+    train step's forward (``training/gru_trainer``)."""
     ids = torch.as_tensor(token_ids, device=params.device)
     bdim = 1 if time_major else 0
-    params, mesh, sl = _data_parallel(params, ids.shape[bdim])
+    if local_batch:
+        params, mesh, sl = gather_for_loop(params), None, slice(None)
+    else:
+        params, mesh, sl = _data_parallel(params, ids.shape[bdim])
     ids = ids[:, sl] if time_major else ids[sl]
     h = init_state(params, ids.shape[bdim]) if h0 is None else h0[sl]
     xs = embedding_lookup(params.embeddings, ids, one_hot_grad=time_major)   # (..., E)

@@ -471,11 +471,31 @@ class _FusedGRUScan(torch.autograd.Function):
                 dbrec.reshape(brec_shape).to(brec_dt), None, None)
 
 
+def _whole_weight(wr) -> torch.Tensor:
+    """``wr`` itself, or, for a rank's shard of it (``parallel.sharding.
+    Placed``), the whole weight through the shard's differentiable gather.
+    Anything that is not then a float tensor raises."""
+    if not isinstance(wr, torch.Tensor) and hasattr(wr, "gather"):
+        wr = wr.gather()
+    if not isinstance(wr, torch.Tensor) or not wr.is_floating_point():
+        raise TypeError(f"the fused train kernels take a float recurrent kernel, got "
+                        f"{type(wr).__name__}")
+    return wr
+
+
 def fused_gru_scan(mxs, h0, wr, brec) -> torch.Tensor:
     """Time-major fused GRU sequence: mxs (T, B, 3U) -> states ys (T, B, U)
     in bfloat16, differentiable in all four arguments. CUDA tensors go
-    through the kernel pair, CPU tensors through the plain versions."""
-    return _FusedGRUScan.apply(mxs, h0, wr, brec, torch.bfloat16, False)
+    through the kernel pair, CPU tensors through the plain versions.
+
+    On a mesh (the counterpart of the JAX rules ``_fwd_partitioned`` and
+    ``_bwd_partitioned``) each rank calls it on its own batch rows, with T, U
+    and the weights whole: a ``wr`` placed by ``parallel.gru_param_specs``
+    (a column shard) is gathered once a call, and its gradient reaches the
+    shard as that shard's slice. The gradients of ``wr`` and ``brec`` are
+    this rank's rows' partial sums: the caller sums them over ``data``
+    (``training/gru_trainer`` sums every leaf's gradient there, once)."""
+    return _FusedGRUScan.apply(mxs, h0, _whole_weight(wr), brec, torch.bfloat16, False)
 
 
 def fused_gru_scan_plain(mxs, h0, wr, brec, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -697,6 +697,31 @@ def _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj):
     return ops
 
 
+_LAYER_WEIGHTS = ("intermediate_kernel", "intermediate_bias", "output_kernel", "output_bias")
+_ATTENTION_WEIGHTS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+
+
+def _gathered(p):
+    """``p`` with every weight that is a rank's shard (neither a tensor nor a
+    QTensor: ``parallel.sharding.Placed``) gathered whole, as the JAX
+    partition rule replicates the layer's weights; None when ``p`` holds no
+    shard. The copy is the call's own: nothing of it is kept on ``p``."""
+    def shard(w):
+        return w is not None and not isinstance(w, (torch.Tensor, QTensor))
+
+    att = p.attention
+    if not any(shard(getattr(att, n)) for n in _ATTENTION_WEIGHTS) and not any(
+            shard(getattr(p, n)) for n in _LAYER_WEIGHTS):
+        return None
+
+    def whole(obj, names):
+        return {n: getattr(obj, n).gather() for n in names if shard(getattr(obj, n))}
+
+    return dataclasses.replace(
+        p, attention=dataclasses.replace(att, **whole(att, _ATTENTION_WEIGHTS)),
+        **whole(p, _LAYER_WEIGHTS))
+
+
 def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
                             final_ln=None, final_ln_eps: Optional[float] = None,
                             input_proj: Optional[torch.Tensor] = None,
@@ -705,7 +730,9 @@ def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     on x (..., L, C), or (..., L, Cin) with ``input_proj`` (Cin, C).
     ``final_ln=(gamma, beta)`` adds the block's post-stack LN with
     ``final_ln_eps`` (default the layer's eps); ``output_proj=(kernel (C,
-    Cout), bn_scale, bn_bias, act)`` the block's conv_projection, after it."""
+    Cout), bn_scale, bn_bias, act)`` the block's conv_projection, after it.
+    A layer placed on a mesh (``parallel.sharding.mobilevit_param_specs``)
+    has its shards gathered once a call, and its operands are not kept."""
     *lead, l, cin = x.shape
     cd = resolve_dtype(compute_dtype)
     h = p.attention.num_heads
@@ -713,13 +740,15 @@ def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     if c % h:
         raise ValueError(f"C={c} not divisible by num_heads={h}")
     x3 = x.reshape(-1, l, cin).to(cd)
-    if x3.device.type == "cpu":
-        ops = layer_operands(p, c, cd, final_ln=final_ln, final_ln_eps=final_ln_eps,
-                             input_proj=input_proj, output_proj=output_proj)
-        out = fused_transformer_layer_plain(x3, ops)
+    cpu = x3.device.type == "cpu"
+    if not cpu and cd != torch.bfloat16:
+        raise ValueError("fused_transformer_layer: the CUDA kernels run bf16 only")
+    whole = _gathered(p)
+    if cpu or whole is not None:
+        ops = layer_operands(p if whole is None else whole, c, cd, final_ln=final_ln,
+                             final_ln_eps=final_ln_eps, input_proj=input_proj,
+                             output_proj=output_proj)
     else:
-        if cd != torch.bfloat16:
-            raise ValueError("fused_transformer_layer: the CUDA kernels run bf16 only")
         ops = _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj)
-        out = fused_layer_cuda(x3, ops)
+    out = fused_transformer_layer_plain(x3, ops) if cpu else fused_layer_cuda(x3, ops)
     return out.reshape(*lead, l, out.shape[-1])

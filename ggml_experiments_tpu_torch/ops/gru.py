@@ -64,11 +64,14 @@ def _use_fused_train(p: GRUCellParams, fused: Optional[bool]) -> bool:
     """Whether the time-major forward takes the fused kernel pair: an
     explicit ``fused`` decides; otherwise dense float weights with a bias, on
     a GPU, at a width the CUDA kernels take (``fused_gru_train.kernels_take``:
-    U a multiple of 8 with U / 8 blocks co-resident). On the CPU the default
+    U a multiple of 8 with U / 8 blocks co-resident). A recurrent kernel
+    placed on a mesh (``parallel.sharding.Placed``) counts as its local
+    shard's kind and device, at the whole weight's U. On the CPU the default
     is the plain loop under autograd."""
     if fused is not None:
         return fused
     w = p.recurrent_kernel
+    w = getattr(w, "local", w)
     if not isinstance(w, torch.Tensor) or p.bias is None or w.device.type != "cuda":
         return False
     from ggml_experiments_tpu_torch.ops.fused_gru_train import kernels_take
@@ -86,7 +89,9 @@ def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Ten
     At ``bfloat16``, models the fused pair takes (see :func:`_use_fused_train`;
     ``fused=True`` forces it, and then CPU tensors run the kernels' plain
     versions) go through ``ops/fused_gru_train.fused_gru_scan``: the whole
-    time loop in one kernel forward and one backward, states in bf16.
+    time loop in one kernel forward and one backward, states in bf16, on the
+    rows of ``xs_tm`` (a rank's batch rows under data parallelism), with a
+    placed recurrent kernel gathered whole.
     Everything else is a plain time loop under autograd; ``remat=True``
     checkpoints its cell (``torch.utils.checkpoint``), which the fused pair
     does not need."""
@@ -96,9 +101,8 @@ def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Ten
     if cd == torch.bfloat16 and _use_fused_train(p, fused):
         from ggml_experiments_tpu_torch.ops.fused_gru_train import fused_gru_scan
 
-        if p.bias is None or not isinstance(p.recurrent_kernel, torch.Tensor):
-            raise ValueError("the fused train kernels take a dense float recurrent kernel "
-                             "and a bias")
+        if p.bias is None:
+            raise ValueError("the fused train kernels take a recurrent bias")
         ys = fused_gru_scan(mxs, h0.to(cd), p.recurrent_kernel, p.bias[1])
         if ys.shape[0] == 0:
             return ys, h0

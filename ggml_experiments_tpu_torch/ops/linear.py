@@ -68,7 +68,11 @@ def matmul(x: torch.Tensor, w: Weight, *, compute_dtype=torch.float32) -> torch.
 
 def linear(x: torch.Tensor, w: Weight, b: Optional[torch.Tensor] = None, *,
            compute_dtype=torch.float32) -> torch.Tensor:
+    """``x @ w + b``; a bias that is not a tensor (a rank's shard of one) is
+    gathered whole first, ``b.gather()``."""
     y = matmul(x, w, compute_dtype=compute_dtype)
+    if b is not None and not isinstance(b, torch.Tensor):
+        b = b.gather()
     if b is not None:
         y = y + b.to(y.dtype)  # keep bf16 results bf16 (bias is stored f32)
     return y

@@ -1,5 +1,5 @@
-"""Mesh, sharding rules and multi-process placement (DP + TP over
-``torch.distributed``)."""
+"""Mesh, sharding rules, multi-process placement and the differentiable
+collectives of the DP + TP train step (over ``torch.distributed``)."""
 
 from ggml_experiments_tpu_torch.parallel import mesh, multihost, sharding
 from ggml_experiments_tpu_torch.parallel.mesh import (
@@ -15,6 +15,7 @@ from ggml_experiments_tpu_torch.parallel.sharding import (
     P,
     PartitionSpec,
     gru_param_specs,
+    mobilevit_param_specs,
     place,
 )
 
@@ -32,5 +33,6 @@ __all__ = [
     "infer_mesh_shape",
     "make_mesh",
     "gru_param_specs",
+    "mobilevit_param_specs",
     "place",
 ]

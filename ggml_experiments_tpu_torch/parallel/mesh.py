@@ -76,10 +76,24 @@ class Mesh:
 
     def all_gather(self, t, axis: str, dim: int = 0):
         """The tensors of this rank's line along ``axis``, concatenated along
-        ``dim`` in coordinate order. A mesh with groups runs the collective
-        even on a one-rank axis."""
+        ``dim`` in coordinate order, differentiably (this rank's part gets its
+        slice of the gradient: ``multihost.all_gather``). A mesh with groups
+        runs the collective even on a one-rank axis."""
         group = self.group(axis)
         return t if group is None else multihost.all_gather(t, group, dim=dim)
+
+    def sum_grad(self, t, axis: str):
+        """``t``, whose gradient is summed over this rank's line along
+        ``axis`` in the backward (``multihost.sum_grad``)."""
+        group = self.group(axis)
+        return t if group is None else multihost.sum_grad(t, group)
+
+    def all_reduce(self, t, axis: str):
+        """The sum of ``t`` over this rank's line along ``axis``, added in
+        coordinate order (``multihost.all_reduce_sum``): every rank of the
+        line gets the same bits."""
+        group = self.group(axis)
+        return t if group is None else multihost.all_reduce_sum(t, group)
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None, *, device_type: str = "cuda") -> Mesh:

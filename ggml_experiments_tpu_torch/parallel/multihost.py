@@ -3,9 +3,10 @@
 Every process runs the same program. :func:`initialize` wires the processes
 into one default process group; the mesh (``parallel/mesh.py``) cuts it into
 the ``data`` and ``model`` groups; the collectives below carry the engine's
-refill decisions, the sharded products' outputs and the data-parallel
-batches between them. Single-process (no group, no torchrun-style
-environment) everything degrades to the identity.
+refill decisions, the sharded products' outputs and their gradients, the
+data-parallel batches and the train step's gradient sum between them.
+Single-process (no group, no torchrun-style environment) everything
+degrades to the identity.
 
 The backend is the caller's choice and is never swapped: ``nccl`` by default
 for CUDA ranks, ``gloo`` for CPU ranks. Ranks that share one card must ask
@@ -102,15 +103,76 @@ def sync_hosts(name: str = "barrier") -> None:
         dist.barrier()
 
 
-def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
-    """The group's tensors, equal in shape, concatenated along ``dim`` in
-    rank order (outside a group: ``t``)."""
-    if not in_session():
-        return t
-    src = t.contiguous()
+def _parts(t: torch.Tensor, group) -> list:
+    """Every rank's ``t`` (equal in shape), in rank order."""
+    src = t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts
+
+
+class _AllGather(torch.autograd.Function):
+    """``dist.all_gather`` + ``torch.cat`` whose backward hands this rank its
+    own slice of the incoming gradient. Whatever reads the gathered tensor is
+    computed alike on every rank of the group (a column-parallel product's
+    joined outputs, a sharded weight made whole), so each rank's gradient of
+    the gathered tensor is already the whole one: summing it over the group
+    (what ``torch.distributed.nn.functional.all_gather`` does) would multiply
+    every shard's gradient by the group's size."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.dim, ctx.width, ctx.at = dim, t.shape[dim], dist.get_rank(group)
+        return torch.cat(_parts(t, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.at * ctx.width, ctx.width), None, None
+
+
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The group's tensors, equal in shape, concatenated along ``dim`` in
+    rank order (outside a group: ``t``). Differentiable: the gradient of this
+    rank's part is its slice of the gathered tensor's gradient
+    (:class:`_AllGather`)."""
+    if not in_session():
+        return t
+    return _AllGather.apply(t, group, dim)
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the group
+    (:func:`all_reduce_sum`): the input of a column-parallel product, which
+    every rank holds whole but differentiates through its own columns
+    only."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def sum_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t``, with its gradient summed over the group on the way back (outside
+    a group: ``t``)."""
+    if not in_session():
+        return t
+    return _SumGrad.apply(t, group)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of the group's tensors, equal in shape, added in rank order
+    (``((t_0 + t_1) + t_2) + ...``), so that every rank holds the same bits
+    whatever the backend's reduction order (outside a group: ``t``). Not
+    differentiable: it sums gradients."""
+    if not in_session():
+        return t
+    parts = _parts(t, group)
+    return sum(parts[1:], parts[0])
 
 
 def global_from_host_data(host_data, group=None) -> torch.Tensor:
@@ -140,6 +202,6 @@ def broadcast_one_to_all(arrays: Sequence[np.ndarray]) -> tuple:
     return tuple(out)
 
 
-__all__ = ["all_gather", "broadcast_one_to_all", "global_from_host_data",
+__all__ = ["all_gather", "all_reduce_sum", "broadcast_one_to_all", "global_from_host_data",
            "host_local_batch_slice", "in_session", "initialize", "is_primary", "process_count",
-           "process_index", "shutdown", "sync_hosts"]
+           "process_index", "shutdown", "sum_grad", "sync_hosts"]

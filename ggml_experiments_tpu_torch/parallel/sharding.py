@@ -1,11 +1,15 @@
-"""Tensor-parallel placement rules for the GRU's parameters.
+"""Tensor-parallel placement rules for the GRU's and MobileViT's parameters.
 
 The rules are the JAX package's (``parallel/sharding.py``), Megatron-style so
 that each product needs one collective:
 
-* gate kernels column-parallel over ``model`` (the 3U gate dim), the state
-  replicated (its product is all-gathered back to (B, 3U) every step);
-* the vocab head row-parallel; embeddings and the head's bias replicated.
+* GRU: gate kernels column-parallel over ``model`` (the 3U gate dim), the
+  state replicated (its product is all-gathered back to (B, 3U) every step);
+  the vocab head row-parallel; embeddings and the head's bias replicated;
+* MobileViT: Q/K/V and the MLP-in column-parallel (their biases sharded
+  alike), attention-out and MLP-out row-parallel, the classifier
+  row-parallel; the convolutions, LayerNorms and the other biases
+  replicated.
 
 A spec is a :class:`PartitionSpec`: a tuple of mesh axis names (or None) per
 dimension, compared leaf by leaf with the JAX package's. :func:`place` gives
@@ -21,6 +25,12 @@ result is one device's bit for bit.
 Block-quantized weights shard codes and scales (and their other planes) by
 the same logical spec, with the JAX package's sanitization
 (:func:`qtensor_sharding`).
+
+Every gather goes through ``multihost.all_gather``, whose backward hands a
+rank its own slice of the gradient: a float shard whose ``local`` requires
+grad is trainable, and its gradient is this rank's part of the whole
+weight's (the train step then sums it over ``data``:
+``training/gru_trainer``).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from ggml_experiments_tpu_torch.ops import linear
+from ggml_experiments_tpu_torch.ops.attention import AttentionParams
 from ggml_experiments_tpu_torch.ops.gru import GRUCellParams
 from ggml_experiments_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from ggml_experiments_tpu_torch.quant.qmatmul import qmatmul
@@ -61,9 +72,11 @@ def _shard(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
 @dataclasses.dataclass(eq=False)
 class Placed:
     """This rank's shard of a weight: ``local`` is the slice along ``dim``
-    (0 row-parallel, 1 column-parallel) that the rank at its coordinate of
-    the mesh ``axis`` holds; ``global_shape`` is the whole weight's logical
-    shape (what ``.shape`` reports)."""
+    (0 row-parallel, 1 column-parallel; 0 for a sharded vector) that the
+    rank at its coordinate of the mesh ``axis`` holds; ``global_shape`` is
+    the whole weight's logical shape (what ``.shape`` reports). ``local`` may
+    be a leaf that requires grad: :meth:`gather` and :meth:`matmul` are
+    differentiable in it."""
 
     local: Weight
     spec: PartitionSpec
@@ -90,9 +103,18 @@ class Placed:
         """``x @ self``: column-parallel, the local product (a QTensor's
         kernel-or-matmul gate decided on the whole weight's K*N, as the JAX
         package decides it) all-gathered along N; row-parallel, the whole
-        weight gathered first."""
-        if self.dim == 0:
+        weight gathered first. A float column shard whose input has more rows
+        than the weight (K) is gathered too, the smaller of the two transfers
+        (the train step's whole-sequence input projection: T*B rows, K = E).
+        Under autograd the local product's input gradient, which each rank
+        forms from its own columns, is summed over the axis (Megatron's
+        ``f``), and the outputs' gather hands each rank its columns'
+        gradient."""
+        rows = x.numel() // max(x.shape[-1], 1)
+        if self.dim == 0 or (not isinstance(self.local, QTensor)
+                             and rows > self.global_shape[0]):
             return linear.matmul(x, self.gather(), compute_dtype=compute_dtype)
+        x = self.mesh.sum_grad(x, self.axis)
         if isinstance(self.local, QTensor):
             y = qmatmul(x, self.local, compute_dtype=compute_dtype, gate_shape=self.global_shape)
         else:
@@ -212,5 +234,41 @@ def gru_param_specs(params):
     )
 
 
-__all__ = ["P", "PartitionSpec", "Placed", "full", "gru_param_specs", "mesh_of", "place",
-           "qtensor_sharding", "spec_like"]
+def _replicated(tree):
+    """``P()`` for every tensor leaf of ``tree`` (None stays None)."""
+    return _zip_map(lambda leaf, _: None if leaf is None else P(), tree, tree)
+
+
+def _attention_specs(p: AttentionParams) -> AttentionParams:
+    col, row = P(None, MODEL_AXIS), P(MODEL_AXIS, None)
+    return dataclasses.replace(p, wq=col, bq=P(MODEL_AXIS), wk=col, bk=P(MODEL_AXIS), wv=col,
+                               bv=P(MODEL_AXIS), wo=row, bo=P())
+
+
+def mobilevit_param_specs(params):
+    """The spec tree shaped like ``params`` (a ``MobileViTParams``): the
+    convolutions replicated, each transformer layer's dense kernels
+    Megatron-paired over ``model``, the classifier row-parallel. Its static
+    fields (heads, eps, patch size, the kernel routes) are ``params``'."""
+    rep = P()
+
+    def layer_spec(tl):
+        return dataclasses.replace(
+            _replicated(tl), attention=_attention_specs(tl.attention),
+            intermediate_kernel=P(None, MODEL_AXIS), intermediate_bias=P(MODEL_AXIS),
+            output_kernel=P(MODEL_AXIS, None))
+
+    def block_spec(b):
+        return dataclasses.replace(_replicated(b),
+                                   transformer=tuple(layer_spec(t) for t in b.transformer))
+
+    return dataclasses.replace(
+        _replicated(params),
+        layer_3=block_spec(params.layer_3), layer_4=block_spec(params.layer_4),
+        layer_5=block_spec(params.layer_5),
+        classifier_kernel=None if params.classifier_kernel is None else P(MODEL_AXIS, None),
+        classifier_bias=None if params.classifier_bias is None else rep)
+
+
+__all__ = ["P", "PartitionSpec", "Placed", "full", "gru_param_specs", "mesh_of",
+           "mobilevit_param_specs", "place", "qtensor_sharding", "spec_like"]

@@ -551,6 +551,42 @@ def test_train_scan_autograd_runs_the_kernels(dev):
         assert a.grad.dtype == a.dtype and rel_max(a.grad, p.grad) <= 1e-2
 
 
+def test_train_batch_local_pair_at_a_rank_batch_matches_plain(dev):
+    """The fused pair's sharded half on one rank of a (2, 1) mesh: B = 512
+    rows of a 1024-row batch at U = 1024, through ``fused_gru_scan`` with the
+    recurrent kernel as a column shard that the scan gathers (here a
+    one-rank stand-in whose gather hands back the whole weight): one launch
+    of each kernel on the rank's plan, the gradients against the plain
+    versions, two runs bit-equal."""
+    import types
+
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, 8, 512, 1024)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ft.train_plan(512, 1024, sms) != ft.train_plan(1024, 1024, sms)
+
+    def run(scan, shard):
+        w = wr.float().requires_grad_()
+        args = [mxs.clone().requires_grad_(), h0, w, brec.clone().requires_grad_()]
+        wr_arg = types.SimpleNamespace(gather=lambda: w, local=w) if shard else w
+        ys = scan(args[0], h0, wr_arg, args[3])
+        (ys.float() * dys.float()).sum().backward()
+        torch.cuda.synchronize()
+        return ys.detach(), [args[0].grad, w.grad, args[3].grad]
+
+    launches = dict(ft.LAUNCHES)
+    ys, grads = run(ft.fused_gru_scan, True)
+    assert ft.LAUNCHES == {k: v + 1 for k, v in launches.items()}
+    assert ft.LAST_PLAN["fused_gru_train_fwd"] == ft.train_plan(512, 1024, sms)
+    ys2, grads2 = run(ft.fused_gru_scan, True)
+    assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    pys, pgrads = run(ft.fused_gru_scan_plain, False)
+    assert float((ys.float() - pys.float()).abs().max()) <= 2e-2
+    for name, g, w in zip(("dmxs", "dwr", "dbrec"), grads, pgrads):
+        assert rel_max(g, w) <= 1e-2, (name, rel_max(g, w))
+
+
 def test_train_kernels_name_the_shape_they_refuse(dev):
     """U off the 8-unit grid and a plan the kernels do not take are refused,
     naming the shape; B = 3000 runs in one launch of each kernel and matches
@@ -1004,3 +1040,45 @@ def test_space_to_depth_stem_equals_the_standard_stem_on_the_card(dev):
     b = p.conv_stem(x, compute_dtype=torch.bfloat16).float()
     torch.testing.assert_close(b, s.conv_stem(x).float(), rtol=0.02,
                                atol=0.02 * float(b.abs().max()))
+
+
+def test_differentiable_collectives_on_the_card_in_a_one_rank_group(dev):
+    """In a one-rank gloo group on CUDA tensors: the gather's backward hands
+    the rank its own slice (here the whole gradient, unsummed), the input
+    gradient sum and the ordered all-reduce are the identity, and a train
+    step's loss and gradients on a (1, 1) mesh equal one process's bit for
+    bit (``loss_and_grads``). The group is left at the end, so that the
+    engine tests see a process outside any group."""
+    import socket
+
+    from ggml_experiments_tpu_torch.parallel import DATA_AXIS, make_mesh, multihost
+    from ggml_experiments_tpu_torch.training import gru_trainer as tr
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize("cpu:gloo,cuda:gloo", f"tcp://localhost:{port}", 1, 0,
+                         device="cuda:0", timeout_s=120)
+    try:
+        x = torch.randn((4, 6), device=dev, requires_grad=True)
+        g = torch.randn((4, 6), device=dev)
+        y = multihost.all_gather(x, None, dim=1)
+        (y * g).sum().backward()
+        assert torch.equal(y, x) and torch.equal(x.grad, g)
+        x.grad = None
+        (multihost.sum_grad(x) * g).sum().backward()
+        assert torch.equal(x.grad, g)
+        assert torch.equal(multihost.all_reduce_sum(g), g)
+        mesh = make_mesh((1, 1))
+        assert mesh.group(DATA_AXIS) is not None
+        p = make_params(dev, None)
+        for _, t in tr.param_leaves(p):
+            t.requires_grad_(True)
+        rng = np.random.default_rng(3)
+        ids = torch.from_numpy(rng.integers(0, V, (64, 12))).to(dev)
+        want = tr.loss_and_grads(p, ids, ids.roll(-1, 1), None, compute_dtype=torch.bfloat16)
+        got = tr.loss_and_grads(p, ids, ids.roll(-1, 1), mesh, compute_dtype=torch.bfloat16)
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    finally:
+        multihost.shutdown()

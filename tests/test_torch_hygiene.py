@@ -43,19 +43,37 @@ def test_package_imports_with_jax_unimportable():
     assert int(out.stdout) >= 52
 
 
-@pytest.mark.parametrize("layer,above", [
-    ("ops", ("parallel", "models", "serving")),
-    ("quant", ("parallel", "models", "serving")),
-    ("parallel", ("models", "serving")),
-])
-def test_a_layer_imports_nothing_above_it(layer, above):
+# a rank's shard as the ops see it: anything with gather() (parallel.sharding.Placed)
+SHARD_CALLS = (
+    "import torch, types\n"
+    "from ggml_experiments_tpu_torch.ops.fused_gru_train import fused_gru_scan\n"
+    "from ggml_experiments_tpu_torch.ops.linear import linear\n"
+    "wr = torch.randn(8, 24, requires_grad=True)\n"
+    "shard = types.SimpleNamespace(gather=lambda: wr, local=wr)\n"
+    "ys = fused_gru_scan(torch.randn(3, 2, 24), torch.zeros(2, 8), shard, torch.zeros(24))\n"
+    "ys.float().sum().backward()\n"
+    "assert wr.grad is not None\n"
+    "linear(torch.randn(2, 8), wr, types.SimpleNamespace(gather=lambda: torch.zeros(24)))\n"
+)
+
+
+@pytest.mark.parametrize("layer,above,calls", [
+    ("ops", ("parallel", "models", "serving"), ""),
+    ("quant", ("parallel", "models", "serving"), ""),
+    ("parallel", ("models", "serving"), ""),
+    ("ops", ("parallel", "models", "serving"), SHARD_CALLS),
+], ids=["ops-above0", "quant-above1", "parallel-above2", "ops-on-shards"])
+def test_a_layer_imports_nothing_above_it(layer, above, calls):
     """Importing every module of a layer loads no module of a layer above
-    it (the kernels' ops under the placement rules under the models)."""
+    it (the kernels' ops under the placement rules under the models); the
+    ops take a rank's shard (the fused train scan's recurrent kernel, a
+    bias) through its ``gather()`` without importing ``parallel/``."""
     code = (
         "import sys, pkgutil, importlib\n"
         f"import ggml_experiments_tpu_torch.{layer} as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        + calls +
         f"bad = sorted(k for k in sys.modules if k.split('.')[1:2] and k.split('.')[0] == "
         f"'ggml_experiments_tpu_torch' and k.split('.')[1] in {above!r})\n"
         "print(bad)\n"
@@ -249,15 +267,15 @@ def test_cli_usage_errors_return_2(tmp_path, capsys):
 def test_no_unported_error_names_a_finished_item():
     """No message names a finished item of an earlier layout: the formats,
     the .gxt container, HTTP serving (item 4), GRU training, MobileViT
-    (item 6), calibration (Queue A #11), or multi-device serving (Queue A
-    #1, done in slice 12: what is left of it is Queue A #1b), and no
-    docstring calls multi-process serving not ported."""
+    (item 6), calibration (Queue A #11), multi-device serving (Queue A #1)
+    or training on a mesh (Queue A #1b), and no docstring calls
+    multi-process serving not ported."""
     hits = []
     for root, _, names in os.walk(PKG):
         for n in names:
             if n.endswith(".py"):
                 with open(os.path.join(root, n)) as f:
                     text = f.read()
-                hits += re.findall(r"item [12456]\b|Queue A #1[12]\b|Queue A #1(?![0-9b])", text)
+                hits += re.findall(r"item [12456]\b|Queue A #1[12]\b|Queue A #1(?![0-9])", text)
                 hits += re.findall(r"[Nn]ot ported[\s\S]{0,40}multi-process serving", text)
     assert not hits

@@ -13,6 +13,7 @@ every two-rank scenario (each test reads its part), so that the file spends
 its time on the work and not on starting processes.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -46,18 +47,205 @@ SAMPLED = ([(SPECS[0][0], SPECS[0][1], 0.0), (SAMPLED_PAIR, 15, 1.0)]
            + [(p, n, 0.0) for p, n in fillers(127, 6)]
            + [(SAMPLED_PAIR, 15, 1.0), (SAMPLED_PAIR, 15, 1.0)])
 SAMPLED_SLOTS = (1, 129, 130)
+# the JAX multi-process train scenarios (tests/multihost_worker.py run_train
+# and run_tp): params from init_params(PRNGKey(key)), batches drawn from
+# default_rng(seed), 3 Adam steps at 1e-3
+TRAIN_CASES = {"dp": dict(key=0, seed=42, shape=(16, 24)),
+               "tp": dict(key=5, seed=77, shape=(8, 16))}
+TRAIN_STEPS = 3
+# the JAX test_fused_gru_train_batch_sharded sizes: (T, B, E, U)
+SCAN_SHAPE = (5, 16, 8, 16)
 
 
 # ---------------------------------------------------------------------------
 # the worker (this file run as a script)
 # ---------------------------------------------------------------------------
 
-def _port_params(work, qtype=None):
+def _port_params(work, qtype=None, name="gru", requires_grad=False):
     from ggml_experiments_tpu_torch.convert import params_from_numpy
 
-    with np.load(os.path.join(work, "gru.npz")) as f:
+    with np.load(os.path.join(work, f"{name}.npz")) as f:
         arrays = dict(f)
-    return params_from_numpy(arrays, qtype=qtype, device="cpu")
+    return params_from_numpy(arrays, qtype=qtype, device="cpu", requires_grad=requires_grad)
+
+
+def train_batches(seed, shape):
+    """The JAX scenarios' global batches: (inputs, next-token targets)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        inputs = rng.integers(0, V, shape).astype(np.int32)
+        out.append((inputs, np.roll(inputs, -1, axis=1)))
+    return out
+
+
+def _whole_leaves(placed, tensors):
+    """The whole arrays of a rank's ``tensors``, one per trainable leaf of the
+    placed params (a shard gathered through its leaf's placement)."""
+    from ggml_experiments_tpu_torch.parallel.sharding import Placed
+
+    leaves = [x for x in (placed.embeddings, placed.cell.kernel, placed.cell.recurrent_kernel,
+                          placed.cell.bias, placed.dense_kernel, placed.dense_bias)
+              if x is not None]
+    return [(dataclasses.replace(leaf, local=t).gather() if isinstance(leaf, Placed) else t)
+            .detach().double().numpy() for leaf, t in zip(leaves, tensors)]
+
+
+def _train_case(work, shape, case):
+    """The JAX scenario ``case`` on a ``shape`` mesh through the port's
+    ``train(..., mesh=)``: the losses, a checksum and the whole params after
+    the steps, and the whole gradients of the first batch
+    (``loss_and_grads`` on this rank's rows)."""
+    import torch
+
+    from ggml_experiments_tpu_torch.parallel import (
+        DATA_AXIS,
+        axis_slice,
+        gru_param_specs,
+        make_mesh,
+        place,
+    )
+    from ggml_experiments_tpu_torch.training import TrainConfig, train
+    from ggml_experiments_tpu_torch.training import gru_trainer as tr
+
+    c = TRAIN_CASES[case]
+    mesh = make_mesh(shape, device_type="cpu")
+    batches = train_batches(c["seed"], c["shape"])
+    name = f"train{c['key']}"
+    grad_params = _port_params(work, name=name, requires_grad=True)
+    placed = place(grad_params, gru_param_specs(grad_params), mesh)
+    sl = axis_slice(mesh, DATA_AXIS, c["shape"][0])
+    inputs, targets = (torch.from_numpy(a[sl]) for a in batches[0])
+    loss0, grads = tr.loss_and_grads(placed, inputs, targets, mesh)
+    params, hist = train(_port_params(work, name=name), batches,
+                         TrainConfig(epochs=1, log_every=1), mesh=mesh, device="cpu")
+    whole = [np.asarray(a) for _, a in tr.param_leaves(tr.gather_params(params))]
+    return {"losses": [h["loss"] for h in hist], "first_loss": float(loss0),
+            "checksum": float(sum(np.abs(a.astype(np.float64)).sum() for a in whole)),
+            "params": [a.ravel().tolist() for a in whole],
+            "grads": [g.ravel().tolist() for g in _whole_leaves(placed, grads)],
+            "local_gate_cols": int(getattr(params.cell.kernel, "local", params.cell.kernel)
+                                   .shape[1])}
+
+
+def _fused_scan_sharded(work):
+    """``fused_gru_scan`` (the plain versions, as on the CPU) on this rank's
+    batch rows of a (2, 1) mesh, the gradients of ``wr`` and ``brec`` summed
+    over ``data`` as the train step sums them; and on a (1, 2) mesh with a
+    column-sharded ``wr`` that the scan gathers. Returns loss and whole
+    gradients of each."""
+    import torch
+
+    from ggml_experiments_tpu_torch.ops.fused_gru_train import fused_gru_scan
+    from ggml_experiments_tpu_torch.parallel import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        P,
+        axis_slice,
+        make_mesh,
+        multihost,
+        place,
+    )
+
+    with np.load(os.path.join(work, "scan.npz")) as f:
+        a = dict(f)
+    out = {}
+    for name, shape in (("data", (2, 1)), ("model", (1, 2))):
+        mesh = make_mesh(shape, device_type="cpu")
+        rows = axis_slice(mesh, DATA_AXIS, a["mxs"].shape[1])
+        mxs = torch.from_numpy(a["mxs"][:, rows]).requires_grad_(True)
+        wr = torch.from_numpy(a["wr"]).requires_grad_(True)
+        brec = torch.from_numpy(a["brec"]).requires_grad_(True)
+        w = place(wr, P(None, MODEL_AXIS), mesh)    # a column shard on (1, 2)
+        h0 = torch.zeros((mxs.shape[1], wr.shape[0]))
+        sharded = not isinstance(w, torch.Tensor)
+        loss = (fused_gru_scan(mxs, h0, w, brec).float() ** 2).sum()
+        dmxs, dwr, dbrec = torch.autograd.grad(loss, [mxs, w.local if sharded else w, brec])
+        if sharded:
+            dwr = dataclasses.replace(w, local=dwr).gather()
+        dwr, dbrec, loss = (mesh.all_reduce(t.detach(), DATA_AXIS) for t in (dwr, dbrec, loss))
+        dmxs = mesh.all_gather(dmxs, DATA_AXIS, dim=1)
+        out[name] = {"loss": float(loss), "dmxs": dmxs.numpy().ravel().tolist(),
+                     "dwr": dwr.numpy().ravel().tolist(), "dbrec": dbrec.numpy().tolist(),
+                     "sharded_wr": sharded,
+                     "process_count": multihost.process_count()}
+    return out
+
+
+def _resume_on_mesh(work, rank):
+    """Two ranks on (2, 1): the dp case's 3 steps whole (keeping the
+    best-by-loss checkpoint), and interrupted after 2 (a resume file saved
+    every step) then resumed; and a resume file written by one process
+    (the primary alone) resumed on the mesh. Returns the runs' whole params
+    and the files' paths."""
+    from ggml_experiments_tpu_torch.parallel import make_mesh, multihost
+    from ggml_experiments_tpu_torch.training import TrainConfig, train
+    from ggml_experiments_tpu_torch.training import gru_trainer as tr
+
+    c = TRAIN_CASES["dp"]
+    mesh = make_mesh((2, 1), device_type="cpu")
+    batches = train_batches(c["seed"], c["shape"])
+    init = _port_params(work, name=f"train{c['key']}")
+    path, best, one = (os.path.join(work, f"{n}.gxt") for n in ("resume_mesh", "best_mesh",
+                                                                "resume_one"))
+    whole, _ = train(init, batches, TrainConfig(epochs=1, log_every=1, checkpoint_path=best),
+                     mesh=mesh, device="cpu")
+    cfg = TrainConfig(epochs=1, log_every=1, resume_path=path, save_every=1)
+    train(init, batches[:2], cfg, mesh=mesh, device="cpu")
+    resumed, hist = train(init, batches, cfg, mesh=mesh, device="cpu")
+    cfg_one = TrainConfig(epochs=1, log_every=1, resume_path=one, save_every=1)
+    if multihost.is_primary():
+        train(init, batches[:2], cfg_one, device="cpu")
+    multihost.sync_hosts()
+    from_one, hist_one = train(init, batches, cfg_one, mesh=mesh, device="cpu")
+
+    def leaves(p):
+        return [a.detach().numpy().ravel().tolist()
+                for _, a in tr.param_leaves(tr.gather_params(p))]
+
+    return {"whole": leaves(whole), "resumed": leaves(resumed), "from_one": leaves(from_one),
+            "resumed_at": [hist[0]["step"], hist_one[0]["step"]], "path": path, "best": best}
+
+
+def _tp_mobilevit(rank):
+    """The tiny golden MobileViT placed by ``mobilevit_param_specs`` on a
+    (1, 2) mesh: f32 features (float and q8_0 dense kernels), and the bf16
+    route through the fused layer on gathered weights against the unplaced
+    model."""
+    import torch
+
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        MobileViTConfig,
+        extract_features,
+        from_named_tensors,
+    )
+    from ggml_experiments_tpu_torch.parallel import make_mesh, mobilevit_param_specs, place
+    from ggml_experiments_tpu_torch.parallel.sharding import Placed
+
+    gold = os.path.join(REPO, "tests", "goldens")
+    tensors = read_named_tensors(os.path.join(gold, "mobilevit_tiny.ggml"))
+    cfg = MobileViTConfig(image_size=64, neck_hidden_sizes=(8, 16, 24, 32, 40, 48, 96),
+                          hidden_sizes=(24, 32, 40))
+    img = torch.from_numpy(np.load(os.path.join(gold, "mobilevit_tiny.npz"))["image"])[None]
+    mesh = make_mesh((1, 2), device_type="cpu")
+    out = {}
+    for name, kw in (("float", {}), ("q8_0", {"qtype": "q8_0"})):
+        mv = from_named_tensors(tensors, cfg, device="cpu", flash_attn=False, fused_layer=False,
+                                **kw)
+        placed = place(mv, mobilevit_param_specs(mv), mesh)
+        wq = placed.layer_3.transformer[0].attention.wq
+        out[name] = {"features": extract_features(placed, img).numpy().ravel().tolist(),
+                     "wq_spec": list(wq.spec) if isinstance(wq, Placed) else None}
+    mv = from_named_tensors(tensors, cfg, device="cpu", flash_attn=False, fused_layer=True)
+    placed = place(mv, mobilevit_param_specs(mv), mesh)
+    got = extract_features(placed, img, compute_dtype=torch.bfloat16)
+    one = extract_features(mv, img, compute_dtype=torch.bfloat16)
+    out["bf16_fused_max_diff"] = float((got - one).abs().max())
+    out["cached_operands"] = any(hasattr(layer, "_gxt_fused_operands")
+                                 for blk in (placed.layer_3, placed.layer_4, placed.layer_5)
+                                 for layer in blk.transformer)
+    return out
 
 
 def _serve(eng, specs, primary):
@@ -121,6 +309,12 @@ def _run_two(work, rank):
     one = extract_features(vit, imgs, compute_dtype=torch.bfloat16)
     out["vision"] = {"features": feats.numpy().ravel().tolist(), "shape": list(feats.shape),
                      "single_process_max_diff": float((feats - one).abs().max())}
+    # training on a mesh (JAX tests/multihost_worker.py run_train and run_tp)
+    out["train_dp"] = _train_case(work, (2, 1), "dp")
+    out["train_tp"] = _train_case(work, (1, 2), "tp")
+    out["fused_scan"] = _fused_scan_sharded(work)
+    out["resume"] = _resume_on_mesh(work, rank)
+    out["tp_mobilevit"] = _tp_mobilevit(rank)
     local = torch.arange(6, dtype=torch.float32).reshape(3, 2) + 10 * rank
     out["gathered"] = multihost.global_from_host_data(local).tolist()
     out["slice"] = [multihost.host_local_batch_slice(8).start,
@@ -146,6 +340,7 @@ def _run_four(work, rank):
            "generate": toks.tolist(), "mesh_coords": list(mesh.coords)}
     out["serve"] = _session(DecodeEngine(placed, n_slots=2, max_prompt=16, inner_steps=4),
                             [(p, n, 0.0) for p, n in SPECS], multihost.is_primary())
+    out["train"] = _train_case(work, (2, 2), "tp")
     return out
 
 
@@ -253,12 +448,12 @@ def _results(outs):
     return sorted(res, key=lambda r: r["rank"])
 
 
-def _jax_arrays():
+def _jax_arrays(key=7):
     import jax
 
     from ggml_experiments_tpu.models import gru_textgen as jg
 
-    p = jg.init_params(jg.GRUConfig(vocab_size=V, embed_dim=E, units=U), jax.random.PRNGKey(7))
+    p = jg.init_params(jg.GRUConfig(vocab_size=V, embed_dim=E, units=U), jax.random.PRNGKey(key))
     return {"embeddings": p.embeddings, "kernel": p.cell.kernel,
             "recurrent_kernel": p.cell.recurrent_kernel, "bias": p.cell.bias,
             "dense_kernel": p.dense_kernel, "dense_bias": p.dense_bias}
@@ -301,10 +496,33 @@ def _oracle(specs, qtype=None):
     return [toks[i, :len(p) + n].tolist() for i, (p, n, *_) in enumerate(specs)]
 
 
+def _scan_inputs():
+    """JAX test_fused_gru_train_batch_sharded's operands: mxs (the bf16
+    input projection, held in f32), wr and brec."""
+    import jax
+    import jax.numpy as jnp
+
+    from ggml_experiments_tpu.models import gru_textgen as jg
+    from ggml_experiments_tpu.ops.gru import input_projection
+
+    t, b, e, u = SCAN_SHAPE
+    rng = np.random.default_rng(9)
+    cell = jg.init_params(jg.GRUConfig(vocab_size=V, embed_dim=e, units=u),
+                          jax.random.PRNGKey(1)).cell
+    xs = jnp.asarray(rng.standard_normal((t, b, e)), jnp.float32)
+    mxs = input_projection(cell, xs, compute_dtype=jnp.bfloat16)
+    return {"mxs": np.asarray(mxs.astype(jnp.float32)), "wr": np.asarray(cell.recurrent_kernel),
+            "brec": np.asarray(cell.bias[1])}
+
+
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
     d = tmp_path_factory.mktemp("multihost")
     np.savez(d / "gru.npz", **{k: np.asarray(v) for k, v in _jax_arrays().items()})
+    for c in TRAIN_CASES.values():
+        np.savez(d / f"train{c['key']}.npz",
+                 **{k: np.asarray(v) for k, v in _jax_arrays(c["key"]).items()})
+    np.savez(d / "scan.npz", **_scan_inputs())
     return d
 
 
@@ -434,6 +652,200 @@ def test_four_process_sharded_forward_decode_and_serving(four):
     assert serve[0]["tokens"] and all(s["tokens"] == {} for s in serve[1:])
     for i, w in enumerate(_oracle(SPECS)):
         assert serve[0]["tokens"][str(i)] == w
+
+
+@pytest.fixture(scope="module")
+def jax_train():
+    """JAX's oracle of each train case, keyed by case: the losses of 3 steps
+    of ``make_train_step`` single-process (``"one"``) and on conftest's 8
+    devices (``"mesh"``: (2, 4) for dp, (1, 8) for tp, as the JAX
+    multi-process tests compare), the params after them, and the gradient
+    of the first batch's loss."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ggml_experiments_tpu.parallel import make_mesh as jmake_mesh
+    from ggml_experiments_tpu.parallel.sharding import gru_param_specs as jspecs
+    from ggml_experiments_tpu.parallel.sharding import place as jplace
+    from ggml_experiments_tpu.training.gru_trainer import loss_fn, make_train_step
+
+    out = {}
+    for case, mesh_shape in (("dp", (2, 4)), ("tp", (1, 8))):
+        c = TRAIN_CASES[case]
+        batches = train_batches(c["seed"], c["shape"])
+        p0 = _jax_params_of(c["key"])
+        grads = jax.grad(loss_fn)(p0, jnp.asarray(batches[0][0]), jnp.asarray(batches[0][1]))
+        res = {"grads": [np.asarray(g, np.float64) for g in _jax_leaves(grads)]}
+        for name, mesh in (("one", None), ("mesh", jmake_mesh(mesh_shape))):
+            opt = optax.adam(1e-3)
+            params = _jax_params_of(c["key"])
+            if mesh is not None:
+                params = jplace(params, jspecs(params), mesh)
+            state = opt.init(params)
+            step = make_train_step(opt, mesh)
+            losses = []
+            for inputs, targets in batches:
+                params, state, loss = step(params, state, jnp.asarray(inputs),
+                                           jnp.asarray(targets))
+                losses.append(float(loss))
+            res[name] = {"losses": losses,
+                         "params": [np.asarray(a, np.float64) for a in _jax_leaves(params)]}
+        out[case] = res
+    return out
+
+
+def _jax_params_of(key):
+    import jax.numpy as jnp
+
+    from ggml_experiments_tpu.models import gru_textgen as jg
+    from ggml_experiments_tpu.ops.gru import GRUCellParams
+
+    a = {k: jnp.asarray(np.asarray(v)) for k, v in _jax_arrays(key).items()}
+    return jg.GRUTextGenParams(
+        embeddings=a["embeddings"],
+        cell=GRUCellParams(kernel=a["kernel"], recurrent_kernel=a["recurrent_kernel"],
+                           bias=a["bias"]),
+        dense_kernel=a["dense_kernel"], dense_bias=a["dense_bias"])
+
+
+def _jax_leaves(p):
+    """The params' (or their gradients') leaves in the port's checkpoint order."""
+    return [p.embeddings, p.cell.kernel, p.cell.recurrent_kernel, p.cell.bias, p.dense_kernel,
+            p.dense_bias]
+
+
+# the port's f32 train step against JAX's: losses and params (rtol 1e-5, the
+# JAX tests'), gradients at the f32 loop's agreement
+TRAIN_RTOL, PARAM_TOL = 1e-5, 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+def _check_train(results, want, world_shape):
+    """Every rank's losses and checksum bit-equal; losses, params and the
+    first batch's gradients against JAX's single-process and 8-device
+    steps. A gradient summed twice over ``data``, or a gather's backward
+    summing over ``model``, is off by a factor of the axis size."""
+    r0 = results[0]
+    for r in results[1:]:
+        assert r["losses"] == r0["losses"] and r["checksum"] == r0["checksum"]
+        assert r["params"] == r0["params"] and r["grads"] == r0["grads"]
+    for name in ("one", "mesh"):
+        np.testing.assert_allclose(r0["losses"], want[name]["losses"], rtol=TRAIN_RTOL)
+        for got, w in zip(r0["params"], want[name]["params"]):
+            np.testing.assert_allclose(np.asarray(got).reshape(w.shape), w, rtol=PARAM_TOL,
+                                       atol=PARAM_TOL)
+    np.testing.assert_allclose(r0["first_loss"], want["one"]["losses"][0], rtol=TRAIN_RTOL)
+    for got, w in zip(r0["grads"], want["grads"]):
+        np.testing.assert_allclose(np.asarray(got).reshape(w.shape), w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * np.abs(w).max())
+    # column-parallel gate kernels: each rank holds 3U / model columns
+    assert r0["local_gate_cols"] == 3 * U // world_shape[1]
+
+
+@pytest.mark.parametrize("case,shape", [("dp", (2, 1)), ("tp", (1, 2))])
+def test_two_process_train_step(two, jax_train, case, shape):
+    """``train(..., mesh=)`` on two ranks, f32: DP (2, 1) on JAX run_train's
+    batches, TP (1, 2) on run_tp's (JAX test_two_process_train_step and
+    test_two_process_tensor_parallel)."""
+    _check_train([r[f"train_{case}"] for r in two], jax_train[case], shape)
+
+
+def test_four_process_dp_tp_train_step(four, jax_train):
+    """DP + TP on a (2, 2) mesh of four ranks, on run_tp's batches."""
+    _check_train([r["train"] for r in four], jax_train["tp"], (2, 2))
+
+
+@pytest.mark.parametrize("axis", ["data", "model"])
+def test_two_process_fused_scan_sharded(two, axis):
+    """The fused pair's sharded half (its plain versions on the CPU): on a
+    (2, 1) mesh each rank runs its 8 batch rows and the weight gradients
+    are summed over ``data``; on a (1, 2) mesh ``wr`` is a column shard that
+    the scan gathers, whose gradient reaches the shard as its slice. Loss
+    and the gradients of mxs, wr and brec against JAX's unsharded
+    ``fused_gru_scan`` in interpret mode at JAX
+    test_fused_gru_train_batch_sharded's tolerances."""
+    import jax
+    import jax.numpy as jnp
+
+    from ggml_experiments_tpu.ops.fused_gru_train import fused_gru_scan
+
+    a = _scan_inputs()
+    t, b, _, u = SCAN_SHAPE
+
+    def loss(mxs, wr, brec):
+        ys = fused_gru_scan(mxs, jnp.zeros((b, u), jnp.bfloat16), wr, brec)
+        return jnp.sum(ys.astype(jnp.float32) ** 2)
+
+    want_loss, want = jax.value_and_grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(a["mxs"], jnp.bfloat16), jnp.asarray(a["wr"]), jnp.asarray(a["brec"]))
+    r0, r1 = two[0]["fused_scan"][axis], two[1]["fused_scan"][axis]
+    assert r0 == r1 and r0["sharded_wr"] == (axis == "model")
+    np.testing.assert_allclose(r0["loss"], float(want_loss), rtol=1e-5)
+    for key, w in zip(("dmxs", "dwr", "dbrec"), want):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(np.asarray(r0[key]).reshape(w.shape), w, rtol=1e-4,
+                                   atol=1e-4, err_msg=key)
+
+
+def test_two_process_train_resume(two):
+    """Two ranks interrupted after 2 steps and resumed from the resume file
+    end bit-equal to the uninterrupted 3 steps; the file holds the whole
+    params and moments, as one process writes them, and loads in one
+    process, as does the best-by-loss checkpoint; a resume file that one
+    process wrote resumes on the mesh."""
+    import torch
+
+    from ggml_experiments_tpu_torch.formats import checkpoint
+    from ggml_experiments_tpu_torch.training import gru_trainer as tr
+
+    r0, r1 = two[0]["resume"], two[1]["resume"]
+    assert r0["resumed"] == r0["whole"] == r1["resumed"] == r1["whole"]
+    assert r0["from_one"] == r1["from_one"] and r0["resumed_at"] == [2, 2]
+    for got, w in zip(r0["from_one"], r0["whole"]):
+        np.testing.assert_allclose(got, w, rtol=PARAM_TOL, atol=PARAM_TOL)
+    init = _port_params(os.path.dirname(r0["path"]), name="train0")
+    params, opt_state = tr.init_train_state(init, device="cpu")
+    loaded, opt_state, start, _ = tr._load_resume(r0["path"], params, opt_state,
+                                                  torch.device("cpu"))
+    assert start == TRAIN_STEPS and int(opt_state[0].count) == TRAIN_STEPS
+    assert opt_state[0].mu.cell.recurrent_kernel.shape == (U, 3 * U)
+    best = checkpoint.load_into(r0["best"], init, device="cpu")
+    for p in (loaded, best):
+        for (_, a), w in zip(tr.param_leaves(p), r0["whole"]):
+            assert a.detach().numpy().ravel().tolist() == w
+
+
+@pytest.mark.parametrize("name,qtype,tol", [("float", None, 2e-4), ("q8_0", "q8_0", 1e-4)])
+def test_two_process_tp_mobilevit(two, name, qtype, tol):
+    """The tiny golden MobileViT placed by ``mobilevit_param_specs`` on (1, 2)
+    (Q/K/V and MLP-in column shards, attention-out and MLP-out row shards)
+    against JAX's single-device ``extract_features`` at JAX
+    test_mobilevit_tp_sharded_forward_matches's / _quantized_sharded's
+    tolerances; at bf16 the fused layer on gathered weights equals the
+    unplaced model's and keeps no operands on the params."""
+    import jax.numpy as jnp
+
+    from ggml_experiments_tpu.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu.models.mobilevit import (
+        MobileViTConfig,
+        extract_features,
+        from_named_tensors,
+    )
+
+    gold = os.path.join(REPO, "tests", "goldens")
+    cfg = MobileViTConfig(image_size=64, neck_hidden_sizes=(8, 16, 24, 32, 40, 48, 96),
+                          hidden_sizes=(24, 32, 40))
+    mv = from_named_tensors(read_named_tensors(os.path.join(gold, "mobilevit_tiny.ggml")), cfg,
+                            qtype=qtype)
+    img = jnp.asarray(np.load(os.path.join(gold, "mobilevit_tiny.npz"))["image"])[None]
+    want = np.asarray(extract_features(mv, img))
+    r0, r1 = two[0]["tp_mobilevit"], two[1]["tp_mobilevit"]
+    assert r0[name] == r1[name]
+    got = np.asarray(r0[name]["features"], np.float32).reshape(want.shape)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    assert r0["float"]["wq_spec"] == [None, "model"]
+    assert r0["bf16_fused_max_diff"] == 0.0 and not r0["cached_operands"]
 
 
 def test_host_death_snapshot_recovery(work):

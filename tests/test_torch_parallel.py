@@ -134,6 +134,62 @@ def test_gru_param_specs_match_jax(bias):
     assert tsharding.spec_like(tp, got).dense_kernel == P(MODEL_AXIS, None)
 
 
+def _spec_leaves(tree, path=""):
+    """{key path: spec} of a port spec tree (a spec is a leaf; None and the
+    static fields are not)."""
+    if isinstance(tree, P):
+        return {path: tuple(tree)}
+    out = {}
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            if f.compare:
+                out.update(_spec_leaves(getattr(tree, f.name), f"{path}/{f.name}".lstrip("/")))
+    elif isinstance(tree, tuple):
+        for i, t in enumerate(tree):
+            out.update(_spec_leaves(t, f"{path}/{i}"))
+    return out
+
+
+@pytest.mark.parametrize("golden,qtype", [("mobilevit_tiny", None),
+                                          ("mobilevit_cls_tiny", None),
+                                          ("mobilevit_tiny", "q8_0")])
+def test_mobilevit_param_specs_match_jax(golden, qtype):
+    """The port's MobileViT spec tree equals JAX's leaf by leaf (the
+    classifier row-parallel where there is one), its static fields are the
+    model's, and ``place`` keeps the tree's structure, its static fields and
+    its QTensor leaves on a one-rank model axis."""
+    import os
+
+    from ggml_experiments_tpu.formats import checkpoint as jckpt
+    from ggml_experiments_tpu.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu.models import mobilevit as jmv
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
+    tensors = read_named_tensors(os.path.join(gold, f"{golden}.ggml"))
+    kw = dict(image_size=64, neck_hidden_sizes=(8, 16, 24, 32, 40, 48, 96),
+              hidden_sizes=(24, 32, 40))
+    if golden == "mobilevit_cls_tiny":
+        kw["num_labels"] = int(next(v.shape[-1] for k, v in tensors.items()
+                                    if k.endswith("classifier/kernel:0")))
+    jp = jmv.from_named_tensors(tensors, jmv.MobileViTConfig(**kw), qtype=qtype)
+    tp = tmv.from_named_tensors(tensors, tmv.MobileViTConfig(**kw), qtype=qtype, device="cpu")
+    jspec = jsharding.mobilevit_param_specs(jp)
+    want = {jckpt._keystr(kp): tuple(leaf) for kp, leaf in jax.tree_util.tree_flatten_with_path(
+        jspec, is_leaf=lambda x: isinstance(x, JP))[0]}
+    got = _spec_leaves(tsharding.mobilevit_param_specs(tp))
+    assert got == want
+    assert (got.get("classifier_kernel") == (MODEL_AXIS, None)) == (golden != "mobilevit_tiny")
+    assert got["layer_4/transformer/0/attention/wq"] == (None, MODEL_AXIS)
+    assert got["layer_4/transformer/0/output_kernel"] == (MODEL_AXIS, None)
+    placed = place(tp, tsharding.mobilevit_param_specs(tp), Mesh((1, 1)))
+    layer = placed.layer_3.transformer[0]
+    assert layer.attention.num_heads == tp.layer_3.transformer[0].attention.num_heads
+    assert placed.layer_3.patch_size == tp.layer_3.patch_size
+    assert placed.conv_stem.kernel is tp.conv_stem.kernel
+    assert type(layer.attention.wq) is type(tp.layer_3.transformer[0].attention.wq)
+
+
 def test_place_shards_float_params():
     """Each simulated rank holds 1/4 of the gate dim (JAX
     test_placed_params_shardings) and the row-parallel head's 1/4 of U; the
