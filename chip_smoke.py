@@ -118,7 +118,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
  17. the MobileViT remainders: ``quantize --qtype q4_k_m --calibrate
      task:1234`` of ``mobilevit_synth_full.ggml`` on the card, timed by part,
      its codes against the shipped ``mobilevit_synth_full_q4km.gxt``;
-     ``classify`` of phase 14's images with it at f32 (flash) and bf16 (the
+     ``classify`` of phase 14's images with it at f32 (flash and
+     the f32 fused inverted residual) and bf16 (the
      fused layer): argmax agreement with the float model on the same route
      >= 319/320 with any flip at a near-tie, relative logit RMSE < 0.005 at
      f32; ``eval --qtype q4_k`` and ``q8_0`` of the ``weight.ggml``;
@@ -166,7 +167,28 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      gather (timed apart, in an instrumented run) and the fused pair at
      B=512 beside its bound are logged; before it is timed, each rank holds
      the pair's three kernels at its B=512 (plan (16, 2)) against their
-     plain versions on its first step's operands, with phase 11's limits.
+     plain versions on its first step's operands, with phase 11's limits;
+ 23. the f32 fused inverted residual (``csrc/inverted_residual_f32.cu``)
+     through ``fused_inverted_residual(..., compute_dtype=float32)`` on the
+     full checkpoint's folded weights at layer_2's shape (128, 64, 64, 64),
+     E=256, with the residual, and layer_1's (128, 128, 128, 16 -> 64 ->
+     32), one launch each on the main path; against its plain version
+     (TF32 off), two launches bit-equal; the kernel, the plain version and
+     the cuDNN f32 chain timed;
+ 24. AOT artifacts through the CLI: ``aot-export --model gru`` of
+     ``gru_shakespeare.bin`` at q8_0 with the CLI's defaults (batch 8,
+     prompt 50, 200 steps) and ``aot-run``, whose text and the artifact's
+     tokens on params an eager call has used are equal to eager
+     ``generate``'s, 200 qmatmul launches; ``aot-export --model mobilevit``
+     of ``mobilevit_synth_full.ggml`` (256 px, batch 8) and ``aot-run``,
+     the features against ``extract_features``, 9 flash and 3 f32
+     inverted-residual launches; export and load seconds and the
+     artifacts' bytes (no weights inside);
+ 25. the trace report (``tools/torch_trace_report.py`` in a process of its
+     own) of an f32 MobileViT forward at B=128 and a bf16 GRU ``decode`` at
+     (1024, 128): the port's kernels named by their counters with the
+     launches the runs made; the native host runtime built on this host,
+     its readers equal to the numpy ones.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -218,6 +240,11 @@ Tolerances, and why:
     engine's from the offline forward's (other batch sizes, other cuDNN
     algorithms), only where the reference's top-2 logit gap is below
     VIT_NEAR_TIE.
+  * The f32 fused inverted residual against its plain version: 3xTF32
+    products (f32-accurate), f32 sums in other orders, SiLUs within an ulp
+    or two of each other: IR_F32_REL of the plain output's largest value. The features
+    artifact against ``extract_features``: the same kernels and cuDNN calls
+    in the same order, AOT_FEATURE_REL of the largest feature.
   * Training on a mesh (phase 22) against one process: see MT_LOSS_REL,
     MT_PARAM_MAX and MT_PARAM_MEAN; the ranks of a run against each other, the resumed run
     against the uninterrupted one, and one NCCL rank against one process:
@@ -247,16 +274,12 @@ CKPT_Q4KM = os.path.join(REPO, "checkpoints", "gru_synth_q4km.gxt")
 CORPUS = os.path.join(REPO, "checkpoints", "shakespeare.txt")
 CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-# exp2 results a second on the H100's MUFU units: 16 a clock per
-# multiprocessor (CUDA C++ Programming Guide, arithmetic instruction
-# throughput, compute capability 9.0), 132 multiprocessors, 1.98 GHz boost
-MUFU_EXP_PER_S = 16 * 132 * 1.98e9
-PEAK_OPS = {"float32": 67e12,  # f32 FMA on CUDA cores (the kernels' products)
-            "bfloat16": 989e12,  # bf16 dense tensor-core peak
-            # f32 products as 3xTF32 on the tensor cores (qmatmul and flash
-            # attention at f32): three tf32 products for each, 495 / 3
-            "tf32x3": 495e12 / 3}
+# the H100's peaks (HBM rate, bf16 / f32 / 3xTF32 operation rates, MUFU
+# exponentials), from the port's one source of them
+try:
+    from ggml_experiments_tpu_torch.utils.observability import H100 as CHIP
+except ImportError:     # no port beside the script: main() says so and exits 2
+    CHIP = None
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
 GENERATE_SHAPE = (64, 200)           # (B, T) of the scan path
@@ -356,6 +379,14 @@ MT_LR = 1e-3                         # TrainConfig's learning rate
 MT_LOSS_REL = 1e-5
 MT_PARAM_MAX = 2e-3
 MT_PARAM_MEAN = 3e-6
+# phases 23-25: the f32 fused block at layer_2's and layer_1's shapes
+# (B, H, W, C, E, Cout, residual), the artifacts, the trace report
+IR_F32_SHAPES = {"layer_2": (128, 64, 64, 64, 256, 64, True),
+                 "layer_1": (128, 128, 128, 16, 64, 32, False)}
+IR_F32_REL = 1e-5        # f32 kernel vs plain: 3xTF32 products, f32 sums in other orders
+AOT_FEATURE_REL = 1e-5   # the features artifact against extract_features, x the largest
+AOT_MAX_BYTES = 1 << 20  # an artifact holds the program and no weights
+TRACE_DECODE_SHAPE = (1024, 128)
 
 
 class SmokeFailure(AssertionError):
@@ -392,9 +423,7 @@ def cuda_ms(fn, n=20, warmup=3):
 
 def bound(nbytes, ops, dtype):
     """Least time (ms) for the work: bytes over HBM rate vs ops over peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return CHIP.bound_ms(nbytes, ops, dtype)
 
 
 def first_divergence_near_ties(got, want, gaps, tol, what):
@@ -1111,6 +1140,8 @@ def profiled_step_shares(step, n):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ggml_experiments_tpu_torch.utils.trace_report import kernel_name
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1118,18 +1149,17 @@ def profiled_step_shares(step, n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    groups = {"backward kernel": 0.0, "dWr kernel": 0.0, "forward kernel": 0.0,
-              "library products": 0.0, "other device work": 0.0}
+    kernels = {"fused_gru_train_bwd": "backward kernel", "fused_gru_train_dwr": "dWr kernel",
+               "fused_gru_train_fwd": "forward kernel"}
+    groups = {**{g: 0.0 for g in kernels.values()}, "library products": 0.0,
+              "other device work": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue    # an operator's row repeats its kernels' time
         ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
-        if "gru_train_bwd_kernel" in e.key:
-            groups["backward kernel"] += ms
-        elif "gru_train_dwr_kernel" in e.key:
-            groups["dWr kernel"] += ms
-        elif "gru_train_fwd_kernel" in e.key:
-            groups["forward kernel"] += ms
+        group = kernels.get(kernel_name(e.key))
+        if group:
+            groups[group] += ms
         elif any(w in e.key for w in ("gemm", "nvjet", "cutlass", "cublas")):
             groups["library products"] += ms
         else:
@@ -1348,33 +1378,35 @@ def train_phase(tag, dev, tok, kernel_ms):
 LAYER_KERNELS = ("transformer_ln_qkv", "transformer_attention", "transformer_proj_ffn")
 
 
-def ir_bound(b, h, w, c, e, cout):
+def ir_bound(b, h, w, c, e, cout, dtype="bfloat16"):
     """Least time (ms) of the inverted residual on an H100 and what bounds
-    it: the bytes (x and the output once, the weights) at HBM_BYTES_PER_S;
-    the two 1x1 products at the bf16 tensor rate; the depthwise's 18
+    it: the bytes (x and the output once, the weights, at the dtype's width)
+    at CHIP.hbm_bytes_per_s; the two 1x1 products at the bf16 tensor rate
+    (f32: three tf32 products each, ``tf32x3``); the depthwise's 18
     operations an expanded element at the f32 CUDA-core rate; one MUFU
-    exponential a SiLU (two SiLUs an expanded element) at MUFU_EXP_PER_S."""
+    exponential a SiLU (two SiLUs an expanded element) at CHIP.mufu_exp_per_s."""
     px = b * h * w
-    parts = {"bytes": (px * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4)
-             / HBM_BYTES_PER_S,
-             "tensor": px * 2 * (c * e + e * cout) / PEAK_OPS["bfloat16"],
-             "depthwise": px * 18 * e / PEAK_OPS["float32"],
-             "mufu": px * 2 * e / MUFU_EXP_PER_S}
+    elt, products = (2, "bfloat16") if dtype == "bfloat16" else (4, "tf32x3")
+    parts = {"bytes": (px * (c + cout) * elt + (c * e + e * cout) * elt + (11 * e + cout) * 4)
+             / CHIP.hbm_bytes_per_s,
+             "tensor": px * 2 * (c * e + e * cout) / CHIP.peak_ops[products],
+             "depthwise": px * 18 * e / CHIP.peak_ops["float32"],
+             "mufu": px * 2 * e / CHIP.mufu_exp_per_s}
     parts = {k: v * 1e3 for k, v in parts.items()}
     by = max(parts, key=parts.get)
     return parts[by], by, parts
 
 
-def cudnn_inverted_residual(x, args):
+def cudnn_inverted_residual(x, args, residual=True):
     """The block as cuDNN computes it, the library column of kernel 8 (timed
-    only, never called by the port): three ``F.conv2d`` in channels_last
-    bf16 with BN folded into weights and biases, ``F.silu`` after the first
-    two, ``+ x``."""
+    only, never called by the port): three ``F.conv2d`` in channels_last at
+    x's dtype (bf16, or f32 with TF32 off as main() sets it) with BN folded
+    into weights and biases, ``F.silu`` after the first two, ``+ x``."""
     import torch
     import torch.nn.functional as F
 
     wexp, bexp, kdw, bdw, wred, bred = args
-    bf, cl = torch.bfloat16, torch.channels_last
+    bf, cl = x.dtype, torch.channels_last
     w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
     w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
     w3 = wred.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
@@ -1384,7 +1416,8 @@ def cudnn_inverted_residual(x, args):
     def chain():
         y = F.silu(F.conv2d(xc, w1, b1))
         y = F.silu(F.conv2d(y, w2, b2, padding=1, groups=w2.shape[0]))
-        return F.conv2d(y, w3, b3) + xc
+        y = F.conv2d(y, w3, b3)
+        return y + xc if residual else y
 
     return chain
 
@@ -1421,8 +1454,8 @@ def vision_kernel_phase(tag, params, dev):
         t["max_abs_err"] = max(t["max_abs_err"], err)
         t["ms"] += count * ms
         t["plain_ms"] += count * plain_ms
-        t["bound_t"][0] += count * nbytes / HBM_BYTES_PER_S * 1e3
-        t["bound_t"][1] += count * flops / PEAK_OPS["bfloat16"] * 1e3
+        t["bound_t"][0] += count * nbytes / CHIP.hbm_bytes_per_s * 1e3
+        t["bound_t"][1] += count * flops / CHIP.peak_ops["bfloat16"] * 1e3
         if lib_ms is not None:
             t["library_ms"] += count * lib_ms
 
@@ -1587,8 +1620,8 @@ def vision_kernel_phase(tag, params, dev):
         t["ms"] += n * ms
         t["plain_ms"] += n * plain_ms
         t["library_ms"] += n * lib_ms
-        t["bound_t"][0] += n * nbytes / HBM_BYTES_PER_S * 1e3
-        t["bound_t"][1] += n * flops / PEAK_OPS["tf32x3"] * 1e3
+        t["bound_t"][0] += n * nbytes / CHIP.hbm_bytes_per_s * 1e3
+        t["bound_t"][1] += n * flops / CHIP.peak_ops["tf32x3"] * 1e3
         log(f"[{tag}] flash (bp, L, C, H) = ({bp}, {l}, {c}, {h}) x{n}: f32 max rel err "
             f"{rel:.3g}, two launches bit-equal (f32 and bf16), kernel {ms:.4f} ms = "
             f"{100 * b_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x "
@@ -1735,6 +1768,7 @@ def vision_model_phase(tag, dev, images, labels):
         extract_features,
         load_mobilevit,
     )
+    from ggml_experiments_tpu_torch.utils.trace_report import kernel_name
 
     f32, bf16 = torch.float32, torch.bfloat16
     x_all = torch.from_numpy(images)
@@ -1830,9 +1864,8 @@ def vision_model_phase(tag, dev, images, labels):
     log(f"[{tag}] extract_features B={VIT_BATCH} bf16: " + ", ".join(
         f"{k} {ms:.3f} ms = {r:,.0f} images/s" for k, (ms, r) in rates.items()))
     # one forward of each bf16 route under torch.profiler
-    kernels = (("fused layer: ln_qkv", "layer_ln_qkv_kernel"),
-               ("attention", "layer_attention_kernel"), ("proj_ffn", "layer_proj_ffn_kernel"),
-               ("inverted residual", "ir_strip_kernel"))
+    kernels = {"transformer_ln_qkv": "fused layer: ln_qkv", "transformer_attention": "attention",
+               "transformer_proj_ffn": "proj_ffn", "fused_inverted_residual": "inverted residual"}
     for name, params in (("bf16", p), ("bf16+fused_ir", p_ir)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1840,7 +1873,7 @@ def vision_model_phase(tag, dev, images, labels):
             extract_features(params, xb, compute_dtype=bf16)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        groups = {k: 0.0 for k, _ in kernels}
+        groups = {k: 0.0 for k in kernels.values()}
         groups.update({"convolutions": 0.0, "other device work": 0.0})
         other = []
         for e in prof.key_averages():
@@ -1848,7 +1881,7 @@ def vision_model_phase(tag, dev, images, labels):
                 continue
             ms = getattr(e, "self_device_time_total", 0.0) / 1e3
             key = e.key.lower()
-            part = next((k for k, w in kernels if w in key), None)
+            part = kernels.get(kernel_name(e.key))
             if part:
                 groups[part] += ms
             elif any(w in key for w in ("conv", "cudnn", "xmma", "implicit", "winograd", "nhwc",
@@ -2210,11 +2243,15 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
         f"({worst[1][0]:,} of {worst[1][1]:,})")
     check(p_km.layer_3.transformer[0].attention.flash and p_km.layer_3.transformer[0].fused,
           f"{tag}: the port-made file did not load on the default routes")
-    # the default routes: flash at f32; the fused layer and the
-    # fused inverted residual at bf16 (the float model's bf16 + fused_ir route)
+    # the default routes: flash and the f32 fused inverted residual at f32;
+    # the fused layer and the fused inverted residual at bf16 (the float
+    # model's bf16 + fused_ir route)
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS},
              "fused_inverted_residual": sum(blk.fused_route(bf16) for blk in ir_blocks(p_km))}
-    for name, cd, per_batch, ref_route in (("f32", f32, {"flash_mha": 9}, "f32"),
+    n_ir32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_km))
+    f32_route = {"flash_mha": 9, "fused_inverted_residual": n_ir32,
+                 "inverted_residual_f32": n_ir32}
+    for name, cd, per_batch, ref_route in (("f32", f32, f32_route, "f32"),
                                            ("bf16", bf16, layer, "bf16+fused_ir")):
         got, launches = run_classify(p_km, cd)
         for k, v in per_batch.items():
@@ -2338,6 +2375,8 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
               if ln.startswith("step ")]
     check(len(losses) == TRAIN_VIT_STEPS and np.isfinite(losses).all()
           and np.mean(losses[-5:]) < np.mean(losses[:5]), f"{tag}: train_model losses {losses}")
+    # the kernels are forward-only: a launch here would cut the gradient
+    check(not launches, f"{tag}: train_model launched {launches}, not the plain path")
     log(f"[{tag}] train_model, mobilevit_synth.ggml (TINY_CLS_CONFIG, head drawn anew), "
         f"{TRAIN_VIT_STEPS} steps at batch {TRAIN_VIT_BATCH} on the card: "
         f"{sec / TRAIN_VIT_STEPS * 1e3:.2f} ms a step (each step's loss read back) | loss "
@@ -2742,6 +2781,7 @@ def gates_phase(tag, dev, rng, tok):
     vit = mobilevit.load_mobilevit(VIT_CKPT, device=dev)
     blocks = ir_blocks(vit)
     want_ir = sum(blk.fused_route(bf16) for blk in blocks)
+    want_ir32 = sum(blk.fused_route(torch.float32, dev) for blk in blocks)
     x = torch.rand((8, 256, 256, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     got_ir = {}
     for cd in (bf16, torch.float32):
@@ -2750,11 +2790,11 @@ def gates_phase(tag, dev, rng, tok):
         torch.cuda.synchronize()
         got_ir[cdname(cd)] = port.kernel_launches()["fused_inverted_residual"]
     widths = [blk.expand_1x1.kernel.shape[-1] for blk in blocks if blk.conv_3x3.stride == 1]
-    check(want_ir == sum(e >= mobilevit.IR_FUSED_MIN_EXPAND for e in widths) and want_ir > 0
-          and got_ir == {"bfloat16": want_ir, "float32": 0},
+    check(want_ir == want_ir32 == sum(e >= mobilevit.IR_FUSED_MIN_EXPAND for e in widths)
+          and want_ir > 0 and got_ir == {"bfloat16": want_ir, "float32": want_ir},
           f"{tag}: fused_ir default: {got_ir} inverted-residual launches a forward, want "
-          f"{want_ir} at bf16 (stride-1 widths {widths}, E >= "
-          f"{mobilevit.IR_FUSED_MIN_EXPAND}) and 0 at f32")
+          f"{want_ir} at bf16 and at f32 (stride-1 widths {widths}, E >= "
+          f"{mobilevit.IR_FUSED_MIN_EXPAND})")
     log(f"[{tag}] fused_ir default on the card: E >= {mobilevit.IR_FUSED_MIN_EXPAND} of the "
         f"stride-1 widths {widths}: {got_ir} launches a forward (bf16, f32)")
     del vit, x
@@ -3839,6 +3879,315 @@ def train_mesh_phase(tag, dev, images, smi):
                 "nccl": n0["launches"][k]} for k in TRAIN_KERNELS}
 
 
+# ---- phases 23-25: the f32 fused block, AOT artifacts, the trace report ----------------
+
+
+def ir_f32_phase(tag, dev):
+    """Phase 23: the f32 fused inverted residual (``csrc/inverted_residual_f32.cu``)
+    through ``fused_inverted_residual(..., compute_dtype=float32)`` on the full
+    checkpoint's folded weights at each IR_F32_SHAPES shape (one launch
+    each: the main path), held to its plain version at IR_F32_REL of the
+    plain output's largest magnitude, a second launch bit-equal; the kernel
+    on operands made once, the plain version and the cuDNN f32 chain timed.
+    Returns the main shape's kernels-line entry."""
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models.mobilevit import load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    f32 = torch.float32
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    blocks = {"layer_2": vit.layer_2[1], "layer_1": vit.layer_1[0]}
+    cases = []
+    for name, (b, hh, ww, c, e, cout, resid) in IR_F32_SHAPES.items():
+        blk = blocks[name]
+        args = fir._folded(blk)
+        check(args[0].shape == (c, e) and args[4].shape == (e, cout)
+              and blk.use_residual == resid, f"{tag}: {name}'s block is not {IR_F32_SHAPES[name]}")
+        cases.append((name, (b, hh, ww, c, e, cout, resid), args,
+                      torch.randn((b, hh, ww, c), generator=g, device=dev)))
+    port.reset_kernel_launches()
+    outs = [fir.fused_inverted_residual(x, *args, use_residual=resid, compute_dtype=f32)
+            for _, (*_, resid), args, x in cases]
+    torch.cuda.synchronize()
+    launches = port.kernel_launches()["inverted_residual_f32"]
+    check(launches == len(cases), f"{tag}: {launches} f32 kernel launches for {len(cases)} calls")
+    entry = None
+    for (name, shape, args, x), got in zip(cases, outs):
+        b, hh, ww, c, e, cout, resid = shape
+        again = fir.fused_inverted_residual(x, *args, use_residual=resid, compute_dtype=f32)
+        want = fir.fused_ir_plain(x, *args, use_residual=resid)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(got.dtype == f32 and bool(torch.isfinite(got).all()) and err <= IR_F32_REL * scale,
+              f"{tag}: f32 fused block {name} {shape}: max abs err {err:.3g} against the plain "
+              f"version (limit {IR_F32_REL} x {scale:.3g})")
+        check(torch.equal(got, again), f"{tag}: f32 fused block {name}: two launches differ")
+        del again, want
+        ops = fir.ir_f32_operands(*args)
+        ms = cuda_ms(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid), n=20)
+        plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *args, use_residual=resid), n=3)
+        lib_ms = cuda_ms(cudnn_inverted_residual(x, args, residual=resid), n=20)
+        b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout, "float32")
+        log(f"[{tag}] f32 fused inverted residual {name} (B, H, W, C, E, Cout) = {shape[:6]}, "
+            f"residual {resid}: max abs err {err:.3g} ({err / scale:.3g} of the largest value "
+            f"{scale:.3g}), two launches bit-equal | kernel {ms:.4f} ms | plain {plain_ms:.3f} ms "
+            f"| bound {b_ms:.4f} ms ({b_by}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                         parts.items())
+            + f") | library: the cuDNN f32 chain (three F.conv2d, channels_last, TF32 off, BN "
+              f"folded, two F.silu{', + x' if resid else ''}) {lib_ms:.4f} ms | "
+              f"{fir.ir_f32_smem_bytes(c, e, cout)} bytes of shared memory a block")
+        if entry is None:    # the main shape: layer_2's
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by="bytes" if b_by == "bytes" else "operations",
+                         library_ms=lib_ms, launches=launches)
+        del ops, got
+    del vit, cases, outs
+    torch.cuda.empty_cache()
+    return entry
+
+
+class _LogSink:
+    """Messages logged to ``logger`` inside the block (its level lowered to
+    WARNING for the block)."""
+
+    def __init__(self, logger):
+        import logging
+
+        self.logger, self.messages = logger, []
+        sink = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                sink.messages.append(record.getMessage())
+
+        self.handler = _H(level=logging.WARNING)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def aot_phase(tag, dev, tok, images):
+    """Phase 24: ``aot-export`` and ``aot-run`` on the card for both models
+    (the CLI defaults: the GRU at batch 8, prompt 50, 200 steps on
+    ``gru_shakespeare.bin`` at q8_0; MobileViT at 256 px, batch 8 on
+    ``mobilevit_synth_full.ggml``). The artifacts' outputs against the
+    eager entry points on params an eager call has used (their caches
+    filled): GRU tokens equal, features within AOT_FEATURE_REL of the
+    largest; the launches of the artifacts' runs; export and load seconds
+    and bytes (each under AOT_MAX_BYTES: no weights inside), loaded without
+    the unpickling fallback. Returns the launches of the two replays."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        extract_features,
+        from_named_tensors,
+        infer_config,
+    )
+    from ggml_experiments_tpu_torch.serving import aot
+
+    out = {}
+    serde_log = logging.getLogger("torch._export.serde.serialize")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the GRU decode artifact
+        art = os.path.join(tmp, "decode.gxa")
+        rc, text, export_s = run_command(["aot-export", "--model", "gru", "--weights", CKPT,
+                                          "--qtype", "q8_0", "--output", art])
+        check(rc == 0, f"{tag}: aot-export --model gru failed")
+        meta = json.loads(text.strip().splitlines()[-1])
+        check(meta["kind"] == "gru-decode" and meta["device"] == "cuda"
+              and (meta["batch"], meta["prompt_len"], meta["total_steps"]) == (8, 50, 200)
+              and meta["qtype"] == "q8_0", f"{tag}: GRU artifact header {meta}")
+        b, p, t = meta["batch"], meta["prompt_len"], meta["total_steps"]
+        # eager generate on aot-run's default prompt, every row the same
+        params = load_gru_any(CKPT, qtype="q8_0", device=dev)
+        ids = tok.encode("ROMEO:")
+        prompt = torch.zeros((b, p), dtype=torch.int32, device=dev)
+        prompt[:, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
+        lengths = torch.full((b,), len(ids), dtype=torch.int32, device=dev)
+        want = gru_textgen.generate(params, prompt, lengths, t)   # fills the params' caches
+        check("launch" in params.cell.recurrent_kernel.dense, f"{tag}: no eager launch cache")
+        port.reset_kernel_launches()
+        with _LogSink(serde_log) as msgs:
+            rc, run_text, run_s = run_command(["aot-run", "--artifact", art, "--weights", CKPT])
+        launches = port.kernel_launches()
+        check(rc == 0 and run_text == tok.decode(want[0].tolist()) + "\n",
+              f"{tag}: aot-run printed {run_text!r}, eager generate gives "
+              f"{tok.decode(want[0].tolist())!r}")
+        check(launches["qmatmul_q8_0"] == t and sum(launches.values()) == t,
+              f"{tag}: aot-run launched {launches}, expected {t} qmatmul_q8_0")
+        check(not any("weights_only=False" in m for m in msgs),
+              f"{tag}: the GRU artifact loaded through the unpickling fallback: {msgs}")
+        # the program again, on the params eager generate has used
+        t0 = time.perf_counter()
+        _, ep = aot.load_artifact(art)
+        load_s = time.perf_counter() - t0
+        got = aot.call_artifact(ep, params, prompt, lengths)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"{tag}: the GRU artifact's tokens differ from eager generate")
+        size = os.path.getsize(art)
+        check(size < AOT_MAX_BYTES, f"{tag}: the GRU artifact holds {size} bytes")
+        out["qmatmul_q8_0"] = launches["qmatmul_q8_0"]
+        log(f"[{tag}] GRU decode artifact (B, P, T) = ({b}, {p}, {t}), q8_0: aot-export "
+            f"{export_s:.2f} s (load the weights, trace, save), {size:,} bytes "
+            f"({os.path.getsize(CKPT):,} in gru.bin), {len(ep.graph.nodes)} graph nodes | aot-run "
+            f"{run_s:.2f} s (load, weights, replay): text equal to eager generate's, "
+            f"{launches['qmatmul_q8_0']} qmatmul_q8_0 launches and no other kernel, no "
+            f"unpickling fallback | load_artifact {load_s:.2f} s; replay on params an eager "
+            f"call has used: tokens equal to eager generate")
+        del params, ep, got, want
+        # -- the MobileViT features artifact
+        art = os.path.join(tmp, "features.gxa")
+        rc, text, export_s = run_command(["aot-export", "--model", "mobilevit", "--weights",
+                                          VIT_CKPT, "--output", art])
+        check(rc == 0, f"{tag}: aot-export --model mobilevit failed")
+        meta = json.loads(text.strip().splitlines()[-1])
+        check(meta["kind"] == "mobilevit-features" and meta["device"] == "cuda"
+              and (meta["batch"], meta["image_size"]) == (8, 256),
+              f"{tag}: MobileViT artifact header {meta}")
+        with _LogSink(serde_log) as msgs:
+            rc, run_text, run_s = run_command(["aot-run", "--artifact", art, "--weights",
+                                               VIT_CKPT])
+        check(rc == 0 and "output feature shape: : Dims: (8, 8, 640)" in run_text
+              and "i0 = 0, i1 = 0" in run_text, f"{tag}: aot-run printed {run_text!r}")
+        check(not any("weights_only=False" in m for m in msgs),
+              f"{tag}: the MobileViT artifact loaded through the unpickling fallback: {msgs}")
+        t0 = time.perf_counter()
+        _, ep = aot.load_artifact(art)
+        load_s = time.perf_counter() - t0
+        named = read_named_tensors(VIT_CKPT)
+        vit = from_named_tensors(named, infer_config(named, image_size=256), device=dev)
+        x = torch.from_numpy(np.ascontiguousarray(images[:meta["batch"]])).to(dev)
+        want = extract_features(vit, x)
+        port.reset_kernel_launches()
+        got = aot.call_artifact(ep, vit, x)
+        torch.cuda.synchronize()
+        launches = port.kernel_launches()
+        n_layers = sum(len(blk.transformer) for blk in (vit.layer_3, vit.layer_4, vit.layer_5))
+        n_ir = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit))
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and err <= AOT_FEATURE_REL * scale,
+              f"{tag}: the MobileViT artifact's features: max abs err {err:.3g} against "
+              f"extract_features (limit {AOT_FEATURE_REL} x {scale:.3g})")
+        check(launches["flash_mha"] == n_layers and n_ir > 0
+              and launches["inverted_residual_f32"] == launches["fused_inverted_residual"] == n_ir
+              and sum(launches.values()) == n_layers + 2 * n_ir,
+              f"{tag}: the MobileViT artifact's replay launched {launches}, expected "
+              f"{n_layers} flash_mha and {n_ir} f32 inverted residuals")
+        size = os.path.getsize(art)
+        check(size < AOT_MAX_BYTES, f"{tag}: the MobileViT artifact holds {size} bytes")
+        out["flash_mha"] = launches["flash_mha"]
+        out["inverted_residual_f32"] = launches["inverted_residual_f32"]
+        log(f"[{tag}] MobileViT features artifact (B, S) = (8, 256), f32: aot-export "
+            f"{export_s:.2f} s, {size:,} bytes ({os.path.getsize(VIT_CKPT):,} in the "
+            f"weight.ggml), {len(ep.graph.nodes)} graph nodes, load {load_s:.2f} s | aot-run "
+            f"{run_s:.2f} s, no unpickling fallback | "
+            f"replay: max abs err {err:.3g} against extract_features (largest {scale:.3g}), "
+            f"{launches['flash_mha']} flash_mha and {n_ir} inverted_residual_f32 launches, no "
+            f"other kernel of the port")
+    del vit, ep, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_report_rows(argv):
+    """(rows as (us a call, count, name), the table) of one run of
+    ``tools/torch_trace_report.py`` in a process of its own: a process that
+    has run the profiler before reads other kernels' activity into a later
+    trace, or loses some."""
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_trace_report.py"),
+                           *argv], cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"torch_trace_report.py {' '.join(argv)} failed:\n"
+                                f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.split()[:2] == ["us/call", "%"])
+    rows = []
+    for ln in lines[start + 1:]:
+        us, _, count, name = ln.split(None, 3)
+        rows.append((float(us), int(count), name))
+    return rows, "\n".join(lines[start:])
+
+
+def trace_phase(tag, dev):
+    """Phase 25: the trace report (``tools/torch_trace_report.py``, on
+    ``utils/trace_report``) of one f32 MobileViT forward at B=VIT_BATCH
+    (flash attention and the f32 fused inverted residual) and one bf16 GRU
+    ``decode`` at TRACE_DECODE_SHAPE (the persistent kernel), random
+    full-size weights: the rows name the port's kernels by their counters'
+    names with the launches the runs made; then the native host runtime,
+    built on this host, its readers against the numpy ones."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch import runtime
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors_py
+    from ggml_experiments_tpu_torch.formats.gru_bin import read_tensors_py
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        MobileViTConfig,
+        from_named_tensors,
+        random_named_tensors,
+    )
+
+    cfg = MobileViTConfig()
+    vit = from_named_tensors(random_named_tensors(cfg), cfg, device=dev)
+    n_layers = sum(len(blk.transformer) for blk in (vit.layer_3, vit.layer_4, vit.layer_5))
+    n_ir = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit))
+    del vit
+    t0 = time.perf_counter()
+    rows, table = trace_report_rows(["--model", "mobilevit", "--batch", str(VIT_BATCH),
+                                     "--compute", "float32", "--reps", "1", "--top", "60"])
+    sec = time.perf_counter() - t0
+    byname = {name: (us, count) for us, count, name in rows}
+    for name, n in (("flash_mha", n_layers), ("inverted_residual_f32", n_ir)):
+        check(byname.get(name, (0, 0))[1] == n,
+              f"{tag}: the f32 MobileViT trace names no {name} row of {n} launches: "
+              f"{[(r[2][:40], r[1]) for r in rows[:8]]}")
+    busy = sum(us for us, _, _ in rows)
+    log(f"[{tag}] tools/torch_trace_report.py --model mobilevit --batch {VIT_BATCH} --compute "
+        f"float32 ({sec:.1f} s): {busy / 1e3:.2f} ms busy a forward; flash_mha "
+        f"{byname['flash_mha'][0] / 1e3:.3f} ms in {n_layers} launches, inverted_residual_f32 "
+        f"{byname['inverted_residual_f32'][0] / 1e3:.3f} ms in {n_ir}:\n"
+        + "\n".join(table.splitlines()[:13]))
+    b, t = TRACE_DECODE_SHAPE
+    rows, table = trace_report_rows(["--model", "gru", "--batch", str(b), "--steps", str(t),
+                                     "--reps", "1", "--top", "6"])
+    check(rows and rows[0][2] == "fused_gru_decode",
+          f"{tag}: the GRU decode trace's top row is {rows[0][2][:60] if rows else None!r}")
+    log(f"[{tag}] tools/torch_trace_report.py --model gru --batch {b} --steps {t} (bf16 q8_0, "
+        f"device us a call):\n" + table)
+    # the native host runtime, which g++ built at the first weight file read
+    check(runtime.available(), f"{tag}: no g++ on this host for the native runtime")
+    gru_native, gru_py = runtime.read_gru_bin_native(CKPT), read_tensors_py(CKPT)
+    check(len(gru_native) == len(gru_py) == 6
+          and all(np.array_equal(a, b) for a, b in zip(gru_native, gru_py)),
+          f"{tag}: the native gru.bin reader differs from the numpy one")
+    vit_native = runtime.read_named_tensors_native(VIT_CKPT)
+    vit_py = read_named_tensors_py(VIT_CKPT)
+    check(vit_native.keys() == vit_py.keys()
+          and all(np.array_equal(vit_native[k], vit_py[k]) for k in vit_py),
+          f"{tag}: the native weight.ggml reader differs from the numpy one")
+    log(f"[{tag}] native runtime ({os.path.basename(runtime.lib_path())}, built by g++ on this "
+        f"host at the first weight file read): gru.bin (6 tensors) and weight.ggml "
+        f"({len(vit_py)} tensors) read equal to the numpy readers")
+    torch.cuda.empty_cache()
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -4152,6 +4501,17 @@ def main() -> int:
     mesh_launches = train_mesh_phase("22 mesh training", dev, images, smi)
     for name, counts in mesh_launches.items():
         kernels[name]["mesh_launches"] = counts
+    torch.cuda.empty_cache()
+
+    # ---- 23. the f32 fused inverted residual ---------------------------------------------
+    kernels["inverted_residual_f32"] = ir_f32_phase("23 f32 fused block", dev)
+
+    # ---- 24. AOT artifacts through the CLI ----------------------------------------------
+    for name, n in aot_phase("24 aot", dev, tok, images).items():
+        kernels[name]["aot_launches"] = n
+
+    # ---- 25. the trace report and the native host runtime -----------------------------
+    trace_phase("25 trace report", dev)
     del images
     torch.cuda.empty_cache()
 
@@ -4178,6 +4538,8 @@ def main() -> int:
                          "ggml_experiments_tpu/ops/flash_attention.py:104")
     meta["fused_inverted_residual"] = (src + "inverted_residual.cu",
                                        "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
+    meta["inverted_residual_f32"] = (src + "inverted_residual_f32.cu",
+                                     "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     # phase 21: the tick on one rank's slot shard, the qmatmul kernel on a column shard
     meta["fused_slot_tick_sharded"] = (src + "gru_persistent.cu", tick_at)
     meta["qmatmul_q8_0_column_shard"] = (src + "qmatmul.cu", qmm_at)
@@ -4196,6 +4558,8 @@ def main() -> int:
             entry["plan"] = kd["plan"]
         if "mesh_launches" in kd:   # the train kernels: phase 22's launches by run and rank
             entry["mesh_launches"] = kd["mesh_launches"]
+        if "aot_launches" in kd:    # qmatmul q8_0, flash: phase 24's artifact replays
+            entry["aot_launches"] = kd["aot_launches"]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -14,6 +14,8 @@
   python -m ggml_experiments_tpu_torch train-gru --corpus text.txt [--compute bfloat16]
   python -m ggml_experiments_tpu_torch features --weights weight.ggml [--image img.png]
   python -m ggml_experiments_tpu_torch classify --weights mobilevit.ggml [--image img.png]
+  python -m ggml_experiments_tpu_torch aot-export --model gru --weights gru.bin --output d.gxa
+  python -m ggml_experiments_tpu_torch aot-run --artifact d.gxa --weights gru.bin
 
 ``generate`` with no --prompt reads one line from stdin; ``serve`` reads one
 prompt per line and streams each continuation, or with ``--http`` serves the
@@ -28,7 +30,10 @@ reference gru.bin or a native ``.gxt`` checkpoint for the GRU commands, and a
 ``--qtype q4_k_m --calibrate`` it runs the GPTQ recipe (``quant/calibration``)
 on text (GRU) or images (MobileViT: a directory, or ``task[:seed]`` for the
 repo's synthetic task). ``eval`` reports the quantized model's deltas
-against f32 on the same weights. All run on ``--device`` (default ``cuda``;
+against f32 on the same weights. ``aot-export`` freezes greedy decode or
+feature extraction at fixed shapes into a ``.gxa`` artifact
+(``serving/aot.py``) and ``aot-run`` replays one against a weight file of
+the same shapes and qtype. All run on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions).
 """
 
@@ -439,6 +444,101 @@ def cmd_classify(args) -> int:
     return 0
 
 
+def cmd_aot_export(args) -> int:
+    """Freeze a shape-specialized program into a ``.gxa`` artifact
+    (``torch.export``) on ``--device``; prints the artifact's header."""
+    from ggml_experiments_tpu_torch.serving import aot
+
+    if args.model == "gru":
+        from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
+
+        params = load_gru_any(args.weights, qtype=args.qtype, device=args.device)
+        aot.export_gru_decode(params, batch=args.batch, prompt_len=args.prompt_len,
+                              total_steps=args.steps, path=args.output, qtype=args.qtype)
+    else:
+        from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+        from ggml_experiments_tpu_torch.models.mobilevit import from_named_tensors, infer_config
+
+        named = read_named_tensors(args.weights)
+        config = infer_config(named, image_size=args.image_size)
+        params = from_named_tensors(named, config, qtype=args.qtype, device=args.device)
+        aot.export_mobilevit_features(params, batch=args.batch, image_size=config.image_size,
+                                      path=args.output, qtype=args.qtype)
+    print(json.dumps({"output": args.output, **aot.read_meta(args.output)}))
+    return 0
+
+
+def cmd_aot_run(args) -> int:
+    """Run a ``.gxa`` artifact against a weight file: no model code is
+    traced, the program is the one frozen at export."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.serving import aot
+
+    meta, exp = aot.load_artifact(args.artifact)
+    # the artifact records the qtype its params tree was frozen with: the
+    # default, and a mismatch is refused here rather than deep in the program
+    export_qtype = meta.get("qtype")
+    if args.qtype is None:
+        args.qtype = export_qtype
+    elif args.qtype != export_qtype:
+        raise SystemExit(f"--qtype {args.qtype} does not match the artifact's export qtype "
+                         f"{export_qtype!r}; the frozen program only accepts params of the "
+                         f"export-time tree structure")
+    dev = torch.device(args.device)
+    if dev.type != meta["device"]:
+        raise SystemExit(f"the artifact was exported for {meta['device']!r} and holds that "
+                         f"device's program; --device {args.device} cannot run it")
+    if meta["kind"] == "gru-decode":
+        from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any
+        from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+        params = load_gru_any(args.weights, qtype=args.qtype, device=dev)
+        tok = CharTokenizer()
+        ids = tok.encode(args.prompt or "ROMEO:")[: meta["prompt_len"]]
+        b, p = meta["batch"], meta["prompt_len"]
+        prompt = np.zeros((b, p), np.int32)
+        prompt[:, : len(ids)] = ids
+        lengths = np.full((b,), len(ids), np.int32)
+        toks = aot.call_artifact(exp, params, torch.from_numpy(prompt).to(dev),
+                                 torch.from_numpy(lengths).to(dev))
+        print(tok.decode(toks[0].tolist()))
+    elif meta["kind"] == "mobilevit-features":
+        from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+        from ggml_experiments_tpu_torch.models.mobilevit import from_named_tensors, infer_config
+        from ggml_experiments_tpu_torch.utils.image import (
+            load_and_preprocess,
+            synthetic_test_image,
+        )
+
+        named = read_named_tensors(args.weights)
+        size = meta["image_size"]
+        params = from_named_tensors(named, infer_config(named, image_size=size),
+                                    qtype=args.qtype, device=dev)
+        img = load_and_preprocess(args.image, size=size) if args.image else \
+            synthetic_test_image(size)
+        images = torch.from_numpy(np.stack([img] * meta["batch"])).to(dev)
+        feats = aot.call_artifact(exp, params, images).cpu().numpy()
+        _, h, w, c = feats.shape
+        print(f"output feature shape: : Dims: ({w}, {h}, {c})")
+        vec = feats[0, 0, 0]
+        head = ", ".join(f"{v:g}" for v in vec[:5])
+        tail = ", ".join(f"{v:g}" for v in vec[-5:])
+        print(f"i0 = 0, i1 = 0\n{head}, ...{tail},")
+    else:
+        raise ValueError(f"unknown artifact kind {meta['kind']!r}")
+    return 0
+
+
+def _aot_common(p):
+    _add_common(p)
+    for a in p._actions:
+        if a.dest == "compute":
+            a.help = ("not read: artifacts are exported and run at float32, as the JAX "
+                      "package's aot-export does")
+
+
 def _serve_until_signal(front, *engines) -> None:
     """Block until SIGINT or SIGTERM, then stop the front end and the engines."""
     import signal
@@ -685,6 +785,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the collation ladder (comma-separated)")
     _add_common(sv)
     sv.set_defaults(fn=cmd_serve_vision)
+
+    ax = sub.add_parser("aot-export",
+                        help="freeze a shape-specialized program to a .gxa artifact")
+    ax.add_argument("--model", choices=["gru", "mobilevit"], default="gru")
+    ax.add_argument("--weights", required=True)
+    ax.add_argument("--output", required=True, help=".gxa artifact path")
+    ax.add_argument("--batch", type=int, default=8)
+    ax.add_argument("--prompt-len", type=int, default=50, help="gru: max prompt chars")
+    ax.add_argument("--steps", type=int, default=200,
+                    help="gru: total decode steps (reference default 200)")
+    ax.add_argument("--image-size", type=int, default=256,
+                    help="mobilevit input resolution (reference: 256)")
+    _aot_common(ax)
+    ax.set_defaults(fn=cmd_aot_export)
+
+    ar = sub.add_parser("aot-run", help="run a .gxa artifact against a weight file")
+    ar.add_argument("--artifact", required=True)
+    ar.add_argument("--weights", required=True)
+    ar.add_argument("--prompt", default=None)
+    ar.add_argument("--image", default=None)
+    _aot_common(ar)
+    ar.set_defaults(fn=cmd_aot_run)
 
     b = sub.add_parser("bench", help="throughput under the port's timing protocol (JSON)")
     b.add_argument("--model", choices=["gru", "mobilevit"], default="gru")

@@ -10,7 +10,7 @@ Names are full TF variable paths, e.g.
 stops cleanly at the end of the file and raises on a truncated record. The
 reference loader's f16 policy for names containing "convolution" is a load
 option of ``models.mobilevit`` (``conv_dtype``), not part of the format.
-numpy only.
+numpy, with the native runtime's indexer where it is available.
 """
 
 from __future__ import annotations
@@ -22,7 +22,23 @@ import numpy as np
 
 
 def read_named_tensors(path: str) -> Dict[str, np.ndarray]:
-    """Parse the whole file into ``{tf_variable_path: float32 ndarray}``."""
+    """Parse the whole file into ``{tf_variable_path: float32 ndarray}``:
+    indexed by the native runtime where it is available, else by
+    :func:`read_named_tensors_py`, the plain version, which also names the
+    fault of a file the native indexer refuses."""
+    from ggml_experiments_tpu_torch import runtime
+
+    if not runtime.available():
+        return read_named_tensors_py(path)
+    try:
+        return runtime.read_named_tensors_native(path)
+    except runtime.NativeParseError:
+        read_named_tensors_py(path)
+        raise
+
+
+def read_named_tensors_py(path: str) -> Dict[str, np.ndarray]:
+    """The numpy reader."""
     out: Dict[str, np.ndarray] = {}
     with open(path, "rb") as f:
         while True:

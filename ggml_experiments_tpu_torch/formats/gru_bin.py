@@ -58,7 +58,23 @@ def _write_tensor(f: BinaryIO, arr: np.ndarray) -> None:
 
 
 def read_tensors(path: str) -> List[np.ndarray]:
-    """All tensors of a gru.bin file, in file order."""
+    """All tensors of a gru.bin file, in file order: indexed by the native
+    runtime where it is available, else by :func:`read_tensors_py`, the plain
+    version, which also names the fault of a file the native indexer
+    refuses."""
+    from ggml_experiments_tpu_torch import runtime
+
+    if not runtime.available():
+        return read_tensors_py(path)
+    try:
+        return runtime.read_gru_bin_native(path)
+    except runtime.NativeParseError:
+        read_tensors_py(path)
+        raise
+
+
+def read_tensors_py(path: str) -> List[np.ndarray]:
+    """The numpy reader."""
     out = []
     with open(path, "rb") as f:
         while True:

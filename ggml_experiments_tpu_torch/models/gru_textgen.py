@@ -30,6 +30,7 @@ from ggml_experiments_tpu_torch.ops.gru import (
 from ggml_experiments_tpu_torch.ops.linear import Weight, embedding_lookup, linear
 from ggml_experiments_tpu_torch.parallel.mesh import DATA_AXIS, axis_slice
 from ggml_experiments_tpu_torch.parallel.sharding import Placed, full, mesh_of
+from ggml_experiments_tpu_torch.pytree import register_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,9 @@ class GRUTextGenParams:
     @property
     def device(self) -> torch.device:
         return self.embeddings.device
+
+
+register_params(GRUTextGenParams, drop=("cache",))
 
 
 def init_params(config: GRUConfig, generator: torch.Generator,

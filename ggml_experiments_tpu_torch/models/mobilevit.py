@@ -10,9 +10,11 @@ configuration (activation, stride, heads, eps, the kernel routes) is static:
 Three routes reach the port's hand-written kernels, gated as in the JAX
 package:
 
-* ``InvertedResidualParams.fused`` at bf16, stride 1 and an expanded width
-  of at least ``IR_FUSED_MIN_EXPAND`` (64) -> ``ops.fused_inverted_residual``
-  (layer_1's block and layer_2's blocks 1-2);
+* ``InvertedResidualParams.fused`` at stride 1 and an expanded width of at
+  least ``IR_FUSED_MIN_EXPAND`` (64), at bf16, or at f32 on a CUDA device ->
+  ``ops.fused_inverted_residual`` (layer_1's block and layer_2's blocks
+  1-2; the JAX package routes bf16 only, and the port's f32 route stays off
+  the CPU, whose f32 forward is the JAX package's unfused chain);
 * ``TransformerLayerParams.fused`` at bf16 with L a multiple of 8 ->
   ``ops.fused_transformer_layer``; when every layer of a block is fused and
   the block's patch count is a multiple of 8, the block folds its conv_1x1
@@ -58,6 +60,7 @@ from ggml_experiments_tpu_torch.ops.linear import Weight, linear
 from ggml_experiments_tpu_torch.ops.norm import fold_batchnorm, layer_norm
 from ggml_experiments_tpu_torch.ops.patches import fold, unfold
 from ggml_experiments_tpu_torch.parallel import multihost
+from ggml_experiments_tpu_torch.pytree import register_params
 from ggml_experiments_tpu_torch.quant.qtensor import quantize
 
 ACT_STORAGE_SCOPES = ("stem", "stem12", "early", "all")
@@ -81,12 +84,15 @@ class MobileViTConfig:
     num_labels: int = 1000  # classifier head (HF MobileViTForImageClassification)
 
 
-# The fused inverted residual (bf16, stride 1) runs from this expanded width
-# on: the smallest measured, layer_1's. On an NVIDIA H100 80GB HBM3 at 700.00 W
-# (tools/torch_gate_sweep.py; PERF.md, "Dispatch gates"),
-# extract_features at bf16 with layer_1's block fused too (E >= 64) ran
-# 1.17 / 1.45 / 1.65x the unfused forward at B = 8 / 32 / 128, against 1.06 /
-# 1.26 / 1.35x with layer_2's blocks alone (E >= 128).
+# The fused inverted residual (stride 1) runs from this expanded width on:
+# the smallest measured, layer_1's. On an NVIDIA H100 80GB HBM3 at 700.00 W
+# (tools/torch_gate_sweep.py; PERF.md, "Dispatch gates"), extract_features
+# at bf16 with layer_1's block fused too (E >= 64) ran 1.17 / 1.45 / 1.65x
+# the unfused forward at B = 8 / 32 / 128, against 1.06 / 1.26 / 1.35x with
+# layer_2's blocks alone (E >= 128). At f32 on the same card
+# (tools/torch_gate_sweep.py --only ir_f32; PERF.md §6) the f32 kernel beat
+# cuDNN's f32 chain 1.49-2.39x a call at both stride-1 blocks and at each B,
+# and extract_features at f32 ran 1.11 / 1.23 / 1.25x the unfused forward.
 IR_FUSED_MIN_EXPAND = 64
 
 
@@ -100,23 +106,25 @@ class InvertedResidualParams:
     use_residual: bool = static_field(False)
     fused: bool = static_field(False)
 
-    def fused_route(self, compute_dtype) -> bool:
-        """Whether a call at ``compute_dtype`` runs the fused kernel: bf16 and
-        stride 1 (what the kernel takes), E >= IR_FUSED_MIN_EXPAND (where it
-        wins)."""
-        return (self.fused and resolve_dtype(compute_dtype) == torch.bfloat16
-                and self.conv_3x3.stride == 1
-                and self.expand_1x1.kernel.shape[-1] >= IR_FUSED_MIN_EXPAND)
+    def fused_route(self, compute_dtype, device=None) -> bool:
+        """Whether a call at ``compute_dtype`` on ``device`` runs the fused
+        kernel: stride 1 (what the kernels take), E >= IR_FUSED_MIN_EXPAND
+        (where they win), and bf16, or f32 on a CUDA device."""
+        cd = resolve_dtype(compute_dtype)
+        on_card = device is not None and torch.device(device).type == "cuda"
+        return (self.fused and self.conv_3x3.stride == 1
+                and self.expand_1x1.kernel.shape[-1] >= IR_FUSED_MIN_EXPAND
+                and (cd == torch.bfloat16 or (cd == torch.float32 and on_card)))
 
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)
-        if self.fused_route(cd):
+        if self.fused_route(cd, x.device):
             from ggml_experiments_tpu_torch.ops.fused_inverted_residual import (
                 inverted_residual_fused,
             )
 
             # an input stored below bf16 (ConvBNAct.store) widens at the
-            # kernel's boundary; the kernel's output stays bf16
+            # kernel's boundary; the kernel's output stays in the compute dtype
             return inverted_residual_fused(self, x.to(cd), compute_dtype=cd)
         kw = dict(compute_dtype=cd)
         y = self.reduce_1x1(self.conv_3x3(self.expand_1x1(x, **kw), **kw), **kw)
@@ -242,6 +250,11 @@ class MobileViTParams:
     @property
     def device(self) -> torch.device:
         return self.conv_stem.kernel.device
+
+
+for _cls in (InvertedResidualParams, TransformerLayerParams, MobileViTBlockParams,
+             MobileViTParams):
+    register_params(_cls)
 
 
 def extract_features(params: MobileViTParams, images: torch.Tensor, *,

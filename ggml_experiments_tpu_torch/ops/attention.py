@@ -19,6 +19,7 @@ import torch
 from ggml_experiments_tpu_torch.device import resolve_dtype
 from ggml_experiments_tpu_torch.ops.conv import static_field
 from ggml_experiments_tpu_torch.ops.linear import Weight, linear
+from ggml_experiments_tpu_torch.pytree import register_params
 
 
 @dataclasses.dataclass
@@ -33,6 +34,9 @@ class AttentionParams:
     bo: Optional[torch.Tensor]
     num_heads: int = static_field(4)
     flash: bool = static_field(False)
+
+
+register_params(AttentionParams)
 
 
 def softmax_stored(s: torch.Tensor) -> torch.Tensor:

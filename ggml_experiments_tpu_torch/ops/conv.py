@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ggml_experiments_tpu_torch.device import resolve_dtype
 from ggml_experiments_tpu_torch.ops.activations import get_activation
 from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+from ggml_experiments_tpu_torch.pytree import register_params
 
 
 def static_field(default):
@@ -137,6 +138,9 @@ class ConvBNAct:
         return _bn_act_store(y, self.bn, self.activation, self.store)
 
 
+register_params(ConvBNAct)
+
+
 @dataclasses.dataclass
 class SpaceToDepthStem:
     """The stride-2 3x3 stem as space-to-depth + a stride-1 2x2 convolution:
@@ -158,6 +162,9 @@ class SpaceToDepthStem:
         x2 = F.pad(x2.to(cd), (0, 0, 1, 0, 1, 0))
         y = conv2d(x2, self.kernel, padding=0, compute_dtype=cd)
         return _bn_act_store(y, self.bn, self.activation, self.store)
+
+
+register_params(SpaceToDepthStem)
 
 
 def space_to_depth_stem(stem: ConvBNAct) -> SpaceToDepthStem:

@@ -18,6 +18,11 @@ first; the kernel does too at bf16, while at f32 it keeps a running max and
 rescales (online softmax), which differs only by f32 rounding. On a CPU
 tensor :func:`flash_mha` runs :func:`flash_mha_plain`; on a CUDA tensor it
 launches the kernel or raises. The kernel takes head widths up to 64.
+
+Under ``torch.export`` (or ``torch.compile``) the kernel is reached through
+the custom op ``gxt::flash_mha`` (:func:`flash_mha_op`), whose CUDA
+implementation launches it and whose CPU implementation is the plain
+version.
 """
 
 from __future__ import annotations
@@ -123,6 +128,24 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("gxt::flash_mha", mutates_args=())
+def flash_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 num_heads: int) -> torch.Tensor:
+    """What a traced program calls: (bp, L, C) operands in the compute dtype.
+    This body is the CPU implementation: the plain version."""
+    return flash_mha_plain(q, k, v, num_heads)
+
+
+@flash_mha_op.register_kernel("cuda")
+def _flash_mha_op_cuda(q, k, v, num_heads):
+    return flash_mha_cuda(q, k, v, num_heads)
+
+
+@flash_mha_op.register_fake
+def _flash_mha_op_fake(q, k, v, num_heads):
+    return torch.empty_like(q)
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, *,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Dense (non-causal, unmasked) MHA over the last two dims of (..., L, C)
@@ -132,7 +155,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         raise ValueError(f"C={c} not divisible by num_heads={num_heads}")
     cd = resolve_dtype(compute_dtype)
     q3, k3, v3 = (t.reshape(-1, l, c).to(cd).contiguous() for t in (q, k, v))
-    if q3.device.type == "cpu":
+    if torch.compiler.is_compiling():
+        out = flash_mha_op(q3, k3, v3, num_heads)
+    elif q3.device.type == "cpu":
         out = flash_mha_plain(q3, k3, v3, num_heads)
     else:
         out = flash_mha_cuda(q3, k3, v3, num_heads)

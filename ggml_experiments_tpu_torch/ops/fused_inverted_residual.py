@@ -16,15 +16,19 @@ each convolution. The arithmetic, as the TPU body has it:
   sums in order; ``SiLU(acc + bdw) -> cd``;
 * ``out = y . Wred + bred`` in f32, ``+ x`` with the residual, ``-> cd``.
 
+At f32 nothing rounds below f32: the products are f32 sums of f32
+operands, and the expanded and depthwise values stay f32.
+
 On a CPU tensor :func:`fused_inverted_residual` runs :func:`fused_ir_plain`;
-on a CUDA tensor it launches a kernel (bf16, stride 1) or raises. The strip
-kernel (``csrc/inverted_residual.cu``) takes C and Cout multiples of 8, C up
-to 64, E up to 256 and widths whose weights and rings fit one block
-(:func:`ir_plans`);
-every other shape goes to the 8 x 8 tile kernel
-(``csrc/inverted_residual_tile.cu``, counter ``inverted_residual_tile``).
-Both count under ``fused_inverted_residual``. The plain version also takes
-stride 2.
+on a CUDA tensor it launches a kernel (bf16 or f32, stride 1) or raises. At
+bf16 the strip kernel (``csrc/inverted_residual.cu``) takes C and Cout
+multiples of 8, C up to 64, E up to 256 and widths whose weights and rings
+fit one block (:func:`ir_plans`); every other shape goes to the 8 x 8 tile
+kernel (``csrc/inverted_residual_tile.cu``, counter
+``inverted_residual_tile``). At f32 the block runs on
+``csrc/inverted_residual_f32.cu`` (counter ``inverted_residual_f32``; Cout up
+to 128). All three count under ``fused_inverted_residual``. The plain
+version also takes stride 2.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.fused_transformer_layer import _bt, _smem_limit, k_tiles
 
 # launches of the CUDA kernels; only the kernel wrappers add to them
-LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0}
+LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0,
+            "inverted_residual_f32": 0}
 
 SMEM_LIMIT = 232448     # bytes of shared memory an H100 block may use
 
@@ -206,6 +211,11 @@ def _lib(name: str):
         lib.gxt_inverted_residual.argtypes = [p] * 8 + [i] * 9 + [p]
         lib.gxt_inverted_residual_smem.restype = ctypes.c_longlong
         lib.gxt_inverted_residual_smem.argtypes = [i] * 5
+    elif name == "inverted_residual_f32":
+        lib.gxt_ir_f32.restype = i
+        lib.gxt_ir_f32.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.gxt_ir_f32_smem.restype = ctypes.c_longlong
+        lib.gxt_ir_f32_smem.argtypes = [i] * 3
     else:
         lib.gxt_ir_tile.restype = i
         lib.gxt_ir_tile.argtypes = [p] * 8 + [i] * 7 + [p]
@@ -277,6 +287,118 @@ def fused_ir_cuda(x: torch.Tensor, ops: IROperands, *, use_residual: bool = Fals
     return out
 
 
+# ---- the f32 kernel ---------------------------------------------------------------------
+
+F32_CHUNK = 64        # expanded channels a chunk of csrc/inverted_residual_f32.cu
+F32_MAX_COUT = 128    # the widest reduce its warps cover (16, 32, 64 or 128 columns)
+
+
+def _f32_cover(cout: int) -> int:
+    """Columns the f32 kernel's reduce covers: 16, 32, 64 or 128, the least
+    that holds Cout (0 past 128)."""
+    return next((w for w in (16, 32, 64, 128) if w >= cout), 0)
+
+
+def ir_f32_smem_bytes(c: int, e: int, cout: int) -> int:
+    """Dynamic shared memory of a launch of ``csrc/inverted_residual_f32.cu``
+    (the kernel's ``layout``), -1 where it does not take the widths: the x
+    halo (112 rows of pad8(C) + 4 floats), the expanded chunk (100 x 68
+    floats) and the depthwise chunk (64 x 68). E does not enter: the kernel
+    walks it in chunks of 64, so that f32 needs no more than 75 KB at C = 64
+    (a ring of whole expanded rows at f32 would need twice the bf16 ring)."""
+    if c <= 0 or e <= 0 or cout <= 0 or not _f32_cover(cout):
+        return -1
+    return (112 * (_pad(c, 8) + 4) + (100 + 64) * (F32_CHUNK + 4)) * 4
+
+
+@dataclasses.dataclass
+class IRF32Operands:
+    """A block's weights for the f32 kernel, made once (:func:`ir_f32_operands`):
+    Wexp (pad8(C), pad64(E)) and Wred (pad64(E), Cw) row-major f32, the
+    vectors padded to pad64(E) and Cw, zeros in every pad."""
+
+    c: int
+    e: int
+    cout: int
+    wexp: torch.Tensor
+    bexp: torch.Tensor
+    kdw: torch.Tensor
+    bdw: torch.Tensor
+    wred: torch.Tensor
+    bred: torch.Tensor
+    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernel's order
+
+    def __post_init__(self):
+        self.ptrs = tuple(t.data_ptr() for t in (self.wexp, self.bexp, self.kdw, self.bdw,
+                                                 self.wred, self.bred))
+
+
+def ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred) -> IRF32Operands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch."""
+    c, e = wexp.shape
+    cout = wred.shape[1]
+    if not _f32_cover(cout):
+        raise ValueError(f"ir_f32_operands: the f32 kernel takes Cout up to {F32_MAX_COUT}, "
+                         f"got {cout}")
+    ep, cw = _pad(e, F32_CHUNK), _f32_cover(cout)
+
+    def mat(w, rows, cols):
+        out = torch.zeros((rows, cols), dtype=torch.float32, device=w.device)
+        out[:w.shape[0], :w.shape[1]] = w.float()
+        return out
+
+    return IRF32Operands(c, e, cout, mat(wexp, _pad(c, 8), ep), mat(bexp.reshape(1, e), 1, ep),
+                         mat(kdw.reshape(9, e), 9, ep), mat(bdw.reshape(1, e), 1, ep),
+                         mat(wred, ep, cw), mat(bred.reshape(1, cout), 1, cw))
+
+
+_F32_SMEM_AGREED = set()   # (C, E, Cout) whose reckoning the kernel confirmed
+
+
+def fused_ir_f32_cuda(x: torch.Tensor, ops: IRF32Operands, *,
+                      use_residual: bool = False) -> torch.Tensor:
+    """Launch ``csrc/inverted_residual_f32.cu``: x an f32 (B, H, W, C) CUDA
+    tensor, stride 1."""
+    from ggml_experiments_tpu_torch import _build
+
+    dev = x.device
+    if dev.type != "cuda" or x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"fused_ir_f32_cuda: x must be an f32 (B, H, W, C) CUDA tensor, got "
+                         f"{x.dtype}{tuple(x.shape)} on {dev}")
+    b, h, w, c = x.shape
+    e, cout = ops.e, ops.cout
+    if ops.c != c or (use_residual and c != cout):
+        raise ValueError(f"fused_ir_f32_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x "
+                         f"of width {c}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    lib = _lib("inverted_residual_f32")
+    if (c, e, cout) not in _F32_SMEM_AGREED:
+        need = ir_f32_smem_bytes(c, e, cout)
+        if lib.gxt_ir_f32_smem(c, e, cout) != need:
+            raise RuntimeError(f"fused_ir_f32_cuda: (C, E, Cout) = ({c}, {e}, {cout}) needs "
+                               f"{need} bytes of shared memory here, the kernel reckons otherwise")
+        limit = _DEVICE_SMEM.get(dev.index)
+        if limit is None:
+            limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
+        if need > limit:
+            raise ValueError(f"fused_ir_f32_cuda: C={c} needs {need} bytes of shared memory, "
+                             f"the device allows {limit}")
+        _F32_SMEM_AGREED.add((c, e, cout))
+    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=dev)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        code = lib.gxt_ir_f32(x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e, cout,
+                              int(use_residual), current_stream_handle(dev))
+    if code:
+        _build.check(lib, code, f"fused_inverted_residual f32 (B, H, W, C, E, Cout) = ({b}, "
+                                f"{h}, {w}, {c}, {e}, {cout})")
+    LAUNCHES["inverted_residual_f32"] += 1
+    LAUNCHES["fused_inverted_residual"] += 1
+    return out
+
+
 def fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int = 1,
                             use_residual: bool = False,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -288,9 +410,12 @@ def fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int 
     if x.device.type == "cpu":
         return fused_ir_plain(x, wexp.to(cd), bexp.float(), kdw, bdw.float(), wred.to(cd),
                               bred.float(), stride=stride, use_residual=use_residual)
-    if stride != 1 or cd != torch.bfloat16:
-        raise ValueError(f"fused_inverted_residual: the CUDA kernel runs bf16 at stride 1, got "
-                         f"{cd} at stride {stride}")
+    if stride != 1 or cd not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_inverted_residual: the CUDA kernels run bf16 or f32 at stride "
+                         f"1, got {cd} at stride {stride}")
+    if cd == torch.float32:
+        return fused_ir_f32_cuda(x, ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred),
+                                 use_residual=use_residual)
     return fused_ir_cuda(x, ir_operands(wexp, bexp, kdw, bdw, wred, bred),
                          use_residual=use_residual)
 
@@ -313,30 +438,62 @@ def _folded(params):
             wred.reshape(e, wred.shape[-1]), bred)
 
 
-def block_operands(params) -> IROperands:
-    """The block's kernel operands, kept on its params: made at its first
-    CUDA call and again when any of its weights or BN vectors is another
-    tensor or was written in place (the key holds each tensor's storage,
-    shape, stride and version counter, and the entry holds the tensors)."""
+def block_operands(params, compute_dtype=torch.bfloat16):
+    """The block's operands for the kernel of ``compute_dtype``
+    (:class:`IROperands` at bf16, :class:`IRF32Operands` at f32), kept on its
+    params: made at its first CUDA call and again when any of its weights
+    or BN vectors is another tensor or was written in place (the key holds
+    each tensor's storage, shape, stride and version counter, and the entry
+    holds the tensors)."""
+    f32 = resolve_dtype(compute_dtype) == torch.float32
+    attr, make = (("_gxt_ir_f32_operands", ir_f32_operands) if f32
+                  else ("_gxt_ir_operands", ir_operands))
     tensors = []
     for conv in (params.expand_1x1, params.conv_3x3, params.reduce_1x1):
         tensors += [conv.kernel] + ([conv.bn.scale, conv.bn.bias] if conv.bn is not None else [])
     key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device, t._version)
                 for t in tensors)
-    hit = getattr(params, "_gxt_ir_operands", None)
+    hit = getattr(params, attr, None)
     if hit is None or hit[0] != key:
-        hit = (key, ir_operands(*_folded(params)), tensors)
-        object.__setattr__(params, "_gxt_ir_operands", hit)
+        hit = (key, make(*_folded(params)), tensors)
+        object.__setattr__(params, attr, hit)
     return hit[1]
+
+
+@torch.library.custom_op("gxt::inverted_residual_f32", mutates_args=())
+def inverted_residual_f32_op(x: torch.Tensor, wexp: torch.Tensor, bexp: torch.Tensor,
+                             kdw: torch.Tensor, bdw: torch.Tensor, wred: torch.Tensor,
+                             bred: torch.Tensor, use_residual: bool) -> torch.Tensor:
+    """What a traced f32 program calls (stride 1, BN folded, the operands of
+    :func:`fused_inverted_residual`). This body is the CPU implementation:
+    the plain version."""
+    return fused_ir_plain(x, wexp, bexp, kdw, bdw, wred, bred, use_residual=use_residual)
+
+
+@inverted_residual_f32_op.register_kernel("cuda")
+def _inverted_residual_f32_op_cuda(x, wexp, bexp, kdw, bdw, wred, bred, use_residual):
+    return fused_ir_f32_cuda(x, ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred),
+                             use_residual=use_residual)
+
+
+@inverted_residual_f32_op.register_fake
+def _inverted_residual_f32_op_fake(x, wexp, bexp, kdw, bdw, wred, bred, use_residual):
+    return x.new_empty((*x.shape[:3], wred.shape[1]))
 
 
 def inverted_residual_fused(params, x: torch.Tensor, *,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Run an ``InvertedResidualParams`` through :func:`fused_inverted_residual`
-    (on the card with the operands :func:`block_operands` keeps)."""
+    (on the card with the operands :func:`block_operands` keeps). Under
+    ``torch.export`` an f32 stride-1 block is the custom op
+    ``gxt::inverted_residual_f32`` (:func:`inverted_residual_f32_op`), whose
+    CUDA implementation launches the f32 kernel."""
     cd = resolve_dtype(compute_dtype)
     stride = params.conv_3x3.stride
-    if x.device.type == "cpu" or stride != 1 or cd != torch.bfloat16:
+    if torch.compiler.is_compiling() and cd == torch.float32 and stride == 1:
+        return inverted_residual_f32_op(x.to(cd), *_folded(params), params.use_residual)
+    if x.device.type == "cpu" or stride != 1 or cd not in (torch.bfloat16, torch.float32):
         return fused_inverted_residual(x, *_folded(params), stride=stride,
                                        use_residual=params.use_residual, compute_dtype=cd)
-    return fused_ir_cuda(x.to(cd), block_operands(params), use_residual=params.use_residual)
+    launch = fused_ir_f32_cuda if cd == torch.float32 else fused_ir_cuda
+    return launch(x.to(cd), block_operands(params, cd), use_residual=params.use_residual)

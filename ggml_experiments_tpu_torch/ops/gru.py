@@ -17,6 +17,7 @@ import torch.utils.checkpoint
 
 from ggml_experiments_tpu_torch.device import resolve_dtype
 from ggml_experiments_tpu_torch.ops.linear import Weight, linear
+from ggml_experiments_tpu_torch.pytree import register_params
 
 
 @dataclasses.dataclass
@@ -28,6 +29,9 @@ class GRUCellParams:
     @property
     def units(self) -> int:
         return self.recurrent_kernel.shape[1] // 3
+
+
+register_params(GRUCellParams)
 
 
 def gru_combine(mx: torch.Tensor, mh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

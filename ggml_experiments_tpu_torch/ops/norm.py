@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from ggml_experiments_tpu_torch.pytree import register_params
+
 
 def layer_norm(x: torch.Tensor, gamma, beta, *, eps: float = 1e-5, dim: int = -1):
     """Statistics in f32 (mean, then the mean of squared deviations); the
@@ -24,6 +26,9 @@ class FoldedBN:
 
     scale: torch.Tensor  # gamma / sqrt(var + eps)
     bias: torch.Tensor   # beta - mean * scale
+
+
+register_params(FoldedBN)
 
 
 def fold_batchnorm(gamma, beta, moving_mean, moving_variance, *, eps: float = 1e-5) -> FoldedBN:

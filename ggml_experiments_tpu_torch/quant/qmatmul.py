@@ -13,11 +13,20 @@ the input kernel (256 x 3072) and dense head (1024 x 66) to the matmul.
 ``compute_dtype=bfloat16`` rounds both operands to bf16, multiplies and sums
 in f32, and stores the result as bf16 (the TPU kernel's ``_dot`` and its
 output cast).
+
+Under ``torch.export`` (or ``torch.compile``) the kernel is reached through
+the custom op ``gxt::qmatmul`` (:func:`qmatmul_op`): the planes are its
+tensor arguments, the format and logical shape its plain ones, so a traced
+program holds no pointer and no weight. Its CUDA implementation launches the
+kernel with launch arguments built from the tensors it is given; its CPU
+implementation is the plain version. Eager calls keep the launch arguments
+cached on the QTensor (``dense["launch"]``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -32,7 +41,19 @@ LAUNCHES = {f"qmatmul_{q}": 0 for q in QTYPES}
 
 def _dense(qt: QTensor, dtype: torch.dtype) -> torch.Tensor:
     """The dequantized plane at ``dtype``, built once per QTensor (the JAX
-    package gets the same effect from XLA hoisting the dequant)."""
+    package gets the same effect from XLA hoisting the dequant). Under a
+    trace it is computed in the program: once, where the planes are fake
+    tensors (``torch.export`` rebuilds the params tree for each trace and
+    drops it after), else at every use."""
+    if torch.compiler.is_compiling():
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        if not isinstance(qt.codes, FakeTensor):
+            return dequantize(qt).to(dtype)
+        key = ("traced", dtype)
+        if key not in qt.dense:
+            qt.dense[key] = dequantize(qt).to(dtype)
+        return qt.dense[key]
     w = qt.dense.get(dtype)
     if w is None:
         w = dequantize(qt).to(dtype)
@@ -119,13 +140,19 @@ def _launch_cache(qt: QTensor, dev: torch.device) -> dict:
     if hit is not None and hit[1] == (qt.shape, dev) and all(
             a is b for a, b in zip(hit[0], planes)):
         return hit[2]
+    cache = _checked(qt, dev, {})
+    qt.dense["launch"] = (planes, (qt.shape, dev), cache)
+    return cache
+
+
+def _checked(qt: QTensor, dev: torch.device, cache: dict) -> dict:
+    """``cache``, once ``qt``'s planes are the format's, contiguous and
+    16-byte aligned on ``dev``."""
     qt.check_planes()
     if any(t is not None and (t.device != dev or not t.is_contiguous() or t.data_ptr() % 16)
-           for t in planes):
+           for t in (getattr(qt, name) for name in PLANE_NAMES)):
         raise ValueError("qmatmul_cuda: every plane must be contiguous and 16-byte aligned on "
                          "x's device")
-    cache: dict = {}
-    qt.dense["launch"] = (planes, (qt.shape, dev), cache)
     return cache
 
 
@@ -145,10 +172,12 @@ def _launch_args(qt: QTensor, dev: torch.device, cache: dict, key) -> ctypes.Str
 
 
 def qmatmul_cuda(x: torch.Tensor, qt: QTensor, compute_dtype=torch.float32,
-                 config=None) -> torch.Tensor:
+                 config=None, *, cached: bool = True) -> torch.Tensor:
     """Launch the format's CUDA kernel. ``x`` (M, K) on the GPU; returns f32
     (M, N). ``config`` overrides :func:`launch_config` (bm, ksplit,
-    blocks_per_split)."""
+    blocks_per_split). ``cached=False`` checks the planes and builds the
+    launch arguments anew, keeping nothing on ``qt`` (the custom op's
+    path)."""
     from ggml_experiments_tpu_torch import _build
 
     cd = resolve_dtype(compute_dtype)
@@ -157,7 +186,7 @@ def qmatmul_cuda(x: torch.Tensor, qt: QTensor, compute_dtype=torch.float32,
         raise ValueError("qmatmul_cuda needs x and the weight on one CUDA device")
     if x.dim() != 2 or x.shape[1] != qt.k:
         raise ValueError(f"x must be (M, {qt.k}), got {tuple(x.shape)}")
-    cache = _launch_cache(qt, dev)
+    cache = _launch_cache(qt, dev) if cached else _checked(qt, dev, {})
     m, k = x.shape
     bf16 = cd == torch.bfloat16
     x_bf16 = bf16 and k % 8 == 0 and (x.dtype == torch.bfloat16 or m >= X_BF16_MIN_M)
@@ -177,6 +206,32 @@ def qmatmul_cuda(x: torch.Tensor, qt: QTensor, compute_dtype=torch.float32,
     return out
 
 
+# ---- the custom op: what a traced program calls -----------------------------------------
+
+
+@torch.library.custom_op("gxt::qmatmul", mutates_args=())
+def qmatmul_op(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+               mins: Optional[torch.Tensor], hibits: Optional[torch.Tensor],
+               supers: Optional[torch.Tensor], qtype: str, k: int, n: int,
+               bf16: bool) -> torch.Tensor:
+    """``x (M, K) @ dequantize(planes)`` -> f32 (M, N), at bf16 when ``bf16``;
+    one op for the six formats. This body is the CPU implementation: the
+    plain version."""
+    qt = QTensor(codes, scales, (k, n), qtype, mins, hibits, supers)
+    return qmatmul_reference(x, qt, torch.bfloat16 if bf16 else torch.float32).float()
+
+
+@qmatmul_op.register_kernel("cuda")
+def _qmatmul_op_cuda(x, codes, scales, mins, hibits, supers, qtype, k, n, bf16):
+    qt = QTensor(codes, scales, (k, n), qtype, mins, hibits, supers)
+    return qmatmul_cuda(x, qt, torch.bfloat16 if bf16 else torch.float32, cached=False)
+
+
+@qmatmul_op.register_fake
+def _qmatmul_op_fake(x, codes, scales, mins, hibits, supers, qtype, k, n, bf16):
+    return x.new_empty((x.shape[0], n), dtype=torch.float32)
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.float32,
             gate_shape=None) -> torch.Tensor:
     """``x (..., K) @ dequantize(qt) -> (..., N)`` at the compute dtype.
@@ -193,7 +248,10 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.float32,
         return torch.matmul(x.to(cd), _dense(qt, cd))
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if x2.device.type == "cpu":
+    if torch.compiler.is_compiling():
+        out = qmatmul_op(x2, qt.codes, qt.scales, qt.mins, qt.hibits, qt.supers, qt.qtype, k, n,
+                         cd == torch.bfloat16).to(cd)
+    elif x2.device.type == "cpu":
         out = qmatmul_reference(x2, qt, cd)
     else:
         out = qmatmul_cuda(x2, qt, cd).to(cd)

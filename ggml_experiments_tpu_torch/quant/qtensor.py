@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ggml_experiments_tpu_torch.device import DeviceLike, resolve_device
+from ggml_experiments_tpu_torch.pytree import register_params
 
 BLOCK = 32  # weights per scale block, along the reduction dim
 LANE = 128  # N is padded to this
@@ -176,6 +177,10 @@ class QTensor:
 
     def dequantize(self) -> torch.Tensor:
         return dequantize(self)
+
+
+# the planes are the leaves; the format and logical shape the context; the cache dropped
+register_params(QTensor, static=("shape", "qtype"), drop=("dense",))
 
 
 # ---------------------------------------------------------------------------

@@ -67,13 +67,14 @@ def make_dataset(n: int, *, seed: int, image_size: int = 64, num_classes: int = 
 def loss_fn(named: Dict[str, torch.Tensor], images: torch.Tensor, labels: torch.Tensor,
             config: MobileViTConfig = TINY_CLS_CONFIG) -> torch.Tensor:
     """Mean softmax cross-entropy of ``classify(from_named_tensors(named))``
-    at f32 on the unfused path (the flash and fused-layer kernels are
-    forward-only), on the named tensors' device; differentiable in every
-    named tensor."""
+    at f32 on the unfused path (the flash, fused-layer and fused
+    inverted-residual kernels are forward-only), on the named tensors'
+    device; differentiable in every named tensor."""
     from ggml_experiments_tpu_torch.models.mobilevit import classify, from_named_tensors
 
     dev = next(iter(named.values())).device
-    p = from_named_tensors(named, config, flash_attn=False, fused_layer=False, device=dev)
+    p = from_named_tensors(named, config, flash_attn=False, fused_layer=False, fused_ir=False,
+                           device=dev)
     return torch.nn.functional.cross_entropy(classify(p, images), labels.long())
 
 

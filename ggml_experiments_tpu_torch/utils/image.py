@@ -1,4 +1,5 @@
-"""Image loading and preprocessing for MobileViT, numpy only.
+"""Image loading and preprocessing for MobileViT, numpy (the resample in
+the native runtime where it is available).
 
 The reference's semantics: align-corners=False bilinear sampling of u8
 values, each sample rounded back to u8, the long side scaled to ``size`` (the
@@ -23,7 +24,17 @@ def synthetic_test_image(size: int = 256) -> np.ndarray:
 def bilinear_resize_u8(img: np.ndarray, out_h: int, out_w: int, scale: float) -> np.ndarray:
     """Bilinear resample of a u8 HWC image, sampling at ``(x + 0.5)*scale -
     0.5`` with edge clamping and rounding half away from zero; only the
-    top-left (out_h, out_w) region is produced."""
+    top-left (out_h, out_w) region is produced. The native runtime's
+    resample where it is available, else :func:`bilinear_resize_u8_py`."""
+    from ggml_experiments_tpu_torch import runtime
+
+    out = runtime.bilinear_resize_u8(img, out_h, out_w, scale)
+    return bilinear_resize_u8_py(img, out_h, out_w, scale) if out is None else out
+
+
+def bilinear_resize_u8_py(img: np.ndarray, out_h: int, out_w: int,
+                          scale: float) -> np.ndarray:
+    """The numpy resample, the plain version of the native one."""
     h, w, _ = img.shape
     ys = np.arange(out_h, dtype=np.float32)
     xs = np.arange(out_w, dtype=np.float32)

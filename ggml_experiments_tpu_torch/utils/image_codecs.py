@@ -94,7 +94,12 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG: truncated pixel data")
     rows = np.frombuffer(raw[: height * (stride + 1)], np.uint8).reshape(height, stride + 1)
     filters = rows[:, 0]
-    recon = _png_unfilter(rows[:, 1:].astype(np.int32), filters, nch)
+    # the native runtime where it is available: Sub/Avg/Paeth are sequential per pixel
+    from ggml_experiments_tpu_torch import runtime
+
+    recon = runtime.png_unfilter(rows[:, 1:], filters, nch)
+    if recon is None:
+        recon = _png_unfilter(rows[:, 1:].astype(np.int32), filters, nch)
 
     img = recon.reshape(height, width, nch)
     if color_type == 3:  # palette

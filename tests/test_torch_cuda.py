@@ -919,12 +919,43 @@ def test_inverted_residual_tile_route_takes_no_plan(dev):
 
 
 def test_inverted_residual_refuses_f32_and_stride_2_on_the_card(dev):
-    """The JAX function takes f32 and stride 2; the CUDA path takes neither
-    and says so (ROADMAP.md Queue C; the model routes neither)."""
+    """The JAX function takes stride 2; the CUDA path does not and says so,
+    at bf16 and at f32 (ROADMAP.md Queue C #1; the model routes neither).
+    f32 at stride 1 runs on its own kernel since the f32 form was ported
+    (test_inverted_residual_f32_kernel_matches_plain)."""
     x, args = _ir_inputs(dev, 1, 8, 8, 8, 32, 8)
-    for kw in (dict(compute_dtype=torch.float32), dict(stride=2)):
-        with pytest.raises(ValueError, match="bf16 at stride 1"):
-            fir.fused_inverted_residual(x, *args, use_residual=True, **kw)
+    for cd in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="at stride 1, got .* at stride 2"):
+            fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+
+
+# the f32 kernel at layer_2's shape (small B), ragged tiles, every reduce
+# width (Cout 8 .. 128), C not a multiple of 8, E past one chunk and not a
+# multiple of 64
+IR_F32_SHAPES = [(2, 64, 64, 64, 256, 64, True), (1, 16, 16, 16, 64, 32, False),
+                 (2, 9, 17, 24, 96, 24, True), (1, 7, 13, 12, 48, 100, False),
+                 (3, 5, 33, 8, 200, 8, True), (1, 1, 1, 8, 32, 128, False)]
+
+
+@pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", IR_F32_SHAPES)
+def test_inverted_residual_f32_kernel_matches_plain(dev, b, hh, ww, c, e, cout, resid):
+    """f32 at stride 1 launches csrc/inverted_residual_f32.cu: within 1e-5 of
+    the plain version's largest value (TF32 off), two launches bit-equal,
+    its shared memory reckoned as the kernel reckons it."""
+    x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
+    x = x.float()
+    before = dict(fir.LAUNCHES)
+    got = fir.fused_inverted_residual(x, *args, use_residual=resid, compute_dtype=torch.float32)
+    again = fir.fused_inverted_residual(x, *args, use_residual=resid,
+                                        compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES["inverted_residual_f32"] == before["inverted_residual_f32"] + 2
+    assert fir.LAUNCHES["fused_inverted_residual"] == before["fused_inverted_residual"] + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = fir.fused_ir_plain(x, *args, use_residual=resid)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    lib = fir._lib("inverted_residual_f32")
+    assert lib.gxt_ir_f32_smem(c, e, cout) == fir.ir_f32_smem_bytes(c, e, cout)
 
 
 def test_inverted_residual_block_keeps_its_operands_on_the_card(dev):
@@ -953,6 +984,39 @@ def test_inverted_residual_block_keeps_its_operands_on_the_card(dev):
     assert fir.block_operands(blk) is ops and torch.equal(got, again)
     want = fir.fused_inverted_residual(x, *fir._folded(blk), use_residual=True)
     assert torch.equal(got, want)
+
+
+def test_inverted_residual_block_routes_f32_to_its_kernel_on_the_card(dev):
+    """At f32 a stride-1 block with E >= 64 runs csrc/inverted_residual_f32.cu
+    on the card, with its operands kept on the block; the CPU's f32 route is
+    the unfused chain."""
+    from ggml_experiments_tpu_torch.models.mobilevit import InvertedResidualParams
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    rng = np.random.default_rng(4)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.2).to(dev)
+
+    def conv(kh, cin, co, dw=False, act="silu"):
+        return ConvBNAct(kernel=t(kh, kh, cin, co), bn=FoldedBN(t(co) + 1.0, t(co)),
+                         activation=act, depthwise=dw)
+
+    blk = InvertedResidualParams(expand_1x1=conv(1, 16, 64), conv_3x3=conv(3, 1, 64, dw=True),
+                                 reduce_1x1=conv(1, 64, 32, act="none"), fused=True)
+    x = torch.randn((2, 24, 20, 16), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    before = fir.LAUNCHES["inverted_residual_f32"]
+    got = blk(x, compute_dtype=torch.float32)
+    ops = fir.block_operands(blk, torch.float32)
+    again = blk(x, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES["inverted_residual_f32"] == before + 2
+    assert fir.block_operands(blk, torch.float32) is ops and torch.equal(got, again)
+    want = fir.fused_inverted_residual(x, *fir._folded(blk), compute_dtype=torch.float32)
+    assert torch.equal(got, want)
+    assert not blk.fused_route(torch.float32, "cpu")
 
 
 def test_vision_kernels_refuse_what_they_do_not_take(dev):
@@ -1082,3 +1146,36 @@ def test_differentiable_collectives_on_the_card_in_a_one_rank_group(dev):
         assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
     finally:
         multihost.shutdown()
+
+
+# ---- AOT artifacts on the card --------------------------------------------------------------
+
+
+def test_exported_q8_0_gru_artifact_runs_the_qmatmul_kernel(dev, tmp_path):
+    """A q8_0 decode artifact exported on the card replays through the
+    gxt::qmatmul op: tokens equal to eager generate on params an eager call
+    has used (their launch caches filled), one kernel launch a step (the
+    recurrent kernel, U = 1024, is past the matmul gate)."""
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.serving import aot
+
+    rng = np.random.default_rng(6)
+    u = 1024
+    a = {"embeddings": rng.normal(0, 0.5, (V, E)), "kernel": rng.normal(0, 0.1, (E, 3 * u)),
+         "recurrent_kernel": rng.normal(0, 0.03, (u, 3 * u)),
+         "bias": rng.normal(0, 0.1, (2, 3 * u)), "dense_kernel": rng.normal(0, 0.1, (u, V)),
+         "dense_bias": rng.normal(0, 0.1, (V,))}
+    p = params_from_numpy({k: x.astype(np.float32) for k, x in a.items()}, qtype="q8_0",
+                          device=dev)
+    path = str(tmp_path / "decode.gxa")
+    aot.export_gru_decode(p, batch=4, prompt_len=6, total_steps=12, path=path, qtype="q8_0")
+    _, ep = aot.load_artifact(path)
+    prompt = torch.randint(0, V, (4, 6), dtype=torch.int32, device=dev)
+    lengths = torch.full((4,), 3, dtype=torch.int32, device=dev)
+    want = gru_textgen.generate(p, prompt, lengths, 12)
+    assert "launch" in p.cell.recurrent_kernel.dense
+    before = qmm_launches["qmatmul_q8_0"]
+    got = aot.call_artifact(ep, p, prompt, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert qmm_launches["qmatmul_q8_0"] == before + 12

@@ -57,12 +57,21 @@ SHARD_CALLS = (
 )
 
 
+# the native runtime at the bottom; utils (observability, trace_report)
+# under the kernels' ops; serving/aot under the loaders and the trainer
+BELOW_ALL = ("ops", "quant", "parallel", "models", "serving", "formats", "utils", "training")
+
+
 @pytest.mark.parametrize("layer,above,calls", [
     ("ops", ("parallel", "models", "serving"), ""),
     ("quant", ("parallel", "models", "serving"), ""),
     ("parallel", ("models", "serving"), ""),
     ("ops", ("parallel", "models", "serving"), SHARD_CALLS),
-], ids=["ops-above0", "quant-above1", "parallel-above2", "ops-on-shards"])
+    ("runtime", BELOW_ALL, ""),
+    ("utils", tuple(x for x in BELOW_ALL if x != "utils"), ""),
+    ("serving", ("formats", "training"), ""),
+], ids=["ops-above0", "quant-above1", "parallel-above2", "ops-on-shards", "runtime-above3",
+        "utils-above4", "serving-above5"])
 def test_a_layer_imports_nothing_above_it(layer, above, calls):
     """Importing every module of a layer loads no module of a layer above
     it (the kernels' ops under the placement rules under the models); the
@@ -88,7 +97,8 @@ def test_no_source_mentions_jax_or_the_jax_package():
     """No source of the port imports jax, optax or the JAX package."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
-        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     hits = []
     for path in files:
         with open(path) as f:
@@ -100,7 +110,7 @@ def test_no_source_mentions_jax_or_the_jax_package():
     assert len(files) > 15 and not hits, hits
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     """No device given and no GPU: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -114,6 +124,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         load_gru_params(SYNTH, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["generate", "--weights", SYNTH, "--prompt", "a", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["aot-export", "--weights", SYNTH, "--output", str(tmp_path / "d.gxa")])
+    assert not os.path.exists(tmp_path / "d.gxa")
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -139,7 +152,7 @@ def test_launch_counters_reset():
         "fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0, "fused_gru_train_dwr": 0,
         "flash_mha": 0, "fused_transformer_layer": 0, "transformer_ln_qkv": 0,
         "transformer_attention": 0, "transformer_proj_ffn": 0, "transformer_sequence": 0,
-        "fused_inverted_residual": 0, "inverted_residual_tile": 0}
+        "fused_inverted_residual": 0, "inverted_residual_tile": 0, "inverted_residual_f32": 0}
     port.reset_kernel_launches()
     assert set(port.kernel_launches().values()) == {0}
 

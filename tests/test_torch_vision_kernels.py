@@ -359,3 +359,31 @@ def test_fused_ir_gate_follows_the_jax_dispatch():
     finally:
         fir.fused_ir_plain = real
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("stride,resid,c,e,cout,hw", [
+    (1, True, 8, 32, 8, 8), (1, False, 16, 64, 32, 10), (2, False, 8, 32, 16, 8),
+    (2, False, 16, 48, 24, 12)])
+def test_fused_inverted_residual_plain_matches_the_jax_kernel_at_f32(stride, resid, c, e, cout,
+                                                                      hw):
+    """The f32 form (no rounding below f32 anywhere): the port's plain
+    version, which the f32 CUDA kernel is held to on the card, against the
+    JAX kernel at compute_dtype=float32 in interpret mode, within 1e-5 of
+    the largest output (the residual at stride 1 only: a stride-2 block
+    changes the spatial shape, and neither package takes the two together)."""
+    from ggml_experiments_tpu.ops.fused_inverted_residual import (
+        fused_inverted_residual as jfir,
+    )
+
+    rng = np.random.default_rng(e + hw + stride)
+    wexp, bexp, kdw, bdw, wred, bred = (
+        (rng.standard_normal(s) * 0.2).astype(np.float32)
+        for s in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
+    x = rng.standard_normal((2, hw, hw, c)).astype(np.float32)
+    args = (wexp, bexp, kdw, bdw, wred, bred)
+    want = np.asarray(jfir(jnp.asarray(x), *map(jnp.asarray, args), stride=stride,
+                           use_residual=resid, compute_dtype=jnp.float32, interpret=True))
+    got = fir.fused_inverted_residual(T(x), *map(T, args), stride=stride, use_residual=resid,
+                                      compute_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()

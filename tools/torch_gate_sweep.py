@@ -29,6 +29,12 @@ beside it).
   the same B, bf16, with ``fused_ir`` off, and on with the E threshold at
   each of the stride-1 blocks' expanded widths (256: layer_2's blocks; 64:
   layer_1's too).
+* ``ir_f32``: the f32 kernel (``csrc/inverted_residual_f32.cu``) per call
+  against the cuDNN f32 chain (TF32 off, as the port's f32 convolutions
+  run) at the same shapes and B; then ``extract_features`` at f32 with the
+  stride-1 blocks unfused (the model's f32 route) and with them routed to
+  the f32 kernel for this measurement (``fused_route`` widened to f32 here
+  only), in turns.
 * ``qmatmul``: the q8_0 kernel (forced past its gate) against
   ``torch.matmul`` on the dequantized plane, f32 and bf16, at MobileViT's
   transformer products for B = 128 (M = B x H x W tokens of each stage: q, k,
@@ -154,6 +160,54 @@ def ir_cells(rows):
         mobilevit.IR_FUSED_MIN_EXPAND = saved
 
 
+def ir_f32_cells(rows):
+    import torch
+
+    from torch_kernel_bench import cudnn_ir, ir_inputs
+
+    from ggml_experiments_tpu_torch.models import mobilevit
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+    from ggml_experiments_tpu_torch.utils.benchmarking import timeit_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name, (h, w, c, e, cout, resid) in IR_BLOCKS.items():
+        for b in IR_BATCHES:
+            x, args = ir_inputs(b, h, w, c, e, cout, dtype=torch.float32)
+            ops = fir.ir_f32_operands(*args)
+            kernel = timeit_stats(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid))
+            chain = timeit_stats(cudnn_ir(x, args, resid))
+            emit(rows, {"cell": "ir_f32", "block": name, "shape": [b, h, w, c, e, cout],
+                        "residual": resid, "kernel": kernel.asdict(),
+                        "cudnn_chain": chain.asdict(),
+                        "kernel_speedup": round(chain.headline / kernel.headline, 4)})
+            del x, ops
+    dev = torch.device("cuda")
+    params = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
+    cls = mobilevit.InvertedResidualParams
+    bf16_route = cls.fused_route
+
+    def f32_route(self, compute_dtype):
+        return (self.fused and self.conv_3x3.stride == 1
+                and self.expand_1x1.kernel.shape[-1] >= mobilevit.IR_FUSED_MIN_EXPAND)
+
+    try:
+        for b in IR_BATCHES:
+            images = torch.rand((b, 256, 256, 3), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(b))
+            cell = {}
+            for name in ("unfused", "f32_kernel", "f32_kernel", "unfused"):   # in turns
+                cls.fused_route = f32_route if name == "f32_kernel" else bf16_route
+                st = timeit_stats(lambda: extract_features(params, images))
+                cell.setdefault(name, []).append(st.asdict())
+            best = {name: min(s["median_ms"] for s in runs) for name, runs in cell.items()}
+            emit(rows, {"cell": "ir_f32_extract_features", "batch": b, **cell,
+                        "speedup_over_unfused": round(best["unfused"] / best["f32_kernel"], 4)})
+            del images
+    finally:
+        cls.fused_route = bf16_route
+
+
 def qmatmul_cells(rows):
     import torch
 
@@ -207,6 +261,8 @@ def main() -> int:
         qmatmul_cells(rows)
     if "ir" in only:
         ir_cells(rows)
+    if "ir_f32" in only:
+        ir_f32_cells(rows)
     if "engine" in only:
         for compute in ("bfloat16", "float32"):
             engine_cells(rows, args.margin, compute)

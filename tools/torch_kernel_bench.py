@@ -82,6 +82,7 @@ silu_fast, the correctly rounded SiLU or uncontracted taps, and times each
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import os
@@ -93,6 +94,22 @@ import time
 import torch
 
 sys.path.append(os.getcwd())   # the checkout run from, unless PYTHONPATH names one
+
+
+def _load_peaks():
+    """The H100's peaks from this tool's own checkout
+    (``utils/observability.H100``), loaded by path, so that a run from
+    another checkout's root bounds its kernels by the same figures."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "ggml_experiments_tpu_torch", "utils", "observability.py")
+    spec = importlib.util.spec_from_file_location("_gxt_observability", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod.H100
+
+
+H100 = _load_peaks()
 
 CKPT = os.path.join("checkpoints", "gru_shakespeare.bin")
 QTYPES = ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1", "q4_k")
@@ -594,8 +611,10 @@ def layer_cells(sweep):
                 width * c if first else 0) + (c * cout if last else 0))
             row = {"L": l, "Cin": width, "C": c, "H": h, "F": f, "Cout": cout, "layer": i,
                    "input_proj": first, "final_ln_out_proj": last,
-                   "bound_ms": max(flops / 989e12, nbytes / 3.35e12) * 1e3,
-                   "bound_by": "operations" if flops / 989e12 > nbytes / 3.35e12 else "bytes",
+                   "bound_ms": max(flops / H100.peak_ops["bfloat16"],
+                                   nbytes / H100.hbm_bytes_per_s) * 1e3,
+                   "bound_by": "operations" if flops / H100.peak_ops["bfloat16"]
+                   > nbytes / H100.hbm_bytes_per_s else "bytes",
                    "kernel": both(lambda: ftl.fused_layer_cuda(x, ops)),
                    "library": lib_t}
             if split:
@@ -696,26 +715,23 @@ def layer_split_cells():
 # main path, with the residual) and a layer_1-like block (128 x 128, 16 ->
 # 32, E=64, no residual; the model runs that one unfused, E < 128)
 IR_CELLS = ((128, 64, 64, 64, 256, 64, True), (128, 128, 128, 16, 64, 32, False))
-H100_SMS, H100_BOOST_HZ = 132, 1.98e9   # MUFU: 16 exponentials a clock per multiprocessor
-
-
 def ir_bound(b, h, w, c, e, cout):
     """Least time (ms) of the inverted residual on an H100 and what bounds
-    it: the bytes (x and out once, the weights) at 3.35 TB/s; the two 1x1
-    products at 989 TFLOP/s; the depthwise's 18 operations an expanded
-    element at 67 TFLOP/s (f32 on the CUDA cores); one MUFU exponential a
-    SiLU (two SiLUs an expanded element) at 16 a clock per multiprocessor."""
+    it (``H100``): the bytes (x and out once, the weights) at the HBM rate;
+    the two 1x1 products at the bf16 tensor rate; the depthwise's 18
+    operations an expanded element at the f32 CUDA-core rate; one MUFU
+    exponential a SiLU (two SiLUs an expanded element)."""
     px = b * h * w
     parts = {"bytes": (px * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4)
-             / 3.35e12,
-             "tensor": px * 2 * (c * e + e * cout) / 989e12,
-             "depthwise": px * 18 * e / 67e12,
-             "mufu": px * 2 * e / (16 * H100_SMS * H100_BOOST_HZ)}
+             / H100.hbm_bytes_per_s,
+             "tensor": px * 2 * (c * e + e * cout) / H100.peak_ops["bfloat16"],
+             "depthwise": px * 18 * e / H100.peak_ops["float32"],
+             "mufu": px * 2 * e / H100.mufu_exp_per_s}
     by = max(parts, key=parts.get)
     return {k: v * 1e3 for k, v in parts.items()}, by
 
 
-def ir_inputs(b, h, w, c, e, cout, seed=0):
+def ir_inputs(b, h, w, c, e, cout, seed=0, dtype=torch.bfloat16):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -723,18 +739,19 @@ def ir_inputs(b, h, w, c, e, cout, seed=0):
         return torch.randn(s, generator=g, device=dev) * scale + off
 
     args = (t(c, e), t(e), t(3, 3, e), t(e), t(e, cout), t(cout))
-    return t(b, h, w, c, scale=1.0).to(torch.bfloat16), args
+    return t(b, h, w, c, scale=1.0).to(dtype), args
 
 
 def cudnn_ir(x, args, resid):
     """The same block as cuDNN computes it: three ``F.conv2d`` calls in
-    channels_last bf16 with BN folded into the weights and biases, ``F.silu``
-    after the first two, ``+ x`` (a chain of five or six calls, not one)."""
+    channels_last at x's dtype (bf16, or f32 with cuDNN's TF32 as the caller
+    set it) with BN folded into the weights and biases, ``F.silu`` after the
+    first two, ``+ x`` (a chain of five or six calls, not one)."""
     import torch.nn.functional as F
 
     wexp, bexp, kdw, bdw, wred, bred = args
     e = wexp.shape[1]
-    bf = torch.bfloat16
+    bf = x.dtype
     cl = torch.channels_last
     w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
     w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
