@@ -94,8 +94,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      full-size task (``make_dataset``, task rev 4) in batches of 128 at f32
      (flash, 9 launches a batch), bf16 (fused layer and each of its three
      kernels, 9 a batch) and bf16 with
-     ``fused_ir`` (and the inverted residual, once a batch for each stride-1
-     block its gate takes), top-1 against the
+     ``fused_ir`` (and the inverted residual, once a batch for each block
+     its gate takes: the stride-1 blocks and, on the card, the four
+     stride-2 downsamplers), top-1 against the
      labels and argmax agreement with f32; the card's f32 features of the
      first 32 images against the plain CPU run; the calibrated
      ``mobilevit_synth_full_q4km.gxt`` classifying the same images; the
@@ -181,14 +182,31 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      tokens on params an eager call has used are equal to eager
      ``generate``'s, 200 qmatmul launches; ``aot-export --model mobilevit``
      of ``mobilevit_synth_full.ggml`` (256 px, batch 8) and ``aot-run``,
-     the features against ``extract_features``, 9 flash and 3 f32
-     inverted-residual launches; export and load seconds and the
+     the features against ``extract_features``, 9 flash and 7 f32
+     inverted-residual launches through ``gxt::inverted_residual_f32`` (the
+     three stride-1 blocks on the f32 kernel, the four downsamplers on the
+     stride-2 kernel); export and load seconds and the
      artifacts' bytes (no weights inside);
  25. the trace report (``tools/torch_trace_report.py`` in a process of its
      own) of an f32 MobileViT forward at B=128 and a bf16 GRU ``decode`` at
      (1024, 128): the port's kernels named by their counters with the
      launches the runs made; the native host runtime built on this host,
-     its readers equal to the numpy ones.
+     its readers equal to the numpy ones;
+ 26. the stride-2 fused inverted residual (``csrc/inverted_residual_s2.cu``)
+     through ``fused_inverted_residual(..., stride=2)`` at bf16 and f32 on
+     the full checkpoint's folded weights of MobileViT-small's four
+     downsamplers at B=128 (layer_2's first block, 128 x 128, 32 -> 128 ->
+     64; the downsampling blocks of layers 3-5: 64 x 64, 64 -> 256 -> 96;
+     32 x 32, 96 -> 384 -> 128; 16 x 16, 128 -> 512 -> 160), one launch each;
+     against its plain version, two launches bit-equal; the kernel, the
+     plain version and the cuDNN stride-2 chain timed beside the bound; then
+     ``extract_features`` of 128 of phase 14's images at each dtype, its
+     stride-2 launches counted (four a forward where the route takes them);
+ 27. the port's serving tools, each once in a process of its own at a small
+     setting: ``tools/torch_serving_breakdown.py`` (64 slots),
+     ``tools/torch_vision_serving_soak.py`` (512 images) and
+     ``tools/torch_capacity_probe.py`` (q8_0, the fused tick at 1024 slots),
+     each ending in its JSON line.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -240,9 +258,11 @@ Tolerances, and why:
     engine's from the offline forward's (other batch sizes, other cuDNN
     algorithms), only where the reference's top-2 logit gap is below
     VIT_NEAR_TIE.
-  * The f32 fused inverted residual against its plain version: 3xTF32
-    products (f32-accurate), f32 sums in other orders, SiLUs within an ulp
-    or two of each other: IR_F32_REL of the plain output's largest value. The features
+  * The f32 fused inverted residual against its plain version, at stride 1
+    and 2: 3xTF32 products (f32-accurate), f32 sums in other orders, SiLUs
+    within an ulp or two of each other: IR_F32_REL of the plain output's
+    largest value. At bf16 the stride-2 kernel is held to the limits of the
+    stride-1 one (VIT_BF16_MAX / VIT_BF16_MEAN_FRAC "ir"). The features
     artifact against ``extract_features``: the same kernels and cuDNN calls
     in the same order, AOT_FEATURE_REL of the largest feature.
   * Training on a mesh (phase 22) against one process: see MT_LOSS_REL,
@@ -261,6 +281,7 @@ Tolerances, and why:
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -275,11 +296,16 @@ CORPUS = os.path.join(REPO, "checkpoints", "shakespeare.txt")
 CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
 # the H100's peaks (HBM rate, bf16 / f32 / 3xTF32 operation rates, MUFU
-# exponentials), from the port's one source of them
+# exponentials), the inverted residual's bound and its cuDNN chain (the
+# library column of kernel 8), from the port's one source of them
 try:
     from ggml_experiments_tpu_torch.utils.observability import H100 as CHIP
+    from ggml_experiments_tpu_torch.utils.observability import cudnn_inverted_residual
+    from ggml_experiments_tpu_torch.utils.observability import (
+        inverted_residual_bound as ir_bound,
+    )
 except ImportError:     # no port beside the script: main() says so and exits 2
-    CHIP = None
+    CHIP = cudnn_inverted_residual = ir_bound = None
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
 GENERATE_SHAPE = (64, 200)           # (B, T) of the scan path
@@ -348,7 +374,7 @@ TRAIN_VIT_STEPS, TRAIN_VIT_BATCH, TRAIN_VIT_IMAGES = 20, 100, 1000
 # HTTP serving (phases 18-19)
 HTTP_ENGINE_SHAPE = (512, 128)       # (slots, inner steps): the fused tick
 HTTP_REQUESTS, HTTP_CLIENTS = 64, 8
-HTTP_CANCELS, HTTP_CANCEL_NEW = 4, 1024    # streams canceled by DELETE, their length
+HTTP_CANCELS, HTTP_CANCEL_NEW = 4, 4096    # streams canceled by DELETE, their length
 HTTP_IMAGES = 128
 # multi-device serving (phase 21): two ranks share the card over gloo
 MD_BACKEND = "cpu:gloo,cuda:gloo"
@@ -387,6 +413,12 @@ IR_F32_REL = 1e-5        # f32 kernel vs plain: 3xTF32 products, f32 sums in oth
 AOT_FEATURE_REL = 1e-5   # the features artifact against extract_features, x the largest
 AOT_MAX_BYTES = 1 << 20  # an artifact holds the program and no weights
 TRACE_DECODE_SHAPE = (1024, 128)
+# phase 26: the stride-2 fused block at MobileViT-small's four downsamplers,
+# (B, H, W, C, E, Cout) of each as the model gives it a batch of VIT_BATCH
+IR_S2_SHAPES = {"layer_2": (128, 128, 128, 32, 128, 64), "layer_3": (128, 64, 64, 64, 256, 96),
+                "layer_4": (128, 32, 32, 96, 384, 128), "layer_5": (128, 16, 16, 128, 512, 160)}
+# phase 27: each of the port's serving tools once, at a small setting
+TOOLS_TIMEOUT_S = 300
 
 
 class SmokeFailure(AssertionError):
@@ -1378,50 +1410,6 @@ def train_phase(tag, dev, tok, kernel_ms):
 LAYER_KERNELS = ("transformer_ln_qkv", "transformer_attention", "transformer_proj_ffn")
 
 
-def ir_bound(b, h, w, c, e, cout, dtype="bfloat16"):
-    """Least time (ms) of the inverted residual on an H100 and what bounds
-    it: the bytes (x and the output once, the weights, at the dtype's width)
-    at CHIP.hbm_bytes_per_s; the two 1x1 products at the bf16 tensor rate
-    (f32: three tf32 products each, ``tf32x3``); the depthwise's 18
-    operations an expanded element at the f32 CUDA-core rate; one MUFU
-    exponential a SiLU (two SiLUs an expanded element) at CHIP.mufu_exp_per_s."""
-    px = b * h * w
-    elt, products = (2, "bfloat16") if dtype == "bfloat16" else (4, "tf32x3")
-    parts = {"bytes": (px * (c + cout) * elt + (c * e + e * cout) * elt + (11 * e + cout) * 4)
-             / CHIP.hbm_bytes_per_s,
-             "tensor": px * 2 * (c * e + e * cout) / CHIP.peak_ops[products],
-             "depthwise": px * 18 * e / CHIP.peak_ops["float32"],
-             "mufu": px * 2 * e / CHIP.mufu_exp_per_s}
-    parts = {k: v * 1e3 for k, v in parts.items()}
-    by = max(parts, key=parts.get)
-    return parts[by], by, parts
-
-
-def cudnn_inverted_residual(x, args, residual=True):
-    """The block as cuDNN computes it, the library column of kernel 8 (timed
-    only, never called by the port): three ``F.conv2d`` in channels_last at
-    x's dtype (bf16, or f32 with TF32 off as main() sets it) with BN folded
-    into weights and biases, ``F.silu`` after the first two, ``+ x``."""
-    import torch
-    import torch.nn.functional as F
-
-    wexp, bexp, kdw, bdw, wred, bred = args
-    bf, cl = x.dtype, torch.channels_last
-    w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-    w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
-    w3 = wred.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-    b1, b2, b3 = bexp.to(bf), bdw.to(bf), bred.to(bf)
-    xc = x.permute(0, 3, 1, 2)      # NHWC storage seen as channels_last NCHW
-
-    def chain():
-        y = F.silu(F.conv2d(xc, w1, b1))
-        y = F.silu(F.conv2d(y, w2, b2, padding=1, groups=w2.shape[0]))
-        y = F.conv2d(y, w3, b3)
-        return y + xc if residual else y
-
-    return chain
-
-
 def vision_kernel_phase(tag, params, dev):
     """Phase 13: each vision kernel against its plain version on the card at
     the shapes the main path gives it for B=128 images, with the kernel's,
@@ -1722,24 +1710,44 @@ def vision_kernel_phase(tag, params, dev):
         fir.fused_ir_plain(x.float(), *args, use_residual=True))
     del got, again
     ms = cuda_ms(lambda: fir.fused_ir_cuda(x, ops, use_residual=True), n=5)
+    b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout)
     log(f"[{tag}] inverted residual tile kernel (B, H, W, C, E, Cout) = {VIT_IR_TILE_SHAPE} bf16: "
         f"max abs err {err:.3g} (largest value {scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: "
-        f"{gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms")
+        f"{gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + ") | no block of MobileViT-small "
+        "takes this route: 0 launches on the main path")
     return tot
 
 
-def argmax_near_ties(what, got, want, tol):
+def argmax_near_ties(what, got, want, tol, tie_dtype=None):
     """Rows whose argmax differs must be near-ties of ``want`` (top-2 gap
-    below ``tol``). Returns (agreement, flips)."""
+    below ``tol``), and count as flips. With ``tie_dtype`` (the dtype ``got``
+    was computed in), a row where ``got`` ties ``want``'s class with another
+    at its top is no flip where ``want``'s top-2 gap is below one step of
+    ``tie_dtype`` at that logit (its spacing at |top-1|: at bf16 and 64-128
+    a step is 0.5): both logits rounded to the same value, and argmax's
+    first-index rule picked the other. Returns (agreement, flips)."""
     import torch
 
-    diff = torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten().tolist()
+    ref = want.argmax(-1).to(got.device)
+    diff = torch.nonzero(got.argmax(-1) != ref).flatten().tolist()
+    at_ref = got.gather(-1, ref[:, None])[:, 0]
     top2 = want.topk(2, dim=-1).values
+    flips = []
     for r in diff:
         gap = float(top2[r, 0] - top2[r, 1])
+        top = abs(float(top2[r, 0]))
+        step = torch.finfo(tie_dtype).eps * 2.0 ** math.floor(math.log2(top)) if (
+            tie_dtype is not None and top > 0) else 0.0
+        if bool(at_ref[r] == got[r].max()) and gap < step:
+            log(f"{what}: row {r} ties the reference's class ({float(at_ref[r]):.4g}) with "
+                f"another at its top, a reference gap of {gap:.3g} below one {tie_dtype} step "
+                f"({step:.3g}): no flip")
+            continue
         check(gap < tol, f"{what}: row {r} flips its argmax where the reference's top-2 gap is "
                          f"{gap:.3g} >= {tol}")
-    return 1.0 - len(diff) / got.shape[0], len(diff)
+        flips.append(r)
+    return 1.0 - len(flips) / got.shape[0], len(flips)
 
 
 def ir_blocks(params):
@@ -1778,7 +1786,8 @@ def vision_model_phase(tag, dev, images, labels):
     check(p.layer_3.transformer[0].attention.flash and p.layer_3.transformer[0].fused
           and not p.layer_2[1].fused and p_ir.layer_2[1].fused,
           f"{tag}: the default routes on the card are not flash + fused layer")
-    n_ir = sum(blk.fused_route(bf16) for blk in ir_blocks(p_ir))
+    n_ir = sum(blk.fused_route(bf16, dev) for blk in ir_blocks(p_ir))
+    n_s2 = sum(blk.fused_route(bf16, dev) for blk in ir_blocks(p_ir) if blk.conv_3x3.stride == 2)
 
     def run(params, cd, name):
         port.reset_kernel_launches()
@@ -1796,7 +1805,8 @@ def vision_model_phase(tag, dev, images, labels):
     logits = {}
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
     runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, layer),
-            ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": n_ir}))
+            ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": n_ir,
+                                           "inverted_residual_s2": n_s2}))
     main_launches = {}
     for name, params, cd, per_batch in runs:
         out, launches, sec = run(params, cd, name)
@@ -1813,7 +1823,7 @@ def vision_model_phase(tag, dev, images, labels):
                   f"{k} {launches[k]}" for k in per_batch)
         if name != "f32":
             agree, flips = argmax_near_ties(f"{tag}: {name} vs f32", out, logits["f32"],
-                                            VIT_NEAR_TIE)
+                                            VIT_NEAR_TIE, tie_dtype=cd)
             msg += f" | argmax agreement with f32 {agree:.4f} ({flips} flips, at near-ties)"
         log(msg)
 
@@ -1865,7 +1875,8 @@ def vision_model_phase(tag, dev, images, labels):
         f"{k} {ms:.3f} ms = {r:,.0f} images/s" for k, (ms, r) in rates.items()))
     # one forward of each bf16 route under torch.profiler
     kernels = {"transformer_ln_qkv": "fused layer: ln_qkv", "transformer_attention": "attention",
-               "transformer_proj_ffn": "proj_ffn", "fused_inverted_residual": "inverted residual"}
+               "transformer_proj_ffn": "proj_ffn", "fused_inverted_residual": "inverted residual",
+               "inverted_residual_s2": "inverted residual, stride 2"}
     for name, params in (("bf16", p), ("bf16+fused_ir", p_ir)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2247,10 +2258,14 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
     # the fused layer and the fused inverted residual at bf16 (the float
     # model's bf16 + fused_ir route)
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS},
-             "fused_inverted_residual": sum(blk.fused_route(bf16) for blk in ir_blocks(p_km))}
+             "fused_inverted_residual": sum(blk.fused_route(bf16, dev)
+                                            for blk in ir_blocks(p_km)),
+             "inverted_residual_s2": sum(blk.fused_route(bf16, dev) for blk in ir_blocks(p_km)
+                                         if blk.conv_3x3.stride == 2)}
     n_ir32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_km))
+    n_s2_32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_km) if blk.conv_3x3.stride == 2)
     f32_route = {"flash_mha": 9, "fused_inverted_residual": n_ir32,
-                 "inverted_residual_f32": n_ir32}
+                 "inverted_residual_f32": n_ir32 - n_s2_32, "inverted_residual_s2_f32": n_s2_32}
     for name, cd, per_batch, ref_route in (("f32", f32, f32_route, "f32"),
                                            ("bf16", bf16, layer, "bf16+fused_ir")):
         got, launches = run_classify(p_km, cd)
@@ -2302,7 +2317,7 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
     rel = {}
     for store, scope, params in rows:
         out, launches = run_classify(params, bf16)
-        n_ir = sum(blk.fused_route(bf16) for blk in ir_blocks(params))
+        n_ir = sum(blk.fused_route(bf16, dev) for blk in ir_blocks(params))
         check(launches["fused_inverted_residual"] == n_ir * nb,
               f"{tag}: {store}/{scope}: {launches['fused_inverted_residual']} inverted residual "
               f"launches, want {n_ir} a batch x {nb}")
@@ -2780,8 +2795,8 @@ def gates_phase(tag, dev, rng, tok):
 
     vit = mobilevit.load_mobilevit(VIT_CKPT, device=dev)
     blocks = ir_blocks(vit)
-    want_ir = sum(blk.fused_route(bf16) for blk in blocks)
-    want_ir32 = sum(blk.fused_route(torch.float32, dev) for blk in blocks)
+    want_ir = {cdname(cd): sum(blk.fused_route(cd, dev) for blk in blocks)
+               for cd in (bf16, torch.float32)}
     x = torch.rand((8, 256, 256, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     got_ir = {}
     for cd in (bf16, torch.float32):
@@ -2789,14 +2804,16 @@ def gates_phase(tag, dev, rng, tok):
         mobilevit.extract_features(vit, x, compute_dtype=cd)
         torch.cuda.synchronize()
         got_ir[cdname(cd)] = port.kernel_launches()["fused_inverted_residual"]
-    widths = [blk.expand_1x1.kernel.shape[-1] for blk in blocks if blk.conv_3x3.stride == 1]
-    check(want_ir == want_ir32 == sum(e >= mobilevit.IR_FUSED_MIN_EXPAND for e in widths)
-          and want_ir > 0 and got_ir == {"bfloat16": want_ir, "float32": want_ir},
+    widths = [(blk.conv_3x3.stride, blk.expand_1x1.kernel.shape[-1]) for blk in blocks]
+    # every block of E >= IR_FUSED_MIN_EXPAND: stride 1 and stride 2 at both dtypes
+    routed = {cdname(cd): sum(e >= mobilevit.IR_FUSED_MIN_EXPAND for _, e in widths)
+              for cd in (bf16, torch.float32)}
+    check(want_ir == routed and min(want_ir.values()) > 0 and got_ir == want_ir,
           f"{tag}: fused_ir default: {got_ir} inverted-residual launches a forward, want "
-          f"{want_ir} at bf16 and at f32 (stride-1 widths {widths}, E >= "
-          f"{mobilevit.IR_FUSED_MIN_EXPAND})")
+          f"{routed} ((stride, E) {widths}, E >= {mobilevit.IR_FUSED_MIN_EXPAND})")
     log(f"[{tag}] fused_ir default on the card: E >= {mobilevit.IR_FUSED_MIN_EXPAND} of the "
-        f"stride-1 widths {widths}: {got_ir} launches a forward (bf16, f32)")
+        f"(stride, E) {widths}, at both strides and dtypes: "
+        f"{got_ir} launches a forward")
     del vit, x
     torch.cuda.empty_cache()
 
@@ -3950,6 +3967,163 @@ def ir_f32_phase(tag, dev):
     return entry
 
 
+# ---- phases 26-27: the stride-2 fused block, the serving tools -------------------------
+
+
+def ir_s2_phase(tag, dev, images):
+    """Phase 26: the stride-2 fused inverted residual (``csrc/inverted_residual_s2.cu``)
+    through ``fused_inverted_residual(..., stride=2)`` on the full
+    checkpoint's folded weights at each IR_S2_SHAPES shape, bf16 and f32
+    (one launch each), held to its plain version (f32 at IR_F32_REL of the
+    plain output's largest value; bf16 at phase 13's limits for kernel 8),
+    a second launch bit-equal; the kernel on operands made once, the plain
+    version and the cuDNN stride-2 chain timed beside the bound. Then the
+    main path: ``extract_features`` of ``images`` (a batch) on the model's
+    default route, whose stride-2 launches are counted. Returns the two
+    kernels-line entries (layer_2's shape; every shape under "shapes")."""
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    vit = load_mobilevit(VIT_CKPT, device=dev)
+    blocks = {"layer_2": vit.layer_2[0], **{f"layer_{k}": getattr(vit, f"layer_{k}").downsampling
+                                            for k in (3, 4, 5)}}
+    g = torch.Generator(device=dev).manual_seed(26)
+    entries = {}
+    for cd in (bf16, f32):
+        name = "inverted_residual_s2_f32" if cd == f32 else "inverted_residual_s2"
+        cases = []
+        for layer, shape in IR_S2_SHAPES.items():
+            b, hh, ww, c, e, cout = shape
+            blk = blocks[layer]
+            args = fir._folded(blk)
+            check(blk.conv_3x3.stride == 2 and not blk.use_residual and args[0].shape == (c, e)
+                  and args[4].shape == (e, cout), f"{tag}: {layer}'s block is not {shape}")
+            cases.append((layer, shape, args,
+                          torch.randn((b, hh, ww, c), generator=g, device=dev).to(cd)))
+        port.reset_kernel_launches()
+        outs = [fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+                for _, _, args, x in cases]
+        torch.cuda.synchronize()
+        launches = port.kernel_launches()
+        check(launches[name] == launches["fused_inverted_residual"] == len(cases)
+              and sum(launches.values()) == 2 * len(cases),
+              f"{tag}: {len(cases)} stride-2 calls at {cdname(cd)} launched {launches}")
+        shapes = {}
+        for (layer, shape, args, x), got in zip(cases, outs):
+            b, hh, ww, c, e, cout = shape
+            again = fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+            pargs = (args[0].to(cd), args[1], args[2], args[3], args[4].to(cd), args[5])
+            want = fir.fused_ir_plain(x, *pargs, stride=2).float()
+            torch.cuda.synchronize()
+            check(got.shape == (b, hh // 2, ww // 2, cout) and got.dtype == cd
+                  and bool(torch.isfinite(got.float()).all()),
+                  f"{tag}: {layer} {cdname(cd)}: output {got.dtype}{tuple(got.shape)}")
+            scale = float(want.abs().max())
+            d = (got.float() - want).abs()
+            err, mean = float(d.max()), float(d.mean())
+            if cd == f32:
+                limit = f"limit {IR_F32_REL} x {scale:.3g}"
+                check(err <= IR_F32_REL * scale, f"{tag}: stride-2 f32 {layer} {shape}: max abs "
+                                                 f"err {err:.3g} ({limit})")
+            else:
+                gap = float((fir.fused_ir_plain(x.float(), *args, stride=2) - want).abs().mean())
+                limit = (f"limits {VIT_BF16_MAX['ir']} x {scale:.3g}, mean "
+                         f"{VIT_BF16_MEAN_FRAC['ir']} x {gap:.3g}")
+                check(err <= VIT_BF16_MAX["ir"] * scale and mean <= VIT_BF16_MEAN_FRAC["ir"] * gap,
+                      f"{tag}: stride-2 bf16 {layer} {shape}: max abs err {err:.3g}, mean "
+                      f"{mean:.3g} ({limit}, the plain version's bf16-vs-f32 distance)")
+            check(torch.equal(got, again), f"{tag}: stride-2 {cdname(cd)} {layer}: two launches "
+                                           f"differ")
+            del again, want
+            ops = fir.ir_s2_operands(*args, compute_dtype=cd)
+            ms = cuda_ms(lambda: fir.fused_ir_s2_cuda(x, ops), n=20)
+            plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *pargs, stride=2), n=3)
+            lib_ms = cuda_ms(cudnn_inverted_residual(x, args, residual=False, stride=2), n=20)
+            b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout, cdname(cd), stride=2)
+            log(f"[{tag}] stride-2 fused inverted residual {cdname(cd)} {layer} (B, H, W, C, E, "
+                f"Cout) = {shape}: max abs err {err:.3g} ({err / scale:.3g} of the largest value "
+                f"{scale:.3g}; mean {mean:.3g}; {limit}), two launches bit-equal | kernel "
+                f"{ms:.4f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                + f") | library: the cuDNN stride-2 chain (three F.conv2d, channels_last, the "
+                  f"depthwise at stride 2, BN folded, two F.silu) {lib_ms:.4f} ms | "
+                  f"{fir.ir_s2_smem_bytes(c, e, cout, cd)} bytes of shared memory a block")
+            shapes[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by="bytes" if b_by == "bytes" else "operations",
+                                 library_ms=lib_ms)
+            del ops
+        del outs, cases
+        # the main path: a batch through extract_features on the default
+        # route, which takes all four downsamplers at both dtypes
+        port.reset_kernel_launches()
+        feats = extract_features(vit, images, compute_dtype=cd)
+        torch.cuda.synchronize()
+        n = port.kernel_launches()[name]
+        check(n == len(IR_S2_SHAPES) and bool(torch.isfinite(feats.float()).all()),
+              f"{tag}: extract_features at {cdname(cd)} launched {n} stride-2 kernels, want "
+              f"{len(IR_S2_SHAPES)} (one a downsampler: {', '.join(IR_S2_SHAPES)})")
+        log(f"[{tag}] extract_features B={images.shape[0]} {cdname(cd)} on the default route: "
+            f"{n} {name} launches (one a downsampler)")
+        entries[name] = dict(shapes["layer_2"], launches=n, shapes=shapes)
+    del vit
+    torch.cuda.empty_cache()
+    return entries
+
+
+def tools_phase(tag):
+    """Phase 27: the port's serving tools once each, at a small setting, in
+    processes of their own: ``tools/torch_serving_breakdown.py`` (64 slots,
+    16 inner steps, fetch depth 2), ``tools/torch_vision_serving_soak.py``
+    (512 images, 16 cancels) and ``tools/torch_capacity_probe.py`` (q8_0,
+    one worker: the fused tick at 1024 slots; no scan or routing cells);
+    each must end in its JSON line with figures that hang together."""
+    def run(script, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", script), *argv],
+                              cwd=REPO, capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+        check(proc.returncode == 0, f"{tag}: {script} {' '.join(argv)} exited "
+                                    f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        try:
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            raise SmokeFailure(f"{tag}: {script} printed no JSON line: {proc.stdout[-500:]!r}")
+        return out, time.perf_counter() - t0
+
+    sb, sec = run("torch_serving_breakdown.py", "--slots", "64", "--depths", "2", "--inner",
+                  "16", "--req-tokens", "64", "--warm-tokens", "16")
+    check(len(sb["configs"]) == 2 and all(
+        c["device"]["tick"] == "fused" and c["device"]["timer"] == "cuda events"
+        and c["e2e"]["tokens"] > 0 and 0 < c["e2e_fraction_of_device"] for c in sb["configs"]),
+        f"{tag}: torch_serving_breakdown.py: {sb}")
+    log(f"[{tag}] tools/torch_serving_breakdown.py --slots 64 --depths 2 --inner 16 ({sec:.1f} s)"
+        f": device tick {sb['configs'][0]['device']['tick_ms']} ms | " + "; ".join(
+            f"fetch_async {c['fetch_async']}: e2e {c['e2e']['tokens_per_s']:,.0f} tokens/s = "
+            f"{c['e2e_fraction_of_device']} of the device tick, breakdown {c['e2e']['breakdown']}"
+            for c in sb["configs"]))
+    so, sec = run("torch_vision_serving_soak.py", "--images", "512", "--cancels", "16")
+    check(so["completed"] + so["canceled"] == so["images"] == 512 and so["e2e_img_s"] > 0
+          and so["offline_img_s"] > 0, f"{tag}: torch_vision_serving_soak.py: {so}")
+    log(f"[{tag}] tools/torch_vision_serving_soak.py --images 512 --cancels 16 ({sec:.1f} s): "
+        f"offline B=128 {so['offline_img_s']:,.1f} images/s, engine end to end "
+        f"{so['e2e_img_s']:,.1f} ({so['fraction_of_offline']} of offline), {so['canceled']} "
+        f"canceled | breakdown {so['breakdown']}")
+    cp, sec = run("torch_capacity_probe.py", "--qtypes", "q8_0", "--start", "1024",
+                  "--max-slots", "1024", "--scan-slots", "", "--routing-slots", "")
+    fused = cp["fused"]["q8_0"]
+    check(fused["max_slots"] == 1024 and fused["at_max"]["ok"]
+          and fused["at_max"]["tokens_per_s"] > 0
+          and cp["weight_bytes"]["q4_0"] < cp["weight_bytes"]["q8_0"] < cp["weight_bytes"]["f32"],
+          f"{tag}: torch_capacity_probe.py: {cp}")
+    log(f"[{tag}] tools/torch_capacity_probe.py --qtypes q8_0 --start 1024 --max-slots 1024 "
+        f"({sec:.1f} s, one worker): weight bytes {cp['weight_bytes']} | the fused tick at "
+        f"{fused['max_slots']} slots: {fused['at_max']['tokens_per_s']:,.0f} tokens/s "
+        f"({fused['at_max'].get('device_median_ms')} ms a 128-step tick)")
+
+
 class _LogSink:
     """Messages logged to ``logger`` inside the block (its level lowered to
     WARNING for the block)."""
@@ -4085,15 +4259,21 @@ def aot_phase(tag, dev, tok, images):
         check(got.shape == want.shape and err <= AOT_FEATURE_REL * scale,
               f"{tag}: the MobileViT artifact's features: max abs err {err:.3g} against "
               f"extract_features (limit {AOT_FEATURE_REL} x {scale:.3g})")
+        n_s2 = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit)
+                   if blk.conv_3x3.stride == 2)
         check(launches["flash_mha"] == n_layers and n_ir > 0
-              and launches["inverted_residual_f32"] == launches["fused_inverted_residual"] == n_ir
+              and launches["inverted_residual_f32"] == n_ir - n_s2
+              and launches["inverted_residual_s2_f32"] == n_s2
+              and launches["fused_inverted_residual"] == n_ir
               and sum(launches.values()) == n_layers + 2 * n_ir,
               f"{tag}: the MobileViT artifact's replay launched {launches}, expected "
-              f"{n_layers} flash_mha and {n_ir} f32 inverted residuals")
+              f"{n_layers} flash_mha and {n_ir} f32 inverted residuals, {n_s2} of them at "
+              f"stride 2")
         size = os.path.getsize(art)
         check(size < AOT_MAX_BYTES, f"{tag}: the MobileViT artifact holds {size} bytes")
         out["flash_mha"] = launches["flash_mha"]
         out["inverted_residual_f32"] = launches["inverted_residual_f32"]
+        out["inverted_residual_s2_f32"] = launches["inverted_residual_s2_f32"]
         log(f"[{tag}] MobileViT features artifact (B, S) = (8, 256), f32: aot-export "
             f"{export_s:.2f} s, {size:,} bytes ({os.path.getsize(VIT_CKPT):,} in the "
             f"weight.ggml), {len(ep.graph.nodes)} graph nodes, load {load_s:.2f} s | aot-run "
@@ -4147,14 +4327,17 @@ def trace_phase(tag, dev):
     cfg = MobileViTConfig()
     vit = from_named_tensors(random_named_tensors(cfg), cfg, device=dev)
     n_layers = sum(len(blk.transformer) for blk in (vit.layer_3, vit.layer_4, vit.layer_5))
-    n_ir = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit))
+    n_s2 = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit)
+               if blk.conv_3x3.stride == 2)
+    n_ir = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit)) - n_s2
     del vit
     t0 = time.perf_counter()
     rows, table = trace_report_rows(["--model", "mobilevit", "--batch", str(VIT_BATCH),
                                      "--compute", "float32", "--reps", "1", "--top", "60"])
     sec = time.perf_counter() - t0
     byname = {name: (us, count) for us, count, name in rows}
-    for name, n in (("flash_mha", n_layers), ("inverted_residual_f32", n_ir)):
+    for name, n in (("flash_mha", n_layers), ("inverted_residual_f32", n_ir),
+                    ("inverted_residual_s2_f32", n_s2)):
         check(byname.get(name, (0, 0))[1] == n,
               f"{tag}: the f32 MobileViT trace names no {name} row of {n} launches: "
               f"{[(r[2][:40], r[1]) for r in rows[:8]]}")
@@ -4162,7 +4345,8 @@ def trace_phase(tag, dev):
     log(f"[{tag}] tools/torch_trace_report.py --model mobilevit --batch {VIT_BATCH} --compute "
         f"float32 ({sec:.1f} s): {busy / 1e3:.2f} ms busy a forward; flash_mha "
         f"{byname['flash_mha'][0] / 1e3:.3f} ms in {n_layers} launches, inverted_residual_f32 "
-        f"{byname['inverted_residual_f32'][0] / 1e3:.3f} ms in {n_ir}:\n"
+        f"{byname['inverted_residual_f32'][0] / 1e3:.3f} ms in {n_ir}, inverted_residual_s2_f32 "
+        f"{byname.get('inverted_residual_s2_f32', (0, 0))[0] / 1e3:.3f} ms in {n_s2}:\n"
         + "\n".join(table.splitlines()[:13]))
     b, t = TRACE_DECODE_SHAPE
     rows, table = trace_report_rows(["--model", "gru", "--batch", str(b), "--steps", str(t),
@@ -4507,13 +4691,21 @@ def main() -> int:
     kernels["inverted_residual_f32"] = ir_f32_phase("23 f32 fused block", dev)
 
     # ---- 24. AOT artifacts through the CLI ----------------------------------------------
-    for name, n in aot_phase("24 aot", dev, tok, images).items():
-        kernels[name]["aot_launches"] = n
+    aot_launches = aot_phase("24 aot", dev, tok, images)
 
     # ---- 25. the trace report and the native host runtime -----------------------------
     trace_phase("25 trace report", dev)
+
+    # ---- 26. the stride-2 fused inverted residual ----------------------------------------
+    kernels.update(ir_s2_phase("26 stride-2 fused block", dev,
+                               torch.from_numpy(images[:VIT_BATCH]).to(dev)))
+    for name, n in aot_launches.items():
+        kernels[name]["aot_launches"] = n
     del images
     torch.cuda.empty_cache()
+
+    # ---- 27. the port's serving tools ---------------------------------------------------
+    tools_phase("27 tools")
 
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
@@ -4540,6 +4732,9 @@ def main() -> int:
                                        "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     meta["inverted_residual_f32"] = (src + "inverted_residual_f32.cu",
                                      "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
+    for name in ("inverted_residual_s2", "inverted_residual_s2_f32"):
+        meta[name] = (src + "inverted_residual_s2.cu",
+                      "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     # phase 21: the tick on one rank's slot shard, the qmatmul kernel on a column shard
     meta["fused_slot_tick_sharded"] = (src + "gru_persistent.cu", tick_at)
     meta["qmatmul_q8_0_column_shard"] = (src + "qmatmul.cu", qmm_at)
@@ -4558,8 +4753,10 @@ def main() -> int:
             entry["plan"] = kd["plan"]
         if "mesh_launches" in kd:   # the train kernels: phase 22's launches by run and rank
             entry["mesh_launches"] = kd["mesh_launches"]
-        if "aot_launches" in kd:    # qmatmul q8_0, flash: phase 24's artifact replays
+        if "aot_launches" in kd:    # qmatmul q8_0, flash, f32 blocks: phase 24's replays
             entry["aot_launches"] = kd["aot_launches"]
+        if "shapes" in kd:          # the stride-2 kernel: each downsampler's readings
+            entry["shapes"] = kd["shapes"]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

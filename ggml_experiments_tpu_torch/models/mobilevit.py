@@ -10,11 +10,14 @@ configuration (activation, stride, heads, eps, the kernel routes) is static:
 Three routes reach the port's hand-written kernels, gated as in the JAX
 package:
 
-* ``InvertedResidualParams.fused`` at stride 1 and an expanded width of at
-  least ``IR_FUSED_MIN_EXPAND`` (64), at bf16, or at f32 on a CUDA device ->
-  ``ops.fused_inverted_residual`` (layer_1's block and layer_2's blocks
-  1-2; the JAX package routes bf16 only, and the port's f32 route stays off
-  the CPU, whose f32 forward is the JAX package's unfused chain);
+* ``InvertedResidualParams.fused`` with an expanded width of at least
+  ``IR_FUSED_MIN_EXPAND`` (64) -> ``ops.fused_inverted_residual``: at stride
+  1 at bf16, or at f32 on a CUDA device (layer_1's block and layer_2's
+  blocks 1-2); at stride 2 on a CUDA device only, at bf16 and f32, with
+  even H and W and no residual (the four downsamplers: layer_2's block 0
+  and the downsampling block of layers 3-5).
+  The JAX package routes bf16 at stride 1 only; the CPU keeps that route,
+  and its f32 forward is the JAX package's unfused chain;
 * ``TransformerLayerParams.fused`` at bf16 with L a multiple of 8 ->
   ``ops.fused_transformer_layer``; when every layer of a block is fused and
   the block's patch count is a multiple of 8, the block folds its conv_1x1
@@ -84,8 +87,9 @@ class MobileViTConfig:
     num_labels: int = 1000  # classifier head (HF MobileViTForImageClassification)
 
 
-# The fused inverted residual (stride 1) runs from this expanded width on:
-# the smallest measured, layer_1's. On an NVIDIA H100 80GB HBM3 at 700.00 W
+# The fused inverted residual runs from this expanded width on (stride 2 too,
+# on a CUDA device): the smallest stride-1 width measured,
+# layer_1's. On an NVIDIA H100 80GB HBM3 at 700.00 W
 # (tools/torch_gate_sweep.py; PERF.md, "Dispatch gates"), extract_features
 # at bf16 with layer_1's block fused too (E >= 64) ran 1.17 / 1.45 / 1.65x
 # the unfused forward at B = 8 / 32 / 128, against 1.06 / 1.26 / 1.35x with
@@ -93,6 +97,12 @@ class MobileViTConfig:
 # (tools/torch_gate_sweep.py --only ir_f32; PERF.md §6) the f32 kernel beat
 # cuDNN's f32 chain 1.49-2.39x a call at both stride-1 blocks and at each B,
 # and extract_features at f32 ran 1.11 / 1.23 / 1.25x the unfused forward.
+# Stride 2 takes all four downsamplers on a CUDA device: on the same card
+# (tools/torch_gate_sweep.py --only ir_s2; PERF.md §6, PR 15) extract_features
+# ran 1.31 / 1.34 / 1.47x faster with them at bf16 and 1.18 / 1.23 / 1.23x
+# at f32, B = 8 / 32 / 128. With layer_5's block (E = 512, where the kernel
+# loses to cuDNN's chain a call) left unfused it was slower at B = 128 at
+# both dtypes and no faster beyond the turns' spread at B = 8 and 32.
 IR_FUSED_MIN_EXPAND = 64
 
 
@@ -106,19 +116,26 @@ class InvertedResidualParams:
     use_residual: bool = static_field(False)
     fused: bool = static_field(False)
 
-    def fused_route(self, compute_dtype, device=None) -> bool:
-        """Whether a call at ``compute_dtype`` on ``device`` runs the fused
-        kernel: stride 1 (what the kernels take), E >= IR_FUSED_MIN_EXPAND
-        (where they win), and bf16, or f32 on a CUDA device."""
+    def fused_route(self, compute_dtype, device=None, hw=None) -> bool:
+        """Whether a call at ``compute_dtype`` on ``device`` (on an input of
+        ``hw`` = (H, W), None: not checked) runs the fused kernel: E >=
+        IR_FUSED_MIN_EXPAND (where the kernels win), and at stride 1 bf16, or
+        f32 on a CUDA device; at stride 2 (bf16 and f32) a CUDA device, even
+        H and W and no residual (what the stride-2 kernel takes; the CPU
+        keeps the JAX model's route, stride 1 only)."""
         cd = resolve_dtype(compute_dtype)
         on_card = device is not None and torch.device(device).type == "cuda"
-        return (self.fused and self.conv_3x3.stride == 1
-                and self.expand_1x1.kernel.shape[-1] >= IR_FUSED_MIN_EXPAND
+        if not self.fused or self.expand_1x1.kernel.shape[-1] < IR_FUSED_MIN_EXPAND:
+            return False
+        if self.conv_3x3.stride == 2:
+            return (on_card and not self.use_residual
+                    and (hw is None or (hw[0] % 2 == 0 and hw[1] % 2 == 0)))
+        return (self.conv_3x3.stride == 1
                 and (cd == torch.bfloat16 or (cd == torch.float32 and on_card)))
 
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)
-        if self.fused_route(cd, x.device):
+        if self.fused_route(cd, x.device, x.shape[1:3]):
             from ggml_experiments_tpu_torch.ops.fused_inverted_residual import (
                 inverted_residual_fused,
             )

@@ -1,6 +1,7 @@
 """MobileNetV2 inverted residual in one pass: ``csrc/inverted_residual.cu``
-(``csrc/inverted_residual_tile.cu`` for the shapes it does not take) and
-their plain PyTorch version.
+(``csrc/inverted_residual_tile.cu`` for the shapes it does not take),
+``csrc/inverted_residual_f32.cu`` at f32, ``csrc/inverted_residual_s2.cu`` at
+stride 2, and their plain PyTorch version.
 
 Replaces the TPU kernel ``ops/fused_inverted_residual.py``
 ``fused_inverted_residual`` of the JAX package (body ``_ir_kernel``): expand
@@ -11,24 +12,30 @@ each convolution. The arithmetic, as the TPU body has it:
 
 * ``ex = x . Wexp`` summed in f32 on bf16 operands; ``SiLU(ex + bexp) -> cd``;
   a zero ring around the image (zeros after the SiLU);
-* depthwise over the rounded expanded values in f32 with f32 taps: for each
-  column tap dj the three row taps di summed in order, then the three column
-  sums in order; ``SiLU(acc + bdw) -> cd``;
-* ``out = y . Wred + bred`` in f32, ``+ x`` with the residual, ``-> cd``.
+* depthwise over the rounded expanded values in f32 with f32 taps. Stride
+  1: for each column tap dj the three row taps di summed in order, then the
+  three column sums in order. Stride 2: output (i, j) reads input rows and
+  columns 2i-1 .. 2i+1, the nine taps summed into one accumulator in (di,
+  dj) row-major order. Then ``SiLU(acc + bdw) -> cd``;
+* ``out = y . Wred + bred`` in f32, ``+ x`` with the residual (stride 1
+  only), ``-> cd``.
 
 At f32 nothing rounds below f32: the products are f32 sums of f32
 operands, and the expanded and depthwise values stay f32.
 
 On a CPU tensor :func:`fused_inverted_residual` runs :func:`fused_ir_plain`;
-on a CUDA tensor it launches a kernel (bf16 or f32, stride 1) or raises. At
-bf16 the strip kernel (``csrc/inverted_residual.cu``) takes C and Cout
-multiples of 8, C up to 64, E up to 256 and widths whose weights and rings
-fit one block (:func:`ir_plans`); every other shape goes to the 8 x 8 tile
-kernel (``csrc/inverted_residual_tile.cu``, counter
-``inverted_residual_tile``). At f32 the block runs on
-``csrc/inverted_residual_f32.cu`` (counter ``inverted_residual_f32``; Cout up
-to 128). All three count under ``fused_inverted_residual``. The plain
-version also takes stride 2.
+on a CUDA tensor it launches a kernel or raises. At stride 1 and bf16 the
+strip kernel (``csrc/inverted_residual.cu``) takes C and Cout multiples of
+8, C up to 64, E up to 256 and widths whose weights and rings fit one block
+(:func:`ir_plans`); every other shape goes to the 8 x 8 tile kernel
+(``csrc/inverted_residual_tile.cu``, counter ``inverted_residual_tile``). At
+stride 1 and f32 the block runs on ``csrc/inverted_residual_f32.cu`` (counter
+``inverted_residual_f32``; Cout up to 128). At stride 2, bf16 or f32, it runs
+on ``csrc/inverted_residual_s2.cu`` (counters ``inverted_residual_s2`` and
+``inverted_residual_s2_f32``; even H and W, no residual, Cout up to 256, and
+C within the block's shared memory: :func:`fused_ir_s2_cuda`), which covers
+MobileViT-small's four downsampling blocks. All of them count under
+``fused_inverted_residual`` too.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from ggml_experiments_tpu_torch.ops.fused_transformer_layer import _bt, _smem_li
 
 # launches of the CUDA kernels; only the kernel wrappers add to them
 LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0,
-            "inverted_residual_f32": 0}
+            "inverted_residual_f32": 0, "inverted_residual_s2": 0, "inverted_residual_s2_f32": 0}
 
 SMEM_LIMIT = 232448     # bytes of shared memory an H100 block may use
 
@@ -216,6 +223,11 @@ def _lib(name: str):
         lib.gxt_ir_f32.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.gxt_ir_f32_smem.restype = ctypes.c_longlong
         lib.gxt_ir_f32_smem.argtypes = [i] * 3
+    elif name == "inverted_residual_s2":
+        lib.gxt_ir_s2.restype = i
+        lib.gxt_ir_s2.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
+        lib.gxt_ir_s2_smem.restype = ctypes.c_longlong
+        lib.gxt_ir_s2_smem.argtypes = [i] * 4
     else:
         lib.gxt_ir_tile.restype = i
         lib.gxt_ir_tile.argtypes = [p] * 8 + [i] * 7 + [p]
@@ -399,20 +411,172 @@ def fused_ir_f32_cuda(x: torch.Tensor, ops: IRF32Operands, *,
     return out
 
 
+# ---- the stride-2 kernel ---------------------------------------------------------------
+
+S2_CHUNK = 64         # expanded channels a chunk of csrc/inverted_residual_s2.cu
+S2_MAX_COUT = 256     # the widest reduce its warps cover (Cout rounded up to 32)
+
+
+def _s2_cover(cout: int) -> int:
+    """Columns the stride-2 kernel's reduce covers: Cout rounded up to 32 (0
+    past S2_MAX_COUT)."""
+    return _pad(cout, 32) if 0 < cout <= S2_MAX_COUT else 0
+
+
+def _ld_bank(n: int) -> int:
+    """``ld_bank`` of ``csrc/mma_common.cuh``: the bf16 row stride whose 32-bit
+    words are 4 x odd."""
+    w = ((n + 1) // 2 + 3) & ~3
+    return 2 * (w + 4 if (w // 4) % 2 == 0 else w)
+
+
+def ir_s2_smem_bytes(c: int, e: int, cout: int, compute_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of a launch of ``csrc/inverted_residual_s2.cu``
+    (the kernel's ``layout``), -1 where it does not take the widths: the 9 x
+    17 x halo (160 rows), the expanded chunk (153 rows) and the depthwise
+    chunk (32 rows), each rounded up to 16 bytes. f32: rows of pad8(C) + 4
+    and 68 floats; bf16: rows of ``_ld_bank(pad16(C))``, 72 and
+    ``_ld_bank(64)`` elements. E does not enter: the kernel walks it in
+    chunks of 64."""
+    if c <= 0 or e <= 0 or not _s2_cover(cout):
+        return -1
+    if resolve_dtype(compute_dtype) == torch.float32:
+        ldx, lde, ldy, size = _pad(c, 8) + 4, S2_CHUNK + 4, S2_CHUNK + 4, 4
+    else:
+        ldx, lde, ldy, size = _ld_bank(_pad(c, 16)), S2_CHUNK + 8, _ld_bank(S2_CHUNK), 2
+    return sum(_pad(rows * ld * size, 16) for rows, ld in ((160, ldx), (153, lde), (32, ldy)))
+
+
+@dataclasses.dataclass
+class IRS2Operands:
+    """A stride-2 block's weights for ``csrc/inverted_residual_s2.cu`` at one
+    compute dtype, made once (:func:`ir_s2_operands`). f32: Wexp (pad8(C),
+    pad64(E)) and Wred (pad64(E), Cw) row-major; bf16: Wexp (pad64(E),
+    pad16(C)) and Wred (Cw, pad64(E)), transposed; Cw = Cout rounded up to
+    32; the vectors f32, padded to pad64(E) and Cw; zeros in every pad."""
+
+    c: int
+    e: int
+    cout: int
+    dtype: torch.dtype
+    wexp: torch.Tensor
+    bexp: torch.Tensor
+    kdw: torch.Tensor
+    bdw: torch.Tensor
+    wred: torch.Tensor
+    bred: torch.Tensor
+    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernel's order
+
+    def __post_init__(self):
+        self.ptrs = tuple(t.data_ptr() for t in (self.wexp, self.bexp, self.kdw, self.bdw,
+                                                 self.wred, self.bred))
+
+
+def ir_s2_operands(wexp, bexp, kdw, bdw, wred, bred,
+                   compute_dtype=torch.bfloat16) -> IRS2Operands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch; the matrices at
+    ``compute_dtype`` (bf16 or f32)."""
+    cd = resolve_dtype(compute_dtype)
+    c, e = wexp.shape
+    cout = wred.shape[1]
+    if not _s2_cover(cout):
+        raise ValueError(f"ir_s2_operands: the stride-2 kernel takes Cout up to {S2_MAX_COUT}, "
+                         f"got {cout}")
+    ep, cw = _pad(e, S2_CHUNK), _s2_cover(cout)
+
+    def mat(w, rows, cols, dtype=torch.float32):
+        out = torch.zeros((rows, cols), dtype=torch.float32, device=w.device)
+        out[:w.shape[0], :w.shape[1]] = w.float()
+        return out.to(dtype)
+
+    if cd == torch.float32:
+        wx, wr = mat(wexp, _pad(c, 8), ep), mat(wred, ep, cw)
+    else:
+        wx, wr = mat(wexp.t(), ep, _pad(c, 16), cd), mat(wred.t(), cw, ep, cd)
+    return IRS2Operands(c, e, cout, cd, wx, mat(bexp.reshape(1, e), 1, ep),
+                        mat(kdw.reshape(9, e), 9, ep), mat(bdw.reshape(1, e), 1, ep), wr,
+                        mat(bred.reshape(1, cout), 1, cw))
+
+
+_S2_SMEM_AGREED = set()   # (dtype, C, E, Cout) whose reckoning the kernel confirmed
+
+
+def fused_ir_s2_cuda(x: torch.Tensor, ops: IRS2Operands, *,
+                     use_residual: bool = False) -> torch.Tensor:
+    """Launch ``csrc/inverted_residual_s2.cu``: x a (B, H, W, C) CUDA tensor at
+    ``ops``' dtype with H and W even -> (B, H/2, W/2, Cout). Raises on a
+    residual (the output has another shape than x), odd H or W, widths that
+    do not meet x's, a C whose halo does not fit the block's shared memory,
+    another dtype or device. The checks of shape come before the device's,
+    so that they read the same on the CPU."""
+    from ggml_experiments_tpu_torch import _build
+
+    if x.dim() != 4 or x.dtype != ops.dtype:
+        raise ValueError(f"fused_ir_s2_cuda: x must be a {ops.dtype} (B, H, W, C) tensor, got "
+                         f"{x.dtype}{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    e, cout = ops.e, ops.cout
+    if use_residual:
+        raise ValueError("fused_ir_s2_cuda: a stride-2 block has no residual (its output is "
+                         "(H/2, W/2))")
+    if h % 2 or w % 2:
+        raise ValueError(f"fused_ir_s2_cuda: the stride-2 kernel takes even H and W, got "
+                         f"{h} x {w}")
+    if ops.c != c:
+        raise ValueError(f"fused_ir_s2_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x "
+                         f"of width {c}")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ir_s2_cuda: x must be a CUDA tensor, got one on {dev}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    f32 = ops.dtype == torch.float32
+    lib = _lib("inverted_residual_s2")
+    if (ops.dtype, c, e, cout) not in _S2_SMEM_AGREED:
+        need = ir_s2_smem_bytes(c, e, cout, ops.dtype)
+        if lib.gxt_ir_s2_smem(int(f32), c, e, cout) != need:
+            raise RuntimeError(f"fused_ir_s2_cuda: (C, E, Cout) = ({c}, {e}, {cout}) needs "
+                               f"{need} bytes of shared memory here, the kernel reckons otherwise")
+        limit = _DEVICE_SMEM.get(dev.index)
+        if limit is None:
+            limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
+        if need > limit:
+            raise ValueError(f"fused_ir_s2_cuda: C={c} needs {need} bytes of shared memory, "
+                             f"the device allows {limit}")
+        _S2_SMEM_AGREED.add((ops.dtype, c, e, cout))
+    out = torch.empty((b, h // 2, w // 2, cout), dtype=ops.dtype, device=dev)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        code = lib.gxt_ir_s2(int(f32), x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e,
+                             cout, current_stream_handle(dev))
+    if code:
+        _build.check(lib, code, f"fused_inverted_residual stride 2 {ops.dtype} (B, H, W, C, E, "
+                                f"Cout) = ({b}, {h}, {w}, {c}, {e}, {cout})")
+    LAUNCHES["inverted_residual_s2_f32" if f32 else "inverted_residual_s2"] += 1
+    LAUNCHES["fused_inverted_residual"] += 1
+    return out
+
+
 def fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int = 1,
                             use_residual: bool = False,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x (B, H, W, C); wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred
     (E, Cout), bred (Cout,), BN folded -> (B, H/stride, W/stride, Cout) in the
-    compute dtype."""
+    compute dtype. A residual takes stride 1."""
     cd = resolve_dtype(compute_dtype)
+    if stride == 2 and use_residual:
+        raise ValueError("fused_inverted_residual: a stride-2 block has no residual (its "
+                         "output is (H/2, W/2))")
     x = x.to(cd)
     if x.device.type == "cpu":
         return fused_ir_plain(x, wexp.to(cd), bexp.float(), kdw, bdw.float(), wred.to(cd),
                               bred.float(), stride=stride, use_residual=use_residual)
-    if stride != 1 or cd not in (torch.bfloat16, torch.float32):
+    if stride not in (1, 2) or cd not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_inverted_residual: the CUDA kernels run bf16 or f32 at stride "
-                         f"1, got {cd} at stride {stride}")
+                         f"1 or 2, got {cd} at stride {stride}")
+    if stride == 2:
+        return fused_ir_s2_cuda(x, ir_s2_operands(wexp, bexp, kdw, bdw, wred, bred, cd))
     if cd == torch.float32:
         return fused_ir_f32_cuda(x, ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred),
                                  use_residual=use_residual)
@@ -439,15 +603,20 @@ def _folded(params):
 
 
 def block_operands(params, compute_dtype=torch.bfloat16):
-    """The block's operands for the kernel of ``compute_dtype``
-    (:class:`IROperands` at bf16, :class:`IRF32Operands` at f32), kept on its
-    params: made at its first CUDA call and again when any of its weights
-    or BN vectors is another tensor or was written in place (the key holds
-    each tensor's storage, shape, stride and version counter, and the entry
-    holds the tensors)."""
-    f32 = resolve_dtype(compute_dtype) == torch.float32
-    attr, make = (("_gxt_ir_f32_operands", ir_f32_operands) if f32
-                  else ("_gxt_ir_operands", ir_operands))
+    """The block's operands for the kernel of its stride and ``compute_dtype``
+    (:class:`IROperands` at bf16, :class:`IRF32Operands` at f32, and
+    :class:`IRS2Operands` at stride 2), kept on its params: made at its first
+    CUDA call and again when any of its weights or BN vectors is another
+    tensor or was written in place (the key holds each tensor's storage,
+    shape, stride and version counter, and the entry holds the tensors)."""
+    cd = resolve_dtype(compute_dtype)
+    f32 = cd == torch.float32
+    if params.conv_3x3.stride == 2:
+        attr = "_gxt_ir_s2_f32_operands" if f32 else "_gxt_ir_s2_operands"
+        make = functools.partial(ir_s2_operands, compute_dtype=cd)
+    else:
+        attr, make = (("_gxt_ir_f32_operands", ir_f32_operands) if f32
+                      else ("_gxt_ir_operands", ir_operands))
     tensors = []
     for conv in (params.expand_1x1, params.conv_3x3, params.reduce_1x1):
         tensors += [conv.kernel] + ([conv.bn.scale, conv.bn.bias] if conv.bn is not None else [])
@@ -463,37 +632,45 @@ def block_operands(params, compute_dtype=torch.bfloat16):
 @torch.library.custom_op("gxt::inverted_residual_f32", mutates_args=())
 def inverted_residual_f32_op(x: torch.Tensor, wexp: torch.Tensor, bexp: torch.Tensor,
                              kdw: torch.Tensor, bdw: torch.Tensor, wred: torch.Tensor,
-                             bred: torch.Tensor, use_residual: bool) -> torch.Tensor:
-    """What a traced f32 program calls (stride 1, BN folded, the operands of
-    :func:`fused_inverted_residual`). This body is the CPU implementation:
-    the plain version."""
-    return fused_ir_plain(x, wexp, bexp, kdw, bdw, wred, bred, use_residual=use_residual)
+                             bred: torch.Tensor, use_residual: bool,
+                             stride: int = 1) -> torch.Tensor:
+    """What a traced f32 program calls (stride 1 or 2, BN folded, the
+    operands of :func:`fused_inverted_residual`). This body is the CPU
+    implementation: the plain version."""
+    return fused_ir_plain(x, wexp, bexp, kdw, bdw, wred, bred, stride=stride,
+                          use_residual=use_residual)
 
 
 @inverted_residual_f32_op.register_kernel("cuda")
-def _inverted_residual_f32_op_cuda(x, wexp, bexp, kdw, bdw, wred, bred, use_residual):
-    return fused_ir_f32_cuda(x, ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred),
-                             use_residual=use_residual)
+def _inverted_residual_f32_op_cuda(x, wexp, bexp, kdw, bdw, wred, bred, use_residual, stride=1):
+    return fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, stride=stride,
+                                   use_residual=use_residual, compute_dtype=torch.float32)
 
 
 @inverted_residual_f32_op.register_fake
-def _inverted_residual_f32_op_fake(x, wexp, bexp, kdw, bdw, wred, bred, use_residual):
-    return x.new_empty((*x.shape[:3], wred.shape[1]))
+def _inverted_residual_f32_op_fake(x, wexp, bexp, kdw, bdw, wred, bred, use_residual, stride=1):
+    return x.new_empty((x.shape[0], x.shape[1] // stride, x.shape[2] // stride, wred.shape[1]))
 
 
 def inverted_residual_fused(params, x: torch.Tensor, *,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Run an ``InvertedResidualParams`` through :func:`fused_inverted_residual`
-    (on the card with the operands :func:`block_operands` keeps). Under
-    ``torch.export`` an f32 stride-1 block is the custom op
-    ``gxt::inverted_residual_f32`` (:func:`inverted_residual_f32_op`), whose
-    CUDA implementation launches the f32 kernel."""
+    (on the card with the operands :func:`block_operands` keeps: stride 1 on
+    the strip, tile or f32 kernel, stride 2 on the stride-2 kernel). Under
+    ``torch.export`` an f32 block is the custom op
+    ``gxt::inverted_residual_f32`` (:func:`inverted_residual_f32_op`, the
+    stride among its arguments), whose CUDA implementation launches the f32
+    or the stride-2 kernel."""
     cd = resolve_dtype(compute_dtype)
     stride = params.conv_3x3.stride
-    if torch.compiler.is_compiling() and cd == torch.float32 and stride == 1:
-        return inverted_residual_f32_op(x.to(cd), *_folded(params), params.use_residual)
-    if x.device.type == "cpu" or stride != 1 or cd not in (torch.bfloat16, torch.float32):
+    if torch.compiler.is_compiling() and cd == torch.float32 and stride in (1, 2):
+        return inverted_residual_f32_op(x.to(cd), *_folded(params), params.use_residual, stride)
+    if x.device.type == "cpu" or stride not in (1, 2) or cd not in (torch.bfloat16,
+                                                                    torch.float32):
         return fused_inverted_residual(x, *_folded(params), stride=stride,
                                        use_residual=params.use_residual, compute_dtype=cd)
+    if stride == 2:
+        return fused_ir_s2_cuda(x.to(cd), block_operands(params, cd),
+                                use_residual=params.use_residual)
     launch = fused_ir_f32_cuda if cd == torch.float32 else fused_ir_cuda
     return launch(x.to(cd), block_operands(params, cd), use_residual=params.use_residual)

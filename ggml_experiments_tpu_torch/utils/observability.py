@@ -8,7 +8,9 @@ roofline accounting against the card's published peaks, so that a
 
 :data:`H100` is the one source of the NVIDIA H100 SXM's peaks that the
 port's measurement scripts (``chip_smoke.py``, ``tools/torch_kernel_bench.py``)
-read: NVIDIA's data sheet (dense rates, 700 W), and the MUFU's 16
+read, with the inverted residual's bound and cuDNN chain that they share
+(:func:`inverted_residual_bound`, :func:`cudnn_inverted_residual`):
+NVIDIA's data sheet (dense rates, 700 W), and the MUFU's 16
 exponentials a clock per multiprocessor (CUDA C++ Programming Guide,
 arithmetic instruction throughput, compute capability 9.0) at 132
 multiprocessors and the 1.98 GHz boost clock.
@@ -145,6 +147,59 @@ def gru_training_roofline(
     flops = 3 * 2.0 * batch * seq * (embed * 3 * units + units * 3 * units + units * vocab)
     bytes_ = 5 * p * 4 + batch * seq * units * 4 * 2
     return RooflineReport(flops=flops, bytes=bytes_, seconds=seconds_per_step, chip=chip)
+
+
+def inverted_residual_bound(
+    b: int, h: int, w: int, c: int, e: int, cout: int, dtype: str = "bfloat16",
+    stride: int = 1, *, chip: ChipSpec = H100,
+) -> Tuple[float, str, Dict[str, float]]:
+    """Least time (ms) of one fused inverted residual on ``chip``, what
+    bounds it, and each part, for a (b, h, w, c) input and a (b, h / stride,
+    w / stride, cout) output: the bytes (x and the output once, the weights,
+    at the dtype's width) at the HBM rate; the expand at h x w and the reduce
+    at the output's pixels on the bf16 tensor rate (f32: three tf32 products
+    each, ``tf32x3``); the depthwise's 18 operations an output element at
+    the f32 CUDA-core rate; one MUFU exponential a SiLU (one an expanded
+    element at the input's pixels and one at the output's)."""
+    px, po = b * h * w, b * (h // stride) * (w // stride)
+    elt, products = (2, "bfloat16") if dtype == "bfloat16" else (4, "tf32x3")
+    parts = {"bytes": (px * c * elt + po * cout * elt + (c * e + e * cout) * elt
+                       + (11 * e + cout) * 4) / chip.hbm_bytes_per_s,
+             "tensor": 2 * (px * c * e + po * e * cout) / chip.peak_ops[products],
+             "depthwise": po * 18 * e / chip.peak_ops["float32"],
+             "mufu": (px + po) * e / chip.mufu_exp_per_s}
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    by = max(parts, key=parts.get)
+    return parts[by], by, parts
+
+
+def cudnn_inverted_residual(x, args, residual: bool = True, stride: int = 1):
+    """The inverted residual as cuDNN computes it, the library column beside
+    the port's kernels (timed by the measurement scripts, never called by the
+    port): three ``F.conv2d`` in channels_last at x's dtype (bf16, or f32
+    with cuDNN's TF32 as the caller set it) with BN folded into the weights
+    and biases (``args`` = the folded wexp, bexp, kdw, bdw, wred, bred),
+    ``F.silu`` after the first two (the depthwise at ``stride``, padding 1),
+    ``+ x`` with the residual: a chain of five or six calls, not one.
+    Returns the chain as a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    wexp, bexp, kdw, bdw, wred, bred = args
+    dt, cl = x.dtype, torch.channels_last
+    w1 = wexp.t()[:, :, None, None].to(dt).contiguous(memory_format=cl)
+    w2 = kdw.permute(2, 0, 1)[:, None].to(dt).contiguous(memory_format=cl)
+    w3 = wred.t()[:, :, None, None].to(dt).contiguous(memory_format=cl)
+    b1, b2, b3 = bexp.to(dt), bdw.to(dt), bred.to(dt)
+    xc = x.permute(0, 3, 1, 2)      # NHWC storage seen as channels_last NCHW
+
+    def chain():
+        y = F.silu(F.conv2d(xc, w1, b1))
+        y = F.silu(F.conv2d(y, w2, b2, stride=stride, padding=1, groups=w2.shape[0]))
+        y = F.conv2d(y, w3, b3)
+        return y + xc if residual else y
+
+    return chain
 
 
 class MetricsLogger:

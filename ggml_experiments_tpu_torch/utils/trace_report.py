@@ -55,6 +55,8 @@ KERNEL_PATTERNS = (
     (r"\bir_strip_kernel\b", "fused_inverted_residual"),
     (r"\bir_kernel\b", "inverted_residual_tile"),
     (r"\bir_f32_kernel\b", "inverted_residual_f32"),
+    (r"\bir_s2_kernel<float\b", "inverted_residual_s2_f32"),
+    (r"\bir_s2_kernel<", "inverted_residual_s2"),
 )
 _COMPILED = tuple((re.compile(p), name) for p, name in KERNEL_PATTERNS)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -307,3 +307,64 @@ def test_inverted_residual_f32_op_and_its_trace(rng):
     ep = torch.export.export(Block(), (blk, x), strict=False)
     assert any("gxt.inverted_residual_f32" in str(n.target) for n in ep.graph.nodes)
     assert torch.equal(ep.module()(blk, x), want)
+
+
+def test_inverted_residual_op_at_stride_2_and_a_features_trace(tmp_path, monkeypatch):
+    """At stride 2 the op's fake gives (B, H/2, W/2, Cout) and its CPU
+    implementation is the plain version (opcheck). A features artifact
+    traced with the card's f32 route (``fused_route`` as it decides on a
+    CUDA device, forced here) reaches the op once a fused block, the stride
+    among the arguments: layer_2's stride-1 blocks at 1, the four
+    downsamplers at 2; replayed here, its features equal eager
+    ``extract_features`` on the same route, and lie within 1e-5 of the
+    JAX package's unfused forward (BN folded: f32 rounding only)."""
+    import sys
+
+    import jax
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_golden_mobilevit import TINY
+
+    from ggml_experiments_tpu.formats.ggml_named import read_named_tensors as jread
+    from ggml_experiments_tpu.models import mobilevit as jmv
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    rng = np.random.default_rng(15)
+    args = tuple(torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32))
+                 for s in ((16, 64), (64,), (3, 3, 64), (64,), (64, 24), (24,)))
+    x = torch.from_numpy(rng.standard_normal((2, 10, 6, 16)).astype(np.float32))
+    want = fir.fused_ir_plain(x, *args, stride=2)
+    assert want.shape == (2, 5, 3, 24)
+    assert torch.equal(fir.inverted_residual_f32_op(x, *args, False, 2), want)
+    torch.library.opcheck(fir.inverted_residual_f32_op, (x, *args, False, 2))
+    with FakeTensorMode() as mode:
+        fake = fir.inverted_residual_f32_op(mode.from_tensor(x),
+                                            *(mode.from_tensor(a) for a in args), False, 2)
+    assert fake.shape == (2, 5, 3, 24) and fake.dtype == torch.float32
+
+    route = tmv.InvertedResidualParams.fused_route
+    monkeypatch.setattr(tmv.InvertedResidualParams, "fused_route",
+                        lambda self, cd, device=None, hw=None: route(self, cd, "cuda", hw))
+    cfg = tmv.MobileViTConfig(image_size=TINY.image_size,
+                              neck_hidden_sizes=TINY.neck_hidden_sizes,
+                              hidden_sizes=TINY.hidden_sizes)
+    tp = tmv.from_named_tensors(read_named_tensors(MV), cfg, device="cpu", fused_ir=True)
+    blocks = [*tp.layer_1, *tp.layer_2, tp.layer_3.downsampling, tp.layer_4.downsampling,
+              tp.layer_5.downsampling]
+    strides = sorted(b.conv_3x3.stride for b in blocks if b.fused_route(torch.float32))
+    assert strides == [1, 1, 2, 2, 2, 2]
+    path = str(tmp_path / "feat_s2.gxa")
+    aot.export_mobilevit_features(tp, batch=1, image_size=cfg.image_size, path=path)
+    _, ep = aot.load_artifact(path)
+    nodes = [n for n in ep.graph.nodes if "gxt.inverted_residual_f32" in str(n.target)]
+    # the graph keeps an argument that differs from the schema's default (1)
+    assert sorted(n.args[8] if len(n.args) > 8 else 1 for n in nodes) == strides
+    img = np.load(os.path.join(GOLD, "mobilevit_tiny.npz"))["image"][None]
+    got = aot.call_artifact(ep, tp, torch.from_numpy(img))
+    assert torch.equal(got, tmv.extract_features(tp, torch.from_numpy(img)))
+    jgot = np.asarray(jmv.extract_features(jmv.from_named_tensors(jread(MV), TINY),
+                                           jax.numpy.asarray(img)))
+    assert np.abs(got.numpy() - jgot).max() <= 1e-5 * np.abs(jgot).max()

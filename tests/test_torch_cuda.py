@@ -918,15 +918,113 @@ def test_inverted_residual_tile_route_takes_no_plan(dev):
         fir.fused_ir_cuda(x, fir.ir_operands(*args), _plan=fir.IRPlan(64, 3))
 
 
-def test_inverted_residual_refuses_f32_and_stride_2_on_the_card(dev):
-    """The JAX function takes stride 2; the CUDA path does not and says so,
-    at bf16 and at f32 (ROADMAP.md Queue C #1; the model routes neither).
-    f32 at stride 1 runs on its own kernel since the f32 form was ported
-    (test_inverted_residual_f32_kernel_matches_plain)."""
+# the stride-2 kernel at MobileViT-small's four downsampling blocks (small B,
+# the model's planes), then ragged tiles (Ho not a multiple of 4, Wo not of
+# 8), C not a multiple of 8 or 16, E not a multiple of 64, Cout up to 256
+# and not a multiple of 32, a 2 x 2 input
+IR_S2_SHAPES = [(2, 128, 128, 32, 128, 64), (2, 64, 64, 64, 256, 96),
+                (2, 32, 32, 96, 384, 128), (2, 16, 16, 128, 512, 160),
+                (1, 10, 18, 24, 96, 40), (2, 6, 34, 8, 200, 256), (3, 2, 2, 12, 64, 8),
+                (1, 20, 12, 130, 70, 33)]
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hh,ww,c,e,cout", IR_S2_SHAPES)
+def test_inverted_residual_stride_2_kernel_matches_plain(dev, b, hh, ww, c, e, cout, cd):
+    """Stride 2 launches csrc/inverted_residual_s2.cu at bf16 and f32: f32
+    within 1e-5 of the plain version's largest value (TF32 off); bf16 within
+    2^-6 of it, the mean error within 0.01 of the plain version's own
+    distance between rounding to bf16 and not (chip_smoke.py's limits for
+    kernel 8); two launches bit-equal, the counters, and the shared memory
+    reckoned as the kernel reckons it."""
+    x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
+    x = x.float().to(cd)
+    name = "inverted_residual_s2_f32" if cd == torch.float32 else "inverted_residual_s2"
+    before = dict(fir.LAUNCHES)
+    got = fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+    again = fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES[name] == before[name] + 2
+    assert fir.LAUNCHES["fused_inverted_residual"] == before["fused_inverted_residual"] + 2
+    assert got.dtype == cd and got.shape == (b, hh // 2, ww // 2, cout)
+    assert torch.equal(got, again)
+    plain = (args[0].to(cd), args[1], args[2], args[3], args[4].to(cd), args[5])
+    want = fir.fused_ir_plain(x, *plain, stride=2).float()
+    scale = float(want.abs().max())
+    err = (got.float() - want).abs()
+    if cd == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        gap = float((fir.fused_ir_plain(x.float(), *args, stride=2) - want).abs().mean())
+        assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap
+    lib = fir._lib("inverted_residual_s2")
+    assert lib.gxt_ir_s2_smem(int(cd == torch.float32), c, e, cout) == \
+        fir.ir_s2_smem_bytes(c, e, cout, cd)
+
+
+def test_inverted_residual_stride_2_refuses_what_it_does_not_take(dev):
+    """The stride-2 kernel raises on odd H or W, a residual, Cout past 256, a
+    C whose f32 halo does not fit the block's shared memory, and f16; it
+    never falls back."""
     x, args = _ir_inputs(dev, 1, 8, 8, 8, 32, 8)
     for cd in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="at stride 1, got .* at stride 2"):
-            fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=cd)
+        xc = x.float().to(cd)
+        with pytest.raises(ValueError, match="even H and W"):
+            fir.fused_inverted_residual(xc[:, :7], *args, stride=2, compute_dtype=cd)
+        with pytest.raises(ValueError, match="even H and W"):
+            fir.fused_inverted_residual(xc[:, :, :5], *args, stride=2, compute_dtype=cd)
+        with pytest.raises(ValueError, match="no residual"):
+            fir.fused_inverted_residual(xc, *args, stride=2, use_residual=True, compute_dtype=cd)
+        with pytest.raises(ValueError, match="no residual"):
+            fir.fused_ir_s2_cuda(xc, fir.ir_s2_operands(*args, compute_dtype=cd),
+                                 use_residual=True)
+    wide, wargs = _ir_inputs(dev, 1, 8, 8, 8, 32, fir.S2_MAX_COUT + 8)
+    with pytest.raises(ValueError, match="Cout up to 256"):
+        fir.fused_inverted_residual(wide, *wargs, stride=2)
+    big, bargs = _ir_inputs(dev, 1, 8, 8, 512, 64, 32)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fir.fused_inverted_residual(big.float(), *bargs, stride=2, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fir.fused_inverted_residual(x, *args, stride=2, compute_dtype=torch.float16)
+
+
+def test_inverted_residual_stride_2_block_routes_to_its_kernel_on_the_card(dev):
+    """A stride-2 block with E >= 64 runs csrc/inverted_residual_s2.cu on the
+    card at bf16 and f32, its operands kept on the block (one set a dtype);
+    at odd H the block takes the unfused chain."""
+    from ggml_experiments_tpu_torch.models.mobilevit import InvertedResidualParams
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    rng = np.random.default_rng(6)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.2).to(dev)
+
+    def conv(kh, cin, co, dw=False, act="silu", stride=1):
+        return ConvBNAct(kernel=t(kh, kh, cin, co), bn=FoldedBN(t(co) + 1.0, t(co)),
+                         activation=act, depthwise=dw, stride=stride)
+
+    blk = InvertedResidualParams(expand_1x1=conv(1, 32, 128),
+                                 conv_3x3=conv(3, 1, 128, dw=True, stride=2),
+                                 reduce_1x1=conv(1, 128, 64, act="none"), fused=True)
+    x = torch.randn((2, 24, 20, 32), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    for cd, name in ((torch.bfloat16, "inverted_residual_s2"),
+                     (torch.float32, "inverted_residual_s2_f32")):
+        before = fir.LAUNCHES[name]
+        got = blk(x, compute_dtype=cd)
+        ops = fir.block_operands(blk, cd)
+        again = blk(x, compute_dtype=cd)
+        torch.cuda.synchronize()
+        assert fir.LAUNCHES[name] == before + 2 and got.shape == (2, 12, 10, 64)
+        assert isinstance(ops, fir.IRS2Operands) and ops.dtype == cd
+        assert fir.block_operands(blk, cd) is ops and torch.equal(got, again)
+        want = fir.fused_inverted_residual(x, *fir._folded(blk), stride=2, compute_dtype=cd)
+        assert torch.equal(got, want)
+    before = fir.LAUNCHES["fused_inverted_residual"]
+    odd = blk(x[:, :23], compute_dtype=torch.bfloat16)
+    assert fir.LAUNCHES["fused_inverted_residual"] == before and odd.shape == (2, 12, 10, 64)
 
 
 # the f32 kernel at layer_2's shape (small B), ragged tiles, every reduce
@@ -1022,9 +1120,9 @@ def test_inverted_residual_block_routes_f32_to_its_kernel_on_the_card(dev):
 def test_vision_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros((2, 8, 8, 8), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((8, 32), device=dev)
-    with pytest.raises(ValueError, match="stride"):
+    with pytest.raises(ValueError, match="stride 1 or 2"):
         fir.fused_inverted_residual(x, w, w[0], torch.zeros(3, 3, 32, device=dev), w[0],
-                                    w.t(), w[:, 0], stride=2)
+                                    w.t(), w[:, 0], stride=3)
     q = torch.zeros((2, 16, 72), device=dev)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_mha(q, q, q, 1, compute_dtype=torch.float32)

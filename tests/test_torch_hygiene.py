@@ -152,7 +152,8 @@ def test_launch_counters_reset():
         "fused_gru_train_fwd": 0, "fused_gru_train_bwd": 0, "fused_gru_train_dwr": 0,
         "flash_mha": 0, "fused_transformer_layer": 0, "transformer_ln_qkv": 0,
         "transformer_attention": 0, "transformer_proj_ffn": 0, "transformer_sequence": 0,
-        "fused_inverted_residual": 0, "inverted_residual_tile": 0, "inverted_residual_f32": 0}
+        "fused_inverted_residual": 0, "inverted_residual_tile": 0, "inverted_residual_f32": 0,
+        "inverted_residual_s2": 0, "inverted_residual_s2_f32": 0}
     port.reset_kernel_launches()
     assert set(port.kernel_launches().values()) == {0}
 
@@ -280,15 +281,16 @@ def test_cli_usage_errors_return_2(tmp_path, capsys):
 def test_no_unported_error_names_a_finished_item():
     """No message names a finished item of an earlier layout: the formats,
     the .gxt container, HTTP serving (item 4), GRU training, MobileViT
-    (item 6), calibration (Queue A #11), multi-device serving (Queue A #1)
-    or training on a mesh (Queue A #1b), and no docstring calls
-    multi-process serving not ported."""
+    (item 6), calibration (Queue A #11), multi-device serving (Queue A #1),
+    training on a mesh (Queue A #1b) or the stride-2 fused inverted residual
+    (Queue C #1), and no docstring calls multi-process serving not ported."""
     hits = []
     for root, _, names in os.walk(PKG):
         for n in names:
             if n.endswith(".py"):
                 with open(os.path.join(root, n)) as f:
                     text = f.read()
-                hits += re.findall(r"item [12456]\b|Queue A #1[12]\b|Queue A #1(?![0-9])", text)
+                hits += re.findall(r"item [12456]\b|Queue A #1[12]\b|Queue A #1(?![0-9])"
+                                   r"|Queue C #1(?![0-9])", text)
                 hits += re.findall(r"[Nn]ot ported[\s\S]{0,40}multi-process serving", text)
     assert not hits

@@ -17,8 +17,10 @@ import ggml_experiments_tpu_torch as port
 from ggml_experiments_tpu_torch.utils.observability import (
     H100,
     MetricsLogger,
+    cudnn_inverted_residual,
     gru_decode_roofline,
     gru_training_roofline,
+    inverted_residual_bound,
     profiler_trace,
     qmatmul_roofline,
 )
@@ -59,6 +61,42 @@ def test_gru_rooflines():
     assert d["bound"] in ("compute", "memory") and d["achieved_tflops"] > 0
     t = gru_training_roofline(1024, 100, 256, 1024, 66, seconds_per_step=0.02)
     assert t.bound() == "compute" and t.as_dict()["speed_of_light_fraction"] > 0
+
+
+@pytest.mark.parametrize("dtype,stride,want_ms,want_by", [
+    # layer_2's stride-1 blocks at B=128 (§6 row 8 of PERF.md)
+    ("bfloat16", 1, 0.0642, "mufu"), ("float32", 1, 0.2082, "tensor"),
+    # layer_2[0]'s and layer_5's downsamplers at B=128
+    ("bfloat16", 2, 0.0802, "mufu"), ("float32", 2, 0.1562, "tensor")])
+def test_inverted_residual_bound(dtype, stride, want_ms, want_by):
+    shape = (128, 64, 64, 64, 256, 64) if stride == 1 else (128, 128, 128, 32, 128, 64)
+    ms, by, parts = inverted_residual_bound(*shape, dtype, stride=stride)
+    assert by == want_by and ms == parts[by] == max(parts.values())
+    assert round(ms, 4) == want_ms
+    # stride 2 quarters the output's pixels: the SiLUs fall from 2 to 1.25
+    # an expanded element of the input
+    b, h, w, c, e, cout = shape
+    assert parts["mufu"] == pytest.approx(
+        b * (h * w + (h // stride) * (w // stride)) * e / H100.mufu_exp_per_s * 1e3)
+    small = inverted_residual_bound(128, 16, 16, 128, 512, 160, "bfloat16", stride=2)
+    assert small[1] == "tensor" and round(small[0], 4) == 0.0057
+
+
+@pytest.mark.parametrize("stride,residual", [(1, True), (1, False), (2, False)])
+def test_cudnn_chain_is_the_plain_block(stride, residual):
+    from ggml_experiments_tpu_torch.ops.fused_inverted_residual import fused_ir_plain
+
+    g = torch.Generator().manual_seed(stride)
+    c, e, cout = 8, 32, 8 if residual else 12
+    args = (torch.randn(c, e, generator=g) * 0.2, torch.randn(e, generator=g) * 0.2,
+            torch.randn(3, 3, e, generator=g) * 0.2, torch.randn(e, generator=g) * 0.2,
+            torch.randn(e, cout, generator=g) * 0.2, torch.randn(cout, generator=g) * 0.2)
+    x = torch.randn(2, 8, 10, c, generator=g)
+    got = cudnn_inverted_residual(x, args, residual=residual, stride=stride)()
+    want = fused_ir_plain(x, *args, stride=stride, use_residual=residual)
+    # the chain's NCHW view of NHWC storage, at the input's dtype
+    assert got.shape == (2, cout, 8 // stride, 10 // stride)
+    torch.testing.assert_close(got.permute(0, 2, 3, 1), want, atol=1e-5, rtol=1e-5)
 
 
 def test_metrics_logger_stream(tmp_path):
@@ -102,6 +140,10 @@ def test_kernel_names_are_the_launch_counters():
         f"void {anon}ir_strip_kernel<32>({anon}Params)": "fused_inverted_residual",
         f"void {anon}ir_kernel({anon}IRArgs, {anon}IRLayout)": "inverted_residual_tile",
         f"void {anon}ir_f32_kernel<4>({anon}Args, {anon}Layout)": "inverted_residual_f32",
+        f"void {anon}ir_s2_kernel<__nv_bfloat16, 2>({anon}Args, {anon}Layout)":
+            "inverted_residual_s2",
+        f"void {anon}ir_s2_kernel<float, 5>({anon}Args, {anon}Layout)":
+            "inverted_residual_s2_f32",
     }
     for sym, name in symbols.items():
         assert kernel_name(sym) == name, sym

@@ -321,9 +321,15 @@ def _ir_blocks(rng, c, e, cout, stride, resid):
     return jb, tb
 
 
+# MobileViT-small's four downsampling blocks (layer_2[0], layers 3-5), at
+# stride 2 with small planes: the widths csrc/inverted_residual_s2.cu runs
+S2_DOWNSAMPLERS = [(2, False, 32, 128, 64, 16), (2, False, 64, 256, 96, 8),
+                   (2, False, 96, 384, 128, 8), (2, False, 128, 512, 160, 8)]
+
+
 @pytest.mark.parametrize("stride,resid,c,e,cout,hw", [
     (1, True, 8, 32, 8, 8), (1, False, 8, 32, 16, 8), (2, False, 8, 32, 16, 8),
-    (1, True, 16, 64, 16, 12)])
+    (1, True, 16, 64, 16, 12), *S2_DOWNSAMPLERS])
 def test_fused_inverted_residual_plain_matches_the_jax_kernel(stride, resid, c, e, cout, hw):
     rng = np.random.default_rng(e + hw)
     jb, tb = _ir_blocks(rng, c, e, cout, stride, resid)
@@ -363,7 +369,7 @@ def test_fused_ir_gate_follows_the_jax_dispatch():
 
 @pytest.mark.parametrize("stride,resid,c,e,cout,hw", [
     (1, True, 8, 32, 8, 8), (1, False, 16, 64, 32, 10), (2, False, 8, 32, 16, 8),
-    (2, False, 16, 48, 24, 12)])
+    (2, False, 16, 48, 24, 12), *S2_DOWNSAMPLERS])
 def test_fused_inverted_residual_plain_matches_the_jax_kernel_at_f32(stride, resid, c, e, cout,
                                                                       hw):
     """The f32 form (no rounding below f32 anywhere): the port's plain
@@ -387,3 +393,92 @@ def test_fused_inverted_residual_plain_matches_the_jax_kernel_at_f32(stride, res
                                       compute_dtype=torch.float32)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_stride_2_route_is_the_cards_only():
+    """A stride-2 block with E >= 64 takes the fused route on a CUDA device at
+    bf16 and f32 with even H and W; on the CPU (the JAX model's route) and
+    with odd H or W it keeps the unfused chain, and a residual is never
+    fused at stride 2."""
+    rng = np.random.default_rng(11)
+    _, blk = _ir_blocks(rng, 32, 128, 64, 2, False)
+    blk = dataclasses.replace(blk, fused=True)
+    cuda = torch.device("cuda")
+    for cd in (torch.bfloat16, torch.float32):
+        assert blk.fused_route(cd, cuda, (16, 16)) and blk.fused_route(cd, "cuda")
+        assert not blk.fused_route(cd, "cpu", (16, 16)) and not blk.fused_route(cd)
+        assert not blk.fused_route(cd, cuda, (15, 16)) and not blk.fused_route(cd, cuda, (16, 9))
+    assert not dataclasses.replace(blk, use_residual=True).fused_route(torch.bfloat16, cuda)
+    assert not dataclasses.replace(blk, fused=False).fused_route(torch.bfloat16, cuda)
+    _, narrow = _ir_blocks(rng, 8, 32, 16, 2, False)
+    assert not dataclasses.replace(narrow, fused=True).fused_route(torch.bfloat16, cuda)
+    calls = []
+    real = fir.fused_ir_plain
+    fir.fused_ir_plain = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        y = blk(T(rng.standard_normal((2, 16, 16, 32))), compute_dtype=torch.bfloat16)
+    finally:
+        fir.fused_ir_plain = real
+    assert not calls and y.shape == (2, 8, 8, 64)
+
+
+def _s2_args(rng, c, e, cout):
+    return tuple(T(rng.standard_normal(s) * 0.2)
+                 for s in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_stride_2_wrapper_refuses_what_its_kernel_does_not_take(cd):
+    """fused_ir_s2_cuda checks shapes before the device, so its refusals read
+    the same here: odd H or W, a residual, widths that do not meet x, another
+    dtype, and (being a kernel) a CPU tensor; Cout past S2_MAX_COUT and
+    compute dtypes other than bf16 and f32 are refused when the operands are made,
+    and a residual at stride 2 by fused_inverted_residual on any device."""
+    rng = np.random.default_rng(12)
+    args = _s2_args(rng, 16, 64, 32)
+    ops = fir.ir_s2_operands(*args, compute_dtype=cd)
+    assert ops.wexp.dtype == cd and ops.wred.dtype == cd and ops.bred.numel() == 32
+    x = torch.zeros((2, 8, 8, 16), dtype=cd)
+    for bad, match in ((torch.zeros((2, 7, 8, 16), dtype=cd), "even H and W"),
+                       (torch.zeros((2, 8, 9, 16), dtype=cd), "even H and W"),
+                       (torch.zeros((2, 8, 8, 24), dtype=cd), "do not meet"),
+                       (x.to(torch.float16), "must be a"), (x[0], "must be a"),
+                       (x, "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            fir.fused_ir_s2_cuda(bad, ops)
+    with pytest.raises(ValueError, match="no residual"):
+        fir.fused_ir_s2_cuda(x, ops, use_residual=True)
+    with pytest.raises(ValueError, match="Cout up to 256"):
+        fir.ir_s2_operands(*_s2_args(rng, 16, 64, fir.S2_MAX_COUT + 8), compute_dtype=cd)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fir.ir_s2_operands(*args, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="no residual"):
+        fir.fused_inverted_residual(x, *args, stride=2, use_residual=True, compute_dtype=cd)
+    # the kernel's reckoning of shared memory: the widest f32 halo past one
+    # block's 227 KB is refused on the card (C = 512), the downsamplers fit
+    assert fir.ir_s2_smem_bytes(512, 64, 32, torch.float32) > fir.SMEM_LIMIT
+    assert fir.ir_s2_smem_bytes(16, 64, fir.S2_MAX_COUT + 1) == -1
+    for _, _, c, e, cout, _ in S2_DOWNSAMPLERS:
+        for dt in (torch.bfloat16, torch.float32):
+            assert 0 < fir.ir_s2_smem_bytes(c, e, cout, dt) <= fir.SMEM_LIMIT // 2 + 20000
+
+
+def test_stride_2_operands_hold_the_weights_in_the_kernels_layout():
+    """ir_s2_operands: f32 matrices row-major, bf16 transposed, E padded to 64
+    and Cout to 32 with zeros, the vectors f32."""
+    rng = np.random.default_rng(13)
+    wexp, bexp, kdw, bdw, wred, bred = args = _s2_args(rng, 24, 100, 40)
+    o32 = fir.ir_s2_operands(*args, compute_dtype=torch.float32)
+    assert o32.wexp.shape == (24, 128) and o32.wred.shape == (128, 64)
+    assert torch.equal(o32.wexp[:, :100], wexp) and not o32.wexp[:, 100:].any()
+    assert torch.equal(o32.wred[:100, :40], wred) and not o32.wred[:, 40:].any()
+    assert torch.equal(o32.kdw.reshape(9, 128)[:, :100], kdw.reshape(9, 100))
+    o16 = fir.ir_s2_operands(*args, compute_dtype=torch.bfloat16)
+    assert o16.wexp.shape == (128, 32) and o16.wred.shape == (64, 128)
+    assert torch.equal(o16.wexp[:100, :24], wexp.t().to(torch.bfloat16))
+    assert torch.equal(o16.wred[:40, :100], wred.t().to(torch.bfloat16))
+    assert not o16.wexp[:, 24:].float().any() and not o16.wred[40:].float().any()
+    assert all(v.dtype == torch.float32 for v in (o16.bexp, o16.kdw, o16.bdw, o16.bred))
+    bred16, bexp16, bdw16 = (v.reshape(-1) for v in (o16.bred, o16.bexp, o16.bdw))
+    assert torch.equal(bred16[:40], bred) and not bred16[40:].any()
+    assert torch.equal(bexp16[:100], bexp) and torch.equal(bdw16[:100], bdw)

@@ -7,7 +7,8 @@ reuses for the engine.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_gate_sweep.py [--only engine,ir,qmatmul] [--margin 1.15] [--out FILE]
+    python3 tools/torch_gate_sweep.py [--only engine,ir,ir_f32,ir_s2,qmatmul] [--margin 1.15]
+        [--out FILE]
 
 Every time is the port's timing protocol (``utils/benchmarking.PROTOCOL``:
 the wall clock of whole calls closed by a synchronize, the CUDA-event span
@@ -35,6 +36,16 @@ beside it).
   stride-1 blocks unfused (the model's f32 route) and with them routed to
   the f32 kernel for this measurement (``fused_route`` widened to f32 here
   only), in turns.
+* ``ir_s2``: the stride-2 kernel (``csrc/inverted_residual_s2.cu``) per call
+  against the cuDNN stride-2 chain (three ``F.conv2d``, the depthwise at
+  stride 2, BN folded, two SiLUs; TF32 off at f32) at MobileViT-small's four
+  downsampling blocks (IR_S2_BLOCKS) and B = 8, 32, 128, bf16 and f32, with
+  the bound (``utils/observability.inverted_residual_bound``); then
+  ``extract_features`` at the same B and dtypes with the stride-2 route off, on at all four downsamplers (the
+  default), and on without layer_5's (E = 512) or layers 4-5's (E >= 384)
+  (``fused_route`` patched for the measurement), in turns there and back,
+  three times; the speedups from each route's best turn, the median of its
+  turns beside them.
 * ``qmatmul``: the q8_0 kernel (forced past its gate) against
   ``torch.matmul`` on the dequantized plane, f32 and bf16, at MobileViT's
   transformer products for B = 128 (M = B x H x W tokens of each stage: q, k,
@@ -47,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +72,13 @@ IR_BATCHES = (8, 32, 128)
 IR_BLOCKS = {"layer_1": (128, 128, 16, 64, 32, False), "layer_2": (64, 64, 64, 256, 64, True)}
 # (tokens of a B=128 forward, C) of the three transformer stages
 QMM_STAGES = ((128 * 32 * 32, 144), (128 * 16 * 16, 192), (128 * 8 * 8, 240))
+# (H, W, C, E, Cout) of MobileViT-small's stride-2 inverted residuals (the
+# downsamplers: layer_2's first block, the downsampling block of layers 3-5)
+IR_S2_BLOCKS = {"layer_2": (128, 128, 32, 128, 64), "layer_3": (64, 64, 64, 256, 96),
+                "layer_4": (32, 32, 96, 384, 128), "layer_5": (16, 16, 128, 512, 160)}
+# extract_features' turns through the stride-2 routes: at B = 8 a forward
+# waits on the host, and one turn there and back spread 1.76x
+IR_S2_ROUND_TRIPS = 3
 VIT_CKPT = os.path.join("checkpoints", "mobilevit_synth_full.ggml")
 # the expanded widths of the stride-1 blocks: the E thresholds that differ
 IR_MIN_EXPAND_CANDIDATES = (256, 64)
@@ -113,7 +132,7 @@ def engine_cells(rows, margin, compute):
 def ir_cells(rows):
     import torch
 
-    from torch_kernel_bench import cudnn_ir, ir_bound, ir_inputs
+    from torch_kernel_bench import cudnn_inverted_residual, inverted_residual_bound, ir_inputs
 
     from ggml_experiments_tpu_torch.models import mobilevit
     from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
@@ -125,8 +144,8 @@ def ir_cells(rows):
             x, args = ir_inputs(b, h, w, c, e, cout)
             ops = fir.ir_operands(*args)
             kernel = timeit_stats(lambda: fir.fused_ir_cuda(x, ops, use_residual=resid))
-            chain = timeit_stats(cudnn_ir(x, args, resid))
-            bounds, by = ir_bound(b, h, w, c, e, cout)
+            chain = timeit_stats(cudnn_inverted_residual(x, args, resid))
+            _, by, bounds = inverted_residual_bound(b, h, w, c, e, cout)
             emit(rows, {"cell": "ir", "block": name, "shape": [b, h, w, c, e, cout],
                         "residual": resid, "plan": str(fir.ir_plan(b, h, w, c, e, cout)),
                         "kernel": kernel.asdict(), "cudnn_chain": chain.asdict(),
@@ -163,7 +182,7 @@ def ir_cells(rows):
 def ir_f32_cells(rows):
     import torch
 
-    from torch_kernel_bench import cudnn_ir, ir_inputs
+    from torch_kernel_bench import cudnn_inverted_residual, ir_inputs
 
     from ggml_experiments_tpu_torch.models import mobilevit
     from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
@@ -176,7 +195,7 @@ def ir_f32_cells(rows):
             x, args = ir_inputs(b, h, w, c, e, cout, dtype=torch.float32)
             ops = fir.ir_f32_operands(*args)
             kernel = timeit_stats(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid))
-            chain = timeit_stats(cudnn_ir(x, args, resid))
+            chain = timeit_stats(cudnn_inverted_residual(x, args, resid))
             emit(rows, {"cell": "ir_f32", "block": name, "shape": [b, h, w, c, e, cout],
                         "residual": resid, "kernel": kernel.asdict(),
                         "cudnn_chain": chain.asdict(),
@@ -187,7 +206,7 @@ def ir_f32_cells(rows):
     cls = mobilevit.InvertedResidualParams
     bf16_route = cls.fused_route
 
-    def f32_route(self, compute_dtype):
+    def f32_route(self, compute_dtype, device=None, hw=None):
         return (self.fused and self.conv_3x3.stride == 1
                 and self.expand_1x1.kernel.shape[-1] >= mobilevit.IR_FUSED_MIN_EXPAND)
 
@@ -206,6 +225,74 @@ def ir_f32_cells(rows):
             del images
     finally:
         cls.fused_route = bf16_route
+
+
+def ir_s2_cells(rows):
+    import torch
+
+    from torch_kernel_bench import cudnn_inverted_residual, inverted_residual_bound, ir_inputs
+
+    from ggml_experiments_tpu_torch.models import mobilevit
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+    from ggml_experiments_tpu_torch.utils.benchmarking import timeit_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dtypes = (torch.bfloat16, torch.float32)
+    for cd in dtypes:
+        for name, (h, w, c, e, cout) in IR_S2_BLOCKS.items():
+            for b in IR_BATCHES:
+                x, args = ir_inputs(b, h, w, c, e, cout, dtype=cd)
+                ops = fir.ir_s2_operands(*args, compute_dtype=cd)
+                kernel = timeit_stats(lambda: fir.fused_ir_s2_cuda(x, ops))
+                chain = timeit_stats(cudnn_inverted_residual(x, args, False, stride=2))
+                _, by, bounds = inverted_residual_bound(b, h, w, c, e, cout, str(cd)[6:],
+                                                        stride=2)
+                emit(rows, {"cell": "ir_s2", "block": name, "compute": str(cd)[6:],
+                            "shape": [b, h, w, c, e, cout], "kernel": kernel.asdict(),
+                            "cudnn_chain": chain.asdict(),
+                            "kernel_speedup": round(chain.headline / kernel.headline, 4),
+                            "bound_ms": bounds[by], "bound_by": by})
+                del x, ops
+    dev = torch.device("cuda")
+    params = load_mobilevit(VIT_CKPT, device=dev)
+    cls = mobilevit.InvertedResidualParams
+    route = cls.fused_route
+
+    def s2_up_to(max_e):
+        """The model's route with its stride-2 blocks of E > max_e unfused."""
+        def fused_route(self, compute_dtype, device=None, hw=None):
+            if self.conv_3x3.stride == 2 and self.expand_1x1.kernel.shape[-1] > max_e:
+                return False
+            return route(self, compute_dtype, device, hw)
+        return fused_route
+
+    # the stride-2 route off, on at every downsampler (the default), and on
+    # with the widest ones unfused: layer_5's (E = 512), layers 4-5's (>= 384)
+    routes = {"off": s2_up_to(0), "on": route, "no_layer_5": s2_up_to(384),
+              "no_layers_4_5": s2_up_to(256)}
+    try:
+        for cd in dtypes:
+            for b in IR_BATCHES:
+                images = torch.rand((b, 256, 256, 3), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(b))
+                cell = {}
+                # in turns, there and back, IR_S2_ROUND_TRIPS times
+                for name in [*routes, *reversed(routes)] * IR_S2_ROUND_TRIPS:
+                    cls.fused_route = routes[name]
+                    st = timeit_stats(lambda: extract_features(params, images, compute_dtype=cd))
+                    cell.setdefault(name, []).append(st.asdict())
+                best = {name: min(s["median_ms"] for s in runs) for name, runs in cell.items()}
+                mid = {name: statistics.median(s["median_ms"] for s in runs)
+                       for name, runs in cell.items()}
+                emit(rows, {"cell": "ir_s2_extract_features", "compute": str(cd)[6:],
+                            "batch": b, **cell,
+                            "speedup_over_off": {k: round(best["off"] / v, 4)
+                                                 for k, v in best.items() if k != "off"},
+                            "median_of_turns_ms": mid})
+                del images
+    finally:
+        cls.fused_route = route
 
 
 def qmatmul_cells(rows):
@@ -263,6 +350,8 @@ def main() -> int:
         ir_cells(rows)
     if "ir_f32" in only:
         ir_f32_cells(rows)
+    if "ir_s2" in only:
+        ir_s2_cells(rows)
     if "engine" in only:
         for compute in ("bfloat16", "float32"):
             engine_cells(rows, args.margin, compute)

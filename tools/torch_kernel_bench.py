@@ -96,20 +96,24 @@ import torch
 sys.path.append(os.getcwd())   # the checkout run from, unless PYTHONPATH names one
 
 
-def _load_peaks():
-    """The H100's peaks from this tool's own checkout
-    (``utils/observability.H100``), loaded by path, so that a run from
-    another checkout's root bounds its kernels by the same figures."""
+def _load_observability():
+    """This tool's own checkout's ``utils/observability`` (the H100's peaks,
+    the inverted residual's bound and cuDNN chain), loaded by path, so that
+    a run from another checkout's root bounds its kernels by the same
+    figures and times the same library chain."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "ggml_experiments_tpu_torch", "utils", "observability.py")
     spec = importlib.util.spec_from_file_location("_gxt_observability", path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod      # dataclasses look their module up there
     spec.loader.exec_module(mod)
-    return mod.H100
+    return mod
 
 
-H100 = _load_peaks()
+_OBS = _load_observability()
+H100 = _OBS.H100
+inverted_residual_bound = _OBS.inverted_residual_bound
+cudnn_inverted_residual = _OBS.cudnn_inverted_residual
 
 CKPT = os.path.join("checkpoints", "gru_shakespeare.bin")
 QTYPES = ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1", "q4_k")
@@ -715,20 +719,6 @@ def layer_split_cells():
 # main path, with the residual) and a layer_1-like block (128 x 128, 16 ->
 # 32, E=64, no residual; the model runs that one unfused, E < 128)
 IR_CELLS = ((128, 64, 64, 64, 256, 64, True), (128, 128, 128, 16, 64, 32, False))
-def ir_bound(b, h, w, c, e, cout):
-    """Least time (ms) of the inverted residual on an H100 and what bounds
-    it (``H100``): the bytes (x and out once, the weights) at the HBM rate;
-    the two 1x1 products at the bf16 tensor rate; the depthwise's 18
-    operations an expanded element at the f32 CUDA-core rate; one MUFU
-    exponential a SiLU (two SiLUs an expanded element)."""
-    px = b * h * w
-    parts = {"bytes": (px * (c + cout) * 2 + (c * e + e * cout) * 2 + (11 * e + cout) * 4)
-             / H100.hbm_bytes_per_s,
-             "tensor": px * 2 * (c * e + e * cout) / H100.peak_ops["bfloat16"],
-             "depthwise": px * 18 * e / H100.peak_ops["float32"],
-             "mufu": px * 2 * e / H100.mufu_exp_per_s}
-    by = max(parts, key=parts.get)
-    return {k: v * 1e3 for k, v in parts.items()}, by
 
 
 def ir_inputs(b, h, w, c, e, cout, seed=0, dtype=torch.bfloat16):
@@ -740,32 +730,6 @@ def ir_inputs(b, h, w, c, e, cout, seed=0, dtype=torch.bfloat16):
 
     args = (t(c, e), t(e), t(3, 3, e), t(e), t(e, cout), t(cout))
     return t(b, h, w, c, scale=1.0).to(dtype), args
-
-
-def cudnn_ir(x, args, resid):
-    """The same block as cuDNN computes it: three ``F.conv2d`` calls in
-    channels_last at x's dtype (bf16, or f32 with cuDNN's TF32 as the caller
-    set it) with BN folded into the weights and biases, ``F.silu`` after the
-    first two, ``+ x`` (a chain of five or six calls, not one)."""
-    import torch.nn.functional as F
-
-    wexp, bexp, kdw, bdw, wred, bred = args
-    e = wexp.shape[1]
-    bf = x.dtype
-    cl = torch.channels_last
-    w1 = wexp.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-    w2 = kdw.permute(2, 0, 1)[:, None].to(bf).contiguous(memory_format=cl)
-    w3 = wred.t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-    b1, b2, b3 = bexp.to(bf), bdw.to(bf), bred.to(bf)
-    xc = x.permute(0, 3, 1, 2)      # NHWC storage seen as channels_last NCHW
-
-    def chain():
-        y = F.silu(F.conv2d(xc, w1, b1))
-        y = F.silu(F.conv2d(y, w2, b2, padding=1, groups=e))
-        y = F.conv2d(y, w3, b3)
-        return y + xc if resid else y
-
-    return chain
 
 
 def ir_error(got, want, want32):
@@ -799,13 +763,13 @@ def ir_cells(sweep):
         got = fn()
         want = fir.fused_ir_plain(x, *pargs, use_residual=resid)
         want32 = fir.fused_ir_plain(x.float(), *args, use_residual=resid)
-        bounds, by = ir_bound(b, h, w, c, e, cout)
+        _, by, bounds = inverted_residual_bound(b, h, w, c, e, cout)
         row = {"cell": "ir", "shape": [b, h, w, c, e, cout], "residual": resid,
                "plan": str(fir.ir_plan(b, h, w, c, e, cout)) if new else "8x8 tiles",
                "kernel": both(fn), "host_us": host_us(fn), **ir_error(got, want, want32),
                "plain_call": call_ms(lambda: fir.fused_ir_plain(x, *pargs, use_residual=resid),
                                      n=3, warmup=1),
-               "cudnn_chain": both(cudnn_ir(x, args, resid)),
+               "cudnn_chain": both(cudnn_inverted_residual(x, args, resid)),
                "bound_ms": bounds[by], "bound_by": by, "bounds_ms": bounds}
         del want, want32, got
         if sweep and new:
