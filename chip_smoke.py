@@ -67,7 +67,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      64 for one epoch of the corpus's first 60,000 characters, and at
      ``--batch-size 2048`` for one epoch of the whole corpus (3 steps, one
      launch of each kernel a step), whose exported weights must score a
-     lower loss than the initial ones;
+     lower loss than the initial ones; and the same ``train_from_text`` run
+     at f32 (the plain scan: neither package's trainer routes f32 to the
+     fused pair), its median ms a step beside the bf16 step's;
  13. the three vision kernels against their plain versions, at the shapes
      the main path gives them for B=128 images and on the full checkpoint's
      weights: the fused transformer layer (``csrc/transformer_layer.cu``) at
@@ -92,13 +94,16 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      ``checkpoints/mobilevit_synth_full.ggml`` (256 px, hidden 144/192/240,
      2/4/3 layers, 44 labels): ``classify`` of 320 held-out images of the
      full-size task (``make_dataset``, task rev 4) in batches of 128 at f32
-     (flash, 9 launches a batch), bf16 (fused layer and each of its three
-     kernels, 9 a batch) and bf16 with
+     unfused (``fused_layer=False``: flash, 9 launches a batch), bf16 (fused
+     layer and each of its three kernels, 9 a batch), bf16 with
      ``fused_ir`` (and the inverted residual, once a batch for each block
      its gate takes: the stride-1 blocks and, on the card, the four
-     stride-2 downsamplers), top-1 against the
-     labels and argmax agreement with f32; the card's f32 features of the
-     first 32 images against the plain CPU run; the calibrated
+     stride-2 downsamplers) and f32 on the default route (the f32 fused
+     layer's three kernels, 9 a batch, and the f32 fused blocks), top-1 against the labels and argmax agreement
+     with the unfused f32 run; the card's f32 features of the first 32
+     images on both f32 routes against the plain CPU run, within
+     VIT_CPU_FEATURE_REL, their argmax the CPU's under the near-tie rule;
+     the calibrated
      ``mobilevit_synth_full_q4km.gxt`` classifying the same images; the
      ``features`` command; ``extract_features`` at B=128 bf16 timed with CUDA
      events and one forward of each bf16 route split by ``torch.profiler``;
@@ -119,8 +124,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
  17. the MobileViT remainders: ``quantize --qtype q4_k_m --calibrate
      task:1234`` of ``mobilevit_synth_full.ggml`` on the card, timed by part,
      its codes against the shipped ``mobilevit_synth_full_q4km.gxt``;
-     ``classify`` of phase 14's images with it at f32 (flash and
-     the f32 fused inverted residual) and bf16 (the
+     ``classify`` of phase 14's images with it at f32 (the f32 fused layer,
+     or flash where it is off, and the f32 fused inverted residual) and
+     bf16 (the
      fused layer): argmax agreement with the float model on the same route
      >= 319/320 with any flip at a near-tie, relative logit RMSE < 0.005 at
      f32; ``eval --qtype q4_k`` and ``q8_0`` of the ``weight.ggml``;
@@ -159,7 +165,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      and each rank updating its column shards; (c) (a) interrupted after 2
      steps with a resume file a step and resumed, bit-equal to (a); (d)
      MobileViT placed by ``mobilevit_param_specs`` on (1, 2), 32 of phase
-     14's images: f32 (flash) and q8_0 features against one process's,
+     14's images: f32 (the f32 layer route) and q8_0 features against one
+     process's,
      bf16 (the fused layer on gathered weights, the fused inverted
      residual) argmax against one process's under the near-tie rule; (e)
      (a)'s 4 steps by one NCCL rank on a (1, 1) mesh, losses and params
@@ -182,7 +189,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      tokens on params an eager call has used are equal to eager
      ``generate``'s, 200 qmatmul launches; ``aot-export --model mobilevit``
      of ``mobilevit_synth_full.ggml`` (256 px, batch 8) and ``aot-run``,
-     the features against ``extract_features``, 9 flash and 7 f32
+     the features against ``extract_features``, 9 launches of each f32 layer
+     kernel through ``gxt::transformer_layer_f32`` (9 flash where the f32
+     route is off) and 7 f32
      inverted-residual launches through ``gxt::inverted_residual_f32`` (the
      three stride-1 blocks on the f32 kernel, the four downsamplers on the
      stride-2 kernel); export and load seconds and the
@@ -206,7 +215,18 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      setting: ``tools/torch_serving_breakdown.py`` (64 slots),
      ``tools/torch_vision_serving_soak.py`` (512 images) and
      ``tools/torch_capacity_probe.py`` (q8_0, the fused tick at 1024 slots),
-     each ending in its JSON line.
+     each ending in its JSON line;
+ 28. the f32 fused transformer layer (``csrc/transformer_layer_f32.cu``:
+     ln_qkv, attention, proj_ffn at f32, every product 3xTF32) at phase
+     13's shapes on the full checkpoint's weights, B=128: each stage's
+     first, middle and last layer, whole and kernel by kernel on the plain
+     versions' inputs, within LAYER_F32_REL of the largest value, two
+     launches bit-equal; the kernels, the layer and the plain versions
+     timed beside the 3xTF32 bound, ``nn.TransformerEncoderLayer`` f32 (TF32
+     off) and ``scaled_dot_product_attention`` f32; then ``extract_features``
+     at f32, B = 8, 32, 128, with the f32 route on and off in turns (its
+     launches counted: the three kernels a layer and no flash, or flash a
+     layer), the features of the two within VIT_CPU_FEATURE_REL.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -258,6 +278,9 @@ Tolerances, and why:
     engine's from the offline forward's (other batch sizes, other cuDNN
     algorithms), only where the reference's top-2 logit gap is below
     VIT_NEAR_TIE.
+  * The f32 fused layer's kernels against their plain versions
+    (LAYER_F32_REL): 3xTF32 products, f32 sums in other orders, the
+    softmax's exponentials by ``expf`` against PyTorch's.
   * The f32 fused inverted residual against its plain version, at stride 1
     and 2: 3xTF32 products (f32-accurate), f32 sums in other orders, SiLUs
     within an ulp or two of each other: IR_F32_REL of the plain output's
@@ -280,6 +303,7 @@ Tolerances, and why:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -297,15 +321,19 @@ CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 
 # the H100's peaks (HBM rate, bf16 / f32 / 3xTF32 operation rates, MUFU
 # exponentials), the inverted residual's bound and its cuDNN chain (the
-# library column of kernel 8), from the port's one source of them
+# library column of kernel 8), the f32 layer route's switch for a
+# measurement, from the port's one source of them
 try:
     from ggml_experiments_tpu_torch.utils.observability import H100 as CHIP
     from ggml_experiments_tpu_torch.utils.observability import cudnn_inverted_residual
+    from ggml_experiments_tpu_torch.utils.observability import f32_layer_route_off
     from ggml_experiments_tpu_torch.utils.observability import (
         inverted_residual_bound as ir_bound,
     )
+    from ggml_experiments_tpu_torch.utils.observability import transformer_layer_bound
 except ImportError:     # no port beside the script: main() says so and exits 2
-    CHIP = cudnn_inverted_residual = ir_bound = None
+    CHIP = cudnn_inverted_residual = ir_bound = transformer_layer_bound = None
+    f32_layer_route_off = None
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
 GENERATE_SHAPE = (64, 200)           # (B, T) of the scan path
@@ -419,6 +447,13 @@ IR_S2_SHAPES = {"layer_2": (128, 128, 128, 32, 128, 64), "layer_3": (128, 64, 64
                 "layer_4": (128, 32, 32, 96, 384, 128), "layer_5": (128, 16, 16, 128, 512, 160)}
 # phase 27: each of the port's serving tools once, at a small setting
 TOOLS_TIMEOUT_S = 300
+# phase 28: the f32 fused layer (csrc/transformer_layer_f32.cu) against its
+# plain version: 3xTF32 products (f32-accurate), f32 sums and the softmax's
+# exponentials in other orders and routines: this fraction of the largest value
+LAYER_F32_REL = 1e-5
+LAYER_F32_BATCHES = (8, 32, 128)     # extract_features at f32, the route on and off
+F32_LAYER_KERNELS = ("transformer_ln_qkv_f32", "transformer_attention_f32",
+                     "transformer_proj_ffn_f32")
 
 
 class SmokeFailure(AssertionError):
@@ -1298,6 +1333,28 @@ def train_phase(tag, dev, tok, kernel_ms):
                                                           "forward kernel", "library products",
                                                           "other device work")))
 
+    # the first f32 training number: the same run at f32, which neither
+    # package's trainer routes to the fused pair (the plain scan, no launch)
+    tc32 = TrainConfig(epochs=1, log_every=1, compute_dtype=torch.float32)
+    before = port.kernel_launches()
+    _, hist32, _ = train_from_text(text, model_config=GRUConfig(), train_config=tc32,
+                                   data_config=data, seed=0)
+    torch.cuda.synchronize()
+    after = port.kernel_launches()
+    losses32 = [h["loss"] for h in hist32]
+    check(len(hist32) == n_steps and all(np.isfinite(losses32))
+          and losses32[-1] < losses32[0] - 0.15
+          and all(after[k] == before[k] for k in TRAIN_KERNELS),
+          f"{tag}: f32 training: {len(hist32)} steps, losses {losses32}, launches {before} -> "
+          f"{after}")
+    step32_ms = float(np.median(np.diff([h["elapsed_s"] for h in hist32]))) * 1e3
+    log(f"[{tag}] train_from_text corpus_train.txt f32 B={B} T={T}: {n_steps} steps, loss "
+        f"{losses32[0]:.4f} -> {losses32[-1]:.4f} (bf16: {losses[-1]:.4f}) | {step32_ms:.2f} "
+        f"ms/step (median of {len(hist32) - 1}) = {B * T / step32_ms * 1e3:,.0f} tokens/s, "
+        f"{step32_ms / step_ms:.2f}x the bf16 step's {step_ms:.2f} ms | the plain scan (no "
+        f"fused train launch): neither package routes f32 to the fused pair")
+    del hist32
+
     # the same run through train(), whole and interrupted + resumed
     def fresh():
         init = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(0), device=dev)
@@ -1408,6 +1465,13 @@ def train_phase(tag, dev, tok, kernel_ms):
 
 
 LAYER_KERNELS = ("transformer_ln_qkv", "transformer_attention", "transformer_proj_ffn")
+
+
+def f32_attention_launches(n_layers):
+    """What an f32 MobileViT forward of ``n_layers`` transformer layers (each
+    of L a multiple of 8) launches for them on the card's default route: the
+    three f32 layer kernels a layer."""
+    return {k: n_layers for k in F32_LAYER_KERNELS}
 
 
 def vision_kernel_phase(tag, params, dev):
@@ -1776,6 +1840,7 @@ def vision_model_phase(tag, dev, images, labels):
         extract_features,
         load_mobilevit,
     )
+    from ggml_experiments_tpu_torch.ops.linear import linear
     from ggml_experiments_tpu_torch.utils.trace_report import kernel_name
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1783,11 +1848,17 @@ def vision_model_phase(tag, dev, images, labels):
     nb = -(-len(images) // VIT_BATCH)
     p = load_mobilevit(VIT_CKPT, device=dev, fused_ir=False)
     p_ir = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
+    # the unfused f32 reference: flash attention, neither fused layer nor block
+    p_flash = load_mobilevit(VIT_CKPT, device=dev, fused_ir=False, fused_layer=False)
     check(p.layer_3.transformer[0].attention.flash and p.layer_3.transformer[0].fused
-          and not p.layer_2[1].fused and p_ir.layer_2[1].fused,
+          and not p.layer_2[1].fused and p_ir.layer_2[1].fused
+          and not p_flash.layer_3.transformer[0].fused,
           f"{tag}: the default routes on the card are not flash + fused layer")
     n_ir = sum(blk.fused_route(bf16, dev) for blk in ir_blocks(p_ir))
     n_s2 = sum(blk.fused_route(bf16, dev) for blk in ir_blocks(p_ir) if blk.conv_3x3.stride == 2)
+    n_ir32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_ir))
+    n_s2_32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_ir)
+                  if blk.conv_3x3.stride == 2)
 
     def run(params, cd, name):
         port.reset_kernel_launches()
@@ -1804,9 +1875,13 @@ def vision_model_phase(tag, dev, images, labels):
 
     logits = {}
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS}}
-    runs = (("f32", p, f32, {"flash_mha": 9}), ("bf16", p, bf16, layer),
+    # the f32 default route: the f32 fused layer and the f32 fused blocks
+    f32_default = {**f32_attention_launches(9), "fused_inverted_residual": n_ir32,
+                   "inverted_residual_f32": n_ir32 - n_s2_32, "inverted_residual_s2_f32": n_s2_32}
+    runs = (("f32", p_flash, f32, {"flash_mha": 9}), ("bf16", p, bf16, layer),
             ("bf16+fused_ir", p_ir, bf16, {**layer, "fused_inverted_residual": n_ir,
-                                           "inverted_residual_s2": n_s2}))
+                                           "inverted_residual_s2": n_s2}),
+            ("f32 default", p_ir, f32, f32_default))
     main_launches = {}
     for name, params, cd, per_batch in runs:
         out, launches, sec = run(params, cd, name)
@@ -1823,23 +1898,36 @@ def vision_model_phase(tag, dev, images, labels):
                   f"{k} {launches[k]}" for k in per_batch)
         if name != "f32":
             agree, flips = argmax_near_ties(f"{tag}: {name} vs f32", out, logits["f32"],
-                                            VIT_NEAR_TIE, tie_dtype=cd)
+                                            VIT_NEAR_TIE if cd == bf16 else NEAR_TIE["float32"],
+                                            tie_dtype=cd)
             msg += f" | argmax agreement with f32 {agree:.4f} ({flips} flips, at near-ties)"
         log(msg)
 
-    # the card's f32 features against the plain CPU run
+    # the card's f32 features against the plain CPU run, on the unfused
+    # reference route and on the default route; the default's argmax against
+    # the CPU's under the near-tie rule
     n = VIT_CPU_IMAGES
     p_cpu = load_mobilevit(VIT_CKPT, device="cpu")
     t0 = time.perf_counter()
     want = extract_features(p_cpu, x_all[:n])
     cpu_s = time.perf_counter() - t0
-    got = extract_features(p, x_all[:n].to(dev)).cpu()
-    rel = float((got - want).abs().max()) / float(want.abs().max())
-    check(rel <= VIT_CPU_FEATURE_REL, f"{tag}: f32 features on the card vs the CPU: max rel err "
-                                      f"{rel:.3g} > {VIT_CPU_FEATURE_REL}")
-    log(f"[{tag}] f32 features of the first {n} images, card vs the plain CPU run ({cpu_s:.1f} s): "
-        f"max abs err {float((got - want).abs().max()):.3g}, relative to the largest "
-        f"{rel:.3g} (limit {VIT_CPU_FEATURE_REL})")
+
+    def head(feats):
+        return linear(feats.mean(dim=(1, 2)), p_cpu.classifier_kernel, p_cpu.classifier_bias,
+                      compute_dtype=f32).float()
+
+    for route, params in (("unfused (flash)", p_flash), ("default", p_ir)):
+        got = extract_features(params, x_all[:n].to(dev)).cpu()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        check(rel <= VIT_CPU_FEATURE_REL, f"{tag}: f32 features on the card ({route} route) vs "
+                                          f"the CPU: max rel err {rel:.3g} > "
+                                          f"{VIT_CPU_FEATURE_REL}")
+        agree, flips = argmax_near_ties(f"{tag}: f32 {route} vs the CPU", head(got), head(want),
+                                        NEAR_TIE["float32"], tie_dtype=f32)
+        log(f"[{tag}] f32 features of the first {n} images, card ({route} route) vs the plain "
+            f"CPU run ({cpu_s:.1f} s): max abs err {float((got - want).abs().max()):.3g}, "
+            f"relative to the largest {rel:.3g} (limit {VIT_CPU_FEATURE_REL}); argmax agreement "
+            f"{agree:.4f} ({flips} flips, at near-ties)")
     del p_cpu, want, got
 
     # the calibrated q4_k_m checkpoint
@@ -2254,9 +2342,9 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
         f"({worst[1][0]:,} of {worst[1][1]:,})")
     check(p_km.layer_3.transformer[0].attention.flash and p_km.layer_3.transformer[0].fused,
           f"{tag}: the port-made file did not load on the default routes")
-    # the default routes: flash and the f32 fused inverted residual at f32;
-    # the fused layer and the fused inverted residual at bf16 (the float
-    # model's bf16 + fused_ir route)
+    # the default routes: the f32 fused layer and the f32 fused inverted
+    # residual at f32; the fused layer and the fused inverted residual at
+    # bf16 (the float model's bf16 + fused_ir route)
     layer = {"fused_transformer_layer": 9, **{k: 9 for k in LAYER_KERNELS},
              "fused_inverted_residual": sum(blk.fused_route(bf16, dev)
                                             for blk in ir_blocks(p_km)),
@@ -2264,7 +2352,7 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
                                          if blk.conv_3x3.stride == 2)}
     n_ir32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_km))
     n_s2_32 = sum(blk.fused_route(f32, dev) for blk in ir_blocks(p_km) if blk.conv_3x3.stride == 2)
-    f32_route = {"flash_mha": 9, "fused_inverted_residual": n_ir32,
+    f32_route = {**f32_attention_launches(9), "fused_inverted_residual": n_ir32,
                  "inverted_residual_f32": n_ir32 - n_s2_32, "inverted_residual_s2_f32": n_s2_32}
     for name, cd, per_batch, ref_route in (("f32", f32, f32_route, "f32"),
                                            ("bf16", bf16, layer, "bf16+fused_ir")):
@@ -2291,16 +2379,18 @@ def vision_remainders_phase(tag, dev, images, labels, logits):
                 f"{k} {launches[k]}" for k in per_batch))
     del p_km
 
-    # 2. eval of the weight.ggml on the card
+    # 2. eval of the weight.ggml on the card (f32: the f32 layer's route)
+    attn = tuple(f32_attention_launches(1))
     for qtype in ("q4_k", "q8_0"):
         port.reset_kernel_launches()
         rc, text, sec = run_command(["eval", "--weights", VIT_CKPT, "--qtype", qtype,
                                      "--device", "cuda"])
         launches = port.kernel_launches()
-        check(rc == 0 and launches["flash_mha"] > 0,
+        check(rc == 0 and all(launches[k] > 0 for k in attn),
               f"{tag}: eval --qtype {qtype}: rc {rc}, launches {launches}")
         log(f"[{tag}] eval --weights mobilevit_synth_full.ggml --qtype {qtype} on the card: "
-            f"{sec:.2f} s wall | {text.strip()} | flash_mha launches {launches['flash_mha']}")
+            f"{sec:.2f} s wall | {text.strip()} | launches " + ", ".join(
+                f"{k} {launches[k]}" for k in attn))
 
     # 3. activation storage on the bf16 + fused_ir route
     xb = x_all[:VIT_BATCH].to(dev)
@@ -3113,7 +3203,7 @@ def md_serve_rank(tag, work, rank, world, dev):
             secs.append(time.perf_counter() - t0)
         secs = statistics.median(secs)
         names = (("fused_transformer_layer", "fused_inverted_residual") if cd == bf16
-                 else ("flash_mha",))
+                 else tuple(f32_attention_launches(1)))
         check(all(launches[n] > 0 for n in names), f"{tag}: rank {rank} {cdname(cd)} forward "
                                                    f"launched {launches}")
         out[f"vision_{cdname(cd)}"] = dict(seconds=secs, launches={n: launches[n] for n in names})
@@ -3738,12 +3828,13 @@ def mt_train_rank(tag, work, rank, world, dev):
     q8 = load_mobilevit(VIT_CKPT, device=dev, qtype="q8_0")
     pq = place(q8, mobilevit_param_specs(q8), tp)
     feats["q8_0"] = extract_features(pq, x, compute_dtype=f32)
-    check(not any(hasattr(layer, "_gxt_fused_operands") for blk in (pv.layer_3, pv.layer_4,
-                                                                    pv.layer_5)
-                  for layer in blk.transformer), f"{tag}: placed layers kept their operands")
+    check(not any(hasattr(layer, attr) for blk in (pv.layer_3, pv.layer_4, pv.layer_5)
+                  for layer in blk.transformer
+                  for attr in ("_gxt_fused_operands", "_gxt_fused_operands_f32")),
+          f"{tag}: placed layers kept their operands")
     out["vit"] = {k: float(v.double().abs().sum()) for k, v in feats.items()}
-    out["vit"]["launches"] = {k: vit_launches[k] for k in ("flash_mha", "fused_transformer_layer",
-                                                           "fused_inverted_residual")}
+    out["vit"]["launches"] = {k: vit_launches[k] for k in (
+        *f32_attention_launches(1), "fused_transformer_layer", "fused_inverted_residual")}
     if rank == 0:
         np.savez(os.path.join(work, "mt_vit.npz"), **{k: v.cpu().numpy() for k, v in
                                                        feats.items()})
@@ -3869,8 +3960,7 @@ def train_mesh_phase(tag, dev, images, smi):
     agree, flips = argmax_near_ties(f"{tag}: TP MobileViT bf16 argmax", got["bfloat16"],
                                     want["bfloat16"], VIT_NEAR_TIE)
     vl = r0["vit"]["launches"]
-    check(vl["flash_mha"] > 0 and vl["fused_transformer_layer"] > 0
-          and vl["fused_inverted_residual"] > 0, f"{tag}: TP MobileViT launches {vl}")
+    check(all(v > 0 for v in vl.values()), f"{tag}: TP MobileViT launches {vl}")
     log(f"[{tag}] (d) TP MobileViT (1, 2), {MT_VIT_IMAGES} images: f32 features relative error "
         f"{errs['float32']:.3g}, q8_0 {errs['q8_0']:.3g} (limit {VIT_CPU_FEATURE_REL}); bf16 "
         f"classify argmax agreement {agree:.4f} ({flips} flips, at near-ties) | rank 0 launches "
@@ -4261,17 +4351,17 @@ def aot_phase(tag, dev, tok, images):
               f"extract_features (limit {AOT_FEATURE_REL} x {scale:.3g})")
         n_s2 = sum(blk.fused_route(torch.float32, dev) for blk in ir_blocks(vit)
                    if blk.conv_3x3.stride == 2)
-        check(launches["flash_mha"] == n_layers and n_ir > 0
+        attn = f32_attention_launches(n_layers)
+        check(all(launches[k] == v for k, v in attn.items()) and n_ir > 0
               and launches["inverted_residual_f32"] == n_ir - n_s2
               and launches["inverted_residual_s2_f32"] == n_s2
               and launches["fused_inverted_residual"] == n_ir
-              and sum(launches.values()) == n_layers + 2 * n_ir,
-              f"{tag}: the MobileViT artifact's replay launched {launches}, expected "
-              f"{n_layers} flash_mha and {n_ir} f32 inverted residuals, {n_s2} of them at "
-              f"stride 2")
+              and sum(launches.values()) == sum(attn.values()) + 2 * n_ir,
+              f"{tag}: the MobileViT artifact's replay launched {launches}, expected {attn} and "
+              f"{n_ir} f32 inverted residuals, {n_s2} of them at stride 2")
         size = os.path.getsize(art)
         check(size < AOT_MAX_BYTES, f"{tag}: the MobileViT artifact holds {size} bytes")
-        out["flash_mha"] = launches["flash_mha"]
+        out.update({k: launches[k] for k in attn})
         out["inverted_residual_f32"] = launches["inverted_residual_f32"]
         out["inverted_residual_s2_f32"] = launches["inverted_residual_s2_f32"]
         log(f"[{tag}] MobileViT features artifact (B, S) = (8, 256), f32: aot-export "
@@ -4279,8 +4369,8 @@ def aot_phase(tag, dev, tok, images):
             f"weight.ggml), {len(ep.graph.nodes)} graph nodes, load {load_s:.2f} s | aot-run "
             f"{run_s:.2f} s, no unpickling fallback | "
             f"replay: max abs err {err:.3g} against extract_features (largest {scale:.3g}), "
-            f"{launches['flash_mha']} flash_mha and {n_ir} inverted_residual_f32 launches, no "
-            f"other kernel of the port")
+            + ", ".join(f"{launches[k]} {k}" for k in attn) + f" and {n_ir} f32 inverted "
+            f"residual launches, no other kernel of the port")
     del vit, ep, got, want
     torch.cuda.empty_cache()
     return out
@@ -4336,15 +4426,17 @@ def trace_phase(tag, dev):
                                      "--compute", "float32", "--reps", "1", "--top", "60"])
     sec = time.perf_counter() - t0
     byname = {name: (us, count) for us, count, name in rows}
-    for name, n in (("flash_mha", n_layers), ("inverted_residual_f32", n_ir),
+    attn = f32_attention_launches(n_layers)
+    for name, n in (*attn.items(), ("inverted_residual_f32", n_ir),
                     ("inverted_residual_s2_f32", n_s2)):
         check(byname.get(name, (0, 0))[1] == n,
               f"{tag}: the f32 MobileViT trace names no {name} row of {n} launches: "
               f"{[(r[2][:40], r[1]) for r in rows[:8]]}")
     busy = sum(us for us, _, _ in rows)
     log(f"[{tag}] tools/torch_trace_report.py --model mobilevit --batch {VIT_BATCH} --compute "
-        f"float32 ({sec:.1f} s): {busy / 1e3:.2f} ms busy a forward; flash_mha "
-        f"{byname['flash_mha'][0] / 1e3:.3f} ms in {n_layers} launches, inverted_residual_f32 "
+        f"float32 ({sec:.1f} s): {busy / 1e3:.2f} ms busy a forward; " + ", ".join(
+            f"{k} {byname[k][0] / 1e3:.3f} ms in {n}" for k, n in attn.items())
+        + f" launches, inverted_residual_f32 "
         f"{byname['inverted_residual_f32'][0] / 1e3:.3f} ms in {n_ir}, inverted_residual_s2_f32 "
         f"{byname.get('inverted_residual_s2_f32', (0, 0))[0] / 1e3:.3f} ms in {n_s2}:\n"
         + "\n".join(table.splitlines()[:13]))
@@ -4370,6 +4462,189 @@ def trace_phase(tag, dev):
         f"host at the first weight file read): gru.bin (6 tensors) and weight.ggml "
         f"({len(vit_py)} tensors) read equal to the numpy readers")
     torch.cuda.empty_cache()
+
+
+# ---- phase 28: the f32 fused layer --------------------------------------------------------
+
+
+def layer_f32_phase(tag, dev, images):
+    """Phase 28: the f32 fused transformer layer (``csrc/transformer_layer_f32.cu``)
+    at phase 13's shapes on the full checkpoint's weights at B = VIT_BATCH:
+    each stage's first layer (input projection), a middle one and the last
+    (final LN + conv_projection with BN and SiLU). Each of the three kernels
+    on its plain version's inputs and the whole layer against
+    ``fused_transformer_layer_plain``, within LAYER_F32_REL of the largest
+    value, two launches bit-equal; each kernel, the layer and the plain
+    versions timed beside the 3xTF32 bound and the library columns
+    (``nn.TransformerEncoderLayer(C, H, F, SiLU, norm_first)`` at f32 with
+    TF32 off, no projections; ``scaled_dot_product_attention`` f32 for the
+    attention). Then ``extract_features`` at f32 for each LAYER_F32_BATCHES
+    with the route on and off in turns (on: the three kernels a layer and
+    no flash attention; off: flash a layer), features within
+    VIT_CPU_FEATURE_REL of each other. Returns the kernels-line readings of
+    the three kernels, a forward's worth summed."""
+    import torch
+    import torch.nn.functional as F
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    f32 = torch.float32
+    vit = tmv.load_mobilevit(VIT_CKPT, device=dev)
+    g = torch.Generator(device=dev).manual_seed(28)
+    tot = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_t=[0.0, 0.0], library_ms=None)
+           for k in F32_LAYER_KERNELS}
+    tot["transformer_attention_f32"]["library_ms"] = 0.0
+    layer_sum = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_t=[0.0, 0.0])
+
+    def rel(got, want):
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    for blk, side in ((vit.layer_3, 32), (vit.layer_4, 16), (vit.layer_5, 8)):
+        n = len(blk.transformer)
+        cin, c = blk.conv_1x1.kernel.shape[-2:]
+        l = (side // blk.patch_size) ** 2
+        bp = VIT_BATCH * blk.patch_size ** 2
+        pk = blk.conv_projection.kernel
+        h = blk.transformer[0].attention.num_heads
+        f = blk.transformer[0].intermediate_kernel.shape[-1]
+        variants = [("first", 1, dict(input_proj=blk.conv_1x1.kernel.reshape(cin, c))),
+                    ("middle", n - 2, {}),
+                    ("last", 1, dict(final_ln=(blk.ln_gamma, blk.ln_beta), final_ln_eps=blk.eps,
+                                     output_proj=(pk.reshape(c, -1), blk.conv_projection.bn.scale,
+                                                  blk.conv_projection.bn.bias,
+                                                  blk.conv_projection.activation)))]
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True, device=dev,
+                                               dtype=f32).eval()
+        xl = torch.randn((bp, l, c), generator=g, device=dev)
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: lib(xl), n=10)
+        del lib, xl
+        for name, count, kw in variants:
+            if count <= 0:
+                continue
+            layer = blk.transformer[{"first": 0, "middle": 1, "last": n - 1}[name]]
+            ops = ftl.layer_operands(layer, c, f32, **kw)
+            width = cin if "input_proj" in kw else c
+            cout = ops.wout.shape[1] if ops.wout is not None else c
+            x = torch.randn((bp, l, width), generator=g, device=dev)
+            got = ftl.fused_layer_cuda(x, ops)
+            again = ftl.fused_layer_cuda(x, ops)
+            torch.cuda.synchronize()
+            want = ftl.fused_transformer_layer_plain(x, ops)
+            err, scale = rel(got, want)
+            what = f"f32 layer {name} (bp, L, Cin, C, Cout) = ({bp}, {l}, {width}, {c}, {cout})"
+            check(bool(torch.isfinite(got).all()) and err <= LAYER_F32_REL * scale,
+                  f"{tag}: {what}: max abs err {err:.3g} against the plain version (limit "
+                  f"{LAYER_F32_REL} x {scale:.3g})")
+            check(torch.equal(got, again), f"{tag}: {what}: two launches differ")
+            del got, again, want
+            bounds = transformer_layer_bound(bp, l, width, c, f, cout, "float32",
+                                             in_proj="input_proj" in kw,
+                                             out_proj="output_proj" in kw)
+            ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=10)
+            plain_ms = cuda_ms(lambda: ftl.fused_transformer_layer_plain(x, ops), n=2, warmup=1)
+            b_ms, b_by = bound(*bounds["layer"], "tf32x3")
+            layer_sum["ms"] += count * ms
+            layer_sum["plain_ms"] += count * plain_ms
+            layer_sum["lib_ms"] += count * lib_ms
+            layer_sum["bound_t"][0] += count * bound(bounds["layer"][0], 0, "tf32x3")[0]
+            layer_sum["bound_t"][1] += count * bound(0, bounds["layer"][1], "tf32x3")[0]
+            log(f"[{tag}] {what} x{count}: max abs err {err:.3g} ({err / scale:.3g} of the "
+                f"largest value {scale:.3g}), two launches bit-equal | layer {ms:.4f} ms | plain "
+                f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | nn.TransformerEncoderLayer "
+                f"f32, TF32 off (no projections) {lib_ms:.4f} ms")
+
+            # the three kernels, each on its plain version's inputs
+            dh, dhp = c // h, ftl.head_pad(c // h)
+            x2 = x.reshape(bp * l, width)
+            want_qkv = ftl.ln_qkv_plain(x2, ops)
+            want_ctx = ftl.attention_plain(want_qkv, l, ops)
+            heads = [want_qkv.reshape(bp, l, 3, h, dhp)[:, :, j, :, :dh].transpose(1, 2)
+                     .contiguous() for j in range(3)]
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), n=10)
+            del heads
+            cases = (("transformer_ln_qkv_f32", lambda: ftl.ln_qkv_cuda(x2, ops, l),
+                      lambda: ftl.ln_qkv_plain(x2, ops), "ln_qkv", None),
+                     ("transformer_attention_f32", lambda: ftl.attention_cuda(want_qkv, l, ops),
+                      lambda: ftl.attention_plain(want_qkv, l, ops), "attention", sdpa_ms),
+                     ("transformer_proj_ffn_f32", lambda: ftl.proj_ffn_cuda(x2, want_ctx, ops, l),
+                      lambda: ftl.proj_ffn_plain(x2, want_ctx, ops), "proj_ffn", None))
+            parts = []
+            for kname, kernel, plain, part, klib in cases:
+                kgot, kagain = kernel(), kernel()
+                torch.cuda.synchronize()
+                kerr, kscale = rel(kgot, plain())
+                check(bool(torch.isfinite(kgot).all()) and kerr <= LAYER_F32_REL * kscale,
+                      f"{tag}: {kname} {what}: max abs err {kerr:.3g} against the plain version "
+                      f"(limit {LAYER_F32_REL} x {kscale:.3g})")
+                check(torch.equal(kgot, kagain), f"{tag}: {kname} {what}: two launches on the "
+                                                 f"same inputs differ")
+                del kgot, kagain
+                kms = cuda_ms(kernel, n=10)
+                kplain = cuda_ms(plain, n=2, warmup=1)
+                t = tot[kname]
+                t["max_abs_err"] = max(t["max_abs_err"], kerr)
+                t["ms"] += count * kms
+                t["plain_ms"] += count * kplain
+                nbytes, ops_n = bounds[part]
+                t["bound_t"][0] += count * bound(nbytes, 0, "tf32x3")[0]
+                t["bound_t"][1] += count * bound(0, ops_n, "tf32x3")[0]
+                if klib is not None:
+                    t["library_ms"] += count * klib
+                kb_ms, kb_by = bound(nbytes, ops_n, "tf32x3")
+                parts.append(f"{part} {kms:.4f} ms (bound {kb_ms:.4f}, {kb_by}; plain "
+                             f"{kplain:.3f}; err {kerr / kscale:.3g} of the largest)")
+            log(f"[{tag}]   its kernels on their plain versions' inputs, each launched twice "
+                f"(bit-equal): " + " | ".join(parts) + f" | scaled_dot_product_attention f32 "
+                f"{sdpa_ms:.4f} ms")
+            del x, x2, want_qkv, want_ctx, ops
+    for t in tot.values():
+        t["bound_ms"] = max(t["bound_t"])
+        t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"
+        del t["bound_t"]
+    log(f"[{tag}] a B={VIT_BATCH} forward's nine f32 layers: {layer_sum['ms']:.3f} ms in three "
+        f"launches a layer (" + ", ".join(f"{k[12:]} {v['ms']:.3f}" for k, v in tot.items())
+        + f") | bound {max(layer_sum['bound_t']):.3f} ms | plain {layer_sum['plain_ms']:.2f} ms "
+          f"| nn.TransformerEncoderLayer f32 {layer_sum['lib_ms']:.3f} ms (no projections) | "
+          f"scaled_dot_product_attention f32 "
+          f"{tot['transformer_attention_f32']['library_ms']:.3f} ms")
+
+    # the route through the model: extract_features at f32, on and off in turns
+    n_layers = sum(len(b.transformer) for b in (vit.layer_3, vit.layer_4, vit.layer_5))
+    for b in LAYER_F32_BATCHES:
+        xb = images[:b]
+        feats, times = {}, {}
+        for on in (False, True, True, False):
+            with contextlib.nullcontext() if on else f32_layer_route_off():
+                port.reset_kernel_launches()
+                out = tmv.extract_features(vit, xb)
+                torch.cuda.synchronize()
+                launches = port.kernel_launches()
+                times.setdefault(on, []).append(
+                    cuda_ms(lambda: tmv.extract_features(vit, xb), n=5, warmup=1))
+            want = f32_attention_launches(n_layers) if on else {"flash_mha": n_layers}
+            unwanted = ("flash_mha",) if on else F32_LAYER_KERNELS
+            check(all(launches[k] == v for k, v in want.items())
+                  and not any(launches[k] for k in unwanted),
+                  f"{tag}: extract_features B={b} f32, route {'on' if on else 'off'}: "
+                  f"launches {launches}")
+            feats[on] = out
+        err, scale = rel(feats[True], feats[False])
+        check(err <= VIT_CPU_FEATURE_REL * scale,
+              f"{tag}: extract_features B={b} f32: route on against off, max abs err "
+              f"{err:.3g} (limit {VIT_CPU_FEATURE_REL} x {scale:.3g})")
+        off, on_ = min(times[False]), min(times[True])
+        log(f"[{tag}] extract_features B={b} f32, the f32 layer route off / on (turns off, "
+            f"on, on, off): " + ", ".join(f"{t:.3f}" for t in times[False]) + " / "
+            + ", ".join(f"{t:.3f}" for t in times[True]) + f" ms ({off / on_:.3f}x by the "
+            f"best turns) | features: on against off, max abs err {err / scale:.3g} of the "
+            f"largest | launches on: three f32 kernels a layer, no flash; off: flash a layer")
+    del vit
+    torch.cuda.empty_cache()
+    return tot
 
 
 def request_key(prompt_ids, max_new):
@@ -4700,12 +4975,23 @@ def main() -> int:
     kernels.update(ir_s2_phase("26 stride-2 fused block", dev,
                                torch.from_numpy(images[:VIT_BATCH]).to(dev)))
     for name, n in aot_launches.items():
-        kernels[name]["aot_launches"] = n
-    del images
-    torch.cuda.empty_cache()
+        if name not in F32_LAYER_KERNELS:   # measured in phase 28
+            kernels[name]["aot_launches"] = n
 
     # ---- 27. the port's serving tools ---------------------------------------------------
     tools_phase("27 tools")
+
+    # ---- 28. the f32 fused layer -----------------------------------------------------------
+    f32_layer = layer_f32_phase(
+        "28 f32 fused layer", dev, torch.from_numpy(images[:VIT_BATCH]).to(dev))
+    del images
+    torch.cuda.empty_cache()
+    for name in F32_LAYER_KERNELS:
+        # the main path: phase 14's f32 classify on the default route
+        kernels[name] = dict(f32_layer[name], launches=vit_launches[name])
+        for key, n in aot_launches.items():
+            if key == name:
+                kernels[name]["aot_launches"] = n
 
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
@@ -4725,6 +5011,9 @@ def main() -> int:
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
     for name in ("fused_transformer_layer",) + LAYER_KERNELS:
         meta[name] = (src + "transformer_layer.cu",
+                      "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
+    for name in F32_LAYER_KERNELS:
+        meta[name] = (src + "transformer_layer_f32.cu",
                       "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
     meta["flash_mha"] = (src + "flash_attention.cu",
                          "ggml_experiments_tpu/ops/flash_attention.py:104")
@@ -4753,7 +5042,7 @@ def main() -> int:
             entry["plan"] = kd["plan"]
         if "mesh_launches" in kd:   # the train kernels: phase 22's launches by run and rank
             entry["mesh_launches"] = kd["mesh_launches"]
-        if "aot_launches" in kd:    # qmatmul q8_0, flash, f32 blocks: phase 24's replays
+        if "aot_launches" in kd:    # qmatmul q8_0, flash or the f32 layer, f32 blocks: phase 24
             entry["aot_launches"] = kd["aot_launches"]
         if "shapes" in kd:          # the stride-2 kernel: each downsampler's readings
             entry["shapes"] = kd["shapes"]

@@ -18,13 +18,19 @@ package:
   and the downsampling block of layers 3-5).
   The JAX package routes bf16 at stride 1 only; the CPU keeps that route,
   and its f32 forward is the JAX package's unfused chain;
-* ``TransformerLayerParams.fused`` at bf16 with L a multiple of 8 ->
-  ``ops.fused_transformer_layer``; when every layer of a block is fused and
-  the block's patch count is a multiple of 8, the block folds its conv_1x1
-  into the first layer (``input_proj``) and its LN and conv_projection (+BN,
-  SiLU) into the last (``final_ln``, ``output_proj``);
+* ``TransformerLayerParams.fused`` with L a multiple of 8 ->
+  ``ops.fused_transformer_layer`` (``TransformerLayerParams.fused_route``):
+  at bf16, and at f32 on a CUDA device where the f32 kernels take the
+  layer's shape (``f32_layer_takes``, decided from the shape before any
+  launch). When every layer of a block takes the route
+  and the block's patch count is a multiple of 8, the block folds its
+  conv_1x1 into the first layer (``input_proj``) and its LN and
+  conv_projection (+BN, SiLU) into the last (``final_ln``,
+  ``output_proj``). The JAX package routes bf16 only; the CPU keeps that
+  route, and its f32 forward is the JAX package's unfused chain;
 * ``AttentionParams.flash`` with L a multiple of 8 -> ``ops.flash_attention``
-  (the f32 route, and bf16 without the fused layer).
+  (the f32 route where the fused layer does not take it, and bf16 without
+  the fused layer).
 
 ``flash_attn=None`` / ``fused_layer=None`` / ``fused_ir=None`` at load mean
 "on when the parameters live on a CUDA device, off on the CPU" (the JAX
@@ -168,9 +174,36 @@ class TransformerLayerParams:
     eps: float = static_field(1e-5)
     fused: bool = static_field(False)
 
+    def fused_route(self, compute_dtype, device=None, l: Optional[int] = None,
+                    cin: Optional[int] = None) -> bool:
+        """Whether a call at ``compute_dtype`` on ``device`` over sequences of
+        ``l`` tokens (None: not checked), whose input has ``cin`` channels
+        where the block folds its conv_1x1 in, runs the fused layer: ``fused``
+        set and L a multiple of 8; bf16 anywhere (the JAX model's route); f32
+        on a CUDA device only, where the f32 kernels take the shape. On an
+        NVIDIA H100 80GB HBM3 at 700.00 W (tools/torch_gate_sweep.py --only
+        layer_f32; PERF.md §6) extract_features at f32 ran 2.72 /
+        1.24 / 1.23x faster on the f32 route than on the unfused chain with
+        flash attention at B = 8 / 32 / 128."""
+        cd = resolve_dtype(compute_dtype)
+        if not self.fused or (l is not None and l % 8):
+            return False
+        if cd == torch.bfloat16:
+            return True
+        on_card = device is not None and torch.device(device).type == "cuda"
+        if cd != torch.float32 or not on_card:
+            return False
+        if l is None:
+            return True
+        from ggml_experiments_tpu_torch.ops.fused_transformer_layer import f32_layer_takes
+
+        c = self.attention.wq.shape[0]
+        return f32_layer_takes(l, c if cin is None else cin, c, self.attention.num_heads,
+                               self.intermediate_kernel.shape[-1], in_proj=cin is not None)
+
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)
-        if self.fused and cd == torch.bfloat16 and x.shape[-2] % 8 == 0:
+        if self.fused_route(cd, x.device, x.shape[-2]):
             from ggml_experiments_tpu_torch.ops.fused_transformer_layer import (
                 fused_transformer_layer,
             )
@@ -207,10 +240,11 @@ class MobileViTBlockParams:
         residual = x
         k = self.conv_kxk(x, **kw)
         h, w = k.shape[1], k.shape[2]
+        n_patches = (h // self.patch_size) * (w // self.patch_size)
         all_fused = (len(self.transformer) > 0
-                     and all(layer.fused for layer in self.transformer)
-                     and cd == torch.bfloat16
-                     and (h // self.patch_size) * (w // self.patch_size) % 8 == 0)
+                     and all(layer.fused_route(cd, k.device, n_patches,
+                                               cin=k.shape[-1] if i == 0 else None)
+                             for i, layer in enumerate(self.transformer)))
         if all_fused:
             # conv_1x1 and conv_projection are pointwise, so they commute with
             # unfold/fold and ride inside the first/last layer's kernel

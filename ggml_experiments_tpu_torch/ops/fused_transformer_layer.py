@@ -35,9 +35,21 @@ heads padded to dhp = dh rounded up to 16 with zero columns),
 :func:`fused_transformer_layer_plain`'s bits. A layer those row-tile kernels
 do not take (C past 288, L past 576, an x tile past shared memory) runs on
 the per-sequence kernel of ``csrc/transformer_layer_seq.cu``, one launch
-whose plain version is :func:`fused_transformer_layer_plain`. On a CPU tensor
-:func:`fused_transformer_layer` runs :func:`fused_transformer_layer_plain`; on
-a CUDA tensor it launches the kernels (bf16 only) or raises.
+whose plain version is :func:`fused_transformer_layer_plain`.
+
+At f32 every "-> cd" is a no-op, and the layer runs on the three kernels of
+``csrc/transformer_layer_f32.cu`` in the same split, with the same (T, 3 H
+dhp) q/k/v array in f32: each product as 3xTF32 on ``mma.sync``, the
+weights laid out once a layer as tf32 pairs (:func:`tf32_operand`, kept in
+``LayerOperands.cache``), the softmax after the true row max. The same three
+plain pieces are their plain versions. A layer they do not take (a head past
+64, a block's shared memory past the device's: :func:`f32_layer_takes`) is
+refused with its shape; there is no per-sequence route at f32.
+
+On a CPU tensor :func:`fused_transformer_layer` runs
+:func:`fused_transformer_layer_plain`; on a CUDA tensor it launches the
+kernels of its dtype (bf16 or f32) or raises. Under ``torch.export`` the f32
+layer is the custom op ``gxt::transformer_layer_f32``.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -54,10 +66,12 @@ from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.norm import layer_norm
 from ggml_experiments_tpu_torch.quant.qtensor import QTensor, dequantize
 
-# launches: the layer (three row-tile kernels a call, or the per-sequence
-# kernel) and each kernel; only the kernel wrappers add to them
+# launches: the bf16 layer (three row-tile kernels a call, or the
+# per-sequence kernel) and each kernel, then each f32 kernel; only the kernel
+# wrappers add to them
 LAUNCHES = {"fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
-            "transformer_proj_ffn": 0, "transformer_sequence": 0}
+            "transformer_proj_ffn": 0, "transformer_sequence": 0, "transformer_ln_qkv_f32": 0,
+            "transformer_attention_f32": 0, "transformer_proj_ffn_f32": 0}
 
 
 @dataclasses.dataclass
@@ -496,8 +510,11 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> torch.Tensor:
-    """Kernel A on x2 (T, Cin) bf16 CUDA (T a multiple of l): the (T, 3 H
-    dhp) array of :func:`ln_qkv_plain`."""
+    """Kernel A on x2 (T, Cin) bf16 or f32 CUDA (T a multiple of l): the (T,
+    3 H dhp) array of :func:`ln_qkv_plain` in x2's dtype. ``_plan``: bf16
+    only."""
+    if x2.dtype == torch.float32 and _plan is None:
+        return _ln_qkv_f32(x2, ops, l)
     c, h, dh, dhp = _dims(ops)
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
     prep, a = _row_tile_args(ops, x2, l, x2.shape[1], _plan, "transformer ln_qkv")
@@ -510,8 +527,10 @@ def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> 
 
 
 def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
-    """Kernel B on :func:`ln_qkv_cuda`'s array: ctx (T, C) bf16 (rows padded
-    to a multiple of 8 elements: a view)."""
+    """Kernel B on :func:`ln_qkv_cuda`'s array: ctx (T, C) in its dtype
+    (bf16 rows padded to a multiple of 8 elements: a view)."""
+    if qkv.dtype == torch.float32:
+        return _attention_f32(qkv, l, ops)
     c, h, dh, dhp = _dims(ops)
     if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp or not qkv.is_contiguous():
         raise ValueError(f"transformer attention: qkv must be a contiguous (T, {3 * h * dhp}) "
@@ -529,7 +548,10 @@ def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tenso
 
 def proj_ffn_cuda(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int, *,
                   _plan=None) -> torch.Tensor:
-    """Kernel C on x2 (T, Cin) and ctx (T, C) bf16 CUDA: (T, Cout) bf16."""
+    """Kernel C on x2 (T, Cin) and ctx (T, C) bf16 or f32 CUDA: (T, Cout) in
+    their dtype. ``_plan``: bf16 only."""
+    if x2.dtype == torch.float32 and _plan is None:
+        return _proj_ffn_f32(x2, ctx, ops, l)
     c = ops.wq.shape[0]
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
     ctx = _tma_ready(ctx)
@@ -551,10 +573,13 @@ def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> tor
     :func:`attention_cuda`, :func:`proj_ffn_cuda` launch one each), or,
     where they do not take the layer, the per-sequence kernel
     (:func:`sequence_layer_cuda`); (bp, L, Cout) bf16. ``_plan`` forces the
-    row-tile kernels' ring depths (tests, sweeps)."""
+    row-tile kernels' ring depths (tests, sweeps). An f32 tensor runs the
+    three f32 kernels (:func:`fused_layer_f32_cuda`)."""
+    if x3.dtype == torch.float32 and _plan is None:
+        return fused_layer_f32_cuda(x3, ops)
     if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
-        raise ValueError(f"fused_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
-                         f"{x3.dtype}{tuple(x3.shape)} on {x3.device}")
+        raise ValueError(f"fused_layer_cuda: x must be a bf16 or f32 (bp, L, Cin) CUDA tensor, "
+                         f"got {x3.dtype}{tuple(x3.shape)} on {x3.device}")
     bp, l, cin = x3.shape
     x2 = x3.reshape(bp * l, cin)
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
@@ -669,9 +694,259 @@ def sequence_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the f32 form (csrc/transformer_layer_f32.cu): the row-tile split and the
+# q/k/v array of the bf16 form at f32, every product as 3xTF32 on mma.sync
+# ---------------------------------------------------------------------------
+
+_F32_ROWS = 32          # rows of a row tile (csrc kBM)
+_H100_SMEM = 232448     # a block's shared memory on an H100, where no card is visible
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """v f32 rounded to tf32 as ``cvt.rna.tf32.f32`` does (to nearest, ties
+    away from zero; the low 13 mantissa bits zero), as f32."""
+    b = v.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor):
+    """(hi, lo) with w = hi + lo to about 2^-22 relative, each exact in tf32:
+    the kernels' 3xTF32 operands (``split_tf32`` of ``csrc/mma_common.cuh``)."""
+    w = w.float()
+    hi = _tf32_rna(w)
+    return hi, _tf32_rna(w - hi)
+
+
+def tf32_operand(w: torch.Tensor, dev=None) -> torch.Tensor:
+    """A product's weight w (K, N) as the f32 kernels' B operand: (Np, K8, 4,
+    4) f32, Np = N rounded up to 32 and K8 = ceil(K / 8), zero past K and N;
+    [n, kk, t] = (hi(w[8 kk + t, n]), hi(w[8 kk + t + 4, n]), lo(w[8 kk + t,
+    n]), lo(w[8 kk + t + 4, n])): one 16-byte load a mma.sync B fragment."""
+    k, n = w.shape
+    k8, np_ = -(-k // 8), -(-n // 32) * 32
+    dev = w.device if dev is None else dev
+    full = torch.zeros((k8 * 8, np_), dtype=torch.float32, device=dev)
+    full[:k, :n] = w.to(device=dev, dtype=torch.float32)
+    parts = [t.reshape(k8, 2, 4, np_).permute(3, 0, 2, 1) for t in tf32_split(full)]
+    return torch.stack(parts, dim=-2).reshape(np_, k8, 4, 4).contiguous()
+
+
+def _ld32(k: int) -> int:
+    """Row stride (floats) of a shared f32 operand of k columns (csrc ld32)."""
+    return -(-k // 8) * 8 + 4
+
+
+def layer_f32_smem(l: int, cin: int, c: int, h: int, f: int, in_proj: bool):
+    """Bytes of shared memory a block of each f32 kernel takes, (ln_qkv,
+    attention, proj_ffn), as ``gxt_layer_f32_smem`` reckons them: the row
+    tiles' f32 operands (32 rows), and the attention's k and v of the pairs
+    a block stages (8 // ceil(L / 16) pairs of L up to 128, one otherwise)."""
+    ldc, ldi = _ld32(c), _ld32(cin)
+    lp, wpp = -(-l // 8) * 8, -(-l // 16)
+    pairs = 8 // wpp if wpp <= 8 else 1
+    ln_qkv = _F32_ROWS * 4 * (2 * ldc + (ldi if in_proj else 0))
+    attention = pairs * 2 * lp * _ld32(c // h) * 4
+    proj_ffn = _F32_ROWS * 4 * (2 * ldc + max(_ld32(f), ldi if in_proj else 0))
+    return ln_qkv, attention, proj_ffn
+
+
+def f32_layer_takes(l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
+                    limit: Optional[int] = None) -> bool:
+    """Whether the f32 kernels take a layer of these widths: C heads of dh
+    <= 64, each kernel's block within ``limit`` bytes of shared memory (default: the card's, or an H100's where no card is
+    visible)."""
+    if l <= 0 or h <= 0 or c % h or c // h > 64:
+        return False
+    if limit is None:
+        limit = _smem_limit(torch.device("cuda")) if torch.cuda.is_available() else _H100_SMEM
+    return max(layer_f32_smem(l, cin, c, h, f, in_proj)) <= limit
+
+
+class _F32Args(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "qkv", "ctx", "out", "win", "wqkv", "wo", "wi", "wo2", "wout", "ln1g", "ln1b",
+        "bqkv", "bo", "ln2g", "ln2b", "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [
+        (name, ctypes.c_int) for name in (
+            "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "F", "Cout", "ldo", "in_proj",
+            "final_ln", "out_proj", "out_act")] + [
+        (name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
+
+
+_F32_LIB = []
+
+
+def _f32_lib():
+    if not _F32_LIB:
+        from ggml_experiments_tpu_torch import _build
+
+        lib = _build.load("transformer_layer_f32")
+        for fn in ("gxt_layer_ln_qkv_f32", "gxt_layer_attention_f32", "gxt_layer_proj_ffn_f32",
+                   "gxt_layer_forward_f32"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = [ctypes.POINTER(_F32Args), ctypes.c_void_p]
+        lib.gxt_layer_f32_smem.restype = ctypes.c_longlong
+        lib.gxt_layer_f32_smem.argtypes = [ctypes.POINTER(_F32Args), ctypes.c_int]
+        _F32_LIB.append(lib)
+    return _F32_LIB[0]
+
+
+@dataclasses.dataclass
+class _PreparedF32:
+    """One layer's operands in the f32 kernels' layout on one device."""
+
+    weights: dict             # tf32 pairs by _F32Args field
+    vectors: dict             # f32 vectors by _F32Args field
+    cout: int
+    args: dict = dataclasses.field(default_factory=dict)   # launch arguments by (T, L, Cin)
+
+
+def _prepare_f32(ops: LayerOperands, dev) -> _PreparedF32:
+    c, h, dh, dhp = _dims(ops)
+    wqkv = torch.zeros((c, 3, h, dhp), dtype=torch.float32, device=dev)
+    bqkv = torch.zeros((3, h, dhp), dtype=torch.float32, device=dev)
+    for i, (w, b) in enumerate(((ops.wq, ops.bq), (ops.wk, ops.bk), (ops.wv, ops.bv))):
+        wqkv[:, i, :, :dh] = w.to(device=dev, dtype=torch.float32).reshape(c, h, dh)
+        bqkv[i, :, :dh] = b.to(dev).reshape(h, dh)
+    weights = dict(wqkv=wqkv.reshape(c, -1), wo=ops.wo, wi=ops.wi, wo2=ops.wo2, win=ops.win,
+                   wout=ops.wout)
+    weights = {k: None if w is None else tf32_operand(w, dev) for k, w in weights.items()}
+    fl = ops.final_ln or (None, None)
+    vectors = dict(ln1g=ops.ln1[0], ln1b=ops.ln1[1], bqkv=bqkv, bo=ops.bo, ln2g=ops.ln2[0],
+                   ln2b=ops.ln2[1], bi=ops.bi, bo2=ops.bo2, ln3g=fl[0], ln3b=fl[1])
+    vectors = {k: None if v is None else _f32(v, dev) for k, v in vectors.items()}
+    return _PreparedF32(weights=weights, vectors=vectors,
+                        cout=ops.wout.shape[1] if ops.wout is not None else c)
+
+
+def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str):
+    """(prepared operands, _F32Args) for a launch of the f32 kernels on x (T
+    rows): raises, naming the shape, where they do not take the layer (the
+    shape is checked before the device)."""
+    c, h, dh, dhp = _dims(ops)
+    f = ops.wi.shape[1]
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"{what}: the f32 kernels take 2-D f32 tensors, got "
+                         f"{x.dtype}{tuple(x.shape)}")
+    if (ops.win is None and cin != c) or (ops.win is not None and ops.win.shape != (cin, c)):
+        raise ValueError(f"{what}: x width {cin} does not meet the weights (C={c})")
+    limit = _smem_limit(x.device) if x.device.type == "cuda" else _H100_SMEM
+    if c % h or x.shape[0] % l or not f32_layer_takes(l, cin, c, h, f,
+                                                     in_proj=ops.win is not None, limit=limit):
+        raise ValueError(
+            f"{what}: (T, L, Cin, C, H, F) = ({x.shape[0]}, {l}, {cin}, {c}, {h}, {f}) is not a "
+            f"layer the f32 kernels take (T a multiple of L, a head width up to 64, each "
+            f"kernel's block within {limit} bytes of shared memory: "
+            f"{layer_f32_smem(l, cin, c, h, f, ops.win is not None)})")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the f32 kernels take CUDA tensors, got one on {x.device}")
+    dev, t = x.device, x.shape[0]
+    key = ("f32", dev)
+    prep = ops.cache.get(key)
+    if prep is None:
+        prep = ops.cache[key] = _prepare_f32(ops, dev)
+    a = prep.args.get((t, l, cin))
+    if a is None:
+        in_proj = ops.win is not None
+        a = _F32Args(T=t, L=l, Cin=cin, ldx=cin, C=c, H=h, dh=dh, dhp=dhp, ldc=c, F=f,
+                     Cout=prep.cout, ldo=prep.cout, in_proj=int(in_proj),
+                     final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
+                     out_act=int(ops.out_act), eps=ops.eps, final_eps=ops.final_eps,
+                     scale=1.0 / math.sqrt(dh))
+        for k, v in {**prep.weights, **prep.vectors}.items():
+            setattr(a, k, None if v is None else v.data_ptr())
+        lib = _f32_lib()
+        want = layer_f32_smem(l, cin, c, h, f, in_proj)
+        got = tuple(lib.gxt_layer_f32_smem(ctypes.byref(a), kind) for kind in range(3))
+        if got != want:
+            raise RuntimeError(f"{what}: the kernels' shared memory {got} differs from the "
+                               f"wrapper's reckoning {want}")
+        prep.args[(t, l, cin)] = a
+    a = _F32Args.from_buffer_copy(a)
+    if ops.out_affine is not None:   # a call's own BN vectors (the model makes them anew)
+        a.keep = tuple(_f32(v, dev) for v in ops.out_affine)   # alive until the launch
+        a.osc, a.obi = (v.data_ptr() for v in a.keep)
+    return prep, a
+
+
+def _contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned start (cp.async reads it), else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ln_qkv_f32(x2: torch.Tensor, ops: LayerOperands, l: int) -> torch.Tensor:
+    c, h, dh, dhp = _dims(ops)
+    x2 = x2.contiguous()
+    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer ln_qkv f32")
+    qkv = torch.empty((x2.shape[0], 3 * h * dhp), dtype=torch.float32, device=x2.device)
+    a.x, a.qkv = x2.data_ptr(), qkv.data_ptr()
+    _run(_f32_lib(), "gxt_layer_ln_qkv_f32", a, x2.device,
+         lambda: f"transformer ln_qkv f32 (T, Cin, C) = ({x2.shape[0]}, {x2.shape[1]}, {c})")
+    LAUNCHES["transformer_ln_qkv_f32"] += 1
+    return qkv
+
+
+def _attention_f32(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
+    c, h, dh, dhp = _dims(ops)
+    if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp:
+        raise ValueError(f"transformer attention f32: qkv must be a (T, {3 * h * dhp}) array, "
+                         f"got {tuple(qkv.shape)}")
+    qkv = _contiguous16(qkv)
+    prep, a = _f32_args(ops, qkv, l, c if ops.win is None else ops.win.shape[0],
+                        "transformer attention f32")
+    ctx = torch.empty((qkv.shape[0], c), dtype=torch.float32, device=qkv.device)
+    a.qkv, a.ctx = qkv.data_ptr(), ctx.data_ptr()
+    _run(_f32_lib(), "gxt_layer_attention_f32", a, qkv.device,
+         lambda: f"transformer attention f32 (T, L, C, H) = ({qkv.shape[0]}, {l}, {c}, {h})")
+    LAUNCHES["transformer_attention_f32"] += 1
+    return ctx
+
+
+def _proj_ffn_f32(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int) -> torch.Tensor:
+    c = ops.wq.shape[0]
+    x2 = x2.contiguous()
+    if ctx.shape != (x2.shape[0], c) or ctx.stride(1) != 1 or ctx.dtype != torch.float32:
+        raise ValueError(f"transformer proj_ffn f32: ctx must be an f32 ({x2.shape[0]}, {c}) "
+                         f"array with unit column stride, got {ctx.dtype}{tuple(ctx.shape)}")
+    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer proj_ffn f32")
+    out = torch.empty((x2.shape[0], prep.cout), dtype=torch.float32, device=x2.device)
+    a.x, a.ctx, a.ldc, a.out = x2.data_ptr(), ctx.data_ptr(), ctx.stride(0), out.data_ptr()
+    _run(_f32_lib(), "gxt_layer_proj_ffn_f32", a, x2.device,
+         lambda: f"transformer proj_ffn f32 (T, Cin, C, Cout) = ({x2.shape[0]}, {x2.shape[1]}, "
+                 f"{c}, {prep.cout})")
+    LAUNCHES["transformer_proj_ffn_f32"] += 1
+    return out
+
+
+def fused_layer_f32_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+    """The layer on an f32 (bp, L, Cin) CUDA tensor: the three f32 kernels
+    launched by one C call (each counted); (bp, L, Cout) f32. Raises, naming
+    the shape, where they do not take the layer."""
+    if x3.dim() != 3:
+        raise ValueError(f"fused_layer_f32_cuda: x must be (bp, L, Cin), got {tuple(x3.shape)}")
+    bp, l, cin = x3.shape
+    x2 = x3.reshape(bp * l, cin).contiguous()
+    prep, a = _f32_args(ops, x2, l, cin, "fused_transformer_layer f32")
+    c, h, dh, dhp = _dims(ops)
+    t, dev = bp * l, x2.device
+    # q/k/v and ctx in one scratch allocation (ctx after q/k/v, 16-byte aligned)
+    nq = t * 3 * h * dhp
+    scratch = torch.empty(nq + t * c, dtype=torch.float32, device=dev)
+    out = torch.empty((t, prep.cout), dtype=torch.float32, device=dev)
+    a.x, a.qkv, a.ctx, a.out = (x2.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 4 * nq,
+                                out.data_ptr())
+    _run(_f32_lib(), "gxt_layer_forward_f32", a, dev,
+         lambda: f"fused_transformer_layer f32 (bp, L, Cin, C) = ({bp}, {l}, {cin}, {c})")
+    for k in ("transformer_ln_qkv_f32", "transformer_attention_f32", "transformer_proj_ffn_f32"):
+        LAUNCHES[k] += 1
+    return out.reshape(bp, l, -1)
+
+
 def _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj):
-    """The layer's LayerOperands for the CUDA path, kept on its params ``p``:
-    gathered at its first call, they live as long as the model, and a
+    """The layer's LayerOperands for the CUDA path, kept on its params ``p``
+    (one entry a compute dtype): gathered at its first call, they live as
+    long as the model, and a
     forward prepares each layer's kernel layout once (``LayerOperands.cache``).
     The layer's own weights are read then; a caller that changes them builds
     new params, as loading does. The block's options come as fresh views of
@@ -684,11 +959,12 @@ def _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj):
     key = (cd, c, final_ln_eps, output_proj[3] if output_proj is not None else None,
            tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
                  for t in block))
-    hit = getattr(p, "_gxt_fused_operands", None)
+    attr = "_gxt_fused_operands_f32" if cd == torch.float32 else "_gxt_fused_operands"
+    hit = getattr(p, attr, None)
     if hit is None or hit[0] != key:
         hit = (key, layer_operands(p, c, cd, final_ln=final_ln, final_ln_eps=final_ln_eps,
                                    input_proj=input_proj, output_proj=output_proj), block)
-        object.__setattr__(p, "_gxt_fused_operands", hit)
+        object.__setattr__(p, attr, hit)
     ops = hit[1]
     if output_proj is not None:   # as layer_operands gathers them
         vec = [torch.zeros(wout.shape[-1], device=wout.device) if v is None else v.float()
@@ -722,6 +998,75 @@ def _gathered(p):
         **whole(p, _LAYER_WEIGHTS))
 
 
+def _op_operands(x3, weights, vectors, num_heads, eps, final_eps, win, ln3g, ln3b, wout, osc,
+                 obi, out_act) -> LayerOperands:
+    """The custom op's arguments as LayerOperands (kept by their tensors'
+    identities and versions, so that a replayed program prepares each
+    layer's kernel layout once)."""
+    wq, wk, wv, wo, wi, wo2 = weights
+    ln1g, ln1b, bq, bk, bv, bo, ln2g, ln2b, bi, bo2 = vectors
+    tensors = [*weights, *vectors, win, ln3g, ln3b, wout]
+    key = (num_heads, eps, final_eps, out_act, tuple(
+        None if t is None else (t.data_ptr(), tuple(t.shape), t.device, t._version)
+        for t in tensors))
+    hit = _OP_OPERANDS.get(key)
+    if hit is None:
+        hit = LayerOperands(wq=wq, wk=wk, wv=wv, wo=wo, wi=wi, wo2=wo2, ln1=(ln1g, ln1b), bq=bq,
+                            bk=bk, bv=bv, bo=bo, ln2=(ln2g, ln2b), bi=bi, bo2=bo2,
+                            num_heads=num_heads, eps=eps, final_eps=final_eps, win=win,
+                            wout=wout, out_act=out_act,
+                            final_ln=None if ln3g is None else (ln3g, ln3b))
+        if len(_OP_OPERANDS) >= 64:
+            _OP_OPERANDS.pop(next(iter(_OP_OPERANDS)))
+        _OP_OPERANDS[key] = hit
+        hit.cache["tensors"] = tensors   # held while the entry lives
+    if wout is None:
+        return hit
+    return dataclasses.replace(hit, out_affine=(osc, obi))
+
+
+_OP_OPERANDS: dict = {}
+
+
+@torch.library.custom_op("gxt::transformer_layer_f32", mutates_args=())
+def transformer_layer_f32_op(x: torch.Tensor, weights: List[torch.Tensor],
+                             vectors: List[torch.Tensor], num_heads: int, eps: float,
+                             final_eps: float, win: Optional[torch.Tensor],
+                             ln3g: Optional[torch.Tensor], ln3b: Optional[torch.Tensor],
+                             wout: Optional[torch.Tensor], osc: Optional[torch.Tensor],
+                             obi: Optional[torch.Tensor], out_act: bool) -> torch.Tensor:
+    """What a traced f32 program calls: x (bp, L, Cin); weights (wq, wk, wv,
+    wo, wi, wo2) as (K, N) f32; vectors (ln1 gamma, beta, bq, bk, bv, bo, ln2
+    gamma, beta, bi, bo2) f32; the block's options or None. This body is the
+    CPU implementation: the plain version."""
+    return fused_transformer_layer_plain(x, _op_operands(
+        x, weights, vectors, num_heads, eps, final_eps, win, ln3g, ln3b, wout, osc, obi, out_act))
+
+
+@transformer_layer_f32_op.register_kernel("cuda")
+def _transformer_layer_f32_op_cuda(x, weights, vectors, num_heads, eps, final_eps, win, ln3g,
+                                   ln3b, wout, osc, obi, out_act):
+    return fused_layer_f32_cuda(x, _op_operands(
+        x, weights, vectors, num_heads, eps, final_eps, win, ln3g, ln3b, wout, osc, obi, out_act))
+
+
+@transformer_layer_f32_op.register_fake
+def _transformer_layer_f32_op_fake(x, weights, vectors, num_heads, eps, final_eps, win, ln3g,
+                                   ln3b, wout, osc, obi, out_act):
+    cout = wout.shape[1] if wout is not None else weights[0].shape[0]
+    return x.new_empty((x.shape[0], x.shape[1], cout))
+
+
+def _op_call(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+    fl = ops.final_ln or (None, None)
+    oa = ops.out_affine or (None, None)
+    return transformer_layer_f32_op(
+        x3, [ops.wq, ops.wk, ops.wv, ops.wo, ops.wi, ops.wo2],
+        [ops.ln1[0], ops.ln1[1], ops.bq, ops.bk, ops.bv, ops.bo, ops.ln2[0], ops.ln2[1], ops.bi,
+         ops.bo2], ops.num_heads, ops.eps, ops.final_eps, ops.win, fl[0], fl[1], ops.wout,
+        oa[0], oa[1], ops.out_act)
+
+
 def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
                             final_ln=None, final_ln_eps: Optional[float] = None,
                             input_proj: Optional[torch.Tensor] = None,
@@ -732,7 +1077,9 @@ def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     ``final_ln_eps`` (default the layer's eps); ``output_proj=(kernel (C,
     Cout), bn_scale, bn_bias, act)`` the block's conv_projection, after it.
     A layer placed on a mesh (``parallel.sharding.mobilevit_param_specs``)
-    has its shards gathered once a call, and its operands are not kept."""
+    has its shards gathered once a call, and its operands are not kept.
+    Under ``torch.export`` an f32 layer is the custom op
+    ``gxt::transformer_layer_f32`` (:func:`transformer_layer_f32_op`)."""
     *lead, l, cin = x.shape
     cd = resolve_dtype(compute_dtype)
     h = p.attention.num_heads
@@ -741,14 +1088,16 @@ def fused_transformer_layer(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
         raise ValueError(f"C={c} not divisible by num_heads={h}")
     x3 = x.reshape(-1, l, cin).to(cd)
     cpu = x3.device.type == "cpu"
-    if not cpu and cd != torch.bfloat16:
-        raise ValueError("fused_transformer_layer: the CUDA kernels run bf16 only")
     whole = _gathered(p)
-    if cpu or whole is not None:
+    compiling = torch.compiler.is_compiling() and cd == torch.float32
+    if cpu or compiling or whole is not None:
         ops = layer_operands(p if whole is None else whole, c, cd, final_ln=final_ln,
                              final_ln_eps=final_ln_eps, input_proj=input_proj,
                              output_proj=output_proj)
     else:
         ops = _cached_operands(p, c, cd, final_ln, final_ln_eps, input_proj, output_proj)
-    out = fused_transformer_layer_plain(x3, ops) if cpu else fused_layer_cuda(x3, ops)
+    if compiling:
+        out = _op_call(x3, ops)
+    else:
+        out = fused_transformer_layer_plain(x3, ops) if cpu else fused_layer_cuda(x3, ops)
     return out.reshape(*lead, l, out.shape[-1])

@@ -228,5 +228,6 @@ def gptq_mobilevit_params(target_params, grams, *, head_qtype: str = "q8_0"):
     for bname in ("layer_3", "layer_4", "layer_5"):
         for tl in getattr(target_params, bname).transformer:
             # the fused layer's operands gathered from the float weights
-            tl.__dict__.pop("_gxt_fused_operands", None)
+            for attr in ("_gxt_fused_operands", "_gxt_fused_operands_f32"):
+                tl.__dict__.pop(attr, None)
     return target_params

@@ -5,8 +5,9 @@ A serving host then needs the port's package (for its custom ops and
 parameter trees) and a weight file, and traces nothing: the artifact replays
 the program frozen at export. On the card the program reaches the
 hand-written kernels through their custom ops (``gxt::qmatmul``,
-``gxt::flash_mha``, ``gxt::inverted_residual_f32``); on the CPU the same ops
-run their plain versions.
+``gxt::flash_mha``, ``gxt::inverted_residual_f32``,
+``gxt::transformer_layer_f32``); on the CPU the same ops run their plain
+versions.
 
 Artifact container (``.gxa``): ``GXA1`` magic | uint64 header length | JSON
 header (kind, shapes, qtype, device, torch version) | the
@@ -48,6 +49,7 @@ def _register() -> None:
     import ggml_experiments_tpu_torch.models.mobilevit  # noqa: F401
     import ggml_experiments_tpu_torch.ops.flash_attention  # noqa: F401
     import ggml_experiments_tpu_torch.ops.fused_inverted_residual  # noqa: F401
+    import ggml_experiments_tpu_torch.ops.fused_transformer_layer  # noqa: F401
     import ggml_experiments_tpu_torch.quant.qmatmul  # noqa: F401
 
 

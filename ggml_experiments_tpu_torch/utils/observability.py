@@ -8,8 +8,9 @@ roofline accounting against the card's published peaks, so that a
 
 :data:`H100` is the one source of the NVIDIA H100 SXM's peaks that the
 port's measurement scripts (``chip_smoke.py``, ``tools/torch_kernel_bench.py``)
-read, with the inverted residual's bound and cuDNN chain that they share
-(:func:`inverted_residual_bound`, :func:`cudnn_inverted_residual`):
+read, with the bounds and library columns that they share
+(:func:`inverted_residual_bound`, :func:`cudnn_inverted_residual`,
+:func:`transformer_layer_bound`):
 NVIDIA's data sheet (dense rates, 700 W), and the MUFU's 16
 exponentials a clock per multiprocessor (CUDA C++ Programming Guide,
 arithmetic instruction throughput, compute capability 9.0) at 132
@@ -173,6 +174,37 @@ def inverted_residual_bound(
     return parts[by], by, parts
 
 
+def transformer_layer_bound(
+    bp: int, l: int, cin: int, c: int, f: int, cout: int, dtype: str = "bfloat16",
+    *, in_proj: bool = False, out_proj: bool = False,
+) -> Dict[str, Tuple[float, float]]:
+    """(bytes, operations) of one fused transformer layer on bp sequences of
+    l tokens, whole and by kernel (``layer``, ``ln_qkv``, ``attention``,
+    ``proj_ffn``), counted as the layer needs them: x (cin wide) read once
+    and the output (cout wide) written once at the dtype's width, the
+    weights once; q, k and v at the heads' width (the kernels' array pads
+    each head with zero columns), x.Win once (in ln_qkv); the
+    products 2 (K N) a token, the attention's 4 l^2 c a sequence. Use
+    ``chip.bound_ms(nbytes, ops, kind)`` with ``kind`` ``bfloat16`` or, at
+    f32, ``tf32x3`` (the products as three tf32 products each)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    t = bp * l
+    w = {"win": cin * c if in_proj else 0, "qkv": 3 * c * c, "wo": c * c, "ffn": 2 * c * f,
+         "wout": c * cout if out_proj else 0}
+    w = {k: v * elt for k, v in w.items()}
+    qkv = t * 3 * c * elt
+    ln_qkv = (t * cin * elt + qkv + w["win"] + w["qkv"],
+              2 * t * (3 * c * c + (cin * c if in_proj else 0)))
+    attention = (qkv + t * c * elt, 4 * t * l * c)
+    proj_ffn = (t * (cin + c + cout) * elt + w["win"] + w["wo"] + w["ffn"] + w["wout"],
+                2 * t * (c * c + 2 * c * f + (c * cout if out_proj else 0)))
+    layer = (t * (cin + cout) * elt + sum(w.values()),
+             bp * (4 * l * l * c + 8 * l * c * c + 4 * l * c * f + (2 * l * cin * c if in_proj
+                                                                   else 0)
+                   + (2 * l * c * cout if out_proj else 0)))
+    return {"layer": layer, "ln_qkv": ln_qkv, "attention": attention, "proj_ffn": proj_ffn}
+
+
 def cudnn_inverted_residual(x, args, residual: bool = True, stride: int = 1):
     """The inverted residual as cuDNN computes it, the library column beside
     the port's kernels (timed by the measurement scripts, never called by the
@@ -200,6 +232,27 @@ def cudnn_inverted_residual(x, args, residual: bool = True, stride: int = 1):
         return y + xc if residual else y
 
     return chain
+
+
+@contextlib.contextmanager
+def f32_layer_route_off():
+    """MobileViT's f32 layers on the unfused chain with flash attention (the
+    route before the f32 fused layer), bf16 unchanged, for a measurement by
+    the scripts that time the route on against off (never used by the
+    port)."""
+    import torch
+
+    from ggml_experiments_tpu_torch.device import resolve_dtype
+    from ggml_experiments_tpu_torch.models import mobilevit
+
+    cls = mobilevit.TransformerLayerParams
+    route = cls.fused_route
+    cls.fused_route = lambda self, cd, device=None, l=None, cin=None: (
+        resolve_dtype(cd) != torch.float32 and route(self, cd, device, l, cin))
+    try:
+        yield
+    finally:
+        cls.fused_route = route
 
 
 class MetricsLogger:

@@ -52,6 +52,9 @@ KERNEL_PATTERNS = (
     (r"\blayer_attention_kernel\b", "transformer_attention"),
     (r"\blayer_proj_ffn_kernel\b", "transformer_proj_ffn"),
     (r"\blayer_kernel\b", "transformer_sequence"),
+    (r"\blayer_ln_qkv_f32_kernel\b", "transformer_ln_qkv_f32"),
+    (r"\blayer_attention_f32_kernel\b", "transformer_attention_f32"),
+    (r"\blayer_proj_ffn_f32_kernel\b", "transformer_proj_ffn_f32"),
     (r"\bir_strip_kernel\b", "fused_inverted_residual"),
     (r"\bir_kernel\b", "inverted_residual_tile"),
     (r"\bir_f32_kernel\b", "inverted_residual_f32"),

@@ -368,3 +368,78 @@ def test_inverted_residual_op_at_stride_2_and_a_features_trace(tmp_path, monkeyp
     jgot = np.asarray(jmv.extract_features(jmv.from_named_tensors(jread(MV), TINY),
                                            jax.numpy.asarray(img)))
     assert np.abs(got.numpy() - jgot).max() <= 1e-5 * np.abs(jgot).max()
+
+
+def test_transformer_layer_f32_op_and_a_features_trace(tmp_path, monkeypatch):
+    """The f32 fused layer's op: its fake gives (bp, L, Cout), its CPU
+    implementation is the plain version (opcheck). A features artifact
+    traced with the card's f32 layer route (``fused_route`` as it decides on
+    a CUDA device, forced here) reaches the op once a routed layer (the tiny
+    model's layer_3, L = 16: its block folds conv_1x1 into the first and its
+    LN and conv_projection into the last); replayed here, its features meet
+    eager ``extract_features`` on the same route within 1e-5 of the largest
+    (the features artifact's contract: the traced graph's convolutions
+    round apart from eager's, about 2e-6 here, on the route or off it), and
+    the JAX package's unfused forward within the same."""
+    import sys
+
+    import jax
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_golden_mobilevit import TINY
+
+    from ggml_experiments_tpu.formats.ggml_named import read_named_tensors as jread
+    from ggml_experiments_tpu.models import mobilevit as jmv
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    rng = np.random.default_rng(16)
+
+    def t(*s, off=0.0):
+        return torch.from_numpy((rng.standard_normal(s) * 0.2 + off).astype(np.float32))
+
+    c, f, cin, cout = 24, 48, 16, 20
+    weights = [t(c, c), t(c, c), t(c, c), t(c, c), t(c, f), t(f, c)]
+    vectors = [t(c, off=1.0), t(c), t(c), t(c), t(c), t(c), t(c, off=1.0), t(c), t(f), t(c)]
+    block = (t(cin, c), t(c, off=1.0), t(c), t(c, cout), t(cout, off=1.0), t(cout))
+    x = t(3, 8, cin) * 5
+    args = (x, weights, vectors, 4, 1e-5, 1e-6, *block, True)
+    want = ftl.fused_transformer_layer_plain(x, ftl._op_operands(*args))
+    assert want.shape == (3, 8, cout)
+    assert torch.equal(ftl.transformer_layer_f32_op(*args), want)
+    torch.library.opcheck(ftl.transformer_layer_f32_op, args)
+    torch.library.opcheck(ftl.transformer_layer_f32_op,
+                          (t(3, 8, c), weights, vectors, 4, 1e-5, 1e-5, None, None, None, None,
+                           None, None, False))
+    with FakeTensorMode() as mode:
+        fake = ftl.transformer_layer_f32_op(
+            mode.from_tensor(x), [mode.from_tensor(w) for w in weights],
+            [mode.from_tensor(v) for v in vectors], 4, 1e-5, 1e-6,
+            *(mode.from_tensor(b) for b in block), True)
+    assert fake.shape == (3, 8, cout) and fake.dtype == torch.float32
+
+    route = tmv.TransformerLayerParams.fused_route
+    monkeypatch.setattr(tmv.TransformerLayerParams, "fused_route",
+                        lambda self, cd, device=None, l=None, cin=None:
+                        route(self, cd, "cuda", l, cin))
+    cfg = tmv.MobileViTConfig(image_size=TINY.image_size,
+                              neck_hidden_sizes=TINY.neck_hidden_sizes,
+                              hidden_sizes=TINY.hidden_sizes)
+    tp = tmv.from_named_tensors(read_named_tensors(MV), cfg, device="cpu", fused_layer=True)
+    routed = [layer for blk in (tp.layer_3, tp.layer_4, tp.layer_5) for layer in blk.transformer
+              if layer.fused_route(torch.float32, None, 16)]
+    path = str(tmp_path / "feat_layer.gxa")
+    aot.export_mobilevit_features(tp, batch=1, image_size=cfg.image_size, path=path)
+    _, ep = aot.load_artifact(path)
+    nodes = [n for n in ep.graph.nodes if "gxt.transformer_layer_f32" in str(n.target)]
+    assert len(nodes) == len(tp.layer_3.transformer) and len(routed) == len(nodes) + sum(
+        len(b.transformer) for b in (tp.layer_4, tp.layer_5))
+    img = np.load(os.path.join(GOLD, "mobilevit_tiny.npz"))["image"][None]
+    got = aot.call_artifact(ep, tp, torch.from_numpy(img)).numpy()
+    want = tmv.extract_features(tp, torch.from_numpy(img)).numpy()
+    jgot = np.asarray(jmv.extract_features(jmv.from_named_tensors(jread(MV), TINY),
+                                           jax.numpy.asarray(img)))
+    for ref in (want, jgot):
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

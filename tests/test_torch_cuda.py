@@ -624,6 +624,11 @@ from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir  # noq
 from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl  # noqa: E402
 
 
+# the f32 layer kernels' counters, untouched by a bf16 layer
+F32_NONE = {"transformer_ln_qkv_f32": 0, "transformer_attention_f32": 0,
+            "transformer_proj_ffn_f32": 0}
+
+
 def _bf16_close(got, want, max_frac, mean_frac):
     """bf16 outputs: the two sides round at the same places but sum in other
     orders, so a value may land one bf16 step away and carry the difference
@@ -707,7 +712,7 @@ def test_fused_layer_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out
     torch.cuda.synchronize()
     assert {k: ftl.LAUNCHES[k] - before[k] for k in before} == {
         "fused_transformer_layer": 1, "transformer_ln_qkv": 1, "transformer_attention": 1,
-        "transformer_proj_ffn": 1, "transformer_sequence": 0}
+        "transformer_proj_ffn": 1, "transformer_sequence": 0, **F32_NONE}
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
 
@@ -738,7 +743,7 @@ def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, see
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 0, "transformer_ln_qkv": 2, "transformer_attention": 2,
-        "transformer_proj_ffn": 2, "transformer_sequence": 0}
+        "transformer_proj_ffn": 2, "transformer_sequence": 0, **F32_NONE}
     assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
         "two launches on the same inputs differ")
     dh = c // h
@@ -832,7 +837,7 @@ def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 2, "transformer_ln_qkv": 0, "transformer_attention": 0,
-        "transformer_proj_ffn": 0, "transformer_sequence": 2}
+        "transformer_proj_ffn": 0, "transformer_sequence": 2, **F32_NONE}
     assert torch.equal(got, again), "two launches on the same inputs differ"
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
@@ -851,6 +856,124 @@ def test_sequence_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out_pr
     got = ftl.sequence_layer_cuda(x, ops)
     torch.cuda.synchronize()
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+
+
+# ---- the f32 form of the layer (csrc/transformer_layer_f32.cu) ----------------------------
+
+F32_LAYER = ("transformer_ln_qkv_f32", "transformer_attention_f32", "transformer_proj_ffn_f32")
+
+
+def _f32_close(got, want):
+    """3xTF32 products (f32-accurate), f32 sums in other orders: 1e-5 of the
+    largest value."""
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed):
+    """The three f32 kernels, each on its plain version's inputs and launched
+    twice (bit-equal), then the whole layer, with the counters."""
+    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=seed)
+    ops = dataclasses.replace(ops, **{k: getattr(ops, k).float() for k in (
+        "wq", "wk", "wv", "wo", "wi", "wo2")}, win=None if ops.win is None else ops.win.float(),
+        wout=None if ops.wout is None else ops.wout.float(), cache={})
+    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    x2 = x.reshape(bp * l, cin)
+    before = dict(ftl.LAUNCHES)
+    qkv, qkv2 = (ftl.ln_qkv_cuda(x2, ops, l) for _ in range(2))
+    want_qkv = ftl.ln_qkv_plain(x2, ops)
+    ctx, ctx2 = (ftl.attention_cuda(want_qkv, l, ops) for _ in range(2))
+    want_ctx = ftl.attention_plain(want_qkv, l, ops)
+    out, out2 = (ftl.proj_ffn_cuda(x2, want_ctx, ops, l) for _ in range(2))
+    layer = ftl.fused_layer_cuda(x, ops)
+    torch.cuda.synchronize()
+    after = dict(ftl.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
+        "transformer_proj_ffn": 0, "transformer_sequence": 0, **{k: 3 for k in F32_LAYER}}
+    assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
+        "two launches on the same inputs differ")
+    assert not qkv.reshape(bp * l, 3, h, -1)[..., c // h:].any(), "a head's padding is not zero"
+    _f32_close(qkv, want_qkv)
+    _f32_close(ctx, want_ctx)
+    _f32_close(out, ftl.proj_ffn_plain(x2, want_ctx, ops))
+    _f32_close(layer, ftl.fused_transformer_layer_plain(x, ops))
+    return ops
+
+
+# every flag; dh = 12, 32 and 8; L = 16, 24 and 72 (a 16-row tile past a
+# sequence's end), a width not a multiple of 32
+@pytest.mark.parametrize("in_proj", [False, True])
+@pytest.mark.parametrize("final_ln", [False, True])
+@pytest.mark.parametrize("out_proj", [False, True])
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 48, 4, 96), (2, 24, 64, 2, 128),
+                                        (2, 72, 40, 5, 88)])
+def test_f32_layer_kernels_match_their_plain_versions_every_flag(dev, in_proj, final_ln,
+                                                                 out_proj, bp, l, c, h, f):
+    _f32_layer_check(dev, bp, l, c, h, f, c // 2 if in_proj else c, c // 2 + 8, final_ln,
+                     out_proj, seed=l + c)
+
+
+# the model's widths (dh = 36, 48, 60) with the first and the last layer's
+# flags; a ragged last row tile (5 x 72 rows)
+@pytest.mark.parametrize("bp,l,c,h,f,cin", [(4, 256, 144, 4, 288, 96), (6, 64, 192, 4, 384, 128),
+                                            (8, 16, 240, 4, 480, 160), (5, 72, 144, 4, 288, 96)])
+@pytest.mark.parametrize("last", [False, True])
+def test_f32_layer_kernels_match_their_plain_versions_at_the_model_widths(dev, bp, l, c, h, f,
+                                                                          cin, last):
+    _f32_layer_check(dev, bp, l, c, h, f, c if last else cin, cin, last, last, seed=c)
+
+
+def test_f32_layer_kernels_refuse_what_they_do_not_take(dev):
+    ops = _layer_ops(dev, 160, 2, 320, 160, 160, False, False, seed=1)
+    ops = dataclasses.replace(ops, wq=ops.wq.float(), wi=ops.wi.float(), cache={})
+    with pytest.raises(ValueError, match=r"\(T, L, Cin, C, H, F\) = \(16, 16, 160, 160, 2, 320\)"):
+        ftl.fused_layer_cuda(torch.zeros((1, 16, 160), device=dev), ops)
+    ops = _layer_ops(dev, 64, 1, 128, 64, 64, False, False, seed=1)
+    ops = dataclasses.replace(ops, wq=ops.wq.float(), wi=ops.wi.float(), cache={})
+    with pytest.raises(ValueError, match="shared memory"):
+        ftl.fused_layer_cuda(torch.zeros((1, 1024, 64), device=dev), ops)
+    with pytest.raises(ValueError, match="T a multiple of L"):
+        ftl.ln_qkv_cuda(torch.zeros((20, 64), device=dev), ops, 16)
+
+
+def test_f32_layer_route_on_the_card(dev, monkeypatch):
+    """A fused layer at f32 on the card launches the f32 kernels (no flash,
+    no plain version), the same bits as the kernels called directly; off the
+    route (``fused_route`` patched) it runs the unfused chain with flash
+    attention, within 1e-5 of the largest value."""
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops.attention import AttentionParams
+
+    rng = np.random.default_rng(3)
+
+    def t(*s, off=0.0):
+        return torch.from_numpy((rng.standard_normal(s) * 0.2 + off).astype(np.float32)).to(dev)
+
+    c, h, f = 48, 4, 96
+    layer = tmv.TransformerLayerParams(
+        attention=AttentionParams(wq=t(c, c), bq=t(c), wk=t(c, c), bk=t(c), wv=t(c, c), bv=t(c),
+                                  wo=t(c, c), bo=t(c), num_heads=h, flash=True),
+        ln_before_gamma=t(c, off=1.0), ln_before_beta=t(c), ln_after_gamma=t(c, off=1.0),
+        ln_after_beta=t(c), intermediate_kernel=t(c, f), intermediate_bias=t(f),
+        output_kernel=t(f, c), output_bias=t(c), fused=True)
+    x = t(4, 16, c)
+    assert layer.fused_route(torch.float32, x.device, 16)
+    before = dict(ftl.LAUNCHES)
+    flash_before = fa.LAUNCHES["flash_mha"]
+    got = layer(x, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert {k: ftl.LAUNCHES[k] - before[k] for k in F32_LAYER} == {k: 1 for k in F32_LAYER}
+    assert fa.LAUNCHES["flash_mha"] == flash_before
+    ops = ftl.layer_operands(layer, c, torch.float32)
+    assert torch.equal(got, ftl.fused_layer_cuda(x, ops))
+    monkeypatch.setattr(tmv.TransformerLayerParams, "fused_route", lambda *a, **k: False)
+    unfused = layer(x, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mha"] == flash_before + 1
+    _f32_close(got, unfused)
 
 
 def _ir_inputs(dev, b, hh, ww, c, e, cout):

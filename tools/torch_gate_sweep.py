@@ -7,8 +7,8 @@ reuses for the engine.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_gate_sweep.py [--only engine,ir,ir_f32,ir_s2,qmatmul] [--margin 1.15]
-        [--out FILE]
+    python3 tools/torch_gate_sweep.py [--only engine,ir,ir_f32,ir_s2,layer_f32,qmatmul]
+        [--margin 1.15] [--out FILE]
 
 Every time is the port's timing protocol (``utils/benchmarking.PROTOCOL``:
 the wall clock of whole calls closed by a synchronize, the CUDA-event span
@@ -46,6 +46,13 @@ beside it).
   (``fused_route`` patched for the measurement), in turns there and back,
   three times; the speedups from each route's best turn, the median of its
   turns beside them.
+* ``layer_f32``: ``extract_features`` at f32 on
+  ``checkpoints/mobilevit_synth_full.ggml`` at B = 8, 32, 128 with the f32
+  fused layer's route (``csrc/transformer_layer_f32.cu``, the default on a
+  CUDA device) on and off (the unfused chain with flash attention:
+  ``fused_route`` patched for the measurement), in turns there and back,
+  three times; the speedup from each route's best turn, the median of its
+  turns beside it. Its result set the route.
 * ``qmatmul``: the q8_0 kernel (forced past its gate) against
   ``torch.matmul`` on the dequantized plane, f32 and bf16, at MobileViT's
   transformer products for B = 128 (M = B x H x W tokens of each stage: q, k,
@@ -56,6 +63,7 @@ beside it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -79,6 +87,7 @@ IR_S2_BLOCKS = {"layer_2": (128, 128, 32, 128, 64), "layer_3": (64, 64, 64, 256,
 # extract_features' turns through the stride-2 routes: at B = 8 a forward
 # waits on the host, and one turn there and back spread 1.76x
 IR_S2_ROUND_TRIPS = 3
+LAYER_F32_ROUND_TRIPS = 3
 VIT_CKPT = os.path.join("checkpoints", "mobilevit_synth_full.ggml")
 # the expanded widths of the stride-1 blocks: the E thresholds that differ
 IR_MIN_EXPAND_CANDIDATES = (256, 64)
@@ -295,6 +304,34 @@ def ir_s2_cells(rows):
         cls.fused_route = route
 
 
+def layer_f32_cells(rows):
+    import torch
+
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+    from ggml_experiments_tpu_torch.utils.benchmarking import timeit_stats
+    from ggml_experiments_tpu_torch.utils.observability import f32_layer_route_off
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    params = load_mobilevit(VIT_CKPT, device=dev)
+    for b in IR_BATCHES:
+        images = torch.rand((b, 256, 256, 3), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(b))
+        cell = {}
+        for _ in range(LAYER_F32_ROUND_TRIPS):
+            for name in ("off", "on", "on", "off"):     # in turns, there and back
+                with (f32_layer_route_off() if name == "off"
+                      else contextlib.nullcontext()):
+                    st = timeit_stats(lambda: extract_features(params, images))
+                cell.setdefault(name, []).append(st.asdict())
+        best = {k: min(s["median_ms"] for s in v) for k, v in cell.items()}
+        med = {k: statistics.median(s["median_ms"] for s in v) for k, v in cell.items()}
+        emit(rows, {"cell": "layer_f32_extract_features", "batch": b, **cell,
+                    "speedup_best_turns": round(best["off"] / best["on"], 4),
+                    "speedup_median_turns": round(med["off"] / med["on"], 4)})
+        del images
+
+
 def qmatmul_cells(rows):
     import torch
 
@@ -352,6 +389,8 @@ def main() -> int:
         ir_f32_cells(rows)
     if "ir_s2" in only:
         ir_s2_cells(rows)
+    if "layer_f32" in only:
+        layer_f32_cells(rows)
     if "engine" in only:
         for compute in ("bfloat16", "float32"):
             engine_cells(rows, args.margin, compute)

@@ -58,7 +58,11 @@ MobileViT-small forward at B=128 on seeded random weights: the layer as one
 call (its three kernels where the checkout splits it), each kernel alone,
 and ``nn.TransformerEncoderLayer`` in bf16 as the library's yardstick;
 then ``extract_features`` at B=128, bf16, on ``mobilevit_synth_full.ggml``
-(``call``). ``--sweep`` times each ring depth of the row-tile kernels;
+(``call``). Its f32 form (``layer_f32``, where the checkout has one) at the
+same shapes: the layer and each kernel beside the 3xTF32 bound,
+``nn.TransformerEncoderLayer`` f32 (TF32 off) and
+``scaled_dot_product_attention`` f32, then ``extract_features`` f32 at
+B=128 with the f32 route on and off. ``--sweep`` times each ring depth of the row-tile kernels;
 ``--split-step`` builds copies of ``csrc/transformer_layer.cu`` with the
 products, the global stores or the weight stream off and times each kernel
 of a middle layer of each stage beside the unchanged source.
@@ -557,12 +561,12 @@ LAYER_STAGES = ((256, 96, 144, 4, 288, 2), (64, 128, 192, 4, 384, 4), (16, 160, 
 LAYER_BP = 512
 
 
-def _layer_ops(ftl, dev, c, h, f, cin, last, seed):
+def _layer_ops(ftl, dev, c, h, f, cin, last, seed, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def t(*s, bf=False, off=0.0):
         a = torch.randn(s, generator=g, device=dev) * 0.2 + off
-        return a.to(torch.bfloat16) if bf else a
+        return a.to(dtype) if bf else a
 
     ops = ftl.LayerOperands(
         wq=t(c, c, bf=True), wk=t(c, c, bf=True), wv=t(c, c, bf=True), wo=t(c, c, bf=True),
@@ -653,6 +657,64 @@ def layer_cells(sweep):
         lambda: extract_features(params, images, compute_dtype=torch.bfloat16), n=10)}
     rows.append(row)
     print(json.dumps(row), flush=True)
+    return rows
+
+
+def layer_f32_cells():
+    """The f32 form of the layer (``csrc/transformer_layer_f32.cu``) at the
+    same 9 launch shapes on seeded random f32 weights: the layer and each of
+    its three kernels (``call``, ``stream``, ``graph``) beside the bound at
+    3xTF32 (``utils/observability.transformer_layer_bound``),
+    ``nn.TransformerEncoderLayer`` at f32 with TF32 off (no projections) and
+    ``scaled_dot_product_attention`` f32 on the attention's q, k and v as
+    the library columns (the route through the model is timed by
+    ``tools/torch_gate_sweep.py --only layer_f32``). Skipped where the
+    checkout has no f32 form."""
+    import torch.nn.functional as F
+
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    if not hasattr(ftl, "fused_layer_f32_cuda"):
+        return [{"skipped": "the checkout's layer runs bf16 only"}]
+    dev, f32 = torch.device("cuda"), torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for l, cin, c, h, f, n in LAYER_STAGES:
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True,
+                                               device=dev, dtype=f32).eval()
+        xc = torch.randn((LAYER_BP, l, c), generator=torch.Generator(device=dev).manual_seed(l),
+                         device=dev)
+        with torch.no_grad():
+            lib_t = both(lambda: lib(xc))
+        del lib, xc
+        for i in range(n):
+            first, last = i == 0, i == n - 1
+            width = cin if first else c
+            cout = cin if last else c
+            ops = _layer_ops(ftl, dev, c, h, f, width, last, seed=100 * l + i, dtype=f32)
+            x = torch.randn((LAYER_BP, l, width), generator=torch.Generator(device=dev)
+                            .manual_seed(i), device=dev)
+            x2 = x.reshape(-1, width)
+            qkv = ftl.ln_qkv_cuda(x2, ops, l)
+            ctx = ftl.attention_cuda(qkv, l, ops)
+            dh, dhp = c // h, ftl.head_pad(c // h)
+            heads = [qkv.reshape(LAYER_BP, l, 3, h, dhp)[:, :, j, :, :dh].transpose(1, 2)
+                     .contiguous() for j in range(3)]
+            bounds = _OBS.transformer_layer_bound(LAYER_BP, l, width, c, f, cout, "float32",
+                                                  in_proj=first, out_proj=last)
+            row = {"dtype": "float32", "L": l, "Cin": width, "C": c, "H": h, "F": f,
+                   "Cout": cout, "layer": i, "input_proj": first, "final_ln_out_proj": last,
+                   "bound_ms": {k: H100.bound_ms(*v, "tf32x3") for k, v in bounds.items()},
+                   "kernel": both(lambda: ftl.fused_layer_cuda(x, ops)),
+                   "ln_qkv": both(lambda: ftl.ln_qkv_cuda(x2, ops, l)),
+                   "attention": both(lambda: ftl.attention_cuda(qkv, l, ops)),
+                   "proj_ffn": both(lambda: ftl.proj_ffn_cuda(x2, ctx, ops, l)),
+                   "library": lib_t,
+                   "sdpa": both(lambda: F.scaled_dot_product_attention(*heads, scale=1.0))}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del x, x2, qkv, ctx, heads, ops
     return rows
 
 
@@ -896,6 +958,7 @@ def main() -> int:
              ("gru", "gru", lambda: gru_cells(args.sweep)),
              ("train", "train", lambda: train_cells(args.sweep)),
              ("layer", "layer", lambda: layer_cells(args.sweep)),
+             ("layer", "layer_f32", layer_f32_cells),
              ("gru", "split_step", split_step_cells),
              ("train", "split_step_train", train_split_cells),
              ("ir", "ir", lambda: ir_cells(args.sweep)),
