@@ -58,6 +58,12 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      ``torch.nn.GRU`` on cuDNN as the library's time; every other plan the
      kernels take there forced and held to the same checks; and the backward
      alone at (B, T) = (2048, 8) and (3000, 8), one launch of each kernel;
+     then the f32 form of the pair (``csrc/gru_train_f32.cu``, 3xTF32) at
+     the same two shapes on the same windows and weights: forward (each
+     step's ``mh`` from the kernel's own ``h`` against the plain product,
+     and the free-running ``ys``), backward and dWr as above, two launches
+     bit-equal, each timed beside its 3xTF32 bound and cuDNN's f32 GRU (TF32
+     off), on the default f32 plan and every other plan the f32 kernels take;
  12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
      B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
      step launches the forward, the backward recurrence and the dWr kernel
@@ -68,8 +74,12 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      ``--batch-size 2048`` for one epoch of the whole corpus (3 steps, one
      launch of each kernel a step), whose exported weights must score a
      lower loss than the initial ones; and the same ``train_from_text`` run
-     at f32 (the plain scan: neither package's trainer routes f32 to the
-     fused pair), its median ms a step beside the bf16 step's;
+     at f32 (``train-gru``'s default): one launch of each f32 kernel a step
+     and no plain version, the loss falling, every step's loss within
+     TRAIN_F32_LOSS_REL of the same run on the plain loop (the route before
+     the f32 kernels, ``f32_train_route_off``), both median ms a step, three
+     f32 steps split by ``torch.profiler``, and the f32 run interrupted after
+     4 steps and resumed, bit-equal;
  13. the three vision kernels against their plain versions, at the shapes
      the main path gives them for B=128 images and on the full checkpoint's
      weights: the fused transformer layer (``csrc/transformer_layer.cu``) at
@@ -265,6 +275,16 @@ Tolerances, and why:
     of 16384 tensor-core additions added in f32, the plain version products
     of B terms added in f32): within TRAIN_DWR_REL of the largest entry;
     both sides' distance to the same sum in f64 is logged beside it.
+  * The f32 training pair against its plain versions (TF32 off): 3xTF32
+    products (about f32 accuracy), f32 sums in other orders, the gates by
+    other exp/tanh routines. Each step's ``mh`` from the same ``h`` within
+    TRAIN_F32_MH_REL of the largest; the free-running ``ys``, where the steps
+    carry each other's last bits on, within TRAIN_F32_YS_MAX absolute; the
+    backward on equal inputs within TRAIN_F32_GRAD_REL of each gradient's
+    largest value (the carry compounds over T); dWr alone within
+    TRAIN_F32_DWR_REL (runs of 4096 tensor-core additions added in f32);
+    phase 12's losses within TRAIN_F32_LOSS_REL of the plain loop's, step by
+    step (the weights drift apart by those last bits through Adam).
   * The vision kernels at bf16: both sides round to bf16 at the same places
     but sum in other orders and call other exp routines, so a value on a
     rounding boundary may land one bf16 step off and carry on through the
@@ -327,13 +347,14 @@ try:
     from ggml_experiments_tpu_torch.utils.observability import H100 as CHIP
     from ggml_experiments_tpu_torch.utils.observability import cudnn_inverted_residual
     from ggml_experiments_tpu_torch.utils.observability import f32_layer_route_off
+    from ggml_experiments_tpu_torch.utils.observability import f32_train_route_off
     from ggml_experiments_tpu_torch.utils.observability import (
         inverted_residual_bound as ir_bound,
     )
     from ggml_experiments_tpu_torch.utils.observability import transformer_layer_bound
 except ImportError:     # no port beside the script: main() says so and exits 2
     CHIP = cudnn_inverted_residual = ir_bound = transformer_layer_bound = None
-    f32_layer_route_off = None
+    f32_layer_route_off = f32_train_route_off = None
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
 GENERATE_SHAPE = (64, 200)           # (B, T) of the scan path
@@ -362,6 +383,18 @@ TRAIN_YS_MAX, TRAIN_MHS_MAX = 0.1, 0.25
 TRAIN_GRAD_REL = {"dmxs": 2e-2, "dh0": 2e-2, "dwr": 1e-2, "dbrec": 1e-2}
 TRAIN_DWR_REL = 1e-4   # the dWr GEMM against its plain version on equal operands
 TRAIN_KERNELS = ("fused_gru_train_fwd", "fused_gru_train_bwd", "fused_gru_train_dwr")
+# the f32 pair (csrc/gru_train_f32.cu, 3xTF32) against its plain versions
+# (TF32 off): each step's mh from the same h (teacher-forced) within
+# TRAIN_F32_MH_REL of the largest, the free-running ys within TRAIN_F32_YS_MAX
+# absolute, the backward on equal inputs within TRAIN_F32_GRAD_REL of each
+# gradient's largest value, the dWr GEMM alone on equal operands within
+# TRAIN_F32_DWR_REL; phase 12's f32 losses within TRAIN_F32_LOSS_REL of the
+# plain loop's (see the docstring)
+TRAIN_F32_KERNELS = tuple(f"{k}_f32" for k in TRAIN_KERNELS)
+TRAIN_F32_MH_REL, TRAIN_F32_YS_MAX = 1e-5, 1e-4
+TRAIN_F32_GRAD_REL = 1e-4
+TRAIN_F32_DWR_REL = 1e-5
+TRAIN_F32_LOSS_REL = 1e-4
 
 
 # the vision path (phases 13-15): apple/mobilevit-small widths, trained head
@@ -942,15 +975,16 @@ def calibrated_gru_phase(tag, name, params_km, km_cpu, ids, lens, rng, tok, n_sl
     return launches, dec, tick_phase(tag, params_km, n_slots, inner, tick_run, rng, tok)
 
 
-def cudnn_gru_ms(B, T, u, dev):
+def cudnn_gru_ms(B, T, u, dev, dtypes=None):
     """The library yardstick of the training pair: ``torch.nn.GRU(256, u)``
     on cuDNN (the same reset-after cell, gates in another order; it also
     computes the input projection), forward and ``torch.autograd.grad`` of
-    its output, bf16 (fp16 where cuDNN refuses bf16). (fwd ms, bwd ms, dtype)."""
+    its output, bf16 (fp16 where cuDNN refuses bf16), or the first of
+    ``dtypes`` it takes (f32: TF32 is off). (fwd ms, bwd ms, dtype)."""
     import torch
 
     err = None
-    for dt in (torch.bfloat16, torch.float16):
+    for dt in dtypes or (torch.bfloat16, torch.float16):
         try:
             gru = torch.nn.GRU(256, u).to(dev, dt)
             gru.flatten_parameters()
@@ -966,7 +1000,7 @@ def cudnn_gru_ms(B, T, u, dev):
             return fwd, bwd, str(dt)[6:]
         except RuntimeError as ex:
             err = ex
-    raise SmokeFailure(f"torch.nn.GRU on cuDNN refused bf16 and fp16: {err}")
+    raise SmokeFailure(f"torch.nn.GRU on cuDNN refused {dtypes or 'bf16 and fp16'}: {err}")
 
 
 def train_bf16_gaps(mxs, h0, wr, brec, pys):
@@ -1191,6 +1225,176 @@ def train_kernel_phase(tag, fparams, dev, tok):
     return out
 
 
+def train_f32_kernel_phase(tag, fparams, dev, tok):
+    """The f32 training pair (``csrc/gru_train_f32.cu``) against its plain
+    versions at TRAIN_SHAPES, U=1024, on the trained recurrent kernel and
+    bias and the input projection of corpus windows, a seeded h0 and
+    cotangent, on the default f32 plan and every other plan the f32 kernels
+    take. Returns {(B, T): {"fwd": readings, "bwd": readings, "dwr":
+    readings, "bwd_total_ms": ms}}."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.ops.gru import input_projection
+    from ggml_experiments_tpu_torch.training.data import DataConfig, load_corpus, make_examples
+
+    f32 = torch.float32
+    cell = fparams.cell
+    u = cell.units
+    wr = cell.recurrent_kernel.to(f32).contiguous()
+    brec = cell.bias[1].float().contiguous()
+    text = load_corpus(CORPUS_TRAIN)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = ("dmxs", "dwr", "dbrec", "dh0")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / float(b.double().abs().max())
+
+    def fwd_check(ys, mhs, h0, pys, what):
+        """Teacher-forced mh (the plain product on the kernel's own h) and the
+        free-running ys against the plain forward: (mh rel, ys max abs)."""
+        hp = torch.cat([h0[None], ys[:-1]])
+        mh_rel = rel(mhs, torch.matmul(hp, wr) + brec)
+        ys_max = float((ys - pys).abs().max())
+        del hp
+        check(mhs.dtype == ys.dtype == f32 and bool(torch.isfinite(ys).all())
+              and mh_rel <= TRAIN_F32_MH_REL and ys_max <= TRAIN_F32_YS_MAX,
+              f"{tag}: {what}: teacher-forced mh max |diff| / max |plain| {mh_rel:.3g} (limit "
+              f"{TRAIN_F32_MH_REL}), ys max abs err {ys_max:.3g} (limit {TRAIN_F32_YS_MAX})")
+        return mh_rel, ys_max
+
+    def bwd_check(got, again, want, what):
+        out = {}
+        for name, a, a2, w in zip(names, got, again, want):
+            check(a.shape == w.shape and a.dtype == w.dtype == f32
+                  and bool(torch.isfinite(a).all()), f"{tag}: {what}: {name} shape or values")
+            check(torch.equal(a, a2), f"{tag}: {what}: two launches on the same inputs give "
+                                      f"different {name}")
+            out[name] = rel(a, w)
+            check(out[name] <= TRAIN_F32_GRAD_REL, f"{tag}: {what}: {name} max |diff| / max "
+                                                   f"|plain| = {out[name]:.3g} > "
+                                                   f"{TRAIN_F32_GRAD_REL}")
+        return out
+
+    out = {}
+    for B, T in TRAIN_SHAPES:
+        ex = make_examples(text, tok, DataConfig(seq_length=T))
+        ids = ex[np.random.default_rng(B).permutation(len(ex))[:B], :T]
+        xs = fparams.embeddings[torch.from_numpy(ids.T.copy()).long().to(dev)]
+        mxs = input_projection(cell, xs, compute_dtype=f32).contiguous()
+        g = torch.Generator(device=dev).manual_seed(B)
+        h0 = torch.randn((B, u), generator=g, device=dev) * 0.3
+        dys = torch.randn((T, B, u), generator=g, device=dev) * 0.01
+        del xs
+        plan = ft.train_plan(B, u, sms, dtype=f32)
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        torch.cuda.synchronize()
+        check(ft.LAST_PLAN["fused_gru_train_fwd_f32"] == plan
+              and torch.equal(ys, ys2) and torch.equal(mhs, mhs2),
+              f"{tag}: f32 forward B={B} ran {ft.LAST_PLAN} for {plan}, or two launches differ")
+        del ys2, mhs2
+        pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+        mh_rel, ys_max = fwd_check(ys, mhs, h0, pys, f"f32 forward B={B} T={T}")
+        fwd_ms = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1)
+        fwd_plain_ms = cuda_ms(lambda: ft.gru_train_fwd_plain(mxs, h0, wr, brec), n=2, warmup=1)
+        ops = 2 * T * B * u * 3 * u
+        fb_ms, fb_by = bound(tensor_bytes(mxs, h0, wr, brec, ys, mhs), ops, "tf32x3")
+        lib_fwd, lib_bwd, lib_dt = cudnn_gru_ms(B, T, u, dev, (f32,))
+        log(f"[{tag}] f32 forward B={B} T={T} U={u}, plan {tuple(plan)}: teacher-forced mh max "
+            f"|diff| / max |plain| {mh_rel:.3g}, free-running ys max abs err {ys_max:.3g} | two "
+            f"launches bit-equal | kernel {fwd_ms:.3f} ms = {fwd_ms * 1e3 / T:.1f} us/step | "
+            f"plain {fwd_plain_ms:.2f} ms | bound {fb_ms:.3f} ms ({fb_by}, 3xTF32) | library: "
+            f"torch.nn.GRU(256, {u}) on cuDNN ({lib_dt}, TF32 off) {lib_fwd:.3f} ms")
+
+        # backward from the plain forward's residuals, so both sides get equal inputs
+        before = dict(ft.LAUNCHES)
+        got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        check(all(ft.LAUNCHES[k] - before[k] == (k in TRAIN_F32_KERNELS[1:])
+                  for k in ft.LAUNCHES),
+              f"{tag}: f32 backward B={B} launched {before} -> {ft.LAUNCHES}")
+        again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
+        torch.cuda.synchronize()
+        want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+        grel = bwd_check(got, again, want, f"f32 backward B={B} T={T}")
+        dmx_abs = float((got[0] - want[0]).abs().max())
+        del again
+        dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, pmhs, pys, dys, h0, wr)
+        dwr_k = ft.gru_train_dwr_cuda(h0, pys, dmxs, plane)
+        dwr_p = ft.gru_train_dwr_plain(h0, pys, dmxs, plane)
+        dwr_abs = float((dwr_k - dwr_p).abs().max())
+        dwr_rel = rel(dwr_k, dwr_p)
+        dwr_64 = ft.gru_train_dwr_plain(h0.double(), pys.double(), dmxs.double(), plane.double())
+        k64, p64 = rel(dwr_k, dwr_64), rel(dwr_p, dwr_64)
+        del dwr_64
+        check(dwr_rel <= TRAIN_F32_DWR_REL and torch.equal(
+                  dwr_k, ft.gru_train_dwr_cuda(h0, pys, dmxs, plane)),
+              f"{tag}: f32 dWr B={B} T={T}: max |diff| / max |plain| = {dwr_rel:.3g} (limit "
+              f"{TRAIN_F32_DWR_REL}), or two launches differ")
+        rec_ms = cuda_ms(lambda: ft.gru_train_bwd_rec_cuda(mxs, pmhs, pys, dys, h0, wr), n=5,
+                         warmup=1)
+        rec_plain_ms = cuda_ms(lambda: ft.gru_train_bwd_rec_plain(mxs, pmhs, pys, dys, h0, wr),
+                               n=2, warmup=1)
+        dwr_ms = cuda_ms(lambda: ft.gru_train_dwr_cuda(h0, pys, dmxs, plane), n=5, warmup=1)
+        dwr_plain_ms = cuda_ms(lambda: ft.gru_train_dwr_plain(h0, pys, dmxs, plane), n=2,
+                               warmup=1)
+        bwd_ms = cuda_ms(lambda: ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr), n=5,
+                         warmup=1)
+        hp_all = torch.cat([h0[None], pys[:-1]]).reshape(T * B, u)
+        dmh_all = torch.cat([dmxs[..., :2 * u], plane], dim=2).reshape(T * B, 3 * u)
+        dwr_lib_ms = cuda_ms(lambda: torch.matmul(hp_all.t(), dmh_all), n=5, warmup=1)
+        del hp_all, dmh_all
+        rb_ms, rb_by = bound(tensor_bytes(mxs, pmhs, pys, dys, h0, wr, got[0], plane, got[2],
+                                          got[3]), ops, "tf32x3")
+        db_ms, db_by = bound(tensor_bytes(h0, pys, dmxs, plane, dwr_k), ops, "tf32x3")
+        log(f"[{tag}] f32 backward B={B} T={T} U={u}, plan {tuple(plan)}: max |diff| / max "
+            f"|plain|: " + ", ".join(f"{n} {grel[n]:.3g}" for n in grel)
+            + f" | two launches bit-equal | recurrence + dWr {bwd_ms:.3f} ms | recurrence "
+              f"{rec_ms:.3f} ms = {rec_ms * 1e3 / T:.1f} us/step, plain {rec_plain_ms:.2f} ms, "
+              f"bound {rb_ms:.3f} ms ({rb_by}) | dWr {dwr_ms:.3f} ms (max |diff| / max |plain| "
+              f"{dwr_rel:.3g} on equal operands; against the f64 sum: kernel {k64:.3g}, plain "
+              f"{p64:.3g}; two launches bit-equal), plain {dwr_plain_ms:.2f} ms, bound "
+              f"{db_ms:.3f} ms ({db_by}), torch.matmul f32 {dwr_lib_ms:.3f} ms | library: "
+              f"torch.nn.GRU backward on cuDNN ({lib_dt}, TF32 off) {lib_bwd:.3f} ms")
+
+        # every other f32 plan, forced
+        for other in ft.train_plans(B, u, sms, dtype=f32):
+            if other == plan:
+                continue
+            ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
+            ys3, _ = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
+            g2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            a2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            torch.cuda.synchronize()
+            check(torch.equal(ys2, ys3) and ft.LAST_PLAN["fused_gru_train_fwd_f32"] == other,
+                  f"{tag}: f32 forward B={B}, plan {tuple(other)}: two launches differ")
+            o_mh, o_ys = fwd_check(ys2, mhs2, h0, pys, f"f32 forward B={B} T={T}, plan "
+                                                       f"{tuple(other)}")
+            o_rel = bwd_check(g2, a2, want, f"f32 backward B={B} T={T}, plan {tuple(other)}")
+            o_fwd = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other), n=3,
+                            warmup=1)
+            o_rec = cuda_ms(lambda: ft.gru_train_bwd_rec_cuda(mxs, pmhs, pys, dys, h0, wr,
+                                                              config=other), n=3, warmup=1)
+            log(f"[{tag}] f32 plan {tuple(other)} forced at B={B} T={T}: forward mh {o_mh:.3g}, "
+                f"ys {o_ys:.3g}, backward max rel " + ", ".join(f"{n} {v:.3g}"
+                                                                for n, v in o_rel.items())
+                + f" | two launches bit-equal | forward {o_fwd:.3f} ms, recurrence "
+                  f"{o_rec:.3f} ms")
+            del ys2, mhs2, ys3, g2, a2
+        out[(B, T)] = {
+            "fwd": dict(max_abs_err=ys_max, ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fb_ms,
+                        bound_by=fb_by, library_ms=lib_fwd, plan=tuple(plan)),
+            "bwd": dict(max_abs_err=dmx_abs, ms=rec_ms, plain_ms=rec_plain_ms, bound_ms=rb_ms,
+                        bound_by=rb_by, library_ms=lib_bwd, plan=tuple(plan)),
+            "dwr": dict(max_abs_err=dwr_abs, ms=dwr_ms, plain_ms=dwr_plain_ms, bound_ms=db_ms,
+                        bound_by=db_by, library_ms=dwr_lib_ms),
+            "bwd_total_ms": bwd_ms}
+        del got, want, ys, mhs, pys, pmhs, mxs, dys, dmxs, plane, dwr_k, dwr_p
+        torch.cuda.empty_cache()
+    return out
+
+
 def params_equal(a, b):
     import torch
 
@@ -1218,6 +1422,7 @@ def profiled_step_shares(step, n):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = {"fused_gru_train_bwd": "backward kernel", "fused_gru_train_dwr": "dWr kernel",
                "fused_gru_train_fwd": "forward kernel"}
+    kernels.update({f"{k}_f32": v for k, v in kernels.items()})
     groups = {**{g: 0.0 for g in kernels.values()}, "library products": 0.0,
               "other device work": 0.0}
     for e in prof.key_averages():
@@ -1238,9 +1443,10 @@ def profiled_step_shares(step, n):
 
 
 def train_phase(tag, dev, tok, kernel_ms):
-    """The training main path at full width (see the module docstring, 12).
-    ``kernel_ms`` is (forward, backward recurrence + dWr) kernel time at the
-    main shape, for the step's breakdown. Returns the kernels' launches on the main run."""
+    """The training main path at full width, bf16 (see the module docstring,
+    12). ``kernel_ms`` is (forward, backward recurrence + dWr) kernel time
+    at the main shape, for the step's breakdown. Returns the kernels'
+    launches on the main run and {step_ms, final_loss, adam_ms} of it."""
     import contextlib
     import io
 
@@ -1332,28 +1538,6 @@ def train_phase(tag, dev, tok, kernel_ms):
             + ", ".join(f"{k} {prof[k]:.2f} ms" for k in ("backward kernel", "dWr kernel",
                                                           "forward kernel", "library products",
                                                           "other device work")))
-
-    # the first f32 training number: the same run at f32, which neither
-    # package's trainer routes to the fused pair (the plain scan, no launch)
-    tc32 = TrainConfig(epochs=1, log_every=1, compute_dtype=torch.float32)
-    before = port.kernel_launches()
-    _, hist32, _ = train_from_text(text, model_config=GRUConfig(), train_config=tc32,
-                                   data_config=data, seed=0)
-    torch.cuda.synchronize()
-    after = port.kernel_launches()
-    losses32 = [h["loss"] for h in hist32]
-    check(len(hist32) == n_steps and all(np.isfinite(losses32))
-          and losses32[-1] < losses32[0] - 0.15
-          and all(after[k] == before[k] for k in TRAIN_KERNELS),
-          f"{tag}: f32 training: {len(hist32)} steps, losses {losses32}, launches {before} -> "
-          f"{after}")
-    step32_ms = float(np.median(np.diff([h["elapsed_s"] for h in hist32]))) * 1e3
-    log(f"[{tag}] train_from_text corpus_train.txt f32 B={B} T={T}: {n_steps} steps, loss "
-        f"{losses32[0]:.4f} -> {losses32[-1]:.4f} (bf16: {losses[-1]:.4f}) | {step32_ms:.2f} "
-        f"ms/step (median of {len(hist32) - 1}) = {B * T / step32_ms * 1e3:,.0f} tokens/s, "
-        f"{step32_ms / step_ms:.2f}x the bf16 step's {step_ms:.2f} ms | the plain scan (no "
-        f"fused train launch): neither package routes f32 to the fused pair")
-    del hist32
 
     # the same run through train(), whole and interrupted + resumed
     def fresh():
@@ -1460,7 +1644,131 @@ def train_phase(tag, dev, tok, kernel_ms):
             f"plan {tuple(plan)}) | loss on 256 corpus windows: {loss0:.4f} initial -> {loss1:.4f} "
             f"exported")
         del init, trained
-    return launches
+    return launches, dict(step_ms=step_ms, final_loss=losses[-1], adam_ms=adam_ms)
+
+
+def train_f32_phase(tag, dev, tok, kernel32_ms, bf16_run):
+    """Phase 12 at f32, ``train-gru``'s default (see the module docstring,
+    12). ``kernel32_ms`` is the f32 (forward, backward recurrence + dWr)
+    kernel time at the main shape, ``bf16_run`` what :func:`train_phase`
+    returned of the bf16 run. Returns the kernels' launches on the f32 main
+    run."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.gru_textgen import GRUConfig
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.training import TrainConfig, train, train_from_text
+    from ggml_experiments_tpu_torch.training.data import (
+        DataConfig,
+        batches,
+        load_corpus,
+        make_examples,
+    )
+    from ggml_experiments_tpu_torch.training.gru_trainer import (
+        adam_init,
+        make_train_step,
+        param_leaves,
+    )
+
+    B, T = TRAIN_SHAPES[0]
+    text = load_corpus(CORPUS_TRAIN)
+    data = DataConfig(seq_length=T, batch_size=B)
+    n_steps = len(make_examples(text, tok, data)) // B
+    step_ms, adam_ms = bf16_run["step_ms"], bf16_run["adam_ms"]
+    # f32 (train-gru's default): the f32 kernels, one launch of each a step,
+    # no plain version; the same run on the plain loop (the route before the
+    # f32 kernels) as the reference of every step's loss
+    f32 = torch.float32
+    tc32 = TrainConfig(epochs=1, log_every=1, compute_dtype=f32)
+    before, plain_before = port.kernel_launches(), dict(ft.PLAIN_CALLS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params32, hist32, _ = train_from_text(text, model_config=GRUConfig(), train_config=tc32,
+                                          data_config=data, seed=0)
+    torch.cuda.synchronize()
+    peak32_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = port.kernel_launches()
+    launches32 = {k: after[k] - before[k] for k in after}
+    losses32 = [h["loss"] for h in hist32]
+    check(len(hist32) == n_steps and all(np.isfinite(losses32))
+          and losses32[-1] < losses32[0] - 0.15,
+          f"{tag}: f32 training: {len(hist32)} steps, losses {losses32}")
+    check(all(launches32[k] == n_steps for k in TRAIN_F32_KERNELS)
+          and not any(launches32[k] for k in TRAIN_KERNELS) and ft.PLAIN_CALLS == plain_before,
+          f"{tag}: f32 training, {n_steps} steps, launched {launches32}, plain-version runs "
+          f"{plain_before} -> {ft.PLAIN_CALLS}")
+    step32_ms = float(np.median(np.diff([h["elapsed_s"] for h in hist32]))) * 1e3
+    with f32_train_route_off():
+        before = port.kernel_launches()
+        _, href, _ = train_from_text(text, model_config=GRUConfig(), train_config=tc32,
+                                     data_config=data, seed=0)
+        torch.cuda.synchronize()
+        after = port.kernel_launches()
+    lref = [h["loss"] for h in href]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses32, lref))
+    check(after == before and len(lref) == n_steps and loss_rel <= TRAIN_F32_LOSS_REL,
+          f"{tag}: f32 on the kernels against the plain loop: losses {losses32} / {lref}, max "
+          f"relative {loss_rel:.3g} (limit {TRAIN_F32_LOSS_REL}); the plain-loop run launched "
+          f"{before} -> {after}")
+    stepref_ms = float(np.median(np.diff([h["elapsed_s"] for h in href]))) * 1e3
+    del href
+    # three more f32 steps on a scratch model under the profiler
+    scratch = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(1), device=dev)
+    for _, t in param_leaves(scratch):
+        t.requires_grad_(True)
+    adam = adam_init(scratch)[0]
+    step_fn = make_train_step(1e-3, compute_dtype=f32)
+    inp, tgt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in next(iter(batches(
+        make_examples(text, tok, data), data, seed=0))))
+    before = port.kernel_launches()
+    prof32 = profiled_step_shares(lambda: step_fn(scratch, (adam,), inp, tgt), 3)
+    after = port.kernel_launches()
+    check(all(after[k] - before[k] == 3 for k in TRAIN_F32_KERNELS),
+          f"{tag}: the profiled f32 steps launched {before} -> {after}")
+    del adam, scratch, inp, tgt
+    rest32_ms = step32_ms - sum(kernel32_ms) - adam_ms
+    log(f"[{tag}] train_from_text corpus_train.txt f32 B={B} T={T} E=256 U=1024: {n_steps} steps, "
+        f"loss {losses32[0]:.4f} -> {losses32[-1]:.4f} (bf16: {bf16_run['final_loss']:.4f}) | "
+        f"launches fwd "
+        f"{launches32['fused_gru_train_fwd_f32']} bwd {launches32['fused_gru_train_bwd_f32']} "
+        f"dWr {launches32['fused_gru_train_dwr_f32']} (f32 kernels), plain-version runs 0 | "
+        f"{step32_ms:.2f} ms/step (median of {len(hist32) - 1}) = "
+        f"{B * T / step32_ms * 1e3:,.0f} tokens/s, {step32_ms / step_ms:.2f}x the bf16 step's "
+        f"{step_ms:.2f} ms | of a step: forward kernel {kernel32_ms[0]:.2f} ms, backward kernels "
+        f"{kernel32_ms[1]:.2f} ms, Adam {adam_ms:.2f} ms, the rest {rest32_ms:.2f} ms | peak "
+        f"device memory {peak32_gb:.2f} GB | the same run on the plain loop: {stepref_ms:.2f} "
+        f"ms/step ({stepref_ms / step32_ms:.2f}x), losses {lref[0]:.4f} -> {lref[-1]:.4f}, every "
+        f"step's within {loss_rel:.3g} relative")
+    if prof32 is None:
+        log(f"[{tag}] torch.profiler recorded no device time: the f32 step is not split further")
+    else:
+        log(f"[{tag}] 3 f32 steps under torch.profiler: {prof32['wall_ms']:.2f} ms/step wall, "
+            f"device busy {prof32['busy_ms']:.2f} ms/step (idle share "
+            f"{prof32['idle_share']:.3f}): "
+            + ", ".join(f"{k} {prof32[k]:.2f} ms" for k in ("backward kernel", "dWr kernel",
+                                                            "forward kernel", "library products",
+                                                            "other device work")))
+    # an f32 run interrupted after TRAIN_RESUME_AFTER steps and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        init = gru_textgen.init_params(GRUConfig(), torch.Generator().manual_seed(0), device=dev)
+        stream = list(batches(make_examples(text, tok, data), data, seed=0, epochs=1))
+        ck = os.path.join(tmp, "resume32.gxt")
+        tcr = TrainConfig(epochs=1, log_every=1, compute_dtype=f32, resume_path=ck,
+                          save_every=TRAIN_RESUME_AFTER - 1)
+        train(init, stream[:TRAIN_RESUME_AFTER], tcr)
+        resumed, hist = train(init, stream, tcr)
+        check(hist[0]["step"] == TRAIN_RESUME_AFTER and params_equal(resumed, params32),
+              f"{tag}: the f32 run resumed at step {hist[0]['step']} differs from the "
+              f"uninterrupted run")
+        log(f"[{tag}] f32 run interrupted after {TRAIN_RESUME_AFTER} steps and resumed at step "
+            f"{hist[0]['step']}: every parameter tensor bit-equal to the uninterrupted f32 run")
+        del init, stream, resumed
+    del params32, hist32
+
+    return launches32
 
 
 
@@ -4893,16 +5201,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     fparams = load_gru_params(CKPT, device=dev)
     train_k = train_kernel_phase("11 train kernels", fparams, dev, tok)
+    torch.cuda.empty_cache()
+    train32_k = train_f32_kernel_phase("11 train kernels", fparams, dev, tok)
     del fparams
     torch.cuda.empty_cache()
 
     # ---- 12. training at full width ----------------------------------------------------
-    main_k = train_k[TRAIN_SHAPES[0]]
-    train_launches = train_phase("12 training", dev, tok,
-                                 (main_k["fwd"]["ms"], main_k["bwd_total_ms"]))
+    main_k, main32_k = train_k[TRAIN_SHAPES[0]], train32_k[TRAIN_SHAPES[0]]
+    train_launches, bf16_run = train_phase("12 training", dev, tok,
+                                           (main_k["fwd"]["ms"], main_k["bwd_total_ms"]))
+    train32_launches = train_f32_phase("12 training", dev, tok,
+                                       (main32_k["fwd"]["ms"], main32_k["bwd_total_ms"]),
+                                       bf16_run)
     for part in ("fwd", "bwd", "dwr"):
         name = f"fused_gru_train_{part}"
         kernels[name] = dict(main_k[part], launches=train_launches[name])
+        kernels[f"{name}_f32"] = dict(main32_k[part], launches=train32_launches[f"{name}_f32"])
 
     # ---- 13. the vision kernels against their plain versions -------------------------
     from ggml_experiments_tpu_torch.models.mobilevit import load_mobilevit
@@ -5009,6 +5323,9 @@ def main() -> int:
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
     meta["fused_gru_train_dwr"] = (src + "gru_train.cu",
                                    "ggml_experiments_tpu/ops/fused_gru_train.py:285")
+    for part, at in (("fwd", 186), ("bwd", 285), ("dwr", 285)):
+        meta[f"fused_gru_train_{part}_f32"] = (src + "gru_train_f32.cu",
+                                               f"ggml_experiments_tpu/ops/fused_gru_train.py:{at}")
     for name in ("fused_transformer_layer",) + LAYER_KERNELS:
         meta[name] = (src + "transformer_layer.cu",
                       "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")

@@ -22,7 +22,7 @@ from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("qmatmul", "gru_persistent", "gru_train", "flash_attention",
+SOURCES = ("qmatmul", "gru_persistent", "gru_train", "gru_train_f32", "flash_attention",
            "transformer_layer", "transformer_layer_seq", "transformer_layer_f32",
            "inverted_residual", "inverted_residual_tile", "inverted_residual_f32",
            "inverted_residual_s2")

@@ -741,7 +741,12 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(e)
     e.set_defaults(fn=cmd_eval)
 
-    t = sub.add_parser("train-gru", help="train the char GRU on a text file")
+    t = sub.add_parser(
+        "train-gru", help="train the char GRU on a text file",
+        description="Train the char GRU on a text file. On a GPU the time loop runs the fused "
+                    "train kernels at either --compute: csrc/gru_train.cu at bfloat16, "
+                    "csrc/gru_train_f32.cu (3xTF32 products) at float32, the default; on "
+                    "the CPU (--device cpu) float32 runs a plain loop under autograd.")
     t.add_argument("--corpus", required=True, help="text file (e.g. shakespeare.txt)")
     t.add_argument("--epochs", type=int, default=20)
     t.add_argument("--seq-length", type=int, default=100)

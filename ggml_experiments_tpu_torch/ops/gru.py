@@ -64,23 +64,34 @@ def gru_cell(p: GRUCellParams, x: torch.Tensor, h: torch.Tensor, *,
     return gru_combine(mx, mh, h)
 
 
-def _use_fused_train(p: GRUCellParams, fused: Optional[bool]) -> bool:
-    """Whether the time-major forward takes the fused kernel pair: an
-    explicit ``fused`` decides; otherwise dense float weights with a bias, on
-    a GPU, at a width the CUDA kernels take (``fused_gru_train.kernels_take``:
-    U a multiple of 8 with U / 8 blocks co-resident). A recurrent kernel
-    placed on a mesh (``parallel.sharding.Placed``) counts as its local
-    shard's kind and device, at the whole weight's U. On the CPU the default
-    is the plain loop under autograd."""
+def fused_train_route(p: GRUCellParams, compute_dtype, device,
+                      fused: Optional[bool] = None) -> bool:
+    """Whether the time-major forward at ``compute_dtype`` on ``device`` (a
+    device or its type) takes the fused kernel pair. bf16 (the JAX model's
+    route): an explicit ``fused`` decides; otherwise dense float weights with
+    a bias, on a GPU, at a width the bf16 kernels take
+    (``fused_gru_train.kernels_take``: U a multiple of 8 with U / 8 blocks
+    co-resident). f32: only on a GPU, where the f32 kernels
+    (``csrc/gru_train_f32.cu``) take the width, unless ``fused=False``; on
+    the CPU f32 keeps the plain loop even with ``fused=True``, as the JAX
+    package routes only bf16 to its Pallas pair. A recurrent kernel placed
+    on a mesh (``parallel.sharding.Placed``) counts as its local shard's
+    kind, at the whole weight's U."""
+    cd = resolve_dtype(compute_dtype)
+    on_card = torch.device(device).type == "cuda"
+    if cd == torch.float32 and not on_card:
+        return False
     if fused is not None:
         return fused
     w = p.recurrent_kernel
     w = getattr(w, "local", w)
-    if not isinstance(w, torch.Tensor) or p.bias is None or w.device.type != "cuda":
+    if not isinstance(w, torch.Tensor) or p.bias is None or not on_card:
         return False
-    from ggml_experiments_tpu_torch.ops.fused_gru_train import kernels_take
+    from ggml_experiments_tpu_torch.ops.fused_gru_train import SMS, kernels_take
 
-    return kernels_take(p.units, torch.cuda.get_device_properties(w.device).multi_processor_count)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if torch.cuda.is_available() else SMS)
+    return kernels_take(p.units, sms, cd)
 
 
 def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Tensor, *,
@@ -90,24 +101,25 @@ def gru_sequence_time_major(p: GRUCellParams, xs_tm: torch.Tensor, h0: torch.Ten
     (T, B, U), final state (B, U)). The input projection of the whole
     sequence is one product; only the recurrent projection runs per step.
 
-    At ``bfloat16``, models the fused pair takes (see :func:`_use_fused_train`;
-    ``fused=True`` forces it, and then CPU tensors run the kernels' plain
-    versions) go through ``ops/fused_gru_train.fused_gru_scan``: the whole
-    time loop in one kernel forward and one backward, states in bf16, on the
-    rows of ``xs_tm`` (a rank's batch rows under data parallelism), with a
-    placed recurrent kernel gathered whole.
+    Where :func:`fused_train_route` says so (bf16 on any device with
+    ``fused=True``, or by default on a GPU; f32 on a GPU only) it goes
+    through ``ops/fused_gru_train.fused_gru_scan`` at the compute dtype: the
+    whole time loop in one kernel forward and one backward, states in the
+    compute dtype, on the rows of ``xs_tm`` (a rank's batch rows under data
+    parallelism), with a placed recurrent kernel gathered whole (CPU tensors
+    with ``fused=True`` run the kernels' plain versions).
     Everything else is a plain time loop under autograd; ``remat=True``
     checkpoints its cell (``torch.utils.checkpoint``), which the fused pair
     does not need."""
     cd = resolve_dtype(compute_dtype)
     mxs = input_projection(p, xs_tm, compute_dtype=cd)  # (T, B, 3U)
 
-    if cd == torch.bfloat16 and _use_fused_train(p, fused):
+    if fused_train_route(p, cd, mxs.device, fused):
         from ggml_experiments_tpu_torch.ops.fused_gru_train import fused_gru_scan
 
         if p.bias is None:
             raise ValueError("the fused train kernels take a recurrent bias")
-        ys = fused_gru_scan(mxs, h0.to(cd), p.recurrent_kernel, p.bias[1])
+        ys = fused_gru_scan(mxs, h0.to(cd), p.recurrent_kernel, p.bias[1], compute_dtype=cd)
         if ys.shape[0] == 0:
             return ys, h0
         return ys, ys[-1]

@@ -2,9 +2,11 @@
 on a (data, model) mesh of processes.
 
 The train step runs the time-major forward (``models/gru_textgen.
-forward_sequence(time_major=True)``), whose time loop at bfloat16 on a GPU is
-the fused kernel pair of ``ops/fused_gru_train``, and at float32 a plain loop
-under autograd. Mixed precision follows the master-weights recipe: bfloat16
+forward_sequence(time_major=True)``), whose time loop on a GPU is the fused
+kernel pair of ``ops/fused_gru_train`` at either compute dtype (bf16:
+``csrc/gru_train.cu``; f32, the default: ``csrc/gru_train_f32.cu``, 3xTF32
+products), and on the CPU at float32 a plain loop under autograd, as the JAX
+package's. Mixed precision follows the master-weights recipe: bfloat16
 runs the products and stores the states in bf16, while the parameters, the
 gradients at the parameter boundary, the Adam state and the loss stay
 float32.

@@ -255,6 +255,25 @@ def f32_layer_route_off():
         cls.fused_route = route
 
 
+@contextlib.contextmanager
+def f32_train_route_off():
+    """The GRU's f32 time loop on the plain loop under autograd (the route
+    before the f32 train kernels), bf16 unchanged, for a measurement by the
+    scripts that hold the f32 route against it (never used by the port)."""
+    import torch
+
+    from ggml_experiments_tpu_torch.device import resolve_dtype
+    from ggml_experiments_tpu_torch.ops import gru
+
+    route = gru.fused_train_route
+    gru.fused_train_route = lambda p, cd, device, fused=None: (
+        resolve_dtype(cd) != torch.float32 and route(p, cd, device, fused))
+    try:
+        yield
+    finally:
+        gru.fused_train_route = route
+
+
 class MetricsLogger:
     """Append-only JSONL metrics stream (stdout-safe: defaults to a file)."""
 

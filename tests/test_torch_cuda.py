@@ -421,10 +421,11 @@ def test_plans_the_kernel_does_not_take_are_refused(dev, params):
 # the fused training pair (csrc/gru_train.cu)
 # ---------------------------------------------------------------------------
 
-def train_operands(dev, t, b, u, seed=0):
-    """bf16 operands of the training scan and a cotangent, on the card."""
+def train_operands(dev, t, b, u, seed=0, cd=torch.bfloat16):
+    """Operands of the training scan in ``cd`` (``brec`` f32) and a
+    cotangent, on the card."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    bf = torch.bfloat16
+    bf = cd
     mxs = (torch.randn((t, b, 3 * u), generator=g) * 0.8).to(bf).to(dev)
     h0 = (torch.randn((b, u), generator=g) * 0.3).to(bf).to(dev)
     wr = (torch.randn((u, 3 * u), generator=g) / np.sqrt(u)).to(bf).to(dev)
@@ -441,6 +442,13 @@ def rel_max(got, want):
 # B below one 16-row tile, ragged, and several tiles per warp; U with a ragged
 # last 32-wide K step and a ragged last 16-row tile of the weight gradient
 TRAIN_SHAPES = [(5, 6, 96), (7, 70, 104), (4, 300, 96), (3, 64, 1024)]
+TRAIN_BF16 = ("fused_gru_train_fwd", "fused_gru_train_bwd", "fused_gru_train_dwr")
+TRAIN_F32 = tuple(f"{k}_f32" for k in TRAIN_BF16)
+
+
+def bumped(before, keys):
+    """The launch counters after one launch of each of ``keys``."""
+    return {k: v + (k in keys) for k, v in before.items()}
 
 
 @pytest.mark.parametrize("t,b,u", TRAIN_SHAPES)
@@ -540,9 +548,8 @@ def test_train_scan_autograd_runs_the_kernels(dev):
     (ys.float() * dys.float()).sum().backward()
     torch.cuda.synchronize()
     # one forward, one backward recurrence and one dWr launch
-    assert ft.LAUNCHES == {k: v + 1 for k, v in launches.items()} and ft.PLAIN_CALLS == plain
-    assert set(ft.LAUNCHES) == {"fused_gru_train_fwd", "fused_gru_train_bwd",
-                                "fused_gru_train_dwr"}
+    assert ft.LAUNCHES == bumped(launches, TRAIN_BF16) and ft.PLAIN_CALLS == plain
+    assert set(ft.LAUNCHES) == set(TRAIN_BF16) | set(TRAIN_F32)
     pargs = [a.detach().clone().requires_grad_() for a in args]
     pys = ft.fused_gru_scan_plain(*pargs)
     (pys.float() * dys.float()).sum().backward()
@@ -577,7 +584,7 @@ def test_train_batch_local_pair_at_a_rank_batch_matches_plain(dev):
 
     launches = dict(ft.LAUNCHES)
     ys, grads = run(ft.fused_gru_scan, True)
-    assert ft.LAUNCHES == {k: v + 1 for k, v in launches.items()}
+    assert ft.LAUNCHES == bumped(launches, TRAIN_BF16)
     assert ft.LAST_PLAN["fused_gru_train_fwd"] == ft.train_plan(512, 1024, sms)
     ys2, grads2 = run(ft.fused_gru_scan, True)
     assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
@@ -615,6 +622,115 @@ def test_train_kernels_name_the_shape_they_refuse(dev):
     torch.cuda.synchronize()
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert all(rel_max(g, w) <= 1e-2 for g, w in zip(got, want))
+
+
+# ---- the f32 form of the training pair (csrc/gru_train_f32.cu): 3xTF32
+# products against the plain versions' f32 products (TF32 off) and the same
+# gate arithmetic in other routines: f32 accuracy, errors of a few ulps that
+# the recurrence carries on; 1e-5 of the largest value forward, 1e-4 for the
+# gradients (the carry compounds over the steps)
+F32_FWD_REL, F32_GRAD_REL = 1e-5, 1e-4
+
+
+def f32_pair_check(dev, t, b, u, config=None):
+    """The f32 forward and backward (recurrence, then dWr) against their
+    plain versions on the same inputs, each launched twice and bit-equal."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u, cd=torch.float32)
+    before = dict(ft.LAUNCHES)
+    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
+    ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
+    pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=config)
+    again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=config)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == {k: v + 2 * (k in TRAIN_F32) for k, v in before.items()}
+    if config is not None:
+        assert ft.LAST_PLAN["fused_gru_train_fwd_f32"] == ft.TrainPlan(*config)
+    assert ys.dtype == mhs.dtype == torch.float32
+    assert torch.equal(ys, ys2) and torch.equal(mhs, mhs2)
+    assert rel_max(ys, pys) <= F32_FWD_REL and rel_max(mhs, pmhs) <= F32_FWD_REL, (
+        rel_max(ys, pys), rel_max(mhs, pmhs))
+    want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
+    for name, g, a, w in zip(("dmxs", "dwr", "dbrec", "dh0"), got, again, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32, name
+        assert torch.equal(g, a), f"{name}: two launches on the same inputs differ"
+        assert rel_max(g, w) <= F32_GRAD_REL, (name, rel_max(g, w))
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES)
+def test_train_f32_pair_matches_plain_and_repeats_bit_equal(dev, t, b, u):
+    f32_pair_check(dev, t, b, u)
+
+
+@pytest.mark.parametrize("b", [1, 64, 1024, 1761])
+def test_train_f32_every_plan_matches_plain(dev, b):
+    """Each plan the f32 kernels take at U = 1024, forced."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = ft.train_plans(b, 1024, sms, dtype=torch.float32)
+    assert ft.train_plan(b, 1024, sms, dtype=torch.float32) in plans and len(plans) >= 2
+    for plan in plans:
+        f32_pair_check(dev, 3, b, 1024, config=tuple(plan))
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES + [(2, 200, 1024)])
+def test_train_f32_dwr_kernel_matches_plain(dev, t, b, u):
+    """The f32 dWr GEMM alone on equal operands: 3xTF32 products, f32 sums
+    in another order over K = T*B terms."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u, cd=torch.float32)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    got = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+    again = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+    torch.cuda.synchronize()
+    want = ft.gru_train_dwr_plain(h0, ys, dmxs, plane)
+    assert torch.equal(got, again)
+    assert rel_max(got, want) <= 1e-5, rel_max(got, want)
+
+
+def test_train_f32_route_on_a_cuda_parameter(dev):
+    """At f32 on the card the time-major sequence takes the f32 pair by
+    default (one launch of each f32 kernel, no plain-version run), and its
+    states and gradients match ``fused=False`` (the plain loop under
+    autograd); bf16 still takes the bf16 pair, the CPU neither."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+    from ggml_experiments_tpu_torch.ops import gru as tgru
+
+    rng = np.random.default_rng(3)
+    t, b, e, u = 6, 40, 24, 96
+    arrs = {"kernel": rng.normal(0, 0.3, (e, 3 * u)),
+            "recurrent_kernel": rng.normal(0, 1 / np.sqrt(u), (u, 3 * u)),
+            "bias": rng.normal(0, 0.2, (2, 3 * u))}
+    xs = torch.tensor(rng.normal(0, 1, (t, b, e)), dtype=torch.float32, device=dev)
+    wts = torch.tensor(rng.normal(0, 1, (t, b, u)), dtype=torch.float32, device=dev)
+
+    def run(fused):
+        cell = tgru.GRUCellParams(**{k: torch.tensor(v, dtype=torch.float32, device=dev,
+                                                     requires_grad=True)
+                                     for k, v in arrs.items()})
+        ys, _ = tgru.gru_sequence_time_major(cell, xs, torch.zeros(b, u, device=dev),
+                                             compute_dtype=torch.float32, fused=fused)
+        (ys * wts).sum().backward()
+        torch.cuda.synchronize()
+        return cell, ys.detach(), [getattr(cell, k).grad for k in arrs]
+
+    launches, plain = dict(ft.LAUNCHES), dict(ft.PLAIN_CALLS)
+    cell, ys, grads = run(None)
+    assert tgru.fused_train_route(cell, torch.float32, dev)
+    assert tgru.fused_train_route(cell, torch.bfloat16, dev)
+    assert not tgru.fused_train_route(cell, torch.float32, "cpu", fused=True)
+    assert ft.LAUNCHES == bumped(launches, TRAIN_F32) and ft.PLAIN_CALLS == plain
+    launches = dict(ft.LAUNCHES)
+    _, pys, pgrads = run(False)
+    assert ft.LAUNCHES == launches
+    assert rel_max(ys, pys) <= F32_FWD_REL
+    for name, g, w in zip(arrs, grads, pgrads):
+        assert rel_max(g, w) <= F32_GRAD_REL, (name, rel_max(g, w))
 
 
 # ---- the vision kernels: flash attention, the fused layer, the fused inverted residual

@@ -18,7 +18,13 @@ numpy inputs. Tolerances:
 * the hand-derived backward against autograd of the same forward in f64,
   where nothing is rounded: 1e-9 relative, so that a wrong formula cannot
   hide behind bf16 noise.
+* at ``compute_dtype=float32`` nothing is rounded to bf16 on either side,
+  so only the f32 sums' orders and the sigmoid / tanh routines differ:
+  states within 1e-6 absolute of the JAX kernel's and gradients within 2e-6
+  of their largest entry.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +41,19 @@ SHAPES = [(6, 4), (12, 2), (5, 6)]      # (T, B)
 STATE_ATOL = 2e-2
 VJP_REL = 2e-2
 ORACLE_REL = 3e-2
+# at f32 (see the module docstring)
+F32_STATE_ATOL = 1e-6
+F32_VJP_REL = 2e-6
+DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16, STATE_ATOL, VJP_REL),
+          "f32": (torch.float32, jnp.float32, F32_STATE_ATOL, F32_VJP_REL)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def make_inputs(t, b, u=U, seed=7, h0_scale=0.2):
@@ -54,16 +73,16 @@ def make_inputs(t, b, u=U, seed=7, h0_scale=0.2):
     )
 
 
-def jax_run(a):
+def jax_run(a, cd=jnp.bfloat16):
     """ys, mhs and the four gradients of sum(ys * dys) through the JAX
-    kernel pair (interpret mode)."""
+    kernel pair at compute dtype ``cd`` (interpret mode)."""
     from ggml_experiments_tpu.ops.fused_gru_train import _fwd
 
     args = [jnp.asarray(a[k]) for k in ("mxs", "h0", "wr", "brec")]
-    args[0] = args[0].astype(jnp.bfloat16)
-    dys = jnp.asarray(a["dys"]).astype(jnp.bfloat16)
-    ys, res = _fwd(*args, jnp.bfloat16, None)
-    grads = jax.grad(lambda *p: jnp.sum(jax_scan(*p).astype(jnp.float32)
+    args[0] = args[0].astype(cd)
+    dys = jnp.asarray(a["dys"]).astype(cd)
+    ys, res = _fwd(*args, cd, None)
+    grads = jax.grad(lambda *p: jnp.sum(jax_scan(*p, cd).astype(jnp.float32)
                                         * dys.astype(jnp.float32)), argnums=(0, 1, 2, 3))(*args)
     return (np.asarray(ys.astype(jnp.float32)), np.asarray(res[1].astype(jnp.float32)),
             [np.asarray(g.astype(jnp.float32)) for g in grads])
@@ -79,38 +98,57 @@ def torch_run(a, scan=ft.fused_gru_scan, cd=torch.bfloat16):
     return ys.detach().float().numpy(), [x.grad.double().numpy() for x in args]
 
 
+def port_scan(cd):
+    """The port's fused_gru_scan at compute dtype ``cd``."""
+    return functools.partial(ft.fused_gru_scan, compute_dtype=cd)
+
+
 def rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("t,b", SHAPES)
-def test_states_match_jax_kernel(t, b):
+def test_states_match_jax_kernel(t, b, dtype):
+    cd, jcd, atol, _ = DTYPES[dtype]
     a = make_inputs(t, b)
-    jys, jmhs, _ = jax_run(a)
-    ops = (torch.tensor(a["mxs"]).bfloat16(), torch.tensor(a["h0"]).bfloat16(),
-           torch.tensor(a["wr"]).bfloat16(), torch.tensor(a["brec"]))
+    jys, jmhs, _ = jax_run(a, jcd)
+    ops = (torch.tensor(a["mxs"]).to(cd), torch.tensor(a["h0"]).to(cd),
+           torch.tensor(a["wr"]).to(cd), torch.tensor(a["brec"]))
     ys, mhs = ft.gru_train_fwd_plain(*ops)
-    assert ys.dtype == mhs.dtype == torch.bfloat16
+    assert ys.dtype == mhs.dtype == cd
     assert ys.shape == (t, b, U) and mhs.shape == (t, b, 3 * U)
-    np.testing.assert_allclose(ys.float().numpy(), jys, atol=STATE_ATOL, rtol=0)
-    np.testing.assert_allclose(mhs.float().numpy(), jmhs, atol=STATE_ATOL, rtol=0)
+    np.testing.assert_allclose(ys.float().numpy(), jys, atol=atol, rtol=0)
+    np.testing.assert_allclose(mhs.float().numpy(), jmhs, atol=atol, rtol=0)
     # and through the differentiable wrapper, which counts a plain-version run
     before = dict(ft.PLAIN_CALLS)
-    ys2, _ = torch_run(a)
+    ys2, _ = torch_run(a, scan=port_scan(cd), cd=cd)
     np.testing.assert_array_equal(ys2, ys.float().numpy())
     assert ft.PLAIN_CALLS["fused_gru_train_fwd"] == before["fused_gru_train_fwd"] + 1
     assert ft.PLAIN_CALLS["fused_gru_train_bwd"] == before["fused_gru_train_bwd"] + 1
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("name,i", [("dmxs", 0), ("dh0", 1), ("dwr", 2), ("dbrec", 3)])
 @pytest.mark.parametrize("t,b", SHAPES)
-def test_gradients_match_jax_custom_vjp(t, b, name, i):
+def test_gradients_match_jax_custom_vjp(t, b, name, i, dtype):
+    cd, jcd, _, rel = DTYPES[dtype]
     a = make_inputs(t, b)
-    _, _, jgrads = jax_run(a)
-    _, tgrads = torch_run(a)
+    _, _, jgrads = jax_run(a, jcd)
+    _, tgrads = torch_run(a, scan=port_scan(cd), cd=cd)
     assert tgrads[i].shape == jgrads[i].shape
-    assert rel_err(tgrads[i], jgrads[i]) < VJP_REL, name
+    assert rel_err(tgrads[i], jgrads[i]) < rel, name
+
+
+@pytest.mark.parametrize("cd", [torch.float16, torch.float64])
+def test_scan_refuses_other_compute_dtypes(cd):
+    """The kernels take bf16 and f32; the plain versions' f64 is for checks
+    (``fused_gru_scan_plain``), not a compute dtype of the scan."""
+    a = make_inputs(3, 2)
+    args = [torch.tensor(a[k]) for k in ("mxs", "h0", "wr", "brec")]
+    with pytest.raises(ValueError, match="compute_dtype must be torch.bfloat16 or torch.float32"):
+        ft.fused_gru_scan(*args, compute_dtype=cd)
 
 
 def f32_loop(mxs, h0, wr, brec):
@@ -169,14 +207,16 @@ def test_batch_tiling_contract():
     assert rel_err(whole[2], jgrads[2]) < VJP_REL
 
 
-def test_gradient_dtypes_follow_the_inputs():
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_gradient_dtypes_follow_the_inputs(dtype):
+    cd = DTYPES[dtype][0]
     a = make_inputs(3, 2)
     mxs = torch.tensor(a["mxs"]).bfloat16().requires_grad_()
     h0 = torch.tensor(a["h0"]).bfloat16().requires_grad_()
     wr = torch.tensor(a["wr"], requires_grad=True)
     brec = torch.tensor(a["brec"], requires_grad=True)
-    ys = ft.fused_gru_scan(mxs, h0, wr, brec)
-    assert ys.dtype == torch.bfloat16
+    ys = ft.fused_gru_scan(mxs, h0, wr, brec, compute_dtype=cd)
+    assert ys.dtype == cd
     ys.float().square().mean().backward()
     assert mxs.grad.dtype == h0.grad.dtype == torch.bfloat16
     assert wr.grad.dtype == brec.grad.dtype == torch.float32 and brec.grad.shape == (3 * U,)
@@ -198,22 +238,31 @@ def test_empty_sequence_and_cuda_wrapper_checks():
                               torch.zeros(U, 3 * U).bfloat16())
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("u", [16, 96, 1024])
 @pytest.mark.parametrize("b", [1, 31, 64, 1024, 1761, 3000, 16384])
-def test_train_plans_cover_the_batch_and_fit(b, u):
+def test_train_plans_cover_the_batch_and_fit(b, u, dtype):
     """Every plan's row tiles cover the batch with none empty, its blocks are
     co-resident (one a multiprocessor), ``ub`` divides U and both passes fit
-    the H100's shared memory with a ring of at least two stages."""
-    plans = ft.train_plans(b, u)
-    assert plans and ft.train_plan(b, u) in plans
+    the H100's shared memory: at bf16 with a ring of at least two stages, at
+    f32 (no ring) the Wr slice of f32 rows."""
+    cd = DTYPES[dtype][0]
+    plans = ft.train_plans(b, u, dtype=cd)
+    assert plans and ft.train_plan(b, u, dtype=cd) in plans
     for plan in plans:
-        assert plan.ub in ft.UNIT_GROUPS and u % plan.ub == 0
+        assert plan.ub in (ft.F32_UNIT_GROUPS if cd == torch.float32 else ft.UNIT_GROUPS)
+        assert u % plan.ub == 0
         assert plan.row_tiles * (u // plan.ub) <= ft.SMS
         rows = ft.tile_rows(b, plan.row_tiles)
         assert rows % 64 == 0 and rows * plan.row_tiles >= b
         assert (plan.row_tiles - 1) * rows < b      # the last tile holds a row
         assert rows % ft.CHUNK_ROWS == 0 or (rows == 64 and b <= 64)
         for part in ("fwd", "bwd"):
+            if cd == torch.float32:
+                assert ft.ring_stages(part, plan.ub, u, dtype=cd) == 0
+                need = ft.smem_bytes(part, plan.ub, u, 0, cd)
+                assert ft.wr_bytes(part, plan.ub, u, cd) <= need <= ft.SMEM_LIMIT
+                continue
             stages = ft.ring_stages(part, plan.ub, u)
             assert 2 <= stages <= ft.MAX_STAGES
             assert ft.smem_bytes(part, plan.ub, u, stages) <= ft.SMEM_LIMIT
@@ -238,6 +287,26 @@ def test_train_plan_at_the_training_width():
     assert not any(ft.kernels_take(u) for u in (4, 100, 8 * ft.SMS + 8))
     with pytest.raises(ValueError, match=r"\(64, 100\)"):
         ft.train_plan(64, 100)
+
+
+def test_f32_train_plans_at_the_training_width():
+    """The f32 Wr slice is twice the bf16 one (f32 rows of U + 16 floats
+    forward, 3U + 16 backward): 32 units do not fit at U = 1024, 16 do, so
+    the plans are (8, 1), (16, 1), (16, 2) and the default the most blocks,
+    then the fewest rows a block. Every width the bf16 pair takes, the f32
+    pair takes."""
+    f32 = torch.float32
+    assert ft.wr_bytes("fwd", 16, 1024, f32) == 48 * 1040 * 4 == 199680
+    assert ft.wr_bytes("bwd", 16, 1024, f32) == 16 * 3088 * 4 == 197632
+    assert ft.wr_bytes("fwd", 32, 1024, f32) > ft.SMEM_LIMIT
+    assert ft.smem_bytes("bwd", 8, 16, 0, f32) == ft.F32_THREADS * 24 * 4   # the db_rec sums
+    assert [tuple(p) for p in ft.train_plans(1024, 1024, dtype=f32)] == [(8, 1), (16, 1), (16, 2)]
+    assert [tuple(ft.train_plan(b, 1024, dtype=f32)) for b in (1, 64, 256, 1024, 4096)] == [
+        (8, 1), (8, 1), (16, 2), (16, 2), (16, 2)]
+    # 32 units would fit only below U = 590: the f32 kernels take 8 and 16
+    assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32)] == [(8, 1), (16, 1)]
+    assert all(ft.kernels_take(u, dtype=f32) for u in range(8, 8 * ft.SMS + 1, 8))
+    assert not any(ft.kernels_take(u, dtype=f32) for u in (4, 100, 8 * ft.SMS + 8))
 
 
 @pytest.mark.parametrize("plan", [(32, 2), (64, 1), (12, 1)])
@@ -304,3 +373,34 @@ def test_dbrec_over_row_tiles_in_order_equals_one_sum(cd, row_tiles):
     tol = 1e-12 if cd == torch.float64 else 1e-5
     np.testing.assert_allclose(total.double().numpy(), whole[2].double().numpy(), rtol=tol,
                                atol=tol * float(whole[2].abs().max()))
+
+
+def test_the_f32_kernel_symbols_are_their_launch_counters():
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.utils.trace_report import kernel_name
+
+    anon = "(anonymous namespace)::"
+    symbols = {
+        f"void {anon}gru_train_fwd_f32_kernel<16>({anon}FwdArgs)": "fused_gru_train_fwd_f32",
+        f"void {anon}gru_train_bwd_f32_kernel<8, 4>({anon}BwdArgs)": "fused_gru_train_bwd_f32",
+        f"void {anon}gru_train_dwr_f32_kernel({anon}DwrArgs)": "fused_gru_train_dwr_f32",
+        f"void {anon}gru_train_fwd_kernel<32>({anon}FwdArgs)": "fused_gru_train_fwd"}
+    for sym, name in symbols.items():
+        assert kernel_name(sym) == name, sym
+    assert set(symbols.values()) <= set(port.kernel_launches())
+
+
+def test_the_f32_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
+    """On CPU tensors the f32 wrappers raise instead of computing; a dtype
+    neither kernel takes is named."""
+    z3, z = torch.zeros(1, 2, 3 * U), torch.zeros(2, U)
+    y = torch.zeros(1, 2, U)
+    w = torch.zeros(U, 3 * U)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ft.gru_train_fwd_cuda(z3, z, w, torch.zeros(3 * U))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ft.gru_train_bwd_cuda(z3, z3, y, y, z, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ft.gru_train_dwr_cuda(z, y, z3, y)
+    with pytest.raises(ValueError, match="bfloat16 or float32 operands, got torch.float16"):
+        ft.gru_train_fwd_cuda(z3.half(), z.half(), w.half(), torch.zeros(3 * U))

@@ -220,7 +220,54 @@ def test_fused_time_major_sequence_matches_jax_with_gradients():
         got = getattr(tcell, name).grad.numpy()
         assert rel_err(got, np.asarray(getattr(jgrads, name))) < 2e-2, name
     # on the CPU the default route is the plain loop, as in the JAX package off the TPU
-    assert not tgru._use_fused_train(tcell, None)
+    assert not tgru.fused_train_route(tcell, torch.bfloat16, "cpu")
+
+
+@pytest.mark.parametrize("cd,device,fused,want", [
+    (torch.float32, "cuda", None, True),        # the f32 kernels, on the card only
+    (torch.float32, "cuda", False, False),      # fused=False: the plain loop
+    (torch.float32, "cpu", None, False),        # the JAX route on the CPU
+    (torch.float32, "cpu", True, False),        # ... even when asked: JAX routes only bf16
+    (torch.bfloat16, "cuda", None, True),       # bf16 unchanged
+    (torch.bfloat16, "cpu", None, False),
+    (torch.bfloat16, "cpu", True, True),        # the kernels' plain versions
+    (torch.float32, "cuda", True, True),
+], ids=["f32-cuda", "f32-cuda-off", "f32-cpu", "f32-cpu-asked", "bf16-cuda", "bf16-cpu",
+        "bf16-cpu-asked", "f32-cuda-asked"])
+def test_fused_train_route_by_device_and_dtype(cd, device, fused, want):
+    """The one predicate of the time-major route, asked with a device type
+    and a compute dtype (the parameters stay on the CPU)."""
+    cell = tgru.GRUCellParams(kernel=torch.zeros(8, 96), recurrent_kernel=torch.zeros(32, 96),
+                              bias=torch.zeros(2, 96))
+    assert tgru.fused_train_route(cell, cd, device, fused) is want
+    # a width neither kernel pair takes stays on the plain loop by default
+    odd = tgru.GRUCellParams(kernel=torch.zeros(8, 300), recurrent_kernel=torch.zeros(100, 300),
+                             bias=torch.zeros(2, 300))
+    assert not tgru.fused_train_route(odd, cd, device)
+
+
+def test_f32_time_major_on_the_cpu_runs_the_plain_loop_even_when_fused_is_asked():
+    """At f32 on the CPU ``fused=True`` runs the plain loop under autograd
+    (no plain-version run of the kernels), bit-equal to ``fused=False``, as
+    the JAX package does."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    rng = np.random.default_rng(4)
+    e, u, t, b = 8, 16, 5, 3
+    arrs = {"kernel": rng.standard_normal((e, 3 * u)) * 0.3,
+            "recurrent_kernel": rng.standard_normal((u, 3 * u)) * 0.3,
+            "bias": rng.standard_normal((2, 3 * u)) * 0.3}
+    xs = torch.tensor(rng.standard_normal((t, b, e)), dtype=torch.float32)
+    out = []
+    for fused in (True, False):
+        cell = tgru.GRUCellParams(**{k: torch.tensor(v, dtype=torch.float32, requires_grad=True)
+                                     for k, v in arrs.items()})
+        plain = dict(ft.PLAIN_CALLS)
+        ys, _ = tgru.gru_sequence_time_major(cell, xs, torch.zeros(b, u), fused=fused)
+        ys.square().sum().backward()
+        assert ft.PLAIN_CALLS == plain
+        out.append([ys.detach()] + [getattr(cell, k).grad for k in arrs])
+    assert all(torch.equal(x, y) for x, y in zip(*out))
 
 
 # ---------------------------------------------------------------------------
@@ -480,3 +527,32 @@ def test_cli_train_gru_on_cpu_writes_a_gru_bin_that_generate_reads(tmp_path, cap
     # resumed from its last save (step 45, the last of the stream): a no-op
     assert cli.main(args) == 0
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {"resumed_complete": True}
+
+
+def test_cli_train_gru_f32_on_cpu_launches_nothing_and_matches_the_jax_trainer(tmp_path,
+                                                                               capsys):
+    """``train-gru --device cpu`` at its default f32 launches no kernel and
+    runs no plain version of the fused pair (the plain loop, as in the JAX
+    package), and the trainer under it takes the JAX trainer's steps."""
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    port.reset_kernel_launches()
+    plain = dict(ft.PLAIN_CALLS)
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text(tdata.synthetic_corpus(1000))
+    assert cli.main(["train-gru", "--corpus", str(corpus), "--epochs", "1", "--seq-length", "10",
+                     "--batch-size", "4", "--embed-dim", "8", "--units", "16",
+                     "--log-every", "1", "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert np.isfinite(summary["final_loss"]) and summary["steps"] > 0
+    assert not any(port.kernel_launches().values()) and ft.PLAIN_CALLS == plain
+    jp, tp = twins(TINY)
+    stream = random_stream(3)
+    got, hist = ttr.train(tp, list(stream), ttr.TrainConfig(log_every=1), device="cpu")
+    want, jhist = jtr.train(jcopy(jp), list(stream), jtr.TrainConfig(log_every=1))
+    assert not any(port.kernel_launches().values()) and ft.PLAIN_CALLS == plain
+    np.testing.assert_allclose([h["loss"] for h in hist], [h["loss"] for h in jhist], rtol=1e-5)
+    ga, wa = torch_arrays(got), jax_arrays(want)
+    for name in NAMES:
+        np.testing.assert_allclose(ga[name], wa[name], atol=2e-5, rtol=0, err_msg=name)
