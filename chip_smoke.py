@@ -63,7 +63,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      step's ``mh`` from the kernel's own ``h`` against the plain product,
      and the free-running ``ys``), backward and dWr as above, two launches
      bit-equal, each timed beside its 3xTF32 bound and cuDNN's f32 GRU (TF32
-     off), on the default f32 plan and every other plan the f32 kernels take;
+     off), on the default f32 plans and every other plan the f32 kernels
+     take (the forward's (ub, R), and the backward recurrence's own (rows,
+     units, R));
  12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
      B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
      step launches the forward, the backward recurrence and the dWr kernel
@@ -170,7 +172,10 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      mesh for 4 steps, each rank's fused pair launched once a step of each
      kernel on its 512 rows, losses and the params' checksum bit-equal
      across the ranks, each step's loss and the params after the steps
-     against one process's ``train`` on the same batches; (b) the same on a
+     against one process's ``train`` on the same batches, then the same 4
+     steps at f32 (``train-gru``'s default), each rank's f32 pair (the
+     redesigned backward on its 512 rows) launched once a step of each
+     kernel, against one process's f32 ``train``; (b) the same on a
      (1, 2) mesh for 3 steps, the recurrent kernel gathered for the kernels
      and each rank updating its column shards; (c) (a) interrupted after 2
      steps with a resume file a step and resumed, bit-equal to (a); (d)
@@ -452,6 +457,7 @@ MD_SPAWN_TIMEOUT_S = 600
 MD_RANK_ARGV = [sys.executable, os.path.abspath(__file__)]   # a rank: this script, --rank
 # training on a mesh (phase 22): phase 12's model, corpus and global batch
 MT_STEPS = {"dp": 4, "tp": 3}        # train steps of (a) and (b)
+MT_F32_STEPS = 4                     # (a) again at f32: the f32 pair on each rank's rows
 MT_RESUME_AFTER = 2                  # (c): steps before the interruption
 MT_TIMED_STEPS = 5                   # steps of a rank's timed window
 MT_VIT_IMAGES = 32                   # (d): phase 14's first images
@@ -1288,6 +1294,7 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
         dys = torch.randn((T, B, u), generator=g, device=dev) * 0.01
         del xs
         plan = ft.train_plan(B, u, sms, dtype=f32)
+        bplan = ft.train_plan(B, u, sms, dtype=f32, part="bwd")
         ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
         ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
         torch.cuda.synchronize()
@@ -1312,8 +1319,9 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
         before = dict(ft.LAUNCHES)
         got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         check(all(ft.LAUNCHES[k] - before[k] == (k in TRAIN_F32_KERNELS[1:])
-                  for k in ft.LAUNCHES),
-              f"{tag}: f32 backward B={B} launched {before} -> {ft.LAUNCHES}")
+                  for k in ft.LAUNCHES) and ft.LAST_PLAN["fused_gru_train_bwd_f32"] == bplan,
+              f"{tag}: f32 backward B={B} launched {before} -> {ft.LAUNCHES}, plan "
+              f"{ft.LAST_PLAN.get('fused_gru_train_bwd_f32')} for {bplan}")
         again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr)
         torch.cuda.synchronize()
         want = ft.gru_train_bwd_plain(mxs, pmhs, pys, dys, h0, wr)
@@ -1348,7 +1356,8 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
         rb_ms, rb_by = bound(tensor_bytes(mxs, pmhs, pys, dys, h0, wr, got[0], plane, got[2],
                                           got[3]), ops, "tf32x3")
         db_ms, db_by = bound(tensor_bytes(h0, pys, dmxs, plane, dwr_k), ops, "tf32x3")
-        log(f"[{tag}] f32 backward B={B} T={T} U={u}, plan {tuple(plan)}: max |diff| / max "
+        log(f"[{tag}] f32 backward B={B} T={T} U={u}, plan {tuple(bplan)} (rows, units, row "
+            f"tiles), dWr in {ft.LAST_PLAN['fused_gru_train_dwr_f32']} K partitions: max |diff| / max "
             f"|plain|: " + ", ".join(f"{n} {grel[n]:.3g}" for n in grel)
             + f" | two launches bit-equal | recurrence + dWr {bwd_ms:.3f} ms | recurrence "
               f"{rec_ms:.3f} ms = {rec_ms * 1e3 / T:.1f} us/step, plain {rec_plain_ms:.2f} ms, "
@@ -1358,37 +1367,45 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
               f"{db_ms:.3f} ms ({db_by}), torch.matmul f32 {dwr_lib_ms:.3f} ms | library: "
               f"torch.nn.GRU backward on cuDNN ({lib_dt}, TF32 off) {lib_bwd:.3f} ms")
 
-        # every other f32 plan, forced
+        # every other f32 plan, forced: the forward's (ub, R), then the backward's own cuts
         for other in ft.train_plans(B, u, sms, dtype=f32):
             if other == plan:
                 continue
             ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
             ys3, _ = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other)
-            g2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
-            a2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
             torch.cuda.synchronize()
             check(torch.equal(ys2, ys3) and ft.LAST_PLAN["fused_gru_train_fwd_f32"] == other,
                   f"{tag}: f32 forward B={B}, plan {tuple(other)}: two launches differ")
             o_mh, o_ys = fwd_check(ys2, mhs2, h0, pys, f"f32 forward B={B} T={T}, plan "
                                                        f"{tuple(other)}")
-            o_rel = bwd_check(g2, a2, want, f"f32 backward B={B} T={T}, plan {tuple(other)}")
             o_fwd = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other), n=3,
                             warmup=1)
+            log(f"[{tag}] f32 forward plan {tuple(other)} forced at B={B} T={T}: mh {o_mh:.3g}, "
+                f"ys {o_ys:.3g} | two launches bit-equal | {o_fwd:.3f} ms")
+            del ys2, mhs2, ys3
+        for other in ft.train_plans(B, u, sms, dtype=f32, part="bwd"):
+            if other == bplan:
+                continue
+            g2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            a2 = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=other)
+            torch.cuda.synchronize()
+            check(ft.LAST_PLAN["fused_gru_train_bwd_f32"] == other,
+                  f"{tag}: f32 backward B={B} ran {ft.LAST_PLAN} for {tuple(other)}")
+            o_rel = bwd_check(g2, a2, want, f"f32 backward B={B} T={T}, plan {tuple(other)}")
             o_rec = cuda_ms(lambda: ft.gru_train_bwd_rec_cuda(mxs, pmhs, pys, dys, h0, wr,
                                                               config=other), n=3, warmup=1)
-            log(f"[{tag}] f32 plan {tuple(other)} forced at B={B} T={T}: forward mh {o_mh:.3g}, "
-                f"ys {o_ys:.3g}, backward max rel " + ", ".join(f"{n} {v:.3g}"
-                                                                for n, v in o_rel.items())
-                + f" | two launches bit-equal | forward {o_fwd:.3f} ms, recurrence "
-                  f"{o_rec:.3f} ms")
-            del ys2, mhs2, ys3, g2, a2
+            log(f"[{tag}] f32 backward plan {tuple(other)} forced at B={B} T={T}: max rel "
+                + ", ".join(f"{n} {v:.3g}" for n, v in o_rel.items())
+                + f" | two launches bit-equal | recurrence {o_rec:.3f} ms")
+            del g2, a2
         out[(B, T)] = {
             "fwd": dict(max_abs_err=ys_max, ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fb_ms,
                         bound_by=fb_by, library_ms=lib_fwd, plan=tuple(plan)),
             "bwd": dict(max_abs_err=dmx_abs, ms=rec_ms, plain_ms=rec_plain_ms, bound_ms=rb_ms,
-                        bound_by=rb_by, library_ms=lib_bwd, plan=tuple(plan)),
+                        bound_by=rb_by, library_ms=lib_bwd, plan=tuple(bplan)),
             "dwr": dict(max_abs_err=dwr_abs, ms=dwr_ms, plain_ms=dwr_plain_ms, bound_ms=db_ms,
-                        bound_by=db_by, library_ms=dwr_lib_ms),
+                        bound_by=db_by, library_ms=dwr_lib_ms,
+                        plan=ft.LAST_PLAN["fused_gru_train_dwr_f32"]),
             "bwd_total_ms": bwd_ms}
         del got, want, ys, mhs, pys, pmhs, mxs, dys, dmxs, plane, dwr_k, dwr_p
         torch.cuda.empty_cache()
@@ -3919,8 +3936,8 @@ def mt_config(**kw):
 
     from ggml_experiments_tpu_torch.training import TrainConfig
 
-    return TrainConfig(epochs=1, log_every=1, learning_rate=MT_LR,
-                       compute_dtype=torch.bfloat16, **kw)
+    kw.setdefault("compute_dtype", torch.bfloat16)
+    return TrainConfig(epochs=1, log_every=1, learning_rate=MT_LR, **kw)
 
 
 def mt_leaves(params):
@@ -3944,7 +3961,7 @@ def mt_train(init, stream, mesh, dev, **kw):
         ft.PLAIN_CALLS[k] = 0
     params, hist = train(init, stream, mt_config(**kw), mesh=mesh, device=dev)
     torch.cuda.synchronize()
-    launches = {k: port.kernel_launches()[k] for k in TRAIN_KERNELS}
+    launches = {k: port.kernel_launches()[k] for k in TRAIN_KERNELS + TRAIN_F32_KERNELS}
     check(not any(ft.PLAIN_CALLS.values()), f"plain versions ran: {ft.PLAIN_CALLS}")
     return params, mt_leaves(params), [h["loss"] for h in hist], launches
 
@@ -4099,6 +4116,11 @@ def mt_train_rank(tag, work, rank, world, dev):
     # (a) data parallel
     _, dp_leaves, losses, launches = mt_train(init, stream, dp, dev)
     out["dp"] = {"losses": losses, "launches": launches, "checksum": mt_checksum(dp_leaves)}
+    # (a) again at f32, train-gru's default: the f32 pair on each rank's rows
+    _, f32_leaves, losses, launches = mt_train(init, stream[:MT_F32_STEPS], dp, dev,
+                                               compute_dtype=f32)
+    out["dp_f32"] = {"losses": losses, "launches": launches,
+                     "checksum": mt_checksum(f32_leaves)}
     # (b) tensor parallel: the params' column shards, the kernels on the gathered wr
     params, tp_leaves, losses, launches = mt_train(init, stream[:MT_STEPS["tp"]], tp, dev)
     wr = params.cell.recurrent_kernel
@@ -4106,8 +4128,9 @@ def mt_train_rank(tag, work, rank, world, dev):
           f"{tag}: the TP recurrent kernel is not a column shard")
     out["tp"] = {"losses": losses, "launches": launches, "checksum": mt_checksum(tp_leaves)}
     if rank == 0:
-        torch.save({"dp": dp_leaves, "tp": tp_leaves}, os.path.join(work, "mt_params.pt"))
-    del params, wr
+        torch.save({"dp": dp_leaves, "tp": tp_leaves, "dp_f32": f32_leaves},
+                   os.path.join(work, "mt_params.pt"))
+    del params, wr, f32_leaves
     # (c) interrupted after MT_RESUME_AFTER steps, resumed from the file
     ck = os.path.join(work, "mt_resume.gxt")
     mt_train(init, stream[:MT_RESUME_AFTER], dp, dev, resume_path=ck, save_every=1)
@@ -4187,8 +4210,9 @@ def train_mesh_phase(tag, dev, images, smi):
     np.savez(os.path.join(work, "mt_images.npz"), images=images[:MT_VIT_IMAGES])
     init, stream = mt_data(CharTokenizer(), dev)
     one = {}
-    for run, n in MT_STEPS.items():
-        params, hist = train(init, stream[:n], mt_config(), device=dev)
+    for run, n, cd in (("dp", MT_STEPS["dp"], bf16), ("tp", MT_STEPS["tp"], bf16),
+                       ("dp_f32", MT_F32_STEPS, f32)):
+        params, hist = train(init, stream[:n], mt_config(compute_dtype=cd), device=dev)
         one[run] = ([h["loss"] for h in hist], mt_leaves(params))
         del params
     torch.cuda.empty_cache()
@@ -4198,9 +4222,11 @@ def train_mesh_phase(tag, dev, images, smi):
     r0, r1 = md_result(work, "train", 0), md_result(work, "train", 1)
     saved = torch.load(os.path.join(work, "mt_params.pt"))
     n_local = TRAIN_SHAPES[0][0] // 2
-    for run, mesh in (("dp", (2, 1)), ("tp", (1, 2))):
+    for run, mesh in (("dp", (2, 1)), ("dp_f32", (2, 1)), ("tp", (1, 2))):
         a, b = r0[run], r1[run]
-        steps = MT_STEPS[run]
+        f32_run = run == "dp_f32"
+        steps = MT_F32_STEPS if f32_run else MT_STEPS[run]
+        names = TRAIN_F32_KERNELS if f32_run else TRAIN_KERNELS
         # every reading first, logged, then the checks: a failing run shows them all
         want_losses, want_leaves = one[run]
         rel = max(abs(x - w) / abs(w) for x, w in zip(a["losses"], want_losses))
@@ -4208,17 +4234,20 @@ def train_mesh_phase(tag, dev, images, smi):
         d_max = max(float(d.max()) for d in diffs)
         d_mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
         bit_equal = all(torch.equal(g, w) for g, w in zip(saved[run], want_leaves))
-        rows = n_local if run == "dp" else 2 * n_local
-        log(f"[{tag}] ({'a' if run == 'dp' else 'b'}) {run.upper()} {mesh} mesh, bf16, global "
+        rows = 2 * n_local if run == "tp" else n_local
+        label = {"dp": "(a) DP", "dp_f32": "(a) DP at f32", "tp": "(b) TP"}[run]
+        log(f"[{tag}] {label} {mesh} mesh, {'f32' if f32_run else 'bf16'}, global "
             f"B={2 * n_local} T={TRAIN_SHAPES[0][1]}, {steps} steps: launches a rank fwd/bwd/dWr "
-            f"{[a['launches'][k] for k in TRAIN_KERNELS]} + "
-            f"{[b['launches'][k] for k in TRAIN_KERNELS]} on {rows} rows each | losses rank 0 "
+            f"{[a['launches'][k] for k in names]} + "
+            f"{[b['launches'][k] for k in names]} on {rows} rows each | losses rank 0 "
             f"{a['losses']}, rank 1 {b['losses']}, params checksums {a['checksum']!r} "
             f"{b['checksum']!r} | against one process (rank 0's): loss relative {rel:.3g} "
             f"(limit {MT_LOSS_REL}), params max |diff| {d_max:.3g} (limit {MT_PARAM_MAX}), "
             f"mean {d_mean:.3g} (limit {MT_PARAM_MEAN}), bit-equal {bit_equal}")
         for r, x in ((0, a), (1, b)):
-            check(all(x["launches"][k] == steps for k in TRAIN_KERNELS),
+            check(all(x["launches"][k] == steps for k in names)
+                  and not any(x["launches"][k] for k in TRAIN_KERNELS + TRAIN_F32_KERNELS
+                              if k not in names),
                   f"{tag}: {run} rank {r} launched {x['launches']} in {steps} steps")
         check(a["losses"] == b["losses"] and a["checksum"] == b["checksum"],
               f"{tag}: {run}: the ranks' losses or params differ")
@@ -4227,6 +4256,8 @@ def train_mesh_phase(tag, dev, images, smi):
         check(d_max <= MT_PARAM_MAX and d_mean <= MT_PARAM_MEAN,
               f"{tag}: {run} params after {steps} steps differ from one process's by max "
               f"{d_max:.3g} (limit {MT_PARAM_MAX}), mean {d_mean:.3g} (limit {MT_PARAM_MEAN})")
+        if f32_run:
+            continue
         log(f"[{tag}] ({'a' if run == 'dp' else 'b'}) {smi}: two ranks share one card over gloo, "
             f"so these are overhead, not scaling | ms a step (window of {MT_TIMED_STEPS} steps, "
             f"no barrier inside): rank 0 {a['step_ms']:.3f}, rank 1 {b['step_ms']:.3f} | gradient "
@@ -4289,9 +4320,12 @@ def train_mesh_phase(tag, dev, images, smi):
         f"losses {n0['losses']} and params bit-equal to one process's | phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     tmp.cleanup()
-    return {k: {"dp": [r0["dp"]["launches"][k], r1["dp"]["launches"][k]],
-                "tp": [r0["tp"]["launches"][k], r1["tp"]["launches"][k]],
-                "nccl": n0["launches"][k]} for k in TRAIN_KERNELS}
+    launches = {k: {"dp": [r0["dp"]["launches"][k], r1["dp"]["launches"][k]],
+                    "tp": [r0["tp"]["launches"][k], r1["tp"]["launches"][k]],
+                    "nccl": n0["launches"][k]} for k in TRAIN_KERNELS}
+    launches.update({k: {"dp": [r0["dp_f32"]["launches"][k], r1["dp_f32"]["launches"][k]]}
+                     for k in TRAIN_F32_KERNELS})
+    return launches
 
 
 # ---- phases 23-25: the f32 fused block, AOT artifacts, the trace report ----------------

@@ -1,7 +1,8 @@
 // Fused GRU training sequence at float32: the time loop of the forward pass
 // in one cooperative launch, the time loop of the backward pass in another,
 // and the recurrent weight gradient as a GEMM launched after it. Every
-// product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8).
+// product runs on the tensor cores in 3xTF32: the forward on mma.sync
+// m16n8k8, the backward recurrence and dWr on wgmma m64nNk8.
 //
 //   gxt_gru_train_fwd_f32  replaces ggml_experiments_tpu/ops/fused_gru_train.py
 //                          `_fwd_core_call` (pallas_call :186; body `_fwd_kernel`
@@ -29,47 +30,76 @@
 // 3xTF32's 165 TFLOP/s (495 / 3), against 2.9-3.4 GB of operands (0.9-1.0
 // ms at 3.35 TB/s): the operations bound them.
 //
-// The grid is cut as in csrc/gru_train.cu: block (r, g) owns row tile r of
-// the batch and unit group g (ub = 8 or 16 hidden units: 32 fit only below
-// U = 590) for the whole
-// launch; ops/fused_gru_train.py `train_plan(..., dtype=float32)` picks
-// (ub, R); R x U/ub blocks are co-resident (cooperative launch), and the
-// blocks of one row tile meet at a release/acquire counter in global memory
-// once a step. What differs at f32:
-//   * Wr's slice is twice the bf16 one: 3ub columns x U (forward) or ub rows
-//     x 3U (backward), 195-198 KB at ub = 16, U = 1024. It stays resident in
-//     shared memory as f32 and is split into tf32 parts as it is read; the
-//     A operand (h, or dmh = [dmx[t][:, :2U] | plane[t]]) is read by each
-//     warp straight from L2 (16 bytes a lane and row, a k-step ahead), so no
-//     ring shares the shared memory. wgmma takes tf32 operands only K-major
-//     from shared memory and the slice's other layout would not fit twice:
-//     the products run on mma.sync.
-//   * A warp takes 16 or 32 rows (one or two m16 tiles; the backward 16, 32
-//     or 64), as many as keep all 8 warps busy: the bytes of h or dmh a warp
-//     has in flight set the pace (PERF.md). It takes them
-//     against all the block's columns;
-//     mma k-slots t and t + 4 of a 16-wide k-step map to k0 + 4t and
-//     k0 + 4t + 1 (the second product's to + 2, + 3), so one float4 a row
-//     gives a lane its fragments of both products, and the slice rows in
-//     shared memory have a stride of 16 mod 32 floats (no bank conflict).
-//   * dWr: M = U, N = 3U, K = T*B; a block of 16 warps owns a 128 x 192
-//     tile of dWr and walks all of K in (t, b) order through a 4-stage
-//     cp.async ring of 16 K rows (h_prev and dmh rows, both MN-major, as
-//     they lie in memory), the fragments read from shared memory with
-//     strides of 8 mod 32 floats.
-//   * Sums: the tensor cores' chained additions drift (on an H100 a chain of
-//     450 mma.sync strayed 1e-5 of the largest dWr entry from the plain f32
-//     product), so they sum short runs only, 8 k-steps of 16 in the
-//     recurrences and one stage of 16 K rows in dWr, each run added in f32
-//     (round to nearest) in order.
+// Forward: block (r, g) owns row tile r of the batch and unit group g (ub = 8
+// or 16 hidden units) for the whole launch; ops/fused_gru_train.py
+// `train_plan(..., dtype=float32)` picks (ub, R); R x U/ub blocks are
+// co-resident (cooperative launch), and the blocks of one row tile meet at a
+// release/acquire counter in global memory once a step. Its Wr slice (3ub
+// columns x U, 195 KB at ub = 16) stays resident as f32 and is split into
+// tf32 parts as read; each warp reads h straight from L2 (16 bytes a lane
+// and row, a 16-wide k-step ahead: mma k-slots t and t + 4 map to k0 + 4t
+// and k0 + 4t + 1, the second product's to + 2, + 3, so one float4 a row
+// gives a lane its fragments of both products; slice rows 16 mod 32 floats
+// apart, no bank conflict) into mma.sync, 16 or 32 rows a warp, as many as
+// keep all 8 warps busy.
+//
+// Backward recurrence: the carry product carry[rows, units] += dmh[rows,
+// 0:3U] . Wr[units, 0:3U]^T has both operands K-major as they lie in memory,
+// so it runs on tf32 wgmma from shared memory with nothing resident. Block
+// (r, g) owns row tile r (chunks of `rows`) and `units` hidden units
+// (`train_plan(..., dtype=float32, part="bwd")` picks (rows, units, R)). A
+// producer warp streams, for each 32-wide K stage, the chunk's dmh rows
+// ([dmx[t][:, :2U] | plane[t]] by two 3-D tensor maps) and the block's rows
+// of Wr's tf32 hi and lo parts (split once a call by the wrapper, in the
+// same K order) by TMA with the 128-byte swizzle into an mbarrier ring (up
+// to 16 stages of 32 K). Two consumer warpgroups read their dmh fragments
+// from the stage into registers, split into tf32 hi and lo as they are read
+// (one 8-wide k-step at a time, in two register sets), and run lo.hi +
+// hi.lo + hi.hi as wgmma with A in registers and B in shared memory: the
+// split costs no shared-memory pass, no barrier and no room in the ring.
+// Cuts of 128 or 256 rows give each warpgroup its own 64 or 128 rows; cuts
+// of 64 rows give the two warpgroups alternate K stages of the same rows,
+// whose sums meet in shared memory at the chunk's end (warpgroup 0's
+// first). The default is the widest unit group that fills the card (64
+// rows x 128 units at B = 1024): the operand intake, not the tensor cores,
+// sets the pace, and a wider product takes more from each dmh byte. The gate phase, the row-tile counter and db_rec's order (per
+// thread, per block in thread order, then over the row tiles in order after
+// one grid sync) are those of the forward's cut.
+//
+// dWr: M = U, N = 3U, K = T*B, both operands MN-major as they lie in memory
+// (rows of h_prev and of dmh are K), which tf32 wgmma does not read. A block
+// owns a 128 x 128 tile of dWr and a fixed share of K (the K partitions:
+// the wrapper picks their number so that tiles x partitions fill whole waves
+// of the card). A producer warp copies 32 K rows of both operands a stage by
+// TMA into a 5-stage ring. The consumers read each staged f32 of dmh once
+// and write its tf32 hi and lo parts K-major in the 128-byte-swizzled
+// layout wgmma reads (the transposing split stage, double-buffered), and
+// take h_prev's fragments straight into registers, split as they are read
+// (its boxes swizzled, and each k-step's slots mapped to K rows so that the
+// 32 lanes' reads hit 32 banks; the split of dmh follows the same map);
+// each warpgroup then runs its 64 x 128 of the tile with A in registers.
+// The partitions' sums land in a scratch array and a second kernel adds
+// them in partition order.
+//
+// Sums: the tensor cores' chained additions drift (on an H100 a chain of 450
+// mma.sync strayed 1e-5 of the largest dWr entry from the plain f32
+// product), so they sum short runs only, each run added in f32 (round to
+// nearest) in order: 8 k-steps of 16 in the forward, one 32-wide K stage (12
+// chained products) in the backward and dWr.
 // No atomics on values and no order that depends on timing: two launches
-// give the same bits (db_rec per thread, per block in thread order, then over
-// the row tiles in order after one grid sync).
-// Shapes: U a multiple of 8, any B >= 1; operands 16-byte aligned.
+// give the same bits.
+// Shapes: U a multiple of 8, any B >= 1; operands 16-byte aligned. The K
+// index space of the carry product is [dmx columns 0..2U) padded with zeros
+// to KA = 2U rounded up to 32, then the plane's U columns (so no TMA box of
+// 32 straddles the two); dWr's N index space is the same with KA = 2U
+// rounded up to 128 (its box width), and the padding's columns are not
+// written.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -79,27 +109,44 @@ namespace {
 using namespace gxt;
 
 constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;              // a recurrence block
-constexpr int kChunkRows = 128;                    // row tiles hold whole 128-row chunks
-constexpr int kRun = 8;                            // k-steps of 16 a tensor-core run sums
-constexpr int kDThreads = 512;                     // a dWr block: 16 warps of 32 x 48
-constexpr int kDM = 128, kDN = 192, kDK = 16;      // dWr block tile and K rows a stage
-constexpr int kDLdA = kDM + 8, kDLdB = kDN + 8;    // their row strides in shared memory
-constexpr int kDStageFloats = kDK * (kDLdA + kDLdB);
-constexpr int kDStages = 4;
+constexpr int kThreads = 32 * kWarps;              // a forward block; a backward block's consumers
+constexpr int kBwdThreads = kThreads + 32;         // and the backward's producer warp
+constexpr int kChunkRows = 128;                    // forward row tiles hold whole 128-row chunks
+constexpr int kRun = 8;                            // k-steps of 16 a forward tensor-core run sums
+constexpr int kKS = 32;                            // K of a backward / dWr stage: a 128-byte row
+constexpr int kMaxStages = 16;                     // the backward's ring, at most
+constexpr int kSmemLimit = 232448;                 // an H100 block's shared memory
+constexpr int kDThreads = kThreads + 32;           // a dWr block: two warpgroups and a producer warp
+constexpr int kDM = 128, kDN = 128;                // dWr block tile
+constexpr int kDRawBytes = (kDM + kDN) * kKS * 4;  // a stage of raw f32 operands
+constexpr int kDSplitBytes = 2 * kDN * kKS * 4;    // B hi, B lo, K-major
+constexpr int kDStages = 5;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-// row stride (floats) of a Wr slice row of K columns in shared memory
+// row stride (floats) of a forward Wr slice row of K columns in shared memory
 __host__ __device__ inline int ks_of(int K) { return round_up(K, 32) + 16; }
 
-size_t smem_bytes(int part, int ub, int U) {
-  if (part == 0) return (size_t)3 * ub * ks_of(U) * 4;
-  if (part == 1) {
-    // the slice, whose room then holds the threads' db_rec partial sums
-    const size_t w = (size_t)ub * ks_of(3 * U) * 4, red = (size_t)kThreads * 24 * 4;
-    return w > red ? w : red;
-  }
-  return (size_t)kDStages * kDStageFloats * 4;
+// the backward's ring: a stage holds the chunk's dmh rows and the block's Wr
+// hi and lo rows, 128 bytes each
+__host__ __device__ inline int bwd_stage_bytes(int rows, int units) {
+  return (rows + 2 * units) * 128;
+}
+// the second warpgroup's sums where the two take alternate stages (64-row cuts)
+__host__ __device__ inline int bwd_xchg_bytes(int rows, int units) {
+  return rows == 64 ? 128 * (units / 2) * 4 : 0;
+}
+inline int bwd_stages(int rows, int units) {
+  const int s = (kSmemLimit - 1024 - bwd_xchg_bytes(rows, units)) /
+                (bwd_stage_bytes(rows, units) + 16);
+  return s < kMaxStages ? s : kMaxStages;
+}
+
+// part 0 forward (x = ub), 1 backward recurrence (x = rows, y = units), 2 dWr
+size_t smem_bytes(int part, int x, int y, int U) {
+  if (part == 0) return (size_t)3 * x * ks_of(U) * 4;
+  if (part == 1)
+    return 1024 + (size_t)bwd_stages(x, y) * (bwd_stage_bytes(x, y) + 16) + bwd_xchg_bytes(x, y);
+  return 1024 + (size_t)kDStages * (kDRawBytes + 16) + 2 * kDSplitBytes;
 }
 
 __device__ __forceinline__ float subf(float a, float b) { return __fsub_rn(a, b); }
@@ -300,44 +347,96 @@ __global__ void __launch_bounds__(kThreads, 1) gru_train_fwd_f32_kernel(const __
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// TMA, barriers and the tf32 split of the wgmma kernels
+// ---------------------------------------------------------------------------
+
+// one TMA copy of a box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* tm, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// generic-proxy global writes and async-proxy (TMA) reads of them, ordered
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// a named barrier of `n` threads (0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// four f32 values as their tf32 hi and lo parts (split_tf32 of each)
+__device__ __forceinline__ void split4(float a, float b, float c, float d, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(a, h[0], l[0]);
+  split_tf32(b, h[1], l[1]);
+  split_tf32(c, h[2], l[2]);
+  split_tf32(d, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                   __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+}
+
 // ---------------------------------------------------------------------------
 // backward recurrence
 // ---------------------------------------------------------------------------
 
 struct BwdArgs {
-  const float* mxs;   // (T, B, 3U)
-  const float* mhs;   // (T, B, 3U)
-  const float* ys;    // (T, B, U)
-  const float* dys;   // (T, B, U)
-  const float* h0;    // (B, U)
-  const float* wr;    // (U, 3U)
-  float* dmxs;        // (T, B, 3U) out
-  float* plane;       // (T, B, U) out: da * r
-  float* dbrec;       // (3U) out
-  float* dbpart;      // (R, 3U) scratch: each row tile's db_rec
-  float* dh0;         // (B, U) out; the carry during the launch
-  unsigned* ctr;      // (R) zeros
-  int T, B, U, BR;
+  CUtensorMap tm_dmx;  // dmxs (T, B, 3U) seen as (T, B, 2U), box (32, rows, 1)
+  CUtensorMap tm_pl;   // plane (T, B, U), same box
+  CUtensorMap tm_wr;   // Wr's tf32 parts (2, U, KP): hi then lo, box (32, units, 1)
+  const float* mxs;    // (T, B, 3U)
+  const float* mhs;    // (T, B, 3U)
+  const float* ys;     // (T, B, U)
+  const float* dys;    // (T, B, U)
+  const float* h0;     // (B, U)
+  float* dmxs;         // (T, B, 3U) out
+  float* plane;        // (T, B, U) out: da * r
+  float* dbrec;        // (3U) out
+  float* dbpart;       // (R, 3U) scratch: each row tile's db_rec
+  float* dh0;          // (B, U) out; the carry during the launch
+  unsigned* ctr;       // (R) zeros
+  int T, B, U, BR, KA, KC, stages;
 };
 
-template <int UB, int MT>
-__global__ void __launch_bounds__(kThreads, 1) gru_train_bwd_f32_kernel(const __grid_constant__ BwdArgs a) {
-  constexpr int NT = UB / 8;
-  constexpr int QB = UB / 8;                 // 8-unit groups a row: threads per row in the gate phase
-  constexpr int SLOTS = kThreads / QB;       // rows the gate phase takes at once
-  extern __shared__ float4 smem_f4[];
-  float* wr_s = reinterpret_cast<float*>(smem_f4);   // UB rows of KS
-  const int T = a.T, B = a.B, U = a.U, G = 3 * U, KS = ks_of(G), K16 = round_up(G, 16);
+template <int RB, int UN>
+__global__ void __launch_bounds__(kBwdThreads, 1) gru_train_bwd_f32_kernel(const __grid_constant__ BwdArgs a) {
+  constexpr bool kSplitK = RB == 64;           // the warpgroups take alternate K stages
+  constexpr int MT = RB >= 256 ? 2 : 1;        // m64 tiles of a warpgroup
+  constexpr int WROWS = 64 * MT;               // rows of a warpgroup
+  constexpr int NA = UN / 2;                   // accumulator floats of an m64 tile
+  constexpr int QB = UN / 8;                   // 8-unit groups a row: threads per row in the gate phase
+  constexpr int SLOTS = kThreads / QB;         // rows the gate phase takes at once
+  constexpr int STAGE = (RB + 2 * UN) * 128;
+  static_assert(kSplitK ? WROWS == RB : 2 * WROWS == RB, "a cut of 64, 128 or 256 rows");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int S = a.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (size_t)S * STAGE);
+  uint64_t* empty = full + S;
+  float* xchg = reinterpret_cast<float*>(empty + S);   // (NA, 128) where kSplitK
+  const int T = a.T, B = a.B, U = a.U, G = 3 * U, KA = a.KA, KC = a.KC;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int NG = U / UB, g = blockIdx.x % NG, r = blockIdx.x / NG;
-  const int unit0 = g * UB;
+  const int NG = U / UN, g = blockIdx.x % NG, r = blockIdx.x / NG;
+  const int unit0 = g * UN;
   const int row0 = r * a.BR, row_end = min(B, row0 + a.BR);
+  const int nchunks = (row_end - row0 + RB - 1) / RB;
 
-  // slice row n is Wr's row unit0 + n over all 3U columns: the carry product's B
-  for (int i = tid; i < UB * KS; i += kThreads) {
-    const int n = i / KS, k = i % KS;
-    wr_s[i] = k < G ? a.wr[(size_t)(unit0 + n) * G + k] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kSplitK ? 4 : kWarps);
+    }
+    mbar_init_fence();
   }
   // db_rec partial sums of this thread's rows (its 8-unit group q), every step
   const int q = tid % QB, slot = tid / QB;
@@ -348,55 +447,59 @@ __global__ void __launch_bounds__(kThreads, 1) gru_train_bwd_f32_kernel(const __
     for (int ul = 0; ul < 8; ++ul) sb[gt][ul] = 0.f;
   __syncthreads();
 
+  int it = 0;  // ring position: the producer and the consumers walk the same sequence
   for (int t = T - 1; t >= 0; --t) {
     // ---- gate phase: 8 units (group q) of one row a thread
-    const float* mx = a.mxs + (size_t)t * B * G;
-    const float* mh = a.mhs + (size_t)t * B * G;
-    const float* hp = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * U;
-    const float* dy = a.dys + (size_t)t * B * U;
-    float* dmx = a.dmxs + (size_t)t * B * G;
-    float* pl = a.plane + (size_t)t * B * U;
-    for (int b = row0 + slot; b < row_end; b += SLOTS) {
-      const int u0 = unit0 + 8 * q;
-      const size_t og = (size_t)b * G + u0, ou = (size_t)b * U + u0;
-      float mxf[3][8], mhf[3][8], hpf[8], dyf[8], cf[8];
+    if (warp < kWarps) {
+      const float* mx = a.mxs + (size_t)t * B * G;
+      const float* mh = a.mhs + (size_t)t * B * G;
+      const float* hp = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * U;
+      const float* dy = a.dys + (size_t)t * B * U;
+      float* dmx = a.dmxs + (size_t)t * B * G;
+      float* pl = a.plane + (size_t)t * B * U;
+      for (int b = row0 + slot; b < row_end; b += SLOTS) {
+        const int u0 = unit0 + 8 * q;
+        const size_t og = (size_t)b * G + u0, ou = (size_t)b * U + u0;
+        float mxf[3][8], mhf[3][8], hpf[8], dyf[8], cf[8];
 #pragma unroll
-      for (int gt = 0; gt < 3; ++gt) {
-        ld8(mx + og + gt * U, mxf[gt], false);
-        ld8(mh + og + gt * U, mhf[gt], false);
+        for (int gt = 0; gt < 3; ++gt) {
+          ld8(mx + og + gt * U, mxf[gt], false);
+          ld8(mh + og + gt * U, mhf[gt], false);
+        }
+        ld8(hp + ou, hpf, false);
+        ld8(dy + ou, dyf, false);
+        if (t == T - 1) {
+#pragma unroll
+          for (int ul = 0; ul < 8; ++ul) cf[ul] = 0.f;
+        } else {
+          ld8(a.dh0 + ou, cf, true);
+        }
+        float ox[3][8], dah[8], cz[8];
+#pragma unroll
+        for (int ul = 0; ul < 8; ++ul) {
+          const float z = sigmoidf(addf(mxf[0][ul], mhf[0][ul]));
+          const float rr = sigmoidf(addf(mxf[1][ul], mhf[1][ul]));
+          const float mhh = mhf[2][ul];
+          const float gg = tanhf(addf(mxf[2][ul], mulf(rr, mhh)));
+          const float dh = addf(dyf[ul], cf[ul]);
+          const float dz = mulf(dh, subf(hpf[ul], gg));
+          const float da = mulf(mulf(dh, subf(1.f, z)), subf(1.f, mulf(gg, gg)));
+          const float dr = mulf(da, mhh);
+          const float daz = mulf(mulf(dz, z), subf(1.f, z));
+          const float dar = mulf(mulf(dr, rr), subf(1.f, rr));
+          ox[0][ul] = daz; ox[1][ul] = dar; ox[2][ul] = da;
+          dah[ul] = mulf(da, rr);
+          sb[0][ul] = addf(sb[0][ul], daz);
+          sb[1][ul] = addf(sb[1][ul], dar);
+          sb[2][ul] = addf(sb[2][ul], dah[ul]);
+          cz[ul] = mulf(dh, z);
+        }
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) st8(dmx + og + gt * U, ox[gt]);
+        st8(pl + ou, dah);
+        st8(a.dh0 + ou, cz);
       }
-      ld8(hp + ou, hpf, false);
-      ld8(dy + ou, dyf, false);
-      if (t == T - 1) {
-#pragma unroll
-        for (int ul = 0; ul < 8; ++ul) cf[ul] = 0.f;
-      } else {
-        ld8(a.dh0 + ou, cf, true);
-      }
-      float ox[3][8], dah[8], cz[8];
-#pragma unroll
-      for (int ul = 0; ul < 8; ++ul) {
-        const float z = sigmoidf(addf(mxf[0][ul], mhf[0][ul]));
-        const float rr = sigmoidf(addf(mxf[1][ul], mhf[1][ul]));
-        const float mhh = mhf[2][ul];
-        const float gg = tanhf(addf(mxf[2][ul], mulf(rr, mhh)));
-        const float dh = addf(dyf[ul], cf[ul]);
-        const float dz = mulf(dh, subf(hpf[ul], gg));
-        const float da = mulf(mulf(dh, subf(1.f, z)), subf(1.f, mulf(gg, gg)));
-        const float dr = mulf(da, mhh);
-        const float daz = mulf(mulf(dz, z), subf(1.f, z));
-        const float dar = mulf(mulf(dr, rr), subf(1.f, rr));
-        ox[0][ul] = daz; ox[1][ul] = dar; ox[2][ul] = da;
-        dah[ul] = mulf(da, rr);
-        sb[0][ul] = addf(sb[0][ul], daz);
-        sb[1][ul] = addf(sb[1][ul], dar);
-        sb[2][ul] = addf(sb[2][ul], dah[ul]);
-        cz[ul] = mulf(dh, z);
-      }
-#pragma unroll
-      for (int gt = 0; gt < 3; ++gt) st8(dmx + og + gt * U, ox[gt]);
-      st8(pl + ou, dah);
-      st8(a.dh0 + ou, cz);
+      fence_proxy_global();   // dmx and the plane are read next by TMA
     }
     __syncthreads();
     if (tid == 0) {
@@ -406,53 +509,130 @@ __global__ void __launch_bounds__(kThreads, 1) gru_train_bwd_f32_kernel(const __
     __syncthreads();
 
     // ---- carry[rows, own units] += dmh[rows, 0:3U] . Wr[own units]^T
-    for (int rb = row0 + 16 * MT * warp; rb < row_end; rb += 16 * MT * kWarps) {
-      float acc[MT][NT][4];
-      // dmh's columns 0..2U are dmx's, 2U..3U the plane's (2U is a multiple of
-      // 16, so no 16-byte read straddles the two)
-      rows_product<MT, NT>(acc, [&](int mt, int hf, int k) {
-        const int row = rb + 16 * mt + 8 * hf + gq;
-        if (row >= row_end || k >= G) return zero4();
-        const float* p = k < 2 * U ? dmx + (size_t)row * G + k : pl + (size_t)row * U + k - 2 * U;
-        return __ldcg(reinterpret_cast<const float4*>(p));
-      }, wr_s, KS, K16, lane);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = rb + 16 * mt + 8 * hf + gq;
-          if (row >= row_end) continue;
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            float2* cp = reinterpret_cast<float2*>(a.dh0 + (size_t)row * U + unit0 + 8 * j + 2 * tq);
-            const float2 v = __ldcg(cp);
-            *cp = make_float2(addf(v.x, acc[mt][j][2 * hf]), addf(v.y, acc[mt][j][2 * hf + 1]));
+    if (warp == kWarps) {
+      if (lane == 0) {
+        fence_proxy_global();
+        for (int c = 0; c < nchunks; ++c)
+          for (int kc = 0; kc < KC; ++kc, ++it) {
+            const int s = it % S, k = kKS * kc;
+            if (it >= S) mbar_wait(empty + s, (it / S - 1) & 1);
+            unsigned char* st = base + (size_t)s * STAGE;
+            mbar_expect(full + s, (RB + 2 * UN) * 128);
+            tma_load_3d(st, k < KA ? &a.tm_dmx : &a.tm_pl, k < KA ? k : k - KA, row0 + c * RB, t,
+                        full + s);
+            tma_load_3d(st + RB * 128, &a.tm_wr, k, unit0, 0, full + s);
+            tma_load_3d(st + (RB + UN) * 128, &a.tm_wr, k, unit0, 1, full + s);
           }
+      }
+    } else {
+      const int wg = warp >> 2, wt = tid & 127;
+      // the lane's rows of the stage's dmh tile (K-major, 128-byte swizzle):
+      // 16 (warp % 4) + g (+ 8) of each of the warpgroup's m64 tiles; with
+      // that swizzle the 32 lanes' 4-byte reads of a fragment hit 32 banks
+      const int arow = (kSplitK ? 0 : wg * WROWS) + 16 * (warp & 3) + gq;
+      for (int c = 0; c < nchunks; ++c) {
+        float tot[MT][NA], acc[MT][NA];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < NA; ++i) tot[mt][i] = 0.f;
+        for (int kc = 0; kc < KC; ++kc, ++it) {
+          if (kSplitK && (it & 1) != wg) continue;
+          const int s = it % S;
+          mbar_wait(full + s, (it / S) & 1);
+          const unsigned char* st = base + (size_t)s * STAGE;
+          // dmh's fragments, split into tf32 hi and lo as they are read, one
+          // k-step at a time into two sets of registers: a set is written
+          // again only once the products of two k-steps back are done
+          const uint32_t b_hi = smem_u32(st + RB * 128), b_lo = b_hi + UN * 128;
+          uint32_t ah[2][MT][4], al[2][MT][4];
+#pragma unroll
+          for (int ks = 0; ks < kKS / 8; ++ks) {
+            const int f = ks & 1;
+            if (ks >= 2) wg_wait<1>();
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = arow + 64 * mt + 8 * (e & 1), k = 8 * ks + tq + 4 * (e >> 1);
+                split_tf32(*reinterpret_cast<const float*>(st + swz4(row, k)), ah[f][mt][e],
+                           al[f][mt][e]);
+              }
+            wg_fence();
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              wgmma_tf32_rs<UN>(acc[mt], al[f][mt], desc_k(b_hi + 32 * ks), ks > 0);
+              wgmma_tf32_rs<UN>(acc[mt], ah[f][mt], desc_k(b_lo + 32 * ks), 1);
+              wgmma_tf32_rs<UN>(acc[mt], ah[f][mt], desc_k(b_hi + 32 * ks), 1);
+            }
+            wg_commit();
+          }
+          wg_wait<0>();
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) wg_pin(acc[mt]);
+          if (lane == 0) mbar_arrive(empty + s);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < NA; ++i) tot[mt][i] = addf(tot[mt][i], acc[mt][i]);
         }
+        if constexpr (kSplitK) {
+          // warpgroup 0's stages' sums, then warpgroup 1's
+          if (wg == 1)
+#pragma unroll
+            for (int i = 0; i < NA; ++i) xchg[i * 128 + wt] = tot[0][i];
+          bar_sync(3, kThreads);
+          if (wg == 0)
+#pragma unroll
+            for (int i = 0; i < NA; ++i) tot[0][i] = addf(tot[0][i], xchg[i * 128 + wt]);
+          bar_sync(3, kThreads);
+          if (wg == 1) continue;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = row0 + c * RB + (kSplitK ? 0 : wg * WROWS) + 64 * mt +
+                            16 * (warp & 3) + gq + 8 * hf;
+            if (row >= row_end) continue;
+#pragma unroll
+            for (int j = 0; j < UN / 8; ++j) {
+              float2* cp = reinterpret_cast<float2*>(a.dh0 + (size_t)row * U + unit0 + 8 * j +
+                                                     2 * tq);
+              const float2 v = __ldcg(cp);
+              *cp = make_float2(addf(v.x, tot[mt][4 * j + 2 * hf]),
+                                addf(v.y, tot[mt][4 * j + 2 * hf + 1]));
+            }
+          }
+      }
     }
     __syncthreads();  // the gate phase of the next step reads the carry
   }
 
   // db_rec: the threads' partial sums in thread order, then the row tiles in order
-  float* red = wr_s;  // (kThreads, 24)
+  float* red = reinterpret_cast<float*>(base);  // (kThreads, 24)
+  if (warp < kWarps) {
 #pragma unroll
-  for (int gt = 0; gt < 3; ++gt)
+    for (int gt = 0; gt < 3; ++gt)
 #pragma unroll
-    for (int ul = 0; ul < 8; ++ul) red[tid * 24 + gt * 8 + ul] = sb[gt][ul];
+      for (int ul = 0; ul < 8; ++ul) red[tid * 24 + gt * 8 + ul] = sb[gt][ul];
+  }
   __syncthreads();
-  if (tid < 3 * UB) {
-    const int gt = tid / UB, ul = tid % UB;
+  for (int i = tid; i < 3 * UN; i += kBwdThreads) {
+    const int gt = i / UN, ul = i % UN;
     float s = 0.f;
-    for (int i = ul / 8; i < kThreads; i += QB) s = addf(s, red[i * 24 + gt * 8 + ul % 8]);
+    for (int j = ul / 8; j < kThreads; j += QB) s = addf(s, red[j * 24 + gt * 8 + ul % 8]);
     a.dbpart[(size_t)r * G + gt * U + unit0 + ul] = s;
   }
   cg::this_grid().sync();
-  if (r == 0 && tid < 3 * UB) {
-    const int col = (tid / UB) * U + unit0 + tid % UB;
+  if (r == 0) {
     const int R = gridDim.x / NG;
-    float s = 0.f;
-    for (int i = 0; i < R; ++i) s = addf(s, __ldcg(a.dbpart + (size_t)i * G + col));
-    a.dbrec[col] = s;
+    for (int i = tid; i < 3 * UN; i += kBwdThreads) {
+      const int col = (i / UN) * U + unit0 + i % UN;
+      float s = 0.f;
+      for (int j = 0; j < R; ++j) s = addf(s, __ldcg(a.dbpart + (size_t)j * G + col));
+      a.dbrec[col] = s;
+    }
   }
 }
 
@@ -461,129 +641,183 @@ __global__ void __launch_bounds__(kThreads, 1) gru_train_bwd_f32_kernel(const __
 // ---------------------------------------------------------------------------
 
 struct DwrArgs {
-  const float* h0;     // (B, U)
-  const float* ys;     // (T, B, U)
-  const float* dmxs;   // (T, B, 3U)
-  const float* plane;  // (T, B, U)
-  float* dwr;          // (U, 3U) out
-  int T, B, U;
+  CUtensorMap tm_h0;   // h0 as (1, B, U), box (32, 32, 1), 128-byte swizzle
+  CUtensorMap tm_ys;   // ys (T, B, U), same box
+  CUtensorMap tm_dmx;  // dmxs (T, B, 3U) seen as (T, B, 2U), box (128, 32, 1), no swizzle
+  CUtensorMap tm_pl;   // plane (T, B, U), same box
+  float* out;          // (P, U, 3U): each K partition's sums (dWr itself where P = 1)
+  int T, B, U, KA, P;
 };
 
+// K row of a stage (0..31) that k-slot s of k-step ks holds: 8 ks + 2 (s % 4)
+// + s / 4. A lane's A fragment (slots q and q + 4 of rows g, g + 8) then reads
+// rows 8 ks + 2q (+1), whose swizzle spreads the 32 lanes over 32 banks.
+__device__ __forceinline__ int dwr_krow(int ks, int s) { return 8 * ks + 2 * (s & 3) + (s >> 2); }
+
+// K is walked in stages of 32 rows: stage st is rows 32 (st % nb).. of step
+// t = st / nb (nb = ceil(B / 32), rows past B read as zeros); partition p
+// takes stages [p NS / P, (p + 1) NS / P) of the NS = T nb.
 __global__ void __launch_bounds__(kDThreads, 1) gru_train_dwr_f32_kernel(const __grid_constant__ DwrArgs a) {
-  extern __shared__ float4 smem_f4[];
-  float* ring = reinterpret_cast<float*>(smem_f4);  // kDStages x (A: kDK x kDLdA, B: kDK x kDLdB)
-  const int B = a.B, U = a.U, G = 3 * U;
-  const long long K = (long long)a.T * B;
-  const int nk = (int)((K + kDK - 1) / kDK);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  // kDStages x (A: 4 swizzled boxes of 32 K rows x 32 columns, B: 32 x 128)
+  unsigned char* raw = base;
+  unsigned char* split = raw + kDStages * kDRawBytes;      // 2 x (B hi, B lo)
+  uint64_t* full = reinterpret_cast<uint64_t*>(split + 2 * kDSplitBytes);
+  uint64_t* empty = full + kDStages;
+  const int B = a.B, U = a.U, G = 3 * U, KA = a.KA;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int n0 = blockIdx.x * kDN, m0 = blockIdx.y * kDM;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 48;   // the warp's 32 x 48 of the tile
-  constexpr int kChunks = (kDM + kDN) / 4;                  // 16-byte copies a K row
+  const int n0 = blockIdx.x * kDN, m0 = blockIdx.y * kDM, p = blockIdx.z;
+  const int nb = (B + kKS - 1) / kKS;
+  const long long ns = (long long)a.T * nb;
+  const int st0 = (int)(ns * p / a.P), nst = (int)(ns * (p + 1) / a.P) - st0;
 
-  // K rows kc*kDK.. of h_prev (columns m0..) and dmh (columns n0..) into stage s;
-  // rows past K and columns past U / 3U are zeros
-  auto load = [&](int kc, int s) {
-    float* as = ring + (size_t)s * kDStageFloats;
-    float* bs = as + kDK * kDLdA;
-    for (int c = tid; c < kDK * kChunks; c += kDThreads) {
-      const int i = c / kChunks, col = 4 * (c % kChunks);
-      const long long kk = (long long)kc * kDK + i;
-      const bool in = kk < K;
-      const int t = in ? (int)(kk / B) : 0, b = in ? (int)(kk % B) : 0;
-      const float* src = a.h0;
-      int bytes = 0;
-      float* dst;
-      if (col < kDM) {
-        const int m = m0 + col;
-        dst = as + i * kDLdA + col;
-        if (in && m < U) {
-          src = (t == 0 ? a.h0 + (size_t)b * U : a.ys + ((size_t)(t - 1) * B + b) * U) + m;
-          bytes = 16;
-        }
-      } else {
-        const int n = n0 + col - kDM;
-        dst = bs + i * kDLdB + col - kDM;
-        if (in && n < G) {
-          src = n < 2 * U ? a.dmxs + ((size_t)t * B + b) * G + n
-                          : a.plane + ((size_t)t * B + b) * U + n - 2 * U;
-          bytes = 16;
-        }
-      }
-      cp_async16(dst, src, bytes);
+  if (tid == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
     }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kDStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
+    mbar_init_fence();
   }
-  // each stage's products are summed on the tensor cores (six chained
+  __syncthreads();
+
+  if (warp == kWarps) {
+    if (lane == 0) {
+      // A boxes wholly past U are not copied: they feed only rows not written
+      const int boxes = min(kDM / 32, (U - m0 + 31) / 32);
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % kDStages, st = st0 + i, t = st / nb, b0 = (st % nb) * kKS;
+        if (i >= kDStages) mbar_wait(empty + s, (i / kDStages - 1) & 1);
+        unsigned char* buf = raw + (size_t)s * kDRawBytes;
+        mbar_expect(full + s, (boxes * 32 + kDN) * kKS * 4);
+        for (int j = 0; j < boxes; ++j)
+          tma_load_3d(buf + j * 32 * kKS * 4, t == 0 ? &a.tm_h0 : &a.tm_ys, m0 + 32 * j, b0,
+                      t == 0 ? 0 : t - 1, full + s);
+        tma_load_3d(buf + kDM * kKS * 4, n0 < KA ? &a.tm_dmx : &a.tm_pl, n0 < KA ? n0 : n0 - KA,
+                    b0, t, full + s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  // the lane's A rows (columns of h_prev) in the warpgroup's 64: their box
+  // and column there
+  const int am = 64 * wg + 16 * (warp & 3) + gq;
+  // each stage's products are summed on the tensor cores (12 chained
   // additions), then added into tot in f32, in K order
-  float tot[2][6][4];
+  float tot[64], acc[64];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % kDStages;
+    mbar_wait(full + s, (i / kDStages) & 1);
+    const unsigned char* ra = raw + (size_t)s * kDRawBytes;
+    const float* rb = reinterpret_cast<const float*>(ra + kDM * kKS * 4);   // [32][128]
+    if (i > 0) {
+      // the products of stage i - 1, done: into the totals
+      wg_wait<0>();
+      wg_pin(acc);
 #pragma unroll
-    for (int j = 0; j < 6; ++j) tot[mt][j][0] = tot[mt][j][1] = tot[mt][j][2] = tot[mt][j][3] = 0.f;
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kDStages - 2>();
-    __syncthreads();   // stage kc is in; every warp is done with stage kc - 1
-    if (kc + kDStages - 1 < nk) load(kc + kDStages - 1, (kc + kDStages - 1) % kDStages);
-    cp_async_commit();
-    const float* as = ring + (size_t)(kc % kDStages) * kDStageFloats;
-    const float* bs = as + kDK * kDLdA;
-    float acc[2][6][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < kDK; k0 += 8) {
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* ap = as + (k0 + tq) * kDLdA + wm + 16 * mt + gq;
-        split_tf32(ap[0], ah[mt][0], al[mt][0]);
-        split_tf32(ap[8], ah[mt][1], al[mt][1]);
-        split_tf32(ap[4 * kDLdA], ah[mt][2], al[mt][2]);
-        split_tf32(ap[4 * kDLdA + 8], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const float* bp = bs + (k0 + tq) * kDLdB + wn + 8 * j + gq;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(bp[0], bh0, bl0);
-        split_tf32(bp[4 * kDLdB], bh1, bl1);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_tf32x<true>(acc[mt][j], ah[mt], al[mt], bh0, bh1, bl0, bl1);
-      }
+      for (int e = 0; e < 64; ++e) tot[e] = addf(tot[e], acc[e]);
     }
+    unsigned char* sp = split + (size_t)(i & 1) * kDSplitBytes;
+    // B's transposing split: a thread takes the 4 K rows of one column that
+    // fill 4 consecutive k-slots (16 bytes) of its row of the K-major tile and
+    // writes their hi and lo parts; the lanes of a warp take 32 consecutive
+    // columns
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < 4; ++j) {
+      const int qd = j * kThreads + tid, n = qd & 127, kq = qd >> 7;
+      const float* src = rb + n;
+      float4 hi, lo;
+      split4(src[dwr_krow(kq >> 1, 4 * (kq & 1)) * 128], src[dwr_krow(kq >> 1, 4 * (kq & 1) + 1) * 128],
+             src[dwr_krow(kq >> 1, 4 * (kq & 1) + 2) * 128], src[dwr_krow(kq >> 1, 4 * (kq & 1) + 3) * 128],
+             hi, lo);
+      unsigned char* dst = sp + swz4(n, 4 * kq);
+      *reinterpret_cast<float4*>(dst) = hi;
+      *reinterpret_cast<float4*>(dst + kDN * kKS * 4) = lo;
+    }
+    fence_async_smem();
+    bar_sync(1, kThreads);   // the split of stage i is written; every product of i - 1 done
+    const uint32_t bh = smem_u32(sp), bl = bh + kDN * kKS * 4;
+    // A's fragments from the swizzled boxes, split into tf32 hi and lo as they
+    // are read, one k-step at a time into two sets of registers
+    uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int j = 0; j < 6; ++j)
+    for (int ks = 0; ks < kKS / 8; ++ks) {
+      const int f = ks & 1;
+      if (ks >= 2) wg_wait<1>();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) tot[mt][j][i] = addf(tot[mt][j][i], acc[mt][j][i]);
+      for (int e = 0; e < 4; ++e) {
+        const int m = am + 8 * (e & 1), k = dwr_krow(ks, tq + 4 * (e >> 1));
+        split_tf32(*reinterpret_cast<const float*>(ra + (m >> 5) * 32 * kKS * 4 + swz4(k, m & 31)),
+                   ah[f][e], al[f][e]);
+      }
+      wg_fence();
+      wgmma_tf32_rs<128>(acc, al[f], desc_k(bh + 32 * ks), ks > 0);
+      wgmma_tf32_rs<128>(acc, ah[f], desc_k(bl + 32 * ks), 1);
+      wgmma_tf32_rs<128>(acc, ah[f], desc_k(bh + 32 * ks), 1);
+      wg_commit();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);   // the stage's raw operands are read
   }
+  if (nst > 0) {
+    wg_wait<0>();
+    wg_pin(acc);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int e = 0; e < 64; ++e) tot[e] = addf(tot[e], acc[e]);
+  }
+  float* out = a.out + (size_t)p * U * G;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = m0 + wm + 16 * mt + 8 * hf + gq;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = m0 + 64 * wg + 16 * (warp & 3) + gq + 8 * hf;
+    if (m >= U) continue;
 #pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const int n = n0 + wn + 8 * j + 2 * tq;
-        if (m < U && n < G)
-          *reinterpret_cast<float2*>(a.dwr + (size_t)m * G + n) =
-              make_float2(tot[mt][j][2 * hf], tot[mt][j][2 * hf + 1]);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * tq;
+      const int col = n < 2 * U ? n : (n >= KA && n < KA + U ? 2 * U + n - KA : -1);
+      if (col >= 0)
+        *reinterpret_cast<float2*>(out + (size_t)m * G + col) =
+            make_float2(tot[4 * j + 2 * hf], tot[4 * j + 2 * hf + 1]);
     }
+  }
+}
+
+// dWr = the K partitions' sums added in partition order
+__global__ void gru_train_dwr_f32_reduce(const float4* __restrict__ part, float4* __restrict__ dwr,
+                                         int n4, int P) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += gridDim.x * blockDim.x) {
+    float4 s = part[i];
+    for (int p = 1; p < P; ++p) {
+      const float4 v = part[(size_t)p * n4 + i];
+      s = make_float4(addf(s.x, v.x), addf(s.y, v.y), addf(s.z, v.z), addf(s.w, v.w));
+    }
+    dwr[i] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+// an f32 array (d2, d1, d0 of every `ld`) as a 3-D tensor map read in (box0,
+// box1, 1) boxes; reads past the array give zeros
+int make_map(CUtensorMap* m, const void* ptr, int d0, int d1, int d2, int ld, int box0, int box1,
+             CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)ld * 4 * d1};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  const CUresult res = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+                          strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 template <typename Args>
 int launch(void (*kernel)(Args), const Args& a, dim3 grid, int threads, size_t smem, bool coop,
@@ -603,7 +837,7 @@ int launch(void (*kernel)(Args), const Args& a, dim3 grid, int threads, size_t s
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return (int)err;
     // every block must be resident at once, or a row tile's barrier never opens
-    if (per_sm * sms < (int)grid.x) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (per_sm * sms < (int)(grid.x * grid.y * grid.z)) return (int)cudaErrorCooperativeLaunchTooLarge;
     err = cudaLaunchCooperativeKernel((void*)kernel, grid, threads, kargs, smem,
                                       (cudaStream_t)stream);
   } else {
@@ -613,8 +847,9 @@ int launch(void (*kernel)(Args), const Args& a, dim3 grid, int threads, size_t s
   return (int)cudaGetLastError();
 }
 
-// rows a row tile holds (a whole number of 128-row chunks; 64 for a lone tile
-// of <= 64 rows): the bf16 kernels' cut, so that both forms share the plans
+// rows a forward row tile holds (a whole number of 128-row chunks; 64 for a
+// lone tile of <= 64 rows): the bf16 kernels' cut, so that both forms share
+// the forward's plans
 int tile_rows(int B, int R) {
   if (R == 1 && B <= 64) return 64;
   return round_up((B + R - 1) / R, kChunkRows);
@@ -627,14 +862,28 @@ int check_plan(int B, int U, int ub, int R) {
   return 0;
 }
 
+// the backward's cuts (rows, units); a row tile holds whole chunks of `rows`
+bool bwd_cut(int rows, int units) {
+  if (rows == 128) return units == 64;
+  if (rows == 256) return units == 32;
+  return rows == 64 && (units == 8 || units == 16 || units == 32 || units == 64 || units == 128);
+}
+int bwd_tile_rows(int B, int R, int rows) { return round_up((B + R - 1) / R, rows); }
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int RB, int UN>
+int launch_bwd(const BwdArgs& a, int grid, void* stream) {
+  return launch(gru_train_bwd_f32_kernel<RB, UN>, a, dim3(grid), kBwdThreads,
+                smem_bytes(1, RB, UN, a.U), true, stream);
+}
 
 }  // namespace
 
-// Bytes of dynamic shared memory a launch takes: part 0 forward, 1 backward
-// recurrence (at ub units a block), 2 the dWr GEMM.
-extern "C" long long gxt_gru_train_f32_smem(int part, int ub, int U) {
-  return (long long)smem_bytes(part, ub, U);
+// Bytes of dynamic shared memory a launch takes: part 0 forward (x = ub), 1
+// backward recurrence (x = rows, y = units of its cut), 2 the dWr GEMM.
+extern "C" long long gxt_gru_train_f32_smem(int part, int x, int y, int U) {
+  return (long long)smem_bytes(part, x, y, U);
 }
 
 extern "C" int gxt_gru_train_fwd_f32(const float* mxs, const float* h0, const float* wr,
@@ -650,60 +899,93 @@ extern "C" int gxt_gru_train_fwd_f32(const float* mxs, const float* h0, const fl
   a.ctr = static_cast<unsigned*>(ctr);
   a.T = T; a.B = B; a.U = U; a.BR = tile_rows(B, R);
   const int grid = R * (U / ub);
-  const size_t smem = smem_bytes(0, ub, U);
+  const size_t smem = smem_bytes(0, ub, 0, U);
   // the m16 tiles a warp takes at once: as many as keep all 8 warps busy, up
   // to 2 (the accumulators of 48 columns take the registers of more)
   const int mt = a.BR >= 256 ? 2 : 1;
   void (*kernel)(FwdArgs) =
       ub == 8 ? (mt == 2 ? gru_train_fwd_f32_kernel<8, 2> : gru_train_fwd_f32_kernel<8, 1>)
               : (mt == 2 ? gru_train_fwd_f32_kernel<16, 2> : gru_train_fwd_f32_kernel<16, 1>);
-  return launch(kernel, a, grid, kThreads, smem, true, stream);
+  return launch(kernel, a, dim3(grid), kThreads, smem, true, stream);
 }
 
-// `plane` (T, B, U) and `dbpart` (R, 3U) are scratch the launch fills; `ctr`
-// (R) must arrive zeroed.
+// `wrs` (2, U, KP) is Wr's tf32 hi and lo parts in the carry product's K
+// order (KP = KA + U rounded up to 32, zeros elsewhere); `plane` (T, B, U) and
+// `dbpart` (R, 3U) are scratch the launch fills; `ctr` (R) must arrive zeroed.
 extern "C" int gxt_gru_train_bwd_f32(const float* mxs, const float* mhs, const float* ys,
-                                     const float* dys, const float* h0, const float* wr,
+                                     const float* dys, const float* h0, const float* wrs,
                                      float* dmxs, float* plane, float* dbrec, float* dbpart,
-                                     float* dh0, void* ctr, int T, int B, int U, int ub, int R,
-                                     void* stream) {
+                                     float* dh0, void* ctr, int T, int B, int U, int rows,
+                                     int units, int R, void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  int code = check_plan(B, U, ub, R);
-  if (code) return code;
-  const void* ptrs[] = {mxs, mhs, ys, dys, h0, dmxs, plane, dh0};
+  if (U <= 0 || U % 8 || !bwd_cut(rows, units) || U % units || R < 1 ||
+      (R - 1) * bwd_tile_rows(B, R, rows) >= B)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {mxs, mhs, ys, dys, h0, wrs, dmxs, plane, dh0};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   BwdArgs a;
-  a.mxs = mxs; a.mhs = mhs; a.ys = ys; a.dys = dys; a.h0 = h0; a.wr = wr;
+  a.KA = round_up(2 * U, kKS);
+  a.KC = (a.KA + U + kKS - 1) / kKS;
+  const int KP = a.KC * kKS;
+  int code;
+  if ((code = make_map(&a.tm_dmx, dmxs, 2 * U, B, T, 3 * U, kKS, rows, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return code;
+  if ((code = make_map(&a.tm_pl, plane, U, B, T, U, kKS, rows, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return code;
+  if ((code = make_map(&a.tm_wr, wrs, KP, U, 2, KP, kKS, units, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return code;
+  a.mxs = mxs; a.mhs = mhs; a.ys = ys; a.dys = dys; a.h0 = h0;
   a.dmxs = dmxs; a.plane = plane; a.dbrec = dbrec; a.dbpart = dbpart; a.dh0 = dh0;
   a.ctr = static_cast<unsigned*>(ctr);
-  a.T = T; a.B = B; a.U = U; a.BR = tile_rows(B, R);
-  const int grid = R * (U / ub);
-  const size_t smem = smem_bytes(1, ub, U);
-  // the m16 tiles a warp takes at once: as many as keep all 8 warps busy, up
-  // to 4 (the carry product waits on the dmh bytes a warp has in flight)
-  const int mt = a.BR >= 512 ? 4 : a.BR >= 256 ? 2 : 1;
-  void (*kernel)(BwdArgs) =
-      ub == 8 ? (mt == 4 ? gru_train_bwd_f32_kernel<8, 4>
-                         : mt == 2 ? gru_train_bwd_f32_kernel<8, 2> : gru_train_bwd_f32_kernel<8, 1>)
-              : (mt == 4 ? gru_train_bwd_f32_kernel<16, 4>
-                         : mt == 2 ? gru_train_bwd_f32_kernel<16, 2> : gru_train_bwd_f32_kernel<16, 1>);
-  return launch(kernel, a, grid, kThreads, smem, true, stream);
+  a.T = T; a.B = B; a.U = U; a.BR = bwd_tile_rows(B, R, rows);
+  a.stages = bwd_stages(rows, units);
+  const int grid = R * (U / units);
+  if (rows == 128) return launch_bwd<128, 64>(a, grid, stream);
+  if (rows == 256) return launch_bwd<256, 32>(a, grid, stream);
+  switch (units) {
+    case 8: return launch_bwd<64, 8>(a, grid, stream);
+    case 16: return launch_bwd<64, 16>(a, grid, stream);
+    case 32: return launch_bwd<64, 32>(a, grid, stream);
+    case 64: return launch_bwd<64, 64>(a, grid, stream);
+    default: return launch_bwd<64, 128>(a, grid, stream);
+  }
 }
 
+// `part` (P, U, 3U) is scratch for the K partitions' sums (unused where P = 1)
 extern "C" int gxt_gru_train_dwr_f32(const float* h0, const float* ys, const float* dmxs,
-                                     const float* plane, float* dwr, int T, int B, int U,
-                                     void* stream) {
+                                     const float* plane, float* dwr, float* part, int T, int B,
+                                     int U, int P, void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (U <= 0 || U % 8) return (int)cudaErrorInvalidValue;
-  if (!aligned16(h0) || !aligned16(ys) || !aligned16(dmxs) || !aligned16(plane))
+  if (U <= 0 || U % 8 || P < 1 || (long long)P > (long long)T * ((B + kKS - 1) / kKS))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(h0) || !aligned16(ys) || !aligned16(dmxs) || !aligned16(plane) ||
+      !aligned16(dwr) || (P > 1 && !aligned16(part)))
     return (int)cudaErrorMisalignedAddress;
   DwrArgs a;
-  a.h0 = h0; a.ys = ys; a.dmxs = dmxs; a.plane = plane; a.dwr = dwr;
-  a.T = T; a.B = B; a.U = U;
-  const dim3 grid((3 * U + kDN - 1) / kDN, (U + kDM - 1) / kDM);
-  return launch(gru_train_dwr_f32_kernel, a, grid, kDThreads, smem_bytes(2, 0, U), false,
+  a.KA = round_up(2 * U, kDN);
+  int code;
+  const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if ((code = make_map(&a.tm_h0, h0, U, B, 1, U, 32, kKS, sw))) return code;
+  if ((code = make_map(&a.tm_ys, ys, U, B, T, U, 32, kKS, sw))) return code;
+  if ((code = make_map(&a.tm_dmx, dmxs, 2 * U, B, T, 3 * U, kDN, kKS, none))) return code;
+  if ((code = make_map(&a.tm_pl, plane, U, B, T, U, kDN, kKS, none))) return code;
+  a.out = P > 1 ? part : dwr;
+  a.T = T; a.B = B; a.U = U; a.P = P;
+  const dim3 grid((a.KA + U + kDN - 1) / kDN, (U + kDM - 1) / kDM, P);
+  code = launch(gru_train_dwr_f32_kernel, a, grid, kDThreads, smem_bytes(2, 0, 0, U), false,
                 stream);
+  if (code || P == 1) return code;
+  int n4 = 3 * U * U / 4;
+  const float4* src = reinterpret_cast<const float4*>(part);
+  float4* dst = reinterpret_cast<float4*>(dwr);
+  void* rargs[] = {&src, &dst, &n4, &P};
+  const int blocks = (n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024;
+  const cudaError_t err = cudaLaunchKernel((void*)gru_train_dwr_f32_reduce, dim3(blocks),
+                                           dim3(256), rargs, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gxt_error_string(int code) {

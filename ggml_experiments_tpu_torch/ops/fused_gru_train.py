@@ -14,8 +14,9 @@ On CUDA tensors the forward launches ``gxt_gru_train_fwd`` and the backward
 ``gxt_gru_train_bwd`` (the time loop) then ``gxt_gru_train_dwr`` (the
 recurrent weight gradient), or raise: at bf16 those of ``csrc/gru_train.cu``
 (``wgmma``), at f32 the ``_f32`` entry points of ``csrc/gru_train_f32.cu``
-(3xTF32 products on ``mma.sync``). On CPU tensors they run the plain
-PyTorch versions in this module, which round where the kernels round:
+(3xTF32 products: the forward on ``mma.sync``, the backward recurrence and
+dWr on tf32 ``wgmma``). On CPU tensors they run the plain PyTorch versions
+in this module, which round where the kernels round:
 
 * forward, per step: ``mh = h . wr + brec`` summed in f32, **rounded to the
   compute dtype and stored**; the gates use the rounded ``mh``; ``h' = z*h +
@@ -34,9 +35,12 @@ The kernels cut the work into blocks that each own a row tile of the batch
 and a group of ``ub`` hidden units; :func:`train_plan` picks the cut
 (:class:`TrainPlan`) for the compute dtype (the f32 Wr slice is twice the
 bf16 one, so fewer plans fit) and the wrappers take ``config=`` to force
-one. They take U a multiple of 8 with U / 8 blocks co-resident (U <= 1056
-on an H100) and any B >= 1 in one launch; another U raises ``ValueError``
-naming the shape. The backward's recurrence writes the third gate of dmh
+one. The f32 backward recurrence streams Wr instead of keeping a slice and
+has cuts of its own (:class:`BwdPlan`, ``train_plan(..., part="bwd")``);
+the f32 dWr GEMM splits K into :func:`dwr_partitions` partitions. They take
+U a multiple of 8 with U / 8 blocks co-resident (U <= 1056 on an H100) and
+any B >= 1 in one launch; another U raises ``ValueError`` naming the
+shape. The backward's recurrence writes the third gate of dmh
 (``da * r``, rounded) into a (T, B, U) plane; dmh's other two thirds are
 dmx's bits, so the dWr GEMM reads ``[dmx[..., :2U] | plane]`` and ``[h0;
 ys[:-1]]``. The plain versions take any shape, and
@@ -63,11 +67,20 @@ LAST_PLAN = {}
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to on an H100
 SMS = 132               # streaming multiprocessors of an H100 SXM
 UNIT_GROUPS = (8, 16, 32)
-F32_UNIT_GROUPS = (8, 16)   # an f32 slice of 32 units fits only below U = 590
+F32_UNIT_GROUPS = (8, 16)   # an f32 forward slice of 32 units fits only below U = 590
+# the f32 backward recurrence's cuts (rows, units) of a block: 128 or 256 rows
+# give each of its two warpgroups its own rows; 64 rows (small batches) give
+# them alternate K stages of the same rows
+F32_BWD_CUTS = ((128, 64), (256, 32), (64, 128), (64, 64), (64, 32), (64, 16), (64, 8))
+F32_BWD_STAGE_K = 32        # K of a ring stage: one 128-byte swizzle row of f32
+F32_BWD_MAX_STAGES = 16
+DWR_TILE = 128              # the f32 dWr GEMM's block tile (M and N)
+DWR_STAGE_ROWS = 32         # K rows of one of its stages
+DWR_MAX_PARTS = 16
 CHUNK_ROWS = 128        # rows of one TMA copy of the recurrences' A operand
 TILE_BYTES = CHUNK_ROWS * 128
 MAX_STAGES = 8
-F32_THREADS = 256       # threads of an f32 recurrence block
+F32_THREADS = 256       # threads of an f32 forward block, the backward's consumers
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -217,13 +230,21 @@ def _f32_stride(k: int) -> int:
     return _round_up(k, 32) + 16
 
 
+def _no_f32_bwd_slice(part: str, dtype: torch.dtype) -> None:
+    if dtype == torch.float32 and part == "bwd":
+        raise ValueError("the f32 backward keeps no Wr slice: its shared memory is "
+                         "f32_bwd_smem_bytes(rows, units)")
+
+
 def wr_bytes(part: str, ub: int, u: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of a block's resident Wr slice: the forward's 3ub gate
     columns over K = U, the backward's ub rows over K = 3U. bf16: 64-wide
     tiles (the backward's dmx columns padded to a multiple of 64, then the
-    plane's U); f32: rows of :func:`_f32_stride` floats."""
+    plane's U); f32 (the forward alone: the f32 backward streams Wr): rows
+    of :func:`_f32_stride` floats."""
+    _no_f32_bwd_slice(part, dtype)
     if dtype == torch.float32:
-        return 4 * (3 * ub * _f32_stride(u) if part == "fwd" else ub * _f32_stride(3 * u))
+        return 4 * 3 * ub * _f32_stride(u)
     if part == "fwd":
         return -(-u // 64) * 3 * ub * 128
     return -(-(2 * _round_up(u, 32) + u) // 64) * ub * 128
@@ -233,12 +254,12 @@ def smem_bytes(part: str, ub: int, u: int, stages: int,
                dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of a recurrence launch (``gxt_gru_train_smem``,
     ``gxt_gru_train_f32_smem``). bf16: the alignment slack, the Wr slice,
-    the ring of ``stages`` copies and its barriers. f32 (no ring: ``stages``
-    is 0): the slice, which the backward then reuses for its threads' db_rec
-    partial sums."""
+    the ring of ``stages`` copies and its barriers. f32 forward (no ring:
+    ``stages`` is 0): the slice. The f32 backward's is
+    :func:`f32_bwd_smem_bytes`."""
+    _no_f32_bwd_slice(part, dtype)
     if dtype == torch.float32:
-        w = wr_bytes(part, ub, u, dtype)
-        return w if part == "fwd" else max(w, F32_THREADS * 24 * 4)
+        return wr_bytes(part, ub, u, dtype)
     return 1024 + wr_bytes(part, ub, u) + stages * (TILE_BYTES + 16)
 
 
@@ -255,15 +276,126 @@ def ring_stages(part: str, ub: int, u: int, smem_limit: int = SMEM_LIMIT,
 
 def _fits(ub: int, u: int, smem_limit: int, dtype: torch.dtype) -> bool:
     if dtype == torch.float32:
-        return all(smem_bytes(p, ub, u, 0, dtype) <= smem_limit for p in ("fwd", "bwd"))
+        return smem_bytes("fwd", ub, u, 0, dtype) <= smem_limit
     return min(ring_stages(p, ub, u, smem_limit) for p in ("fwd", "bwd")) >= 2
 
 
+# ---------------------------------------------------------------------------
+# the f32 backward's cut and dWr's K partitions
+# ---------------------------------------------------------------------------
+
+class BwdPlan(NamedTuple):
+    """Block (r, g) of the f32 backward recurrence owns row tile r of
+    ``row_tiles`` (whole chunks of ``rows``) and the ``units`` hidden units
+    of group g: ``row_tiles * U / units`` blocks."""
+    rows: int
+    units: int
+    row_tiles: int
+
+
+def f32_bwd_ka(u: int) -> int:
+    """Where the plane's columns start in the carry product's K index space:
+    dmx's 2U columns padded with zeros to a multiple of the 32-wide stage."""
+    return _round_up(2 * u, F32_BWD_STAGE_K)
+
+
+def f32_bwd_kp(u: int) -> int:
+    """Columns of the split Wr operand: KA + U rounded up to a whole stage."""
+    return _round_up(f32_bwd_ka(u) + u, F32_BWD_STAGE_K)
+
+
+def f32_bwd_smem_bytes(rows: int, units: int, smem_limit: int = SMEM_LIMIT) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of a backward block of the cut
+    (``bwd_stages`` / ``smem_bytes(1, ...)`` of csrc/gru_train_f32.cu): the
+    alignment slack; each stage's dmh rows and the block's Wr hi and lo
+    rows, 128 bytes each, and its two barriers; where the warpgroups take
+    alternate stages (64 rows), the second one's sums."""
+    stage = (rows + 2 * units) * 128
+    xchg = 128 * (units // 2) * 4 if rows == 64 else 0
+    stages = min(F32_BWD_MAX_STAGES, (smem_limit - 1024 - xchg) // (stage + 16))
+    return stages, 1024 + stages * (stage + 16) + xchg
+
+
+def f32_bwd_tile_rows(b: int, r: int, rows: int) -> int:
+    """Rows of one backward row tile: whole chunks of the cut's rows."""
+    return _round_up(-(-b // r), rows)
+
+
+def f32_bwd_plans(b: int, u: int, sms: int = SMS,
+                  smem_limit: int = SMEM_LIMIT) -> List[BwdPlan]:
+    """Every cut the f32 backward recurrence takes at (B, U): ``units``
+    divides U, all blocks co-resident (one a multiprocessor), no empty row
+    tile, a ring of at least two stages."""
+    out = []
+    if b <= 0 or u <= 0 or u % 8:
+        return out
+    for rows, units in F32_BWD_CUTS:
+        if u % units or f32_bwd_smem_bytes(rows, units, smem_limit)[0] < 2:
+            continue
+        out += [BwdPlan(rows, units, r) for r in range(1, sms // (u // units) + 1)
+                if (r - 1) * f32_bwd_tile_rows(b, r, rows) < b]
+    return out
+
+
+def _bwd_plan_cost(plan: BwdPlan, b: int, u: int) -> Tuple[int, int, int]:
+    """More blocks first, then wider unit groups (each dmh fragment a
+    warpgroup splits feeds a wider product), then fewer bytes a block
+    streams a step (its chunks of dmh rows and its Wr rows, hi and lo,
+    again for each chunk): the order of ``tools/torch_kernel_bench.py
+    --only train_f32 --sweep`` on an H100 at U = 1024 (PERF.md)."""
+    chunks = f32_bwd_tile_rows(b, plan.row_tiles, plan.rows) // plan.rows
+    return (-plan.row_tiles * (u // plan.units), -plan.units,
+            chunks * (plan.rows + 2 * plan.units))
+
+
+def f32_bwd_weight(wr: torch.Tensor) -> torch.Tensor:
+    """Wr (U, 3U) as the f32 backward's B operand: (2, U, KP) f32, the tf32
+    hi parts then the lo parts (``tf32_split``, as ``split_tf32`` of
+    csrc/mma_common.cuh splits), each row in the carry product's K order:
+    dmx's 2U columns, zeros to :func:`f32_bwd_ka`, the plane's U columns,
+    zeros to :func:`f32_bwd_kp`. Made once a call."""
+    from ggml_experiments_tpu_torch.ops.fused_transformer_layer import tf32_split
+
+    u = wr.shape[0]
+    ka = f32_bwd_ka(u)
+    out = torch.zeros((2, u, f32_bwd_kp(u)), dtype=torch.float32, device=wr.device)
+    for i, part in enumerate(tf32_split(wr)):
+        out[i, :, :2 * u] = part[:, :2 * u]
+        out[i, :, ka:ka + u] = part[:, 2 * u:]
+    return out
+
+
+def dwr_stages(t_len: int, b: int) -> int:
+    """The f32 dWr GEMM's K stages: stage st holds rows 32 (st % nb).. of
+    step st // nb, nb = ceil(B / 32) (rows past B read as zeros)."""
+    return t_len * -(-b // DWR_STAGE_ROWS)
+
+
+def dwr_tiles(u: int) -> int:
+    """128 x 128 tiles of dWr in its N index space (dmx's 2U columns padded
+    to a multiple of 128, then the plane's U)."""
+    return -(-u // DWR_TILE) * -(-(_round_up(2 * u, DWR_TILE) + u) // DWR_TILE)
+
+
+def dwr_partitions(t_len: int, b: int, u: int, sms: int = SMS) -> int:
+    """How many K partitions the f32 dWr GEMM takes: the P (at most
+    DWR_MAX_PARTS and the stages) whose tiles x P blocks, one a
+    multiprocessor at a time, finish soonest, ceil(tiles P / sms) / P; the
+    fewest of those that tie."""
+    tiles = dwr_tiles(u)
+    top = max(1, min(DWR_MAX_PARTS, dwr_stages(t_len, b)))
+    return min(range(1, top + 1), key=lambda p: (-(-tiles * p // sms) / p, p))
+
+
 def train_plans(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
-                dtype: torch.dtype = torch.bfloat16) -> List[TrainPlan]:
+                dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> list:
     """Every plan the kernels of ``dtype`` take at (B, U): ``ub`` divides U,
     all blocks co-resident (one a multiprocessor), no empty row tile, both
-    passes in shared memory (bf16: with a ring of at least two stages)."""
+    passes in shared memory (bf16: with a ring of at least two stages). The
+    f32 backward recurrence (``part="bwd"``) has cuts of its own,
+    :func:`f32_bwd_plans`; elsewhere the backward takes the forward's plan."""
+    if dtype == torch.float32 and part == "bwd":
+        return f32_bwd_plans(b, u, sms, smem_limit)
     out = []
     if b <= 0 or u <= 0 or u % 8:
         return out
@@ -286,19 +418,21 @@ def _plan_cost(plan: TrainPlan, b: int, u: int) -> Tuple[int, int]:
 
 
 def train_plan(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
-               dtype: torch.dtype = torch.bfloat16) -> TrainPlan:
-    """The default plan at (B, U) for the kernels of ``dtype``; ValueError
+               dtype: torch.dtype = torch.bfloat16, part: str = "fwd"):
+    """The default plan at (B, U) for the kernels of ``dtype`` (at f32 with
+    ``part="bwd"``, the backward recurrence's :class:`BwdPlan`); ValueError
     when they take no plan."""
-    plans = train_plans(b, u, sms, smem_limit, dtype)
+    plans = train_plans(b, u, sms, smem_limit, dtype, part)
     if not plans:
         raise ValueError(f"fused_gru_train: no plan takes (B, U) = ({b}, {u}) on {sms} "
                          f"multiprocessors: U must be a multiple of 8 with U / 8 <= {sms}")
-    return min(plans, key=lambda p: _plan_cost(p, b, u))
+    cost = _bwd_plan_cost if isinstance(plans[0], BwdPlan) else _plan_cost
+    return min(plans, key=lambda p: cost(p, b, u))
 
 
 def kernels_take(u: int, sms: int = SMS, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the kernel pair of ``dtype`` takes width U at all (at some batch)."""
-    return bool(train_plans(1, u, sms, dtype=dtype))
+    return all(train_plans(1, u, sms, dtype=dtype, part=p) for p in ("fwd", "bwd"))
 
 
 # ---------------------------------------------------------------------------
@@ -345,24 +479,35 @@ def _resolve_plan(entry: str, part: str, config, t_len: int, b: int, u: int, dev
                   cd: torch.dtype = torch.bfloat16):
     """(plan, ring stages) for a launch: the default plan, or ``config`` if
     the kernels take it; the wrapper's shared-memory reckoning is held
-    against the kernel's."""
+    against the kernel's. The f32 backward's plan is a :class:`BwdPlan`."""
     sms, limit = _device_limits(dev)
-    plans = train_plans(b, u, sms, limit, cd)
+    plans = train_plans(b, u, sms, limit, cd, part)
     shape = f"(T, B, U) = ({t_len}, {b}, {u})"
     if not plans:
         raise ValueError(f"{entry}: the kernel takes U a multiple of 8 up to {8 * sms} on this "
                          f"device ({sms} multiprocessors), got {shape}")
-    plan = train_plan(b, u, sms, limit, cd) if config is None else TrainPlan(*config)
+    f32_bwd = cd == torch.float32 and part == "bwd"
+    if config is None:
+        plan = train_plan(b, u, sms, limit, cd, part)
+    else:
+        plan = BwdPlan(*config) if f32_bwd else TrainPlan(*config)
     if plan not in plans:
         raise ValueError(f"{entry}: plan {tuple(plan)} does not take {shape} on this device; "
                          f"it takes {[tuple(p) for p in plans]}")
-    stages = ring_stages(part, plan.ub, u, limit, cd)
     part_no = 0 if part == "fwd" else 1
-    if cd == torch.float32:
-        source, need = "gru_train_f32.cu", _lib_f32().gxt_gru_train_f32_smem(part_no, plan.ub, u)
+    if f32_bwd:
+        stages = 0
+        source = "gru_train_f32.cu"
+        need = _lib_f32().gxt_gru_train_f32_smem(1, plan.rows, plan.units, u)
+        want = f32_bwd_smem_bytes(plan.rows, plan.units)[1]
+    elif cd == torch.float32:
+        stages = 0
+        source, need = "gru_train_f32.cu", _lib_f32().gxt_gru_train_f32_smem(0, plan.ub, 0, u)
+        want = smem_bytes(part, plan.ub, u, stages, cd)
     else:
+        stages = ring_stages(part, plan.ub, u, limit, cd)
         source, need = "gru_train.cu", _lib().gxt_gru_train_smem(part_no, plan.ub, u, stages)
-    want = smem_bytes(part, plan.ub, u, stages, cd)
+        want = smem_bytes(part, plan.ub, u, stages, cd)
     if need != want:
         raise RuntimeError(f"{entry}: csrc/{source} takes {need} bytes of shared memory "
                            f"for {tuple(plan)} at U={u}, smem_bytes {want}")
@@ -394,11 +539,11 @@ def _lib_f32():
     lib.gxt_gru_train_fwd_f32.restype = i
     lib.gxt_gru_train_fwd_f32.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.gxt_gru_train_bwd_f32.restype = i
-    lib.gxt_gru_train_bwd_f32.argtypes = [p] * 12 + [i] * 5 + [p]
+    lib.gxt_gru_train_bwd_f32.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.gxt_gru_train_dwr_f32.restype = i
-    lib.gxt_gru_train_dwr_f32.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.gxt_gru_train_dwr_f32.argtypes = [p] * 6 + [i] * 4 + [p]
     lib.gxt_gru_train_f32_smem.restype = ctypes.c_longlong
-    lib.gxt_gru_train_f32_smem.argtypes = [i] * 3
+    lib.gxt_gru_train_f32_smem.argtypes = [i] * 4
     return lib
 
 
@@ -444,7 +589,8 @@ def gru_train_fwd_cuda(mxs, h0, wr, brec, config=None) -> Tuple[torch.Tensor, to
 def gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=None):
     """Launch the backward's time loop on operands in the compute dtype:
     (dmxs, plane in it; dbrec, dh0 f32), one launch, one count of
-    ``fused_gru_train_bwd`` (``_f32`` at f32)."""
+    ``fused_gru_train_bwd`` (``_f32`` at f32). ``config`` forces a plan:
+    ``(ub, row_tiles)`` at bf16, ``(rows, units, row_tiles)`` at f32."""
     from ggml_experiments_tpu_torch import _build
 
     cd = _compute_dtype("fused_gru_train_bwd", mxs)
@@ -468,17 +614,18 @@ def gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=None):
     dbpart = torch.empty((plan.row_tiles, g3), dtype=f32, device=dev)
     dh0 = torch.empty((b, u), dtype=f32, device=dev)
     ctr = torch.zeros((plan.row_tiles,), dtype=torch.int32, device=dev)
+    # the f32 kernel streams Wr's tf32 parts, split here once a call
+    wop = f32_bwd_weight(wr) if cd == torch.float32 else wr
     ptrs = (mxs.data_ptr(), mhs.data_ptr(), ys.data_ptr(), dys.data_ptr(), h0.data_ptr(),
-            wr.data_ptr(), dmxs.data_ptr(), plane.data_ptr(), dbrec.data_ptr(),
-            dbpart.data_ptr(), dh0.data_ptr(), ctr.data_ptr(), t_len, b, u, plan.ub,
-            plan.row_tiles)
+            wop.data_ptr(), dmxs.data_ptr(), plane.data_ptr(), dbrec.data_ptr(),
+            dbpart.data_ptr(), dh0.data_ptr(), ctr.data_ptr(), t_len, b, u)
     with torch.cuda.device(dev):
         if cd == torch.float32:
             lib = _lib_f32()
-            code = lib.gxt_gru_train_bwd_f32(*ptrs, _stream(dev))
+            code = lib.gxt_gru_train_bwd_f32(*ptrs, *plan, _stream(dev))
         else:
             lib = _lib()
-            code = lib.gxt_gru_train_bwd(*ptrs, stages, _stream(dev))
+            code = lib.gxt_gru_train_bwd(*ptrs, *plan, stages, _stream(dev))
     _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u}), plan {tuple(plan)}")
     LAUNCHES[entry] += 1
     return dmxs, plane, dbrec, dh0
@@ -505,15 +652,20 @@ def gru_train_dwr_cuda(h0, ys, dmxs, plane) -> torch.Tensor:
     if t_len == 0 or b == 0:
         return torch.zeros((u, g3), dtype=torch.float32, device=dev)
     dwr = torch.empty((u, g3), dtype=torch.float32, device=dev)
-    ptrs = (h0.data_ptr(), ys.data_ptr(), dmxs.data_ptr(), plane.data_ptr(), dwr.data_ptr(),
-            t_len, b, u, _stream(dev))
+    ptrs = (h0.data_ptr(), ys.data_ptr(), dmxs.data_ptr(), plane.data_ptr(), dwr.data_ptr())
     with torch.cuda.device(dev):
         if cd == torch.float32:
             lib = _lib_f32()
-            code = lib.gxt_gru_train_dwr_f32(*ptrs)
+            parts = dwr_partitions(t_len, b, u, _device_limits(dev)[0])
+            # the K partitions' sums, added in order by the launch's second kernel
+            scratch = torch.empty((parts, u, g3) if parts > 1 else (0,), dtype=torch.float32,
+                                  device=dev)
+            LAST_PLAN[entry] = parts
+            code = lib.gxt_gru_train_dwr_f32(*ptrs, scratch.data_ptr(), t_len, b, u, parts,
+                                             _stream(dev))
         else:
             lib = _lib()
-            code = lib.gxt_gru_train_dwr(*ptrs)
+            code = lib.gxt_gru_train_dwr(*ptrs, t_len, b, u, _stream(dev))
     _build.check(lib, code, f"{entry} (T, B, U) = ({t_len}, {b}, {u})")
     LAUNCHES[entry] += 1
     return dwr
@@ -603,7 +755,8 @@ def fused_gru_scan_plain(mxs, h0, wr, brec, compute_dtype=torch.bfloat16) -> tor
     return _FusedGRUScan.apply(mxs, h0, wr, brec, compute_dtype, True)
 
 
-__all__ = ["LAST_PLAN", "LAUNCHES", "PLAIN_CALLS", "TrainPlan", "fused_gru_scan",
+__all__ = ["BwdPlan", "LAST_PLAN", "LAUNCHES", "PLAIN_CALLS", "TrainPlan", "dwr_partitions",
+           "f32_bwd_weight", "fused_gru_scan",
            "fused_gru_scan_plain", "gru_train_bwd_cuda", "gru_train_bwd_plain",
            "gru_train_bwd_rec_cuda", "gru_train_bwd_rec_plain", "gru_train_dwr_cuda",
            "gru_train_dwr_plain", "gru_train_fwd_cuda", "gru_train_fwd_plain", "kernels_take",

@@ -50,6 +50,7 @@ KERNEL_PATTERNS = (
     (r"\bgru_train_fwd_f32_kernel\b", "fused_gru_train_fwd_f32"),
     (r"\bgru_train_bwd_f32_kernel\b", "fused_gru_train_bwd_f32"),
     (r"\bgru_train_dwr_f32_kernel\b", "fused_gru_train_dwr_f32"),
+    (r"\bgru_train_dwr_f32_reduce\b", "fused_gru_train_dwr_f32"),
     (r"\bflash_mha_kernel\b", "flash_mha"),
     (r"\blayer_ln_qkv_kernel\b", "transformer_ln_qkv"),
     (r"\blayer_attention_kernel\b", "transformer_attention"),

@@ -632,9 +632,10 @@ def test_train_kernels_name_the_shape_they_refuse(dev):
 F32_FWD_REL, F32_GRAD_REL = 1e-5, 1e-4
 
 
-def f32_pair_check(dev, t, b, u, config=None):
+def f32_pair_check(dev, t, b, u, config=None, bwd_config=None):
     """The f32 forward and backward (recurrence, then dWr) against their
-    plain versions on the same inputs, each launched twice and bit-equal."""
+    plain versions on the same inputs, each launched twice and bit-equal;
+    ``config`` forces the forward's plan, ``bwd_config`` the backward's."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     mxs, h0, wr, brec, dys = train_operands(dev, t, b, u, cd=torch.float32)
@@ -642,12 +643,14 @@ def f32_pair_check(dev, t, b, u, config=None):
     ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
     ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
     pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
-    got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=config)
-    again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=config)
+    got = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=bwd_config)
+    again = ft.gru_train_bwd_cuda(mxs, pmhs, pys, dys, h0, wr, config=bwd_config)
     torch.cuda.synchronize()
     assert ft.LAUNCHES == {k: v + 2 * (k in TRAIN_F32) for k, v in before.items()}
     if config is not None:
         assert ft.LAST_PLAN["fused_gru_train_fwd_f32"] == ft.TrainPlan(*config)
+    if bwd_config is not None:
+        assert ft.LAST_PLAN["fused_gru_train_bwd_f32"] == ft.BwdPlan(*bwd_config)
     assert ys.dtype == mhs.dtype == torch.float32
     assert torch.equal(ys, ys2) and torch.equal(mhs, mhs2)
     assert rel_max(ys, pys) <= F32_FWD_REL and rel_max(mhs, pmhs) <= F32_FWD_REL, (
@@ -666,20 +669,76 @@ def test_train_f32_pair_matches_plain_and_repeats_bit_equal(dev, t, b, u):
 
 @pytest.mark.parametrize("b", [1, 64, 1024, 1761])
 def test_train_f32_every_plan_matches_plain(dev, b):
-    """Each plan the f32 kernels take at U = 1024, forced."""
+    """Each plan the f32 kernels take at U = 1024, forced: the forward's
+    (ub, R), and the backward recurrence's own (rows, units, R)."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plans = ft.train_plans(b, 1024, sms, dtype=torch.float32)
-    assert ft.train_plan(b, 1024, sms, dtype=torch.float32) in plans and len(plans) >= 2
+    f32 = torch.float32
+    plans = ft.train_plans(b, 1024, sms, dtype=f32)
+    assert ft.train_plan(b, 1024, sms, dtype=f32) in plans and len(plans) >= 2
     for plan in plans:
         f32_pair_check(dev, 3, b, 1024, config=tuple(plan))
+    bwd = ft.train_plans(b, 1024, sms, dtype=f32, part="bwd")
+    assert ft.train_plan(b, 1024, sms, dtype=f32, part="bwd") in bwd and len(bwd) >= 2
+    for plan in bwd:
+        f32_bwd_check(dev, 3, b, 1024, tuple(plan))
 
 
-@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES + [(2, 200, 1024)])
+def f32_bwd_check(dev, t, b, u, config):
+    """The f32 backward recurrence on a forced plan against its plain
+    version, launched twice and bit-equal."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, dys = train_operands(dev, t, b, u, cd=torch.float32)
+    ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    got = ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=config)
+    again = ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=config)
+    torch.cuda.synchronize()
+    assert ft.LAST_PLAN["fused_gru_train_bwd_f32"] == ft.BwdPlan(*config)
+    want = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+    for name, g, a, w in zip(("dmxs", "plane", "dbrec", "dh0"), got, again, want):
+        assert torch.equal(g, a), f"{name}: two launches on the same inputs differ ({config})"
+        assert rel_max(g, w) <= F32_GRAD_REL, (name, config, rel_max(g, w))
+
+
+@pytest.mark.parametrize("b", [1, 65, 1000])
+def test_train_f32_ragged_batches_match_plain(dev, b):
+    """Batches off the backward's 64- and 128-row chunks and dWr's 32-row
+    stages, on the default plans."""
+    f32_pair_check(dev, 3, b, 1024)
+
+
+@pytest.mark.parametrize("u", [96, 200])
+def test_train_f32_narrow_and_seam_widths_match_plain(dev, u):
+    """U = 96 lies below one 64-unit group; at U = 200 the dmx / plane seam
+    at column 2U = 400 falls inside a 32-wide K stage of the carry product
+    and inside a 128-wide dWr tile. The default plans, then every backward
+    cut that takes the width, each launched twice and bit-equal."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    f32_pair_check(dev, 4, 130, u)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, units in {(p.rows, p.units) for p in
+                        ft.train_plans(130, u, sms, dtype=torch.float32, part="bwd")}:
+        f32_bwd_check(dev, 4, 130, u, (rows, units, 1))
+
+
+def test_train_f32_every_backward_cut_repeats_bit_equal(dev):
+    """Each of the backward's cuts at (T, B, U) = (3, 300, 256), forced
+    with one and with two row tiles."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    for rows, units in ft.F32_BWD_CUTS:
+        for r in (1, 2):
+            f32_bwd_check(dev, 3, 300, 256, (rows, units, r))
+
+
+@pytest.mark.parametrize("t,b,u", TRAIN_SHAPES + [(2, 200, 1024), (3, 130, 200)])
 def test_train_f32_dwr_kernel_matches_plain(dev, t, b, u):
     """The f32 dWr GEMM alone on equal operands: 3xTF32 products, f32 sums
-    in another order over K = T*B terms."""
+    in another order over K = T*B terms, in the K partitions the wrapper
+    picks (U = 200 puts the dmx / plane seam inside a tile)."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     mxs, h0, wr, brec, dys = train_operands(dev, t, b, u, cd=torch.float32)

@@ -245,7 +245,8 @@ def test_train_plans_cover_the_batch_and_fit(b, u, dtype):
     """Every plan's row tiles cover the batch with none empty, its blocks are
     co-resident (one a multiprocessor), ``ub`` divides U and both passes fit
     the H100's shared memory: at bf16 with a ring of at least two stages, at
-    f32 (no ring) the Wr slice of f32 rows."""
+    f32 (no ring) the forward's Wr slice of f32 rows, and the f32 backward's
+    own cuts with a ring of at least two stages."""
     cd = DTYPES[dtype][0]
     plans = ft.train_plans(b, u, dtype=cd)
     assert plans and ft.train_plan(b, u, dtype=cd) in plans
@@ -260,14 +261,27 @@ def test_train_plans_cover_the_batch_and_fit(b, u, dtype):
         for part in ("fwd", "bwd"):
             if cd == torch.float32:
                 assert ft.ring_stages(part, plan.ub, u, dtype=cd) == 0
-                need = ft.smem_bytes(part, plan.ub, u, 0, cd)
-                assert ft.wr_bytes(part, plan.ub, u, cd) <= need <= ft.SMEM_LIMIT
+                if part == "fwd":
+                    need = ft.smem_bytes(part, plan.ub, u, 0, cd)
+                    assert ft.wr_bytes(part, plan.ub, u, cd) <= need <= ft.SMEM_LIMIT
                 continue
             stages = ft.ring_stages(part, plan.ub, u)
             assert 2 <= stages <= ft.MAX_STAGES
             assert ft.smem_bytes(part, plan.ub, u, stages) <= ft.SMEM_LIMIT
             assert ft.smem_bytes(part, plan.ub, u, stages + 1) > ft.SMEM_LIMIT \
                 or stages == ft.MAX_STAGES
+    if cd != torch.float32:
+        return
+    bwd = ft.train_plans(b, u, dtype=cd, part="bwd")
+    assert bwd and ft.train_plan(b, u, dtype=cd, part="bwd") in bwd
+    for plan in bwd:
+        assert (plan.rows, plan.units) in ft.F32_BWD_CUTS and u % plan.units == 0
+        assert plan.row_tiles * (u // plan.units) <= ft.SMS
+        rows = ft.f32_bwd_tile_rows(b, plan.row_tiles, plan.rows)
+        assert rows % plan.rows == 0 and rows * plan.row_tiles >= b
+        assert (plan.row_tiles - 1) * rows < b
+        stages, need = ft.f32_bwd_smem_bytes(plan.rows, plan.units)
+        assert 2 <= stages <= ft.F32_BWD_MAX_STAGES and need <= ft.SMEM_LIMIT
 
 
 def test_train_plan_at_the_training_width():
@@ -290,23 +304,141 @@ def test_train_plan_at_the_training_width():
 
 
 def test_f32_train_plans_at_the_training_width():
-    """The f32 Wr slice is twice the bf16 one (f32 rows of U + 16 floats
-    forward, 3U + 16 backward): 32 units do not fit at U = 1024, 16 do, so
-    the plans are (8, 1), (16, 1), (16, 2) and the default the most blocks,
-    then the fewest rows a block. Every width the bf16 pair takes, the f32
-    pair takes."""
+    """The f32 forward's Wr slice is twice the bf16 one (f32 rows of U + 16
+    floats): 32 units do not fit at U = 1024, 16 do, so its plans are (8, 1),
+    (16, 1), (16, 2) and the default the most blocks, then the fewest rows a
+    block. The f32 backward keeps no slice: it streams Wr, so its ring does
+    not depend on U, and its cuts (rows, units, R) are its own, the default
+    the most blocks, then the widest unit group, then the fewest bytes a
+    block streams a step: 64 rows x 128 units at B = 1024, 64 x 8 at B =
+    64. Every width the bf16 pair takes, the f32 pair takes."""
     f32 = torch.float32
     assert ft.wr_bytes("fwd", 16, 1024, f32) == 48 * 1040 * 4 == 199680
-    assert ft.wr_bytes("bwd", 16, 1024, f32) == 16 * 3088 * 4 == 197632
+    with pytest.raises(ValueError, match="no Wr slice"):
+        ft.wr_bytes("bwd", 16, 1024, f32)
     assert ft.wr_bytes("fwd", 32, 1024, f32) > ft.SMEM_LIMIT
-    assert ft.smem_bytes("bwd", 8, 16, 0, f32) == ft.F32_THREADS * 24 * 4   # the db_rec sums
+    with pytest.raises(ValueError, match="f32_bwd_smem_bytes"):
+        ft.smem_bytes("bwd", 8, 16, 0, f32)
     assert [tuple(p) for p in ft.train_plans(1024, 1024, dtype=f32)] == [(8, 1), (16, 1), (16, 2)]
     assert [tuple(ft.train_plan(b, 1024, dtype=f32)) for b in (1, 64, 256, 1024, 4096)] == [
         (8, 1), (8, 1), (16, 2), (16, 2), (16, 2)]
-    # 32 units would fit only below U = 590: the f32 kernels take 8 and 16
+    assert [tuple(ft.train_plan(b, 1024, dtype=f32, part="bwd"))
+            for b in (1, 64, 65, 512, 1024, 2048, 4096)] == [
+        (64, 8, 1), (64, 8, 1), (64, 16, 2), (64, 64, 8), (64, 128, 16), (64, 128, 16),
+        (64, 128, 16)]
+    # 32 units would fit only below U = 590: the f32 forward takes 8 and 16
     assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32)] == [(8, 1), (16, 1)]
+    # U = 96 on the cuts whose unit groups divide it, one row tile of B = 64
+    assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32, part="bwd")] == [
+        (256, 32, 1), (64, 32, 1), (64, 16, 1), (64, 8, 1)]
     assert all(ft.kernels_take(u, dtype=f32) for u in range(8, 8 * ft.SMS + 1, 8))
     assert not any(ft.kernels_take(u, dtype=f32) for u in (4, 100, 8 * ft.SMS + 8))
+
+
+# (rows, units) -> (ring stages, bytes) of an f32 backward block, reckoned from
+# the kernel's layout: 1024 bytes of alignment slack; a stage of the chunk's
+# dmh rows and the block's Wr hi and lo rows, 128 bytes each, and its full /
+# empty barriers (16 bytes); at 64 rows the second warpgroup's sums (128
+# threads x units / 2 floats); as many stages as fit 232448 bytes, at most 16
+F32_BWD_SMEM = {(128, 64): (7, 1024 + 7 * (256 * 128 + 16)),
+                (256, 32): (5, 1024 + 5 * (320 * 128 + 16)),
+                (64, 128): (4, 1024 + 4 * (320 * 128 + 16) + 128 * 64 * 4),
+                (64, 64): (8, 1024 + 8 * (192 * 128 + 16) + 128 * 32 * 4),
+                (64, 32): (13, 1024 + 13 * (128 * 128 + 16) + 128 * 16 * 4),
+                (64, 16): (16, 1024 + 16 * (96 * 128 + 16) + 128 * 8 * 4),
+                (64, 8): (16, 1024 + 16 * (80 * 128 + 16) + 128 * 4 * 4)}
+
+
+@pytest.mark.parametrize("u", [1024, 96, 104, 200])
+def test_f32_backward_smem_follows_the_kernel_layout(u):
+    """Each cut's ring and bytes as the kernel lays them out, whatever U:
+    Wr streams through the ring, so no width changes a block's memory. Each
+    fits an H100 block and leaves room for the db_rec sums (256 threads x 24
+    floats) in the ring after the loop."""
+    assert set(F32_BWD_SMEM) == set(ft.F32_BWD_CUTS)
+    for plan in ft.train_plans(1024, u, dtype=torch.float32, part="bwd"):
+        stages, need = ft.f32_bwd_smem_bytes(plan.rows, plan.units)
+        assert (stages, need) == F32_BWD_SMEM[(plan.rows, plan.units)]
+        assert need <= ft.SMEM_LIMIT
+        assert stages * (plan.rows + 2 * plan.units) * 128 >= ft.F32_THREADS * 24 * 4
+
+
+@pytest.mark.parametrize("u", [16, 24, 96])
+def test_f32_backward_weight_is_wr_split_in_tf32_in_k_order(u):
+    """The f32 backward's B operand: hi and lo exact in tf32 (the low 13
+    mantissa bits zero), hi + lo = Wr within 2^-22 relative, each row in the
+    carry product's K order (dmx's 2U columns, zeros to KA, the plane's U
+    columns, zeros to KP)."""
+    w = torch.tensor(np.random.default_rng(u).normal(0, 1, (u, 3 * u)), dtype=torch.float32)
+    op = ft.f32_bwd_weight(w)
+    ka, kp = ft.f32_bwd_ka(u), ft.f32_bwd_kp(u)
+    assert ka % 32 == 0 and ka - 32 < 2 * u <= ka and kp % 32 == 0 and kp - 32 < ka + u <= kp
+    assert op.shape == (2, u, kp) and op.dtype == torch.float32
+    hi, lo = op[0], op[1]
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    back = torch.cat([(hi + lo)[:, :2 * u], (hi + lo)[:, ka:ka + u]], dim=1)
+    assert float(((back.double() - w.double()).abs() / w.double().abs()).max()) <= 2.0 ** -22
+    assert float((hi[:, :2 * u] - w[:, :2 * u]).abs().max()) <= 2.0 ** -10 * float(w.abs().max())
+    for part in (hi, lo):
+        assert not part[:, 2 * u:ka].any() and not part[:, ka + u:].any()
+
+
+@pytest.mark.parametrize("t,b,parts", [(100, 1024, 11), (100, 64, 11), (5, 6, 5), (3, 1000, 7),
+                                       (1, 1, 1), (7, 65, 16)])
+def test_dwr_partitions_hold_every_row_once_in_order(t, b, parts):
+    """A model of the f32 dWr GEMM's K walk: stage st holds rows 32 (st %
+    nb).. of step st // nb (nb = ceil(B / 32)); partition p takes stages
+    [p NS / P, (p + 1) NS / P). Every (t, b) row falls in exactly one
+    partition, and the partitions follow each other in (t, b) order."""
+    nb = -(-b // ft.DWR_STAGE_ROWS)
+    ns = ft.dwr_stages(t, b)
+    assert ns == t * nb
+    seen = []
+    for start, stop in ((ns * p // parts, ns * (p + 1) // parts) for p in range(parts)):
+        rows = [(st // nb, r) for st in range(start, stop)
+                for r in range(ft.DWR_STAGE_ROWS * (st % nb),
+                               min(b, ft.DWR_STAGE_ROWS * (st % nb + 1)))]
+        seen.append(rows)
+    flat = [x for rows in seen for x in rows]
+    assert flat == [(i, j) for i in range(t) for j in range(b)]
+    assert len(seen) == parts and all(seen) == (parts <= ft.dwr_stages(t, b))
+
+
+def test_dwr_partitions_fill_whole_waves():
+    """192 tiles of dWr at U = 1024 on 132 multiprocessors: 11 partitions
+    make 2112 blocks, 16 full waves; the count never passes the stages or
+    DWR_MAX_PARTS, and one stage takes one partition."""
+    assert ft.dwr_tiles(1024) == 8 * 24 == 192
+    assert ft.dwr_tiles(96) == 3 and ft.dwr_tiles(200) == 2 * 6
+    assert ft.dwr_partitions(100, 1024, 1024) == ft.dwr_partitions(100, 64, 1024) == 11
+    assert ft.dwr_partitions(1, 1, 1024) == 1 and ft.dwr_partitions(2, 40, 96) == 4
+    for t, b, u in ((5, 6, 96), (100, 512, 1024), (3, 3000, 200)):
+        assert 1 <= ft.dwr_partitions(t, b, u) <= min(ft.DWR_MAX_PARTS, ft.dwr_stages(t, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("entry", ["fwd", "bwd_rec", "dwr"])
+def test_the_cuda_wrappers_refuse_a_dtype_before_the_device(entry, dtype):
+    """A dtype neither kernel form takes is refused, named, before the
+    wrapper looks at the device: the CPU sees the same refusal the card
+    would."""
+    z3, z = torch.zeros(1, 2, 3 * U, dtype=dtype), torch.zeros(2, U, dtype=dtype)
+    y, w = torch.zeros(1, 2, U, dtype=dtype), torch.zeros(U, 3 * U, dtype=dtype)
+    call = {"fwd": lambda: ft.gru_train_fwd_cuda(z3, z, w, torch.zeros(3 * U)),
+            "bwd_rec": lambda: ft.gru_train_bwd_rec_cuda(z3, z3, y, y, z, w),
+            "dwr": lambda: ft.gru_train_dwr_cuda(z, y, z3, y)}[entry]
+    with pytest.raises(ValueError, match=f"bfloat16 or float32 operands, got {dtype}"):
+        call()
+
+
+@pytest.mark.parametrize("plan", [(96, 64, 1), (128, 32, 1), (64, 8, 2), (64, 12, 1),
+                                  (128, 64, 9)])
+def test_f32_backward_plans_refuse_what_the_kernel_does_not_take(plan):
+    """At (B, U) = (64, 1024): a cut that is not one of the kernel's, an
+    empty row tile, a unit group that does not divide U, more blocks than
+    multiprocessors: none is offered, so a forced ``config`` is refused."""
+    assert ft.BwdPlan(*plan) not in ft.train_plans(64, 1024, dtype=torch.float32, part="bwd")
 
 
 @pytest.mark.parametrize("plan", [(32, 2), (64, 1), (12, 1)])
@@ -382,8 +514,10 @@ def test_the_f32_kernel_symbols_are_their_launch_counters():
     anon = "(anonymous namespace)::"
     symbols = {
         f"void {anon}gru_train_fwd_f32_kernel<16>({anon}FwdArgs)": "fused_gru_train_fwd_f32",
-        f"void {anon}gru_train_bwd_f32_kernel<8, 4>({anon}BwdArgs)": "fused_gru_train_bwd_f32",
+        f"void {anon}gru_train_bwd_f32_kernel<128, 64>({anon}BwdArgs)": "fused_gru_train_bwd_f32",
         f"void {anon}gru_train_dwr_f32_kernel({anon}DwrArgs)": "fused_gru_train_dwr_f32",
+        f"{anon}gru_train_dwr_f32_reduce(const float4*, float4*, int, int)":
+            "fused_gru_train_dwr_f32",
         f"void {anon}gru_train_fwd_kernel<32>({anon}FwdArgs)": "fused_gru_train_fwd"}
     for sym, name in symbols.items():
         assert kernel_name(sym) == name, sym

@@ -6,7 +6,7 @@ computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,layer,ir] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -52,6 +52,13 @@ product times T (the library's floor for the recurrence, information only).
 come from; ``--split-step`` builds copies of ``csrc/gru_train.cu`` with the
 products, the forward's epilogue or the row-tile barrier off and times
 them beside the unchanged source at B=1024 and 64.
+
+Its f32 form (``train_f32``, where the checkout has one) runs at (B, T) =
+(1024, 100) and (64, 100) on seeded random f32 operands: the forward, the
+backward recurrence and dWr, ``torch.matmul`` f32 of dWr's whole product
+and cuDNN's f32 GRU (TF32 off for both), dWr's distance to its plain
+version and to the f64 sum, and the 3xTF32 bound; ``--sweep`` times the
+recurrence on every backward plan the checkout takes.
 
 The fused transformer layer (``layer``) runs at the 9 launch shapes of a
 MobileViT-small forward at B=128 on seeded random weights: the layer as one
@@ -357,11 +364,12 @@ def _device_kernels(fn, top=4):
     return [k[:80] for _, k in sorted(rows, reverse=True)[:top]]
 
 
-def cudnn_gru(b, t, e=256, u=1024):
-    """``torch.nn.GRU(e, u)`` forward and backward at (B, T), bf16 or fp16."""
+def cudnn_gru(b, t, e=256, u=1024, dtypes=(torch.bfloat16, torch.float16)):
+    """``torch.nn.GRU(e, u)`` forward and backward at (B, T) in the first of
+    ``dtypes`` the build takes (bf16 or fp16; f32 with TF32 off)."""
     dev = torch.device("cuda")
     err = None
-    for dt in (torch.bfloat16, torch.float16):
+    for dt in dtypes:
         try:
             gru = torch.nn.GRU(e, u).to(dev, dt)
             gru.flatten_parameters()
@@ -426,6 +434,79 @@ def train_cells(sweep):
             rows.append(row)
             print(json.dumps(row), flush=True)
             del mxs, h0, wr, brec, dys, ys, mhs
+    return rows
+
+
+TRAIN_F32_CELLS = ((1024, 100), (64, 100))     # (B, T) at U=1024, f32
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()) / float(b.double().abs().max())
+
+
+def train_f32_cells(sweep):
+    """The f32 train pair at (B, T) = (1024, 100), (64, 100), U=1024, on
+    seeded random f32 operands: the forward, the backward recurrence and dWr
+    (``call``), ``torch.matmul`` f32 of dWr's product on the same operands
+    and cuDNN's f32 GRU (TF32 off for both), dWr's distance to its plain
+    version and to the f64 sum (and the plain version's), the 3xTF32 bound;
+    with ``sweep``, the recurrence on every backward plan the checkout takes
+    (its own backward cuts where it has them, else the forward's plans)."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    params = inspect.signature(ft.train_plans).parameters
+    if "dtype" not in params or not hasattr(ft, "gru_train_dwr_cuda"):
+        return [{"cell": "train_f32", "skipped": "the checkout has no f32 train pair"}]
+    own_bwd = "part" in params
+    f32, u = torch.float32, 1024
+    dev = torch.device("cuda")
+    tf32_conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for b, t in TRAIN_F32_CELLS:
+        g = torch.Generator(device=dev).manual_seed(b)
+        mxs = torch.randn((t, b, 3 * u), generator=g, device=dev) * 0.8
+        h0 = torch.randn((b, u), generator=g, device=dev) * 0.3
+        wr = torch.randn((u, 3 * u), generator=g, device=dev) / u ** 0.5
+        brec = torch.randn((3 * u,), generator=g, device=dev) * 0.2
+        dys = torch.randn((t, b, u), generator=g, device=dev) * 0.01
+        ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+        dmxs, plane, _, _ = ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr)
+        hp = torch.cat([h0[None], ys[:-1]]).reshape(t * b, u)
+        dmh = torch.cat([dmxs[..., :2 * u], plane], dim=2).reshape(t * b, 3 * u)
+        got = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+        want = ft.gru_train_dwr_plain(h0, ys, dmxs, plane)
+        exact = ft.gru_train_dwr_plain(h0.double(), ys.double(), dmxs.double(), plane.double())
+        ops = 2 * t * b * u * 3 * u
+        row = {"cell": "train_f32", "b": b, "t": t, "u": u,
+               "fwd_plan": str(ft.train_plan(b, u, sms, dtype=f32)),
+               "bwd_plan": str(ft.train_plan(b, u, sms, dtype=f32, part="bwd") if own_bwd
+                               else ft.train_plan(b, u, sms, dtype=f32)),
+               "dwr_partitions": ft.dwr_partitions(t, b, u, sms)
+               if hasattr(ft, "dwr_partitions") else 1,
+               "fwd": call_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec), n=5, warmup=1),
+               "bwd_rec": call_ms(lambda: ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr),
+                                  n=5, warmup=1),
+               "dwr": call_ms(lambda: ft.gru_train_dwr_cuda(h0, ys, dmxs, plane), n=5,
+                              warmup=1),
+               "matmul_f32": call_ms(lambda: torch.matmul(hp.t(), dmh), n=5, warmup=1),
+               "bound_ms": H100.bound_ms(0, ops, "tf32x3")[0],
+               "dwr_rel_plain": _rel(got, want), "dwr_rel_f64": _rel(got, exact),
+               "plain_rel_f64": _rel(want, exact)}
+        del got, want, exact, hp, dmh
+        row.update({f"f32_{k}": v for k, v in cudnn_gru(b, t, dtypes=(f32,)).items()})
+        if sweep:
+            plans = (ft.train_plans(b, u, sms, dtype=f32, part="bwd") if own_bwd
+                     else ft.train_plans(b, u, sms, dtype=f32))
+            row["bwd_rec_sweep"] = {str(tuple(p)): call_ms(
+                lambda: ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr, config=tuple(p)),
+                n=3, warmup=1) for p in plans}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del mxs, h0, wr, brec, dys, ys, mhs, dmxs, plane
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32_conv
     return rows
 
 
@@ -937,9 +1018,9 @@ def main() -> int:
                     help="time copies of the persistent (gru), training (train), layer "
                          "(layer) and inverted residual (ir) kernels with parts of the step "
                          "off")
-    ap.add_argument("--only", default="qmatmul,flash,gru,train,layer,ir",
-                    help="comma-separated kernels to time (qmatmul, flash, gru, train, layer, "
-                         "ir)")
+    ap.add_argument("--only", default="qmatmul,flash,gru,train,train_f32,layer,ir",
+                    help="comma-separated kernels to time (qmatmul, flash, gru, train, "
+                         "train_f32, layer, ir)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -957,6 +1038,7 @@ def main() -> int:
              ("flash", "flash", flash_cells),
              ("gru", "gru", lambda: gru_cells(args.sweep)),
              ("train", "train", lambda: train_cells(args.sweep)),
+             ("train_f32", "train_f32", lambda: train_f32_cells(args.sweep)),
              ("layer", "layer", lambda: layer_cells(args.sweep)),
              ("layer", "layer_f32", layer_f32_cells),
              ("gru", "split_step", split_step_cells),
