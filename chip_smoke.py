@@ -64,8 +64,8 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      and the free-running ``ys``), backward and dWr as above, two launches
      bit-equal, each timed beside its 3xTF32 bound and cuDNN's f32 GRU (TF32
      off), on the default f32 plans and every other plan the f32 kernels
-     take (the forward's (ub, R), and the backward recurrence's own (rows,
-     units, R));
+     take (each recurrence's own cuts (rows, units, R); each forward cut
+     logged with its time and bound);
  12. training: ``train_from_text`` on ``checkpoints/corpus_train.txt``, bf16,
      B=1024, T=100, one epoch (7 steps): the loss is finite and falls, each
      step launches the forward, the backward recurrence and the dWr kernel
@@ -1309,7 +1309,8 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
         ops = 2 * T * B * u * 3 * u
         fb_ms, fb_by = bound(tensor_bytes(mxs, h0, wr, brec, ys, mhs), ops, "tf32x3")
         lib_fwd, lib_bwd, lib_dt = cudnn_gru_ms(B, T, u, dev, (f32,))
-        log(f"[{tag}] f32 forward B={B} T={T} U={u}, plan {tuple(plan)}: teacher-forced mh max "
+        log(f"[{tag}] f32 forward B={B} T={T} U={u}, cut {tuple(plan)} (rows, units, row tiles): "
+            f"teacher-forced mh max "
             f"|diff| / max |plain| {mh_rel:.3g}, free-running ys max abs err {ys_max:.3g} | two "
             f"launches bit-equal | kernel {fwd_ms:.3f} ms = {fwd_ms * 1e3 / T:.1f} us/step | "
             f"plain {fwd_plain_ms:.2f} ms | bound {fb_ms:.3f} ms ({fb_by}, 3xTF32) | library: "
@@ -1367,7 +1368,7 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
               f"{db_ms:.3f} ms ({db_by}), torch.matmul f32 {dwr_lib_ms:.3f} ms | library: "
               f"torch.nn.GRU backward on cuDNN ({lib_dt}, TF32 off) {lib_bwd:.3f} ms")
 
-        # every other f32 plan, forced: the forward's (ub, R), then the backward's own cuts
+        # every other f32 plan, forced: the forward's cuts, then the backward's
         for other in ft.train_plans(B, u, sms, dtype=f32):
             if other == plan:
                 continue
@@ -1380,8 +1381,9 @@ def train_f32_kernel_phase(tag, fparams, dev, tok):
                                                        f"{tuple(other)}")
             o_fwd = cuda_ms(lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=other), n=3,
                             warmup=1)
-            log(f"[{tag}] f32 forward plan {tuple(other)} forced at B={B} T={T}: mh {o_mh:.3g}, "
-                f"ys {o_ys:.3g} | two launches bit-equal | {o_fwd:.3f} ms")
+            log(f"[{tag}] f32 forward cut {tuple(other)} forced at B={B} T={T}: mh {o_mh:.3g}, "
+                f"ys {o_ys:.3g} | two launches bit-equal | {o_fwd:.3f} ms, bound {fb_ms:.3f} ms "
+                f"({fb_by})")
             del ys2, mhs2, ys3
         for other in ft.train_plans(B, u, sms, dtype=f32, part="bwd"):
             if other == bplan:

@@ -1,8 +1,7 @@
 // Fused GRU training sequence at float32: the time loop of the forward pass
 // in one cooperative launch, the time loop of the backward pass in another,
 // and the recurrent weight gradient as a GEMM launched after it. Every
-// product runs on the tensor cores in 3xTF32: the forward on mma.sync
-// m16n8k8, the backward recurrence and dWr on wgmma m64nNk8.
+// product runs in 3xTF32 on tf32 wgmma m64nNk8, A in registers.
 //
 //   gxt_gru_train_fwd_f32  replaces ggml_experiments_tpu/ops/fused_gru_train.py
 //                          `_fwd_core_call` (pallas_call :186; body `_fwd_kernel`
@@ -30,41 +29,53 @@
 // 3xTF32's 165 TFLOP/s (495 / 3), against 2.9-3.4 GB of operands (0.9-1.0
 // ms at 3.35 TB/s): the operations bound them.
 //
-// Forward: block (r, g) owns row tile r of the batch and unit group g (ub = 8
-// or 16 hidden units) for the whole launch; ops/fused_gru_train.py
-// `train_plan(..., dtype=float32)` picks (ub, R); R x U/ub blocks are
-// co-resident (cooperative launch), and the blocks of one row tile meet at a
-// release/acquire counter in global memory once a step. Its Wr slice (3ub
-// columns x U, 195 KB at ub = 16) stays resident as f32 and is split into
-// tf32 parts as read; each warp reads h straight from L2 (16 bytes a lane
-// and row, a 16-wide k-step ahead: mma k-slots t and t + 4 map to k0 + 4t
-// and k0 + 4t + 1, the second product's to + 2, + 3, so one float4 a row
-// gives a lane its fragments of both products; slice rows 16 mod 32 floats
-// apart, no bank conflict) into mma.sync, 16 or 32 rows a warp, as many as
-// keep all 8 warps busy.
+// The recurrences share a cut: block (r, g) owns row tile r of the batch
+// (whole chunks of `rows`) and `units` hidden units for the whole launch
+// (ops/fused_gru_train.py `train_plan(..., dtype=float32, part=...)` picks
+// (rows, units, R) for each); the R x U/units blocks are co-resident
+// (cooperative launch, one a multiprocessor), and the blocks of one row tile
+// meet at a release/acquire counter in global memory once a step. A block
+// runs two consumer warpgroups and a producer (a warpgroup in the forward, a
+// warp in the backward). For each 32-wide K stage the producer copies the
+// chunk's rows of the A operand and the block's rows of the B operand's tf32
+// hi and lo parts (split once a call by the wrapper) by TMA with the 128-byte
+// swizzle into an mbarrier ring. The warpgroups read their A fragments from
+// the stage into registers, split into tf32 hi and lo as they are read (one
+// 8-wide k-step at a time, in two register sets), and run lo.hi + hi.lo +
+// hi.hi as wgmma with A in registers and B in shared memory: the split costs
+// no shared-memory pass, no barrier and no room in the ring. Cuts of 128 or
+// 256 rows give each warpgroup its own 64 or 128 rows; cuts of 64 rows give
+// the two warpgroups alternate K stages of the same rows, whose sums meet in
+// shared memory at the chunk's end (warpgroup 0's first). The backward's 288
+// threads at one block a multiprocessor cap a thread at 168 registers; the
+// forward's producer warpgroup hands its registers over (setmaxnreg), so its
+// consumers take 232.
+//
+// Forward: mh[rows, the block's 3 units columns] = h[rows, 0:U] . Wr[0:U,
+// columns]. h (ys of the step before, h0 at t = 0) is K-major as it lies; Wr
+// (U, 3U) is MN-major, which tf32 wgmma does not read, so the B operand is
+// Wr's transpose (`f32_fwd_weight(wr)`), K padded with zeros to a whole
+// stage, its rows in the order the gate phase reads the accumulators in: row
+// 24 J + 8 gate + c is column gate * U + 8 J + c, so a lane's fragment holds
+// the z, r and h sums of the same two units. A warpgroup's product spans all
+// the block's columns, so each h fragment is split once: its sums and f32
+// totals (up to 2 x 96 floats a thread at 64 units of 64 rows) need more than
+// 168 registers, hence the register handover; at 168 the wide cuts spilled
+// and ran slower. The row tile's counter gates only the producer: it sends
+// the B halves of the next step's first stages out before the counter opens,
+// then the h rows once every block of the tile has written the step before
+// (its ys writes, generic-proxy, fenced against the TMA reads). The gate
+// phase runs on the totals in registers and writes mh and ys.
 //
 // Backward recurrence: the carry product carry[rows, units] += dmh[rows,
-// 0:3U] . Wr[units, 0:3U]^T has both operands K-major as they lie in memory,
-// so it runs on tf32 wgmma from shared memory with nothing resident. Block
-// (r, g) owns row tile r (chunks of `rows`) and `units` hidden units
-// (`train_plan(..., dtype=float32, part="bwd")` picks (rows, units, R)). A
-// producer warp streams, for each 32-wide K stage, the chunk's dmh rows
-// ([dmx[t][:, :2U] | plane[t]] by two 3-D tensor maps) and the block's rows
-// of Wr's tf32 hi and lo parts (split once a call by the wrapper, in the
-// same K order) by TMA with the 128-byte swizzle into an mbarrier ring (up
-// to 16 stages of 32 K). Two consumer warpgroups read their dmh fragments
-// from the stage into registers, split into tf32 hi and lo as they are read
-// (one 8-wide k-step at a time, in two register sets), and run lo.hi +
-// hi.lo + hi.hi as wgmma with A in registers and B in shared memory: the
-// split costs no shared-memory pass, no barrier and no room in the ring.
-// Cuts of 128 or 256 rows give each warpgroup its own 64 or 128 rows; cuts
-// of 64 rows give the two warpgroups alternate K stages of the same rows,
-// whose sums meet in shared memory at the chunk's end (warpgroup 0's
-// first). The default is the widest unit group that fills the card (64
-// rows x 128 units at B = 1024): the operand intake, not the tensor cores,
-// sets the pace, and a wider product takes more from each dmh byte. The gate phase, the row-tile counter and db_rec's order (per
-// thread, per block in thread order, then over the row tiles in order after
-// one grid sync) are those of the forward's cut.
+// 0:3U] . Wr[units, 0:3U]^T has both operands K-major as they lie, with
+// nothing resident: A is the chunk's dmh rows ([dmx[t][:, :2U] | plane[t]]
+// by two 3-D tensor maps), B Wr's rows split once a call (`f32_bwd_weight`)
+// in the same K order. The default is the widest unit group that fills the
+// card (64 rows x 128 units at B = 1024): the operand intake, not the
+// tensor cores, sets the pace, and a wider product takes more from each dmh
+// byte. db_rec: per thread, per block in thread order, then over the row
+// tiles in order after one grid sync.
 //
 // dWr: M = U, N = 3U, K = T*B, both operands MN-major as they lie in memory
 // (rows of h_prev and of dmh are K), which tf32 wgmma does not read. A block
@@ -83,13 +94,13 @@
 //
 // Sums: the tensor cores' chained additions drift (on an H100 a chain of 450
 // mma.sync strayed 1e-5 of the largest dWr entry from the plain f32
-// product), so they sum short runs only, each run added in f32 (round to
-// nearest) in order: 8 k-steps of 16 in the forward, one 32-wide K stage (12
-// chained products) in the backward and dWr.
+// product), so they sum one 32-wide K stage only (12 chained products), each
+// stage's sums added in f32 (round to nearest) in K order.
 // No atomics on values and no order that depends on timing: two launches
 // give the same bits.
-// Shapes: U a multiple of 8, any B >= 1; operands 16-byte aligned. The K
-// index space of the carry product is [dmx columns 0..2U) padded with zeros
+// Shapes: U a multiple of 8, any B >= 1; operands 16-byte aligned. The
+// forward's K index space is h's U columns padded with zeros to a whole
+// stage. That of the carry product is [dmx columns 0..2U) padded with zeros
 // to KA = 2U rounded up to 32, then the plane's U columns (so no TMA box of
 // 32 straddles the two); dWr's N index space is the same with KA = 2U
 // rounded up to 128 (its box width), and the padding's columns are not
@@ -109,12 +120,11 @@ namespace {
 using namespace gxt;
 
 constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;              // a forward block; a backward block's consumers
-constexpr int kBwdThreads = kThreads + 32;         // and the backward's producer warp
-constexpr int kChunkRows = 128;                    // forward row tiles hold whole 128-row chunks
-constexpr int kRun = 8;                            // k-steps of 16 a forward tensor-core run sums
-constexpr int kKS = 32;                            // K of a backward / dWr stage: a 128-byte row
-constexpr int kMaxStages = 16;                     // the backward's ring, at most
+constexpr int kThreads = 32 * kWarps;              // a recurrence block's consumers
+constexpr int kFwdThreads = kThreads + 128;        // and the forward's producer warpgroup
+constexpr int kRecThreads = kThreads + 32;         // or the backward's producer warp
+constexpr int kKS = 32;                            // K of a stage: a 128-byte row
+constexpr int kMaxStages = 16;                     // a recurrence's ring, at most
 constexpr int kSmemLimit = 232448;                 // an H100 block's shared memory
 constexpr int kDThreads = kThreads + 32;           // a dWr block: two warpgroups and a producer warp
 constexpr int kDM = 128, kDN = 128;                // dWr block tile
@@ -123,36 +133,32 @@ constexpr int kDSplitBytes = 2 * kDN * kKS * 4;    // B hi, B lo, K-major
 constexpr int kDStages = 5;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-// row stride (floats) of a forward Wr slice row of K columns in shared memory
-__host__ __device__ inline int ks_of(int K) { return round_up(K, 32) + 16; }
 
-// the backward's ring: a stage holds the chunk's dmh rows and the block's Wr
-// hi and lo rows, 128 bytes each
-__host__ __device__ inline int bwd_stage_bytes(int rows, int units) {
-  return (rows + 2 * units) * 128;
+// a recurrence's ring: a stage holds the chunk's A rows and the block's B
+// hi and lo rows (n of each: 3 units forward, units backward), 128 bytes each
+__host__ __device__ inline int stage_bytes(int rows, int n) { return (rows + 2 * n) * 128; }
+// the second warpgroup's sums where the two take alternate stages (64-row
+// cuts): n / 2 floats a thread
+__host__ __device__ inline int xchg_bytes(int rows, int n) {
+  return rows == 64 ? 128 * (n / 2) * 4 : 0;
 }
-// the second warpgroup's sums where the two take alternate stages (64-row cuts)
-__host__ __device__ inline int bwd_xchg_bytes(int rows, int units) {
-  return rows == 64 ? 128 * (units / 2) * 4 : 0;
-}
-inline int bwd_stages(int rows, int units) {
-  const int s = (kSmemLimit - 1024 - bwd_xchg_bytes(rows, units)) /
-                (bwd_stage_bytes(rows, units) + 16);
+inline int ring_stages(int rows, int n) {
+  const int s = (kSmemLimit - 1024 - xchg_bytes(rows, n)) / (stage_bytes(rows, n) + 16);
   return s < kMaxStages ? s : kMaxStages;
 }
+inline size_t ring_smem(int rows, int n) {
+  return 1024 + (size_t)ring_stages(rows, n) * (stage_bytes(rows, n) + 16) + xchg_bytes(rows, n);
+}
 
-// part 0 forward (x = ub), 1 backward recurrence (x = rows, y = units), 2 dWr
-size_t smem_bytes(int part, int x, int y, int U) {
-  if (part == 0) return (size_t)3 * x * ks_of(U) * 4;
-  if (part == 1)
-    return 1024 + (size_t)bwd_stages(x, y) * (bwd_stage_bytes(x, y) + 16) + bwd_xchg_bytes(x, y);
+// part 0 forward, 1 backward recurrence (x = rows, y = units of the cut), 2 dWr
+size_t smem_bytes(int part, int x, int y) {
+  if (part == 0) return ring_smem(x, 3 * y);
+  if (part == 1) return ring_smem(x, y);
   return 1024 + (size_t)kDStages * (kDRawBytes + 16) + 2 * kDSplitBytes;
 }
 
 __device__ __forceinline__ float subf(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
 __device__ __forceinline__ void ld8(const float* p, float (&f)[8], bool l2_only) {
   const float4* q = reinterpret_cast<const float4*>(p);
@@ -179,174 +185,6 @@ __device__ __forceinline__ void tile_wait(const unsigned* ctr, unsigned target) 
   } while (v < target);
   __threadfence();
 }
-
-// tot[mt][j] = A[rows 16 mt + {g, g + 8} of the warp][0:K16) .
-// Bs[8 j + g][0:K16)^T in 3xTF32. Bs is the Wr slice in shared memory (row
-// stride ks, zeros from the operand's K on); ld(mt, hf, k) gives A[row of
-// (mt, hf)][k..k+3] (zeros past the operand). In a k-step of 16, mma k-slot
-// t of the first product is k0 + 4t and slot t + 4 is k0 + 4t + 1; the
-// second product's are k0 + 4t + 2 and + 3. The tensor cores sum runs of
-// kRun k-steps, each added into tot in f32, in order (see "Sums" above).
-template <int MT, int NT, typename Ld>
-__device__ __forceinline__ void rows_product(float (&tot)[MT][NT][4], Ld ld, const float* bs,
-                                             int ks, int K16, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tot[mt][j][i] = acc[mt][j][i] = 0.f;
-  float4 a[MT][2], an[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) a[mt][hf] = ld(mt, hf, 4 * t);
-  for (int k0 = 0; k0 < K16; k0 += 16) {
-    const bool more = k0 + 16 < K16;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) an[mt][hf] = more ? ld(mt, hf, k0 + 16 + 4 * t) : zero4();
-    uint32_t ah[MT][2][4], al[MT][2][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      split_tf32(a[mt][0].x, ah[mt][0][0], al[mt][0][0]);
-      split_tf32(a[mt][1].x, ah[mt][0][1], al[mt][0][1]);
-      split_tf32(a[mt][0].y, ah[mt][0][2], al[mt][0][2]);
-      split_tf32(a[mt][1].y, ah[mt][0][3], al[mt][0][3]);
-      split_tf32(a[mt][0].z, ah[mt][1][0], al[mt][1][0]);
-      split_tf32(a[mt][1].z, ah[mt][1][1], al[mt][1][1]);
-      split_tf32(a[mt][0].w, ah[mt][1][2], al[mt][1][2]);
-      split_tf32(a[mt][1].w, ah[mt][1][3], al[mt][1][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(bs + (size_t)(8 * j + g) * ks + k0 + 4 * t);
-      uint32_t bh[4], bl[4];
-      split_tf32(b.x, bh[0], bl[0]);
-      split_tf32(b.y, bh[1], bl[1]);
-      split_tf32(b.z, bh[2], bl[2]);
-      split_tf32(b.w, bh[3], bl[3]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_tf32x<true>(acc[mt][j], ah[mt][0], al[mt][0], bh[0], bh[1], bl[0], bl[1]);
-        mma_tf32x<true>(acc[mt][j], ah[mt][1], al[mt][1], bh[2], bh[3], bl[2], bl[3]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) a[mt][hf] = an[mt][hf];
-    if (more && (k0 / 16 + 1) % kRun) continue;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          tot[mt][j][i] = addf(tot[mt][j][i], acc[mt][j][i]);
-          acc[mt][j][i] = 0.f;
-        }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-struct FwdArgs {
-  const float* mxs;   // (T, B, 3U)
-  const float* h0;    // (B, U)
-  const float* wr;    // (U, 3U)
-  const float* brec;  // (3U)
-  float* ys;          // (T, B, U) out
-  float* mhs;         // (T, B, 3U) out
-  unsigned* ctr;      // (R) zeros: the row tiles' step counters
-  int T, B, U, BR;
-};
-
-template <int UB, int MT>
-__global__ void __launch_bounds__(kThreads, 1) gru_train_fwd_f32_kernel(const __grid_constant__ FwdArgs a) {
-  constexpr int NT = 3 * UB / 8, NJ = UB / 8;
-  extern __shared__ float4 smem_f4[];
-  float* wr_s = reinterpret_cast<float*>(smem_f4);   // 3 UB rows of KS
-  const int T = a.T, B = a.B, U = a.U, G = 3 * U, KS = ks_of(U), K16 = round_up(U, 16);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int NG = U / UB, g = blockIdx.x % NG, r = blockIdx.x / NG;
-  const int unit0 = g * UB;
-  const int row0 = r * a.BR, row_end = min(B, row0 + a.BR);
-
-  // slice row n = 8 j + c (j = 3 jj + gate) is column `gate` of unit
-  // unit0 + 8 jj + c: the accumulator of tile 3 jj + gate hands a lane the
-  // three gates of the same two units
-  for (int i = tid; i < 3 * UB * KS; i += kThreads) {
-    const int n = i % (3 * UB), k = i / (3 * UB), j = n >> 3;
-    const int col = (j % 3) * U + unit0 + 8 * (j / 3) + (n & 7);
-    wr_s[(size_t)n * KS + k] = k < U ? a.wr[(size_t)k * G + col] : 0.f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    if (t > 0 && tid == 0) tile_wait(a.ctr + r, (unsigned)(NG * t));
-    __syncthreads();
-    const float* hp = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * U;
-    const float* mx = a.mxs + (size_t)t * B * G;
-    float* mh = a.mhs + (size_t)t * B * G;
-    float* yo = a.ys + (size_t)t * B * U;
-    for (int rb = row0 + 16 * MT * warp; rb < row_end; rb += 16 * MT * kWarps) {
-      float acc[MT][NT][4];
-      rows_product<MT, NT>(acc, [&](int mt, int hf, int k) {
-        const int row = rb + 16 * mt + 8 * hf + gq;
-        return row < row_end && k < U
-                   ? __ldcg(reinterpret_cast<const float4*>(hp + (size_t)row * U + k))
-                   : zero4();
-      }, wr_s, KS, K16, lane);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = rb + 16 * mt + 8 * hf + gq;
-          if (row >= row_end) continue;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
-            const int u = unit0 + 8 * jj + 2 * tq;
-            float2 mxv[3], mhv[3];
-#pragma unroll
-            for (int gt = 0; gt < 3; ++gt) {
-              mxv[gt] = __ldg(reinterpret_cast<const float2*>(mx + (size_t)row * G + gt * U + u));
-              const float2 bb = __ldg(reinterpret_cast<const float2*>(a.brec + gt * U + u));
-              mhv[gt] = make_float2(addf(acc[mt][3 * jj + gt][2 * hf], bb.x),
-                                    addf(acc[mt][3 * jj + gt][2 * hf + 1], bb.y));
-            }
-            const float2 hv = __ldcg(reinterpret_cast<const float2*>(hp + (size_t)row * U + u));
-            float hn[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float mxz = e ? mxv[0].y : mxv[0].x, mxr = e ? mxv[1].y : mxv[1].x;
-              const float mxh = e ? mxv[2].y : mxv[2].x;
-              const float mhz = e ? mhv[0].y : mhv[0].x, mhr = e ? mhv[1].y : mhv[1].x;
-              const float mhh = e ? mhv[2].y : mhv[2].x;
-              const float hprev = e ? hv.y : hv.x;
-              const float z = sigmoidf(addf(mxz, mhz));
-              const float rr = sigmoidf(addf(mxr, mhr));
-              const float gg = tanhf(addf(mxh, mulf(rr, mhh)));
-              hn[e] = addf(mulf(z, hprev), mulf(subf(1.f, z), gg));
-            }
-#pragma unroll
-            for (int gt = 0; gt < 3; ++gt)
-              *reinterpret_cast<float2*>(mh + (size_t)row * G + gt * U + u) = mhv[gt];
-            *reinterpret_cast<float2*>(yo + (size_t)row * U + u) = make_float2(hn[0], hn[1]);
-          }
-        }
-    }
-    __syncthreads();
-    if (tid == 0 && t + 1 < T) tile_arrive(a.ctr + r);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // TMA, barriers and the tf32 split of the wgmma kernels
@@ -385,6 +223,209 @@ __device__ __forceinline__ void split4(float a, float b, float c, float d, float
                    __uint_as_float(l[3]));
 }
 
+// acc = the stage's A rows (those of m64 tile `mt`: the lane's row `arow` of
+// the stage, + 64 mt, + 8) . B rows [b, b + N)^T in 3xTF32, the 12 products
+// chained on the tensor cores. A's fragments are read from the swizzled
+// stage and split into tf32 hi and lo as they are read, one k-step at a time
+// into two sets of registers: a set is written again only once the products
+// of two k-steps back are done. Returns with the products in flight.
+template <int N>
+__device__ __forceinline__ void stage_product(float (&acc)[N / 2], const unsigned char* st,
+                                              int arow, uint32_t b_hi, uint32_t b_lo, int tq) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int ks = 0; ks < kKS / 8; ++ks) {
+    const int f = ks & 1;
+    if (ks >= 2) wg_wait<1>();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = arow + 8 * (e & 1), k = 8 * ks + tq + 4 * (e >> 1);
+      split_tf32(*reinterpret_cast<const float*>(st + swz4(row, k)), ah[f][e], al[f][e]);
+    }
+    wg_fence();
+    wgmma_tf32_rs<N>(acc, al[f], desc_k(b_hi + 32 * ks), ks > 0);
+    wgmma_tf32_rs<N>(acc, ah[f], desc_k(b_lo + 32 * ks), 1);
+    wgmma_tf32_rs<N>(acc, ah[f], desc_k(b_hi + 32 * ks), 1);
+    wg_commit();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  CUtensorMap tm_h0;   // h0 as (1, B, U), box (32, rows, 1), 128-byte swizzle
+  CUtensorMap tm_ys;   // ys (T, B, U), same box
+  CUtensorMap tm_wr;   // Wr^T's tf32 parts (2, 3U, KP): hi then lo, box (32, 3 units, 1)
+  const float* mxs;    // (T, B, 3U)
+  const float* h0;     // (B, U)
+  const float* brec;   // (3U)
+  float* ys;           // (T, B, U) out
+  float* mhs;          // (T, B, 3U) out
+  unsigned* ctr;       // (R) zeros: the row tiles' step counters
+  int T, B, U, BR, KC, stages;
+};
+
+template <int RB, int UN>
+__global__ void __launch_bounds__(kFwdThreads, 1) gru_train_fwd_f32_kernel(const __grid_constant__ FwdArgs a) {
+  constexpr bool kSplitK = RB == 64;           // the warpgroups take alternate K stages
+  constexpr int MT = RB >= 256 ? 2 : 1;        // m64 tiles of a warpgroup
+  constexpr int WROWS = 64 * MT;               // rows of a warpgroup
+  constexpr int N = 3 * UN;                    // the block's columns
+  constexpr int NA = N / 2;                    // accumulator floats of an m64 tile
+  constexpr int STAGE = (RB + 2 * N) * 128;
+  static_assert(kSplitK ? WROWS == RB : 2 * WROWS == RB, "a cut of 64, 128 or 256 rows");
+  static_assert(MT * NA <= 96, "the f32 totals of a thread");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int S = a.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (size_t)S * STAGE);
+  uint64_t* empty = full + S;
+  float* xchg = reinterpret_cast<float*>(empty + S);   // (NA, 128) where kSplitK
+  const int T = a.T, B = a.B, U = a.U, G = 3 * U, KC = a.KC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int NG = U / UN, g = blockIdx.x % NG, r = blockIdx.x / NG;
+  const int unit0 = g * UN;
+  const int row0 = r * a.BR, row_end = min(B, row0 + a.BR);
+  const int nchunks = (row_end - row0 + RB - 1) / RB;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kSplitK ? 4 : kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWarps) {   // producer warpgroup: one thread issues the copies
+    regs_dec<kProducerRegs>();
+    if (warp == kWarps && lane == 0) {
+      // the B half of ring position i (K stage kc): it does not wait on the step before
+      auto load_b = [&](int i, int kc) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + s, (i / S - 1) & 1);
+        unsigned char* st = base + (size_t)s * STAGE;
+        mbar_expect(full + s, STAGE);
+        tma_load_3d(st + RB * 128, &a.tm_wr, kKS * kc, 3 * unit0, 0, full + s);
+        tma_load_3d(st + (RB + N) * 128, &a.tm_wr, kKS * kc, 3 * unit0, 1, full + s);
+      };
+      int it = 0;
+      for (int t = 0; t < T; ++t)
+        for (int c = 0; c < nchunks; ++c) {
+          const int pre = c == 0 && t > 0 ? min(S, KC) : 0;
+          for (int kc = 0; kc < pre; ++kc) load_b(it + kc, kc);
+          if (pre) {
+            tile_wait(a.ctr + r, (unsigned)(NG * t));
+            fence_proxy_global();
+          }
+          for (int kc = 0; kc < KC; ++kc, ++it) {
+            if (kc >= pre) load_b(it, kc);
+            tma_load_3d(base + (size_t)(it % S) * STAGE, t == 0 ? &a.tm_h0 : &a.tm_ys, kKS * kc,
+                        row0 + c * RB, t == 0 ? 0 : t - 1, full + it % S);
+          }
+        }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = warp >> 2, wt = tid & 127;
+  // the lane's rows of the stage's h tile: 16 (warp % 4) + g (+ 8) of each
+  // of the warpgroup's m64 tiles
+  const int arow = (kSplitK ? 0 : wg * WROWS) + 16 * (warp & 3) + gq;
+  int it = 0;
+  for (int t = 0; t < T; ++t) {
+    const float* hp = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * U;
+    const float* mx = a.mxs + (size_t)t * B * G;
+    float* mh = a.mhs + (size_t)t * B * G;
+    float* yo = a.ys + (size_t)t * B * U;
+    for (int c = 0; c < nchunks; ++c) {
+      float tot[MT][NA], acc[NA];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NA; ++i) tot[mt][i] = 0.f;
+      for (int kc = 0; kc < KC; ++kc, ++it) {
+        if (kSplitK && (it & 1) != wg) continue;
+        const int s = it % S;
+        mbar_wait(full + s, (it / S) & 1);
+        const unsigned char* st = base + (size_t)s * STAGE;
+        const uint32_t b_hi = smem_u32(st + RB * 128), b_lo = b_hi + N * 128;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          stage_product<N>(acc, st, arow + 64 * mt, b_hi, b_lo, tq);
+          wg_wait<0>();
+          wg_pin(acc);
+#pragma unroll
+          for (int i = 0; i < NA; ++i) tot[mt][i] = addf(tot[mt][i], acc[i]);
+        }
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+      if constexpr (kSplitK) {
+        // warpgroup 0's stages' sums, then warpgroup 1's
+        if (wg == 1)
+#pragma unroll
+          for (int i = 0; i < NA; ++i) xchg[i * 128 + wt] = tot[0][i];
+        bar_sync(2, kThreads);
+        if (wg == 0)
+#pragma unroll
+          for (int i = 0; i < NA; ++i) tot[0][i] = addf(tot[0][i], xchg[i * 128 + wt]);
+        bar_sync(2, kThreads);
+      }
+      // the gate phase: a lane holds the z, r and h sums of units 2 tq, + 1
+      // of each of the block's 8-unit groups, for rows g and g + 8 of its
+      // warp's 16
+      if (!kSplitK || wg == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = row0 + c * RB + (kSplitK ? 0 : wg * WROWS) + 64 * mt +
+                            16 * (warp & 3) + gq + 8 * hf;
+            if (row >= row_end) continue;
+#pragma unroll
+            for (int jj = 0; jj < UN / 8; ++jj) {
+              const int u = unit0 + 8 * jj + 2 * tq;
+              float2 mxv[3], mhv[3];
+#pragma unroll
+              for (int gt = 0; gt < 3; ++gt) {
+                const float* sum = tot[mt] + 4 * (3 * jj + gt) + 2 * hf;
+                mxv[gt] = __ldg(reinterpret_cast<const float2*>(mx + (size_t)row * G + gt * U + u));
+                const float2 bb = __ldg(reinterpret_cast<const float2*>(a.brec + gt * U + u));
+                mhv[gt] = make_float2(addf(sum[0], bb.x), addf(sum[1], bb.y));
+              }
+              const float2 hv = __ldcg(reinterpret_cast<const float2*>(hp + (size_t)row * U + u));
+              float hn[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float mxz = e ? mxv[0].y : mxv[0].x, mxr = e ? mxv[1].y : mxv[1].x;
+                const float mxh = e ? mxv[2].y : mxv[2].x;
+                const float mhz = e ? mhv[0].y : mhv[0].x, mhr = e ? mhv[1].y : mhv[1].x;
+                const float mhh = e ? mhv[2].y : mhv[2].x;
+                const float hprev = e ? hv.y : hv.x;
+                const float z = sigmoidf(addf(mxz, mhz));
+                const float rr = sigmoidf(addf(mxr, mhr));
+                const float gg = tanhf(addf(mxh, mulf(rr, mhh)));
+                hn[e] = addf(mulf(z, hprev), mulf(subf(1.f, z), gg));
+              }
+#pragma unroll
+              for (int gt = 0; gt < 3; ++gt)
+                *reinterpret_cast<float2*>(mh + (size_t)row * G + gt * U + u) = mhv[gt];
+              *reinterpret_cast<float2*>(yo + (size_t)row * U + u) = make_float2(hn[0], hn[1]);
+            }
+          }
+      }
+    }
+    // the step's ys are out: every block of the row tile reads them next by TMA
+    fence_proxy_global();
+    bar_sync(1, kThreads);
+    if (tid == 0 && t + 1 < T) tile_arrive(a.ctr + r);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // backward recurrence
 // ---------------------------------------------------------------------------
@@ -408,7 +449,7 @@ struct BwdArgs {
 };
 
 template <int RB, int UN>
-__global__ void __launch_bounds__(kBwdThreads, 1) gru_train_bwd_f32_kernel(const __grid_constant__ BwdArgs a) {
+__global__ void __launch_bounds__(kRecThreads, 1) gru_train_bwd_f32_kernel(const __grid_constant__ BwdArgs a) {
   constexpr bool kSplitK = RB == 64;           // the warpgroups take alternate K stages
   constexpr int MT = RB >= 256 ? 2 : 1;        // m64 tiles of a warpgroup
   constexpr int WROWS = 64 * MT;               // rows of a warpgroup
@@ -618,7 +659,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gru_train_bwd_f32_kernel(const
       for (int ul = 0; ul < 8; ++ul) red[tid * 24 + gt * 8 + ul] = sb[gt][ul];
   }
   __syncthreads();
-  for (int i = tid; i < 3 * UN; i += kBwdThreads) {
+  for (int i = tid; i < 3 * UN; i += kRecThreads) {
     const int gt = i / UN, ul = i % UN;
     float s = 0.f;
     for (int j = ul / 8; j < kThreads; j += QB) s = addf(s, red[j * 24 + gt * 8 + ul % 8]);
@@ -627,7 +668,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gru_train_bwd_f32_kernel(const
   cg::this_grid().sync();
   if (r == 0) {
     const int R = gridDim.x / NG;
-    for (int i = tid; i < 3 * UN; i += kBwdThreads) {
+    for (int i = tid; i < 3 * UN; i += kRecThreads) {
       const int col = (i / UN) * U + unit0 + i % UN;
       float s = 0.f;
       for (int j = 0; j < R; ++j) s = addf(s, __ldcg(a.dbpart + (size_t)j * G + col));
@@ -847,66 +888,78 @@ int launch(void (*kernel)(Args), const Args& a, dim3 grid, int threads, size_t s
   return (int)cudaGetLastError();
 }
 
-// rows a forward row tile holds (a whole number of 128-row chunks; 64 for a
-// lone tile of <= 64 rows): the bf16 kernels' cut, so that both forms share
-// the forward's plans
-int tile_rows(int B, int R) {
-  if (R == 1 && B <= 64) return 64;
-  return round_up((B + R - 1) / R, kChunkRows);
+// the recurrences' cuts (rows, units); a row tile holds whole chunks of `rows`
+bool fwd_cut(int rows, int units) {
+  if (rows == 128) return units == 64 || units == 32;
+  if (rows == 256) return units == 32;
+  return rows == 64 && (units == 8 || units == 16 || units == 32 || units == 64);
 }
-
-int check_plan(int B, int U, int ub, int R) {
-  if (U <= 0 || U % 8 || (ub != 8 && ub != 16) || U % ub || R < 1 ||
-      (R - 1) * tile_rows(B, R) >= B)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// the backward's cuts (rows, units); a row tile holds whole chunks of `rows`
 bool bwd_cut(int rows, int units) {
   if (rows == 128) return units == 64;
   if (rows == 256) return units == 32;
   return rows == 64 && (units == 8 || units == 16 || units == 32 || units == 64 || units == 128);
 }
-int bwd_tile_rows(int B, int R, int rows) { return round_up((B + R - 1) / R, rows); }
+int cut_tile_rows(int B, int R, int rows) { return round_up((B + R - 1) / R, rows); }
+bool cut_takes(int B, int U, int rows, int units, int R) {
+  return U > 0 && U % 8 == 0 && U % units == 0 && R >= 1 &&
+         (R - 1) * cut_tile_rows(B, R, rows) < B;
+}
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int RB, int UN>
+int launch_fwd(const FwdArgs& a, int grid, void* stream) {
+  return launch(gru_train_fwd_f32_kernel<RB, UN>, a, dim3(grid), kFwdThreads, smem_bytes(0, RB, UN),
+                true, stream);
+}
+
+template <int RB, int UN>
 int launch_bwd(const BwdArgs& a, int grid, void* stream) {
-  return launch(gru_train_bwd_f32_kernel<RB, UN>, a, dim3(grid), kBwdThreads,
-                smem_bytes(1, RB, UN, a.U), true, stream);
+  return launch(gru_train_bwd_f32_kernel<RB, UN>, a, dim3(grid), kRecThreads, smem_bytes(1, RB, UN),
+                true, stream);
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a launch takes: part 0 forward (x = ub), 1
-// backward recurrence (x = rows, y = units of its cut), 2 the dWr GEMM.
-extern "C" long long gxt_gru_train_f32_smem(int part, int x, int y, int U) {
-  return (long long)smem_bytes(part, x, y, U);
+// Bytes of dynamic shared memory a launch takes: part 0 forward, 1 backward
+// recurrence (x = rows, y = units of the cut), 2 the dWr GEMM.
+extern "C" long long gxt_gru_train_f32_smem(int part, int x, int y) {
+  return (long long)smem_bytes(part, x, y);
 }
 
-extern "C" int gxt_gru_train_fwd_f32(const float* mxs, const float* h0, const float* wr,
+// `wrt` (2, 3U, KP) is Wr's transpose as tf32 hi and lo parts (KP = U rounded
+// up to 32, zeros past U), row 24 J + 8 gate + c holding column gate U + 8 J +
+// c of Wr; `ctr` (R) must arrive zeroed.
+extern "C" int gxt_gru_train_fwd_f32(const float* mxs, const float* h0, const float* wrt,
                                      const float* brec, float* ys, float* mhs, void* ctr, int T,
-                                     int B, int U, int ub, int R, void* stream) {
+                                     int B, int U, int rows, int units, int R, void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  int code = check_plan(B, U, ub, R);
-  if (code) return code;
-  if (!aligned16(mxs) || !aligned16(h0) || !aligned16(ys) || !aligned16(mhs))
-    return (int)cudaErrorMisalignedAddress;
+  if (!fwd_cut(rows, units) || !cut_takes(B, U, rows, units, R)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {mxs, h0, wrt, ys, mhs};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   FwdArgs a;
-  a.mxs = mxs; a.h0 = h0; a.wr = wr; a.brec = brec; a.ys = ys; a.mhs = mhs;
+  a.KC = (U + kKS - 1) / kKS;
+  const int KP = a.KC * kKS;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int code;
+  if ((code = make_map(&a.tm_h0, h0, U, B, 1, U, kKS, rows, sw))) return code;
+  if ((code = make_map(&a.tm_ys, ys, U, B, T, U, kKS, rows, sw))) return code;
+  if ((code = make_map(&a.tm_wr, wrt, KP, 3 * U, 2, KP, kKS, 3 * units, sw))) return code;
+  a.mxs = mxs; a.h0 = h0; a.brec = brec; a.ys = ys; a.mhs = mhs;
   a.ctr = static_cast<unsigned*>(ctr);
-  a.T = T; a.B = B; a.U = U; a.BR = tile_rows(B, R);
-  const int grid = R * (U / ub);
-  const size_t smem = smem_bytes(0, ub, 0, U);
-  // the m16 tiles a warp takes at once: as many as keep all 8 warps busy, up
-  // to 2 (the accumulators of 48 columns take the registers of more)
-  const int mt = a.BR >= 256 ? 2 : 1;
-  void (*kernel)(FwdArgs) =
-      ub == 8 ? (mt == 2 ? gru_train_fwd_f32_kernel<8, 2> : gru_train_fwd_f32_kernel<8, 1>)
-              : (mt == 2 ? gru_train_fwd_f32_kernel<16, 2> : gru_train_fwd_f32_kernel<16, 1>);
-  return launch(kernel, a, dim3(grid), kThreads, smem, true, stream);
+  a.T = T; a.B = B; a.U = U; a.BR = cut_tile_rows(B, R, rows);
+  a.stages = ring_stages(rows, 3 * units);
+  const int grid = R * (U / units);
+  if (rows == 256) return launch_fwd<256, 32>(a, grid, stream);
+  if (rows == 128) return units == 64 ? launch_fwd<128, 64>(a, grid, stream)
+                                      : launch_fwd<128, 32>(a, grid, stream);
+  switch (units) {
+    case 8: return launch_fwd<64, 8>(a, grid, stream);
+    case 16: return launch_fwd<64, 16>(a, grid, stream);
+    case 32: return launch_fwd<64, 32>(a, grid, stream);
+    default: return launch_fwd<64, 64>(a, grid, stream);
+  }
 }
 
 // `wrs` (2, U, KP) is Wr's tf32 hi and lo parts in the carry product's K
@@ -918,9 +971,7 @@ extern "C" int gxt_gru_train_bwd_f32(const float* mxs, const float* mhs, const f
                                      float* dh0, void* ctr, int T, int B, int U, int rows,
                                      int units, int R, void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (U <= 0 || U % 8 || !bwd_cut(rows, units) || U % units || R < 1 ||
-      (R - 1) * bwd_tile_rows(B, R, rows) >= B)
-    return (int)cudaErrorInvalidValue;
+  if (!bwd_cut(rows, units) || !cut_takes(B, U, rows, units, R)) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {mxs, mhs, ys, dys, h0, wrs, dmxs, plane, dh0};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
@@ -938,8 +989,8 @@ extern "C" int gxt_gru_train_bwd_f32(const float* mxs, const float* mhs, const f
   a.mxs = mxs; a.mhs = mhs; a.ys = ys; a.dys = dys; a.h0 = h0;
   a.dmxs = dmxs; a.plane = plane; a.dbrec = dbrec; a.dbpart = dbpart; a.dh0 = dh0;
   a.ctr = static_cast<unsigned*>(ctr);
-  a.T = T; a.B = B; a.U = U; a.BR = bwd_tile_rows(B, R, rows);
-  a.stages = bwd_stages(rows, units);
+  a.T = T; a.B = B; a.U = U; a.BR = cut_tile_rows(B, R, rows);
+  a.stages = ring_stages(rows, units);
   const int grid = R * (U / units);
   if (rows == 128) return launch_bwd<128, 64>(a, grid, stream);
   if (rows == 256) return launch_bwd<256, 32>(a, grid, stream);
@@ -974,7 +1025,7 @@ extern "C" int gxt_gru_train_dwr_f32(const float* h0, const float* ys, const flo
   a.out = P > 1 ? part : dwr;
   a.T = T; a.B = B; a.U = U; a.P = P;
   const dim3 grid((a.KA + U + kDN - 1) / kDN, (U + kDM - 1) / kDM, P);
-  code = launch(gru_train_dwr_f32_kernel, a, grid, kDThreads, smem_bytes(2, 0, 0, U), false,
+  code = launch(gru_train_dwr_f32_kernel, a, grid, kDThreads, smem_bytes(2, 0, 0), false,
                 stream);
   if (code || P == 1) return code;
   int n4 = 3 * U * U / 4;

@@ -97,9 +97,6 @@ using namespace gxt;
 
 constexpr int kRows = 64;                   // rows of a consumer warpgroup
 constexpr int kMaxThreads = 384;            // two consumer warpgroups and a producer one
-// registers a thread after the producer warpgroup hands its share to the
-// consumers (128 x 40 + 256 x 232 <= 65536)
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kBox = 8192;                  // a 64 x 64 bf16 tile: 64 rows of 128 bytes
 constexpr int kChunk = 48;                  // output columns of one C-wide wgmma
 constexpr int kChunkBytes = kChunk * 128;   // its B rows in a weight tile
@@ -113,15 +110,6 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // ---------------------------------------------------------------------------
 // shared memory, barriers, TMA, wgmma
 // ---------------------------------------------------------------------------
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
 
 // the four warps of consumer warpgroup `wg` meet (named barrier 1 + wg)
 __device__ __forceinline__ void wg_bar(int wg) {

@@ -14,9 +14,8 @@ On CUDA tensors the forward launches ``gxt_gru_train_fwd`` and the backward
 ``gxt_gru_train_bwd`` (the time loop) then ``gxt_gru_train_dwr`` (the
 recurrent weight gradient), or raise: at bf16 those of ``csrc/gru_train.cu``
 (``wgmma``), at f32 the ``_f32`` entry points of ``csrc/gru_train_f32.cu``
-(3xTF32 products: the forward on ``mma.sync``, the backward recurrence and
-dWr on tf32 ``wgmma``). On CPU tensors they run the plain PyTorch versions
-in this module, which round where the kernels round:
+(3xTF32 products on tf32 ``wgmma``). On CPU tensors they run the plain
+PyTorch versions in this module, which round where the kernels round:
 
 * forward, per step: ``mh = h . wr + brec`` summed in f32, **rounded to the
   compute dtype and stored**; the gates use the rounded ``mh``; ``h' = z*h +
@@ -32,12 +31,14 @@ At f32 every rounding to the compute dtype is the identity, as in the JAX
 body at ``compute_dtype=float32``: ``mhs`` and ``dmxs`` are stored in f32.
 
 The kernels cut the work into blocks that each own a row tile of the batch
-and a group of ``ub`` hidden units; :func:`train_plan` picks the cut
-(:class:`TrainPlan`) for the compute dtype (the f32 Wr slice is twice the
-bf16 one, so fewer plans fit) and the wrappers take ``config=`` to force
-one. The f32 backward recurrence streams Wr instead of keeping a slice and
-has cuts of its own (:class:`BwdPlan`, ``train_plan(..., part="bwd")``);
-the f32 dWr GEMM splits K into :func:`dwr_partitions` partitions. They take
+and a group of hidden units; :func:`train_plan` picks the cut and the
+wrappers take ``config=`` to force one. At bf16 both recurrences share a
+:class:`TrainPlan` (``ub`` units, a resident Wr slice). At f32 neither keeps
+a slice: each streams a pre-split Wr operand (:func:`f32_fwd_weight`,
+:func:`f32_bwd_weight`) with its A rows through a ring, and each has cuts
+of its own (:class:`FwdPlan`, :class:`BwdPlan`, ``train_plan(...,
+part=...)``); the f32 dWr GEMM splits K into :func:`dwr_partitions`
+partitions. They take
 U a multiple of 8 with U / 8 blocks co-resident (U <= 1056 on an H100) and
 any B >= 1 in one launch; another U raises ``ValueError`` naming the
 shape. The backward's recurrence writes the third gate of dmh
@@ -51,7 +52,7 @@ the backward's formulas against autograd).
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -67,20 +68,22 @@ LAST_PLAN = {}
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to on an H100
 SMS = 132               # streaming multiprocessors of an H100 SXM
 UNIT_GROUPS = (8, 16, 32)
-F32_UNIT_GROUPS = (8, 16)   # an f32 forward slice of 32 units fits only below U = 590
-# the f32 backward recurrence's cuts (rows, units) of a block: 128 or 256 rows
-# give each of its two warpgroups its own rows; 64 rows (small batches) give
-# them alternate K stages of the same rows
+# the f32 recurrences' cuts (rows, units) of a block: 128 or 256 rows give
+# each of its two warpgroups its own rows; 64 rows (small batches) give them
+# alternate K stages of the same rows. A forward warpgroup holds the f32
+# totals of all its 3 units columns (at most 96 floats a thread: 64 units of
+# 64 rows, 32 of 128)
+F32_FWD_CUTS = ((128, 64), (256, 32), (128, 32), (64, 64), (64, 32), (64, 16), (64, 8))
 F32_BWD_CUTS = ((128, 64), (256, 32), (64, 128), (64, 64), (64, 32), (64, 16), (64, 8))
-F32_BWD_STAGE_K = 32        # K of a ring stage: one 128-byte swizzle row of f32
-F32_BWD_MAX_STAGES = 16
+F32_STAGE_K = 32            # K of a ring stage: one 128-byte swizzle row of f32
+F32_MAX_STAGES = 16
 DWR_TILE = 128              # the f32 dWr GEMM's block tile (M and N)
 DWR_STAGE_ROWS = 32         # K rows of one of its stages
 DWR_MAX_PARTS = 16
 CHUNK_ROWS = 128        # rows of one TMA copy of the recurrences' A operand
 TILE_BYTES = CHUNK_ROWS * 128
 MAX_STAGES = 8
-F32_THREADS = 256       # threads of an f32 forward block, the backward's consumers
+F32_THREADS = 256       # consumer threads of an f32 recurrence block
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -224,65 +227,47 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _f32_stride(k: int) -> int:
-    """Row stride (floats) of an f32 Wr slice row of K columns in shared
-    memory (``ks_of`` of csrc/gru_train_f32.cu): 16 mod 32, no bank conflict."""
-    return _round_up(k, 32) + 16
-
-
-def _no_f32_bwd_slice(part: str, dtype: torch.dtype) -> None:
-    if dtype == torch.float32 and part == "bwd":
-        raise ValueError("the f32 backward keeps no Wr slice: its shared memory is "
-                         "f32_bwd_smem_bytes(rows, units)")
-
-
-def wr_bytes(part: str, ub: int, u: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of a block's resident Wr slice: the forward's 3ub gate
-    columns over K = U, the backward's ub rows over K = 3U. bf16: 64-wide
-    tiles (the backward's dmx columns padded to a multiple of 64, then the
-    plane's U); f32 (the forward alone: the f32 backward streams Wr): rows
-    of :func:`_f32_stride` floats."""
-    _no_f32_bwd_slice(part, dtype)
-    if dtype == torch.float32:
-        return 4 * 3 * ub * _f32_stride(u)
+def wr_bytes(part: str, ub: int, u: int) -> int:
+    """Shared memory of a bf16 block's resident Wr slice in 64-wide tiles:
+    the forward's 3ub gate columns over K = U, the backward's ub rows over
+    K = 3U (dmx's columns padded to a multiple of 64, then the plane's U).
+    The f32 recurrences keep no slice (:func:`f32_fwd_smem_bytes`,
+    :func:`f32_bwd_smem_bytes`)."""
     if part == "fwd":
         return -(-u // 64) * 3 * ub * 128
     return -(-(2 * _round_up(u, 32) + u) // 64) * ub * 128
 
 
-def smem_bytes(part: str, ub: int, u: int, stages: int,
-               dtype: torch.dtype = torch.bfloat16) -> int:
-    """Dynamic shared memory of a recurrence launch (``gxt_gru_train_smem``,
-    ``gxt_gru_train_f32_smem``). bf16: the alignment slack, the Wr slice,
-    the ring of ``stages`` copies and its barriers. f32 forward (no ring:
-    ``stages`` is 0): the slice. The f32 backward's is
-    :func:`f32_bwd_smem_bytes`."""
-    _no_f32_bwd_slice(part, dtype)
-    if dtype == torch.float32:
-        return wr_bytes(part, ub, u, dtype)
+def smem_bytes(part: str, ub: int, u: int, stages: int) -> int:
+    """Dynamic shared memory of a bf16 recurrence launch
+    (``gxt_gru_train_smem``): the alignment slack, the Wr slice, the ring of
+    ``stages`` copies and its barriers."""
     return 1024 + wr_bytes(part, ub, u) + stages * (TILE_BYTES + 16)
 
 
-def ring_stages(part: str, ub: int, u: int, smem_limit: int = SMEM_LIMIT,
-                dtype: torch.dtype = torch.bfloat16) -> int:
-    """bf16: the deepest ring (at most MAX_STAGES) that fits beside the Wr
-    slice; below 2 the unit group does not fit. f32 reads its A operand
-    without a ring: 0."""
-    if dtype == torch.float32:
-        return 0
+def ring_stages(part: str, ub: int, u: int, smem_limit: int = SMEM_LIMIT) -> int:
+    """The deepest bf16 ring (at most MAX_STAGES) that fits beside the Wr
+    slice; below 2 the unit group does not fit."""
     fixed = smem_bytes(part, ub, u, 0)
     return max(0, min(MAX_STAGES, (smem_limit - fixed) // (TILE_BYTES + 16)))
 
 
-def _fits(ub: int, u: int, smem_limit: int, dtype: torch.dtype) -> bool:
-    if dtype == torch.float32:
-        return smem_bytes("fwd", ub, u, 0, dtype) <= smem_limit
+def _fits(ub: int, u: int, smem_limit: int) -> bool:
     return min(ring_stages(p, ub, u, smem_limit) for p in ("fwd", "bwd")) >= 2
 
 
 # ---------------------------------------------------------------------------
-# the f32 backward's cut and dWr's K partitions
+# the f32 recurrences' cuts and dWr's K partitions
 # ---------------------------------------------------------------------------
+
+class FwdPlan(NamedTuple):
+    """Block (r, g) of the f32 forward owns row tile r of ``row_tiles``
+    (whole chunks of ``rows``) and the ``units`` hidden units of group g:
+    ``row_tiles * U / units`` blocks."""
+    rows: int
+    units: int
+    row_tiles: int
+
 
 class BwdPlan(NamedTuple):
     """Block (r, g) of the f32 backward recurrence owns row tile r of
@@ -293,48 +278,84 @@ class BwdPlan(NamedTuple):
     row_tiles: int
 
 
+def f32_fwd_kp(u: int) -> int:
+    """Columns of the forward's split Wr operand: U rounded up to a whole
+    32-wide stage."""
+    return _round_up(u, F32_STAGE_K)
+
+
 def f32_bwd_ka(u: int) -> int:
     """Where the plane's columns start in the carry product's K index space:
     dmx's 2U columns padded with zeros to a multiple of the 32-wide stage."""
-    return _round_up(2 * u, F32_BWD_STAGE_K)
+    return _round_up(2 * u, F32_STAGE_K)
 
 
 def f32_bwd_kp(u: int) -> int:
-    """Columns of the split Wr operand: KA + U rounded up to a whole stage."""
-    return _round_up(f32_bwd_ka(u) + u, F32_BWD_STAGE_K)
+    """Columns of the backward's split Wr operand: KA + U rounded up to a
+    whole stage."""
+    return _round_up(f32_bwd_ka(u) + u, F32_STAGE_K)
+
+
+def _f32_ring(rows: int, n: int, smem_limit: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of an f32 recurrence block whose
+    B operand has ``n`` rows (``ring_stages`` / ``ring_smem`` of
+    csrc/gru_train_f32.cu): the alignment slack; each stage's A rows and
+    the block's B hi and lo rows, 128 bytes each, and its two barriers;
+    where the warpgroups take alternate stages (64 rows), the second one's
+    sums, n / 2 floats a thread."""
+    stage = (rows + 2 * n) * 128
+    xchg = 128 * (n // 2) * 4 if rows == 64 else 0
+    stages = min(F32_MAX_STAGES, (smem_limit - 1024 - xchg) // (stage + 16))
+    return stages, 1024 + stages * (stage + 16) + xchg
+
+
+def f32_fwd_smem_bytes(rows: int, units: int, smem_limit: int = SMEM_LIMIT) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of a forward block of the cut
+    (``smem_bytes(0, ...)`` of csrc/gru_train_f32.cu): a stage holds the
+    chunk's h rows and the block's 3 units rows of Wr^T, hi and lo."""
+    return _f32_ring(rows, 3 * units, smem_limit)
 
 
 def f32_bwd_smem_bytes(rows: int, units: int, smem_limit: int = SMEM_LIMIT) -> Tuple[int, int]:
     """(ring stages, dynamic shared memory) of a backward block of the cut
-    (``bwd_stages`` / ``smem_bytes(1, ...)`` of csrc/gru_train_f32.cu): the
-    alignment slack; each stage's dmh rows and the block's Wr hi and lo
-    rows, 128 bytes each, and its two barriers; where the warpgroups take
-    alternate stages (64 rows), the second one's sums."""
-    stage = (rows + 2 * units) * 128
-    xchg = 128 * (units // 2) * 4 if rows == 64 else 0
-    stages = min(F32_BWD_MAX_STAGES, (smem_limit - 1024 - xchg) // (stage + 16))
-    return stages, 1024 + stages * (stage + 16) + xchg
+    (``smem_bytes(1, ...)`` of csrc/gru_train_f32.cu): a stage holds the
+    chunk's dmh rows and the block's ``units`` rows of Wr, hi and lo."""
+    return _f32_ring(rows, units, smem_limit)
 
 
-def f32_bwd_tile_rows(b: int, r: int, rows: int) -> int:
-    """Rows of one backward row tile: whole chunks of the cut's rows."""
+def f32_tile_rows(b: int, r: int, rows: int) -> int:
+    """Rows of one f32 row tile: whole chunks of the cut's rows."""
     return _round_up(-(-b // r), rows)
 
 
-def f32_bwd_plans(b: int, u: int, sms: int = SMS,
-                  smem_limit: int = SMEM_LIMIT) -> List[BwdPlan]:
-    """Every cut the f32 backward recurrence takes at (B, U): ``units``
-    divides U, all blocks co-resident (one a multiprocessor), no empty row
-    tile, a ring of at least two stages."""
+def _f32_plans(b: int, u: int, part: str, sms: int, smem_limit: int) -> list:
+    """Every cut an f32 recurrence takes at (B, U): ``units`` divides U, all
+    blocks co-resident (one a multiprocessor), no empty row tile, a ring of
+    at least two stages."""
     out = []
     if b <= 0 or u <= 0 or u % 8:
         return out
-    for rows, units in F32_BWD_CUTS:
-        if u % units or f32_bwd_smem_bytes(rows, units, smem_limit)[0] < 2:
+    cuts, smem, plan = ((F32_FWD_CUTS, f32_fwd_smem_bytes, FwdPlan) if part == "fwd"
+                        else (F32_BWD_CUTS, f32_bwd_smem_bytes, BwdPlan))
+    for rows, units in cuts:
+        if u % units or smem(rows, units, smem_limit)[0] < 2:
             continue
-        out += [BwdPlan(rows, units, r) for r in range(1, sms // (u // units) + 1)
-                if (r - 1) * f32_bwd_tile_rows(b, r, rows) < b]
+        out += [plan(rows, units, r) for r in range(1, sms // (u // units) + 1)
+                if (r - 1) * f32_tile_rows(b, r, rows) < b]
     return out
+
+
+def _fwd_plan_cost(plan: FwdPlan, b: int, u: int) -> Tuple[int, bool, int, int]:
+    """More blocks first, then cuts whose two warpgroups each own their rows
+    (at 64 rows they take alternate stages, each stage's operands feeding
+    one), then wider unit groups (each h fragment a warpgroup splits feeds
+    a wider product), then fewer bytes a block streams a step (its chunks
+    of h rows and its 3 units rows of Wr^T, hi and lo, again for each
+    chunk): the order of ``tools/torch_kernel_bench.py --only train_f32
+    --sweep`` on an H100 at U = 1024 (PERF.md)."""
+    chunks = f32_tile_rows(b, plan.row_tiles, plan.rows) // plan.rows
+    return (-plan.row_tiles * (u // plan.units), plan.rows == 64, -plan.units,
+            chunks * (plan.rows + 6 * plan.units))
 
 
 def _bwd_plan_cost(plan: BwdPlan, b: int, u: int) -> Tuple[int, int, int]:
@@ -343,9 +364,29 @@ def _bwd_plan_cost(plan: BwdPlan, b: int, u: int) -> Tuple[int, int, int]:
     streams a step (its chunks of dmh rows and its Wr rows, hi and lo,
     again for each chunk): the order of ``tools/torch_kernel_bench.py
     --only train_f32 --sweep`` on an H100 at U = 1024 (PERF.md)."""
-    chunks = f32_bwd_tile_rows(b, plan.row_tiles, plan.rows) // plan.rows
+    chunks = f32_tile_rows(b, plan.row_tiles, plan.rows) // plan.rows
     return (-plan.row_tiles * (u // plan.units), -plan.units,
             chunks * (plan.rows + 2 * plan.units))
+
+
+def f32_fwd_weight(wr: torch.Tensor) -> torch.Tensor:
+    """Wr (U, 3U) as the f32 forward's B operand: (2, 3U, KP) f32, the tf32
+    hi parts of Wr's transpose then the lo parts (``tf32_split``, as
+    ``split_tf32`` of csrc/mma_common.cuh splits), K = U contiguous and
+    zeros to :func:`f32_fwd_kp`. Row 24 J + 8 gate + c is column gate * U +
+    8 J + c of Wr: the z, r and h columns of each 8 units together, so a
+    block of units u0.. reads rows 3 u0.. and a lane's accumulators hold
+    the three gates of the same units. Made once a call."""
+    from ggml_experiments_tpu_torch.ops.fused_transformer_layer import tf32_split
+
+    u = wr.shape[0]
+    j, gate, c = torch.meshgrid(torch.arange(u // 8), torch.arange(3), torch.arange(8),
+                                indexing="ij")
+    cols = (gate * u + 8 * j + c).reshape(-1).to(wr.device)
+    out = torch.zeros((2, 3 * u, f32_fwd_kp(u)), dtype=torch.float32, device=wr.device)
+    for i, part in enumerate(tf32_split(wr)):
+        out[i, :, :u] = part.t()[cols]
+    return out
 
 
 def f32_bwd_weight(wr: torch.Tensor) -> torch.Tensor:
@@ -389,18 +430,19 @@ def dwr_partitions(t_len: int, b: int, u: int, sms: int = SMS) -> int:
 
 def train_plans(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
                 dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> list:
-    """Every plan the kernels of ``dtype`` take at (B, U): ``ub`` divides U,
-    all blocks co-resident (one a multiprocessor), no empty row tile, both
-    passes in shared memory (bf16: with a ring of at least two stages). The
-    f32 backward recurrence (``part="bwd"``) has cuts of its own,
-    :func:`f32_bwd_plans`; elsewhere the backward takes the forward's plan."""
-    if dtype == torch.float32 and part == "bwd":
-        return f32_bwd_plans(b, u, sms, smem_limit)
+    """Every plan the kernels of ``dtype`` take at (B, U). bf16: the
+    :class:`TrainPlan` both passes share, ``ub`` dividing U, all blocks
+    co-resident (one a multiprocessor), no empty row tile, both passes in
+    shared memory with a ring of at least two stages. f32: the cuts of the
+    recurrence ``part`` names (:class:`FwdPlan` or :class:`BwdPlan`),
+    under the same rules."""
+    if dtype == torch.float32:
+        return _f32_plans(b, u, part, sms, smem_limit)
     out = []
     if b <= 0 or u <= 0 or u % 8:
         return out
-    for ub in F32_UNIT_GROUPS if dtype == torch.float32 else UNIT_GROUPS:
-        if u % ub or not _fits(ub, u, smem_limit, dtype):
+    for ub in UNIT_GROUPS:
+        if u % ub or not _fits(ub, u, smem_limit):
             continue
         r = 1
         while r * (u // ub) <= sms and (r - 1) * tile_rows(b, r) < b:
@@ -419,14 +461,14 @@ def _plan_cost(plan: TrainPlan, b: int, u: int) -> Tuple[int, int]:
 
 def train_plan(b: int, u: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
                dtype: torch.dtype = torch.bfloat16, part: str = "fwd"):
-    """The default plan at (B, U) for the kernels of ``dtype`` (at f32 with
-    ``part="bwd"``, the backward recurrence's :class:`BwdPlan`); ValueError
-    when they take no plan."""
+    """The default plan at (B, U) for the kernels of ``dtype`` (at f32, the
+    :class:`FwdPlan` or :class:`BwdPlan` of the recurrence ``part`` names);
+    ValueError when they take no plan."""
     plans = train_plans(b, u, sms, smem_limit, dtype, part)
     if not plans:
         raise ValueError(f"fused_gru_train: no plan takes (B, U) = ({b}, {u}) on {sms} "
                          f"multiprocessors: U must be a multiple of 8 with U / 8 <= {sms}")
-    cost = _bwd_plan_cost if isinstance(plans[0], BwdPlan) else _plan_cost
+    cost = {FwdPlan: _fwd_plan_cost, BwdPlan: _bwd_plan_cost}.get(type(plans[0]), _plan_cost)
     return min(plans, key=lambda p: cost(p, b, u))
 
 
@@ -479,35 +521,33 @@ def _resolve_plan(entry: str, part: str, config, t_len: int, b: int, u: int, dev
                   cd: torch.dtype = torch.bfloat16):
     """(plan, ring stages) for a launch: the default plan, or ``config`` if
     the kernels take it; the wrapper's shared-memory reckoning is held
-    against the kernel's. The f32 backward's plan is a :class:`BwdPlan`."""
+    against the kernel's. An f32 plan is a :class:`FwdPlan` or
+    :class:`BwdPlan` (its ring's stages the kernel's own: 0 here)."""
     sms, limit = _device_limits(dev)
     plans = train_plans(b, u, sms, limit, cd, part)
     shape = f"(T, B, U) = ({t_len}, {b}, {u})"
     if not plans:
         raise ValueError(f"{entry}: the kernel takes U a multiple of 8 up to {8 * sms} on this "
                          f"device ({sms} multiprocessors), got {shape}")
-    f32_bwd = cd == torch.float32 and part == "bwd"
+    f32 = cd == torch.float32
     if config is None:
         plan = train_plan(b, u, sms, limit, cd, part)
     else:
-        plan = BwdPlan(*config) if f32_bwd else TrainPlan(*config)
+        plan = type(plans[0])(*config)
     if plan not in plans:
         raise ValueError(f"{entry}: plan {tuple(plan)} does not take {shape} on this device; "
                          f"it takes {[tuple(p) for p in plans]}")
     part_no = 0 if part == "fwd" else 1
-    if f32_bwd:
+    if f32:
         stages = 0
         source = "gru_train_f32.cu"
-        need = _lib_f32().gxt_gru_train_f32_smem(1, plan.rows, plan.units, u)
-        want = f32_bwd_smem_bytes(plan.rows, plan.units)[1]
-    elif cd == torch.float32:
-        stages = 0
-        source, need = "gru_train_f32.cu", _lib_f32().gxt_gru_train_f32_smem(0, plan.ub, 0, u)
-        want = smem_bytes(part, plan.ub, u, stages, cd)
+        need = _lib_f32().gxt_gru_train_f32_smem(part_no, plan.rows, plan.units)
+        want = (f32_fwd_smem_bytes if part == "fwd" else f32_bwd_smem_bytes)(plan.rows,
+                                                                              plan.units)[1]
     else:
-        stages = ring_stages(part, plan.ub, u, limit, cd)
+        stages = ring_stages(part, plan.ub, u, limit)
         source, need = "gru_train.cu", _lib().gxt_gru_train_smem(part_no, plan.ub, u, stages)
-        want = smem_bytes(part, plan.ub, u, stages, cd)
+        want = smem_bytes(part, plan.ub, u, stages)
     if need != want:
         raise RuntimeError(f"{entry}: csrc/{source} takes {need} bytes of shared memory "
                            f"for {tuple(plan)} at U={u}, smem_bytes {want}")
@@ -537,13 +577,13 @@ def _lib_f32():
     lib = _build.load("gru_train_f32")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gxt_gru_train_fwd_f32.restype = i
-    lib.gxt_gru_train_fwd_f32.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.gxt_gru_train_fwd_f32.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.gxt_gru_train_bwd_f32.restype = i
     lib.gxt_gru_train_bwd_f32.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.gxt_gru_train_dwr_f32.restype = i
     lib.gxt_gru_train_dwr_f32.argtypes = [p] * 6 + [i] * 4 + [p]
     lib.gxt_gru_train_f32_smem.restype = ctypes.c_longlong
-    lib.gxt_gru_train_f32_smem.argtypes = [i] * 4
+    lib.gxt_gru_train_f32_smem.argtypes = [i] * 3
     return lib
 
 
@@ -553,8 +593,8 @@ def _stream(dev) -> int:
 
 def gru_train_fwd_cuda(mxs, h0, wr, brec, config=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on operands in the compute dtype (bf16 or
-    f32; ``brec`` f32): (ys, mhs). ``config`` forces a plan, ``(ub,
-    row_tiles)``."""
+    f32; ``brec`` f32): (ys, mhs). ``config`` forces a plan: ``(ub,
+    row_tiles)`` at bf16, ``(rows, units, row_tiles)`` at f32."""
     from ggml_experiments_tpu_torch import _build
 
     cd = _compute_dtype("fused_gru_train_fwd", mxs)
@@ -572,8 +612,10 @@ def gru_train_fwd_cuda(mxs, h0, wr, brec, config=None) -> Tuple[torch.Tensor, to
         return ys, mhs
     plan, stages = _resolve_plan(entry, "fwd", config, t_len, b, u, dev, cd)
     ctr = torch.zeros((plan.row_tiles,), dtype=torch.int32, device=dev)
-    ptrs = (mxs.data_ptr(), h0.data_ptr(), wr.data_ptr(), brec.data_ptr(), ys.data_ptr(),
-            mhs.data_ptr(), ctr.data_ptr(), t_len, b, u, plan.ub, plan.row_tiles)
+    # the f32 kernel streams Wr^T's tf32 parts, split here once a call
+    wop = f32_fwd_weight(wr) if cd == torch.float32 else wr
+    ptrs = (mxs.data_ptr(), h0.data_ptr(), wop.data_ptr(), brec.data_ptr(), ys.data_ptr(),
+            mhs.data_ptr(), ctr.data_ptr(), t_len, b, u, *plan)
     with torch.cuda.device(dev):
         if cd == torch.float32:
             lib = _lib_f32()
@@ -755,8 +797,8 @@ def fused_gru_scan_plain(mxs, h0, wr, brec, compute_dtype=torch.bfloat16) -> tor
     return _FusedGRUScan.apply(mxs, h0, wr, brec, compute_dtype, True)
 
 
-__all__ = ["BwdPlan", "LAST_PLAN", "LAUNCHES", "PLAIN_CALLS", "TrainPlan", "dwr_partitions",
-           "f32_bwd_weight", "fused_gru_scan",
+__all__ = ["BwdPlan", "FwdPlan", "LAST_PLAN", "LAUNCHES", "PLAIN_CALLS", "TrainPlan",
+           "dwr_partitions", "f32_bwd_weight", "f32_fwd_weight", "fused_gru_scan",
            "fused_gru_scan_plain", "gru_train_bwd_cuda", "gru_train_bwd_plain",
            "gru_train_bwd_rec_cuda", "gru_train_bwd_rec_plain", "gru_train_dwr_cuda",
            "gru_train_dwr_plain", "gru_train_fwd_cuda", "gru_train_fwd_plain", "kernels_take",

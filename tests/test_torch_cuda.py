@@ -648,7 +648,7 @@ def f32_pair_check(dev, t, b, u, config=None, bwd_config=None):
     torch.cuda.synchronize()
     assert ft.LAUNCHES == {k: v + 2 * (k in TRAIN_F32) for k, v in before.items()}
     if config is not None:
-        assert ft.LAST_PLAN["fused_gru_train_fwd_f32"] == ft.TrainPlan(*config)
+        assert ft.LAST_PLAN["fused_gru_train_fwd_f32"] == ft.FwdPlan(*config)
     if bwd_config is not None:
         assert ft.LAST_PLAN["fused_gru_train_bwd_f32"] == ft.BwdPlan(*bwd_config)
     assert ys.dtype == mhs.dtype == torch.float32
@@ -670,7 +670,7 @@ def test_train_f32_pair_matches_plain_and_repeats_bit_equal(dev, t, b, u):
 @pytest.mark.parametrize("b", [1, 64, 1024, 1761])
 def test_train_f32_every_plan_matches_plain(dev, b):
     """Each plan the f32 kernels take at U = 1024, forced: the forward's
-    (ub, R), and the backward recurrence's own (rows, units, R)."""
+    (rows, units, R), and the backward recurrence's own."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -713,15 +713,45 @@ def test_train_f32_ragged_batches_match_plain(dev, b):
 def test_train_f32_narrow_and_seam_widths_match_plain(dev, u):
     """U = 96 lies below one 64-unit group; at U = 200 the dmx / plane seam
     at column 2U = 400 falls inside a 32-wide K stage of the carry product
-    and inside a 128-wide dWr tile. The default plans, then every backward
-    cut that takes the width, each launched twice and bit-equal."""
+    and inside a 128-wide dWr tile, and the forward's K = 200 ends inside
+    its last stage. The default plans, then every forward and backward cut
+    that takes the width, each launched twice and bit-equal."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     f32_pair_check(dev, 4, 130, u)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for rows, units in {(p.rows, p.units) for p in
+                        ft.train_plans(130, u, sms, dtype=torch.float32)}:
+        f32_fwd_check(dev, 4, 130, u, (rows, units, 1))
+    for rows, units in {(p.rows, p.units) for p in
                         ft.train_plans(130, u, sms, dtype=torch.float32, part="bwd")}:
         f32_bwd_check(dev, 4, 130, u, (rows, units, 1))
+
+
+def f32_fwd_check(dev, t, b, u, config):
+    """The f32 forward on a forced plan against its plain version, launched
+    twice and bit-equal."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    mxs, h0, wr, brec, _ = train_operands(dev, t, b, u, cd=torch.float32)
+    ys, mhs = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
+    ys2, mhs2 = ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=config)
+    torch.cuda.synchronize()
+    assert ft.LAST_PLAN["fused_gru_train_fwd_f32"] == ft.FwdPlan(*config)
+    assert torch.equal(ys, ys2) and torch.equal(mhs, mhs2), config
+    pys, pmhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+    assert rel_max(ys, pys) <= F32_FWD_REL and rel_max(mhs, pmhs) <= F32_FWD_REL, (
+        config, rel_max(ys, pys), rel_max(mhs, pmhs))
+
+
+def test_train_f32_every_forward_cut_repeats_bit_equal(dev):
+    """Each of the forward's cuts at (T, B, U) = (3, 300, 256), forced with
+    one and with two row tiles."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    for rows, units in ft.F32_FWD_CUTS:
+        for r in (1, 2):
+            f32_fwd_check(dev, 3, 300, 256, (rows, units, r))
 
 
 def test_train_f32_every_backward_cut_repeats_bit_equal(dev):

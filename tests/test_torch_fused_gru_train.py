@@ -242,16 +242,30 @@ def test_empty_sequence_and_cuda_wrapper_checks():
 @pytest.mark.parametrize("u", [16, 96, 1024])
 @pytest.mark.parametrize("b", [1, 31, 64, 1024, 1761, 3000, 16384])
 def test_train_plans_cover_the_batch_and_fit(b, u, dtype):
-    """Every plan's row tiles cover the batch with none empty, its blocks are
-    co-resident (one a multiprocessor), ``ub`` divides U and both passes fit
-    the H100's shared memory: at bf16 with a ring of at least two stages, at
-    f32 (no ring) the forward's Wr slice of f32 rows, and the f32 backward's
-    own cuts with a ring of at least two stages."""
+    """Every plan's row tiles cover the batch with none empty and its blocks
+    are co-resident (one a multiprocessor). bf16: ``ub`` divides U and both
+    passes fit the H100's shared memory with a ring of at least two stages.
+    f32: each recurrence's own cuts, whose ``units`` divide U, with a ring
+    of at least two stages."""
     cd = DTYPES[dtype][0]
     plans = ft.train_plans(b, u, dtype=cd)
     assert plans and ft.train_plan(b, u, dtype=cd) in plans
+    if cd == torch.float32:
+        for part, cuts, smem in (("fwd", ft.F32_FWD_CUTS, ft.f32_fwd_smem_bytes),
+                                 ("bwd", ft.F32_BWD_CUTS, ft.f32_bwd_smem_bytes)):
+            got = ft.train_plans(b, u, dtype=cd, part=part)
+            assert got and ft.train_plan(b, u, dtype=cd, part=part) in got
+            for plan in got:
+                assert (plan.rows, plan.units) in cuts and u % plan.units == 0
+                assert plan.row_tiles * (u // plan.units) <= ft.SMS
+                rows = ft.f32_tile_rows(b, plan.row_tiles, plan.rows)
+                assert rows % plan.rows == 0 and rows * plan.row_tiles >= b
+                assert (plan.row_tiles - 1) * rows < b      # the last tile holds a row
+                stages, need = smem(plan.rows, plan.units)
+                assert 2 <= stages <= ft.F32_MAX_STAGES and need <= ft.SMEM_LIMIT
+        return
     for plan in plans:
-        assert plan.ub in (ft.F32_UNIT_GROUPS if cd == torch.float32 else ft.UNIT_GROUPS)
+        assert plan.ub in ft.UNIT_GROUPS
         assert u % plan.ub == 0
         assert plan.row_tiles * (u // plan.ub) <= ft.SMS
         rows = ft.tile_rows(b, plan.row_tiles)
@@ -259,29 +273,11 @@ def test_train_plans_cover_the_batch_and_fit(b, u, dtype):
         assert (plan.row_tiles - 1) * rows < b      # the last tile holds a row
         assert rows % ft.CHUNK_ROWS == 0 or (rows == 64 and b <= 64)
         for part in ("fwd", "bwd"):
-            if cd == torch.float32:
-                assert ft.ring_stages(part, plan.ub, u, dtype=cd) == 0
-                if part == "fwd":
-                    need = ft.smem_bytes(part, plan.ub, u, 0, cd)
-                    assert ft.wr_bytes(part, plan.ub, u, cd) <= need <= ft.SMEM_LIMIT
-                continue
             stages = ft.ring_stages(part, plan.ub, u)
             assert 2 <= stages <= ft.MAX_STAGES
             assert ft.smem_bytes(part, plan.ub, u, stages) <= ft.SMEM_LIMIT
             assert ft.smem_bytes(part, plan.ub, u, stages + 1) > ft.SMEM_LIMIT \
                 or stages == ft.MAX_STAGES
-    if cd != torch.float32:
-        return
-    bwd = ft.train_plans(b, u, dtype=cd, part="bwd")
-    assert bwd and ft.train_plan(b, u, dtype=cd, part="bwd") in bwd
-    for plan in bwd:
-        assert (plan.rows, plan.units) in ft.F32_BWD_CUTS and u % plan.units == 0
-        assert plan.row_tiles * (u // plan.units) <= ft.SMS
-        rows = ft.f32_bwd_tile_rows(b, plan.row_tiles, plan.rows)
-        assert rows % plan.rows == 0 and rows * plan.row_tiles >= b
-        assert (plan.row_tiles - 1) * rows < b
-        stages, need = ft.f32_bwd_smem_bytes(plan.rows, plan.units)
-        assert 2 <= stages <= ft.F32_BWD_MAX_STAGES and need <= ft.SMEM_LIMIT
 
 
 def test_train_plan_at_the_training_width():
@@ -304,35 +300,102 @@ def test_train_plan_at_the_training_width():
 
 
 def test_f32_train_plans_at_the_training_width():
-    """The f32 forward's Wr slice is twice the bf16 one (f32 rows of U + 16
-    floats): 32 units do not fit at U = 1024, 16 do, so its plans are (8, 1),
-    (16, 1), (16, 2) and the default the most blocks, then the fewest rows a
-    block. The f32 backward keeps no slice: it streams Wr, so its ring does
-    not depend on U, and its cuts (rows, units, R) are its own, the default
-    the most blocks, then the widest unit group, then the fewest bytes a
-    block streams a step: 64 rows x 128 units at B = 1024, 64 x 8 at B =
-    64. Every width the bf16 pair takes, the f32 pair takes."""
+    """Neither f32 recurrence keeps a Wr slice (the forward's of 16 units
+    took 199680 bytes, so 32 did not fit at U = 1024): each streams a Wr
+    operand split once a call, so its shared memory does not depend on U,
+    and each has cuts (rows, units, R) of its own. The forward's default:
+    the most blocks, then a cut whose warpgroups each own their rows, then
+    the widest unit group, then the fewest bytes a block streams a step:
+    128 rows x 64 units at B = 1024, 128 x 32 at B = 512, 64 x 8 at B = 64.
+    The backward's: the most blocks, then the
+    widest unit group, then the fewest bytes a block streams a step: 64
+    rows x 128 units at B = 1024, 64 x 8 at B = 64. Every width the bf16
+    pair takes, the f32 pair takes."""
     f32 = torch.float32
-    assert ft.wr_bytes("fwd", 16, 1024, f32) == 48 * 1040 * 4 == 199680
-    with pytest.raises(ValueError, match="no Wr slice"):
-        ft.wr_bytes("bwd", 16, 1024, f32)
-    assert ft.wr_bytes("fwd", 32, 1024, f32) > ft.SMEM_LIMIT
-    with pytest.raises(ValueError, match="f32_bwd_smem_bytes"):
-        ft.smem_bytes("bwd", 8, 16, 0, f32)
-    assert [tuple(p) for p in ft.train_plans(1024, 1024, dtype=f32)] == [(8, 1), (16, 1), (16, 2)]
-    assert [tuple(ft.train_plan(b, 1024, dtype=f32)) for b in (1, 64, 256, 1024, 4096)] == [
-        (8, 1), (8, 1), (16, 2), (16, 2), (16, 2)]
+    assert ft.f32_fwd_smem_bytes(128, 32) == (5, 1024 + 5 * ((128 + 3 * 32 * 2) * 128 + 16))
+    assert ft.f32_fwd_smem_bytes(128, 32)[1] > 199680
+    assert [tuple(p) for p in ft.train_plans(64, 1024, dtype=f32)] == [
+        (128, 64, 1), (256, 32, 1), (128, 32, 1), (64, 64, 1), (64, 32, 1), (64, 16, 1),
+        (64, 8, 1)]
+    full = [tuple(p) for p in ft.train_plans(1024, 1024, dtype=f32)
+            if p.row_tiles * (1024 // p.units) == ft.SMS - 4]
+    assert full == [(128, 64, 8), (256, 32, 4), (128, 32, 4), (64, 64, 8), (64, 32, 4),
+                    (64, 16, 2), (64, 8, 1)]
+    assert [tuple(ft.train_plan(b, 1024, dtype=f32)) for b in (1, 64, 256, 512, 1024, 4096)] == [
+        (64, 8, 1), (64, 8, 1), (64, 32, 4), (128, 32, 4), (128, 64, 8), (128, 64, 8)]
     assert [tuple(ft.train_plan(b, 1024, dtype=f32, part="bwd"))
             for b in (1, 64, 65, 512, 1024, 2048, 4096)] == [
         (64, 8, 1), (64, 8, 1), (64, 16, 2), (64, 64, 8), (64, 128, 16), (64, 128, 16),
         (64, 128, 16)]
-    # 32 units would fit only below U = 590: the f32 forward takes 8 and 16
-    assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32)] == [(8, 1), (16, 1)]
     # U = 96 on the cuts whose unit groups divide it, one row tile of B = 64
+    assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32)] == [
+        (256, 32, 1), (128, 32, 1), (64, 32, 1), (64, 16, 1), (64, 8, 1)]
     assert [tuple(p) for p in ft.train_plans(64, 96, dtype=f32, part="bwd")] == [
         (256, 32, 1), (64, 32, 1), (64, 16, 1), (64, 8, 1)]
     assert all(ft.kernels_take(u, dtype=f32) for u in range(8, 8 * ft.SMS + 1, 8))
     assert not any(ft.kernels_take(u, dtype=f32) for u in (4, 100, 8 * ft.SMS + 8))
+
+
+# (rows, units) -> (ring stages, bytes) of an f32 forward block, reckoned from
+# the kernel's layout: 1024 bytes of alignment slack; a stage of the chunk's h
+# rows and the block's 3 units rows of Wr^T hi and lo, 128 bytes each, and its
+# full / empty barriers (16 bytes); at 64 rows the second warpgroup's sums
+# (128 threads x 3 units / 2 floats); as many stages as fit 232448 bytes
+F32_FWD_SMEM = {(128, 64): (3, 1024 + 3 * (512 * 128 + 16)),
+                (256, 32): (4, 1024 + 4 * (448 * 128 + 16)),
+                (128, 32): (5, 1024 + 5 * (320 * 128 + 16)),
+                (64, 64): (3, 1024 + 3 * (448 * 128 + 16) + 128 * 96 * 4),
+                (64, 32): (6, 1024 + 6 * (256 * 128 + 16) + 128 * 48 * 4),
+                (64, 16): (10, 1024 + 10 * (160 * 128 + 16) + 128 * 24 * 4),
+                (64, 8): (15, 1024 + 15 * (112 * 128 + 16) + 128 * 12 * 4)}
+
+
+@pytest.mark.parametrize("u", [1024, 96, 104, 200])
+def test_f32_forward_smem_follows_the_kernel_layout(u):
+    """Each forward cut's ring and bytes as the kernel lays them out,
+    whatever U: h and Wr^T stream through the ring, so no width changes a
+    block's memory. Each fits an H100 block with a ring of at least three
+    stages."""
+    assert set(F32_FWD_SMEM) == set(ft.F32_FWD_CUTS)
+    plans = ft.train_plans(1024, u, dtype=torch.float32)
+    assert plans
+    for plan in plans:
+        stages, need = ft.f32_fwd_smem_bytes(plan.rows, plan.units)
+        assert (stages, need) == F32_FWD_SMEM[(plan.rows, plan.units)]
+        assert 3 <= stages and need <= ft.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("u", [16, 24, 96])
+def test_f32_forward_weight_is_wr_transposed_split_in_tf32_in_gate_order(u):
+    """The f32 forward's B operand: hi and lo exact in tf32 (the low 13
+    mantissa bits zero), hi + lo = Wr^T within 2^-22 relative, row 24 J + 8
+    gate + c holding column gate * U + 8 J + c of Wr (the three gates of
+    each 8 units together, the order a lane's accumulators take), K = U
+    contiguous, zeros from U to KP (a whole 32-wide stage)."""
+    w = torch.tensor(np.random.default_rng(u).normal(0, 1, (u, 3 * u)), dtype=torch.float32)
+    op = ft.f32_fwd_weight(w)
+    kp = ft.f32_fwd_kp(u)
+    assert kp % 32 == 0 and kp - 32 < u <= kp
+    assert op.shape == (2, 3 * u, kp) and op.dtype == torch.float32
+    hi, lo = op[0], op[1]
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+        assert not part[:, u:].any()
+    order = [gate * u + 8 * j + c for j in range(u // 8) for gate in range(3) for c in range(8)]
+    want = w.t()[order]
+    back = (hi + lo)[:, :u]
+    assert float(((back.double() - want.double()).abs() / want.double().abs()).max()) <= 2.0 ** -22
+    assert float((hi[:, :u] - want).abs().max()) <= 2.0 ** -10 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("plan", [(96, 64, 1), (256, 64, 1), (64, 128, 1), (64, 8, 2),
+                                  (128, 64, 3)])
+def test_f32_forward_plans_refuse_what_the_kernel_does_not_take(plan):
+    """At (B, U) = (64, 1024): a cut that is not one of the forward's (96
+    rows; 256 rows of 64 units and the backward's 64 x 128, whose f32
+    totals would take 192 registers a thread), an empty row tile: none is
+    offered, so a forced ``config`` is refused."""
+    assert ft.FwdPlan(*plan) not in ft.train_plans(64, 1024, dtype=torch.float32)
 
 
 # (rows, units) -> (ring stages, bytes) of an f32 backward block, reckoned from
@@ -513,7 +576,7 @@ def test_the_f32_kernel_symbols_are_their_launch_counters():
 
     anon = "(anonymous namespace)::"
     symbols = {
-        f"void {anon}gru_train_fwd_f32_kernel<16>({anon}FwdArgs)": "fused_gru_train_fwd_f32",
+        f"void {anon}gru_train_fwd_f32_kernel<128, 64>({anon}FwdArgs)": "fused_gru_train_fwd_f32",
         f"void {anon}gru_train_bwd_f32_kernel<128, 64>({anon}BwdArgs)": "fused_gru_train_bwd_f32",
         f"void {anon}gru_train_dwr_f32_kernel({anon}DwrArgs)": "fused_gru_train_dwr_f32",
         f"{anon}gru_train_dwr_f32_reduce(const float4*, float4*, int, int)":

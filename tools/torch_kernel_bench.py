@@ -58,7 +58,9 @@ Its f32 form (``train_f32``, where the checkout has one) runs at (B, T) =
 backward recurrence and dWr, ``torch.matmul`` f32 of dWr's whole product
 and cuDNN's f32 GRU (TF32 off for both), dWr's distance to its plain
 version and to the f64 sum, and the 3xTF32 bound; ``--sweep`` times the
-recurrence on every backward plan the checkout takes.
+forward on every forward plan the checkout's ``train_plans(...,
+dtype=float32)`` offers and the recurrence on every backward plan it takes
+(each forced through ``config=``, whatever form the checkout's plans have).
 
 The fused transformer layer (``layer``) runs at the 9 launch shapes of a
 MobileViT-small forward at B=128 on seeded random weights: the layer as one
@@ -450,8 +452,10 @@ def train_f32_cells(sweep):
     (``call``), ``torch.matmul`` f32 of dWr's product on the same operands
     and cuDNN's f32 GRU (TF32 off for both), dWr's distance to its plain
     version and to the f64 sum (and the plain version's), the 3xTF32 bound;
-    with ``sweep``, the recurrence on every backward plan the checkout takes
-    (its own backward cuts where it has them, else the forward's plans)."""
+    with ``sweep``, the forward on every forward plan the checkout's
+    ``train_plans(..., dtype=float32)`` offers and the recurrence on every
+    backward plan it takes (its own backward cuts where it has them, else
+    the forward's plans), each forced through ``config=``."""
     from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
 
     params = inspect.signature(ft.train_plans).parameters
@@ -497,6 +501,9 @@ def train_f32_cells(sweep):
         del got, want, exact, hp, dmh
         row.update({f"f32_{k}": v for k, v in cudnn_gru(b, t, dtypes=(f32,)).items()})
         if sweep:
+            row["fwd_sweep"] = {str(tuple(p)): call_ms(
+                lambda: ft.gru_train_fwd_cuda(mxs, h0, wr, brec, config=tuple(p)), n=3, warmup=1)
+                for p in ft.train_plans(b, u, sms, dtype=f32)}
             plans = (ft.train_plans(b, u, sms, dtype=f32, part="bwd") if own_bwd
                      else ft.train_plans(b, u, sms, dtype=f32))
             row["bwd_rec_sweep"] = {str(tuple(p)): call_ms(
