@@ -196,8 +196,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      full checkpoint's folded weights at layer_2's shape (128, 64, 64, 64),
      E=256, with the residual, and layer_1's (128, 128, 128, 16 -> 64 ->
      32), one launch each on the main path; against its plain version
-     (TF32 off), two launches bit-equal; the kernel, the plain version and
-     the cuDNN f32 chain timed;
+     (TF32 off), two launches bit-equal; the kernel (one call, and a CUDA
+     graph's replay a call), the plain version and the cuDNN f32 chain
+     timed, the tile logged;
  24. AOT artifacts through the CLI: ``aot-export --model gru`` of
      ``gru_shakespeare.bin`` at q8_0 with the CLI's defaults (batch 8,
      prompt 50, 200 steps) and ``aot-run``, whose text and the artifact's
@@ -222,8 +223,9 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      downsamplers at B=128 (layer_2's first block, 128 x 128, 32 -> 128 ->
      64; the downsampling blocks of layers 3-5: 64 x 64, 64 -> 256 -> 96;
      32 x 32, 96 -> 384 -> 128; 16 x 16, 128 -> 512 -> 160), one launch each;
-     against its plain version, two launches bit-equal; the kernel, the
-     plain version and the cuDNN stride-2 chain timed beside the bound; then
+     against its plain version, two launches bit-equal; the kernel (one
+     call, and a CUDA graph's replay a call), the plain version and the
+     cuDNN stride-2 chain timed beside the bound, the tile logged; then
      ``extract_features`` of 128 of phase 14's images at each dtype, its
      stride-2 launches counted (four a forward where the route takes them);
  27. the port's serving tools, each once in a process of its own at a small
@@ -347,7 +349,7 @@ CORPUS_TRAIN = os.path.join(REPO, "checkpoints", "corpus_train.txt")
 # the H100's peaks (HBM rate, bf16 / f32 / 3xTF32 operation rates, MUFU
 # exponentials), the inverted residual's bound and its cuDNN chain (the
 # library column of kernel 8), the f32 layer route's switch for a
-# measurement, from the port's one source of them
+# measurement, from the port's one source of them; a CUDA graph's time a call
 try:
     from ggml_experiments_tpu_torch.utils.observability import H100 as CHIP
     from ggml_experiments_tpu_torch.utils.observability import cudnn_inverted_residual
@@ -357,8 +359,9 @@ try:
         inverted_residual_bound as ir_bound,
     )
     from ggml_experiments_tpu_torch.utils.observability import transformer_layer_bound
+    from ggml_experiments_tpu_torch.utils.benchmarking import graph_ms
 except ImportError:     # no port beside the script: main() says so and exits 2
-    CHIP = cudnn_inverted_residual = ir_bound = transformer_layer_bound = None
+    CHIP = cudnn_inverted_residual = ir_bound = transformer_layer_bound = graph_ms = None
     f32_layer_route_off = f32_train_route_off = None
 NEAR_TIE = {"float32": 1e-3, "bfloat16": 0.1}
 # the shapes the main paths are driven at
@@ -2035,10 +2038,13 @@ def vision_kernel_phase(tag, params, dev):
             ftl.fused_transformer_layer_plain(x, ops), ftl.fused_transformer_layer_plain(
                 x.float(), ops))
         ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=5)
+        b_ms, b_by = bound(*transformer_layer_bound(bp, l, cin, c, f, cout, "bfloat16",
+                                                    in_proj=True, out_proj=True)["layer"],
+                           "bfloat16")
         log(f"[{tag}] per-sequence layer (bp, L, Cin, C, H, F, Cout) = ({bp}, {l}, {cin}, {c}, "
             f"{h}, {f}, {cout}), every flag: max abs err {err:.3g} (largest value "
             f"{scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: {gap:.3g}), two launches "
-            f"bit-equal | kernel {ms:.4f} ms")
+            f"bit-equal | kernel {ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
         del got, again, x, ops
     for t in tot.values():
         t["bound_ms"] = max(t["bound_t"])
@@ -4380,20 +4386,23 @@ def ir_f32_phase(tag, dev):
         del again, want
         ops = fir.ir_f32_operands(*args)
         ms = cuda_ms(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid), n=20)
+        g_ms = graph_ms(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid))
         plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *args, use_residual=resid), n=3)
         lib_ms = cuda_ms(cudnn_inverted_residual(x, args, residual=resid), n=20)
         b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout, "float32")
         log(f"[{tag}] f32 fused inverted residual {name} (B, H, W, C, E, Cout) = {shape[:6]}, "
             f"residual {resid}: max abs err {err:.3g} ({err / scale:.3g} of the largest value "
-            f"{scale:.3g}), two launches bit-equal | kernel {ms:.4f} ms | plain {plain_ms:.3f} ms "
+            f"{scale:.3g}), two launches bit-equal | kernel {ms:.4f} ms (CUDA graph "
+            f"{g_ms:.4f} ms a call; tile {fir.ir_tc_tile(True, 1, c, cout)}) | plain "
+            f"{plain_ms:.3f} ms "
             f"| bound {b_ms:.4f} ms ({b_by}: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                                          parts.items())
             + f") | library: the cuDNN f32 chain (three F.conv2d, channels_last, TF32 off, BN "
               f"folded, two F.silu{', + x' if resid else ''}) {lib_ms:.4f} ms | "
               f"{fir.ir_f32_smem_bytes(c, e, cout)} bytes of shared memory a block")
         if entry is None:    # the main shape: layer_2's
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by="bytes" if b_by == "bytes" else "operations",
+            entry = dict(max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by="bytes" if b_by == "bytes" else "operations",
                          library_ms=lib_ms, launches=launches)
         del ops, got
     del vit, cases, outs
@@ -4475,18 +4484,22 @@ def ir_s2_phase(tag, dev, images):
             del again, want
             ops = fir.ir_s2_operands(*args, compute_dtype=cd)
             ms = cuda_ms(lambda: fir.fused_ir_s2_cuda(x, ops), n=20)
+            g_ms = graph_ms(lambda: fir.fused_ir_s2_cuda(x, ops))
             plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *pargs, stride=2), n=3)
             lib_ms = cuda_ms(cudnn_inverted_residual(x, args, residual=False, stride=2), n=20)
             b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout, cdname(cd), stride=2)
             log(f"[{tag}] stride-2 fused inverted residual {cdname(cd)} {layer} (B, H, W, C, E, "
                 f"Cout) = {shape}: max abs err {err:.3g} ({err / scale:.3g} of the largest value "
                 f"{scale:.3g}; mean {mean:.3g}; {limit}), two launches bit-equal | kernel "
-                f"{ms:.4f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}: "
+                f"{ms:.4f} ms (CUDA graph {g_ms:.4f} ms a call; tile "
+                f"{fir.ir_tc_tile(cd == f32, 2, c, cout)}) | plain {plain_ms:.3f} ms | bound "
+                f"{b_ms:.4f} ms ({b_by}: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
                 + f") | library: the cuDNN stride-2 chain (three F.conv2d, channels_last, the "
                   f"depthwise at stride 2, BN folded, two F.silu) {lib_ms:.4f} ms | "
                   f"{fir.ir_s2_smem_bytes(c, e, cout, cd)} bytes of shared memory a block")
-            shapes[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            shapes[layer] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms,
                                  bound_by="bytes" if b_by == "bytes" else "operations",
                                  library_ms=lib_ms)
             del ops
@@ -5399,6 +5412,8 @@ def main() -> int:
             entry["aot_launches"] = kd["aot_launches"]
         if "shapes" in kd:          # the stride-2 kernel: each downsampler's readings
             entry["shapes"] = kd["shapes"]
+        if "graph_ms" in kd:        # the f32 and stride-2 blocks: a CUDA graph's time a call
+            entry["graph_ms"] = kd["graph_ms"]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -156,15 +156,9 @@ struct Params {
   int H, W, residual, nsx, nstrips, nb;
 };
 
-// the SiLU of the expand and of the depthwise, and one depthwise tap t + v.k.
-// z / (1 + 2^(-z log2 e)) on the MUFU's exp2 and reciprocal, denormals
-// flushed: five instructions, where silu_fast's range checks take twelve
-__device__ __forceinline__ float act(float z) {
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(mulf(z, -1.4426950408889634f)));
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(addf(1.f, e)));
-  return mulf(z, r);
-}
+// the SiLU of the expand and of the depthwise (mma_common.cuh silu_approx),
+// and one depthwise tap t + v.k
+__device__ __forceinline__ float act(float z) { return silu_approx(z); }
 __device__ __forceinline__ float tap(float t, float v, float k) { return fmaf(v, k, t); }
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {

@@ -106,9 +106,11 @@ class MobileViTConfig:
 # Stride 2 takes all four downsamplers on a CUDA device: on the same card
 # (tools/torch_gate_sweep.py --only ir_s2; PERF.md §6, PR 15) extract_features
 # ran 1.31 / 1.34 / 1.47x faster with them at bf16 and 1.18 / 1.23 / 1.23x
-# at f32, B = 8 / 32 / 128. With layer_5's block (E = 512, where the kernel
-# loses to cuDNN's chain a call) left unfused it was slower at B = 128 at
-# both dtypes and no faster beyond the turns' spread at B = 8 and 32.
+# at f32, B = 8 / 32 / 128. The same cells' CUDA-graph replays (the card's
+# time alone, where the host clock's turns spread at B = 8 and 32), on the
+# stride-2 kernel's tile design, put the route at all four downsamplers
+# fastest or tied at every B and dtype, ahead of leaving layer_5's block
+# (E = 512) or layers 4-5's unfused (PERF.md §6).
 IR_FUSED_MIN_EXPAND = 64
 
 
@@ -128,16 +130,24 @@ class InvertedResidualParams:
         IR_FUSED_MIN_EXPAND (where the kernels win), and at stride 1 bf16, or
         f32 on a CUDA device; at stride 2 (bf16 and f32) a CUDA device, even
         H and W and no residual (what the stride-2 kernel takes; the CPU
-        keeps the JAX model's route, stride 1 only)."""
+        keeps the JAX model's route, stride 1 only). On a CUDA device the
+        f32 stride-1 and the stride-2 kernels also take only the widths
+        whose tile fits a block's shared memory (``ir_tc_takes``)."""
+        from ggml_experiments_tpu_torch.ops.fused_inverted_residual import ir_tc_takes
+
         cd = resolve_dtype(compute_dtype)
         on_card = device is not None and torch.device(device).type == "cuda"
-        if not self.fused or self.expand_1x1.kernel.shape[-1] < IR_FUSED_MIN_EXPAND:
+        c, e = self.expand_1x1.kernel.shape[-2:]
+        if not self.fused or e < IR_FUSED_MIN_EXPAND:
             return False
+        cout = self.reduce_1x1.kernel.shape[-1]
         if self.conv_3x3.stride == 2:
             return (on_card and not self.use_residual
-                    and (hw is None or (hw[0] % 2 == 0 and hw[1] % 2 == 0)))
+                    and (hw is None or (hw[0] % 2 == 0 and hw[1] % 2 == 0))
+                    and ir_tc_takes(2, c, e, cout, cd))
         return (self.conv_3x3.stride == 1
-                and (cd == torch.bfloat16 or (cd == torch.float32 and on_card)))
+                and (cd == torch.bfloat16
+                     or (cd == torch.float32 and on_card and ir_tc_takes(1, c, e, cout, cd))))
 
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)

@@ -32,10 +32,14 @@ strip kernel (``csrc/inverted_residual.cu``) takes C and Cout multiples of
 stride 1 and f32 the block runs on ``csrc/inverted_residual_f32.cu`` (counter
 ``inverted_residual_f32``; Cout up to 128). At stride 2, bf16 or f32, it runs
 on ``csrc/inverted_residual_s2.cu`` (counters ``inverted_residual_s2`` and
-``inverted_residual_s2_f32``; even H and W, no residual, Cout up to 256, and
-C within the block's shared memory: :func:`fused_ir_s2_cuda`), which covers
-MobileViT-small's four downsampling blocks. All of them count under
-``fused_inverted_residual`` too.
+``inverted_residual_s2_f32``; even H and W, no residual, Cout up to 256),
+which covers MobileViT-small's four downsampling blocks. Those two are one
+design (``csrc/ir_hopper.cuh``: an output tile a block, x by TMA, the
+weights split once into K-major planes by :func:`ir_f32_operands` /
+:func:`ir_s2_operands`, the products on wgmma) and take C as far as a
+tile's shared memory fits (:func:`ir_tc_tile`; the block's route sends
+wider blocks to the unfused chain, :func:`ir_tc_takes`). All of them count
+under ``fused_inverted_residual`` too.
 """
 
 from __future__ import annotations
@@ -51,7 +55,13 @@ import torch.nn.functional as F
 
 from ggml_experiments_tpu_torch.device import current_stream_handle, resolve_dtype
 from ggml_experiments_tpu_torch.ops.activations import silu
-from ggml_experiments_tpu_torch.ops.fused_transformer_layer import _bt, _smem_limit, k_tiles
+from ggml_experiments_tpu_torch.ops.fused_transformer_layer import (
+    _bt,
+    _smem_limit,
+    k_tiles,
+    swizzle_tiles,
+    tf32_split,
+)
 
 # launches of the CUDA kernels; only the kernel wrappers add to them
 LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0,
@@ -299,161 +309,85 @@ def fused_ir_cuda(x: torch.Tensor, ops: IROperands, *, use_residual: bool = Fals
     return out
 
 
-# ---- the f32 kernel ---------------------------------------------------------------------
+# ---- the Hopper tile kernels: f32 at stride 1, bf16 and f32 at stride 2 ------------------
 
-F32_CHUNK = 64        # expanded channels a chunk of csrc/inverted_residual_f32.cu
-F32_MAX_COUT = 128    # the widest reduce its warps cover (16, 32, 64 or 128 columns)
-
-
-def _f32_cover(cout: int) -> int:
-    """Columns the f32 kernel's reduce covers: 16, 32, 64 or 128, the least
-    that holds Cout (0 past 128)."""
-    return next((w for w in (16, 32, 64, 128) if w >= cout), 0)
+F32_MAX_COUT = 128    # the f32 kernel's reduce: two m64 tiles of output channels
+S2_MAX_COUT = 256     # the stride-2 kernel's: four
+# output tiles (rows, columns) of csrc/ir_hopper.cuh by stride, widest first:
+# a launch takes the first whose shared memory fits a block
+IR_TC_TILES = {1: ((8, 16), (8, 8), (4, 8)), 2: ((8, 8), (4, 8), (2, 8))}
 
 
-def ir_f32_smem_bytes(c: int, e: int, cout: int) -> int:
-    """Dynamic shared memory of a launch of ``csrc/inverted_residual_f32.cu``
-    (the kernel's ``layout``), -1 where it does not take the widths: the x
-    halo (112 rows of pad8(C) + 4 floats), the expanded chunk (100 x 68
-    floats) and the depthwise chunk (64 x 68). E does not enter: the kernel
-    walks it in chunks of 64, so that f32 needs no more than 75 KB at C = 64
-    (a ring of whole expanded rows at f32 would need twice the bf16 ring)."""
-    if c <= 0 or e <= 0 or cout <= 0 or not _f32_cover(cout):
-        return -1
-    return (112 * (_pad(c, 8) + 4) + (100 + 64) * (F32_CHUNK + 4)) * 4
+def _tc_dims(f32: bool):
+    """(K of a 128-byte row = expanded channels a chunk, operand parts, the
+    expanded chunk's row stride in elements, bytes an element) of
+    csrc/ir_hopper.cuh at f32 or bf16."""
+    return (32, 2, 40, 4) if f32 else (64, 1, 72, 2)
 
 
-@dataclasses.dataclass
-class IRF32Operands:
-    """A block's weights for the f32 kernel, made once (:func:`ir_f32_operands`):
-    Wexp (pad8(C), pad64(E)) and Wred (pad64(E), Cw) row-major f32, the
-    vectors padded to pad64(E) and Cw, zeros in every pad."""
-
-    c: int
-    e: int
-    cout: int
-    wexp: torch.Tensor
-    bexp: torch.Tensor
-    kdw: torch.Tensor
-    bdw: torch.Tensor
-    wred: torch.Tensor
-    bred: torch.Tensor
-    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernel's order
-
-    def __post_init__(self):
-        self.ptrs = tuple(t.data_ptr() for t in (self.wexp, self.bexp, self.kdw, self.bdw,
-                                                 self.wred, self.bred))
+def _halo(stride: int, t: int) -> int:
+    return (t - 1) * stride + 3
 
 
-def ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred) -> IRF32Operands:
-    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
-    bred (Cout,), BN folded, on the device of the launch."""
-    c, e = wexp.shape
-    cout = wred.shape[1]
-    if not _f32_cover(cout):
-        raise ValueError(f"ir_f32_operands: the f32 kernel takes Cout up to {F32_MAX_COUT}, "
-                         f"got {cout}")
-    ep, cw = _pad(e, F32_CHUNK), _f32_cover(cout)
-
-    def mat(w, rows, cols):
-        out = torch.zeros((rows, cols), dtype=torch.float32, device=w.device)
-        out[:w.shape[0], :w.shape[1]] = w.float()
-        return out
-
-    return IRF32Operands(c, e, cout, mat(wexp, _pad(c, 8), ep), mat(bexp.reshape(1, e), 1, ep),
-                         mat(kdw.reshape(9, e), 9, ep), mat(bdw.reshape(1, e), 1, ep),
-                         mat(wred, ep, cw), mat(bred.reshape(1, cout), 1, cw))
+def _tc_smem(f32: bool, stride: int, tile, c: int, cout: int) -> int:
+    """Dynamic shared memory of a launch of csrc/ir_hopper.cuh (its
+    ``layout``): x's halo in slabs of one 128-byte row of channels (each
+    rounded up to 1024 bytes; at f32 twice, its tf32 hi and lo parts), a
+    chunk of Wexp^T's planes, one of Wred^T's (Cout rounded up to 64), y's
+    chunk, the expanded chunk (the halo's pixels padded to m64 tiles), three
+    mbarriers and the base's alignment."""
+    kw, parts, lde, esz = _tc_dims(f32)
+    th, tw = tile
+    slabs, nc = -(-c // kw), 64 * -(-cout // 64)
+    hp = _halo(stride, th) * _halo(stride, tw)
+    return (parts * slabs * _pad(hp * 128, 1024) + parts * slabs * kw * 128 + parts * nc * 128
+            + parts * th * tw * 128 + _pad(hp, 64) * lde * esz + 24 + 1024)
 
 
-_F32_SMEM_AGREED = set()   # (C, E, Cout) whose reckoning the kernel confirmed
+def ir_tc_tile(f32: bool, stride: int, c: int, cout: int):
+    """The output tile a launch at these widths takes: the widest of
+    IR_TC_TILES[stride] whose shared memory fits a block (SMEM_LIMIT), else
+    the narrowest (which then does not fit: the wrapper raises)."""
+    tiles = IR_TC_TILES[stride]
+    return next((t for t in tiles if _tc_smem(f32, stride, t, c, cout) <= SMEM_LIMIT),
+                tiles[-1])
 
 
-def fused_ir_f32_cuda(x: torch.Tensor, ops: IRF32Operands, *,
-                      use_residual: bool = False) -> torch.Tensor:
-    """Launch ``csrc/inverted_residual_f32.cu``: x an f32 (B, H, W, C) CUDA
-    tensor, stride 1."""
-    from ggml_experiments_tpu_torch import _build
-
-    dev = x.device
-    if dev.type != "cuda" or x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"fused_ir_f32_cuda: x must be an f32 (B, H, W, C) CUDA tensor, got "
-                         f"{x.dtype}{tuple(x.shape)} on {dev}")
-    b, h, w, c = x.shape
-    e, cout = ops.e, ops.cout
-    if ops.c != c or (use_residual and c != cout):
-        raise ValueError(f"fused_ir_f32_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x "
-                         f"of width {c}")
-    if not x.is_contiguous():
-        x = x.contiguous()
-    lib = _lib("inverted_residual_f32")
-    if (c, e, cout) not in _F32_SMEM_AGREED:
-        need = ir_f32_smem_bytes(c, e, cout)
-        if lib.gxt_ir_f32_smem(c, e, cout) != need:
-            raise RuntimeError(f"fused_ir_f32_cuda: (C, E, Cout) = ({c}, {e}, {cout}) needs "
-                               f"{need} bytes of shared memory here, the kernel reckons otherwise")
-        limit = _DEVICE_SMEM.get(dev.index)
-        if limit is None:
-            limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
-        if need > limit:
-            raise ValueError(f"fused_ir_f32_cuda: C={c} needs {need} bytes of shared memory, "
-                             f"the device allows {limit}")
-        _F32_SMEM_AGREED.add((c, e, cout))
-    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=dev)
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        code = lib.gxt_ir_f32(x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e, cout,
-                              int(use_residual), current_stream_handle(dev))
-    if code:
-        _build.check(lib, code, f"fused_inverted_residual f32 (B, H, W, C, E, Cout) = ({b}, "
-                                f"{h}, {w}, {c}, {e}, {cout})")
-    LAUNCHES["inverted_residual_f32"] += 1
-    LAUNCHES["fused_inverted_residual"] += 1
-    return out
+def ir_tc_plan(h: int, w: int, stride: int, tile):
+    """The tiles of one image in the kernel's block order: (row, column) of
+    each tile's first output pixel and of its halo's first input pixel (the
+    halo spans ``_halo(stride, rows)`` x ``_halo(stride, columns)`` input
+    pixels). Each output pixel lies in one tile. A tile's halo overlaps its
+    neighbour's by 2 rows (columns) at stride 1 and by 1 at stride 2, so an
+    input pixel is expanded by one tile, or by two or four at the seams."""
+    th, tw = tile
+    ho, wo = h // stride, w // stride
+    return [((oy, ox), (stride * oy - 1, stride * ox - 1))
+            for oy in range(0, ho, th) for ox in range(0, wo, tw)]
 
 
-# ---- the stride-2 kernel ---------------------------------------------------------------
-
-S2_CHUNK = 64         # expanded channels a chunk of csrc/inverted_residual_s2.cu
-S2_MAX_COUT = 256     # the widest reduce its warps cover (Cout rounded up to 32)
-
-
-def _s2_cover(cout: int) -> int:
-    """Columns the stride-2 kernel's reduce covers: Cout rounded up to 32 (0
-    past S2_MAX_COUT)."""
-    return _pad(cout, 32) if 0 < cout <= S2_MAX_COUT else 0
-
-
-def _ld_bank(n: int) -> int:
-    """``ld_bank`` of ``csrc/mma_common.cuh``: the bf16 row stride whose 32-bit
-    words are 4 x odd."""
-    w = ((n + 1) // 2 + 3) & ~3
-    return 2 * (w + 4 if (w // 4) % 2 == 0 else w)
-
-
-def ir_s2_smem_bytes(c: int, e: int, cout: int, compute_dtype=torch.bfloat16) -> int:
-    """Dynamic shared memory of a launch of ``csrc/inverted_residual_s2.cu``
-    (the kernel's ``layout``), -1 where it does not take the widths: the 9 x
-    17 x halo (160 rows), the expanded chunk (153 rows) and the depthwise
-    chunk (32 rows), each rounded up to 16 bytes. f32: rows of pad8(C) + 4
-    and 68 floats; bf16: rows of ``_ld_bank(pad16(C))``, 72 and
-    ``_ld_bank(64)`` elements. E does not enter: the kernel walks it in
-    chunks of 64."""
-    if c <= 0 or e <= 0 or not _s2_cover(cout):
-        return -1
-    if resolve_dtype(compute_dtype) == torch.float32:
-        ldx, lde, ldy, size = _pad(c, 8) + 4, S2_CHUNK + 4, S2_CHUNK + 4, 4
-    else:
-        ldx, lde, ldy, size = _ld_bank(_pad(c, 16)), S2_CHUNK + 8, _ld_bank(S2_CHUNK), 2
-    return sum(_pad(rows * ld * size, 16) for rows, ld in ((160, ldx), (153, lde), (32, ldy)))
+def _tc_planes(wt: torch.Tensor, rows: int, k: int, kw: int, f32: bool) -> torch.Tensor:
+    """A product's operand wt (N, K) as K-major planes: (rows, k) zero-padded,
+    cut into 128-byte rows of kw elements; at f32 its tf32 hi and lo parts
+    ((2, rows, k / kw, kw)), at bf16 one plane ((1, rows, k / kw, kw))."""
+    full = torch.zeros((rows, k), dtype=torch.float32, device=wt.device)
+    full[:wt.shape[0], :wt.shape[1]] = wt.float()
+    parts = tf32_split(full) if f32 else (full.to(torch.bfloat16),)
+    return torch.stack(parts).reshape(len(parts), rows, k // kw, kw)
 
 
 @dataclasses.dataclass
-class IRS2Operands:
-    """A stride-2 block's weights for ``csrc/inverted_residual_s2.cu`` at one
-    compute dtype, made once (:func:`ir_s2_operands`). f32: Wexp (pad8(C),
-    pad64(E)) and Wred (pad64(E), Cw) row-major; bf16: Wexp (pad64(E),
-    pad16(C)) and Wred (Cw, pad64(E)), transposed; Cw = Cout rounded up to
-    32; the vectors f32, padded to pad64(E) and Cw; zeros in every pad."""
+class IRTCOperands:
+    """A block's weights for csrc/ir_hopper.cuh at one compute dtype, made
+    once (:func:`ir_f32_operands`, :func:`ir_s2_operands`). Per chunk of kw
+    expanded channels (32 at f32, 64 at bf16), as each chunk's bulk copy
+    lands in shared memory: ``wexp`` (chunks, parts, slabs, kw, kw) holds
+    Wexp^T's rows of the chunk's channels, K = C cut into slabs of kw; ``wred``
+    (chunks, parts, nc, kw) holds Wred^T's rows of the output channels (Cout
+    rounded up to 64) for the chunk's K; each 128-byte row swizzled, the
+    parts the tf32 hi and lo planes at f32 (split once here), one bf16 plane
+    at bf16. bexp, kdw (9 rows), bdw padded to the chunks, bred to nc; zeros
+    in every pad."""
 
     c: int
     e: int
@@ -465,44 +399,166 @@ class IRS2Operands:
     bdw: torch.Tensor
     wred: torch.Tensor
     bred: torch.Tensor
-    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernel's order
+    ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernels' order
 
     def __post_init__(self):
         self.ptrs = tuple(t.data_ptr() for t in (self.wexp, self.bexp, self.kdw, self.bdw,
                                                  self.wred, self.bred))
 
 
-def ir_s2_operands(wexp, bexp, kdw, bdw, wred, bred,
-                   compute_dtype=torch.bfloat16) -> IRS2Operands:
-    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
-    bred (Cout,), BN folded, on the device of the launch; the matrices at
-    ``compute_dtype`` (bf16 or f32)."""
-    cd = resolve_dtype(compute_dtype)
+
+def _tc_operands(wexp, bexp, kdw, bdw, wred, bred, cd, max_cout: int, who: str) -> IRTCOperands:
     c, e = wexp.shape
     cout = wred.shape[1]
-    if not _s2_cover(cout):
-        raise ValueError(f"ir_s2_operands: the stride-2 kernel takes Cout up to {S2_MAX_COUT}, "
-                         f"got {cout}")
-    ep, cw = _pad(e, S2_CHUNK), _s2_cover(cout)
+    if not 0 < cout <= max_cout:
+        raise ValueError(f"{who}: the kernel takes Cout up to {max_cout}, got {cout}")
+    f32 = cd == torch.float32
+    kw = _tc_dims(f32)[0]
+    ep, kp, nc = _pad(e, kw), _pad(c, kw), _pad(cout, 64)
+    nch = ep // kw
+    # Wexp^T (E, C): (parts, ep, slabs, kw) -> (chunks, parts, slabs, kw rows, kw)
+    wx = _tc_planes(wexp.t(), ep, kp, kw, f32)
+    wx = wx.reshape(wx.shape[0], nch, kw, kp // kw, kw).permute(1, 0, 3, 2, 4)
+    # Wred^T (Cout, E): (parts, nc, chunks, kw) -> (chunks, parts, nc, kw)
+    wr = _tc_planes(wred.t(), nc, ep, kw, f32).permute(2, 0, 1, 3)
 
-    def mat(w, rows, cols, dtype=torch.float32):
-        out = torch.zeros((rows, cols), dtype=torch.float32, device=w.device)
-        out[:w.shape[0], :w.shape[1]] = w.float()
-        return out.to(dtype)
+    def vec(v, n, rows=1):
+        out = torch.zeros((rows, n), dtype=torch.float32, device=v.device)
+        out[:, :v.numel() // rows] = v.float().reshape(rows, -1)
+        return out.reshape(-1)
 
-    if cd == torch.float32:
-        wx, wr = mat(wexp, _pad(c, 8), ep), mat(wred, ep, cw)
-    else:
-        wx, wr = mat(wexp.t(), ep, _pad(c, 16), cd), mat(wred.t(), cw, ep, cd)
-    return IRS2Operands(c, e, cout, cd, wx, mat(bexp.reshape(1, e), 1, ep),
-                        mat(kdw.reshape(9, e), 9, ep), mat(bdw.reshape(1, e), 1, ep), wr,
-                        mat(bred.reshape(1, cout), 1, cw))
+    return IRTCOperands(c, e, cout, cd, swizzle_tiles(wx).contiguous(), vec(bexp, ep),
+                        vec(kdw, ep, rows=9), vec(bdw, ep), swizzle_tiles(wr).contiguous(),
+                        vec(bred, nc))
+
+
+def ir_f32_smem_bytes(c: int, e: int, cout: int) -> int:
+    """Dynamic shared memory of a launch of ``csrc/inverted_residual_f32.cu``
+    on its default tile (:func:`ir_tc_tile`; the kernel's ``gxt_ir_f32_smem``),
+    -1 where it does not take the widths (Cout past F32_MAX_COUT). E does not
+    enter: the kernel walks it in chunks of 32."""
+    if c <= 0 or e <= 0 or not 0 < cout <= F32_MAX_COUT:
+        return -1
+    return _tc_smem(True, 1, ir_tc_tile(True, 1, c, cout), c, cout)
+
+
+def ir_f32_operands(wexp, bexp, kdw, bdw, wred, bred) -> IRTCOperands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch: the f32 kernel's
+    operands (:class:`IRTCOperands`, tf32 hi and lo planes)."""
+    return _tc_operands(wexp, bexp, kdw, bdw, wred, bred, torch.float32, F32_MAX_COUT,
+                        "ir_f32_operands")
+
+
+def _tc_x(x: torch.Tensor, f32: bool) -> torch.Tensor:
+    """x contiguous with its channels padded with zeros to a multiple of 16
+    bytes (the tensor map's strides): a copy only where C is not."""
+    step = 4 if f32 else 8
+    if x.shape[-1] % step:
+        return F.pad(x, (0, step - x.shape[-1] % step))
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _tc_check_smem(f32, stride, c, cout, dev, who):
+    """Raise where the launch's tile (:func:`ir_tc_tile`, as the kernel picks
+    it) does not fit the device's block; returns the tile."""
+    limit = _DEVICE_SMEM.get(dev.index)
+    if limit is None:
+        limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
+    tile = ir_tc_tile(f32, stride, c, cout)
+    need = _tc_smem(f32, stride, tile, c, cout)
+    if need > limit:
+        raise ValueError(f"{who}: C={c} needs {need} bytes of shared memory, the device "
+                         f"allows {limit}")
+    return tile
+
+
+_F32_SMEM_AGREED = set()   # (C, E, Cout) whose reckoning the kernel confirmed
+
+
+def fused_ir_f32_cuda(x: torch.Tensor, ops: IRTCOperands, *,
+                      use_residual: bool = False) -> torch.Tensor:
+    """Launch ``csrc/inverted_residual_f32.cu``: x an f32 (B, H, W, C) CUDA
+    tensor, stride 1."""
+    from ggml_experiments_tpu_torch import _build
+
+    dev = x.device
+    if dev.type != "cuda" or x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"fused_ir_f32_cuda: x must be an f32 (B, H, W, C) CUDA tensor, got "
+                         f"{x.dtype}{tuple(x.shape)} on {dev}")
+    b, h, w, c = x.shape
+    e, cout = ops.e, ops.cout
+    if ops.c != c or ops.dtype != torch.float32 or (use_residual and c != cout):
+        raise ValueError(f"fused_ir_f32_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x "
+                         f"of width {c}")
+    lib = _lib("inverted_residual_f32")
+    if (c, e, cout) not in _F32_SMEM_AGREED:
+        need = ir_f32_smem_bytes(c, e, cout)
+        if lib.gxt_ir_f32_smem(c, e, cout) != need:
+            raise RuntimeError(f"fused_ir_f32_cuda: (C, E, Cout) = ({c}, {e}, {cout}) needs "
+                               f"{need} bytes of shared memory here, the kernel reckons otherwise")
+        _F32_SMEM_AGREED.add((c, e, cout))
+    th, tw = _tc_check_smem(True, 1, c, cout, dev, "fused_ir_f32_cuda")
+    xk = _tc_x(x, True)
+    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=dev)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        code = lib.gxt_ir_f32(xk.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, xk.shape[-1],
+                              e, cout, int(use_residual), current_stream_handle(dev))
+    if code:
+        _build.check(lib, code, f"fused_inverted_residual f32 (B, H, W, C, E, Cout) = ({b}, "
+                                f"{h}, {w}, {c}, {e}, {cout}), tile {th} x {tw}")
+    LAUNCHES["inverted_residual_f32"] += 1
+    LAUNCHES["fused_inverted_residual"] += 1
+    return out
+
+
+# ---- the stride-2 kernel ---------------------------------------------------------------
+
+
+def _s2_cover(cout: int) -> int:
+    """Output channels the stride-2 kernel's reduce covers: Cout rounded up to
+    64 (0 past S2_MAX_COUT)."""
+    return _pad(cout, 64) if 0 < cout <= S2_MAX_COUT else 0
+
+
+def ir_s2_smem_bytes(c: int, e: int, cout: int, compute_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of a launch of ``csrc/inverted_residual_s2.cu``
+    on its default tile (:func:`ir_tc_tile`; the kernel's ``gxt_ir_s2_smem``),
+    -1 where it does not take the widths (Cout past S2_MAX_COUT). E does not
+    enter: the kernel walks it in chunks of 64 (bf16) or 32 (f32)."""
+    if c <= 0 or e <= 0 or not _s2_cover(cout):
+        return -1
+    f32 = resolve_dtype(compute_dtype) == torch.float32
+    return _tc_smem(f32, 2, ir_tc_tile(f32, 2, c, cout), c, cout)
+
+
+def ir_s2_operands(wexp, bexp, kdw, bdw, wred, bred,
+                   compute_dtype=torch.bfloat16) -> IRTCOperands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch; the stride-2
+    kernel's operands at ``compute_dtype`` (bf16 or f32: :class:`IRTCOperands`)."""
+    return _tc_operands(wexp, bexp, kdw, bdw, wred, bred, resolve_dtype(compute_dtype),
+                        S2_MAX_COUT, "ir_s2_operands")
+
+
+def ir_tc_takes(stride: int, c: int, e: int, cout: int, compute_dtype) -> bool:
+    """Whether the f32 stride-1 kernel (``stride`` 1) or the stride-2 kernel
+    (2, bf16 or f32) takes a block of these widths: Cout within its limit and
+    a tile whose shared memory fits a block. Both keep x's whole halo and a
+    chunk of Wexp^T in shared memory, and both grow with C: f32 stride 1
+    takes C up to 224, f32 stride 2 up to 128-192 and bf16 stride 2 up to
+    576-640, by Cout (MobileViT-small's widest C is 128). The block's route
+    (``models/mobilevit.py``) turns the rest away before any launch."""
+    need = (ir_f32_smem_bytes(c, e, cout) if stride == 1
+            else ir_s2_smem_bytes(c, e, cout, compute_dtype))
+    return 0 < need <= SMEM_LIMIT
 
 
 _S2_SMEM_AGREED = set()   # (dtype, C, E, Cout) whose reckoning the kernel confirmed
 
 
-def fused_ir_s2_cuda(x: torch.Tensor, ops: IRS2Operands, *,
+def fused_ir_s2_cuda(x: torch.Tensor, ops: IRTCOperands, *,
                      use_residual: bool = False) -> torch.Tensor:
     """Launch ``csrc/inverted_residual_s2.cu``: x a (B, H, W, C) CUDA tensor at
     ``ops``' dtype with H and W even -> (B, H/2, W/2, Cout). Raises on a
@@ -529,8 +585,6 @@ def fused_ir_s2_cuda(x: torch.Tensor, ops: IRS2Operands, *,
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_ir_s2_cuda: x must be a CUDA tensor, got one on {dev}")
-    if not x.is_contiguous():
-        x = x.contiguous()
     f32 = ops.dtype == torch.float32
     lib = _lib("inverted_residual_s2")
     if (ops.dtype, c, e, cout) not in _S2_SMEM_AGREED:
@@ -538,21 +592,17 @@ def fused_ir_s2_cuda(x: torch.Tensor, ops: IRS2Operands, *,
         if lib.gxt_ir_s2_smem(int(f32), c, e, cout) != need:
             raise RuntimeError(f"fused_ir_s2_cuda: (C, E, Cout) = ({c}, {e}, {cout}) needs "
                                f"{need} bytes of shared memory here, the kernel reckons otherwise")
-        limit = _DEVICE_SMEM.get(dev.index)
-        if limit is None:
-            limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
-        if need > limit:
-            raise ValueError(f"fused_ir_s2_cuda: C={c} needs {need} bytes of shared memory, "
-                             f"the device allows {limit}")
         _S2_SMEM_AGREED.add((ops.dtype, c, e, cout))
+    th, tw = _tc_check_smem(f32, 2, c, cout, dev, "fused_ir_s2_cuda")
+    xk = _tc_x(x, f32)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=ops.dtype, device=dev)
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
-        code = lib.gxt_ir_s2(int(f32), x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e,
-                             cout, current_stream_handle(dev))
+        code = lib.gxt_ir_s2(int(f32), xk.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w,
+                             xk.shape[-1], e, cout, current_stream_handle(dev))
     if code:
         _build.check(lib, code, f"fused_inverted_residual stride 2 {ops.dtype} (B, H, W, C, E, "
-                                f"Cout) = ({b}, {h}, {w}, {c}, {e}, {cout})")
+                                f"Cout) = ({b}, {h}, {w}, {c}, {e}, {cout}), tile {th} x {tw}")
     LAUNCHES["inverted_residual_s2_f32" if f32 else "inverted_residual_s2"] += 1
     LAUNCHES["fused_inverted_residual"] += 1
     return out
@@ -604,8 +654,8 @@ def _folded(params):
 
 def block_operands(params, compute_dtype=torch.bfloat16):
     """The block's operands for the kernel of its stride and ``compute_dtype``
-    (:class:`IROperands` at bf16, :class:`IRF32Operands` at f32, and
-    :class:`IRS2Operands` at stride 2), kept on its params: made at its first
+    (:class:`IROperands` at stride 1 and bf16, :class:`IRTCOperands` at f32
+    and at stride 2), kept on its params: made at its first
     CUDA call and again when any of its weights or BN vectors is another
     tensor or was written in place (the key holds each tensor's storage,
     shape, stride and version counter, and the entry holds the tensors)."""

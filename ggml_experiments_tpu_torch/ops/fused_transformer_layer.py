@@ -269,11 +269,12 @@ _CHUNK = 48
 
 
 def swizzle_tiles(t: torch.Tensor) -> torch.Tensor:
-    """(..., rows, 64) bf16 -> the same tiles in the 128-byte swizzle that TMA
-    writes and ``wgmma`` reads: row r's 16-byte group j moves to j ^ (r % 8)."""
-    rows = t.shape[-2]
+    """(..., rows, n): rows of 128 bytes (64 bf16 or 32 f32) -> the same tiles
+    in the 128-byte swizzle that TMA writes and ``wgmma`` reads: row r's
+    16-byte group j moves to j ^ (r % 8). Its own inverse."""
+    rows, n = t.shape[-2:]
     idx = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(rows, device=t.device) % 8)[:, None]
-    g = t.reshape(*t.shape[:-1], 8, 8)
+    g = t.reshape(*t.shape[:-1], 8, n // 8)
     return torch.gather(g, -2, idx[..., None].expand(g.shape)).reshape(t.shape)
 
 

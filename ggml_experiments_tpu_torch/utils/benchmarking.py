@@ -129,6 +129,34 @@ def timeit_stats(fn: Callable, reps: Optional[int] = None, rounds: int = PROTOCO
                        device_median=devs[order[len(order) // 2]] if cuda else None)
 
 
+def graph_ms(fn: Callable, n: int = 20, reps: int = 5) -> float:
+    """Milliseconds of one call of ``fn`` on the card alone: the median over
+    ``reps`` replays of a CUDA graph of ``n`` calls, over n (no host work
+    between launches). ``fn`` runs once outside the graph first, on a side
+    stream, so that what it builds or caches at a first call is not
+    captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    return statistics.median(out)
+
+
 def timeit_pipelined(fn: Callable, reps: Optional[int] = None,
                      rounds: int = PROTOCOL["rounds"], warmup: int = PROTOCOL["warmup_calls"],
                      device: DeviceLike = None) -> float:

@@ -1253,7 +1253,7 @@ def test_inverted_residual_tile_route_takes_no_plan(dev):
 IR_S2_SHAPES = [(2, 128, 128, 32, 128, 64), (2, 64, 64, 64, 256, 96),
                 (2, 32, 32, 96, 384, 128), (2, 16, 16, 128, 512, 160),
                 (1, 10, 18, 24, 96, 40), (2, 6, 34, 8, 200, 256), (3, 2, 2, 12, 64, 8),
-                (1, 20, 12, 130, 70, 33)]
+                (1, 20, 12, 130, 70, 33), (1, 12, 10, 16, 512, 160)]
 
 
 @pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
@@ -1346,7 +1346,7 @@ def test_inverted_residual_stride_2_block_routes_to_its_kernel_on_the_card(dev):
         again = blk(x, compute_dtype=cd)
         torch.cuda.synchronize()
         assert fir.LAUNCHES[name] == before + 2 and got.shape == (2, 12, 10, 64)
-        assert isinstance(ops, fir.IRS2Operands) and ops.dtype == cd
+        assert isinstance(ops, fir.IRTCOperands) and ops.dtype == cd
         assert fir.block_operands(blk, cd) is ops and torch.equal(got, again)
         want = fir.fused_inverted_residual(x, *fir._folded(blk), stride=2, compute_dtype=cd)
         assert torch.equal(got, want)
@@ -1382,6 +1382,135 @@ def test_inverted_residual_f32_kernel_matches_plain(dev, b, hh, ww, c, e, cout, 
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     lib = fir._lib("inverted_residual_f32")
     assert lib.gxt_ir_f32_smem(c, e, cout) == fir.ir_f32_smem_bytes(c, e, cout)
+
+
+# every tile of csrc/ir_hopper.cuh, reached through C (the kernels pick the
+# widest tile whose shared memory fits), at small ragged shapes: (stride,
+# dtype, B, H, W, C, E, Cout, residual, the tile)
+IR_TILE_CASES = [(1, torch.float32, 2, 9, 17, 16, 96, 16, True, (8, 16)),
+                 (1, torch.float32, 1, 13, 35, 96, 64, 100, False, (8, 8)),
+                 (1, torch.float32, 1, 7, 13, 192, 48, 24, False, (4, 8)),
+                 (2, torch.float32, 1, 12, 10, 16, 512, 160, False, (8, 8)),
+                 (2, torch.float32, 2, 18, 34, 64, 200, 96, False, (4, 8)),
+                 (2, torch.float32, 1, 12, 10, 128, 64, 160, False, (2, 8)),
+                 (2, torch.bfloat16, 1, 12, 10, 16, 512, 160, False, (8, 8)),
+                 (2, torch.bfloat16, 2, 18, 34, 128, 200, 96, False, (8, 8)),
+                 (2, torch.bfloat16, 1, 12, 10, 256, 64, 96, False, (4, 8)),
+                 (2, torch.bfloat16, 1, 10, 14, 512, 64, 96, False, (2, 8))]
+
+
+@pytest.mark.parametrize("stride,cd,b,hh,ww,c,e,cout,resid,tile", IR_TILE_CASES)
+def test_inverted_residual_tile_kernels_match_plain_on_every_tile(dev, stride, cd, b, hh, ww, c,
+                                                                  e, cout, resid, tile):
+    """Each output tile of the f32 stride-1 and the stride-2 kernels, as the
+    kernel picks it from C: f32 within 1e-5 of the plain version's largest
+    value, bf16 within chip_smoke.py's limits for kernel 8; two launches
+    bit-equal; the launch's shared memory as the kernel reckons it."""
+    assert fir.ir_tc_tile(cd == torch.float32, stride, c, cout) == tile
+    x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
+    x = x.float().to(cd)
+    pargs = (args[0].to(cd), args[1], args[2], args[3], args[4].to(cd), args[5])
+    want = fir.fused_ir_plain(x, *pargs, stride=stride, use_residual=resid).float()
+    scale = float(want.abs().max())
+    if stride == 1:
+        ops = fir.ir_f32_operands(*args)
+        got, again = (fir.fused_ir_f32_cuda(x, ops, use_residual=resid) for _ in range(2))
+        lib = fir._lib("inverted_residual_f32")
+        assert lib.gxt_ir_f32_smem(c, e, cout) == fir.ir_f32_smem_bytes(c, e, cout)
+    else:
+        ops = fir.ir_s2_operands(*args, compute_dtype=cd)
+        got, again = (fir.fused_ir_s2_cuda(x, ops) for _ in range(2))
+        lib = fir._lib("inverted_residual_s2")
+        assert lib.gxt_ir_s2_smem(int(cd == torch.float32), c, e, cout) == \
+            fir.ir_s2_smem_bytes(c, e, cout, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want).abs()
+    if cd == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        gap = float((fir.fused_ir_plain(x.float(), *args, stride=stride) - want).abs().mean())
+        assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap
+
+
+# f32 blocks wider than the tile kernels take (the parent design's widest:
+# C = 408 at stride 1, 280 at stride 2): (stride, C, E, Cout)
+IR_TC_TOO_WIDE = [(1, 408, 64, 128), (2, 280, 64, 64)]
+
+
+@pytest.mark.parametrize("stride,c,e,cout", IR_TC_TOO_WIDE)
+def test_inverted_residual_too_wide_for_a_tile_runs_unfused_on_the_card(dev, stride, c, e, cout):
+    """An f32 block whose C no tile of the f32 stride-1 or the stride-2
+    kernel fits keeps the unfused chain on the card, launches no kernel of
+    the inverted residual, and agrees with the CPU's chain within 1e-4 of
+    its largest value; the wrapper refuses it for its shared memory."""
+    from ggml_experiments_tpu_torch.models.mobilevit import InvertedResidualParams
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    rng = np.random.default_rng(c)
+    shapes = ((1, 1, c, e), (e,), (e,), (3, 3, 1, e), (e,), (e,), (1, 1, e, cout), (cout,),
+              (cout,))
+    arrays = [rng.standard_normal(s).astype(np.float32) * 0.2 for s in shapes]
+
+    def block(d):
+        a = [torch.from_numpy(v).to(d) for v in arrays]
+
+        def conv(k, scale, bias, **kw):
+            return ConvBNAct(kernel=k, bn=FoldedBN(scale + 1.0, bias), **kw)
+
+        return InvertedResidualParams(
+            expand_1x1=conv(*a[0:3], activation="silu"),
+            conv_3x3=conv(*a[3:6], activation="silu", depthwise=True, stride=stride),
+            reduce_1x1=conv(*a[6:9], activation="none"), fused=True)
+
+    cpu, blk = block("cpu"), block(dev)
+    assert not blk.fused_route(torch.float32, dev, (12, 10))
+    x = torch.from_numpy(rng.standard_normal((2, 12, 10, c)).astype(np.float32))
+    before = dict(fir.LAUNCHES)
+    got = blk(x.to(dev), compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES == before
+    want = cpu(x, compute_dtype=torch.float32)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    args = fir._folded(blk)
+    if stride == 1:
+        ops, launch = fir.ir_f32_operands(*args), fir.fused_ir_f32_cuda
+    else:
+        ops, launch = fir.ir_s2_operands(*args, compute_dtype=torch.float32), fir.fused_ir_s2_cuda
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        launch(x.to(dev), ops)
+
+
+def test_f32_silu_departs_from_the_plain_version_only_below_minus_86_6(dev):
+    """The f32 kernels' SiLU (ir_hopper.cuh silu_rn) against z * (1 / (1 +
+    exp(-z))) over a sweep of z, read through the f32 stride-1 kernel with
+    Wexp = 0 (so the expand's value is bexp = z), the depthwise's centre tap
+    s a power of two and Wred = I: out = SiLU(s SiLU(z)), every step exact
+    but the SiLUs (s = 2^64 below z = -70 keeps y's tf32 lo part out of the
+    subnormals, which the tensor cores flush). Within 2^-19 of its value
+    (the two exponentials' ulps), but where 1 + exp(-z) >= 2^125 (z <
+    -86.64), whose reciprocal it takes as 0: there the kernel gives 0 and
+    the plain version about -1e-36 s, and below z = -88.72 both give 0."""
+    def silu(v):
+        return v * (1.0 / (1.0 + torch.exp(-v)))
+
+    z = torch.cat([torch.linspace(-100.0, 40.0, 384), torch.linspace(-88.7, -86.5, 128)])
+    for zc in z.split(128):
+        n = zc.numel()
+        tap = torch.where(zc < -70.0, 2.0 ** 64, 1.0)
+        kdw = torch.zeros((3, 3, n))
+        kdw[1, 1] = tap
+        args = (torch.zeros((16, n)), zc, kdw, torch.zeros(n), torch.eye(n), torch.zeros(n))
+        ops = fir.ir_f32_operands(*(a.to(dev) for a in args))
+        got = fir.fused_ir_f32_cuda(torch.randn((1, 4, 4, 16), device=dev), ops).cpu()
+        want = silu(tap * silu(zc)).expand_as(got)
+        zz = zc.expand_as(got)
+        gone = (got == 0) & (want != 0)
+        assert bool((zz[gone] < -86.64).all())
+        assert bool(gone[(zz < -86.65) & (zz > -88.6)].all())
+        bad = ~gone & ((got - want).abs() > 2 ** -19 * want.abs())
+        assert not bool(bad.any()), (zz[bad][:4], got[bad][:4], want[bad][:4])
 
 
 def test_inverted_residual_block_keeps_its_operands_on_the_card(dev):

@@ -4,7 +4,12 @@
 (``ir_operands``), the operands a block keeps (``block_operands``), and a
 plain-torch walk of its schedule (strips of S columns, bands of R rows, a
 ring of R + 2 expanded rows with zeros after the SiLU outside the image, y's
-rows in the kernel's order) that must give ``fused_ir_plain``'s bits.
+rows in the kernel's order) that must give ``fused_ir_plain``'s bits. Then
+the tile kernels of ``csrc/ir_hopper.cuh`` (f32 at stride 1, bf16 and f32
+at stride 2): their tiles (``ir_tc_tile``, ``ir_tc_plan``), shared memory,
+the weights' K-major planes split once (``ir_f32_operands``,
+``ir_s2_operands``), and a plain-torch walk of their schedule from those
+planes, held to ``fused_ir_plain``.
 """
 
 import dataclasses
@@ -18,7 +23,7 @@ from ggml_experiments_tpu_torch.models.mobilevit import InvertedResidualParams
 from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
 from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
-from ggml_experiments_tpu_torch.ops.fused_transformer_layer import swizzle_tiles
+from ggml_experiments_tpu_torch.ops.fused_transformer_layer import swizzle_tiles, tf32_split
 from ggml_experiments_tpu_torch.ops.norm import FoldedBN
 
 BF = torch.bfloat16
@@ -207,3 +212,217 @@ def test_block_operands_are_made_once_and_again_after_a_weight_changes():
     assert third is not again and torch.equal(third.bred[:16], again.bred[:16] + 1.0)
     # a copy of the block (dataclasses.replace) starts without them
     assert fir.block_operands(dataclasses.replace(blk)) is not third
+
+
+# ---- the tile kernels of csrc/ir_hopper.cuh ------------------------------------------
+
+F32 = torch.float32
+# (stride, C, E, Cout) of MobileViT-small's fused blocks at f32 and at stride 2
+TC_MODEL_WIDTHS = [(1, 64, 256, 64), (1, 16, 64, 32), (2, 32, 128, 64), (2, 64, 256, 96),
+                   (2, 96, 384, 128), (2, 128, 512, 160)]
+
+
+@pytest.fixture
+def two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _planes(ops):
+    """The operands' planes as the kernel reads them, unswizzled: Wexp^T
+    (parts, Ep, Kp) and Wred^T (parts, nc, Ep)."""
+    nch, parts, slabs, kw = ops.wexp.shape[:4]
+    wx = swizzle_tiles(ops.wexp).permute(1, 0, 3, 2, 4).reshape(parts, nch * kw, slabs * kw)
+    nc = ops.wred.shape[2]
+    wr = swizzle_tiles(ops.wred).permute(1, 2, 0, 3).reshape(parts, nc, nch * kw)
+    return wx, wr
+
+
+@pytest.mark.parametrize("cd", [F32, BF])
+@pytest.mark.parametrize("c,e,cout", [(24, 100, 40), (64, 256, 64), (12, 64, 160), (130, 70, 33)])
+def test_tile_operands_split_the_weights_once_k_major(cd, c, e, cout):
+    """Each chunk's Wexp^T rows (K = C in slabs of one 128-byte row) and
+    Wred^T rows (K = the chunk), swizzled: at f32 the tf32 hi plane (its low
+    13 mantissa bits zero) and the lo plane, hi + lo the weight to 2^-21;
+    at bf16 one plane, the weight rounded; zeros in every pad."""
+    wexp, bexp, kdw, bdw, wred, bred = args = _weights(np.random.default_rng(c + e), c, e, cout)
+    ops = (fir.ir_s2_operands(*args, compute_dtype=cd) if cout > fir.F32_MAX_COUT or cd == BF
+           else fir.ir_f32_operands(*args))
+    kw = 32 if cd == F32 else 64
+    ep, kp, nc = -(-e // kw) * kw, -(-c // kw) * kw, -(-cout // 64) * 64
+    parts = 2 if cd == F32 else 1
+    assert ops.dtype == cd and ops.wexp.dtype == ops.wred.dtype == cd
+    assert ops.wexp.shape == (ep // kw, parts, kp // kw, kw, kw)
+    assert ops.wred.shape == (ep // kw, parts, nc, kw)
+    wx, wr = _planes(ops)
+    assert not wx[:, e:].float().any() and not wx[:, :, c:].float().any()
+    assert not wr[:, cout:].float().any() and not wr[:, :, e:].float().any()
+    if cd == F32:
+        for plane in (wx[0], wr[0]):
+            assert not (plane.view(torch.int32) & 0x1FFF).any()
+        for got, want in ((wx[0] + wx[1], wexp.t()), (wr[0] + wr[1], wred.t())):
+            n, k = want.shape
+            assert float((got[:n, :k] - want).abs().max()) <= 2 ** -21 * float(want.abs().max())
+        assert torch.equal(wx[0][:e, :c] + wx[1][:e, :c], tf32_split(wexp.t())[0]
+                           + tf32_split(wexp.t())[1])
+    else:
+        assert torch.equal(wx[0][:e, :c], wexp.t().to(BF))
+        assert torch.equal(wr[0][:cout, :e], wred.t().to(BF))
+    for got, want, n in ((ops.bexp, bexp, ep), (ops.bdw, bdw, ep), (ops.bred, bred, nc)):
+        assert got.shape == (n,) and torch.equal(got[:want.numel()], want)
+        assert not got[want.numel():].any()
+    assert torch.equal(ops.kdw.reshape(9, ep)[:, :e], kdw.reshape(9, e))
+    assert not ops.kdw.reshape(9, ep)[:, e:].any()
+
+
+def test_tile_kernels_shared_memory_fits_at_the_model_widths():
+    """Every fused block of MobileViT-small gets a tile whose shared memory
+    fits a block (f32 stride 1 and both dtypes at stride 2); the widths the
+    kernels do not take read -1, and a halo past the block (C = 512 at f32)
+    reads its bytes past the limit."""
+    for stride, c, e, cout in TC_MODEL_WIDTHS:
+        dts = (F32,) if stride == 1 else (F32, BF)
+        for cd in dts:
+            f32 = cd == F32
+            tile = fir.ir_tc_tile(f32, stride, c, cout)
+            need = (fir.ir_f32_smem_bytes(c, e, cout) if stride == 1
+                    else fir.ir_s2_smem_bytes(c, e, cout, cd))
+            assert need == fir._tc_smem(f32, stride, tile, c, cout) <= fir.SMEM_LIMIT
+    assert fir.ir_tc_tile(True, 1, 64, 64) == (8, 16)
+    assert fir.ir_tc_tile(True, 2, 32, 64) == (8, 8)
+    assert fir.ir_tc_tile(False, 2, 128, 160) == (8, 8)
+    assert fir.ir_tc_tile(True, 2, 128, 160) == (2, 8)   # the f32 halo of C = 128
+    assert fir.ir_f32_smem_bytes(16, 64, fir.F32_MAX_COUT + 1) == -1
+    assert fir.ir_f32_smem_bytes(0, 64, 32) == -1
+    assert fir.ir_s2_smem_bytes(16, 64, fir.S2_MAX_COUT + 1) == -1
+    assert fir.ir_s2_smem_bytes(512, 64, 32, F32) > fir.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w", [(64, 64), (18, 34), (2, 2), (10, 6), (30, 14)])
+def test_tile_plan_covers_every_output_once_and_expands_as_planned(stride, h, w):
+    """Ragged H and W: each output pixel in one tile; each input pixel
+    expanded by every tile whose halo holds it, once inside a tile and
+    twice (four times at a corner) on the seams the halos share: 2 rows
+    (columns) of overlap at stride 1, 1 at stride 2."""
+    for tile in fir.IR_TC_TILES[stride]:
+        th, tw = tile
+        hh, hw = fir._halo(stride, th), fir._halo(stride, tw)
+        out = torch.zeros((h // stride, w // stride), dtype=torch.int32)
+        exp = torch.zeros((h + 2, w + 2), dtype=torch.int32)   # a ring of one pixel
+        plan = fir.ir_tc_plan(h, w, stride, tile)
+        for (oy, ox), (iy, ix) in plan:
+            out[oy:oy + th, ox:ox + tw] += 1
+            exp[iy + 1:iy + 1 + hh, ix + 1:ix + 1 + hw] += 1
+        assert bool((out == 1).all()), (tile, h, w)
+        inner = exp[1:h + 1, 1:w + 1]
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+
+        def seams(pos, t, n):
+            # tiles of t outputs whose halos hold input index pos, per dimension
+            first = [stride * t * i - 1 for i in range(-(-(n // stride) // t))]
+            span = (t - 1) * stride + 3
+            return sum(((pos >= f) & (pos < f + span)).int() for f in first)
+
+        assert torch.equal(inner, seams(ys, th, h) * seams(xs, tw, w)), (tile, h, w)
+        assert int(inner.max()) <= 4 and int(inner.min()) >= 1
+        if h % (stride * th) == 0 and w % (stride * tw) == 0:
+            assert len(plan) * hh * hw == int(exp.sum())
+
+
+def tc_schedule(x, ops, stride, tile, use_residual=False):
+    """csrc/ir_hopper.cuh's walk in plain torch, from the operands' planes:
+    for each tile of ``ir_tc_plan``, its halo of x (zero outside the image),
+    then each chunk of expanded channels: the expand from Wexp^T's planes
+    (at f32: x's tf32 parts, lo.hi + hi.lo + hi.hi), SiLU(+ bexp) and zeros
+    outside the image, the depthwise in the TPU body's order for the stride,
+    SiLU(+ bdw), the reduce out^T += Wred^T . y^T (at f32 from y's tf32
+    parts), each chunk's sum added to the tile's; + bred (+ x)."""
+    f32 = ops.dtype == F32
+    b, h, w, c = x.shape
+    th, tw = tile
+    hh, hw = fir._halo(stride, th), fir._halo(stride, tw)
+    wx, wr = _planes(ops)
+    kp, nc, kw = wx.shape[2], wr.shape[1], (32 if f32 else 64)
+    nch = wx.shape[1] // kw
+    k = ops.kdw.reshape(3, 3, -1)
+    xp = torch.zeros((b, h + 2 * hh, w + 2 * hw, kp), dtype=x.dtype)
+    xp[:, hh:hh + h, hw:hw + w, :c] = x
+    inside = torch.zeros((h + 2 * hh, w + 2 * hw), dtype=torch.bool)
+    inside[hh:hh + h, hw:hw + w] = True
+    ho, wo = h // stride, w // stride
+    out = torch.zeros((b, ho, wo, ops.cout))
+
+    def prod(a_parts, b_parts):   # (M, K) . (N, K)^T at f32: lo.hi + hi.lo + hi.hi
+        if not f32:
+            return a_parts[0].float() @ b_parts[0].float().t()
+        return (a_parts[1] @ b_parts[0].t() + a_parts[0] @ b_parts[1].t()
+                + a_parts[0] @ b_parts[0].t())
+
+    for img in range(b):
+        for (oy, ox), (iy, ix) in fir.ir_tc_plan(h, w, stride, tile):
+            rows = xp[img, hh + iy:hh + iy + hh, hw + ix:hw + ix + hw].reshape(-1, kp)
+            mask = inside[hh + iy:hh + iy + hh, hw + ix:hw + ix + hw].reshape(-1, 1)
+            xparts = tf32_split(rows) if f32 else (rows,)
+            acc = torch.zeros((nc, th * tw))
+            for j in range(nch):
+                cols = slice(j * kw, (j + 1) * kw)
+                ex = prod(xparts, [p[cols] for p in wx])
+                xe = torch.where(mask, silu(ex + ops.bexp[cols]), torch.zeros(()))
+                xe = xe.to(ops.dtype).float().reshape(hh, hw, kw)
+                kk = k[:, :, cols]
+                if stride == 1:
+                    s = torch.zeros((th, tw, kw))
+                    for dj in range(3):
+                        col = torch.zeros((th, tw, kw))
+                        for di in range(3):
+                            col = col + xe[di:di + th, dj:dj + tw] * kk[di, dj]
+                        s = s + col
+                else:
+                    s = torch.zeros((th, tw, kw))
+                    for di in range(3):
+                        for dj in range(3):
+                            s = s + xe[di:di + 2 * th - 1:2, dj:dj + 2 * tw - 1:2] * kk[di, dj]
+                y = silu(s + ops.bdw[cols]).to(ops.dtype).reshape(th * tw, kw)
+                yparts = tf32_split(y) if f32 else (y,)
+                acc = acc + prod([p[:, cols] for p in wr], yparts)
+            tile_out = acc.t()[:, :ops.cout] + ops.bred[:ops.cout]
+            tile_out = tile_out.reshape(th, tw, ops.cout)
+            hi_, wi_ = min(th, ho - oy), min(tw, wo - ox)
+            t = tile_out[:hi_, :wi_]
+            if use_residual:
+                t = t + x[img, oy:oy + hi_, ox:ox + wi_].float()
+            out[img, oy:oy + hi_, ox:ox + wi_] = t
+    return out.to(ops.dtype)
+
+
+@pytest.mark.parametrize("stride,cd,b,h,w,c,e,cout,resid", [
+    (1, F32, 2, 9, 17, 24, 40, 24, True), (1, F32, 1, 7, 13, 12, 48, 100, False),
+    (1, F32, 1, 16, 16, 64, 96, 64, True), (2, F32, 1, 10, 18, 12, 72, 40, False),
+    (2, F32, 2, 6, 34, 8, 100, 130, False), (2, BF, 1, 10, 18, 12, 72, 40, False),
+    (2, BF, 1, 18, 20, 24, 136, 200, False)])
+def test_tile_schedule_matches_the_plain_version(two_threads, stride, cd, b, h, w, c, e, cout,
+                                                 resid):
+    """The walk on every tile the stride has, from the operands' planes: at
+    f32 within IR_F32_REL (1e-5) of the plain version's largest value, at
+    bf16 within chip_smoke.py's limits for kernel 8 (2^-6 of the largest,
+    the mean within 0.01 of the plain version's own distance between
+    rounding to bf16 and not)."""
+    rng = np.random.default_rng(b * h * w + c + e)
+    args = _weights(rng, c, e, cout)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cd)
+    ops = (fir.ir_f32_operands(*args) if stride == 1
+           else fir.ir_s2_operands(*args, compute_dtype=cd))
+    pargs = (args[0].to(cd), *args[1:4], args[4].to(cd), args[5])
+    want = fir.fused_ir_plain(x, *pargs, stride=stride, use_residual=resid).float()
+    scale = float(want.abs().max())
+    for tile in fir.IR_TC_TILES[stride]:
+        got = tc_schedule(x, ops, stride, tile, resid).float()
+        err = (got - want).abs()
+        if cd == F32:
+            assert float(err.max()) <= 1e-5 * scale, tile
+        else:
+            gap = float((fir.fused_ir_plain(x.float(), *args, stride=stride) - want).abs().mean())
+            assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap, tile

@@ -139,10 +139,13 @@ def test_kernel_names_are_the_launch_counters():
         f"void {anon}layer_kernel({anon}LayerArgs)": "transformer_sequence",
         f"void {anon}ir_strip_kernel<32>({anon}Params)": "fused_inverted_residual",
         f"void {anon}ir_kernel({anon}IRArgs, {anon}IRLayout)": "inverted_residual_tile",
-        f"void {anon}ir_f32_kernel<4>({anon}Args, {anon}Layout)": "inverted_residual_f32",
-        f"void {anon}ir_s2_kernel<__nv_bfloat16, 2>({anon}Args, {anon}Layout)":
+        f"void {anon}ir_f32_kernel<8, 16, 1>(gxt::irh::Params)": "inverted_residual_f32",
+        f"void {anon}ir_f32_kernel<4, 8, 2>(gxt::irh::Params)": "inverted_residual_f32",
+        f"void {anon}ir_s2_kernel<__nv_bfloat16, 8, 8, 2>(gxt::irh::Params)":
             "inverted_residual_s2",
-        f"void {anon}ir_s2_kernel<float, 5>({anon}Args, {anon}Layout)":
+        f"void {anon}ir_s2_kernel<float, 8, 8, 1>(gxt::irh::Params)":
+            "inverted_residual_s2_f32",
+        f"void {anon}ir_s2_kernel<float, 4, 8, 3>(gxt::irh::Params)":
             "inverted_residual_s2_f32",
     }
     for sym, name in symbols.items():

@@ -422,6 +422,35 @@ def test_stride_2_route_is_the_cards_only():
     assert not calls and y.shape == (2, 8, 8, 64)
 
 
+# (stride, compute dtype, Cout, the widest C its tile kernel takes): past it
+# neither the f32 stride-1 nor the stride-2 kernel fits x's halo and a chunk
+# of Wexp^T in a block's shared memory
+IR_TC_WIDEST = [(1, torch.float32, 128, 224), (2, torch.float32, 64, 192),
+                (2, torch.float32, 256, 128), (2, torch.bfloat16, 256, 576)]
+
+
+@pytest.mark.parametrize("stride,cd,cout,widest", IR_TC_WIDEST)
+def test_route_turns_away_widths_no_tile_fits(stride, cd, cout, widest):
+    """On a CUDA device a block runs the f32 stride-1 or the stride-2 kernel
+    at the widest C (in steps of 32) whose tile fits a block; one 32
+    channels wider keeps the unfused chain, decided before any launch (the
+    wrapper would refuse it for its shared memory)."""
+    rng = np.random.default_rng(13)
+    cuda = torch.device("cuda")
+    for c, fused in ((widest, True), (widest + 32, False)):
+        _, blk = _ir_blocks(rng, c, 64, cout, stride, False)
+        blk = dataclasses.replace(blk, fused=True)
+        assert blk.fused_route(cd, cuda, (16, 16)) == fused, c
+        assert fir.ir_tc_takes(stride, c, 64, cout, cd) == fused
+        f32 = cd == torch.float32
+        need = (fir.ir_f32_smem_bytes(c, 64, cout) if stride == 1
+                else fir.ir_s2_smem_bytes(c, 64, cout, cd))
+        assert (need <= fir.SMEM_LIMIT) == fused
+        assert need == fir._tc_smem(f32, stride, fir.ir_tc_tile(f32, stride, c, cout), c, cout)
+    assert not fir.ir_tc_takes(1, 16, 64, fir.F32_MAX_COUT + 1, torch.float32)
+    assert not fir.ir_tc_takes(2, 16, 64, fir.S2_MAX_COUT + 1, cd)
+
+
 def _s2_args(rng, c, e, cout):
     return tuple(T(rng.standard_normal(s) * 0.2)
                  for s in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
@@ -437,7 +466,7 @@ def test_stride_2_wrapper_refuses_what_its_kernel_does_not_take(cd):
     rng = np.random.default_rng(12)
     args = _s2_args(rng, 16, 64, 32)
     ops = fir.ir_s2_operands(*args, compute_dtype=cd)
-    assert ops.wexp.dtype == cd and ops.wred.dtype == cd and ops.bred.numel() == 32
+    assert ops.wexp.dtype == cd and ops.wred.dtype == cd and ops.bred.numel() == 64
     x = torch.zeros((2, 8, 8, 16), dtype=cd)
     for bad, match in ((torch.zeros((2, 7, 8, 16), dtype=cd), "even H and W"),
                        (torch.zeros((2, 8, 9, 16), dtype=cd), "even H and W"),
@@ -460,24 +489,36 @@ def test_stride_2_wrapper_refuses_what_its_kernel_does_not_take(cd):
     assert fir.ir_s2_smem_bytes(16, 64, fir.S2_MAX_COUT + 1) == -1
     for _, _, c, e, cout, _ in S2_DOWNSAMPLERS:
         for dt in (torch.bfloat16, torch.float32):
-            assert 0 < fir.ir_s2_smem_bytes(c, e, cout, dt) <= fir.SMEM_LIMIT // 2 + 20000
+            assert 0 < fir.ir_s2_smem_bytes(c, e, cout, dt) <= fir.SMEM_LIMIT
 
 
 def test_stride_2_operands_hold_the_weights_in_the_kernels_layout():
-    """ir_s2_operands: f32 matrices row-major, bf16 transposed, E padded to 64
-    and Cout to 32 with zeros, the vectors f32."""
+    """ir_s2_operands: per chunk of expanded channels (32 at f32, 64 at
+    bf16), Wexp^T's rows (K = C in 128-byte slabs) and Wred^T's rows (Cout
+    rounded up to 64), each 128-byte row in the 128-byte swizzle; at f32 the
+    tf32 hi and lo planes, at bf16 one plane; E padded with zeros, the
+    vectors f32."""
     rng = np.random.default_rng(13)
     wexp, bexp, kdw, bdw, wred, bred = args = _s2_args(rng, 24, 100, 40)
     o32 = fir.ir_s2_operands(*args, compute_dtype=torch.float32)
-    assert o32.wexp.shape == (24, 128) and o32.wred.shape == (128, 64)
-    assert torch.equal(o32.wexp[:, :100], wexp) and not o32.wexp[:, 100:].any()
-    assert torch.equal(o32.wred[:100, :40], wred) and not o32.wred[:, 40:].any()
+    assert o32.wexp.shape == (4, 2, 1, 32, 32) and o32.wred.shape == (4, 2, 64, 32)
+    wx = ftl.swizzle_tiles(o32.wexp)     # the swizzle is its own inverse
+    wr = ftl.swizzle_tiles(o32.wred)
+    # chunk j, part p, row n: Wexp^T's row 32 j + n; Wred^T's row n at K 32 j ..
+    we = (wx[:, 0] + wx[:, 1]).reshape(128, 32)
+    wrr = (wr[:, 0] + wr[:, 1]).permute(1, 0, 2).reshape(64, 128)
+    assert float((we[:100, :24] - wexp.t()).abs().max()) <= 2 ** -21 * float(wexp.abs().max())
+    assert float((wrr[:40, :100] - wred.t()).abs().max()) <= 2 ** -21 * float(wred.abs().max())
+    assert not we[100:].any() and not we[:, 24:].any() and not wrr[40:].any()
+    assert not wrr[:, 100:].any()
     assert torch.equal(o32.kdw.reshape(9, 128)[:, :100], kdw.reshape(9, 100))
     o16 = fir.ir_s2_operands(*args, compute_dtype=torch.bfloat16)
-    assert o16.wexp.shape == (128, 32) and o16.wred.shape == (64, 128)
-    assert torch.equal(o16.wexp[:100, :24], wexp.t().to(torch.bfloat16))
-    assert torch.equal(o16.wred[:40, :100], wred.t().to(torch.bfloat16))
-    assert not o16.wexp[:, 24:].float().any() and not o16.wred[40:].float().any()
+    assert o16.wexp.shape == (2, 1, 1, 64, 64) and o16.wred.shape == (2, 1, 64, 64)
+    we16 = ftl.swizzle_tiles(o16.wexp).reshape(128, 64)
+    wr16 = ftl.swizzle_tiles(o16.wred)[:, 0].permute(1, 0, 2).reshape(64, 128)
+    assert torch.equal(we16[:100, :24], wexp.t().to(torch.bfloat16))
+    assert torch.equal(wr16[:40, :100], wred.t().to(torch.bfloat16))
+    assert not we16[:, 24:].float().any() and not wr16[40:].float().any()
     assert all(v.dtype == torch.float32 for v in (o16.bexp, o16.kdw, o16.bdw, o16.bred))
     bred16, bexp16, bdw16 = (v.reshape(-1) for v in (o16.bred, o16.bexp, o16.bdw))
     assert torch.equal(bred16[:40], bred) and not bred16[40:].any()

@@ -5,7 +5,9 @@ hand-off to ``torch.matmul``. The decode gate has its own tool,
 ``tools/torch_recalibrate_decode.py``, whose rule (``pick_gate``) this one
 reuses for the engine.
 
-Run from the root of a checkout:
+Run from the root of a checkout (the package measured is the working
+directory's: ``cd parent && python3 /path/to/tools/torch_gate_sweep.py``
+times another checkout's kernels with this file's cells):
 
     python3 tools/torch_gate_sweep.py [--only engine,ir,ir_f32,ir_s2,layer_f32,qmatmul]
         [--margin 1.15] [--out FILE]
@@ -32,10 +34,10 @@ beside it).
   layer_1's too).
 * ``ir_f32``: the f32 kernel (``csrc/inverted_residual_f32.cu``) per call
   against the cuDNN f32 chain (TF32 off, as the port's f32 convolutions
-  run) at the same shapes and B; then ``extract_features`` at f32 with the
-  stride-1 blocks unfused (the model's f32 route) and with them routed to
-  the f32 kernel for this measurement (``fused_route`` widened to f32 here
-  only), in turns.
+  run) at the same shapes and B; then ``extract_features`` at f32 on the
+  model's route (its stride-1 blocks on the f32 kernel) and with the
+  stride-1 blocks unfused (``fused_route`` patched for the measurement),
+  in turns.
 * ``ir_s2``: the stride-2 kernel (``csrc/inverted_residual_s2.cu``) per call
   against the cuDNN stride-2 chain (three ``F.conv2d``, the depthwise at
   stride 2, BN folded, two SiLUs; TF32 off at f32) at MobileViT-small's four
@@ -45,7 +47,10 @@ beside it).
   default), and on without layer_5's (E = 512) or layers 4-5's (E >= 384)
   (``fused_route`` patched for the measurement), in turns there and back,
   three times; the speedups from each route's best turn, the median of its
-  turns beside them.
+  turns beside them; then each route's CUDA-graph replay (the card's time
+  alone, IR_S2_GRAPH_CALLS forwards a graph), in turns there and back. The
+  per-call cells of ``ir_f32`` and ``ir_s2`` also give the kernel's and the
+  chain's CUDA-graph times.
 * ``layer_f32``: ``extract_features`` at f32 on
   ``checkpoints/mobilevit_synth_full.ggml`` at B = 8, 32, 128 with the f32
   fused layer's route (``csrc/transformer_layer_f32.cu``, the default on a
@@ -70,7 +75,6 @@ import statistics
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 ENGINE_SLOTS = (16, 64, 128, 256, 512, 1024)
 ENGINE_INNER = (16, 32, 64, 128)
@@ -87,6 +91,7 @@ IR_S2_BLOCKS = {"layer_2": (128, 128, 32, 128, 64), "layer_3": (64, 64, 64, 256,
 # extract_features' turns through the stride-2 routes: at B = 8 a forward
 # waits on the host, and one turn there and back spread 1.76x
 IR_S2_ROUND_TRIPS = 3
+IR_S2_GRAPH_CALLS = 3    # forwards in a CUDA graph (each keeps its activations)
 LAYER_F32_ROUND_TRIPS = 3
 VIT_CKPT = os.path.join("checkpoints", "mobilevit_synth_full.ggml")
 # the expanded widths of the stride-1 blocks: the E thresholds that differ
@@ -141,7 +146,12 @@ def engine_cells(rows, margin, compute):
 def ir_cells(rows):
     import torch
 
-    from torch_kernel_bench import cudnn_inverted_residual, inverted_residual_bound, ir_inputs
+    from torch_kernel_bench import (
+        cudnn_inverted_residual,
+        graph_ms,
+        inverted_residual_bound,
+        ir_inputs,
+    )
 
     from ggml_experiments_tpu_torch.models import mobilevit
     from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
@@ -191,7 +201,7 @@ def ir_cells(rows):
 def ir_f32_cells(rows):
     import torch
 
-    from torch_kernel_bench import cudnn_inverted_residual, ir_inputs
+    from torch_kernel_bench import cudnn_inverted_residual, graph_ms, ir_inputs
 
     from ggml_experiments_tpu_torch.models import mobilevit
     from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
@@ -203,21 +213,25 @@ def ir_f32_cells(rows):
         for b in IR_BATCHES:
             x, args = ir_inputs(b, h, w, c, e, cout, dtype=torch.float32)
             ops = fir.ir_f32_operands(*args)
-            kernel = timeit_stats(lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid))
+            call = lambda: fir.fused_ir_f32_cuda(x, ops, use_residual=resid)  # noqa: E731
+            kernel = timeit_stats(call)
             chain = timeit_stats(cudnn_inverted_residual(x, args, resid))
             emit(rows, {"cell": "ir_f32", "block": name, "shape": [b, h, w, c, e, cout],
                         "residual": resid, "kernel": kernel.asdict(),
                         "cudnn_chain": chain.asdict(),
-                        "kernel_speedup": round(chain.headline / kernel.headline, 4)})
+                        "kernel_speedup": round(chain.headline / kernel.headline, 4),
+                        "kernel_graph_ms": round(graph_ms(call), 4),
+                        "cudnn_chain_graph_ms": round(graph_ms(
+                            cudnn_inverted_residual(x, args, resid)), 4)})
             del x, ops
     dev = torch.device("cuda")
     params = load_mobilevit(VIT_CKPT, device=dev, fused_ir=True)
     cls = mobilevit.InvertedResidualParams
-    bf16_route = cls.fused_route
+    route = cls.fused_route
 
-    def f32_route(self, compute_dtype, device=None, hw=None):
-        return (self.fused and self.conv_3x3.stride == 1
-                and self.expand_1x1.kernel.shape[-1] >= mobilevit.IR_FUSED_MIN_EXPAND)
+    def stride_1_off(self, compute_dtype, device=None, hw=None):
+        """The model's route with its stride-1 blocks unfused."""
+        return self.conv_3x3.stride != 1 and route(self, compute_dtype, device, hw)
 
     try:
         for b in IR_BATCHES:
@@ -225,7 +239,7 @@ def ir_f32_cells(rows):
                                 generator=torch.Generator(device=dev).manual_seed(b))
             cell = {}
             for name in ("unfused", "f32_kernel", "f32_kernel", "unfused"):   # in turns
-                cls.fused_route = f32_route if name == "f32_kernel" else bf16_route
+                cls.fused_route = route if name == "f32_kernel" else stride_1_off
                 st = timeit_stats(lambda: extract_features(params, images))
                 cell.setdefault(name, []).append(st.asdict())
             best = {name: min(s["median_ms"] for s in runs) for name, runs in cell.items()}
@@ -233,13 +247,18 @@ def ir_f32_cells(rows):
                         "speedup_over_unfused": round(best["unfused"] / best["f32_kernel"], 4)})
             del images
     finally:
-        cls.fused_route = bf16_route
+        cls.fused_route = route
 
 
 def ir_s2_cells(rows):
     import torch
 
-    from torch_kernel_bench import cudnn_inverted_residual, inverted_residual_bound, ir_inputs
+    from torch_kernel_bench import (
+        cudnn_inverted_residual,
+        graph_ms,
+        inverted_residual_bound,
+        ir_inputs,
+    )
 
     from ggml_experiments_tpu_torch.models import mobilevit
     from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
@@ -253,7 +272,8 @@ def ir_s2_cells(rows):
             for b in IR_BATCHES:
                 x, args = ir_inputs(b, h, w, c, e, cout, dtype=cd)
                 ops = fir.ir_s2_operands(*args, compute_dtype=cd)
-                kernel = timeit_stats(lambda: fir.fused_ir_s2_cuda(x, ops))
+                call = lambda: fir.fused_ir_s2_cuda(x, ops)  # noqa: E731
+                kernel = timeit_stats(call)
                 chain = timeit_stats(cudnn_inverted_residual(x, args, False, stride=2))
                 _, by, bounds = inverted_residual_bound(b, h, w, c, e, cout, str(cd)[6:],
                                                         stride=2)
@@ -261,6 +281,9 @@ def ir_s2_cells(rows):
                             "shape": [b, h, w, c, e, cout], "kernel": kernel.asdict(),
                             "cudnn_chain": chain.asdict(),
                             "kernel_speedup": round(chain.headline / kernel.headline, 4),
+                            "kernel_graph_ms": round(graph_ms(call), 4),
+                            "cudnn_chain_graph_ms": round(graph_ms(cudnn_inverted_residual(
+                                x, args, False, stride=2)), 4),
                             "bound_ms": bounds[by], "bound_by": by})
                 del x, ops
     dev = torch.device("cuda")
@@ -294,11 +317,24 @@ def ir_s2_cells(rows):
                 best = {name: min(s["median_ms"] for s in runs) for name, runs in cell.items()}
                 mid = {name: statistics.median(s["median_ms"] for s in runs)
                        for name, runs in cell.items()}
+                # the card's time alone: a CUDA graph of IR_S2_GRAPH_CALLS forwards a
+                # route, in turns there and back (where a host's jitter hid the
+                # winner of the turns above)
+                graph = {}
+                for name in [*routes, *reversed(routes)]:
+                    cls.fused_route = routes[name]
+                    graph.setdefault(name, []).append(round(graph_ms(
+                        lambda: extract_features(params, images, compute_dtype=cd),
+                        n=IR_S2_GRAPH_CALLS), 4))
+                torch.cuda.empty_cache()
                 emit(rows, {"cell": "ir_s2_extract_features", "compute": str(cd)[6:],
                             "batch": b, **cell,
                             "speedup_over_off": {k: round(best["off"] / v, 4)
                                                  for k, v in best.items() if k != "off"},
-                            "median_of_turns_ms": mid})
+                            "median_of_turns_ms": mid, "graph_ms": graph,
+                            "graph_speedup_over_off": {
+                                k: round(min(graph["off"]) / min(v), 4)
+                                for k, v in graph.items() if k != "off"}})
                 del images
     finally:
         cls.fused_route = route
@@ -375,6 +411,9 @@ def main() -> int:
 
     from torch_recalibrate_decode import smi_line
 
+    # torch_recalibrate_decode puts its own checkout first on the path; the
+    # package measured is the working directory's
+    sys.path.insert(0, os.getcwd())
     if not torch.cuda.is_available():
         print("torch_gate_sweep: no CUDA device", file=sys.stderr)
         return 2
