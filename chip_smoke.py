@@ -238,9 +238,12 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      13's shapes on the full checkpoint's weights, B=128: each stage's
      first, middle and last layer, whole and kernel by kernel on the plain
      versions' inputs, within LAYER_F32_REL of the largest value, two
-     launches bit-equal; the kernels, the layer and the plain versions
-     timed beside the 3xTF32 bound, ``nn.TransformerEncoderLayer`` f32 (TF32
-     off) and ``scaled_dot_product_attention`` f32; then ``extract_features``
+     launches bit-equal; ln_qkv and proj_ffn also on one and on two
+     consumer warpgroups forced (two do not fit proj_ffn's block at C =
+     240: the layer is refused) and at a ragged T = 3 x 16 rows; the
+     kernels, the layer and the plain versions timed beside the 3xTF32
+     bound, ``nn.TransformerEncoderLayer`` f32 (TF32 off) and
+     ``scaled_dot_product_attention`` f32; then ``extract_features``
      at f32, B = 8, 32, 128, with the f32 route on and off in turns (its
      launches counted: the three kernels a layer and no flash, or flash a
      layer), the features of the two within VIT_CPU_FEATURE_REL.
@@ -4957,7 +4960,42 @@ def layer_f32_phase(tag, dev, images):
             log(f"[{tag}]   its kernels on their plain versions' inputs, each launched twice "
                 f"(bit-equal): " + " | ".join(parts) + f" | scaled_dot_product_attention f32 "
                 f"{sdpa_ms:.4f} ms")
-            del x, x2, want_qkv, want_ctx, ops
+
+            # the row tiles on one and on two consumer warpgroups forced, and at a
+            # ragged T of 3 x 16 rows (neither a 64- nor a 128-row tile)
+            want_out = ftl.proj_ffn_plain(x2, want_ctx, ops)
+            xr = torch.randn((48, width), generator=g, device=dev)
+            want_r = ftl.ln_qkv_plain(xr, ops)
+            ctx_r = ftl.attention_plain(want_r, 16, ops)
+            want_rout = ftl.proj_ffn_plain(xr, ctx_r, ops)
+            forced = []
+            for nwg in (None, 1, 2):
+                for kname, kernel, kwant in (
+                        ("ln_qkv", lambda: ftl.ln_qkv_cuda(x2, ops, l, _plan=nwg), want_qkv),
+                        ("proj_ffn", lambda: ftl.proj_ffn_cuda(x2, want_ctx, ops, l, _plan=nwg),
+                         want_out),
+                        ("ln_qkv T=48", lambda: ftl.ln_qkv_cuda(xr, ops, 16, _plan=nwg), want_r),
+                        ("proj_ffn T=48", lambda: ftl.proj_ffn_cuda(xr, ctx_r, ops, 16,
+                                                                    _plan=nwg), want_rout)):
+                    try:
+                        kgot, kagain = kernel(), kernel()
+                    except ValueError as ex:
+                        check(nwg == 2 and c == 240 and "does not fit" in str(ex),
+                              f"{tag}: {kname} {what} on {nwg} warpgroups refused: {ex}")
+                        forced.append(f"{kname} x{nwg} refused (does not fit)")
+                        continue
+                    torch.cuda.synchronize()
+                    kerr, kscale = rel(kgot, kwant)
+                    check(bool(torch.isfinite(kgot).all()) and kerr <= LAYER_F32_REL * kscale
+                          and torch.equal(kgot, kagain),
+                          f"{tag}: {kname} {what} on {nwg} warpgroups: max abs err {kerr:.3g} "
+                          f"(limit {LAYER_F32_REL} x {kscale:.3g}), bit-equal "
+                          f"{torch.equal(kgot, kagain)}")
+                    forced.append(f"{kname} x{nwg or 'plan'} {kerr / kscale:.3g}")
+                    del kgot, kagain
+            log(f"[{tag}]   forced warpgroups and T=48, each launched twice (bit-equal), err of "
+                f"the largest: " + ", ".join(forced))
+            del x, x2, want_qkv, want_ctx, want_out, xr, want_r, ctx_r, want_rout, ops
     for t in tot.values():
         t["bound_ms"] = max(t["bound_t"])
         t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"

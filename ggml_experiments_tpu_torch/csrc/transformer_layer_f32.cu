@@ -21,38 +21,66 @@
 //                 y = LN(x1); h1 = SiLU(y.Wi + bi); o = x1 + h1.Wo2 + bo2;
 //                 optional block-final LN (block eps); optional o.Wout *
 //                 bn_scale + bn_bias and SiLU.
-// Every product runs as 3xTF32 on mma.sync m16n8k8 (each operand split into
-// a tf32 high part and its remainder, three products, small terms first), so
-// the sums keep f32 accuracy. LN statistics (mean, then the mean squared
-// deviation), softmax and SiLU are f32 with every rounding written out
-// (__fadd_rn / __fmul_rn, the correctly rounded reciprocal and square
-// root, expf), so nothing is contracted that the plain version computes in
-// two steps. No atomics and a fixed order of sums: two launches give the
-// same bits.
+// Every product runs as 3xTF32 (each operand split into a tf32 high part
+// and its remainder, three products, small terms first), so the sums keep
+// f32 accuracy. LN statistics (mean, then the mean squared deviation),
+// softmax and SiLU are f32 with every rounding written out (__fadd_rn /
+// __fmul_rn, the correctly rounded reciprocal and square root, expf), so
+// nothing is contracted that the plain version computes in two steps. No
+// atomics and a fixed order of sums: two launches give the same bits.
 //
 // Bound on an H100 at the main path's shapes (bp = 512; (L, C, F) = (256,
 // 144, 288), (64, 192, 384), (16, 240, 480)): the operations, about 232
 // GFLOP a forward's nine layers at 3xTF32's 165 TFLOP/s (1.4 ms), against
 // 12 bytes a token and channel in and out of each kernel.
 //
-// Design. At f32 one sequence's k and v at L = 256, C = 144 take 295 KB, so
-// the per-sequence design of transformer_layer_seq.cu does not fit; the
-// bf16 form's split does:
-//   * A and C are row tiles of 32 rows over all T tokens, a block of 8
-//     warps, two blocks a multiprocessor (at most 128 registers a thread).
-//     The block's operands live in shared memory as f32 rows of round8(K)
-//     + 4 floats (4 x odd: the tf32 fragment loads of 8 rows x 4 lanes hit
-//     32 distinct banks): x (and x.Win), LN's output, ctx, x1 and the whole
-//     FFN intermediate h1 (at C = 240, F = 480, Cin = 160: 124 KB). A
-//     product is items of 32 rows x 32 output columns spread over the
-//     warps; a warp splits each A fragment once for its 4 n-tiles and reads
-//     the weights straight from global memory (L2 and L1 serve them: a
-//     layer's are under 3 MB), pre-split by the wrapper into tf32 pairs in
-//     the fragment order, one 16-byte load a fragment: [n][K/8][t] = (hi(k =
-//     8kk + t), hi(8kk + t + 4), lo(8kk + t), lo(8kk + t + 4)). Measured on
-//     an H100 (PERF.md §6), 16- and 64-row tiles, three blocks a
-//     multiprocessor and loading the next k-step's weights ahead were each
-//     slower.
+// Design of A and C (the row tiles). A block is one or two consumer
+// warpgroups of 64 rows each (one where T / 128 tiles would leave
+// multiprocessors idle, or where two do not fit shared memory: the wrapper's
+// plan, nwg_a / nwg_c) and a producer warpgroup, one thread of which issues
+// every copy and whose registers go to the consumers (setmaxnreg 40 / 232).
+//   * Weights: the wrapper splits each once into tf32 hi and lo planes of
+//     B^T (output columns x K), K-major, in tiles of one 32-wide K chunk
+//     (128-byte rows, the 128-byte swizzle wgmma reads) by W output columns,
+//     stored in the order the block consumes them: a stream the producer
+//     copies tile by tile (bulk copies) into a ring of `stages` buffers, one
+//     copy serving the block's 64 or 128 rows. A tile goes back once the
+//     block's products have read it.
+//   * x (with the input projection) and ctx arrive by TMA (2-D tensor maps,
+//     32-column f32 boxes of 64 rows, 128-byte swizzle; rows past T read as
+//     zeros and are not stored); x without the projection is read into
+//     registers. LN's output (the A operand of q/k/v, of Wi, of Wout) and
+//     each SiLU'd FFN chunk go into the warpgroup's own tiles in the same
+//     layout, a warp writing and reading its own 16 rows only.
+//   * Products: tf32 wgmma m64nWk8 with A in registers, B in the ring.
+//     A's fragments are read from the swizzled tile and split into tf32 hi
+//     and lo once a k-step of a product (by truncation: split_tf32_rz),
+//     then lo.hi + hi.lo + hi.hi issued for all W columns. C-wide products
+//     (Win, Wo, Wo2, Wout) run in NCH chunks of W columns (C padded to 48
+//     NC: C = 144 as 2 x 72, 192 as 2 x 96, 240 as 3 x 80), q/k/v in chunks
+//     of 144 of the 3C real columns (heads' zero padding is not computed:
+//     it is written as zeros), the FFN in chunks of 96. Each chunk's sum is
+//     fresh (chained on the tensor cores over its K only), then added in
+//     f32 where the plain version adds: xf, x1 = xf + ctx.Wo + bo and o =
+//     x1 + sum of the FFN chunks' h1.Wo2 + bo2 stay in registers (C <=
+//     240), LN's statistics come from them (the four lanes of a row add in
+//     a fixed order), and the FFN walks F in 96-column chunks: y.Wi -> SiLU
+//     -> the chunk's tile -> its Wo2 sums added to x1, so h1 is never whole
+//     in shared memory.
+//   * q/k/v go out as f32 pairs from registers (each warp's store fills
+//     whole 32-byte sectors), through a table of each real column's place
+//     in the padded array; the heads' padding as float4 zeros after.
+//   * The rows' vectors (LN gamma and beta, the biases, BN scale and bias)
+//     and that table are staged in shared memory at a block's start: read
+//     from global memory beside the C-wide sums they were loaded one by one
+//     and held the LN, bias and SiLU passes back. The SiLUs are silu_rn
+//     (mma_common.cuh): 0 below z = -86.64, where the plain version gives
+//     about -1e-36.
+// On an H100 the products run near the tensor rate inside a block; the
+// passes between them (LN, SiLU, the q/k/v stores) are serial per
+// warpgroup, and the two warpgroups keep step on the shared ring (PERF.md
+// §6 row 6).
+// Design of B (attention, unchanged since it was ported):
 //   * B is flash_attention.cu's f32 design on the q/k/v array: a warp owns
 //     16 query rows of one (sequence, head), a block stages k and v of its
 //     pairs as f32 rows of 8 ceil(dh/8) + 4 floats by cp.async (8 pairs a
@@ -62,15 +90,18 @@
 //     walked twice: once for the true row max, once (the same operations in
 //     the same order give the same scores) to form p, its sum and p.v.
 //   * Rows past T read zeros and are not stored.
+#include <string.h>
+
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 // Field order and types match the ctypes Structure _F32Args in
 // ops/fused_transformer_layer.py.
 struct LayerF32Args {
-  const void *x, *qkv, *ctx, *out;
-  const void *win, *wqkv, *wo, *wi, *wo2, *wout;
+  const void *x, *qkv, *ctx, *out, *wa, *wc;
   const void *ln1g, *ln1b, *bqkv, *bo, *ln2g, *ln2b, *bi, *bo2, *ln3g, *ln3b, *osc, *obi;
-  int T, L, Cin, ldx, C, H, dh, dhp, ldc, F, Cout, ldo, in_proj, final_ln, out_proj, out_act;
+  int T, L, Cin, ldx, C, H, dh, dhp, ldc, F, Cout, ldo, in_proj, final_ln, out_proj, out_act,
+      nwg_a, nwg_c, stages_a, stages_c;
   float eps, final_eps, scale;
 };
 
@@ -78,11 +109,19 @@ namespace {
 
 using namespace gxt;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // an attention block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMT = 2;       // m-tiles of 16 rows a row tile
-constexpr int kBM = 16 * kMT;
 constexpr int kChunk = 4;    // 8-key tiles a step of the attention's key loop
+
+constexpr int kRows = 64;          // rows of a consumer warpgroup
+constexpr int kMaxThreads = 384;   // two consumer warpgroups and a producer one
+constexpr int kBox = 8192;         // a 64 x 32 f32 tile: 64 rows of 128 bytes
+constexpr int kKC = 32;            // K of a weight tile: one 128-byte row
+constexpr int kQW = 144;           // q/k/v columns of a product
+constexpr int kFW = 96;            // FFN columns of a chunk
+constexpr int kMaxNC = 5;          // C <= 240: x1 in registers
+constexpr int kMaxStages = 6;
+constexpr int kSmemLimit = 232448;   // an H100 block's shared memory
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int k8(int k) { return cdiv(k, 8); }
@@ -90,23 +129,91 @@ __host__ __device__ inline int k8(int k) { return cdiv(k, 8); }
 // a multiple of 4 whose quarter is odd
 __host__ __device__ inline int ld32(int k) { return 8 * k8(k) + 4; }
 
+// C-wide sums: NC units of 48 columns, in NCH products of W columns
+__host__ __device__ constexpr int units(int c) { return (c + 47) / 48; }
+__host__ __device__ constexpr int nchunks(int nc) { return (nc + 1) / 2; }
+__host__ __device__ constexpr int chunk_w(int nc) { return 48 * nc / nchunks(nc); }
+
 bool takes(const LayerF32Args& a) {
   return a.T >= 0 && a.L > 0 && a.T % a.L == 0 && a.H > 0 && a.C == a.H * a.dh && a.dh > 0 &&
          a.dh <= 64 && a.dhp == pad16(a.dh) && a.Cin > 0 && a.F > 0 && a.Cout > 0 &&
          (a.in_proj || a.Cin == a.C) && (a.out_proj || a.Cout == a.C);
 }
 
+// what the row-tile kernels add: C-wide sums in registers (C <= 240), TMA
+// boxes (16-byte row strides of x with the projection and of ctx), pairs of
+// x (without it) and of the output (without the out-projection)
+bool rows_take(const LayerF32Args& a) {
+  return a.C <= 48 * kMaxNC && a.C % 4 == 0 && a.ldc % 4 == 0 && a.ldc >= a.C &&
+         (a.in_proj ? a.Cin % 4 == 0 && a.ldx % 4 == 0 : a.ldx % 2 == 0) && a.ldx >= a.Cin &&
+         a.ldo >= a.Cout && (a.out_proj || a.ldo % 2 == 0);
+}
+
+// the row-tile kernels' sizes
+struct Dims {
+  int nc, nch, w;       // units of 48 columns of C; products of w columns covering them
+  int nkin, nkc;        // 32-wide K chunks of Cin and of C
+  int nq, nf, noc;      // q/k/v products of kQW columns, FFN chunks, out-projection products
+  int cp;               // C padded to whole units: a staged vector's length
+  int nba;              // ln_qkv: boxes of a warpgroup's tile (x, then LN's output)
+  int nbx, nbc;         // proj_ffn: boxes of x's (then h1's) and of ctx's (then y's, o's) tiles
+  int sba, sbc;         // bytes of a ring buffer (the widest weight tile)
+  int ta, tc;           // weight tiles of each stream
+};
+
+__host__ __device__ inline Dims dims(const LayerF32Args& a) {
+  Dims d;
+  d.nc = units(a.C);
+  d.nch = nchunks(d.nc);
+  d.w = chunk_w(d.nc);
+  d.cp = 48 * d.nc;
+  d.nkin = cdiv(a.Cin, kKC);
+  d.nkc = cdiv(a.C, kKC);
+  d.nq = cdiv(3 * a.C, kQW);
+  d.nf = cdiv(a.F, kFW);
+  d.noc = cdiv(a.Cout, d.w);
+  const int xin = a.in_proj ? d.nkin : 0;
+  d.nba = xin > d.nkc ? xin : d.nkc;
+  d.nbx = xin > kFW / kKC ? xin : kFW / kKC;
+  d.nbc = d.nkc;
+  d.sba = (d.w > kQW ? d.w : kQW) * 256;
+  d.sbc = (d.w > kFW ? d.w : kFW) * 256;
+  d.ta = (a.in_proj ? d.nch * d.nkin : 0) + d.nq * d.nkc;
+  d.tc = (a.in_proj ? d.nch * d.nkin : 0) + d.nch * d.nkc + d.nf * (d.nkc + d.nch * kFW / kKC) +
+         (a.out_proj ? d.noc * d.nkc : 0);
+  return d;
+}
+
+// floats of the vectors a block stages in shared memory (each padded with
+// zeros): ln_qkv's LN gamma and beta, then the q/k/v biases and (ints) the
+// q/k/v array's column of each product column; proj_ffn's bo, LN2 gamma
+// and beta, bo2, final LN gamma and beta, bi, BN scale and bias
+__host__ __device__ inline int vec_ln_qkv(const Dims& d) { return 2 * d.cp + 2 * d.nq * kQW; }
+__host__ __device__ inline int vec_proj_ffn(const Dims& d) {
+  return 6 * d.cp + d.nf * kFW + 2 * d.noc * d.w;
+}
+
+// bytes of a block's shared memory besides the ring: the 1024-byte
+// alignment of the base, the warpgroups' tiles, the staged vectors, the
+// barriers
+size_t fixed_ln_qkv(const Dims& d, int nwg) {
+  return 1024 + (size_t)nwg * d.nba * kBox + (size_t)4 * vec_ln_qkv(d) + 8 * (2 * kMaxStages + 2);
+}
+size_t fixed_proj_ffn(const Dims& d, int nwg) {
+  return 1024 + (size_t)nwg * (d.nbx + d.nbc) * kBox + (size_t)4 * vec_proj_ffn(d) +
+         8 * (2 * kMaxStages + 4);
+}
 size_t smem_ln_qkv(const LayerF32Args& a) {
-  return (size_t)kBM * 4 * (2 * ld32(a.C) + (a.in_proj ? ld32(a.Cin) : 0));
+  const Dims d = dims(a);
+  return fixed_ln_qkv(d, a.nwg_a) + (size_t)a.stages_a * d.sba;
 }
-
-__host__ __device__ inline int ld_h(const LayerF32Args& a) {
-  const int h = ld32(a.F);
-  return a.in_proj && ld32(a.Cin) > h ? ld32(a.Cin) : h;
-}
-
 size_t smem_proj_ffn(const LayerF32Args& a) {
-  return (size_t)kBM * 4 * (2 * ld32(a.C) + ld_h(a));
+  const Dims d = dims(a);
+  return fixed_proj_ffn(d, a.nwg_c) + (size_t)a.stages_c * d.sbc;
+}
+
+bool plan_ok(int nwg, int stages, size_t smem) {
+  return (nwg == 1 || nwg == 2) && stages >= 2 && stages <= kMaxStages && smem <= kSmemLimit;
 }
 
 struct AttnPlan {
@@ -135,198 +242,589 @@ AttnPlan attn_plan(const LayerF32Args& a) {
   return p;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = addf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// ---------------------------------------------------------------------------
+// the row-tile kernels: ring, products, epilogues
+// ---------------------------------------------------------------------------
+
+struct RowF32Params {
+  CUtensorMap tm_x;     // x (T, Cin) in 32 x 64 boxes: with the input projection
+  CUtensorMap tm_ctx;   // ctx (T, C): proj_ffn
+  LayerF32Args a;
+};
+
+// The weight ring: `stages` buffers of `sb` bytes. Tile i of the stream (at
+// i * sb bytes of it) goes to buffer i % stages once the consumer warps have
+// released the buffer's previous tile.
+struct Ring {
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, sb;
+};
+
+__device__ __forceinline__ void ring_fill(const Ring& r, int i, const unsigned char* stream,
+                                          int bytes) {
+  const int s = i % r.stages;
+  if (i >= r.stages) mbar_wait(r.empty + s, (i / r.stages - 1) & 1);
+  mbar_expect(r.full + s, bytes);
+  bulk_load(r.buf + (size_t)s * r.sb, stream + (size_t)i * r.sb, bytes, r.full + s);
 }
 
-// the four tf32 A fragments (rows g, g + 8; columns t, t + 4) of the 16 x 8
-// block at p (row stride ld), split into high parts and remainders
-__device__ __forceinline__ void a_frags(const float* p, int ld, int g, int t, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  const float* r = p + g * ld + t;
-  split_tf32(r[0], hi[0], lo[0]);
-  split_tf32(r[8 * ld], hi[1], lo[1]);
-  split_tf32(r[4], hi[2], lo[2]);
-  split_tf32(r[8 * ld + 4], hi[3], lo[3]);
+// one TMA copy of a (32, 64) f32 box of a 2-D tensor map, completing on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* tm, int c0, int c1,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// The 32 block rows of A (shared, row stride lda, K8 8-column steps, zero
-// or finite past K) times the pre-split weight B (N padded to 32 rows of
-// K8 x 4 uint4), in items of 32 output columns spread over the warps;
-// epi(row, col, sum) for every col < N.
-template <typename Epi>
-__device__ __forceinline__ void tile_gemm(const float* A, int lda, const void* Bv, int K8, int N,
-                                          Epi epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const uint4* B = static_cast<const uint4*>(Bv);
-  const size_t nstep = (size_t)8 * K8 * 4;   // 8 weight rows
-  for (int n0 = warp * 32; n0 < N; n0 += kWarps * 32) {
-    float acc[kMT][4][4];
+// x = hi + lo exactly, hi x's top 11 significant bits (tf32 by truncation):
+// the tensor cores read lo's top 11 bits, so lo.hi + hi.lo + hi.hi keeps
+// about 2^-21 of each product (split_tf32's round to nearest keeps about
+// 2^-22, at five times the instructions, which held the products back)
+__device__ __forceinline__ void split_tf32_rz(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// acc (+)= the warpgroup's A rows (the 32-column box at `a`; the lane reads
+// rows arow, arow + 8) . ring tile `it` (W rows of B^T's hi plane, then W
+// of its lo plane, K = 32) in 3xTF32. A's fragments are split into tf32 hi
+// and lo as they are read (split_tf32_rz), once a k-step for all W columns,
+// into one of two register sets (a set is written again once the products
+// of two steps back are done). kFirst: the first product overwrites acc,
+// whose registers no other instruction defines (ptxas serialises the wgmmas
+// otherwise).
+// Returns with the tile's products done and the tile given back. Measured
+// slower on an H100 (PERF.md §6): releasing a tile one step later, with
+// the next tile's first products in flight; any other work (stores, SiLUs)
+// between a product's k-steps.
+template <int W, bool kFirst>
+__device__ __forceinline__ void tile_product(float (&acc)[W / 2], const unsigned char* a,
+                                             const Ring& r, int it, int arow, int tq, int lane) {
+  const int s = it % r.stages;
+  mbar_wait(r.full + s, (it / r.stages) & 1);
+  const uint32_t bh = smem_u32(r.buf + (size_t)s * r.sb), bl = bh + W * 128;
+  uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    const int f = ks & 1;
+    if (ks >= 2) wg_wait<1>();
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
-                                          acc[mt][nt][3] = 0.f;
-    const uint4* bp = B + (size_t)(n0 + g) * K8 * 4 + t;
-#pragma unroll 2
-    for (int kk = 0; kk < K8; ++kk) {
-      uint32_t ah[kMT][4], al[kMT][4];
+    for (int e = 0; e < 4; ++e) {
+      const int row = arow + 8 * (e & 1), k = 8 * ks + tq + 4 * (e >> 1);
+      split_tf32_rz(*reinterpret_cast<const float*>(a + swz4(row, k)), ah[f][e], al[f][e]);
+    }
+    wg_fence();
+    wgmma_tf32_rs<W>(acc, al[f], desc_k(bh + 32 * ks), kFirst && ks == 0 ? 0 : 1);
+    wgmma_tf32_rs<W>(acc, ah[f], desc_k(bl + 32 * ks), 1);
+    wgmma_tf32_rs<W>(acc, ah[f], desc_k(bh + 32 * ks), 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(r.empty + s);
+}
+
+// acc = A (nk boxes from `a`, 8 KB apart) . the next nk ring tiles: a fresh
+// sum, chained on the tensor cores over this K only
+template <int W>
+__device__ __forceinline__ void product(float (&acc)[W / 2], const unsigned char* a, int nk,
+                                        const Ring& r, int& it, int arow, int tq, int lane) {
+  tile_product<W, true>(acc, a, r, it++, arow, tq, lane);
+  for (int kc = 1; kc < nk; ++kc)
+    tile_product<W, false>(acc, a + kc * kBox, r, it++, arow, tq, lane);
+  wg_pin(acc);
+}
+
+// A C-wide row array v[NV] holds the lane's columns 8 G + 2 q (+1) of rows
+// rl and rl + 8 (the wgmma accumulator layout over NV / 4 groups of 8
+// columns): column 8 G + 2 q + e of row rl + 8 hf is v[4 G + 2 hf + e]. A
+// product chunk of W columns from column c0 is v[2 c0 ..] on.
+
+// v = rows `row`, row + 8 of x (T rows of C columns, stride ld), zero past
+// C and past T (clamped loads, then selects)
+template <int NV>
+__device__ __forceinline__ void load_rows(float (&v)[NV], const float* x, int ld, int C, int T,
+                                          int row, int q) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        a_frags(A + mt * 16 * lda + kk * 8, lda, g, t, ah[mt], al[mt]);
+  for (int G = 0; G < NV / 4; ++G) {
+    const int col = 8 * G + 2 * q;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint4 b = __ldg(bp + nt * nstep + kk * 4);
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + 8 * hf;
+      const float2 w = __ldg(reinterpret_cast<const float2*>(
+          x + (size_t)min(r, T - 1) * ld + min(col, C - 2)));
+      const bool ok = r < T && col < C;
+      v[4 * G + 2 * hf] = ok ? w.x : 0.f;
+      v[4 * G + 2 * hf + 1] = ok ? w.y : 0.f;
+    }
+  }
+}
+
+// LN statistics of the lane's two rows over C columns (f32: the mean, then
+// the mean squared deviation; the four lanes of a row add in a fixed order)
+template <int NV>
+__device__ __forceinline__ void ln_stats(const float (&v)[NV], int C, int q, float eps,
+                                         float (&mean)[2], float (&inv)[2]) {
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          mma_tf32x<true>(acc[mt][nt], ah[mt], al[mt], b.x, b.y, b.z, b.w);
+  for (int hf = 0; hf < 2; ++hf) {
+    float s = 0.f;
+#pragma unroll
+    for (int G = 0; G < NV / 4; ++G)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * G + 2 * q + e < C) s = addf(s, v[4 * G + 2 * hf + e]);
+    s = addf(s, __shfl_xor_sync(0xffffffffu, s, 1));
+    s = addf(s, __shfl_xor_sync(0xffffffffu, s, 2));
+    const float m = __fdiv_rn(s, (float)C);
+    float var = 0.f;
+#pragma unroll
+    for (int G = 0; G < NV / 4; ++G)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * G + 2 * q + e < C) {
+          const float dv = __fsub_rn(v[4 * G + 2 * hf + e], m);
+          var = addf(var, mulf(dv, dv));
+        }
+    var = addf(var, __shfl_xor_sync(0xffffffffu, var, 1));
+    var = addf(var, __shfl_xor_sync(0xffffffffu, var, 2));
+    mean[hf] = m;
+    inv[hf] = __fdiv_rn(1.f, __fsqrt_rn(addf(__fdiv_rn(var, (float)C), eps)));
+  }
+}
+
+// LN(v) in place with gamma, beta (staged, zero past C) over C columns;
+// zero past C
+template <int NV>
+__device__ __forceinline__ void ln_rows(float (&v)[NV], int C, int q, float eps, const float* gam,
+                                        const float* bet) {
+  float mean[2], inv[2];
+  ln_stats<NV>(v, C, q, eps, mean, inv);
+#pragma unroll
+  for (int G = 0; G < NV / 4; ++G) {
+    const int col = 8 * G + 2 * q;
+    const float2 g = *reinterpret_cast<const float2*>(gam + col);
+    const float2 b = *reinterpret_cast<const float2*>(bet + col);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float& x = v[4 * G + 2 * hf + e];
+        const float y = addf(mulf(mulf(__fsub_rn(x, mean[hf]), inv[hf]), e ? g.y : g.x),
+                             e ? b.y : b.x);
+        x = col + e < C ? y : 0.f;
+      }
+  }
+}
+
+// v + b[col] (b staged, zero past C: v stays zero there)
+template <int NV>
+__device__ __forceinline__ void add_vec(float (&v)[NV], const float* b, int q) {
+#pragma unroll
+  for (int G = 0; G < NV / 4; ++G) {
+    const float2 bb = *reinterpret_cast<const float2*>(b + 8 * G + 2 * q);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      v[4 * G + 2 * hf] = addf(v[4 * G + 2 * hf], bb.x);
+      v[4 * G + 2 * hf + 1] = addf(v[4 * G + 2 * hf + 1], bb.y);
+    }
+  }
+}
+
+// v (zero past C), or with gam LN(v) over C columns (gam, bet staged; zero
+// past C), as the lane's rows rl, rl + 8 of a warpgroup tile of nb
+// 32-column boxes at t; the box columns past the array's 2 NV are zeroed
+template <int NV>
+__device__ __forceinline__ void store_tile(unsigned char* t, const float (&v)[NV], int nb, int rl,
+                                           int q, int C = 0, float eps = 0.f,
+                                           const float* gam = nullptr,
+                                           const float* bet = nullptr) {
+  float mean[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  if (gam) ln_stats<NV>(v, C, q, eps, mean, inv);
+#pragma unroll
+  for (int G = 0; G < NV / 4; ++G) {
+    const int col = 8 * G + 2 * q;
+    if (col >= kKC * nb) continue;
+    const float2 g = gam ? *reinterpret_cast<const float2*>(gam + col) : make_float2(0.f, 0.f);
+    const float2 b = gam ? *reinterpret_cast<const float2*>(bet + col) : make_float2(0.f, 0.f);
+    float y[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float x = v[4 * G + 2 * hf + e];
+        y[hf][e] = !gam ? x
+                   : col + e < C
+                       ? addf(mulf(mulf(__fsub_rn(x, mean[hf]), inv[hf]), e ? g.y : g.x),
+                              e ? b.y : b.x)
+                       : 0.f;
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(t + (col / kKC) * kBox + swz4(rl + 8 * hf, col % kKC)) =
+          make_float2(y[hf][0], y[hf][1]);
+  }
+  for (int col = 2 * NV + 2 * q; col < kKC * nb; col += 8)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(t + (col / kKC) * kBox + swz4(rl + 8 * hf, col % kKC)) =
+          make_float2(0.f, 0.f);
+}
+
+// n floats of `src` (n0 of them, the rest zero; none where src is null)
+// into the staged vector dst, by the block's threads
+__device__ __forceinline__ void stage(float* dst, const void* src, int n0, int n) {
+  const float* s = static_cast<const float*>(src);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = s && i < n0 ? s[i] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// A: x (or x.Win) -> LN1 -> q, k, v
+// ---------------------------------------------------------------------------
+
+template <int NC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    layer_ln_qkv_f32_kernel(const __grid_constant__ RowF32Params p) {
+  constexpr int NCH = nchunks(NC), W = chunk_w(NC), NV = 24 * NC;
+  const LayerF32Args& a = p.a;
+  const Dims d = dims(a);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int S = a.stages_a, nwg = a.nwg_a, cwarps = 4 * nwg;
+  unsigned char* abuf = base + (size_t)S * d.sba;               // nwg tiles of nba boxes
+  float* lng = reinterpret_cast<float*>(abuf + (size_t)nwg * d.nba * kBox);   // staged
+  float* lnb = lng + d.cp;
+  float* qbias = lnb + d.cp;
+  int* qmap = reinterpret_cast<int*>(qbias + d.nq * kQW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(qmap + d.nq * kQW);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* xbar = empty + kMaxStages;
+  const Ring ring{base, full, empty, S, d.sba};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile0 = blockIdx.x * nwg * kRows;
+  const int hq = a.H * a.dhp, nqkv = 3 * hq;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, cwarps);
+    }
+    mbar_init(xbar, 1);
+    mbar_init(xbar + 1, 1);
+    mbar_init_fence();
+  }
+  stage(lng, a.ln1g, a.C, d.cp);
+  stage(lnb, a.ln1b, a.C, d.cp);
+  stage(qbias, a.bqkv, 3 * a.C, d.nq * kQW);
+  // the q/k/v array's column of each product column n < 3C ([q | k | v],
+  // heads of dh), -1 past 3C
+  for (int n = tid; n < d.nq * kQW; n += blockDim.x) {
+    int col = -1;
+    if (n < 3 * a.C) {
+      const int part = n / a.C, r = n - part * a.C, head = r / a.dh;
+      col = part * hq + head * a.dhp + r - head * a.dh;
+    }
+    qmap[n] = col;
+  }
+  __syncthreads();
+
+  if (warp >= cwarps) {   // producer warpgroup: one thread issues the copies
+    regs_dec<kProducerRegs>();
+    if (warp == cwarps && lane == 0) {
+      if (a.in_proj)
+        for (int w = 0; w < nwg; ++w) {
+          const int r0 = tile0 + w * kRows;
+          if (r0 >= a.T) {   // no rows: complete the phase with no copy
+            mbar_arrive(xbar + w);
+            continue;
+          }
+          mbar_expect(xbar + w, d.nkin * kBox);
+          for (int kc = 0; kc < d.nkin; ++kc)
+            tma_box(abuf + ((size_t)w * d.nba + kc) * kBox, &p.tm_x, kKC * kc, r0, xbar + w);
+        }
+      const unsigned char* ws = static_cast<const unsigned char*>(a.wa);
+      int i = 0;
+      if (a.in_proj)
+        for (int t = 0; t < NCH * d.nkin; ++t) ring_fill(ring, i++, ws, W * 256);
+      for (int t = 0; t < d.nq * d.nkc; ++t) ring_fill(ring, i++, ws, kQW * 256);
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int rl = 16 * (warp & 3) + g;             // the lane's rows rl, rl + 8 of the tile
+  const int row = tile0 + wg * kRows + rl;
+  unsigned char* ab = abuf + (size_t)wg * d.nba * kBox;
+  float xf[NV];
+  int it = 0;
+
+  // xf, then a = LN(xf) into ab over x's tile (a warp's own rows: its
+  // products have read them)
+  if (a.in_proj) {
+    mbar_wait(xbar + wg, 0);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      float acc[W / 2];
+      product<W>(acc, ab, d.nkin, ring, it, rl, q, lane);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) xf[ch * (W / 2) + i] = acc[i];
+    }
+  } else {
+    load_rows<NV>(xf, static_cast<const float*>(a.x), a.ldx, a.C, a.T, row, q);
+  }
+  store_tile<NV>(ab, xf, d.nkc, rl, q, a.C, a.eps, lng, lnb);
+  __syncwarp();
+
+  // [q | k | v] in products of kQW real columns (nq = NC of them): + bias, q
+  // scaled, into the padded array, in pairs from registers (each warp's
+  // store fills whole 32-byte sectors). Measured slower on an H100 (PERF.md
+  // §6): staging the rows in shared memory and sending them by bulk
+  // copies; each chunk's stores beside the next chunk's products; the
+  // heads' padding written beside their last columns.
+  float* qkv = static_cast<float*>(const_cast<void*>(a.qkv));
+  for (int qc = 0; qc < NC; ++qc) {
+    float acc[kQW / 2];
+    product<kQW>(acc, ab, d.nkc, ring, it, rl, q, lane);
+#pragma unroll
+    for (int j = 0; j < kQW / 8; ++j) {
+      const int n = qc * kQW + 8 * j + 2 * q;
+      const int2 cc = *reinterpret_cast<const int2*>(qmap + n);
+      const float2 bb = *reinterpret_cast<const float2*>(qbias + n);
+      const float s0 = n < a.C ? a.scale : 1.f, s1 = n + 1 < a.C ? a.scale : 1.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = row + 8 * hf;
+        if (r >= a.T) continue;
+        const float v0 = mulf(addf(acc[4 * j + 2 * hf], bb.x), s0);   // x * 1 is x
+        const float v1 = mulf(addf(acc[4 * j + 2 * hf + 1], bb.y), s1);
+        float* dst = qkv + (size_t)r * nqkv;
+        if (cc.x >= 0 && cc.y == cc.x + 1 && !(cc.x & 1)) {
+          *reinterpret_cast<float2*>(dst + cc.x) = make_float2(v0, v1);
+        } else {
+          if (cc.x >= 0) dst[cc.x] = v0;
+          if (cc.y >= 0) dst[cc.y] = v1;
+        }
       }
     }
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = n0 + nt * 8 + 2 * t + (i & 1);
-          if (col < N) epi(mt * 16 + g + (i >> 1) * 8, col, acc[mt][nt][i]);
-        }
   }
-}
-
-// rows r0 .. r0 + 31 of src (row stride lds, K columns) into dst (row stride
-// ldd), zero past T rows and in the columns up to round8(K)
-__device__ __forceinline__ void load_rows(const float* src, int lds, int K, int r0, int T,
-                                          float* dst, int ldd) {
-  const int w = 8 * k8(K);
-  for (int i = threadIdx.x; i < kBM * w; i += kThreads) {
-    const int r = i / w, c = i - r * w;
-    dst[r * ldd + c] = (r0 + r < T && c < K) ? __ldg(src + (size_t)(r0 + r) * lds + c) : 0.f;
-  }
-}
-
-// zero columns K .. round8(K) - 1 of the 32 rows (a product's A operand)
-__device__ __forceinline__ void zero_pad(float* buf, int ld, int K) {
-  const int w = 8 * k8(K) - K;
-  for (int i = threadIdx.x; i < kBM * w; i += kThreads) buf[(i / w) * ld + K + i % w] = 0.f;
-}
-
-// LN of the 32 rows of x over C columns (statistics in f32: the mean, then
-// the mean squared deviation) into dst (may be x), zero in the columns up to
-// round8(C); a warp a row
-__device__ __forceinline__ void ln_rows(const float* x, int ldx, int C, const float* gam,
-                                        const float* bet, float eps, float* dst, int ldd) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, pad = 8 * k8(C);
-  for (int r = warp; r < kBM; r += kWarps) {
-    const float* xr = x + r * ldx;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s = addf(s, xr[c]);
-    const float mean = __fdiv_rn(warp_sum(s), (float)C);
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = __fsub_rn(xr[c], mean);
-      v = addf(v, mulf(d, d));
+  // the heads' padding columns of the warp's 16 rows: zeros; padding column
+  // i of a row is head i / pw's (the quotient exact in f32 below 2^22), in
+  // float4s where dh is a multiple of 4
+  const int pw = a.dhp - a.dh;
+  const bool v4 = !(a.dh & 3);
+  const int pu = v4 ? pw / 4 : pw, np = 3 * a.H * pu;
+  const float inv_pu = pu ? 1.f / pu : 0.f;
+  const int wrow0 = tile0 + wg * kRows + 16 * (warp & 3);
+  for (int r = wrow0; r < min(wrow0 + 16, a.T); ++r)
+    for (int i = lane; i < np; i += 32) {
+      const int hh = (int)(((float)i + 0.5f) * inv_pu), u = i - hh * pu;
+      float* dst = qkv + (size_t)r * nqkv + hh * a.dhp + a.dh;
+      if (v4)
+        *reinterpret_cast<float4*>(dst + 4 * u) = make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        dst[u] = 0.f;
     }
-    const float var = __fdiv_rn(warp_sum(v), (float)C);
-    const float inv = __fdiv_rn(1.f, __fsqrt_rn(addf(var, eps)));
-    float* dr = dst + r * ldd;
-    for (int c = lane; c < pad; c += 32)
-      dr[c] = c < C ? addf(mulf(mulf(__fsub_rn(xr[c], mean), inv), gam[c]), bet[c]) : 0.f;
-  }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    layer_ln_qkv_f32_kernel(const __grid_constant__ LayerF32Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldC = ld32(a.C), ldI = ld32(a.Cin), r0 = blockIdx.x * kBM;
-  float* xf = smem;                 // [32][ldC] xf
-  float* an = xf + kBM * ldC;        // [32][ldC] LN(xf)
-  float* xs = an + kBM * ldC;        // [32][ldI] x, with the input projection
-  const float* x = static_cast<const float*>(a.x);
-  if (a.in_proj) {
-    load_rows(x, a.ldx, a.Cin, r0, a.T, xs, ldI);
-    __syncthreads();
-    tile_gemm(xs, ldI, a.win, k8(a.Cin), a.C,
-                  [&](int r, int c, float v) { xf[r * ldC + c] = v; });
-  } else {
-    load_rows(x, a.ldx, a.C, r0, a.T, xf, ldC);
-  }
-  __syncthreads();
-  ln_rows(xf, ldC, a.C, static_cast<const float*>(a.ln1g),
-              static_cast<const float*>(a.ln1b), a.eps, an, ldC);
-  __syncthreads();
-  const int nq = 3 * a.H * a.dhp, hq = a.H * a.dhp;
-  float* qkv = static_cast<float*>(const_cast<void*>(a.qkv));
-  const float* bqkv = static_cast<const float*>(a.bqkv);
-  tile_gemm(an, ldC, a.wqkv, k8(a.C), nq, [&](int r, int c, float v) {
-    if (r0 + r >= a.T) return;
-    float s = addf(v, bqkv[c]);
-    if (c < hq) s = mulf(s, a.scale);
-    qkv[(size_t)(r0 + r) * nq + c] = s;
-  });
-}
+// ---------------------------------------------------------------------------
+// C: xf + ctx.Wo -> LN2 -> FFN -> (final LN) -> (out-projection)
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads, 2)
-    layer_proj_ffn_f32_kernel(const __grid_constant__ LayerF32Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldC = ld32(a.C), ldH = ld_h(a), r0 = blockIdx.x * kBM;
-  float* x1 = smem;                 // [32][ldC] xf, then x1, then o
-  float* an = x1 + kBM * ldC;        // [32][ldC] ctx, then LN(x1)
-  float* hs = an + kBM * ldC;        // [32][ldH] x with the input projection, then h1
-  const float* x = static_cast<const float*>(a.x);
-  if (a.in_proj) {
-    load_rows(x, a.ldx, a.Cin, r0, a.T, hs, ldH);
-    __syncthreads();
-    tile_gemm(hs, ldH, a.win, k8(a.Cin), a.C,
-                  [&](int r, int c, float v) { x1[r * ldC + c] = v; });
-    zero_pad(x1, ldC, a.C);
-    __syncthreads();
-  } else {
-    load_rows(x, a.ldx, a.C, r0, a.T, x1, ldC);
+template <int NC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    layer_proj_ffn_f32_kernel(const __grid_constant__ RowF32Params p) {
+  constexpr int NCH = nchunks(NC), W = chunk_w(NC), NV = 24 * NC;
+  constexpr int FK = kFW / kKC;   // K chunks of an FFN chunk
+  const LayerF32Args& a = p.a;
+  const Dims d = dims(a);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int S = a.stages_c, nwg = a.nwg_c, cwarps = 4 * nwg;
+  unsigned char* wbuf = base + (size_t)S * d.sbc;   // per warpgroup: nbx + nbc boxes
+  float* vbo = reinterpret_cast<float*>(wbuf + (size_t)nwg * (d.nbx + d.nbc) * kBox);   // staged
+  float* vln2g = vbo + d.cp;
+  float* vln2b = vln2g + d.cp;
+  float* vbo2 = vln2b + d.cp;
+  float* vln3g = vbo2 + d.cp;
+  float* vln3b = vln3g + d.cp;
+  float* vbi = vln3b + d.cp;
+  float* vosc = vbi + d.nf * kFW;
+  float* vobi = vosc + d.noc * d.w;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vobi + d.noc * d.w);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* xbar = empty + kMaxStages;
+  uint64_t* cbar = xbar + 2;
+  const Ring ring{base, full, empty, S, d.sbc};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile0 = blockIdx.x * nwg * kRows;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, cwarps);
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(xbar + w, 1);
+      mbar_init(cbar + w, 1);
+    }
+    mbar_init_fence();
   }
-  load_rows(static_cast<const float*>(a.ctx), a.ldc, a.C, r0, a.T, an, ldC);
+  stage(vbo, a.bo, a.C, d.cp);
+  stage(vln2g, a.ln2g, a.C, d.cp);
+  stage(vln2b, a.ln2b, a.C, d.cp);
+  stage(vbo2, a.bo2, a.C, d.cp);
+  stage(vln3g, a.ln3g, a.C, d.cp);
+  stage(vln3b, a.ln3b, a.C, d.cp);
+  stage(vbi, a.bi, d.nf * kFW, d.nf * kFW);
+  stage(vosc, a.osc, a.Cout, d.noc * d.w);
+  stage(vobi, a.obi, a.Cout, d.noc * d.w);
   __syncthreads();
-  const float* bo = static_cast<const float*>(a.bo);
-  tile_gemm(an, ldC, a.wo, k8(a.C), a.C, [&](int r, int c, float v) {
-    float* p = x1 + r * ldC + c;
-    *p = addf(addf(*p, v), bo[c]);
-  });
-  __syncthreads();
-  ln_rows(x1, ldC, a.C, static_cast<const float*>(a.ln2g),
-              static_cast<const float*>(a.ln2b), a.eps, an, ldC);
-  __syncthreads();
-  const float* bi = static_cast<const float*>(a.bi);
-  tile_gemm(an, ldC, a.wi, k8(a.C), a.F,
-                [&](int r, int c, float v) { hs[r * ldH + c] = silu(addf(v, bi[c])); });
-  zero_pad(hs, ldH, a.F);
-  __syncthreads();
-  const float* bo2 = static_cast<const float*>(a.bo2);
-  tile_gemm(hs, ldH, a.wo2, k8(a.F), a.C, [&](int r, int c, float v) {
-    float* p = x1 + r * ldC + c;
-    *p = addf(addf(*p, v), bo2[c]);
-  });
-  __syncthreads();
-  if (a.final_ln) {
-    ln_rows(x1, ldC, a.C, static_cast<const float*>(a.ln3g),
-                static_cast<const float*>(a.ln3b), a.final_eps, x1, ldC);
-    __syncthreads();
+
+  if (warp >= cwarps) {   // producer warpgroup: one thread issues the copies
+    regs_dec<kProducerRegs>();
+    if (warp == cwarps && lane == 0) {
+      for (int w = 0; w < nwg; ++w) {
+        const int r0 = tile0 + w * kRows;
+        if (r0 >= a.T) {   // no rows: complete the phases with no copy
+          mbar_arrive(xbar + w);
+          mbar_arrive(cbar + w);
+          continue;
+        }
+        unsigned char* xb = wbuf + (size_t)w * (d.nbx + d.nbc) * kBox;
+        if (a.in_proj) {
+          mbar_expect(xbar + w, d.nkin * kBox);
+          for (int kc = 0; kc < d.nkin; ++kc)
+            tma_box(xb + (size_t)kc * kBox, &p.tm_x, kKC * kc, r0, xbar + w);
+        }
+        mbar_expect(cbar + w, d.nkc * kBox);
+        for (int kc = 0; kc < d.nkc; ++kc)
+          tma_box(xb + (size_t)(d.nbx + kc) * kBox, &p.tm_ctx, kKC * kc, r0, cbar + w);
+      }
+      const unsigned char* ws = static_cast<const unsigned char*>(a.wc);
+      int i = 0;
+      if (a.in_proj)
+        for (int t = 0; t < NCH * d.nkin; ++t) ring_fill(ring, i++, ws, W * 256);
+      for (int t = 0; t < NCH * d.nkc; ++t) ring_fill(ring, i++, ws, W * 256);
+      for (int f = 0; f < d.nf; ++f) {
+        for (int t = 0; t < d.nkc; ++t) ring_fill(ring, i++, ws, kFW * 256);
+        for (int t = 0; t < NCH * FK; ++t) ring_fill(ring, i++, ws, W * 256);
+      }
+      if (a.out_proj)
+        for (int t = 0; t < d.noc * d.nkc; ++t) ring_fill(ring, i++, ws, W * 256);
+    }
+    return;
   }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int rl = 16 * (warp & 3) + g;
+  const int row = tile0 + wg * kRows + rl;
+  unsigned char* xb = wbuf + (size_t)wg * (d.nbx + d.nbc) * kBox;   // x, then each h1 chunk
+  unsigned char* cb = xb + (size_t)d.nbx * kBox;                     // ctx, then y, then o
+  float x1[NV];
+  int it = 0;
+
+  // xf, then x1 = xf + ctx.Wo + bo (each chunk's product a fresh sum; x.Win
+  // and ctx.Wo through one copy of the product code: 0 + acc is acc)
+  if (!a.in_proj) load_rows<NV>(x1, static_cast<const float*>(a.x), a.ldx, a.C, a.T, row, q);
+  for (int src = a.in_proj ? 0 : 1; src < 2; ++src) {
+    mbar_wait((src ? cbar : xbar) + wg, 0);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      float acc[W / 2];
+      product<W>(acc, src ? cb : xb, src ? d.nkc : d.nkin, ring, it, rl, q, lane);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i)
+        x1[ch * (W / 2) + i] = addf(src ? x1[ch * (W / 2) + i] : 0.f, acc[i]);
+    }
+  }
+  add_vec<NV>(x1, vbo, q);
+
+  // y = LN2(x1) into cb over ctx's tile (the warp's rows: its products are done)
+  store_tile<NV>(cb, x1, d.nkc, rl, q, a.C, a.eps, vln2g, vln2b);
+  __syncwarp();
+
+  // the FFN, kFW columns of F at a time: h1 = SiLU(y.Wi + bi) into xb, then
+  // x1 += h1.Wo2 (each chunk's product a fresh sum)
+  for (int f = 0; f < d.nf; ++f) {
+    {
+      float h[kFW / 2];
+      product<kFW>(h, cb, d.nkc, ring, it, rl, q, lane);
+#pragma unroll
+      for (int j = 0; j < kFW / 8; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float2 b = *reinterpret_cast<const float2*>(vbi + f * kFW + col);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(xb + (col / kKC) * kBox + swz4(rl + 8 * hf, col % kKC)) =
+              make_float2(silu_rn(addf(h[4 * j + 2 * hf], b.x)),
+                          silu_rn(addf(h[4 * j + 2 * hf + 1], b.y)));
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      float acc[W / 2];
+      product<W>(acc, xb, FK, ring, it, rl, q, lane);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) x1[ch * (W / 2) + i] = addf(x1[ch * (W / 2) + i], acc[i]);
+    }
+  }
+
+  // o = x1 + bo2, the block's final LN
+  add_vec<NV>(x1, vbo2, q);
+  if (a.final_ln) ln_rows<NV>(x1, a.C, q, a.final_eps, vln3g, vln3b);
   float* out = static_cast<float*>(const_cast<void*>(a.out));
-  if (a.out_proj) {
-    const float* osc = static_cast<const float*>(a.osc);
-    const float* obi = static_cast<const float*>(a.obi);
-    tile_gemm(x1, ldC, a.wout, k8(a.C), a.Cout, [&](int r, int c, float v) {
-      if (r0 + r >= a.T) return;
-      float o = addf(mulf(v, osc[c]), obi[c]);
-      if (a.out_act) o = silu(o);
-      out[(size_t)(r0 + r) * a.ldo + c] = o;
-    });
-  } else {
-    for (int i = threadIdx.x; i < kBM * a.C; i += kThreads) {
-      const int r = i / a.C, c = i - r * a.C;
-      if (r0 + r < a.T) out[(size_t)(r0 + r) * a.ldo + c] = x1[r * ldC + c];
+  if (!a.out_proj) {
+#pragma unroll
+    for (int G = 0; G < NV / 4; ++G) {
+      const int col = 8 * G + 2 * q;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = row + 8 * hf;
+        if (r < a.T && col < a.C)
+          *reinterpret_cast<float2*>(out + (size_t)r * a.ldo + col) =
+              make_float2(x1[4 * G + 2 * hf], x1[4 * G + 2 * hf + 1]);
+      }
+    }
+    return;
+  }
+
+  // the out-projection: o.Wout * bn_scale + bn_bias (, SiLU), o into cb
+  // over y's tile (the warp's last products have read it)
+  store_tile<NV>(cb, x1, d.nkc, rl, q);
+  __syncwarp();
+  const bool pairs = !(a.ldo & 1);
+  for (int oc = 0; oc < d.noc; ++oc) {
+    float acc[W / 2];
+    product<W>(acc, cb, d.nkc, ring, it, rl, q, lane);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int n = oc * W + 8 * j + 2 * q;
+      if (n >= a.Cout) continue;
+      const bool two = n + 1 < a.Cout;
+      const float2 sc = *reinterpret_cast<const float2*>(vosc + n);
+      const float2 bb = *reinterpret_cast<const float2*>(vobi + n);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = row + 8 * hf;
+        if (r >= a.T) continue;
+        float v0 = addf(mulf(acc[4 * j + 2 * hf], sc.x), bb.x);
+        float v1 = addf(mulf(acc[4 * j + 2 * hf + 1], sc.y), bb.y);
+        if (a.out_act) {
+          v0 = silu_rn(v0);
+          v1 = silu_rn(v1);
+        }
+        float* dst = out + (size_t)r * a.ldo + n;
+        if (two && pairs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (two) dst[1] = v1;
+        }
+      }
     }
   }
 }
@@ -498,29 +996,93 @@ int launch_attn(const LayerF32Args& a, const AttnPlan& p, void* stream) {
   return launch(layer_attention_f32_kernel<KS>, p.blocks, p.smem, stream, a, p);
 }
 
+// a (rows, cols) f32 array with row stride `ld` as a tensor map read in
+// 32 x 64 boxes with the 128-byte swizzle; reads past the array give zeros
+int make_map(CUtensorMap* m, const void* ptr, int cols, int rows, int ld) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {kKC, kRows};
+  const cuuint32_t es[2] = {1, 1};
+  const CUresult res = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+                          strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a row-tile kernel of nwg consumer warpgroups and a producer one
+int launch_rows(void (*kernel)(RowF32Params), const RowF32Params& p, int nwg, size_t smem,
+                void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {const_cast<RowF32Params*>(&p)};
+  err = cudaLaunchKernel((void*)kernel, dim3(cdiv(p.a.T, nwg * kRows)), dim3(128 * (nwg + 1)),
+                         args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch_ln_qkv(int nc, const RowF32Params& p, int nwg, size_t smem, void* stream) {
+  switch (nc) {
+    case 1: return launch_rows(layer_ln_qkv_f32_kernel<1>, p, nwg, smem, stream);
+    case 2: return launch_rows(layer_ln_qkv_f32_kernel<2>, p, nwg, smem, stream);
+    case 3: return launch_rows(layer_ln_qkv_f32_kernel<3>, p, nwg, smem, stream);
+    case 4: return launch_rows(layer_ln_qkv_f32_kernel<4>, p, nwg, smem, stream);
+    case 5: return launch_rows(layer_ln_qkv_f32_kernel<5>, p, nwg, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_proj_ffn(int nc, const RowF32Params& p, int nwg, size_t smem, void* stream) {
+  switch (nc) {
+    case 1: return launch_rows(layer_proj_ffn_f32_kernel<1>, p, nwg, smem, stream);
+    case 2: return launch_rows(layer_proj_ffn_f32_kernel<2>, p, nwg, smem, stream);
+    case 3: return launch_rows(layer_proj_ffn_f32_kernel<3>, p, nwg, smem, stream);
+    case 4: return launch_rows(layer_proj_ffn_f32_kernel<4>, p, nwg, smem, stream);
+    case 5: return launch_rows(layer_proj_ffn_f32_kernel<5>, p, nwg, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory a launch of kernel `kind` (0 ln_qkv, 1
-// attention, 2 proj_ffn) at these widths needs, -1 where the kernels do not
-// take the layer (a head past 64, C not H heads of dh, dhp not dh rounded up
-// to 16, T not a multiple of L): the wrapper holds its own reckoning
-// (layer_f32_smem) against it.
+// attention, 2 proj_ffn) at these widths and this plan (nwg_a / nwg_c
+// consumer warpgroups, stages_a / stages_c ring buffers) needs, and (kind
+// 3, 4) the bytes of ln_qkv's and proj_ffn's weight streams; -1 where the
+// kernels do not take the layer (a head past 64, C not H heads of dh, dhp
+// not dh rounded up to 16, T not a multiple of L; the row tiles: C past
+// 240, widths or row strides that are not whole TMA boxes). The wrapper
+// holds its own reckoning (layer_f32_smem, the streams it built) against it.
 extern "C" long long gxt_layer_f32_smem(const LayerF32Args* a, int kind) {
-  if (!takes(*a)) return -1;
+  if (!takes(*a) || (kind != 1 && !rows_take(*a))) return -1;
+  const Dims d = dims(*a);
   switch (kind) {
     case 0: return (long long)smem_ln_qkv(*a);
     case 1: return (long long)attn_plan(*a).smem;
     case 2: return (long long)smem_proj_ffn(*a);
+    case 3: return (long long)d.ta * d.sba;
+    case 4: return (long long)d.tc * d.sbc;
   }
   return -1;
 }
 
-// x (T, Cin) f32 with row stride ldx -> qkv (T, 3 H dhp) f32. The weights are
-// the wrapper's tf32 pairs (win (C, Cin), wqkv (3 H dhp, C)); vectors f32.
+// x (T, Cin) f32 with row stride ldx -> qkv (T, 3 H dhp) f32. wa is the
+// wrapper's weight stream (Win^T, then the 3C real columns of [Wq | Wk |
+// Wv]^T, as tf32 hi / lo tiles); vectors f32 (bqkv: the 3C real biases).
 extern "C" int gxt_layer_ln_qkv_f32(const LayerF32Args* a, void* stream) {
   if (a->T <= 0) return 0;
-  if (!takes(*a)) return (int)cudaErrorInvalidValue;
-  return launch(layer_ln_qkv_f32_kernel, cdiv(a->T, kBM), smem_ln_qkv(*a), stream, *a);
+  if (!takes(*a) || !rows_take(*a) || !plan_ok(a->nwg_a, a->stages_a, smem_ln_qkv(*a)))
+    return (int)cudaErrorInvalidValue;
+  RowF32Params p;
+  memset(&p, 0, sizeof(p));
+  p.a = *a;
+  int code;
+  if (a->in_proj && (code = make_map(&p.tm_x, a->x, a->Cin, a->T, a->ldx))) return code;
+  return launch_ln_qkv(units(a->C), p, a->nwg_a, smem_ln_qkv(*a), stream);
 }
 
 // qkv (T, 3 H dhp) f32 -> ctx (T, C) f32 with row stride ldc.
@@ -542,10 +1104,19 @@ extern "C" int gxt_layer_attention_f32(const LayerF32Args* a, void* stream) {
 }
 
 // x (T, Cin) and ctx (T, C) f32 -> out (T, Cout) f32 with row stride ldo.
+// wc is the wrapper's weight stream (Win^T, Wo^T, per FFN chunk Wi^T and
+// Wo2^T, Wout^T).
 extern "C" int gxt_layer_proj_ffn_f32(const LayerF32Args* a, void* stream) {
   if (a->T <= 0) return 0;
-  if (!takes(*a)) return (int)cudaErrorInvalidValue;
-  return launch(layer_proj_ffn_f32_kernel, cdiv(a->T, kBM), smem_proj_ffn(*a), stream, *a);
+  if (!takes(*a) || !rows_take(*a) || !plan_ok(a->nwg_c, a->stages_c, smem_proj_ffn(*a)))
+    return (int)cudaErrorInvalidValue;
+  RowF32Params p;
+  memset(&p, 0, sizeof(p));
+  p.a = *a;
+  int code;
+  if (a->in_proj && (code = make_map(&p.tm_x, a->x, a->Cin, a->T, a->ldx))) return code;
+  if ((code = make_map(&p.tm_ctx, a->ctx, a->C, a->T, a->ldc))) return code;
+  return launch_proj_ffn(units(a->C), p, a->nwg_c, smem_proj_ffn(*a), stream);
 }
 
 // The three launches of a layer, in order, on one stream.

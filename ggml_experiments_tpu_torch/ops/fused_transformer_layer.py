@@ -39,12 +39,16 @@ whose plain version is :func:`fused_transformer_layer_plain`.
 
 At f32 every "-> cd" is a no-op, and the layer runs on the three kernels of
 ``csrc/transformer_layer_f32.cu`` in the same split, with the same (T, 3 H
-dhp) q/k/v array in f32: each product as 3xTF32 on ``mma.sync``, the
-weights laid out once a layer as tf32 pairs (:func:`tf32_operand`, kept in
-``LayerOperands.cache``), the softmax after the true row max. The same three
-plain pieces are their plain versions. A layer they do not take (a head past
-64, a block's shared memory past the device's: :func:`f32_layer_takes`) is
-refused with its shape; there is no per-sequence route at f32.
+dhp) q/k/v array in f32: ln_qkv and proj_ffn on 64-row warpgroup tiles,
+each product as 3xTF32 on tf32 ``wgmma``, the weights split once a layer
+into K-major tf32 hi / lo tiles streamed in the order the kernels consume
+them (:func:`f32_tiles`, :func:`_prepare_f32`, kept in
+``LayerOperands.cache``); the attention with the softmax after the true row
+max. The same three plain pieces are their plain versions. A layer they do
+not take (a head past 64, C past 240 or not a multiple of 4, a block's
+shared memory past the device's: :func:`f32_layer_takes`) is refused with
+its shape; there is no per-sequence route at f32, and the model keeps such a
+layer on its unfused chain.
 
 On a CPU tensor :func:`fused_transformer_layer` runs
 :func:`fused_transformer_layer_plain`; on a CUDA tensor it launches the
@@ -512,10 +516,10 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 
 def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> torch.Tensor:
     """Kernel A on x2 (T, Cin) bf16 or f32 CUDA (T a multiple of l): the (T,
-    3 H dhp) array of :func:`ln_qkv_plain` in x2's dtype. ``_plan``: bf16
-    only."""
-    if x2.dtype == torch.float32 and _plan is None:
-        return _ln_qkv_f32(x2, ops, l)
+    3 H dhp) array of :func:`ln_qkv_plain` in x2's dtype. ``_plan`` forces
+    the ring depths (bf16) or the consumer warpgroups, 1 or 2 (f32)."""
+    if x2.dtype == torch.float32:
+        return _ln_qkv_f32(x2, ops, l, _plan)
     c, h, dh, dhp = _dims(ops)
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
     prep, a = _row_tile_args(ops, x2, l, x2.shape[1], _plan, "transformer ln_qkv")
@@ -550,9 +554,10 @@ def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tenso
 def proj_ffn_cuda(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int, *,
                   _plan=None) -> torch.Tensor:
     """Kernel C on x2 (T, Cin) and ctx (T, C) bf16 or f32 CUDA: (T, Cout) in
-    their dtype. ``_plan``: bf16 only."""
-    if x2.dtype == torch.float32 and _plan is None:
-        return _proj_ffn_f32(x2, ctx, ops, l)
+    their dtype. ``_plan`` forces the ring depths (bf16) or the consumer
+    warpgroups, 1 or 2 (f32)."""
+    if x2.dtype == torch.float32:
+        return _proj_ffn_f32(x2, ctx, ops, l, _plan)
     c = ops.wq.shape[0]
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
     ctx = _tma_ready(ctx)
@@ -575,9 +580,10 @@ def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> tor
     where they do not take the layer, the per-sequence kernel
     (:func:`sequence_layer_cuda`); (bp, L, Cout) bf16. ``_plan`` forces the
     row-tile kernels' ring depths (tests, sweeps). An f32 tensor runs the
-    three f32 kernels (:func:`fused_layer_f32_cuda`)."""
-    if x3.dtype == torch.float32 and _plan is None:
-        return fused_layer_f32_cuda(x3, ops)
+    three f32 kernels (:func:`fused_layer_f32_cuda`; ``_plan`` then forces
+    the consumer warpgroups, 1 or 2)."""
+    if x3.dtype == torch.float32:
+        return fused_layer_f32_cuda(x3, ops, _plan)
     if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
         raise ValueError(f"fused_layer_cuda: x must be a bf16 or f32 (bp, L, Cin) CUDA tensor, "
                          f"got {x3.dtype}{tuple(x3.shape)} on {x3.device}")
@@ -697,11 +703,17 @@ def sequence_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # the f32 form (csrc/transformer_layer_f32.cu): the row-tile split and the
-# q/k/v array of the bf16 form at f32, every product as 3xTF32 on mma.sync
+# q/k/v array of the bf16 form at f32, every product as 3xTF32 on tf32 wgmma
 # ---------------------------------------------------------------------------
 
-_F32_ROWS = 32          # rows of a row tile (csrc kBM)
 _H100_SMEM = 232448     # a block's shared memory on an H100, where no card is visible
+_F32_MAX_C = 240        # C-wide sums in registers (csrc kMaxNC units of 48 columns)
+_F32_KC = 32            # K of a weight tile: one 128-byte row (csrc kKC)
+_F32_QW = 144           # q/k/v columns of a product (csrc kQW)
+_F32_FW = 96            # FFN columns of a chunk (csrc kFW)
+_F32_BOX = 8192         # a warpgroup tile's 32-column box of 64 rows (csrc kBox)
+_F32_MAX_STAGES = 6     # ring buffers, at most (csrc kMaxStages)
+_F32_STAGES = 4         # ring buffers the plan takes where they fit
 
 
 def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
@@ -719,58 +731,128 @@ def tf32_split(w: torch.Tensor):
     return hi, _tf32_rna(w - hi)
 
 
-def tf32_operand(w: torch.Tensor, dev=None) -> torch.Tensor:
-    """A product's weight w (K, N) as the f32 kernels' B operand: (Np, K8, 4,
-    4) f32, Np = N rounded up to 32 and K8 = ceil(K / 8), zero past K and N;
-    [n, kk, t] = (hi(w[8 kk + t, n]), hi(w[8 kk + t + 4, n]), lo(w[8 kk + t,
-    n]), lo(w[8 kk + t + 4, n])): one 16-byte load a mma.sync B fragment."""
-    k, n = w.shape
-    k8, np_ = -(-k // 8), -(-n // 32) * 32
-    dev = w.device if dev is None else dev
-    full = torch.zeros((k8 * 8, np_), dtype=torch.float32, device=dev)
-    full[:k, :n] = w.to(device=dev, dtype=torch.float32)
-    parts = [t.reshape(k8, 2, 4, np_).permute(3, 0, 2, 1) for t in tf32_split(full)]
-    return torch.stack(parts, dim=-2).reshape(np_, k8, 4, 4).contiguous()
+def f32_chunks(c: int):
+    """(nch, w): the f32 row-tile kernels' C-wide products, nch chunks of w
+    output columns over C padded to 48 ceil(C / 48) (csrc ``nchunks``,
+    ``chunk_w``): C = 144 as 2 x 72, 192 as 2 x 96, 240 as 3 x 80."""
+    nc = -(-c // 48)
+    nch = -(-nc // 2)
+    return nch, 48 * nc // nch
 
 
-def _ld32(k: int) -> int:
-    """Row stride (floats) of a shared f32 operand of k columns (csrc ld32)."""
-    return -(-k // 8) * 8 + 4
+def f32_tiles(wt: torch.Tensor, rows: int, n_pad: Optional[int] = None) -> torch.Tensor:
+    """A product's B^T (N, K) as the f32 kernels' weight tiles: (ceil(N /
+    rows), ceil(K / 32), 2, rows, 32) f32, for each chunk of ``rows`` output
+    columns and each 32-wide chunk of K (chunks of N outer) the tf32 hi plane
+    then the lo plane (:func:`tf32_split`), K-major, each 128-byte row in the
+    swizzle that wgmma reads (:func:`swizzle_tiles`); zero past N (or
+    ``n_pad``) and K."""
+    n, k = wt.shape
+    nr = -(-(n_pad or n) // rows) * rows
+    kp = -(-k // _F32_KC) * _F32_KC
+    full = torch.zeros((nr, kp), dtype=torch.float32, device=wt.device)
+    full[:n, :k] = wt.float()
+    planes = torch.stack(tf32_split(full))                       # (2, nr, kp)
+    t = planes.reshape(2, nr // rows, rows, kp // _F32_KC, _F32_KC).permute(1, 3, 0, 2, 4)
+    return swizzle_tiles(t.contiguous())
 
 
-def layer_f32_smem(l: int, cin: int, c: int, h: int, f: int, in_proj: bool):
+def _f32_dims(cin: int, c: int, f: int, cout: int, in_proj: bool, out_proj: bool) -> dict:
+    """The kernels' sizes (csrc ``dims``): products, K chunks, the
+    warpgroups' tiles in 32-column boxes, ring buffer and stream bytes."""
+    nch, w = f32_chunks(c)
+    nkin, nkc = -(-cin // _F32_KC), -(-c // _F32_KC)
+    nq, nf, noc = -(-3 * c // _F32_QW), -(-f // _F32_FW), -(-cout // w)
+    xin = nkin if in_proj else 0
+    d = dict(nch=nch, w=w, cp=48 * -(-c // 48), nkin=nkin, nkc=nkc, nq=nq, nf=nf, noc=noc,
+             nba=max(xin, nkc),
+             nbx=max(xin, _F32_FW // _F32_KC), nbc=nkc, sba=max(w, _F32_QW) * 256,
+             sbc=max(w, _F32_FW) * 256)
+    d["ta"] = (nch * nkin if in_proj else 0) + nq * nkc
+    d["tc"] = ((nch * nkin if in_proj else 0) + nch * nkc
+               + nf * (nkc + nch * _F32_FW // _F32_KC) + (noc * nkc if out_proj else 0))
+    return d
+
+
+def _f32_fixed(d: dict, kind: int, nwg: int) -> int:
+    """Shared memory of a row-tile block besides its ring (csrc
+    ``fixed_ln_qkv``, ``fixed_proj_ffn``): the base's 1024-byte alignment,
+    the warpgroups' tiles, the vectors staged in shared memory (LN's gamma
+    and beta, the biases, ln_qkv's column table, the BN scale and bias),
+    the barriers."""
+    if kind == 0:
+        return (1024 + nwg * d["nba"] * _F32_BOX + 4 * (2 * d["cp"] + 2 * d["nq"] * _F32_QW)
+                + 8 * (2 * _F32_MAX_STAGES + 2))
+    return (1024 + nwg * (d["nbx"] + d["nbc"]) * _F32_BOX
+            + 4 * (6 * d["cp"] + d["nf"] * _F32_FW + 2 * d["noc"] * d["w"])
+            + 8 * (2 * _F32_MAX_STAGES + 4))
+
+
+def layer_f32_smem(l: int, cin: int, c: int, h: int, f: int, in_proj: bool,
+                   plan=((1, 2), (1, 2)), cout: Optional[int] = None):
     """Bytes of shared memory a block of each f32 kernel takes, (ln_qkv,
     attention, proj_ffn), as ``gxt_layer_f32_smem`` reckons them: the row
-    tiles' f32 operands (32 rows), and the attention's k and v of the pairs
-    a block stages (8 // ceil(L / 16) pairs of L up to 128, one otherwise)."""
-    ldc, ldi = _ld32(c), _ld32(cin)
+    tiles at ``plan`` = ((consumer warpgroups, ring buffers) of ln_qkv, of
+    proj_ffn): the warpgroups' f32 tiles of 64 rows, the staged vectors
+    (``cout``, default C, sizes the BN's), the ring of weight tiles; the
+    attention's k and v of the pairs a block stages (8 // ceil(L / 16)
+    pairs of L up to 128, one otherwise)."""
+    d = _f32_dims(cin, c, f, cout or c, in_proj, False)
     lp, wpp = -(-l // 8) * 8, -(-l // 16)
     pairs = 8 // wpp if wpp <= 8 else 1
-    ln_qkv = _F32_ROWS * 4 * (2 * ldc + (ldi if in_proj else 0))
-    attention = pairs * 2 * lp * _ld32(c // h) * 4
-    proj_ffn = _F32_ROWS * 4 * (2 * ldc + max(_ld32(f), ldi if in_proj else 0))
+    (nwg_a, s_a), (nwg_c, s_c) = plan
+    ln_qkv = _f32_fixed(d, 0, nwg_a) + s_a * d["sba"]
+    attention = pairs * 2 * lp * (-(-(c // h) // 8) * 8 + 4) * 4
+    proj_ffn = _f32_fixed(d, 2, nwg_c) + s_c * d["sbc"]
     return ln_qkv, attention, proj_ffn
+
+
+def f32_layer_plan(t: int, l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
+                   limit: int, sms: int, nwg: Optional[int] = None,
+                   cout: Optional[int] = None):
+    """((consumer warpgroups, ring buffers) of ln_qkv, of proj_ffn) for T
+    rows: two warpgroups where T / 128 tiles fill the ``sms``
+    multiprocessors (:func:`row_tile_warpgroups`) and two fit ``limit``
+    bytes, else one; up to _F32_STAGES buffers, at least 2. ``nwg`` forces
+    the warpgroups (tests, sweeps). None where a kernel does not fit."""
+    want = nwg or row_tile_warpgroups(t, sms)
+    d = _f32_dims(cin, c, f, cout or c, in_proj, False)
+    plan = []
+    for kind, sb in ((0, d["sba"]), (2, d["sbc"])):
+        for w in (want,) if nwg or want == 1 else (2, 1):
+            stages = min(_F32_STAGES, (limit - _f32_fixed(d, kind, w)) // sb)
+            if stages >= 2:
+                plan.append((w, stages))
+                break
+        else:
+            return None
+    return tuple(plan)
 
 
 def f32_layer_takes(l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
                     limit: Optional[int] = None) -> bool:
     """Whether the f32 kernels take a layer of these widths: C heads of dh
-    <= 64, each kernel's block within ``limit`` bytes of shared memory (default: the card's, or an H100's where no card is
-    visible)."""
-    if l <= 0 or h <= 0 or c % h or c // h > 64:
+    <= 64, C up to 240 (the row tiles' sums in registers) and a multiple of
+    4 (TMA rows of 16 bytes), as Cin with the input projection; each
+    kernel's block within ``limit`` bytes of shared memory (default: the
+    card's, or an H100's where no card is visible) with one warpgroup and
+    two ring buffers (the BN vectors reckoned for a Cout up to 2C)."""
+    if l <= 0 or h <= 0 or c % h or c // h > 64 or c > _F32_MAX_C or c % 4:
+        return False
+    if in_proj and cin % 4:
         return False
     if limit is None:
         limit = _smem_limit(torch.device("cuda")) if torch.cuda.is_available() else _H100_SMEM
-    return max(layer_f32_smem(l, cin, c, h, f, in_proj)) <= limit
+    return max(layer_f32_smem(l, cin, c, h, f, in_proj, cout=2 * c)) <= limit
 
 
 class _F32Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "qkv", "ctx", "out", "win", "wqkv", "wo", "wi", "wo2", "wout", "ln1g", "ln1b",
-        "bqkv", "bo", "ln2g", "ln2b", "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [
+        "x", "qkv", "ctx", "out", "wa", "wc", "ln1g", "ln1b", "bqkv", "bo", "ln2g", "ln2b",
+        "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [
         (name, ctypes.c_int) for name in (
             "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "F", "Cout", "ldo", "in_proj",
-            "final_ln", "out_proj", "out_act")] + [
+            "final_ln", "out_proj", "out_act", "nwg_a", "nwg_c", "stages_a", "stages_c")] + [
         (name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
 
 
@@ -796,73 +878,122 @@ def _f32_lib():
 class _PreparedF32:
     """One layer's operands in the f32 kernels' layout on one device."""
 
-    weights: dict             # tf32 pairs by _F32Args field
+    wa: torch.Tensor          # ln_qkv's weight stream
+    wc: torch.Tensor          # proj_ffn's
     vectors: dict             # f32 vectors by _F32Args field
     cout: int
-    args: dict = dataclasses.field(default_factory=dict)   # launch arguments by (T, L, Cin)
+    args: dict = dataclasses.field(default_factory=dict)   # launch arguments by (T, L, Cin, nwg)
+
+
+def _f32_stream(tiles, sb: int) -> torch.Tensor:
+    """Weight tiles in the order a kernel consumes them, each in an sb-byte
+    slot (f32)."""
+    flat = [t.reshape(-1, t.shape[-3] * t.shape[-2] * t.shape[-1]) for t in tiles]
+    out = torch.zeros((sum(t.shape[0] for t in flat), sb // 4), dtype=torch.float32,
+                      device=flat[0].device)
+    i = 0
+    for t in flat:
+        out[i:i + t.shape[0], :t.shape[1]] = t
+        i += t.shape[0]
+    return out
 
 
 def _prepare_f32(ops: LayerOperands, dev) -> _PreparedF32:
-    c, h, dh, dhp = _dims(ops)
-    wqkv = torch.zeros((c, 3, h, dhp), dtype=torch.float32, device=dev)
-    bqkv = torch.zeros((3, h, dhp), dtype=torch.float32, device=dev)
-    for i, (w, b) in enumerate(((ops.wq, ops.bq), (ops.wk, ops.bk), (ops.wv, ops.bv))):
-        wqkv[:, i, :, :dh] = w.to(device=dev, dtype=torch.float32).reshape(c, h, dh)
-        bqkv[i, :, :dh] = b.to(dev).reshape(h, dh)
-    weights = dict(wqkv=wqkv.reshape(c, -1), wo=ops.wo, wi=ops.wi, wo2=ops.wo2, win=ops.win,
-                   wout=ops.wout)
-    weights = {k: None if w is None else tf32_operand(w, dev) for k, w in weights.items()}
-    fl = ops.final_ln or (None, None)
-    vectors = dict(ln1g=ops.ln1[0], ln1b=ops.ln1[1], bqkv=bqkv, bo=ops.bo, ln2g=ops.ln2[0],
-                   ln2b=ops.ln2[1], bi=ops.bi, bo2=ops.bo2, ln3g=fl[0], ln3b=fl[1])
-    vectors = {k: None if v is None else _f32(v, dev) for k, v in vectors.items()}
-    return _PreparedF32(weights=weights, vectors=vectors,
-                        cout=ops.wout.shape[1] if ops.wout is not None else c)
-
-
-def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str):
-    """(prepared operands, _F32Args) for a launch of the f32 kernels on x (T
-    rows): raises, naming the shape, where they do not take the layer (the
-    shape is checked before the device)."""
+    """The weights split once into the kernels' tf32 tiles, in the order the
+    kernels consume them: ln_qkv's stream ``wa`` (Win^T by chunks of w
+    columns, then the 3C real columns of [Wq | Wk | Wv]^T by 144), proj_ffn's
+    ``wc`` (Win^T, Wo^T by w; per FFN chunk of 96, Wi^T's rows, then Wo2^T's
+    by w; Wout^T by w); the vectors f32 (bqkv the 3C real biases, bi zero to
+    whole FFN chunks)."""
     c, h, dh, dhp = _dims(ops)
     f = ops.wi.shape[1]
+    cout = ops.wout.shape[1] if ops.wout is not None else c
+    nch, w = f32_chunks(c)
+    nf = -(-f // _F32_FW)
+
+    def bt(m):   # (K, N) weight -> B^T (N, K) f32 on dev
+        return m.to(device=dev, dtype=torch.float32).t()
+
+    wi = torch.zeros((c, nf * _F32_FW), dtype=torch.float32, device=dev)
+    wi[:, :f] = ops.wi.to(device=dev, dtype=torch.float32)
+    wo2 = torch.zeros((nf * _F32_FW, c), dtype=torch.float32, device=dev)
+    wo2[:f] = ops.wo2.to(device=dev, dtype=torch.float32)
+    win = [f32_tiles(bt(ops.win), w, nch * w)] if ops.win is not None else []
+    wqkv = torch.cat([bt(m) for m in (ops.wq, ops.wk, ops.wv)])
+    wa = win + [f32_tiles(wqkv, _F32_QW)]
+    wc = win + [f32_tiles(bt(ops.wo), w, nch * w)]
+    for f0 in range(0, nf * _F32_FW, _F32_FW):
+        wc += [f32_tiles(wi[:, f0:f0 + _F32_FW].t(), _F32_FW),
+               f32_tiles(wo2[f0:f0 + _F32_FW].t(), w, nch * w)]
+    if ops.wout is not None:
+        wc.append(f32_tiles(bt(ops.wout), w))
+    bqkv = torch.cat([b.to(device=dev, dtype=torch.float32) for b in (ops.bq, ops.bk, ops.bv)])
+    bi = torch.zeros(nf * _F32_FW, dtype=torch.float32, device=dev)
+    bi[:f] = ops.bi.to(dev)
+    fl = ops.final_ln or (None, None)
+    vectors = dict(ln1g=ops.ln1[0], ln1b=ops.ln1[1], bqkv=bqkv, bo=ops.bo, ln2g=ops.ln2[0],
+                   ln2b=ops.ln2[1], bi=bi, bo2=ops.bo2, ln3g=fl[0], ln3b=fl[1])
+    vectors = {k: None if v is None else _f32(v, dev) for k, v in vectors.items()}
+    return _PreparedF32(wa=_f32_stream(wa, max(w, _F32_QW) * 256),
+                        wc=_f32_stream(wc, max(w, _F32_FW) * 256), vectors=vectors, cout=cout)
+
+
+def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, nwg=None):
+    """(prepared operands, _F32Args) for a launch of the f32 kernels on x (T
+    rows): raises, naming the shape, where they do not take the layer (the
+    shape is checked before the device). ``nwg`` forces the row tiles'
+    consumer warpgroups (1 or 2; tests, sweeps)."""
+    c, h, dh, dhp = _dims(ops)
+    f = ops.wi.shape[1]
+    in_proj = ops.win is not None
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"{what}: the f32 kernels take 2-D f32 tensors, got "
                          f"{x.dtype}{tuple(x.shape)}")
     if (ops.win is None and cin != c) or (ops.win is not None and ops.win.shape != (cin, c)):
         raise ValueError(f"{what}: x width {cin} does not meet the weights (C={c})")
     limit = _smem_limit(x.device) if x.device.type == "cuda" else _H100_SMEM
-    if c % h or x.shape[0] % l or not f32_layer_takes(l, cin, c, h, f,
-                                                     in_proj=ops.win is not None, limit=limit):
+    if c % h or x.shape[0] % l or not f32_layer_takes(l, cin, c, h, f, in_proj=in_proj,
+                                                     limit=limit):
         raise ValueError(
             f"{what}: (T, L, Cin, C, H, F) = ({x.shape[0]}, {l}, {cin}, {c}, {h}, {f}) is not a "
-            f"layer the f32 kernels take (T a multiple of L, a head width up to 64, each "
-            f"kernel's block within {limit} bytes of shared memory: "
-            f"{layer_f32_smem(l, cin, c, h, f, ops.win is not None)})")
+            f"layer the f32 kernels take (T a multiple of L, a head width up to 64, C up to "
+            f"{_F32_MAX_C} and C and Cin multiples of 4, each kernel's block within {limit} "
+            f"bytes of shared memory: {layer_f32_smem(l, cin, c, h, f, in_proj)})")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the f32 kernels take CUDA tensors, got one on {x.device}")
+    if nwg not in (None, 1, 2):
+        raise ValueError(f"{what}: the row tiles take 1 or 2 consumer warpgroups, got {nwg}")
     dev, t = x.device, x.shape[0]
     key = ("f32", dev)
     prep = ops.cache.get(key)
     if prep is None:
         prep = ops.cache[key] = _prepare_f32(ops, dev)
-    a = prep.args.get((t, l, cin))
+    a = prep.args.get((t, l, cin, nwg))
     if a is None:
-        in_proj = ops.win is not None
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = f32_layer_plan(t, l, cin, c, h, f, in_proj=in_proj, limit=limit, sms=sms,
+                              nwg=nwg, cout=prep.cout)
+        if plan is None:
+            raise ValueError(f"{what}: (T, L, Cin, C) = ({t}, {l}, {cin}, {c}) with {nwg} "
+                             f"consumer warpgroups does not fit one block's {limit} bytes of "
+                             f"shared memory")
+        (nwg_a, s_a), (nwg_c, s_c) = plan
         a = _F32Args(T=t, L=l, Cin=cin, ldx=cin, C=c, H=h, dh=dh, dhp=dhp, ldc=c, F=f,
                      Cout=prep.cout, ldo=prep.cout, in_proj=int(in_proj),
                      final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
-                     out_act=int(ops.out_act), eps=ops.eps, final_eps=ops.final_eps,
-                     scale=1.0 / math.sqrt(dh))
-        for k, v in {**prep.weights, **prep.vectors}.items():
+                     out_act=int(ops.out_act), nwg_a=nwg_a, nwg_c=nwg_c, stages_a=s_a,
+                     stages_c=s_c, eps=ops.eps, final_eps=ops.final_eps,
+                     scale=1.0 / math.sqrt(dh), wa=prep.wa.data_ptr(), wc=prep.wc.data_ptr())
+        for k, v in prep.vectors.items():
             setattr(a, k, None if v is None else v.data_ptr())
         lib = _f32_lib()
-        want = layer_f32_smem(l, cin, c, h, f, in_proj)
-        got = tuple(lib.gxt_layer_f32_smem(ctypes.byref(a), kind) for kind in range(3))
+        want = layer_f32_smem(l, cin, c, h, f, in_proj, plan, prep.cout) + (
+            4 * prep.wa.numel(), 4 * prep.wc.numel())
+        got = tuple(lib.gxt_layer_f32_smem(ctypes.byref(a), kind) for kind in range(5))
         if got != want:
-            raise RuntimeError(f"{what}: the kernels' shared memory {got} differs from the "
-                               f"wrapper's reckoning {want}")
-        prep.args[(t, l, cin)] = a
+            raise RuntimeError(f"{what}: the kernels' shared memory and streams {got} differ "
+                               f"from the wrapper's reckoning {want}")
+        prep.args[(t, l, cin, nwg)] = a
     a = _F32Args.from_buffer_copy(a)
     if ops.out_affine is not None:   # a call's own BN vectors (the model makes them anew)
         a.keep = tuple(_f32(v, dev) for v in ops.out_affine)   # alive until the launch
@@ -871,15 +1002,16 @@ def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str):
 
 
 def _contiguous16(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous with a 16-byte aligned start (cp.async reads it), else a copy."""
+    """t contiguous with a 16-byte aligned start (TMA and cp.async read it),
+    else a copy."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _ln_qkv_f32(x2: torch.Tensor, ops: LayerOperands, l: int) -> torch.Tensor:
+def _ln_qkv_f32(x2: torch.Tensor, ops: LayerOperands, l: int, nwg=None) -> torch.Tensor:
     c, h, dh, dhp = _dims(ops)
-    x2 = x2.contiguous()
-    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer ln_qkv f32")
+    x2 = _contiguous16(x2)
+    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer ln_qkv f32", nwg)
     qkv = torch.empty((x2.shape[0], 3 * h * dhp), dtype=torch.float32, device=x2.device)
     a.x, a.qkv = x2.data_ptr(), qkv.data_ptr()
     _run(_f32_lib(), "gxt_layer_ln_qkv_f32", a, x2.device,
@@ -904,15 +1036,17 @@ def _attention_f32(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tenso
     return ctx
 
 
-def _proj_ffn_f32(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int) -> torch.Tensor:
+def _proj_ffn_f32(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: int,
+                  nwg=None) -> torch.Tensor:
     c = ops.wq.shape[0]
-    x2 = x2.contiguous()
-    if ctx.shape != (x2.shape[0], c) or ctx.stride(1) != 1 or ctx.dtype != torch.float32:
+    x2 = _contiguous16(x2)
+    if ctx.shape != (x2.shape[0], c) or ctx.dtype != torch.float32:
         raise ValueError(f"transformer proj_ffn f32: ctx must be an f32 ({x2.shape[0]}, {c}) "
-                         f"array with unit column stride, got {ctx.dtype}{tuple(ctx.shape)}")
-    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer proj_ffn f32")
+                         f"array, got {ctx.dtype}{tuple(ctx.shape)}")
+    ctx = _contiguous16(ctx)
+    prep, a = _f32_args(ops, x2, l, x2.shape[1], "transformer proj_ffn f32", nwg)
     out = torch.empty((x2.shape[0], prep.cout), dtype=torch.float32, device=x2.device)
-    a.x, a.ctx, a.ldc, a.out = x2.data_ptr(), ctx.data_ptr(), ctx.stride(0), out.data_ptr()
+    a.x, a.ctx, a.out = x2.data_ptr(), ctx.data_ptr(), out.data_ptr()
     _run(_f32_lib(), "gxt_layer_proj_ffn_f32", a, x2.device,
          lambda: f"transformer proj_ffn f32 (T, Cin, C, Cout) = ({x2.shape[0]}, {x2.shape[1]}, "
                  f"{c}, {prep.cout})")
@@ -920,15 +1054,16 @@ def _proj_ffn_f32(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: in
     return out
 
 
-def fused_layer_f32_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
+def fused_layer_f32_cuda(x3: torch.Tensor, ops: LayerOperands, nwg=None) -> torch.Tensor:
     """The layer on an f32 (bp, L, Cin) CUDA tensor: the three f32 kernels
     launched by one C call (each counted); (bp, L, Cout) f32. Raises, naming
-    the shape, where they do not take the layer."""
+    the shape, where they do not take the layer. ``nwg`` forces the row
+    tiles' consumer warpgroups (tests, sweeps)."""
     if x3.dim() != 3:
         raise ValueError(f"fused_layer_f32_cuda: x must be (bp, L, Cin), got {tuple(x3.shape)}")
     bp, l, cin = x3.shape
-    x2 = x3.reshape(bp * l, cin).contiguous()
-    prep, a = _f32_args(ops, x2, l, cin, "fused_transformer_layer f32")
+    x2 = _contiguous16(x3.reshape(bp * l, cin))
+    prep, a = _f32_args(ops, x2, l, cin, "fused_transformer_layer f32", nwg)
     c, h, dh, dhp = _dims(ops)
     t, dev = bp * l, x2.device
     # q/k/v and ctx in one scratch allocation (ctx after q/k/v, 16-byte aligned)

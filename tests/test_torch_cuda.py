@@ -1076,9 +1076,10 @@ def _f32_close(got, want):
     assert err <= 1e-5 * scale, (err, scale)
 
 
-def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed):
+def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed, nwg=None):
     """The three f32 kernels, each on its plain version's inputs and launched
-    twice (bit-equal), then the whole layer, with the counters."""
+    twice (bit-equal), then the whole layer, with the counters; ``nwg``
+    forces the row tiles' consumer warpgroups."""
     ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=seed)
     ops = dataclasses.replace(ops, **{k: getattr(ops, k).float() for k in (
         "wq", "wk", "wv", "wo", "wi", "wo2")}, win=None if ops.win is None else ops.win.float(),
@@ -1087,12 +1088,12 @@ def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed):
                     device=dev)
     x2 = x.reshape(bp * l, cin)
     before = dict(ftl.LAUNCHES)
-    qkv, qkv2 = (ftl.ln_qkv_cuda(x2, ops, l) for _ in range(2))
+    qkv, qkv2 = (ftl.ln_qkv_cuda(x2, ops, l, _plan=nwg) for _ in range(2))
     want_qkv = ftl.ln_qkv_plain(x2, ops)
     ctx, ctx2 = (ftl.attention_cuda(want_qkv, l, ops) for _ in range(2))
     want_ctx = ftl.attention_plain(want_qkv, l, ops)
-    out, out2 = (ftl.proj_ffn_cuda(x2, want_ctx, ops, l) for _ in range(2))
-    layer = ftl.fused_layer_cuda(x, ops)
+    out, out2 = (ftl.proj_ffn_cuda(x2, want_ctx, ops, l, _plan=nwg) for _ in range(2))
+    layer = ftl.fused_layer_cuda(x, ops, _plan=nwg)
     torch.cuda.synchronize()
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
@@ -1122,13 +1123,26 @@ def test_f32_layer_kernels_match_their_plain_versions_every_flag(dev, in_proj, f
 
 
 # the model's widths (dh = 36, 48, 60) with the first and the last layer's
-# flags; a ragged last row tile (5 x 72 rows)
+# flags, on the plan's warpgroups and on one and two forced; ragged row tiles
+# (5 x 72 rows; 3 x 16 = 48 rows, short of one 64-row tile). Two warpgroups
+# do not fit proj_ffn's block at C = 240: the layer is refused.
 @pytest.mark.parametrize("bp,l,c,h,f,cin", [(4, 256, 144, 4, 288, 96), (6, 64, 192, 4, 384, 128),
-                                            (8, 16, 240, 4, 480, 160), (5, 72, 144, 4, 288, 96)])
+                                            (8, 16, 240, 4, 480, 160), (5, 72, 144, 4, 288, 96),
+                                            (3, 16, 144, 4, 288, 96), (3, 16, 240, 4, 480, 160)])
 @pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("nwg", [None, 1, 2])
 def test_f32_layer_kernels_match_their_plain_versions_at_the_model_widths(dev, bp, l, c, h, f,
-                                                                          cin, last):
-    _f32_layer_check(dev, bp, l, c, h, f, c if last else cin, cin, last, last, seed=c)
+                                                                          cin, last, nwg):
+    if nwg == 2 and c == 240:
+        width = c if last else cin
+        ops = _layer_ops(dev, c, h, f, width, cin, last, last, seed=c)
+        ops = dataclasses.replace(ops, **{k: None if getattr(ops, k) is None else
+                                          getattr(ops, k).float() for k in (
+            "wq", "wk", "wv", "wo", "wi", "wo2", "win", "wout")}, cache={})
+        with pytest.raises(ValueError, match="2 consumer warpgroups does not fit"):
+            ftl.fused_layer_cuda(torch.zeros((bp, l, width), device=dev), ops, _plan=2)
+        return
+    _f32_layer_check(dev, bp, l, c, h, f, c if last else cin, cin, last, last, seed=c, nwg=nwg)
 
 
 def test_f32_layer_kernels_refuse_what_they_do_not_take(dev):
@@ -1142,6 +1156,44 @@ def test_f32_layer_kernels_refuse_what_they_do_not_take(dev):
         ftl.fused_layer_cuda(torch.zeros((1, 1024, 64), device=dev), ops)
     with pytest.raises(ValueError, match="T a multiple of L"):
         ftl.ln_qkv_cuda(torch.zeros((20, 64), device=dev), ops, 16)
+    with pytest.raises(ValueError, match="1 or 2 consumer warpgroups"):
+        ftl.fused_layer_cuda(torch.zeros((1, 16, 64), device=dev), ops, _plan=3)
+    ops = _layer_ops(dev, 288, 4, 576, 288, 288, False, False, seed=1)   # C past 240
+    ops = dataclasses.replace(ops, wq=ops.wq.float(), wi=ops.wi.float(), cache={})
+    with pytest.raises(ValueError, match=r"\(T, L, Cin, C, H, F\) = \(16, 16, 288, 288, 4, 576\)"):
+        ftl.proj_ffn_cuda(torch.zeros((16, 288), device=dev), torch.zeros((16, 288), device=dev),
+                          ops, 16)
+
+
+def test_f32_layer_too_wide_for_the_row_tiles_runs_unfused_on_the_card(dev):
+    """A layer of C = 288 (past the row tiles' 240) at f32 on the card keeps
+    the unfused chain with flash attention: the route says no before any
+    launch, no f32 layer kernel runs, and the result meets the fused
+    layer's plain version within 1e-5 of the largest value."""
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops.attention import AttentionParams
+
+    rng = np.random.default_rng(9)
+
+    def t(*s, off=0.0):
+        return torch.from_numpy((rng.standard_normal(s) * 0.1 + off).astype(np.float32)).to(dev)
+
+    c, h, f = 288, 6, 576   # heads of 48: flash takes them
+    layer = tmv.TransformerLayerParams(
+        attention=AttentionParams(wq=t(c, c), bq=t(c), wk=t(c, c), bk=t(c), wv=t(c, c), bv=t(c),
+                                  wo=t(c, c), bo=t(c), num_heads=h, flash=True),
+        ln_before_gamma=t(c, off=1.0), ln_before_beta=t(c), ln_after_gamma=t(c, off=1.0),
+        ln_after_beta=t(c), intermediate_kernel=t(c, f), intermediate_bias=t(f),
+        output_kernel=t(f, c), output_bias=t(c), fused=True)
+    x = t(4, 16, c)
+    assert not layer.fused_route(torch.float32, x.device, 16)
+    before, flash_before = dict(ftl.LAUNCHES), fa.LAUNCHES["flash_mha"]
+    got = layer(x, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert {k: ftl.LAUNCHES[k] - before[k] for k in F32_LAYER} == {k: 0 for k in F32_LAYER}
+    assert fa.LAUNCHES["flash_mha"] == flash_before + 1
+    _f32_close(got, ftl.fused_transformer_layer_plain(x, ftl.layer_operands(layer, c,
+                                                                            torch.float32)))
 
 
 def test_f32_layer_route_on_the_card(dev, monkeypatch):
@@ -1483,7 +1535,7 @@ def test_inverted_residual_too_wide_for_a_tile_runs_unfused_on_the_card(dev, str
 
 
 def test_f32_silu_departs_from_the_plain_version_only_below_minus_86_6(dev):
-    """The f32 kernels' SiLU (ir_hopper.cuh silu_rn) against z * (1 / (1 +
+    """The f32 kernels' SiLU (mma_common.cuh silu_rn) against z * (1 / (1 +
     exp(-z))) over a sweep of z, read through the f32 stride-1 kernel with
     Wexp = 0 (so the expand's value is bexp = z), the depthwise's centre tap
     s a power of two and Wred = I: out = SiLU(s SiLU(z)), every step exact
@@ -1511,6 +1563,167 @@ def test_f32_silu_departs_from_the_plain_version_only_below_minus_86_6(dev):
         assert bool(gone[(zz < -86.65) & (zz > -88.6)].all())
         bad = ~gone & ((got - want).abs() > 2 ** -19 * want.abs())
         assert not bool(bad.any()), (zz[bad][:4], got[bad][:4], want[bad][:4])
+
+
+def test_f32_layer_silu_departs_from_the_plain_version_only_below_minus_86_6(dev):
+    """The f32 layer's SiLU (the FFN's and the out-projection's,
+    mma_common.cuh silu_rn) read through proj_ffn's out-projection with
+    Wout = 0 and BN scale 1, so that output column j is SiLU(z_j) of its BN
+    bias: within 2^-19 of z * (1 / (1 + exp(-z))), but where 1 + exp(-z) >=
+    2^125 (z < -86.64), whose reciprocal it takes as 0: there the kernel
+    gives 0 and the plain version about -1e-36, and below z = -88.72 both
+    give 0."""
+    def silu(v):
+        return v * (1.0 / (1.0 + torch.exp(-v)))
+
+    z = torch.cat([torch.linspace(-100.0, 40.0, 384), torch.linspace(-88.7, -86.5, 128)])
+    ops = _layer_ops(dev, 48, 4, 96, 48, z.numel(), False, True, seed=3)
+    ops = dataclasses.replace(ops, **{k: getattr(ops, k).float() for k in (
+        "wq", "wk", "wv", "wo", "wi", "wo2")}, wout=torch.zeros((48, z.numel()), device=dev),
+        out_affine=(torch.ones(z.numel(), device=dev), z.to(dev)), out_act=True, cache={})
+    g = torch.Generator(device=dev).manual_seed(4)
+    x2, ctx = (torch.randn((48, 48), generator=g, device=dev) for _ in range(2))
+    got = ftl.proj_ffn_cuda(x2, ctx, ops, 16).cpu()
+    want = silu(z).expand_as(got)
+    zz = z.expand_as(got)
+    gone = (got == 0) & (want != 0)
+    assert bool((zz[gone] < -86.64).all())
+    assert bool(gone[(zz < -86.65) & (zz > -88.6)].all())
+    bad = ~gone & ((got - want).abs() > 2 ** -19 * want.abs())
+    assert not bool(bad.any()), (zz[bad][:4], got[bad][:4], want[bad][:4])
+
+
+# ---- 3xTF32 operands below 2^-115 (ROADMAP: the port's accepted divergences) --------------
+#
+# Every 3xTF32 product splits an f32 operand into a tf32 hi part and the
+# rest; below about 2^-115 the rest is an f32 subnormal, which the tensor
+# cores were seen to flush in one kernel (an inverted residual's reduce).
+# Each case below scales one operand's entries (or rows, or columns) to
+# about 2^-118 (above 2^-126, where the hi part would go too), with biases
+# zero there, so that the outputs they alone feed are themselves tiny;
+# those outputs stay within 2^-14 of their own largest value of the plain
+# version (f32 throughout, TF32 off: on an H100 they read 3e-7 to 4.2e-6,
+# no lost lo part shows), and every other output within the kernel's
+# usual tolerance of the others' largest.
+
+TINY_CASES = ("ln_qkv_f32", "attention_f32", "proj_ffn_f32", "train_fwd_f32", "train_bwd_f32",
+              "train_dwr_f32", "flash_f32", "qmatmul_f32", "ir_f32", "ir_s2_f32")
+
+
+def _tiny_layer(dev):
+    ops = _layer_ops(dev, 48, 4, 96, 48, 40, False, True, seed=11)
+    return dataclasses.replace(ops, **{k: getattr(ops, k).float().clone() for k in (
+        "wq", "wk", "wv", "wo", "wi", "wo2", "wout")}, bq=ops.bq.clone(), out_act=False,
+        out_affine=tuple(v.clone() for v in ops.out_affine), cache={})
+
+
+def _tiny_case(name, dev):
+    """(outputs, plain outputs, masks of the outputs the tiny entries alone
+    feed, the kernel's usual tolerance) of one 3xTF32 kernel."""
+    from ggml_experiments_tpu_torch.ops import fused_gru_train as ft
+
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    def cols(shape, n):
+        m = torch.zeros(shape, dtype=torch.bool, device=dev)
+        m[..., :n] = True
+        return m
+
+    if name in ("ln_qkv_f32", "attention_f32", "proj_ffn_f32"):
+        ops, l = _tiny_layer(dev), 16
+        x2 = rnd(3 * l, 48)
+        if name == "ln_qkv_f32":    # q's first 5 columns: Wq's columns tiny, bq 0
+            ops.wq[:, :5] *= 2.0 ** -116
+            ops.bq[:5] = 0.0
+            got, want = ftl.ln_qkv_cuda(x2, ops, l), ftl.ln_qkv_plain(x2, ops)
+            return [got], [want], [cols(got.shape, 5)], 1e-5
+        qkv = ftl.ln_qkv_plain(x2, ops)
+        if name == "attention_f32":   # v's first 5 columns of head 0 tiny
+            v0 = 2 * 4 * ftl.head_pad(12)
+            qkv[:, v0:v0 + 5] *= 2.0 ** -118
+            got, want = ftl.attention_cuda(qkv, l, ops), ftl.attention_plain(qkv, l, ops)
+            return [got], [want], [cols(got.shape, 5)], 1e-5
+        ctx = ftl.attention_plain(qkv, l, ops)   # Wout's first 5 columns tiny, BN 1 and 0
+        ops.wout[:, :5] *= 2.0 ** -116
+        ops.out_affine[0][:5], ops.out_affine[1][:5] = 1.0, 0.0
+        got, want = ftl.proj_ffn_cuda(x2, ctx, ops, l), ftl.proj_ffn_plain(x2, ctx, ops)
+        return [got], [want], [cols(got.shape, 5)], 1e-5
+    if name.startswith("train"):
+        mxs, h0, wr, brec, dys = train_operands(dev, 3, 64, 96, cd=f32)
+        if name == "train_fwd_f32":   # mh's first 8 columns: Wr's columns tiny, b_rec 0
+            wr[:, :8] *= 2.0 ** -115
+            brec[:8] = 0.0
+            got = ft.gru_train_fwd_cuda(mxs, h0, wr, brec)
+            want = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+            return [got[1], got[0]], [want[1], want[0]], [cols(got[1].shape, 8),
+                                                          cols(got[0].shape, 0)], 1e-5
+        ys, mhs = ft.gru_train_fwd_plain(mxs, h0, wr, brec)
+        if name == "train_bwd_f32":   # the first 8 batch rows' cotangents tiny
+            dys[:, :8] *= 2.0 ** -115
+            got = ft.gru_train_bwd_rec_cuda(mxs, mhs, ys, dys, h0, wr)
+            want = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+            rows = [torch.zeros(t.shape, dtype=torch.bool, device=dev) for t in want]
+            for m, t in zip(rows, want):
+                if t.dim() == 3:
+                    m[:, :8] = True
+                elif t.dim() == 2:
+                    m[:8] = True
+            return list(got), list(want), rows, 1e-4
+        dmxs, plane, _, _ = ft.gru_train_bwd_rec_plain(mxs, mhs, ys, dys, h0, wr)
+        dmxs[..., :8] *= 2.0 ** -114   # dWr's first 8 columns
+        got = ft.gru_train_dwr_cuda(h0, ys, dmxs, plane)
+        return [got], [ft.gru_train_dwr_plain(h0, ys, dmxs, plane)], [cols(got.shape, 8)], 1e-5
+    if name == "flash_f32":           # v's first 6 columns tiny
+        q, k, v = (rnd(3, 32, 48) for _ in range(3))
+        v[..., :6] *= 2.0 ** -118
+        got = fa.flash_mha(q, k, v, 4, compute_dtype=f32)
+        return [got], [fa.flash_mha_plain(q, k, v, 4)], [cols(got.shape, 6)], 1e-5
+    if name == "qmatmul_f32":         # x's first 8 rows tiny
+        qt = qweight(dev, "q8_0", 256, 192)
+        x = xrand(dev, 64, 256)
+        x[:8] *= 2.0 ** -118
+        got = qmatmul_cuda(x, qt, f32)
+        m = torch.zeros(got.shape, dtype=torch.bool, device=dev)
+        m[:8] = True
+        return [got], [qmatmul_plain_f32(x, qt, f32)], [m], 1e-5
+    # the inverted residual: Wred's first 4 columns tiny, their biases 0
+    x, args = _ir_inputs(dev, 1, 16, 16, 16, 64, 32)
+    x, args = x.float(), [a.clone() for a in args]
+    args[4][:, :4] *= 2.0 ** -116
+    args[5][:4] = 0.0
+    stride = 2 if name == "ir_s2_f32" else 1
+    got = fir.fused_inverted_residual(x, *args, stride=stride, compute_dtype=f32)
+    want = fir.fused_ir_plain(x, *args, stride=stride)
+    return [got], [want], [cols(got.shape, 4)], 1e-5
+
+
+@pytest.mark.parametrize("name", TINY_CASES)
+def test_3xtf32_kernels_hold_an_operand_below_2_to_the_minus_115(dev, name):
+    """Pinned for every 3xTF32 kernel of the port: the outputs
+    that an operand below 2^-115 alone feeds depart from the plain version
+    by at most 2^-14 of their own largest value (which the usual
+    tolerance, relative to the whole output's largest, cannot see); no
+    other output moves past the kernel's usual tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    outs, wants, masks, tol = _tiny_case(name, dev)
+    torch.cuda.synchronize()
+    for got, want, mask in zip(outs, wants, masks):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        d = (got - want).abs()
+        if (~mask).any():
+            rest = float(want[~mask].abs().max())
+            assert float(d[~mask].max()) <= tol * rest, (name, float(d[~mask].max()), rest)
+        if mask.any():
+            tiny = float(want[mask].abs().max())
+            dep = float(d[mask].max())
+            assert 0.0 < tiny < 2.0 ** -100, (name, tiny)
+            assert dep <= 2.0 ** -14 * tiny, (name, dep / tiny)
+            print(f"{name}: the tiny outputs' departure {dep / tiny:.3g} of their largest "
+                  f"({tiny:.3g})")
 
 
 def test_inverted_residual_block_keeps_its_operands_on_the_card(dev):

@@ -155,82 +155,197 @@ def test_tf32_split_is_exact_in_tf32_and_sums_to_f32():
     assert ftl.tf32_split(tie)[0].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
 
 
-def _b_operand(op, k, n):
-    """The (K, N) weight back from the kernels' B operand (Np, K8, 4, 4): each
-    fragment's hi + lo at k = 8 kk + t (words 0, 2) and 8 kk + t + 4 (1, 3)."""
-    k8 = op.shape[1]
-    w = torch.zeros((k8 * 8, op.shape[0]), dtype=torch.float64)
-    for t in range(4):
-        for half in range(2):
-            w[torch.arange(k8) * 8 + t + 4 * half] = (op[:, :, t, half].double()
-                                                      + op[:, :, t, 2 + half].double()).t()
-    return w[:k, :n]
+class _Stream:
+    """A kernel's weight stream read back tile by tile, in the order the
+    kernel takes the tiles: each slot's tf32 hi and lo planes (rows, 32),
+    unswizzled (the swizzle is its own inverse), in f64."""
+
+    def __init__(self, stream):
+        self.slots, self.i = stream, 0
+
+    def take(self, rows):
+        t = ftl.swizzle_tiles(self.slots[self.i, :2 * rows * 32].reshape(2, rows, 32))
+        self.i += 1
+        for part in t:
+            assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()   # exact in tf32
+        return t[0].double(), t[1].double()
+
+
+def _pad(a, k):
+    return torch.nn.functional.pad(a, (0, k - a.shape[1]))
+
+
+def _split_rz(a):
+    """The kernels' split of A (``split_tf32_rz``): hi a's top 11
+    significant bits, lo the exact rest, read by the tensor cores to its
+    top 11 bits."""
+    hi = (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    lo = ((a - hi).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _product(a, st, rows, nk):
+    """A kernel product: a fresh sum over nk 32-wide K chunks of the next
+    stream tiles, 3xTF32 (lo.hi + hi.lo + hi.hi) in f64."""
+    ah, al = (t.double() for t in _split_rz(_pad(a, 32 * nk)))
+    acc = 0.0
+    for kc in range(nk):
+        bh, bl = st.take(rows)
+        ks = slice(32 * kc, 32 * kc + 32)
+        acc = acc + al[:, ks] @ bh.t() + ah[:, ks] @ bl.t() + ah[:, ks] @ bh.t()
+    return acc
+
+
+def _chunked(a, st, rows, nch, nk, n):
+    return torch.cat([_product(a, st, rows, nk) for _ in range(nch)], 1)[:, :n].float()
 
 
 @pytest.mark.parametrize("bp,l,c,h,f,in_proj,final_ln,out_proj", PIECE_CASES[4:])
 def test_the_f32_operands_hold_each_product_in_the_kernels_order(bp, l, c, h, f, in_proj,
                                                                  final_ln, out_proj):
-    """Each weight's tf32 pairs give back the weight (the q/k/v one with each
-    head's columns at its padded place, zero between), and the three plain
-    pieces computed from those operands as the kernels do (3xTF32 products
-    in f64: hi.hi + hi.lo + lo.hi) meet the plain layer."""
+    """The kernels' weight streams read back in the order the kernels take
+    their tiles (chunks of w, 144 or 96 output columns by 32-wide K chunks,
+    tf32 hi and lo planes, swizzled) give back each weight, and the two row
+    kernels' arithmetic on them (each chunk's 3xTF32 sum fresh, then added
+    in f32 where the plain version adds) meets ln_qkv_plain and
+    proj_ffn_plain; every tile is taken."""
     cin, cout = (2 * c // 3 if in_proj else c), c // 2 + 8
     _, _, ops = _ops(c, h, f, cin, cout, in_proj, final_ln, out_proj, seed=l + c)
     prep = ftl._prepare_f32(ops, torch.device("cpu"))
-    dh, dhp = c // h, ftl.head_pad(c // h)
-    wq = _b_operand(prep.weights["wqkv"], c, 3 * h * dhp).reshape(c, 3, h, dhp)
-    for i, w in enumerate((ops.wq, ops.wk, ops.wv)):
-        assert float((wq[:, i, :, :dh].reshape(c, c) - w.double()).abs().max()) <= 1e-6
-        assert not wq[:, i, :, dh:].any()
-        assert torch.equal(prep.vectors["bqkv"].reshape(3, h, dhp)[i, :, :dh].reshape(c),
-                           (ops.bq, ops.bk, ops.bv)[i])
-    for name, w in (("wo", ops.wo), ("wi", ops.wi), ("wo2", ops.wo2), ("win", ops.win),
-                    ("wout", ops.wout)):
-        op = prep.weights[name]
-        if w is None:
-            assert op is None
-            continue
-        assert op.shape == (-(-w.shape[1] // 32) * 32, -(-w.shape[0] // 8), 4, 4)
-        assert float((_b_operand(op, *w.shape) - w.double()).abs().max()) <= 1e-6 * float(
-            w.abs().max())
-    assert prep.cout == (cout if out_proj else c)
+    nch, w = ftl.f32_chunks(c)
+    nkin, nkc, nq, nf = -(-cin // 32), -(-c // 32), -(-3 * c // 144), -(-f // 96)
+    cout = ops.wout.shape[1] if ops.wout is not None else c
+    assert prep.cout == cout
+    assert torch.equal(prep.vectors["bqkv"], torch.cat([ops.bq, ops.bk, ops.bv]))
+    assert torch.equal(prep.vectors["bi"][:f], ops.bi) and not prep.vectors["bi"][f:].any()
 
-    def dot(a, op, k, n):   # the kernels' 3xTF32 product
-        ah, al = ftl.tf32_split(a)
-        k8 = op.shape[1]
-        bh = torch.zeros((k8 * 8, op.shape[0]), dtype=torch.float64)
-        bl = torch.zeros_like(bh)
-        for t in range(4):
-            for half in range(2):
-                bh[torch.arange(k8) * 8 + t + 4 * half] = op[:, :, t, half].double().t()
-                bl[torch.arange(k8) * 8 + t + 4 * half] = op[:, :, t, 2 + half].double().t()
-        ah, al = ah.double(), al.double()
-        return (ah @ bh[:k] + ah @ bl[:k] + al @ bh[:k])[:, :n].float()
+    def weight(st, rows, nch_, nk, n, k):   # B^T's tiles back as the (K, N) weight
+        tiles = [[st.take(rows) for _ in range(nk)] for _ in range(nch_)]
+        wt = torch.cat([torch.cat([hi + lo for hi, lo in row], 1) for row in tiles])
+        assert not wt[n:].any() and not wt[:, k:].any()
+        return wt[:n, :k].t()
+
+    def close(got, want, tol):
+        assert float((got - want.double()).abs().max()) <= tol * float(want.abs().max())
+
+    st = _Stream(prep.wa)
+    if in_proj:
+        close(weight(st, w, nch, nkin, c, cin), ops.win, 1e-6)
+    close(weight(st, 144, nq, nkc, 3 * c, c), torch.cat([ops.wq, ops.wk, ops.wv], 1), 1e-6)
+    assert st.i == prep.wa.shape[0]
+    st = _Stream(prep.wc)
+    if in_proj:
+        weight(st, w, nch, nkin, c, cin)
+    close(weight(st, w, nch, nkc, c, c), ops.wo, 1e-6)
+    order = [t for fi in range(nf) for t in (("wi", fi), ("wo2", fi))]   # the FFN's tiles
+    for kind, fi in order:
+        f0 = 96 * fi
+        n = min(96, f - f0)
+        if kind == "wi":
+            close(weight(st, 96, 1, nkc, n, c), ops.wi[:, f0:f0 + n], 1e-6)
+        else:
+            close(weight(st, w, nch, 3, c, n), ops.wo2[f0:f0 + n], 1e-6)
+    if out_proj:
+        close(weight(st, w, -(-cout // w), nkc, cout, c), ops.wout, 1e-6)
+    assert st.i == prep.wc.shape[0]
 
     x = T(np.random.default_rng(c).standard_normal((bp * l, cin)))
     ln = ftl.layer_norm
-    xf = dot(x, prep.weights["win"], cin, c) if in_proj else x
+    st = _Stream(prep.wa)
+    xf = _chunked(x, st, w, nch, nkin, c) if in_proj else x
     a = ln(xf, *ops.ln1, eps=ops.eps)
-    qkv = dot(a, prep.weights["wqkv"], c, 3 * h * dhp) + prep.vectors["bqkv"].reshape(-1)
-    qkv[:, :h * dhp] *= 1.0 / np.sqrt(dh)
-    want = ftl.ln_qkv_plain(x, ops)
-    assert float((qkv - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    real = _chunked(a, st, 144, nq, nkc, 3 * c) + prep.vectors["bqkv"]
+    real[:, :c] *= 1.0 / np.sqrt(c // h)
+    qkv = ftl.ln_qkv_plain(x, ops)
+    dh, dhp = c // h, ftl.head_pad(c // h)
+    got = torch.zeros((bp * l, 3, h, dhp))
+    got[..., :dh] = real.reshape(-1, 3, h, dh)
+    close(got.reshape(qkv.shape), qkv, 1e-5)
+
+    ctx = T(np.random.default_rng(c + 1).standard_normal((bp * l, c)))
+    st = _Stream(prep.wc)
+    xf = _chunked(x, st, w, nch, nkin, c) if in_proj else x
+    x1 = xf + _chunked(ctx, st, w, nch, nkc, c) + ops.bo
+    y = ln(x1, *ops.ln2, eps=ops.eps)
+    h = {}
+    for kind, fi in order:
+        if kind == "wi":
+            h[fi] = ftl.silu(_product(_pad(y, 32 * nkc), st, 96, nkc).float()
+                             + prep.vectors["bi"][96 * fi:96 * fi + 96])
+        else:
+            x1 = x1 + _chunked(h.pop(fi), st, w, nch, 3, c)
+    o = x1 + ops.bo2
+    if final_ln:
+        o = ln(o, *ops.final_ln, eps=ops.final_eps)
+    if out_proj:
+        o = _chunked(o, st, w, -(-cout // w), nkc, cout) * ops.out_affine[0] + ops.out_affine[1]
+        if ops.out_act:
+            o = ftl.silu(o)
+    close(o, ftl.proj_ffn_plain(x, ctx, ops), 1e-5)
+    assert st.i == prep.wc.shape[0]
 
 
 def test_the_smem_reckoning_takes_the_model_widths():
-    """Each f32 kernel's block at the model's widths fits an H100's 227 KB;
-    a head past 64 or k and v past shared memory are not taken."""
-    for l, c, cin, f in ((256, 144, 96, 288), (64, 192, 128, 384), (16, 240, 160, 480)):
+    """Each f32 kernel's block at the model's widths fits an H100's 227 KB
+    with the plan the wrapper takes at B = 128 (two consumer warpgroups at
+    T = 131072 and 32768, one at 8192; ring buffers as many as fit, up to
+    4, at least 2; two warpgroups forced where both kernels' blocks fit,
+    not at C = 240); C-wide products in 2 x 72, 2 x 96 and 3 x 80 columns;
+    a head past 64, C past 240 or k and v past shared memory are not
+    taken."""
+    plans = {(144, False): ((2, 3), (2, 3)), (144, True): ((2, 3), (2, 3)),
+             (192, False): ((2, 3), (2, 3)), (192, True): ((2, 3), (2, 2)),
+             (240, False): ((1, 4), (1, 4)), (240, True): ((1, 4), (1, 4))}
+    for l, c, cin, f, t, chunks in ((256, 144, 96, 288, 131072, (2, 72)),
+                                    (64, 192, 128, 384, 32768, (2, 96)),
+                                    (16, 240, 160, 480, 8192, (3, 80))):
+        assert ftl.f32_chunks(c) == chunks
         for in_proj in (False, True):
-            sizes = ftl.layer_f32_smem(l, cin if in_proj else c, c, 4, f, in_proj)
-            assert max(sizes) <= 232448
-            assert ftl.f32_layer_takes(l, cin if in_proj else c, c, 4, f, in_proj=in_proj,
-                                       limit=232448)
-    assert ftl.layer_f32_smem(16, 240, 240, 4, 480, False) == (
-        32 * 4 * 2 * 244, 8 * 2 * 16 * 68 * 4, 32 * 4 * (2 * 244 + 484))
+            width = cin if in_proj else c
+            for cout in (c, cin):
+                plan = ftl.f32_layer_plan(t, l, width, c, 4, f, in_proj=in_proj, limit=232448,
+                                          sms=132, cout=cout)
+                assert plan == plans[(c, in_proj)]
+                assert max(ftl.layer_f32_smem(l, width, c, 4, f, in_proj, plan, cout)) <= 232448
+                two = ftl.f32_layer_plan(t, l, width, c, 4, f, in_proj=in_proj, limit=232448,
+                                         sms=132, nwg=2, cout=cout)
+                assert two == (None if c == 240 else plan)
+            assert ftl.f32_layer_takes(l, width, c, 4, f, in_proj=in_proj, limit=232448)
+    # ln_qkv: 1024 + boxes of 8 KB + LN's gamma and beta (C padded to 48
+    # units) + the q/k/v biases and column table + barriers + ring buffers
+    # of 144 x 256 bytes; proj_ffn: x's (or h1's) boxes and ctx's + six
+    # C-wide vectors, bi, the BN's scale and bias + barriers + buffers of
+    # max(w, 96) x 256; attention as before
+    assert ftl.layer_f32_smem(16, 240, 240, 4, 480, False, ((1, 4), (1, 4)), 160) == (
+        1024 + 8 * 8192 + 4 * (2 * 240 + 2 * 5 * 144) + 8 * 14 + 4 * 36864,
+        8 * 2 * 16 * 68 * 4,
+        1024 + (3 + 8) * 8192 + 4 * (6 * 240 + 5 * 96 + 2 * 2 * 80) + 8 * 16 + 4 * 24576)
     assert ftl.layer_f32_smem(256, 96, 144, 4, 288, True)[1] == 2 * 256 * 44 * 4
     assert not ftl.f32_layer_takes(16, 160, 160, 2, 320, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(1024, 64, 64, 1, 128, in_proj=False, limit=232448)
+    assert not ftl.f32_layer_takes(16, 288, 288, 4, 576, in_proj=False, limit=232448)
+    assert ftl.f32_layer_plan(128, 16, 48, 48, 4, 96, in_proj=False, limit=232448, sms=132) == (
+        (1, 4), (1, 4))
+
+
+@pytest.mark.parametrize("c,cin,in_proj,takes", [
+    (240, 160, True, True), (248, 248, False, False), (288, 288, False, False),
+    (384, 256, True, False), (44, 44, False, True), (42, 42, False, False),
+    (48, 22, True, False), (48, 24, True, True)])
+def test_the_f32_gate_turns_away_what_the_row_tiles_do_not_take(c, cin, in_proj, takes):
+    """The row tiles keep C-wide sums in registers (C up to 240) and read x
+    (with the input projection) and ctx by TMA (C and Cin multiples of 4):
+    ``f32_layer_takes`` and the model's route say so from the shape before
+    any launch, so that such a layer keeps the unfused chain with flash
+    attention on the card; the wrappers refuse it."""
+    h = 4 if c % 4 == 0 else 2
+    assert ftl.f32_layer_takes(16, cin, c, h, 2 * c, in_proj=in_proj, limit=232448) == takes
+    layer = _route_layer(c=c, h=h, f=2 * c)
+    assert layer.fused_route(F32, torch.device("cuda"), 16, cin=cin if in_proj else None) == takes
+    if not takes:
+        _, _, ops = _ops(c, h, 2 * c, cin, c, in_proj, False, None, seed=2)
+        with pytest.raises(ValueError, match="not a layer the f32 kernels take"):
+            ftl.fused_layer_cuda(torch.zeros((1, 16, cin)), ops)
 
 
 def _route_layer(c=48, h=4, f=96, fused=True):
@@ -348,10 +463,10 @@ def test_the_f32_kernel_symbols_are_their_launch_counters():
 
     anon = "(anonymous namespace)::"
     symbols = {
-        f"void {anon}layer_ln_qkv_f32_kernel<4>(LayerF32Args)": "transformer_ln_qkv_f32",
+        f"void {anon}layer_ln_qkv_f32_kernel<3>({anon}RowF32Params)": "transformer_ln_qkv_f32",
         f"void {anon}layer_attention_f32_kernel<5>(LayerF32Args, {anon}AttnPlan)":
             "transformer_attention_f32",
-        f"void {anon}layer_proj_ffn_f32_kernel<2>(LayerF32Args)": "transformer_proj_ffn_f32",
+        f"void {anon}layer_proj_ffn_f32_kernel<5>({anon}RowF32Params)": "transformer_proj_ffn_f32",
         f"void {anon}layer_ln_qkv_kernel<3, 2>({anon}QkvParams)": "transformer_ln_qkv"}
     for sym, name in symbols.items():
         assert kernel_name(sym) == name, sym
