@@ -238,9 +238,10 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      13's shapes on the full checkpoint's weights, B=128: each stage's
      first, middle and last layer, whole and kernel by kernel on the plain
      versions' inputs, within LAYER_F32_REL of the largest value, two
-     launches bit-equal; ln_qkv and proj_ffn also on one and on two
-     consumer warpgroups forced (two do not fit proj_ffn's block at C =
-     240: the layer is refused) and at a ragged T = 3 x 16 rows; the
+     launches bit-equal; each kernel also on one and on two consumer
+     warpgroups forced (two do not fit proj_ffn's block at C = 240: the
+     layer is refused; the attention takes two only where its block has
+     two 64-row tiles or more, L = 256) and at a ragged T = 3 x 16 rows; the
      kernels, the layer and the plain versions timed beside the 3xTF32
      bound, ``nn.TransformerEncoderLayer`` f32 (TF32 off) and
      ``scaled_dot_product_attention`` f32; then ``extract_features``
@@ -4961,8 +4962,10 @@ def layer_f32_phase(tag, dev, images):
                 f"(bit-equal): " + " | ".join(parts) + f" | scaled_dot_product_attention f32 "
                 f"{sdpa_ms:.4f} ms")
 
-            # the row tiles on one and on two consumer warpgroups forced, and at a
-            # ragged T of 3 x 16 rows (neither a 64- nor a 128-row tile)
+            # each kernel on one and on two consumer warpgroups forced, and at a
+            # ragged T of 3 x 16 rows (neither a 64- nor a 128-row tile; the
+            # attention's tile packs three sequences of 16); the attention
+            # refuses two warpgroups where its block has one 64-row tile
             want_out = ftl.proj_ffn_plain(x2, want_ctx, ops)
             xr = torch.randn((48, width), generator=g, device=dev)
             want_r = ftl.ln_qkv_plain(xr, ops)
@@ -4972,17 +4975,24 @@ def layer_f32_phase(tag, dev, images):
             for nwg in (None, 1, 2):
                 for kname, kernel, kwant in (
                         ("ln_qkv", lambda: ftl.ln_qkv_cuda(x2, ops, l, _plan=nwg), want_qkv),
+                        ("attention", lambda: ftl.attention_cuda(want_qkv, l, ops, _plan=nwg),
+                         want_ctx),
                         ("proj_ffn", lambda: ftl.proj_ffn_cuda(x2, want_ctx, ops, l, _plan=nwg),
                          want_out),
                         ("ln_qkv T=48", lambda: ftl.ln_qkv_cuda(xr, ops, 16, _plan=nwg), want_r),
+                        ("attention T=48", lambda: ftl.attention_cuda(want_r, 16, ops, _plan=nwg),
+                         ctx_r),
                         ("proj_ffn T=48", lambda: ftl.proj_ffn_cuda(xr, ctx_r, ops, 16,
                                                                     _plan=nwg), want_rout)):
                     try:
                         kgot, kagain = kernel(), kernel()
                     except ValueError as ex:
-                        check(nwg == 2 and c == 240 and "does not fit" in str(ex),
+                        one_tile = kname.startswith("attention") and (kname.endswith("T=48")
+                                                                      or l <= 64)
+                        check(nwg == 2 and (c == 240 and "does not fit" in str(ex)
+                                            or one_tile and "takes 1 consumer" in str(ex)),
                               f"{tag}: {kname} {what} on {nwg} warpgroups refused: {ex}")
-                        forced.append(f"{kname} x{nwg} refused (does not fit)")
+                        forced.append(f"{kname} x{nwg} refused")
                         continue
                     torch.cuda.synchronize()
                     kerr, kscale = rel(kgot, kwant)

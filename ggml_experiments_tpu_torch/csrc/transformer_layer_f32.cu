@@ -25,8 +25,9 @@
 // and its remainder, three products, small terms first), so the sums keep
 // f32 accuracy. LN statistics (mean, then the mean squared deviation),
 // softmax and SiLU are f32 with every rounding written out (__fadd_rn /
-// __fmul_rn, the correctly rounded reciprocal and square root, expf), so
-// nothing is contracted that the plain version computes in two steps. No
+// __fmul_rn, the correctly rounded reciprocal and square root), so nothing
+// is contracted that the plain version computes in two steps, but for the
+// attention's exponent, one fma into the MUFU's exp2 (design of B). No
 // atomics and a fixed order of sums: two launches give the same bits.
 //
 // Bound on an H100 at the main path's shapes (bp = 512; (L, C, F) = (256,
@@ -80,16 +81,50 @@
 // passes between them (LN, SiLU, the q/k/v stores) are serial per
 // warpgroup, and the two warpgroups keep step on the shared ring (PERF.md
 // §6 row 6).
-// Design of B (attention, unchanged since it was ported):
-//   * B is flash_attention.cu's f32 design on the q/k/v array: a warp owns
-//     16 query rows of one (sequence, head), a block stages k and v of its
-//     pairs as f32 rows of 8 ceil(dh/8) + 4 floats by cp.async (8 pairs a
-//     block at L = 16, 2 at L = 64, one pair over two blocks at L = 256; a
-//     16-row tile never spans two sequences, so no mask is needed), heads of
-//     36 and 60 walk ceil(dh/8) k-steps with q zero past dh. The keys are
-//     walked twice: once for the true row max, once (the same operations in
-//     the same order give the same scores) to form p, its sum and p.v.
-//   * Rows past T read zeros and are not stored.
+// Design of B (attention). A block owns one head of a window of whole
+// sequences: one sequence of L >= 64 tokens (all of its query rows), or
+// G = 64 / L sequences packed into one 64-row tile (L < 64; each row's
+// keys bounded to its own sequence, as the bf16 form's mask_scores). Its
+// rows are its keys, at most 256: the scores of whole rows stay in
+// registers, so the keys are walked once, against the true row max.
+//   * q, k and v arrive by TMA from the q/k/v array (a 2-D tensor map of
+//     8-column boxes of 64 rows, the 32-byte swizzle: one k-step of tf32 a
+//     box, so a head of 36 takes 5 k-steps, not two 32-wide boxes): k and v
+//     of all the window's keys once, q a 64-row tile at a time into each
+//     consumer warpgroup's buffer (the next tile's copy issued as soon as
+//     the warpgroup's q.k^T has read the last).
+//   * k serves as its own tf32 hi plane (the tensor cores read an f32
+//     word's top bits); the block writes k's lo remainder once, over v's
+//     staging area, after one transposing pass has written v^T K-major
+//     (keys contiguous) as raw values and lo remainders. Within each 8-key
+//     k-step, key 2c goes to k-column c and key 2c + 1 to column c + 4, so
+//     that the score accumulator is the A fragment of P.v as it stands.
+//   * S = q.k^T: tf32 wgmma m64nNKk8 with A in registers, q's fragment
+//     split by truncation once a k-step (split_tf32_rz) into lo.hi + hi.lo
+//     + hi.hi, NK = the keys rounded up to 64, 128 or 256 (128 scores a
+//     thread at 256), keys outside a row's sequence at -inf. The row max
+//     from registers and quad shuffles.
+//   * p = exp(s - max) as 2^(s log2(e) - max log2(e)): one fma into the
+//     MUFU's exp2, where expf(s - max) took about ten instructions (10% of
+//     L = 256's time on an H100). The result stays within a few f32 ulps of
+//     the plain version's torch.exp where p matters, and an error in
+//     max log2(e) scales a row's p alike, which p / sum(p) cancels. Then
+//     its sum, and P.v on tf32 wgmma m64n(dhp)k8 one 8-key k-step at a
+//     time, p's fragments split in registers, B = v^T's raw and lo planes;
+//     the exponentials of a k-step run beside the products of the steps
+//     before it.
+//   * ctx = (p.v) * (1 / sum) stored from registers, each warp's store
+//     filling whole 32-byte sectors; rows past the block's sequences (or
+//     past T) not stored.
+//   A persistent grid (the blocks that are resident at once) walks the
+//   windows. One or two consumer warpgroups a block take its 64-row tiles
+//   in turn (the wrapper's plan: two where a window has two tiles or more);
+//   the second's first q.k^T waits for the first's, so that one's products
+//   run beside the other's softmax. Once both warpgroups' last q.k^T of a
+//   window is done, k's, the staging's and the q tiles' buffers are free,
+//   and one thread sends the next window's copies, which land beside the
+//   last P.v; so no producer warpgroup is needed. At L = 256 a block holds
+//   about 205 KB of k, v and q: one block a multiprocessor.
 #include <string.h>
 
 #include "hopper_common.cuh"
@@ -101,17 +136,13 @@ struct LayerF32Args {
   const void *x, *qkv, *ctx, *out, *wa, *wc;
   const void *ln1g, *ln1b, *bqkv, *bo, *ln2g, *ln2b, *bi, *bo2, *ln3g, *ln3b, *osc, *obi;
   int T, L, Cin, ldx, C, H, dh, dhp, ldc, F, Cout, ldo, in_proj, final_ln, out_proj, out_act,
-      nwg_a, nwg_c, stages_a, stages_c;
+      nwg_a, nwg_c, stages_a, stages_c, nwg_b;
   float eps, final_eps, scale;
 };
 
 namespace {
 
 using namespace gxt;
-
-constexpr int kThreads = 256;   // an attention block
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 4;    // 8-key tiles a step of the attention's key loop
 
 constexpr int kRows = 64;          // rows of a consumer warpgroup
 constexpr int kMaxThreads = 384;   // two consumer warpgroups and a producer one
@@ -124,10 +155,6 @@ constexpr int kMaxStages = 6;
 constexpr int kSmemLimit = 232448;   // an H100 block's shared memory
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ inline int k8(int k) { return cdiv(k, 8); }
-// row stride (floats) of a shared f32 operand of K columns: round8(K) + 4,
-// a multiple of 4 whose quarter is odd
-__host__ __device__ inline int ld32(int k) { return 8 * k8(k) + 4; }
 
 // C-wide sums: NC units of 48 columns, in NCH products of W columns
 __host__ __device__ constexpr int units(int c) { return (c + 47) / 48; }
@@ -216,30 +243,40 @@ bool plan_ok(int nwg, int stages, size_t smem) {
   return (nwg == 1 || nwg == 2) && stages >= 2 && stages <= kMaxStages && smem <= kSmemLimit;
 }
 
+// the attention's windows: G = 64 / L sequences packed into one tile where
+// L < 64, else one sequence; `rows` tokens a window (its keys) in nt 64-row
+// query tiles over nwg consumer warpgroups; nk keys (the rows rounded up to
+// 64, 128 or 256), ks k-steps of q.k^T
 struct AttnPlan {
-  int G;       // pairs a block stages (when a pair fits one block)
-  int bpp;     // blocks a pair is split over (1: G pairs a block)
-  int blocks;
-  int S;       // staged row stride (floats)
+  int rows, nk, ks, nt, nwg, windows;
   size_t smem;
 };
 
-AttnPlan attn_plan(const LayerF32Args& a) {
-  const int Lp = (a.L + 7) & ~7, wpp = cdiv(a.L, 16);
-  const int npairs = (a.T / a.L) * a.H;
-  AttnPlan p;
-  if (wpp <= kWarps) {
-    p.G = kWarps / wpp;
-    p.bpp = 1;
-    p.blocks = cdiv(npairs, p.G);
-  } else {
-    p.G = 1;
-    p.bpp = cdiv(wpp, kWarps);
-    p.blocks = npairs * p.bpp;
-  }
-  p.S = ld32(a.dh);
-  p.smem = (size_t)p.G * 2 * Lp * p.S * sizeof(float);
-  return p;
+constexpr int kMaxKeys = 256;   // a row's scores in registers
+constexpr int kQTile = 2048;    // a k-step of a 64-row q tile: 64 rows of 32 bytes
+
+// bytes of an attention block's shared memory: the 1024-byte alignment, k
+// (ks k-steps of nk rows), v's staging then k's lo (dhp / 8 k-steps of nk
+// rows), v^T's raw and lo planes (nk / 8 k-steps of dhp rows each), each
+// warpgroup's q tile, the barriers
+size_t attn_smem(int nk, int ks, int dhp, int nwg) {
+  return 1024 + (size_t)32 * nk * ks + (size_t)12 * nk * dhp + (size_t)kQTile * nwg * ks + 24;
+}
+
+// the plan of the args' attention (nwg_b consumer warpgroups: 1, or 2 where
+// the block has two tiles or more); false where the kernel does not take
+// it (a window past kMaxKeys, or past the shared memory)
+bool attn_plan(const LayerF32Args& a, AttnPlan& p) {
+  const int G = a.L < 64 ? 64 / a.L : 1;
+  p.rows = G * a.L;
+  p.nk = p.rows <= 64 ? 64 : p.rows <= 128 ? 128 : 256;
+  p.ks = cdiv(a.dh, 8);
+  p.nt = cdiv(p.rows, 64);
+  p.nwg = a.nwg_b;
+  p.windows = cdiv(a.T / a.L, G) * a.H;
+  p.smem = attn_smem(p.nk, p.ks, a.dhp, p.nwg);
+  return p.rows <= kMaxKeys && (p.nwg == 1 || p.nwg == 2) && p.nwg <= p.nt &&
+         p.smem <= kSmemLimit;
 }
 
 // ---------------------------------------------------------------------------
@@ -829,185 +866,268 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
-    layer_attention_f32_kernel(const __grid_constant__ LayerF32Args a, const AttnPlan pl) {
-  extern __shared__ __align__(16) float smem[];
-  const int L = a.L, S = pl.S, H = a.H, Lp = (L + 7) & ~7;
-  const int nq = 3 * H * a.dhp;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wpp = (L + 15) >> 4;   // 16-row tiles of a pair
-  const int npairs = (a.T / L) * H;
-  int pair0, ng, gw, tile;
-  if (pl.bpp == 1) {
-    pair0 = blockIdx.x * pl.G;
-    ng = min(pl.G, npairs - pair0);
-    gw = warp / wpp;
-    tile = warp % wpp;
-  } else {
-    pair0 = blockIdx.x / pl.bpp;
-    ng = 1;
-    gw = 0;
-    tile = (blockIdx.x % pl.bpp) * kWarps + warp;
-  }
-  const float* qkv = static_cast<const float*>(a.qkv);
+// ---------------------------------------------------------------------------
+// B: attention of one head of a window of whole sequences
+// ---------------------------------------------------------------------------
 
-  // k and v of the block's pairs as f32 rows of S floats: columns 8 KS of
-  // the head's dhp (zeros past dh), rows past L zero
-  const size_t buf = (size_t)Lp * S;
-  for (int i = threadIdx.x; i < ng * Lp * 2 * KS; i += kThreads) {
-    const int c = i % (2 * KS), j = (i / (2 * KS)) % Lp, gp = i / (2 * KS * Lp);
-    const int p = pair0 + gp, seq = p / H, h = p % H;
-    const bool ok = j < L;
-    const size_t off = ok ? ((size_t)seq * L + j) * nq + (size_t)(H + h) * a.dhp + 4 * c : 0;
-    float* kd = smem + (size_t)gp * 2 * buf + (size_t)j * S + 4 * c;
-    cp_async16(kd, qkv + off, ok ? 16 : 0);
-    cp_async16(kd + buf, qkv + off + (ok ? (size_t)H * a.dhp : 0), ok ? 16 : 0);
+struct AttnF32Params {
+  CUtensorMap tm_qkv;   // qkv (T, 3 H dhp) in 8-column boxes of 64 rows, 32-byte swizzle
+  LayerF32Args a;
+  AttnPlan pl;
+};
+
+// a named barrier of the warpgroup's 128 threads (0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// exp(s - m) as 2^(s log2(e) - ml2), ml2 = m log2(e): one fma, then the
+// MUFU's exp2 (denormals flushed). An error in ml2 scales a whole row's p
+// alike and cancels in p / sum(p)
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp_shift(float s, float ml2) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(__fmaf_rn(s, kLog2e, -ml2)));
+  return y;
+}
+
+// the copies of a q tile: ks 8-column boxes of 64 rows from head column c0,
+// completing on `bar`
+__device__ __forceinline__ void load_q(unsigned char* dst, const CUtensorMap* tm, int c0, int r0,
+                                       int ks, uint64_t* bar) {
+  mbar_expect(bar, ks * kQTile);
+  for (int s = 0; s < ks; ++s) tma_box(dst + s * kQTile, tm, c0 + 8 * s, r0, bar);
+}
+
+// the copies of window `w`'s k and v (into kraw and the staging) and of each
+// warpgroup's first q tile, by one thread
+template <int NK, int KS, int DN>
+__device__ __forceinline__ void load_window(const AttnF32Params& p, int w, unsigned char* kraw,
+                                            unsigned char* stage, unsigned char* qbuf,
+                                            uint64_t* bar) {
+  const int hq = p.a.H * p.a.dhp, qc = (w % p.a.H) * p.a.dhp, row0 = w / p.a.H * p.pl.rows;
+  mbar_expect(bar, (KS + DN / 8) * NK * 32);
+  for (int r = 0; r < NK; r += 64) {
+    for (int s = 0; s < KS; ++s)
+      tma_box(kraw + s * NK * 32 + r * 32, &p.tm_qkv, hq + qc + 8 * s, row0 + r, bar);
+    for (int s = 0; s < DN / 8; ++s)
+      tma_box(stage + s * NK * 32 + r * 32, &p.tm_qkv, 2 * hq + qc + 8 * s, row0 + r, bar);
   }
-  cp_async_commit();
-  cp_async_wait<0>();
+  for (int g = 0; g < p.pl.nwg; ++g)
+    load_q(qbuf + (size_t)g * KS * kQTile, &p.tm_qkv, qc, row0 + 64 * g, KS, bar + 1 + g);
+}
+
+// NK keys (the block's rows rounded up), KS k-steps of q.k^T (ceil(dh / 8));
+// P.v is dhp = 16 ceil(KS / 2) columns wide. A persistent block walks the
+// windows blockIdx.x, + gridDim.x, ...: the next window's copies go out once
+// both warpgroups' last q.k^T of this one is done, beside its last P.v.
+template <int NK, int KS>
+__global__ void __launch_bounds__(256, NK <= 64 ? 2 : 1)
+    layer_attention_f32_kernel(const __grid_constant__ AttnF32Params p) {
+  constexpr int DN = 16 * ((KS + 1) / 2), NS = NK / 8;
+  const LayerF32Args& a = p.a;
+  const AttnPlan& pl = p.pl;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int nwg = pl.nwg, nthreads = 128 * nwg;
+  unsigned char* kraw = base;                                    // KS k-steps of NK rows
+  unsigned char* klo = kraw + (size_t)KS * NK * 32;              // v's staging, then k's lo
+  unsigned char* vt = klo + (size_t)NK * DN * 4;                 // NS k-steps of DN rows
+  unsigned char* vtlo = vt + (size_t)NK * DN * 4;
+  unsigned char* qbuf = vtlo + (size_t)NK * DN * 4;              // a warpgroup's q tile
+  uint64_t* bar = reinterpret_cast<uint64_t*>(qbuf + (size_t)nwg * KS * kQTile);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int g = lane >> 2, q = lane & 3;
+  const int rl = 16 * (warp & 3) + g;   // the lane's rows rl, rl + 8 of a tile
+  unsigned char* qt = qbuf + (size_t)wg * KS * kQTile;
+  float* ctx = static_cast<float*>(const_cast<void*>(a.ctx));
+  const bool pairs = !(a.dh & 1) && !(a.ldc & 1);
+  const int L = a.L;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    for (int w = 0; w < nwg; ++w) mbar_init(bar + 1 + w, 1);
+    mbar_init_fence();
+    load_window<NK, KS, DN>(p, blockIdx.x, kraw, klo, qbuf, bar);
+  }
   __syncthreads();
-  if (gw >= ng || tile * 16 >= L) return;
+  int n = 0;   // the warpgroup's tiles so far
+  for (int w = blockIdx.x, it = 0; w < pl.windows; w += gridDim.x, ++it) {
+    const int h = w % a.H, row0 = w / a.H * pl.rows, R = min(pl.rows, a.T - row0);
+    mbar_wait(bar, it & 1);
 
-  const float* ks = smem + (size_t)gw * 2 * buf;
-  const float* vs = ks + buf;
-  const int p = pair0 + gw, seq = p / H, h = p % H;
-  const int row0 = tile * 16;
-
-  // q fragments (q arrives scaled), zero past dh and past L
-  uint32_t qh[KS][4], ql[KS][4];
+    // v^T from v's staging: key j of k-step j / 8 at k-column (j % 8) / 2 +
+    // 4 (j % 2). Lane (r, dq) takes key r of each 8-key step and row 4 db + dq:
+    // a warp's load reads 8 rows of 16 bytes, its store one 128-byte span,
+    // at offsets 256 and DN * 32 bytes a step apart
+    {
+      const int r = lane & 7, pos = (r >> 1) + 4 * (r & 1);
+      for (int i = warp; i < DN / 2; i += 4 * nwg) {
+        const int d = 4 * (i >> 1) + (lane >> 3), kg0 = (i & 1) * (NS / 2);
+        const unsigned char* src = klo + (d >> 3) * NK * 32 + swz32(r, d & 7) + kg0 * 256;
+        const int o = swz32(d, pos) + kg0 * DN * 32;
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + g + (i & 1) * 8, d = kk * 8 + t + (i >> 1) * 4;
-      float v = 0.f;
-      if (row < L && d < a.dh) v = qkv[((size_t)seq * L + row) * nq + (size_t)h * a.dhp + d];
-      split_tf32(v, qh[kk][i], ql[kk][i]);
-    }
-
-  // the scores of keys j0 .. j0 + 8 kChunk - 1; keys past L are -inf
-  auto scores = [&](int j0, float (&s)[kChunk][4]) {
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      if (j0 + nt * 8 < Lp) {
-        const float* kr = ks + (size_t)(j0 + nt * 8 + g) * S + t;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bh0, bh1, bl0, bl1;
-          split_tf32(kr[kk * 8], bh0, bl0);
-          split_tf32(kr[kk * 8 + 4], bh1, bl1);
-          mma_tf32x<true>(s[nt], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+        for (int kg = 0; kg < NS / 2; ++kg) {
+          const float v = *reinterpret_cast<const float*>(src + kg * 256);
+          *reinterpret_cast<float*>(vt + o + kg * DN * 32) = v;
+          *reinterpret_cast<float*>(vtlo + o + kg * DN * 32) =
+              __fsub_rn(v, __uint_as_float(__float_as_uint(v) & 0xffffe000u));
         }
       }
+    }
+    __syncthreads();
+    // k's lo remainders over the staging (k itself is its hi plane)
+    for (int i = tid; i < KS * NK * 2; i += nthreads) {
+      const float4 x = reinterpret_cast<const float4*>(kraw)[i];
+      float4 y;
+      y.x = __fsub_rn(x.x, __uint_as_float(__float_as_uint(x.x) & 0xffffe000u));
+      y.y = __fsub_rn(x.y, __uint_as_float(__float_as_uint(x.y) & 0xffffe000u));
+      y.z = __fsub_rn(x.z, __uint_as_float(__float_as_uint(x.z) & 0xffffe000u));
+      y.w = __fsub_rn(x.w, __uint_as_float(__float_as_uint(x.w) & 0xffffe000u));
+      reinterpret_cast<float4*>(klo)[i] = y;
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    for (int t = wg; t < pl.nt; t += nwg, ++n) {
+      // S = q.k^T as 3xTF32, q's fragment split once a k-step into one of
+      // two register sets (a set is written again once the products of two
+      // steps back are done); q zero past dh. The second warpgroup's first
+      // q.k^T waits for the first's, so that one's products run beside the
+      // other's softmax
+      if (t == 1 && nwg == 2) asm volatile("bar.sync 4, %0;\n" ::"r"(nthreads) : "memory");
+      mbar_wait(bar + 1 + wg, n & 1);
+      float s[NK / 2];
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = j0 + nt * 8 + 2 * t + (i & 1);
-        if (key >= L) s[nt][i] = -INFINITY;
+      for (int ks = 0; ks < KS; ++ks) {
+        const int f = ks & 1;
+        if (ks >= 2) wg_wait<1>();
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = rl + 8 * (e & 1), k = q + 4 * (e >> 1);
+          const float x = *reinterpret_cast<const float*>(qt + ks * kQTile + swz32(row, k));
+          split_tf32_rz(8 * ks + k < a.dh ? x : 0.f, ah[f][e], al[f][e]);
+        }
+        wg_fence();
+        const uint32_t kh = smem_u32(kraw + ks * NK * 32), kl = smem_u32(klo + ks * NK * 32);
+        wgmma_tf32_rs<NK>(s, al[f], desc_k32(kh), ks == 0 ? 0 : 1);
+        wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kl), 1);
+        wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);
+        wg_commit();
+      }
+      wg_wait<0>();
+      wg_pin(s);
+      if (t == 0 && nwg == 2) asm volatile("bar.arrive 4, %0;\n" ::"r"(nthreads) : "memory");
+      // the warpgroup's q tile is read: the copy of its next one goes out;
+      // after both warpgroups' last tile, k's and the q tiles' buffers are
+      // free: the warpgroup of the window's last tile waits for the other's
+      // and sends the next window's copies
+      if (t + nwg < pl.nt) {
+        wg_sync(wg);
+        if ((tid & 127) == 0) load_q(qt, &p.tm_qkv, h * a.dhp, row0 + 64 * (t + nwg), KS,
+                                     bar + 1 + wg);
+      } else if (t == pl.nt - 1) {
+        asm volatile("bar.sync 3, %0;\n" ::"r"(nthreads) : "memory");
+        if ((tid & 127) == 0 && w + gridDim.x < pl.windows)
+          load_window<NK, KS, DN>(p, w + gridDim.x, kraw, klo, qbuf, bar);
+      } else {
+        asm volatile("bar.arrive 3, %0;\n" ::"r"(nthreads) : "memory");
+      }
+
+      // keys outside the row's sequence at -inf (where the row's keys are
+      // not all NK: the selects cost 11% of L = 256's time); the true row max
+      float m[2], den[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 64 * t + rl + 8 * hf, lo = r / L * L, hi = min(lo + L, R);
+        if (lo > 0 || hi < NK) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = 8 * j + 2 * q + e, i = 4 * j + 2 * hf + e;
+              s[i] = key >= lo && key < hi ? s[i] : -INFINITY;
+            }
+        }
+        m[hf] = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          m[hf] = fmaxf(m[hf], fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+        m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+        m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+        if (m[hf] == -INFINITY) m[hf] = 0.f;   // a row past the block's sequences
+      }
+
+      // p = exp(s - max), its sums, and P.v a k-step of 8 keys at a time: the
+      // score fragment (row g: keys 2q, 2q + 1; row g + 8 likewise) is the A
+      // fragment with key 2q at k-column q and 2q + 1 at q + 4, as v^T is laid
+      float acc[DN / 2];
+      uint32_t ph[2][4], pl4[2][4];
+      const float ml2[2] = {mulf(m[0], kLog2e), mulf(m[1], kLog2e)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int f = j & 1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] = exp_shift(s[4 * j + i], ml2[i >> 1]);
+        den[0] = addf(den[0], addf(s[4 * j], s[4 * j + 1]));
+        den[1] = addf(den[1], addf(s[4 * j + 2], s[4 * j + 3]));
+        if (j >= 2) wg_wait<1>();
+        split_tf32_rz(s[4 * j], ph[f][0], pl4[f][0]);
+        split_tf32_rz(s[4 * j + 2], ph[f][1], pl4[f][1]);
+        split_tf32_rz(s[4 * j + 1], ph[f][2], pl4[f][2]);
+        split_tf32_rz(s[4 * j + 3], ph[f][3], pl4[f][3]);
+        wg_fence();
+        const uint32_t vh = smem_u32(vt + j * DN * 32), vl = smem_u32(vtlo + j * DN * 32);
+        wgmma_tf32_rs<DN>(acc, pl4[f], desc_k32(vh), j == 0 ? 0 : 1);
+        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);
+        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);
+        wg_commit();
+      }
+      wg_wait<0>();
+      wg_pin(acc);
+
+      // ctx = (p.v) * (1 / sum), the head's dh columns of the block's rows
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        den[hf] = addf(den[hf], __shfl_xor_sync(0xffffffffu, den[hf], 1));
+        den[hf] = addf(den[hf], __shfl_xor_sync(0xffffffffu, den[hf], 2));
+        const float inv = __fdiv_rn(1.f, den[hf]);
+        const int r = 64 * t + rl + 8 * hf;
+        if (r >= R) continue;
+        float* dst = ctx + (size_t)(row0 + r) * a.ldc + h * a.dh;
+#pragma unroll
+        for (int j = 0; j < DN / 8; ++j) {
+          const int d = 8 * j + 2 * q;
+          if (d >= a.dh) continue;
+          const float v0 = mulf(acc[4 * j + 2 * hf], inv);
+          const float v1 = mulf(acc[4 * j + 2 * hf + 1], inv);
+          if (d + 1 < a.dh && pairs) {
+            *reinterpret_cast<float2*>(dst + d) = make_float2(v0, v1);
+          } else {
+            dst[d] = v0;
+            if (d + 1 < a.dh) dst[d + 1] = v1;
+          }
+        }
       }
     }
-  };
-
-  // acc += p . v over the chunk's keys: score tile nt is the k-step, its
-  // keys 2t and 2t + 1 the k-columns t and t + 4 (v read in that order)
-  float acc[KS][4];
-#pragma unroll
-  for (int dt = 0; dt < KS; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  auto accumulate = [&](int j0, const float (&pm)[kChunk][4]) {
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      if (j0 + nt * 8 >= Lp) continue;
-      uint32_t ph[4], pl4[4];
-      const float pv[4] = {pm[nt][0], pm[nt][2], pm[nt][1], pm[nt][3]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(pv[i], ph[i], pl4[i]);
-      const float* vr = vs + (size_t)(j0 + nt * 8 + 2 * t) * S + g;
-#pragma unroll
-      for (int dt = 0; dt < KS; ++dt) {
-        uint32_t bh0, bh1, bl0, bl1;
-        split_tf32(vr[dt * 8], bh0, bl0);
-        split_tf32(vr[S + dt * 8], bh1, bl1);
-        mma_tf32x<true>(acc[dt], ph, pl4, bh0, bh1, bl0, bl1);
-      }
-    }
-  };
-
-  // pass one: the true row max over all L keys
-  float m0 = -INFINITY, m1 = -INFINITY;   // rows g and g + 8
-  float s[kChunk][4];
-  for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
-    scores(j0, s);
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-    }
+    __syncthreads();   // v^T is read: the next window's pass may write it
   }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-  // pass two: the same scores again, p = exp(s - max), its sum and p . v
-  float den0 = 0.f, den1 = 0.f;   // this thread's share of the row sums
-  for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
-    scores(j0, s);
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      s[nt][0] = expf(__fsub_rn(s[nt][0], m0));
-      s[nt][1] = expf(__fsub_rn(s[nt][1], m0));
-      s[nt][2] = expf(__fsub_rn(s[nt][2], m1));
-      s[nt][3] = expf(__fsub_rn(s[nt][3], m1));
-      den0 = addf(den0, addf(s[nt][0], s[nt][1]));
-      den1 = addf(den1, addf(s[nt][2], s[nt][3]));
-    }
-    accumulate(j0, s);
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    den0 = addf(den0, __shfl_xor_sync(0xffffffffu, den0, o));
-    den1 = addf(den1, __shfl_xor_sync(0xffffffffu, den1, o));
-  }
-  const float inv0 = __fdiv_rn(1.f, den0), inv1 = __fdiv_rn(1.f, den1);
-  float* ctx = static_cast<float*>(const_cast<void*>(a.ctx));
-#pragma unroll
-  for (int dt = 0; dt < KS; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + g + (i >> 1) * 8, d = dt * 8 + 2 * t + (i & 1);
-      if (row < L && d < a.dh)
-        ctx[((size_t)seq * L + row) * a.ldc + (size_t)h * a.dh + d] =
-            mulf(acc[dt][i], i < 2 ? inv0 : inv1);
-    }
-}
-
-template <typename Kernel, typename... P>
-int launch(Kernel kernel, int blocks, size_t smem, void* stream, const P&... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-template <int KS>
-int launch_attn(const LayerF32Args& a, const AttnPlan& p, void* stream) {
-  return launch(layer_attention_f32_kernel<KS>, p.blocks, p.smem, stream, a, p);
 }
 
 // a (rows, cols) f32 array with row stride `ld` as a tensor map read in
-// 32 x 64 boxes with the 128-byte swizzle; reads past the array give zeros
-int make_map(CUtensorMap* m, const void* ptr, int cols, int rows, int ld) {
+// boxes of `bc` columns by 64 rows with swizzle `sw` (default: 32 x 64, the
+// 128-byte swizzle); reads past the array give zeros
+int make_map(CUtensorMap* m, const void* ptr, int cols, int rows, int ld, int bc = kKC,
+             CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorInitializationError;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {kKC, kRows};
+  const cuuint32_t box[2] = {(cuuint32_t)bc, kRows};
   const cuuint32_t es[2] = {1, 1};
   const CUresult res = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
-                          strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -1023,6 +1143,41 @@ int launch_rows(void (*kernel)(RowF32Params), const RowF32Params& p, int nwg, si
                          args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// a persistent grid: as many blocks as are resident at once, at most one a
+// window
+template <int NK, int KS>
+int launch_attn_nk(const AttnF32Params& p, void* stream) {
+  void (*kernel)(AttnF32Params) = layer_attention_f32_kernel<NK, KS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.pl.smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 128 * p.pl.nwg,
+                                                        p.pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = p.pl.windows < per_sm * sms ? p.pl.windows : per_sm * sms;
+  void* args[] = {const_cast<AttnF32Params*>(&p)};
+  err = cudaLaunchKernel((void*)kernel, dim3(grid), dim3(128 * p.pl.nwg), args, p.pl.smem,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_attn(const AttnF32Params& p, void* stream) {
+  switch (p.pl.nk) {
+    case 64: return launch_attn_nk<64, KS>(p, stream);
+    case 128: return launch_attn_nk<128, KS>(p, stream);
+    case 256:
+      // 256 keys fit the shared memory up to dhp = 48
+      if constexpr (KS <= 6) return launch_attn_nk<256, KS>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_ln_qkv(int nc, const RowF32Params& p, int nwg, size_t smem, void* stream) {
@@ -1062,7 +1217,10 @@ extern "C" long long gxt_layer_f32_smem(const LayerF32Args* a, int kind) {
   const Dims d = dims(*a);
   switch (kind) {
     case 0: return (long long)smem_ln_qkv(*a);
-    case 1: return (long long)attn_plan(*a).smem;
+    case 1: {
+      AttnPlan p;
+      return attn_plan(*a, p) ? (long long)p.smem : -1;
+    }
     case 2: return (long long)smem_proj_ffn(*a);
     case 3: return (long long)d.ta * d.sba;
     case 4: return (long long)d.tc * d.sbc;
@@ -1085,20 +1243,27 @@ extern "C" int gxt_layer_ln_qkv_f32(const LayerF32Args* a, void* stream) {
   return launch_ln_qkv(units(a->C), p, a->nwg_a, smem_ln_qkv(*a), stream);
 }
 
-// qkv (T, 3 H dhp) f32 -> ctx (T, C) f32 with row stride ldc.
+// qkv (T, 3 H dhp) f32 -> ctx (T, C) f32 with row stride ldc, on the
+// plan's nwg_b consumer warpgroups.
 extern "C" int gxt_layer_attention_f32(const LayerF32Args* a, void* stream) {
   if (a->T <= 0) return 0;
-  if (!takes(*a)) return (int)cudaErrorInvalidValue;
-  const AttnPlan p = attn_plan(*a);
-  switch (k8(a->dh)) {
-    case 1: return launch_attn<1>(*a, p, stream);
-    case 2: return launch_attn<2>(*a, p, stream);
-    case 3: return launch_attn<3>(*a, p, stream);
-    case 4: return launch_attn<4>(*a, p, stream);
-    case 5: return launch_attn<5>(*a, p, stream);
-    case 6: return launch_attn<6>(*a, p, stream);
-    case 7: return launch_attn<7>(*a, p, stream);
-    case 8: return launch_attn<8>(*a, p, stream);
+  AttnF32Params p;
+  memset(&p, 0, sizeof(p));
+  if (!takes(*a) || !attn_plan(*a, p.pl)) return (int)cudaErrorInvalidValue;
+  p.a = *a;
+  const int nq = 3 * a->H * a->dhp;
+  int code;
+  if ((code = make_map(&p.tm_qkv, a->qkv, nq, a->T, nq, 8, CU_TENSOR_MAP_SWIZZLE_32B)))
+    return code;
+  switch (p.pl.ks) {
+    case 1: return launch_attn<1>(p, stream);
+    case 2: return launch_attn<2>(p, stream);
+    case 3: return launch_attn<3>(p, stream);
+    case 4: return launch_attn<4>(p, stream);
+    case 5: return launch_attn<5>(p, stream);
+    case 6: return launch_attn<6>(p, stream);
+    case 7: return launch_attn<7>(p, stream);
+    case 8: return launch_attn<8>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -43,10 +43,12 @@ dhp) q/k/v array in f32: ln_qkv and proj_ffn on 64-row warpgroup tiles,
 each product as 3xTF32 on tf32 ``wgmma``, the weights split once a layer
 into K-major tf32 hi / lo tiles streamed in the order the kernels consume
 them (:func:`f32_tiles`, :func:`_prepare_f32`, kept in
-``LayerOperands.cache``); the attention with the softmax after the true row
-max. The same three plain pieces are their plain versions. A layer they do
-not take (a head past 64, C past 240 or not a multiple of 4, a block's
-shared memory past the device's: :func:`f32_layer_takes`) is refused with
+``LayerOperands.cache``); the attention a block per head of whole
+sequences (up to 256 keys), the scores of whole rows on tf32 ``wgmma`` in
+registers and the softmax after the true row max. The same three plain
+pieces are their plain versions. A layer they do not take (a head past 64,
+C past 240 or not a multiple of 4, L past 256, a block's shared memory past
+the device's: :func:`f32_layer_takes`) is refused with
 its shape; there is no per-sequence route at f32, and the model keeps such a
 layer on its unfused chain.
 
@@ -531,11 +533,14 @@ def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> 
     return qkv
 
 
-def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
+def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands, *, _plan=None) -> torch.Tensor:
     """Kernel B on :func:`ln_qkv_cuda`'s array: ctx (T, C) in its dtype
-    (bf16 rows padded to a multiple of 8 elements: a view)."""
+    (bf16 rows padded to a multiple of 8 elements: a view). ``_plan``
+    forces the f32 block's consumer warpgroups, 1 or 2."""
     if qkv.dtype == torch.float32:
-        return _attention_f32(qkv, l, ops)
+        return _attention_f32(qkv, l, ops, _plan)
+    if _plan is not None:
+        raise ValueError("transformer attention: the bf16 kernel takes no plan")
     c, h, dh, dhp = _dims(ops)
     if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp or not qkv.is_contiguous():
         raise ValueError(f"transformer attention: qkv must be a contiguous (T, {3 * h * dhp}) "
@@ -714,6 +719,7 @@ _F32_FW = 96            # FFN columns of a chunk (csrc kFW)
 _F32_BOX = 8192         # a warpgroup tile's 32-column box of 64 rows (csrc kBox)
 _F32_MAX_STAGES = 6     # ring buffers, at most (csrc kMaxStages)
 _F32_STAGES = 4         # ring buffers the plan takes where they fit
+_F32_MAX_KEYS = 256     # the attention's window: a row's scores in registers (csrc kMaxKeys)
 
 
 def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
@@ -788,33 +794,64 @@ def _f32_fixed(d: dict, kind: int, nwg: int) -> int:
             + 8 * (2 * _F32_MAX_STAGES + 4))
 
 
+def f32_attention_block(l: int, dh: int):
+    """(rows, keys, k-steps, query tiles) of an f32 attention block (csrc
+    ``attn_plan``): 64 // L sequences packed into one 64-row tile where L <
+    64, else one sequence; its rows are its keys, rounded up to 64, 128 or
+    256 for the scores' width; ceil(dh / 8) k-steps of q.k^T."""
+    rows = max(1, 64 // l) * l
+    keys = next((n for n in (64, 128, _F32_MAX_KEYS) if rows <= n), -(-rows // 64) * 64)
+    return rows, keys, -(-dh // 8), -(-rows // 64)
+
+
+def f32_attention_smem(l: int, dh: int, nwg: int) -> int:
+    """Bytes of shared memory of an f32 attention block on ``nwg`` consumer
+    warpgroups (csrc ``attn_smem``): the 1024-byte alignment, k (ks k-steps
+    of the keys, 32 bytes a key), v's staging then k's lo (dhp / 8 k-steps),
+    v^T's raw and lo planes, each warpgroup's 64-row q tile, three
+    barriers."""
+    _, keys, ks, _ = f32_attention_block(l, dh)
+    return 1024 + 32 * keys * ks + 12 * keys * head_pad(dh) + 2048 * nwg * ks + 24
+
+
+def f32_attention_warpgroups(l: int, dh: int, nwg: Optional[int] = None) -> Optional[int]:
+    """The f32 attention block's consumer warpgroups: two where it has two
+    64-row query tiles or more, else one; ``nwg`` forces 1 or 2 (tests,
+    sweeps). None where the block does not take them (more warpgroups than
+    tiles, or L past 256)."""
+    rows, _, _, nt = f32_attention_block(l, dh)
+    w = nwg or min(2, nt)
+    return w if rows <= _F32_MAX_KEYS and w in (1, 2) and w <= nt else None
+
+
 def layer_f32_smem(l: int, cin: int, c: int, h: int, f: int, in_proj: bool,
-                   plan=((1, 2), (1, 2)), cout: Optional[int] = None):
+                   plan=((1, 2), 1, (1, 2)), cout: Optional[int] = None):
     """Bytes of shared memory a block of each f32 kernel takes, (ln_qkv,
-    attention, proj_ffn), as ``gxt_layer_f32_smem`` reckons them: the row
-    tiles at ``plan`` = ((consumer warpgroups, ring buffers) of ln_qkv, of
-    proj_ffn): the warpgroups' f32 tiles of 64 rows, the staged vectors
-    (``cout``, default C, sizes the BN's), the ring of weight tiles; the
-    attention's k and v of the pairs a block stages (8 // ceil(L / 16)
-    pairs of L up to 128, one otherwise)."""
+    attention, proj_ffn), as ``gxt_layer_f32_smem`` reckons them at ``plan``
+    = ((consumer warpgroups, ring buffers) of ln_qkv, the attention's
+    consumer warpgroups, (consumer warpgroups, ring buffers) of proj_ffn):
+    the row tiles' f32 tiles of 64 rows, staged vectors (``cout``, default
+    C, sizes the BN's) and ring of weight tiles; the attention's
+    :func:`f32_attention_smem`."""
     d = _f32_dims(cin, c, f, cout or c, in_proj, False)
-    lp, wpp = -(-l // 8) * 8, -(-l // 16)
-    pairs = 8 // wpp if wpp <= 8 else 1
-    (nwg_a, s_a), (nwg_c, s_c) = plan
+    (nwg_a, s_a), nwg_b, (nwg_c, s_c) = plan
     ln_qkv = _f32_fixed(d, 0, nwg_a) + s_a * d["sba"]
-    attention = pairs * 2 * lp * (-(-(c // h) // 8) * 8 + 4) * 4
+    attention = f32_attention_smem(l, c // h, nwg_b)
     proj_ffn = _f32_fixed(d, 2, nwg_c) + s_c * d["sbc"]
     return ln_qkv, attention, proj_ffn
 
 
 def f32_layer_plan(t: int, l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
                    limit: int, sms: int, nwg: Optional[int] = None,
-                   cout: Optional[int] = None):
-    """((consumer warpgroups, ring buffers) of ln_qkv, of proj_ffn) for T
-    rows: two warpgroups where T / 128 tiles fill the ``sms``
-    multiprocessors (:func:`row_tile_warpgroups`) and two fit ``limit``
-    bytes, else one; up to _F32_STAGES buffers, at least 2. ``nwg`` forces
-    the warpgroups (tests, sweeps). None where a kernel does not fit."""
+                   cout: Optional[int] = None, nwg_b: Optional[int] = None):
+    """((consumer warpgroups, ring buffers) of ln_qkv, the attention's
+    consumer warpgroups, (consumer warpgroups, ring buffers) of proj_ffn)
+    for T rows: the row tiles on two warpgroups where T / 128 tiles fill the
+    ``sms`` multiprocessors (:func:`row_tile_warpgroups`) and two fit
+    ``limit`` bytes, else one, with up to _F32_STAGES buffers, at least 2;
+    the attention on :func:`f32_attention_warpgroups`. ``nwg`` forces the
+    row tiles' warpgroups, ``nwg_b`` the attention's (tests, sweeps). None
+    where a kernel does not fit."""
     want = nwg or row_tile_warpgroups(t, sms)
     d = _f32_dims(cin, c, f, cout or c, in_proj, False)
     plan = []
@@ -826,18 +863,23 @@ def f32_layer_plan(t: int, l: int, cin: int, c: int, h: int, f: int, *, in_proj:
                 break
         else:
             return None
-    return tuple(plan)
+    wb = f32_attention_warpgroups(l, c // h, nwg_b)
+    if wb is None or f32_attention_smem(l, c // h, wb) > limit:
+        return None
+    return plan[0], wb, plan[1]
 
 
 def f32_layer_takes(l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
                     limit: Optional[int] = None) -> bool:
     """Whether the f32 kernels take a layer of these widths: C heads of dh
     <= 64, C up to 240 (the row tiles' sums in registers) and a multiple of
-    4 (TMA rows of 16 bytes), as Cin with the input projection; each
-    kernel's block within ``limit`` bytes of shared memory (default: the
-    card's, or an H100's where no card is visible) with one warpgroup and
-    two ring buffers (the BN vectors reckoned for a Cout up to 2C)."""
-    if l <= 0 or h <= 0 or c % h or c // h > 64 or c > _F32_MAX_C or c % 4:
+    4 (TMA rows of 16 bytes), as Cin with the input projection; L up to 256
+    (the attention's scores of whole rows in registers); each kernel's
+    block within ``limit`` bytes of shared memory (default: the card's, or
+    an H100's where no card is visible) with one warpgroup and two ring
+    buffers (the BN vectors reckoned for a Cout up to 2C)."""
+    if (l <= 0 or l > _F32_MAX_KEYS or h <= 0 or c % h or c // h > 64 or c > _F32_MAX_C
+            or c % 4):
         return False
     if in_proj and cin % 4:
         return False
@@ -852,25 +894,30 @@ class _F32Args(ctypes.Structure):
         "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [
         (name, ctypes.c_int) for name in (
             "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "F", "Cout", "ldo", "in_proj",
-            "final_ln", "out_proj", "out_act", "nwg_a", "nwg_c", "stages_a", "stages_c")] + [
+            "final_ln", "out_proj", "out_act", "nwg_a", "nwg_c", "stages_a", "stages_c",
+            "nwg_b")] + [
         (name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
 
 
 _F32_LIB = []
 
 
+def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of the f32 kernels' C functions on ``lib``."""
+    for fn in ("gxt_layer_ln_qkv_f32", "gxt_layer_attention_f32", "gxt_layer_proj_ffn_f32",
+               "gxt_layer_forward_f32"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_F32Args), ctypes.c_void_p]
+    lib.gxt_layer_f32_smem.restype = ctypes.c_longlong
+    lib.gxt_layer_f32_smem.argtypes = [ctypes.POINTER(_F32Args), ctypes.c_int]
+    return lib
+
+
 def _f32_lib():
     if not _F32_LIB:
         from ggml_experiments_tpu_torch import _build
 
-        lib = _build.load("transformer_layer_f32")
-        for fn in ("gxt_layer_ln_qkv_f32", "gxt_layer_attention_f32", "gxt_layer_proj_ffn_f32",
-                   "gxt_layer_forward_f32"):
-            getattr(lib, fn).restype = ctypes.c_int
-            getattr(lib, fn).argtypes = [ctypes.POINTER(_F32Args), ctypes.c_void_p]
-        lib.gxt_layer_f32_smem.restype = ctypes.c_longlong
-        lib.gxt_layer_f32_smem.argtypes = [ctypes.POINTER(_F32Args), ctypes.c_int]
-        _F32_LIB.append(lib)
+        _F32_LIB.append(bind_f32(_build.load("transformer_layer_f32")))
     return _F32_LIB[0]
 
 
@@ -882,7 +929,7 @@ class _PreparedF32:
     wc: torch.Tensor          # proj_ffn's
     vectors: dict             # f32 vectors by _F32Args field
     cout: int
-    args: dict = dataclasses.field(default_factory=dict)   # launch arguments by (T, L, Cin, nwg)
+    args: dict = dataclasses.field(default_factory=dict)   # launch arguments by (T, L, Cin, plan)
 
 
 def _f32_stream(tiles, sb: int) -> torch.Tensor:
@@ -938,11 +985,13 @@ def _prepare_f32(ops: LayerOperands, dev) -> _PreparedF32:
                         wc=_f32_stream(wc, max(w, _F32_FW) * 256), vectors=vectors, cout=cout)
 
 
-def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, nwg=None):
+def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, nwg=None,
+              nwg_b=None):
     """(prepared operands, _F32Args) for a launch of the f32 kernels on x (T
     rows): raises, naming the shape, where they do not take the layer (the
     shape is checked before the device). ``nwg`` forces the row tiles'
-    consumer warpgroups (1 or 2; tests, sweeps)."""
+    consumer warpgroups, ``nwg_b`` the attention's (1 or 2; tests,
+    sweeps)."""
     c, h, dh, dhp = _dims(ops)
     f = ops.wi.shape[1]
     in_proj = ops.win is not None
@@ -956,33 +1005,37 @@ def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, 
                                                      limit=limit):
         raise ValueError(
             f"{what}: (T, L, Cin, C, H, F) = ({x.shape[0]}, {l}, {cin}, {c}, {h}, {f}) is not a "
-            f"layer the f32 kernels take (T a multiple of L, a head width up to 64, C up to "
-            f"{_F32_MAX_C} and C and Cin multiples of 4, each kernel's block within {limit} "
-            f"bytes of shared memory: {layer_f32_smem(l, cin, c, h, f, in_proj)})")
+            f"layer the f32 kernels take (T a multiple of L, L up to {_F32_MAX_KEYS}, a head "
+            f"width up to 64, C up to {_F32_MAX_C} and C and Cin multiples of 4, each kernel's "
+            f"block within {limit} bytes of shared memory: "
+            f"{layer_f32_smem(l, cin, c, h, f, in_proj)})")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the f32 kernels take CUDA tensors, got one on {x.device}")
     if nwg not in (None, 1, 2):
         raise ValueError(f"{what}: the row tiles take 1 or 2 consumer warpgroups, got {nwg}")
+    if nwg_b is not None and f32_attention_warpgroups(l, dh, nwg_b) is None:
+        raise ValueError(f"{what}: the attention at L={l} takes 1 consumer warpgroup, or 2 "
+                         f"where a block has two 64-row query tiles or more, got {nwg_b}")
     dev, t = x.device, x.shape[0]
     key = ("f32", dev)
     prep = ops.cache.get(key)
     if prep is None:
         prep = ops.cache[key] = _prepare_f32(ops, dev)
-    a = prep.args.get((t, l, cin, nwg))
+    a = prep.args.get((t, l, cin, nwg, nwg_b))
     if a is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = f32_layer_plan(t, l, cin, c, h, f, in_proj=in_proj, limit=limit, sms=sms,
-                              nwg=nwg, cout=prep.cout)
+                              nwg=nwg, cout=prep.cout, nwg_b=nwg_b)
         if plan is None:
             raise ValueError(f"{what}: (T, L, Cin, C) = ({t}, {l}, {cin}, {c}) with {nwg} "
                              f"consumer warpgroups does not fit one block's {limit} bytes of "
                              f"shared memory")
-        (nwg_a, s_a), (nwg_c, s_c) = plan
+        (nwg_a, s_a), wb, (nwg_c, s_c) = plan
         a = _F32Args(T=t, L=l, Cin=cin, ldx=cin, C=c, H=h, dh=dh, dhp=dhp, ldc=c, F=f,
                      Cout=prep.cout, ldo=prep.cout, in_proj=int(in_proj),
                      final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
                      out_act=int(ops.out_act), nwg_a=nwg_a, nwg_c=nwg_c, stages_a=s_a,
-                     stages_c=s_c, eps=ops.eps, final_eps=ops.final_eps,
+                     stages_c=s_c, nwg_b=wb, eps=ops.eps, final_eps=ops.final_eps,
                      scale=1.0 / math.sqrt(dh), wa=prep.wa.data_ptr(), wc=prep.wc.data_ptr())
         for k, v in prep.vectors.items():
             setattr(a, k, None if v is None else v.data_ptr())
@@ -993,7 +1046,7 @@ def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, 
         if got != want:
             raise RuntimeError(f"{what}: the kernels' shared memory and streams {got} differ "
                                f"from the wrapper's reckoning {want}")
-        prep.args[(t, l, cin, nwg)] = a
+        prep.args[(t, l, cin, nwg, nwg_b)] = a
     a = _F32Args.from_buffer_copy(a)
     if ops.out_affine is not None:   # a call's own BN vectors (the model makes them anew)
         a.keep = tuple(_f32(v, dev) for v in ops.out_affine)   # alive until the launch
@@ -1020,14 +1073,14 @@ def _ln_qkv_f32(x2: torch.Tensor, ops: LayerOperands, l: int, nwg=None) -> torch
     return qkv
 
 
-def _attention_f32(qkv: torch.Tensor, l: int, ops: LayerOperands) -> torch.Tensor:
+def _attention_f32(qkv: torch.Tensor, l: int, ops: LayerOperands, nwg=None) -> torch.Tensor:
     c, h, dh, dhp = _dims(ops)
     if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp:
         raise ValueError(f"transformer attention f32: qkv must be a (T, {3 * h * dhp}) array, "
                          f"got {tuple(qkv.shape)}")
     qkv = _contiguous16(qkv)
     prep, a = _f32_args(ops, qkv, l, c if ops.win is None else ops.win.shape[0],
-                        "transformer attention f32")
+                        "transformer attention f32", nwg_b=nwg)
     ctx = torch.empty((qkv.shape[0], c), dtype=torch.float32, device=qkv.device)
     a.qkv, a.ctx = qkv.data_ptr(), ctx.data_ptr()
     _run(_f32_lib(), "gxt_layer_attention_f32", a, qkv.device,

@@ -1145,6 +1145,35 @@ def test_f32_layer_kernels_match_their_plain_versions_at_the_model_widths(dev, b
     _f32_layer_check(dev, bp, l, c, h, f, c if last else cin, cin, last, last, seed=c, nwg=nwg)
 
 
+# the f32 attention alone (a block per head of whole sequences, the scores of
+# whole rows on tf32 wgmma): the model shapes at an even and an odd bp, a
+# packed L = 16 tile with a ragged T = 48, two sequences of 24 a tile, a
+# window of two tiles (L = 72, dh = 8), on each warpgroup count (two take a
+# block of two tiles or more; one tile refuses them)
+@pytest.mark.parametrize("bp,l,c,h,f", [(4, 256, 144, 4, 288), (5, 256, 144, 4, 288),
+                                        (6, 64, 192, 4, 384), (7, 64, 192, 4, 384),
+                                        (8, 16, 240, 4, 480), (3, 16, 240, 4, 480),
+                                        (3, 24, 64, 2, 128), (3, 72, 40, 5, 88)])
+@pytest.mark.parametrize("nwg", [None, 1, 2])
+def test_f32_attention_matches_its_plain_version_on_each_plan(dev, bp, l, c, h, f, nwg):
+    ops = _layer_ops(dev, c, h, f, c, c, False, False, seed=l + c)
+    ops = dataclasses.replace(ops, **{k: getattr(ops, k).float() for k in (
+        "wq", "wk", "wv", "wo", "wi", "wo2")}, cache={})
+    x2 = torch.randn((bp * l, c), generator=torch.Generator(device=dev).manual_seed(bp + l),
+                     device=dev)
+    qkv = ftl.ln_qkv_plain(x2, ops)
+    if ftl.f32_attention_warpgroups(l, c // h, nwg) is None:
+        with pytest.raises(ValueError, match="takes 1 consumer warpgroup"):
+            ftl.attention_cuda(qkv, l, ops, _plan=nwg)
+        return
+    before = ftl.LAUNCHES["transformer_attention_f32"]
+    got, again = (ftl.attention_cuda(qkv, l, ops, _plan=nwg) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ftl.LAUNCHES["transformer_attention_f32"] == before + 2
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    _f32_close(got, ftl.attention_plain(qkv, l, ops))
+
+
 def test_f32_layer_kernels_refuse_what_they_do_not_take(dev):
     ops = _layer_ops(dev, 160, 2, 320, 160, 160, False, False, seed=1)
     ops = dataclasses.replace(ops, wq=ops.wq.float(), wi=ops.wi.float(), cache={})

@@ -285,17 +285,122 @@ def test_the_f32_operands_hold_each_product_in_the_kernels_order(bp, l, c, h, f,
     assert st.i == prep.wc.shape[0]
 
 
+def _attention_emulated(qkv, l, ops):
+    """The f32 attention kernel's arithmetic (``layer_attention_f32_kernel``)
+    in PyTorch: a block per head of a window of ``rows`` tokens (64 // L
+    sequences packed where L < 64), its scores over the window's keys
+    rounded up to 64, 128 or 256 (the array's next rows past the window,
+    zeros past T, as TMA reads them), q zero past dh; q, k, v and p split
+    as the kernel splits them (k and v are their own hi planes: the tensor
+    cores read an f32 word's top 11 significant bits), each k-step's three
+    products lo.hi + hi.lo + hi.hi; keys outside a row's sequence at -inf,
+    the true row max, p = 2^(s log2(e) - max log2(e)) (one f32 fma, then
+    exp2; below 2^-126 zero); the sum of p as a row's four
+    lanes add it (each lane its keys 8j + 2q, 8j + 2q + 1 in key order, then
+    two shuffles); P.v one 8-key k-step at a time in key order, each step's
+    sum added to the f32 accumulator (the chain of NK / 8 k-steps); ctx =
+    acc * (1 / sum)."""
+    c, h, dh, dhp = ftl._dims(ops)
+    t = qkv.shape[0]
+    rows, nk, ks, _ = ftl.f32_attention_block(l, dh)
+    nb = -(-t // rows)
+    arr = torch.zeros((nb * rows + nk, 3, h, dhp))
+    arr[:t] = qkv.reshape(t, 3, h, dhp)
+    win = arr[torch.arange(nb)[:, None] * rows + torch.arange(nk)]      # (nb, nk, 3, h, dhp)
+    q = win[:, :, 0, :, :8 * ks].clone()
+    q[..., dh:] = 0.0
+    qh, ql = (x.double() for x in _split_rz(q))
+    kh, kl = (x.double() for x in _split_rz(win[:, :, 1, :, :8 * ks]))
+
+    def dot(a, b):   # (nb, i, h, d) . (nb, j, h, d) -> (nb, h, i, j)
+        return torch.einsum("bihd,bjhd->bhij", a, b)
+
+    s = (dot(ql, kh) + dot(qh, kl) + dot(qh, kh)).float()
+    i = torch.arange(nk)
+    lo = i // l * l
+    R = (t - torch.arange(nb) * rows).clamp(max=rows)
+    hi = torch.minimum(lo[None] + l, R[:, None])                       # (nb, nk) by row
+    keep = (i[None, None] >= lo[None, :, None]) & (i[None, None] < hi[:, :, None])
+    s = torch.where(keep[:, None], s, torch.tensor(-float("inf")))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m == -float("inf"), torch.zeros(()), m)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    ml2 = m * log2e
+    p = torch.exp2((s.double() * log2e.double() - ml2.double()).float())
+    p = torch.where(p < 2.0 ** -126, torch.zeros(()), p)
+    lanes = (p[..., 0::2] + p[..., 1::2]).reshape(*p.shape[:-1], nk // 8, 4)
+    d = torch.zeros(lanes.shape[:-2] + (4,))
+    for j in range(nk // 8):
+        d = d + lanes[..., j, :]
+    den = (d[..., 0] + d[..., 1]) + (d[..., 2] + d[..., 3])
+    ph, pl = (x.double() for x in _split_rz(p))
+    vh, vl = (x.double().transpose(1, 2) for x in _split_rz(win[:, :, 2]))   # (nb, h, nk, dhp)
+    acc = torch.zeros(p.shape[:-1] + (dhp,))
+    for j in range(nk // 8):
+        k8 = slice(8 * j, 8 * j + 8)
+        step = pl[..., k8] @ vh[:, :, k8] + ph[..., k8] @ vl[:, :, k8] + ph[..., k8] @ vh[:, :, k8]
+        acc = (acc.double() + step).float()
+    ctx = acc * (1.0 / den)[..., None]                                  # (nb, h, nk, dhp)
+    return ctx[:, :, :rows].transpose(1, 2).reshape(nb * rows, h, dhp)[:t, :, :dh].reshape(t, c)
+
+
+# the three model shapes (dh = 36, 48, 60; 256 keys, one 64-row tile, four
+# sequences packed into a tile), a packed L = 16 tile with a ragged T = 48,
+# two sequences of 24 in a tile, and a window of two tiles (L = 72, dh = 8)
+ATTN_CASES = [(2, 256, 144, 4, 288), (3, 64, 192, 4, 384), (8, 16, 240, 4, 480),
+              (3, 16, 240, 4, 480), (3, 24, 64, 2, 128), (2, 72, 40, 5, 88)]
+
+
+@pytest.mark.parametrize("bp,l,c,h,f", ATTN_CASES)
+def test_the_f32_attention_kernels_arithmetic_meets_its_plain_version(bp, l, c, h, f):
+    """The attention kernel's arithmetic emulated (whole-row scores, the
+    true max, the splits, P.v's chain in the kernel's order) on ln_qkv_plain's
+    array meets attention_plain within 1e-5 of the largest value (the card
+    tests' and chip_smoke's LAYER_F32_REL)."""
+    _, _, ops = _ops(c, h, f, c, c, False, False, None, seed=l + c)
+    x = T(np.random.default_rng(l).standard_normal((bp * l, c)))
+    qkv = ftl.ln_qkv_plain(x, ops)
+    want = ftl.attention_plain(qkv, l, ops)
+    got = _attention_emulated(qkv, l, ops)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,l,c,h,f,cin,cout,flags", [
+    (1, 256, 144, 4, 288, 96, 96, (True, False, None)),
+    (2, 64, 192, 4, 384, 128, 128, (False, True, "silu")),
+    (3, 16, 240, 4, 480, 160, 160, (True, True, "silu"))])
+def test_the_f32_attention_kernels_arithmetic_holds_the_layer_to_the_jax_kernel(
+        b, l, c, h, f, cin, cout, flags):
+    """ln_qkv_plain, the attention kernel's emulated arithmetic and
+    proj_ffn_plain chained meet the JAX package's Pallas layer at f32 in
+    interpret mode within the file's TOL (at L = 16 a tile of three
+    sequences: T = 48)."""
+    rng = np.random.default_rng(c + 1)
+    jl, tl = _layers(_arrays(c, h, f, rng), h)
+    jkw, tkw = _options(rng, c, cin, cout, *flags)
+    x = rng.standard_normal((b, l, cin if flags[0] else c)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda xb: jlayer(jl, xb, compute_dtype=jnp.float32,
+                                                interpret=True, **jkw))(jnp.asarray(x)))
+    ops = ftl.layer_operands(tl, c, F32, **tkw)
+    x2 = T(x).reshape(b * l, -1)
+    got = ftl.proj_ffn_plain(x2, _attention_emulated(ftl.ln_qkv_plain(x2, ops), l, ops), ops)
+    got = got.reshape(want.shape).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL * np.abs(want).max(), rtol=0)
+
+
 def test_the_smem_reckoning_takes_the_model_widths():
     """Each f32 kernel's block at the model's widths fits an H100's 227 KB
-    with the plan the wrapper takes at B = 128 (two consumer warpgroups at
-    T = 131072 and 32768, one at 8192; ring buffers as many as fit, up to
-    4, at least 2; two warpgroups forced where both kernels' blocks fit,
-    not at C = 240); C-wide products in 2 x 72, 2 x 96 and 3 x 80 columns;
-    a head past 64, C past 240 or k and v past shared memory are not
-    taken."""
-    plans = {(144, False): ((2, 3), (2, 3)), (144, True): ((2, 3), (2, 3)),
-             (192, False): ((2, 3), (2, 3)), (192, True): ((2, 3), (2, 2)),
-             (240, False): ((1, 4), (1, 4)), (240, True): ((1, 4), (1, 4))}
+    with the plan the wrapper takes at B = 128 (the row tiles on two
+    consumer warpgroups at T = 131072 and 32768, one at 8192; ring buffers
+    as many as fit, up to 4, at least 2; two warpgroups forced where both
+    kernels' blocks fit, not at C = 240; the attention on two warpgroups
+    where its block has four 64-row tiles, L = 256, one where it has one);
+    C-wide products in 2 x 72, 2 x 96 and 3 x 80 columns; a head past 64, C
+    past 240, L past 256 or k and v past shared memory are not taken."""
+    plans = {(144, False): ((2, 3), 2, (2, 3)), (144, True): ((2, 3), 2, (2, 3)),
+             (192, False): ((2, 3), 1, (2, 3)), (192, True): ((2, 3), 1, (2, 2)),
+             (240, False): ((1, 4), 1, (1, 4)), (240, True): ((1, 4), 1, (1, 4))}
     for l, c, cin, f, t, chunks in ((256, 144, 96, 288, 131072, (2, 72)),
                                     (64, 192, 128, 384, 32768, (2, 96)),
                                     (16, 240, 160, 480, 8192, (3, 80))):
@@ -315,17 +420,28 @@ def test_the_smem_reckoning_takes_the_model_widths():
     # units) + the q/k/v biases and column table + barriers + ring buffers
     # of 144 x 256 bytes; proj_ffn: x's (or h1's) boxes and ctx's + six
     # C-wide vectors, bi, the BN's scale and bias + barriers + buffers of
-    # max(w, 96) x 256; attention as before
-    assert ftl.layer_f32_smem(16, 240, 240, 4, 480, False, ((1, 4), (1, 4)), 160) == (
+    # max(w, 96) x 256; attention: 1024 + k (32 bytes a key and k-step) +
+    # v's staging (then k's lo), v^T's raw and lo planes (4 bytes a key and
+    # padded column each) + a 64-row q tile a warpgroup + three barriers
+    assert ftl.layer_f32_smem(16, 240, 240, 4, 480, False, ((1, 4), 1, (1, 4)), 160) == (
         1024 + 8 * 8192 + 4 * (2 * 240 + 2 * 5 * 144) + 8 * 14 + 4 * 36864,
-        8 * 2 * 16 * 68 * 4,
+        1024 + 32 * 64 * 8 + 3 * 4 * 64 * 64 + 64 * 32 * 8 + 24,
         1024 + (3 + 8) * 8192 + 4 * (6 * 240 + 5 * 96 + 2 * 2 * 80) + 8 * 16 + 4 * 24576)
-    assert ftl.layer_f32_smem(256, 96, 144, 4, 288, True)[1] == 2 * 256 * 44 * 4
+    assert ftl.layer_f32_smem(256, 96, 144, 4, 288, True, ((2, 3), 2, (2, 3)))[1] == (
+        1024 + 32 * 256 * 5 + 3 * 4 * 256 * 48 + 2 * 64 * 32 * 5 + 24)
+    assert ftl.f32_attention_block(256, 36) == (256, 256, 5, 4)
+    assert ftl.f32_attention_block(16, 60) == (64, 64, 8, 1)
+    assert ftl.f32_attention_block(24, 64) == (48, 64, 8, 1)
+    assert ftl.f32_attention_block(72, 8) == (72, 128, 1, 2)
+    assert [ftl.f32_attention_warpgroups(l, 36, w) for l in (256, 64, 16)
+            for w in (None, 1, 2)] == [2, 1, 2, 1, 1, None, 1, 1, None]
+    assert not ftl.f32_layer_takes(320, 144, 144, 4, 288, in_proj=False, limit=232448)
+    assert not ftl.f32_layer_takes(256, 256, 256, 4, 512, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(16, 160, 160, 2, 320, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(1024, 64, 64, 1, 128, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(16, 288, 288, 4, 576, in_proj=False, limit=232448)
     assert ftl.f32_layer_plan(128, 16, 48, 48, 4, 96, in_proj=False, limit=232448, sms=132) == (
-        (1, 4), (1, 4))
+        (1, 4), 1, (1, 4))
 
 
 @pytest.mark.parametrize("c,cin,in_proj,takes", [
@@ -346,6 +462,20 @@ def test_the_f32_gate_turns_away_what_the_row_tiles_do_not_take(c, cin, in_proj,
         _, _, ops = _ops(c, h, 2 * c, cin, c, in_proj, False, None, seed=2)
         with pytest.raises(ValueError, match="not a layer the f32 kernels take"):
             ftl.fused_layer_cuda(torch.zeros((1, 16, cin)), ops)
+
+
+@pytest.mark.parametrize("l,takes", [(256, True), (264, False), (512, False)])
+def test_the_f32_gate_turns_away_sequences_past_256_keys(l, takes):
+    """The attention keeps the scores of a row's keys in registers, 256 at
+    most: ``f32_layer_takes`` and the model's route say so from the shape
+    before any launch, so such a layer keeps the unfused chain with flash
+    attention on the card; the wrappers refuse it."""
+    assert ftl.f32_layer_takes(l, 48, 48, 4, 96, in_proj=False, limit=232448) == takes
+    assert _route_layer().fused_route(F32, torch.device("cuda"), l) == takes
+    if not takes:
+        _, _, ops = _ops(48, 4, 96, 48, 48, False, False, None, seed=2)
+        with pytest.raises(ValueError, match="L up to 256"):
+            ftl.fused_layer_cuda(torch.zeros((1, l, 48)), ops)
 
 
 def _route_layer(c=48, h=4, f=96, fused=True):
@@ -464,13 +594,34 @@ def test_the_f32_kernel_symbols_are_their_launch_counters():
     anon = "(anonymous namespace)::"
     symbols = {
         f"void {anon}layer_ln_qkv_f32_kernel<3>({anon}RowF32Params)": "transformer_ln_qkv_f32",
-        f"void {anon}layer_attention_f32_kernel<5>(LayerF32Args, {anon}AttnPlan)":
+        f"void {anon}layer_attention_f32_kernel<256, 5>({anon}AttnF32Params)":
             "transformer_attention_f32",
         f"void {anon}layer_proj_ffn_f32_kernel<5>({anon}RowF32Params)": "transformer_proj_ffn_f32",
         f"void {anon}layer_ln_qkv_kernel<3, 2>({anon}QkvParams)": "transformer_ln_qkv"}
     for sym, name in symbols.items():
         assert kernel_name(sym) == name, sym
     assert set(symbols.values()) <= set(port.kernel_launches())
+
+
+def test_the_attention_split_toggles_each_find_one_line_of_the_kernel():
+    """``tools/torch_kernel_bench.py --only attention_f32 --split-step``
+    switches parts of the f32 attention off by replacing source lines: each
+    line it looks for is in ``csrc/transformer_layer_f32.cu`` once."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_bench", os.path.join(root, "tools", "torch_kernel_bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    with open(os.path.join(root, "ggml_experiments_tpu_torch", "csrc",
+                           "transformer_layer_f32.cu")) as f:
+        src = f.read()
+    for macro, old, _ in bench.ATTN_F32_SPLIT_TOGGLES:
+        assert src.count(old) == 1, macro
+    assert {m for m, _, _ in bench.ATTN_F32_SPLIT_TOGGLES} == set(
+        bench.ATTN_F32_SPLIT_VARIANTS[1:])
 
 
 def test_the_layer_bound_is_its_kernels_work():

@@ -6,7 +6,7 @@ computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -74,7 +74,13 @@ same shapes: the layer and each kernel beside the 3xTF32 bound,
 B=128 with the f32 route on and off. ``--sweep`` times each ring depth of the row-tile kernels;
 ``--split-step`` builds copies of ``csrc/transformer_layer.cu`` with the
 products, the global stores or the weight stream off and times each kernel
-of a middle layer of each stage beside the unchanged source.
+of a middle layer of each stage beside the unchanged source. ``--only
+attention_f32 --split-step`` builds copies of
+``csrc/transformer_layer_f32.cu`` whose attention has one part off or
+changed (two of q.k^T's or of P.v's three products a k-step, the
+transposing pass, the ctx stores, expf for the exponent, the warpgroups in
+step, the key mask on every score) and times each at the three stages
+(CUDA graphs) beside the unchanged source, which runs first and last.
 
 The inverted residual (``ir``) runs at B=128 on seeded random weights at
 the main path's shape (64 x 64, 64 -> 256 -> 64, residual) and a
@@ -865,6 +871,68 @@ def layer_split_cells():
     return rows
 
 
+# copies of csrc/transformer_layer_f32.cu's attention with one part off or
+# changed (--split-step with attention_f32): q.k^T, or P.v, on one of its
+# three products a k-step (its cost is then 2/3 of the difference); the
+# transposing pass and k's lo off; the ctx stores off (the compiler then also
+# drops the row sums); the exponent as expf(s - max); the two warpgroups in
+# step (no offset of the second's first q.k^T); the key mask on every score
+ATTN_F32_SPLIT_TOGGLES = (
+    ("ATT_S_ONE", "        wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kl), 1);\n"
+                  "        wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);\n",
+     "        if (!ATT_S_ONE) {\n          wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kl), 1);\n"
+     "          wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);\n        }\n"),
+    ("ATT_PV_ONE", "        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
+                   "        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n",
+     "        if (!ATT_PV_ONE) {\n          wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
+     "          wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n        }\n"),
+    ("ATT_NO_PREP", "for (int i = warp; i < DN / 2; i += 4 * nwg) {",
+     "for (int i = warp; i < (ATT_NO_PREP ? 0 : DN / 2); i += 4 * nwg) {"),
+    ("ATT_NO_PREP", "for (int i = tid; i < KS * NK * 2; i += nthreads) {",
+     "for (int i = tid; i < (ATT_NO_PREP ? 0 : KS * NK * 2); i += nthreads) {"),
+    ("ATT_NO_STORE", "        if (r >= R) continue;\n        float* dst",
+     "        if (r >= R || ATT_NO_STORE) continue;\n        float* dst"),
+    ("ATT_EXPF", "s[4 * j + i] = exp_shift(s[4 * j + i], ml2[i >> 1]);",
+     "s[4 * j + i] = ATT_EXPF ? expf(__fsub_rn(s[4 * j + i], m[i >> 1]))\n"
+     "                                             : exp_shift(s[4 * j + i], ml2[i >> 1]);"),
+    ("ATT_LOCKSTEP", "if (t == 1 && nwg == 2) asm", "if (t == 1 && nwg == 2 && !ATT_LOCKSTEP) asm"),
+    ("ATT_LOCKSTEP", "if (t == 0 && nwg == 2) asm", "if (t == 0 && nwg == 2 && !ATT_LOCKSTEP) asm"),
+    ("ATT_MASK_ALWAYS", "        if (lo > 0 || hi < NK) {",
+     "        if (lo > 0 || hi < NK || ATT_MASK_ALWAYS) {"),
+)
+ATTN_F32_SPLIT_VARIANTS = ("", "ATT_S_ONE", "ATT_PV_ONE", "ATT_NO_PREP", "ATT_NO_STORE",
+                           "ATT_EXPF", "ATT_LOCKSTEP", "ATT_MASK_ALWAYS")
+
+
+def attention_f32_split_cells():
+    """The f32 attention at each stage's shape (B=128, CUDA graphs) with one
+    part off or changed, beside the unchanged source, in turns: what a part
+    costs is the difference."""
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    libs = _toggled_libs("transformer_layer_f32", ATTN_F32_SPLIT_TOGGLES,
+                         ATTN_F32_SPLIT_VARIANTS)
+    dev = torch.device("cuda")
+    rows = []
+    saved = list(ftl._F32_LIB)
+    try:
+        for l, cin, c, h, f, n in LAYER_STAGES:
+            ops = _layer_ops(ftl, dev, c, h, f, c, False, seed=l, dtype=torch.float32)
+            x2 = torch.randn((LAYER_BP * l, c), generator=torch.Generator(device=dev)
+                             .manual_seed(l), device=dev)
+            qkv = ftl.ln_qkv_plain(x2, ops)
+            row = {"cell": "split_step_attention_f32", "L": l, "C": c, "attention": {}}
+            for v in ATTN_F32_SPLIT_VARIANTS + ("",):
+                ftl._F32_LIB[:] = [ftl.bind_f32(libs[v])]
+                row["attention"].setdefault(v or "all on", []).append(
+                    graph_ms(lambda: ftl.attention_cuda(qkv, l, ops)))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        ftl._F32_LIB[:] = saved
+    return rows
+
+
 # the inverted residual at B=128: MobileViT-small's layer_2 blocks 1-2 (the
 # main path, with the residual) and a layer_1-like block (128 x 128, 16 ->
 # 32, E=64, no residual; the model runs that one unfused, E < 128)
@@ -1052,7 +1120,8 @@ def main() -> int:
              ("train", "split_step_train", train_split_cells),
              ("ir", "ir", lambda: ir_cells(args.sweep)),
              ("layer", "split_step_layer", layer_split_cells),
-             ("ir", "split_step_ir", ir_split_cells))
+             ("ir", "split_step_ir", ir_split_cells),
+             ("attention_f32", "split_step_attention_f32", attention_f32_split_cells))
     for kernel, key, fn in cells:
         if kernel not in only or (key.startswith("split_step") and not args.split_step):
             continue
