@@ -248,6 +248,23 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      at f32, B = 8, 32, 128, with the f32 route on and off in turns (its
      launches counted: the three kernels a layer and no flash, or flash a
      layer), the features of the two within VIT_CPU_FEATURE_REL.
+ 29. the examples and the three tools through their entry points, launch
+     counts zeroed before each run and read after it: in process,
+     ``examples/torch_generate_text.py`` (q8_0, bf16, 200 steps; its texts the
+     port's own ``generate``), ``torch_serve_continuous.py`` (32 slots x 16
+     inner steps on the fused tick; its texts the offline decode),
+     ``torch_train_and_export.py`` (``shakespeare_train.txt``, EXAMPLE_EPOCHS
+     epochs at f32 on the f32 train pair; the exported ``gru.bin`` generates),
+     ``torch_extract_features.py`` (``mobilevit_synth_full.ggml``, q8_0, bf16:
+     the fused layer and both inverted-residual kernels; shape (1, 8, 8,
+     640)), ``torch_multichip.py`` (a (1, 1) mesh, a finite loss), then
+     ``torch_extract_features.py`` as a command of its own; the golden check's
+     ``features_from_named`` at 256 px on the card against the CPU, within
+     VIT_CPU_FEATURE_REL; ``tools/torch_train_mobilevit_cls.py --eval-only``
+     on the tiny and the full checkpoint, held to the margins of
+     ``tests/test_trained_classifier.py``, its f32 argmax against the CPU's
+     under the near-tie rule; the tool's ``train()`` for CLS_TRAIN's steps
+     into a temporary file; ``checkpoints/`` byte for byte unchanged.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -500,6 +517,11 @@ LAYER_F32_REL = 1e-5
 LAYER_F32_BATCHES = (8, 32, 128)     # extract_features at f32, the route on and off
 F32_LAYER_KERNELS = ("transformer_ln_qkv_f32", "transformer_attention_f32",
                      "transformer_proj_ffn_f32")
+# phase 29: the examples and the three tools, each through its entry point
+EXAMPLE_PROMPTS = ("ROMEO: ", "JULIET: ")
+EXAMPLE_EPOCHS = 2                   # torch_train_and_export: 5 steps of 64 an epoch
+CLS_CPU_IMAGES = {False: 500, True: 32}   # held-out images whose f32 argmax the CPU checks
+CLS_TRAIN = dict(n_train=400, steps=30, batch=50)   # the classifier tool's train(), tiny
 
 
 class SmokeFailure(AssertionError):
@@ -5052,6 +5074,246 @@ def layer_f32_phase(tag, dev, images):
     return tot
 
 
+# ---- phase 29: the examples and the three tools ------------------------------------------
+
+
+def example_module(name):
+    """``examples/<name>.py`` loaded as a module (the examples are scripts, not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def checkpoint_digests():
+    """sha256 of every file under ``checkpoints/``."""
+    import hashlib
+
+    out = {}
+    for root, _, names in os.walk(os.path.join(REPO, "checkpoints")):
+        for n in names:
+            path = os.path.join(root, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, REPO)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def counted_run(tag, what, fn):
+    """``fn()`` with the launch counters zeroed before it and read after it,
+    its standard output captured. Returns (its result, the printed text, the
+    nonzero launches, seconds)."""
+    import io
+
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+
+    buf = io.StringIO()
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in port.kernel_launches().items() if v}
+    log(f"[{tag}] {what}: {sec:.2f} s | launches {launches}")
+    return result, buf.getvalue(), launches, sec
+
+
+def cls_report_checks(tag, what, rep):
+    """tests/test_trained_classifier.py's margins on a report of
+    ``tools/torch_train_mobilevit_cls.py``."""
+    check(0.85 <= rep["top1_f32"] <= 0.985, f"{tag}: {what}: f32 top-1 {rep['top1_f32']}")
+    check(rep["agreement_q8_0"] >= 0.99 and rep["dtop1_q8_0"] <= 0.009,
+          f"{tag}: {what}: q8_0 agreement {rep['agreement_q8_0']}, dtop1 {rep['dtop1_q8_0']}")
+    check(rep["agreement_q4_0"] >= 0.85 and rep["dtop1_q4_0"] <= 0.10,
+          f"{tag}: {what}: q4_0 agreement {rep['agreement_q4_0']}, dtop1 {rep['dtop1_q4_0']}")
+    rel8, rel4 = rep["rel_logit_rmse_q8_0"], rep["rel_logit_rmse_q4_0"]
+    check(rel8 < 0.02 and rel4 < 0.15 and rel8 < rel4,
+          f"{tag}: {what}: relative logit RMSE q8_0 {rel8}, q4_0 {rel4}")
+    check(rep["agreement_q8_0"] >= rep["agreement_q5_1"] >= rep["agreement_q4_0"] >= 0.80,
+          f"{tag}: {what}: agreement q8_0 {rep['agreement_q8_0']}, q5_1 "
+          f"{rep['agreement_q5_1']}, q4_0 {rep['agreement_q4_0']}")
+
+
+def examples_phase(tag, dev):
+    """Phase 29: the five ``examples/torch_*.py`` and the three tools on the
+    card, each through its entry point, launches counted by run;
+    ``checkpoints/`` byte for byte unchanged at the end."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.formats.ggml_named import read_named_tensors
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_any, load_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.models.mobilevit import load_mobilevit
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+    from tools import torch_train_mobilevit_cls as cls_tool
+    from tools import torch_verify_reference_golden as golden
+
+    t_phase = time.perf_counter()
+    digests = checkpoint_digests()
+    tok = CharTokenizer()
+    bf16 = torch.bfloat16
+    runs = {}
+
+    # torch_generate_text: q8_0, 200 greedy bf16 steps (the scan path's qmatmul)
+    ex = example_module("torch_generate_text")
+    _, out, launches, sec = counted_run(tag, "examples/torch_generate_text.py (q8_0, bf16, 200 "
+                                          "steps)", lambda: ex.main(CKPT, *EXAMPLE_PROMPTS))
+    check(launches.get("qmatmul_q8_0", 0) > 0, f"{tag}: generate_text launched no qmatmul")
+    params = load_gru_any(CKPT, qtype="q8_0", device=dev)
+    want = ex.generate_texts(params, EXAMPLE_PROMPTS)
+    check(out == "".join(t + "\n--------\n" for t in want),
+          f"{tag}: generate_text's texts differ from the port's own generate: {out[:300]!r}")
+    runs["torch_generate_text"] = dict(s=sec, launches=launches)
+
+    # torch_serve_continuous: 32 slots x 16 inner steps, the fused tick
+    ex = example_module("torch_serve_continuous")
+    _, out, launches, sec = counted_run(tag, "examples/torch_serve_continuous.py (32 slots x 16)",
+                                     lambda: ex.main(CKPT))
+    check(launches.get("fused_slot_tick", 0) > 0, f"{tag}: serve_continuous took the scan tick")
+    texts = out.split("\n--------\n")[:-1]
+    prompts = [np.asarray(tok.encode(p), np.int32) for p in ex.PROMPTS]
+    ids, lens = pad_batch(prompts, ex.MAX_PROMPT)
+    offline = fused.fused_gru_decode(params, ids, lens, ex.MAX_PROMPT + ex.MAX_NEW_TOKENS,
+                                     compute_dtype=bf16).cpu()
+    check(len(texts) == len(prompts) and all(
+        t == tok.decode(offline[i, :p.size + ex.MAX_NEW_TOKENS].tolist())
+        for i, (t, p) in enumerate(zip(texts, prompts))),
+        f"{tag}: serve_continuous's texts differ from the offline decode: {out[:300]!r}")
+    log(f"[{tag}]   {out.splitlines()[-1]} | texts equal to the offline decode")
+    runs["torch_serve_continuous"] = dict(s=sec, launches=launches)
+    del params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # torch_train_and_export: train-gru's default f32 model on the Shakespeare split
+        ex = example_module("torch_train_and_export")
+        gru = os.path.join(tmp, "gru.bin")
+        _, out, launches, sec = counted_run(
+            tag, f"examples/torch_train_and_export.py shakespeare_train.txt, "
+                 f"{EXAMPLE_EPOCHS} epochs (f32)",
+            lambda: ex.main(SHAKE_TRAIN, gru, str(EXAMPLE_EPOCHS)))
+        for name in ("fused_gru_train_fwd_f32", "fused_gru_train_bwd_f32",
+                     "fused_gru_train_dwr_f32"):
+            check(launches.get(name, 0) > 0, f"{tag}: train_and_export launched no {name}")
+        loss = float(out.strip().splitlines()[-1].split()[2].rstrip(";"))
+        check(math.isfinite(loss) and os.path.exists(gru + ".best.gxt"),
+              f"{tag}: train_and_export: {out!r}")
+        back = load_gru_params(gru, device=dev)
+        gen = gru_textgen.generate(back, *pad_batch([np.asarray(tok.encode("ROMEO: "), np.int32)],
+                                                    7), 64)
+        check(gen.shape == (1, 64) and int(gen.max()) < 66, f"{tag}: exported gru.bin generates "
+                                                            f"{gen.shape}")
+        log(f"[{tag}]   {out.strip().splitlines()[-1]} | gru.bin read back: {tok.decode(gen[0].tolist())!r}")
+        runs["torch_train_and_export"] = dict(s=sec, launches=launches, final_loss=loss)
+        del back
+
+        # torch_extract_features: q8_0 dense kernels, bf16 on the default routes
+        ex = example_module("torch_extract_features")
+        _, out, launches, sec = counted_run(tag, "examples/torch_extract_features.py "
+                                              "mobilevit_synth_full.ggml (q8_0, bf16)",
+                                         lambda: ex.main(VIT_CKPT))
+        check(out.splitlines()[0] == "feature shape: (1, 8, 8, 640)",
+              f"{tag}: extract_features printed {out!r}")
+        for name in ("fused_transformer_layer", "fused_inverted_residual",
+                     "inverted_residual_s2"):
+            check(launches.get(name, 0) > 0, f"{tag}: extract_features launched no {name}")
+        log(f"[{tag}]   {' | '.join(out.splitlines())}")
+        runs["torch_extract_features"] = dict(s=sec, launches=launches)
+
+        # torch_multichip: one process, a (1, 1) mesh
+        ex = example_module("torch_multichip")
+        _, out, launches, sec = counted_run(tag, "examples/torch_multichip.py (one rank)", ex.main)
+        lines = out.splitlines()
+        check(lines[0] == "1 devices, mesh {'data': 1, 'model': 1}"
+              and math.isfinite(float(lines[2].split(": ")[1]))
+              and lines[3] == "sharded decode: (8, 32)", f"{tag}: multichip printed {out!r}")
+        log(f"[{tag}]   {' | '.join(lines)}")
+        runs["torch_multichip"] = dict(s=sec, launches=launches)
+
+        # one example as a command, in a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "examples/torch_extract_features.py", VIT_CKPT],
+                              cwd=REPO, capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+        check(proc.returncode == 0 and proc.stdout.startswith("feature shape: (1, 8, 8, 640)"),
+              f"{tag}: examples/torch_extract_features.py as a command: rc {proc.returncode}\n"
+              f"{proc.stdout[-500:]}{proc.stderr[-2000:]}")
+        log(f"[{tag}] python3 examples/torch_extract_features.py as a command: "
+            f"{time.perf_counter() - t0:.1f} s | {' | '.join(proc.stdout.splitlines())}")
+
+        # the golden check's helper: card against CPU, f32 at 256 px
+        named = read_named_tensors(VIT_CKPT)
+        card, _, launches, sec = counted_run(
+            tag, "tools/torch_verify_reference_golden.py features_from_named "
+                 "(mobilevit_synth_full.ggml, 256 px, f16 convolutions, f32)",
+            lambda: golden.features_from_named(named, device=dev))
+        cpu = golden.features_from_named(named, device="cpu")
+        rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        check(card.shape == cpu.shape == (8, 8, 640) and rel <= VIT_CPU_FEATURE_REL,
+              f"{tag}: golden features on the card {card.shape}, {rel:.3g} of the largest "
+              f"from the CPU's")
+        log(f"[{tag}]   features {card.shape}, against the CPU's: max abs err {rel:.3g} of the "
+            f"largest (limit {VIT_CPU_FEATURE_REL}) | first 5 {np.round(card[0, 0, :5], 5)}")
+        runs["golden_helper"] = dict(s=sec, launches=launches, rel_err_vs_cpu=rel)
+        del named
+
+        # the classifier tool's report on the committed tiny and full checkpoints
+        for full in (False, True):
+            name = "mobilevit_synth_full.ggml" if full else "mobilevit_synth.ggml"
+            argv = ["--eval-only"] + (["--full"] if full else [])
+            rc, out, launches, sec = counted_run(
+                tag, f"tools/torch_train_mobilevit_cls.py {' '.join(argv)} ({name})",
+                lambda: cls_tool.main(argv))
+            check(rc == 0, f"{tag}: tools/torch_train_mobilevit_cls.py {argv} returned {rc}")
+            rep = json.loads(out[out.index("{"):])
+            cls_report_checks(tag, name, rep)
+            for k in ("transformer_ln_qkv_f32", "transformer_ln_qkv", "fused_inverted_residual"):
+                check(launches.get(k, 0) > 0, f"{tag}: the report on {name} launched no {k}")
+            log(f"[{tag}]   {json.dumps(rep)}")
+            # the card's f32 argmax against the CPU's under the near-tie rule
+            s = cls_tool.setting(full)
+            x, _ = cls_tool.heldout(s, CLS_CPU_IMAGES[full])
+            got = cls_tool.logits_of(load_mobilevit(cls_tool.COMMITTED[full], config=s["config"],
+                                                    device=dev), x)
+            want = cls_tool.logits_of(load_mobilevit(cls_tool.COMMITTED[full],
+                                                     config=s["config"], device="cpu"), x)
+            agree, flips = argmax_near_ties(f"{tag}: {name} f32 card vs cpu", torch.from_numpy(got),
+                                            torch.from_numpy(want), NEAR_TIE["float32"])
+            log(f"[{tag}]   f32 argmax of {len(x)} images against the CPU's: agreement "
+                f"{agree:.4f} ({flips} flips, at near-ties)")
+            runs[f"cls_report_{'full' if full else 'tiny'}"] = dict(s=sec, launches=launches,
+                                                                    report=rep)
+
+        # a short tiny training through the tool's train(), into a temporary path
+        s = dict(cls_tool.setting(False), **CLS_TRAIN)
+        path = os.path.join(tmp, "mobilevit_synth.ggml")
+        msgs = []
+        loss, _, launches, sec = counted_run(
+            tag, f"tools/torch_train_mobilevit_cls.py train() tiny, {CLS_TRAIN}",
+            lambda: cls_tool.train(s, path, device=dev, log=msgs.append))
+        p = load_mobilevit(path, config=s["config"], device=dev)
+        x, y = cls_tool.heldout(s, 100)
+        top1 = float((cls_tool.logits_of(p, x).argmax(-1) == y).mean())
+        check(math.isfinite(loss) and os.path.getsize(path) > 0,
+              f"{tag}: the tiny training: loss {loss}")
+        log(f"[{tag}]   {msgs[-1]} | {sec:.2f} s for the call (the data, "
+            f"{CLS_TRAIN['steps']} steps from the seeded init, the write) | top-1 of 100 "
+            f"held-out images {top1:.2f}")
+        runs["cls_train_tiny"] = dict(s=sec, launches=launches, final_loss=loss)
+
+    check(checkpoint_digests() == digests, f"{tag}: checkpoints/ changed")
+    log(f"[{tag}] checkpoints/: {len(digests)} files byte for byte unchanged | phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"[{tag}] " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'report'}
+                                  for k, v in runs.items()}))
+    return runs
+
+
 def request_key(prompt_ids, max_new):
     """A request's identity across an engine restore (queued requests are
     renumbered there, so ids do not carry over)."""
@@ -5404,6 +5666,10 @@ def main() -> int:
             if key == name:
                 kernels[name]["aot_launches"] = n
 
+    # ---- 29. the examples and the three tools ------------------------------------------------
+    torch.cuda.empty_cache()
+    example_runs = examples_phase("29 examples and tools", dev)
+
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
     qmm_at = "ggml_experiments_tpu/quant/pallas_kernels.py:253"
@@ -5462,6 +5728,10 @@ def main() -> int:
             entry["shapes"] = kd["shapes"]
         if "graph_ms" in kd:        # the f32 and stride-2 blocks: a CUDA graph's time a call
             entry["graph_ms"] = kd["graph_ms"]
+        on_examples = {run: r["launches"][name] for run, r in example_runs.items()
+                       if r["launches"].get(name)}
+        if on_examples:             # phase 29: the launches of each example and tool run
+            entry["example_launches"] = on_examples
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

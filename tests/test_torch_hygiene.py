@@ -94,8 +94,13 @@ def test_a_layer_imports_nothing_above_it(layer, above, calls):
 
 
 def test_no_source_mentions_jax_or_the_jax_package():
-    """No source of the port imports jax, optax or the JAX package."""
+    """No source of the port imports jax, optax or the JAX package: the
+    package, ``chip_smoke.py`` and the port's tools and examples
+    (``tools/torch_*.py``, ``examples/torch_*.py``)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
+    for sub in ("tools", "examples"):
+        files += sorted(os.path.join(REPO, sub, n) for n in os.listdir(os.path.join(REPO, sub))
+                        if n.startswith("torch_") and n.endswith(".py"))
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
@@ -108,6 +113,10 @@ def test_no_source_mentions_jax_or_the_jax_package():
                         or "ggml_experiments_tpu." in line):
                     hits.append(f"{path}:{n}: {line.strip()}")
     assert len(files) > 15 and not hits, hits
+    assert {os.path.basename(f) for f in files} >= {
+        "torch_convert_hf_mobilevit.py", "torch_verify_reference_golden.py",
+        "torch_train_mobilevit_cls.py", "torch_generate_text.py", "torch_serve_continuous.py",
+        "torch_train_and_export.py", "torch_extract_features.py", "torch_multichip.py"}
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
