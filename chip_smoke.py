@@ -101,7 +101,7 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      kernel does not take) at E=384, two launches bit-equal; the fused
      layer's per-sequence kernel
      (``csrc/transformer_layer_seq.cu``, its route past the row-tile kernels)
-     at C=320 and at L=640, every flag on;
+     at C=320 and at C=384, every flag on;
  14. MobileViT through the entry points on
      ``checkpoints/mobilevit_synth_full.ggml`` (256 px, hidden 144/192/240,
      2/4/3 layers, 44 labels): ``classify`` of 320 held-out images of the
@@ -200,11 +200,12 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      graph's replay a call), the plain version and the cuDNN f32 chain
      timed, the tile logged;
  24. AOT artifacts through the CLI: ``aot-export --model gru`` of
-     ``gru_shakespeare.bin`` at q8_0 with the CLI's defaults (batch 8,
-     prompt 50, 200 steps) and ``aot-run``, whose text and the artifact's
-     tokens on params an eager call has used are equal to eager
-     ``generate``'s, 200 qmatmul launches; ``aot-export --model mobilevit``
-     of ``mobilevit_synth_full.ggml`` (256 px, batch 8) and ``aot-run``,
+     ``gru_shakespeare.bin`` at q8_0 with the CLI's defaults but the depth
+     (batch 8, prompt 50, AOT_GRU_STEPS = 50 steps, not 200) and
+     ``aot-run``, whose text and the artifact's tokens on params an eager
+     call has used are equal to eager ``generate``'s, 50 qmatmul launches;
+     ``aot-export --model mobilevit`` of ``mobilevit_synth_full.ggml``
+     (256 px, batch 8) and ``aot-run``,
      the features against ``extract_features``, 9 launches of each f32 layer
      kernel through ``gxt::transformer_layer_f32`` (9 flash where the f32
      route is off) and 7 f32
@@ -265,6 +266,21 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      ``tests/test_trained_classifier.py``, its f32 argmax against the CPU's
      under the near-tie rule; the tool's ``train()`` for CLS_TRAIN's steps
      into a temporary file; ``checkpoints/`` byte for byte unchanged.
+ 30. MobileViT-small at 512 px, where layer_3's sequences are L = 1024
+     tokens and a head's keys pass through shared memory in chunks: the
+     bf16 layer attention (the streamed plan), the f32 layer attention
+     (windows with a running max) and flash attention against their plain
+     versions at L = 640 and 1024 on layer_3's widths, B = 128, two
+     launches bit-equal, timed beside ``scaled_dot_product_attention`` and
+     their bounds; the streamed plan at L = 256 bit-equal to the resident
+     one, the two timed in turns; then ``classify`` of 256
+     held-out 512 px images at bf16 and f32 on the default routes and at
+     f32 with flash, the streamed launches
+     counted; the bf16 argmax against f32 under the near-tie rule; the f32
+     features of 4 images against the CPU's; ``extract_features`` at B =
+     128 timed at both dtypes with a torch.profiler split (the trace tool
+     in a process of its own); ``features`` and
+     ``classify`` at ``--image-size 512``.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -329,6 +345,15 @@ Tolerances, and why:
   * The f32 fused layer's kernels against their plain versions
     (LAYER_F32_REL): 3xTF32 products, f32 sums in other orders, the
     softmax's exponentials by ``expf`` against PyTorch's.
+  * The kernels that stream a head's keys (phase 30) are held to the limits
+    of their resident forms: the bf16 layer attention to VIT_BF16_MAX
+    "layer" (its max and p are the plain version's bits by construction,
+    tests/test_torch_long_sequences.py; only the f32 sums' order differs,
+    and the share of bit-equal values is logged), the f32 one to
+    LAYER_F32_REL, flash to VIT_F32_REL and VIT_BF16_MAX "flash". Chained
+    over 1024 keys the tensor cores' f32 sums drift past 1e-5 of the
+    largest value, so the streamed f32 kernels add a fresh sum of each
+    window (32 keys in flash) into their totals in f32.
   * The f32 fused inverted residual against its plain version, at stride 1
     and 2: 3xTF32 products (f32-accurate), f32 sums in other orders, SiLUs
     within an ulp or two of each other: IR_F32_REL of the plain output's
@@ -443,7 +468,7 @@ VIT_CANCEL_EVERY = 23
 VIT_BF16_MAX = {"layer": 0.05, "flash": 2 ** -6, "ir": 2 ** -6}
 VIT_BF16_MEAN_FRAC = {"layer": 0.15, "flash": 0.1, "ir": 0.01}
 # (bp, L, C, H, F) of the per-sequence layer kernel's check in phase 13
-SEQ_LAYER_SHAPES = ((128, 16, 320, 5, 640), (16, 640, 64, 2, 128))
+SEQ_LAYER_SHAPES = ((128, 16, 320, 5, 640), (16, 48, 384, 6, 768))
 VIT_F32_REL = 1e-5                 # flash at f32 against its plain version
 VIT_CPU_FEATURE_REL = 1e-4         # card f32 features against the CPU plain run
 VIT_NEAR_TIE = 0.1                 # bf16 logit gap under which an argmax may flip
@@ -503,6 +528,7 @@ IR_F32_SHAPES = {"layer_2": (128, 64, 64, 64, 256, 64, True),
 IR_F32_REL = 1e-5        # f32 kernel vs plain: 3xTF32 products, f32 sums in other orders
 AOT_FEATURE_REL = 1e-5   # the features artifact against extract_features, x the largest
 AOT_MAX_BYTES = 1 << 20  # an artifact holds the program and no weights
+AOT_GRU_STEPS = 50       # the GRU artifact's depth (the CLI's 200: 103 s of export on an H100)
 TRACE_DECODE_SHAPE = (1024, 128)
 # phase 26: the stride-2 fused block at MobileViT-small's four downsamplers,
 # (B, H, W, C, E, Cout) of each as the model gives it a batch of VIT_BATCH
@@ -522,6 +548,9 @@ EXAMPLE_PROMPTS = ("ROMEO: ", "JULIET: ")
 EXAMPLE_EPOCHS = 2                   # torch_train_and_export: 5 steps of 64 an epoch
 CLS_CPU_IMAGES = {False: 500, True: 32}   # held-out images whose f32 argmax the CPU checks
 CLS_TRAIN = dict(n_train=400, steps=30, batch=50)   # the classifier tool's train(), tiny
+# phase 30: MobileViT-small at 512 px (layer_3 at L = 1024)
+LONG_KERNEL_L = (640, 1024)          # the streamed kernels against their plain versions
+LONG_IMAGES, LONG_CPU_IMAGES = 256, 4
 
 
 class SmokeFailure(AssertionError):
@@ -2039,8 +2068,8 @@ def vision_kernel_phase(tag, params, dev):
             f"kernel {ms16:.4f} ms")
         del got, want, qkv, q16, g16, w16, heads
     # the per-sequence kernel (csrc/transformer_layer_seq.cu), the fused layer's
-    # route where the row-tile kernels do not take a layer (C past 288, L past
-    # 576; no model of the repo has one): every flag on, two launches bit-equal
+    # route where the row-tile kernels do not take a layer (C past 288; no
+    # model of the repo has one): every flag on, two launches bit-equal
     for bp, l, c, h, f in SEQ_LAYER_SHAPES:
         def r(*shape, off=0.0):
             return torch.randn(shape, generator=g, device=dev) * 0.2 + off
@@ -4623,8 +4652,9 @@ class _LogSink:
 
 def aot_phase(tag, dev, tok, images):
     """Phase 24: ``aot-export`` and ``aot-run`` on the card for both models
-    (the CLI defaults: the GRU at batch 8, prompt 50, 200 steps on
-    ``gru_shakespeare.bin`` at q8_0; MobileViT at 256 px, batch 8 on
+    (the CLI defaults but the GRU's depth: the GRU at batch 8, prompt 50,
+    AOT_GRU_STEPS steps on ``gru_shakespeare.bin`` at q8_0, its export's
+    time growing with the steps it unrolls; MobileViT at 256 px, batch 8 on
     ``mobilevit_synth_full.ggml``). The artifacts' outputs against the
     eager entry points on params an eager call has used (their caches
     filled): GRU tokens equal, features within AOT_FEATURE_REL of the
@@ -4653,11 +4683,13 @@ def aot_phase(tag, dev, tok, images):
         # -- the GRU decode artifact
         art = os.path.join(tmp, "decode.gxa")
         rc, text, export_s = run_command(["aot-export", "--model", "gru", "--weights", CKPT,
-                                          "--qtype", "q8_0", "--output", art])
+                                          "--qtype", "q8_0", "--steps", str(AOT_GRU_STEPS),
+                                          "--output", art])
         check(rc == 0, f"{tag}: aot-export --model gru failed")
         meta = json.loads(text.strip().splitlines()[-1])
         check(meta["kind"] == "gru-decode" and meta["device"] == "cuda"
-              and (meta["batch"], meta["prompt_len"], meta["total_steps"]) == (8, 50, 200)
+              and (meta["batch"], meta["prompt_len"], meta["total_steps"]) == (
+                  8, 50, AOT_GRU_STEPS)
               and meta["qtype"] == "q8_0", f"{tag}: GRU artifact header {meta}")
         b, p, t = meta["batch"], meta["prompt_len"], meta["total_steps"]
         # eager generate on aot-run's default prompt, every row the same
@@ -5320,6 +5352,283 @@ def request_key(prompt_ids, max_new):
     return tuple(int(t) for t in prompt_ids), int(max_new)
 
 
+# ---- phase 30: MobileViT-small above 384 px: attention past shared memory ----------------
+
+
+def long_sequence_phase(tag, dev):
+    """Phase 30: MobileViT-small at 512 px, where layer_3's sequences are
+    L = 1024 tokens, past what a block's shared memory holds whole. First
+    the three kernels that stream a head's keys (the bf16 layer attention,
+    the f32 layer attention, flash attention) against their plain versions
+    at L = 640 and 1024 on layer_3's widths and weights, bp = 512 (B = 128
+    images): two launches bit-equal, the bf16 one within the layer's bf16
+    limits (and its share of values bit-equal logged), the f32 ones within
+    LAYER_F32_REL / VIT_F32_REL of the largest value; the streamed bf16 plan
+    forced at L = 256 (the resident plan's longest) bit-equal to the
+    resident plan there and the two timed in turns; each timed
+    beside its plain version, ``scaled_dot_product_attention`` (the library
+    column, f32 with TF32 off) and its bound (``attention_bound``: q.k^T
+    twice where the keys are walked twice), the whole layer beside
+    ``nn.TransformerEncoderLayer``. Then the main path through the entry
+    points on ``mobilevit_synth_full.ggml`` at 512 px: ``classify`` of
+    LONG_IMAGES held-out images in batches of VIT_BATCH at bf16 and f32 on
+    the default routes and at f32 with the fused layer off (flash), launch
+    counts zeroed before each run and read after it (layer_3's two layers a
+    batch stream the keys); the bf16 argmax against f32 under the near-tie
+    rule; the f32 features of LONG_CPU_IMAGES images against the CPU's
+    within VIT_CPU_FEATURE_REL; ``extract_features`` at B = VIT_BATCH at
+    both dtypes timed, with its device time by kernel from
+    ``tools/torch_trace_report.py --image-size 512``; the ``features`` and
+    ``classify`` commands at ``--image-size 512``. Returns the kernels-line
+    entries of the three streamed kernels."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch import cli
+    from ggml_experiments_tpu_torch.models.mobilevit import (
+        classify,
+        extract_features,
+        load_mobilevit,
+    )
+    from ggml_experiments_tpu_torch.ops import flash_attention as fa
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+    from ggml_experiments_tpu_torch.training.image_task import (
+        FULL_AMP_FACTOR,
+        HELDOUT_SEED,
+        make_dataset,
+    )
+    from ggml_experiments_tpu_torch.utils.observability import attention_bound
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(30)
+    p = load_mobilevit(VIT_CKPT, device=dev)
+    p_flash = load_mobilevit(VIT_CKPT, device=dev, fused_layer=False)
+    layer = p.layer_3.transformer[0]
+    c, h = layer.attention.wq.shape[0], layer.attention.num_heads
+    f = layer.intermediate_kernel.shape[-1]
+    bp = VIT_BATCH * p.layer_3.patch_size ** 2
+    ops16, ops32 = ftl.layer_operands(layer, c, bf16), ftl.layer_operands(layer, c, f32)
+    names = {"transformer_attention": "transformer_attention_512px",
+             "transformer_attention_f32": "transformer_attention_f32_512px",
+             "flash_mha": "flash_mha_512px"}
+    out = {n: dict(max_abs_err=0.0, shapes={}) for n in names.values()}
+
+    def heads(q, k, v):
+        return [t.reshape(bp, -1, h, c // h).transpose(1, 2).contiguous() for t in (q, k, v)]
+
+    def qkv_heads(qkv, l):
+        t = qkv.reshape(bp, l, 3, h, ftl.head_pad(c // h))[..., :c // h]
+        return [t[:, :, j].transpose(1, 2).contiguous() for j in range(3)]
+
+    def record(name, l, err, ms, plain_ms, lib_ms, dtype, passes, extra=""):
+        b_ms, b_by, _ = attention_bound(bp, l, c, h, dtype, passes=passes)
+        e = out[name]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["shapes"][f"L={l}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                     bound_by=b_by, max_abs_err=err)
+        if l == 1024:
+            e.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[{tag}] {name[:-6]} (bp, L, C, H) = ({bp}, {l}, {c}, {h}): max abs err {err:.3g}"
+            f"{extra} | kernel {ms:.4f} ms = {100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} ms "
+            f"({b_by}) | plain {plain_ms:.3f} ms | scaled_dot_product_attention {lib_ms:.4f} ms")
+
+    for l in LONG_KERNEL_L:
+        x2 = torch.randn((bp * l, c), generator=g, device=dev)
+        # the bf16 layer attention: the streamed plan past 256 keys
+        qkv = ftl.ln_qkv_plain(x2.to(bf16), ops16)
+        check(ftl.attention_plan(l) == "streamed", f"{tag}: L={l} does not stream at bf16")
+        got, again = ftl.attention_cuda(qkv, l, ops16), ftl.attention_cuda(qkv, l, ops16)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{tag}: bf16 attention L={l}: two launches differ")
+        want = ftl.attention_plain(qkv, l, ops16)
+        err16 = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        same = float((got == want).float().mean())
+        check(bool(torch.isfinite(got.float()).all()) and err16 <= VIT_BF16_MAX["layer"] * scale,
+              f"{tag}: bf16 attention L={l}: max abs err {err16:.3g} (limit "
+              f"{VIT_BF16_MAX['layer']} x {scale:.3g})")
+        del got, again, want
+        ms = cuda_ms(lambda: ftl.attention_cuda(qkv, l, ops16), n=10)
+        plain_ms = cuda_ms(lambda: ftl.attention_plain(qkv, l, ops16), n=2, warmup=1)
+        hd = qkv_heads(qkv, l)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*hd, scale=1.0), n=10)
+        record(names["transformer_attention"], l, err16, ms, plain_ms, lib_ms, "bfloat16", 2,
+               f" (largest {scale:.3g}; {100 * same:.3f}% of the values bit-equal), two launches "
+               f"bit-equal")
+        del qkv, hd
+        # the f32 layer attention: windows of 256 keys with a running max
+        qkv = ftl.ln_qkv_plain(x2, ops32)
+        got, again = ftl.attention_cuda(qkv, l, ops32), ftl.attention_cuda(qkv, l, ops32)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{tag}: f32 attention L={l}: two launches differ")
+        want = ftl.attention_plain(qkv, l, ops32)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= LAYER_F32_REL * scale,
+              f"{tag}: f32 attention L={l}: max abs err {err:.3g} (limit {LAYER_F32_REL} x "
+              f"{scale:.3g})")
+        del got, again, want
+        ms = cuda_ms(lambda: ftl.attention_cuda(qkv, l, ops32), n=10)
+        plain_ms = cuda_ms(lambda: ftl.attention_plain(qkv, l, ops32), n=2, warmup=1)
+        hd = qkv_heads(qkv, l)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*hd, scale=1.0), n=5)
+        record(names["transformer_attention_f32"], l, err, ms, plain_ms, lib_ms, "float32", 1,
+               f" ({err / scale:.3g} of the largest, limit {LAYER_F32_REL}), two launches "
+               f"bit-equal")
+        del qkv, hd, x2
+        # flash at f32 (the main path with the fused layer off) and bf16
+        q, k, v = (torch.randn((bp, l, c), generator=g, device=dev) for _ in range(3))
+        got, again = fa.flash_mha_cuda(q, k, v, h), fa.flash_mha_cuda(q, k, v, h)
+        q16 = [t.to(bf16) for t in (q, k, v)]
+        g16, a16 = fa.flash_mha_cuda(*q16, h), fa.flash_mha_cuda(*q16, h)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again) and torch.equal(g16, a16),
+              f"{tag}: flash L={l}: two launches differ")
+        want = fa.flash_mha_plain(q, k, v, h)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= VIT_F32_REL * scale, f"{tag}: flash f32 L={l}: max rel err "
+                                          f"{err / scale:.3g} > {VIT_F32_REL}")
+        del got, again, want
+        w16 = fa.flash_mha_plain(*q16, h)
+        e16 = float((g16.float() - w16.float()).abs().max())
+        s16 = float(w16.float().abs().max())
+        check(e16 <= VIT_BF16_MAX["flash"] * s16, f"{tag}: flash bf16 L={l}: max abs err "
+                                                  f"{e16:.3g} (limit {VIT_BF16_MAX['flash']} x "
+                                                  f"{s16:.3g})")
+        same16 = float((g16 == w16).float().mean())
+        del g16, a16, w16
+        ms = cuda_ms(lambda: fa.flash_mha_cuda(q, k, v, h), n=5)
+        ms16 = cuda_ms(lambda: fa.flash_mha_cuda(*q16, h), n=5)
+        plain_ms = cuda_ms(lambda: fa.flash_mha_plain(q, k, v, h), n=2, warmup=1)
+        hd = heads(q, k, v)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*hd), n=5)
+        record(names["flash_mha"], l, err, ms, plain_ms, lib_ms, "float32", 1,
+               f" f32 ({err / scale:.3g} of the largest, limit {VIT_F32_REL}), bf16 {e16:.3g} "
+               f"({100 * same16:.3f}% bit-equal; kernel {ms16:.4f} ms), two launches bit-equal")
+        del q, k, v, q16, hd
+        torch.cuda.empty_cache()
+    # the streamed plan forced where the resident one runs: the same bits,
+    # and the two timed in turns (resident, streamed, streamed, resident)
+    turns = []
+    for l in (256,):
+        x2 = torch.randn((bp * l, c), generator=g, device=dev).to(bf16)
+        qkv = ftl.ln_qkv_plain(x2, ops16)
+        st = ftl.attention_cuda(qkv, l, ops16, _plan="streamed")
+        res = ftl.attention_cuda(qkv, l, ops16, _plan="resident")
+        check(torch.equal(st, res), f"{tag}: L={l}: the streamed plan's bits differ from the "
+                                    f"resident plan's")
+        ms = [cuda_ms(lambda: ftl.attention_cuda(qkv, l, ops16, _plan=plan), n=10)
+              for plan in ("resident", "streamed", "streamed", "resident")]
+        turns.append(f"L={l} resident {ms[0]:.4f} / {ms[3]:.4f} ms, streamed {ms[1]:.4f} / "
+                     f"{ms[2]:.4f} ms")
+        del x2, qkv, st, res
+    log(f"[{tag}] bf16 attention plans, bit-equal, in turns at bp = {bp}: " + " | ".join(turns))
+    # the whole layer at L = 1024 beside nn.TransformerEncoderLayer
+    parts = []
+    for cd, ops in ((bf16, ops16), (f32, ops32)):
+        x3 = torch.randn((bp, 1024, c), generator=g, device=dev).to(cd)
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True, device=dev,
+                                               dtype=cd).eval()
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: lib(x3), n=5)
+        ms = cuda_ms(lambda: ftl.fused_layer_cuda(x3, ops), n=5)
+        parts.append(f"{cd} {ms:.4f} ms (nn.TransformerEncoderLayer {lib_ms:.4f} ms)")
+        del x3, lib
+    log(f"[{tag}] the fused layer at (bp, L, C) = ({bp}, 1024, {c}): " + " | ".join(parts))
+    torch.cuda.empty_cache()
+
+    # the main path: 512 px through the entry points
+    images, labels = make_dataset(LONG_IMAGES, seed=HELDOUT_SEED, image_size=512,
+                                  amp_factor=FULL_AMP_FACTOR)
+    x_all = torch.from_numpy(images)
+    nb = -(-LONG_IMAGES // VIT_BATCH)
+    logits = {}
+    streamed = {"bf16": ("transformer_attention_streamed", "transformer_attention"),
+                "f32": ("transformer_attention_f32_streamed", "transformer_attention_f32"),
+                "f32 flash": ("flash_mha_streamed", "flash_mha")}
+    for name, params, cd in (("bf16", p, bf16), ("f32", p, f32), ("f32 flash", p_flash, f32)):
+        port.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lo = torch.cat([classify(params, x_all[i:i + VIT_BATCH].to(dev), compute_dtype=cd)
+                        for i in range(0, LONG_IMAGES, VIT_BATCH)])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = port.kernel_launches()
+        key, total = streamed[name]
+        check(lo.shape == (LONG_IMAGES, 44) and bool(torch.isfinite(lo).all()),
+              f"{tag}: classify {name} at 512 px: shape {tuple(lo.shape)} or values")
+        check(launches[key] == 2 * nb and launches[total] == 9 * nb,
+              f"{tag}: classify {name} at 512 px launched {launches[key]} {key} and "
+              f"{launches[total]} {total}, want 2 and 9 a batch x {nb}")
+        out[names[total]]["launches"] = launches[key]
+        logits[name] = lo.cpu()
+        top1 = float((lo.argmax(-1).cpu().numpy() == labels).mean())
+        log(f"[{tag}] classify {name} at 512 px, {LONG_IMAGES} held-out images in {nb} batches "
+            f"({sec:.2f} s): top-1 {top1:.4f} | {key} {launches[key]}, {total} {launches[total]}")
+    agree, flips = argmax_near_ties(f"{tag}: bf16 vs f32 at 512 px", logits["bf16"],
+                                    logits["f32"], VIT_NEAR_TIE, tie_dtype=bf16)
+    agree32, flips32 = argmax_near_ties(f"{tag}: f32 default vs f32 flash at 512 px",
+                                        logits["f32"], logits["f32 flash"], NEAR_TIE["float32"],
+                                        tie_dtype=f32)
+    log(f"[{tag}] argmax agreement at 512 px: bf16 with f32 {agree:.4f} ({flips} flips, at "
+        f"near-ties); f32 default with f32 flash {agree32:.4f} ({flips32} flips)")
+    # the card's f32 features against the CPU's
+    n = LONG_CPU_IMAGES
+    p_cpu = load_mobilevit(VIT_CKPT, device="cpu")
+    t0 = time.perf_counter()
+    want = extract_features(p_cpu, x_all[:n])
+    cpu_s = time.perf_counter() - t0
+    got = extract_features(p, x_all[:n].to(dev)).cpu()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    check(got.shape == (n, 16, 16, 640) and err <= VIT_CPU_FEATURE_REL * scale,
+          f"{tag}: f32 features at 512 px vs the CPU: max abs err {err:.3g} (limit "
+          f"{VIT_CPU_FEATURE_REL} x {scale:.3g})")
+    log(f"[{tag}] f32 features of {n} images at 512 px, card (default route) vs the plain CPU "
+        f"run ({cpu_s:.1f} s): max abs err {err:.3g}, {err / scale:.3g} of the largest (limit "
+        f"{VIT_CPU_FEATURE_REL})")
+    del p_cpu, want, got
+    # extract_features at B = VIT_BATCH timed, and its device time by kernel
+    # from tools/torch_trace_report.py in a process of its own (a process that
+    # has run the profiler before loses some of a later trace's kernels)
+    xb = x_all[:VIT_BATCH].to(dev)
+    for name, cd in (("bf16", bf16), ("f32", f32)):
+        ms = cuda_ms(lambda: extract_features(p, xb, compute_dtype=cd), n=5)
+        rows, _ = trace_report_rows(["--model", "mobilevit", "--batch", str(VIT_BATCH),
+                                     "--image-size", "512", "--qtype", "none", "--compute",
+                                     str(cd).split(".")[1], "--reps", "2", "--top", "200"])
+        busy = sum(us for us, _, _ in rows) / 1e3
+        byname = {n: us / 1e3 for us, _, n in rows}
+        mine = {k: v for k, v in byname.items() if k in port.kernel_launches()}
+        log(f"[{tag}] extract_features B={VIT_BATCH} at 512 px, {name}: {ms:.3f} ms = "
+            f"{VIT_BATCH / ms * 1e3:,.0f} images/s | the trace (random weights, a process of its "
+            f"own): device busy {busy:.3f} ms a forward (idle share "
+            f"{max(0.0, 1 - busy / ms):.3f} of the timed forward): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in sorted(mine.items(), key=lambda kv: -kv[1]))
+            + f", the rest {busy - sum(mine.values()):.3f} ms")
+    del xb, x_all, images
+    # the commands at --image-size 512
+    for cmd in ("features", "classify"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([cmd, "--weights", VIT_CKPT, "--image-size", "512"])
+        lines = buf.getvalue().splitlines()
+        ok = (lines[0] == "output feature shape: : Dims: (16, 16, 640)" if cmd == "features"
+              else lines[0].startswith("class "))
+        check(rc == 0 and ok, f"{tag}: {cmd} --image-size 512 printed {lines}")
+        log(f"[{tag}] {cmd} --weights mobilevit_synth_full.ggml --image-size 512: {lines[0]}")
+    log(f"[{tag}] phase 30 in {time.perf_counter() - t_phase:.1f} s")
+    del p, p_flash
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5670,6 +5979,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     example_runs = examples_phase("29 examples and tools", dev)
 
+    # ---- 30. MobileViT-small at 512 px: attention past shared memory -------------------------
+    torch.cuda.empty_cache()
+    kernels.update(long_sequence_phase("30 512 px", dev))
+
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
     qmm_at = "ggml_experiments_tpu/quant/pallas_kernels.py:253"
@@ -5697,6 +6010,12 @@ def main() -> int:
                       "ggml_experiments_tpu/ops/fused_transformer_layer.py:184")
     meta["flash_mha"] = (src + "flash_attention.cu",
                          "ggml_experiments_tpu/ops/flash_attention.py:104")
+    # phase 30: the three kernels that stream a head's keys, at L = 1024 (512 px)
+    layer_at = "ggml_experiments_tpu/ops/fused_transformer_layer.py:184"
+    meta["transformer_attention_512px"] = (src + "transformer_layer.cu", layer_at)
+    meta["transformer_attention_f32_512px"] = (src + "transformer_layer_f32.cu", layer_at)
+    meta["flash_mha_512px"] = (src + "flash_attention.cu",
+                               "ggml_experiments_tpu/ops/flash_attention.py:104")
     meta["fused_inverted_residual"] = (src + "inverted_residual.cu",
                                        "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     meta["inverted_residual_f32"] = (src + "inverted_residual_f32.cu",
@@ -5724,7 +6043,7 @@ def main() -> int:
             entry["mesh_launches"] = kd["mesh_launches"]
         if "aot_launches" in kd:    # qmatmul q8_0, flash or the f32 layer, f32 blocks: phase 24
             entry["aot_launches"] = kd["aot_launches"]
-        if "shapes" in kd:          # the stride-2 kernel: each downsampler's readings
+        if "shapes" in kd:          # the stride-2 kernel, the 512 px kernels: each shape's readings
             entry["shapes"] = kd["shapes"]
         if "graph_ms" in kd:        # the f32 and stride-2 blocks: a CUDA graph's time a call
             entry["graph_ms"] = kd["graph_ms"]

@@ -1,4 +1,5 @@
-// Multi-head attention over whole rows (L up to a few hundred).
+// Multi-head attention, k and v of a head staged in shared memory whole or
+// streamed through it in chunks of keys.
 //
 //   gxt_flash_mha  replaces ggml_experiments_tpu/ops/flash_attention.py
 //                  `_flash_core_call` (pallas_call :104; body `_mha_kernel` :45)
@@ -13,35 +14,44 @@
 // the same sums).
 //
 // What bounds it on an H100 at the main path's shapes (bp = 512 sequences,
-// L = 256 / 64 / 16, C = 144 / 192 / 240, 4 heads, f32): 4 L^2 C operations
-// a sequence against 4 L C values moved. The products run as 3xTF32 on the
-// tensor cores, whose bound is the tf32 rate / 3 (165 TFLOP/s): L = 256 is
-// bound by operations, L = 64 and 16 by bytes. What limits the kernel is
-// the work around the mmas: each k and v fragment is split into its two
-// tf32 parts by every warp that reads it, and each 32-key step's row max,
-// exponentials and rescale form one dependent chain, with 2 blocks of 8
-// warps an SM (registers) to hide it.
+// L = 256 / 64 / 16, C = 144 / 192 / 240, 4 heads, f32; L = 1024 at C = 144
+// for 512 px images): 4 L^2 C operations a sequence against 4 L C values
+// moved. The products run as 3xTF32 on the tensor cores, whose bound is the
+// tf32 rate / 3 (165 TFLOP/s): L >= 256 is bound by operations, L = 64 and
+// 16 by bytes. What limits the kernel is the work around the mmas: each k
+// and v fragment is split into its two tf32 parts by every warp that reads
+// it, and each 32-key step's row max, exponentials and rescale form one
+// dependent chain, with 2 blocks of 8 warps an SM (registers) to hide it.
 //
 // Design: a warp owns 16 query rows of one (sequence, head) pair; a block of
 // 8 warps stages the k and v head slices of its pairs (8 pairs at L = 16, 2
-// at L = 64, one pair split over two blocks at L = 256) in shared memory as
-// f32 rows of S floats (dh rounded up to S = 4 x odd: 36 stays 36, 48 -> 52,
-// 60 stays 60, so fragment loads hit 32 distinct banks), with 16-byte
-// cp.async copies. Scores and context are mma.sync m16n8k8 tf32 tiles (the
-// head width padded to the k-step of 8 only inside the fragments, with q
-// zero there): a thread holds a 16-row x 32-key score tile spread over the
-// warp, and the same registers become p . v's A operand (keys 2t, 2t + 1 of
-// each 8-key tile stand for k-columns t, t + 4, with v read in the same
-// order). At f32 every product is 3xTF32 (each operand split into a tf32
-// high part and its remainder, three products, small terms first), so the
-// sums keep f32 accuracy, and every score is computed once: a running row
-// max rescales the context and the denominator (online softmax, with the
-// fast exponential). At bf16 the operands are exact in tf32, so one product
-// suffices, and p must be rounded after subtracting the TRUE row max: the
-// rows are walked twice, the first pass taking the max of the rounded
-// scores, the second recomputing them (the same operations in the same
-// order give the same values) to form p, its sum and p . v. Row sums go
-// across the 4 lanes of a quad in a fixed order, so two launches are
+// at L = 64, one pair split over L / 128 blocks past L = 128) in shared
+// memory as f32 rows of S floats (dh rounded up to S = 4 x odd: 36 stays 36,
+// 48 -> 52, 60 stays 60, so fragment loads hit 32 distinct banks), with
+// 16-byte cp.async copies. Up to kWholeKeys keys a pair's rows are staged
+// whole; past that the block streams them through the same buffer in
+// chunks of kWholeKeys keys (all warps stage a chunk, meet, take its keys,
+// meet again), so the shared memory no longer grows with L (73 KB at dh =
+// 36, 139 KB at 64) and any L runs. Chunks end on the key loop's 32-key
+// steps, so the arithmetic is the whole rows' (at bf16 the same bits); at
+// f32 a streamed launch also takes each step's P.v as a fresh sum added in
+// f32, which holds the longer chain of sums to f32 accuracy.
+// Scores and context are mma.sync m16n8k8 tf32 tiles (the head width padded
+// to the k-step of 8 only inside the fragments, with q zero there): a thread
+// holds a 16-row x 32-key score tile spread over the warp, and the same
+// registers become p . v's A operand (keys 2t, 2t + 1 of each 8-key tile
+// stand for k-columns t, t + 4, with v read in the same order). At f32
+// every product is 3xTF32 (each operand split into a tf32 high part and its
+// remainder, three products, small terms first), so the sums keep f32
+// accuracy, and every score is computed once: a running row max rescales
+// the context and the denominator (online softmax, with the fast
+// exponential), which is what lets the keys stream in one pass. At bf16 the
+// operands are exact in tf32, so one product suffices, and p must be
+// rounded after subtracting the TRUE row max: the keys are walked twice
+// (streamed twice past kWholeKeys), the first pass taking the max of the
+// rounded scores, the second recomputing them (the same operations in the
+// same order give the same values) to form p, its sum and p . v. Row sums
+// go across the 4 lanes of a quad in a fixed order, so two launches are
 // bit-equal.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,6 +69,7 @@ using gxt::bf16;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 4;  // 8-key tiles per step of the key loop
+constexpr int kWholeKeys = 256;   // keys staged at once (a multiple of 8 kChunk)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -84,24 +95,27 @@ struct Args {
   int S;       // staged row stride (floats)
   int G;       // pairs a block stages (when a pair fits one block)
   int bpp;     // blocks a pair is split over (1: G pairs a block)
+  int KC;      // keys staged at once: Lp (whole rows) or kWholeKeys (streamed)
   int vec;     // k and v rows load in groups of 4 elements
   float scale;
 };
 
-// Stage k and v of pairs pair0 .. pair0 + ng - 1 as f32 rows of S floats:
-// rows past L and columns past dh are zeros.
+// Stage keys j0 .. j0 + n - 1 of k and v of pairs pair0 .. pair0 + ng - 1
+// as f32 rows of S floats, a pair's k and v in buffers of KC rows: keys past
+// L and columns past dh are zeros.
 template <typename T>
-__device__ __forceinline__ void stage(const Args& a, float* smem, int pair0, int ng, int Lp) {
+__device__ __forceinline__ void stage(const Args& a, float* smem, int pair0, int ng, int j0,
+                                      int n) {
   const T* kp = static_cast<const T*>(a.k);
   const T* vp = static_cast<const T*>(a.v);
-  const size_t buf = (size_t)Lp * a.S;
+  const size_t buf = (size_t)a.KC * a.S;
   if (a.vec) {
     const int s4 = a.S / 4;
-    for (int i = threadIdx.x; i < ng * Lp * s4; i += kThreads) {
-      const int c4 = i % s4, j = (i / s4) % Lp, gp = i / (s4 * Lp);
+    for (int i = threadIdx.x; i < ng * n * s4; i += kThreads) {
+      const int c4 = i % s4, j = (i / s4) % n, gp = i / (s4 * n);
       const int p = pair0 + gp, seq = p / a.H, h = p % a.H, d = 4 * c4;
-      const bool ok = j < a.L && d < a.dh;
-      const size_t off = ok ? ((size_t)seq * a.L + j) * a.C + (size_t)h * a.dh + d : 0;
+      const bool ok = j0 + j < a.L && d < a.dh;
+      const size_t off = ok ? ((size_t)seq * a.L + j0 + j) * a.C + (size_t)h * a.dh + d : 0;
       float* kd = smem + (size_t)gp * 2 * buf + (size_t)j * a.S + d;
       if constexpr (std::is_same<T, float>::value) {
         gxt::cp_async16(kd, kp + off, ok ? 16 : 0);
@@ -123,12 +137,12 @@ __device__ __forceinline__ void stage(const Args& a, float* smem, int pair0, int
     gxt::cp_async_commit();
     gxt::cp_async_wait<0>();
   } else {
-    for (int i = threadIdx.x; i < ng * Lp * a.S; i += kThreads) {
-      const int d = i % a.S, j = (i / a.S) % Lp, gp = i / (a.S * Lp);
+    for (int i = threadIdx.x; i < ng * n * a.S; i += kThreads) {
+      const int d = i % a.S, j = (i / a.S) % n, gp = i / (a.S * n);
       const int p = pair0 + gp, seq = p / a.H, h = p % a.H;
       float kv = 0.f, vv = 0.f;
-      if (j < a.L && d < a.dh) {
-        const size_t off = ((size_t)seq * a.L + j) * a.C + (size_t)h * a.dh + d;
+      if (j0 + j < a.L && d < a.dh) {
+        const size_t off = ((size_t)seq * a.L + j0 + j) * a.C + (size_t)h * a.dh + d;
         kv = to_f(kp[off]);
         vv = to_f(vp[off]);
       }
@@ -139,10 +153,12 @@ __device__ __forceinline__ void stage(const Args& a, float* smem, int pair0, int
   }
 }
 
-template <typename T, int DHP>
+// STREAM: the keys come in chunks of KC (a pair split over blocks, KC < Lp)
+template <typename T, int DHP, bool STREAM>
 __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
   constexpr int KS = DHP / 8;  // k-steps of q . k^T, 8-column tiles of p . v
   constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kFresh = kF32 && STREAM;   // P.v a fresh sum a 32-key step
   extern __shared__ __align__(16) float smem[];
   const int L = a.L, S = a.S, Lp = (L + 7) & ~7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -159,11 +175,17 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
     gw = 0;
     tile = (blockIdx.x % a.bpp) * kWarps + warp;
   }
-  stage<T>(a, smem, pair0, ng, Lp);
-  __syncthreads();
-  if (gw >= ng || tile * 16 >= L) return;
+  // whole rows: staged once; streamed: every warp stages each chunk, also
+  // one whose rows are past L
+  constexpr bool whole = !STREAM;
+  if constexpr (whole) {
+    stage<T>(a, smem, pair0, ng, 0, Lp);
+    __syncthreads();
+    if (gw >= ng || tile * 16 >= L) return;
+  }
+  const bool active = gw < ng && tile * 16 < L;
 
-  const size_t buf = (size_t)Lp * S;
+  const size_t buf = (size_t)a.KC * S;
   const float* ks = smem + (size_t)gw * 2 * buf;
   const float* vs = ks + buf;
   const int p = pair0 + gw, seq = p / a.H, h = p % a.H;
@@ -191,14 +213,14 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
       }
   }
 
-  // the scores of keys j0 .. j0 + 8 * kChunk - 1, rounded to the compute
-  // dtype; keys past L are -inf
-  auto scores = [&](int j0, float (&s)[kChunk][4]) {
+  // the scores of keys j0 .. j0 + 8 * kChunk - 1 (staged from row jr),
+  // rounded to the compute dtype; keys past L are -inf
+  auto scores = [&](int j0, int jr, float (&s)[kChunk][4]) {
 #pragma unroll
     for (int nt = 0; nt < kChunk; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
       if (j0 + nt * 8 < Lp) {
-        const float* kr = ks + (size_t)(j0 + nt * 8 + g) * S + t;
+        const float* kr = ks + (size_t)(jr + nt * 8 + g) * S + t;
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           uint32_t bh0, bh1, bl0 = 0u, bl1 = 0u;
@@ -220,12 +242,20 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
     }
   };
 
-  // acc += p . v over the chunk's keys: score tile nt is the k-step, its
-  // keys 2t and 2t + 1 the k-columns t and t + 4
+  // acc += p . v over the step's keys: score tile nt is the k-step, its
+  // keys 2t and 2t + 1 the k-columns t and t + 4. Streamed at f32, the
+  // step's sum is fresh on the tensor cores, then added to acc in f32:
+  // chained over every key, the tensor cores' sums drift (1.1e-5 of the
+  // largest value against the plain version at L = 1024 on an H100, 4.7e-6
+  // at 256). Whole rows (L <= 256) chain them: the fresh sum's registers
+  // take the second block off a multiprocessor (0.72 -> 1.05 ms at L = 256)
   float acc[KS][4];
 #pragma unroll
   for (int dt = 0; dt < KS; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  auto accumulate = [&](int j0, const float (&pm)[kChunk][4]) {
+  auto accumulate = [&](int j0, int jr, const float (&pm)[kChunk][4]) {
+    float part[KS][4];
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) part[dt][0] = part[dt][1] = part[dt][2] = part[dt][3] = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kChunk; ++nt) {
       if (j0 + nt * 8 >= Lp) continue;
@@ -239,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
           ph[i] = __float_as_uint(pv[i]);
         }
       }
-      const float* vr = vs + (size_t)(j0 + nt * 8 + 2 * t) * S + g;
+      const float* vr = vs + (size_t)(jr + nt * 8 + 2 * t) * S + g;
 #pragma unroll
       for (int dt = 0; dt < KS; ++dt) {
         uint32_t bh0, bh1, bl0 = 0u, bl1 = 0u;
@@ -250,8 +280,34 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
           bh0 = __float_as_uint(vr[dt * 8]);
           bh1 = __float_as_uint(vr[S + dt * 8]);
         }
-        gxt::mma_tf32x<kF32>(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
+        if constexpr (kFresh) {
+          gxt::mma_tf32x<true>(part[dt], ph, pl, bh0, bh1, bl0, bl1);
+        } else {
+          gxt::mma_tf32x<kF32>(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
+        }
       }
+    }
+    if constexpr (kFresh) {
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dt][i] = __fadd_rn(acc[dt][i], part[dt][i]);
+    }
+  };
+
+  // body(j0, jr) for each 32-key step j0 of the keys, jr its staged row:
+  // whole rows as staged, else chunk by chunk (the block meets before and
+  // after staging each)
+  auto walk = [&](auto&& body) {
+    for (int c0 = 0; c0 < Lp; c0 += a.KC) {
+      const int n = min(a.KC, Lp - c0);
+      if constexpr (!whole) {
+        __syncthreads();
+        stage<T>(a, smem, pair0, ng, c0, n);
+        __syncthreads();
+      }
+      if (active)
+        for (int j0 = c0; j0 < c0 + n; j0 += 8 * kChunk) body(j0, j0 - c0);
     }
   };
 
@@ -265,8 +321,8 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
   float s[kChunk][4];
   if constexpr (kF32) {
     // one pass: a running max rescales what has been summed so far
-    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
-      scores(j0, s);
+    walk([&](int j0, int jr) {
+      scores(j0, jr, s);
       float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < kChunk; ++nt) {
@@ -298,23 +354,23 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
         den0 = __fadd_rn(den0, __fadd_rn(s[nt][0], s[nt][1]));
         den1 = __fadd_rn(den1, __fadd_rn(s[nt][2], s[nt][3]));
       }
-      accumulate(j0, s);
-    }
+      accumulate(j0, jr, s);
+    });
   } else {
     // pass one: the true row max of the rounded scores
-    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
-      scores(j0, s);
+    walk([&](int j0, int jr) {
+      scores(j0, jr, s);
 #pragma unroll
       for (int nt = 0; nt < kChunk; ++nt) {
         m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
         m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
       }
-    }
+    });
     m0 = quad_max(m0);
     m1 = quad_max(m1);
     // pass two: the same scores again, p rounded after the true max
-    for (int j0 = 0; j0 < Lp; j0 += 8 * kChunk) {
-      scores(j0, s);
+    walk([&](int j0, int jr) {
+      scores(j0, jr, s);
 #pragma unroll
       for (int nt = 0; nt < kChunk; ++nt) {
 #pragma unroll
@@ -325,13 +381,14 @@ __global__ void __launch_bounds__(kThreads) flash_mha_kernel(Args a) {
         den0 = __fadd_rn(den0, __fadd_rn(s[nt][0], s[nt][1]));
         den1 = __fadd_rn(den1, __fadd_rn(s[nt][2], s[nt][3]));
       }
-      accumulate(j0, s);
-    }
+      accumulate(j0, jr, s);
+    });
   }
   den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 1));
   den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 2));
   den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 1));
   den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 2));
+  if (!active) return;
   const float inv0 = __fdiv_rn(1.f, den0), inv1 = __fdiv_rn(1.f, den1);
   T* out = static_cast<T*>(a.out);
 #pragma unroll
@@ -351,13 +408,16 @@ int row_stride(int dh) {
 }
 
 struct Launch {
-  int G, bpp, blocks;
+  int G, bpp, KC, blocks;
   size_t smem;
 };
 
+// A pair's rows whole up to kWholeKeys keys, else streamed in chunks of
+// kWholeKeys (only where a pair is split over blocks: L > 128)
 Launch plan(int npairs, int L, int dh) {
   const int Lp = (L + 7) & ~7, wpp = (L + 15) / 16;
   Launch l;
+  l.KC = Lp <= kWholeKeys ? Lp : kWholeKeys;
   if (wpp <= kWarps) {
     l.G = kWarps / wpp;
     l.bpp = 1;
@@ -368,13 +428,14 @@ Launch plan(int npairs, int L, int dh) {
     l.blocks = npairs * l.bpp;
   }
   // + 8 floats: the last k row's fragment reads may run up to 4 past it
-  l.smem = ((size_t)l.G * 2 * Lp * row_stride(dh) + 8) * sizeof(float);
+  l.smem = ((size_t)l.G * 2 * l.KC * row_stride(dh) + 8) * sizeof(float);
   return l;
 }
 
 template <typename T, int DHP>
 int launch_t(const Args& a, const Launch& l, void* stream) {
-  auto kernel = flash_mha_kernel<T, DHP>;
+  auto kernel = l.KC < ((a.L + 7) & ~7) ? flash_mha_kernel<T, DHP, true>
+                                         : flash_mha_kernel<T, DHP, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)l.smem);
   if (err != cudaSuccess) return (int)err;
@@ -401,9 +462,10 @@ bool takes(int L, int C, int H) { return L > 0 && H > 0 && C % H == 0 && C / H <
 
 }  // namespace
 
-// Bytes of dynamic shared memory a launch at (L, C, H) needs, or -1 where
-// the head width is past the kernel's 64: the wrapper holds it against the
-// device's limit before it launches.
+// Bytes of dynamic shared memory a launch at (L, C, H) needs (at most 139
+// KB: streamed keys past kWholeKeys), or -1 where the head width is past the
+// kernel's 64: the wrapper holds it against the device's limit before it
+// launches.
 extern "C" long long gxt_flash_mha_smem(int L, int C, int H) {
   if (!takes(L, C, H)) return -1;
   return (long long)plan(1, L, C / H).smem;
@@ -423,6 +485,7 @@ extern "C" int gxt_flash_mha(const void* q, const void* k, const void* v, void* 
   const Launch l = plan(a.npairs, L, a.dh);
   a.G = l.G;
   a.bpp = l.bpp;
+  a.KC = l.KC;
   const uintptr_t align = is_bf16 ? 8 : 16;
   a.vec = a.dh % 4 == 0 && C % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0 &&
           reinterpret_cast<uintptr_t>(v) % align == 0;

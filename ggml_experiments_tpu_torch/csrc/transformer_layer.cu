@@ -31,8 +31,10 @@
 // bits.
 //
 // Bound on an H100 at the main path's shapes (bp = 512; (L, C, F) = (256,
-// 144, 288), (64, 192, 384), (16, 240, 480)): the operations (about 145
-// MFLOP a sequence at L = 256 against 98 KB of activations in and out). The
+// 144, 288), (64, 192, 384), (16, 240, 480); (1024, 144, 288) for layer_3
+// at 512 px): the operations (about 145 MFLOP a sequence at L = 256 against
+// 98 KB of activations in and out; at L = 1024 the attention's, q.k^T twice
+// and P.v, and its 4 M exponentials a sequence and head on the MUFU). The
 // split adds the q/k/v and ctx round trips (about 1.3 KB and 0.3-0.5 KB a
 // token). What holds the kernels back is latency, not either bound: one
 // block of two consumer warpgroups a multiprocessor (registers), each
@@ -61,14 +63,25 @@
 //     A operand of its Wo2 slice; at C <= 144 chunk f + 1's y.Wi runs while
 //     chunk f's SiLU does. Outputs go out through shared memory in whole
 //     16-byte rows.
-//   * B takes one head of one sequence a block (at L < 64, 64/L sequences of
-//     one head in one 64-row tile under a block-diagonal mask). q, k and v of
-//     the head arrive by TMA as 64 x 64 boxes at the head's column; columns
-//     past dhp belong to the next head and are never read (S walks dhp/16
-//     k-steps; ctx columns past dh are not stored). S = q.k^T runs on
-//     m64n64k16 per 64-key chunk and stays in registers (L <= 256; longer L
-//     walks the keys twice); p feeds P.V as the register A operand with v as
-//     an MN-major B (m64n64k16, transposed B).
+//   * B, resident (L <= 256): one head of one sequence a block (at L < 64,
+//     64/L sequences of one head in one 64-row tile under a block-diagonal
+//     mask). q, k and v of the head arrive by TMA as 64 x 64 boxes at the
+//     head's column; columns past dhp belong to the next head and are never
+//     read (S walks dhp/16 k-steps; ctx columns past dh are not stored). S =
+//     q.k^T runs on m64n64k16 per 64-key chunk and stays in registers; p
+//     feeds P.V as the register A operand with v as an MN-major B
+//     (m64n64k16, transposed B).
+//   * B, streamed (any L >= 64; the plan past 256 keys, where a row's
+//     scores no longer fit registers): NQ = 4 query tiles of one head of one
+//     sequence resident a block, the keys walked twice in 64-key chunks that
+//     one thread sends by TMA through a ring (k alone in the first pass, k
+//     and v in the second). The bf16 rounding of p after the TRUE row max
+//     is why the keys are walked twice: an online max would round p against
+//     a running max and give other bits. The products stay on wgmma as in
+//     the resident form (the same issue_scores / probs / issue_pv), so a
+//     streamed launch computes what a resident one does. At L = 1024 (512
+//     px) a block reads each chunk once for its 256 rows instead of once for
+//     every 64.
 //   * Rows past T read zeros (TMA) and are not stored; keys past L, or of
 //     another sequence in a packed tile, are -inf before the max.
 #include <cuda.h>
@@ -87,7 +100,7 @@ struct LayerArgs {
   const void *x, *qkv, *ctx, *out, *wa, *wc;
   const void *ln1g, *ln1b, *bqkv, *bo, *ln2g, *ln2b, *bi, *bo2, *ln3g, *ln3b, *osc, *obi;
   int T, L, Cin, ldx, C, H, dh, dhp, ldc, nf, Cout, in_proj, final_ln, out_proj, out_act,
-      stages_a, stages_c, ks, ldo, nwg, nw, pipe;
+      stages_a, stages_c, ks, ldo, nwg, nw, pipe, attn;
   float eps, final_eps, scale;
 };
 
@@ -103,7 +116,7 @@ constexpr int kChunkBytes = kChunk * 128;   // its B rows in a weight tile
 constexpr int kMaxNch = 6;                  // C <= 288: x1 in registers
 constexpr int kMaxPipeNch = 3;              // C <= 144: registers for two FFN chunks
 constexpr int kMaxStages = 6;
-constexpr int kMaxQTiles = 9;               // L <= 576
+constexpr int kMaxQTiles = 4;               // the resident attention: L <= 256
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -536,6 +549,7 @@ struct AttnParams {
   CUtensorMap tm_qkv;   // qkv (T, nqkv) in 64 x 64 boxes
   bf16* ctx;            // (T, ldc) out, columns h dh + d
   int T, L, H, dh, dhp, ldc, G, nt;
+  int nqg;              // the streamed kernel's groups of query tiles a sequence
 };
 
 // the scores of 64 keys at `ka` for the query tile at `qa` (KD k-steps of
@@ -609,8 +623,8 @@ __device__ __forceinline__ void zero(float (&v)[N]) {
   for (int i = 0; i < N; ++i) v[i] = 0.f;
 }
 
-// NKC key chunks held as scores in registers (L <= 64 NKC); NKC = 0 walks
-// the keys twice (any L the shared memory holds). KD = dhp / 16.
+// NKC key chunks held as scores in registers (L <= 64 NKC), the keys
+// walked once; longer sequences take the streamed kernel. KD = dhp / 16.
 template <int NKC, int KD>
 __global__ void __launch_bounds__(128) layer_attention_kernel(const __grid_constant__ AttnParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -653,60 +667,29 @@ __global__ void __launch_bounds__(128) layer_attention_kernel(const __grid_const
     float m[2] = {-INFINITY, -INFINITY}, d[2] = {0.f, 0.f};
     float o[32];
     zero(o);   // accumulators are defined outside the wgmma pipeline
-    if constexpr (NKC > 0) {
-      float s[NKC][32];
+    float s[NKC][32];
 #pragma unroll
-      for (int c = 0; c < NKC; ++c) zero(s[c]);
-      wg_fence();
+    for (int c = 0; c < NKC; ++c) zero(s[c]);
+    wg_fence();
 #pragma unroll
-      for (int c = 0; c < NKC; ++c) issue_scores<KD>(s[c], qa, kb + c * kBox);
-      wg_commit();
-      wg_wait<0>();
+    for (int c = 0; c < NKC; ++c) issue_scores<KD>(s[c], qa, kb + c * kBox);
+    wg_commit();
+    wg_wait<0>();
 #pragma unroll
-      for (int c = 0; c < NKC; ++c) {
-        wg_pin(s[c]);
-        mask_scores(s[c], c, q, lo, hi, m);
-      }
-      quad_max(m);
-      uint32_t pa[NKC][4][4];
-#pragma unroll
-      for (int c = 0; c < NKC; ++c) probs(s[c], m, d, pa[c]);
-      wg_fence();
-#pragma unroll
-      for (int c = 0; c < NKC; ++c) issue_pv(o, pa[c], vb + c * kBox, c == 0);
-      wg_commit();
-      wg_wait<0>();
-      wg_pin(o);
-    } else {
-      for (int c = 0; c < nt; ++c) {   // the true row max first
-        float s[32];
-        zero(s);
-        wg_fence();
-        issue_scores<KD>(s, qa, kb + c * kBox);
-        wg_commit();
-        wg_wait<0>();
-        wg_pin(s);
-        mask_scores(s, c, q, lo, hi, m);
-      }
-      quad_max(m);
-      for (int c = 0; c < nt; ++c) {
-        float s[32], unused[2] = {0.f, 0.f};
-        uint32_t pa[4][4];
-        zero(s);
-        wg_fence();
-        issue_scores<KD>(s, qa, kb + c * kBox);
-        wg_commit();
-        wg_wait<0>();
-        wg_pin(s);
-        mask_scores(s, c, q, lo, hi, unused);
-        probs(s, m, d, pa);
-        wg_fence();
-        issue_pv(o, pa, vb + c * kBox, c == 0);
-        wg_commit();
-        wg_wait<0>();
-        wg_pin(o);
-      }
+    for (int c = 0; c < NKC; ++c) {
+      wg_pin(s[c]);
+      mask_scores(s[c], c, q, lo, hi, m);
     }
+    quad_max(m);
+    uint32_t pa[NKC][4][4];
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) probs(s[c], m, d, pa[c]);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) issue_pv(o, pa[c], vb + c * kBox, c == 0);
+    wg_commit();
+    wg_wait<0>();
+    wg_pin(o);
     // ctx -> bf16 into the q tile (its products are done; 128-byte swizzled
     // rows), then whole rows of the head out as 4-byte words
     unsigned char* ct = qs + (size_t)t * kBox;
@@ -730,6 +713,140 @@ __global__ void __launch_bounds__(128) layer_attention_kernel(const __grid_const
         *reinterpret_cast<uint32_t*>(p.ctx + (size_t)tok * p.ldc + h * p.dh + col) =
             *reinterpret_cast<const uint32_t*>(ct + swz(r, col));
     }
+  }
+}
+
+// The streamed form (any L >= 64): a block keeps NQ 64-row query tiles of
+// one head of one sequence resident and walks the sequence's keys twice in
+// 64-key chunks, which one thread of the block sends by TMA through a ring
+// of kRing buffers (k alone in the first pass, k and v in the second): the
+// first pass takes the rounded scores' true row max, the second forms p
+// after it, its f32 sum and P.v, with the resident kernel's arithmetic.
+// The block meets once a chunk (its warps have read the buffer), then the
+// thread sends the chunk kRing ahead into it. Query
+// tiles past the sequence's last repeat it and are not stored, so every
+// wgmma is issued unconditionally.
+constexpr int kRing = 4;     // chunk buffers (each a k box and a v box)
+constexpr int kStreamQ = 4;  // query tiles a block
+
+template <int NQ, int KD>
+__global__ void __launch_bounds__(128) layer_attention_stream_kernel(
+    const __grid_constant__ AttnParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int nt = p.nt, L = p.L, h = blockIdx.x % p.H;
+  const int qg = blockIdx.x / p.H % p.nqg, seq = blockIdx.x / p.H / p.nqg;
+  unsigned char* qs = base;                                // NQ query tiles
+  unsigned char* ring = qs + (size_t)NQ * kBox;            // kRing x (k box, v box)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)kRing * 2 * kBox);
+  uint64_t* qbar = full + kRing;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int row0 = seq * L;                                // the sequence's first token
+  const int kc = (p.H + h) * p.dhp, vc = (2 * p.H + h) * p.dhp;
+  // item i of the stream: chunk i's k (first pass), then chunk i - nt's k and v
+  auto send = [&](int i) {
+    unsigned char* dst = ring + (size_t)(i % kRing) * 2 * kBox;
+    const int c = i < nt ? i : i - nt;
+    mbar_expect(full + i % kRing, i < nt ? kBox : 2 * kBox);
+    tma_box(dst, &p.tm_qkv, kc, row0 + 64 * c, full + i % kRing);
+    if (i >= nt) tma_box(dst + kBox, &p.tm_qkv, vc, row0 + 64 * c, full + i % kRing);
+  };
+  if (tid == 0) {
+    for (int r = 0; r < kRing; ++r) mbar_init(full + r, 1);
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+    mbar_expect(qbar, NQ * kBox);
+    for (int j = 0; j < NQ; ++j)
+      tma_box(qs + (size_t)j * kBox, &p.tm_qkv, h * p.dhp,
+              row0 + 64 * min(qg * NQ + j, nt - 1), qbar);
+    for (int i = 0; i < kRing && i < 2 * nt; ++i) send(i);
+  }
+  __syncthreads();
+  mbar_wait(qbar, 0);
+  const uint32_t qb = smem_u32(qs);
+  const int rl = 16 * warp + g;
+  const int lo[2] = {0, 0}, hi[2] = {L, L};
+  float m[NQ][2], d[NQ][2];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) m[j][0] = m[j][1] = -INFINITY, d[j][0] = d[j][1] = 0.f;
+  // the chunk's buffer is read by every warp: send the item kRing ahead
+  auto release = [&](int i) {
+    __syncthreads();
+    if (tid == 0 && i + kRing < 2 * nt) send(i + kRing);
+  };
+  for (int c = 0; c < nt; ++c) {   // the true row max first
+    mbar_wait(full + c % kRing, (c / kRing) & 1);
+    const uint32_t ka = smem_u32(ring + (size_t)(c % kRing) * 2 * kBox);
+    float s[NQ][32];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) zero(s[j]);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) issue_scores<KD>(s[j], qb + j * kBox, ka);
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      wg_pin(s[j]);
+      mask_scores(s[j], c, q, lo, hi, m[j]);
+    }
+    release(c);
+  }
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) quad_max(m[j]);
+  float o[NQ][32];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) zero(o[j]);   // accumulators are defined outside the pipeline
+  for (int c = 0; c < nt; ++c) {
+    const int i = nt + c;
+    mbar_wait(full + i % kRing, (i / kRing) & 1);
+    const uint32_t ka = smem_u32(ring + (size_t)(i % kRing) * 2 * kBox), va = ka + kBox;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      float s[32], unused[2] = {0.f, 0.f};
+      uint32_t pa[4][4];
+      zero(s);
+      wg_fence();
+      issue_scores<KD>(s, qb + j * kBox, ka);
+      wg_commit();
+      wg_wait<0>();   // also tile j - 1's P.v, whose p registers are written again
+      wg_pin(s);
+      mask_scores(s, c, q, lo, hi, unused);
+      probs(s, m[j], d[j], pa);
+      wg_fence();
+      issue_pv(o[j], pa, va, c == 0);
+      wg_commit();
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) wg_pin(o[j]);
+    release(i);
+  }
+  // ctx -> bf16 into the query tiles (128-byte swizzled rows), then whole
+  // rows of the head out as 4-byte words
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    unsigned char* ct = qs + (size_t)j * kBox;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float dd = d[j][hf];
+      dd = addf(dd, __shfl_xor_sync(0xffffffffu, dd, 1));
+      dd = addf(dd, __shfl_xor_sync(0xffffffffu, dd, 2));
+      const float inv = __fdiv_rn(1.f, dd);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<uint32_t*>(ct + swz(rl + 8 * hf, 8 * jj + 2 * q)) =
+            pack_bf16(mulf(o[j][4 * jj + 2 * hf], inv), mulf(o[j][4 * jj + 2 * hf + 1], inv));
+    }
+  }
+  __syncthreads();
+  const int words = p.dh / 2;
+  for (int i = tid; i < NQ * 64 * words; i += 128) {
+    const int j = i / (64 * words), r = i / words % 64, col = 2 * (i % words);
+    const int lr = 64 * (qg * NQ + j) + r;   // the row within the sequence
+    if (lr < L && row0 + lr < p.T)
+      *reinterpret_cast<uint32_t*>(p.ctx + (size_t)(row0 + lr) * p.ldc + h * p.dh + col) =
+          *reinterpret_cast<const uint32_t*>(qs + (size_t)j * kBox + swz(r, col));
   }
 }
 
@@ -1052,7 +1169,7 @@ int make_map(CUtensorMap* m, const void* ptr, int cols, int rows, int ld) {
 
 // the launch's sizes, from the layer's shapes
 struct Sizes {
-  int nch, sb, kc_in, kc, hdp, nqkv, G, nt;
+  int nch, sb, kc_in, kc, hdp, nqkv, G, nt, nqg;
 };
 
 Sizes sizes(const LayerArgs& a) {
@@ -1066,7 +1183,17 @@ Sizes sizes(const LayerArgs& a) {
   z.nqkv = 3 * z.hdp;
   z.G = a.L < 64 ? 64 / a.L : 1;
   z.nt = z.G > 1 ? 1 : cdiv(a.L, 64);
+  z.nqg = cdiv(z.nt, kStreamQ);   // the streamed attention's blocks a sequence and head
   return z;
+}
+
+// the attention's plans: 1 resident (a head's q, k and v whole in shared
+// memory), 2 streamed (NQ query tiles resident, the keys through a ring)
+constexpr int kResident = 1, kStreamed = 2;
+
+size_t attn_smem(const Sizes& z, int plan) {
+  if (plan == kStreamed) return 1024 + (size_t)(kStreamQ + 2 * kRing) * kBox + (kRing + 1) * 8;
+  return 1024 + (size_t)3 * z.nt * kBox + 8;
 }
 
 size_t smem_fixed(const LayerArgs& a, const Sizes& z, int kind) {
@@ -1076,7 +1203,7 @@ size_t smem_fixed(const LayerArgs& a, const Sizes& z, int kind) {
   if (kind == 2)
     return 1024 + (size_t)a.nwg * ffn_wg_boxes(a.in_proj, z.kc_in, z.kc) * kBox +
            (2 * kMaxStages + 4) * 8;
-  return 1024 + (size_t)3 * z.nt * kBox + 8;
+  return attn_smem(z, a.attn);
 }
 
 // ring depth: the caller's, else `least`; 0 if that does not fit. The sweep
@@ -1123,6 +1250,16 @@ int launch_ffn(int ks, const FfnParams& p, dim3 grid, size_t smem, void* stream)
   return ks == 3 ? launch(layer_proj_ffn_kernel<NCH, 3>, p, grid, threads, smem, stream)
                  : launch(layer_proj_ffn_kernel<NCH, 4>, p, grid, threads, smem, stream);
 }
+template <int NQ>
+int launch_stream(int kd, const AttnParams& p, dim3 grid, size_t smem, void* stream) {
+  switch (kd) {
+    case 1: return launch(layer_attention_stream_kernel<NQ, 1>, p, grid, 128, smem, stream);
+    case 2: return launch(layer_attention_stream_kernel<NQ, 2>, p, grid, 128, smem, stream);
+    case 3: return launch(layer_attention_stream_kernel<NQ, 3>, p, grid, 128, smem, stream);
+    case 4: return launch(layer_attention_stream_kernel<NQ, 4>, p, grid, 128, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 template <int NKC>
 int launch_attn(int kd, const AttnParams& p, dim3 grid, size_t smem, void* stream) {
   switch (kd) {
@@ -1149,8 +1286,16 @@ extern "C" int gxt_layer_plan(LayerArgs* a, int max_smem) {
       a->nw % kChunk || a->nw < a->C || a->nw >= a->C + kChunk || (a->pipe != 0 && a->pipe != 1))
     return 0;
   const Sizes z = sizes(*a);
-  if (z.nch > kMaxNch || (a->pipe != 0) != (z.nch <= kMaxPipeNch) || z.nt > kMaxQTiles ||
-      smem_fixed(*a, z, 1) > (size_t)max_smem)
+  if (z.nch > kMaxNch || (a->pipe != 0) != (z.nch <= kMaxPipeNch)) return 0;
+  // the attention: resident up to kMaxQTiles query tiles, streamed past
+  // them (L >= 64: one sequence a tile; at 576 keys it ran 1% faster than
+  // the resident kernel walking the keys twice, on an H100: PERF.md); a
+  // plan asked for is kept if it fits
+  const bool resident = z.nt <= kMaxQTiles && attn_smem(z, kResident) <= (size_t)max_smem;
+  const bool streamed = z.G == 1 && attn_smem(z, kStreamed) <= (size_t)max_smem;
+  if (a->attn == 0) a->attn = resident ? kResident : kStreamed;
+  if ((a->attn == kResident && !resident) || (a->attn == kStreamed && !streamed) ||
+      (a->attn != kResident && a->attn != kStreamed))
     return 0;
   a->stages_a = plan_stages(smem_fixed(*a, z, 0), z.sb, a->stages_a, 2, max_smem);
   // the pipelined FFN holds kc + 1 tiles while it waits for the next
@@ -1199,14 +1344,18 @@ extern "C" int gxt_layer_attention(const LayerArgs* a, void* stream) {
   if ((code = make_map(&p.tm_qkv, a->qkv, z.nqkv, a->T, z.nqkv))) return code;
   p.ctx = static_cast<bf16*>(const_cast<void*>(a->ctx));
   p.T = a->T; p.L = a->L; p.H = a->H; p.dh = a->dh; p.dhp = a->dhp; p.ldc = a->ldc;
-  p.G = z.G; p.nt = z.nt;
+  p.G = z.G; p.nt = z.nt; p.nqg = z.nqg;
   // a sequence's heads in neighbouring blocks: each box also reads the next
   // head's first columns, which that head's block then finds in L2
   const int bp = a->T / a->L, kd = a->dhp / 16;
-  const dim3 grid(a->H * cdiv(bp, z.G));
   const size_t smem = smem_bytes(*a, 1);
-  switch (z.nt > 4 ? 0 : z.nt) {
-    case 0: return launch_attn<0>(kd, p, grid, smem, stream);
+  if (a->attn == kStreamed) {
+    if (z.G != 1) return (int)cudaErrorInvalidValue;
+    return launch_stream<kStreamQ>(kd, p, dim3(a->H * z.nqg * bp), smem, stream);
+  }
+  if (a->attn != kResident || z.nt > kMaxQTiles) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a->H * cdiv(bp, z.G));
+  switch (z.nt) {
     case 1: return launch_attn<1>(kd, p, grid, smem, stream);
     case 2: return launch_attn<2>(kd, p, grid, smem, stream);
     case 3: return launch_attn<3>(kd, p, grid, smem, stream);

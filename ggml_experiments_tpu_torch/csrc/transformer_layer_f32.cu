@@ -33,7 +33,8 @@
 // Bound on an H100 at the main path's shapes (bp = 512; (L, C, F) = (256,
 // 144, 288), (64, 192, 384), (16, 240, 480)): the operations, about 232
 // GFLOP a forward's nine layers at 3xTF32's 165 TFLOP/s (1.4 ms), against
-// 12 bytes a token and channel in and out of each kernel.
+// 12 bytes a token and channel in and out of each kernel; at 512 px layer_3
+// (L = 1024) adds 310 GFLOP of attention a layer (1.9 ms).
 //
 // Design of A and C (the row tiles). A block is one or two consumer
 // warpgroups of 64 rows each (one where T / 128 tiles would leave
@@ -116,6 +117,9 @@
 //   * ctx = (p.v) * (1 / sum) stored from registers, each warp's store
 //     filling whole 32-byte sectors; rows past the block's sequences (or
 //     past T) not stored.
+//   * Past 256 keys (layer_3 at 512 px: L = 1024) a block takes two query
+//     tiles of one head of one sequence and walks the keys in windows of 256
+//     (128 past dhp = 48) with a running max (layer_attention_f32_stream_kernel).
 //   A persistent grid (the blocks that are resident at once) walks the
 //   windows. One or two consumer warpgroups a block take its 64-row tiles
 //   in turn (the wrapper's plan: two where a window has two tiles or more);
@@ -246,9 +250,12 @@ bool plan_ok(int nwg, int stages, size_t smem) {
 // the attention's windows: G = 64 / L sequences packed into one tile where
 // L < 64, else one sequence; `rows` tokens a window (its keys) in nt 64-row
 // query tiles over nwg consumer warpgroups; nk keys (the rows rounded up to
-// 64, 128 or 256), ks k-steps of q.k^T
+// 64, 128 or 256), ks k-steps of q.k^T. Past kMaxKeys rows (`stream`) a
+// block takes nwg query tiles of one head of one sequence and walks its keys
+// in windows of nk (256; 128 past dhp = 48), `windows` then counting the
+// blocks.
 struct AttnPlan {
-  int rows, nk, ks, nt, nwg, windows;
+  int rows, nk, ks, nt, nwg, windows, stream;
   size_t smem;
 };
 
@@ -269,14 +276,19 @@ size_t attn_smem(int nk, int ks, int dhp, int nwg) {
 bool attn_plan(const LayerF32Args& a, AttnPlan& p) {
   const int G = a.L < 64 ? 64 / a.L : 1;
   p.rows = G * a.L;
-  p.nk = p.rows <= 64 ? 64 : p.rows <= 128 ? 128 : 256;
   p.ks = cdiv(a.dh, 8);
   p.nt = cdiv(p.rows, 64);
   p.nwg = a.nwg_b;
-  p.windows = cdiv(a.T / a.L, G) * a.H;
+  p.stream = p.rows > kMaxKeys;
+  if (p.stream) {
+    p.nk = p.ks <= 6 ? 256 : 128;
+    p.windows = a.T / a.L * a.H * (p.nwg > 0 ? cdiv(p.nt, p.nwg) : 0);
+  } else {
+    p.nk = p.rows <= 64 ? 64 : p.rows <= 128 ? 128 : 256;
+    p.windows = cdiv(a.T / a.L, G) * a.H;
+  }
   p.smem = attn_smem(p.nk, p.ks, a.dhp, p.nwg);
-  return p.rows <= kMaxKeys && (p.nwg == 1 || p.nwg == 2) && p.nwg <= p.nt &&
-         p.smem <= kSmemLimit;
+  return (p.nwg == 1 || p.nwg == 2) && p.nwg <= p.nt && p.smem <= kSmemLimit;
 }
 
 // ---------------------------------------------------------------------------
@@ -917,6 +929,80 @@ __device__ __forceinline__ void load_window(const AttnF32Params& p, int w, unsig
     load_q(qbuf + (size_t)g * KS * kQTile, &p.tm_qkv, qc, row0 + 64 * g, KS, bar + 1 + g);
 }
 
+// v^T from v's staging (klo): key j of k-step j / 8 at k-column (j % 8) / 2
+// + 4 (j % 2), as raw values (vt) and tf32 lo remainders (vtlo). Lane (r,
+// dq) takes key r of each 8-key step and row 4 db + dq: a warp's load reads
+// 8 rows of 16 bytes, its store one 128-byte span, at offsets 256 and DN *
+// 32 bytes a step apart
+template <int NK, int DN>
+__device__ __forceinline__ void transpose_v(const unsigned char* klo, unsigned char* vt,
+                                            unsigned char* vtlo, int warp, int lane, int nwg) {
+  constexpr int NS = NK / 8;
+  const int r = lane & 7, pos = (r >> 1) + 4 * (r & 1);
+  for (int i = warp; i < DN / 2; i += 4 * nwg) {
+    const int d = 4 * (i >> 1) + (lane >> 3), kg0 = (i & 1) * (NS / 2);
+    const unsigned char* src = klo + (d >> 3) * NK * 32 + swz32(r, d & 7) + kg0 * 256;
+    const int o = swz32(d, pos) + kg0 * DN * 32;
+#pragma unroll
+    for (int kg = 0; kg < NS / 2; ++kg) {
+      const float v = *reinterpret_cast<const float*>(src + kg * 256);
+      *reinterpret_cast<float*>(vt + o + kg * DN * 32) = v;
+      *reinterpret_cast<float*>(vtlo + o + kg * DN * 32) =
+          __fsub_rn(v, __uint_as_float(__float_as_uint(v) & 0xffffe000u));
+    }
+  }
+}
+
+// k's lo remainders over the staging (k itself is its hi plane)
+template <int NK, int KS>
+__device__ __forceinline__ void split_k(const unsigned char* kraw, unsigned char* klo, int tid,
+                                        int nthreads) {
+  for (int i = tid; i < KS * NK * 2; i += nthreads) {
+    const float4 x = reinterpret_cast<const float4*>(kraw)[i];
+    float4 y;
+    y.x = __fsub_rn(x.x, __uint_as_float(__float_as_uint(x.x) & 0xffffe000u));
+    y.y = __fsub_rn(x.y, __uint_as_float(__float_as_uint(x.y) & 0xffffe000u));
+    y.z = __fsub_rn(x.z, __uint_as_float(__float_as_uint(x.z) & 0xffffe000u));
+    y.w = __fsub_rn(x.w, __uint_as_float(__float_as_uint(x.w) & 0xffffe000u));
+    reinterpret_cast<float4*>(klo)[i] = y;
+  }
+}
+
+// p = exp(s - max) (ml2 = max log2(e); m, the max, for the bench's expf
+// variant), its sums added into den, and acc (+)= P.v a k-step of 8 keys at
+// a time: the score fragment (row g: keys 2q, 2q + 1; row g + 8 likewise)
+// is the A fragment with key 2q at k-column q and 2q + 1 at q + 4, as v^T is
+// laid. `keep` 0: the first step overwrites acc. The exponentials of a
+// k-step run beside the products of the steps before it.
+template <int NK, int DN>
+__device__ __forceinline__ void softmax_pv(float (&s)[NK / 2], const float (&m)[2],
+                                           const float (&ml2)[2], float (&den)[2],
+                                           float (&acc)[DN / 2], const unsigned char* vt,
+                                           const unsigned char* vtlo, int keep) {
+  uint32_t ph[2][4], pl4[2][4];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    const int f = j & 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[4 * j + i] = exp_shift(s[4 * j + i], ml2[i >> 1]);
+    den[0] = addf(den[0], addf(s[4 * j], s[4 * j + 1]));
+    den[1] = addf(den[1], addf(s[4 * j + 2], s[4 * j + 3]));
+    if (j >= 2) wg_wait<1>();
+    split_tf32_rz(s[4 * j], ph[f][0], pl4[f][0]);
+    split_tf32_rz(s[4 * j + 2], ph[f][1], pl4[f][1]);
+    split_tf32_rz(s[4 * j + 1], ph[f][2], pl4[f][2]);
+    split_tf32_rz(s[4 * j + 3], ph[f][3], pl4[f][3]);
+    wg_fence();
+    const uint32_t vh = smem_u32(vt + j * DN * 32), vl = smem_u32(vtlo + j * DN * 32);
+    wgmma_tf32_rs<DN>(acc, pl4[f], desc_k32(vh), j == 0 ? keep : 1);
+    wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);
+    wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+  wg_pin(acc);
+}
+
 // NK keys (the block's rows rounded up), KS k-steps of q.k^T (ceil(dh / 8));
 // P.v is dhp = 16 ceil(KS / 2) columns wide. A persistent block walks the
 // windows blockIdx.x, + gridDim.x, ...: the next window's copies go out once
@@ -955,36 +1041,9 @@ __global__ void __launch_bounds__(256, NK <= 64 ? 2 : 1)
     const int h = w % a.H, row0 = w / a.H * pl.rows, R = min(pl.rows, a.T - row0);
     mbar_wait(bar, it & 1);
 
-    // v^T from v's staging: key j of k-step j / 8 at k-column (j % 8) / 2 +
-    // 4 (j % 2). Lane (r, dq) takes key r of each 8-key step and row 4 db + dq:
-    // a warp's load reads 8 rows of 16 bytes, its store one 128-byte span,
-    // at offsets 256 and DN * 32 bytes a step apart
-    {
-      const int r = lane & 7, pos = (r >> 1) + 4 * (r & 1);
-      for (int i = warp; i < DN / 2; i += 4 * nwg) {
-        const int d = 4 * (i >> 1) + (lane >> 3), kg0 = (i & 1) * (NS / 2);
-        const unsigned char* src = klo + (d >> 3) * NK * 32 + swz32(r, d & 7) + kg0 * 256;
-        const int o = swz32(d, pos) + kg0 * DN * 32;
-#pragma unroll
-        for (int kg = 0; kg < NS / 2; ++kg) {
-          const float v = *reinterpret_cast<const float*>(src + kg * 256);
-          *reinterpret_cast<float*>(vt + o + kg * DN * 32) = v;
-          *reinterpret_cast<float*>(vtlo + o + kg * DN * 32) =
-              __fsub_rn(v, __uint_as_float(__float_as_uint(v) & 0xffffe000u));
-        }
-      }
-    }
+    transpose_v<NK, DN>(klo, vt, vtlo, warp, lane, nwg);
     __syncthreads();
-    // k's lo remainders over the staging (k itself is its hi plane)
-    for (int i = tid; i < KS * NK * 2; i += nthreads) {
-      const float4 x = reinterpret_cast<const float4*>(kraw)[i];
-      float4 y;
-      y.x = __fsub_rn(x.x, __uint_as_float(__float_as_uint(x.x) & 0xffffe000u));
-      y.y = __fsub_rn(x.y, __uint_as_float(__float_as_uint(x.y) & 0xffffe000u));
-      y.z = __fsub_rn(x.z, __uint_as_float(__float_as_uint(x.z) & 0xffffe000u));
-      y.w = __fsub_rn(x.w, __uint_as_float(__float_as_uint(x.w) & 0xffffe000u));
-      reinterpret_cast<float4*>(klo)[i] = y;
-    }
+    split_k<NK, KS>(kraw, klo, tid, nthreads);
     fence_async_smem();
     __syncthreads();
 
@@ -1058,33 +1117,10 @@ __global__ void __launch_bounds__(256, NK <= 64 ? 2 : 1)
         if (m[hf] == -INFINITY) m[hf] = 0.f;   // a row past the block's sequences
       }
 
-      // p = exp(s - max), its sums, and P.v a k-step of 8 keys at a time: the
-      // score fragment (row g: keys 2q, 2q + 1; row g + 8 likewise) is the A
-      // fragment with key 2q at k-column q and 2q + 1 at q + 4, as v^T is laid
+      // p = exp(s - max), its sums, and P.v
       float acc[DN / 2];
-      uint32_t ph[2][4], pl4[2][4];
       const float ml2[2] = {mulf(m[0], kLog2e), mulf(m[1], kLog2e)};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int f = j & 1;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[4 * j + i] = exp_shift(s[4 * j + i], ml2[i >> 1]);
-        den[0] = addf(den[0], addf(s[4 * j], s[4 * j + 1]));
-        den[1] = addf(den[1], addf(s[4 * j + 2], s[4 * j + 3]));
-        if (j >= 2) wg_wait<1>();
-        split_tf32_rz(s[4 * j], ph[f][0], pl4[f][0]);
-        split_tf32_rz(s[4 * j + 2], ph[f][1], pl4[f][1]);
-        split_tf32_rz(s[4 * j + 1], ph[f][2], pl4[f][2]);
-        split_tf32_rz(s[4 * j + 3], ph[f][3], pl4[f][3]);
-        wg_fence();
-        const uint32_t vh = smem_u32(vt + j * DN * 32), vl = smem_u32(vtlo + j * DN * 32);
-        wgmma_tf32_rs<DN>(acc, pl4[f], desc_k32(vh), j == 0 ? 0 : 1);
-        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);
-        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);
-        wg_commit();
-      }
-      wg_wait<0>();
-      wg_pin(acc);
+      softmax_pv<NK, DN>(s, m, ml2, den, acc, vt, vtlo, 0);
 
       // ctx = (p.v) * (1 / sum), the head's dh columns of the block's rows
 #pragma unroll
@@ -1111,6 +1147,173 @@ __global__ void __launch_bounds__(256, NK <= 64 ? 2 : 1)
       }
     }
     __syncthreads();   // v^T is read: the next window's pass may write it
+  }
+}
+
+// The streamed form (L past kMaxKeys): a block takes nwg query tiles (one a
+// warpgroup, loaded once) of one head of one sequence and walks the
+// sequence's keys in windows of NK. Each window goes through the resident
+// form's steps (k and v by TMA, v^T's and k's lo planes, S on tf32 wgmma
+// with the scores of the window's keys in registers, P.v) against a running
+// row max: where a window raises it, the sums so far are scaled by 2^(old
+// max log2(e) - new max log2(e)) first (online softmax, as the f32 flash
+// kernel does). The true-max walk of the bf16 forms would compute S twice;
+// at f32 nothing is rounded between the max and p, so the rescale changes
+// only the last f32 bits and keeps one pass. Once both warpgroups' S of a
+// window is done, one thread sends the next window's k and v (their
+// buffers are free), which land beside the softmax and P.v; the v^T pass
+// of the next window waits for every P.v. Query tiles past the sequence's
+// last repeat it and are not stored.
+template <int NK, int KS>
+__global__ void __launch_bounds__(256, 1)
+    layer_attention_f32_stream_kernel(const __grid_constant__ AttnF32Params p) {
+  constexpr int DN = 16 * ((KS + 1) / 2), NS = NK / 8;
+  const LayerF32Args& a = p.a;
+  const AttnPlan& pl = p.pl;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int nwg = pl.nwg;
+  unsigned char* kraw = base;                                    // KS k-steps of NK rows
+  unsigned char* klo = kraw + (size_t)KS * NK * 32;              // v's staging, then k's lo
+  unsigned char* vt = klo + (size_t)NK * DN * 4;                 // NS k-steps of DN rows
+  unsigned char* vtlo = vt + (size_t)NK * DN * 4;
+  unsigned char* qbuf = vtlo + (size_t)NK * DN * 4;              // a warpgroup's q tile
+  uint64_t* bar = reinterpret_cast<uint64_t*>(qbuf + (size_t)nwg * KS * kQTile);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int g = lane >> 2, q = lane & 3;
+  const int rl = 16 * (warp & 3) + g;   // the lane's rows rl, rl + 8 of a tile
+  unsigned char* qt = qbuf + (size_t)wg * KS * kQTile;
+  float* ctx = static_cast<float*>(const_cast<void*>(a.ctx));
+  const bool pairs = !(a.dh & 1) && !(a.ldc & 1);
+  const int L = a.L, nqg = cdiv(pl.nt, nwg), h = blockIdx.x % a.H;
+  const int qg = blockIdx.x / a.H % nqg, row0 = blockIdx.x / a.H / nqg * L;
+  const int hq = a.H * a.dhp, qc = h * a.dhp, nwin = cdiv(L, NK);
+  // window w's k and v (keys row0 + w NK ...) into kraw and the staging
+  auto send = [&](int w) {
+    mbar_expect(bar, (KS + DN / 8) * NK * 32);
+    for (int r = 0; r < NK; r += 64) {
+      for (int s = 0; s < KS; ++s)
+        tma_box(kraw + s * NK * 32 + r * 32, &p.tm_qkv, hq + qc + 8 * s, row0 + w * NK + r, bar);
+      for (int s = 0; s < DN / 8; ++s)
+        tma_box(klo + s * NK * 32 + r * 32, &p.tm_qkv, 2 * hq + qc + 8 * s, row0 + w * NK + r,
+                bar);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    for (int w = 0; w < nwg; ++w) mbar_init(bar + 1 + w, 1);
+    mbar_init_fence();
+    send(0);
+    for (int w = 0; w < nwg; ++w)
+      load_q(qbuf + (size_t)w * KS * kQTile, &p.tm_qkv, qc,
+             row0 + 64 * min(qg * nwg + w, pl.nt - 1), KS, bar + 1 + w);
+  }
+  __syncthreads();
+  mbar_wait(bar + 1 + wg, 0);
+  const int t = qg * nwg + wg;   // the warpgroup's query tile
+  float acc[DN / 2], m[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+  for (int w = 0; w < nwin; ++w) {
+    __syncthreads();   // every P.v of the last window is done: v^T may be written
+    mbar_wait(bar, w & 1);
+    transpose_v<NK, DN>(klo, vt, vtlo, warp, lane, nwg);
+    __syncthreads();
+    split_k<NK, KS>(kraw, klo, tid, 128 * nwg);
+    fence_async_smem();
+    __syncthreads();
+
+    // S = q.k^T of the window's keys as 3xTF32 (q split a k-step at a time)
+    float s[NK / 2];
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int f = ks & 1;
+      if (ks >= 2) wg_wait<1>();
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rl + 8 * (e & 1), k = q + 4 * (e >> 1);
+        const float x = *reinterpret_cast<const float*>(qt + ks * kQTile + swz32(row, k));
+        split_tf32_rz(8 * ks + k < a.dh ? x : 0.f, ah[f][e], al[f][e]);
+      }
+      wg_fence();
+      const uint32_t kh = smem_u32(kraw + ks * NK * 32), kl = smem_u32(klo + ks * NK * 32);
+      wgmma_tf32_rs<NK>(s, al[f], desc_k32(kh), ks == 0 ? 0 : 1);
+      wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kl), 1);
+      wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);
+      wg_commit();
+    }
+    wg_wait<0>();
+    wg_pin(s);
+    // k and the staging are read by both warpgroups: the next window's
+    // copies go out
+    __syncthreads();
+    if (tid == 0 && w + 1 < nwin) send(w + 1);
+
+    // keys past L at -inf; the running max; the sums so far rescaled
+    const int hi = L - w * NK;
+    float ml2[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hi < NK) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 8 * j + 2 * q + e, i = 4 * j + 2 * hf + e;
+            s[i] = key < hi ? s[i] : -INFINITY;
+          }
+      }
+      float mw = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mw = fmaxf(mw, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+      mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, 1));
+      mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, 2));
+      const float mn = fmaxf(m[hf], mw);   // finite: the window has a key below L
+      ml2[hf] = mulf(mn, kLog2e);
+      float r;
+      asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(__fsub_rn(mulf(m[hf], kLog2e), ml2[hf])));
+      m[hf] = mn;
+      den[hf] = mulf(den[hf], r);
+#pragma unroll
+      for (int j = 0; j < DN / 8; ++j) {
+        acc[4 * j + 2 * hf] = mulf(acc[4 * j + 2 * hf], r);
+        acc[4 * j + 2 * hf + 1] = mulf(acc[4 * j + 2 * hf + 1], r);
+      }
+    }
+
+    // p = exp(s - max), its sums, and the window's P.v, a fresh sum on the
+    // tensor cores added to the rescaled total in f32 (chained over every
+    // window, the tensor cores' sums drift: 1.9e-5 of the largest value at
+    // L = 4096 on an H100)
+    float part[DN / 2];
+    softmax_pv<NK, DN>(s, m, ml2, den, part, vt, vtlo, 0);
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) acc[i] = addf(acc[i], part[i]);
+  }
+
+  // ctx = (p.v) * (1 / sum), the head's dh columns of the tile's rows
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    den[hf] = addf(den[hf], __shfl_xor_sync(0xffffffffu, den[hf], 1));
+    den[hf] = addf(den[hf], __shfl_xor_sync(0xffffffffu, den[hf], 2));
+    const float inv = __fdiv_rn(1.f, den[hf]);
+    const int r = 64 * t + rl + 8 * hf;
+    if (r >= L) continue;
+    float* dst = ctx + (size_t)(row0 + r) * a.ldc + h * a.dh;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      const int d = 8 * j + 2 * q;
+      if (d >= a.dh) continue;
+      const float v0 = mulf(acc[4 * j + 2 * hf], inv);
+      const float v1 = mulf(acc[4 * j + 2 * hf + 1], inv);
+      if (d + 1 < a.dh && pairs) {
+        *reinterpret_cast<float2*>(dst + d) = make_float2(v0, v1);
+      } else {
+        dst[d] = v0;
+        if (d + 1 < a.dh) dst[d + 1] = v1;
+      }
+    }
   }
 }
 
@@ -1168,8 +1371,30 @@ int launch_attn_nk(const AttnF32Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// the streamed form: a block a group of query tiles
+template <int NK, int KS>
+int launch_attn_stream(const AttnF32Params& p, void* stream) {
+  void (*kernel)(AttnF32Params) = layer_attention_f32_stream_kernel<NK, KS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {const_cast<AttnF32Params*>(&p)};
+  err = cudaLaunchKernel((void*)kernel, dim3(p.pl.windows), dim3(128 * p.pl.nwg), args,
+                         p.pl.smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int KS>
 int launch_attn(const AttnF32Params& p, void* stream) {
+  if (p.pl.stream) {
+    if constexpr (KS <= 6) {
+      if (p.pl.nk == 256) return launch_attn_stream<256, KS>(p, stream);
+    } else {
+      if (p.pl.nk == 128) return launch_attn_stream<128, KS>(p, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (p.pl.nk) {
     case 64: return launch_attn_nk<64, KS>(p, stream);
     case 128: return launch_attn_nk<128, KS>(p, stream);

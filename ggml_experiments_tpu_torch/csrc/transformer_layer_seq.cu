@@ -1,8 +1,9 @@
 // A whole pre-LN ViT encoder layer, one block per sequence: the route of
 // gxt_layer_forward's shapes that the row-tile kernels of transformer_layer.cu
-// do not take (C > 288, where x1 no longer fits in registers; a head's q, k
-// and v past shared memory, L > 576; an input projection whose x tile does
-// not fit beside the weight ring). ops/fused_transformer_layer.py
+// do not take (C > 288, where x1 no longer fits in registers; an input
+// projection whose x tile does not fit beside the weight ring). Its own
+// plan (gxt_layer_seq_plan) takes what its block's shared memory holds.
+// ops/fused_transformer_layer.py
 // `fused_layer_cuda` picks the route; both replace ggml_experiments_tpu/ops/
 // fused_transformer_layer.py `_fused_layer_call` (pallas_call :184; body
 // `_layer_kernel` :64).

@@ -1,5 +1,5 @@
-"""Fused multi-head attention over whole rows: ``csrc/flash_attention.cu``
-and its plain PyTorch version.
+"""Fused multi-head attention: ``csrc/flash_attention.cu`` and its plain
+PyTorch version.
 
 Replaces the TPU kernel ``ops/flash_attention.py`` ``_flash_core_call`` of
 the JAX package. It takes q, k, v in the projections' (..., L, C) layout and
@@ -13,11 +13,15 @@ C / H. The arithmetic follows the TPU body:
   ``ctx = p . v_h`` in f32; ``out = ctx * (1 / denom)``, rounded to the
   compute dtype.
 
-Whole rows fit (L <= 256 on the model). The plain version takes the row max
-first; the kernel does too at bf16, while at f32 it keeps a running max and
-rescales (online softmax), which differs only by f32 rounding. On a CPU
-tensor :func:`flash_mha` runs :func:`flash_mha_plain`; on a CUDA tensor it
-launches the kernel or raises. The kernel takes head widths up to 64.
+The kernel stages a head's k and v whole in shared memory up to
+``WHOLE_ROW_KEYS`` keys (L <= 256: MobileViT-small up to 256 px) and
+streams them through it in chunks of that many keys past it (layer_3's L =
+1024 at 512 px), computing the same bits either way. The plain version
+takes the row max first; the kernel does too at bf16 (streaming the keys
+twice), while at f32 it keeps a running max and rescales (online softmax),
+which differs only by f32 rounding. On a CPU tensor :func:`flash_mha` runs
+:func:`flash_mha_plain`; on a CUDA tensor it launches the kernel or raises.
+The kernel takes head widths up to 64 and any L.
 
 Under ``torch.export`` (or ``torch.compile``) the kernel is reached through
 the custom op ``gxt::flash_mha`` (:func:`flash_mha_op`), whose CUDA
@@ -35,8 +39,17 @@ import torch
 
 from ggml_experiments_tpu_torch.device import current_stream_handle, resolve_dtype
 
-# launches of the CUDA kernel; only the kernel wrapper adds to it
-LAUNCHES = {"flash_mha": 0}
+# launches of the CUDA kernel, and of those the ones that streamed the keys;
+# only the kernel wrapper adds to them
+LAUNCHES = {"flash_mha": 0, "flash_mha_streamed": 0}
+WHOLE_ROW_KEYS = 256   # keys a launch stages at once (csrc kWholeKeys)
+
+
+def streams_keys(l: int) -> bool:
+    """Whether a launch over sequences of ``l`` tokens streams k and v
+    through shared memory in chunks (csrc ``plan``): past WHOLE_ROW_KEYS
+    keys, L rounded up to 8."""
+    return -(-l // 8) * 8 > WHOLE_ROW_KEYS
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,11 +93,32 @@ def _lib():
     return _LIB[0]
 
 
+def flash_smem_bytes(l: int, c: int, h: int) -> int:
+    """Bytes of shared memory of a launch at (L, C, H) (csrc ``plan``): k
+    and v of the block's pairs (8 // ceil(L / 16) pairs where a pair's rows
+    fit 8 warps, else one) as f32 rows of dh rounded up to 4 x an odd number
+    of floats, whole up to WHOLE_ROW_KEYS keys, else a chunk of that many,
+    and 8 floats of slack; -1 where the kernel does not take the heads
+    (width past 64)."""
+    if l <= 0 or h <= 0 or c % h or c // h > 64:
+        return -1
+    dh = c // h
+    s = -(-dh // 4) * 4
+    s = s if (s // 4) % 2 else s + 4
+    lp, tiles = -(-l // 8) * 8, -(-l // 16)
+    pairs = 8 // tiles if tiles <= 8 else 1
+    return (pairs * 2 * min(lp, WHOLE_ROW_KEYS) * s + 8) * 4
+
+
 def _check_fits(lib, dev: torch.device, l: int, c: int, h: int) -> None:
     key = (dev.index, l, c, h)
     if key in _FITS:
         return
     need = lib.gxt_flash_mha_smem(l, c, h)
+    if need != flash_smem_bytes(l, c, h):
+        raise RuntimeError(f"flash_mha_cuda: the kernel reckons {need} bytes of shared memory "
+                           f"at (L, C, H) = ({l}, {c}, {h}), the wrapper "
+                           f"{flash_smem_bytes(l, c, h)}")
     limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
                     232448)
     if need < 0 or need > limit:
@@ -125,6 +159,8 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             code = lib.gxt_flash_mha(*args)
     _build.check(lib, code, f"flash_mha (bp, L, C, H) = ({bp}, {l}, {c}, {num_heads})")
     LAUNCHES["flash_mha"] += 1
+    if streams_keys(l):
+        LAUNCHES["flash_mha_streamed"] += 1
     return out
 
 

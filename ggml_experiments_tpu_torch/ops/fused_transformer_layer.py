@@ -33,9 +33,13 @@ heads padded to dhp = dh rounded up to 16 with zero columns),
 ``attention`` (steps 4-5; ctx (T, C)) and ``proj_ffn`` (steps 1 again and
 6-12). Chained, the three plain versions give
 :func:`fused_transformer_layer_plain`'s bits. A layer those row-tile kernels
-do not take (C past 288, L past 576, an x tile past shared memory) runs on
-the per-sequence kernel of ``csrc/transformer_layer_seq.cu``, one launch
-whose plain version is :func:`fused_transformer_layer_plain`.
+do not take (C past 288, an x tile past shared memory) runs on the
+per-sequence kernel of ``csrc/transformer_layer_seq.cu``, one launch whose
+plain version is :func:`fused_transformer_layer_plain`. The bf16 attention
+holds a head's q, k and v whole in shared memory up to 256 keys (a row's
+scores in registers) and past that keeps four query tiles resident and
+streams the keys twice through a ring (:func:`attention_plan`): the same
+arithmetic, any L.
 
 At f32 every "-> cd" is a no-op, and the layer runs on the three kernels of
 ``csrc/transformer_layer_f32.cu`` in the same split, with the same (T, 3 H
@@ -44,11 +48,13 @@ each product as 3xTF32 on tf32 ``wgmma``, the weights split once a layer
 into K-major tf32 hi / lo tiles streamed in the order the kernels consume
 them (:func:`f32_tiles`, :func:`_prepare_f32`, kept in
 ``LayerOperands.cache``); the attention a block per head of whole
-sequences (up to 256 keys), the scores of whole rows on tf32 ``wgmma`` in
-registers and the softmax after the true row max. The same three plain
+sequences up to 256 keys, the scores of whole rows on tf32 ``wgmma`` in
+registers and the softmax after the true row max, and past 256 keys (up to
+4096) a block per two query tiles walking the keys in windows of 256 with
+a running max (:func:`f32_attention_streams`). The same three plain
 pieces are their plain versions. A layer they do not take (a head past 64,
-C past 240 or not a multiple of 4, L past 256, a block's shared memory past
-the device's: :func:`f32_layer_takes`) is refused with
+C past 240 or not a multiple of 4, L past 4096, a block's shared memory
+past the device's: :func:`f32_layer_takes`) is refused with
 its shape; there is no per-sequence route at f32, and the model keeps such a
 layer on its unfused chain.
 
@@ -73,11 +79,13 @@ from ggml_experiments_tpu_torch.ops.norm import layer_norm
 from ggml_experiments_tpu_torch.quant.qtensor import QTensor, dequantize
 
 # launches: the bf16 layer (three row-tile kernels a call, or the
-# per-sequence kernel) and each kernel, then each f32 kernel; only the kernel
-# wrappers add to them
+# per-sequence kernel) and each kernel, then each f32 kernel, then of the
+# attention's launches (bf16, f32) those that streamed the keys; only the
+# kernel wrappers add to them
 LAUNCHES = {"fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
             "transformer_proj_ffn": 0, "transformer_sequence": 0, "transformer_ln_qkv_f32": 0,
-            "transformer_attention_f32": 0, "transformer_proj_ffn_f32": 0}
+            "transformer_attention_f32": 0, "transformer_proj_ffn_f32": 0,
+            "transformer_attention_streamed": 0, "transformer_attention_f32_streamed": 0}
 
 
 @dataclasses.dataclass
@@ -392,7 +400,21 @@ class _Args(ctypes.Structure):
         "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [(name, ctypes.c_int) for name in (
         "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "nf", "Cout", "in_proj",
         "final_ln", "out_proj", "out_act", "stages_a", "stages_c", "ks", "ldo", "nwg", "nw",
-        "pipe")] + [(name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
+        "pipe", "attn")] + [(name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
+
+
+# the bf16 attention's plans (csrc kResident, kStreamed): a head's q, k and v
+# whole in a block's shared memory, or 4 query tiles resident and the keys
+# streamed twice through a ring
+ATTENTION_PLANS = {"resident": 1, "streamed": 2}
+RESIDENT_MAX_KEYS = 256   # the resident plan's longest sequence (csrc kMaxQTiles 64-row tiles)
+
+
+def attention_plan(l: int) -> str:
+    """The bf16 attention's plan at sequences of ``l`` tokens (csrc
+    ``gxt_layer_plan``): resident up to RESIDENT_MAX_KEYS, streamed past
+    it."""
+    return "resident" if l <= RESIDENT_MAX_KEYS else "streamed"
 
 
 _LIB = []   # the loaded library, bound (a timing tool may put a variant in its place)
@@ -443,16 +465,18 @@ def _check(ops: LayerOperands, x: torch.Tensor, l: int, cin: int) -> None:
                          f"(C={c})")
 
 
-def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=None):
+def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=None,
+                 attn=None):
     """(prepared operands, _Args) for a launch of the row-tile kernels on x,
-    or None where they do not take the layer (x1 in registers: C <= 288; a
-    head's q, k and v in shared memory: L <= 576; the x tile beside the
-    weight ring). ``plan`` = (ln_qkv, proj_ffn) ring depths forces them
-    (tests, sweeps); None takes the plan's, the least each kernel runs."""
+    or None where they do not take the layer (x1 in registers: C <= 288; the
+    x tile beside the weight ring). ``plan`` = (ln_qkv, proj_ffn) ring
+    depths forces them, ``attn`` ("resident" or "streamed") the attention's
+    plan (tests, sweeps); None takes the plan's: the least ring each kernel
+    runs, the attention of :func:`attention_plan`."""
     _check(ops, x, l, cin)
     dev, t = x.device, x.shape[0]
     prep = ops.cache.get(dev)
-    a = prep.args.get((t, l, cin, plan)) if prep is not None else None
+    a = prep.args.get((t, l, cin, plan, attn)) if prep is not None else None
     if a is None:
         if prep is None:
             prep = ops.cache[dev] = _prepare(ops, dev)
@@ -464,7 +488,8 @@ def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=Non
                   final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
                   out_act=int(ops.out_act), stages_a=(plan or (0, 0))[0],
                   stages_c=(plan or (0, 0))[1], ks=prep.ks, nw=prep.nw, pipe=int(prep.pipe),
-                  eps=ops.eps, final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh),
+                  attn=ATTENTION_PLANS[attn] if attn else 0, eps=ops.eps,
+                  final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh),
                   wa=prep.wa.data_ptr(), wc=prep.wc.data_ptr())
         for k, v in prep.vectors.items():
             setattr(a, k, None if v is None else v.data_ptr())
@@ -472,7 +497,7 @@ def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=Non
             return None
         if plan is None:
             prep.stages = (a.stages_a, a.stages_c)
-        prep.args[(t, l, cin, plan)] = a
+        prep.args[(t, l, cin, plan, attn)] = a
     a = _Args.from_buffer_copy(a)
     if ops.out_affine is not None:   # a call's own BN vectors (the model makes them anew)
         a.keep = tuple(_f32(v, dev) for v in ops.out_affine)   # alive until the launch
@@ -480,14 +505,15 @@ def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=Non
     return prep, a
 
 
-def _row_tile_args(ops, x, l, cin, plan, what):
-    got = _launch_args(ops, x, l, cin, plan)
+def _row_tile_args(ops, x, l, cin, plan, what, attn=None):
+    got = _launch_args(ops, x, l, cin, plan, attn)
     if got is None:
         c = ops.wq.shape[0]
         raise ValueError(
             f"{what}: (L, Cin, C, F) = ({l}, {cin}, {c}, {ops.wi.shape[1]}) with ring depths "
-            f"{plan} is not a layer the row-tile kernels take (C up to 288, L up to 576, "
-            f"within one block's {_smem_limit(x.device)} bytes of shared memory)")
+            f"{plan} and attention plan {attn} is not a layer the row-tile kernels take (C up "
+            f"to 288; the resident attention L up to {RESIDENT_MAX_KEYS}, the streamed L from "
+            f"64; within one block's {_smem_limit(x.device)} bytes of shared memory)")
     return got
 
 
@@ -536,23 +562,27 @@ def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> 
 def attention_cuda(qkv: torch.Tensor, l: int, ops: LayerOperands, *, _plan=None) -> torch.Tensor:
     """Kernel B on :func:`ln_qkv_cuda`'s array: ctx (T, C) in its dtype
     (bf16 rows padded to a multiple of 8 elements: a view). ``_plan``
-    forces the f32 block's consumer warpgroups, 1 or 2."""
+    forces the bf16 plan ("resident" or "streamed") or the f32 block's
+    consumer warpgroups, 1 or 2."""
     if qkv.dtype == torch.float32:
         return _attention_f32(qkv, l, ops, _plan)
-    if _plan is not None:
-        raise ValueError("transformer attention: the bf16 kernel takes no plan")
+    if _plan is not None and _plan not in ATTENTION_PLANS:
+        raise ValueError(f"transformer attention: the bf16 plans are {sorted(ATTENTION_PLANS)}, "
+                         f"got {_plan!r}")
     c, h, dh, dhp = _dims(ops)
     if qkv.dim() != 2 or qkv.shape[1] != 3 * h * dhp or not qkv.is_contiguous():
         raise ValueError(f"transformer attention: qkv must be a contiguous (T, {3 * h * dhp}) "
                          f"array, got {tuple(qkv.shape)}")
     prep, a = _row_tile_args(ops, qkv, l, c if ops.win is None else ops.win.shape[0], None,
-                             "transformer attention")
+                             "transformer attention", _plan)
     ldc = -(-c // 8) * 8
     ctx = torch.empty((qkv.shape[0], ldc), dtype=torch.bfloat16, device=qkv.device)
     a.qkv, a.ctx, a.ldc = qkv.data_ptr(), ctx.data_ptr(), ldc
     _run(_lib(), "gxt_layer_attention", a, qkv.device,
          lambda: f"transformer attention (T, L, C, H) = ({qkv.shape[0]}, {l}, {c}, {h})")
     LAUNCHES["transformer_attention"] += 1
+    if a.attn == ATTENTION_PLANS["streamed"]:
+        LAUNCHES["transformer_attention_streamed"] += 1
     return ctx[:, :c]
 
 
@@ -615,6 +645,8 @@ def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> tor
     for k in ("fused_transformer_layer", "transformer_ln_qkv", "transformer_attention",
               "transformer_proj_ffn"):
         LAUNCHES[k] += 1
+    if a.attn == ATTENTION_PLANS["streamed"]:
+        LAUNCHES["transformer_attention_streamed"] += 1
     return out[:, :prep.cout].reshape(bp, l, -1)
 
 
@@ -663,9 +695,11 @@ def _seq_lib():
 
 def sequence_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
     """The layer on the per-sequence kernel, a bf16 (bp, L, Cin) CUDA tensor
-    with L a multiple of 8: any C, and any L whose sequence's k and v fit one
-    block's shared memory beside one warp's buffers; (bp, L, Cout) bf16.
-    :func:`fused_layer_cuda` takes it where the row-tile kernels do not."""
+    with L a multiple of 8: any C (the row tiles stop at 288), within the
+    plan of its own block's shared memory; (bp, L, Cout) bf16.
+    :func:`fused_layer_cuda` takes it where the row-tile kernels do not: C
+    past 288, or an input projection whose x tile does not fit beside their
+    weight ring."""
     if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
         raise ValueError(f"sequence_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
                          f"{x3.dtype}{tuple(x3.shape)} on {x3.device}")
@@ -720,6 +754,7 @@ _F32_BOX = 8192         # a warpgroup tile's 32-column box of 64 rows (csrc kBox
 _F32_MAX_STAGES = 6     # ring buffers, at most (csrc kMaxStages)
 _F32_STAGES = 4         # ring buffers the plan takes where they fit
 _F32_MAX_KEYS = 256     # the attention's window: a row's scores in registers (csrc kMaxKeys)
+_F32_MAX_L = 4096       # the longest sequence the gate takes (csrc: any)
 
 
 def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
@@ -794,14 +829,26 @@ def _f32_fixed(d: dict, kind: int, nwg: int) -> int:
             + 8 * (2 * _F32_MAX_STAGES + 4))
 
 
+def f32_attention_streams(l: int) -> bool:
+    """Whether the f32 attention walks the keys in windows with a running
+    max (csrc ``attn_plan``'s ``stream``): past _F32_MAX_KEYS keys."""
+    return l > _F32_MAX_KEYS
+
+
 def f32_attention_block(l: int, dh: int):
     """(rows, keys, k-steps, query tiles) of an f32 attention block (csrc
     ``attn_plan``): 64 // L sequences packed into one 64-row tile where L <
-    64, else one sequence; its rows are its keys, rounded up to 64, 128 or
-    256 for the scores' width; ceil(dh / 8) k-steps of q.k^T."""
+    64, else one sequence; up to _F32_MAX_KEYS its rows are its keys,
+    rounded up to 64, 128 or 256 for the scores' width; past it the keys
+    come in windows of 256 (128 past a padded head of 48); ceil(dh / 8)
+    k-steps of q.k^T."""
     rows = max(1, 64 // l) * l
-    keys = next((n for n in (64, 128, _F32_MAX_KEYS) if rows <= n), -(-rows // 64) * 64)
-    return rows, keys, -(-dh // 8), -(-rows // 64)
+    ks = -(-dh // 8)
+    if f32_attention_streams(l):
+        keys = _F32_MAX_KEYS if ks <= 6 else _F32_MAX_KEYS // 2
+    else:
+        keys = next(n for n in (64, 128, _F32_MAX_KEYS) if rows <= n)
+    return rows, keys, ks, -(-rows // 64)
 
 
 def f32_attention_smem(l: int, dh: int, nwg: int) -> int:
@@ -818,10 +865,10 @@ def f32_attention_warpgroups(l: int, dh: int, nwg: Optional[int] = None) -> Opti
     """The f32 attention block's consumer warpgroups: two where it has two
     64-row query tiles or more, else one; ``nwg`` forces 1 or 2 (tests,
     sweeps). None where the block does not take them (more warpgroups than
-    tiles, or L past 256)."""
-    rows, _, _, nt = f32_attention_block(l, dh)
+    tiles)."""
+    _, _, _, nt = f32_attention_block(l, dh)
     w = nwg or min(2, nt)
-    return w if rows <= _F32_MAX_KEYS and w in (1, 2) and w <= nt else None
+    return w if w in (1, 2) and w <= nt else None
 
 
 def layer_f32_smem(l: int, cin: int, c: int, h: int, f: int, in_proj: bool,
@@ -873,12 +920,12 @@ def f32_layer_takes(l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
                     limit: Optional[int] = None) -> bool:
     """Whether the f32 kernels take a layer of these widths: C heads of dh
     <= 64, C up to 240 (the row tiles' sums in registers) and a multiple of
-    4 (TMA rows of 16 bytes), as Cin with the input projection; L up to 256
-    (the attention's scores of whole rows in registers); each kernel's
+    4 (TMA rows of 16 bytes), as Cin with the input projection; L up to
+    4096 (past 256 the attention walks the keys in windows); each kernel's
     block within ``limit`` bytes of shared memory (default: the card's, or
     an H100's where no card is visible) with one warpgroup and two ring
     buffers (the BN vectors reckoned for a Cout up to 2C)."""
-    if (l <= 0 or l > _F32_MAX_KEYS or h <= 0 or c % h or c // h > 64 or c > _F32_MAX_C
+    if (l <= 0 or l > _F32_MAX_L or h <= 0 or c % h or c // h > 64 or c > _F32_MAX_C
             or c % 4):
         return False
     if in_proj and cin % 4:
@@ -1005,7 +1052,7 @@ def _f32_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, what: str, 
                                                      limit=limit):
         raise ValueError(
             f"{what}: (T, L, Cin, C, H, F) = ({x.shape[0]}, {l}, {cin}, {c}, {h}, {f}) is not a "
-            f"layer the f32 kernels take (T a multiple of L, L up to {_F32_MAX_KEYS}, a head "
+            f"layer the f32 kernels take (T a multiple of L, L up to {_F32_MAX_L}, a head "
             f"width up to 64, C up to {_F32_MAX_C} and C and Cin multiples of 4, each kernel's "
             f"block within {limit} bytes of shared memory: "
             f"{layer_f32_smem(l, cin, c, h, f, in_proj)})")
@@ -1086,6 +1133,8 @@ def _attention_f32(qkv: torch.Tensor, l: int, ops: LayerOperands, nwg=None) -> t
     _run(_f32_lib(), "gxt_layer_attention_f32", a, qkv.device,
          lambda: f"transformer attention f32 (T, L, C, H) = ({qkv.shape[0]}, {l}, {c}, {h})")
     LAUNCHES["transformer_attention_f32"] += 1
+    if f32_attention_streams(l):
+        LAUNCHES["transformer_attention_f32_streamed"] += 1
     return ctx
 
 
@@ -1129,6 +1178,8 @@ def fused_layer_f32_cuda(x3: torch.Tensor, ops: LayerOperands, nwg=None) -> torc
          lambda: f"fused_transformer_layer f32 (bp, L, Cin, C) = ({bp}, {l}, {cin}, {c})")
     for k in ("transformer_ln_qkv_f32", "transformer_attention_f32", "transformer_proj_ffn_f32"):
         LAUNCHES[k] += 1
+    if f32_attention_streams(l):
+        LAUNCHES["transformer_attention_f32_streamed"] += 1
     return out.reshape(bp, l, -1)
 
 

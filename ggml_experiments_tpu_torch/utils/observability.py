@@ -174,6 +174,28 @@ def inverted_residual_bound(
     return parts[by], by, parts
 
 
+def attention_bound(
+    bp: int, l: int, c: int, h: int, dtype: str = "bfloat16", *, passes: int = 1,
+    chip: ChipSpec = H100,
+) -> Tuple[float, str, Dict[str, float]]:
+    """Least time (ms) of one attention launch over bp sequences of l
+    tokens (c channels, h heads of dh = c / h) on ``chip``, what bounds it
+    ("bytes" or "operations"), and each part: the bytes (q, k and v read
+    once at the heads' width, ctx written once, at the dtype's width) at the
+    HBM rate; the products, 2 bp h l^2 dh operations each for q.k^T and
+    P.v, q.k^T ``passes`` times (2 where the keys are walked twice: the
+    bf16 forms), on the tensor rate (f32: three tf32 products each,
+    ``tf32x3``); bp h l^2 exponentials on the MUFU."""
+    elt, products = (2, "bfloat16") if dtype == "bfloat16" else (4, "tf32x3")
+    qk = 2 * bp * h * l * l * (c // h)
+    parts = {"bytes": 4 * bp * l * c * elt / chip.hbm_bytes_per_s,
+             "tensor": (passes + 1) * qk / chip.peak_ops[products],
+             "mufu": bp * h * l * l / chip.mufu_exp_per_s}
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    by = max(parts, key=parts.get)
+    return parts[by], "bytes" if by == "bytes" else "operations", parts
+
+
 def transformer_layer_bound(
     bp: int, l: int, cin: int, c: int, f: int, cout: int, dtype: str = "bfloat16",
     *, in_proj: bool = False, out_proj: bool = False,

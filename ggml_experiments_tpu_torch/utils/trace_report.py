@@ -53,11 +53,11 @@ KERNEL_PATTERNS = (
     (r"\bgru_train_dwr_f32_reduce\b", "fused_gru_train_dwr_f32"),
     (r"\bflash_mha_kernel\b", "flash_mha"),
     (r"\blayer_ln_qkv_kernel\b", "transformer_ln_qkv"),
-    (r"\blayer_attention_kernel\b", "transformer_attention"),
+    (r"\blayer_attention_(stream_)?kernel\b", "transformer_attention"),
     (r"\blayer_proj_ffn_kernel\b", "transformer_proj_ffn"),
     (r"\blayer_kernel\b", "transformer_sequence"),
     (r"\blayer_ln_qkv_f32_kernel\b", "transformer_ln_qkv_f32"),
-    (r"\blayer_attention_f32_kernel\b", "transformer_attention_f32"),
+    (r"\blayer_attention_f32_(stream_)?kernel\b", "transformer_attention_f32"),
     (r"\blayer_proj_ffn_f32_kernel\b", "transformer_proj_ffn_f32"),
     (r"\bir_strip_kernel\b", "fused_inverted_residual"),
     (r"\bir_kernel\b", "inverted_residual_tile"),

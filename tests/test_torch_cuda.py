@@ -831,7 +831,7 @@ from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl  # noq
 
 # the f32 layer kernels' counters, untouched by a bf16 layer
 F32_NONE = {"transformer_ln_qkv_f32": 0, "transformer_attention_f32": 0,
-            "transformer_proj_ffn_f32": 0}
+            "transformer_proj_ffn_f32": 0, "transformer_attention_f32_streamed": 0}
 
 
 def _bf16_close(got, want, max_frac, mean_frac):
@@ -917,7 +917,8 @@ def test_fused_layer_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out
     torch.cuda.synchronize()
     assert {k: ftl.LAUNCHES[k] - before[k] for k in before} == {
         "fused_transformer_layer": 1, "transformer_ln_qkv": 1, "transformer_attention": 1,
-        "transformer_proj_ffn": 1, "transformer_sequence": 0, **F32_NONE}
+        "transformer_proj_ffn": 1, "transformer_sequence": 0, "transformer_attention_streamed": 0,
+        **F32_NONE}
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
 
@@ -948,7 +949,8 @@ def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, see
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 0, "transformer_ln_qkv": 2, "transformer_attention": 2,
-        "transformer_proj_ffn": 2, "transformer_sequence": 0, **F32_NONE}
+        "transformer_proj_ffn": 2, "transformer_sequence": 0,
+        "transformer_attention_streamed": 2 * (ftl.attention_plan(l) == "streamed"), **F32_NONE}
     assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
         "two launches on the same inputs differ")
     dh = c // h
@@ -959,7 +961,7 @@ def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, see
 
 
 # every flag; dh = 12 and 32; L = 24 (two sequences a packed tile), 16, 72 (a
-# ragged second tile), 320 (past the scores held in registers: keys walked twice)
+# ragged second tile), 320 (past the scores held in registers: the streamed plan)
 @pytest.mark.parametrize("in_proj", [False, True])
 @pytest.mark.parametrize("final_ln", [False, True])
 @pytest.mark.parametrize("out_proj", [False, True])
@@ -1020,16 +1022,17 @@ def test_layer_kernels_refuse_what_they_do_not_take(dev):
     ops = _layer_ops(dev, 64, 2, 128, 64, 64, False, False, seed=1)
     with pytest.raises(ValueError, match="multiple of 8"):
         ftl.fused_layer_cuda(torch.zeros((1, 20, 64), dtype=torch.bfloat16, device=dev), ops)
-    # a sequence whose k and v outgrow shared memory even on the per-sequence kernel
+    # a sequence whose k and v outgrow the per-sequence kernel's shared memory
+    # (the row tiles stream them)
     with pytest.raises(ValueError, match="shared memory"):
-        ftl.fused_layer_cuda(torch.zeros((1, 1024, 64), dtype=torch.bfloat16, device=dev), ops)
+        ftl.sequence_layer_cuda(torch.zeros((1, 1024, 64), dtype=torch.bfloat16, device=dev), ops)
 
 
 # what the row-tile kernels do not take goes to the per-sequence kernel: C past
-# 288, L past 576; no flag and every flag
+# 288 (packed tiles, a ragged tile, a whole one); no flag and every flag
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True)])
 @pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 320, 5, 640), (2, 48, 384, 6, 768),
-                                        (2, 640, 64, 2, 128)])
+                                        (2, 64, 320, 5, 640)])
 def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c, h, f):
     in_proj, final_ln, out_proj = flags
     cin, cout = (c // 2 if in_proj else c), c // 2 + 8
@@ -1042,7 +1045,8 @@ def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 2, "transformer_ln_qkv": 0, "transformer_attention": 0,
-        "transformer_proj_ffn": 0, "transformer_sequence": 2, **F32_NONE}
+        "transformer_proj_ffn": 0, "transformer_sequence": 2, "transformer_attention_streamed": 0,
+        **F32_NONE}
     assert torch.equal(got, again), "two launches on the same inputs differ"
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
@@ -1098,7 +1102,8 @@ def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed, n
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
-        "transformer_proj_ffn": 0, "transformer_sequence": 0, **{k: 3 for k in F32_LAYER}}
+        "transformer_proj_ffn": 0, "transformer_sequence": 0, "transformer_attention_streamed": 0,
+        "transformer_attention_f32_streamed": 0, **{k: 3 for k in F32_LAYER}}
     assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
         "two launches on the same inputs differ")
     assert not qkv.reshape(bp * l, 3, h, -1)[..., c // h:].any(), "a head's padding is not zero"
@@ -1181,8 +1186,8 @@ def test_f32_layer_kernels_refuse_what_they_do_not_take(dev):
         ftl.fused_layer_cuda(torch.zeros((1, 16, 160), device=dev), ops)
     ops = _layer_ops(dev, 64, 1, 128, 64, 64, False, False, seed=1)
     ops = dataclasses.replace(ops, wq=ops.wq.float(), wi=ops.wi.float(), cache={})
-    with pytest.raises(ValueError, match="shared memory"):
-        ftl.fused_layer_cuda(torch.zeros((1, 1024, 64), device=dev), ops)
+    with pytest.raises(ValueError, match="shared memory"):   # k, v of 256 keys at dh = 64
+        ftl.fused_layer_cuda(torch.zeros((1, 256, 64), device=dev), ops)
     with pytest.raises(ValueError, match="T a multiple of L"):
         ftl.ln_qkv_cuda(torch.zeros((20, 64), device=dev), ops, 16)
     with pytest.raises(ValueError, match="1 or 2 consumer warpgroups"):
@@ -1976,3 +1981,96 @@ def test_exported_q8_0_gru_artifact_runs_the_qmatmul_kernel(dev, tmp_path):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert qmm_launches["qmatmul_q8_0"] == before + 12
+
+
+# ---- sequences past a block's shared memory (layer_3 at 512 px: L = 1024) ----------------
+
+
+@pytest.mark.parametrize("l", [640, 1024])
+def test_bf16_attention_streams_long_sequences(dev, l):
+    """Past 256 keys the bf16 attention keeps four query tiles resident and
+    streams the keys twice: two launches bit-equal, the streamed counter
+    bumped, within the layer's bf16 bounds of attention_plain; at 256 the
+    streamed plan forced gives the resident plan's bits."""
+    ops = _layer_ops(dev, 144, 4, 288, 144, 144, False, False, seed=l)
+    x2 = torch.randn((4 * l, 144), generator=torch.Generator(device=dev).manual_seed(l),
+                     device=dev).to(torch.bfloat16)
+    qkv = ftl.ln_qkv_plain(x2, ops)
+    assert ftl.attention_plan(l) == "streamed"
+    before = dict(ftl.LAUNCHES)
+    got, again = (ftl.attention_cuda(qkv, l, ops) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ftl.LAUNCHES["transformer_attention_streamed"] == (
+        before["transformer_attention_streamed"] + 2)
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    _bf16_close(got, ftl.attention_plain(qkv, l, ops), 0.05, 2e-3)
+    q256 = qkv[:4 * 256]
+    assert torch.equal(ftl.attention_cuda(q256, 256, ops, _plan="streamed"),
+                       ftl.attention_cuda(q256, 256, ops, _plan="resident"))
+    with pytest.raises(ValueError, match="attention plan streamed"):
+        ftl.attention_cuda(qkv[:48], 16, ops, _plan="streamed")
+
+
+@pytest.mark.parametrize("l", [640, 1024, 4096])
+def test_f32_attention_walks_long_sequences_in_windows(dev, l):
+    """Past 256 keys the f32 attention walks windows of 256 keys with a
+    running max: within 1e-5 of the largest value of attention_plain, two
+    launches bit-equal, the streamed counter bumped."""
+    ops = _layer_ops(dev, 144, 4, 288, 144, 144, False, False, seed=l)
+    ops = dataclasses.replace(ops, **{k: getattr(ops, k).float() for k in (
+        "wq", "wk", "wv", "wo", "wi", "wo2")}, cache={})
+    x2 = torch.randn((4 * l, 144), generator=torch.Generator(device=dev).manual_seed(l),
+                     device=dev)
+    qkv = ftl.ln_qkv_plain(x2, ops)
+    before = ftl.LAUNCHES["transformer_attention_f32_streamed"]
+    got, again = (ftl.attention_cuda(qkv, l, ops) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ftl.LAUNCHES["transformer_attention_f32_streamed"] == before + 2
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    _f32_close(got, ftl.attention_plain(qkv, l, ops))
+    _f32_close(ftl.fused_layer_cuda(x2.reshape(4, l, 144), ops),
+               ftl.fused_transformer_layer_plain(x2.reshape(4, l, 144), ops))
+
+
+@pytest.mark.parametrize("l", [640, 1024])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_flash_mha_streams_long_sequences(dev, l, cd):
+    g = torch.Generator(device=dev).manual_seed(l)
+    q, k, v = (torch.randn((4, l, 144), generator=g, device=dev).to(cd) for _ in range(3))
+    before = dict(fa.LAUNCHES)
+    got, again = fa.flash_mha(q, k, v, 4, compute_dtype=cd), fa.flash_mha(q, k, v, 4,
+                                                                           compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mha_streamed"] == before["flash_mha_streamed"] + 2
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    want = fa.flash_mha_plain(q, k, v, 4)
+    if cd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want, 2 ** -6, 1e-3)
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_mobilevit_at_512_px_runs_the_streamed_kernels(dev, cd):
+    """The full MobileViT-small checkpoint at 512 px on the default routes:
+    layer_3's two layers (L = 1024) launch the streamed attention, the
+    other layers the resident one; the features finite, (B, 16, 16, 640)."""
+    import os
+
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = tmv.load_mobilevit(os.path.join(root, "checkpoints", "mobilevit_synth_full.ggml"),
+                           device=dev)
+    x = torch.rand((2, 512, 512, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                   device=dev)
+    before = dict(ftl.LAUNCHES)
+    feats = tmv.extract_features(p, x, compute_dtype=cd)
+    torch.cuda.synchronize()
+    d = {k: ftl.LAUNCHES[k] - before[k] for k in before}
+    assert feats.shape == (2, 16, 16, 640) and bool(torch.isfinite(feats.float()).all())
+    if cd == torch.bfloat16:
+        assert d["transformer_attention"] == 9 and d["transformer_attention_streamed"] == 2
+    else:
+        assert d["transformer_attention_f32"] == 9
+        assert d["transformer_attention_f32_streamed"] == 2

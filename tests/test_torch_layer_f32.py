@@ -397,7 +397,8 @@ def test_the_smem_reckoning_takes_the_model_widths():
     kernels' blocks fit, not at C = 240; the attention on two warpgroups
     where its block has four 64-row tiles, L = 256, one where it has one);
     C-wide products in 2 x 72, 2 x 96 and 3 x 80 columns; a head past 64, C
-    past 240, L past 256 or k and v past shared memory are not taken."""
+    past 240, L past 4096 or k and v of 256 keys past shared memory are not
+    taken."""
     plans = {(144, False): ((2, 3), 2, (2, 3)), (144, True): ((2, 3), 2, (2, 3)),
              (192, False): ((2, 3), 1, (2, 3)), (192, True): ((2, 3), 1, (2, 2)),
              (240, False): ((1, 4), 1, (1, 4)), (240, True): ((1, 4), 1, (1, 4))}
@@ -435,10 +436,10 @@ def test_the_smem_reckoning_takes_the_model_widths():
     assert ftl.f32_attention_block(72, 8) == (72, 128, 1, 2)
     assert [ftl.f32_attention_warpgroups(l, 36, w) for l in (256, 64, 16)
             for w in (None, 1, 2)] == [2, 1, 2, 1, 1, None, 1, 1, None]
-    assert not ftl.f32_layer_takes(320, 144, 144, 4, 288, in_proj=False, limit=232448)
+    assert not ftl.f32_layer_takes(4160, 144, 144, 4, 288, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(256, 256, 256, 4, 512, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(16, 160, 160, 2, 320, in_proj=False, limit=232448)
-    assert not ftl.f32_layer_takes(1024, 64, 64, 1, 128, in_proj=False, limit=232448)
+    assert not ftl.f32_layer_takes(256, 64, 64, 1, 128, in_proj=False, limit=232448)
     assert not ftl.f32_layer_takes(16, 288, 288, 4, 576, in_proj=False, limit=232448)
     assert ftl.f32_layer_plan(128, 16, 48, 48, 4, 96, in_proj=False, limit=232448, sms=132) == (
         (1, 4), 1, (1, 4))
@@ -464,17 +465,20 @@ def test_the_f32_gate_turns_away_what_the_row_tiles_do_not_take(c, cin, in_proj,
             ftl.fused_layer_cuda(torch.zeros((1, 16, cin)), ops)
 
 
-@pytest.mark.parametrize("l,takes", [(256, True), (264, False), (512, False)])
+@pytest.mark.parametrize("l,takes", [(1024, True), (4096, True), (4104, False)])
 def test_the_f32_gate_turns_away_sequences_past_256_keys(l, takes):
     """The attention keeps the scores of a row's keys in registers, 256 at
-    most: ``f32_layer_takes`` and the model's route say so from the shape
-    before any launch, so such a layer keeps the unfused chain with flash
+    most; past them it walks the keys in windows of 256 with a running max,
+    up to the 4096 keys the gate takes (layer_3 at 512 px is 1024):
+    ``f32_layer_takes`` and the model's route say so from the shape before
+    any launch, so a longer layer keeps the unfused chain with flash
     attention on the card; the wrappers refuse it."""
+    assert ftl.f32_attention_streams(l)
     assert ftl.f32_layer_takes(l, 48, 48, 4, 96, in_proj=False, limit=232448) == takes
     assert _route_layer().fused_route(F32, torch.device("cuda"), l) == takes
     if not takes:
         _, _, ops = _ops(48, 4, 96, 48, 48, False, False, None, seed=2)
-        with pytest.raises(ValueError, match="L up to 256"):
+        with pytest.raises(ValueError, match="L up to 4096"):
             ftl.fused_layer_cuda(torch.zeros((1, l, 48)), ops)
 
 
@@ -495,7 +499,7 @@ def test_the_f32_route_is_the_cards_only():
     assert tl.fused_route(torch.bfloat16, "cpu", 16) and tl.fused_route(torch.bfloat16, cuda, 16)
     assert not _route_layer(fused=False).fused_route(F32, cuda, 16)
     assert not _route_layer(c=160, h=2, f=320).fused_route(F32, cuda, 16)   # dh = 80
-    assert not tl.fused_route(F32, cuda, 2048)    # k and v past shared memory
+    assert not tl.fused_route(F32, cuda, 4104)    # past the 4096 keys the gate takes
 
 
 @pytest.mark.parametrize("cd", [F32, "float32", torch.bfloat16])
@@ -566,7 +570,7 @@ def test_the_f32_route_folds_the_block_and_meets_the_unfused_forward(monkeypatch
 
 @pytest.mark.parametrize("what,shape,c,h,f,match", [
     ("head", (1, 16, 160), 160, 2, 320, "f32 kernels take"),               # dh = 80
-    ("smem", (1, 1024, 64), 64, 1, 128, "bytes of shared memory"),         # k, v past 227 KB
+    ("smem", (1, 256, 64), 64, 1, 128, "bytes of shared memory"),          # k, v past 227 KB
     ("rows", (20, 64), 64, 2, 128, "T a multiple of L"),
     ("width", (1, 16, 40), 64, 2, 128, "does not meet the weights"),
     ("dtype", (1, 16, 64), 64, 2, 128, "bf16 or f32"),

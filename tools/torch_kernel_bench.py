@@ -6,7 +6,7 @@ computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32,forward] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -96,6 +96,9 @@ strip kernel takes; ``--split-step`` builds copies of
 the output stores or the SiLUs off, the reduce in narrower items, or
 silu_fast, the correctly rounded SiLU or uncontracted taps, and times each
 (with its error) beside the unchanged source.
+
+``--only forward`` times ``extract_features`` alone at B=128 on the full
+checkpoint's default routes, bf16 and f32, at 256 and 512 px.
 """
 
 from __future__ import annotations
@@ -882,10 +885,10 @@ ATTN_F32_SPLIT_TOGGLES = (
                   "        wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);\n",
      "        if (!ATT_S_ONE) {\n          wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kl), 1);\n"
      "          wgmma_tf32_rs<NK>(s, ah[f], desc_k32(kh), 1);\n        }\n"),
-    ("ATT_PV_ONE", "        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
-                   "        wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n",
-     "        if (!ATT_PV_ONE) {\n          wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
-     "          wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n        }\n"),
+    ("ATT_PV_ONE", "    wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
+                   "    wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n",
+     "    if (!ATT_PV_ONE) {\n      wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vl), 1);\n"
+     "      wgmma_tf32_rs<DN>(acc, ph[f], desc_k32(vh), 1);\n    }\n"),
     ("ATT_NO_PREP", "for (int i = warp; i < DN / 2; i += 4 * nwg) {",
      "for (int i = warp; i < (ATT_NO_PREP ? 0 : DN / 2); i += 4 * nwg) {"),
     ("ATT_NO_PREP", "for (int i = tid; i < KS * NK * 2; i += nthreads) {",
@@ -1016,6 +1019,32 @@ def ir_cells(sweep):
     return rows
 
 
+def forward_cells():
+    """``extract_features`` at B=128 on ``mobilevit_synth_full.ggml`` on the
+    checkout's default routes, bf16 and f32, at 256 and at 512 px (layer_3
+    at L = 1024; a checkout that refuses it records why)."""
+    from ggml_experiments_tpu_torch.models.mobilevit import extract_features, load_mobilevit
+
+    dev = torch.device("cuda")
+    params = load_mobilevit(os.path.join("checkpoints", "mobilevit_synth_full.ggml"), device=dev)
+    rows = []
+    for size in (256, 512):
+        images = torch.rand((128, size, size, 3),
+                            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        row = {"cell": f"forward_b128_{size}px"}
+        for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            try:
+                row[name] = call_ms(lambda: extract_features(params, images, compute_dtype=cd),
+                                    n=10)
+            except (ValueError, RuntimeError) as ex:
+                row[name] = f"refused: {str(ex)[:160]}"
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del images
+        torch.cuda.empty_cache()
+    return rows
+
+
 # copies of csrc/inverted_residual.cu (--split-step with ir): one part off
 # (the expand's products and SiLU, the depthwise, the reduce, the TMA stores
 # of the output, the SiLUs), the expand and the depthwise one after the other
@@ -1095,7 +1124,7 @@ def main() -> int:
                          "off")
     ap.add_argument("--only", default="qmatmul,flash,gru,train,train_f32,layer,ir",
                     help="comma-separated kernels to time (qmatmul, flash, gru, train, "
-                         "train_f32, layer, ir)")
+                         "train_f32, layer, ir; forward: extract_features alone)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1121,7 +1150,8 @@ def main() -> int:
              ("ir", "ir", lambda: ir_cells(args.sweep)),
              ("layer", "split_step_layer", layer_split_cells),
              ("ir", "split_step_ir", ir_split_cells),
-             ("attention_f32", "split_step_attention_f32", attention_f32_split_cells))
+             ("attention_f32", "split_step_attention_f32", attention_f32_split_cells),
+             ("forward", "forward", forward_cells))
     for kernel, key, fn in cells:
         if kernel not in only or (key.startswith("split_step") and not args.split_step):
             continue

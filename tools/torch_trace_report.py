@@ -8,6 +8,7 @@ port's hand-written kernels under their launch counters' names
 own kernels. Run from the root of a checkout, on the card:
 
     python3 tools/torch_trace_report.py --model mobilevit --batch 128
+    python3 tools/torch_trace_report.py --model mobilevit --batch 128 --image-size 512
     python3 tools/torch_trace_report.py --model gru --batch 1024 --steps 256
 
 MobileViT runs ``extract_features`` on random full-size weights at
@@ -32,6 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=256, help="decode steps (gru)")
     ap.add_argument("--qtype", default="q8_0", choices=["q8_0", "q4_0", "none"])
     ap.add_argument("--compute", default="bfloat16", choices=["float32", "bfloat16"])
+    ap.add_argument("--image-size", type=int, default=256, help="mobilevit: a multiple of 64")
     ap.add_argument("--act-storage", default=None,
                     choices=["f8_e5m2", "f8_e4m3", "bfloat16"],
                     help="sub-bf16 conv activation storage (mobilevit only)")
@@ -59,7 +61,7 @@ def main(argv=None) -> int:
         )
         from ggml_experiments_tpu_torch.utils.image import synthetic_test_image
 
-        cfg = MobileViTConfig()
+        cfg = MobileViTConfig(image_size=args.image_size)
         params = from_named_tensors(random_named_tensors(cfg), cfg, qtype=qtype,
                                     act_storage=args.act_storage, device=dev)
         images = torch.from_numpy(
