@@ -96,12 +96,18 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      the fused inverted
      residual (``csrc/inverted_residual.cu``) at (128, 64, 64, 64), E=256,
      with the residual, two launches bit-equal, beside the same block as
-     three cuDNN convolutions (the library column), and its tile kernel
-     (``csrc/inverted_residual_tile.cu``, the route of the shapes the strip
-     kernel does not take) at E=384, two launches bit-equal; the fused
-     layer's per-sequence kernel
-     (``csrc/transformer_layer_seq.cu``, its route past the row-tile kernels)
-     at C=320 and at C=384, every flag on;
+     three cuDNN convolutions (the library column); the route of the widths
+     the strip kernel does not take (``csrc/inverted_residual_wide.cu``) at
+     VIT_IR_WIDE_SHAPES (E = 384, a ragged C = 20, Cout = 264 in two
+     passes), and the fused layer's wide row tiles (C past 288) at
+     WIDE_LAYER_SHAPES, every flag on and none, each two launches bit-equal
+     under its counters, beside its bound, its plain version and the
+     library's yardstick (the cuDNN chain; ``nn.TransformerEncoderLayer``,
+     with the input and output projections as ``F.linear`` where they are
+     on); then these two kernels' main path, as no model of the repo has
+     their widths: ``fused_inverted_residual`` and
+     ``fused_transformer_layer`` once at each of those shapes, launches
+     counted, each output bit-equal to its comparison's;
  14. MobileViT through the entry points on
      ``checkpoints/mobilevit_synth_full.ggml`` (256 px, hidden 144/192/240,
      2/4/3 layers, 44 labels): ``classify`` of 320 held-out images of the
@@ -456,8 +462,10 @@ VIT_CKPT = os.path.join(REPO, "checkpoints", "mobilevit_synth_full.ggml")
 VIT_Q4KM = os.path.join(REPO, "checkpoints", "mobilevit_synth_full_q4km.gxt")
 VIT_BATCH, VIT_IMAGES, VIT_CPU_IMAGES = 128, 320, 32
 VIT_IR_SHAPE = (128, 64, 64, 64, 256, 64)     # (B, H, W, C, E, Cout) of layer_2's blocks
-# a shape the strip kernel does not take (E past 256): the tile kernel's check
-VIT_IR_TILE_SHAPE = (128, 64, 64, 64, 384, 64)
+# shapes the strip kernel does not take, on csrc/inverted_residual_wide.cu
+# (E past 256; C and Cout not multiples of 8; Cout past 256, two passes)
+VIT_IR_WIDE_SHAPES = ((128, 64, 64, 64, 384, 64), (128, 64, 64, 20, 80, 24),
+                      (128, 32, 32, 64, 384, 264))
 VIT_ENGINE_BURSTS = (5, 8, 30, 128, 3, 100, 17, 2, 7)   # 300 requests
 VIT_CANCEL_EVERY = 23
 # bf16 kernels against their plain versions on the main path's shapes: max
@@ -467,8 +475,9 @@ VIT_CANCEL_EVERY = 23
 # bf16 rounding fails: see the docstring)
 VIT_BF16_MAX = {"layer": 0.05, "flash": 2 ** -6, "ir": 2 ** -6}
 VIT_BF16_MEAN_FRAC = {"layer": 0.15, "flash": 0.1, "ir": 0.01}
-# (bp, L, C, H, F) of the per-sequence layer kernel's check in phase 13
-SEQ_LAYER_SHAPES = ((128, 16, 320, 5, 640), (16, 48, 384, 6, 768))
+# (bp, L, C, H, F) of the wide row tiles' check in phase 13 (C past 288)
+WIDE_LAYER_SHAPES = ((128, 16, 320, 5, 640), (16, 48, 384, 6, 768))
+WIDE_LAYER_KERNELS = ("transformer_ln_qkv_wide", "transformer_proj_ffn_wide")
 VIT_F32_REL = 1e-5                 # flash at f32 against its plain version
 VIT_CPU_FEATURE_REL = 1e-4         # card f32 features against the CPU plain run
 VIT_NEAR_TIE = 0.1                 # bf16 logit gap under which an argmax may flip
@@ -1874,6 +1883,7 @@ def vision_kernel_phase(tag, params, dev):
     import torch
     import torch.nn.functional as F
 
+    import ggml_experiments_tpu_torch as port
     from ggml_experiments_tpu_torch.ops import flash_attention as fa
     from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
     from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
@@ -2067,40 +2077,100 @@ def vision_kernel_phase(tag, params, dev):
             f"max abs err {err16:.3g}, mean {mean16:.3g} (plain f32 vs bf16: {gap16:.3g}), "
             f"kernel {ms16:.4f} ms")
         del got, want, qkv, q16, g16, w16, heads
-    # the per-sequence kernel (csrc/transformer_layer_seq.cu), the fused layer's
-    # route where the row-tile kernels do not take a layer (C past 288; no
-    # model of the repo has one): every flag on, two launches bit-equal
-    for bp, l, c, h, f in SEQ_LAYER_SHAPES:
+    # the wide row tiles (C past 288: no layer of MobileViT-small has one),
+    # in a stack's last form (every flag) and its middle form (none): the
+    # layer under its counters (the wide ones too), then ln_qkv and
+    # proj_ffn each on its plain version's inputs, two launches bit-equal;
+    # the library's yardstick nn.TransformerEncoderLayer (with the input and
+    # output projections as F.linear in the last form)
+    wide = {k: {} for k in WIDE_LAYER_KERNELS}
+    entry_layers = []   # (ops, x, got) for the entry point's run below
+    for (bp, l, c, h, f), last in ((shape, last) for shape in WIDE_LAYER_SHAPES
+                                   for last in (True, False)):
         def r(*shape, off=0.0):
             return torch.randn(shape, generator=g, device=dev) * 0.2 + off
 
-        cin, cout = c // 2, c // 2 + 8
+        form = "last" if last else "middle"
+        cin, cout = (c // 2, c // 2 + 8) if last else (c, c)
         ops = ftl.LayerOperands(
             wq=r(c, c).to(bf16), wk=r(c, c).to(bf16), wv=r(c, c).to(bf16), wo=r(c, c).to(bf16),
             wi=r(c, f).to(bf16), wo2=r(f, c).to(bf16), ln1=(r(c, off=1.0), r(c)), bq=r(c),
             bk=r(c), bv=r(c), bo=r(c), ln2=(r(c, off=1.0), r(c)), bi=r(f), bo2=r(c),
-            num_heads=h, eps=1e-5, final_ln=(r(c, off=1.0), r(c)), win=r(cin, c).to(bf16),
-            wout=r(c, cout).to(bf16), out_affine=(r(cout, off=1.0), r(cout)), out_act=True)
+            num_heads=h, eps=1e-5, **(dict(
+                final_ln=(r(c, off=1.0), r(c)), win=r(cin, c).to(bf16), wout=r(c, cout).to(bf16),
+                out_affine=(r(cout, off=1.0), r(cout)), out_act=True) if last else {}))
         x = torch.randn((bp, l, cin), generator=g, device=dev).to(bf16)
-        before = ftl.LAUNCHES["transformer_sequence"]
+        what = f"wide layer (bp, L, C) = ({bp}, {l}, {c}), {form} form"
+        counted = ("fused_transformer_layer",) + LAYER_KERNELS + WIDE_LAYER_KERNELS
+        before = {k: ftl.LAUNCHES[k] for k in counted}
         got, again = ftl.fused_layer_cuda(x, ops), ftl.fused_layer_cuda(x, ops)
         torch.cuda.synchronize()
-        check(ftl.LAUNCHES["transformer_sequence"] == before + 2 and torch.equal(got, again),
-              f"{tag}: per-sequence layer (bp, L, C) = ({bp}, {l}, {c}): not launched twice, "
-              f"or two launches differ")
+        prep = ops.cache[x.device]
+        x2 = x.reshape(bp * l, cin)
+        split = ftl._launch_args(ops, x2, l, cin)[1]
+        check(all(ftl.LAUNCHES[k] == before[k] + 2 for k in counted)
+              and torch.equal(got, again),
+              f"{tag}: {what}: the wide kernels not launched twice "
+              f"({ {k: ftl.LAUNCHES[k] - before[k] for k in counted} }), or two launches differ")
         err, mean, gap, scale = bf16_check(
-            f"{tag}: per-sequence layer (bp, L, C) = ({bp}, {l}, {c})", "layer", got,
-            ftl.fused_transformer_layer_plain(x, ops), ftl.fused_transformer_layer_plain(
-                x.float(), ops))
-        ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=5)
-        b_ms, b_by = bound(*transformer_layer_bound(bp, l, cin, c, f, cout, "bfloat16",
-                                                    in_proj=True, out_proj=True)["layer"],
-                           "bfloat16")
-        log(f"[{tag}] per-sequence layer (bp, L, Cin, C, H, F, Cout) = ({bp}, {l}, {cin}, {c}, "
-            f"{h}, {f}, {cout}), every flag: max abs err {err:.3g} (largest value "
-            f"{scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: {gap:.3g}), two launches "
-            f"bit-equal | kernel {ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-        del got, again, x, ops
+            f"{tag}: {what}", "layer", got, ftl.fused_transformer_layer_plain(x, ops),
+            ftl.fused_transformer_layer_plain(x.float(), ops))
+        del again
+        ms = cuda_ms(lambda: ftl.fused_layer_cuda(x, ops), n=10)
+        plain_ms = cuda_ms(lambda: ftl.fused_transformer_layer_plain(x, ops), n=2, warmup=1)
+        lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                               norm_first=True, batch_first=True, device=dev,
+                                               dtype=bf16).eval()
+        with torch.no_grad():
+            if last:
+                win_t, wout_t = ops.win.t().contiguous(), ops.wout.t().contiguous()
+                lib_ms = cuda_ms(lambda: F.linear(lib(F.linear(x, win_t)), wout_t), n=10)
+            else:
+                lib_ms = cuda_ms(lambda: lib(x), n=10)
+        del lib
+        bounds = transformer_layer_bound(bp, l, cin, c, f, cout, "bfloat16", in_proj=last,
+                                         out_proj=last)
+        b_ms, b_by = bound(*bounds["layer"], "bfloat16")
+        layer = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by="bytes" if b_by == "bytes" else "operations", library_ms=lib_ms)
+        want_qkv = ftl.ln_qkv_plain(x2, ops)
+        want_ctx = ftl.attention_plain(want_qkv, l, ops)
+        parts = []
+        for kname, kernel, plain, plain32, bkey in (
+                ("transformer_ln_qkv_wide", lambda: ftl.ln_qkv_cuda(x2, ops, l),
+                 lambda: ftl.ln_qkv_plain(x2, ops), lambda: ftl.ln_qkv_plain(x2.float(), ops),
+                 "ln_qkv"),
+                ("transformer_proj_ffn_wide", lambda: ftl.proj_ffn_cuda(x2, want_ctx, ops, l),
+                 lambda: ftl.proj_ffn_plain(x2, want_ctx, ops),
+                 lambda: ftl.proj_ffn_plain(x2.float(), want_ctx.float(), ops), "proj_ffn")):
+            n0 = ftl.LAUNCHES[kname]
+            kgot, kagain = kernel(), kernel()
+            torch.cuda.synchronize()
+            check(ftl.LAUNCHES[kname] == n0 + 2 and torch.equal(kgot, kagain),
+                  f"{tag}: {kname} (bp, L, C) = ({bp}, {l}, {c}), {form} form: not launched "
+                  f"twice, or two launches differ")
+            kerr, kmean, kgap, _ = bf16_check(f"{tag}: {kname} (bp, L, C) = ({bp}, {l}, {c}), "
+                                              f"{form} form", "layer", kgot, plain(), plain32())
+            del kgot, kagain
+            kms = cuda_ms(kernel, n=10)
+            kplain = cuda_ms(plain, n=2, warmup=1)
+            kb_ms, kb_by = bound(*bounds[bkey], "bfloat16")
+            wide[kname][f"{bp}x{l}x{c}_{form}"] = dict(
+                max_abs_err=kerr, ms=kms, plain_ms=kplain, bound_ms=kb_ms,
+                bound_by="bytes" if kb_by == "bytes" else "operations", library_ms=None,
+                layer=layer)
+            parts.append(f"{kname[12:]} {kms:.4f} ms (bound {kb_ms:.4f}, {kb_by}; plain "
+                         f"{kplain:.3f}; err {kerr:.3g}, mean {kmean:.3g} of {kgap:.3g})")
+        log(f"[{tag}] {what}: (Cin, H, F, Cout) = ({cin}, {h}, {f}, {cout}), nw = {prep.nw} "
+            f"({prep.ngc} groups of C), qsplit {split.qsplit}, fsplit {split.fsplit}: "
+            f"max abs err {err:.3g} (largest value {scale:.3g}), mean {mean:.3g} (plain f32 vs "
+            f"bf16: {gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms | plain "
+            f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library: "
+            f"nn.TransformerEncoderLayer{' + the two projections as F.linear' if last else ''} "
+            f"{lib_ms:.4f} ms | its kernels on their plain versions' inputs, each launched twice "
+            f"(bit-equal): " + " | ".join(parts))
+        entry_layers.append((ops, x, got))
+        del x2, prep, want_qkv, want_ctx
     for t in tot.values():
         t["bound_ms"] = max(t["bound_t"])
         t["bound_by"] = "bytes" if t["bound_t"][0] >= t["bound_t"][1] else "operations"
@@ -2139,35 +2209,94 @@ def vision_kernel_phase(tag, params, dev):
                                           bound_by="bytes" if b_by == "bytes" else "operations",
                                           library_ms=lib_ms)
     del x
-    # the tile kernel (csrc/inverted_residual_tile.cu), the route of the shapes
-    # the strip kernel does not take (no block of the model has one), on
-    # seeded random weights with the residual: two launches bit-equal
-    b, hh, ww, c, e, cout = VIT_IR_TILE_SHAPE
-    args = tuple(torch.randn(shape, generator=g, device=dev) * 0.2
-                 for shape in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
-    ops = fir.ir_operands(*args)
-    check(not ops.strip, f"{tag}: {VIT_IR_TILE_SHAPE} should run on the tile kernel")
-    x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(bf16)
-    before = fir.LAUNCHES["inverted_residual_tile"]
-    got = fir.fused_ir_cuda(x, ops, use_residual=True)
-    again = fir.fused_ir_cuda(x, ops, use_residual=True)
+    # csrc/inverted_residual_wide.cu, the route of the widths the strip kernel
+    # does not take (no block of MobileViT-small has one), on seeded random
+    # weights: two launches bit-equal (a launch a pass)
+    shapes, entry_blocks = {}, []
+    for shape in VIT_IR_WIDE_SHAPES:
+        b, hh, ww, c, e, cout = shape
+        resid = c == cout
+        args = tuple(torch.randn(sh, generator=g, device=dev) * 0.2
+                     for sh in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))
+        ops = fir.ir_operands(*args)
+        check(isinstance(ops, fir.IRTCOperands), f"{tag}: {shape} should run on the wide kernel")
+        passes = -(-cout // ops.ncp)
+        x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(bf16)
+        before = fir.LAUNCHES["inverted_residual_wide"]
+        got = fir.fused_ir_cuda(x, ops, use_residual=resid)
+        again = fir.fused_ir_cuda(x, ops, use_residual=resid)
+        torch.cuda.synchronize()
+        check(fir.LAUNCHES["inverted_residual_wide"] == before + 2 * passes
+              and torch.equal(got, again),
+              f"{tag}: wide inverted residual {shape}: not launched twice ({passes} a call), or "
+              f"two launches differ")
+        plain_args = (args[0].to(bf16), args[1], args[2], args[3], args[4].to(bf16), args[5])
+        err, mean, gap, scale = bf16_check(
+            f"{tag}: wide inverted residual {shape}", "ir", got,
+            fir.fused_ir_plain(x, *plain_args, use_residual=resid),
+            fir.fused_ir_plain(x.float(), *args, use_residual=resid))
+        del again
+        ms = cuda_ms(lambda: fir.fused_ir_cuda(x, ops, use_residual=resid), n=10)
+        plain_ms = cuda_ms(lambda: fir.fused_ir_plain(x, *plain_args, use_residual=resid), n=3)
+        lib_ms = cuda_ms(cudnn_inverted_residual(x, args, residual=resid), n=10)
+        b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout)
+        log(f"[{tag}] wide inverted residual (B, H, W, C, E, Cout) = {shape} bf16, "
+            f"{'residual, ' if resid else ''}tile {ops.tile}, {passes} pass(es) of {ops.ncp} "
+            f"output channels: max abs err {err:.3g} (largest value {scale:.3g}), mean "
+            f"{mean:.3g} (plain f32 vs bf16: {gap:.3g}), two launches bit-equal | kernel "
+            f"{ms:.4f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f") | library: the cuDNN "
+            f"chain {lib_ms:.4f} ms")
+        shapes["x".join(map(str, shape))] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by="bytes" if b_by == "bytes" else "operations", library_ms=lib_ms,
+            passes=passes)
+        entry_blocks.append((shape, args, resid, x, got))
+        del ops
+
+    # the main path of the two wide kernels: no model of the repo has these
+    # widths, so it is the ops' entry points (``fused_inverted_residual``,
+    # ``fused_transformer_layer``, operands made from the weights as a
+    # caller gives them) once at each shape above, launches zeroed just
+    # before and read just after; each output bit-equal to the comparison's
+    from ggml_experiments_tpu_torch.models.mobilevit import TransformerLayerParams
+    from ggml_experiments_tpu_torch.ops.attention import AttentionParams
+
+    layer_params = [TransformerLayerParams(
+        ln_before_gamma=ops.ln1[0], ln_before_beta=ops.ln1[1],
+        attention=AttentionParams(wq=ops.wq, bq=ops.bq, wk=ops.wk, bk=ops.bk, wv=ops.wv,
+                                  bv=ops.bv, wo=ops.wo, bo=ops.bo, num_heads=ops.num_heads),
+        ln_after_gamma=ops.ln2[0], ln_after_beta=ops.ln2[1], intermediate_kernel=ops.wi,
+        intermediate_bias=ops.bi, output_kernel=ops.wo2, output_bias=ops.bo2, eps=ops.eps)
+        for ops, _, _ in entry_layers]
+    port.reset_kernel_launches()
+    outs = [fir.fused_inverted_residual(x, *args, use_residual=resid)
+            for _, args, resid, x, _ in entry_blocks]
+    outs += [ftl.fused_transformer_layer(
+        p, x, **(dict(final_ln=ops.final_ln, input_proj=ops.win,
+                      output_proj=(ops.wout, *ops.out_affine, "silu")) if ops.win is not None
+                 else {}))
+        for p, (ops, x, _) in zip(layer_params, entry_layers)]
     torch.cuda.synchronize()
-    check(fir.LAUNCHES["inverted_residual_tile"] == before + 2 and torch.equal(got, again),
-          f"{tag}: inverted residual tile kernel {VIT_IR_TILE_SHAPE}: not launched twice, or two "
-          f"launches differ")
-    plain_args = (args[0].to(bf16), args[1], args[2], args[3], args[4].to(bf16), args[5])
-    err, mean, gap, scale = bf16_check(
-        f"{tag}: inverted residual tile kernel {VIT_IR_TILE_SHAPE}", "ir", got,
-        fir.fused_ir_plain(x, *plain_args, use_residual=True),
-        fir.fused_ir_plain(x.float(), *args, use_residual=True))
-    del got, again
-    ms = cuda_ms(lambda: fir.fused_ir_cuda(x, ops, use_residual=True), n=5)
-    b_ms, b_by, parts = ir_bound(b, hh, ww, c, e, cout)
-    log(f"[{tag}] inverted residual tile kernel (B, H, W, C, E, Cout) = {VIT_IR_TILE_SHAPE} bf16: "
-        f"max abs err {err:.3g} (largest value {scale:.3g}), mean {mean:.3g} (plain f32 vs bf16: "
-        f"{gap:.3g}), two launches bit-equal | kernel {ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + ") | no block of MobileViT-small "
-        "takes this route: 0 launches on the main path")
+    entry = port.kernel_launches()
+    want = {"inverted_residual_wide": sum(sh["passes"] for sh in shapes.values()),
+            "transformer_ln_qkv_wide": len(entry_layers),
+            "transformer_proj_ffn_wide": len(entry_layers)}
+    check(all(entry[k] == v for k, v in want.items()),
+          f"{tag}: the entry points launched {({k: entry[k] for k in want})}, want {want}")
+    refs = [got for *_, got in entry_blocks] + [got for _, _, got in entry_layers]
+    check(all(torch.equal(o, ref) for o, ref in zip(outs, refs)),
+          f"{tag}: an entry point's output differs from its comparison launch's")
+    log(f"[{tag}] the wide kernels' main path, fused_inverted_residual at "
+        f"{len(entry_blocks)} shapes and fused_transformer_layer at {len(entry_layers)} "
+        f"(shape, form): launches " + ", ".join(f"{k} {entry[k]}" for k in want)
+        + ", each output bit-equal to the comparison's")
+    del outs, refs, entry_blocks, entry_layers, layer_params
+    first = "x".join(map(str, VIT_IR_WIDE_SHAPES[0]))
+    tot["inverted_residual_wide"] = dict(shapes[first], shapes=shapes,
+                                         launches=entry["inverted_residual_wide"])
+    for name, by_shape in wide.items():
+        tot[name] = dict(next(iter(by_shape.values())), shapes=by_shape, launches=entry[name])
     return tot
 
 
@@ -5910,6 +6039,8 @@ def main() -> int:
     for name in ("fused_transformer_layer", *LAYER_KERNELS, "flash_mha",
                  "fused_inverted_residual"):
         kernels[name] = dict(vision[name], launches=vit_launches[name])
+    for name in ("inverted_residual_wide",) + WIDE_LAYER_KERNELS:
+        kernels[name] = vision[name]   # launches: phase 13's run of the ops' entry points
 
     # ---- 15. the vision engine ---------------------------------------------------------
     vision_engine_phase("15 vision engine", vit, images)
@@ -6016,6 +6147,12 @@ def main() -> int:
     meta["transformer_attention_f32_512px"] = (src + "transformer_layer_f32.cu", layer_at)
     meta["flash_mha_512px"] = (src + "flash_attention.cu",
                                "ggml_experiments_tpu/ops/flash_attention.py:104")
+    # phase 13: the wide kernels, through the ops' entry points at the widths past
+    # MobileViT-small's
+    for name in WIDE_LAYER_KERNELS:
+        meta[name] = (src + "transformer_layer.cu", layer_at)
+    meta["inverted_residual_wide"] = (src + "inverted_residual_wide.cu",
+                                      "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     meta["fused_inverted_residual"] = (src + "inverted_residual.cu",
                                        "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
     meta["inverted_residual_f32"] = (src + "inverted_residual_f32.cu",

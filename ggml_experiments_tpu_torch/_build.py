@@ -23,9 +23,8 @@ from typing import Dict
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("qmatmul", "gru_persistent", "gru_train", "gru_train_f32", "flash_attention",
-           "transformer_layer", "transformer_layer_seq", "transformer_layer_f32",
-           "inverted_residual", "inverted_residual_tile", "inverted_residual_f32",
-           "inverted_residual_s2")
+           "transformer_layer", "transformer_layer_f32", "inverted_residual",
+           "inverted_residual_wide", "inverted_residual_f32", "inverted_residual_s2")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

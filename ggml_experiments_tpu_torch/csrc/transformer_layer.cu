@@ -41,9 +41,7 @@
 // warpgroup a chain of dependent products and per-element epilogues
 // (PERF.md: the split-step timings of the fused layer).
 //
-// Design. The TPU kernel holds a sequence's whole layer in VMEM;
-// transformer_layer_seq.cu does the same, one block of 1-8 warps a sequence,
-// and takes the layers the row tiles below do not. Here:
+// Design. The TPU kernel holds a sequence's whole layer in VMEM. Here:
 //   * A and C are row tiles over all T tokens: a block is two consumer
 //     warpgroups of 64 rows each (one where 128-row tiles would leave
 //     multiprocessors idle: L = 16) and a producer warpgroup (one thread of it
@@ -63,6 +61,17 @@
 //     A operand of its Wo2 slice; at C <= 144 chunk f + 1's y.Wi runs while
 //     chunk f's SiLU does. Outputs go out through shared memory in whole
 //     16-byte rows.
+//   * Past C = 288 (kMaxNch chunks of 48) the C-wide rows no longer fit
+//     registers: A and C run WIDE, the C columns in ngc groups of NW = 48 NCH
+//     (NCH 4-6). Each C-wide f32 row (xf; x1, then o) goes to a global f32
+//     scratch (rows x ngc NW, row-major) group by group, each lane writing
+//     and reading back its own elements only (no barrier guards it), f32 as
+//     in the plain version: exact. The LN statistics walk the scratch's
+//     groups in column order with ln_stats' arithmetic, then the normalised
+//     groups go to the A tile (K = C) in shared memory. The FFN runs once a
+//     group of output columns, y.Wi and the SiLU again each time (h1 never
+//     leaves the block); the weight stream holds Win^T, Wo^T and Wo2^T in
+//     groups of NW rows, Wi^T once a group.
 //   * B, resident (L <= 256): one head of one sequence a block (at L < 64,
 //     64/L sequences of one head in one 64-row tile under a block-diagonal
 //     mask). q, k and v of the head arrive by TMA as 64 x 64 boxes at the
@@ -97,10 +106,10 @@
 // Field order and types match the ctypes Structure in
 // ops/fused_transformer_layer.py.
 struct LayerArgs {
-  const void *x, *qkv, *ctx, *out, *wa, *wc;
+  const void *x, *qkv, *ctx, *out, *wa, *wc, *scr;
   const void *ln1g, *ln1b, *bqkv, *bo, *ln2g, *ln2b, *bi, *bo2, *ln3g, *ln3b, *osc, *obi;
   int T, L, Cin, ldx, C, H, dh, dhp, ldc, nf, Cout, in_proj, final_ln, out_proj, out_act,
-      stages_a, stages_c, ks, ldo, nwg, nw, pipe, attn;
+      stages_a, stages_c, ks, ldo, nwg, nw, pipe, attn, qsplit, fsplit;
   float eps, final_eps, scale;
 };
 
@@ -114,6 +123,7 @@ constexpr int kBox = 8192;                  // a 64 x 64 bf16 tile: 64 rows of 1
 constexpr int kChunk = 48;                  // output columns of one C-wide wgmma
 constexpr int kChunkBytes = kChunk * 128;   // its B rows in a weight tile
 constexpr int kMaxNch = 6;                  // C <= 288: x1 in registers
+constexpr int kMinWideNch = 4;              // a wide layer's groups: 4-6 chunks
 constexpr int kMaxPipeNch = 3;              // C <= 144: registers for two FFN chunks
 constexpr int kMaxStages = 6;
 constexpr int kMaxQTiles = 4;               // the resident attention: L <= 256
@@ -167,9 +177,10 @@ __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)
 // pieces shared by the row-tile kernels (A and C)
 // ---------------------------------------------------------------------------
 
-// The weight ring: `stages` buffers of `sb` bytes. Tile i of the stream (at
-// i * sb bytes of it) goes to buffer i % stages; the producer waits for the
-// consumer warps to release the buffer's previous tile.
+// The weight ring: `stages` buffers of `sb` bytes. The block's i-th tile
+// (tile `src` of the stream, at src * sb bytes of it) goes to buffer i %
+// stages; the producer waits for the consumer warps to release the buffer's
+// previous tile.
 struct Ring {
   unsigned char* buf;
   uint64_t* full;
@@ -178,11 +189,11 @@ struct Ring {
 };
 
 __device__ __forceinline__ void ring_fill(const Ring& r, int i, const unsigned char* stream,
-                                          int bytes) {
+                                          int src, int bytes) {
   const int s = i % r.stages;
   if (i >= r.stages) mbar_wait(r.empty + s, (i / r.stages - 1) & 1);
   mbar_expect(r.full + s, bytes);
-  bulk_load(r.buf + (size_t)s * r.sb, stream + (size_t)i * r.sb, bytes, r.full + s);
+  bulk_load(r.buf + (size_t)s * r.sb, stream + (size_t)src * r.sb, bytes, r.full + s);
 }
 
 // acc (+)= A . the next nkc ring tiles. A is the warpgroup's K-major tile at
@@ -339,17 +350,17 @@ __device__ __forceinline__ float ln_val(float x, float m, float inv, float g, fl
   return addf(mulf(mulf(__fsub_rn(x, m), inv), g), b);
 }
 
-// acc = LN(acc) in f32 on columns < C
+// acc = LN(acc) in f32 on columns < C with the statistics of the lane's rows
+// (acc holds columns n0 .. of a row C wide)
 template <int NCH>
-__device__ __forceinline__ void ln_inplace(float (&acc)[NCH][24], int C, int q, float eps,
-                                           const float* gam, const float* bet) {
-  float mean[2], inv[2];
-  ln_stats<NCH>(acc, C, q, eps, mean, inv);
+__device__ __forceinline__ void ln_apply(float (&acc)[NCH][24], int n0, int C, int q,
+                                         const float (&mean)[2], const float (&inv)[2],
+                                         const float* gam, const float* bet) {
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      const int col = ch * kChunk + 8 * j + 2 * q, cc = min(col, C - 2);
+      const int col = n0 + ch * kChunk + 8 * j + 2 * q, cc = min(col, C - 2);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
@@ -361,21 +372,30 @@ __device__ __forceinline__ void ln_inplace(float (&acc)[NCH][24], int C, int q, 
     }
 }
 
-// The lane's rows rl, rl + 8 as bf16 into the warpgroup's K-major A tile
-// (chunks of KW = 16 KS columns, each a 64-wide box of 64 rows): LN(acc)
-// with `gam`, acc itself without; columns C .. KW nkc - 1 zero.
+// acc = LN(acc) in f32 on columns < C
+template <int NCH>
+__device__ __forceinline__ void ln_inplace(float (&acc)[NCH][24], int C, int q, float eps,
+                                           const float* gam, const float* bet) {
+  float mean[2], inv[2];
+  ln_stats<NCH>(acc, C, q, eps, mean, inv);
+  ln_apply<NCH>(acc, 0, C, q, mean, inv, gam, bet);
+}
+
+// The lane's rows rl, rl + 8, columns n0 .. n0 + NW - 1 of a row C wide, as
+// bf16 into the warpgroup's K-major A tile (chunks of KW = 16 KS columns,
+// each a 64-wide box of 64 rows): LN(acc) with `gam` and the rows'
+// statistics, acc itself without; columns past C (to KW nkc) zero.
 template <int NCH, int KS>
-__device__ __forceinline__ void store_a(unsigned char* tile, const float (&acc)[NCH][24], int C,
-                                        int nkc, int rl, int q, float eps, const float* gam,
-                                        const float* bet) {
+__device__ __forceinline__ void store_a_cols(unsigned char* tile, const float (&acc)[NCH][24],
+                                             int n0, int C, int nkc, int rl, int q,
+                                             const float (&mean)[2], const float (&inv)[2],
+                                             const float* gam, const float* bet) {
   constexpr int KW = 16 * KS;
-  float mean[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
-  if (gam) ln_stats<NCH>(acc, C, q, eps, mean, inv);
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      const int col = ch * kChunk + 8 * j + 2 * q;
+      const int col = n0 + ch * kChunk + 8 * j + 2 * q;
       if (col >= KW * nkc) continue;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -391,6 +411,101 @@ __device__ __forceinline__ void store_a(unsigned char* tile, const float (&acc)[
             pack_bf16(y[0], y[1]);
       }
     }
+}
+
+// store_a_cols of a whole row (C <= NW): LN(acc) with `gam` (its statistics
+// from acc), acc itself without
+template <int NCH, int KS>
+__device__ __forceinline__ void store_a(unsigned char* tile, const float (&acc)[NCH][24], int C,
+                                        int nkc, int rl, int q, float eps, const float* gam,
+                                        const float* bet) {
+  float mean[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  if (gam) ln_stats<NCH>(acc, C, q, eps, mean, inv);
+  store_a_cols<NCH, KS>(tile, acc, 0, C, nkc, rl, q, mean, inv, gam, bet);
+}
+
+// The wide layers' scratch: the lane's elements of columns n0 .. n0 + NW - 1
+// of its rows `row`, `row + 8` of a (rows, ld) f32 array (rows cover every
+// row tile: no bound to check)
+template <int NCH>
+__device__ __forceinline__ void scr_store(float* scr, int ld, int row, int n0,
+                                          const float (&acc)[NCH][24], int q) {
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(scr + (size_t)(row + 8 * hf) * ld + n0 + ch * kChunk + 8 * j +
+                                   2 * q) =
+            make_float2(acc[ch][4 * j + 2 * hf], acc[ch][4 * j + 2 * hf + 1]);
+}
+
+template <int NCH>
+__device__ __forceinline__ void scr_load(float (&acc)[NCH][24], const float* scr, int ld, int row,
+                                         int n0, int q) {
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            scr + (size_t)(row + 8 * hf) * ld + n0 + ch * kChunk + 8 * j + 2 * q);
+        acc[ch][4 * j + 2 * hf] = v.x;
+        acc[ch][4 * j + 2 * hf + 1] = v.y;
+      }
+}
+
+// LN statistics of the lane's two rows of a C-wide row in the scratch (ngc
+// groups of NW = 48 NCH columns): ln_stats' sums, over the groups' columns
+// in order (acc is the caller's, overwritten)
+template <int NCH>
+__device__ __forceinline__ void scr_stats(float (&acc)[NCH][24], const float* scr, int ld,
+                                          int row, int C, int ngc, int q, float eps,
+                                          float (&mean)[2], float (&inv)[2]) {
+  constexpr int NW = NCH * kChunk;
+  float s[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
+  for (int g = 0; g < ngc; ++g) {
+    scr_load<NCH>(acc, scr, ld, row, g * NW, q);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (g * NW + ch * kChunk + 8 * j + 2 * q + e < C)
+              s[hf] = addf(s[hf], acc[ch][4 * j + 2 * hf + e]);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    s[hf] = addf(s[hf], __shfl_xor_sync(0xffffffffu, s[hf], 1));
+    s[hf] = addf(s[hf], __shfl_xor_sync(0xffffffffu, s[hf], 2));
+    mean[hf] = __fdiv_rn(s[hf], (float)C);
+  }
+  for (int g = 0; g < ngc; ++g) {
+    scr_load<NCH>(acc, scr, ld, row, g * NW, q);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (g * NW + ch * kChunk + 8 * j + 2 * q + e < C) {
+              const float d = __fsub_rn(acc[ch][4 * j + 2 * hf + e], mean[hf]);
+              v[hf] = addf(v[hf], mulf(d, d));
+            }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    v[hf] = addf(v[hf], __shfl_xor_sync(0xffffffffu, v[hf], 1));
+    v[hf] = addf(v[hf], __shfl_xor_sync(0xffffffffu, v[hf], 2));
+    inv[hf] = __fdiv_rn(1.f, __fsqrt_rn(addf(__fdiv_rn(v[hf], (float)C), eps)));
+  }
 }
 
 // Output tiles go to global memory through shared memory: the lanes' pairs
@@ -425,10 +540,11 @@ __device__ __forceinline__ void copy_out(const bf16* st, bf16* dst, size_t ld, i
 struct QkvParams {
   CUtensorMap tm_x;           // x (T, Cin) in 64 x 64 boxes; with in_proj
   const bf16* x;              // (T, C) without in_proj
-  const unsigned char* ws;    // weight stream: Win^T tiles, then Wqkv^T tiles
+  const unsigned char* ws;    // weight stream: Win^T tiles (by groups), then Wqkv^T tiles
   const float *ln_g, *ln_b, *bias;
   bf16* qkv;                  // (T, nqkv) out, nqkv = 3 hdp
-  int T, Cin, ldx, C, nqkv, hdp, in_proj, kc_in, kc, sb, stages, nwg;
+  float* scr;                 // wide: xf, gridDim.y x (row tiles x 64 rows, ngc NW) f32
+  int T, Cin, ldx, C, nqkv, hdp, in_proj, kc_in, kc, sb, stages, nwg, ngc;
   float eps, scale;
 };
 
@@ -441,7 +557,7 @@ __host__ __device__ inline int qkv_stage_bytes(int nch) {
   return (64 * (nch * kChunk + 8) * 2 + 1023) / 1024 * 1024;
 }
 
-template <int NCH, int KS>
+template <int NCH, int KS, bool WIDE>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     layer_ln_qkv_kernel(const __grid_constant__ QkvParams p) {
   constexpr int NW = NCH * kChunk, KW = 16 * KS;
@@ -485,8 +601,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             tma_box(abuf + ((size_t)w * kb + kc) * kBox, &p.tm_x, KW * kc, tile0 + w * kRows,
                     xbar + w);
         }
-      const int nt = (p.in_proj ? p.kc_in : 0) + ng * p.kc;
-      for (int i = 0; i < nt; ++i) ring_fill(ring, i, p.ws, p.sb);
+      // Win^T's tiles, then those of the block's [q | k | v] groups
+      const int xin = p.in_proj ? p.kc_in * p.ngc : 0;
+      int i = 0;
+      for (; i < xin; ++i) ring_fill(ring, i, p.ws, i, p.sb);
+      for (int grp = WIDE ? blockIdx.y : 0; grp < ng; grp += WIDE ? gridDim.y : 1)
+        for (int k = 0; k < p.kc; ++k, ++i) ring_fill(ring, i, p.ws, xin + grp * p.kc + k, p.sb);
     }
     return;
   }
@@ -502,24 +622,42 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float acc[NCH][24];
   int it = 0;
 
-  // xf, then a = LN(xf) -> bf16 into ab (over x's tile)
-  if (p.in_proj) {
+  // xf, then a = LN(xf) -> bf16 into ab (over x's tile); wide, xf's groups
+  // of NW columns through the block's copy of the scratch
+  float* const scr = WIDE ? p.scr + (size_t)blockIdx.y * gridDim.x * nwg * kRows * p.ngc * NW
+                          : nullptr;
+  if (p.in_proj) mbar_wait(xbar + wg, 0);
+  for (int gc = 0; gc < (WIDE ? p.ngc : 1); ++gc) {
+    if (p.in_proj) {
 #pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
+      for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-      for (int i = 0; i < 24; ++i) acc[ch][i] = 0.f;
-    mbar_wait(xbar + wg, 0);
-    ring_product<NCH, KS>(acc, ab_u, p.kc_in, true, ring, it, lane);
-  } else {
-    load_rows<NCH>(acc, p.x, p.ldx, p.C, p.T, row, q, false);
+        for (int i = 0; i < 24; ++i) acc[ch][i] = 0.f;
+      ring_product<NCH, KS>(acc, ab_u, p.kc_in, true, ring, it, lane);
+    } else {
+      load_rows<NCH>(acc, p.x + gc * NW, p.ldx, p.C - gc * NW, p.T, row, q, false);
+    }
+    if constexpr (WIDE) scr_store<NCH>(scr, p.ngc * NW, row, gc * NW, acc, q);
   }
-  wg_bar(wg);   // every warp's x.Win has read ab
-  store_a<NCH, KS>(ab, acc, p.C, p.kc, rl, q, p.eps, p.ln_g, p.ln_b);
+  if constexpr (WIDE) {
+    float mean[2], inv[2];
+    scr_stats<NCH>(acc, scr, p.ngc * NW, row, p.C, p.ngc, q, p.eps, mean, inv);
+    wg_bar(wg);   // every warp's x.Win has read ab
+    for (int gc = 0; gc < p.ngc; ++gc) {
+      scr_load<NCH>(acc, scr, p.ngc * NW, row, gc * NW, q);
+      store_a_cols<NCH, KS>(ab, acc, gc * NW, p.C, p.kc, rl, q, mean, inv, p.ln_g, p.ln_b);
+    }
+  } else {
+    wg_bar(wg);   // every warp's x.Win has read ab
+    store_a<NCH, KS>(ab, acc, p.C, p.kc, rl, q, p.eps, p.ln_g, p.ln_b);
+  }
   fence_async_smem();
   wg_bar(wg);
 
-  // [q | k | v] in groups of NW columns: + bias, q scaled, -> bf16
-  for (int grp = 0; grp < ng; ++grp) {
+  // [q | k | v] in groups of NW columns: + bias, q scaled, -> bf16; the
+  // block's groups (wide: dealt to gridDim.y blocks a row tile, each with
+  // its own xf and LN, the same bits in each)
+  for (int grp = WIDE ? blockIdx.y : 0; grp < ng; grp += WIDE ? gridDim.y : 1) {
     const int n0 = grp * NW;
     ring_product<NCH, KS>(acc, ab_u, p.kc, true, ring, it, lane);
     wg_bar(wg);   // the previous group's copy-out has read st
@@ -858,11 +996,14 @@ struct FfnParams {
   CUtensorMap tm_x;           // x (T, Cin) in 64 x 64 boxes; with in_proj
   CUtensorMap tm_ctx;         // ctx (T, C)
   const bf16* x;              // (T, C) without in_proj
-  const unsigned char* ws;    // Win^T, Wo^T, per F chunk Wi^T (kc tiles) and Wo2^T, Wout^T
+  // Win^T, Wo^T (wide: both by groups of NW rows), per F chunk Wi^T (kc
+  // tiles) and Wo2^T (wide: per group, every F chunk), Wout^T
+  const unsigned char* ws;
   const float *bo, *ln2g, *ln2b, *bi, *bo2, *ln3g, *ln3b, *osc, *obi;
   bf16* out;                  // (T, Cout) at row stride ldo (a multiple of 8)
+  float* scr;                 // wide: x1, then o, gridDim.y x (row tiles x 64 rows, ngc NW) f32
   int T, Cin, ldx, C, Cout, ldo, nf, in_proj, final_ln, out_proj, out_act, kc_in, kc, sb, stages,
-      nwg;
+      nwg, ngc;
   float eps, final_eps;
 };
 
@@ -881,10 +1022,11 @@ __host__ __device__ inline int ffn_wg_boxes(int in_proj, int kc_in, int kc) {
 }
 
 // bytes of stream tile i: a Wi tile is one box (64 F columns), every other
-// tile sb
-__device__ __forceinline__ int ffn_tile_bytes(const FfnParams& p, int i, bool pipelined) {
-  const int j = i - (p.in_proj ? p.kc_in : 0) - p.kc;   // position in the FFN's tiles
-  if (j < 0 || j >= p.nf * (p.kc + 1)) return p.sb;
+// tile sb (the FFN's tiles: nf chunks, ngc times over when wide)
+__device__ __forceinline__ int ffn_tile_bytes(const FfnParams& p, int i, bool pipelined,
+                                              int ngc) {
+  const int j = i - ngc * ((p.in_proj ? p.kc_in : 0) + p.kc);   // position in the FFN's tiles
+  if (j < 0 || j >= ngc * p.nf * (p.kc + 1)) return p.sb;
   if (!pipelined) return j % (p.kc + 1) < p.kc ? kBox : p.sb;
   if (j < p.kc) return kBox;
   return (j - p.kc) % (p.kc + 1) < p.kc && j < p.nf * (p.kc + 1) - 1 ? kBox : p.sb;
@@ -924,11 +1066,11 @@ __device__ __forceinline__ void issue_product48(float (&acc)[NCH][24], uint32_t 
   ++it;
 }
 
-template <int NCH, int KS>
+template <int NCH, int KS, bool WIDE>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     layer_proj_ffn_kernel(const __grid_constant__ FfnParams p) {
   constexpr int NW = NCH * kChunk, KW = 16 * KS;
-  constexpr bool PIPE = NCH <= kMaxPipeNch;
+  constexpr bool PIPE = !WIDE && NCH <= kMaxPipeNch;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   const int S = p.stages, xk = p.in_proj ? p.kc_in : 0;
@@ -978,9 +1120,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         for (int kc = 0; kc < p.kc; ++kc)
           tma_box(wb + (size_t)(xk + kc) * kBox, &p.tm_ctx, KW * kc, r0, cbar + w);
       }
-      const int nt = xk + p.kc + p.nf * (p.kc + 1) + (p.out_proj ? nog * p.kc : 0);
-      for (int i = 0; i < nt; ++i)
-        ring_fill(ring, i, p.ws, ffn_tile_bytes(p, i, PIPE));
+      if constexpr (WIDE) {
+        // x1's tiles, then the FFN's of the block's groups of output
+        // columns, then Wout^T's
+        const int x1t = p.ngc * (xk + p.kc), ffn = p.nf * (p.kc + 1);
+        int i = 0;
+        for (; i < x1t; ++i) ring_fill(ring, i, p.ws, i, p.sb);
+        for (int g = blockIdx.y; g < p.ngc; g += gridDim.y)
+          for (int t = 0; t < ffn; ++t, ++i) {
+            const int src = x1t + g * ffn + t;
+            ring_fill(ring, i, p.ws, src, ffn_tile_bytes(p, src, false, p.ngc));
+          }
+        for (int t = 0; t < (p.out_proj ? nog * p.kc : 0); ++t, ++i)
+          ring_fill(ring, i, p.ws, x1t + p.ngc * ffn + t, p.sb);
+      } else {
+        const int nt = xk + p.kc + p.nf * (p.kc + 1) + (p.out_proj ? nog * p.kc : 0);
+        for (int i = 0; i < nt; ++i) ring_fill(ring, i, p.ws, i, ffn_tile_bytes(p, i, PIPE, 1));
+      }
     }
     return;
   }
@@ -996,22 +1152,53 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float acc[NCH][24];
   int it = 0;
 
-  // x1 = xf + ctx.Wo + bo, kept in acc to the end of the FFN: with in_proj
-  // the products of ctx.Wo add onto xf = x.Win, else xf is added after them
+  // x1 = xf + ctx.Wo + bo, kept in acc to the end of the FFN (wide: in the
+  // block's copy of the scratch, group by group): with in_proj the products
+  // of ctx.Wo add onto xf = x.Win, else xf is added after them. One group of
+  // C keeps code of its own here and below: the wide loops run once were
+  // 4-11% slower at the model's widths on an H100 (PERF.md)
+  float* const scr = WIDE ? p.scr + (size_t)blockIdx.y * gridDim.x * nwg * kRows * p.ngc * NW
+                          : nullptr;
+  if constexpr (WIDE) {
+    for (int gc = 0; gc < p.ngc; ++gc) {
 #pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
+      for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-    for (int i = 0; i < 24; ++i) acc[ch][i] = 0.f;
-  if (p.in_proj) {
-    mbar_wait(xbar + wg, 0);
-    ring_product<NCH, KS>(acc, xb_u, p.kc_in, true, ring, it, lane);
+        for (int i = 0; i < 24; ++i) acc[ch][i] = 0.f;
+      if (p.in_proj) {
+        mbar_wait(xbar + wg, 0);   // (a phase once complete stays so: no wait after the first)
+        ring_product<NCH, KS>(acc, xb_u, p.kc_in, true, ring, it, lane);
+      }
+      mbar_wait(cbar + wg, 0);
+      ring_product<NCH, KS>(acc, cb_u, p.kc, !p.in_proj, ring, it, lane);
+      if (!p.in_proj) load_rows<NCH>(acc, p.x + gc * NW, p.ldx, p.C - gc * NW, p.T, row, q, true);
+      add_bias<NCH>(acc, p.bo + gc * NW, p.C - gc * NW, q);
+      scr_store<NCH>(scr, p.ngc * NW, row, gc * NW, acc, q);
+    }
+    // y = LN2(x1) -> bf16 into cb
+    float mean[2], inv[2];
+    scr_stats<NCH>(acc, scr, p.ngc * NW, row, p.C, p.ngc, q, p.eps, mean, inv);
+    wg_bar(wg);   // every warp's ctx.Wo has read cb
+    for (int gc = 0; gc < p.ngc; ++gc) {
+      scr_load<NCH>(acc, scr, p.ngc * NW, row, gc * NW, q);
+      store_a_cols<NCH, KS>(cb, acc, gc * NW, p.C, p.kc, rl, q, mean, inv, p.ln2g, p.ln2b);
+    }
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int i = 0; i < 24; ++i) acc[ch][i] = 0.f;
+    if (p.in_proj) {
+      mbar_wait(xbar + wg, 0);
+      ring_product<NCH, KS>(acc, xb_u, p.kc_in, true, ring, it, lane);
+    }
+    mbar_wait(cbar + wg, 0);
+    ring_product<NCH, KS>(acc, cb_u, p.kc, !p.in_proj, ring, it, lane);
+    if (!p.in_proj) load_rows<NCH>(acc, p.x, p.ldx, p.C, p.T, row, q, true);
+    add_bias<NCH>(acc, p.bo, p.C, q);
+    wg_bar(wg);   // every warp's ctx.Wo has read cb
+    store_a<NCH, KS>(cb, acc, p.C, p.kc, rl, q, p.eps, p.ln2g, p.ln2b);   // y = LN2(x1)
   }
-  mbar_wait(cbar + wg, 0);
-  ring_product<NCH, KS>(acc, cb_u, p.kc, !p.in_proj, ring, it, lane);
-  if (!p.in_proj) load_rows<NCH>(acc, p.x, p.ldx, p.C, p.T, row, q, true);
-  add_bias<NCH>(acc, p.bo, p.C, q);
-  wg_bar(wg);   // every warp's ctx.Wo has read cb
-  store_a<NCH, KS>(cb, acc, p.C, p.kc, rl, q, p.eps, p.ln2g, p.ln2b);   // y = LN2(x1)
   fence_async_smem();
   wg_bar(wg);
 
@@ -1069,38 +1256,87 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       last(h0, f);
     }
   } else {
-    for (int f = 0; f < p.nf; ++f) {
-      float hacc[32];
-      zero(hacc);   // defined outside the wgmma pipeline
-      ring_product64<KS>(hacc, cb_u, p.kc, ring, it, lane);
-      silu_chunk(hacc, f);
-      ring_product<NCH, 4>(acc, hb_u, 1, false, ring, it, lane);
+    auto ffn = [&]() {
+      for (int f = 0; f < p.nf; ++f) {
+        float hacc[32];
+        zero(hacc);   // defined outside the wgmma pipeline
+        ring_product64<KS>(hacc, cb_u, p.kc, ring, it, lane);
+        silu_chunk(hacc, f);
+        ring_product<NCH, 4>(acc, hb_u, 1, false, ring, it, lane);
+      }
+    };
+    if constexpr (WIDE) {
+      // the block's groups of output columns in turn (all of them, or dealt
+      // to gridDim.y blocks a row tile where neither the final LN nor the
+      // out-projection needs the whole row), each from x1 in the scratch,
+      // y.Wi and its SiLU again for each; o back into the scratch
+      for (int gc = blockIdx.y; gc < p.ngc; gc += gridDim.y) {
+        scr_load<NCH>(acc, scr, p.ngc * NW, row, gc * NW, q);
+        ffn();
+        add_bias<NCH>(acc, p.bo2 + gc * NW, p.C - gc * NW, q);
+        scr_store<NCH>(scr, p.ngc * NW, row, gc * NW, acc, q);
+      }
+    } else {
+      ffn();
     }
   }
 
-  // o = x1 + h1.Wo2 + bo2, the block's final LN
-  add_bias<NCH>(acc, p.bo2, p.C, q);
-  if (p.final_ln) ln_inplace<NCH>(acc, p.C, q, p.final_eps, p.ln3g, p.ln3b);
-  if (!p.out_proj) {   // staged in cb and hb (free now; (kc + 1) boxes hold (64, NW + 8))
-    bf16* st = reinterpret_cast<bf16*>(cb);
+  // o = x1 + h1.Wo2 + bo2, the block's final LN; out (without the
+  // out-projection) or o -> bf16 into cb, the out-projection's A tile,
+  // staged in cb and hb (free now; (kc + 1) boxes hold (64, NW + 8)). Wide,
+  // group by group from the scratch
+  if constexpr (WIDE) {
+    float mean[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+    if (p.final_ln)
+      scr_stats<NCH>(acc, scr, p.ngc * NW, row, p.C, p.ngc, q, p.final_eps, mean, inv);
     wg_bar(wg);   // every warp's last products have read cb and hb
+    for (int gc = blockIdx.y; gc < p.ngc; gc += gridDim.y) {
+      const int n0 = gc * NW;
+      scr_load<NCH>(acc, scr, p.ngc * NW, row, n0, q);
+      if (p.final_ln) ln_apply<NCH>(acc, n0, p.C, q, mean, inv, p.ln3g, p.ln3b);
+      if (p.out_proj) {
+        store_a_cols<NCH, KS>(cb, acc, n0, p.C, p.kc, rl, q, mean, inv, nullptr, nullptr);
+        continue;
+      }
+      bf16* st = reinterpret_cast<bf16*>(cb);
+      if (gc > (int)blockIdx.y) wg_bar(wg);   // the previous group's copy-out has read st
 #pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
+      for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-      for (int j = 0; j < 6; ++j)
+        for (int j = 0; j < 6; ++j)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          stage_pair<NCH>(st, rl + 8 * hf, ch * kChunk + 8 * j + 2 * q, acc[ch][4 * j + 2 * hf],
-                          acc[ch][4 * j + 2 * hf + 1]);
-    wg_bar(wg);
-    copy_out<NCH>(st, p.out + (size_t)(tile0 + wg * kRows) * p.ldo, p.ldo,
-                  p.T - (tile0 + wg * kRows), (p.C + 7) / 8 * 8, tid & 127);
-    return;
+          for (int hf = 0; hf < 2; ++hf)
+            stage_pair<NCH>(st, rl + 8 * hf, ch * kChunk + 8 * j + 2 * q,
+                            acc[ch][4 * j + 2 * hf], acc[ch][4 * j + 2 * hf + 1]);
+      wg_bar(wg);
+      copy_out<NCH>(st, p.out + (size_t)(tile0 + wg * kRows) * p.ldo + n0, p.ldo,
+                    p.T - (tile0 + wg * kRows), min(NW, (p.C - n0 + 7) / 8 * 8), tid & 127);
+    }
+    if (!p.out_proj) return;
+  } else {
+    add_bias<NCH>(acc, p.bo2, p.C, q);
+    if (p.final_ln) ln_inplace<NCH>(acc, p.C, q, p.final_eps, p.ln3g, p.ln3b);
+    if (!p.out_proj) {
+      bf16* st = reinterpret_cast<bf16*>(cb);
+      wg_bar(wg);   // every warp's last products have read cb and hb
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            stage_pair<NCH>(st, rl + 8 * hf, ch * kChunk + 8 * j + 2 * q,
+                            acc[ch][4 * j + 2 * hf], acc[ch][4 * j + 2 * hf + 1]);
+      wg_bar(wg);
+      copy_out<NCH>(st, p.out + (size_t)(tile0 + wg * kRows) * p.ldo, p.ldo,
+                    p.T - (tile0 + wg * kRows), (p.C + 7) / 8 * 8, tid & 127);
+      return;
+    }
+    wg_bar(wg);   // every warp's last y.Wi has read cb
+    store_a<NCH, KS>(cb, acc, p.C, p.kc, rl, q, 0.f, nullptr, nullptr);
   }
 
   // the out-projection: (o -> bf16) . Wout * bn_scale + bn_bias (, SiLU)
-  wg_bar(wg);   // every warp's last y.Wi has read cb
-  store_a<NCH, KS>(cb, acc, p.C, p.kc, rl, q, 0.f, nullptr, nullptr);
   fence_async_smem();
   wg_bar(wg);
   for (int og = 0; og < nog; ++og) {
@@ -1169,7 +1405,7 @@ int make_map(CUtensorMap* m, const void* ptr, int cols, int rows, int ld) {
 
 // the launch's sizes, from the layer's shapes
 struct Sizes {
-  int nch, sb, kc_in, kc, hdp, nqkv, G, nt, nqg;
+  int nch, sb, kc_in, kc, hdp, nqkv, G, nt, nqg, ngc;
 };
 
 Sizes sizes(const LayerArgs& a) {
@@ -1184,6 +1420,7 @@ Sizes sizes(const LayerArgs& a) {
   z.G = a.L < 64 ? 64 / a.L : 1;
   z.nt = z.G > 1 ? 1 : cdiv(a.L, 64);
   z.nqg = cdiv(z.nt, kStreamQ);   // the streamed attention's blocks a sequence and head
+  z.ngc = a.nw > 0 ? cdiv(a.C, a.nw) : 0;   // groups of C's columns: 1, or wide 2 or more
   return z;
 }
 
@@ -1236,20 +1473,21 @@ int launch(void (*kernel)(P), const P& p, dim3 grid, int threads, size_t smem, v
   return (int)cudaGetLastError();
 }
 
-// kernels by (NCH, KS) and (NKC, KD)
+// kernels by (NCH, KS, WIDE) and (NKC, KD)
 // the row-tile kernels: nwg consumer warpgroups of 64 rows and a producer one
-template <int NCH>
+template <int NCH, bool WIDE>
 int launch_qkv(int ks, const QkvParams& p, dim3 grid, size_t smem, void* stream) {
   const int threads = 128 * p.nwg + 128;
-  return ks == 3 ? launch(layer_ln_qkv_kernel<NCH, 3>, p, grid, threads, smem, stream)
-                 : launch(layer_ln_qkv_kernel<NCH, 4>, p, grid, threads, smem, stream);
+  return ks == 3 ? launch(layer_ln_qkv_kernel<NCH, 3, WIDE>, p, grid, threads, smem, stream)
+                 : launch(layer_ln_qkv_kernel<NCH, 4, WIDE>, p, grid, threads, smem, stream);
 }
-template <int NCH>
+template <int NCH, bool WIDE>
 int launch_ffn(int ks, const FfnParams& p, dim3 grid, size_t smem, void* stream) {
   const int threads = 128 * p.nwg + 128;
-  return ks == 3 ? launch(layer_proj_ffn_kernel<NCH, 3>, p, grid, threads, smem, stream)
-                 : launch(layer_proj_ffn_kernel<NCH, 4>, p, grid, threads, smem, stream);
+  return ks == 3 ? launch(layer_proj_ffn_kernel<NCH, 3, WIDE>, p, grid, threads, smem, stream)
+                 : launch(layer_proj_ffn_kernel<NCH, 4, WIDE>, p, grid, threads, smem, stream);
 }
+
 template <int NQ>
 int launch_stream(int kd, const AttnParams& p, dim3 grid, size_t smem, void* stream) {
   switch (kd) {
@@ -1274,19 +1512,23 @@ int launch_attn(int kd, const AttnParams& p, dim3 grid, size_t smem, void* strea
 }  // namespace
 
 // Checks the shapes the kernels take and the wrapper's stream layout (nw
-// output columns a C-wide product, in kChunk-column wgmma chunks; K chunks
-// of 16 ks; `pipe`, the FFN's order) and fills the two rings' depths (a
-// nonzero depth asked for is kept if it fits `max_smem`); 1 if the layer
-// fits, else 0.
+// output columns a C-wide product, in kChunk-column wgmma chunks: C rounded
+// up to kChunk, or wide groups of 4-6 chunks whose columns cover the K
+// chunks; K chunks of 16 ks; `pipe`, the FFN's order) and fills the two
+// rings' depths (a nonzero depth asked for is kept if it fits `max_smem`);
+// 1 if the layer fits, else 0.
 extern "C" int gxt_layer_plan(LayerArgs* a, int max_smem) {
   if (a->L <= 0 || a->L % 8 || a->H <= 0 || a->C % a->H || a->dh != a->C / a->H || a->dh % 2 ||
       a->dh > 64 || a->dhp != (a->dh + 15) / 16 * 16 || a->Cin <= 0 || a->Cout <= 0 ||
       a->nf <= 0 || (a->ks != 3 && a->ks != 4) || (a->nwg != 1 && a->nwg != 2) ||
       (!a->in_proj && a->Cin != a->C) || (!a->out_proj && a->Cout != a->C) ||
-      a->nw % kChunk || a->nw < a->C || a->nw >= a->C + kChunk || (a->pipe != 0 && a->pipe != 1))
+      a->nw <= 0 || a->nw % kChunk || a->nw >= a->C + kChunk || (a->pipe != 0 && a->pipe != 1))
     return 0;
   const Sizes z = sizes(*a);
-  if (z.nch > kMaxNch || (a->pipe != 0) != (z.nch <= kMaxPipeNch)) return 0;
+  if (z.nch > kMaxNch) return 0;
+  if (z.ngc > 1 ? a->pipe || z.nch < kMinWideNch || z.ngc * a->nw < z.kc * 16 * a->ks
+                : (a->pipe != 0) != (z.nch <= kMaxPipeNch))
+    return 0;
   // the attention: resident up to kMaxQTiles query tiles, streamed past
   // them (L >= 64: one sequence a tile; at 576 keys it ran 1% faster than
   // the resident kernel walking the keys twice, on an H100: PERF.md); a
@@ -1317,20 +1559,34 @@ extern "C" int gxt_layer_ln_qkv(const LayerArgs* a, void* stream) {
   p.ln_b = static_cast<const float*>(a->ln1b);
   p.bias = static_cast<const float*>(a->bqkv);
   p.qkv = static_cast<bf16*>(const_cast<void*>(a->qkv));
+  p.scr = static_cast<float*>(const_cast<void*>(a->scr));
   p.T = a->T; p.Cin = a->Cin; p.ldx = a->ldx; p.C = a->C; p.nqkv = z.nqkv; p.hdp = z.hdp;
   p.in_proj = a->in_proj; p.kc_in = z.kc_in; p.kc = z.kc; p.sb = z.sb; p.stages = a->stages_a;
-  p.eps = a->eps; p.scale = a->scale; p.nwg = a->nwg;
-  if (p.stages < 2 || p.stages > kMaxStages || (p.nwg != 1 && p.nwg != 2))
+  p.eps = a->eps; p.scale = a->scale; p.nwg = a->nwg; p.ngc = z.ngc;
+  if (p.stages < 2 || p.stages > kMaxStages || (p.nwg != 1 && p.nwg != 2) || p.ngc < 1 ||
+      (p.ngc > 1 && !p.scr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(cdiv(a->T, p.nwg * kRows));
+  // wide: the [q | k | v] groups dealt to qsplit blocks a row tile (the
+  // wrapper's choice; each block its own copy of the scratch)
+  if (a->qsplit < 1 || a->qsplit > cdiv(z.nqkv, z.nch * kChunk) || (z.ngc == 1 && a->qsplit != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(a->T, p.nwg * kRows), a->qsplit);
   const size_t smem = smem_bytes(*a, 0);
+  if (z.ngc > 1) {
+    switch (z.nch) {
+      case 4: return launch_qkv<4, true>(a->ks, p, grid, smem, stream);
+      case 5: return launch_qkv<5, true>(a->ks, p, grid, smem, stream);
+      case 6: return launch_qkv<6, true>(a->ks, p, grid, smem, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (z.nch) {
-    case 1: return launch_qkv<1>(a->ks, p, grid, smem, stream);
-    case 2: return launch_qkv<2>(a->ks, p, grid, smem, stream);
-    case 3: return launch_qkv<3>(a->ks, p, grid, smem, stream);
-    case 4: return launch_qkv<4>(a->ks, p, grid, smem, stream);
-    case 5: return launch_qkv<5>(a->ks, p, grid, smem, stream);
-    case 6: return launch_qkv<6>(a->ks, p, grid, smem, stream);
+    case 1: return launch_qkv<1, false>(a->ks, p, grid, smem, stream);
+    case 2: return launch_qkv<2, false>(a->ks, p, grid, smem, stream);
+    case 3: return launch_qkv<3, false>(a->ks, p, grid, smem, stream);
+    case 4: return launch_qkv<4, false>(a->ks, p, grid, smem, stream);
+    case 5: return launch_qkv<5, false>(a->ks, p, grid, smem, stream);
+    case 6: return launch_qkv<6, false>(a->ks, p, grid, smem, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1384,24 +1640,40 @@ extern "C" int gxt_layer_proj_ffn(const LayerArgs* a, void* stream) {
   p.osc = static_cast<const float*>(a->osc);
   p.obi = static_cast<const float*>(a->obi);
   p.out = static_cast<bf16*>(const_cast<void*>(a->out));
+  p.scr = static_cast<float*>(const_cast<void*>(a->scr));
   p.T = a->T; p.Cin = a->Cin; p.ldx = a->ldx; p.C = a->C; p.Cout = a->Cout; p.ldo = a->ldo;
   p.nf = a->nf;
   p.in_proj = a->in_proj; p.final_ln = a->final_ln; p.out_proj = a->out_proj;
   p.out_act = a->out_act; p.kc_in = z.kc_in; p.kc = z.kc; p.sb = z.sb; p.stages = a->stages_c;
-  p.eps = a->eps; p.final_eps = a->final_eps; p.nwg = a->nwg;
+  p.eps = a->eps; p.final_eps = a->final_eps; p.nwg = a->nwg; p.ngc = z.ngc;
   if (p.stages < 2 || p.stages > kMaxStages || p.ldo % 8 || p.ldo < p.Cout ||
-      (p.nwg != 1 && p.nwg != 2) || (a->pipe != 0) != (z.nch <= kMaxPipeNch) ||
+      (p.nwg != 1 && p.nwg != 2) || p.ngc < 1 || (p.ngc > 1 && (!p.scr || a->pipe)) ||
+      (p.ngc == 1 && (a->pipe != 0) != (z.nch <= kMaxPipeNch)) ||
       (a->pipe && p.stages < z.kc + 2))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(cdiv(a->T, p.nwg * kRows));
+  // wide, without the final LN and the out-projection: the FFN's groups of
+  // output columns dealt to fsplit blocks a row tile (the wrapper's choice;
+  // each block its own copy of the scratch)
+  if (a->fsplit < 1 || a->fsplit > z.ngc ||
+      (a->fsplit > 1 && (a->final_ln || a->out_proj)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(a->T, p.nwg * kRows), a->fsplit);
   const size_t smem = smem_bytes(*a, 2);
+  if (z.ngc > 1) {
+    switch (z.nch) {
+      case 4: return launch_ffn<4, true>(a->ks, p, grid, smem, stream);
+      case 5: return launch_ffn<5, true>(a->ks, p, grid, smem, stream);
+      case 6: return launch_ffn<6, true>(a->ks, p, grid, smem, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (z.nch) {
-    case 1: return launch_ffn<1>(a->ks, p, grid, smem, stream);
-    case 2: return launch_ffn<2>(a->ks, p, grid, smem, stream);
-    case 3: return launch_ffn<3>(a->ks, p, grid, smem, stream);
-    case 4: return launch_ffn<4>(a->ks, p, grid, smem, stream);
-    case 5: return launch_ffn<5>(a->ks, p, grid, smem, stream);
-    case 6: return launch_ffn<6>(a->ks, p, grid, smem, stream);
+    case 1: return launch_ffn<1, false>(a->ks, p, grid, smem, stream);
+    case 2: return launch_ffn<2, false>(a->ks, p, grid, smem, stream);
+    case 3: return launch_ffn<3, false>(a->ks, p, grid, smem, stream);
+    case 4: return launch_ffn<4, false>(a->ks, p, grid, smem, stream);
+    case 5: return launch_ffn<5, false>(a->ks, p, grid, smem, stream);
+    case 6: return launch_ffn<6, false>(a->ks, p, grid, smem, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 """MobileNetV2 inverted residual in one pass: ``csrc/inverted_residual.cu``
-(``csrc/inverted_residual_tile.cu`` for the shapes it does not take),
+(``csrc/inverted_residual_wide.cu`` for the widths it does not take),
 ``csrc/inverted_residual_f32.cu`` at f32, ``csrc/inverted_residual_s2.cu`` at
 stride 2, and their plain PyTorch version.
 
@@ -27,19 +27,22 @@ On a CPU tensor :func:`fused_inverted_residual` runs :func:`fused_ir_plain`;
 on a CUDA tensor it launches a kernel or raises. At stride 1 and bf16 the
 strip kernel (``csrc/inverted_residual.cu``) takes C and Cout multiples of
 8, C up to 64, E up to 256 and widths whose weights and rings fit one block
-(:func:`ir_plans`); every other shape goes to the 8 x 8 tile kernel
-(``csrc/inverted_residual_tile.cu``, counter ``inverted_residual_tile``). At
-stride 1 and f32 the block runs on ``csrc/inverted_residual_f32.cu`` (counter
-``inverted_residual_f32``; Cout up to 128). At stride 2, bf16 or f32, it runs
-on ``csrc/inverted_residual_s2.cu`` (counters ``inverted_residual_s2`` and
+(:func:`ir_plans`); every other width goes to ``csrc/inverted_residual_wide.cu``
+(counter ``inverted_residual_wide``; :func:`ir_wide_plan` picks its tile and
+the output channels a pass takes). At stride 1 and f32 the block runs on
+``csrc/inverted_residual_f32.cu`` (counter ``inverted_residual_f32``; Cout
+up to 128). At stride 2, bf16 or f32, it runs on
+``csrc/inverted_residual_s2.cu`` (counters ``inverted_residual_s2`` and
 ``inverted_residual_s2_f32``; even H and W, no residual, Cout up to 256),
-which covers MobileViT-small's four downsampling blocks. Those two are one
+which covers MobileViT-small's four downsampling blocks. Those three are one
 design (``csrc/ir_hopper.cuh``: an output tile a block, x by TMA, the
-weights split once into K-major planes by :func:`ir_f32_operands` /
-:func:`ir_s2_operands`, the products on wgmma) and take C as far as a
-tile's shared memory fits (:func:`ir_tc_tile`; the block's route sends
-wider blocks to the unfused chain, :func:`ir_tc_takes`). All of them count
-under ``fused_inverted_residual`` too.
+weights split once into K-major planes by :func:`ir_wide_operands`,
+:func:`ir_f32_operands` and :func:`ir_s2_operands`, the products on wgmma)
+and take C as far as a tile's shared memory fits (:func:`ir_tc_tile`,
+:func:`ir_wide_plan`; the block's route sends wider f32 and stride-2 blocks
+to the unfused chain, :func:`ir_tc_takes`, and a bf16 stride-1 block too
+wide for any tile raises). All of them count under
+``fused_inverted_residual`` too.
 """
 
 from __future__ import annotations
@@ -56,7 +59,6 @@ import torch.nn.functional as F
 from ggml_experiments_tpu_torch.device import current_stream_handle, resolve_dtype
 from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.fused_transformer_layer import (
-    _bt,
     _smem_limit,
     k_tiles,
     swizzle_tiles,
@@ -64,7 +66,7 @@ from ggml_experiments_tpu_torch.ops.fused_transformer_layer import (
 )
 
 # launches of the CUDA kernels; only the kernel wrappers add to them
-LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_tile": 0,
+LAUNCHES = {"fused_inverted_residual": 0, "inverted_residual_wide": 0,
             "inverted_residual_f32": 0, "inverted_residual_s2": 0, "inverted_residual_s2_f32": 0}
 
 SMEM_LIMIT = 232448     # bytes of shared memory an H100 block may use
@@ -143,8 +145,8 @@ def ir_smem_bytes(plan: IRPlan, c: int, e: int, cout: int) -> int:
 def ir_plans(c: int, e: int, cout: int, limit: int = SMEM_LIMIT) -> Tuple[IRPlan, ...]:
     """Every plan the strip kernel takes at these widths: C up to 64 and C
     and Cout multiples of 8 (TMA's 16-byte strides), an even E up to 256,
-    and the plan's shared memory within ``limit``. Empty: the tile kernel's
-    shape."""
+    and the plan's shared memory within ``limit``. Empty: the wide kernel's
+    widths (:func:`ir_wide_plan`)."""
     if c % 8 or c > MAX_C or cout % 8 or e % 2 or e > MAX_E:
         return ()
     return tuple(IRPlan(s, k) for s in PLAN_STRIPS for k in PLAN_STAGES
@@ -170,16 +172,14 @@ def ir_plan(b: int, h: int, w: int, c: int, e: int, cout: int,
 
 @dataclasses.dataclass
 class IROperands:
-    """A block's weights in the layout of the kernel that takes its widths,
-    made once (:func:`ir_operands`). Strip kernel: Wexp and Wred as 128-byte
-    swizzled (64-channel chunk, output channel, 64) tiles, E and Cout padded
-    to 64 with zeros in every vector; tile kernel: both transposed and
-    padded on K (``_bt``)."""
+    """A block's weights in the strip kernel's layout, made once
+    (:func:`ir_operands`): Wexp and Wred as 128-byte swizzled (64-channel
+    chunk, output channel, 64) tiles, E and Cout padded to 64 with zeros in
+    every vector."""
 
     c: int
     e: int
     cout: int
-    strip: bool
     wexp: torch.Tensor
     bexp: torch.Tensor
     kdw: torch.Tensor
@@ -193,16 +193,15 @@ class IROperands:
                                                  self.wred, self.bred))
 
 
-def ir_operands(wexp, bexp, kdw, bdw, wred, bred) -> IROperands:
+def ir_operands(wexp, bexp, kdw, bdw, wred, bred):
     """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
-    bred (Cout,), BN folded, on the device of the launch."""
+    bred (Cout,), BN folded, on the device of the launch: the strip kernel's
+    operands (:class:`IROperands`) where it takes the widths, else
+    ``csrc/inverted_residual_wide.cu``'s (:func:`ir_wide_operands`)."""
     c, e = wexp.shape
     cout = wred.shape[1]
-    strip = bool(ir_plans(c, e, cout))
-    if not strip:
-        vec = lambda v, n: v.float().reshape(n).contiguous()  # noqa: E731
-        return IROperands(c, e, cout, False, _bt(wexp), vec(bexp, e), vec(kdw, 9 * e),
-                          vec(bdw, e), _bt(wred), vec(bred, cout))
+    if not ir_plans(c, e, cout):
+        return ir_wide_operands(wexp, bexp, kdw, bdw, wred, bred)
     ep, cn = _pad(e, 64), _pad(cout, 64)
 
     def vec(v, n, rows=1):
@@ -210,7 +209,7 @@ def ir_operands(wexp, bexp, kdw, bdw, wred, bred) -> IROperands:
         out[:, :v.numel() // rows] = v.float().reshape(rows, -1)
         return out.reshape(-1)
 
-    return IROperands(c, e, cout, True, k_tiles(wexp.t().to(torch.bfloat16), ep).contiguous(),
+    return IROperands(c, e, cout, k_tiles(wexp.t().to(torch.bfloat16), ep).contiguous(),
                       vec(bexp, ep), vec(kdw, ep, rows=9), vec(bdw, ep),
                       k_tiles(wred.t().to(torch.bfloat16), cn).contiguous(), vec(bred, cn))
 
@@ -239,10 +238,10 @@ def _lib(name: str):
         lib.gxt_ir_s2_smem.restype = ctypes.c_longlong
         lib.gxt_ir_s2_smem.argtypes = [i] * 4
     else:
-        lib.gxt_ir_tile.restype = i
-        lib.gxt_ir_tile.argtypes = [p] * 8 + [i] * 7 + [p]
-        lib.gxt_ir_tile_smem.restype = ctypes.c_longlong
-        lib.gxt_ir_tile_smem.argtypes = [i, i]
+        lib.gxt_ir_wide.restype = i
+        lib.gxt_ir_wide.argtypes = [p] * 8 + [i] * 10 + [p]
+        lib.gxt_ir_wide_smem.restype = ctypes.c_longlong
+        lib.gxt_ir_wide_smem.argtypes = [i] * 4
     return lib
 
 
@@ -250,13 +249,20 @@ _SMEM_AGREED = set()   # (plan, C, E, Cout) whose reckoning the kernel confirmed
 _DEVICE_SMEM = {}      # device index -> shared memory a block may opt into
 
 
-def fused_ir_cuda(x: torch.Tensor, ops: IROperands, *, use_residual: bool = False,
+def fused_ir_cuda(x: torch.Tensor, ops, *, use_residual: bool = False,
                   _plan: Optional[IRPlan] = None) -> torch.Tensor:
-    """Launch the kernel that takes ``ops``' widths: x a bf16 (B, H, W, C)
-    CUDA tensor, stride 1. ``_plan`` forces the strip kernel's plan (tests,
+    """Launch the kernel that takes ``ops``' widths (:func:`ir_operands`): x
+    a bf16 (B, H, W, C) CUDA tensor, stride 1; the strip kernel for
+    :class:`IROperands`, ``csrc/inverted_residual_wide.cu`` for
+    :class:`IRTCOperands`. ``_plan`` forces the strip kernel's plan (tests,
     sweeps). The host work is kept short: it is part of every call."""
     from ggml_experiments_tpu_torch import _build
 
+    if isinstance(ops, IRTCOperands):
+        if _plan is not None:
+            raise ValueError(f"fused_ir_cuda: (C, E, Cout) = ({ops.c}, {ops.e}, {ops.cout}) runs "
+                             f"on csrc/inverted_residual_wide.cu, which takes no plan")
+        return fused_ir_wide_cuda(x, ops, use_residual=use_residual)
     dev = x.device
     if dev.type != "cuda" or x.dim() != 4 or x.dtype != torch.bfloat16:
         raise ValueError(f"fused_ir_cuda: x must be a bf16 (B, H, W, C) CUDA tensor, got "
@@ -271,45 +277,32 @@ def fused_ir_cuda(x: torch.Tensor, ops: IROperands, *, use_residual: bool = Fals
     limit = _DEVICE_SMEM.get(dev.index)
     if limit is None:
         limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
-    if ops.strip:
-        plan = _plan or ir_plan(b, h, w, c, e, cout, limit)
-        if _plan is not None and plan not in ir_plans(c, e, cout, limit):
-            raise ValueError(f"fused_ir_cuda: the strip kernel does not take {plan} at (C, E, "
-                             f"Cout) = ({c}, {e}, {cout})")
-        lib = _lib("inverted_residual")
-        if (plan, c, e, cout) not in _SMEM_AGREED:
-            need = ir_smem_bytes(plan, c, e, cout)
-            if lib.gxt_inverted_residual_smem(plan.s, plan.k, c, e, cout) != need:
-                raise RuntimeError(f"fused_ir_cuda: {plan} needs {need} bytes of shared memory "
-                                   f"here, the kernel reckons otherwise")
-            _SMEM_AGREED.add((plan, c, e, cout))
-        launch, extra = lib.gxt_inverted_residual, (plan.s, plan.k)
-    else:
-        if _plan is not None:
-            raise ValueError(f"fused_ir_cuda: (C, E, Cout) = ({c}, {e}, {cout}) runs on the tile "
-                             f"kernel, which takes no plan")
-        lib = _lib("inverted_residual_tile")
-        need = lib.gxt_ir_tile_smem(c, e)
-        if need > limit:
-            raise ValueError(f"fused_ir_cuda: C={c}, E={e} needs {need} bytes of shared memory, "
-                             f"the device allows {limit}")
-        launch, extra = lib.gxt_ir_tile, ()
-        plan = "tile kernel"
+    plan = _plan or ir_plan(b, h, w, c, e, cout, limit)
+    if plan not in ir_plans(c, e, cout, limit):
+        raise ValueError(f"fused_ir_cuda: the strip kernel does not take {plan} at (C, E, "
+                         f"Cout) = ({c}, {e}, {cout})")
+    lib = _lib("inverted_residual")
+    if (plan, c, e, cout) not in _SMEM_AGREED:
+        need = ir_smem_bytes(plan, c, e, cout)
+        if lib.gxt_inverted_residual_smem(plan.s, plan.k, c, e, cout) != need:
+            raise RuntimeError(f"fused_ir_cuda: {plan} needs {need} bytes of shared memory "
+                               f"here, the kernel reckons otherwise")
+        _SMEM_AGREED.add((plan, c, e, cout))
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
-        code = launch(x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e, cout,
-                      int(use_residual), *extra, current_stream_handle(dev))
+        code = lib.gxt_inverted_residual(x.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, c, e,
+                                         cout, int(use_residual), plan.s, plan.k,
+                                         current_stream_handle(dev))
     if code:
         _build.check(lib, code, f"fused_inverted_residual (B, H, W, C, E, Cout) = ({b}, {h}, "
                                 f"{w}, {c}, {e}, {cout}), {plan}")
-    if not ops.strip:
-        LAUNCHES["inverted_residual_tile"] += 1
     LAUNCHES["fused_inverted_residual"] += 1
     return out
 
 
-# ---- the Hopper tile kernels: f32 at stride 1, bf16 and f32 at stride 2 ------------------
+# ---- the Hopper tile kernels: f32 at stride 1, bf16 and f32 at stride 2 (and bf16 at
+# stride 1 past the strip kernel, below) ------------------------------------------------
 
 F32_MAX_COUT = 128    # the f32 kernel's reduce: two m64 tiles of output channels
 S2_MAX_COUT = 256     # the stride-2 kernel's: four
@@ -329,18 +322,20 @@ def _halo(stride: int, t: int) -> int:
     return (t - 1) * stride + 3
 
 
-def _tc_smem(f32: bool, stride: int, tile, c: int, cout: int) -> int:
+def _tc_smem(f32: bool, stride: int, tile, c: int, cout: int, wsl: int = 0) -> int:
     """Dynamic shared memory of a launch of csrc/ir_hopper.cuh (its
     ``layout``): x's halo in slabs of one 128-byte row of channels (each
     rounded up to 1024 bytes; at f32 twice, its tf32 hi and lo parts), a
-    chunk of Wexp^T's planes, one of Wred^T's (Cout rounded up to 64), y's
-    chunk, the expanded chunk (the halo's pixels padded to m64 tiles), three
-    mbarriers and the base's alignment."""
+    chunk of Wexp^T's planes (or ``wsl`` slabs of its K), one of Wred^T's
+    (Cout rounded up to 64), y's chunk, the expanded chunk (the halo's
+    pixels padded to m64 tiles), three mbarriers and the base's
+    alignment."""
     kw, parts, lde, esz = _tc_dims(f32)
     th, tw = tile
     slabs, nc = -(-c // kw), 64 * -(-cout // 64)
+    wsl = wsl if 0 < wsl < slabs else slabs
     hp = _halo(stride, th) * _halo(stride, tw)
-    return (parts * slabs * _pad(hp * 128, 1024) + parts * slabs * kw * 128 + parts * nc * 128
+    return (parts * slabs * _pad(hp * 128, 1024) + parts * wsl * kw * 128 + parts * nc * 128
             + parts * th * tw * 128 + _pad(hp, 64) * lde * esz + 24 + 1024)
 
 
@@ -379,15 +374,19 @@ def _tc_planes(wt: torch.Tensor, rows: int, k: int, kw: int, f32: bool) -> torch
 @dataclasses.dataclass
 class IRTCOperands:
     """A block's weights for csrc/ir_hopper.cuh at one compute dtype, made
-    once (:func:`ir_f32_operands`, :func:`ir_s2_operands`). Per chunk of kw
-    expanded channels (32 at f32, 64 at bf16), as each chunk's bulk copy
-    lands in shared memory: ``wexp`` (chunks, parts, slabs, kw, kw) holds
-    Wexp^T's rows of the chunk's channels, K = C cut into slabs of kw; ``wred``
-    (chunks, parts, nc, kw) holds Wred^T's rows of the output channels (Cout
-    rounded up to 64) for the chunk's K; each 128-byte row swizzled, the
-    parts the tf32 hi and lo planes at f32 (split once here), one bf16 plane
-    at bf16. bexp, kdw (9 rows), bdw padded to the chunks, bred to nc; zeros
-    in every pad."""
+    once (:func:`ir_f32_operands`, :func:`ir_s2_operands`,
+    :func:`ir_wide_operands`). Per chunk of kw expanded channels (32 at f32,
+    64 at bf16), as each chunk's bulk copy lands in shared memory: ``wexp``
+    (chunks, parts, slabs, kw, kw) holds Wexp^T's rows of the chunk's
+    channels, K = C cut into slabs of kw; ``wred`` (passes x chunks, parts,
+    ncp, kw) holds, for each pass over ``ncp`` output channels (passes
+    outer), Wred^T's rows of the pass's channels for the chunk's K (one pass
+    over Cout rounded up to 64 but on the wide kernel); each 128-byte row swizzled, the parts the
+    tf32 hi and lo planes at f32 (split once here), one bf16 plane at bf16.
+    bexp, kdw (9 rows), bdw padded to the chunks, bred to passes x ncp;
+    zeros in every pad. ``tile`` is the wide kernel's output tile (the f32
+    and stride-2 kernels pick theirs) and ``wsl`` the slabs of Wexp^T's K its
+    buffer holds (:func:`ir_wide_plan`)."""
 
     c: int
     e: int
@@ -399,6 +398,9 @@ class IRTCOperands:
     bdw: torch.Tensor
     wred: torch.Tensor
     bred: torch.Tensor
+    ncp: int
+    tile: Optional[Tuple[int, int]] = None
+    wsl: int = 0
     ptrs: Tuple[int, ...] = dataclasses.field(init=False)   # the six, in the kernels' order
 
     def __post_init__(self):
@@ -407,20 +409,25 @@ class IRTCOperands:
 
 
 
-def _tc_operands(wexp, bexp, kdw, bdw, wred, bred, cd, max_cout: int, who: str) -> IRTCOperands:
+def _tc_operands(wexp, bexp, kdw, bdw, wred, bred, cd, max_cout: int, who: str,
+                 ncp: int = 0, tile=None, wsl: int = 0) -> IRTCOperands:
     c, e = wexp.shape
     cout = wred.shape[1]
     if not 0 < cout <= max_cout:
         raise ValueError(f"{who}: the kernel takes Cout up to {max_cout}, got {cout}")
     f32 = cd == torch.float32
     kw = _tc_dims(f32)[0]
-    ep, kp, nc = _pad(e, kw), _pad(c, kw), _pad(cout, 64)
+    ncp = ncp or _pad(cout, 64)
+    passes = -(-cout // ncp)
+    ep, kp, nc = _pad(e, kw), _pad(c, kw), passes * ncp
     nch = ep // kw
     # Wexp^T (E, C): (parts, ep, slabs, kw) -> (chunks, parts, slabs, kw rows, kw)
     wx = _tc_planes(wexp.t(), ep, kp, kw, f32)
     wx = wx.reshape(wx.shape[0], nch, kw, kp // kw, kw).permute(1, 0, 3, 2, 4)
-    # Wred^T (Cout, E): (parts, nc, chunks, kw) -> (chunks, parts, nc, kw)
-    wr = _tc_planes(wred.t(), nc, ep, kw, f32).permute(2, 0, 1, 3)
+    # Wred^T (Cout, E): (parts, nc, chunks, kw) -> (passes chunks, parts, ncp, kw)
+    wr = _tc_planes(wred.t(), nc, ep, kw, f32)
+    wr = wr.reshape(wr.shape[0], passes, ncp, nch, kw).permute(1, 3, 0, 2, 4).reshape(
+        passes * nch, wr.shape[0], ncp, kw)
 
     def vec(v, n, rows=1):
         out = torch.zeros((rows, n), dtype=torch.float32, device=v.device)
@@ -429,7 +436,7 @@ def _tc_operands(wexp, bexp, kdw, bdw, wred, bred, cd, max_cout: int, who: str) 
 
     return IRTCOperands(c, e, cout, cd, swizzle_tiles(wx).contiguous(), vec(bexp, ep),
                         vec(kdw, ep, rows=9), vec(bdw, ep), swizzle_tiles(wr).contiguous(),
-                        vec(bred, nc))
+                        vec(bred, nc), ncp, tile, wsl)
 
 
 def ir_f32_smem_bytes(c: int, e: int, cout: int) -> int:
@@ -608,6 +615,128 @@ def fused_ir_s2_cuda(x: torch.Tensor, ops: IRTCOperands, *,
     return out
 
 
+# ---- the bf16 stride-1 kernel past the strip kernel's widths -----------------------------
+
+# m64 tiles of output channels a pass of csrc/inverted_residual_wide.cu takes on
+# each stride-1 tile: a warpgroup holds the reduce's sums of its share of the
+# tile's pixels (32 at 8 x 16, 16 at 8 x 8, 8 at 4 x 8) in registers
+WIDE_MAX_NCT = {(8, 16): 2, (8, 8): 4, (4, 8): 4}
+
+
+def ir_wide_smem_bytes(tile, c: int, ncp: int, wsl: int = 0) -> int:
+    """Dynamic shared memory of a launch of ``csrc/inverted_residual_wide.cu``
+    on ``tile`` with C input channels (padded to a multiple of 8), passes of
+    ``ncp`` output channels and ``wsl`` slabs of 64 of Wexp^T's K in its
+    buffer (0: all of them) (the kernel's ``gxt_ir_wide_smem``). E does not
+    enter: the kernel walks it in chunks of 64."""
+    return _tc_smem(False, 1, tile, _pad(c, 8), ncp, wsl)
+
+
+WIDE_PIECES_TILE = (4, 8)   # the tile that takes Wexp^T in pieces (csrc by_tile)
+
+
+@functools.lru_cache(maxsize=256)
+def ir_wide_plan(c: int, cout: int, limit: int = SMEM_LIMIT):
+    """(tile, ncp, wsl) of ``csrc/inverted_residual_wide.cu`` at these
+    widths, None where no tile fits a block. On each stride-1 tile the fewest
+    passes over Cout (``ncp`` output channels each, a multiple of 64 up to
+    the tile's WIDE_MAX_NCT m64 tiles, the passes as even as the m64 tiles
+    allow) whose shared memory fits ``limit``; of the tiles the one whose
+    passes expand the fewest halo pixels an output pixel (the widest on a
+    tie). ``wsl`` is the slabs of 64 input channels of Wexp^T its buffer
+    holds: all of C's where a chunk fits whole; else, on the 4 x 8 tile
+    alone, the most that fit (the chunk then comes in pieces, C past 768)."""
+    best = None
+    nt, slabs = -(-cout // 64), -(-c // 64)
+    for tile, cap in WIDE_MAX_NCT.items():
+        for passes in range(-(-nt // cap), nt + 1):
+            ncp = 64 * -(-nt // passes)
+            if ir_wide_smem_bytes(tile, c, ncp) <= limit:
+                cost = passes * _halo(1, tile[0]) * _halo(1, tile[1]) / (tile[0] * tile[1])
+                if best is None or cost < best[0]:
+                    best = (cost, tile, ncp, slabs)
+                break
+    if best is None:   # x's halo on 4 x 8 beside fewer slabs of Wexp^T, one m64 tile a pass
+        wsl = next((w for w in range(slabs - 1, 0, -1)
+                    if ir_wide_smem_bytes(WIDE_PIECES_TILE, c, 64, w) <= limit), None)
+        return None if wsl is None else (WIDE_PIECES_TILE, 64, wsl)
+    return best[1:]
+
+
+def ir_wide_operands(wexp, bexp, kdw, bdw, wred, bred) -> IRTCOperands:
+    """wexp (C, E), bexp (E,), kdw (3, 3, E), bdw (E,), wred (E, Cout),
+    bred (Cout,), BN folded, on the device of the launch: the operands of
+    ``csrc/inverted_residual_wide.cu`` (:class:`IRTCOperands` at bf16, one
+    plane, on :func:`ir_wide_plan`'s tile, passes and Wexp^T pieces). Raises
+    where x's halo at this C fits no tile's shared memory."""
+    c, e = wexp.shape
+    cout = wred.shape[1]
+    plan = ir_wide_plan(c, cout)
+    if plan is None:
+        raise ValueError(f"ir_wide_operands: (C, E, Cout) = ({c}, {e}, {cout}): x's halo and one "
+                         f"slab of Wexp at C={c} need "
+                         f"{ir_wide_smem_bytes(WIDE_PIECES_TILE, c, 64, 1)} bytes of shared "
+                         f"memory on the narrowest tile (4 x 8, one m64 tile of output channels a "
+                         f"pass), a block has {SMEM_LIMIT}")
+    tile, ncp, wsl = plan
+    return _tc_operands(wexp, bexp, kdw, bdw, wred, bred, torch.bfloat16, cout,
+                        "ir_wide_operands", ncp, tile, wsl)
+
+
+_WIDE_SMEM_AGREED = set()   # (tile, C, ncp, wsl) whose reckoning the kernel confirmed
+
+
+def fused_ir_wide_cuda(x: torch.Tensor, ops: IRTCOperands, *,
+                       use_residual: bool = False) -> torch.Tensor:
+    """Launch ``csrc/inverted_residual_wide.cu`` on :func:`ir_wide_operands`'
+    planes: x a bf16 (B, H, W, C) CUDA tensor, stride 1; one launch a pass
+    over ``ops.ncp`` output channels. C is padded with zero channels to a
+    multiple of 8 (a copy) where it is not one: TMA's 16-byte strides."""
+    from ggml_experiments_tpu_torch import _build
+
+    if x.dim() != 4 or x.dtype != torch.bfloat16 or ops.dtype != torch.bfloat16 or not ops.tile:
+        raise ValueError(f"fused_ir_wide_cuda: x must be a bf16 (B, H, W, C) tensor on "
+                         f"ir_wide_operands' planes, got {x.dtype}{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    e, cout = ops.e, ops.cout
+    if ops.c != c or (use_residual and c != cout):
+        raise ValueError(f"fused_ir_wide_cuda: weights of ({ops.c}, {e}, {cout}) do not meet x "
+                         f"of width {c}")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ir_wide_cuda: x must be a CUDA tensor, got one on {dev}")
+    lib = _lib("inverted_residual_wide")
+    tile = IR_TC_TILES[1].index(ops.tile)
+    if (ops.tile, c, ops.ncp, ops.wsl) not in _WIDE_SMEM_AGREED:
+        need = ir_wide_smem_bytes(ops.tile, c, ops.ncp, ops.wsl)
+        if lib.gxt_ir_wide_smem(tile, _pad(c, 8), ops.ncp, ops.wsl) != need:
+            raise RuntimeError(f"fused_ir_wide_cuda: (C, Cout) = ({c}, {cout}) on tile "
+                               f"{ops.tile} needs {need} bytes of shared memory here, the kernel "
+                               f"reckons otherwise")
+        limit = _DEVICE_SMEM.get(dev.index)
+        if limit is None:
+            limit = _DEVICE_SMEM[dev.index] = _smem_limit(dev)
+        if need > limit:
+            raise ValueError(f"fused_ir_wide_cuda: C={c} needs {need} bytes of shared memory, "
+                             f"the device allows {limit}")
+        _WIDE_SMEM_AGREED.add((ops.tile, c, ops.ncp, ops.wsl))
+    xk = _tc_x(x, False)
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        code = lib.gxt_ir_wide(xk.data_ptr(), *ops.ptrs, out.data_ptr(), b, h, w, xk.shape[-1],
+                               e, cout, int(use_residual), tile, ops.ncp, ops.wsl,
+                               current_stream_handle(dev))
+    if code:
+        _build.check(lib, code, f"fused_inverted_residual wide (B, H, W, C, E, Cout) = ({b}, "
+                                f"{h}, {w}, {c}, {e}, {cout}), tile {ops.tile}, passes of "
+                                f"{ops.ncp}")
+    passes = -(-cout // ops.ncp)
+    LAUNCHES["inverted_residual_wide"] += passes
+    LAUNCHES["fused_inverted_residual"] += passes
+    return out
+
+
 def fused_inverted_residual(x, wexp, bexp, kdw, bdw, wred, bred, *, stride: int = 1,
                             use_residual: bool = False,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -654,7 +783,7 @@ def _folded(params):
 
 def block_operands(params, compute_dtype=torch.bfloat16):
     """The block's operands for the kernel of its stride and ``compute_dtype``
-    (:class:`IROperands` at stride 1 and bf16, :class:`IRTCOperands` at f32
+    (:func:`ir_operands` at stride 1 and bf16, :class:`IRTCOperands` at f32
     and at stride 2), kept on its params: made at its first
     CUDA call and again when any of its weights or BN vectors is another
     tensor or was written in place (the key holds each tensor's storage,
@@ -706,7 +835,7 @@ def inverted_residual_fused(params, x: torch.Tensor, *,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Run an ``InvertedResidualParams`` through :func:`fused_inverted_residual`
     (on the card with the operands :func:`block_operands` keeps: stride 1 on
-    the strip, tile or f32 kernel, stride 2 on the stride-2 kernel). Under
+    the strip, wide or f32 kernel, stride 2 on the stride-2 kernel). Under
     ``torch.export`` an f32 block is the custom op
     ``gxt::inverted_residual_f32`` (:func:`inverted_residual_f32_op`, the
     stride among its arguments), whose CUDA implementation launches the f32

@@ -32,10 +32,11 @@ On the card the layer is three launches, each with its plain version here:
 heads padded to dhp = dh rounded up to 16 with zero columns),
 ``attention`` (steps 4-5; ctx (T, C)) and ``proj_ffn`` (steps 1 again and
 6-12). Chained, the three plain versions give
-:func:`fused_transformer_layer_plain`'s bits. A layer those row-tile kernels
-do not take (C past 288, an x tile past shared memory) runs on the
-per-sequence kernel of ``csrc/transformer_layer_seq.cu``, one launch whose
-plain version is :func:`fused_transformer_layer_plain`. The bf16 attention
+:func:`fused_transformer_layer_plain`'s bits. Past C = 288 the row-tile
+kernels run wide (:func:`row_tile_layout`): C's columns in groups, each
+C-wide f32 row (xf, x1, o) through an f32 scratch in device memory, the FFN
+once a group of output columns (counters ``transformer_ln_qkv_wide``,
+``transformer_proj_ffn_wide``); the same arithmetic. The bf16 attention
 holds a head's q, k and v whole in shared memory up to 256 keys (a row's
 scores in registers) and past that keeps four query tiles resident and
 streams the keys twice through a ring (:func:`attention_plan`): the same
@@ -55,7 +56,7 @@ a running max (:func:`f32_attention_streams`). The same three plain
 pieces are their plain versions. A layer they do not take (a head past 64,
 C past 240 or not a multiple of 4, L past 4096, a block's shared memory
 past the device's: :func:`f32_layer_takes`) is refused with
-its shape; there is no per-sequence route at f32, and the model keeps such a
+its shape; there is no wide route at f32, and the model keeps such a
 layer on its unfused chain.
 
 On a CPU tensor :func:`fused_transformer_layer` runs
@@ -68,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import List, Optional
 
@@ -78,14 +80,15 @@ from ggml_experiments_tpu_torch.ops.activations import silu
 from ggml_experiments_tpu_torch.ops.norm import layer_norm
 from ggml_experiments_tpu_torch.quant.qtensor import QTensor, dequantize
 
-# launches: the bf16 layer (three row-tile kernels a call, or the
-# per-sequence kernel) and each kernel, then each f32 kernel, then of the
-# attention's launches (bf16, f32) those that streamed the keys; only the
-# kernel wrappers add to them
+# launches: the bf16 layer (three row-tile kernels a call) and each kernel,
+# then each f32 kernel, then of the attention's launches (bf16, f32) those
+# that streamed the keys, then of the bf16 ln_qkv and proj_ffn launches those
+# that ran wide (C past 288); only the kernel wrappers add to them
 LAUNCHES = {"fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
-            "transformer_proj_ffn": 0, "transformer_sequence": 0, "transformer_ln_qkv_f32": 0,
+            "transformer_proj_ffn": 0, "transformer_ln_qkv_f32": 0,
             "transformer_attention_f32": 0, "transformer_proj_ffn_f32": 0,
-            "transformer_attention_streamed": 0, "transformer_attention_f32_streamed": 0}
+            "transformer_attention_streamed": 0, "transformer_attention_f32_streamed": 0,
+            "transformer_ln_qkv_wide": 0, "transformer_proj_ffn_wide": 0}
 
 
 @dataclasses.dataclass
@@ -277,9 +280,14 @@ def proj_ffn_plain(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands) -> t
 # The layout of the row-tile kernels' weight streams is decided here, once,
 # and handed to the kernels (``_Args`` nw, ks, pipe), which check that they
 # can consume it: weight tiles of nw = C rounded up to _CHUNK rows (the
-# kernels' wgmma width, csrc kChunk), K in chunks of 16 ks columns
+# kernels' wgmma width, csrc kChunk), or past C = 288 groups of nw rows (the
+# wide kernels: :func:`row_tile_layout`), K in chunks of 16 ks columns
 # (:func:`k_steps`), and the FFN's order (:func:`ffn_pipelined`).
 _CHUNK = 48
+_MAX_NCH = 6          # chunks of a C-wide sum in registers (csrc kMaxNch): C <= 288
+_MIN_WIDE_NCH = 4     # a wide layer's groups of columns: 4-6 chunks (csrc kMinWideNch)
+_BOX = 8192           # a 64 x 64 bf16 tile (csrc kBox)
+_MAX_STAGES = 6       # weight-ring buffers, at most (csrc kMaxStages)
 
 
 def swizzle_tiles(t: torch.Tensor) -> torch.Tensor:
@@ -321,6 +329,66 @@ def k_steps(c: int, cin: int, in_proj: bool) -> int:
     return 3 if pad(48) < pad(64) else 4
 
 
+def row_tile_smem(kind: str, nw: int, ks: int, c: int, cin: int, in_proj: bool, nwg: int,
+                  stages: int) -> int:
+    """Dynamic shared memory of a launch of ``ln_qkv`` (kind "a") or
+    ``proj_ffn`` ("c") (csrc ``smem_fixed`` plus the ring): per consumer
+    warpgroup the A tile of max(Cin, C) columns (ln_qkv: x's tile, then
+    LN(xf)'s) and its staging tile, or x's (with the input projection),
+    ctx's and one h1 chunk's tiles (proj_ffn); ``stages`` weight tiles of
+    ``nw`` rows; the barriers and the base's alignment."""
+    kw = 16 * ks
+    kc_in, kc = -(-cin // kw), -(-c // kw)
+    sb = max(nw, 64) * 128
+    if kind == "a":
+        boxes = kc_in if in_proj and kc_in > kc else kc
+        stage = -(-(64 * (nw + 8) * 2) // 1024) * 1024
+        fixed = 1024 + nwg * (boxes * _BOX + stage) + (2 * _MAX_STAGES + 2) * 8
+    else:
+        boxes = (kc_in if in_proj else 0) + kc + 1
+        fixed = 1024 + nwg * boxes * _BOX + (2 * _MAX_STAGES + 4) * 8
+    return fixed + stages * sb
+
+
+def row_tile_fits(nw: int, ks: int, c: int, cin: int, in_proj: bool, nwg: int, pipe: bool,
+                  limit: int = None) -> bool:
+    """Whether both row-tile kernels fit ``limit`` bytes at ``nwg`` consumer
+    warpgroups on the least ring each runs (2; kc + 2 for the overlapped
+    FFN)."""
+    limit = limit or _H100_SMEM
+    kc = -(-c // (16 * ks))
+    return (row_tile_smem("a", nw, ks, c, cin, in_proj, nwg, 2) <= limit
+            and row_tile_smem("c", nw, ks, c, cin, in_proj, nwg, kc + 2 if pipe else 2) <= limit)
+
+
+@functools.lru_cache(maxsize=256)
+def row_tile_layout(c: int, cin: int, in_proj: bool, limit: int = None):
+    """(nw, ks, pipe) of the row-tile kernels' weight streams at these
+    widths, None where no layout fits one block at one consumer warpgroup.
+    Up to C = 288 (_MAX_NCH chunks) nw is C rounded up to _CHUNK: the
+    C-wide sums in registers. Past it the kernels run wide: C's columns in
+    groups of nw = 4-6 chunks (the fewest groups whose layout fits ``limit``;
+    their columns cover C's K chunks), each C-wide f32 row through a scratch
+    in device memory."""
+    ks = k_steps(c, cin, in_proj)
+    kc = -(-c // (16 * ks))
+    n48 = -(-c // _CHUNK)
+    cands = [n48] if n48 <= _MAX_NCH else []
+    ngc = 2
+    while -(-n48 // ngc) >= _MIN_WIDE_NCH:
+        nch = -(-n48 // ngc)
+        covers = -(-c // (nch * _CHUNK)) * nch * _CHUNK >= kc * 16 * ks
+        if nch <= _MAX_NCH and covers and nch not in cands:
+            cands.append(nch)
+        ngc += 1
+    for nch in cands:
+        nw = nch * _CHUNK
+        pipe = nw >= c and ffn_pipelined(c)
+        if row_tile_fits(nw, ks, c, cin, in_proj, 1, pipe, limit):
+            return nw, ks, pipe
+    return None
+
+
 def _stream(tiles, sb: int) -> torch.Tensor:
     """Tiles in the order a kernel consumes them, each in an sb-byte slot."""
     flat = [t.reshape(-1) for group in tiles for t in group]
@@ -336,9 +404,10 @@ class _Prepared:
 
     wa: torch.Tensor          # ln_qkv's weight stream
     wc: torch.Tensor          # proj_ffn's
-    nw: int                   # rows of a weight tile: C rounded up to _CHUNK
+    nw: int                   # rows of a weight tile (row_tile_layout)
     ks: int                   # k_steps of the K chunks
     pipe: bool                # ffn_pipelined: proj_ffn's stream order
+    ngc: int                  # groups of C's columns: 1, or wide 2 or more
     vectors: dict             # f32 vectors by _Args field
     nf: int
     cout: int
@@ -347,16 +416,25 @@ class _Prepared:
     args: dict = dataclasses.field(default_factory=dict)
 
 
+def _layout(ops: LayerOperands, dev):
+    c = ops.wq.shape[0]
+    cin = ops.win.shape[0] if ops.win is not None else c
+    return row_tile_layout(c, cin, ops.win is not None,
+                           _smem_limit(dev) if dev.type == "cuda" else _H100_SMEM)
+
+
 def _prepare(ops: LayerOperands, dev) -> _Prepared:
     c, h, dh, dhp = _dims(ops)
     f = ops.wi.shape[1]
-    nw = -(-c // _CHUNK) * _CHUNK
+    layout = _layout(ops, dev)
+    if layout is None:
+        raise ValueError(f"fused_transformer_layer: {_too_wide(ops)}")
+    nw, ks, pipe = layout
     sb = max(nw, 64) * 128
     nf = -(-f // 64)
     cout = ops.wout.shape[1] if ops.wout is not None else c
-    ks = k_steps(c, ops.win.shape[0] if ops.win is not None else c, ops.win is not None)
     kw = 16 * ks
-    pipe = ffn_pipelined(c)
+    groups = range(0, c, nw)   # C's columns: one group, or wide several
 
     def bt(w):   # (K, N) weight -> the B operand (N, K) in bf16 on dev
         return w.to(device=dev, dtype=torch.bfloat16).t()
@@ -367,16 +445,23 @@ def _prepare(ops: LayerOperands, dev) -> _Prepared:
         wqkv[i, :, :dh] = bt(w).reshape(h, dh, c)
         bqkv[i, :, :dh] = b.to(dev).reshape(h, dh)
     wqkv = wqkv.reshape(-1, c)
-    win = [k_tiles(bt(ops.win), nw, kw)] if ops.win is not None else []
+    win = ([k_tiles(bt(ops.win)[n0:n0 + nw], nw, kw) for n0 in groups] if ops.win is not None
+           else [])
     wa = win + [k_tiles(wqkv[n0:n0 + nw], nw, kw) for n0 in range(0, wqkv.shape[0], nw)]
-    wi, wo2 = bt(ops.wi), bt(ops.wo2)
-    wc = win + [k_tiles(bt(ops.wo), nw, kw)]
+    wi, wo, wo2 = bt(ops.wi), bt(ops.wo), bt(ops.wo2)
+    # by groups: Win^T's rows then Wo^T's (x1's group)
+    wc = [t for i, n0 in enumerate(groups)
+          for t in win[i:i + 1] + [k_tiles(wo[n0:n0 + nw], nw, kw)]]
     wi_t = [k_tiles(wi[f0:f0 + 64], 64, kw) for f0 in range(0, nf * 64, 64)]
-    wo2_t = [k_tiles(wo2[:, f0:f0 + 64], nw) for f0 in range(0, nf * 64, 64)]
-    if pipe:   # Wi(0), then Wi(f + 1) before Wo2(f)
+    if len(groups) > 1:   # wide: per group of output columns, every chunk's Wi then Wo2
+        wc += [t for n0 in groups for f in range(nf)
+               for t in (wi_t[f], k_tiles(wo2[n0:n0 + nw, 64 * f:64 * f + 64], nw))]
+    elif pipe:   # Wi(0), then Wi(f + 1) before Wo2(f)
+        wo2_t = [k_tiles(wo2[:, f0:f0 + 64], nw) for f0 in range(0, nf * 64, 64)]
         wc += [wi_t[0]] + [t for f in range(nf) for t in (wi_t[f + 1:f + 2] + [wo2_t[f]])]
     else:
-        wc += [t for f in range(nf) for t in (wi_t[f], wo2_t[f])]
+        wc += [t for f in range(nf)
+               for t in (wi_t[f], k_tiles(wo2[:, 64 * f:64 * f + 64], nw))]
     if ops.wout is not None:
         wout = bt(ops.wout)
         wc += [k_tiles(wout[n0:n0 + nw], nw, kw) for n0 in range(0, cout, nw)]
@@ -387,7 +472,7 @@ def _prepare(ops: LayerOperands, dev) -> _Prepared:
                    ln2b=ops.ln2[1], bi=bi, bo2=ops.bo2, ln3g=fl[0], ln3b=fl[1])
     vectors = {k: None if v is None else _f32(v, dev) for k, v in vectors.items()}
     return _Prepared(wa=_stream(wa, sb), wc=_stream(wc, sb), nw=nw, ks=ks, pipe=pipe,
-                     vectors=vectors, nf=nf, cout=cout, stages=(0, 0))
+                     ngc=len(groups), vectors=vectors, nf=nf, cout=cout, stages=(0, 0))
 
 
 def _f32(v: torch.Tensor, dev) -> torch.Tensor:
@@ -396,11 +481,12 @@ def _f32(v: torch.Tensor, dev) -> torch.Tensor:
 
 class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "qkv", "ctx", "out", "wa", "wc", "ln1g", "ln1b", "bqkv", "bo", "ln2g", "ln2b",
+        "x", "qkv", "ctx", "out", "wa", "wc", "scr", "ln1g", "ln1b", "bqkv", "bo", "ln2g", "ln2b",
         "bi", "bo2", "ln3g", "ln3b", "osc", "obi")] + [(name, ctypes.c_int) for name in (
         "T", "L", "Cin", "ldx", "C", "H", "dh", "dhp", "ldc", "nf", "Cout", "in_proj",
         "final_ln", "out_proj", "out_act", "stages_a", "stages_c", "ks", "ldo", "nwg", "nw",
-        "pipe", "attn")] + [(name, ctypes.c_float) for name in ("eps", "final_eps", "scale")]
+        "pipe", "attn", "qsplit", "fsplit")] + [(name, ctypes.c_float) for name in (
+        "eps", "final_eps", "scale")]
 
 
 # the bf16 attention's plans (csrc kResident, kStreamed): a head's q, k and v
@@ -465,30 +551,49 @@ def _check(ops: LayerOperands, x: torch.Tensor, l: int, cin: int) -> None:
                          f"(C={c})")
 
 
+def _too_wide(ops: LayerOperands) -> str:
+    c = ops.wq.shape[0]
+    cin = ops.win.shape[0] if ops.win is not None else c
+    return (f"(C, Cin) = ({c}, {cin}){' with the input projection' if ops.win is not None else ''}"
+            f": no layout of the row-tile kernels fits one block's shared memory at one "
+            f"consumer warpgroup (a 64-row tile of C columns, x's tile of Cin beside it with the "
+            f"input projection, and a ring of weight tiles; the wide groups take C past 288)")
+
+
 def _launch_args(ops: LayerOperands, x: torch.Tensor, l: int, cin: int, plan=None,
                  attn=None):
     """(prepared operands, _Args) for a launch of the row-tile kernels on x,
-    or None where they do not take the layer (x1 in registers: C <= 288; the
-    x tile beside the weight ring). ``plan`` = (ln_qkv, proj_ffn) ring
-    depths forces them, ``attn`` ("resident" or "streamed") the attention's
-    plan (tests, sweeps); None takes the plan's: the least ring each kernel
-    runs, the attention of :func:`attention_plan`."""
+    or None where they do not take the layer (:func:`row_tile_layout`; the
+    attention's plan). ``plan`` = (ln_qkv, proj_ffn) ring depths forces
+    them, ``attn`` ("resident" or "streamed") the attention's plan (tests,
+    sweeps); None takes the plan's: the least ring each kernel runs, the
+    attention of :func:`attention_plan`. Two consumer warpgroups a block
+    where T's 128-row tiles fill the multiprocessors and the layout fits
+    them, else one."""
     _check(ops, x, l, cin)
     dev, t = x.device, x.shape[0]
     prep = ops.cache.get(dev)
     a = prep.args.get((t, l, cin, plan, attn)) if prep is not None else None
     if a is None:
         if prep is None:
+            if _layout(ops, dev) is None:
+                return None
             prep = ops.cache[dev] = _prepare(ops, dev)
         c, h, dh, dhp = _dims(ops)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nwg = row_tile_warpgroups(t, sms)
+        if nwg == 2 and not row_tile_fits(prep.nw, prep.ks, c, cin, ops.win is not None, 2,
+                                          prep.pipe, _smem_limit(dev)):
+            nwg = 1
         a = _Args(T=t, L=l, Cin=cin, ldx=cin, C=c, H=h, dh=dh, dhp=dhp, ldc=c, nf=prep.nf,
-                  nwg=row_tile_warpgroups(t, torch.cuda.get_device_properties(dev)
-                                          .multi_processor_count),
-                  Cout=prep.cout, in_proj=int(ops.win is not None),
+                  nwg=nwg, Cout=prep.cout, in_proj=int(ops.win is not None),
                   final_ln=int(ops.final_ln is not None), out_proj=int(ops.wout is not None),
                   out_act=int(ops.out_act), stages_a=(plan or (0, 0))[0],
                   stages_c=(plan or (0, 0))[1], ks=prep.ks, nw=prep.nw, pipe=int(prep.pipe),
-                  attn=ATTENTION_PLANS[attn] if attn else 0, eps=ops.eps,
+                  attn=ATTENTION_PLANS[attn] if attn else 0,
+                  qsplit=row_tile_split(t, nwg, -(-3 * h * dhp // prep.nw), prep.ngc, sms),
+                  fsplit=(1 if ops.final_ln is not None or ops.wout is not None else
+                          row_tile_split(t, nwg, prep.ngc, prep.ngc, sms)), eps=ops.eps,
                   final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh),
                   wa=prep.wa.data_ptr(), wc=prep.wc.data_ptr())
         for k, v in prep.vectors.items():
@@ -509,12 +614,42 @@ def _row_tile_args(ops, x, l, cin, plan, what, attn=None):
     got = _launch_args(ops, x, l, cin, plan, attn)
     if got is None:
         c = ops.wq.shape[0]
+        why = (_too_wide(ops) if _layout(ops, x.device) is None else
+               f"the resident attention takes L up to {RESIDENT_MAX_KEYS}, the streamed L from "
+               f"64; the rings within one block's {_smem_limit(x.device)} bytes of shared memory")
         raise ValueError(
             f"{what}: (L, Cin, C, F) = ({l}, {cin}, {c}, {ops.wi.shape[1]}) with ring depths "
-            f"{plan} and attention plan {attn} is not a layer the row-tile kernels take (C up "
-            f"to 288; the resident attention L up to {RESIDENT_MAX_KEYS}, the streamed L from "
-            f"64; within one block's {_smem_limit(x.device)} bytes of shared memory)")
+            f"{plan} and attention plan {attn} is not a layer the row-tile kernels take: {why}")
     return got
+
+
+def row_tile_split(t: int, nwg: int, groups: int, ngc: int, sms: int) -> int:
+    """Blocks a row tile of a wide kernel (ngc > 1 groups of C) deals its
+    ``groups`` of output columns to (ln_qkv's [q | k | v] groups; proj_ffn's
+    FFN groups where neither the final LN nor the out-projection needs the
+    whole row): as many as the groups allow and the T / (64 nwg) row tiles
+    leave room for in one wave of one block a multiprocessor; 1 for one
+    group of C (the kernels of the model widths). On an NVIDIA H100 80GB
+    HBM3 at 700 W (tools/torch_kernel_bench.py --only layer_wide; PERF.md
+    §6, row 6) a second wave made ln_qkv slower than one block a tile, and
+    one wave beat one block a tile by 8-40% at every checked shape."""
+    if ngc == 1:
+        return 1
+    return max(1, min(groups, sms // -(-t // (64 * nwg))))
+
+
+def _scratch(prep: _Prepared, a) -> Optional[torch.Tensor]:
+    """The wide kernels' f32 scratch, one copy for each block of a row tile
+    (qsplit, fsplit: every row tile's 64 rows, ngc nw columns), its pointer
+    set in ``a``; None (a null pointer) for one group."""
+    if prep.ngc == 1:
+        a.scr = None
+        return None
+    rows = -(-a.T // (64 * a.nwg)) * 64 * a.nwg
+    scr = torch.empty((max(a.qsplit, a.fsplit), rows, prep.ngc * prep.nw), dtype=torch.float32,
+                      device=prep.wa.device)
+    a.scr = scr.data_ptr()
+    return scr
 
 
 def _run(lib, fn: str, a, dev, what) -> None:
@@ -553,9 +688,12 @@ def ln_qkv_cuda(x2: torch.Tensor, ops: LayerOperands, l: int, *, _plan=None) -> 
     prep, a = _row_tile_args(ops, x2, l, x2.shape[1], _plan, "transformer ln_qkv")
     qkv = torch.empty((x2.shape[0], 3 * h * dhp), dtype=torch.bfloat16, device=x2.device)
     a.x, a.ldx, a.qkv = x2.data_ptr(), x2.stride(0), qkv.data_ptr()
+    scr = _scratch(prep, a)   # noqa: F841 (alive until the launch)
     _run(_lib(), "gxt_layer_ln_qkv", a, x2.device,
          lambda: f"transformer ln_qkv (T, Cin, C) = ({x2.shape[0]}, {x2.shape[1]}, {c})")
     LAUNCHES["transformer_ln_qkv"] += 1
+    if prep.ngc > 1:
+        LAUNCHES["transformer_ln_qkv_wide"] += 1
     return qkv
 
 
@@ -601,22 +739,25 @@ def proj_ffn_cuda(x2: torch.Tensor, ctx: torch.Tensor, ops: LayerOperands, l: in
     out = torch.empty((x2.shape[0], ldo), dtype=torch.bfloat16, device=x2.device)
     a.x, a.ldx, a.ctx, a.ldc, a.out, a.ldo = (x2.data_ptr(), x2.stride(0), ctx.data_ptr(),
                                               ctx.stride(0), out.data_ptr(), ldo)
+    scr = _scratch(prep, a)   # noqa: F841 (alive until the launch)
     _run(_lib(), "gxt_layer_proj_ffn", a, x2.device,
          lambda: f"transformer proj_ffn (T, Cin, C, Cout) = ({x2.shape[0]}, {x2.shape[1]}, "
                  f"{c}, {prep.cout})")
     LAUNCHES["transformer_proj_ffn"] += 1
+    if prep.ngc > 1:
+        LAUNCHES["transformer_proj_ffn_wide"] += 1
     return out[:, :prep.cout]
 
 
 def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> torch.Tensor:
     """The layer on a bf16 (bp, L, Cin) CUDA tensor with L a multiple of 8:
     the three row-tile kernels launched by one C call (:func:`ln_qkv_cuda`,
-    :func:`attention_cuda`, :func:`proj_ffn_cuda` launch one each), or,
-    where they do not take the layer, the per-sequence kernel
-    (:func:`sequence_layer_cuda`); (bp, L, Cout) bf16. ``_plan`` forces the
-    row-tile kernels' ring depths (tests, sweeps). An f32 tensor runs the
-    three f32 kernels (:func:`fused_layer_f32_cuda`; ``_plan`` then forces
-    the consumer warpgroups, 1 or 2)."""
+    :func:`attention_cuda`, :func:`proj_ffn_cuda` launch one each; past C =
+    288 the wide ones), (bp, L, Cout) bf16; a layer they do not take raises
+    with the reason. ``_plan`` forces the row-tile kernels' ring depths
+    (tests, sweeps). An f32 tensor runs the three f32 kernels
+    (:func:`fused_layer_f32_cuda`; ``_plan`` then forces the consumer
+    warpgroups, 1 or 2)."""
     if x3.dtype == torch.float32:
         return fused_layer_f32_cuda(x3, ops, _plan)
     if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
@@ -625,11 +766,7 @@ def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> tor
     bp, l, cin = x3.shape
     x2 = x3.reshape(bp * l, cin)
     x2 = _tma_ready(x2) if ops.win is not None else x2.contiguous()
-    got = (_launch_args(ops, x2, l, cin) if _plan is None
-           else _row_tile_args(ops, x2, l, cin, _plan, "fused_layer_cuda"))
-    if got is None:
-        return sequence_layer_cuda(x3, ops)
-    prep, a = got
+    prep, a = _row_tile_args(ops, x2, l, cin, _plan, "fused_layer_cuda")
     c, h, dh, dhp = _dims(ops)
     t, dev = bp * l, x2.device
     ldc, ldo = -(-c // 8) * 8, -(-prep.cout // 8) * 8
@@ -640,104 +777,16 @@ def fused_layer_cuda(x3: torch.Tensor, ops: LayerOperands, *, _plan=None) -> tor
     a.x, a.ldx, a.qkv, a.ctx, a.ldc, a.out, a.ldo = (
         x2.data_ptr(), x2.stride(0), scratch.data_ptr(), scratch.data_ptr() + 2 * nq, ldc,
         out.data_ptr(), ldo)
+    scr = _scratch(prep, a)   # noqa: F841 (alive until the launch)
     _run(_lib(), "gxt_layer_forward", a, dev,
          lambda: f"fused_transformer_layer (bp, L, Cin, C) = ({bp}, {l}, {cin}, {c})")
     for k in ("fused_transformer_layer", "transformer_ln_qkv", "transformer_attention",
-              "transformer_proj_ffn"):
+              "transformer_proj_ffn") + (("transformer_ln_qkv_wide", "transformer_proj_ffn_wide")
+                                         if prep.ngc > 1 else ()):
         LAUNCHES[k] += 1
     if a.attn == ATTENTION_PLANS["streamed"]:
         LAUNCHES["transformer_attention_streamed"] += 1
     return out[:, :prep.cout].reshape(bp, l, -1)
-
-
-# the per-sequence kernel (csrc/transformer_layer_seq.cu): one block of 1-8
-# warps a sequence, k and v of the sequence in shared memory, mma.sync with
-# the weights read from global memory as (N, K16) B fragments
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _bt(w: torch.Tensor) -> torch.Tensor:
-    """(K, N) weight -> (N, K16) bf16, transposed and zero-padded on K: the B
-    operand layout of the tensor-core kernels (``csrc/mma_common.cuh``)."""
-    k, n = w.shape
-    out = torch.zeros((n, _pad16(k)), dtype=torch.bfloat16, device=w.device)
-    out[:, :k] = w.t()
-    return out
-
-
-class _SeqArgs(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "out", "wq", "wk", "wv", "wo", "wi", "wo2", "win", "wout",
-        "ln1g", "ln1b", "bq", "bk", "bv", "bo", "ln2g", "ln2b", "bi", "bo2",
-        "ln3g", "ln3b", "osc", "obi")] + [(name, ctypes.c_int) for name in (
-        "bp", "L", "Cin", "C", "F", "Cout", "H", "final_ln", "in_proj", "out_proj",
-        "out_act", "warps")] + [(name, ctypes.c_float) for name in (
-        "eps", "final_eps", "scale")]
-
-
-_SEQ_LIB = []
-
-
-def _seq_lib():
-    if not _SEQ_LIB:
-        from ggml_experiments_tpu_torch import _build
-
-        lib = _build.load("transformer_layer_seq")
-        lib.gxt_layer_seq.restype = ctypes.c_int
-        lib.gxt_layer_seq.argtypes = [ctypes.POINTER(_SeqArgs), ctypes.c_void_p]
-        lib.gxt_layer_seq_plan.restype = ctypes.c_int
-        lib.gxt_layer_seq_plan.argtypes = [ctypes.POINTER(_SeqArgs), ctypes.c_int]
-        _SEQ_LIB.append(lib)
-    return _SEQ_LIB[0]
-
-
-def sequence_layer_cuda(x3: torch.Tensor, ops: LayerOperands) -> torch.Tensor:
-    """The layer on the per-sequence kernel, a bf16 (bp, L, Cin) CUDA tensor
-    with L a multiple of 8: any C (the row tiles stop at 288), within the
-    plan of its own block's shared memory; (bp, L, Cout) bf16.
-    :func:`fused_layer_cuda` takes it where the row-tile kernels do not: C
-    past 288, or an input projection whose x tile does not fit beside their
-    weight ring."""
-    if x3.device.type != "cuda" or x3.dim() != 3 or x3.dtype != torch.bfloat16:
-        raise ValueError(f"sequence_layer_cuda: x must be a bf16 (bp, L, Cin) CUDA tensor, got "
-                         f"{x3.dtype}{tuple(x3.shape)} on {x3.device}")
-    bp, l, cin = x3.shape
-    dev = x3.device
-    x3 = x3.contiguous()
-    _check(ops, x3.reshape(bp * l, cin), l, cin)
-    c, h, dh, dhp = _dims(ops)
-    f = ops.wi.shape[1]
-    cout = ops.wout.shape[1] if ops.wout is not None else c
-    keep = ops.cache.get(("sequence", dev))
-    if keep is None:
-        # transposed bf16 weights and f32 vectors on the device, in _SeqArgs order
-        fl = ops.final_ln or (None, None)
-        keep = [None if w is None else _bt(w.to(dev)).contiguous() for w in (
-            ops.wq, ops.wk, ops.wv, ops.wo, ops.wi, ops.wo2, ops.win, ops.wout)]
-        keep += [None if v is None else _f32(v, dev) for v in (
-            ops.ln1[0], ops.ln1[1], ops.bq, ops.bk, ops.bv, ops.bo, ops.ln2[0], ops.ln2[1],
-            ops.bi, ops.bo2, fl[0], fl[1])]
-        ops.cache[("sequence", dev)] = keep
-    oa = [None, None] if ops.out_affine is None else [_f32(v, dev) for v in ops.out_affine]
-    out = torch.empty((bp, l, cout), dtype=torch.bfloat16, device=dev)
-    a = _SeqArgs(x=x3.data_ptr(), out=out.data_ptr(), bp=bp, L=l, Cin=cin, C=c, F=f, Cout=cout,
-                 H=h, final_ln=int(ops.final_ln is not None), in_proj=int(ops.win is not None),
-                 out_proj=int(ops.wout is not None), out_act=int(ops.out_act), warps=0,
-                 eps=ops.eps, final_eps=ops.final_eps, scale=1.0 / math.sqrt(dh))
-    for (name, _), t in zip(_SeqArgs._fields_[2:], keep + oa):
-        setattr(a, name, None if t is None else t.data_ptr())
-    lib = _seq_lib()
-    limit = _smem_limit(dev)
-    if lib.gxt_layer_seq_plan(ctypes.byref(a), limit) <= 0:
-        raise ValueError(f"fused_transformer_layer: (L, Cin, C, F, Cout) = ({l}, {cin}, {c}, "
-                         f"{f}, {cout}) does not fit one block's {limit} bytes of shared memory")
-    _run(lib, "gxt_layer_seq", a, dev,
-         lambda: f"transformer sequence kernel (bp, L, C) = ({bp}, {l}, {c})")
-    LAUNCHES["fused_transformer_layer"] += 1
-    LAUNCHES["transformer_sequence"] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -55,14 +55,13 @@ KERNEL_PATTERNS = (
     (r"\blayer_ln_qkv_kernel\b", "transformer_ln_qkv"),
     (r"\blayer_attention_(stream_)?kernel\b", "transformer_attention"),
     (r"\blayer_proj_ffn_kernel\b", "transformer_proj_ffn"),
-    (r"\blayer_kernel\b", "transformer_sequence"),
     (r"\blayer_ln_qkv_f32_kernel\b", "transformer_ln_qkv_f32"),
     (r"\blayer_attention_f32_(stream_)?kernel\b", "transformer_attention_f32"),
     (r"\blayer_proj_ffn_f32_kernel\b", "transformer_proj_ffn_f32"),
     (r"\bir_strip_kernel\b", "fused_inverted_residual"),
-    (r"\bir_kernel\b", "inverted_residual_tile"),
     # the tile kernels of csrc/ir_hopper.cuh, whatever their template
     # arguments (<T,> rows, columns, m64 tiles of Cout)
+    (r"\bir_wide_kernel\b", "inverted_residual_wide"),
     (r"\bir_f32_kernel\b", "inverted_residual_f32"),
     (r"\bir_s2_kernel<float\b", "inverted_residual_s2_f32"),
     (r"\bir_s2_kernel<", "inverted_residual_s2"),

@@ -829,9 +829,11 @@ from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir  # noq
 from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl  # noqa: E402
 
 
-# the f32 layer kernels' counters, untouched by a bf16 layer
+# the f32 layer kernels' counters, untouched by a bf16 layer; the wide bf16
+# launches' (C past 288), untouched by a narrower layer
 F32_NONE = {"transformer_ln_qkv_f32": 0, "transformer_attention_f32": 0,
             "transformer_proj_ffn_f32": 0, "transformer_attention_f32_streamed": 0}
+WIDE_NONE = {"transformer_ln_qkv_wide": 0, "transformer_proj_ffn_wide": 0}
 
 
 def _bf16_close(got, want, max_frac, mean_frac):
@@ -917,7 +919,7 @@ def test_fused_layer_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out
     torch.cuda.synchronize()
     assert {k: ftl.LAUNCHES[k] - before[k] for k in before} == {
         "fused_transformer_layer": 1, "transformer_ln_qkv": 1, "transformer_attention": 1,
-        "transformer_proj_ffn": 1, "transformer_sequence": 0, "transformer_attention_streamed": 0,
+        "transformer_proj_ffn": 1, "transformer_attention_streamed": 0, **WIDE_NONE,
         **F32_NONE}
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
@@ -935,7 +937,8 @@ def test_fused_layer_kernel_matches_plain_at_the_model_widths(dev, bp, l, c, h, 
 
 def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed):
     """Each of the layer's three kernels against its plain version on the plain
-    version's inputs, launched twice (bit-equal), with the counters."""
+    version's inputs, launched twice (bit-equal), with the counters (past C
+    = 288 ln_qkv and proj_ffn run wide)."""
     ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=seed)
     x2 = torch.randn((bp * l, cin), generator=torch.Generator(device=dev).manual_seed(3),
                      device=dev).to(torch.bfloat16)
@@ -949,8 +952,10 @@ def _layer_kernels_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, see
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 0, "transformer_ln_qkv": 2, "transformer_attention": 2,
-        "transformer_proj_ffn": 2, "transformer_sequence": 0,
-        "transformer_attention_streamed": 2 * (ftl.attention_plan(l) == "streamed"), **F32_NONE}
+        "transformer_proj_ffn": 2,
+        "transformer_attention_streamed": 2 * (ftl.attention_plan(l) == "streamed"),
+        "transformer_ln_qkv_wide": 2 * (c > 288), "transformer_proj_ffn_wide": 2 * (c > 288),
+        **F32_NONE}
     assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
         "two launches on the same inputs differ")
     dh = c // h
@@ -1011,28 +1016,29 @@ def test_layer_kernel_ring_depths_give_the_same_bits(dev):
 
 
 def test_layer_kernels_refuse_what_they_do_not_take(dev):
-    # C = 320 is past the row-tile kernels (x1 in registers): their wrappers
-    # refuse it, the layer runs on the per-sequence kernel
-    ops = _layer_ops(dev, 320, 5, 640, 320, 320, False, False, seed=1)
-    with pytest.raises(ValueError, match="C up to 288"):
-        ftl.ln_qkv_cuda(torch.zeros((16, 320), dtype=torch.bfloat16, device=dev), ops, 16)
+    # C = 1344 is past a block's shared memory even in groups (a 64-row tile
+    # of C columns beside the weight ring): the wrappers refuse it with the
+    # reason, before any launch
+    ops = _layer_ops(dev, 1344, 21, 64, 1344, 1344, False, False, seed=1)
+    with pytest.raises(ValueError, match="no layout of the row-tile kernels"):
+        ftl.ln_qkv_cuda(torch.zeros((16, 1344), dtype=torch.bfloat16, device=dev), ops, 16)
     ops = _layer_ops(dev, 128, 1, 256, 128, 128, False, False, seed=1)
     with pytest.raises(ValueError, match="head width up to 64"):
         ftl.fused_layer_cuda(torch.zeros((1, 16, 128), dtype=torch.bfloat16, device=dev), ops)
     ops = _layer_ops(dev, 64, 2, 128, 64, 64, False, False, seed=1)
     with pytest.raises(ValueError, match="multiple of 8"):
         ftl.fused_layer_cuda(torch.zeros((1, 20, 64), dtype=torch.bfloat16, device=dev), ops)
-    # a sequence whose k and v outgrow the per-sequence kernel's shared memory
-    # (the row tiles stream them)
-    with pytest.raises(ValueError, match="shared memory"):
-        ftl.sequence_layer_cuda(torch.zeros((1, 1024, 64), dtype=torch.bfloat16, device=dev), ops)
+    # an input projection whose x tile does not fit beside the A tile and the ring
+    ops = _layer_ops(dev, 288, 6, 64, 1000, 288, False, False, seed=1)
+    with pytest.raises(ValueError, match="no layout of the row-tile kernels"):
+        ftl.fused_layer_cuda(torch.zeros((1, 16, 1000), dtype=torch.bfloat16, device=dev), ops)
 
 
-# what the row-tile kernels do not take goes to the per-sequence kernel: C past
-# 288 (packed tiles, a ragged tile, a whole one); no flag and every flag
+# C past 288 runs on the wide row tiles (packed tiles, a ragged tile, a whole
+# one; C = 640 beside an x tile of 320 in three groups); no flag and every flag
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True)])
 @pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 320, 5, 640), (2, 48, 384, 6, 768),
-                                        (2, 64, 320, 5, 640)])
+                                        (2, 64, 320, 5, 640), (2, 16, 640, 10, 1280)])
 def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c, h, f):
     in_proj, final_ln, out_proj = flags
     cin, cout = (c // 2 if in_proj else c), c // 2 + 8
@@ -1044,27 +1050,25 @@ def test_fused_layer_takes_what_the_row_tile_kernels_do_not(dev, flags, bp, l, c
     torch.cuda.synchronize()
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
-        "fused_transformer_layer": 2, "transformer_ln_qkv": 0, "transformer_attention": 0,
-        "transformer_proj_ffn": 0, "transformer_sequence": 2, "transformer_attention_streamed": 0,
-        **F32_NONE}
+        "fused_transformer_layer": 2, "transformer_ln_qkv": 2, "transformer_attention": 2,
+        "transformer_proj_ffn": 2, "transformer_attention_streamed": 0,
+        "transformer_ln_qkv_wide": 2, "transformer_proj_ffn_wide": 2, **F32_NONE}
     assert torch.equal(got, again), "two launches on the same inputs differ"
     _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
 
 
-# the per-sequence kernel on shapes the row-tile kernels also take, every flag
+# the wide row tiles, each kernel on its plain version's inputs, every flag;
+# C = 336 (groups of 192, the last part padding), dh = 48 and 56; L = 24 (a
+# packed tile), 72 (a ragged second tile), 320 (the streamed attention)
 @pytest.mark.parametrize("in_proj", [False, True])
 @pytest.mark.parametrize("final_ln", [False, True])
 @pytest.mark.parametrize("out_proj", [False, True])
-@pytest.mark.parametrize("bp,l,c,h,f", [(3, 16, 48, 4, 96), (2, 24, 60, 5, 120)])
-def test_sequence_kernel_matches_plain_every_flag(dev, in_proj, final_ln, out_proj, bp, l, c,
-                                                  h, f):
-    cin, cout = (c // 2 if in_proj else c), c // 2 + 8
-    ops = _layer_ops(dev, c, h, f, cin, cout, final_ln, out_proj, seed=l + c)
-    x = torch.randn((bp, l, cin), generator=torch.Generator(device=dev).manual_seed(1),
-                    device=dev).to(torch.bfloat16)
-    got = ftl.sequence_layer_cuda(x, ops)
-    torch.cuda.synchronize()
-    _bf16_close(got, ftl.fused_transformer_layer_plain(x, ops), 0.05, 2e-3)
+@pytest.mark.parametrize("bp,l,c,h,f", [(3, 24, 336, 7, 672), (2, 72, 384, 8, 256),
+                                        (1, 320, 336, 6, 336)])
+def test_wide_layer_kernels_match_plain_every_flag(dev, in_proj, final_ln, out_proj, bp, l, c,
+                                                    h, f):
+    _layer_kernels_check(dev, bp, l, c, h, f, c // 2 if in_proj else c, c // 2 + 8, final_ln,
+                         out_proj, seed=l + c)
 
 
 # ---- the f32 form of the layer (csrc/transformer_layer_f32.cu) ----------------------------
@@ -1102,7 +1106,7 @@ def _f32_layer_check(dev, bp, l, c, h, f, cin, cout, final_ln, out_proj, seed, n
     after = dict(ftl.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "fused_transformer_layer": 0, "transformer_ln_qkv": 0, "transformer_attention": 0,
-        "transformer_proj_ffn": 0, "transformer_sequence": 0, "transformer_attention_streamed": 0,
+        "transformer_proj_ffn": 0, "transformer_attention_streamed": 0, **WIDE_NONE,
         "transformer_attention_f32_streamed": 0, **{k: 3 for k in F32_LAYER}}
     assert torch.equal(qkv, qkv2) and torch.equal(ctx, ctx2) and torch.equal(out, out2), (
         "two launches on the same inputs differ")
@@ -1280,13 +1284,15 @@ def _ir_inputs(dev, b, hh, ww, c, e, cout):
 # the strip kernel at the main path's shape (small B), ragged strips (W not a
 # multiple of 32 or 16), ragged bands (odd H), B = 1, H or W of 1 and 2, C =
 # 8 / 16 / 24, Cout past or short of 64; then shapes that the strip kernel
-# does not take (C not a multiple of 8, E > 256), which run on the tile kernel
+# does not take (C or Cout not a multiple of 8, C > 64, E > 256, Cout past
+# 256 in two passes), which run on csrc/inverted_residual_wide.cu
 IR_SHAPES = [(2, 64, 64, 64, 256, 64, True), (3, 12, 10, 8, 32, 16, False),
              (1, 9, 17, 24, 96, 24, True), (1, 1, 1, 8, 32, 8, True), (1, 2, 2, 8, 64, 8, True),
              (2, 1, 40, 16, 64, 16, True), (1, 37, 2, 24, 96, 24, False),
              (2, 5, 33, 64, 256, 64, True), (1, 7, 65, 32, 128, 72, False),
              (2, 3, 47, 16, 256, 32, False), (1, 9, 17, 12, 48, 12, True),
-             (2, 10, 11, 64, 384, 64, True)]
+             (2, 10, 11, 64, 384, 64, True), (1, 9, 17, 20, 80, 24, False),
+             (2, 7, 33, 72, 288, 72, True), (1, 8, 12, 64, 384, 264, False)]
 
 
 @pytest.mark.parametrize("b,hh,ww,c,e,cout,resid", IR_SHAPES)
@@ -1295,9 +1301,11 @@ def test_fused_inverted_residual_kernel_matches_plain(dev, b, hh, ww, c, e, cout
     before = dict(fir.LAUNCHES)
     got = fir.fused_inverted_residual(x, *args, use_residual=resid)
     torch.cuda.synchronize()
-    tile = not fir.ir_plans(c, e, cout)
-    assert fir.LAUNCHES["fused_inverted_residual"] == before["fused_inverted_residual"] + 1
-    assert fir.LAUNCHES["inverted_residual_tile"] == before["inverted_residual_tile"] + tile
+    # the wide kernel: one launch a pass over its output channels
+    wide = 0 if fir.ir_plans(c, e, cout) else -(-cout // fir.ir_wide_plan(c, cout)[1])
+    assert fir.LAUNCHES["fused_inverted_residual"] == (before["fused_inverted_residual"]
+                                                       + max(wide, 1))
+    assert fir.LAUNCHES["inverted_residual_wide"] == before["inverted_residual_wide"] + wide
     want = fir.fused_ir_plain(x, args[0].to(torch.bfloat16), args[1], args[2], args[3],
                               args[4].to(torch.bfloat16), args[5], use_residual=resid)
     _bf16_close(got, want, 2 ** -6, 1e-4)
@@ -1323,7 +1331,7 @@ def test_inverted_residual_plans_give_the_same_bits(dev, b, hh, ww, c, e, cout, 
         assert torch.equal(got, want), plan
 
 
-def test_inverted_residual_tile_route_takes_no_plan(dev):
+def test_inverted_residual_wide_route_takes_no_plan(dev):
     x, args = _ir_inputs(dev, 1, 9, 17, 12, 48, 12)
     with pytest.raises(ValueError, match="takes no plan"):
         fir.fused_ir_cuda(x, fir.ir_operands(*args), _plan=fir.IRPlan(32, 2))
@@ -1474,6 +1482,12 @@ def test_inverted_residual_f32_kernel_matches_plain(dev, b, hh, ww, c, e, cout, 
 # widest tile whose shared memory fits), at small ragged shapes: (stride,
 # dtype, B, H, W, C, E, Cout, residual, the tile)
 IR_TILE_CASES = [(1, torch.float32, 2, 9, 17, 16, 96, 16, True, (8, 16)),
+                 (1, torch.bfloat16, 2, 9, 17, 72, 288, 72, True, (8, 16)),
+                 (1, torch.bfloat16, 1, 13, 35, 328, 64, 100, False, (8, 8)),
+                 (1, torch.bfloat16, 1, 7, 13, 584, 48, 24, False, (4, 8)),
+                 (1, torch.bfloat16, 1, 7, 13, 840, 96, 840, True, (4, 8)),
+                 (1, torch.bfloat16, 1, 5, 11, 1100, 24, 72, False, (4, 8)),
+                 (1, torch.bfloat16, 1, 8, 12, 64, 384, 264, False, (8, 8)),
                  (1, torch.float32, 1, 13, 35, 96, 64, 100, False, (8, 8)),
                  (1, torch.float32, 1, 7, 13, 192, 48, 24, False, (4, 8)),
                  (2, torch.float32, 1, 12, 10, 16, 512, 160, False, (8, 8)),
@@ -1486,19 +1500,29 @@ IR_TILE_CASES = [(1, torch.float32, 2, 9, 17, 16, 96, 16, True, (8, 16)),
 
 
 @pytest.mark.parametrize("stride,cd,b,hh,ww,c,e,cout,resid,tile", IR_TILE_CASES)
-def test_inverted_residual_tile_kernels_match_plain_on_every_tile(dev, stride, cd, b, hh, ww, c,
+def test_inverted_residual_hopper_tiles_match_plain_on_every_tile(dev, stride, cd, b, hh, ww, c,
                                                                   e, cout, resid, tile):
-    """Each output tile of the f32 stride-1 and the stride-2 kernels, as the
-    kernel picks it from C: f32 within 1e-5 of the plain version's largest
-    value, bf16 within chip_smoke.py's limits for kernel 8; two launches
-    bit-equal; the launch's shared memory as the kernel reckons it."""
-    assert fir.ir_tc_tile(cd == torch.float32, stride, c, cout) == tile
+    """Each output tile of the f32 stride-1, the bf16 stride-1 (wide) and the
+    stride-2 kernels, as the kernel (or ir_wide_plan) picks it from C (past
+    C = 768 the wide kernel's Wexp^T in pieces of slabs: two at C = 840,
+    three at 1100): f32 within 1e-5 of the plain version's largest value,
+    bf16 within chip_smoke.py's limits for kernel 8; two launches bit-equal;
+    the launch's shared memory as the kernel reckons it."""
+    wide = stride == 1 and cd == torch.bfloat16
+    assert (fir.ir_wide_plan(c, cout)[0] if wide
+            else fir.ir_tc_tile(cd == torch.float32, stride, c, cout)) == tile
     x, args = _ir_inputs(dev, b, hh, ww, c, e, cout)
     x = x.float().to(cd)
     pargs = (args[0].to(cd), args[1], args[2], args[3], args[4].to(cd), args[5])
     want = fir.fused_ir_plain(x, *pargs, stride=stride, use_residual=resid).float()
     scale = float(want.abs().max())
-    if stride == 1:
+    if wide:
+        ops = fir.ir_wide_operands(*args)
+        got, again = (fir.fused_ir_wide_cuda(x, ops, use_residual=resid) for _ in range(2))
+        lib = fir._lib("inverted_residual_wide")
+        assert lib.gxt_ir_wide_smem(fir.IR_TC_TILES[1].index(tile), -(-c // 8) * 8, ops.ncp,
+                                    ops.wsl) == fir.ir_wide_smem_bytes(tile, c, ops.ncp, ops.wsl)
+    elif stride == 1:
         ops = fir.ir_f32_operands(*args)
         got, again = (fir.fused_ir_f32_cuda(x, ops, use_residual=resid) for _ in range(2))
         lib = fir._lib("inverted_residual_f32")
@@ -1515,7 +1539,8 @@ def test_inverted_residual_tile_kernels_match_plain_on_every_tile(dev, stride, c
     if cd == torch.float32:
         assert float(err.max()) <= 1e-5 * scale
     else:
-        gap = float((fir.fused_ir_plain(x.float(), *args, stride=stride) - want).abs().mean())
+        gap = float((fir.fused_ir_plain(x.float(), *args, stride=stride, use_residual=resid)
+                     - want).abs().mean())
         assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap
 
 

@@ -162,11 +162,12 @@ def test_launch_counters_reset():
         "fused_gru_train_fwd_f32": 0, "fused_gru_train_bwd_f32": 0,
         "fused_gru_train_dwr_f32": 0, "flash_mha": 0, "flash_mha_streamed": 0,
         "fused_transformer_layer": 0, "transformer_ln_qkv": 0,
-        "transformer_attention": 0, "transformer_proj_ffn": 0, "transformer_sequence": 0,
+        "transformer_attention": 0, "transformer_proj_ffn": 0,
         "transformer_ln_qkv_f32": 0, "transformer_attention_f32": 0,
         "transformer_proj_ffn_f32": 0, "transformer_attention_streamed": 0,
-        "transformer_attention_f32_streamed": 0, "fused_inverted_residual": 0,
-        "inverted_residual_tile": 0, "inverted_residual_f32": 0,
+        "transformer_attention_f32_streamed": 0, "transformer_ln_qkv_wide": 0,
+        "transformer_proj_ffn_wide": 0, "fused_inverted_residual": 0,
+        "inverted_residual_wide": 0, "inverted_residual_f32": 0,
         "inverted_residual_s2": 0, "inverted_residual_s2_f32": 0}
     port.reset_kernel_launches()
     assert set(port.kernel_launches().values()) == {0}

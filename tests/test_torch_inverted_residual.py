@@ -168,7 +168,8 @@ def test_ir_operands_lay_each_weight_where_the_kernel_reads_it(c, e, cout):
     wexp, bexp, kdw, bdw, wred, bred = _weights(np.random.default_rng(c + e), c, e, cout)
     ops = fir.ir_operands(wexp, bexp, kdw, bdw, wred, bred)
     ep, cn = -(-e // 64) * 64, -(-cout // 64) * 64
-    assert ops.strip and ops.wexp.shape == (1, ep, 64) and ops.wred.shape == (ep // 64, cn, 64)
+    assert isinstance(ops, fir.IROperands)
+    assert ops.wexp.shape == (1, ep, 64) and ops.wred.shape == (ep // 64, cn, 64)
     # row n of chunk j holds the weights of output channel n for inputs 64j ..
     we = _unswizzle(ops.wexp).permute(1, 0, 2).reshape(ep, -1)
     wr = _unswizzle(ops.wred).permute(1, 0, 2).reshape(cn, -1)
@@ -179,9 +180,12 @@ def test_ir_operands_lay_each_weight_where_the_kernel_reads_it(c, e, cout):
         assert got.shape == (n,) and torch.equal(got[:want.numel()], want)
         assert not got[want.numel():].any()
     assert torch.equal(ops.kdw.reshape(9, ep)[:, :e], kdw.reshape(9, e))
-    # the tile kernel's shapes keep its (N, K16) layouts
-    tile = fir.ir_operands(*_weights(np.random.default_rng(1), 12, 48, 12))
-    assert not tile.strip and tile.wexp.shape == (48, 16) and tile.kdw.shape == (9 * 48,)
+    # the widths the strip kernel does not take get the wide kernel's K-major
+    # planes (csrc/inverted_residual_wide.cu): one bf16 plane, E and K padded to 64
+    wide = fir.ir_operands(*_weights(np.random.default_rng(1), 12, 48, 12))
+    assert isinstance(wide, fir.IRTCOperands) and wide.dtype == BF
+    assert wide.tile == (8, 16) and wide.ncp == 64
+    assert wide.wexp.shape == (1, 1, 1, 64, 64) and wide.kdw.shape == (9 * 64,)
 
 
 def _block(rng, c=16, e=64, cout=16):
@@ -232,12 +236,14 @@ def two_threads():
 
 def _planes(ops):
     """The operands' planes as the kernel reads them, unswizzled: Wexp^T
-    (parts, Ep, Kp) and Wred^T (parts, nc, Ep)."""
+    (parts, Ep, Kp) and Wred^T (parts, nc, Ep), nc the passes' output
+    channels (passes x ncp)."""
     nch, parts, slabs, kw = ops.wexp.shape[:4]
     wx = swizzle_tiles(ops.wexp).permute(1, 0, 3, 2, 4).reshape(parts, nch * kw, slabs * kw)
-    nc = ops.wred.shape[2]
-    wr = swizzle_tiles(ops.wred).permute(1, 2, 0, 3).reshape(parts, nc, nch * kw)
-    return wx, wr
+    ncp = ops.wred.shape[2]
+    passes = ops.wred.shape[0] // nch
+    wr = swizzle_tiles(ops.wred).reshape(passes, nch, parts, ncp, kw).permute(2, 0, 3, 1, 4)
+    return wx, wr.reshape(parts, passes * ncp, nch * kw)
 
 
 @pytest.mark.parametrize("cd", [F32, BF])
@@ -426,3 +432,137 @@ def test_tile_schedule_matches_the_plain_version(two_threads, stride, cd, b, h, 
         else:
             gap = float((fir.fused_ir_plain(x.float(), *args, stride=stride) - want).abs().mean())
             assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap, tile
+
+
+# ---- csrc/inverted_residual_wide.cu: bf16 stride 1 past the strip kernel ------------------
+
+# ir_wide_plan: (C, Cout) -> (tile, ncp, wsl): the widest tile whose shared
+# memory fits; Cout past two m64 tiles on 8 x 16 or four elsewhere in passes,
+# the tile whose passes expand the fewest halo pixels an output; C's halo on
+# narrower tiles as it grows; past 768 the 4 x 8 tile with Wexp^T's chunks in
+# pieces of wsl slabs of 64 input channels, none past 1536
+WIDE_PLANS = [((64, 64), ((8, 16), 64, 1)), ((96, 96), ((8, 16), 128, 2)),
+              ((20, 24), ((8, 16), 64, 1)), ((72, 72), ((8, 16), 128, 2)),
+              ((64, 264), ((8, 8), 192, 1)), ((64, 128), ((8, 16), 128, 1)),
+              ((64, 256), ((8, 8), 256, 1)), ((320, 64), ((8, 16), 64, 5)),
+              ((328, 64), ((8, 8), 64, 6)), ((584, 64), ((4, 8), 64, 10)),
+              ((700, 64), ((4, 8), 64, 11)), ((768, 64), ((4, 8), 64, 12)),
+              ((776, 64), ((4, 8), 64, 12)), ((840, 840), ((4, 8), 64, 11)),
+              ((1100, 72), ((4, 8), 64, 7)), ((1536, 64), ((4, 8), 64, 1)),
+              ((1544, 64), None)]
+
+
+@pytest.mark.parametrize("widths,plan", WIDE_PLANS)
+def test_wide_plan_picks_the_tile_and_the_passes(widths, plan):
+    c, cout = widths
+    assert fir.ir_wide_plan(c, cout) == plan
+    if plan is None:
+        assert fir.ir_wide_smem_bytes((4, 8), c, 64, 1) > fir.SMEM_LIMIT
+        return
+    tile, ncp, wsl = plan
+    slabs = -(-c // 64)
+    need = fir.ir_wide_smem_bytes(tile, c, ncp, wsl)
+    assert need == fir._tc_smem(False, 1, tile, -(-c // 8) * 8, ncp, wsl) <= fir.SMEM_LIMIT
+    assert ncp // 64 <= fir.WIDE_MAX_NCT[tile]
+    if wsl < slabs:
+        # pieces only where no tile takes a chunk whole, on 4 x 8, the most
+        # slabs that fit
+        assert tile == fir.WIDE_PIECES_TILE and ncp == 64
+        assert all(fir.ir_wide_smem_bytes(t, c, 64) > fir.SMEM_LIMIT for t in fir.WIDE_MAX_NCT)
+        assert fir.ir_wide_smem_bytes(tile, c, 64, wsl + 1) > fir.SMEM_LIMIT
+        return
+    assert wsl == slabs
+    # one pass more than the plan's on the same tile would expand more, and a
+    # wider pass does not fit the tile's registers or its shared memory
+    wider = ncp + 64
+    assert (wider // 64 > fir.WIDE_MAX_NCT[tile] or -(-cout // wider) == -(-cout // ncp)
+            or fir.ir_wide_smem_bytes(tile, c, wider) > fir.SMEM_LIMIT)
+
+
+def test_wide_plan_takes_every_c_to_1536():
+    """Every C up to 1536 gets a plan (E does not enter: chunks of 64), at any
+    Cout; past it the operands raise with the reason before any launch."""
+    for c in range(1, 1537, 7):
+        for cout in (8, 100, 300):
+            assert fir.ir_wide_plan(c, cout) is not None, (c, cout)
+    with pytest.raises(ValueError, match="narrowest tile"):
+        fir.ir_wide_operands(*_weights(np.random.default_rng(0), 1544, 64, 16))
+
+
+def _earlier_tile_kernel_smem(c: int, e: int) -> int:
+    """Shared memory of the 8 x 8 mma.sync tile kernel that ran these widths
+    before the Hopper design: x's 10 x 10 halo in 112 rows of C, the 100
+    expanded rows of E, the 64 depthwise rows of E (bf16; K padded to 16,
+    rows padded so that fragment reads fall in distinct banks)."""
+    def ld_bank(n):
+        w = ((n + 1) // 2 + 3) & ~3
+        return 2 * (w + 4 if (w // 4) % 2 == 0 else w)
+
+    cp, ep = -(-c // 16) * 16, -(-e // 16) * 16
+    return 2 * (112 * ld_bank(cp) + 100 * (ep + 8) + 64 * ld_bank(ep))
+
+
+def test_wide_plan_takes_every_width_the_earlier_tile_kernel_took():
+    """Every (C, E) whose shared memory the earlier tile kernel fitted in a
+    block (C up to about 990 at a small E) has a plan here, at any Cout."""
+    took = 0
+    for c in range(8, 1100, 13):
+        for e in (8, 24, 64, 160, 256, 384, 1024):
+            if _earlier_tile_kernel_smem(c, e) <= fir.SMEM_LIMIT:
+                took += 1
+                for cout in (8, 100, 300):
+                    assert fir.ir_wide_plan(c, cout) is not None, (c, e, cout)
+    assert took > 100 and _earlier_tile_kernel_smem(970, 8) <= fir.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c,e,cout", [(64, 384, 264), (20, 80, 24), (72, 288, 72)])
+def test_wide_operands_cut_wred_into_passes(c, e, cout):
+    """Wred^T's rows by passes of ncp output channels (passes outer, then
+    chunks of 64 expanded channels), bred likewise; zeros past Cout."""
+    wexp, bexp, kdw, bdw, wred, bred = args = _weights(np.random.default_rng(c + e), c, e, cout)
+    ops = fir.ir_operands(*args)
+    tile, ncp, wsl = fir.ir_wide_plan(c, cout)
+    passes, ep = -(-cout // ncp), -(-e // 64) * 64
+    assert isinstance(ops, fir.IRTCOperands) and (ops.tile, ops.ncp, ops.wsl) == (tile, ncp, wsl)
+    assert ops.wred.shape == (passes * ep // 64, 1, ncp, 64)
+    assert ops.bred.shape == (passes * ncp,) and torch.equal(ops.bred[:cout], bred)
+    assert not ops.bred[cout:].any()
+    wx, wr = _planes(ops)
+    assert torch.equal(wr[0][:cout, :e], wred.t().to(BF)) and not wr[0][cout:].float().any()
+    assert torch.equal(wx[0][:e, :c], wexp.t().to(BF)) and not wx[0][:, c:].float().any()
+    # pass p's planes start at p x chunks rows of the array: the kernel's offset
+    raw = swizzle_tiles(ops.wred)
+    for p in range(passes):
+        rows = slice(p * ncp, min(cout, (p + 1) * ncp))
+        got = raw[p * ep // 64:(p + 1) * ep // 64, 0].permute(1, 0, 2).reshape(ncp, ep)
+        assert torch.equal(got[:rows.stop - rows.start, :e], wred.t()[rows].to(BF))
+
+
+def test_wide_route_pads_x_to_whole_16_byte_rows():
+    """C not a multiple of 8 reaches the kernel with zero channels to the
+    next multiple (TMA's 16-byte strides); a multiple of 8 goes as it is."""
+    x = torch.randn((2, 3, 5, 20)).to(BF)
+    xk = fir._tc_x(x, False)
+    assert xk.shape == (2, 3, 5, 24) and torch.equal(xk[..., :20], x) and not xk[..., 20:].any()
+    y = torch.randn((1, 2, 2, 72)).to(BF)
+    assert fir._tc_x(y, False) is y
+
+
+@pytest.mark.parametrize("b,h,w,c,e,cout,resid", [(1, 9, 17, 72, 288, 72, True),
+                                                  (2, 7, 10, 20, 80, 24, False),
+                                                  (1, 8, 12, 64, 384, 264, False)])
+def test_wide_schedule_matches_the_plain_version(two_threads, b, h, w, c, e, cout, resid):
+    """csrc/inverted_residual_wide.cu's walk (tc_schedule at bf16, stride 1,
+    from the wide operands' planes, every pass's rows) on each stride-1 tile:
+    within chip_smoke.py's limits for kernel 8 of the plain version."""
+    rng = np.random.default_rng(b * h * w + c + e)
+    args = _weights(rng, c, e, cout)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(BF)
+    ops = fir.ir_wide_operands(*args)
+    pargs = (args[0].to(BF), *args[1:4], args[4].to(BF), args[5])
+    want = fir.fused_ir_plain(x, *pargs, use_residual=resid).float()
+    scale = float(want.abs().max())
+    gap = float((fir.fused_ir_plain(x.float(), *args, use_residual=resid) - want).abs().mean())
+    for tile in fir.IR_TC_TILES[1]:
+        err = (tc_schedule(x, ops, 1, tile, resid).float() - want).abs()
+        assert float(err.max()) <= 2 ** -6 * scale and float(err.mean()) <= 0.01 * gap, tile

@@ -133,12 +133,12 @@ def test_kernel_names_are_the_launch_counters():
         f"void {anon}gru_train_bwd_kernel<16>({anon}BwdArgs)": "fused_gru_train_bwd",
         f"void {anon}gru_train_dwr_kernel({anon}DwrArgs)": "fused_gru_train_dwr",
         f"void {anon}flash_mha_kernel<float, 48>({anon}Args)": "flash_mha",
-        f"void {anon}layer_ln_qkv_kernel<3, 2>({anon}QkvParams)": "transformer_ln_qkv",
+        f"void {anon}layer_ln_qkv_kernel<3, 2, false>({anon}QkvParams)": "transformer_ln_qkv",
         f"void {anon}layer_attention_kernel<64>({anon}AttnParams)": "transformer_attention",
-        f"void {anon}layer_proj_ffn_kernel<3, 2>({anon}FfnParams)": "transformer_proj_ffn",
-        f"void {anon}layer_kernel({anon}LayerArgs)": "transformer_sequence",
+        f"void {anon}layer_proj_ffn_kernel<3, 2, false>({anon}FfnParams)": "transformer_proj_ffn",
+        f"void {anon}layer_proj_ffn_kernel<5, 4, true>({anon}FfnParams)": "transformer_proj_ffn",
         f"void {anon}ir_strip_kernel<32>({anon}Params)": "fused_inverted_residual",
-        f"void {anon}ir_kernel({anon}IRArgs, {anon}IRLayout)": "inverted_residual_tile",
+        f"void {anon}ir_wide_kernel<8, 16, 2>(gxt::irh::Params)": "inverted_residual_wide",
         f"void {anon}ir_f32_kernel<8, 16, 1>(gxt::irh::Params)": "inverted_residual_f32",
         f"void {anon}ir_f32_kernel<4, 8, 2>(gxt::irh::Params)": "inverted_residual_f32",
         f"void {anon}ir_s2_kernel<__nv_bfloat16, 8, 8, 2>(gxt::irh::Params)":

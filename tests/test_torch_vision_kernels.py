@@ -115,7 +115,7 @@ def test_fused_layer_plain_matches_the_jax_kernel_every_flag(in_proj, final_ln, 
 
 
 @pytest.mark.parametrize("b,l,c,h,f", [(1, 256, 144, 4, 288), (2, 64, 192, 4, 384),
-                                       (4, 16, 240, 4, 480)])
+                                       (4, 16, 240, 4, 480), (2, 16, 320, 5, 640)])
 def test_fused_layer_plain_matches_the_jax_kernel_at_the_stage_widths(b, l, c, h, f):
     rng = np.random.default_rng(c)
     jl, tl = _layers(_layer_arrays(c, h, f, rng), h)
@@ -203,8 +203,10 @@ def _emulate_layer(x, ops, l):
     def ln(v, g, b, eps):
         return layer_norm(v, g, b, eps=eps)
 
+    groups = range(0, c, nw)   # C's columns: one group, or wide several
     product, tiles = taker(prep.wa)
-    xf = product(x, nw)[:, :c] if ops.win is not None else x.float()
+    xf = (torch.cat([product(x, nw) for _ in groups], 1)[:, :c] if ops.win is not None
+          else x.float())
     a = ln(xf, *ops.ln1, ops.eps).to(torch.bfloat16)
     qkv = torch.cat([product(a, nw) for _ in range(0, 3 * h * dhp, nw)], 1)[:, :3 * h * dhp]
     qkv = qkv + prep.vectors["bqkv"].reshape(-1)
@@ -213,12 +215,23 @@ def _emulate_layer(x, ops, l):
     qkv = qkv.to(torch.bfloat16)
     ctx = ftl.attention_plain(qkv, l, ops)
     product, tiles = taker(prep.wc)
-    xf = product(x, nw)[:, :c] if ops.win is not None else x.float()
-    x1 = xf + product(ctx, nw)[:, :c] + ops.bo
+    # by groups: x's product (with the input projection), then ctx's
+    parts = [((product(x, nw),) if ops.win is not None else ()) + (product(ctx, nw),)
+             for _ in groups]
+    xf = torch.cat([p[0] for p in parts], 1)[:, :c] if ops.win is not None else x.float()
+    x1 = xf + torch.cat([p[-1] for p in parts], 1)[:, :c] + ops.bo
     y = ln(x1, *ops.ln2, ops.eps).to(torch.bfloat16)
     o = x1
+    if prep.ngc > 1:   # wide: each group of output columns walks every chunk of F again
+        pad = torch.zeros((x1.shape[0], prep.ngc * nw))
+        pad[:, :c] = x1
+        for n0 in groups:
+            for f0 in range(0, prep.nf * 64, 64):
+                h1 = silu(product(y, 64) + prep.vectors["bi"][f0:f0 + 64]).to(torch.bfloat16)
+                pad[:, n0:n0 + nw] = pad[:, n0:n0 + nw] + product(h1, nw, 64)
+        o = pad[:, :c]
     hs = []   # the pipelined stream takes chunk f + 1's Wi tiles before chunk f's Wo2 tile
-    for f0 in range(0, prep.nf * 64, 64):
+    for f0 in range(0, prep.nf * 64 if prep.ngc == 1 else 0, 64):
         if not hs:
             hs.append(product(y, 64))
         if prep.pipe and f0 + 64 < prep.nf * 64:
@@ -239,8 +252,16 @@ def _emulate_layer(x, ops, l):
     return qkv, o.to(torch.bfloat16)
 
 
+# past C = 288, the wide row tiles: every flag and none (C = 320, 384; packed
+# and whole 64-row tiles)
+WIDE_LAYER_CASES = [(2, 16, 320, 5, 640, True, True, "silu"),
+                    (1, 48, 384, 6, 768, False, False, None),
+                    (1, 64, 320, 5, 640, False, True, None)]
+
+
 @pytest.mark.parametrize("bp,l,c,h,f,in_proj,final_ln,out_proj",
-                         [LAYER_CASES[i] for i in (0, 5, 7, 11, 12, 13, 15, 16)])
+                         [LAYER_CASES[i] for i in (0, 5, 7, 11, 12, 13, 15, 16)]
+                         + WIDE_LAYER_CASES)
 def test_the_kernels_weight_streams_hold_each_product_in_order(bp, l, c, h, f, in_proj,
                                                                final_ln, out_proj):
     ops, x = _layer_input(bp, l, c, h, f, in_proj, final_ln, out_proj)
@@ -275,6 +296,54 @@ def test_the_cuda_path_keeps_a_layers_operands_on_its_params():
     assert torch.equal(first.out_affine[0], torch.ones(cout))
     other = ops_for(win.clone(), torch.ones(cout))
     assert other.wq is not first.wq and torch.equal(other.win, win.reshape(cin, c).bfloat16())
+
+
+@pytest.mark.parametrize("c,cin,in_proj,nw", [(320, 160, True, 192), (384, 192, True, 192),
+                                              (640, 320, True, 240), (640, 640, True, 192),
+                                              (320, 320, False, 192), (640, 640, False, 240)])
+def test_row_tiles_take_c_past_288_in_groups(c, cin, in_proj, nw):
+    """C past 288 (x1 past registers) gets a wide layout: the fewest groups
+    of 4-6 chunks of 48 columns whose kernels fit a block at one consumer
+    warpgroup (C = 640 beside an x tile of 640 takes four groups of 192),
+    covering C's K chunks, the FFN not overlapped."""
+    layout = ftl.row_tile_layout(c, cin, in_proj)
+    assert layout is not None
+    got, ks, pipe = layout
+    assert (got, pipe) == (nw, False) and ks == ftl.k_steps(c, cin, in_proj)
+    ngc = -(-c // nw)
+    assert ngc >= 2 and ngc * nw >= -(-c // (16 * ks)) * 16 * ks
+    assert ftl.row_tile_fits(nw, ks, c, cin, in_proj, 1, False)
+    # one group of C rounded up to 48 would hold x1 past kMaxNch chunks
+    assert -(-c // 48) > 6
+
+
+def test_row_tiles_keep_the_model_widths_layouts():
+    """MobileViT-small's layers keep one group (nw = C rounded up to 48),
+    their K steps and their FFN order, and fit two consumer warpgroups: no
+    layer of the model changes route; a C past what one block holds gets
+    none."""
+    for c, cin in ((144, 96), (192, 128), (240, 160)):
+        for in_proj, width in ((True, cin), (False, c)):
+            layout = ftl.row_tile_layout(c, width, in_proj)
+            assert layout == (-(-c // 48) * 48, ftl.k_steps(c, width, in_proj),
+                              ftl.ffn_pipelined(c))
+            assert ftl.row_tile_fits(*layout[:2], c, width, in_proj, 2, layout[2])
+    assert ftl.row_tile_layout(1344, 1344, False) is None
+    assert ftl.row_tile_layout(288, 1000, True) is None
+
+
+def test_wide_row_tiles_deal_their_groups_over_idle_multiprocessors():
+    """Past C = 288 a row tile's groups of output columns go to as many
+    blocks as the groups allow and the multiprocessors its row tiles leave
+    idle hold in one wave (each block its own scratch copy); one group of C
+    keeps one block a tile."""
+    assert ftl.row_tile_split(2048, 1, 5, 2, 132) == 4        # 32 row tiles: 128 blocks, not 160
+    assert ftl.row_tile_split(768, 1, 6, 2, 132) == 6         # 12 row tiles, 6 qkv groups
+    assert ftl.row_tile_split(2048, 1, 2, 2, 132) == 2        # the FFN's 2 groups
+    assert ftl.row_tile_split(8192, 1, 5, 2, 132) == 1        # 128 row tiles: one wave already
+    assert ftl.row_tile_split(4000, 1, 5, 2, 132) == 2        # 63 row tiles
+    assert ftl.row_tile_split(1 << 20, 2, 5, 2, 132) == 1     # the card already full
+    assert ftl.row_tile_split(2048, 1, 3, 1, 132) == 1        # C = 240: the model's widths
 
 
 def test_k_steps_pad_the_model_widths_least():
@@ -327,9 +396,14 @@ S2_DOWNSAMPLERS = [(2, False, 32, 128, 64, 16), (2, False, 64, 256, 96, 8),
                    (2, False, 96, 384, 128, 8), (2, False, 128, 512, 160, 8)]
 
 
+# stride 1 past the strip kernel (csrc/inverted_residual_wide.cu): C past 64
+# and E past 256, C and Cout not multiples of 8, Cout past 256 (two passes)
+IR_WIDE = [(1, True, 72, 288, 72, 8), (1, False, 20, 80, 24, 8), (1, False, 64, 384, 264, 8)]
+
+
 @pytest.mark.parametrize("stride,resid,c,e,cout,hw", [
     (1, True, 8, 32, 8, 8), (1, False, 8, 32, 16, 8), (2, False, 8, 32, 16, 8),
-    (1, True, 16, 64, 16, 12), *S2_DOWNSAMPLERS])
+    (1, True, 16, 64, 16, 12), *S2_DOWNSAMPLERS, *IR_WIDE])
 def test_fused_inverted_residual_plain_matches_the_jax_kernel(stride, resid, c, e, cout, hw):
     rng = np.random.default_rng(e + hw)
     jb, tb = _ir_blocks(rng, c, e, cout, stride, resid)

@@ -6,7 +6,7 @@ computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32,forward] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32,forward,ir_wide,layer_wide] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -99,6 +99,19 @@ silu_fast, the correctly rounded SiLU or uncontracted taps, and times each
 
 ``--only forward`` times ``extract_features`` alone at B=128 on the full
 checkpoint's default routes, bf16 and f32, at 256 and 512 px.
+
+``--only ir_wide`` times the bf16 stride-1 inverted residual at the widths
+the strip kernel does not take (IR_WIDE_CELLS: E = 384, C = 96, a ragged C
+= 20, Cout = 264) and ``--only layer_wide`` the bf16 layer past C = 288
+(LAYER_WIDE_CELLS, every flag on and none), each on seeded random weights: the
+kernel (``call``, ``stream``, ``graph``) beside its error against the plain
+version, the plain version's time, the library's yardstick (the cuDNN
+chain; ``nn.TransformerEncoderLayer(C, H, F, SiLU, norm_first)`` in bf16
+with the input and output projections as ``F.linear``) and the bound, and
+for the layer each of its kernels alone and the wide kernels' groups on
+one block a row tile against the split the wrapper picks. They run on any
+checkout whose wrappers take these widths: a parent's kernels beside the
+change's.
 """
 
 from __future__ import annotations
@@ -136,6 +149,7 @@ _OBS = _load_observability()
 H100 = _OBS.H100
 inverted_residual_bound = _OBS.inverted_residual_bound
 cudnn_inverted_residual = _OBS.cudnn_inverted_residual
+transformer_layer_bound = _OBS.transformer_layer_bound
 
 CKPT = os.path.join("checkpoints", "gru_shakespeare.bin")
 QTYPES = ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1", "q4_k")
@@ -1019,6 +1033,147 @@ def ir_cells(sweep):
     return rows
 
 
+# the bf16 stride-1 inverted residual past the strip kernel's widths: (B, H,
+# W, C, E, Cout, residual)
+IR_WIDE_CELLS = ((128, 64, 64, 64, 384, 64, True), (128, 32, 32, 96, 384, 96, True),
+                 (128, 64, 64, 20, 80, 24, False), (128, 32, 32, 64, 384, 264, False))
+
+
+def ir_wide_cells():
+    """The inverted residual at IR_WIDE_CELLS through ``fused_ir_cuda`` on
+    the checkout's operands for these widths (``ir_operands``): the kernel,
+    its error, the plain version, the cuDNN chain and the bound."""
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+
+    rows = []
+    for b, h, w, c, e, cout, resid in IR_WIDE_CELLS:
+        x, args = ir_inputs(b, h, w, c, e, cout, seed=c + e)
+        bf = torch.bfloat16
+        pargs = (args[0].to(bf), *args[1:4], args[4].to(bf), args[5])
+        ops = fir.ir_operands(*args)
+        fn = lambda: fir.fused_ir_cuda(x, ops, use_residual=resid)  # noqa: E731
+        got, again = fn(), fn()
+        want = fir.fused_ir_plain(x, *pargs, use_residual=resid)
+        want32 = fir.fused_ir_plain(x.float(), *args, use_residual=resid)
+        _, by, bounds = inverted_residual_bound(b, h, w, c, e, cout)
+        row = {"cell": "ir_wide", "shape": [b, h, w, c, e, cout], "residual": resid,
+               "route": type(ops).__name__,
+               "plan": [getattr(ops, k, None) for k in ("tile", "ncp", "wsl")],
+               "bit_equal": bool(torch.equal(got, again)), "kernel": both(fn),
+               **ir_error(got, want, want32),
+               "plain_call": call_ms(lambda: fir.fused_ir_plain(x, *pargs, use_residual=resid),
+                                     n=3, warmup=1),
+               "cudnn_chain": both(cudnn_inverted_residual(x, args, resid)),
+               "bound_ms": bounds[by], "bound_by": by, "bounds_ms": bounds}
+        del want, want32, got, again
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+# the bf16 layer past C = 288: (bp, L, C, H, F); each in two forms: "last"
+# (every flag: Cin = C / 2 with the input projection, Cout = C / 2 + 8, the
+# final LN and the output projection with SiLU) and "middle" (no flag: the
+# form where the FFN's groups may be dealt to blocks)
+LAYER_WIDE_CELLS = ((128, 16, 320, 5, 640), (16, 48, 384, 6, 768))
+
+
+def _wide_layer_ops(ftl, dev, c, h, f, last, seed):
+    bf = torch.bfloat16
+    cin, cout = (c // 2, c // 2 + 8) if last else (c, c)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*s, off=0.0):
+        return torch.randn(s, generator=g, device=dev) * 0.2 + off
+
+    ops = ftl.LayerOperands(
+        wq=t(c, c).to(bf), wk=t(c, c).to(bf), wv=t(c, c).to(bf), wo=t(c, c).to(bf),
+        wi=t(c, f).to(bf), wo2=t(f, c).to(bf), ln1=(t(c, off=1.0), t(c)), bq=t(c), bk=t(c),
+        bv=t(c), bo=t(c), ln2=(t(c, off=1.0), t(c)), bi=t(f), bo2=t(c), num_heads=h, eps=1e-5,
+        **(dict(final_ln=(t(c, off=1.0), t(c)), win=t(cin, c).to(bf), wout=t(c, cout).to(bf),
+                out_affine=(t(cout, off=1.0), t(cout)), out_act=True) if last else {}))
+    return ops, cin, cout, g
+
+
+def layer_wide_cells():
+    """The layer at LAYER_WIDE_CELLS in its last and middle forms: the layer
+    (``fused_layer_cuda``), each of its kernels, the plain version, the
+    library's yardstick and the bound. On a checkout with the wide row tiles
+    (``row_tile_split``) also the layer with every wide kernel's groups on
+    one block a row tile (qsplit = fsplit = 1) against the split the
+    wrapper picks, in turns (picked, one, one, picked): the outputs must be
+    bit-equal. A parent's checkout, whose row tiles stop at C = 288, times
+    the layer alone (its per-sequence kernel)."""
+    import torch.nn.functional as F
+
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    wide = hasattr(ftl, "row_tile_split")
+    rows = []
+    for bp, l, c, h, f in LAYER_WIDE_CELLS:
+        for last in (True, False):
+            ops, cin, cout, g = _wide_layer_ops(ftl, dev, c, h, f, last, c + l)
+            x = torch.randn((bp, l, cin), generator=g, device=dev).to(bf)
+            fn = lambda: ftl.fused_layer_cuda(x, ops)  # noqa: E731
+            got, again = fn(), fn()
+            want = ftl.fused_transformer_layer_plain(x, ops)
+            want32 = ftl.fused_transformer_layer_plain(x.float(), ops)
+            lib = torch.nn.TransformerEncoderLayer(c, h, f, dropout=0.0, activation=F.silu,
+                                                   norm_first=True, batch_first=True,
+                                                   device=dev, dtype=bf).eval()
+            nbytes, flops = transformer_layer_bound(bp, l, cin, c, f, cout, "bfloat16",
+                                                    in_proj=last, out_proj=last)["layer"]
+            with torch.no_grad():
+                if last:
+                    win_t, wout_t = ops.win.t().contiguous(), ops.wout.t().contiguous()
+                    library = both(lambda: F.linear(lib(F.linear(x, win_t)), wout_t))
+                else:
+                    library = both(lambda: lib(x))
+            row = {"cell": "layer_wide", "form": "last" if last else "middle",
+                   "shape": [bp, l, cin, c, h, f, cout],
+                   "bit_equal": bool(torch.equal(got, again)), "kernel": both(fn),
+                   **ir_error(got, want, want32),
+                   "plain_call": call_ms(lambda: ftl.fused_transformer_layer_plain(x, ops), n=3,
+                                         warmup=1),
+                   "library": library,
+                   "bound_ms": max(nbytes / H100.hbm_bytes_per_s,
+                                   flops / H100.peak_ops["bfloat16"]) * 1e3,
+                   "bound_by": "bytes" if nbytes / H100.hbm_bytes_per_s
+                   > flops / H100.peak_ops["bfloat16"] else "operations"}
+            del want, want32, again, lib
+            if wide:
+                x2 = x.reshape(-1, cin)
+                qkv = ftl.ln_qkv_cuda(x2, ops, l)
+                ctx = ftl.attention_cuda(qkv, l, ops)
+                row["ln_qkv"] = both(lambda: ftl.ln_qkv_cuda(x2, ops, l))
+                row["attention"] = both(lambda: ftl.attention_cuda(qkv, l, ops))
+                row["proj_ffn"] = both(lambda: ftl.proj_ffn_cuda(x2, ctx, ops, l))
+                _, a = ftl._launch_args(ops, x2, l, cin)
+                row["split"] = {"qsplit": a.qsplit, "fsplit": a.fsplit}
+                picked = ftl.row_tile_split
+                turns = []
+                for one in (False, True, True, False):
+                    ops.cache.clear()   # the launch arguments planned anew
+                    ftl.row_tile_split = (lambda *_: 1) if one else picked
+                    try:
+                        out = fn()
+                        turns.append({"one_block": one, "bit_equal": bool(torch.equal(out, got)),
+                                      "graph": graph_ms(fn),
+                                      "ln_qkv": graph_ms(lambda: ftl.ln_qkv_cuda(x2, ops, l)),
+                                      "proj_ffn": graph_ms(
+                                          lambda: ftl.proj_ffn_cuda(x2, ctx, ops, l))})
+                    finally:
+                        ftl.row_tile_split = picked
+                ops.cache.clear()
+                row["split_turns"] = turns
+            del got
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
 def forward_cells():
     """``extract_features`` at B=128 on ``mobilevit_synth_full.ggml`` on the
     checkout's default routes, bf16 and f32, at 256 and at 512 px (layer_3
@@ -1124,7 +1279,8 @@ def main() -> int:
                          "off")
     ap.add_argument("--only", default="qmatmul,flash,gru,train,train_f32,layer,ir",
                     help="comma-separated kernels to time (qmatmul, flash, gru, train, "
-                         "train_f32, layer, ir; forward: extract_features alone)")
+                         "train_f32, layer, ir, ir_wide, layer_wide; forward: "
+                         "extract_features alone)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1151,7 +1307,9 @@ def main() -> int:
              ("layer", "split_step_layer", layer_split_cells),
              ("ir", "split_step_ir", ir_split_cells),
              ("attention_f32", "split_step_attention_f32", attention_f32_split_cells),
-             ("forward", "forward", forward_cells))
+             ("forward", "forward", forward_cells),
+             ("ir_wide", "ir_wide", ir_wide_cells),
+             ("layer_wide", "layer_wide", layer_wide_cells))
     for kernel, key, fn in cells:
         if kernel not in only or (key.startswith("split_step") and not args.split_step):
             continue
