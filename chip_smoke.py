@@ -287,6 +287,18 @@ checkpoint ``checkpoints/gru_shakespeare.bin`` quantized to q8_0:
      128 timed at both dtypes with a torch.profiler split (the trace tool
      in a process of its own); ``features`` and
      ``classify`` at ``--image-size 512``.
+ 31. the persistent kernel past its old limits (V <= 256, U a multiple of
+     32), at the reference's E = 256 with weights made from a seed: at V =
+     5000 ``decode()`` on each plan (slot-owned bf16 at B = 4096,
+     unit-owned bf16 at 1024, unit-owned f32 at 256, 64 steps) and a 512 x
+     128 engine greedy and sampled (0.8, top-k 20, top-p 0.9), each against
+     its plain version under the near-tie rule and teacher-forced, launches
+     counted; V = 257 slot-owned; U = 1000 unit-owned; U = 2048 on the scan
+     path with no launch. Then ``train-gru`` and ``generate`` on a corpus of
+     5,000 distinct characters made from a seed, that corpus's own
+     vocabulary trained through ``train()`` and decoded on the kernel, and
+     the bf16 vision shapes past their kernels' plans on the unfused chain
+     against the CPU. Within 90 s.
 
 Launch counts are zeroed just before each main-path run and read just after
 it; comparison launches are not counted. Any failed check raises, so the
@@ -560,6 +572,14 @@ CLS_TRAIN = dict(n_train=400, steps=30, batch=50)   # the classifier tool's trai
 # phase 30: MobileViT-small at 512 px (layer_3 at L = 1024)
 LONG_KERNEL_L = (640, 1024)          # the streamed kernels against their plain versions
 LONG_IMAGES, LONG_CPU_IMAGES = 256, 4
+# phase 31: the persistent kernel at vocabularies past 256 and units off 32
+WIDE_VOCAB = 5000                    # distinct characters of the phase's corpus
+WIDE_CORPUS_CHARS = 20000            # its length: three batches of 64 windows of 101
+# decode() at V = 5000 on each plan: name suffix -> (B, T, dtype, decomposition)
+WIDE_DECODE = {"": (4096, 64, "bfloat16", "slot"), "_unit": (1024, 64, "bfloat16", "unit"),
+               "_f32": (256, 64, "float32", "unit")}
+WIDE_TF_STEPS = 16                   # teacher-forced steps of each cell's h check
+WIDE_PHASE_BUDGET_S = 90
 
 
 class SmokeFailure(AssertionError):
@@ -5758,6 +5778,419 @@ def long_sequence_phase(tag, dev):
     return out
 
 
+# ---- phase 31: the persistent kernel at vocabularies past 256 and units off 32 --------
+
+
+def wide_gru_params(v, u, qtype="q8_0", e=256, seed=0):
+    """A GRU of the reference's E at vocabulary V and U units, random weights
+    made from ``seed`` (the trained checkpoint's scales), on the card."""
+    import numpy as np
+
+    from ggml_experiments_tpu_torch.convert import params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    a = {"embeddings": rng.normal(0, 0.5, (v, e)), "kernel": rng.normal(0, e ** -0.5, (e, 3 * u)),
+         "recurrent_kernel": rng.normal(0, u ** -0.5, (u, 3 * u)),
+         "bias": rng.normal(0, 0.1, (2, 3 * u)),
+         "dense_kernel": rng.normal(0, 3 * u ** -0.5, (u, v)), "dense_bias": rng.normal(0, 0.1, (v,))}
+    return params_from_numpy({k: x.astype(np.float32) for k, x in a.items()}, qtype=qtype,
+                             device="cuda")
+
+
+def gru_loop_bound(wf, b, t, nbytes_io):
+    """The persistent loop's least time: the table's and the steps'
+    operations against the weights and the call's inputs and outputs."""
+    v, e, u = wf.v, wf.e, wf.u
+    weight_bytes = tensor_bytes(wf.emb, wf.wc, wf.ws, wf.uc, wf.us, wf.bias, wf.dc, wf.ds,
+                                wf.dbias)
+    ops = 2 * v * e * 3 * u + 2 * b * t * (3 * u * u + u * v)
+    return bound(weight_bytes + nbytes_io, ops, "bfloat16")
+
+
+def wide_decode_cell(tag, name, params, B, T, cd, want_decomp, rng):
+    """``decode()`` at (B, T) and ``cd`` on params past the kernel's old
+    limits: one launch on the plan ``decode_plan`` gives (its decomposition
+    ``want_decomp``), tokens against the plain version under the near-tie
+    rule, the kernel teacher-forced over WIDE_TF_STEPS against its plain
+    version (tokens equal, h within 1e-4 at f32, TF_BF16_H_MAX at bf16), two
+    launches bit-equal, each timed. Returns the kernels-line entry."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+
+    dev = params.device
+    cdn = cdname(cd)
+    wf = fused._prep_weights(params)
+    v, u = wf.v, wf.u
+    lens = rng.integers(1, 17, B).astype(np.int32)
+    ids = np.zeros((B, 16), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(0, v, n)
+    ids_t, lens_t = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+    port.reset_kernel_launches()
+    toks = gru_textgen.decode(params, ids_t, lens_t, T, compute_dtype=cd)
+    torch.cuda.synchronize()
+    launches = port.kernel_launches()["fused_gru_decode"]
+    plan = fused.LAST_PLAN.get("fused_gru_decode")
+    check(launches == 1 and plan.decomp == want_decomp,
+          f"{tag}: {name} took {launches} launches, plan {plan} (want one, {want_decomp}-owned)")
+    check(toks.dtype == torch.int32 and toks.shape == (B, T) and int(toks.max()) < v,
+          f"{tag}: {name} output dtype/shape/range")
+    ms = cuda_ms(lambda: fused.fused_gru_decode(params, ids_t, lens_t, T, compute_dtype=cd),
+                 n=3, warmup=1)
+    again = fused.fused_gru_decode(params, ids_t, lens_t, T, compute_dtype=cd)
+    check(torch.equal(toks, again), f"{tag}: {name}: two launches differ")
+    z = torch.zeros(B, dtype=torch.int32, device=dev)
+    tb = torch.full((B,), T, dtype=torch.int32, device=dev)
+    prompt = torch.nn.functional.pad(ids_t, (0, T - 16))
+    h0 = torch.zeros(B, u, device=dev)
+    plain_ms = cuda_ms(lambda: fused.gru_loop_reference(wf, prompt, lens_t, tb, z, z, h0, T, cd),
+                       n=1, warmup=0)
+    want, _, _, _, gaps = fused.gru_loop_reference(wf, prompt, lens_t, tb, z, z, h0, T, cd,
+                                                   margins=True)
+    agree, forked = first_divergence_near_ties(toks, want, gaps, NEAR_TIE[cdn],
+                                               f"{tag}: {name}")
+    tf_ids = torch.from_numpy(rng.integers(0, v, (B, WIDE_TF_STEPS)).astype(np.int32)).to(dev)
+    tl = torch.full((B,), WIDE_TF_STEPS, dtype=torch.int32, device=dev)
+    toks_k, h_k = fused.fused_gru_decode(params, tf_ids, tl, WIDE_TF_STEPS, compute_dtype=cd,
+                                         return_state=True)
+    toks_p, h_p, _, _ = fused.gru_loop_reference(wf, tf_ids, tl, tl, z, z, h0, WIDE_TF_STEPS, cd)
+    err = float((h_k - h_p).abs().max())
+    lim = 1e-4 if cd == torch.float32 else TF_BF16_H_MAX
+    check(torch.equal(toks_k, toks_p) and err <= lim,
+          f"{tag}: {name} teacher-forced: tokens equal {torch.equal(toks_k, toks_p)}, h err "
+          f"{err:.3g} (limit {lim})")
+    b_ms, b_by = gru_loop_bound(wf, B, T, ids.nbytes + lens.nbytes + B * T * 4)
+    log(f"[{tag}] {name}: decode() B={B} T={T} {cdn} at (V, U) = ({v}, {u}), {wf.mode}: "
+        f"launches {launches}, plan {plan} | kernel {ms:.2f} ms = {ms * 1e3 / T:.1f} us/step, "
+        f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}) | two launches bit-equal | "
+        f"tokens vs the plain version: agreement {agree:.6f}, {forked} rows fork (all at "
+        f"near-ties) | teacher-forced T={WIDE_TF_STEPS}: tokens equal, h max abs err {err:.3g}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, plan=str(plan))
+
+
+def wide_engine_cell(tag, name, params, n_slots, inner, sampled, rng):
+    """A ``DecodeEngine`` of ``n_slots`` x ``inner`` at bf16 on its default
+    route (the fused tick: the route asks the kernel's plan), greedy (each
+    request equal to the offline decode) or sampled (temperature 0.8, top-k
+    20, top-p 0.9), its tick launches counted; then one tick of the same
+    rule through the kernel and its plain version from one state, under the
+    near-tie rule, two launches bit-equal, each timed. Returns the
+    kernels-line entry."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+    from ggml_experiments_tpu_torch.serving.engine import init_state
+
+    dev = params.device
+    bf16 = torch.bfloat16
+    wf = fused._prep_weights(params)
+    v, u = wf.v, wf.u
+    rule = dict(temperature=0.8, top_k=20, top_p=0.9) if sampled else {}
+    eng = DecodeEngine(params, n_slots=n_slots, max_prompt=16, inner_steps=inner,
+                       compute_dtype=bf16, seed=1, **rule)
+    check(eng.use_fused_tick, f"{tag}: {name}: the engine took the scan tick")
+    prompts = [rng.integers(0, v, int(n)).astype(np.int32) for n in rng.integers(1, 17, n_slots)]
+    new = [int(x) for x in rng.integers(inner, 2 * inner, n_slots)]
+    port.reset_kernel_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, nt) for p, nt in zip(prompts, new)]
+    eng.run_until_idle(timeout_s=300)
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    launches = port.kernel_launches()["fused_slot_tick"]
+    check(launches > 0, f"{tag}: {name}: no tick launch")
+    res = [r.result(timeout=0) for r in reqs]
+    check(all(len(x) == p.size + nt and int(x.max()) < v for x, p, nt in zip(res, prompts, new)),
+          f"{tag}: {name}: request output length/range")
+    if not sampled:
+        ids, lens = pad_batch(prompts, 16)
+        offline = fused.fused_gru_decode(params, ids, lens, 16 + 2 * inner,
+                                         compute_dtype=bf16).cpu()
+        for i, (x, p, nt) in enumerate(zip(res, prompts, new)):
+            check(np.array_equal(x, offline[i, :p.size + nt].numpy()),
+                  f"{tag}: {name}: request {i} differs from the offline decode")
+    st = init_state(params, n_slots, 16)
+    ids, lens = pad_batch(prompts, 16)
+    st.prompt, st.plen = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+    st.total = st.plen + inner
+    st.temp = torch.full((n_slots,), 0.8 if sampled else 0.0, device=dev)
+    kw = dict(enable_sampling=sampled, seed=12345, top_k=20 if sampled else None,
+              top_p=0.9 if sampled else None)
+    s_k, t_k = fused.fused_slot_tick(params, st, inner, compute_dtype=bf16, **kw)
+    again = fused.fused_slot_tick(params, st, inner, compute_dtype=bf16, **kw)
+    check(torch.equal(t_k, again[1]) and torch.equal(s_k.h, again[0].h),
+          f"{tag}: {name}: two tick launches differ")
+    check(t_k.dtype == torch.int32, f"{tag}: {name}: tokens {t_k.dtype}, want int32 past V=255")
+    ref_kw = dict(temp=st.temp, seed=12345, top_k=20, top_p=0.9) if sampled else {}
+    t_p, _, _, pos_p, gaps = fused.gru_loop_reference(
+        wf, st.prompt, st.plen, st.total, st.prev, st.pos, st.h, inner, bf16, margins=True,
+        **ref_kw)
+    check(torch.equal(s_k.pos, pos_p), f"{tag}: {name}: cursors differ")
+    agree, forked = first_divergence_near_ties(t_k, t_p, gaps, NEAR_TIE["bfloat16"],
+                                               f"{tag}: {name} tick")
+    ms = cuda_ms(lambda: fused.fused_slot_tick(params, st, inner, compute_dtype=bf16, **kw), n=3,
+                 warmup=1)
+    plain_ms = cuda_ms(lambda: fused.gru_loop_reference(
+        wf, st.prompt, st.plen, st.total, st.prev, st.pos, st.h, inner, bf16, **ref_kw),
+        n=1, warmup=0)
+    tf_st = init_state(params, n_slots, WIDE_TF_STEPS)
+    tf_st.prompt = torch.from_numpy(rng.integers(0, v, (n_slots, WIDE_TF_STEPS)).astype(
+        np.int32)).to(dev)
+    tf_st.plen = torch.full((n_slots,), WIDE_TF_STEPS, dtype=torch.int32, device=dev)
+    tf_st.total = tf_st.plen.clone()
+    s_tf, t_tf = fused.fused_slot_tick(params, tf_st, WIDE_TF_STEPS, compute_dtype=bf16)
+    t_tp, h_tp, *_ = fused.gru_loop_reference(wf, tf_st.prompt, tf_st.plen, tf_st.total,
+                                              tf_st.prev, tf_st.pos, tf_st.h, WIDE_TF_STEPS, bf16)
+    err = float((s_tf.h - h_tp).abs().max())
+    check(torch.equal(t_tf, t_tp) and err <= TF_BF16_H_MAX,
+          f"{tag}: {name} teacher-forced tick: h err {err:.3g}")
+    b_ms, b_by = gru_loop_bound(wf, n_slots, inner, ids.nbytes + n_slots * (4 * 4 + 4 * u)
+                                + n_slots * (4 * 2 + 4 * u) + n_slots * inner * 4)
+    log(f"[{tag}] {name}: engine {n_slots} x {inner} bf16 at (V, U) = ({v}, {u}), "
+        f"{'sampled (0.8, top-k 20, top-p 0.9)' if sampled else 'greedy'}: {len(reqs)} requests "
+        f"in {eng_s:.2f} s{'' if sampled else ', each equal to the offline decode'}, tick "
+        f"launches {launches}, plan {fused.LAST_PLAN.get('fused_slot_tick')} | one tick: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), int32 tokens, "
+        f"agreement {agree:.6f} ({forked} rows fork, at near-ties), two launches bit-equal | "
+        f"teacher-forced T={WIDE_TF_STEPS}: h max abs err {err:.3g}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                plan=str(fused.LAST_PLAN.get("fused_slot_tick")))
+
+
+def wide_corpus(seed, n_chars, n_distinct):
+    """A text of ``n_chars`` characters over ``n_distinct`` distinct CJK code
+    points (U+4E00 on), each at least once, the rest drawn Zipf-like: a
+    corpus whose vocabulary is past what the kernel held before."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    points = 0x4E00 + rng.permutation(20000)[:n_distinct]
+    weights = 1.0 / np.arange(1, n_distinct + 1)
+    draws = rng.choice(n_distinct, n_chars - n_distinct, p=weights / weights.sum())
+    order = np.concatenate([np.arange(n_distinct), draws])
+    rng.shuffle(order)
+    return "".join(chr(int(points[i])) for i in order)
+
+
+def wide_gru_phase(tag, dev):
+    """Phase 31: the persistent kernel past its old limits, at the reference
+    width (E = 256) with random weights made from a seed. V = 5000:
+    ``decode()`` on each plan (slot-owned bf16 at B = 4096, unit-owned bf16
+    at 1024, unit-owned f32 at 256) and a 512 x 128 engine greedy and
+    sampled; V = 257 on the slot-owned plan (two vocabulary tiles, the
+    logits scratch, the walk in memory); U = 1000 (padded to 1024) on the
+    unit-owned plan; U = 2048 on the scan path with no launch. Then
+    ``train-gru`` and ``generate`` on a corpus of WIDE_VOCAB distinct
+    characters made from a seed, and the same corpus's own vocabulary
+    trained through the API, quantized, decoded through the kernel. Last
+    the bf16 vision shapes past their kernels' plans on the unfused
+    chain. Returns the kernels-line entries."""
+    import numpy as np
+    import torch
+
+    import ggml_experiments_tpu_torch as port
+    from ggml_experiments_tpu_torch import cli
+    from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params, save_gru_params
+    from ggml_experiments_tpu_torch.models import gru_textgen
+    from ggml_experiments_tpu_torch.ops import fused_gru_decode as fused
+    from ggml_experiments_tpu_torch.serving import DecodeEngine
+    from ggml_experiments_tpu_torch.training import TrainConfig, train
+    from ggml_experiments_tpu_torch.training.data import DataConfig, batches, make_examples
+    from ggml_experiments_tpu_torch.utils.tokenizer import CharTokenizer
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(31)
+    out = {}
+    p5k = wide_gru_params(5000, 1024)
+    for name, (b, t, cd, decomp) in WIDE_DECODE.items():
+        out[f"fused_gru_decode_v5000{name}"] = wide_decode_cell(
+            tag, f"V=5000{name}", p5k, b, t, getattr(torch, cd), decomp, rng)
+    n_slots, inner = ENGINE_SHAPE
+    out["fused_slot_tick_v5000"] = wide_engine_cell(tag, "V=5000 greedy", p5k, n_slots, inner,
+                                                    False, rng)
+    out["fused_slot_tick_v5000_sampled"] = wide_engine_cell(tag, "V=5000 sampled", p5k, n_slots,
+                                                            inner, True, rng)
+    del p5k
+    out["fused_gru_decode_v257"] = wide_decode_cell(tag, "V=257", wide_gru_params(257, 1024),
+                                                    4096, 64, bf16, "slot", rng)
+    out["fused_gru_decode_u1000"] = wide_decode_cell(tag, "U=1000", wide_gru_params(66, 1000),
+                                                     1024, 64, bf16, "unit", rng)
+    # U = 2048: no plan holds it; decode() and the engine keep the scan path
+    p2k = wide_gru_params(66, 2048)
+    ids = torch.from_numpy(rng.integers(0, 66, (64, 8)).astype(np.int32)).to(dev)
+    lens = torch.full((64,), 8, dtype=torch.int32, device=dev)
+    why = fused.loop_refusal(64, 2048, 66, bf16, *fused.device_limits(dev))
+    port.reset_kernel_launches()
+    got = gru_textgen.decode(p2k, ids, lens, 64)
+    eng = DecodeEngine(p2k, n_slots=16, inner_steps=16, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    launches = port.kernel_launches()
+    check(why and launches["fused_gru_decode"] == 0 and launches["qmatmul_q8_0"] > 0
+          and not eng.use_fused_tick, f"{tag}: U=2048 took the kernel: {launches}")
+    check(torch.equal(got, gru_textgen.generate(p2k, ids, lens, 64, compute_dtype=bf16)),
+          f"{tag}: U=2048 decode() differs from generate()")
+    log(f"[{tag}] U=2048: decode() B=64 T=64 on the scan path ({launches['qmatmul_q8_0']} "
+        f"qmatmul launches, no persistent-kernel launch; equal to generate()), the engine's "
+        f"default tick the scan tick: the kernel's reason: {why}")
+    del p2k, eng
+
+    # a corpus of ~5,000 distinct characters: train-gru and generate through the CLI
+    # (its tokenizer is the 66-character Shakespeare one, in both packages, so
+    # unknown characters train as id 0), then the corpus's own vocabulary
+    # through the API, quantized and decoded on the persistent kernel
+    text = wide_corpus(31, WIDE_CORPUS_CHARS, WIDE_VOCAB)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, bin_ = os.path.join(tmp, "corpus.txt"), os.path.join(tmp, "gru.bin")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        check(cli.main(["train-gru", "--corpus", path, "--epochs", "1", "--log-every", "1",
+                        "--output", bin_]) == 0, f"{tag}: train-gru failed")
+        check(cli.main(["generate", "--weights", bin_, "--prompt", text[:8], "--steps", "32",
+                        "--qtype", "q8_0"]) == 0, f"{tag}: generate failed")
+        cli_s = time.perf_counter() - t0
+        tok = CharTokenizer.from_corpus(text)
+        v = tok.vocab_size
+        check(v == WIDE_VOCAB + 2, f"{tag}: the corpus has {v - 2} distinct characters")
+        dcfg = DataConfig(seq_length=100, batch_size=64)
+        params = gru_textgen.init_params(gru_textgen.GRUConfig(vocab_size=v),
+                                         torch.Generator().manual_seed(0), device=dev)
+        t0 = time.perf_counter()
+        params, hist = train(params, batches(make_examples(text, tok, dcfg), dcfg, seed=0),
+                             TrainConfig(epochs=1, log_every=1), device=dev)
+        train_s = time.perf_counter() - t0
+        check(len(hist) >= 1 and all(math.isfinite(h["loss"]) for h in hist),
+              f"{tag}: training at V={v}: {hist}")
+        save_gru_params(bin_, params)
+        q = load_gru_params(bin_, qtype="q8_0", device=dev)
+    ids, lens = tok.encode_batch([text[i * 97:i * 97 + 12] for i in range(64)])
+    port.reset_kernel_launches()
+    toks = gru_textgen.decode(q, ids, lens, 64)
+    torch.cuda.synchronize()
+    n = port.kernel_launches()["fused_gru_decode"]
+    check(n == 1 and toks.shape == (64, 64) and int(toks.max()) < v,
+          f"{tag}: decode() of the trained V={v} model: {n} launches")
+    wf = fused._prep_weights(q)
+    ids_t, lens_t = torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev)
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    want, _, _, _, gaps = fused.gru_loop_reference(
+        wf, torch.nn.functional.pad(ids_t, (0, 52)), lens_t,
+        torch.full((64,), 64, dtype=torch.int32, device=dev), z, z, torch.zeros(64, 1024, device=dev),
+        64, bf16, margins=True)
+    agree, forked = first_divergence_near_ties(toks, want, gaps, NEAR_TIE["bfloat16"],
+                                               f"{tag}: trained V={v} decode()")
+    sampled = gru_textgen.generate(q, ids, lens, 64, temperature=0.8, top_k=20, top_p=0.9,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+    check(int(sampled.max()) < v, f"{tag}: sampled generate() past the vocabulary")
+    log(f"[{tag}] corpus of {len(text):,} characters, {WIDE_VOCAB} distinct: train-gru (1 epoch, "
+        f"the CLI's 66-character vocabulary) and generate in {cli_s:.1f} s | the corpus's own "
+        f"vocabulary (V={v}) through train(): {len(hist)} steps in {train_s:.1f} s, loss "
+        f"{hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}; quantized q8_0, decode() B=64 T=64 "
+        f"bf16: {n} launch, plan {fused.LAST_PLAN.get('fused_gru_decode')}, tokens vs the "
+        f"plain version: agreement {agree:.6f}, {forked} rows fork (at near-ties); sampled "
+        f"generate(): {tok.decode(sampled[0, 12:40].tolist())!r}")
+    del q, params
+    torch.cuda.empty_cache()
+    wide_vision_check(tag, dev)
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= WIDE_PHASE_BUDGET_S, f"{tag}: {phase_s:.1f} s, past its budget of "
+                                          f"{WIDE_PHASE_BUDGET_S} s")
+    log(f"[{tag}] phase time {phase_s:.1f} s (budget {WIDE_PHASE_BUDGET_S} s)")
+    return out
+
+
+def wide_vision_check(tag, dev):
+    """The bf16 vision shapes past their kernels' plans: a stride-1 block at
+    C = 1600, layers at C = 1280 and at heads of 80, flash attention at
+    heads of 80. On the card the routes say no before any launch, none of
+    their kernels launches, and the unfused chain meets the CPU's output
+    (the JAX model's route there) within VIT_BF16_MAX of the largest
+    value. The unfused C = 1280 layer's attention (heads of 64) takes flash
+    attention: its one launch."""
+    import numpy as np
+    import torch
+
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops import flash_attention as fa
+    from ggml_experiments_tpu_torch.ops import fused_inverted_residual as fir
+    from ggml_experiments_tpu_torch.ops import fused_transformer_layer as ftl
+    from ggml_experiments_tpu_torch.ops.attention import AttentionParams, multi_head_attention
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    def twins(build):
+        made = []
+        for d in (dev, torch.device("cpu")):
+            rng = np.random.default_rng(17)
+
+            def t(*s, off=0.0, d=d, rng=rng):
+                return torch.from_numpy((rng.standard_normal(s) * 0.1 + off).astype(
+                    np.float32)).to(d)
+            made.append(build(t))
+        return made
+
+    def block(t):
+        def conv(cin, co, kh=1, dw=False, act="silu"):
+            return ConvBNAct(kernel=t(kh, kh, cin, co), bn=FoldedBN(t(co, off=1.0), t(co)),
+                             activation=act, depthwise=dw)
+        return tmv.InvertedResidualParams(expand_1x1=conv(1600, 64), conv_3x3=conv(1, 64, 3, True),
+                                          reduce_1x1=conv(64, 64, act="none"), fused=True)
+
+    def layer(c, h):
+        def build(t):
+            return tmv.TransformerLayerParams(
+                attention=AttentionParams(wq=t(c, c), bq=t(c), wk=t(c, c), bk=t(c), wv=t(c, c),
+                                          bv=t(c), wo=t(c, c), bo=t(c), num_heads=h, flash=True),
+                ln_before_gamma=t(c, off=1.0), ln_before_beta=t(c), ln_after_gamma=t(c, off=1.0),
+                ln_after_beta=t(c), intermediate_kernel=t(c, 2 * c), intermediate_bias=t(2 * c),
+                output_kernel=t(2 * c, c), output_bias=t(c), fused=True)
+        return build
+
+    def close(what, got, want):
+        err, scale = float((got.float() - want.float()).abs().max()), float(want.abs().max())
+        check(err <= VIT_BF16_MAX["layer"] * scale,
+              f"{tag}: {what}: max err {err:.3g} of {scale:.3g}")
+        return err / scale
+
+    bf = torch.bfloat16
+    before = (dict(fir.LAUNCHES), dict(ftl.LAUNCHES), dict(fa.LAUNCHES))
+    rel = {}
+    card, cpu = twins(block)
+    x = torch.randn((2, 12, 10, 1600), generator=torch.Generator().manual_seed(1))
+    check(not card.fused_route(bf, dev, (12, 10)), f"{tag}: the C=1600 block took a kernel")
+    rel["block C=1600"] = close("block C=1600", card(x.to(dev), compute_dtype=bf).cpu(),
+                                cpu(x, compute_dtype=bf))
+    for c, h in ((1280, 20), (160, 2)):
+        card, cpu = twins(layer(c, h))
+        x = torch.randn((3, 16, c), generator=torch.Generator().manual_seed(c))
+        check(not card.fused_route(bf, dev, 16), f"{tag}: the layer at C={c}, H={h} took a kernel")
+        rel[f"layer C={c} H={h}"] = close(f"layer C={c}", card(x.to(dev), compute_dtype=bf).cpu(),
+                                          cpu(x, compute_dtype=bf))
+        if c == 160:
+            rel["attention heads of 80"] = close(
+                "attention heads of 80",
+                multi_head_attention(card.attention, x.to(dev), compute_dtype=bf).cpu(),
+                multi_head_attention(cpu.attention, x, compute_dtype=bf))
+    torch.cuda.synchronize()
+    # the C = 1280 layer's heads of 64 are flash attention's: its one launch
+    check((fir.LAUNCHES, ftl.LAUNCHES) == before[:2]
+          and fa.LAUNCHES["flash_mha"] == before[2]["flash_mha"] + 1,
+          f"{tag}: a vision kernel launched on a shape past its plans: {fa.LAUNCHES}")
+    log(f"[{tag}] bf16 past the vision plans, unfused on the card, no kernel launch: max err "
+        f"against the CPU / largest value: "
+        + ", ".join(f"{k} {r:.3g}" for k, r in rel.items()))
+
+
 def main() -> int:
     import torch
 
@@ -6114,6 +6547,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.update(long_sequence_phase("30 512 px", dev))
 
+    # ---- 31. the persistent kernel past V = 256 and at U off 32 ------------------------------
+    torch.cuda.empty_cache()
+    kernels.update(wide_gru_phase("31 wide gru", dev))
+
     # ---- 6. kernels ---------------------------------------------------------------
     src = "ggml_experiments_tpu_torch/csrc/"
     qmm_at = "ggml_experiments_tpu/quant/pallas_kernels.py:253"
@@ -6160,6 +6597,12 @@ def main() -> int:
     for name in ("inverted_residual_s2", "inverted_residual_s2_f32"):
         meta[name] = (src + "inverted_residual_s2.cu",
                       "ggml_experiments_tpu/ops/fused_inverted_residual.py:146")
+    # phase 31: the persistent kernel at V = 5000 and 257 and at U = 1000
+    for name in ("fused_gru_decode_v5000", "fused_gru_decode_v5000_unit",
+                 "fused_gru_decode_v5000_f32", "fused_gru_decode_v257", "fused_gru_decode_u1000"):
+        meta[name] = (src + "gru_persistent.cu", dec_at)
+    for name in ("fused_slot_tick_v5000", "fused_slot_tick_v5000_sampled"):
+        meta[name] = (src + "gru_persistent.cu", tick_at)
     # phase 21: the tick on one rank's slot shard, the qmatmul kernel on a column shard
     meta["fused_slot_tick_sharded"] = (src + "gru_persistent.cu", tick_at)
     meta["qmatmul_q8_0_column_shard"] = (src + "qmatmul.cu", qmm_at)

@@ -82,6 +82,18 @@
 // rows through a two-stage cp.async ring; a warp per slot picks the token.
 // Grid sync.
 //
+// Any vocabulary (the TPU wrapper pads V to 128, fused_gru_decode.py:345): the
+// slot-owned head streams in vocabulary tiles of up to 192 rows, the f32
+// unit-owned head in chunks of 256 columns. Where a block's logits outgrow
+// shared memory (past 96 entries slot-owned, past kSmemV unit-owned) they
+// go through Args::lg, a (B, Vp) f32 scratch the wrapper keeps, and past
+// kSmemV a unit-owned block reads its table entries from device memory
+// instead of keeping its V x 24 slice. The slot's warp holds up to kRegV
+// logits in registers and past that walks its row in memory
+// (select_token_wide). U is padded to a multiple of 32 by the wrapper (zero
+// gate columns and biases: the padded units stay 0), as the TPU wrapper
+// pads it (fused_gru_decode.py:352).
+//
 // Values that change during a unit-owned loop (h, prev, pos) are read with
 // __ldcg (or cp.async.cg, which bypasses L1) so that no stale L1 line
 // survives a grid sync. No atomics and no
@@ -123,7 +135,10 @@ struct Args {
   void* hb1;            // (B, U) bf16 copy of h1 (unit-owned)
   void* proj;           // (V, G) input-projection table: bf16 at bf16, else f32
   void* wl;             // bf16: (G, Kp) recurrent plane [group][gate][unit] x K
-  void* dl;             // head: bf16 (Vp, Kp) [vocab][K] at bf16, f32 (U, V) at f32
+  void* dl;             // head: bf16 (Vp, Kp) [vocab][K] at bf16; f32 at f32, chunks of
+                        // (U, f32_vc(V)) vocab columns
+  float* lg;            // (B, Vp) f32 logits scratch where they leave shared memory
+                        // (slot-owned past slot_lg_in_ring, unit-owned past kSmemV), else null
   int V, E, U, P, B, steps, toks_u8, bf16;
   int sampling, top_k;
   int wmode;            // weight route: 0 q8_0, 1 q4_0, 2 dense
@@ -166,8 +181,13 @@ constexpr int kSlotS = 64;          // slots of a slot-owned block: one wgmma M 
 constexpr int kPassRows = 192;      // plane rows of a slot-owned 64-unit pass
 constexpr int kTileElems = kPassRows * kRowK;   // a slot-owned ring tile: 24 KB
 constexpr int kHsBlock = kSlotS * kRowK;        // one 64-K block of a slot-owned h
-constexpr int kMaxV = 256;          // vocab handled by the per-slot warp (8 a lane)
-constexpr int kVR = kMaxV / 32;
+constexpr int kRegV = 256;          // vocab the per-slot warp holds in registers (8 a lane);
+                                    // past it the warp walks the row in memory
+constexpr int kVR = kRegV / 32;
+constexpr int kHeadRows = 192;      // vocab rows of a slot-owned head tile: a 24 KB ring buffer
+constexpr int kSmemV = 128;         // unit-owned: the table slice and the logits stay in shared
+                                    // memory up to this V (two bf16 blocks an SM at U = 1024)
+constexpr int kVC = 256;            // f32 unit-owned: vocab columns of a head chunk past 256
 constexpr int kHeadNT = 9;          // n-tiles of a unit-owned head chunk: 72 columns, the
                                     // reference's V=66 in one pass (12 made the bf16
                                     // unit-owned loop spill at its 128 registers)
@@ -182,6 +202,12 @@ constexpr int kBK = 32;             // K rows of an f32 phase-B chunk (U % 32 ==
 
 __host__ __device__ inline int kp_of(int u) { return (u + kRowK - 1) / kRowK * kRowK; }
 __host__ __device__ inline int vp_of(int v) { return (v + 7) & ~7; }
+__host__ __device__ inline int f32_vc(int v) { return v <= kVC ? v : kVC; }
+__host__ __device__ inline bool unit_small(int v) { return v <= kSmemV; }
+// rows of slot-owned head tile vt (the last may be short)
+__host__ __device__ inline int head_rows(int vp, int vt) {
+  return vp - kHeadRows * vt < kHeadRows ? vp - kHeadRows * vt : kHeadRows;
+}
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 // element offset of 16-byte chunk c of row r in a swizzled bf16 tile whose
@@ -393,6 +419,106 @@ __device__ int select_token(const float* lg, const Args& a, float temp, int j, i
   return warp_argmax(s, V);
 }
 
+// select_token past kRegV: the warp walks the slot's logits row in memory
+// (shared or the device scratch), 32 entries a pass, and writes nothing back:
+// the scaled, masked and noised scores are recomputed from the row at each
+// pass. Extraction needs no copy of the row either: its next group is the
+// maximum of the scores below the last group's value. The same thresholds
+// as select_token: top-k's after k counted entries, top-p's where the mass
+// reaches top_p (the walk stops there, as no later group moves it).
+__device__ int select_token_wide(const float* lg, const Args& a, float temp, int j, int b) {
+  const int lane = threadIdx.x & 31;
+  const int V = a.V;
+  // the first index of the maximum of f(v) over v < V
+  auto argmax = [&](auto f) {
+    float m = -INFINITY;
+    int idx = 1 << 30;
+    for (int v = lane; v < V; v += 32) {
+      const float x = f(v);
+      if (x > m) {
+        m = x;
+        idx = v;
+      }
+    }
+    const float mm = warp_max(m);
+    return warp_min_i(m == mm ? idx : 1 << 30);
+  };
+  if (!(temp > 0.f)) return argmax([&](int v) { return lg[v]; });
+
+  const float inv_t = 1.f / fmaxf(temp, 1e-6f);
+  float thr_k = -INFINITY;  // no top-k mask: every score is kept
+  auto sk = [&](int v) {
+    const float x = lg[v] * inv_t;
+    return x >= thr_k ? x : kNeg;
+  };
+  if (a.top_k > 0) {
+    const int k = min(a.top_k, V);
+    float thr = kNeg, above = INFINITY;
+    int cnt = 0;
+    while (cnt < k) {
+      float lm = -INFINITY;
+      int lc = 0;
+      for (int v = lane; v < V; v += 32) {
+        const float x = lg[v] * inv_t;
+        if (x < above) {
+          if (x > lm) {
+            lm = x;
+            lc = 1;
+          } else if (x == lm) {
+            ++lc;
+          }
+        }
+      }
+      const float m = warp_max(lm);
+      const int c = warp_sum_i(lm == m ? lc : 0);
+      if (c == 0) break;  // nothing left below the last group
+      thr = m;
+      cnt += c;
+      above = m;
+    }
+    thr_k = thr;
+  }
+  float thr_p = -INFINITY;
+  if (a.top_p > 0.f) {
+    float lmx = -INFINITY;
+    for (int v = lane; v < V; v += 32) lmx = fmaxf(lmx, sk(v));
+    const float mx = warp_max(lmx);
+    float tot = 0.f;
+    for (int v = lane; v < V; v += 32) {
+      const float x = sk(v);
+      tot += x > kNeg * 0.5f ? expf(x - mx) : 0.f;
+    }
+    const float target = a.top_p * warp_sum(tot);
+    float thr = kNeg, cum = 0.f, above = INFINITY;
+    while (cum < target) {
+      // the next group below `above`: its value and its mass, in one pass
+      float lm = -INFINITY, ls = 0.f;
+      for (int v = lane; v < V; v += 32) {
+        const float x = sk(v);
+        if (x < above && x >= lm) {
+          const float e = x > kNeg * 0.5f ? expf(x - mx) : 0.f;
+          ls = x > lm ? e : ls + e;
+          lm = x;
+        }
+      }
+      const float m = warp_max(lm);
+      if (!(m > kNeg * 0.5f)) break;  // no live score left
+      thr = m;
+      cum += warp_sum(lm == m ? ls : 0.f);
+      above = m;
+    }
+    thr_p = thr;
+  }
+  const int tile0 = a.key_tile > 0 ? b / a.key_tile * a.key_tile : 0;
+  return argmax([&](int v) {
+    const float x = sk(v);
+    const uint32_t bits = hash_bits(a.seed, (uint32_t)j, (uint32_t)v, (uint32_t)(b - tile0),
+                                    (uint32_t)(a.slot_base + tile0));
+    const float u01 = ((float)(bits >> 9) + 0.5f) * (1.f / 8388608.f);
+    return (x >= thr_p ? x : kNeg) + -logf(-logf(u01));
+  });
+}
+
 // The token slot b feeds at the step its cursor p points to: its prompt
 // while p < plen (token 0 where p lies past the prompt buffer, as the TPU
 // tick's masked reduction finds no row there), else its last prediction.
@@ -403,10 +529,20 @@ __device__ __forceinline__ int fed_token(const Args& a, int b, int p) {
 
 // Slot b's token for step j from its logits row (one warp): the fed token
 // is recorded, and an active slot moves its cursor and keeps its prediction.
+// WV: the vocabulary is past kSmemV. The loop kernels are instantiated for
+// each: a narrow vocabulary's code keeps everything in shared memory and
+// registers, the wide one's takes the device scratch, the table in device
+// memory and, past kRegV, the walk of the row in memory.
+template <bool WV>
 __device__ __forceinline__ void finish_slot(const Args& a, const float* lg, int j, int b, int tk,
                                             int p) {
   const float temp = a.sampling ? a.temp[b] : 0.f;
-  const int pred = select_token(lg, a, temp, j, b);
+  int pred;
+  if constexpr (WV) {
+    pred = a.V <= kRegV ? select_token(lg, a, temp, j, b) : select_token_wide(lg, a, temp, j, b);
+  } else {
+    pred = select_token(lg, a, temp, j, b);
+  }
   if ((threadIdx.x & 31) == 0) {
     const size_t o = (size_t)b * a.steps + j;
     if (a.toks_u8) {
@@ -447,7 +583,8 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(Args a) {
     // slot-owned: tile (pass p, K chunk kc) holds plane rows 192 p .. +191
     // (row 24 g + c of a pass: gate c / 8 of unit 8 (8 p + g) + c % 8) x K
     // 64 kc .. +63, each row's 16-byte chunks swizzled; then the head's
-    // tiles (Vp rows x 64 K) likewise
+    // tiles (vocab tile vt: head_rows(Vp, vt) rows from 192 vt, x 64 K)
+    // likewise, K chunk after K chunk within a vocab tile
     const int NK = Kp / kRowK, NP = (U + 63) / 64;
     for (size_t i = tid; i < (size_t)NP * NK * kTileElems; i += nth) {
       const int tile = (int)(i / kTileElems), e = (int)(i % kTileElems);
@@ -459,8 +596,11 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(Args a) {
       static_cast<bf16*>(a.wl)[i] = __float2bfloat16_rn(v);
     }
     for (size_t i = tid; i < (size_t)Vp * Kp; i += nth) {
-      const int tile = (int)(i / ((size_t)Vp * kRowK)), e = (int)(i % ((size_t)Vp * kRowK));
-      const int n = e / kRowK, pc = (e % kRowK) >> 3, k = 64 * tile + 8 * (pc ^ (n & 7)) + (e & 7);
+      const int vt = (int)(i / ((size_t)kHeadRows * Kp)), rows = head_rows(Vp, vt);
+      const size_t r = i - (size_t)vt * kHeadRows * Kp;
+      const int tile = (int)(r / ((size_t)rows * kRowK)), e = (int)(r % ((size_t)rows * kRowK));
+      const int nl = e / kRowK, pc = (e % kRowK) >> 3, k = 64 * tile + 8 * (pc ^ (nl & 7)) + (e & 7);
+      const int n = kHeadRows * vt + nl;
       const float v = (n < V && k < U) ? wdec(a.dc, a.ds, k, n, V, wmode) : 0.f;
       static_cast<bf16*>(a.dl)[i] = __float2bfloat16_rn(v);
     }
@@ -479,9 +619,12 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(Args a) {
       static_cast<bf16*>(a.dl)[i] = __float2bfloat16_rn(v);
     }
   } else {
-    for (size_t i = tid; i < (size_t)U * V; i += nth) {
-      const int k = (int)(i / V), n = (int)(i % V);
-      static_cast<float*>(a.dl)[i] = wdec(a.dc, a.ds, k, n, V, wmode);
+    // chunk c of f32_vc(V) vocab columns: (U, f32_vc(V)), zeros past V
+    const int VC = f32_vc(V), NVC = (V + VC - 1) / VC;
+    for (size_t i = tid; i < (size_t)NVC * U * VC; i += nth) {
+      const int c = (int)(i / ((size_t)U * VC)), r = (int)(i % ((size_t)U * VC));
+      const int k = r / VC, n = c * VC + r % VC;
+      static_cast<float*>(a.dl)[i] = n < V ? wdec(a.dc, a.ds, k, n, V, wmode) : 0.f;
     }
   }
 }
@@ -530,15 +673,15 @@ __device__ __forceinline__ void wg_wait_all(float (&d)[48]) {
   wg_pin(d);
 }
 // the logits of a slot-owned block live in the ring buffer its last head
-// tile left free when they fit there, else in a region of their own
+// tile left free when they fit there (one vocab tile of at most 96 rows),
+// else in the block's rows of the device scratch Args::lg
 __host__ __device__ inline bool slot_lg_in_ring(int V) {
   return (size_t)kSlotS * vp_of(V) * 4 <= (size_t)kTileElems * 2;
 }
 
-__host__ __device__ inline size_t slot_smem(int NST, int U, int V) {
+__host__ __device__ inline size_t slot_smem(int NST, int U) {
   return 1024 + (size_t)kSlotS * kp_of(U) * 2 + (size_t)NST * kTileElems * 2 +
-         (slot_lg_in_ring(V) ? 0 : (size_t)kSlotS * vp_of(V) * 4) + (size_t)2 * kSlotS * 4 +
-         (size_t)2 * NST * 8;
+         (size_t)2 * kSlotS * 4 + (size_t)2 * NST * 8;
 }
 
 // A slot-owned block is 8 consumer warps (two warpgroups) and one producer
@@ -552,19 +695,19 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
-template <int NST>
+template <int NST, bool WV>
 __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int U = a.U, V = a.V, B = a.B, Kp = kp_of(U), Vp = vp_of(V);
-  const int NK = Kp / kRowK, NP = (U + 63) / 64, NTH = Vp / 8;
-  const int per_step = NP * NK + NK;
+  const int NK = Kp / kRowK, NP = (U + 63) / 64;
+  const int NVT = WV ? (Vp + kHeadRows - 1) / kHeadRows : 1;  // V <= kSmemV: one tile
+  const int per_step = NP * NK + NVT * NK;
   const bool lg_in_ring = slot_lg_in_ring(V);
   // the swizzle is a function of address bits 7-9: buffers start on 1024 bytes
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* hs = reinterpret_cast<bf16*>(base);                 // Kp/64 blocks of (64, 64)
   bf16* ring = hs + (size_t)kSlotS * Kp;                     // NST x (192, 64)
-  float* lg_own = reinterpret_cast<float*>(ring + (size_t)NST * kTileElems);
-  int* tok_s = reinterpret_cast<int*>(lg_own + (lg_in_ring ? 0 : (size_t)kSlotS * Vp));
+  int* tok_s = reinterpret_cast<int*>(ring + (size_t)NST * kTileElems);
   int* act_s = tok_s + kSlotS;
   uint64_t* full = reinterpret_cast<uint64_t*>(act_s + kSlotS);
   uint64_t* empty = full + NST;
@@ -611,15 +754,25 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
 
   if (warp == kWarps) {
     // ---- the producer: tile `it` of the weight stream (per step NP passes
-    // x NK K-chunks of the plane, 192 rows, then NK K-chunks of the head, Vp
-    // rows) into ring buffer it % NST
+    // x NK K-chunks of the plane, 192 rows, then per vocab tile NK K-chunks
+    // of the head, up to 192 rows) into ring buffer it % NST
     if (lane == 0) {
       for (int it = 0; it < a.steps * per_step; ++it) {
         const int i = it % per_step, buf = it % NST;
         if (it >= NST) mbar_wait(empty + buf, (it / NST - 1) & 1);
-        const bf16* src = i < NP * NK ? wt + (size_t)i * kTileElems
-                                      : dt + (size_t)(i - NP * NK) * Vp * kRowK;
-        const int bytes = i < NP * NK ? kTileElems * 2 : Vp * kRowK * 2;
+        const bf16* src;
+        int bytes;
+        if (i < NP * NK) {
+          src = wt + (size_t)i * kTileElems;
+          bytes = kTileElems * 2;
+        } else if constexpr (WV) {
+          const int hi = i - NP * NK, vt = hi / NK, rows = head_rows(Vp, vt);
+          src = dt + (size_t)vt * kHeadRows * Kp + (size_t)(hi % NK) * rows * kRowK;
+          bytes = rows * kRowK * 2;
+        } else {  // one vocabulary tile of Vp rows
+          src = dt + (size_t)(i - NP * NK) * Vp * kRowK;
+          bytes = Vp * kRowK * 2;
+        }
         mbar_expect(full + buf, bytes);
         bulk_load(ring + (size_t)buf * kTileElems, src, bytes, full + buf);
       }
@@ -686,22 +839,23 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
     load_h();
     consumers_sync();
 
-    // ---- logits on mma.sync: h_next (64 x K) . head (K x Vp); warp w takes
-    // n-tiles w + 8 q of every row
-    float* lg = lg_own;
-    {
-      float acc[4][4][4];
+    // ---- logits on mma.sync: h_next (64 x K) . head (K x Vp), a vocab
+    // tile of up to 192 rows at a time; warp w takes n-tiles w + 8 q of it
+    float* lg = lg_in_ring ? nullptr : a.lg + (size_t)s0 * Vp;
+    for (int vt = 0; vt < NVT; ++vt) {
+      const int NTH = head_rows(Vp, vt) / 8;
+      float acc[4][3][4];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][q][0] = acc[mt][q][1] = acc[mt][q][2] = acc[mt][q][3] = 0.f;
+        for (int q = 0; q < 3; ++q) acc[mt][q][0] = acc[mt][q][1] = acc[mt][q][2] = acc[mt][q][3] = 0.f;
       for (int kc = 0; kc < NK; ++kc) {
         const bf16* t = wait_tile(it);
 #pragma unroll
         for (int k32 = 0; k32 < 2; ++k32) {
-          uint32_t bq[4][4];
+          uint32_t bq[3][4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
+          for (int q = 0; q < 3; ++q) {
             const int nt = warp + 8 * q;
             if (nt < NTH)
               ldsm_x4(t + swz(8 * nt + (lane & 7), 4 * k32 + (lane >> 3), kRowK), bq[q][0], bq[q][1],
@@ -716,7 +870,7 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
               ldsm_x4(hs + (size_t)kc * kHsBlock + swz(r, 4 * k32 + 2 * kh + (lane >> 4), kRowK), a0,
                       a1, a2, a3);
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
+              for (int q = 0; q < 3; ++q)
                 if (warp + 8 * q < NTH)
                   mma_bf16(acc[mt][q], a0, a1, a2, a3, bq[q][2 * kh], bq[q][2 * kh + 1]);
             }
@@ -733,15 +887,16 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
         ++it;
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < 3; ++q) {
         const int nt = warp + 8 * q;
         if (nt >= NTH) continue;
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int row = 16 * mt + gq + 8 * (i >> 1), col = 8 * nt + 2 * tq + (i & 1);
-            if (col < V) lg[row * Vp + col] = acc[mt][q][i] + a.dbias[col];
+            const int row = 16 * mt + gq + 8 * (i >> 1);
+            const int col = kHeadRows * vt + 8 * nt + 2 * tq + (i & 1);
+            if (col < V && s0 + row < B) lg[row * Vp + col] = acc[mt][q][i] + a.dbias[col];
           }
       }
     }
@@ -749,7 +904,7 @@ __global__ void __launch_bounds__(kSlotThreads, 1) slot_loop_kernel(Args a) {
     for (int s = warp; s < kSlotS; s += kWarps) {
       const int b = s0 + s;
       if (b >= B) continue;  // warp-uniform
-      finish_slot(a, lg + (size_t)s * Vp, j, b, tok_s[s], __ldcg(a.pos + b));
+      finish_slot<WV>(a, lg + (size_t)s * Vp, j, b, tok_s[s], __ldcg(a.pos + b));
     }
     fence_async_smem();  // the logits' writes come before the next load into their buffer
     consumers_sync();    // lg, tok_s and the cursors are rewritten next step
@@ -772,6 +927,7 @@ struct Geom {
 // h is staged 32 K rows at a time (float4 loads); the next chunk's loads
 // are issued into registers before the current chunk's FMAs, so the L2
 // latency hides behind the arithmetic.
+template <bool WV>
 __device__ void phase_a_f32(const Args& a, const float* u_s, const float* proj_s, float* work,
                             int* tok_s, int* act_s, const float* hc, float* hn, int unit0) {
   constexpr int kQ = kST * kKT / 4 / kThreads;  // float4 per thread per chunk (8)
@@ -839,9 +995,16 @@ __device__ void phase_a_f32(const Args& a, const float* u_s, const float* proj_s
       for (int i = 0; i < kSPT; ++i) {
         const int s = sg * kSPT + i, b = s0 + s;
         if (b >= B) continue;
-        const float* pr = proj_s + (size_t)tok_s[s] * nc + uo * 3;
+        float px, pr, ph;
+        if constexpr (!WV) {
+          const float* p3 = proj_s + (size_t)tok_s[s] * nc + uo * 3;
+          px = p3[0], pr = p3[1], ph = p3[2];
+        } else {  // the table's row of the token in device memory
+          const float* pt = static_cast<const float*>(a.proj) + (size_t)tok_s[s] * 3 * U + unit;
+          px = __ldg(pt), pr = __ldg(pt + U), ph = __ldg(pt + 2 * U);
+        }
         hn[(size_t)b * U + unit] =
-            gru_unit(a.bias, U, unit, pr[0], pr[1], pr[2], acc[i][0], acc[i][1], acc[i][2],
+            gru_unit(a.bias, U, unit, px, pr, ph, acc[i][0], acc[i][1], acc[i][2],
                      __ldcg(hc + (size_t)b * U + unit), act_s[s]);
       }
     }
@@ -853,6 +1016,7 @@ __device__ void phase_a_f32(const Args& a, const float* u_s, const float* proj_s
 // slots of each tile against the block's 24 plane rows kept in shared memory.
 // The slot tiles are dealt to the kUnitSplit blocks of the unit group: this
 // block takes tiles sp, sp + kUnitSplit, ...
+template <bool WV>
 __device__ void phase_a_bf16(const Args& a, const bf16* u_bf, const float* proj_s, bf16* ring,
                              const float* hc, float* hn, const bf16* hbc, bf16* hbn, int unit0,
                              int sp) {
@@ -920,7 +1084,19 @@ __device__ void phase_a_bf16(const Args& a, const bf16* u_bf, const float* proj_
         const int b = st * kUnitSlots + 16 * warp + gq + 8 * hf;
         if (b >= B || u0 >= U) continue;
         const int act = pc[hf] < a.total[b];
-        const float* pr = proj_s + (size_t)tk[hf] * 24 + 6 * tq;
+        float pr[6];  // z, r, n of unit u0, then of u0 + 1
+        if constexpr (!WV) {
+#pragma unroll
+          for (int q = 0; q < 6; ++q) pr[q] = proj_s[(size_t)tk[hf] * 24 + 6 * tq + q];
+        } else {  // the table's row of the token in device memory, two units a load
+          const bf16* pt = static_cast<const bf16*>(a.proj) + (size_t)tk[hf] * 3 * U + u0;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(pt + c * U));
+            pr[c] = bf_lo(w);
+            pr[3 + c] = bf_hi(w);
+          }
+        }
         const float2 hp = __ldcg(reinterpret_cast<const float2*>(hc + (size_t)b * U + u0));
         const float n0 = gru_unit(a.bias, U, u0, pr[0], pr[1], pr[2], acc[0][2 * hf],
                                   acc[1][2 * hf], acc[2][2 * hf], hp.x, act);
@@ -940,17 +1116,19 @@ __device__ void phase_a_bf16(const Args& a, const bf16* u_bf, const float* proj_
 // (bf16 [vocab][K], L2) on tensor cores, K split over the warps in 32-wide
 // steps (a lane's 16-byte loads of A and B feed two mmas with the same
 // permutation of K), the warps' partial sums added in warp order.
+template <bool WV>
 __device__ void phase_b_bf16(const Args& a, float* work, const bf16* hbn, int j) {
   const int U = a.U, V = a.V, B = a.B, Kp = kp_of(U), Vp = vp_of(V), NTH = Vp / 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const bf16* dl = static_cast<const bf16*>(a.dl);
   float* red = work;                                 // (kWarps, 16, 8 kHeadNT)
-  float* lg = work + kWarps * 16 * 8 * kHeadNT;      // (16, Vp)
   const int per = (B + gridDim.x - 1) / gridDim.x;
   const int r0 = blockIdx.x * per, r1 = min(B, r0 + per);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int m0 = r0; m0 < r1; m0 += 16) {
+    // (16, Vp): in shared memory up to kSmemV, else the slots' scratch rows
+    float* lg = WV ? a.lg + (size_t)m0 * Vp : work + kWarps * 16 * 8 * kHeadNT;
     const int ra = m0 + gq, rb = ra + 8;
     for (int n0 = 0; n0 < NTH; n0 += kHeadNT) {
       const int nn = min(kHeadNT, NTH - n0);
@@ -989,7 +1167,7 @@ __device__ void phase_b_bf16(const Args& a, float* work, const bf16* hbn, int j)
         const int row = i / (8 * nn), c = i % (8 * nn), col = 8 * n0 + c;
         float s = 0.f;
         for (int w = 0; w < kWarps; ++w) s += red[(w * 16 + row) * 8 * kHeadNT + c];
-        if (col < V) lg[row * Vp + col] = s + a.dbias[col];
+        if (col < V && (!WV || m0 + row < r1)) lg[row * Vp + col] = s + a.dbias[col];
       }
       __syncthreads();
     }
@@ -997,82 +1175,91 @@ __device__ void phase_b_bf16(const Args& a, float* work, const bf16* hbn, int j)
       const int b = m0 + s;
       if (b >= r1) continue;  // warp-uniform
       const int p = __ldcg(a.pos + b);
-      finish_slot(a, lg + (size_t)s * Vp, j, b, fed_token(a, b, p), p);
+      finish_slot<WV>(a, lg + (size_t)s * Vp, j, b, fed_token(a, b, p), p);
     }
     __syncthreads();  // lg and red are rewritten by the next 16 slots
   }
 }
 
-// f32 logits of the block's slots, 16 at a time: h_next and the head rows
-// arrive kBK K rows at a time through a two-stage cp.async ring (chunk c + 1
-// lands while chunk c is summed); thread t sums slots 4 (t / 64) .. +3 and
-// vocab entries t % 64 + 64 q over K in order (one FMA chain each, as the
-// plain product's terms).
+// f32 logits of the block's slots, 16 at a time, a head chunk of
+// f32_vc(V) vocab columns at a time (one chunk up to V = 256): h_next and
+// the chunk's head rows arrive kBK K rows at a time through a two-stage
+// cp.async ring (chunk c + 1 lands while chunk c is summed); thread t sums
+// slots 4 (t / 64) .. +3 and vocab entries t % 64 + 64 q of the chunk over
+// K in order (one FMA chain each, as the plain product's terms).
+template <bool WV>
 __device__ void phase_b_f32(const Args& a, float* work, const float* hn, int j) {
   const int U = a.U, V = a.V, B = a.B, Vp = vp_of(V), NC = U / kBK;
+  // f32_vc(V): V <= kSmemV is one chunk of V columns
+  const int VC = WV ? f32_vc(V) : V, NVC = WV ? (V + VC - 1) / VC : 1;
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* dl = static_cast<const float*>(a.dl);
   float* hst = work;                           // 2 x (16, kBK)
-  float* dst = work + 2 * 16 * kBK;            // 2 x (kBK, V)
-  float* lg = dst + (size_t)2 * kBK * V;       // (16, Vp)
+  float* dst = work + 2 * 16 * kBK;            // 2 x (kBK, VC)
   const int per = (B + gridDim.x - 1) / gridDim.x;
   const int r0 = blockIdx.x * per, r1 = min(B, r0 + per);
   const int sq = 4 * (tid >> 6), vl = tid & 63;
   for (int m0 = r0; m0 < r1; m0 += 16) {
-    auto load = [&](int c) {
-      float* hb = hst + (c & 1) * 16 * kBK;
-      float* db = dst + (size_t)(c & 1) * kBK * V;
-      const int k0 = c * kBK;
-      for (int i = tid; i < 16 * kBK / 4; i += kThreads) {
-        const int s = i / (kBK / 4), q = i % (kBK / 4), b = m0 + s;
-        const bool ok = b < r1;
-        cp_async16(hb + s * kBK + 4 * q, ok ? hn + (size_t)b * U + k0 + 4 * q : hn, ok ? 16 : 0);
-      }
-      const float* src = dl + (size_t)k0 * V;  // kBK whole rows: contiguous
-      for (int i = tid; i < kBK * V / 4; i += kThreads) cp_async16(db + 4 * i, src + 4 * i, 16);
-      cp_async_commit();
-    };
-    float acc[4][kMaxV / 64];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < kMaxV / 64; ++q) acc[i][q] = 0.f;
-    load(0);
-    for (int c = 0; c < NC; ++c) {
-      // chunk c + 1 goes to the buffer chunk c - 1 left, free since the
-      // barrier that closed the previous pass
-      if (c + 1 < NC) {
-        load(c + 1);
-      } else {
+    // (16, Vp): in shared memory up to kSmemV, else the slots' scratch rows
+    float* lg = WV ? a.lg + (size_t)m0 * Vp : dst + (size_t)2 * kBK * VC;
+    for (int vc = 0; vc < NVC; ++vc) {
+      auto load = [&](int c) {
+        float* hb = hst + (c & 1) * 16 * kBK;
+        float* db = dst + (size_t)(c & 1) * kBK * VC;
+        const int k0 = c * kBK;
+        for (int i = tid; i < 16 * kBK / 4; i += kThreads) {
+          const int s = i / (kBK / 4), q = i % (kBK / 4), b = m0 + s;
+          const bool ok = b < r1;
+          cp_async16(hb + s * kBK + 4 * q, ok ? hn + (size_t)b * U + k0 + 4 * q : hn, ok ? 16 : 0);
+        }
+        // kBK whole rows of the chunk: contiguous
+        const float* src = dl + ((size_t)vc * U + k0) * VC;
+        for (int i = tid; i < kBK * VC / 4; i += kThreads) cp_async16(db + 4 * i, src + 4 * i, 16);
         cp_async_commit();
-      }
-      cp_async_wait<1>();
-      __syncthreads();  // chunk c landed for every thread
-      const float* hb = hst + (c & 1) * 16 * kBK;
-      const float* db = dst + (size_t)(c & 1) * kBK * V;
+      };
+      float acc[4][kVC / 64];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < kVC / 64; ++q) acc[i][q] = 0.f;
+      load(0);
+      for (int c = 0; c < NC; ++c) {
+        // chunk c + 1 goes to the buffer chunk c - 1 left, free since the
+        // barrier that closed the previous pass
+        if (c + 1 < NC) {
+          load(c + 1);
+        } else {
+          cp_async_commit();
+        }
+        cp_async_wait<1>();
+        __syncthreads();  // chunk c landed for every thread
+        const float* hb = hst + (c & 1) * 16 * kBK;
+        const float* db = dst + (size_t)(c & 1) * kBK * VC;
 #pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float hv[4];
+        for (int kk = 0; kk < kBK; ++kk) {
+          float hv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) hv[i] = hb[(sq + i) * kBK + kk];
+          for (int i = 0; i < 4; ++i) hv[i] = hb[(sq + i) * kBK + kk];
 #pragma unroll
-        for (int q = 0; q < kMaxV / 64; ++q) {
-          const int v = vl + 64 * q;
-          if (v < V) {
-            const float d = db[kk * V + v];
+          for (int q = 0; q < kVC / 64; ++q) {
+            const int v = vl + 64 * q;
+            if (v < VC) {
+              const float d = db[kk * VC + v];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][q] = fmaf(hv[i], d, acc[i][q]);
+              for (int i = 0; i < 4; ++i) acc[i][q] = fmaf(hv[i], d, acc[i][q]);
+            }
           }
         }
+        __syncthreads();  // chunk c's buffer is free
       }
-      __syncthreads();  // chunk c's buffer is free
-    }
 #pragma unroll
-    for (int q = 0; q < kMaxV / 64; ++q) {
-      const int v = vl + 64 * q;
-      if (v < V) {
+      for (int q = 0; q < kVC / 64; ++q) {
+        const int v = vl + 64 * q, col = vc * VC + v;
+        if (v < VC && col < V) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) lg[(sq + i) * Vp + v] = acc[i][q] + a.dbias[v];
+          for (int i = 0; i < 4; ++i)
+            if (!WV || m0 + sq + i < r1) lg[(sq + i) * Vp + col] = acc[i][q] + a.dbias[col];
+        }
       }
     }
     __syncthreads();
@@ -1080,21 +1267,24 @@ __device__ void phase_b_f32(const Args& a, float* work, const float* hn, int j) 
       const int b = m0 + s;
       if (b >= r1) continue;  // warp-uniform
       const int p = __ldcg(a.pos + b);
-      finish_slot(a, lg + (size_t)s * Vp, j, b, fed_token(a, b, p), p);
+      finish_slot<WV>(a, lg + (size_t)s * Vp, j, b, fed_token(a, b, p), p);
     }
     __syncthreads();  // lg is rewritten by the next 16 slots
   }
 }
 
+// the work area of phase A (the bf16 h ring; the f32 h stage) and phase B
+// (the bf16 warps' partial sums; the f32 ring of h and head rows), which
+// the logits of 16 slots join up to kSmemV
 __host__ __device__ inline size_t unit_work_bytes(int V, int use_bf16) {
-  const size_t vp = vp_of(V);
+  const size_t lg = unit_small(V) ? (size_t)16 * vp_of(V) : 0;
   if (use_bf16) {
     const size_t ring = (size_t)kUnitStages * kUnitSlots * kRowK * 2;
-    const size_t b = ((size_t)kWarps * 16 * 8 * kHeadNT + 16 * vp) * 4;
+    const size_t b = ((size_t)kWarps * 16 * 8 * kHeadNT + lg) * 4;
     return ring > b ? ring : b;
   }
   const size_t pa = (size_t)kKT * kHS * 4;
-  const size_t b = ((size_t)2 * 16 * kBK + (size_t)2 * kBK * V + 16 * vp) * 4;
+  const size_t b = ((size_t)2 * 16 * kBK + (size_t)2 * kBK * f32_vc(V) + lg) * 4;
   return pa > b ? pa : b;
 }
 
@@ -1102,7 +1292,9 @@ __host__ __device__ inline Geom unit_geom(int U, int V, int use_bf16) {
   Geom g;
   const size_t w = use_bf16 ? (size_t)24 * kp_of(U) * 2 : (size_t)U * 24 * 4;
   g.proj_off = (int)align16(w);
-  g.work_off = (int)align16(g.proj_off + (size_t)V * 24 * 4);
+  // the block's slice of the table (V x 24 f32) up to kSmemV; past it the
+  // updates read the table's rows in device memory
+  g.work_off = (int)align16(g.proj_off + (unit_small(V) ? (size_t)V * 24 * 4 : 0));
   g.tok_off = (int)align16(g.work_off + unit_work_bytes(V, use_bf16));
   return g;
 }
@@ -1114,7 +1306,7 @@ __host__ __device__ inline size_t unit_smem(int U, int V, int use_bf16) {
 // At bf16 kUnitSplit blocks share each unit group (two blocks on a
 // multiprocessor take in h nearly twice as fast as one); at f32 one block
 // owns it
-template <bool BF>
+template <bool BF, bool WV>
 __global__ void __launch_bounds__(kThreads, BF ? kUnitSplit : 1) unit_loop_kernel(Args a, Geom g) {
   constexpr int SP = BF ? kUnitSplit : 1;
   cg::grid_group grid = cg::this_grid();
@@ -1137,7 +1329,7 @@ __global__ void __launch_bounds__(kThreads, BF ? kUnitSplit : 1) unit_loop_kerne
     }
     cp_async_commit();
     const bf16* pt = static_cast<const bf16*>(a.proj);
-    for (int i = tid; i < V * nc; i += kThreads) {
+    for (int i = tid; i < (WV ? 0 : V * nc); i += kThreads) {
       const int v = i / nc, c = i % nc, unit = unit0 + c / 3;
       proj_s[i] = unit < U ? __bfloat162float(pt[(size_t)v * G + (c % 3) * U + unit]) : 0.f;
     }
@@ -1149,7 +1341,7 @@ __global__ void __launch_bounds__(kThreads, BF ? kUnitSplit : 1) unit_loop_kerne
       u_s[i] = unit < U ? wdec(a.uc, a.us, k, (c % 3) * U + unit, G, wmode) : 0.f;
     }
     const float* pt = static_cast<const float*>(a.proj);
-    for (int i = tid; i < V * 24; i += kThreads) {
+    for (int i = tid; i < (WV ? 0 : V * 24); i += kThreads) {
       const int v = i / 24, c = i % 24, unit = unit0 + c / 3;
       proj_s[i] = unit < U ? pt[(size_t)v * G + (c % 3) * U + unit] : 0.f;
     }
@@ -1162,16 +1354,16 @@ __global__ void __launch_bounds__(kThreads, BF ? kUnitSplit : 1) unit_loop_kerne
     if constexpr (BF) {
       const bf16* hbc = static_cast<const bf16*>((j & 1) ? a.hb1 : a.hb0);
       bf16* hbn = static_cast<bf16*>((j & 1) ? a.hb0 : a.hb1);
-      phase_a_bf16(a, reinterpret_cast<const bf16*>(smem_raw), proj_s,
+      phase_a_bf16<WV>(a, reinterpret_cast<const bf16*>(smem_raw), proj_s,
                    reinterpret_cast<bf16*>(work), hc, hn, hbc, hbn, unit0, sp);
       grid.sync();
-      phase_b_bf16(a, reinterpret_cast<float*>(work), hbn, j);
+      phase_b_bf16<WV>(a, reinterpret_cast<float*>(work), hbn, j);
     } else {
       int* tok_s = reinterpret_cast<int*>(smem_raw + g.tok_off);
-      phase_a_f32(a, reinterpret_cast<const float*>(smem_raw), proj_s,
+      phase_a_f32<WV>(a, reinterpret_cast<const float*>(smem_raw), proj_s,
                   reinterpret_cast<float*>(work), tok_s, tok_s + kST, hc, hn, unit0);
       grid.sync();
-      phase_b_f32(a, reinterpret_cast<float*>(work), hn, j);
+      phase_b_f32<WV>(a, reinterpret_cast<float*>(work), hn, j);
     }
     grid.sync();
   }
@@ -1183,23 +1375,23 @@ __global__ void __launch_bounds__(kThreads, BF ? kUnitSplit : 1) unit_loop_kerne
 
 // dynamic shared memory of the loop kernel the Args' plan launches
 size_t plan_smem(const Args& a) {
-  if (a.decomp == 1) return slot_smem(a.stages, a.U, a.V);
+  if (a.decomp == 1) return slot_smem(a.stages, a.U);
   return unit_smem(a.U, a.V, a.bf16);
 }
 
-template <int NST>
+template <int NST, bool WV>
 cudaError_t launch_slot(const Args& a, size_t smem, cudaStream_t stream) {
-  auto k = slot_loop_kernel<NST>;
+  auto k = slot_loop_kernel<NST, WV>;
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  slot_loop_kernel<NST><<<(a.B + kSlotS - 1) / kSlotS, kSlotThreads, smem, stream>>>(a);
+  slot_loop_kernel<NST, WV><<<(a.B + kSlotS - 1) / kSlotS, kSlotThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BF>
+template <bool BF, bool WV>
 cudaError_t launch_unit(const Args& a, size_t smem, int sms, cudaStream_t stream) {
   constexpr int SP = BF ? kUnitSplit : 1;
-  auto k = unit_loop_kernel<BF>;
+  auto k = unit_loop_kernel<BF, WV>;
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
@@ -1219,8 +1411,10 @@ cudaError_t launch_unit(const Args& a, size_t smem, int sms, cudaStream_t stream
 int launch(const Args& a, void* stream_p) {
   if (a.B <= 0 || a.steps <= 0) return 0;
   const bool slot = a.decomp == 1;
-  // whole 32-row blocks of K: U % 32 == 0 (the wrapper checks it too)
-  if (a.V > kMaxV || a.V <= 0 || a.U <= 0 || a.U % 32 || a.E <= 0 ||
+  // whole 32-row blocks of K: U % 32 == 0 (the wrapper pads U to it); the
+  // logits scratch wherever they leave shared memory
+  const bool need_lg = slot ? !slot_lg_in_ring(a.V) : !unit_small(a.V);
+  if (a.V <= 0 || a.U <= 0 || a.U % 32 || a.E <= 0 || (need_lg && a.lg == nullptr) ||
       (a.bf16 && (a.hb0 == nullptr || a.hb1 == nullptr || a.wl == nullptr)) ||
       a.proj == nullptr || a.dl == nullptr || a.wmode < 0 || a.wmode > 2 ||
       a.wc == nullptr || a.uc == nullptr || a.dc == nullptr ||
@@ -1245,16 +1439,23 @@ int launch(const Args& a, void* stream_p) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  const bool wv = !unit_small(a.V);
   if (slot) {
-    switch (a.stages) {
-      case 3: err = launch_slot<3>(a, smem, stream); break;
-      case 4: err = launch_slot<4>(a, smem, stream); break;
+    switch (a.stages * 2 + wv) {
+      case 6: err = launch_slot<3, false>(a, smem, stream); break;
+      case 7: err = launch_slot<3, true>(a, smem, stream); break;
+      case 8: err = launch_slot<4, false>(a, smem, stream); break;
+      case 9: err = launch_slot<4, true>(a, smem, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (a.stages != 0) {
     return (int)cudaErrorInvalidValue;
+  } else if (a.bf16) {
+    err = wv ? launch_unit<true, true>(a, smem, sms, stream)
+             : launch_unit<true, false>(a, smem, sms, stream);
   } else {
-    err = a.bf16 ? launch_unit<true>(a, smem, sms, stream) : launch_unit<false>(a, smem, sms, stream);
+    err = wv ? launch_unit<false, true>(a, smem, sms, stream)
+             : launch_unit<false, false>(a, smem, sms, stream);
   }
   return (int)err;
 }

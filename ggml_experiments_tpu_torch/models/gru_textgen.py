@@ -299,17 +299,20 @@ def dispatch_thresholds(reload: bool = False) -> dict:
 
 
 def decode_route(params: GRUTextGenParams, batch: int, total_steps: int,
-                 temperature: float = 0.0, compute_dtype=torch.bfloat16) -> str:
+                 temperature: float = 0.0, compute_dtype=torch.bfloat16, device=None) -> str:
     """``'fused'`` where :func:`decode` takes the persistent kernel (greedy,
     block-quantized weights, (B, T) at or past :func:`dispatch_thresholds`,
-    and at f32 B at most ``DECODE_FUSED_MAX_B_F32``), else ``'scan'``."""
-    from ggml_experiments_tpu_torch.ops.fused_gru_decode import is_fusable_params
+    at f32 B at most ``DECODE_FUSED_MAX_B_F32``, and on a CUDA device a plan
+    of the kernel that takes the model's (U, V): ``kernel_refusal``), else
+    ``'scan'``. ``device`` defaults to the params'."""
+    from ggml_experiments_tpu_torch.ops.fused_gru_decode import is_fusable_params, kernel_refusal
 
     thr = dispatch_thresholds()
     fused = (temperature == 0.0 and is_fusable_params(params) and batch >= thr["min_b"]
              and total_steps >= thr["min_t"]
              and (resolve_dtype(compute_dtype) == torch.bfloat16
-                  or batch <= DECODE_FUSED_MAX_B_F32))
+                  or batch <= DECODE_FUSED_MAX_B_F32)
+             and not kernel_refusal(params, batch, compute_dtype, device))
     return "fused" if fused else "scan"
 
 

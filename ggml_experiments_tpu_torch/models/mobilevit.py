@@ -130,10 +130,15 @@ class InvertedResidualParams:
         IR_FUSED_MIN_EXPAND (where the kernels win), and at stride 1 bf16, or
         f32 on a CUDA device; at stride 2 (bf16 and f32) a CUDA device, even
         H and W and no residual (what the stride-2 kernel takes; the CPU
-        keeps the JAX model's route, stride 1 only). On a CUDA device the
-        f32 stride-1 and the stride-2 kernels also take only the widths
-        whose tile fits a block's shared memory (``ir_tc_takes``)."""
-        from ggml_experiments_tpu_torch.ops.fused_inverted_residual import ir_tc_takes
+        keeps the JAX model's route, stride 1 only). On a CUDA device each
+        kernel also takes only the widths whose plan or tile fits a block's
+        shared memory: the bf16 stride-1 strip or wide kernel
+        (``ir_bf16_takes``), the f32 stride-1 and the stride-2 kernels
+        (``ir_tc_takes``); the rest runs the unfused chain."""
+        from ggml_experiments_tpu_torch.ops.fused_inverted_residual import (
+            ir_bf16_takes,
+            ir_tc_takes,
+        )
 
         cd = resolve_dtype(compute_dtype)
         on_card = device is not None and torch.device(device).type == "cuda"
@@ -145,9 +150,11 @@ class InvertedResidualParams:
             return (on_card and not self.use_residual
                     and (hw is None or (hw[0] % 2 == 0 and hw[1] % 2 == 0))
                     and ir_tc_takes(2, c, e, cout, cd))
-        return (self.conv_3x3.stride == 1
-                and (cd == torch.bfloat16
-                     or (cd == torch.float32 and on_card and ir_tc_takes(1, c, e, cout, cd))))
+        if self.conv_3x3.stride != 1:
+            return False
+        if cd == torch.bfloat16:
+            return not on_card or ir_bf16_takes(c, e, cout)
+        return cd == torch.float32 and on_card and ir_tc_takes(1, c, e, cout, cd)
 
     def __call__(self, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
         cd = resolve_dtype(compute_dtype)
@@ -194,20 +201,28 @@ class TransformerLayerParams:
         NVIDIA H100 80GB HBM3 at 700.00 W (tools/torch_gate_sweep.py --only
         layer_f32; PERF.md §6) extract_features at f32 ran 2.72 /
         1.24 / 1.23x faster on the f32 route than on the unfused chain with
-        flash attention at B = 8 / 32 / 128."""
+        flash attention at B = 8 / 32 / 128. On a CUDA device bf16 too takes
+        only the widths its kernels take (``bf16_layer_takes``: an even head
+        width up to 64, a row-tile layout that fits a block); the rest runs
+        the unfused chain."""
         cd = resolve_dtype(compute_dtype)
         if not self.fused or (l is not None and l % 8):
             return False
-        if cd == torch.bfloat16:
-            return True
         on_card = device is not None and torch.device(device).type == "cuda"
+        c = self.attention.wq.shape[0]
+        if cd == torch.bfloat16:
+            if not on_card:
+                return True
+            from ggml_experiments_tpu_torch.ops.fused_transformer_layer import bf16_layer_takes
+
+            return bf16_layer_takes(c if cin is None else cin, c, self.attention.num_heads,
+                                    in_proj=cin is not None)
         if cd != torch.float32 or not on_card:
             return False
         if l is None:
             return True
         from ggml_experiments_tpu_torch.ops.fused_transformer_layer import f32_layer_takes
 
-        c = self.attention.wq.shape[0]
         return f32_layer_takes(l, c if cin is None else cin, c, self.attention.num_heads,
                                self.intermediate_kernel.shape[-1], in_proj=cin is not None)
 

@@ -110,6 +110,13 @@ def flash_smem_bytes(l: int, c: int, h: int) -> int:
     return (pairs * 2 * min(lp, WHOLE_ROW_KEYS) * s + 8) * 4
 
 
+def flash_takes(l: int, c: int, h: int, limit: int = 232448) -> bool:
+    """Whether the kernel takes (L, C, H): heads of width up to 64 whose k
+    and v fit ``limit`` bytes of shared memory (what :func:`flash_mha_cuda`
+    checks before a launch)."""
+    return 0 < flash_smem_bytes(l, c, h) <= limit
+
+
 def _check_fits(lib, dev: torch.device, l: int, c: int, h: int) -> None:
     key = (dev.index, l, c, h)
     if key in _FITS:

@@ -37,6 +37,14 @@ q4_0, stay compressed and are decoded in the kernel's setup; any other
 block format, and any mix of formats, is dequantized once per params object
 on the device and arrives as dense f32 planes, which the setup copies and
 rounds to the compute dtype. The step loop is the same for all three.
+
+Every vocabulary and any U, as the JAX kernels take them: U is padded to Ku,
+a multiple of 32 (:class:`FusedWeights`), and the kernel's plans hold any V
+(past what a block's shared memory holds, the logits go through a device
+scratch). Only U past every plan's resources is refused (:func:`check_plan`).
+The routes ask :func:`kernel_refusal` (:func:`loop_refusal` from the shape
+alone) before they send the kernel work, and take the scan path where it
+refuses; the wrapper still raises on such a shape.
 """
 
 from __future__ import annotations
@@ -92,14 +100,17 @@ def _check_quantized(params) -> str:
 
 @dataclasses.dataclass
 class FusedWeights:
-    """Kernel-layout operands, contiguous on the params' device. With
-    Ke = E rounded up to 32 and G = 3U, by ``mode``:
+    """Kernel-layout operands, contiguous on the params' device. U is padded
+    to Ku = U rounded up to 32 (the TPU kernel's padding): the padded units
+    have zero plane columns, zero K rows and zero biases, so they stay
+    exactly 0 (z = r = 1/2, n = tanh 0) and add nothing to any product.
+    With Ke = E rounded up to 32 and G = 3 Ku, by ``mode``:
 
-    * ``q8_0``: codes int8 (Ke, G) / (U, G) / (U, V), scales f32 (K/32, .)
-    * ``q4_0``: codes uint8 nibble-packed (Ke/2, G) / (U/2, G) / (U/2, V),
+    * ``q8_0``: codes int8 (Ke, G) / (Ku, G) / (Ku, V), scales f32 (K/32, .)
+    * ``q4_0``: codes uint8 nibble-packed (Ke/2, G) / (Ku/2, G) / (Ku/2, V),
       scales as above
     * ``dense``: ``wc``/``uc``/``dc`` are the dequantized f32 planes (E, G) /
-      (U, G) / (U, V); there are no scales
+      (Ku, G) / (Ku, V); there are no scales
     """
 
     emb: torch.Tensor    # (V, E) f32
@@ -113,8 +124,33 @@ class FusedWeights:
     dbias: torch.Tensor  # (V,) f32
     v: int
     e: int
-    u: int
+    u: int               # the model's units: the width of h
     mode: str = "q8_0"
+    ku: int = 0          # U padded to 32: the planes' units (0: U)
+
+    def __post_init__(self):
+        self.ku = self.ku or _ku(self.u)
+
+
+def _ku(u: int) -> int:
+    """Units padded to whole 32-row K blocks, as the kernel takes them."""
+    return -(-u // 32) * 32
+
+
+def _gate_cols(t: torch.Tensor, u: int, ku: int, fill=0) -> torch.Tensor:
+    """(..., 3U) gate columns [z | r | n] spread to (..., 3Ku), each gate's
+    block padded with ``fill``: column c U + i goes to c Ku + i."""
+    if ku == u:
+        return t.contiguous()
+    out = torch.full((*t.shape[:-1], 3 * ku), fill, dtype=t.dtype, device=t.device)
+    for c in range(3):
+        out[..., c * ku:c * ku + u] = t[..., c * u:(c + 1) * u]
+    return out
+
+
+def _k_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """t with its rows padded with zeros to ``rows``."""
+    return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0])) if t.shape[0] < rows else t
 
 
 def _prep_weights(params) -> FusedWeights:
@@ -127,25 +163,33 @@ def _prep_weights(params) -> FusedWeights:
     cell = params.cell
     v, e = params.embeddings.shape
     u = cell.recurrent_kernel.shape[0]
+    ku = _ku(u)
     g = 3 * u
     dev = params.device
+    # a q4_0 byte of two zero codes (nibbles 8); padded scales are 0 too
+    zero_code = 0x88 if mode == "q4_0" else 0
 
-    def cols(qt: QTensor, n: int):
+    def cols(qt: QTensor, n: int, gates: bool, krows: int):
+        # the block formats' planes come K-padded to 32 (Ke, Ku) already
         if mode == "dense":
-            return dequantize(qt).contiguous(), None
-        return qt.codes[:, :n].contiguous(), qt.scales[:, :n].contiguous()
+            w = dequantize(qt).float()
+            return _k_rows(_gate_cols(w, u, ku) if gates else w, krows).contiguous(), None
+        codes, scales = qt.codes[:, :n], qt.scales[:, :n]
+        if gates:
+            codes, scales = _gate_cols(codes, u, ku, zero_code), _gate_cols(scales, u, ku)
+        return codes.contiguous(), scales.contiguous()
 
-    wc, ws = cols(cell.kernel, g)
-    uc, us = cols(cell.recurrent_kernel, g)
-    dc, ds = cols(params.dense_kernel, v)
-    bias = torch.zeros((2, g), dtype=torch.float32, device=dev)
+    wc, ws = cols(cell.kernel, g, True, e)
+    uc, us = cols(cell.recurrent_kernel, g, True, ku)
+    dc, ds = cols(params.dense_kernel, v, False, ku)
+    bias = torch.zeros((2, 3 * ku), dtype=torch.float32, device=dev)
     if cell.bias is not None:
-        bias.copy_(cell.bias)
+        bias.copy_(_gate_cols(cell.bias.float(), u, ku))
     dbias = torch.zeros((v,), dtype=torch.float32, device=dev)
     if params.dense_bias is not None:
         dbias.copy_(params.dense_bias)
     out = FusedWeights(params.embeddings.float().contiguous(), wc, ws, uc, us, bias,
-                       dc, ds, dbias, v, e, u, mode)
+                       dc, ds, dbias, v, e, u, mode, ku)
     params.cache["fused_weights"] = out
     return out
 
@@ -172,8 +216,8 @@ def _planes(w: FusedWeights, cd: torch.dtype):
         return _rnd(dequantize_padded(qt)[:rows], cd)
 
     wq = plane(w.wc, w.ws, w.e)
-    uq = plane(w.uc, w.us, w.u)
-    dq = plane(w.dc, w.ds, w.u)
+    uq = plane(w.uc, w.us, w.ku)
+    dq = plane(w.dc, w.ds, w.ku)
     proj = _rnd(torch.matmul(_rnd(w.emb, cd), wq), cd)
     return proj, uq, dq
 
@@ -232,7 +276,9 @@ def _filter_topp(s: torch.Tensor, p: float):
     boundary are kept as a group (the TPU tick's `_filter_topp_vb`).
     Returns (masked scores, (B,) smallest relative distance of the running
     mass from the target over the extraction: the score change, in log
-    units, that would move the boundary)."""
+    units, that would move the boundary). The extraction stops once every
+    row's mass has reached the target (or it has no live score left): no
+    later group moves the threshold, and the margin only grows."""
     b, v = s.shape
     mx = s.max(dim=-1, keepdim=True).values
     live = s > NEG * 0.5
@@ -244,11 +290,14 @@ def _filter_topp(s: torch.Tensor, p: float):
     cur = s.clone()
     for _ in range(v):
         m = cur.max(dim=-1).values
-        tied = cur == m[:, None]
-        grp = torch.where(tied, e, torch.zeros_like(e)).sum(dim=-1)
-        thr = torch.where((cum < target) & (m > NEG * 0.5), m, thr)
         near = torch.where(m > NEG * 0.5, torch.minimum(near, (cum - target).abs() / target),
                            near)
+        open_ = (cum < target) & (m > NEG * 0.5)
+        if not bool(open_.any()):
+            break
+        tied = cur == m[:, None]
+        grp = torch.where(tied, e, torch.zeros_like(e)).sum(dim=-1)
+        thr = torch.where(open_, m, thr)
         cum = cum + grp
         cur = cur.masked_fill(tied, NEG)
     return torch.where(s >= thr[:, None], s, torch.full_like(s, NEG)), near
@@ -298,14 +347,17 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
     and, with ``margins=True``, the (B, steps) margin of each step's choice
     (see ``_select_reference``): where it is tiny, two implementations that
     sum in other orders may rightly choose apart. Sampled slots draw the
-    noise of :func:`block_keyed_bits` for ``slot_base`` / ``key_tile``."""
+    noise of :func:`block_keyed_bits` for ``slot_base`` / ``key_tile``. h
+    runs at the planes' Ku units, its padded units exactly 0, and comes back
+    at U."""
     cd = resolve_dtype(compute_dtype)
     proj, uq, dq = _planes(w, cd)
     b0, b1 = w.bias[0], w.bias[1]
-    u = w.u
+    u = w.ku
     prompt = prompt.long()
     plen, total = plen.long(), total.long()
-    prev, pos, h = prev.long().clone(), pos.long().clone(), h.float().clone()
+    prev, pos = prev.long().clone(), pos.long().clone()
+    h = torch.nn.functional.pad(h.float(), (0, w.ku - w.u))
     p = prompt.shape[1]
     toks = torch.empty((prompt.shape[0], steps), dtype=torch.int32, device=h.device)
     gaps = torch.empty((prompt.shape[0], steps), dtype=torch.float32, device=h.device)
@@ -329,7 +381,7 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
             gaps[:, j] = margin
         prev = torch.where(active, pred, prev)
         pos = pos + active.long()
-    out = (toks, h, prev.int(), pos.int())
+    out = (toks, h[:, :w.u] if w.ku != w.u else h, prev.int(), pos.int())
     return out + (gaps,) if margins else out
 
 
@@ -338,6 +390,8 @@ def gru_loop_reference(w: FusedWeights, prompt, plen, total, prev, pos, h, steps
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448             # dynamic shared memory a block may opt in to on an H100
+SMEM_PER_SM = 233472            # shared memory of an H100 multiprocessor
+SMEM_RESERVED = 1024            # of it, what the hardware keeps for each resident block
 SLOT_SLOTS = 64                 # slots a slot-owned block owns: one wgmma M tile
 SLOT_STAGES = (3, 4)            # ring depths of the slot-owned loop: the deepest that fits
 UNIT_STAGES = 3                 # the bf16 unit-owned h ring, which fits two blocks an SM
@@ -349,6 +403,12 @@ UNIT_SPLIT = 2                  # bf16 unit-owned blocks a unit group's slot til
 # (tools/torch_kernel_bench.py --sweep, PERF.md)
 SLOT_MIN_BATCH = 3300
 _RING_K, _PASS_ROWS, _UNIT_SLOTS, _HEAD_NT, _F32_CHUNK = 64, 192, 128, 9, 32
+# vocabularies up to here keep a unit-owned block's slice of the input
+# projection table (V x 24 f32) and its logits (16 x V f32) in shared memory;
+# past it both live in device memory, so that two bf16 blocks still share a
+# multiprocessor at U = 1024 (csrc kSmemV)
+UNIT_SMEM_VOCAB = 128
+_F32_VCHUNK = 256               # vocab columns of an f32 head chunk past 256 (csrc kVC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,25 +432,50 @@ def _vp(v: int) -> int:
     return -(-v // 8) * 8
 
 
+def slot_logits_in_ring(v: int) -> bool:
+    """Whether a slot-owned block's logits (64 x Vp f32) fit the ring buffer
+    its last head tile leaves free; else they go through the device scratch
+    of B x Vp f32 (:func:`logits_scratch_rows`)."""
+    return SLOT_SLOTS * _vp(v) * 4 <= _PASS_ROWS * _RING_K * 2
+
+
+def logits_scratch_rows(plan: DecodePlan, b: int, v: int) -> int:
+    """Rows of the f32 (rows, Vp) device scratch the loop's logits go through
+    (0: none, they stay in shared memory): B where a slot-owned block's
+    logits outgrow its ring buffer or a unit-owned vocabulary is past
+    UNIT_SMEM_VOCAB."""
+    wide = not slot_logits_in_ring(v) if plan.decomp == "slot" else v > UNIT_SMEM_VOCAB
+    return b if wide else 0
+
+
+def f32_head_chunk(v: int) -> int:
+    """Vocab columns of an f32 unit-owned head chunk: the head is laid out
+    as ceil(V / chunk) chunks of (Ku, chunk) f32, one chunk (V itself) up to
+    V = 256."""
+    return v if v <= _F32_VCHUNK else _F32_VCHUNK
+
+
 def plan_smem_bytes(plan: DecodePlan, u: int, v: int, bf16: bool) -> int:
-    """Dynamic shared memory of the loop kernel under ``plan`` (``plan_smem``
-    of csrc/gru_persistent.cu, which the wrapper checks against this)."""
+    """Dynamic shared memory of the loop kernel under ``plan`` at U units
+    (padded to 32 as the kernel takes them) and V (``plan_smem`` of
+    csrc/gru_persistent.cu, which the wrapper checks against this)."""
     def a16(x):
         return -(-x // 16) * 16
 
+    ku = _ku(u)
     if plan.decomp == "slot":
         s, stage = SLOT_SLOTS, _PASS_ROWS * _RING_K * 2
-        lg = s * _vp(v) * 4
-        return (1024 + s * _kp(u) * 2 + plan.stages * stage + (0 if lg <= stage else lg)
-                + 2 * s * 4 + 2 * plan.stages * 8)
+        return 1024 + s * _kp(ku) * 2 + plan.stages * stage + 2 * s * 4 + 2 * plan.stages * 8
+    small = v <= UNIT_SMEM_VOCAB
+    lg = 16 * _vp(v) if small else 0
     if bf16:
-        work = max(UNIT_STAGES * _UNIT_SLOTS * _RING_K * 2,
-                   (8 * 16 * 8 * _HEAD_NT + 16 * _vp(v)) * 4)
-        w = 24 * _kp(u) * 2
+        work = max(UNIT_STAGES * _UNIT_SLOTS * _RING_K * 2, (8 * 16 * 8 * _HEAD_NT + lg) * 4)
+        w = 24 * _kp(ku) * 2
     else:
-        work = max(32 * 260 * 4, (2 * 16 * _F32_CHUNK + 2 * _F32_CHUNK * v + 16 * _vp(v)) * 4)
-        w = u * 24 * 4
-    tok = a16(a16(a16(w) + v * 24 * 4) + work)
+        work = max(32 * 260 * 4, (2 * 16 * _F32_CHUNK + 2 * _F32_CHUNK * f32_head_chunk(v)
+                                  + lg) * 4)
+        w = ku * 24 * 4
+    tok = a16(a16(a16(w) + (v * 24 * 4 if small else 0)) + work)
     return tok + (0 if bf16 else 2 * 256 * 4)
 
 
@@ -398,42 +483,99 @@ def plan_grid(plan: DecodePlan, b: int, u: int, bf16: bool) -> int:
     """Blocks of the loop kernel's launch under ``plan``."""
     if plan.decomp == "slot":
         return -(-b // SLOT_SLOTS)
-    return (UNIT_SPLIT if bf16 else 1) * u // 8
+    return (UNIT_SPLIT if bf16 else 1) * _ku(u) // 8
 
 
-def check_plan(plan: DecodePlan, u: int, v: int, bf16: bool, sms: int = 132,
-               smem_limit: int = SMEM_LIMIT) -> None:
-    """Raise ValueError unless the kernel can launch ``plan`` at (U, V)."""
+def plan_refusal(plan: DecodePlan, u: int, v: int, bf16: bool, sms: int = 132,
+                 smem_limit: int = SMEM_LIMIT, smem_per_sm: int = SMEM_PER_SM) -> str:
+    """Why the kernel cannot launch ``plan`` at (U, V) on a card of ``sms``
+    multiprocessors ('' where it can): a plan it has no code for, more unit
+    groups than multiprocessors (a cooperative grid is resident at once),
+    a block's shared memory past the device's, or two bf16 unit-owned
+    blocks that do not fit one multiprocessor together."""
+    ku = _ku(u)
     if plan.decomp == "slot":
         ok = bf16 and plan.stages in SLOT_STAGES
     elif plan.decomp == "unit":
-        ok = plan.stages == 0 and u // 8 <= sms
+        ok = plan.stages == 0 and ku // 8 <= sms
     else:
         ok = False
     if not ok:
-        raise ValueError(f"the persistent kernel has no plan {plan} at U={u}, V={v}, "
-                         f"{'bf16' if bf16 else 'f32'} on {sms} multiprocessors (slot-owned: "
-                         f"bf16, stages {SLOT_STAGES}; unit-owned: stages 0, U / 8 <= "
-                         f"multiprocessors)")
+        return (f"the persistent kernel has no plan {plan} at U={u}, V={v}, "
+                f"{'bf16' if bf16 else 'f32'} on {sms} multiprocessors (slot-owned: bf16, "
+                f"stages {SLOT_STAGES}; unit-owned: stages 0, U / 8 <= multiprocessors)")
     need = plan_smem_bytes(plan, u, v, bf16)
     if need > smem_limit:
-        raise ValueError(f"plan {plan} needs {need} bytes of shared memory a block at U={u}, "
-                         f"V={v}; the device allows {smem_limit}")
+        return (f"plan {plan} needs {need} bytes of shared memory a block at U={u}, V={v}; "
+                f"the device allows {smem_limit}")
+    if plan.decomp == "unit" and bf16 and UNIT_SPLIT * (need + SMEM_RESERVED) > smem_per_sm:
+        return (f"plan {plan} needs {need} bytes of shared memory a block at U={u}, V={v}; "
+                f"{UNIT_SPLIT} such blocks do not fit a multiprocessor's {smem_per_sm}")
+    return ""
+
+
+def check_plan(plan: DecodePlan, u: int, v: int, bf16: bool, sms: int = 132,
+               smem_limit: int = SMEM_LIMIT, smem_per_sm: int = SMEM_PER_SM) -> None:
+    """Raise ValueError unless the kernel can launch ``plan`` at (U, V)."""
+    why = plan_refusal(plan, u, v, bf16, sms, smem_limit, smem_per_sm)
+    if why:
+        raise ValueError(why)
 
 
 def decode_plan(b: int, u: int, v: int, compute_dtype=torch.bfloat16, sms: int = 132,
-                smem_limit: int = SMEM_LIMIT) -> DecodePlan:
+                smem_limit: int = SMEM_LIMIT, smem_per_sm: int = SMEM_PER_SM) -> DecodePlan:
     """The plan for B slots at (U, V) on a card with ``sms`` multiprocessors.
     bf16 batches of at least SLOT_MIN_BATCH run slot-owned (128 blocks at
     B=8192) with the deepest ring that fits shared memory; smaller bf16
-    batches, those whose logits fit no slot-owned block, and f32 (held
-    token-exact on CUDA-core FMAs) run unit-owned."""
-    if resolve_dtype(compute_dtype) == torch.bfloat16 and b >= SLOT_MIN_BATCH:
-        for stages in sorted(SLOT_STAGES, reverse=True):
-            plan = DecodePlan("slot", stages)
-            if plan_smem_bytes(plan, u, v, True) <= smem_limit:
-                return plan
-    return DecodePlan("unit")
+    batches and f32 (held token-exact on CUDA-core FMAs) run unit-owned.
+    Where the preferred cut does not fit, the first that does; where none
+    does, the preferred one (which :func:`check_plan` refuses)."""
+    bf16 = resolve_dtype(compute_dtype) == torch.bfloat16
+    slot = [DecodePlan("slot", st) for st in sorted(SLOT_STAGES, reverse=True)] if bf16 else []
+    order = (slot + [DecodePlan("unit")] if bf16 and b >= SLOT_MIN_BATCH
+             else [DecodePlan("unit")] + slot)
+    for plan in order:
+        if not plan_refusal(plan, u, v, bf16, sms, smem_limit, smem_per_sm):
+            return plan
+    return order[0]
+
+
+def loop_refusal(b: int, u: int, v: int, compute_dtype=torch.bfloat16, sms: int = 132,
+                 smem_limit: int = SMEM_LIMIT, smem_per_sm: int = SMEM_PER_SM) -> str:
+    """Why the persistent kernel takes no launch of B slots at (U, V) on this
+    card ('' where :func:`decode_plan` gives a plan it launches), from the
+    shape alone: what a route asks before it sends the kernel work."""
+    bf16 = resolve_dtype(compute_dtype) == torch.bfloat16
+    return plan_refusal(decode_plan(b, u, v, compute_dtype, sms, smem_limit, smem_per_sm),
+                        u, v, bf16, sms, smem_limit, smem_per_sm)
+
+
+def loop_takes(b: int, u: int, v: int, compute_dtype=torch.bfloat16, sms: int = 132,
+               smem_limit: int = SMEM_LIMIT, smem_per_sm: int = SMEM_PER_SM) -> bool:
+    """Whether the persistent kernel launches B slots at (U, V) (:func:`loop_refusal`)."""
+    return not loop_refusal(b, u, v, compute_dtype, sms, smem_limit, smem_per_sm)
+
+
+def device_limits(device) -> tuple:
+    """(multiprocessors, shared memory a block may opt in to, shared memory
+    of a multiprocessor) of a CUDA device."""
+    props = torch.cuda.get_device_properties(torch.device(device))
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT),
+            getattr(props, "shared_memory_per_multiprocessor", SMEM_PER_SM))
+
+
+def kernel_refusal(params, b: int, compute_dtype, device=None) -> str:
+    """Why the persistent kernel cannot run these params at B slots on
+    ``device`` (default the params'): '' on the CPU, whose plain version
+    takes any shape, and on a CUDA device whose plans take the model's
+    (U, V) (:func:`loop_refusal`)."""
+    dev = torch.device(device) if device is not None else params.device
+    if dev.type != "cuda":
+        return ""
+    v = params.embeddings.shape[0]
+    u = params.cell.recurrent_kernel.shape[0]
+    return loop_refusal(b, u, v, compute_dtype, *device_limits(dev))
 
 
 def plan_slot_tiles(plan: DecodePlan, b: int, u: int, bf16: bool):
@@ -453,7 +595,7 @@ class _Args(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in (
             "emb", "wc", "ws", "uc", "us", "bias", "dc", "ds", "dbias", "prompt",
             "plen", "total", "prev", "pos", "h0", "h1", "toks", "temp", "hb0", "hb1",
-            "proj", "wl", "dl")]
+            "proj", "wl", "dl", "lg")]
         + [(n, ctypes.c_int) for n in (
             "V", "E", "U", "P", "B", "steps", "toks_u8", "bf16", "sampling", "top_k",
             "wmode", "decomp", "stages", "slot_base", "key_tile")]
@@ -471,23 +613,38 @@ def _check_layout(entry: str, w: FusedWeights) -> None:
     dev = w.emb.device
     if w.mode not in WEIGHT_MODES:
         raise ValueError(f"{entry}: unknown weight mode {w.mode!r}")
-    g = 3 * w.u
+    g = 3 * w.ku
     ke = -(-w.e // 32) * 32
     kdiv = 2 if w.mode == "q4_0" else 1
     cdt = {"q8_0": torch.int8, "q4_0": torch.uint8, "dense": torch.float32}[w.mode]
+    if w.ku % 32 or not 0 < w.u <= w.ku < w.u + 32:
+        raise ValueError(f"{entry}: units U={w.u} must be padded to whole 32-row blocks, "
+                         f"got Ku={w.ku}")
     for name, t, rows, ncols in (("wc", w.wc, w.e if w.mode == "dense" else ke // kdiv, g),
-                                 ("uc", w.uc, w.u // kdiv, g), ("dc", w.dc, w.u // kdiv, w.v)):
+                                 ("uc", w.uc, w.ku // kdiv, g), ("dc", w.dc, w.ku // kdiv, w.v)):
         if (t.dtype != cdt or tuple(t.shape) != (rows, ncols) or not t.is_contiguous()
                 or t.device != dev):
             raise ValueError(f"{entry}: {w.mode} route wants a contiguous {cdt} {name} of "
                              f"({rows}, {ncols}), got {t.dtype}{tuple(t.shape)}")
     if w.mode != "dense":
-        for name, t, rows, ncols in (("ws", w.ws, ke // 32, g), ("us", w.us, w.u // 32, g),
-                                     ("ds", w.ds, w.u // 32, w.v)):
+        for name, t, rows, ncols in (("ws", w.ws, ke // 32, g), ("us", w.us, w.ku // 32, g),
+                                     ("ds", w.ds, w.ku // 32, w.v)):
             if (t is None or t.dtype != torch.float32 or tuple(t.shape) != (rows, ncols)
                     or not t.is_contiguous() or t.device != dev):
                 raise ValueError(f"{entry}: {w.mode} route wants contiguous f32 {name} of "
                                  f"({rows}, {ncols})")
+
+
+_SCRATCH = {}   # device -> the f32 logits scratch, grown as launches ask for more
+
+
+def _logits_scratch(dev, n: int) -> torch.Tensor:
+    """At least n f32 of device memory for the loop's logits, kept per device
+    and reused across calls (launches on one stream run in order)."""
+    buf = _SCRATCH.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[dev] = torch.empty((n,), dtype=torch.float32, device=dev)
+    return buf
 
 
 def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h,
@@ -499,7 +656,8 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
     or ``fused_slot_tick``) under ``config`` (default :func:`decode_plan`;
     a DecodePlan or its fields as a tuple). Returns (toks, h, prev, pos) as
     the plain version does; the inputs are not modified. ``slot_base`` /
-    ``key_tile`` key the sampling noise as :func:`block_keyed_bits` does."""
+    ``key_tile`` key the sampling noise as :func:`block_keyed_bits` does.
+    h goes in and comes out at U columns; the kernel runs Ku."""
     from ggml_experiments_tpu_torch import _build
 
     cd = resolve_dtype(compute_dtype)
@@ -510,38 +668,43 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
     if h.shape != (b, w.u) or prompt.dim() != 2 or prompt.shape[0] != b:
         raise ValueError(f"{entry}: h {tuple(h.shape)} / prompt "
                          f"{tuple(prompt.shape)} do not fit U={w.u}")
-    if w.v > 256 or w.u % 32:
-        raise ValueError(f"{entry}: the kernel takes a vocab of at most 256 and units in "
-                         f"whole 32-row blocks, got V={w.v}, U={w.u}")
+    if toks_u8 and w.v > 256:
+        raise ValueError(f"{entry}: uint8 tokens hold a vocab of at most 256, got V={w.v}")
     _check_layout(entry, w)
     bf16 = cd == torch.bfloat16
-    props = torch.cuda.get_device_properties(dev)
-    sms = props.multi_processor_count
-    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
+    sms, limit, per_sm = device_limits(dev)
     if config is None:
-        plan = decode_plan(b, w.u, w.v, cd, sms, limit)
+        plan = decode_plan(b, w.u, w.v, cd, sms, limit, per_sm)
     else:
         plan = config if isinstance(config, DecodePlan) else DecodePlan(*config)
-    check_plan(plan, w.u, w.v, bf16, sms, limit)
+    check_plan(plan, w.u, w.v, bf16, sms, limit, per_sm)
+    ku = w.ku
     prompt = _i32(prompt, dev)
     plen, total = _i32(plen, dev), _i32(total, dev)
     prev, pos = _i32(prev, dev).clone(), _i32(pos, dev).clone()
-    h0 = h.float().contiguous().clone()
+    if ku == w.u:
+        h0 = h.float().contiguous().clone()
+    else:   # the padded units start (and stay) at 0
+        h0 = torch.zeros((b, ku), dtype=torch.float32, device=dev)
+        h0[:, :w.u] = h
     h1 = torch.empty_like(h0)
     toks = torch.empty((b, steps), dtype=torch.uint8 if toks_u8 else torch.int32, device=dev)
     temp_t = None if temp is None else temp.float().contiguous()
     # the setup launch fills these once per call: the input-projection table,
     # and at bf16 the recurrent plane and the head in the loop's layouts
-    proj = torch.empty((w.v, 3 * w.u), dtype=torch.bfloat16 if bf16 else torch.float32,
+    proj = torch.empty((w.v, 3 * ku), dtype=torch.bfloat16 if bf16 else torch.float32,
                        device=dev)
     if bf16:
         # slot-owned: whole 64-unit passes of 192 rows, tile by tile
-        rows = _PASS_ROWS * -(-w.u // 64) if plan.decomp == "slot" else 3 * w.u
-        wl = torch.empty((rows, _kp(w.u)), dtype=torch.bfloat16, device=dev)
-        dl = torch.empty((_vp(w.v), _kp(w.u)), dtype=torch.bfloat16, device=dev)
+        rows = _PASS_ROWS * -(-ku // 64) if plan.decomp == "slot" else 3 * ku
+        wl = torch.empty((rows, _kp(ku)), dtype=torch.bfloat16, device=dev)
+        dl = torch.empty((_vp(w.v), _kp(ku)), dtype=torch.bfloat16, device=dev)
     else:
         wl = None
-        dl = torch.empty((w.u, w.v), dtype=torch.float32, device=dev)
+        vc = f32_head_chunk(w.v)
+        dl = torch.empty((-(-w.v // vc), ku, vc), dtype=torch.float32, device=dev)
+    lg_rows = logits_scratch_rows(plan, b, w.v)
+    lg = _logits_scratch(dev, lg_rows * _vp(w.v)) if lg_rows else None
     # bf16: the kernel's tensor-core products read a bf16 copy of h beside it
     hb0 = h0.to(torch.bfloat16) if bf16 else None
     hb1 = torch.empty_like(hb0) if bf16 else None
@@ -554,8 +717,8 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
         w.bias.data_ptr(), w.dc.data_ptr(), ptr(w.ds), w.dbias.data_ptr(),
         prompt.data_ptr(), plen.data_ptr(), total.data_ptr(), prev.data_ptr(), pos.data_ptr(),
         h0.data_ptr(), h1.data_ptr(), toks.data_ptr(), ptr(temp_t), ptr(hb0), ptr(hb1),
-        proj.data_ptr(), ptr(wl), dl.data_ptr(),
-        w.v, w.e, w.u, prompt.shape[1], b, steps, int(toks_u8), int(bf16),
+        proj.data_ptr(), ptr(wl), dl.data_ptr(), ptr(lg),
+        w.v, w.e, ku, prompt.shape[1], b, steps, int(toks_u8), int(bf16),
         int(temp_t is not None), int(top_k), WEIGHT_MODES[w.mode],
         int(plan.decomp == "slot"), plan.stages, int(slot_base), int(key_tile), float(top_p),
         seed & M32,
@@ -578,7 +741,7 @@ def gru_loop_cuda(entry: str, w: FusedWeights, prompt, plen, total, prev, pos, h
     LAST_PLAN[entry] = plan
     # a slot-owned loop updates h0 in place; a unit-owned one alternates
     out = h0 if plan.decomp == "slot" or steps % 2 == 0 else h1
-    return toks, out, prev, pos
+    return toks, (out if ku == w.u else out[:, :w.u].contiguous()), prev, pos
 
 
 def _check_tokens(ids: torch.Tensor, v: int) -> None:
@@ -757,6 +920,7 @@ def fused_slot_tick(params, state, inner_steps: int, *, compute_dtype=torch.bflo
 
 
 __all__ = ["DecodePlan", "FUSED_TICK_MAX_UNTILED", "LAST_PLAN", "LAUNCHES", "TickShard",
-           "block_keyed_bits", "check_plan", "decode_plan", "fused_gru_decode",
+           "block_keyed_bits", "check_plan", "decode_plan", "device_limits", "fused_gru_decode",
            "fused_slot_tick", "fused_slot_tick_shard", "gru_loop_cuda", "gru_loop_reference",
-           "is_fusable_params", "plan_grid", "plan_slot_tiles", "plan_smem_bytes", "tick_shard"]
+           "is_fusable_params", "kernel_refusal", "loop_refusal", "loop_takes", "plan_grid",
+           "plan_refusal", "plan_slot_tiles", "plan_smem_bytes", "tick_shard"]

@@ -562,6 +562,15 @@ def ir_tc_takes(stride: int, c: int, e: int, cout: int, compute_dtype) -> bool:
     return 0 < need <= SMEM_LIMIT
 
 
+def ir_bf16_takes(c: int, e: int, cout: int) -> bool:
+    """Whether a bf16 stride-1 kernel takes a block of these widths: the
+    strip kernel (a plan of :func:`ir_plans`) or, past it, the wide kernel
+    (a tile of :func:`ir_wide_plan`, C up to 1536; it pads E to 64, so an
+    odd E too). The block's route (``models/mobilevit.py``) turns the rest
+    away before any launch."""
+    return bool(ir_plans(c, e, cout)) or ir_wide_plan(c, cout) is not None
+
+
 _S2_SMEM_AGREED = set()   # (dtype, C, E, Cout) whose reckoning the kernel confirmed
 
 

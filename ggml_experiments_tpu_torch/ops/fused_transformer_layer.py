@@ -965,6 +965,18 @@ def f32_layer_plan(t: int, l: int, cin: int, c: int, h: int, f: int, *, in_proj:
     return plan[0], wb, plan[1]
 
 
+def bf16_layer_takes(cin: int, c: int, h: int, *, in_proj: bool,
+                     limit: Optional[int] = None) -> bool:
+    """Whether the bf16 kernels take a layer of these widths (what
+    :func:`_check` and :func:`row_tile_layout` ask before a launch): C heads
+    of an even width up to 64, and a layout of the row-tile kernels that
+    fits one block at one consumer warpgroup (C up to ~1280; Cin beside C
+    with the input projection). Any L that is a multiple of 8."""
+    if h <= 0 or c % h or (c // h) % 2 or c // h > 64:
+        return False
+    return row_tile_layout(c, cin if in_proj else c, in_proj, limit) is not None
+
+
 def f32_layer_takes(l: int, cin: int, c: int, h: int, f: int, *, in_proj: bool,
                     limit: Optional[int] = None) -> bool:
     """Whether the f32 kernels take a layer of these widths: C heads of dh

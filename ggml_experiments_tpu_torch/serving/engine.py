@@ -235,6 +235,36 @@ class EngineStats:
         }
 
 
+def fused_tick_route(params: GRUTextGenParams, n_slots: int, inner_steps: int,
+                     compute_dtype, use_fused_tick: Optional[bool] = None,
+                     device=None) -> bool:
+    """Whether an engine of ``n_slots`` x ``inner_steps`` ticks on the
+    persistent kernel (``device`` defaults to the params'). ``None`` decides:
+    block-quantized params on a CUDA device, at least FUSED_TICK_MIN_SLOTS x
+    FUSED_TICK_MIN_INNER, at f32 at most FUSED_TICK_MAX_SLOTS_F32 slots, and
+    a plan of the kernel that takes the model's (U, V) (``kernel_refusal``);
+    else the scan tick. ``True`` raises, with the reason, where the params
+    are not block-quantized or no plan of the kernel takes them on a CUDA
+    device (the CPU's plain version takes any shape)."""
+    from ggml_experiments_tpu_torch.ops.fused_gru_decode import is_fusable_params, kernel_refusal
+
+    cd = resolve_dtype(compute_dtype)
+    quantized = is_fusable_params(params)
+    dev = torch.device(device) if device is not None else params.device
+    if use_fused_tick is None:
+        return bool(quantized and dev.type == "cuda" and n_slots >= FUSED_TICK_MIN_SLOTS
+                    and inner_steps >= FUSED_TICK_MIN_INNER
+                    and (cd == torch.bfloat16 or n_slots <= FUSED_TICK_MAX_SLOTS_F32)
+                    and not kernel_refusal(params, n_slots, cd, dev))
+    if use_fused_tick and not quantized:
+        raise ValueError("use_fused_tick requires block-quantized params "
+                         "(cell, recurrent and dense kernels all QTensors)")
+    why = kernel_refusal(params, n_slots, cd, dev) if use_fused_tick else ""
+    if why:
+        raise ValueError(f"use_fused_tick: {why}")
+    return bool(use_fused_tick)
+
+
 class DecodeEngine:
     """Slot-based continuous batching over one tick function.
 
@@ -261,7 +291,7 @@ class DecodeEngine:
         max_pending: Optional[int] = None,
         use_fused_tick: Optional[bool] = None,
     ):
-        from ggml_experiments_tpu_torch.ops.fused_gru_decode import SLOT_LANES, is_fusable_params
+        from ggml_experiments_tpu_torch.ops.fused_gru_decode import SLOT_LANES
 
         self.params = params
         self.default_temperature = temperature
@@ -276,17 +306,8 @@ class DecodeEngine:
         self._compute_dtype = resolve_dtype(compute_dtype)
         self._top_k = top_k
         self._top_p = top_p
-        quantized = is_fusable_params(params)
-        on_cuda = params.device.type == "cuda"
-        if use_fused_tick is None:
-            use_fused_tick = (quantized and on_cuda and n_slots >= FUSED_TICK_MIN_SLOTS
-                              and inner_steps >= FUSED_TICK_MIN_INNER
-                              and (self._compute_dtype == torch.bfloat16
-                                   or n_slots <= FUSED_TICK_MAX_SLOTS_F32))
-        elif use_fused_tick and not quantized:
-            raise ValueError("use_fused_tick requires block-quantized params "
-                             "(cell, recurrent and dense kernels all QTensors)")
-        self.use_fused_tick = bool(use_fused_tick)
+        self.use_fused_tick = fused_tick_route(params, n_slots, inner_steps,
+                                               self._compute_dtype, use_fused_tick)
         # in a process group: the mesh the params were placed on; the fused
         # tick's slots split over its data axis (else the first wider axis)
         # where the padded slots divide, and over the data axis of a

@@ -32,16 +32,16 @@ def dev():
     return torch.device("cuda")
 
 
-def make_params(dev, qtype, head_qtype=None):
+def make_params(dev, qtype, head_qtype=None, v=V, e=E, u=U):
     """A small random GRU; the dense head may take another format than the
     cell (a mixed-format model rides the fused kernels' dense route)."""
     rng = np.random.default_rng(5)
-    a = {"embeddings": rng.normal(0, 0.5, (V, E)),
-         "kernel": rng.normal(0, 1 / np.sqrt(E), (E, 3 * U)),
-         "recurrent_kernel": rng.normal(0, 1 / np.sqrt(U), (U, 3 * U)),
-         "bias": rng.normal(0, 0.1, (2, 3 * U)),
-         "dense_kernel": rng.normal(0, 3 / np.sqrt(U), (U, V)),
-         "dense_bias": rng.normal(0, 0.1, (V,))}
+    a = {"embeddings": rng.normal(0, 0.5, (v, e)),
+         "kernel": rng.normal(0, 1 / np.sqrt(e), (e, 3 * u)),
+         "recurrent_kernel": rng.normal(0, 1 / np.sqrt(u), (u, 3 * u)),
+         "bias": rng.normal(0, 0.1, (2, 3 * u)),
+         "dense_kernel": rng.normal(0, 3 / np.sqrt(u), (u, v)),
+         "dense_bias": rng.normal(0, 0.1, (v,))}
     p = params_from_numpy({k: x.astype(np.float32) for k, x in a.items()}, qtype=qtype,
                           device=dev)
     if head_qtype:
@@ -275,13 +275,13 @@ def _plan_id(case):
     return "-".join(str(x) for x in plan) + f"-{str(cd)[6:]}"
 
 
-def _slot_inputs(dev, b, t, p, seed, plen=None, total=None, temp=None):
+def _slot_inputs(dev, b, t, p, seed, plen=None, total=None, temp=None, v=V, u=U):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    prompt = torch.randint(0, V, (b, p), generator=g, dtype=torch.int32).to(dev)
+    prompt = torch.randint(0, v, (b, p), generator=g, dtype=torch.int32).to(dev)
     plen = torch.full((b,), t, dtype=torch.int32, device=dev) if plen is None else plen
     total = plen.clone() if total is None else total
     z = torch.zeros(b, dtype=torch.int32, device=dev)
-    return prompt, plen, total, z, z.clone(), torch.zeros(b, U, device=dev)
+    return prompt, plen, total, z, z.clone(), torch.zeros(b, u, device=dev)
 
 
 def _run_twice(entry, w, args, steps, cd, **kw):
@@ -415,6 +415,178 @@ def test_plans_the_kernel_does_not_take_are_refused(dev, params):
                      (("diag",), torch.float32)):
         with pytest.raises(ValueError, match="no plan"):
             tf.gru_loop_cuda("fused_gru_decode", w, *args, 4, cd, config=plan)
+
+
+# ---- vocabularies past 256 and units off 32: every plan and every token
+# rule of the persistent kernel against its plain version. Past V = 96 a
+# slot-owned block's logits go through the device scratch, past 128 a
+# unit-owned block's (the kernels' wide instances), and past 256 the slot's
+# warp walks its row in memory; U off 32 runs padded to Ku with its padded
+# units at 0
+
+WIDE_VOCABS = [100, 257, 5000]
+# greedy; then sampled: temperature alone, top-k, top-p, both
+TOKEN_RULES = [None, {}, {"top_k": 20}, {"top_p": 0.9}, {"top_k": 20, "top_p": 0.9}]
+
+
+def _rule_id(rule):
+    return "greedy" if rule is None else "-".join(f"{k}{v}" for k, v in rule.items()) or "temp"
+
+
+@pytest.fixture(scope="module", params=WIDE_VOCABS, ids=lambda v: f"V{v}")
+def wide_vocab(request, dev):
+    return request.param, make_params(dev, "q8_0", v=request.param)
+
+
+def _forks_at_near_ties(toks, t_p, gaps, tol):
+    """Tokens equal to the plain version's up to a fork, which comes only
+    after a step whose choice had a margin under ``tol``."""
+    diff = toks.int() != t_p
+    for r in torch.nonzero(diff.any(1)).flatten().tolist():
+        j = int(torch.nonzero(diff[r])[0])
+        assert j > 0 and float(gaps[r, j - 1]) < tol, (r, j)
+
+
+def _free_run(dev, w, case, rule, b, inner, v, u, seed, **keys):
+    """A tick of B free-running slots (ragged prompts and totals) under
+    ``case`` and ``rule``, launched twice (bit-equal), held to the plain
+    version: cursors equal, tokens forking only at near ties."""
+    plan, cd = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    plen = torch.randint(1, 9, (b,), generator=g, dtype=torch.int32).to(dev)
+    total = torch.randint(4, 30, (b,), generator=g, dtype=torch.int32).to(dev)
+    args = _slot_inputs(dev, b, inner, 8, seed=seed + 1, plen=plen, total=total, v=v, u=u)
+    kw = {} if rule is None else dict(temp=torch.linspace(0, 1.2, b, device=dev), seed=9,
+                                      **rule)
+    toks, h, _, pos = _run_twice("fused_slot_tick", w, args, inner, cd, config=plan, **kw, **keys)
+    assert tf.LAST_PLAN["fused_slot_tick"] == tf.DecodePlan(*plan)
+    assert toks.dtype == torch.int32 and h.shape == (b, u)
+    t_p, _, _, pos_p, gaps = tf.gru_loop_reference(w, *args, inner, cd, margins=True, **kw,
+                                                   **keys)
+    assert torch.equal(pos, pos_p)
+    _forks_at_near_ties(toks, t_p, gaps, 1e-3 if cd == torch.float32 else 0.1)
+    return toks
+
+
+@pytest.mark.parametrize("rule", TOKEN_RULES, ids=_rule_id)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_wide_vocab_every_plan_and_token_rule_matches_plain(dev, wide_vocab, case, rule):
+    v, params = wide_vocab
+    _free_run(dev, tf._prep_weights(params), case, rule, 129, 10, v, U, seed=v)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_wide_vocab_every_plan_teacher_forced_matches_plain(dev, wide_vocab, case):
+    """Decode through each plan with the prompt fed throughout: the state
+    within the dtype's limit, the last prediction equal but at a near tie."""
+    v, params = wide_vocab
+    plan, cd = case
+    b, t = 200, 12
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, b, t, t, seed=4, v=v)
+    toks, h, prev, pos = _run_twice("fused_gru_decode", w, args, t, cd, config=plan)
+    ptoks, ph, pprev, ppos, gaps = tf.gru_loop_reference(w, *args, t, cd, margins=True)
+    assert torch.equal(toks, ptoks) and torch.equal(pos, ppos)
+    assert float((h - ph).abs().max()) <= (1e-5 if cd == torch.float32 else 2e-2)
+    tol = 1e-3 if cd == torch.float32 else 0.1
+    assert bool(((prev == pprev) | (gaps[:, -1] < tol)).all())
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_wide_vocab_block_keyed_sampled_tick_matches_plain(dev, wide_vocab, case):
+    """The noise over a vocabulary past 256 keyed as a shard from global slot
+    256 in blocks of 64 columns: the plain version's, and not the unkeyed."""
+    v, params = wide_vocab
+    w = tf._prep_weights(params)
+    rule = {"top_k": 20, "top_p": 0.9}
+    keyed = _free_run(dev, w, case, rule, 256, 10, v, U, seed=5, slot_base=256, key_tile=64)
+    plain = _free_run(dev, w, case, rule, 256, 10, v, U, seed=5)
+    assert (keyed != plain).float().mean() > 0.3
+
+
+def test_wide_vocab_default_plans_and_entry_points(dev, wide_vocab):
+    """decode() and the engine's tick at a wide vocabulary take the kernel
+    on the plan decode_plan gives (int32 tokens past V = 255), and decode()
+    agrees with the plain version."""
+    v, params = wide_vocab
+    from ggml_experiments_tpu_torch.models import gru_textgen as tg
+
+    ids = torch.randint(0, v, (96, 6), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(dev)
+    lens = torch.full((96,), 6, dtype=torch.int32, device=dev)
+    assert tg.decode_route(params, 96, 64) == "fused"
+    before = dict(tf.LAUNCHES)
+    got = tg.decode(params, ids, lens, 64, compute_dtype=torch.float32)
+    assert tf.LAUNCHES["fused_gru_decode"] == before["fused_gru_decode"] + 1
+    z = torch.zeros(96, dtype=torch.int32, device=dev)
+    want, _, _, _, gaps = tf.gru_loop_reference(
+        tf._prep_weights(params), torch.nn.functional.pad(ids, (0, 58)), lens,
+        torch.full((96,), 64, dtype=torch.int32, device=dev), z, z, torch.zeros(96, U, device=dev),
+        64, torch.float32, margins=True)
+    _forks_at_near_ties(got, want, gaps, 1e-3)
+    st = tengine.init_state(params, 32, 8)
+    st = dataclasses.replace(st, prompt=ids[:32, :6].contiguous(),
+                             plen=torch.full((32,), 6, dtype=torch.int32, device=dev),
+                             total=torch.full((32,), 40, dtype=torch.int32, device=dev))
+    _, toks = tf.fused_slot_tick(params, st, 16, compute_dtype=torch.bfloat16)
+    assert toks.dtype == (torch.uint8 if v <= 255 else torch.int32)
+    assert tf.LAUNCHES["fused_slot_tick"] == before["fused_slot_tick"] + 1
+
+
+# units off 32 (the TPU kernel pads them as this one does) on each weight
+# route, and U = 1000 at the reference's E: decode and the tick on every plan
+ODD_UNITS = [(40, 300, "q8_0"), (40, 300, "q4_0"), (40, 300, "q5_1"), (1000, 66, "q8_0"),
+             (1000, 66, "q4_0")]
+
+
+@pytest.fixture(scope="module", params=ODD_UNITS, ids=lambda c: f"U{c[0]}-V{c[1]}-{c[2]}")
+def odd_units(request, dev):
+    u, v, qt = request.param
+    p = make_params(dev, qt, v=v, u=u)
+    w = tf._prep_weights(p)
+    assert w.u == u and w.ku == -(-u // 32) * 32 and w.uc.shape[-1] == 3 * w.ku
+    return u, v, p
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_plan_id)
+def test_units_off_32_every_plan_matches_plain(dev, odd_units, case):
+    u, v, params = odd_units
+    plan, cd = case
+    b, t = 129, 12
+    w = tf._prep_weights(params)
+    args = _slot_inputs(dev, b, t, t, seed=6, v=v, u=u)
+    toks, h, _, pos = _run_twice("fused_gru_decode", w, args, t, cd, config=plan)
+    ptoks, ph, _, ppos = tf.gru_loop_reference(w, *args, t, cd)
+    assert h.shape == (b, u) and torch.equal(toks, ptoks) and torch.equal(pos, ppos)
+    assert float((h - ph).abs().max()) <= (1e-5 if cd == torch.float32 else 2e-2)
+    _free_run(dev, w, case, {"top_k": 20, "top_p": 0.9}, b, 10, v, u, seed=7)
+
+
+def test_units_past_every_plan_take_the_scan_path(dev):
+    """U = 2048: 256 unit groups on 132 multiprocessors, and 64 slots' h
+    past a block's shared memory. decode() and the engine keep the scan
+    path (no launch), the explicit fused tick is refused at construction
+    with the reason, and the kernel's wrapper still raises."""
+    from ggml_experiments_tpu_torch.models import gru_textgen as tg
+
+    params = make_params(dev, "q8_0", u=2048)
+    assert not tf.loop_takes(64, 2048, V, torch.bfloat16, *tf.device_limits(dev))
+    assert tg.decode_route(params, 64, 64) == "scan"
+    ids = torch.randint(0, V, (64, 4), generator=torch.Generator().manual_seed(2),
+                        dtype=torch.int32).to(dev)
+    lens = torch.full((64,), 4, dtype=torch.int32, device=dev)
+    before = dict(tf.LAUNCHES)
+    got = tg.decode(params, ids, lens, 64)
+    assert tf.LAUNCHES == before
+    assert torch.equal(got, tg.generate(params, ids, lens, 64, compute_dtype=torch.bfloat16))
+    eng = DecodeEngine(params, n_slots=16, inner_steps=16, compute_dtype=torch.bfloat16)
+    assert not eng.use_fused_tick
+    with pytest.raises(ValueError, match="no plan"):
+        DecodeEngine(params, n_slots=16, inner_steps=16, compute_dtype=torch.bfloat16,
+                     use_fused_tick=True)
+    with pytest.raises(ValueError, match="no plan"):
+        tf.fused_gru_decode(params, ids, lens, 8)
+    assert tf.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
@@ -2099,3 +2271,89 @@ def test_mobilevit_at_512_px_runs_the_streamed_kernels(dev, cd):
     else:
         assert d["transformer_attention_f32"] == 9
         assert d["transformer_attention_f32_streamed"] == 2
+
+
+# ---- bf16 widths past every plan: the routes ask the plans before any launch
+
+def _vision_twins(dev, build):
+    """The same params on the card and on the CPU (``build(t)`` with ``t``
+    making a tensor on one device from the seeded numpy arrays)."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        rng = np.random.default_rng(17)
+
+        def t(*s, off=0.0, d=d, rng=rng):
+            return torch.from_numpy((rng.standard_normal(s) * 0.1 + off).astype(np.float32)).to(d)
+
+        out.append(build(t))
+    return out
+
+
+def test_bf16_shapes_past_the_plans_run_unfused_on_the_card(dev):
+    """A bf16 stride-1 block at C = 1600 (past the wide kernel), layers at C =
+    1280 (past the row tiles) and at heads of 80, flash attention at heads
+    of 80: on the card the routes say no before any launch, no kernel of
+    theirs launches (but flash attention in the C = 1280 layer's unfused
+    chain, whose heads are 64 wide), and the unfused chain meets the CPU's
+    output (the JAX model's route there, the fused plain versions) within
+    bf16's limits."""
+    from ggml_experiments_tpu_torch.models import mobilevit as tmv
+    from ggml_experiments_tpu_torch.ops.attention import AttentionParams, multi_head_attention
+    from ggml_experiments_tpu_torch.ops.conv import ConvBNAct
+    from ggml_experiments_tpu_torch.ops.norm import FoldedBN
+
+    def block(t):
+        def conv(kh, cin, co, dw=False, act="silu"):
+            return ConvBNAct(kernel=t(kh, kh, cin, co), bn=FoldedBN(t(co, off=1.0), t(co)),
+                             activation=act, depthwise=dw)
+
+        return tmv.InvertedResidualParams(expand_1x1=conv(1, 1600, 64),
+                                          conv_3x3=conv(3, 1, 64, dw=True),
+                                          reduce_1x1=conv(1, 64, 64, act="none"), fused=True)
+
+    def layer(c, h):
+        def build(t):
+            return tmv.TransformerLayerParams(
+                attention=AttentionParams(wq=t(c, c), bq=t(c), wk=t(c, c), bk=t(c), wv=t(c, c),
+                                          bv=t(c), wo=t(c, c), bo=t(c), num_heads=h, flash=True),
+                ln_before_gamma=t(c, off=1.0), ln_before_beta=t(c), ln_after_gamma=t(c, off=1.0),
+                ln_after_beta=t(c), intermediate_kernel=t(c, 2 * c), intermediate_bias=t(2 * c),
+                output_kernel=t(2 * c, c), output_bias=t(c), fused=True)
+        return build
+
+    bf = torch.bfloat16
+    before = (dict(fir.LAUNCHES), dict(ftl.LAUNCHES), dict(fa.LAUNCHES))
+    card, cpu = _vision_twins(dev, block)
+    x = torch.randn((2, 12, 10, 1600), generator=torch.Generator().manual_seed(1))
+    assert not card.fused_route(bf, dev, (12, 10)) and cpu.fused_route(bf, x.device, (12, 10))
+    got = card(x.to(dev), compute_dtype=bf)
+    _bf16_close(got.cpu(), cpu(x, compute_dtype=bf), 0.05, 5e-3)
+    for c, h in ((1280, 20), (160, 2)):
+        card, cpu = _vision_twins(dev, layer(c, h))
+        x = torch.randn((3, 16, c), generator=torch.Generator().manual_seed(c))
+        assert not card.fused_route(bf, dev, 16) and cpu.fused_route(bf, x.device, 16)
+        got = card(x.to(dev), compute_dtype=bf)
+        _bf16_close(got.cpu(), cpu(x, compute_dtype=bf), 0.05, 5e-3)
+        if c == 160:   # flash at heads of 80: the einsum chain on the card
+            got = multi_head_attention(card.attention, x.to(dev), compute_dtype=bf)
+            want = multi_head_attention(cpu.attention, x, compute_dtype=bf)
+            _bf16_close(got.cpu(), want, 0.05, 5e-3)
+    torch.cuda.synchronize()
+    # the unfused C = 1280 layer's heads of 64 are flash attention's
+    assert (fir.LAUNCHES, ftl.LAUNCHES) == before[:2]
+    assert fa.LAUNCHES == dict(before[2], flash_mha=before[2]["flash_mha"] + 1)
+
+
+def test_bf16_block_of_odd_expansion_runs_the_wide_kernel(dev):
+    """An odd E (the strip kernel takes even E only) rides the wide kernel,
+    its E padded to 64 with zero channels: the route keeps it fused and the
+    launch meets the plain version."""
+    x, args = _ir_inputs(dev, 2, 9, 17, 64, 255, 64)
+    assert not fir.ir_plans(64, 255, 64) and fir.ir_bf16_takes(64, 255, 64)
+    before = fir.LAUNCHES["inverted_residual_wide"]
+    got = fir.fused_inverted_residual(x, *args, use_residual=True)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES["inverted_residual_wide"] == before + 1
+    want = fir.fused_ir_plain(x, args[0].to(torch.bfloat16), args[1], args[2], args[3],
+                              args[4].to(torch.bfloat16), args[5], use_residual=True)
+    _bf16_close(got, want, 2 ** -6, 1e-4)

@@ -370,9 +370,10 @@ def test_decode_plan_chooses_by_batch():
     assert tf.decode_plan(512, 1024, 66, f32) == P("unit")
     assert tf.decode_plan(tf.SLOT_MIN_BATCH - 1, 1024, 66, bf16).decomp == "unit"
     assert tf.decode_plan(8192, 1024, 66, f32).decomp == "unit"
-    # logits too wide for a ring buffer would take shared memory of their
-    # own, which a block of 64 slots cannot spare
-    assert tf.decode_plan(8192, 1024, 256, bf16) == P("unit")
+    # logits too wide for a ring buffer go through the device scratch: the
+    # ring keeps its depth, at any vocabulary
+    assert tf.decode_plan(8192, 1024, 256, bf16) == P("slot", 4)
+    assert tf.decode_plan(8192, 1024, 5000, bf16) == P("slot", 4)
     assert tf.plan_slot_tiles(P("slot", 3), 130, 1024, True) == [(0, 64), (64, 128), (128, 130)]
     # f32 keeps one block a unit group (its plane slice is f32), bf16 two
     assert tf.plan_slot_tiles(P("unit"), 512, 1024, False)[:2] == [(0, 4), (4, 8)]
@@ -395,7 +396,7 @@ def test_decode_plan_chooses_by_batch():
     (("diag", 4), True, 1024, 66, "no plan"),
     (("slot", 4), True, 1056, 66, "shared memory"),     # four buffers beside a wider h
     (("slot", 3), True, 4096, 66, "shared memory"),
-    (("slot", 3), True, 1024, 256, "shared memory"),    # logits outside the ring
+    (("slot", 4), True, 2048, 5000, "shared memory"),   # 64 slots' h at U = 2048
 ])
 def test_check_plan_refuses(plan, bf16, u, v, match):
     with pytest.raises(ValueError, match=match):

@@ -525,6 +525,65 @@ def test_route_turns_away_widths_no_tile_fits(stride, cd, cout, widest):
     assert not fir.ir_tc_takes(2, 16, 64, fir.S2_MAX_COUT + 1, cd)
 
 
+# the bf16 routes past their kernels' plans: each asks the plan from the
+# shape before any launch, and where none fits takes the unfused chain on a
+# CUDA device; the CPU keeps the JAX model's route (the plain versions take
+# any shape)
+
+
+@pytest.mark.parametrize("c,e,fused", [(1536, 64, True), (1600, 64, False), (64, 256, True),
+                                       (64, 255, True), (1600, 255, False)])
+def test_bf16_block_route_asks_the_strip_and_wide_plans(c, e, fused):
+    """A bf16 stride-1 block runs fused on a CUDA device where the strip
+    kernel has a plan or the wide kernel a tile (C up to 1536; an odd E, which
+    the strip kernel does not take, rides the wide kernel's E padded to 64),
+    else the unfused chain."""
+    rng = np.random.default_rng(14)
+    _, blk = _ir_blocks(rng, c, e, 64, 1, False)
+    blk = dataclasses.replace(blk, fused=True)
+    assert blk.fused_route(torch.bfloat16, torch.device("cuda"), (16, 16)) == fused
+    assert fir.ir_bf16_takes(c, e, 64) == fused
+    assert fused == (bool(fir.ir_plans(c, e, 64)) or fir.ir_wide_plan(c, 64) is not None)
+    assert blk.fused_route(torch.bfloat16, torch.device("cpu"), (16, 16))
+    if not fused:
+        with pytest.raises(ValueError, match="shared memory"):
+            fir.ir_wide_operands(*fir._folded(blk))
+
+
+@pytest.mark.parametrize("c,h,cin,fused", [(144, 4, None, True), (160, 2, None, False),
+                                           (1152, 18, None, True), (1280, 20, None, False),
+                                           (288, 6, 288, True), (288, 6, 600, False)])
+def test_bf16_layer_route_asks_the_row_tiles_and_head_rules(c, h, cin, fused):
+    """A bf16 layer runs fused on a CUDA device where its heads are of an
+    even width up to 64 and a row-tile layout fits a block (C up to ~1248;
+    an input projection's Cin beside C), else the unfused chain."""
+    rng = np.random.default_rng(15)
+    _, layer = _layers(_layer_arrays(c, h, 2 * c, rng), h)
+    layer = dataclasses.replace(layer, fused=True)
+    assert layer.fused_route(torch.bfloat16, torch.device("cuda"), 16, cin) == fused
+    assert ftl.bf16_layer_takes(c if cin is None else cin, c, h, in_proj=cin is not None) == fused
+    assert layer.fused_route(torch.bfloat16, torch.device("cpu"), 16, cin)
+
+
+def test_flash_route_asks_the_kernels_shared_memory():
+    """Flash attention on a CUDA device takes heads up to 64 wide (its
+    shared memory reckoning is -1 past them); the CPU's plain version takes
+    heads of 80 too, and agrees with the unfused chain there."""
+    from ggml_experiments_tpu_torch.ops.attention import flash_route, multi_head_attention
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert flash_route(64, 144, 4, cuda) and fa.flash_takes(64, 144, 4)
+    assert not flash_route(64, 160, 2, cuda) and fa.flash_smem_bytes(64, 160, 2) == -1
+    assert flash_route(64, 160, 2, cpu)
+    rng = np.random.default_rng(16)
+    _, layer = _layers(_layer_arrays(160, 2, 320, rng), 2)
+    x = T(rng.standard_normal((2, 16, 160)))
+    att = layer.attention
+    got = multi_head_attention(dataclasses.replace(att, flash=True), x)
+    want = multi_head_attention(att, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
 def _s2_args(rng, c, e, cout):
     return tuple(T(rng.standard_normal(s) * 0.2)
                  for s in ((c, e), (e,), (3, 3, e), (e,), (e, cout), (cout,)))

@@ -6,7 +6,7 @@ computes the same function where there is one.
 
 Run from the root of a checkout:
 
-    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32,forward,ir_wide,layer_wide] [--out FILE]
+    python3 tools/torch_kernel_bench.py [--sweep] [--split-step] [--only qmatmul,flash,gru,train,train_f32,layer,ir,attention_f32,forward,ir_wide,layer_wide] [--vocab 66,257,5000] [--units 1024,1000] [--out FILE]
 
 Run from another checkout's root (``cd other && python3
 /path/to/tools/torch_kernel_bench.py``) it times that checkout's kernels
@@ -29,7 +29,12 @@ at B=2048, T=256 (q4_0), and one serving tick of 512 slots x 128 steps,
 greedy and sampled (temperature 0.8, top-k 20, top-p 0.9), bf16, each from
 prompts of 1-16 tokens; then the f32 route: the decode at B=1024, T=256 (as
 chip_smoke.py's phase 4 holds it) and the greedy and sampled tick. One
-launch is long next to its host work, so these cells take ``call`` alone.
+launch is long next to its host work, so these cells take ``call`` (3
+calls) and ``graph`` (3 launches replayed from a CUDA graph) alone, beside
+the operations bound 2 (3U^2 + UV) a slot-step at the bf16 peak.
+``--vocab`` / ``--units`` run these cells at each (V, U): the checkpoint at
+(66, 1024), seeded random weights of the reference's E = 256 elsewhere; a
+checkout whose kernel refuses a shape records the refusal.
 ``--sweep`` times every plan the checkout's wrapper takes (``config=``) at
 B = 512, 1024, 2048, 3072, 4096, 8192 for 64 steps, which is where
 ``decode_plan``'s crossover comes from.
@@ -303,42 +308,86 @@ def flash_cells():
     return rows
 
 
-def _gru_inputs(b, t, seed=0):
+def _gru_inputs(b, t, seed=0, v=66, u=1024):
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed)
-    prompt = torch.randint(0, 66, (b, 16), generator=g, dtype=torch.int32).to(dev)
+    prompt = torch.randint(0, v, (b, 16), generator=g, dtype=torch.int32).to(dev)
     plen = torch.randint(1, 17, (b,), generator=g, dtype=torch.int32).to(dev)
     total = torch.full((b,), t, dtype=torch.int32, device=dev)
     z = torch.zeros(b, dtype=torch.int32, device=dev)
-    return prompt, plen, total, z, z.clone(), torch.zeros((b, 1024), device=dev)
+    return prompt, plen, total, z, z.clone(), torch.zeros((b, u), device=dev)
 
 
-def gru_cells(sweep):
+def random_gru(v, u, qtype, e=256, seed=0):
+    """A GRU of the reference's E at vocabulary V and U units, random
+    weights made from ``seed`` (the checkpoint's scales), on the card."""
+    import numpy as np
+    from ggml_experiments_tpu_torch.convert import params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    a = {"embeddings": rng.normal(0, 0.5, (v, e)), "kernel": rng.normal(0, e ** -0.5, (e, 3 * u)),
+         "recurrent_kernel": rng.normal(0, u ** -0.5, (u, 3 * u)),
+         "bias": rng.normal(0, 0.1, (2, 3 * u)), "dense_kernel": rng.normal(0, 3 * u ** -0.5, (u, v)),
+         "dense_bias": rng.normal(0, 0.1, (v,))}
+    return params_from_numpy({k: x.astype(np.float32) for k, x in a.items()}, qtype=qtype,
+                             device="cuda")
+
+
+def gru_bound_ms(b, t, u, v):
+    """The persistent loop's operations bound: 2 (3U^2 + U V) a slot-step at
+    the bf16 tensor-core peak (the f32 route's CUDA-core FMAs would be
+    slower; the bf16 figure is the card's least time for the same work)."""
+    return 2.0 * (3 * u * u + u * v) * b * t / (H100.bf16_tflops * 1e12) * 1e3
+
+
+def gru_cells(sweep, vocabs=(66,), units=(1024,)):
+    """The decode and tick cells at each (V, U): the checkpoint at (66, 1024),
+    seeded random weights of E = 256 elsewhere. Each is timed from a CUDA
+    graph of 3 launches (the card's time alone) and as one call."""
     from ggml_experiments_tpu_torch.formats.gru_bin import load_gru_params
     from ggml_experiments_tpu_torch.ops import fused_gru_decode as fd
 
     bf16, f32 = torch.bfloat16, torch.float32
     takes_config = "config" in inspect.signature(fd.gru_loop_cuda).parameters
     rows = []
-    weights = {q: fd._prep_weights(load_gru_params(CKPT, qtype=q, device="cuda"))
-               for q in ("q8_0", "q4_0")}
     sampled = dict(seed=7, top_k=20, top_p=0.9)
     cells = [("decode", "q8_0", 8192, 512, bf16, {}), ("decode", "q4_0", 2048, 256, bf16, {}),
              ("tick", "q8_0", 512, 128, bf16, {}),
              ("tick_sampled", "q8_0", 512, 128, bf16, sampled),
              ("decode", "q8_0", 1024, 256, f32, {}), ("tick", "q8_0", 512, 128, f32, {}),
              ("tick_sampled", "q8_0", 512, 128, f32, sampled)]
-    for name, qtype, b, t, cd, kw in cells:
-        w, args = weights[qtype], _gru_inputs(b, t)
-        if kw:
-            kw = dict(kw, temp=torch.full((b,), 0.8, device="cuda"))
-        entry = "fused_gru_decode" if name == "decode" else "fused_slot_tick"
-        ms = call_ms(lambda: fd.gru_loop_cuda(entry, w, *args, t, cd, **kw), n=3, warmup=1)
-        row = {"cell": name, "qtype": qtype, "b": b, "t": t, "dtype": str(cd)[6:], "call": ms,
-               "us_per_step": ms * 1e3 / t,
-               "plan": str(getattr(fd, "LAST_PLAN", {}).get(entry))}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+    for v in vocabs:
+        for u in units:
+            weights = {}
+            for q in ("q8_0", "q4_0"):
+                p = (load_gru_params(CKPT, qtype=q, device="cuda") if (v, u) == (66, 1024)
+                     else random_gru(v, u, q))
+                weights[q] = fd._prep_weights(p)
+            for name, qtype, b, t, cd, kw in cells:
+                w, args = weights[qtype], _gru_inputs(b, t, v=v, u=u)
+                if kw:
+                    kw = dict(kw, temp=torch.full((b,), 0.8, device="cuda"))
+                entry = "fused_gru_decode" if name == "decode" else "fused_slot_tick"
+                row = {"cell": name, "qtype": qtype, "v": v, "u": u, "b": b, "t": t,
+                       "dtype": str(cd)[6:], "bound_ms": gru_bound_ms(b, t, u, v)}
+
+                def fn():
+                    fd.gru_loop_cuda(entry, w, *args, t, cd, **kw)
+                try:
+                    row["call"] = call_ms(fn, n=3, warmup=1)
+                except (ValueError, RuntimeError) as ex:   # a checkout that does not take (V, U)
+                    row["error"] = str(ex)[:200]
+                    rows.append(row)
+                    print(json.dumps(row), flush=True)
+                    continue
+                try:
+                    row["graph"] = graph_ms(fn, n=3, reps=3)
+                except RuntimeError as ex:
+                    row["graph"], row["graph_error"] = None, str(ex)[:200]
+                row["us_per_step"] = (row["graph"] or row["call"]) * 1e3 / t
+                row["plan"] = str(getattr(fd, "LAST_PLAN", {}).get(entry))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
     if sweep and takes_config:
         w = weights["q8_0"]
         plans = [fd.DecodePlan("unit")] + [fd.DecodePlan("slot", st) for st in fd.SLOT_STAGES]
@@ -1281,8 +1330,14 @@ def main() -> int:
                     help="comma-separated kernels to time (qmatmul, flash, gru, train, "
                          "train_f32, layer, ir, ir_wide, layer_wide; forward: "
                          "extract_features alone)")
+    ap.add_argument("--vocab", default="66",
+                    help="comma-separated vocabularies of the gru cells (66: the checkpoint's)")
+    ap.add_argument("--units", default="1024",
+                    help="comma-separated units of the gru cells (1024: the checkpoint's)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    vocabs = [int(x) for x in args.vocab.split(",")]
+    units = [int(x) for x in args.units.split(",")]
     if not torch.cuda.is_available():
         print("torch_kernel_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -1296,7 +1351,7 @@ def main() -> int:
     res = {"device": smi}
     cells = (("qmatmul", "qmatmul", lambda: qmatmul_cells(args.sweep)),
              ("flash", "flash", flash_cells),
-             ("gru", "gru", lambda: gru_cells(args.sweep)),
+             ("gru", "gru", lambda: gru_cells(args.sweep, vocabs, units)),
              ("train", "train", lambda: train_cells(args.sweep)),
              ("train_f32", "train_f32", lambda: train_f32_cells(args.sweep)),
              ("layer", "layer", lambda: layer_cells(args.sweep)),
